@@ -1,0 +1,712 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch build (elasticsearch_tpu_torch) on one CUDA card.
+
+    python3 chip_smoke.py
+
+Phases, each of which fails the run on any failed check:
+
+1. card: the card's name and power limit (nvidia-smi), and the kernels'
+   build from ``elasticsearch_tpu_torch/csrc`` (nvcc, one process per
+   source, all started together).
+2. small: each kernel family (bm25_flat counted and not, bm25_flat_seg,
+   bm25_coarse, bm25_rerank) against its plain PyTorch version on the
+   card, on seeded random inputs at a small and a chunked shape: ids,
+   counts and scores must be bitwise equal (the fixed-point design makes
+   them so).
+3. engine: ``InternalEngine`` + ``SearchService`` with one text field,
+   50,000 seeded Zipf(1.35) documents over 30,000 words, several
+   segments, a few deletes; 32 match bodies at track_total_hits default,
+   false and 5 must give the same response on the card as the same
+   package on ``device="cpu"`` (ids, totals, relation and max_score equal,
+   scores to rtol 1e-6).
+4. full: one shard at MS MARCO passage scale (8,841,823 documents in 4
+   segments, 16-96 tokens, Zipf(1.35) term ids folded onto a 1,000,000-
+   term vocabulary; synthetic and seeded), served through ``query_shard``
+   (64 solo queries, quantized tier on) and ``batched_wand_topk_shard``
+   (the 64 as one batch on the exact path, with totals counted and with
+   totals off). Prints the plane's resident bytes and per-leg latency.
+   Launch counts are zeroed before phases 3-4 and read right after: every
+   kernel family must have launched. Then each family is held against its
+   plain version and timed (CUDA events) on inputs captured from the
+   main path.
+
+Prints a ``{"kernels": [...]}`` line and, last, the ``{"ok": true, ...}``
+line. Exits non-zero, without the ok line, when there is no CUDA card,
+when the package is missing, or on any failure. ``--rehearse`` runs the
+same phases on the CPU at a small size (plain versions only) and never
+prints the ok line.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import math
+import subprocess
+import sys
+import time
+
+SEED = 20261017
+MS_MARCO_DOCS = 8_841_823
+VOCAB = 1_000_000
+FAMILIES = ("bm25_flat", "bm25_flat_seg", "bm25_coarse", "bm25_rerank")
+REPLACES = {
+    "bm25_flat": "elasticsearch_tpu/ops/bm25.py:261",
+    "bm25_flat_seg": "elasticsearch_tpu/ops/bm25.py:299",
+    "bm25_coarse": "elasticsearch_tpu/ops/bm25.py:235",
+    "bm25_rerank": "elasticsearch_tpu/ops/bm25.py:248",
+}
+HBM_BYTES_PER_S = 3.35e12      # H100 SXM, NVIDIA data sheet
+F32_FLOPS = 67e12              # H100 SXM f32 outside the tensor cores
+BF16_FLOPS = 989e12
+
+
+class SmokeFailure(Exception):
+    pass
+
+
+def check(cond: bool, what: str) -> None:
+    if not cond:
+        raise SmokeFailure(what)
+
+
+def log(*parts) -> None:
+    print(*parts, flush=True)
+
+
+# ---------------------------------------------------------------------------
+# phase 1: card and build
+# ---------------------------------------------------------------------------
+
+def phase_card(torch) -> None:
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60)
+    check(smi.returncode == 0, f"nvidia-smi failed: {smi.stderr.strip()}")
+    log(smi.stdout.strip().splitlines()[0])
+    log(f"torch {torch.__version__} cuda {torch.version.cuda} "
+        f"python {sys.version.split()[0]}")
+    from elasticsearch_tpu_torch import _build
+    t0 = time.monotonic()
+    _build.build_all()
+    log(f"build: {time.monotonic() - t0:.2f}s "
+        f"(built={_build.BUILD_INFO['built']}, dir={_build.BUILD_INFO['dir']})")
+    for fam, report in sorted(_build.BUILD_INFO.get("ptxas", {}).items()):
+        for line in report.splitlines():
+            if "Used" in line or "error" in line or "spill" in line:
+                log(f"ptxas {fam}: {line.strip()}")
+
+
+# ---------------------------------------------------------------------------
+# kernel inputs and comparisons
+# ---------------------------------------------------------------------------
+
+def random_store(np, rng, n_docs: int, nb: int):
+    """A seeded block store: doc ids ascending within blocks, -1 padding,
+    tfs 1..6, doc lengths 16..96."""
+    docs = np.sort(rng.integers(0, n_docs, (nb, 128)), axis=1).astype(np.int32)
+    docs[rng.random((nb, 128)) < 0.1] = -1
+    tfs = np.where(docs >= 0, rng.integers(1, 7, (nb, 128)), 0)
+    n_pad = 1 << max(7, math.ceil(math.log2(max(n_docs, 2))))
+    dl = np.zeros(n_pad, np.float32)
+    dl[:n_docs] = rng.integers(16, 97, n_docs)
+    live = np.zeros(n_pad, bool)
+    live[:n_docs] = rng.random(n_docs) > 0.05
+    seg = np.minimum(np.arange(n_pad) * 3 // max(n_docs, 1), 2).astype(np.int32)
+    return docs, tfs.astype(np.float32), dl, live, seg, n_pad
+
+
+def random_flat(np, rng, nb: int, n_real_q: int, per_q: int):
+    """Flat (idx, w, qid, avgdl) rows for n_real_q queries of per_q blocks,
+    padded the way flatten_plans pads (block 0, weight 0, query 0)."""
+    from elasticsearch_tpu_torch.ops.bm25 import qb_bucket
+    n = n_real_q * per_q
+    fb = qb_bucket(n)
+    idx = np.zeros(fb, np.int32)
+    w = np.zeros(fb, np.float32)
+    q = np.zeros(fb, np.int32)
+    avg = np.full(fb, 50.0, np.float32)
+    idx[:n] = rng.integers(0, nb, n)
+    w[:n] = rng.uniform(0.2, 9.0, n)
+    q[:n] = np.repeat(np.arange(n_real_q), per_q)
+    avg[:n] = rng.uniform(40.0, 60.0, n)
+    return idx, w, q, avg
+
+
+def compare(torch, name: str, got, want, exact_scores: bool = True):
+    """Kernel outputs vs plain outputs: ints bitwise, floats bitwise (or
+    rtol 1e-6 when ``exact_scores`` is False). Returns max |diff| of the
+    float outputs (finite entries)."""
+    err = 0.0
+    for i, (g, w) in enumerate(zip(got, want)):
+        check(g.shape == w.shape and g.dtype == w.dtype,
+              f"{name} output {i}: {g.shape}/{g.dtype} vs {w.shape}/{w.dtype}")
+        if g.dtype.is_floating_point:
+            fin = torch.isfinite(w)
+            check(torch.equal(torch.isfinite(g), fin),
+                  f"{name} output {i}: -inf slots differ")
+            if fin.any():
+                d = (g[fin].double() - w[fin].double()).abs()
+                err = max(err, float(d.max()))
+                if exact_scores:
+                    check(torch.equal(g[fin], w[fin]),
+                          f"{name} output {i}: scores differ (max {err})")
+                else:
+                    check(bool((d <= 1e-6 * w[fin].double().abs()).all()),
+                          f"{name} output {i}: scores beyond rtol 1e-6")
+        else:
+            check(torch.equal(g, w), f"{name} output {i}: ints differ")
+    return err
+
+
+def run_family(bm, family: str, args, kwargs, plain: bool):
+    fn = getattr(bm, family + "_plain" if plain else family)
+    return fn(*args, **kwargs)
+
+
+def phase_small(torch, np, dev) -> None:
+    from elasticsearch_tpu_torch.ops import bm25 as bm
+    rng = np.random.default_rng(SEED)
+    for n_docs, nb, n_q, per_q, kprime in ((3000, 64, 4, 12, 64),
+                                           (200_000, 4096, 8, 300, 256)):
+        docs, tfs, dl, live, seg, n_pad = random_store(np, rng, n_docs, nb)
+        idx, w, q, avg = random_flat(np, rng, nb, n_q, per_q)
+        T = lambda a: torch.as_tensor(a, device=dev)  # noqa: E731
+        bd, bt, dlt, lv, sg = T(docs), T(tfs), T(dl), T(live), T(seg)
+        fi, fw, fq, fa = T(idx), T(w), T(q), T(avg)
+        bt16, dl16 = bt.to(torch.bfloat16), dlt.to(torch.bfloat16)
+        cases = [
+            ("bm25_flat", (bd, bt, fi, fw, fq, dlt, fa, lv, n_pad, n_q, 10),
+             {"counted": False}),
+            ("bm25_flat", (bd, bt, fi, fw, fq, dlt, fa, lv, n_pad, n_q, 10),
+             {"counted": True}),
+            ("bm25_flat_seg", (bd, bt, fi, fw, fq, dlt, fa, lv, sg, n_pad,
+                               n_q, 10), {"n_segs": 3}),
+            ("bm25_coarse", (bd, bt16, fi, fw, fq, dl16, fa, lv, sg, n_pad,
+                             n_q, 3, kprime), {}),
+        ]
+        for family, args, kwargs in cases:
+            got = run_family(bm, family, args, kwargs, plain=False)
+            want = run_family(bm, family, args, kwargs, plain=True)
+            torch.cuda.synchronize()
+            compare(torch, family, got, want)
+            if family == "bm25_coarse":
+                cs, cand = want[0], want[1]
+        rr = (bd, bt, fi, fw, fq, dlt, fa, lv, cand, cs, n_pad, n_q, kprime,
+              10)
+        got = run_family(bm, "bm25_rerank", rr, {}, plain=False)
+        want = run_family(bm, "bm25_rerank", rr, {}, plain=True)
+        torch.cuda.synchronize()
+        compare(torch, "bm25_rerank", got, want)
+        # the exact tier re-derives K1's scores for the same docs
+        s1, d1, _ = bm.bm25_flat(bd, bt, fi, fw, fq, dlt, fa, lv, n_pad,
+                                 n_q, kprime, counted=True)
+        s4, d4, _ = got
+        for r in range(n_q):
+            exact = dict(zip(d1[r].tolist(), s1[r].tolist()))
+            for sc, d in zip(s4[r].tolist(), d4[r].tolist()):
+                if math.isfinite(sc) and d in exact:
+                    check(exact[d] == sc, "bm25_rerank score != bm25_flat")
+        log(f"small: n_docs_pad={n_pad} fb={len(idx)} n_q={n_q}: all four "
+            f"families bitwise equal to their plain versions")
+
+
+# ---------------------------------------------------------------------------
+# phase 3: engine path
+# ---------------------------------------------------------------------------
+
+def zipf_terms(np, rng, n: int, vocab: int):
+    return (rng.zipf(1.35, n) - 1) % vocab
+
+
+def phase_engine(torch, np, dev, n_docs: int) -> None:
+    from elasticsearch_tpu_torch.index import InternalEngine
+    from elasticsearch_tpu_torch.mapping import MapperService
+    from elasticsearch_tpu_torch.search import SearchService
+    rng = np.random.default_rng(SEED + 3)
+    words = np.array([f"w{i}" for i in range(30_000)])
+    engine = InternalEngine(MapperService(
+        {"properties": {"body": {"type": "text"}}}), shard_label="smoke")
+    t0 = time.monotonic()
+    lens = rng.integers(16, 97, n_docs)
+    cuts = {n_docs // 3, 2 * n_docs // 3}
+    for i in range(n_docs):
+        engine.index(str(i), {"body": " ".join(
+            words[zipf_terms(np, rng, int(lens[i]), 30_000)])})
+        if i in cuts:
+            engine.refresh()
+    engine.refresh()
+    for i in rng.choice(n_docs, 25, replace=False):
+        engine.delete(str(int(i)))
+    engine.refresh()
+    reader = engine.acquire_reader()
+    log(f"engine: {n_docs} docs in {len(reader.segments)} segments, "
+        f"indexed in {time.monotonic() - t0:.1f}s")
+    check(len(reader.segments) >= 2, "engine: fewer than 2 segments")
+    on_dev = SearchService(engine, index_name="smoke", device=dev)
+    on_cpu = SearchService(engine, index_name="smoke", device="cpu")
+    bodies = []
+    for _ in range(32):
+        terms = zipf_terms(np, rng, int(rng.integers(2, 7)), 30_000)
+        bodies.append(" ".join(words[terms]))
+    n = 0
+    t_dev = []
+    for text in bodies:
+        for track in (None, False, 5):
+            body = {"query": {"match": {"body": text}}, "size": 10}
+            if track is not None:
+                body["track_total_hits"] = track
+            t1 = time.monotonic()
+            a = on_dev.search(body)
+            t_dev.append(time.monotonic() - t1)
+            b = on_cpu.search(body)
+            ha, hb = a["hits"], b["hits"]
+            check([h["_id"] for h in ha["hits"]]
+                  == [h["_id"] for h in hb["hits"]],
+                  f"engine: ids differ for {body}")
+            check(ha["total"] == hb["total"], f"engine: totals differ {body}")
+            check(ha["max_score"] == hb["max_score"],
+                  f"engine: max_score differs {body}")
+            for x, y in zip(ha["hits"], hb["hits"]):
+                check(math.isfinite(x["_score"]) and abs(
+                    x["_score"] - y["_score"]) <= 1e-6 * abs(y["_score"]),
+                    f"engine: scores differ {body}")
+            n += 1
+    t_dev.sort()
+    log(f"engine: {n} responses equal on {dev} and cpu; {dev} latency "
+        f"p50 {1e3 * t_dev[len(t_dev) // 2]:.2f} ms "
+        f"p99 {1e3 * t_dev[min(len(t_dev) - 1, int(0.99 * len(t_dev)))]:.2f} ms")
+
+
+# ---------------------------------------------------------------------------
+# phase 4: full size
+# ---------------------------------------------------------------------------
+
+def build_segment_postings(args):
+    """One segment's PostingsField (run in a worker process): each doc's
+    own 16..96 tokens drawn Zipf(1.35) and folded onto the vocabulary,
+    written into a -1-padded [n, 96] matrix."""
+    seed, n = args
+    import numpy as np
+    from elasticsearch_tpu_torch.index.segment import (
+        postings_from_token_matrix,
+    )
+    rng = np.random.default_rng(seed)
+    lens = rng.integers(16, 97, n)
+    toks = rng.zipf(1.35, int(lens.sum())) - 1
+    toks = np.where(toks < VOCAB, toks, toks % VOCAB).astype(np.int32)
+    mat = np.full((n, 96), -1, np.int32)
+    mat[np.arange(96)[None, :] < lens[:, None]] = toks
+    del toks
+    return postings_from_token_matrix(mat)
+
+
+def build_full_shard(np, n_docs: int, workers: int):
+    import multiprocessing as mp
+    from elasticsearch_tpu_torch.index.segment import Segment
+    sizes = [n_docs // 4 + (1 if i < n_docs % 4 else 0) for i in range(4)]
+    jobs = [(SEED + 100 + i, n) for i, n in enumerate(sizes)]
+    if workers > 1:
+        with mp.get_context("spawn").Pool(workers) as pool:
+            pfs = pool.map(build_segment_postings, jobs)
+    else:
+        pfs = [build_segment_postings(j) for j in jobs]
+    segs = []
+    for i, (pf, n) in enumerate(zip(pfs, sizes)):
+        seg = Segment(f"msmarco{i}", n)
+        seg.postings["body"] = pf
+        seg.ids = [str(j) for j in range(n)]
+        seg.invalidate_live_count()
+        segs.append(seg)
+    return segs
+
+
+class Recorder:
+    """Keeps the arguments of the main path's kernel calls (recording is
+    not a launch) so the families can be held against their plain
+    versions on the same inputs afterwards: the first ``keep`` calls of
+    each family, and its largest call (most queries, then most blocks)."""
+
+    def __init__(self, bm, keep: int):
+        self.bm = bm
+        self.keep = keep
+        self.first = {f: [] for f in FAMILIES}
+        self.largest = {}
+        self._orig = {}
+
+    @property
+    def calls(self):
+        return {f: self.first[f] + ([self.largest[f]] if f in self.largest
+                                    else []) for f in FAMILIES}
+
+    def _record(self, fam: str, args, kwargs) -> None:
+        call = (args, dict(kwargs))
+        if len(self.first[fam]) < self.keep:
+            self.first[fam].append(call)
+        size = (n_q_of(fam, args), args[2].numel())
+        big = self.largest.get(fam)
+        if big is None or size > (n_q_of(fam, big[0]), big[0][2].numel()):
+            self.largest[fam] = call
+
+    def __enter__(self):
+        for fam in FAMILIES:
+            orig = getattr(self.bm, fam)
+            self._orig[fam] = orig
+
+            def wrapped(*args, _fam=fam, _orig=orig, **kwargs):
+                if args[0].is_cuda:
+                    self._record(_fam, args, kwargs)
+                return _orig(*args, **kwargs)
+            setattr(self.bm, fam, wrapped)
+        return self
+
+    def __exit__(self, *exc):
+        for fam, orig in self._orig.items():
+            setattr(self.bm, fam, orig)
+
+
+def device_ms():
+    """Per family, the device milliseconds of every timed launch so far
+    (DEVICE_PROFILE.timing brackets each launch with CUDA events)."""
+    from elasticsearch_tpu_torch.search.device_profile import DEVICE_PROFILE
+    return {f: DEVICE_PROFILE.family(f).resolve_events() for f in FAMILIES}
+
+
+def pct(xs, p: float) -> float:
+    xs = sorted(xs)
+    return xs[min(len(xs) - 1, int(p * len(xs)))]
+
+
+def phase_full(torch, np, dev, n_docs: int, workers: int, n_q: int):
+    from elasticsearch_tpu_torch.index.engine import Reader
+    from elasticsearch_tpu_torch.mapping import MapperService
+    from elasticsearch_tpu_torch.ops import bm25 as bm
+    from elasticsearch_tpu_torch.ops.device_segment import PLANES
+    from elasticsearch_tpu_torch.search import dsl
+    from elasticsearch_tpu_torch.search.batch_executor import (
+        _build_ctxs, batched_wand_topk_shard,
+    )
+    from elasticsearch_tpu_torch.search.phase import (
+        query_shard, shard_term_stats,
+    )
+
+    t0 = time.monotonic()
+    segs = build_full_shard(np, n_docs, workers)
+    n_blocks = sum(s.postings["body"].block_docs.shape[0] for s in segs)
+    log(f"full: {n_docs} docs in {len(segs)} segments, {n_blocks} posting "
+        f"blocks, built in {time.monotonic() - t0:.1f}s")
+    mappers = MapperService({"properties": {"body": {"type": "text"}}})
+    reader = Reader(segs)
+    PLANES.clear()
+    t1 = time.monotonic()
+    part = PLANES.get(segs, "postings", "body", dev)
+    check(part is not None, "full: the postings plane was refused")
+    mirror = part.quantized_mirror()
+    check(mirror is not None, "full: the bf16 mirror was refused")
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    log(f"full: plane n_docs_pad={part.n_docs_pad} n_blocks_pad="
+        f"{part.block_docs.shape[0]} resident bytes {part.nbytes} "
+        f"(block_docs+block_tfs+doc_lens, bf16 mirror); "
+        f"torch.cuda.memory_allocated="
+        f"{torch.cuda.memory_allocated() if dev.type == 'cuda' else 0}; "
+        f"built+uploaded in {time.monotonic() - t1:.1f}s")
+
+    rng = np.random.default_rng(SEED + 7)
+    queries = []
+    for _ in range(n_q):
+        ids = np.minimum(rng.zipf(1.35, int(rng.integers(2, 7))) - 1,
+                         VOCAB - 1)
+        queries.append(" ".join(f"t{i}" for i in ids))
+    legs = {}
+    # one untimed query first: it pays the per-segment block bound tables
+    # (PostingsField.block_max_impact), built once per segment and field
+    query_shard(reader, mappers, dsl.Match(field="body", text=queries[0]),
+                size=10, device=dev)
+    stats0 = dict(PLANES.stats)
+    hist0 = dict(PLANES.rerank_depth_hist)
+    from elasticsearch_tpu_torch.search.device_profile import DEVICE_PROFILE
+    DEVICE_PROFILE.timing = dev.type == "cuda"
+    dev_ms = {"start": device_ms()}
+    solo = []
+    for text in queries:
+        t = time.monotonic()
+        res = query_shard(reader, mappers,
+                          dsl.Match(field="body", text=text), size=10,
+                          device=dev)
+        solo.append((res, time.monotonic() - t))
+    legs["solo_quantized"] = [t for _r, t in solo]
+    dev_ms["solo_quantized"] = device_ms()
+    delta = {k: PLANES.stats[k] - stats0[k]
+             for k in ("quantized_queries", "rerank_escalations",
+                       "quantized_exact_fallbacks")}
+    log(f"full: solo leg: {n_q} queries, quantized tier served "
+        f"{delta['quantized_queries']}, rerank escalations "
+        f"{delta['rerank_escalations']}, exact fallbacks "
+        f"{delta['quantized_exact_fallbacks']}, served depths "
+        f"{ {d: n - hist0.get(d, 0) for d, n in PLANES.rerank_depth_hist.items() if n > hist0.get(d, 0)} }")
+
+    # the batch legs: the same 64 queries as ONE batch on the exact path
+    doc_count, dfs = shard_term_stats(reader, mappers, dsl.Bool(
+        should=[dsl.Match(field="body", text=t) for t in queries]))
+    ctxs = _build_ctxs(reader, mappers, doc_count, dfs, device=dev)
+    clause_lists = [[(t, 1.0)] for t in queries]
+    PLANES.quantized = False
+    batch = {}
+    try:
+        for leg, limit in (("batch_exact", 10_000),
+                           ("batch_exact_totals_off", 0)):
+            times = []
+            for _rep in range(3):
+                t = time.monotonic()
+                out = batched_wand_topk_shard(ctxs, "body", clause_lists, 10,
+                                              limit)
+                times.append(time.monotonic() - t)
+            batch[leg] = out
+            legs[leg] = times
+            dev_ms[leg] = device_ms()
+    finally:
+        PLANES.quantized = True
+        DEVICE_PROFILE.timing = False
+    # the quantized tier serves the exact path's results
+    for qi, (res, _t) in enumerate(solo):
+        cands, hits, rel, max_score, _prune = batch["batch_exact"][qi]
+        check([(d.segment_idx, d.doc) for d in res.docs]
+              == [(d.segment_idx, d.doc) for d in cands[:10]],
+              f"full: query {qi}: solo quantized ids != batch exact ids")
+        check([d.score for d in res.docs] == [d.score for d in cands[:10]],
+              f"full: query {qi}: solo quantized scores != batch exact")
+        check(res.total_hits == hits and res.total_relation == rel,
+              f"full: query {qi}: totals differ")
+        for d in res.docs:
+            check(math.isfinite(d.score) and d.score > 0,
+                  f"full: query {qi}: bad score {d.score}")
+    prev = dev_ms["start"]
+    for leg, times in legs.items():
+        per_q = [t / n_q for t in times] if leg.startswith("batch") else times
+        kern = {f: round(dev_ms[leg][f] - prev[f], 3) for f in FAMILIES}
+        prev = dev_ms[leg]
+        busy = sum(kern.values()) / max(1e3 * sum(times), 1e-9)
+        log(f"full: leg {leg}: wall p50 {1e3 * pct(times, 0.5):.3f} ms "
+            f"p99 {1e3 * pct(times, 0.99):.3f} ms; per query p50 "
+            f"{1e3 * pct(per_q, 0.5):.3f} ms p99 {1e3 * pct(per_q, 0.99):.3f}"
+            f" ms over {len(times)} runs; wall total "
+            f"{1e3 * sum(times):.1f} ms, kernel device ms {kern}, "
+            f"kernel-busy share {busy:.4f}")
+    return queries
+
+
+def time_call(torch, fn, runs: int) -> float:
+    """Median milliseconds of ``runs`` calls after one warm-up, each
+    bracketed by CUDA events."""
+    fn()
+    torch.cuda.synchronize()
+    ms = []
+    for _ in range(runs):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        ms.append(a.elapsed_time(b))
+    ms.sort()
+    return ms[len(ms) // 2]
+
+
+# positions of n_docs_pad and n_q in each wrapper's arguments
+ARG_POS = {"bm25_flat": (8, 9), "bm25_flat_seg": (9, 10),
+           "bm25_coarse": (9, 10), "bm25_rerank": (10, 11)}
+
+
+def n_docs_pad_of(family: str, args) -> int:
+    return args[ARG_POS[family][0]]
+
+
+def n_q_of(family: str, args) -> int:
+    return args[ARG_POS[family][1]]
+
+
+def bound_of(family: str, args, kwargs):
+    """(bound_ms, bytes, ops): the least time the card could take — the
+    bytes the function must move (gathered blocks, flat rows, the doc
+    lengths of gathered postings, the live mask and segment ids, the
+    outputs) over the memory rate, or its arithmetic over the peak rate
+    for its type, whichever is larger."""
+    block_tfs, flat_idx = args[1], args[2]
+    n_docs_pad = n_docs_pad_of(family, args)
+    fb = flat_idx.numel()
+    postings = fb * 128
+    tf_bytes = block_tfs.element_size()
+    nbytes = postings * (4 + tf_bytes)                 # gathered docs + tfs
+    nbytes += fb * 16                                  # idx, w, q, avgdl
+    nbytes += min(postings, n_docs_pad) * (2 if family == "bm25_coarse"
+                                           else 4)     # doc lengths
+    nbytes += n_docs_pad                               # live mask
+    if family in ("bm25_flat_seg", "bm25_coarse"):
+        nbytes += n_docs_pad * 4                       # seg_ids
+    if family == "bm25_rerank":
+        n_q, kprime, k = args[11], args[12], args[13]
+        nbytes += n_q * kprime * 8 + n_q * k * 8 + n_q * 4
+    elif family == "bm25_flat":
+        n_q, k = args[9], args[10]
+        nbytes += n_q * k * 8 + n_q * 4
+    elif family == "bm25_flat_seg":
+        n_q, k = args[10], args[11]
+        nbytes += n_q * k * 8 + n_q * kwargs.get("n_segs", 1) * 4
+    else:
+        n_q, n_segs, kp = args[10], args[11], args[12]
+        nbytes += n_q * kp * 8 + n_q * n_segs * 4
+    ops = postings * 8          # 3 mul, 2 add, 2 div and a compare a posting
+    peak = BF16_FLOPS if family == "bm25_coarse" else F32_FLOPS
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / peak * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                 else "operations"), nbytes
+
+
+def plain_bytes(family: str, args) -> int:
+    """Rough peak device bytes of the plain version's temporaries: about
+    48 a gathered posting, and about 40 a cell of its [n_q, n_docs_pad]
+    plane (int64 sums, f32 scores, the stable sort's keys, int64 indices
+    and scratch)."""
+    fb = args[2].numel()
+    plane = 0 if family == "bm25_rerank" else n_q_of(family, args) * \
+        n_docs_pad_of(family, args) * 40
+    return fb * 128 * 48 + plane
+
+
+def phase_kernels(torch, rec, launches) -> list:
+    from elasticsearch_tpu_torch.ops import bm25 as bm
+    rows = []
+    for fam in FAMILIES:
+        calls = rec.calls[fam]
+        check(bool(calls), f"kernels: no {fam} call recorded")
+        torch.cuda.empty_cache()
+        room = 0.85 * torch.cuda.mem_get_info()[0]
+        fit = [c for c in calls if plain_bytes(fam, c[0]) < room]
+        check(bool(fit), f"kernels: no {fam} call's plain version fits in "
+              f"{room / 1e9:.1f} GB")
+        # correctness on up to 8 of the main path's calls (for the solo
+        # leg's families: 8 queries), timing on the largest
+        err = 0.0
+        for args, kwargs in fit[:8]:
+            got = run_family(bm, fam, args, kwargs, plain=False)
+            want = run_family(bm, fam, args, kwargs, plain=True)
+            torch.cuda.synchronize()
+            err = max(err, compare(torch, fam, got, want))
+            del got, want
+        args, kwargs = max(fit, key=lambda c: c[0][2].numel())
+        ms = time_call(torch, lambda: run_family(bm, fam, args, kwargs,
+                                                 False), 20)
+        probe = time_call(torch, lambda: run_family(bm, fam, args, kwargs,
+                                                    True), 1)
+        plain_runs = 20 if probe < 250 else 5
+        plain_ms = time_call(torch, lambda: run_family(bm, fam, args, kwargs,
+                                                       True), plain_runs)
+        bound_ms, bound_by, nbytes = bound_of(fam, args, kwargs)
+        shape = (f"fb={args[2].numel()} n_docs_pad={n_docs_pad_of(fam, args)}"
+                 f" n_q={n_q_of(fam, args)} kwargs={kwargs}")
+        log(f"kernel {fam}: {ms:.4f} ms (median of 20), plain {plain_ms:.4f}"
+            f" ms (median of {plain_runs}), bound {bound_ms:.4f} ms "
+            f"({nbytes} bytes at 3.35 TB/s), max_abs_err {err} over "
+            f"{min(len(fit), 8)} main-path calls, timed at {shape}")
+        big_args, big_kwargs = max(
+            calls, key=lambda c: (n_q_of(fam, c[0]), c[0][2].numel()))
+        if big_args is not args:
+            big_ms = time_call(torch, lambda: run_family(
+                bm, fam, big_args, big_kwargs, False), 20)
+            log(f"kernel {fam}: {big_ms:.4f} ms (median of 20) at the "
+                f"largest main-path call, fb={big_args[2].numel()} "
+                f"n_q={n_q_of(fam, big_args)}, bound "
+                f"{bound_of(fam, big_args, big_kwargs)[0]:.4f} ms "
+                f"(plain version not run: too large for the card)")
+        rows.append({
+            "name": fam, "route": "cuda",
+            "source": f"elasticsearch_tpu_torch/csrc/{fam}.cu",
+            "replaces": REPLACES[fam], "launches": launches.get(fam, 0),
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+            "shape": shape})
+        torch.cuda.empty_cache()
+    return rows
+
+
+# ---------------------------------------------------------------------------
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--phases", default="card,small,engine,full,kernels")
+    ap.add_argument("--full-docs", type=int, default=MS_MARCO_DOCS)
+    ap.add_argument("--engine-docs", type=int, default=50_000)
+    ap.add_argument("--queries", type=int, default=64)
+    ap.add_argument("--workers", type=int, default=4)
+    ap.add_argument("--rehearse", action="store_true",
+                    help="run on the CPU at a small size; never prints ok")
+    args = ap.parse_args(argv)
+    t_start = time.monotonic()
+    phases = set(args.phases.split(","))
+    try:
+        import numpy as np
+        import torch
+    except ImportError as e:
+        print(f"chip_smoke: {e}", file=sys.stderr)
+        return 2
+    if not args.rehearse and not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device is visible", file=sys.stderr)
+        return 2
+    try:
+        import elasticsearch_tpu_torch  # noqa: F401
+        from elasticsearch_tpu_torch.indices.breaker import BREAKERS, GB
+        from elasticsearch_tpu_torch.search.device_profile import (
+            DEVICE_PROFILE,
+        )
+    except ImportError as e:
+        print(f"chip_smoke: the package is missing: {e}", file=sys.stderr)
+        return 2
+    dev = torch.device("cpu" if args.rehearse else "cuda")
+    # the breakers' defaults budget a 16 GB device; this card has 80 GB
+    BREAKERS.configure(device=48 * GB, request=24 * GB, total=72 * GB)
+    try:
+        if args.rehearse:
+            log("rehearsal on the CPU: plain versions only")
+        if "card" in phases and not args.rehearse:
+            phase_card(torch)
+        if "small" in phases and not args.rehearse:
+            phase_small(torch, np, dev)
+        from elasticsearch_tpu_torch.ops import bm25 as bm
+        # the main path: launch counts from zero, read right after
+        DEVICE_PROFILE.reset_launches()
+        if "engine" in phases:
+            phase_engine(torch, np, dev, args.engine_docs)
+        with Recorder(bm, keep=24) as rec:
+            if "full" in phases:
+                phase_full(torch, np, dev, args.full_docs, args.workers,
+                           args.queries)
+        launches = DEVICE_PROFILE.launches()
+        log("launches on the main path: " + json.dumps(
+            {f: launches.get(f, 0) for f in FAMILIES}))
+        rows = []
+        if not args.rehearse and "full" in phases:
+            for fam in FAMILIES:
+                check(launches.get(fam, 0) > 0,
+                      f"{fam} was never launched on the main path")
+            if "kernels" in phases:
+                rows = phase_kernels(torch, rec, launches)
+        log(json.dumps({"kernels": rows}))
+    except SmokeFailure as e:
+        print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
+        return 1
+    log(f"elapsed: {time.monotonic() - t_start:.1f}s")
+    if args.rehearse:
+        log("rehearsal passed (not a chip result)")
+        return 3
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

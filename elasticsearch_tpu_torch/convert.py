@@ -1,0 +1,63 @@
+"""Carry an index built by the JAX package into this one.
+
+The system has no weights: its state is the index. Segments written by
+either package are the same numpy arrays and Python lists (the on-disk
+formats under ``index/`` are shared copies), so conversion is a field-by-
+field copy into this package's classes. The reference objects are read
+duck-typed — their arrays, dicts and lists only — and nothing of the JAX
+package is imported.
+"""
+
+from __future__ import annotations
+
+import copy
+import dataclasses
+from typing import Any, Iterable, List
+
+import numpy as np
+
+from elasticsearch_tpu_torch.index import segment as seg_mod
+from elasticsearch_tpu_torch.index.segment import Segment
+
+# per-field dataclasses of a segment, by the attribute that holds them
+_FIELD_CLASSES = {
+    "postings": seg_mod.PostingsField,
+    "keywords": seg_mod.KeywordField,
+    "doc_values": seg_mod.DocValuesField,
+    "vectors": seg_mod.VectorField,
+    "features": seg_mod.FeaturesField,
+}
+# plain per-doc state copied as it is
+_PLAIN = ("geo", "sources", "ids", "routings", "id_to_doc", "seqnos",
+          "versions", "primary_terms", "live")
+
+
+def _copy_value(v: Any) -> Any:
+    if isinstance(v, np.ndarray):
+        return v.copy()
+    return copy.deepcopy(v)
+
+
+def _convert_field(src: Any, cls) -> Any:
+    """One reference field object -> ``cls``, copying every init field;
+    private caches (names starting with "_") start empty."""
+    kwargs = {f.name: _copy_value(getattr(src, f.name))
+              for f in dataclasses.fields(cls)
+              if f.init and not f.name.startswith("_")}
+    return cls(**kwargs)
+
+
+def segments_from_reference(segments: Iterable[Any]) -> List[Segment]:
+    """This package's Segments, equal array for array to the given
+    reference segments (same docs, postings, doc values, live masks)."""
+    out = []
+    for src in segments:
+        seg = Segment(src.name, int(src.n_docs))
+        for attr, cls in _FIELD_CLASSES.items():
+            setattr(seg, attr, {name: _convert_field(f, cls)
+                                for name, f in getattr(src, attr).items()})
+        for attr in _PLAIN:
+            setattr(seg, attr, _copy_value(getattr(src, attr)))
+        seg.invalidate_live_count()
+        out.append(seg)
+    return out

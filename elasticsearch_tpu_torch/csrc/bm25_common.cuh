@@ -1,0 +1,391 @@
+// Shared device code of the four BM25 kernel families (bm25_flat,
+// bm25_flat_seg, bm25_coarse, bm25_rerank).
+//
+// Three pieces, each written once and used by every family:
+//
+// 1. The per-posting BM25 contribution, in f32 (contrib_f32) and in the
+//    bf16 arithmetic of the coarse tier (contrib_bf16). Every operation is
+//    an explicitly rounded intrinsic (__fmul_rn, __fadd_rn, __fdiv_rn), so
+//    nvcc cannot contract a multiply-add into an FMA: the kernel computes
+//    the same bits as the plain PyTorch version, one rounded op at a time.
+// 2. Deterministic accumulation. Float atomics add in no fixed order, so
+//    each f32 contribution becomes a signed 64-bit fixed-point value
+//    (scale 2^32) and is summed with integer atomics, which commute. The
+//    sum is converted to f32 once. The same contributions therefore give
+//    the same bits in any order, any batch and any family.
+// 3. A CTA-wide top-k under the order (score descending, index
+//    ascending), -inf slots included: the order lax.top_k returns. Threads
+//    stream candidates past a threshold (the current k-th best) into a
+//    shared buffer; when the buffer fills, a bitonic sort keeps the best k
+//    and raises the threshold. The result depends only on the candidates,
+//    never on the order threads inserted them.
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <limits.h>
+#include <math.h>
+#include <stdint.h>
+
+namespace bm25 {
+
+constexpr int BLOCK = 128;          // postings per block (index/segment.py)
+constexpr int SEL_THREADS = 512;    // threads of a selecting CTA
+constexpr int KMAX = 4096;          // largest k the selection takes
+constexpr int MAX_SEGS = 4096;      // largest per-segment count channel
+constexpr long long CHUNK = 65536;  // docs per CTA in the chunked top-k
+constexpr double FIX_SCALE = 4294967296.0;        // 2^32
+constexpr double FIX_INV = 1.0 / 4294967296.0;
+
+// BM25 constants, rounded once on the host exactly as PyTorch rounds a
+// Python float scalar: k1, (1 - b), b, (k1 + 1).
+struct Consts {
+    float k1, omb, b, k1p1;
+};
+
+__device__ __forceinline__ float contrib_f32(float w, float tf, float dl,
+                                             float avg, Consts c) {
+    // norm = k1 * ((1 - b) + (b * dl) / avg)
+    float norm = __fmul_rn(c.k1, __fadd_rn(c.omb,
+                                           __fdiv_rn(__fmul_rn(c.b, dl),
+                                                     avg)));
+    // ((w * tf) * (k1 + 1)) / (tf + norm)
+    return __fdiv_rn(__fmul_rn(__fmul_rn(w, tf), c.k1p1),
+                     __fadd_rn(tf, norm));
+}
+
+// Round an f32 to the nearest bf16 and widen it back.
+__device__ __forceinline__ float bfr(float x) {
+    return __bfloat162float(__float2bfloat16_rn(x));
+}
+
+// The coarse tier's contribution: every operand is a bf16 value and every
+// operation but the last is rounded to bf16 (computed in f32, rounded
+// once: the rounding PyTorch's bf16 elementwise ops apply, and for
+// products and sums of bf16 values exactly __hmul / __hadd). The final
+// quotient stays f32, as the JAX program computes it: XLA drops the bf16
+// rounding of a value that is widened to f32 right after. ``c`` must hold
+// bf16-representable constants.
+__device__ __forceinline__ float contrib_bf16(float w_h, float tf_h,
+                                              float dl_h, float avg_h,
+                                              Consts c) {
+    float t = bfr(__fmul_rn(c.b, dl_h));
+    t = bfr(__fdiv_rn(t, avg_h));
+    t = bfr(__fadd_rn(c.omb, t));
+    float norm = bfr(__fmul_rn(c.k1, t));
+    float num = bfr(__fmul_rn(w_h, tf_h));
+    num = bfr(__fmul_rn(num, c.k1p1));
+    float den = bfr(__fadd_rn(tf_h, norm));
+    return __fdiv_rn(num, den);
+}
+
+// f32 contribution -> fixed point. A strictly positive contribution never
+// rounds to 0, so "score > 0" flags exactly the docs some posting reached.
+__device__ __forceinline__ long long to_fixed(float c) {
+    long long v = __double2ll_rn((double)c * FIX_SCALE);
+    return (c > 0.f && v < 1) ? 1 : v;
+}
+
+__device__ __forceinline__ float from_fixed(long long v) {
+    return __double2float_rn((double)v * FIX_INV);
+}
+
+// --------------------------------------------------------------------------
+// scatter: one CTA per gathered posting block, one thread per posting
+// --------------------------------------------------------------------------
+
+// acc[q * n_docs_pad + doc] += fixed(contribution). BF16 selects the
+// coarse tier's operands (block_tfs and doc_lens as bf16).
+template <bool BF16>
+__global__ void scatter_kernel(const int* __restrict__ block_docs,
+                               const void* __restrict__ block_tfs,
+                               const int* __restrict__ flat_idx,
+                               const float* __restrict__ flat_w,
+                               const int* __restrict__ flat_q,
+                               const void* __restrict__ doc_lens,
+                               const float* __restrict__ flat_avgdl,
+                               long long n_docs_pad, Consts c,
+                               unsigned long long* __restrict__ acc) {
+    const long long f = blockIdx.x;
+    const long long e = (long long)flat_idx[f] * BLOCK + threadIdx.x;
+    const int doc = block_docs[e];
+    if (doc < 0) return;
+    float v;
+    if (BF16) {
+        const __nv_bfloat16* tfs = (const __nv_bfloat16*)block_tfs;
+        const __nv_bfloat16* dls = (const __nv_bfloat16*)doc_lens;
+        v = contrib_bf16(bfr(flat_w[f]), __bfloat162float(tfs[e]),
+                         __bfloat162float(dls[doc]), bfr(flat_avgdl[f]), c);
+    } else {
+        v = contrib_f32(flat_w[f], ((const float*)block_tfs)[e],
+                        ((const float*)doc_lens)[doc], flat_avgdl[f], c);
+    }
+    const long long fx = to_fixed(v);
+    if (fx == 0) return;
+    atomicAdd(acc + (long long)flat_q[f] * n_docs_pad + doc,
+              (unsigned long long)fx);
+}
+
+// --------------------------------------------------------------------------
+// CTA-wide top-k
+// --------------------------------------------------------------------------
+
+struct SelShared {
+    int cnt;
+    float thr_s;
+    int thr_i;
+};
+
+__device__ __forceinline__ bool better(float s1, int i1, float s2, int i2) {
+    return s1 > s2 || (s1 == s2 && i1 < i2);
+}
+
+// Sort bs/bi[0, n) best-first; n is a power of two.
+__device__ void bitonic_best_first(float* bs, int* bi, int n) {
+    for (int size = 2; size <= n; size <<= 1) {
+        for (int stride = size >> 1; stride > 0; stride >>= 1) {
+            for (int t = threadIdx.x; t < (n >> 1); t += blockDim.x) {
+                const int lo = 2 * t - (t & (stride - 1));
+                const int hi = lo + stride;
+                const bool up = (lo & size) == 0;
+                const float s_lo = bs[lo], s_hi = bs[hi];
+                const int i_lo = bi[lo], i_hi = bi[hi];
+                if (better(s_hi, i_hi, s_lo, i_lo) == up) {
+                    bs[lo] = s_hi; bs[hi] = s_lo;
+                    bi[lo] = i_hi; bi[hi] = i_lo;
+                }
+            }
+            __syncthreads();
+        }
+    }
+}
+
+// Keep the best k of the c buffered entries at bs/bi[0, min(c, k)),
+// best-first, and raise the threshold to the k-th once there are k.
+__device__ void select_compact(float* bs, int* bi, int cap, int& c, int k,
+                               SelShared* sh) {
+    for (int j = c + threadIdx.x; j < cap; j += blockDim.x) {
+        bs[j] = -INFINITY;
+        bi[j] = INT_MAX;
+    }
+    __syncthreads();
+    bitonic_best_first(bs, bi, cap);
+    c = c < k ? c : k;
+    if (threadIdx.x == 0) {
+        sh->cnt = c;
+        if (c >= k) {
+            sh->thr_s = bs[k - 1];
+            sh->thr_i = bi[k - 1];
+        }
+    }
+    __syncthreads();
+}
+
+// Top-k of the n entries load(j, s, i), j in [0, n). On return bs/bi[0, k)
+// hold them best-first (sentinels (-inf, INT_MAX) past the n-th when
+// n < k). ``cap`` is the buffer size: a power of two >= 2k and >=
+// 2 * blockDim.x. Every thread of the CTA must call it.
+template <class Load>
+__device__ void cta_select(Load load, long long n, int k, int cap, float* bs,
+                           int* bi, SelShared* sh) {
+    if (threadIdx.x == 0) {
+        sh->cnt = 0;
+        sh->thr_s = -INFINITY;
+        sh->thr_i = INT_MAX;
+    }
+    __syncthreads();
+    int c = 0;
+    for (long long base = 0; base < n; base += blockDim.x) {
+        const long long j = base + threadIdx.x;
+        int take = 0;
+        float s = 0.f;
+        int i = 0;
+        if (j < n) {
+            load(j, s, i);
+            take = better(s, i, sh->thr_s, sh->thr_i);
+        }
+        if (take) {
+            const int p = atomicAdd(&sh->cnt, 1);
+            bs[p] = s;
+            bi[p] = i;
+        }
+        c += __syncthreads_count(take);
+        if (c > cap - (int)blockDim.x) select_compact(bs, bi, cap, c, k, sh);
+    }
+    select_compact(bs, bi, cap, c, k, sh);
+}
+
+// Buffer size for a top-k: a power of two >= 4k and >= 2 * threads.
+inline int select_cap(int k, int threads) {
+    int kp = 1;
+    while (kp < k) kp <<= 1;
+    int cap = 4 * kp;
+    if (cap < 2 * threads) cap = 2 * threads;
+    return cap;
+}
+
+// --------------------------------------------------------------------------
+// chunked mask + count + top-k over a [n_q, n_docs_pad] fixed-point plane
+// --------------------------------------------------------------------------
+
+enum CountMode { COUNT_NONE = 0, COUNT_TOTAL = 1, COUNT_SEGS = 2 };
+
+// grid (n_chunks, n_q). Each CTA masks its chunk of one row to live docs
+// with score > 0 (others -inf), counts the matches (per row, or per
+// segment through seg_ids), and writes its chunk's top-k to
+// out_s/out_i[(q * n_chunks + chunk) * k + r]. hits must start zeroed.
+__global__ void chunk_select_kernel(const long long* __restrict__ acc,
+                                    const uint8_t* __restrict__ live,
+                                    const int* __restrict__ seg_ids,
+                                    long long n_docs_pad, long long chunk,
+                                    int k, int cap, int mode, int n_segs,
+                                    float* __restrict__ out_s,
+                                    int* __restrict__ out_i,
+                                    int* __restrict__ hits) {
+    extern __shared__ __align__(16) unsigned char smem_raw[];
+    float* bs = (float*)smem_raw;
+    int* bi = (int*)(bs + cap);
+    int* seg_cnt = bi + cap;
+    __shared__ SelShared sh;
+    __shared__ int total;
+
+    const int q = blockIdx.y;
+    const long long start = (long long)blockIdx.x * chunk;
+    long long end = start + chunk;
+    if (end > n_docs_pad) end = n_docs_pad;
+    const long long n = end > start ? end - start : 0;
+    const long long* row = acc + (long long)q * n_docs_pad;
+
+    if (mode == COUNT_SEGS)
+        for (int s = threadIdx.x; s < n_segs; s += blockDim.x) seg_cnt[s] = 0;
+    if (threadIdx.x == 0) total = 0;
+    // (cta_select's first barrier orders these writes before any use)
+
+    int my = 0;          // matches this thread saw (COUNT_TOTAL)
+    int cur_seg = -1;    // run of matches in one segment (COUNT_SEGS)
+    int cur_n = 0;
+    auto load = [&](long long j, float& s, int& i) {
+        const long long doc = start + j;
+        const long long v = row[doc];
+        const bool m = live[doc] && v > 0;
+        s = m ? from_fixed(v) : -INFINITY;
+        i = (int)doc;
+        if (m) {
+            if (mode == COUNT_TOTAL) {
+                ++my;
+            } else if (mode == COUNT_SEGS) {
+                const int sg = seg_ids[doc];
+                if (sg != cur_seg) {
+                    if (cur_n) atomicAdd(&seg_cnt[cur_seg], cur_n);
+                    cur_seg = sg;
+                    cur_n = 0;
+                }
+                ++cur_n;
+            }
+        }
+    };
+    cta_select(load, n, k, cap, bs, bi, &sh);
+
+    if (mode == COUNT_TOTAL) {
+        if (my) atomicAdd(&total, my);
+        __syncthreads();
+        if (threadIdx.x == 0 && total) atomicAdd(hits + q, total);
+    } else if (mode == COUNT_SEGS) {
+        if (cur_n) atomicAdd(&seg_cnt[cur_seg], cur_n);
+        __syncthreads();
+        for (int s = threadIdx.x; s < n_segs; s += blockDim.x)
+            if (seg_cnt[s]) atomicAdd(hits + (long long)q * n_segs + s,
+                                      seg_cnt[s]);
+    }
+    const long long o = ((long long)q * gridDim.x + blockIdx.x) * k;
+    for (int r = threadIdx.x; r < k; r += blockDim.x) {
+        out_s[o + r] = bs[r];
+        out_i[o + r] = bi[r];
+    }
+}
+
+// grid (n_q): top-k of each row's n_in chunk winners.
+__global__ void merge_select_kernel(const float* __restrict__ in_s,
+                                    const int* __restrict__ in_i, int n_in,
+                                    int k, int cap,
+                                    float* __restrict__ out_s,
+                                    int* __restrict__ out_i) {
+    extern __shared__ __align__(16) unsigned char smem_raw[];
+    float* bs = (float*)smem_raw;
+    int* bi = (int*)(bs + cap);
+    __shared__ SelShared sh;
+    const long long base = (long long)blockIdx.x * n_in;
+    auto load = [&](long long j, float& s, int& i) {
+        s = in_s[base + j];
+        i = in_i[base + j];
+    };
+    cta_select(load, n_in, k, cap, bs, bi, &sh);
+    for (int r = threadIdx.x; r < k; r += blockDim.x) {
+        out_s[(long long)blockIdx.x * k + r] = bs[r];
+        out_i[(long long)blockIdx.x * k + r] = bi[r];
+    }
+}
+
+inline cudaError_t set_smem(const void* fn, size_t bytes) {
+    if (bytes <= 48 * 1024) return cudaSuccess;
+    return cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                (int)bytes);
+}
+
+// The whole dense pipeline shared by bm25_flat, bm25_flat_seg and
+// bm25_coarse: zero the fixed-point plane, scatter every gathered posting
+// into it, then mask + count + top-k it in chunks and merge the chunk
+// winners. Scratch (acc, chunk winners) comes from the caller. Returns
+// the first CUDA error, 0 on success.
+template <bool BF16>
+int dense_topk(const int* block_docs, const void* block_tfs,
+               const int* flat_idx, const float* flat_w, const int* flat_q,
+               const void* doc_lens, const float* flat_avgdl,
+               const uint8_t* live, const int* seg_ids, int fb,
+               long long n_docs_pad, int n_q, int k, int mode, int n_segs,
+               Consts c, long long* acc, float* chunk_s, int* chunk_i,
+               float* out_s, int* out_i, int* hits, cudaStream_t stream) {
+    if (k < 1 || k > KMAX || n_q < 1 || fb < 0 || n_docs_pad < k ||
+        (mode == COUNT_SEGS && (n_segs < 1 || n_segs > MAX_SEGS)))
+        return (int)cudaErrorInvalidValue;
+    cudaError_t err = cudaMemsetAsync(
+        acc, 0, sizeof(long long) * (size_t)n_q * (size_t)n_docs_pad, stream);
+    if (err != cudaSuccess) return (int)err;
+    if (hits != nullptr) {
+        const size_t nh = (size_t)n_q * (mode == COUNT_SEGS ? n_segs : 1);
+        err = cudaMemsetAsync(hits, 0, sizeof(int) * nh, stream);
+        if (err != cudaSuccess) return (int)err;
+    }
+    if (fb > 0) {
+        scatter_kernel<BF16><<<fb, BLOCK, 0, stream>>>(
+            block_docs, block_tfs, flat_idx, flat_w, flat_q, doc_lens,
+            flat_avgdl, n_docs_pad, c, (unsigned long long*)acc);
+        err = cudaGetLastError();
+        if (err != cudaSuccess) return (int)err;
+    }
+    const int n_chunks = (int)((n_docs_pad + CHUNK - 1) / CHUNK);
+    const int cap = select_cap(k, SEL_THREADS);
+    const size_t smem = (size_t)cap * 8 +
+                        (mode == COUNT_SEGS ? (size_t)n_segs * 4 : 0);
+    err = set_smem((const void*)chunk_select_kernel, smem);
+    if (err != cudaSuccess) return (int)err;
+    float* cs = n_chunks == 1 ? out_s : chunk_s;
+    int* ci = n_chunks == 1 ? out_i : chunk_i;
+    chunk_select_kernel<<<dim3(n_chunks, n_q), SEL_THREADS, smem, stream>>>(
+        acc, live, seg_ids, n_docs_pad, CHUNK, k, cap, mode, n_segs, cs, ci,
+        hits);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+    if (n_chunks > 1) {
+        const size_t msmem = (size_t)cap * 8;
+        err = set_smem((const void*)merge_select_kernel, msmem);
+        if (err != cudaSuccess) return (int)err;
+        merge_select_kernel<<<n_q, SEL_THREADS, msmem, stream>>>(
+            chunk_s, chunk_i, n_chunks * k, k, cap, out_s, out_i);
+        err = cudaGetLastError();
+        if (err != cudaSuccess) return (int)err;
+    }
+    return 0;
+}
+
+}  // namespace bm25

@@ -1,0 +1,657 @@
+"""Device mirrors of segment postings, and the packed multi-segment plane.
+
+The postings half of the JAX package's ``ops/device_segment.py``, with the
+same layout and the same residency rules; only the upload differs:
+arrays go to the card as ``torch`` tensors on an explicit device.
+
+Each searchable segment gets lazily-built, cached device arrays with
+power-of-two padded shapes. The host Segment stays the source of truth;
+device mirrors are pure caches, keyed by device.
+
+The second half is the **shard plane**: a shard's live segments
+concatenated along the docs axis into ONE device-resident padded postings
+plane per field, with per-segment base offsets, so a whole shard's BM25
+phase is one kernel launch regardless of segment count. The per-segment
+boundary survives only as a host-side offset translation
+(``PlanePart.demux``). Planes rebuild incrementally on refresh (per-segment
+rebased arrays are cached by segment uid) and charge the ``device``
+breaker before upload; the registry LRU-evicts cold planes, so a shard
+whose plane cannot fit degrades to the per-segment path.
+
+Vector, rank_features and column planes, and the mesh-sharded planes, are
+not part of this package yet: asking for one raises NotPortedError.
+"""
+
+from __future__ import annotations
+
+import time
+from collections import OrderedDict
+from typing import Any, Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from elasticsearch_tpu_torch.device import DeviceLike, resolve_device
+from elasticsearch_tpu_torch.index.segment import (
+    BLOCK, PostingsField, Segment, next_pow2,
+)
+from elasticsearch_tpu_torch.utils.errors import (
+    CircuitBreakingError, NotPortedError,
+)
+
+
+class DevicePostings:
+    """Device-resident postings for one text field of one segment."""
+
+    def __init__(self, pf: PostingsField, n_docs: int,
+                 device: DeviceLike = None):
+        self.device = resolve_device(device)
+        self.n_docs = n_docs
+        self.n_docs_pad = next_pow2(max(n_docs, 1), minimum=BLOCK)
+        n_blocks = pf.block_docs.shape[0]
+        self.n_blocks_pad = next_pow2(n_blocks)
+        # pad blocks with an empty sentinel block (all -1 docs)
+        pad = self.n_blocks_pad - n_blocks
+        block_docs = np.pad(pf.block_docs, ((0, pad), (0, 0)), constant_values=-1)
+        block_tfs = np.pad(pf.block_tfs, ((0, pad), (0, 0)))
+        doc_lens = np.zeros(self.n_docs_pad, np.float32)
+        doc_lens[: len(pf.doc_lens)] = pf.doc_lens
+        block_max_tf = np.pad(pf.block_max_tf, (0, pad))
+        # budget check BEFORE the upload (breaker must gate, not observe)
+        from elasticsearch_tpu_torch.indices.breaker import account_device_arrays
+        account_device_arrays(
+            self, (block_docs, block_tfs, doc_lens, block_max_tf),
+            "postings")
+        dev = self.device
+        self.block_docs = torch.as_tensor(block_docs, device=dev)
+        self.block_tfs = torch.as_tensor(block_tfs, device=dev)
+        self.doc_lens = torch.as_tensor(doc_lens, device=dev)
+        self.avgdl = float(pf.sum_doc_len / max(1, (pf.doc_lens > 0).sum()))
+        self.block_max_tf = torch.as_tensor(block_max_tf, device=dev)
+
+    @staticmethod
+    def for_segment(seg: Segment, field_name: str,
+                    device: DeviceLike = None) -> Optional["DevicePostings"]:
+        pf = seg.postings.get(field_name)
+        if pf is None:
+            return None
+        dev = resolve_device(device)
+        return seg.device(("postings", field_name, str(dev)),
+                          lambda: DevicePostings(pf, seg.n_docs, dev))
+
+
+def device_live_mask(seg: Segment, device: DeviceLike = None) -> torch.Tensor:
+    """Live mask padded to the doc bucket (True = scoreable)."""
+    n_pad = next_pow2(max(seg.n_docs, 1), minimum=BLOCK)
+    dev = resolve_device(device)
+    # one entry per device under the "live" key, which Segment.delete_doc
+    # drops: a delete invalidates every device's mirror at once
+    mirrors = seg.device("live", dict)
+    got = mirrors.get(str(dev))
+    if got is None:
+        m = np.zeros(n_pad, bool)
+        m[: seg.n_docs] = seg.live
+        got = mirrors[str(dev)] = torch.as_tensor(m, device=dev)
+    return got
+
+
+# ---------------------------------------------------------------------------
+# packed multi-segment device plane
+# ---------------------------------------------------------------------------
+
+class PlaneUnavailable(Exception):
+    """The field has no data in any of the shard's segments — there is
+    nothing to plane; callers take the per-segment path."""
+
+
+class PlanePart:
+    """Base of one (kind, field) plane over one ordered segment set.
+
+    ``doc_base[i]`` is the plane doc offset of segment i (reader order,
+    ALL segments, field-less ones included), so plane doc ids map 1:1
+    onto (segment_idx, local_doc)."""
+
+    kind = "?"
+
+    def __init__(self, field: str, segments: List[Segment],
+                 device: DeviceLike = None):
+        self.device = resolve_device(device)
+        self.field = field
+        self.segments = list(segments)
+        self.uids = tuple(s.uid for s in segments)
+        counts = np.asarray([s.n_docs for s in segments], np.int64)
+        self.doc_base = np.zeros(max(len(segments), 1), np.int64)
+        if len(counts) > 1:
+            self.doc_base[1: len(counts)] = np.cumsum(counts)[:-1]
+        self.n_docs_total = int(counts.sum()) if len(counts) else 0
+        self.n_docs_pad = next_pow2(max(self.n_docs_total, 1), minimum=BLOCK)
+        # per-segment rebased host arrays keyed by uid: the incremental
+        # refresh path copies matching entries from the previous
+        # generation and recomputes only appended segments
+        self._seg_cache: Dict[int, Any] = {}
+        self.nbytes = 0
+        # DeviceCharge handles for everything this part pinned on device;
+        # eviction releases them ahead of GC so the breaker-pressure
+        # retry can actually free budget
+        self._charges: List[Any] = []
+
+    def release(self) -> None:
+        for charge in self._charges:
+            charge.release()
+
+    def demux(self, plane_docs: np.ndarray
+              ) -> Tuple[np.ndarray, np.ndarray]:
+        """plane doc ids -> (segment positions, local doc ids)."""
+        docs = np.asarray(plane_docs, np.int64)
+        si = np.searchsorted(self.doc_base[: len(self.segments)], docs,
+                             side="right") - 1
+        si = np.maximum(si, 0)
+        return si, docs - self.doc_base[si]
+
+    def live_mask(self, live_masks) -> torch.Tensor:
+        """Reader-snapshot live masks stacked into plane doc space (padding
+        False). Built per query, like the per-segment snapshot uploads —
+        deletes therefore never invalidate the plane itself."""
+        out = np.zeros(self.n_docs_pad, bool)
+        off = 0
+        for m in live_masks:
+            out[off: off + len(m)] = m
+            off += len(m)
+        return torch.as_tensor(out, device=self.device)
+
+    # subclasses: build(prev) -> host arrays tuple (breaker-checked by the
+    # registry BEFORE upload), then upload(host) pins them on device.
+
+
+def _seg_ids_host(doc_base, n_segs: int, length: int) -> np.ndarray:
+    """[length] int32: owning segment POSITION per plane doc (searchsorted
+    right - 1 over the first n_segs doc bases, clamped at 0). Docs past
+    the packed corpus clamp to the last segment — they are padding, never
+    live."""
+    ids = np.searchsorted(np.asarray(doc_base[:n_segs]),
+                          np.arange(length, dtype=np.int64),
+                          side="right") - 1
+    return np.maximum(ids, 0).astype(np.int32)
+
+
+class PlanePostings(PlanePart):
+    """All segments' posting blocks for one text field, doc ids rebased.
+
+    ``block_avgdl`` (host) carries each block's OWNING SEGMENT avgdl, so
+    the flat BM25 kernel computes the exact per-segment length norm the
+    solo path uses — plane scores match per-segment scores, not a blended
+    shard-wide normalization."""
+
+    kind = "postings"
+
+    def build(self, prev: Optional["PlanePostings"]):
+        refs = []           # (seg_pos, PostingsField, block_base, avgdl)
+        blocks_docs, blocks_tfs, block_avg = [], [], []
+        doc_lens_parts = []
+        nb = 0
+        for pos, seg in enumerate(self.segments):
+            pf = seg.postings.get(self.field)
+            n = seg.n_docs
+            if pf is None:
+                doc_lens_parts.append(np.zeros(n, np.float32))
+                continue
+            cached = prev._seg_cache.get(seg.uid) if prev is not None \
+                else None
+            if cached is None:
+                base = int(self.doc_base[pos])
+                r_docs = np.where(pf.block_docs >= 0,
+                                  pf.block_docs + base, -1).astype(np.int32)
+                avgdl = float(pf.sum_doc_len
+                              / max(1, (pf.doc_lens > 0).sum()))
+                dl = np.zeros(n, np.float32)
+                dl[: min(n, len(pf.doc_lens))] = pf.doc_lens[:n]
+                cached = (r_docs, pf.block_tfs, dl, avgdl)
+            self._seg_cache[seg.uid] = cached
+            r_docs, r_tfs, dl, avgdl = cached
+            refs.append((pos, pf, nb, avgdl))
+            blocks_docs.append(r_docs)
+            blocks_tfs.append(r_tfs)
+            block_avg.append(np.full(r_docs.shape[0], avgdl, np.float32))
+            doc_lens_parts.append(dl)
+            nb += r_docs.shape[0]
+        if not refs:
+            raise PlaneUnavailable(self.field)
+        self.refs = refs
+        self.n_blocks = nb
+        nb_pad = next_pow2(max(nb, 1))
+        bd = np.full((nb_pad, BLOCK), -1, np.int32)
+        bt = np.zeros((nb_pad, BLOCK), np.float32)
+        ba = np.ones(nb_pad, np.float32)
+        bd[:nb] = np.concatenate(blocks_docs)
+        bt[:nb] = np.concatenate(blocks_tfs)
+        ba[:nb] = np.concatenate(block_avg)
+        dl_all = np.zeros(self.n_docs_pad, np.float32)
+        off = 0
+        for p in doc_lens_parts:
+            dl_all[off: off + len(p)] = p
+            off += len(p)
+        # block_avgdl stays HOST-side: the flat dispatch gathers it per
+        # plan into the [FB] kernel argument
+        self.block_avgdl = ba
+        self._q_dev: Optional[Tuple] = None
+        self._q_failed = False
+        return (bd, bt, dl_all)
+
+    def upload(self, host) -> None:
+        bd, bt, dl = host
+        self.block_docs = torch.as_tensor(bd, device=self.device)
+        self.block_tfs = torch.as_tensor(bt, device=self.device)
+        self.doc_lens = torch.as_tensor(dl, device=self.device)
+
+    def quantized_mirror(self) -> Optional[Tuple]:
+        """(block_tfs bf16 [NB, BLOCK], doc_lens bf16 [N_pad]) on the
+        plane's device — the coarse tier's reduced-precision gather
+        operands: built lazily on the FIRST coarse query (converted on the
+        device itself), cached per plane generation, separately
+        breaker-charged, and a budget refusal is remembered so a starved
+        node never re-quantizes per query. Doc ids stay int32 (they are
+        gather indices, shared with the exact arrays)."""
+        if self._q_dev is not None:
+            return self._q_dev
+        if self._q_failed:
+            return None
+        n_bytes = 2 * (self.block_tfs.numel() + self.doc_lens.numel())
+        from elasticsearch_tpu_torch.indices.breaker import charge_device
+        try:
+            charge = charge_device(
+                self, n_bytes, f"plane_postings_q:{self.field}",
+                return_charge=True)
+        except CircuitBreakingError:
+            self._q_failed = True
+            return None
+        self._charges.append(charge)
+        self.nbytes += charge.n_bytes
+        self._q_dev = (self.block_tfs.to(torch.bfloat16),
+                       self.doc_lens.to(torch.bfloat16))
+        return self._q_dev
+
+    def seg_ids(self) -> torch.Tensor:
+        """[n_docs_pad] int32: each plane doc's owning segment POSITION
+        (reader order) — the per-segment counting channel of the
+        totals-disabled plane path. Padding docs never match (live is
+        False there), so their attribution is irrelevant; they clamp to
+        the last segment."""
+        cached = getattr(self, "_seg_ids_dev", None)
+        if cached is None:
+            cached = torch.as_tensor(_seg_ids_host(
+                self.doc_base, len(self.segments), self.n_docs_pad),
+                device=self.device)
+            self._seg_ids_dev = cached
+        return cached
+
+
+_PART_CLASSES = {"postings": PlanePostings}
+
+
+def _count_reason(reason: str) -> None:
+    """Typed data-plane routing record (search/telemetry.py taxonomy);
+    lazy import: ops must not import the search package at load time."""
+    from elasticsearch_tpu_torch.search.telemetry import TELEMETRY
+    TELEMETRY.count_fallback(reason)
+
+
+class PlaneRegistry:
+    """Process-global plane residency manager: build-on-demand keyed by
+    (kind, field, segment uid tuple), incremental append across refresh
+    generations, LRU + breaker-aware eviction. ``get`` returning None
+    means "serve this query per-segment" — the plane is an optimization,
+    never a correctness gate."""
+
+    MAX_PARTS = 64
+    MAX_REFUSALS = 128
+
+    def __init__(self):
+        self._parts: "OrderedDict[Tuple, PlanePart]" = OrderedDict()
+        # keys refused by the budget, with the budget "token" they were
+        # refused under: an over-budget shard must fast-miss (no per-query
+        # host re-pack, no shedding every other shard's hot planes) until
+        # either a refresh changes its key or the budget itself changes
+        self._refused: "OrderedDict[Tuple, Tuple]" = OrderedDict()
+        # dynamic config (search.plane.* cluster settings; applied via
+        # configure_from_state on nodes, directly in unit tests/bench)
+        self.enabled = True
+        self.min_segments = 2
+        self.rerank_depth = 128
+        self.rerank_depth_max = 1024
+        self.quantized = True
+        self.max_bytes = 0          # 0 = breaker-only budgeting
+        self.stats: Dict[str, int] = {
+            "plane_builds": 0,
+            "plane_full_rebuilds": 0,
+            "plane_incremental_appends": 0,
+            "plane_evictions": 0,
+            "plane_miss_fallbacks": 0,
+            "quantized_queries": 0,
+            "rerank_escalations": 0,
+            "quantized_exact_fallbacks": 0,
+            "quantized_disengaged_slow": 0,
+            "ivf_warm_starts": 0,
+            "plane_aggs_queries": 0,
+            "plane_aggs_fallbacks": 0,
+        }
+        # measured-latency engage rule for the quantized coarse tier:
+        # per-(query class, tier) EWMAs of observed per-query serve
+        # latency. On backends where bf16 is emulated (the CPU-fallback
+        # box) the coarse pass can measure SLOWER than exact — the
+        # corpus-size gate alone cannot see that, so the registry
+        # compares what it actually measured and disengages the tier,
+        # still probing occasionally so a backend change can re-engage.
+        self._lat_ewma: Dict[Tuple[str, str], float] = {}
+        self._lat_n: Dict[Tuple[str, str], int] = {}
+        self._probe_counter: Dict[str, int] = {}
+        # adaptive re-rank depth histogram: served depth -> query count
+        # (the k' each query's margin actually settled at — the coarse
+        # tier's observability surface, next to quantized_queries)
+        self.rerank_depth_hist: Dict[int, int] = {}
+        # device-observatory residency record: monotonically stamped
+        # generations, the resident-bytes high-water mark, and WHY each
+        # plane left HBM (the "device_profile" stats section)
+        self._gen = 0
+        self.hbm_high_water = 0
+        self.evictions_by_cause: Dict[str, int] = {}
+
+    # -- config ---------------------------------------------------------
+
+    def configure_from_state(self, state) -> None:
+        """Refresh config from committed cluster settings. Re-parsing per
+        query would tax the very hot path this module shrinks, so the
+        parse is memoized on the state version (settings only change
+        through a committed state)."""
+        version = getattr(state, "version", None)
+        if version is not None and \
+                version == getattr(self, "_cfg_version", None):
+            return
+        self._cfg_version = version
+        from elasticsearch_tpu_torch.utils.settings import (
+            SEARCH_PLANE_ENABLED, SEARCH_PLANE_MAX_BYTES,
+            SEARCH_PLANE_MIN_SEGMENTS, SEARCH_PLANE_QUANTIZED,
+            SEARCH_PLANE_RERANK_DEPTH, SEARCH_PLANE_RERANK_DEPTH_MAX,
+            setting_from_state,
+        )
+        self.enabled = setting_from_state(state, SEARCH_PLANE_ENABLED)
+        self.min_segments = setting_from_state(state,
+                                               SEARCH_PLANE_MIN_SEGMENTS)
+        self.rerank_depth = setting_from_state(state,
+                                               SEARCH_PLANE_RERANK_DEPTH)
+        self.rerank_depth_max = setting_from_state(
+            state, SEARCH_PLANE_RERANK_DEPTH_MAX)
+        self.quantized = setting_from_state(state, SEARCH_PLANE_QUANTIZED)
+        self.max_bytes = setting_from_state(state, SEARCH_PLANE_MAX_BYTES)
+
+    def note_quantized(self, depth: int, n_queries: int,
+                       mesh: bool = False) -> None:
+        """A coarse+re-rank pass SERVED ``n_queries`` at re-rank depth
+        ``depth`` (post-escalation). The adaptive-depth histogram covers
+        every coarse tier; ``quantized_queries`` counts only the
+        single-shard plane's serves — mesh serves have their own
+        ``mesh_quantized_queries`` in the mesh section, and one query
+        must not appear under both."""
+        if not mesh:
+            self.stats["quantized_queries"] += int(n_queries)
+        self.rerank_depth_hist[int(depth)] = \
+            self.rerank_depth_hist.get(int(depth), 0) + int(n_queries)
+
+    # -- measured-latency engage rule (quantized coarse tier) -----------
+
+    LAT_ALPHA = 0.3          # EWMA smoothing
+    LAT_MIN_SAMPLES = 5      # per tier before the comparison may fire
+    LAT_SLOW_MARGIN = 1.25   # coarse must be this much slower to lose
+    LAT_PROBE_EVERY = 32     # disengaged tier still probes occasionally
+
+    def note_tier_latency(self, cls: str, tier: str,
+                          seconds: float) -> None:
+        """Record one observed per-query serve latency for a (query
+        class, tier) pair; tier is "coarse" or "exact"."""
+        key = (cls, tier)
+        prev = self._lat_ewma.get(key)
+        self._lat_ewma[key] = float(seconds) if prev is None else \
+            prev + self.LAT_ALPHA * (float(seconds) - prev)
+        self._lat_n[key] = self._lat_n.get(key, 0) + 1
+
+    def quantized_slow(self, cls: str) -> bool:
+        """True when the measured coarse EWMA for this class is decisively
+        slower than the exact EWMA (both with enough samples)."""
+        if self._lat_n.get((cls, "coarse"), 0) < self.LAT_MIN_SAMPLES or \
+                self._lat_n.get((cls, "exact"), 0) < self.LAT_MIN_SAMPLES:
+            return False
+        return self._lat_ewma[(cls, "coarse")] > \
+            self._lat_ewma[(cls, "exact")] * self.LAT_SLOW_MARGIN
+
+    def quantized_engaged(self, cls: str) -> bool:
+        """Should this query attempt the coarse tier? The corpus-size
+        gate still applies downstream; this adds the observed-latency
+        comparison. A disengaged class lets every LAT_PROBE_EVERY-th
+        query through so the coarse EWMA keeps tracking the backend —
+        without the probe a one-time slow measurement would disengage
+        the tier forever."""
+        if not self.quantized_slow(cls):
+            return True
+        n = self._probe_counter.get(cls, 0) + 1
+        self._probe_counter[cls] = n
+        if n % self.LAT_PROBE_EVERY == 0:
+            return True
+        self.stats["quantized_disengaged_slow"] += 1
+        return False
+
+    # -- lookup / build -------------------------------------------------
+
+    def _budget_token(self) -> Tuple:
+        from elasticsearch_tpu_torch.indices.breaker import BREAKERS
+        return (int(self.max_bytes), int(BREAKERS.breaker("device").limit))
+
+    def _refuse(self, key: Tuple) -> None:
+        self.stats["plane_miss_fallbacks"] += 1
+        _count_reason("plane_budget_refused")
+        self._refused[key] = self._budget_token()
+        while len(self._refused) > self.MAX_REFUSALS:
+            self._refused.popitem(last=False)
+
+    def get(self, segments, kind: str, field: str,
+            device: DeviceLike = None) -> Optional[PlanePart]:
+        if kind not in _PART_CLASSES:
+            raise NotPortedError(f"plane_{kind}")
+        dev = resolve_device(device)
+        if not self.enabled:
+            _count_reason("plane_disabled")
+            return None
+        segments = list(segments)
+        if len(segments) < max(1, self.min_segments):
+            _count_reason("plane_too_few_segments")
+            return None
+        key = (kind, field, str(dev)) + tuple(s.uid for s in segments)
+        part = self._parts.get(key)
+        if part is not None:
+            self._parts.move_to_end(key)
+            return part
+        refused_under = self._refused.get(key)
+        if refused_under is not None:
+            if refused_under == self._budget_token():
+                self.stats["plane_miss_fallbacks"] += 1
+                _count_reason("plane_budget_refused")
+                return None
+            self._refused.pop(key, None)   # budget changed: try again
+        return self._build(segments, kind, field, key, dev)
+
+    def _build(self, segments, kind: str, field: str, key: Tuple,
+               dev: torch.device) -> Optional[PlanePart]:
+        uids = tuple(s.uid for s in segments)
+        prev = None
+        for k2, p2 in reversed(self._parts.items()):
+            if k2[:3] == key[:3] and \
+                    len(p2.uids) < len(uids) and \
+                    uids[: len(p2.uids)] == p2.uids:
+                prev = p2
+                break
+        part = _PART_CLASSES[kind](field, segments, dev)
+        try:
+            host = part.build(prev)
+        except PlaneUnavailable:
+            _count_reason("plane_field_absent")
+            return None
+        part.nbytes = sum(int(a.nbytes) for a in host)
+        if self.max_bytes and part.nbytes > int(self.max_bytes):
+            self._refuse(key)
+            return None
+        from elasticsearch_tpu_torch.indices.breaker import (
+            BREAKERS, account_device_arrays,
+        )
+        label = f"plane_{kind}:{field}"
+        charge = None
+        try:
+            charge = account_device_arrays(part, host, label,
+                                           return_charge=True)
+        except CircuitBreakingError:
+            device_limit = BREAKERS.breaker("device").limit
+            if 0 < device_limit < part.nbytes:
+                # can NEVER fit: don't shed anyone's planes for it
+                self._refuse(key)
+                return None
+            # evict in LRU order, ONE plane at a time, releasing each
+            # charge immediately (not at GC) and retrying — so a budget
+            # that fits both hot shards after dropping one cold plane
+            # keeps the other hot plane resident instead of ping-ponging
+            while self._parts:
+                self._drop(next(iter(self._parts)),
+                           cause="breaker_pressure")
+                try:
+                    charge = account_device_arrays(part, host, label,
+                                                   return_charge=True)
+                    break
+                except CircuitBreakingError:
+                    continue
+            if charge is None:
+                self._refuse(key)
+                return None
+        part._charges.append(charge)
+        part.upload(host)
+        self.stats["plane_builds"] += 1
+        part.generation = self._gen
+        part.built_at = time.monotonic()
+        self._gen += 1
+        if prev is not None:
+            self.stats["plane_incremental_appends"] += 1
+            # the superseded generation is NOT dropped eagerly: a
+            # point-in-time reader (scroll) acquired before the refresh
+            # still queries the old segment set, and dropping it here
+            # would force a full re-pack on its next query. It ages out
+            # via LRU, merge invalidation, or the breaker-pressure shed.
+        else:
+            self.stats["plane_full_rebuilds"] += 1
+        self._parts[key] = part
+        self.hbm_high_water = max(
+            self.hbm_high_water,
+            sum(p.nbytes for p in self._parts.values()))
+        while len(self._parts) > self.MAX_PARTS:
+            self._drop(next(iter(self._parts)), cause="lru")
+        return part
+
+    # -- eviction / lifecycle -------------------------------------------
+
+    def _drop(self, key: Tuple, count_eviction: bool = True,
+              cause: str = "lru") -> None:
+        part = self._parts.pop(key, None)
+        if part is None:
+            return
+        part.release()      # budget back NOW; GC finalizers then no-op
+        self.evictions_by_cause[cause] = \
+            self.evictions_by_cause.get(cause, 0) + 1
+        if count_eviction:
+            self.stats["plane_evictions"] += 1
+
+    def evict_cold(self) -> int:
+        """Drop every resident plane (LRU pressure valve for a breaker
+        trip), releasing their breaker charges immediately. In-flight
+        queries keep their part's ARRAYS alive through their own
+        references until they finish — the transient undercount is the
+        eviction working as intended."""
+        n = len(self._parts)
+        for key in list(self._parts):
+            self._drop(key, cause="breaker_pressure")
+        return n
+
+    def drop_segments(self, uids) -> None:
+        """Invalidate every plane touching any of these segment uids —
+        the merge path: merged-away segments are dead weight on device
+        and their planes can never be requested again (a merge changes
+        the uid tuple), so free them eagerly instead of waiting for LRU."""
+        uids = set(uids)
+        for key in [k for k, p in self._parts.items()
+                    if uids.intersection(p.uids)]:
+            self._drop(key, count_eviction=False,
+                       cause="merge_invalidated")
+
+    def clear(self) -> None:
+        for key in list(self._parts):
+            self._drop(key, count_eviction=False, cause="clear")
+        self._refused.clear()
+        self._lat_ewma.clear()
+        self._lat_n.clear()
+        self._probe_counter.clear()
+
+    def on_refresh(self, segments) -> None:
+        """Refresh publication: eagerly re-pack any resident plane whose
+        segment set is a strict prefix of the new set (the append-only
+        refresh case), so the refresh pays the upload instead of the next
+        query. Merges (prefix broken) rebuild lazily on demand."""
+        if not self.enabled:
+            return
+        uids = tuple(s.uid for s in segments)
+        todo = set()
+        for key, part in list(self._parts.items()):
+            if part.uids != uids and len(part.uids) < len(uids) and \
+                    uids[: len(part.uids)] == part.uids:
+                todo.add((key[0], key[1], part.device))
+        for kind, field, dev in todo:
+            self.get(segments, kind, field, dev)
+
+    def stats_snapshot(self) -> Dict[str, Any]:
+        by_kind = {"postings": 0, "vectors": 0, "features": 0,
+                   "columns": 0}
+        for p in self._parts.values():
+            by_kind[p.kind] = by_kind.get(p.kind, 0) + p.nbytes
+        return {**self.stats,
+                "planes_resident": len(self._parts),
+                "resident_bytes": by_kind,
+                "rerank_depth": int(self.rerank_depth),
+                "rerank_depth_max": int(self.rerank_depth_max),
+                "rerank_depth_histogram": {
+                    str(d): n for d, n
+                    in sorted(self.rerank_depth_hist.items())},
+                "quantized": bool(self.quantized)}
+
+    def residency_snapshot(self) -> Dict[str, Any]:
+        """The device observatory's HBM residency timeline: every
+        resident plane with its bytes, generation stamp and age, plus
+        the high-water mark and the eviction-cause breakdown — WHERE the
+        HBM went and WHY it left, from the stats surface alone."""
+        now = time.monotonic()
+        total = 0
+        planes = []
+        for p in self._parts.values():
+            total += p.nbytes
+            planes.append({
+                "kind": p.kind, "field": p.field,
+                "bytes": int(p.nbytes),
+                "generation": int(getattr(p, "generation", 0)),
+                "age_s": round(now - getattr(p, "built_at", now), 3),
+            })
+        planes.sort(key=lambda e: -e["age_s"])
+        self.hbm_high_water = max(self.hbm_high_water, total)
+        return {
+            "resident_bytes_total": total,
+            "high_water_bytes": int(self.hbm_high_water),
+            "generations_built": int(self._gen),
+            "planes": planes,
+            "evictions_by_cause": dict(
+                sorted(self.evictions_by_cause.items())),
+        }
+
+
+# one card per process -> one plane residency manager per process
+# (the same reasoning as indices/breaker.py's BREAKERS)
+PLANES = PlaneRegistry()

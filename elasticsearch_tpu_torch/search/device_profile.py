@@ -1,0 +1,124 @@
+"""Launch accounting for the kernel wrappers.
+
+Every kernel wrapper under ``ops/`` reports each call here, by family
+(``bm25_flat``, ``bm25_flat_seg``, ``bm25_coarse``, ``bm25_rerank``):
+
+- ``launches``: how many times the wrapper launched its CUDA kernel. A
+  call on CPU tensors runs the plain PyTorch version and is not a launch.
+  ``chip_smoke.py`` zeroes the counts, drives the main path and requires
+  every family of the path to have launched.
+- ``calls``: every wrapper call, on either device; each is one device
+  program of the request and is reported to the active request's trace
+  through ``telemetry.record_dispatch``.
+- shape buckets: the call shapes seen, with their counts.
+- optional CUDA-event times (``DEVICE_PROFILE.timing = True``): a pair of
+  events around each launch, resolved to milliseconds when read. Off by
+  default, because reading an event pair waits for the card.
+
+Eager PyTorch compiles nothing, so unlike the JAX package's profiled-jit
+wrapper there is no compile tracking here.
+"""
+
+from __future__ import annotations
+
+from contextlib import contextmanager
+from typing import Any, Dict, List, Tuple
+
+from elasticsearch_tpu_torch.search import telemetry
+
+# per-family bound on the shape-bucket map (labels derive from shapes)
+MAX_BUCKETS_PER_FAMILY = 256
+# per-family bound on unresolved CUDA-event pairs
+MAX_PENDING_EVENTS = 4096
+
+
+class FamilyProfile:
+    """One kernel family's record."""
+
+    __slots__ = ("name", "launches", "calls", "shapes", "_pending",
+                 "event_ms", "event_count")
+
+    def __init__(self, name: str):
+        self.name = name
+        self.launches = 0
+        self.calls = 0
+        self.shapes: Dict[str, int] = {}
+        self._pending: List[Tuple[Any, Any]] = []
+        self.event_ms = 0.0         # summed over the timed launches
+        self.event_count = 0
+
+    def resolve_events(self) -> float:
+        """Device milliseconds summed over every timed launch so far
+        (waits for the recorded events to complete)."""
+        for start, end in self._pending:
+            end.synchronize()
+            self.event_ms += float(start.elapsed_time(end))
+            self.event_count += 1
+        self._pending.clear()
+        return self.event_ms
+
+
+class DeviceProfile:
+    """Process-global launch registry (one card per process)."""
+
+    def __init__(self):
+        self._families: Dict[str, FamilyProfile] = {}
+        self.timing = False
+
+    def family(self, name: str) -> FamilyProfile:
+        fam = self._families.get(name)
+        if fam is None:
+            fam = self._families[name] = FamilyProfile(name)
+        return fam
+
+    @contextmanager
+    def call(self, family: str, label: str, launch: bool):
+        """Wrap one wrapper call: ``launch`` is True when it launches the
+        CUDA kernel (False for the plain version on CPU tensors)."""
+        fam = self.family(family)
+        fam.calls += 1
+        fam.shapes[label] = fam.shapes.get(label, 0) + 1
+        while len(fam.shapes) > MAX_BUCKETS_PER_FAMILY:
+            fam.shapes.pop(next(iter(fam.shapes)))
+        telemetry.record_dispatch()
+        if not (launch and self.timing):
+            yield
+            if launch:
+                fam.launches += 1
+            return
+        import torch
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        yield
+        end.record()
+        fam.launches += 1
+        fam._pending.append((start, end))
+        if len(fam._pending) > MAX_PENDING_EVENTS:
+            fam.resolve_events()
+
+    def launches(self) -> Dict[str, int]:
+        return {name: fam.launches
+                for name, fam in sorted(self._families.items())}
+
+    def reset_launches(self) -> None:
+        for fam in self._families.values():
+            fam.launches = 0
+
+    def snapshot(self) -> Dict[str, Any]:
+        out: Dict[str, Any] = {}
+        for name, fam in sorted(self._families.items()):
+            entry: Dict[str, Any] = {
+                "launches": fam.launches, "calls": fam.calls,
+                "shape_buckets": len(fam.shapes)}
+            if fam.resolve_events():
+                entry["event_ms_total"] = round(fam.event_ms, 4)
+                entry["event_ms_count"] = fam.event_count
+            out[name] = entry
+        return {"families": out}
+
+    def reset(self) -> None:
+        self._families.clear()
+
+
+DEVICE_PROFILE = DeviceProfile()

@@ -1,0 +1,433 @@
+"""Shard-level query phase.
+
+The analog of SearchService.executeQueryPhase + QueryPhase.executeInternal
+(search/SearchService.java:366, search/query/QueryPhase.java:171): runs the
+compiled query over every segment of a shard snapshot, applies pagination
+and total-hits tracking, and returns light-weight doc references (fetch
+happens in a separate phase, like the reference's query_then_fetch).
+
+This is the JAX package's ``search/phase.py`` cut to the collector this
+package carries: the block-max-pruned text top-k ("wand_topk"). The
+collector choice is the JAX package's, unchanged; a request that chooses
+any other collector (dense, knn_topk, sparse_topk) raises NotPortedError.
+
+Shard-level term statistics: per-segment idf would skew scores across
+segments, so we aggregate df over all live segments first — the same
+mechanism scales up to the cross-shard DFS phase (search/dfs/DfsPhase.java:43).
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+from typing import Any, Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from elasticsearch_tpu_torch.device import DeviceLike, resolve_device
+from elasticsearch_tpu_torch.index.engine import Reader
+from elasticsearch_tpu_torch.index.segment import BLOCK, next_pow2
+from elasticsearch_tpu_torch.ops.bm25 import KMAX, P1_BUCKET
+from elasticsearch_tpu_torch.mapping import MapperService
+from elasticsearch_tpu_torch.search import dsl
+from elasticsearch_tpu_torch.search.execute import SegmentContext
+from elasticsearch_tpu_torch.utils.errors import (
+    IllegalArgumentError, NotPortedError,
+)
+
+DEFAULT_TRACK_TOTAL_HITS = 10_000
+
+
+@dataclass
+class SortSpec:
+    field: str                  # "_score", "_doc", or a doc-values field
+    order: str = "desc"         # asc | desc
+    missing: Any = None
+
+
+@dataclass
+class ShardDoc:
+    segment_idx: int
+    doc: int                    # local doc id within segment
+    score: float
+    sort_values: Tuple = ()
+    # collapse key (CollapseBuilder analog): set when the request collapses
+    # on a field; the coordinator merge dedups across shards by this value
+    ckey: Any = None
+
+
+@dataclass
+class ShardQueryResult:
+    docs: List[ShardDoc]
+    total_hits: int
+    total_relation: str         # "eq" | "gte"
+    max_score: Optional[float]
+    # per-field term stats used (exposed for the coordinator's DFS merge)
+    doc_count: int = 0
+    dfs: Dict[str, Dict[str, int]] = field(default_factory=dict)
+    # which collector context ran (TopDocsCollectorContext analog) and, for
+    # the pruned path, (posting blocks total, posting blocks scored)
+    collector: str = "dense"
+    prune_stats: Optional[Tuple[int, int]] = None
+    # per-shard profile block when the request set "profile": true
+    # (search/profile/query/QueryProfiler analog)
+    profile: Optional[Dict[str, Any]] = None
+    # the shard stopped counting/collecting at terminate_after
+    terminated_early: bool = False
+
+
+def parse_sort(sort_body: Any) -> List[SortSpec]:
+    if sort_body is None:
+        return [SortSpec("_score")]
+    if isinstance(sort_body, (str, dict)):
+        sort_body = [sort_body]
+    out: List[SortSpec] = []
+    for entry in sort_body:
+        if isinstance(entry, str):
+            out.append(SortSpec(entry, "asc" if entry not in ("_score",) else "desc"))
+        elif isinstance(entry, dict):
+            (fname, spec), = entry.items()
+            if isinstance(spec, str):
+                out.append(SortSpec(fname, spec))
+            else:
+                out.append(SortSpec(fname, spec.get("order", "asc"),
+                                    spec.get("missing")))
+        else:
+            raise IllegalArgumentError(f"bad sort entry {entry!r}")
+    return out
+
+
+def collect_query_terms(q: dsl.Query) -> Dict[str, List[str]]:
+    """Walk the tree for (field -> analyzed terms) needing df stats."""
+    from elasticsearch_tpu_torch.analysis import STANDARD
+    out: Dict[str, List[str]] = {}
+
+    def walk(node, mappers=None):
+        if isinstance(node, dsl.Match):
+            out.setdefault(node.field, []).append(node.text)
+        elif isinstance(node, (dsl.MatchPhrase, dsl.MatchPhrasePrefix)):
+            out.setdefault(node.field, []).append(node.text)
+        elif isinstance(node, dsl.MoreLikeThis):
+            for f in node.fields:
+                for text in node.like:
+                    out.setdefault(f, []).append(text)
+        elif isinstance(node, dsl.MultiMatch):
+            for f in node.fields:
+                out.setdefault(f.partition("^")[0], []).append(node.text)
+        elif isinstance(node, dsl.Bool):
+            for c in node.must + node.should + node.must_not + node.filter:
+                walk(c)
+        elif isinstance(node, (dsl.ConstantScore,)):
+            walk(node.filter)
+        elif isinstance(node, dsl.DisMax):
+            for c in node.queries:
+                walk(c)
+        elif isinstance(node, dsl.Boosting):
+            walk(node.positive)
+            walk(node.negative)
+        elif isinstance(node, (dsl.ScriptScore, dsl.FunctionScore, dsl.Nested)):
+            if node.query is not None:
+                walk(node.query)
+        elif isinstance(node, dsl.Knn) and node.filter is not None:
+            walk(node.filter)
+        elif isinstance(node, dsl.SpanTerm):
+            out.setdefault(node.field, []).append(node.value)
+        elif isinstance(node, dsl.SpanNear):
+            for c in node.clauses:
+                walk(c)
+        elif isinstance(node, dsl.SpanOr):
+            for c in node.clauses:
+                walk(c)
+        elif isinstance(node, dsl.SpanNot):
+            walk(node.include)
+        elif isinstance(node, dsl.SpanFirst):
+            walk(node.match)
+        elif isinstance(node, (dsl.SpanContaining, dsl.SpanWithin)):
+            walk(node.big)
+            walk(node.little)
+        elif isinstance(node, dsl.Pinned) and node.organic is not None:
+            walk(node.organic)
+
+    walk(q)
+    return out
+
+
+def shard_term_stats(reader: Reader, mappers: MapperService,
+                     q: dsl.Query) -> Tuple[int, Dict[str, Dict[str, int]]]:
+    """(doc count, field -> term -> df) aggregated over segments.
+
+    Both counts INCLUDE deleted docs, like Lucene's docFreq/docCount —
+    postings still contain tombstoned entries until a merge purges them, and
+    df <= doc_count must hold or idf goes negative."""
+    doc_count = sum(seg.n_docs for seg in reader.segments)
+    field_texts = collect_query_terms(q)
+    dfs: Dict[str, Dict[str, int]] = {}
+    for fname, texts in field_texts.items():
+        mapper = mappers.mapper(fname)
+        analyzer = getattr(mapper, "search_analyzer", None)
+        if analyzer is None:
+            from elasticsearch_tpu_torch.analysis import STANDARD
+            analyzer = STANDARD
+        terms = set()
+        for t in texts:
+            terms.update(analyzer.terms(t))
+        per_term: Dict[str, int] = {}
+        for term in terms:
+            df = 0
+            for seg in reader.segments:
+                pf = seg.postings.get(fname)
+                if pf is not None:
+                    tid = pf.terms.get(term)
+                    if tid is not None:
+                        df += int(pf.doc_freq[tid])
+            if df:
+                per_term[term] = df
+        dfs[fname] = per_term
+    return doc_count, dfs
+
+
+def shard_field_stats(reader: Reader, mappers: MapperService,
+                      q: dsl.Query) -> Dict[str, Tuple[float, int]]:
+    """field -> (sum_doc_len, docs_with_field) over segments — the
+    CollectionStatistics half of the DFS phase (search/dfs/DfsPhase.java:43
+    ships sumTotalTermFreq + docCount so every shard norms with one global
+    avgdl)."""
+    out: Dict[str, Tuple[float, int]] = {}
+    for fname in collect_query_terms(q):
+        sum_len = 0.0
+        n_docs = 0
+        for seg in reader.segments:
+            pf = seg.postings.get(fname)
+            if pf is not None:
+                sum_len += float(pf.sum_doc_len)
+                n_docs += int((pf.doc_lens > 0).sum())
+        if n_docs:
+            out[fname] = (sum_len, n_docs)
+    return out
+
+
+def wand_clauses(query: dsl.Query, mappers: MapperService
+                 ) -> Optional[Tuple[str, List[Tuple[str, float]]]]:
+    """(field, [(text, boost)]) if the query is a pure disjunctive text
+    scoring query the WAND executor can serve; None otherwise.
+
+    Eligible shapes (the actual weak-AND use cases,
+    TopDocsCollectorContext.java:127): a Match with OR semantics, or a
+    Bool of ONLY should Match clauses on the SAME analyzed text field —
+    per-clause boosts ride into the block weights. Shape extraction is
+    shared with the mesh plane (dsl.disjunctive_clauses); this adds the
+    field-type check. (Term clauses stay dense: this build's dense
+    handler scores term-on-text as constant boost, and collector choice
+    must never change scores.)"""
+    got = dsl.disjunctive_clauses(query)
+    if got is None:
+        return None
+    field, clauses = got
+    if mappers.field_type(field) not in ("text", "search_as_you_type"):
+        return None
+    return field, clauses
+
+
+def choose_collector_context(query: dsl.Query,
+                             mappers: MapperService,
+                             sort: List[SortSpec],
+                             search_after: Optional[Sequence[Any]],
+                             min_score: Optional[float],
+                             collectors: Optional[List],
+                             track_total_hits: Any,
+                             size: int) -> str:
+    """Pick the shard collector the way TopDocsCollectorContext.java:215
+    does: a pure score-sorted top-k disjunctive text query with no
+    aggregations runs through the block-max-pruned batched device executor
+    ("wand_topk"); everything else takes the dense score-vector path
+    ("dense").
+
+    Totals semantics on this static-shape machine
+    (counts-then-skip, the reference's collector behavior): with a finite
+    track_total_hits threshold (the default 10,000 included) the pruned
+    path counts matching docs from the score plane of the blocks it
+    gathers — if the observed count reaches the threshold the response is
+    ("gte", threshold), exactly the reference's early-termination
+    contract; if not, the shard re-scores unpruned (cheap: few blocks) for
+    an exact count. Only track_total_hits: true (exact count, unbounded)
+    forces the dense path."""
+    if size <= 0 or collectors or min_score is not None:
+        return "dense"
+    if search_after is not None:
+        return "dense"
+    if not (len(sort) == 1 and sort[0].field == "_score"
+            and sort[0].order == "desc"):
+        return "dense"
+    if track_total_hits is True:
+        return "dense"
+    if wand_clauses(query, mappers) is not None:
+        return "wand_topk"
+    # pure top-k kNN / resolved-expansion shapes skip the dense score
+    # vector when the shard plane is resident (query_shard falls back to
+    # "dense" when it is not). The COLLECTOR choice itself never changes
+    # results; the quantized plane kNN pass is exact up to its re-rank
+    # depth by contract (search.plane.rerank_depth / quantized settings)
+    if isinstance(query, dsl.Knn) and \
+            mappers.field_type(query.field) == "dense_vector":
+        return "knn_topk"
+    if isinstance(query, dsl.TextExpansion) and query.tokens:
+        return "sparse_topk"
+    return "dense"
+
+
+def query_shard(reader: Reader,
+                mappers: MapperService,
+                query: dsl.Query,
+                size: int = 10,
+                from_: int = 0,
+                sort: Optional[List[SortSpec]] = None,
+                search_after: Optional[Sequence[Any]] = None,
+                track_total_hits: Any = DEFAULT_TRACK_TOTAL_HITS,
+                min_score: Optional[float] = None,
+                doc_count_override: Optional[int] = None,
+                df_overrides: Optional[Dict[str, Dict[str, int]]] = None,
+                field_stats_overrides: Optional[
+                    Dict[str, Tuple[float, int]]] = None,
+                collectors: Optional[List] = None,
+                rescore: Any = None,
+                collapse: Optional[Dict[str, Any]] = None,
+                slice_spec: Optional[Dict[str, Any]] = None,
+                profile: bool = False,
+                terminate_after: Optional[int] = None,
+                cancel_check: Optional[Any] = None,
+                device: DeviceLike = None) -> ShardQueryResult:
+    """Execute one query over all segments of a shard snapshot.
+
+    ``cancel_check``: zero-arg callable raising TaskCancelledError —
+    invoked between segments (the reference checks inside the Lucene
+    collection loop, search/query/QueryPhase.java:115).
+
+    ``collectors``: optional aggregation collectors, each called with
+    (ctx, segment_idx, scores, mask) per segment (two-level agg model).
+
+    Only the block-max-pruned text collector ("wand_topk") is part of this
+    package so far; a request that needs any other collector raises
+    NotPortedError naming it. ``device``: where the segments' device
+    arrays live (None = the CUDA card).
+    """
+    device = resolve_device(device)
+    sort = sort or [SortSpec("_score")]
+    from elasticsearch_tpu_torch.search.execute import resolve_aliases
+    query = resolve_aliases(query, mappers)
+    # sort keys read segment columns directly — resolve aliases here too
+    sort = [SortSpec(mappers.resolve_field(s.field), s.order, s.missing)
+            if not s.field.startswith("_") else s for s in sort]
+    if collapse and isinstance(collapse.get("field"), str):
+        collapse = {**collapse,
+                    "field": mappers.resolve_field(collapse["field"])}
+    doc_count, dfs = shard_term_stats(reader, mappers, query)
+    if doc_count_override is not None:
+        doc_count = doc_count_override
+    if df_overrides is not None:
+        merged = {f: dict(v) for f, v in dfs.items()}
+        for f, terms in df_overrides.items():
+            merged.setdefault(f, {}).update(terms)
+        dfs = merged
+
+    want = from_ + size
+    exact_total = track_total_hits is True or (
+        isinstance(track_total_hits, int) and track_total_hits > 0)
+    track_limit = (1 << 62) if track_total_hits is True else (
+        int(track_total_hits) if track_total_hits else 0)
+
+    # the reader's snapshot mask governs visibility (point-in-time reads),
+    # not the segment's current mask — deletes after snapshot stay invisible
+    ctxs = []
+    for si, (seg, live_host) in enumerate(zip(reader.segments, reader.live_masks)):
+        n_pad = next_pow2(max(seg.n_docs, 1), minimum=BLOCK)
+        snap = np.zeros(n_pad, bool)
+        snap[: len(live_host)] = live_host
+        ctxs.append(SegmentContext(seg, mappers, segment_idx=si,
+                                   doc_count_override=doc_count,
+                                   df_overrides=dfs,
+                                   field_stats_overrides=field_stats_overrides,
+                                   live_override=torch.as_tensor(
+                                       snap, device=device),
+                                   reader=reader, device=device))
+    # collector-context dispatch (TopDocsCollectorContext.java:215 analog):
+    # pure score-sorted top-k text queries with totals disabled skip the
+    # dense score vector entirely and run block-max-pruned device top-k
+    collector = choose_collector_context(
+        query, mappers, sort, search_after, min_score, collectors,
+        track_total_hits, size)
+    if rescore is not None or collapse is not None or slice_spec is not None:
+        # these phases need the full candidate set / extra doc context —
+        # always the dense collector (the reference likewise disables
+        # early termination when rescoring or collapsing)
+        collector = "dense"
+    if terminate_after:
+        # the terminate_after counting contract needs per-segment counts
+        # (QueryPhase.java:223's early-terminating collector)
+        collector = "dense"
+    if collector in ("knn_topk", "sparse_topk") and profile:
+        # the profile block names the dense collectors; keep it truthful
+        collector = "dense"
+    if rescore is not None:
+        if not (len(sort) == 1 and sort[0].field == "_score"):
+            # the reference rejects rescore+sort explicitly; silently
+            # returning unrescored hits would be worse than the error
+            raise IllegalArgumentError(
+                "cannot use [rescore] in combination with [sort]")
+        # the first pass must COLLECT at least the rescore window, or docs
+        # a rescorer would promote are cut by base score before it runs
+        # (SearchService.java sizes the query phase to max(size, window))
+        specs = rescore if isinstance(rescore, list) else [rescore]
+        want = max(want, max(int(s.get("window_size", 10)) for s in specs))
+    import time as _time
+    t_query_start = _time.perf_counter_ns()
+
+    def _profile_block(collector_name: str, reason: str) -> Dict[str, Any]:
+        """QueryProfiler-shaped block: one entry for the query tree, one
+        for the collector, timed wall-to-wall per shard."""
+        elapsed = _time.perf_counter_ns() - t_query_start
+        return {
+            "query": [{
+                "type": type(query).__name__,
+                "description": repr(query),
+                "time_in_nanos": elapsed,
+            }],
+            "collector": [{
+                "name": collector_name,
+                "reason": reason,
+                "time_in_nanos": elapsed,
+            }],
+            "segments": len(ctxs),
+        }
+
+    from elasticsearch_tpu_torch.indices.breaker import BREAKERS
+    request_breaker = BREAKERS.breaker("request")
+    if collector != "wand_topk":
+        raise NotPortedError(f"{collector}_collector")
+    if want > KMAX:
+        # the kernels' CTA-wide top-k holds at most KMAX entries
+        raise NotPortedError(f"wand_topk_window_over_{KMAX}")
+    wc = wand_clauses(query, mappers)
+    assert wc is not None   # choose_collector_context guarantees it
+    w_field, w_clauses = wc
+    # THE pruned text executor — the same Q-query function the
+    # micro-batcher's drains run, with Q=1 (solo is a batch of one:
+    # one kernel call-site per query class on the served path)
+    from elasticsearch_tpu_torch.search.batch_executor import (
+        batched_wand_topk_shard,
+    )
+    # transient: per-segment phase gathers + top-k outputs, NOT a dense
+    # score vector — pruning is precisely what keeps this small
+    transient = sum(
+        (P1_BUCKET * BLOCK * 8) + want * 8 for _ in ctxs)
+    with request_breaker.limit_scope(transient, "wand_topk"):
+        candidates, hits, relation, max_score, prune = \
+            batched_wand_topk_shard(
+                ctxs, w_field, [w_clauses], want,
+                track_limit if exact_total else 0, cancel_check)[0]
+    return ShardQueryResult(
+        candidates[from_: from_ + size], hits, relation, max_score,
+        doc_count=doc_count, dfs=dfs,
+        collector="wand_topk", prune_stats=prune,
+        profile=(_profile_block(
+            "WandTopKCollector", "search_top_hits (block-max pruned)")
+            if profile else None))

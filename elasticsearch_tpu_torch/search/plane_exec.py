@@ -1,0 +1,497 @@
+"""Shard-plane execution of the text class: the whole shard's postings in
+one block store, one kernel launch per phase.
+
+The text half of the JAX package's ``search/plane_exec.py``. Both the solo
+and the batched path call ``plane_wand_topk`` when a postings plane is
+resident, so they share one implementation:
+
+- ``plane_wand_topk``: Q text queries through the block-max-pruned BM25
+  path in TWO launches for the whole shard (phase 1 theta, phase 2
+  survivors) instead of two per segment; per-block avgdl keeps the
+  per-segment length norms exact.
+- ``_coarse_wand_topk``: the quantized two-tier path (bf16 coarse pass +
+  exact f32 re-rank with an adaptive depth) that serves a solo query on a
+  large plane first.
+
+Callers treat a None result as "run the per-segment path".
+"""
+
+from __future__ import annotations
+
+import time
+from typing import Any, Callable, Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from elasticsearch_tpu_torch.index.segment import next_pow2
+from elasticsearch_tpu_torch.ops.bm25 import (
+    DEFAULT_B, DEFAULT_K1, P1_BUCKET, QueryPlan, dispatch_flat,
+)
+from elasticsearch_tpu_torch.ops.device_segment import PLANES
+from elasticsearch_tpu_torch.search import telemetry
+from elasticsearch_tpu_torch.search.phase import ShardDoc
+
+
+class PlaneFallback(Exception):
+    """This batch cannot run on the plane (e.g. IVF-routed members whose
+    num_candidates imply different probe widths); members take the
+    per-segment path."""
+
+
+def _coarse_attempt(cls: str, n_q: int, attempt: Callable[[], Any]):
+    """Measured-latency engage rule shared by every coarse-tier class:
+    the corpus-size gate decides whether coarse CAN engage; this decides
+    whether it SHOULD, from the observed per-query serve latencies. When
+    the coarse EWMA for this class runs decisively slower than the exact
+    EWMA (re-rank escalations eating the bf16/int8 savings), the class
+    disengages — counted ``quantized_disengaged_slow`` — and every 32nd
+    query probes coarse again so a shifted workload can re-engage."""
+    if not PLANES.quantized_engaged(cls):
+        return None
+    t0 = time.monotonic()
+    got = attempt()
+    if got is not None:
+        PLANES.note_tier_latency(cls, "coarse",
+                                 (time.monotonic() - t0) / max(n_q, 1))
+    return got
+
+
+def _note_exact(cls: str, n_q: int, t0: float) -> None:
+    """The exact tier's side of the same comparison — recorded only while
+    the quantized tier is configured on (with it off there is nothing to
+    disengage), so both EWMAs describe the same workload."""
+    if PLANES.quantized:
+        PLANES.note_tier_latency(cls, "exact",
+                                 (time.monotonic() - t0) / max(n_q, 1))
+
+
+# ---------------------------------------------------------------------------
+# adaptive re-rank depth: the margin rule shared by every coarse tier
+# ---------------------------------------------------------------------------
+
+# a-priori per-doc coarse error, relative to the coarse score. bf16
+# classes: every contribution is a product/quotient chain of
+# bf16-rounded operands (<= ~8 ulps ~ 0.031 relative) summed with f32
+# accumulation over strictly positive terms, so 0.04 bounds ANY doc's
+# deviation — included or excluded — and the margin below is a real
+# proof for bm25/sparse. int8 kNN has no usable closed-form bound (it
+# loosens with D and amax/rms), so 0.02 hardens the empirical estimate
+# and the escalate-then-serve-exact backstop owns the tail.
+REL_BF16 = 0.04
+
+
+def _margin_ok(s_k: float, c_cut: float, eps: float, rel: float) -> bool:
+    """True when the coarse pass provably kept the true top-k.
+
+    Any EXCLUDED doc's coarse score is <= ``c_cut`` (the k'-th coarse
+    score), so its exact score is <= c_cut plus its coarse error. The
+    error is bounded two ways at once: ``eps`` is the max observed
+    |exact - coarse| among the re-ranked candidates (doubled for
+    safety), and ``rel`` is the class's a-priori relative bound
+    (REL_BF16 here). When the exact k-th score clears both, no
+    excluded doc can enter the served top-k; when it cannot — including
+    exact-score ties straddling the cut — the caller deepens k' and
+    re-dispatches, bounded by ``search.plane.rerank_depth_max``, past
+    which the EXACT path serves (typed fallback): golden parity is an
+    invariant, not a tuning goal."""
+    if not np.isfinite(c_cut):
+        return True     # fewer matches than k': nothing was excluded
+    if not np.isfinite(s_k):
+        return False
+    return (s_k - c_cut) > (2.0 * eps + rel * abs(c_cut) + 1e-6)
+
+
+def _coarse_depth0(k: int, n_docs_pad: int) -> int:
+    return min(max(int(PLANES.rerank_depth), k), n_docs_pad)
+
+
+def _adaptive_depths(k: int, n_docs_pad: int):
+    """Yield (kprime, is_last) re-rank depths for the adaptive loop:
+    the configured starting depth, doubling per escalation up to
+    ``search.plane.rerank_depth_max`` (or full plane coverage, where
+    nothing can be excluded). Resuming the generator IS the escalation
+    — it counts ``rerank_escalations`` — so every coarse tier shares
+    one depth/bookkeeping discipline; the caller serves and breaks on
+    a clean margin, and falls back to exact when ``is_last`` still
+    cannot prove parity."""
+    depth = _coarse_depth0(k, n_docs_pad)
+    max_depth = max(int(PLANES.rerank_depth_max), depth)
+    while True:
+        kprime = min(depth, n_docs_pad)
+        yield kprime, (kprime >= n_docs_pad or depth >= max_depth)
+        PLANES.stats["rerank_escalations"] += 1
+        depth = min(depth * 2, max_depth)
+
+
+def _count_plane_quantized_fallback() -> None:
+    PLANES.stats["quantized_exact_fallbacks"] += 1
+    telemetry.TELEMETRY.count_fallback(telemetry.PLANE_QUANTIZED_FALLBACK)
+
+
+def _reader_of(ctxs):
+    return ctxs[0].reader
+
+
+# ---------------------------------------------------------------------------
+# text: block-max pruned BM25 over the postings plane
+# ---------------------------------------------------------------------------
+
+def _coarse_wand_topk(part, per_seg, has_terms, n_q: int, live,
+                      eff_block_avgdl, k_plane: int, want: int,
+                      track_limit: int, counts_on: bool,
+                      check_members: Optional[Callable[[], None]],
+                      counter: Optional[list]) -> Optional[List[Tuple]]:
+    """The quantized two-tier text path: ONE bf16 coarse dispatch over
+    the FULL (unpruned) plans — no WAND host planning, no theta sync, no
+    recount — plus ONE exact f32 re-rank of the top-k' candidates, with
+    the adaptive-depth margin loop. Totals come EXACT off the coarse
+    pass's per-segment counts (both the counts-then-skip and the
+    totals-disabled contracts), so no mode needs a second counting
+    dispatch. Returns plane_wand_topk's per-member tuples, or None when
+    the exact phases must serve (corpus below the engage threshold,
+    batch too large for one dispatch, mirror refused, margin exhausted
+    — the latter two typed plane_quantized_fallback)."""
+    from elasticsearch_tpu_torch.ops.bm25 import (
+        MAX_BATCH_CELLS, MAX_CHUNK_Q, bm25_coarse, bm25_rerank,
+        flatten_plans, qb_bucket,
+    )
+    depth0 = _coarse_depth0(k_plane, part.n_docs_pad)
+    if part.n_docs_total <= 4 * depth0:
+        return None
+    offsets = [bb for _c, _p, bb in per_seg]
+    rows = [QueryPlan.concat([p[qi] for _c, p, _bb in per_seg],
+                             idx_offsets=offsets) for qi in range(n_q)]
+    cells = sum(p.n_blocks for p in rows)
+    if n_q > MAX_CHUNK_Q or cells > MAX_BATCH_CELLS:
+        return None     # chunked batches keep the exact phased path
+    mirror = part.quantized_mirror()
+    if mirror is None:
+        _count_plane_quantized_fallback()
+        return None
+    tf16, dl16 = mirror
+    n_q_pad = next_pow2(max(n_q, 1), minimum=1)
+    fb = qb_bucket(max(cells, 1))
+    idx, w, qid = flatten_plans(rows, fb)
+    flat_avg = eff_block_avgdl[idx].astype(np.float32)
+    dev = part.device
+    idx_dev = torch.as_tensor(idx, device=dev)
+    w_dev = torch.as_tensor(w, device=dev)
+    qid_dev = torch.as_tensor(qid, device=dev)
+    favg_dev = torch.as_tensor(flat_avg, device=dev)
+    seg_ids = part.seg_ids()
+    n_segs = len(part.segments)
+    blocks_total = [rows[qi].n_blocks for qi in range(n_q)]
+
+    from elasticsearch_tpu_torch.indices.breaker import BREAKERS
+    for kprime, last in _adaptive_depths(k_plane, part.n_docs_pad):
+        if check_members is not None:
+            check_members()
+        if counter is not None:
+            counter.extend((1, 1))
+        # coarse plane (f32 accumulator) + candidate plane temporaries
+        transient = 8 * part.n_docs_pad * n_q_pad
+        with BREAKERS.breaker("request").limit_scope(
+                transient, "plane_coarse_wand"):
+            cs, cand, hits = bm25_coarse(
+                part.block_docs, tf16, idx_dev, w_dev, qid_dev, dl16,
+                favg_dev, live, seg_ids, part.n_docs_pad, n_q_pad,
+                n_segs, kprime, k1=DEFAULT_K1, b=DEFAULT_B)
+            s, d, eps = bm25_rerank(
+                part.block_docs, part.block_tfs, idx_dev, w_dev,
+                qid_dev, part.doc_lens, favg_dev, live, cand, cs,
+                part.n_docs_pad, n_q_pad, kprime, k_plane,
+                k1=DEFAULT_K1, b=DEFAULT_B)
+        cs_h = cs.cpu().numpy()
+        s_h = s.cpu().numpy()
+        eps_h = eps.cpu().numpy()
+        k_last = min(k_plane, s_h.shape[1]) - 1
+        if all(_margin_ok(float(s_h[qi, k_last]),
+                          float(cs_h[qi, kprime - 1]),
+                          float(eps_h[qi]), REL_BF16)
+               for qi in range(n_q) if has_terms[qi]):
+            break
+        if last:
+            _count_plane_quantized_fallback()
+            return None
+
+    hits_h = hits.cpu().numpy()
+    d_h = d.cpu().numpy()
+    PLANES.note_quantized(kprime, sum(1 for qi in range(n_q)
+                                      if has_terms[qi]))
+    empty = ([], 0, "eq", None, (0, 0))
+    out: List[Tuple] = []
+    for qi in range(n_q):
+        if not has_terms[qi]:
+            out.append(empty)
+            continue
+        s_row, d_row = s_h[qi], d_h[qi]
+        finite = s_row != -np.inf
+        si, local = part.demux(d_row[finite])
+        candidates = [ShardDoc(int(a), int(b), float(sc), (float(sc),))
+                      for a, b, sc in zip(si, local, s_row[finite])]
+        candidates.sort(key=lambda c: (-c.score, c.segment_idx, c.doc))
+        max_score = max((c.score for c in candidates), default=None)
+        # every block was gathered (twice — once per tier): no pruning
+        prune = (blocks_total[qi], blocks_total[qi])
+        h_row = hits_h[qi]
+        if not counts_on:
+            # totals disabled: the per-segment clipped contract, read
+            # off the coarse pass's exact per-segment counts
+            total = int(np.minimum(h_row, want).sum())
+            out.append((candidates, total, "gte", max_score, prune))
+            continue
+        hits_all = int(h_row.sum())
+        if hits_all >= track_limit:
+            out.append((candidates, track_limit, "gte", max_score,
+                        prune))
+        else:
+            out.append((candidates, hits_all, "eq", max_score, prune))
+    return out
+
+
+def plane_wand_topk(ctxs, part, field: str,
+                    clause_lists: List[List[Tuple[str, float]]],
+                    want: int, track_limit: int,
+                    check_members: Optional[Callable[[], None]] = None,
+                    counter: Optional[list] = None) -> Optional[List[Tuple]]:
+    """Q queries through the pruned BM25 path with the whole shard's
+    postings in one block store. Member-for-member identical semantics to
+    the per-segment loops (scores, candidates, counts-then-skip totals);
+    per-member theta comes from that member's own phase-1 partials over
+    ALL segments at once, so segments prune each other exactly as the
+    shard-global theta barrier did — without the per-segment dispatches.
+
+    Returns per member (candidates, hits, relation, max_score,
+    (blocks_total, blocks_scored)).
+
+    Totals-disabled requests (track_limit <= 0) are served too: the
+    per-segment contract reports "candidates found" with PER-SEGMENT
+    truncation (sum of min(matches, want) per segment), which the fused
+    top-k cannot reproduce from a whole-plane count — so the final
+    scoring dispatch counts per segment (``part.seg_ids`` channel) and
+    the host clips each segment's count at the collection window.
+
+    DFS-normed requests (a corpus-wide avgdl override) are served by the
+    second normalization channel: per-doc lengths live on the plane, the
+    per-block avgdl rides the dispatch as a kernel argument — an
+    override simply replaces the baked per-segment values with the
+    corpus-wide one, for plan upper bounds AND the length norm alike."""
+    from elasticsearch_tpu_torch.search.execute import _bm25_planner
+    telemetry.mark_plane_served()
+    counts_on = track_limit > 0
+    n_q = len(clause_lists)
+    reader = _reader_of(ctxs)
+
+    avgdl_override = None
+    per_seg = []        # (ctx, plans[n_q], block_base)
+    seen_terms: List[Dict[str, float]] = [{} for _ in range(n_q)]
+    has_terms = [False] * n_q
+    for pos, pf, block_base, avgdl in part.refs:
+        ctx = ctxs[pos]
+        override = ctx.avgdl_for(field)
+        if override is not None:
+            # DFS-normed: every segment norms against the corpus-wide
+            # avgdl (it is per-request per-field, so one value for all)
+            avgdl_override = float(override)
+            avgdl = avgdl_override
+        analyzer = ctx.search_analyzer(field)
+        ex = _bm25_planner(ctx, field)
+        if ex is None:
+            continue
+        df_map = ctx.df_for(field) or {}
+        member_terms: List[List[Tuple[str, float]]] = []
+        any_terms = False
+        for qi, clauses in enumerate(clause_lists):
+            terms: List[Tuple[str, float]] = []
+            for text, boost in clauses:
+                terms.extend((t, boost) for t in analyzer.terms(text))
+            member_terms.append(terms)
+            if terms:
+                any_terms = True
+                has_terms[qi] = True
+                for t, _b in terms:
+                    if t not in seen_terms[qi]:
+                        seen_terms[qi][t] = float(df_map.get(t, 0))
+        if not any_terms:
+            continue
+        plans = ex.build_plans(member_terms, df_override=df_map or None,
+                               avgdl=avgdl)
+        per_seg.append((ctx, plans, block_base))
+
+    empty = ([], 0, "eq", None, (0, 0))
+    if not per_seg:
+        return [empty] * n_q
+
+    live = part.live_mask(reader.live_masks)
+    k_plane = min(max(want, 1), part.n_docs_pad)
+    empty_plan = QueryPlan([], [], [], [])
+
+    hits_upper = [int(sum(s.values())) for s in seen_terms]
+    exact_mode = [counts_on and hits_upper[qi] <= track_limit
+                  for qi in range(n_q)]
+    # the second normalization channel: per-block avgdl is a DISPATCH
+    # argument, so a DFS override replaces the baked per-segment values
+    eff_block_avgdl = part.block_avgdl if avgdl_override is None else \
+        np.full_like(part.block_avgdl, avgdl_override)
+
+    # quantized coarse tier (search.plane.quantized): bf16 coarse pass
+    # over the full plans + exact f32 re-rank with adaptive depth — the
+    # kNN two-tier pattern generalized to the scatter-bound text class;
+    # None = serve the exact phased path below (typed when it is a
+    # fallback rather than a sizing decision)
+    if PLANES.quantized:
+        got = _coarse_attempt("bm25", n_q, lambda: _coarse_wand_topk(
+            part, per_seg, has_terms, n_q, live, eff_block_avgdl,
+            k_plane, want, track_limit, counts_on, check_members,
+            counter))
+        if got is not None:
+            return got
+    t_exact = time.monotonic()
+
+    def _dispatch(rows, k, counted, count_segments=None):
+        if check_members is not None:
+            check_members()
+        # the scatter materializes a [chunk_q, n_docs_pad] f32 score
+        # plane sized to the WHOLE shard — charge the request breaker for
+        # it (score plane + top-k temporaries) so an over-budget plane
+        # dispatch 429s instead of OOMing the chip
+        from elasticsearch_tpu_torch.indices.breaker import BREAKERS
+        from elasticsearch_tpu_torch.ops.bm25 import MAX_CHUNK_Q
+        transient = 8 * part.n_docs_pad * min(max(len(rows), 1),
+                                              MAX_CHUNK_Q)
+        with BREAKERS.breaker("request").limit_scope(
+                transient, "plane_wand_topk"):
+            return dispatch_flat(part.block_docs, part.block_tfs,
+                                 part.doc_lens, part.n_docs_pad, rows,
+                                 live, k, DEFAULT_K1, DEFAULT_B,
+                                 block_avgdl=eff_block_avgdl,
+                                 counted=counted, counter=counter,
+                                 count_segments=count_segments)
+
+    # phase A — ONE dispatch for the whole shard: exact-mode members score
+    # every block (counted; final), pruned members their per-segment
+    # P1_BUCKET highest-upper-bound blocks (the same block set the
+    # per-segment path's phase 1 gathers)
+    rows_a = []
+    for qi in range(n_q):
+        segs = [p[qi] if exact_mode[qi] else p[qi].top_by_ub(P1_BUCKET)
+                for _ctx, p, _bb in per_seg]
+        rows_a.append(QueryPlan.concat(
+            segs, idx_offsets=[bb for _c, _p, bb in per_seg]))
+    counted_a = any(exact_mode)
+    got_a = _dispatch(rows_a, k_plane, counted_a)
+    if counted_a:
+        s_a, d_a, h_a = got_a
+    else:
+        s_a, d_a = got_a
+        h_a = None
+    s_a_host = np.asarray(s_a)
+
+    theta = np.full(n_q, -np.inf)
+    for qi in range(n_q):
+        if exact_mode[qi]:
+            continue
+        finite = s_a_host[qi][np.isfinite(s_a_host[qi])]
+        if len(finite) >= want:
+            theta[qi] = float(np.sort(finite)[-want])
+
+    # phase B — ONE dispatch: pruned members' WAND survivors scored
+    # exactly (+ counted); exact members ride as empty rows. In
+    # totals-disabled mode the dispatch counts PER SEGMENT so the host
+    # can reproduce the per-segment truncated "candidates found" totals.
+    blocks_total = [0] * n_q
+    blocks_scored = [0] * n_q
+    hits_exact = [True] * n_q
+    need_b = not all(exact_mode)
+    rows_b = []
+    for qi in range(n_q):
+        segs = []
+        for _ctx, plans, _bb in per_seg:
+            p = plans[qi]
+            if exact_mode[qi]:
+                blocks_total[qi] += p.n_blocks
+                blocks_scored[qi] += p.n_blocks
+                segs.append(empty_plan)
+                continue
+            surv = p.survivors(float(theta[qi]))
+            p1_cost = min(p.n_blocks, P1_BUCKET)
+            blocks_total[qi] += p.n_blocks
+            blocks_scored[qi] += min(surv.n_blocks + p1_cost, p.n_blocks)
+            hits_exact[qi] = hits_exact[qi] and surv.n_blocks >= p.n_blocks
+            segs.append(surv)
+        rows_b.append(QueryPlan.concat(
+            segs, idx_offsets=[bb for _c, _p, bb in per_seg]))
+    if need_b:
+        if counts_on:
+            s_b, d_b, h_b = _dispatch(rows_b, k_plane, True)
+        else:
+            s_b, d_b, h_b = _dispatch(
+                rows_b, k_plane, False,
+                count_segments=(part.seg_ids(), len(part.segments)))
+    else:
+        s_b = d_b = h_b = None
+
+    out: List[Tuple] = []
+    for qi in range(n_q):
+        if not has_terms[qi]:
+            out.append(empty)
+            continue
+        if exact_mode[qi]:
+            s_row, d_row = np.asarray(s_a)[qi], np.asarray(d_a)[qi]
+            hits_seen = int(np.asarray(h_a)[qi]) if h_a is not None else 0
+        else:
+            s_row, d_row = np.asarray(s_b)[qi], np.asarray(d_b)[qi]
+            hits_seen = (int(np.asarray(h_b)[qi].sum())
+                         if h_b is not None else 0)
+        finite = s_row != -np.inf
+        si, local = part.demux(d_row[finite])
+        candidates = [ShardDoc(int(s_i), int(d_i), float(sc), (float(sc),))
+                      for s_i, d_i, sc in zip(si, local, s_row[finite])]
+        candidates.sort(key=lambda c: (-c.score, c.segment_idx, c.doc))
+        max_score = max((c.score for c in candidates), default=None)
+        prune = (blocks_total[qi], blocks_scored[qi])
+        if not counts_on:
+            # totals disabled: per-segment "candidates found", each
+            # segment's observed matches truncated at the collection
+            # window — sum of min(matches, want) per segment, exactly
+            # the per-segment path's len(candidates)
+            h_row = np.asarray(h_b)[qi]
+            total = int(np.minimum(h_row, want).sum())
+            out.append((candidates, total, "gte", max_score, prune))
+        elif hits_seen >= track_limit:
+            out.append((candidates, track_limit, "gte", max_score, prune))
+        elif hits_exact[qi] or exact_mode[qi]:
+            out.append((candidates, hits_seen, "eq", max_score, prune))
+        else:
+            out.append((candidates, None, None, max_score, prune))
+
+    # members whose pruned counts might hide hits: one exact unpruned
+    # counted pass (k=1; scores already final) — still ONE dispatch
+    recount = [qi for qi in range(n_q) if counts_on and out[qi][1] is None]
+    if recount:
+        rows_r = []
+        for qi in range(n_q):
+            if qi in recount:
+                rows_r.append(QueryPlan.concat(
+                    [p[qi] for _c, p, _bb in per_seg],
+                    idx_offsets=[bb for _c, _p, bb in per_seg]))
+            else:
+                rows_r.append(empty_plan)
+        _s, _d, h_r = _dispatch(rows_r, 1, True)
+        h_r = np.asarray(h_r)
+        for qi in recount:
+            candidates, _, _, max_score, prune = out[qi]
+            exact_hits = int(h_r[qi])
+            # >= so the relation at count == track_limit is "gte" on
+            # EVERY path — exact-mode and observed-full members already
+            # report "gte" there, and the quantized coarse tier (exact
+            # counts, no pruning visibility) must be byte-identical to
+            # whichever branch the exact path would have taken
+            if exact_hits >= track_limit:
+                out[qi] = (candidates, track_limit, "gte", max_score,
+                           prune)
+            else:
+                out[qi] = (candidates, exact_hits, "eq", max_score, prune)
+    _note_exact("bm25", n_q, t_exact)
+    return out

@@ -1,0 +1,114 @@
+"""elasticsearch_tpu_torch stands alone: it imports PyTorch, never JAX, and
+nothing of the JAX package; and it never runs on the CPU unless asked."""
+
+import ast
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+ROOT = Path(__file__).resolve().parents[1]
+PACKAGE = ROOT / "elasticsearch_tpu_torch"
+FORBIDDEN = ("jax", "jaxlib", "elasticsearch_tpu")
+
+
+def _imported_roots(path: Path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield node.lineno, alias.name
+        elif isinstance(node, ast.ImportFrom) and node.module and \
+                node.level == 0:
+            yield node.lineno, node.module
+
+
+@pytest.mark.parametrize("path", sorted(
+    [p.relative_to(ROOT).as_posix() for p in PACKAGE.rglob("*.py")]
+    + ["chip_smoke.py"]))
+def test_no_jax_or_reference_imports(path):
+    bad = [(line, name) for line, name in _imported_roots(ROOT / path)
+           if name.split(".")[0] in FORBIDDEN]
+    assert not bad, f"{path} imports {bad}"
+
+
+BLOCKER = r'''
+import sys
+
+class Block:
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in ("jax", "jaxlib", "elasticsearch_tpu"):
+            raise ImportError(f"blocked import of {name}")
+        return None
+
+sys.meta_path.insert(0, Block())
+sys.path.insert(0, sys.argv[1])
+from elasticsearch_tpu_torch.index import InternalEngine
+from elasticsearch_tpu_torch.mapping import MapperService
+from elasticsearch_tpu_torch.search import SearchService
+import elasticsearch_tpu_torch.search.plane_exec
+import elasticsearch_tpu_torch.convert
+engine = InternalEngine(MapperService({"properties": {"body": {"type": "text"}}}))
+for i in range(40):
+    engine.index(str(i), {"body": "quick brown fox" if i % 3 else "lazy dog"})
+    if i == 20:
+        engine.refresh()
+engine.refresh()
+r = SearchService(engine, device="cpu").search(
+    {"query": {"match": {"body": "fox"}}})
+assert r["hits"]["total"]["value"] == 26, r["hits"]["total"]
+assert not any(m.split(".")[0] in ("jax", "jaxlib", "elasticsearch_tpu")
+               for m in sys.modules)
+print("served", len(r["hits"]["hits"]))
+'''
+
+
+def test_serves_with_jax_and_the_reference_blocked():
+    out = subprocess.run([sys.executable, "-c", BLOCKER, str(ROOT)],
+                         capture_output=True, text=True, timeout=120,
+                         cwd=str(ROOT))
+    assert out.returncode == 0, out.stderr
+    assert "served 10" in out.stdout
+
+
+def test_no_card_means_an_error_not_the_cpu(monkeypatch):
+    from elasticsearch_tpu_torch.device import resolve_device
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError):
+        resolve_device()
+    with pytest.raises(RuntimeError):
+        resolve_device("cuda")
+    assert resolve_device("cpu") == torch.device("cpu")
+    from elasticsearch_tpu_torch.index import InternalEngine
+    from elasticsearch_tpu_torch.mapping import MapperService
+    from elasticsearch_tpu_torch.search import SearchService
+    engine = InternalEngine(MapperService({"properties": {}}))
+    with pytest.raises(RuntimeError):
+        SearchService(engine)
+
+
+def test_cuda_tensor_never_takes_the_plain_version(monkeypatch):
+    """A wrapper given CUDA tensors launches its kernel or raises: with the
+    kernel library unavailable it raises instead of computing on the
+    host."""
+    from elasticsearch_tpu_torch import _build
+    from elasticsearch_tpu_torch.ops import bm25
+
+    def no_library(family):
+        raise _build.KernelBuildError("no nvcc here")
+
+    monkeypatch.setattr(_build, "library", no_library)
+    monkeypatch.setattr(bm25, "_FNS", {})
+    monkeypatch.setattr(bm25, "_on_cuda", lambda *t: True)
+    monkeypatch.setattr(bm25, "bm25_flat_plain", lambda *a, **k: pytest.fail(
+        "plain version ran for a CUDA call"))
+    n_pad = 256
+    args = [torch.full((2, 128), -1, dtype=torch.int32),
+            torch.zeros(2, 128), torch.zeros(32, dtype=torch.int32),
+            torch.zeros(32), torch.zeros(32, dtype=torch.int32),
+            torch.ones(n_pad), torch.ones(32), torch.ones(n_pad, dtype=bool)]
+    monkeypatch.setattr(bm25, "_stream", lambda: 0)
+    with pytest.raises(_build.KernelBuildError):
+        bm25.bm25_flat(*args, n_pad, 1, 10)

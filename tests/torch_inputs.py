@@ -1,0 +1,45 @@
+"""Seeded kernel inputs shared by the port's kernel tests (numpy only, so
+both the JAX-parity tests and the card test can use them)."""
+
+import numpy as np
+import torch
+
+from elasticsearch_tpu_torch.ops.bm25 import qb_bucket
+
+
+def make_inputs(seed: int, n_docs: int = 3000, nb: int = 96, n_q: int = 4,
+                per_q: int = 20, n_segs: int = 3):
+    """A seeded block store and flat rows padded like ``flatten_plans``."""
+    rng = np.random.default_rng(seed)
+    docs = np.sort(rng.integers(0, n_docs, (nb, 128)), axis=1).astype(np.int32)
+    docs[rng.random((nb, 128)) < 0.1] = -1
+    tfs = np.where(docs >= 0, rng.integers(1, 7, (nb, 128)), 0).astype(
+        np.float32)
+    n_pad = 1
+    while n_pad < n_docs:
+        n_pad *= 2
+    dl = np.zeros(n_pad, np.float32)
+    dl[:n_docs] = rng.integers(16, 97, n_docs)
+    live = np.zeros(n_pad, bool)
+    live[:n_docs] = rng.random(n_docs) > 0.05
+    seg = np.minimum(np.arange(n_pad) * n_segs // n_docs,
+                     n_segs - 1).astype(np.int32)
+    n = n_q * per_q
+    fb = qb_bucket(n)
+    idx = np.zeros(fb, np.int32)
+    w = np.zeros(fb, np.float32)
+    q = np.zeros(fb, np.int32)
+    avg = np.full(fb, 50.0, np.float32)
+    idx[:n] = rng.integers(0, nb, n)
+    w[:n] = rng.uniform(0.2, 9.0, n)
+    q[:n] = np.repeat(np.arange(n_q), per_q)
+    avg[:n] = rng.uniform(40.0, 60.0, n)
+    return dict(docs=docs, tfs=tfs, dl=dl, live=live, seg=seg, idx=idx, w=w,
+                q=q, avg=avg, n_pad=n_pad, n_q=n_q, n_segs=n_segs)
+
+
+def tx(inp, *names):
+    return [torch.as_tensor(inp[n]) for n in names]
+
+
+FLAT = ("docs", "tfs", "idx", "w", "q", "dl", "avg", "live")
