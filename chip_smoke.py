@@ -8,27 +8,48 @@ Phases, each of which fails the run on any failed check:
 1. card: the card's name and power limit (nvidia-smi), and the kernels'
    build from ``elasticsearch_tpu_torch/csrc`` (nvcc, one process per
    source, all started together).
-2. small: each kernel family (bm25_flat counted and not, bm25_flat_seg,
-   bm25_coarse, bm25_rerank) against its plain PyTorch version on the
-   card, on seeded random inputs at a small and a chunked shape: ids,
-   counts and scores must be bitwise equal (the fixed-point design makes
-   them so).
-3. engine: ``InternalEngine`` + ``SearchService`` with one text field,
+2. small: each BM25 kernel family (bm25_flat counted and not,
+   bm25_flat_seg, bm25_coarse, bm25_rerank) against its plain PyTorch
+   version on the card, on seeded random inputs at a small and a chunked
+   shape: ids, counts and scores must be bitwise equal (the fixed-point
+   design makes them so).
+3. knn-small: the kNN kernels (knn_flat, knn_coarse, knn_rerank) against
+   their plain versions on seeded Gaussian inputs: three similarities,
+   B in {1, 8, 64}, D in {128, 960}, k' up to 1024, dead docs, missing
+   vectors, duplicate rows and a zero query row; bitwise equal.
+4. engine: ``InternalEngine`` + ``SearchService`` with one text field,
    50,000 seeded Zipf(1.35) documents over 30,000 words, several
    segments, a few deletes; 32 match bodies at track_total_hits default,
    false and 5 must give the same response on the card as the same
    package on ``device="cpu"`` (ids, totals, relation and max_score equal,
    scores to rtol 1e-6).
-4. full: one shard at MS MARCO passage scale (8,841,823 documents in 4
+5. full: one shard at MS MARCO passage scale (8,841,823 documents in 4
    segments, 16-96 tokens, Zipf(1.35) term ids folded onto a 1,000,000-
    term vocabulary; synthetic and seeded), served through ``query_shard``
    (64 solo queries, quantized tier on) and ``batched_wand_topk_shard``
    (the 64 as one batch on the exact path, with totals counted and with
    totals off). Prints the plane's resident bytes and per-leg latency.
-   Launch counts are zeroed before phases 3-4 and read right after: every
-   kernel family must have launched. Then each family is held against its
+   Launch counts are zeroed before phases 4-5 and read right after: every
+   BM25 family must have launched. Then each family is held against its
    plain version and timed (CUDA events) on inputs captured from the
    main path.
+6. knn-engine: ``InternalEngine`` + ``SearchService`` on 20,000 seeded
+   docs with one 128-dim Gaussian vector each, mapped under the three
+   similarities, four segments, a few deletes; 32 knn bodies over planes
+   on and off and the quantized tier on and off must give the same
+   response on the card as on ``device="cpu"``, score bits included.
+7. knn-full: one shard at SIFT1M's shape (1,000,000 docs x 128 dims,
+   integers in [0, 255], clustered and seeded; 4 segments of 250,000;
+   cosine, ``index_options.type: flat``), 64 held-out queries, k 10,
+   num_candidates 100, in four legs: (a) 64 solo ``query_shard`` calls,
+   tier on; (b) one ``batched_knn_shard`` of the 64, tier on; (c) the
+   same with the tier off (exact plane, knn_flat); (d) the same with no
+   plane (per-segment knn_flat). All legs must agree in ids and score
+   bits, and recall@10 against a float64 exact oracle must be >= 0.95.
+   Launch counts are zeroed before phases 6-7 and read right after: every
+   kNN family must have launched (knn_coarse and knn_rerank in leg (a),
+   knn_flat in legs (c) and (d)). Then each family is held against its
+   plain version and timed at its largest main-path call.
 
 Prints a ``{"kernels": [...]}`` line and, last, the ``{"ok": true, ...}``
 line. Exits non-zero, without the ok line, when there is no CUDA card,
@@ -49,16 +70,23 @@ import time
 SEED = 20261017
 MS_MARCO_DOCS = 8_841_823
 VOCAB = 1_000_000
+SIFT_DOCS = 1_000_000
+SIFT_DIMS = 128
 FAMILIES = ("bm25_flat", "bm25_flat_seg", "bm25_coarse", "bm25_rerank")
+KNN_FAMILIES = ("knn_flat", "knn_coarse", "knn_rerank")
 REPLACES = {
     "bm25_flat": "elasticsearch_tpu/ops/bm25.py:261",
     "bm25_flat_seg": "elasticsearch_tpu/ops/bm25.py:299",
     "bm25_coarse": "elasticsearch_tpu/ops/bm25.py:235",
     "bm25_rerank": "elasticsearch_tpu/ops/bm25.py:248",
+    "knn_flat": "elasticsearch_tpu/ops/knn.py:101",
+    "knn_coarse": "elasticsearch_tpu/ops/knn.py:184",
+    "knn_rerank": "elasticsearch_tpu/ops/knn.py:261",
 }
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM, NVIDIA data sheet
 F32_FLOPS = 67e12              # H100 SXM f32 outside the tensor cores
 BF16_FLOPS = 989e12
+INT8_OPS = 1979e12
 
 
 class SmokeFailure(Exception):
@@ -326,51 +354,52 @@ class Recorder:
     """Keeps the arguments of the main path's kernel calls (recording is
     not a launch) so the families can be held against their plain
     versions on the same inputs afterwards: the first ``keep`` calls of
-    each family, and its largest call (most queries, then most blocks)."""
+    each family, and its largest call by ``size(family, args)``."""
 
-    def __init__(self, bm, keep: int):
-        self.bm = bm
+    def __init__(self, module, families, size, keep: int):
+        self.module = module
+        self.families = families
+        self.size = size
         self.keep = keep
-        self.first = {f: [] for f in FAMILIES}
+        self.first = {f: [] for f in families}
         self.largest = {}
         self._orig = {}
 
     @property
     def calls(self):
         return {f: self.first[f] + ([self.largest[f]] if f in self.largest
-                                    else []) for f in FAMILIES}
+                                    else []) for f in self.families}
 
     def _record(self, fam: str, args, kwargs) -> None:
         call = (args, dict(kwargs))
         if len(self.first[fam]) < self.keep:
             self.first[fam].append(call)
-        size = (n_q_of(fam, args), args[2].numel())
         big = self.largest.get(fam)
-        if big is None or size > (n_q_of(fam, big[0]), big[0][2].numel()):
+        if big is None or self.size(fam, args) > self.size(fam, big[0]):
             self.largest[fam] = call
 
     def __enter__(self):
-        for fam in FAMILIES:
-            orig = getattr(self.bm, fam)
+        for fam in self.families:
+            orig = getattr(self.module, fam)
             self._orig[fam] = orig
 
             def wrapped(*args, _fam=fam, _orig=orig, **kwargs):
                 if args[0].is_cuda:
                     self._record(_fam, args, kwargs)
                 return _orig(*args, **kwargs)
-            setattr(self.bm, fam, wrapped)
+            setattr(self.module, fam, wrapped)
         return self
 
     def __exit__(self, *exc):
         for fam, orig in self._orig.items():
-            setattr(self.bm, fam, orig)
+            setattr(self.module, fam, orig)
 
 
-def device_ms():
+def device_ms(families=FAMILIES):
     """Per family, the device milliseconds of every timed launch so far
     (DEVICE_PROFILE.timing brackets each launch with CUDA events)."""
     from elasticsearch_tpu_torch.search.device_profile import DEVICE_PROFILE
-    return {f: DEVICE_PROFILE.family(f).resolve_events() for f in FAMILIES}
+    return {f: DEVICE_PROFILE.family(f).resolve_events() for f in families}
 
 
 def pct(xs, p: float) -> float:
@@ -528,6 +557,11 @@ def n_q_of(family: str, args) -> int:
     return args[ARG_POS[family][1]]
 
 
+def bm25_size(family: str, args):
+    """(queries, gathered blocks) of a BM25 kernel call."""
+    return n_q_of(family, args), args[2].numel()
+
+
 def bound_of(family: str, args, kwargs):
     """(bound_ms, bytes, ops): the least time the card could take — the
     bytes the function must move (gathered blocks, flat rows, the doc
@@ -634,12 +668,459 @@ def phase_kernels(torch, rec, launches) -> list:
 
 
 # ---------------------------------------------------------------------------
+# kNN: kernels against their plain versions, the engine path, SIFT1M shape
+# ---------------------------------------------------------------------------
+
+def knn_inputs(np, rng, n_docs: int, n_pad: int, dims: int, n_q: int):
+    """Seeded Gaussian kNN inputs: ~10 % missing vectors and deleted docs,
+    three duplicates of row 5 (score ties), an all-zero last query row."""
+    m = rng.standard_normal((n_pad, dims), dtype=np.float32)
+    q = rng.standard_normal((n_q, dims), dtype=np.float32)
+    exists = np.zeros(n_pad, bool)
+    exists[:n_docs] = rng.random(n_docs) > 0.1
+    m[~exists] = 0.0
+    for dup in (11, 17, 40):
+        m[dup] = m[5]
+        exists[dup] = exists[5] = True
+    live = np.zeros(n_pad, bool)
+    live[:n_docs] = rng.random(n_docs) > 0.1
+    live[[5, 11, 17, 40]] = True
+    norms = np.linalg.norm(m, axis=1).astype(np.float32)
+    q[-1] = 0.0
+    return m, norms, exists, live, q
+
+
+def phase_knn_small(torch, np, dev) -> None:
+    """K5, K6 and K7 against their plain versions on the card: three
+    similarities, B in {1, 8, 64}, D in {128, 960}, k' up to 1024, over
+    enough docs that the chunked top-k merges (bitwise equal)."""
+    from elasticsearch_tpu_torch.ops import knn
+    from elasticsearch_tpu_torch.ops.device_segment import quantize_rows
+    rng = np.random.default_rng(SEED + 11)
+    n = 0
+    for dims, n_docs, n_pad in ((128, 200_000, 262_144),
+                                (960, 100_000, 131_072)):
+        m, norms, exists, live, _q = knn_inputs(np, rng, n_docs, n_pad,
+                                                dims, 1)
+        q8, scales = quantize_rows(m)
+        T = lambda a: torch.as_tensor(a, device=dev)  # noqa: E731
+        mt, nt, allowed = T(m), T(norms), T(live & exists)
+        q8t, st = T(q8), T(scales)
+        del m, q8
+        for n_q in (1, 8, 64):
+            q = rng.standard_normal((n_q, dims), dtype=np.float32)
+            q[-1] = 0.0
+            batch = knn.QueryBatch(q, dev)
+            qq, qscale = batch.quantized()
+            for sim in ("cosine", "dot_product", "l2_norm"):
+                args = (mt, nt, allowed, batch.queries, batch.qn, batch.q2)
+                got = knn.knn_flat(*args, 100, sim)
+                want = knn.knn_flat_plain(*args, 100, sim)
+                torch.cuda.synchronize()
+                compare(torch, f"knn_flat D={dims} B={n_q} {sim}", got, want)
+                kprime = 1024 if n_q == 1 else 256
+                cargs = (q8t, st, nt, allowed, qq, qscale, batch.qn,
+                         batch.q2)
+                got = knn.knn_coarse(*cargs, kprime, sim)
+                want = knn.knn_coarse_plain(*cargs, kprime, sim)
+                torch.cuda.synchronize()
+                compare(torch, f"knn_coarse D={dims} B={n_q} {sim}", got,
+                        want)
+                cs, cand = want
+                got = knn.knn_rerank(*args, cand, cs, 10, sim)
+                want = knn.knn_rerank_plain(*args, cand, cs, 10, sim)
+                torch.cuda.synchronize()
+                compare(torch, f"knn_rerank D={dims} B={n_q} {sim}", got,
+                        want)
+                n += 3
+        del mt, q8t
+        torch.cuda.empty_cache()
+    log(f"knn-small: {n} kernel calls (knn_flat, knn_coarse, knn_rerank; "
+        f"3 similarities, B 1/8/64, D 128/960, k' up to 1024) bitwise equal "
+        f"to their plain versions")
+
+
+KNN_FIELDS = {"cosine": "vec_cos", "dot_product": "vec_dot",
+              "l2_norm": "vec_l2"}
+
+
+def phase_knn_engine(torch, np, dev, n_docs: int) -> None:
+    """InternalEngine + SearchService with one 128-dim vector per doc,
+    mapped under the three similarities; 32 knn bodies over planes on and
+    off and the quantized tier on and off must give the same response on
+    the card as on the CPU (ids, totals, max_score and score bits)."""
+    from elasticsearch_tpu_torch.index import InternalEngine
+    from elasticsearch_tpu_torch.mapping import MapperService
+    from elasticsearch_tpu_torch.ops.device_segment import PLANES
+    from elasticsearch_tpu_torch.search import SearchService
+    rng = np.random.default_rng(SEED + 13)
+    props = {f: {"type": "dense_vector", "dims": 128, "similarity": sim}
+             for sim, f in KNN_FIELDS.items()}
+    engine = InternalEngine(MapperService({"properties": props}),
+                            shard_label="smoke-knn")
+    t0 = time.monotonic()
+    vecs = rng.standard_normal((n_docs, 128), dtype=np.float32)
+    cuts = {n_docs // 4, n_docs // 2, 3 * n_docs // 4}
+    for i in range(n_docs):
+        v = vecs[i].tolist()
+        engine.index(str(i), {f: v for f in KNN_FIELDS.values()})
+        if i in cuts:
+            engine.refresh()
+    engine.refresh()
+    for i in rng.choice(n_docs, 20, replace=False):
+        engine.delete(str(int(i)))
+    engine.refresh()
+    n_segs = len(engine.acquire_reader().segments)
+    log(f"knn-engine: {n_docs} docs in {n_segs} segments, indexed in "
+        f"{time.monotonic() - t0:.1f}s")
+    check(n_segs >= 2, "knn-engine: fewer than 2 segments")
+    on_dev = SearchService(engine, index_name="smoke", device=dev)
+    on_cpu = SearchService(engine, index_name="smoke", device="cpu")
+    sims = list(KNN_FIELDS)
+    keep = (PLANES.enabled, PLANES.quantized)
+    served0 = PLANES.stats["quantized_queries"]
+    t_dev = []
+    try:
+        for i in range(32):
+            sim = sims[i % 3]
+            PLANES.enabled = (i // 3) % 2 == 0
+            PLANES.quantized = (i // 6) % 2 == 0
+            q = rng.standard_normal(128, dtype=np.float32).tolist()
+            k = (10, 25)[i % 2]
+            body = {"query": {"knn": {"field": KNN_FIELDS[sim],
+                                      "query_vector": q, "k": k,
+                                      "num_candidates": 100}},
+                    "size": 10, "from": 5 if k == 25 else 0,
+                    "_source": False}
+            t1 = time.monotonic()
+            a = on_dev.search(body)
+            t_dev.append(time.monotonic() - t1)
+            b = on_cpu.search(body)
+            ha, hb = a["hits"], b["hits"]
+            check([h["_id"] for h in ha["hits"]]
+                  == [h["_id"] for h in hb["hits"]],
+                  f"knn-engine: ids differ (body {i}, {sim})")
+            check([h["_score"] for h in ha["hits"]]
+                  == [h["_score"] for h in hb["hits"]],
+                  f"knn-engine: scores differ (body {i}, {sim})")
+            check(ha["total"] == hb["total"] and
+                  ha["max_score"] == hb["max_score"],
+                  f"knn-engine: totals or max_score differ (body {i})")
+            check(len(ha["hits"]) == 10, f"knn-engine: body {i} short")
+    finally:
+        PLANES.enabled, PLANES.quantized = keep
+    check(PLANES.stats["quantized_queries"] > served0,
+          "knn-engine: the quantized tier never served")
+    t_dev.sort()
+    log(f"knn-engine: 32 responses equal on {dev} and cpu (3 similarities, "
+        f"planes on/off, quantized tier on/off); {dev} latency p50 "
+        f"{1e3 * pct(t_dev, 0.5):.2f} ms p99 {1e3 * pct(t_dev, 0.99):.2f} ms")
+
+
+def sift_shaped(np, seed: int, n: int, centers):
+    """n SIFT1M-shaped vectors: integers in [0, 255], clustered around
+    ``centers`` with a Gaussian spread that varies per vector (8 to 40)."""
+    rng = np.random.default_rng(seed)
+    out = centers[rng.integers(0, len(centers), n)]
+    spread = rng.uniform(8.0, 40.0, (n, 1)).astype(np.float32)
+    out = out + rng.standard_normal(out.shape, dtype=np.float32) * spread
+    return np.clip(np.rint(out), 0, 255).astype(np.float32)
+
+
+def build_sift_shard(np, n_docs: int):
+    from elasticsearch_tpu_torch.index.segment import Segment, VectorField
+    rng = np.random.default_rng(SEED + 200)
+    centers = rng.integers(16, 200, (1000, SIFT_DIMS)).astype(np.float32)
+    sizes = [n_docs // 4 + (1 if i < n_docs % 4 else 0) for i in range(4)]
+    segs = []
+    for i, n in enumerate(sizes):
+        m = sift_shaped(np, SEED + 201 + i, n, centers)
+        seg = Segment(f"sift{i}", n)
+        seg.vectors["vec"] = VectorField(
+            matrix=m, exists=np.ones(n, bool),
+            norms=np.linalg.norm(m, axis=1).astype(np.float32),
+            similarity="cosine", dims=SIFT_DIMS)
+        seg.ids = [str(j) for j in range(n)]
+        seg.invalidate_live_count()
+        segs.append(seg)
+    queries = sift_shaped(np, SEED + 299, 64, centers)
+    return segs, queries
+
+
+def recall_at_10(np, segs, queries, answers) -> float:
+    """Recall@10 of the served answers against an exact float64 cosine
+    top-10 over every doc, on the host."""
+    q = queries.astype(np.float64)
+    q /= np.linalg.norm(q, axis=1, keepdims=True)
+    best = []          # per segment: (scores [64, 10], (seg, doc) ids)
+    for si, seg in enumerate(segs):
+        m = seg.vectors["vec"].matrix.astype(np.float64)
+        m /= np.maximum(np.linalg.norm(m, axis=1, keepdims=True), 1e-300)
+        sims = q @ m.T
+        top = np.argpartition(-sims, 10, axis=1)[:, :10]
+        best.append((np.take_along_axis(sims, top, 1), si, top))
+        del m, sims
+    hit = 0
+    for qi, got in enumerate(answers):
+        cand = [(s, si, int(d)) for sc, si, top in best
+                for s, d in zip(sc[qi], top[qi])]
+        cand.sort(key=lambda c: -c[0])
+        truth = {(si, d) for _s, si, d in cand[:10]}
+        hit += len(truth & set(got[:10]))
+    return hit / (10 * len(answers))
+
+
+def knn_size(family: str, args):
+    """(B, docs, k) of a knn_flat call, (B, docs, k') of a knn_coarse
+    call, (B, k', k) of a knn_rerank call."""
+    if family == "knn_coarse":
+        return args[4].shape[0], args[0].shape[0], args[8]
+    if family == "knn_rerank":
+        return args[3].shape[0], args[6].shape[1], args[8]
+    return args[3].shape[0], args[0].shape[0], args[6]
+
+
+def phase_knn_full(torch, np, dev, n_docs: int, n_q: int) -> None:
+    from elasticsearch_tpu_torch.index.engine import Reader
+    from elasticsearch_tpu_torch.mapping import MapperService
+    from elasticsearch_tpu_torch.ops.device_segment import PLANES
+    from elasticsearch_tpu_torch.search import dsl
+    from elasticsearch_tpu_torch.search.batch_executor import (
+        BatchSpec, _build_ctxs, batched_knn_shard,
+    )
+    from elasticsearch_tpu_torch.search.device_profile import DEVICE_PROFILE
+    from elasticsearch_tpu_torch.search.phase import query_shard
+
+    t0 = time.monotonic()
+    segs, queries = build_sift_shard(np, n_docs)
+    queries = queries[:n_q]
+    log(f"knn-full: {n_docs} docs x {SIFT_DIMS} dims (integers 0..255, "
+        f"clustered) in {len(segs)} segments, built in "
+        f"{time.monotonic() - t0:.1f}s")
+    mappers = MapperService({"properties": {"vec": {
+        "type": "dense_vector", "dims": SIFT_DIMS, "similarity": "cosine",
+        "index_options": {"type": "flat"}}}})
+    reader = Reader(segs)
+    PLANES.clear()
+    PLANES.enabled, PLANES.quantized = True, True
+    t1 = time.monotonic()
+    part = PLANES.get(segs, "vectors", "vec", dev)
+    check(part is not None, "knn-full: the vector plane was refused")
+    exact_bytes = part.nbytes
+    check(part.quantized_mirror() is not None,
+          "knn-full: the int8 mirror was refused")
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    log(f"knn-full: plane n_docs_pad={part.n_docs_pad} resident bytes "
+        f"{part.nbytes} (matrix+norms+exists {exact_bytes}, int8 mirror + "
+        f"scales {part.nbytes - exact_bytes}); torch.cuda.memory_allocated="
+        f"{torch.cuda.memory_allocated() if dev.type == 'cuda' else 0}; "
+        f"built+uploaded+quantized in {time.monotonic() - t1:.1f}s")
+
+    vecs = [[float(x) for x in q] for q in queries]
+
+    def solo(v):
+        return query_shard(reader, mappers, dsl.Knn(
+            field="vec", query_vector=v, k=10, num_candidates=100),
+            size=10, device=dev)
+
+    specs = [BatchSpec(kind="knn", field="vec", window=10, query_vector=v,
+                       k=10, num_candidates=100) for v in vecs]
+    ctxs = _build_ctxs(reader, mappers, None, None, device=dev)
+    solo(vecs[0])          # untimed: the first query's host set-up
+    DEVICE_PROFILE.timing = dev.type == "cuda"
+    prev = device_ms(KNN_FAMILIES)
+    prev_n = DEVICE_PROFILE.launches()
+    legs, answers, stats, launched = {}, {}, {}, {}
+
+    def rebase():
+        """Leg baselines after a warm-up: its launches still count on the
+        main path, but not in the leg's times."""
+        nonlocal prev, prev_n
+        prev, prev_n = device_ms(KNN_FAMILIES), DEVICE_PROFILE.launches()
+        return dict(PLANES.stats)
+
+    def note(leg, times, got, st0):
+        nonlocal prev, prev_n
+        now = device_ms(KNN_FAMILIES)
+        now_n = DEVICE_PROFILE.launches()
+        legs[leg] = (times, {f: round(now[f] - prev[f], 4)
+                             for f in KNN_FAMILIES})
+        launched[leg] = {f: now_n.get(f, 0) - prev_n.get(f, 0)
+                         for f in KNN_FAMILIES}
+        prev, prev_n = now, now_n
+        answers[leg] = got
+        stats[leg] = {k: PLANES.stats[k] - st0[k] for k in (
+            "quantized_queries", "rerank_escalations",
+            "quantized_exact_fallbacks")}
+
+    try:
+        st0 = dict(PLANES.stats)
+        times, got = [], []
+        for v in vecs:
+            t = time.monotonic()
+            res = solo(v)
+            times.append(time.monotonic() - t)
+            got.append([(d.segment_idx, d.doc, d.score) for d in res.docs])
+        note("a_solo_tier_on", times, got, st0)
+        for leg, enabled, quantized in (("b_batch_tier_on", True, True),
+                                        ("c_batch_exact_plane", True, False),
+                                        ("d_batch_per_segment", False,
+                                         False)):
+            PLANES.enabled, PLANES.quantized = enabled, quantized
+            batched_knn_shard(ctxs, "vec", specs, 10)   # warm-up
+            st0 = rebase()
+            times = []
+            for _rep in range(3):
+                t = time.monotonic()
+                out = batched_knn_shard(ctxs, "vec", specs, 10)
+                times.append(time.monotonic() - t)
+            note(leg, times, [[(d.segment_idx, d.doc, d.score)
+                               for d in c[:10]] for c, *_ in out], st0)
+    finally:
+        PLANES.enabled, PLANES.quantized = True, True
+        DEVICE_PROFILE.timing = False
+    base = answers["a_solo_tier_on"]
+    for leg, got in answers.items():
+        check(got == base, f"knn-full: leg {leg} differs from the solo leg "
+              f"(ids or score bits)")
+    for res in base:
+        check(len(res) == 10 and all(math.isfinite(s) and 0 <= s <= 1
+                                     for _si, _d, s in res),
+              "knn-full: an answer is short or has a bad score")
+    check(stats["a_solo_tier_on"]["quantized_queries"] > 0,
+          "knn-full: the quantized tier served no solo query")
+    if dev.type == "cuda":
+        check(launched["a_solo_tier_on"]["knn_coarse"] > 0 and
+              launched["a_solo_tier_on"]["knn_rerank"] > 0,
+              "knn-full: the solo leg launched no knn_coarse/knn_rerank")
+        for leg in ("c_batch_exact_plane", "d_batch_per_segment"):
+            check(launched[leg]["knn_flat"] > 0,
+                  f"knn-full: leg {leg} launched no knn_flat")
+    recall = recall_at_10(np, segs, queries,
+                          [[(si, d) for si, d, _s in r] for r in base])
+    log(f"knn-full: the four legs agree (ids and score bits, {n_q} "
+        f"queries); recall@10 against the float64 exact oracle {recall:.4f}")
+    check(recall >= 0.95, f"knn-full: recall@10 {recall} < 0.95")
+    for leg, (times, kern) in legs.items():
+        per_q = times if leg.startswith("a_") else [t / n_q for t in times]
+        busy = sum(kern.values()) / max(1e3 * sum(times), 1e-9)
+        log(f"knn-full: leg {leg}: wall p50 {1e3 * pct(times, 0.5):.3f} ms "
+            f"p99 {1e3 * pct(times, 0.99):.3f} ms; per query p50 "
+            f"{1e3 * pct(per_q, 0.5):.3f} ms; wall total "
+            f"{1e3 * sum(times):.1f} ms over {len(times)} runs; kernel "
+            f"device ms {kern}; launches {launched[leg]}; kernel-busy "
+            f"share {busy:.4f}; tier {stats[leg]}")
+
+
+def knn_bound(family: str, args):
+    """(bound_ms, bound_by, bytes): the least time the card could take --
+    the bytes the function must move (each input read once, each output
+    written once) over the memory rate, or its products at the tensor
+    cores' rate for the operand type plus ~8 f32 ops a score for the
+    transform, whichever is larger."""
+    if family == "knn_coarse":
+        q8, qq, kp = args[0], args[4], args[8]
+        n, d = q8.shape
+        b = qq.shape[0]
+        nbytes = n * d + n * 9 + b * d + b * 12 + b * kp * 8
+        t_ops = 2 * b * n * d / INT8_OPS + 8 * b * n / F32_FLOPS
+    elif family == "knn_rerank":
+        matrix, cand, k = args[0], args[6], args[8]
+        b, kp = cand.shape
+        d = matrix.shape[1]
+        nbytes = b * kp * (d * 4 + 5) + b * d * 4 + b * 8 + b * kp * 8 + \
+            b * k * 8 + b * 4
+        t_ops = 2 * b * kp * d / BF16_FLOPS + 8 * b * kp / F32_FLOPS
+    else:
+        matrix, queries, k = args[0], args[3], args[6]
+        n, d = matrix.shape
+        b = queries.shape[0]
+        nbytes = n * d * 4 + n * 5 + b * d * 4 + b * 8 + b * k * 8
+        t_ops = 2 * b * n * d / BF16_FLOPS + 8 * b * n / F32_FLOPS
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                       else "operations"), nbytes
+
+
+def product_only_ms(torch, family: str, args):
+    """The [B, D] x [D, N] product alone through one library call
+    (torch.matmul in bf16 for knn_flat, torch._int_mm in int8 for
+    knn_coarse): a yardstick for the product, not the fused function.
+    ``_int_mm`` takes at least 17 rows, so smaller batches pad to 32."""
+    if family == "knn_flat":
+        a = args[3].to(torch.bfloat16)
+        m = args[0].to(torch.bfloat16).t()
+        return time_call(torch, lambda: torch.matmul(a, m), 20), a.shape[0]
+    a, m = args[4], args[0].t()
+    if a.shape[0] < 17:
+        a = torch.cat([a, a.new_zeros(32 - a.shape[0], a.shape[1])])
+    return time_call(torch, lambda: torch._int_mm(a, m), 20), a.shape[0]
+
+
+def phase_knn_kernels(torch, rec, launches) -> list:
+    from elasticsearch_tpu_torch.ops import knn
+    rows = []
+    for fam in KNN_FAMILIES:
+        calls = rec.calls[fam]
+        check(bool(calls), f"kernels: no {fam} call recorded")
+        err = 0.0
+        for args, kwargs in calls[:8] + calls[-1:]:
+            got = run_family(knn, fam, args, kwargs, plain=False)
+            want = run_family(knn, fam, args, kwargs, plain=True)
+            torch.cuda.synchronize()
+            err = max(err, compare(torch, fam, got, want))
+            del got, want
+        args, kwargs = calls[-1]           # the largest main-path call
+        ms = time_call(torch, lambda: run_family(knn, fam, args, kwargs,
+                                                 False), 20)
+        plain_ms = time_call(torch, lambda: run_family(knn, fam, args,
+                                                       kwargs, True), 20)
+        bound_ms, bound_by, nbytes = knn_bound(fam, args)
+        shape = f"(B, N or k', k) = {knn_size(fam, args)}"
+        row = {"name": fam, "route": "cuda",
+               "source": f"elasticsearch_tpu_torch/csrc/{fam}.cu",
+               "replaces": REPLACES[fam], "launches": launches.get(fam, 0),
+               "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+               "bound_ms": bound_ms, "bound_by": bound_by,
+               "library_ms": None, "shape": shape}
+        extra = ""
+        if fam != "knn_rerank":
+            prod_ms, rows_used = product_only_ms(torch, fam, args)
+            row["product_only_library_ms"] = prod_ms
+            extra = (f", product-only library call {prod_ms:.4f} ms "
+                     f"({rows_used} query rows)")
+        log(f"kernel {fam}: {ms:.4f} ms (median of 20), plain "
+            f"{plain_ms:.4f} ms (median of 20), bound {bound_ms:.4f} ms "
+            f"({nbytes} bytes at 3.35 TB/s, {bound_by}), max_abs_err {err} "
+            f"over {min(len(calls), 8) + 1} main-path calls, timed at the "
+            f"largest, {shape}{extra}")
+        first, f_kw = calls[0]
+        if knn_size(fam, first) != knn_size(fam, args):
+            # the solo path's call (the first recorded) beside the largest
+            f_ms = time_call(torch, lambda: run_family(knn, fam, first, f_kw,
+                                                       False), 20)
+            f_plain = time_call(torch, lambda: run_family(knn, fam, first,
+                                                          f_kw, True), 20)
+            log(f"kernel {fam}: {f_ms:.4f} ms (median of 20), plain "
+                f"{f_plain:.4f} ms, bound {knn_bound(fam, first)[0]:.4f} ms "
+                f"at the first main-path call, (B, N or k', k) = "
+                f"{knn_size(fam, first)}")
+        rows.append(row)
+        torch.cuda.empty_cache()
+    return rows
+
+
+# ---------------------------------------------------------------------------
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--phases", default="card,small,engine,full,kernels")
+    ap.add_argument("--phases", default="card,small,knn-small,engine,full,"
+                    "kernels,knn-engine,knn-full")
     ap.add_argument("--full-docs", type=int, default=MS_MARCO_DOCS)
     ap.add_argument("--engine-docs", type=int, default=50_000)
+    ap.add_argument("--knn-docs", type=int, default=SIFT_DOCS)
+    ap.add_argument("--knn-engine-docs", type=int, default=20_000)
     ap.add_argument("--queries", type=int, default=64)
     ap.add_argument("--workers", type=int, default=4)
     ap.add_argument("--rehearse", action="store_true",
@@ -666,34 +1147,75 @@ def main(argv=None) -> int:
         print(f"chip_smoke: the package is missing: {e}", file=sys.stderr)
         return 2
     dev = torch.device("cpu" if args.rehearse else "cuda")
+    on_card = not args.rehearse
     # the breakers' defaults budget a 16 GB device; this card has 80 GB
     BREAKERS.configure(device=48 * GB, request=24 * GB, total=72 * GB)
+
+    def t():
+        return f"[{time.monotonic() - t_start:.1f}s]"
+
     try:
         if args.rehearse:
             log("rehearsal on the CPU: plain versions only")
-        if "card" in phases and not args.rehearse:
+        if "card" in phases and on_card:
             phase_card(torch)
-        if "small" in phases and not args.rehearse:
+        if "small" in phases and on_card:
             phase_small(torch, np, dev)
+            log(t(), "small done")
+        if "knn-small" in phases and on_card:
+            phase_knn_small(torch, np, dev)
+            log(t(), "knn-small done")
         from elasticsearch_tpu_torch.ops import bm25 as bm
-        # the main path: launch counts from zero, read right after
+        from elasticsearch_tpu_torch.ops import knn
+        rows = []
+        # the BM25 main path: launch counts from zero, read right after
         DEVICE_PROFILE.reset_launches()
         if "engine" in phases:
             phase_engine(torch, np, dev, args.engine_docs)
-        with Recorder(bm, keep=24) as rec:
+            log(t(), "engine done")
+        with Recorder(bm, FAMILIES, bm25_size, keep=24) as rec:
             if "full" in phases:
                 phase_full(torch, np, dev, args.full_docs, args.workers,
                            args.queries)
+                log(t(), "full done")
         launches = DEVICE_PROFILE.launches()
-        log("launches on the main path: " + json.dumps(
+        log("launches on the BM25 main path: " + json.dumps(
             {f: launches.get(f, 0) for f in FAMILIES}))
-        rows = []
-        if not args.rehearse and "full" in phases:
+        if on_card and "full" in phases:
             for fam in FAMILIES:
                 check(launches.get(fam, 0) > 0,
                       f"{fam} was never launched on the main path")
             if "kernels" in phases:
-                rows = phase_kernels(torch, rec, launches)
+                rows += phase_kernels(torch, rec, launches)
+                log(t(), "kernels done")
+        del rec
+        from elasticsearch_tpu_torch.ops.device_segment import PLANES
+        PLANES.clear()
+        # the kNN main path: launch counts from zero, read right after
+        DEVICE_PROFILE.reset_launches()
+        if "knn-engine" in phases:
+            phase_knn_engine(torch, np, dev, args.knn_engine_docs)
+            log(t(), "knn-engine done")
+        with Recorder(knn, KNN_FAMILIES, knn_size, keep=8) as krec:
+            if "knn-full" in phases:
+                phase_knn_full(torch, np, dev, args.knn_docs, args.queries)
+                log(t(), "knn-full done")
+        launches = DEVICE_PROFILE.launches()
+        log("launches on the kNN main path: " + json.dumps(
+            {f: launches.get(f, 0) for f in KNN_FAMILIES}))
+        if on_card and "knn-full" in phases:
+            for fam in KNN_FAMILIES:
+                check(launches.get(fam, 0) > 0,
+                      f"{fam} was never launched on the main path")
+            if "kernels" in phases:
+                rows += phase_knn_kernels(torch, krec, launches)
+                log(t(), "knn kernels done")
+        if on_card and {"full", "knn-full", "kernels"} <= phases:
+            from elasticsearch_tpu_torch.search.device_profile import (
+                KERNEL_FAMILIES,
+            )
+            check(sorted(r["name"] for r in rows) == sorted(KERNEL_FAMILIES),
+                  "kernels: the line does not list every kernel family")
         log(json.dumps({"kernels": rows}))
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)

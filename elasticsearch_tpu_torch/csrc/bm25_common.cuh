@@ -13,12 +13,9 @@
 //    (scale 2^32) and is summed with integer atomics, which commute. The
 //    sum is converted to f32 once. The same contributions therefore give
 //    the same bits in any order, any batch and any family.
-// 3. A CTA-wide top-k under the order (score descending, index
-//    ascending), -inf slots included: the order lax.top_k returns. Threads
-//    stream candidates past a threshold (the current k-th best) into a
-//    shared buffer; when the buffer fills, a bitonic sort keeps the best k
-//    and raises the threshold. The result depends only on the candidates,
-//    never on the order threads inserted them.
+// 3. The chunked mask + count + top-k over the fixed-point plane, built on
+//    the CTA-wide top-k of topk_common.cuh (score descending, index
+//    ascending, -inf slots included: the order lax.top_k returns).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -27,13 +24,14 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "topk_common.cuh"
+
 namespace bm25 {
 
+using namespace topk;
+
 constexpr int BLOCK = 128;          // postings per block (index/segment.py)
-constexpr int SEL_THREADS = 512;    // threads of a selecting CTA
-constexpr int KMAX = 4096;          // largest k the selection takes
 constexpr int MAX_SEGS = 4096;      // largest per-segment count channel
-constexpr long long CHUNK = 65536;  // docs per CTA in the chunked top-k
 constexpr double FIX_SCALE = 4294967296.0;        // 2^32
 constexpr double FIX_INV = 1.0 / 4294967296.0;
 
@@ -127,104 +125,6 @@ __global__ void scatter_kernel(const int* __restrict__ block_docs,
 }
 
 // --------------------------------------------------------------------------
-// CTA-wide top-k
-// --------------------------------------------------------------------------
-
-struct SelShared {
-    int cnt;
-    float thr_s;
-    int thr_i;
-};
-
-__device__ __forceinline__ bool better(float s1, int i1, float s2, int i2) {
-    return s1 > s2 || (s1 == s2 && i1 < i2);
-}
-
-// Sort bs/bi[0, n) best-first; n is a power of two.
-__device__ void bitonic_best_first(float* bs, int* bi, int n) {
-    for (int size = 2; size <= n; size <<= 1) {
-        for (int stride = size >> 1; stride > 0; stride >>= 1) {
-            for (int t = threadIdx.x; t < (n >> 1); t += blockDim.x) {
-                const int lo = 2 * t - (t & (stride - 1));
-                const int hi = lo + stride;
-                const bool up = (lo & size) == 0;
-                const float s_lo = bs[lo], s_hi = bs[hi];
-                const int i_lo = bi[lo], i_hi = bi[hi];
-                if (better(s_hi, i_hi, s_lo, i_lo) == up) {
-                    bs[lo] = s_hi; bs[hi] = s_lo;
-                    bi[lo] = i_hi; bi[hi] = i_lo;
-                }
-            }
-            __syncthreads();
-        }
-    }
-}
-
-// Keep the best k of the c buffered entries at bs/bi[0, min(c, k)),
-// best-first, and raise the threshold to the k-th once there are k.
-__device__ void select_compact(float* bs, int* bi, int cap, int& c, int k,
-                               SelShared* sh) {
-    for (int j = c + threadIdx.x; j < cap; j += blockDim.x) {
-        bs[j] = -INFINITY;
-        bi[j] = INT_MAX;
-    }
-    __syncthreads();
-    bitonic_best_first(bs, bi, cap);
-    c = c < k ? c : k;
-    if (threadIdx.x == 0) {
-        sh->cnt = c;
-        if (c >= k) {
-            sh->thr_s = bs[k - 1];
-            sh->thr_i = bi[k - 1];
-        }
-    }
-    __syncthreads();
-}
-
-// Top-k of the n entries load(j, s, i), j in [0, n). On return bs/bi[0, k)
-// hold them best-first (sentinels (-inf, INT_MAX) past the n-th when
-// n < k). ``cap`` is the buffer size: a power of two >= 2k and >=
-// 2 * blockDim.x. Every thread of the CTA must call it.
-template <class Load>
-__device__ void cta_select(Load load, long long n, int k, int cap, float* bs,
-                           int* bi, SelShared* sh) {
-    if (threadIdx.x == 0) {
-        sh->cnt = 0;
-        sh->thr_s = -INFINITY;
-        sh->thr_i = INT_MAX;
-    }
-    __syncthreads();
-    int c = 0;
-    for (long long base = 0; base < n; base += blockDim.x) {
-        const long long j = base + threadIdx.x;
-        int take = 0;
-        float s = 0.f;
-        int i = 0;
-        if (j < n) {
-            load(j, s, i);
-            take = better(s, i, sh->thr_s, sh->thr_i);
-        }
-        if (take) {
-            const int p = atomicAdd(&sh->cnt, 1);
-            bs[p] = s;
-            bi[p] = i;
-        }
-        c += __syncthreads_count(take);
-        if (c > cap - (int)blockDim.x) select_compact(bs, bi, cap, c, k, sh);
-    }
-    select_compact(bs, bi, cap, c, k, sh);
-}
-
-// Buffer size for a top-k: a power of two >= 4k and >= 2 * threads.
-inline int select_cap(int k, int threads) {
-    int kp = 1;
-    while (kp < k) kp <<= 1;
-    int cap = 4 * kp;
-    if (cap < 2 * threads) cap = 2 * threads;
-    return cap;
-}
-
-// --------------------------------------------------------------------------
 // chunked mask + count + top-k over a [n_q, n_docs_pad] fixed-point plane
 // --------------------------------------------------------------------------
 
@@ -302,34 +202,6 @@ __global__ void chunk_select_kernel(const long long* __restrict__ acc,
         out_s[o + r] = bs[r];
         out_i[o + r] = bi[r];
     }
-}
-
-// grid (n_q): top-k of each row's n_in chunk winners.
-__global__ void merge_select_kernel(const float* __restrict__ in_s,
-                                    const int* __restrict__ in_i, int n_in,
-                                    int k, int cap,
-                                    float* __restrict__ out_s,
-                                    int* __restrict__ out_i) {
-    extern __shared__ __align__(16) unsigned char smem_raw[];
-    float* bs = (float*)smem_raw;
-    int* bi = (int*)(bs + cap);
-    __shared__ SelShared sh;
-    const long long base = (long long)blockIdx.x * n_in;
-    auto load = [&](long long j, float& s, int& i) {
-        s = in_s[base + j];
-        i = in_i[base + j];
-    };
-    cta_select(load, n_in, k, cap, bs, bi, &sh);
-    for (int r = threadIdx.x; r < k; r += blockDim.x) {
-        out_s[(long long)blockIdx.x * k + r] = bs[r];
-        out_i[(long long)blockIdx.x * k + r] = bi[r];
-    }
-}
-
-inline cudaError_t set_smem(const void* fn, size_t bytes) {
-    if (bytes <= 48 * 1024) return cudaSuccess;
-    return cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                (int)bytes);
 }
 
 // The whole dense pipeline shared by bm25_flat, bm25_flat_seg and

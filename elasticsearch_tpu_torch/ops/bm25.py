@@ -43,7 +43,8 @@ from elasticsearch_tpu_torch.utils.errors import NotPortedError
 DEFAULT_K1 = 1.2
 DEFAULT_B = 0.75
 
-# the kernels' limits (csrc/bm25_common.cuh KMAX, MAX_SEGS, CHUNK)
+# the kernels' limits (csrc/topk_common.cuh KMAX, CHUNK; bm25_common.cuh
+# MAX_SEGS)
 KMAX = 4096
 MAX_SEGS = 4096
 CHUNK = 65536

@@ -1,8 +1,10 @@
-"""Device mirrors of segment postings, and the packed multi-segment plane.
+"""Device mirrors of segment postings and vectors, and the packed
+multi-segment plane.
 
-The postings half of the JAX package's ``ops/device_segment.py``, with the
-same layout and the same residency rules; only the upload differs:
-arrays go to the card as ``torch`` tensors on an explicit device.
+The postings and vectors halves of the JAX package's
+``ops/device_segment.py``, with the same layout and the same residency
+rules; only the upload differs: arrays go to the card as ``torch`` tensors
+on an explicit device.
 
 Each searchable segment gets lazily-built, cached device arrays with
 power-of-two padded shapes. The host Segment stays the source of truth;
@@ -18,8 +20,9 @@ rebased arrays are cached by segment uid) and charge the ``device``
 breaker before upload; the registry LRU-evicts cold planes, so a shard
 whose plane cannot fit degrades to the per-segment path.
 
-Vector, rank_features and column planes, and the mesh-sharded planes, are
-not part of this package yet: asking for one raises NotPortedError.
+Rank_features and column planes, the mesh-sharded planes and the vector
+plane's IVF index are not part of this package yet: asking for one raises
+NotPortedError.
 """
 
 from __future__ import annotations
@@ -33,7 +36,7 @@ import torch
 
 from elasticsearch_tpu_torch.device import DeviceLike, resolve_device
 from elasticsearch_tpu_torch.index.segment import (
-    BLOCK, PostingsField, Segment, next_pow2,
+    BLOCK, PostingsField, Segment, VectorField, next_pow2,
 )
 from elasticsearch_tpu_torch.utils.errors import (
     CircuitBreakingError, NotPortedError,
@@ -78,6 +81,39 @@ class DevicePostings:
         dev = resolve_device(device)
         return seg.device(("postings", field_name, str(dev)),
                           lambda: DevicePostings(pf, seg.n_docs, dev))
+
+
+class DeviceVectors:
+    """Device-resident dense-vector matrix for one field of one segment."""
+
+    def __init__(self, vf: VectorField, n_docs: int,
+                 device: DeviceLike = None):
+        self.device = resolve_device(device)
+        self.n_docs = n_docs
+        self.n_docs_pad = next_pow2(max(n_docs, 1), minimum=BLOCK)
+        self.dims = vf.dims
+        pad = self.n_docs_pad - vf.matrix.shape[0]
+        matrix = np.pad(vf.matrix, ((0, pad), (0, 0)))
+        norms = np.pad(vf.norms, (0, pad))
+        exists = np.zeros(self.n_docs_pad, bool)
+        exists[: len(vf.exists)] = vf.exists
+        from elasticsearch_tpu_torch.indices.breaker import account_device_arrays
+        account_device_arrays(self, (matrix, norms, exists), "vectors")
+        dev = self.device
+        self.matrix = torch.as_tensor(matrix, device=dev)
+        self.norms = torch.as_tensor(norms, device=dev)
+        self.exists = torch.as_tensor(exists, device=dev)
+        self.similarity = vf.similarity
+
+    @staticmethod
+    def for_segment(seg: Segment, field_name: str,
+                    device: DeviceLike = None) -> Optional["DeviceVectors"]:
+        vf = seg.vectors.get(field_name)
+        if vf is None:
+            return None
+        dev = resolve_device(device)
+        return seg.device(("vectors", field_name, str(dev)),
+                          lambda: DeviceVectors(vf, seg.n_docs, dev))
 
 
 def device_live_mask(seg: Segment, device: DeviceLike = None) -> torch.Tensor:
@@ -285,7 +321,101 @@ class PlanePostings(PlanePart):
         return cached
 
 
-_PART_CLASSES = {"postings": PlanePostings}
+def quantize_rows(matrix: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+    """(q8 [N, D] int8, scales [N] f32): symmetric per-row int8
+    quantization, the JAX package's numpy code, so the bytes are its."""
+    amax = np.abs(matrix).max(axis=1)
+    scales = np.maximum(amax / 127.0, 1e-30).astype(np.float32)
+    q8 = np.clip(np.round(matrix / scales[:, None]),
+                 -127, 127).astype(np.int8)
+    return q8, scales
+
+
+class PlaneVectors(PlanePart):
+    """All segments' dense-vector rows for one field, stacked [N_pad, D],
+    plus an int8 symmetric-quantized mirror (built host-side, uploaded on
+    the first quantized query) for the coarse scoring pass."""
+
+    kind = "vectors"
+
+    def build(self, prev: Optional["PlaneVectors"]):
+        dims, similarity = None, "cosine"
+        for seg in self.segments:
+            vf = seg.vectors.get(self.field)
+            if vf is not None:
+                dims, similarity = vf.dims, vf.similarity
+                break
+        if dims is None:
+            raise PlaneUnavailable(self.field)
+        self.dims, self.similarity = dims, similarity
+        matrix = np.zeros((self.n_docs_pad, dims), np.float32)
+        norms = np.zeros(self.n_docs_pad, np.float32)
+        exists = np.zeros(self.n_docs_pad, bool)
+        for pos, seg in enumerate(self.segments):
+            vf = seg.vectors.get(self.field)
+            if vf is None:
+                continue
+            cached = prev._seg_cache.get(seg.uid) if prev is not None \
+                else None
+            if cached is None:
+                n = seg.n_docs
+                ex = np.zeros(n, bool)
+                ex[: min(n, len(vf.exists))] = vf.exists[:n]
+                cached = (vf.matrix, vf.norms, ex)
+            self._seg_cache[seg.uid] = cached
+            m, nr, ex = cached
+            base = int(self.doc_base[pos])
+            matrix[base: base + len(ex)] = m[: len(ex)]
+            norms[base: base + len(ex)] = nr[: len(ex)]
+            exists[base: base + len(ex)] = ex
+        self._q_dev: Optional[Tuple] = None
+        self._q_failed = False
+        self.rows = np.nonzero(exists[: self.n_docs_total])[0] \
+            .astype(np.int64)
+        return (matrix, norms, exists)
+
+    def upload(self, host) -> None:
+        matrix, norms, exists = host
+        self.matrix = torch.as_tensor(matrix, device=self.device)
+        self.norms = torch.as_tensor(norms, device=self.device)
+        self.exists = torch.as_tensor(exists, device=self.device)
+
+    def quantized_mirror(self) -> Optional[Tuple]:
+        """(q8 [N_pad, D] int8, scales [N_pad] f32) on the plane's device --
+        int8 symmetric per-row quantization, built on the host with the JAX
+        package's numpy code (so its bytes are identical), on the FIRST
+        quantized query (planes served exact never pay the quantization or
+        its residency), and cached per plane generation. None when the
+        upload would trip the device breaker: the exact plane path still
+        serves, and the refusal is remembered so a budget-starved node
+        doesn't re-quantize per query."""
+        if self._q_dev is not None:
+            return self._q_dev
+        if self._q_failed:
+            return None
+        # one D2H per plane generation
+        q8, scales = quantize_rows(self.matrix.cpu().numpy())
+        from elasticsearch_tpu_torch.indices.breaker import account_device_arrays
+        try:
+            charge = account_device_arrays(
+                self, (q8, scales), f"plane_vectors_q:{self.field}",
+                return_charge=True)
+        except CircuitBreakingError:
+            self._q_failed = True
+            return None
+        self._charges.append(charge)
+        self.nbytes += charge.n_bytes   # residency stats see the mirror
+        self._q_dev = (torch.as_tensor(q8, device=self.device),
+                       torch.as_tensor(scales, device=self.device))
+        return self._q_dev
+
+    def ivf_index(self, nlist: Optional[int]):
+        """The shard-level IVF index over the plane's vectors: not part of
+        this package yet."""
+        raise NotPortedError("knn_ivf")
+
+
+_PART_CLASSES = {"postings": PlanePostings, "vectors": PlaneVectors}
 
 
 def _count_reason(reason: str) -> None:

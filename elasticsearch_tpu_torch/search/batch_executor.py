@@ -1,25 +1,64 @@
-"""THE shard execution path of the text class: every shard query is a
-batch member, solo being a batch of one.
+"""THE shard execution path of the text and kNN classes: every shard
+query is a batch member, solo being a batch of one.
 
-``batched_wand_topk_shard`` (and the ``_build_ctxs`` it is fed by) from
-the JAX package's ``search/batch_executor.py``: Q match queries share one kernel launch per
-phase — over the shard's postings plane when one is resident
-(``plane_exec.plane_wand_topk``), else one per segment — and demux back to
-per-member results, member-for-member exact in scores, candidates, totals
-semantics and prune accounting. The micro-batching queue around it
-(``ShardQueryBatcher``) belongs to the node layer and is not part of this
-package yet.
+``batched_wand_topk_shard``, ``batched_knn_shard`` (and the
+``_build_ctxs`` and ``BatchSpec`` they are fed by) from the JAX package's
+``search/batch_executor.py``: Q queries share one kernel launch per phase
+-- over the shard's plane when one is resident
+(``plane_exec.plane_wand_topk`` / ``plane_knn_winners``), else one per
+segment -- and demux back to per-member results, member-for-member exact
+in scores, candidates and totals semantics. The micro-batching queue
+around it (``ShardQueryBatcher``) belongs to the node layer and is not
+part of this package yet.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict, List, Optional, Tuple
+from dataclasses import dataclass
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 
 from elasticsearch_tpu_torch.device import DeviceLike, resolve_device
 from elasticsearch_tpu_torch.ops.bm25 import DEFAULT_B, DEFAULT_K1, P1_BUCKET
 from elasticsearch_tpu_torch.search.phase import ShardDoc
+
+
+@dataclass
+class BatchSpec:
+    """Classification result: the batch key components plus this member's
+    private payload (clauses / query vector / expansion tokens -- or, for
+    the ``dense`` kind, the canonical request identity the per-drain
+    memo dedups on)."""
+    kind: str                      # "text" | "knn" | "sparse" | "dense"
+    field: str
+    window: int
+    # text: counts-then-skip limit (0 = totals disabled);
+    # knn/sparse: coordinator clip threshold (None = never clip)
+    track_limit: int = 0
+    clip_limit: Optional[int] = None
+    clauses: Optional[List[Tuple[str, float]]] = None
+    query_vector: Optional[List[float]] = None
+    k: int = 10
+    num_candidates: int = 100
+    tokens: Optional[Dict[str, float]] = None
+    boost: float = 1.0
+    # filtered kNN: the parsed filter tree plus a stable value key
+    filter: Any = None
+    filter_key: Optional[str] = None
+    # the parsed + alias-resolved query tree (text class)
+    query: Any = None
+    # dense kind: the canonical request identity
+    dense_key: Optional[str] = None
+
+    def key(self) -> Tuple:
+        if self.kind == "text":
+            return ("text", self.field, self.window, self.track_limit)
+        if self.kind == "knn":
+            return ("knn", self.field, self.window, self.clip_limit, self.k)
+        if self.kind == "sparse":
+            return ("sparse", self.field, self.window, self.clip_limit)
+        return ("dense",)
 
 
 def _build_ctxs(reader, mappers, doc_count: int,
@@ -235,4 +274,39 @@ def batched_wand_topk_shard(ctxs, field: str,
             else:
                 out[qi] = (candidates, exact_hits[qi], "eq", max_score,
                            prune)
+    return out
+
+
+def batched_knn_shard(ctxs, field: str, specs: List[BatchSpec],
+                      k: int, check_members: Optional[Callable[[], None]]
+                      = None) -> List[Tuple]:
+    """Q kNN queries through THE kNN executor (execute.knn_shard_winners
+    -- the same call-site the solo rewrite is, with Q>1), demuxed to the
+    dense collector's candidates/totals shape."""
+    from elasticsearch_tpu_torch.search.execute import knn_shard_winners
+    per_member_hits = knn_shard_winners(ctxs, field, specs, k,
+                                        check_members)
+    return _knn_demux(specs, per_member_hits, k)
+
+
+def _knn_demux(specs: List[BatchSpec],
+               per_member_hits: List[List[Tuple[int, int, float]]],
+               k: int) -> List[Tuple]:
+    """Per-member shard-global merge (rewrite_knn's semantics) shared by
+    the plane and per-segment batch paths."""
+    out = []
+    for qi, spec in enumerate(specs):
+        hits = per_member_hits[qi]
+        hits.sort(key=lambda x: -x[2])     # rewrite_knn's merge order
+        winners = hits[: k]
+        boost = spec.boost
+        candidates = [ShardDoc(si, doc, sc * boost, (sc * boost,))
+                      for si, doc, sc in winners]
+        candidates.sort(key=lambda c: (-c.score, c.segment_idx, c.doc))
+        max_score = max((c.score for c in candidates), default=None)
+        total = len(winners)
+        relation = "eq"
+        if spec.clip_limit is not None and total > spec.clip_limit:
+            total, relation = spec.clip_limit, "gte"
+        out.append((candidates, total, relation, max_score, None))
     return out

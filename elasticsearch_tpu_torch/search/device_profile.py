@@ -1,7 +1,9 @@
 """Launch accounting for the kernel wrappers.
 
 Every kernel wrapper under ``ops/`` reports each call here, by family
-(``bm25_flat``, ``bm25_flat_seg``, ``bm25_coarse``, ``bm25_rerank``):
+(``KERNEL_FAMILIES``: ``bm25_flat``, ``bm25_flat_seg``, ``bm25_coarse``,
+``bm25_rerank`` in ``ops/bm25.py``; ``knn_flat``, ``knn_coarse``,
+``knn_rerank`` in ``ops/knn.py``):
 
 - ``launches``: how many times the wrapper launched its CUDA kernel. A
   call on CPU tensors runs the plain PyTorch version and is not a launch.
@@ -26,6 +28,9 @@ from typing import Any, Dict, List, Tuple
 
 from elasticsearch_tpu_torch.search import telemetry
 
+# every kernel family, one per csrc/<family>.cu
+KERNEL_FAMILIES = ("bm25_flat", "bm25_flat_seg", "bm25_coarse", "bm25_rerank",
+                   "knn_flat", "knn_coarse", "knn_rerank")
 # per-family bound on the shape-bucket map (labels derive from shapes)
 MAX_BUCKETS_PER_FAMILY = 256
 # per-family bound on unresolved CUDA-event pairs

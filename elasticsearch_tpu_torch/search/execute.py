@@ -1,17 +1,20 @@
-"""Per-segment query execution context, and the BM25 executors the text
-path plans with.
+"""Per-segment query execution context, the BM25 executors the text path
+plans with, and the kNN executor.
 
-The part of the JAX package's ``search/execute.py`` that the match path
-runs: ``SegmentContext``, ``resolve_aliases`` and the cached per-segment
-BM25 executors. The dense per-node executor (``execute`` and its query
-handlers: bool, term, range, kNN, ...) is not part of this package yet;
-``execute`` raises NotPortedError naming the query node.
+The part of the JAX package's ``search/execute.py`` that the match and
+kNN paths run: ``SegmentContext``, ``resolve_aliases``, the cached
+per-segment BM25 executors, and the kNN rewrite (``KnnBound``,
+``ann_segment_route``, ``knn_shard_winners``, ``rewrite_knn``). The dense
+per-node executor (``execute`` and its query handlers: bool, term, range,
+...) is not part of this package yet; ``execute`` raises NotPortedError
+naming the query node. So are filtered kNN (its filter mask needs the
+dense executor), the IVF route, and kNN inside a compound query.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -20,7 +23,8 @@ from elasticsearch_tpu_torch.device import resolve_device
 from elasticsearch_tpu_torch.index.segment import Segment, next_pow2, BLOCK
 from elasticsearch_tpu_torch.mapping import MapperService
 from elasticsearch_tpu_torch.ops import (
-    Bm25Executor, DevicePostings, device_live_mask,
+    Bm25Executor, DevicePostings, DeviceVectors, KnnExecutor,
+    device_live_mask,
 )
 from elasticsearch_tpu_torch.search import dsl
 from elasticsearch_tpu_torch.utils.errors import NotPortedError
@@ -179,3 +183,128 @@ def _bm25_planner(ctx: SegmentContext, field_name: str
                              total_doc_count=max(ctx.segment.n_docs, 1)))
     ex.doc_count = ctx.doc_count_for_idf()
     return ex
+
+
+@dataclass
+class KnnBound(dsl.Query):
+    """A Knn node rewritten to its shard-global top-k doc set.
+
+    Mirrors Lucene's KnnVectorQuery rewrite: per-leaf top-k, merged to a
+    global k, then executed as an exact doc-id/score set. Built by
+    rewrite_knn() in the shard query phase."""
+    per_segment: Dict[int, Tuple[np.ndarray, np.ndarray]] = None  # si -> (docs, scores)
+    boost: float = 1.0
+
+
+# segments at or above this size use the IVF ANN path by default (below it
+# exact brute force is both faster and perfectly accurate)
+ANN_DEFAULT_MIN_DOCS = 65536
+
+
+def ann_segment_route(ctx: "SegmentContext", field: str) -> None:
+    """IVF routing decision for one segment, shared by the solo kNN
+    rewrite and the batched executor: returns (the exact brute-force path
+    serves: a small segment, an index type other than ivf, no vector
+    column) unless the JAX package would probe the segment's IVF index,
+    which is not part of this package yet: NotPortedError("knn_ivf"). A
+    segment that holds no vectors is answered with no hits either way, so
+    it takes the exact path."""
+    seg = ctx.segment
+    vf = seg.vectors.get(field)
+    if vf is None:
+        return
+    mapper = ctx.mappers.mapper(field)
+    opts = getattr(mapper, "index_options", None) or {}
+    wants_ivf = opts.get("type") == "ivf"
+    if not wants_ivf and seg.n_docs < ANN_DEFAULT_MIN_DOCS:
+        return
+    if opts.get("type") not in (None, "ivf"):
+        return            # another index type (e.g. flat): exact
+    if vf.exists.any():
+        raise NotPortedError("knn_ivf")
+
+
+def knn_shard_winners(ctxs: List["SegmentContext"], field: str, specs,
+                      k: int, check_members=None
+                      ) -> List[List[Tuple[int, int, float]]]:
+    """THE kNN top-k executor for the served path -- Q queries (each a
+    spec with query_vector / filter), solo being simply Q=1. Returns one
+    sorted ``[(segment_idx, local_doc, raw_score)]`` winner list
+    (len <= k) per member, the merge Lucene's KnnVectorQuery rewrite
+    performs.
+
+    Route: the resident whole-shard plane (one launch via
+    plane_exec.plane_knn_winners), else one [Q, D] x [D, N] launch per
+    segment. Filtered members, IVF-routed segments and k above the
+    kernels' KMAX raise NotPortedError before any launch."""
+    from elasticsearch_tpu_torch.ops.knn import KMAX
+    if any(s.filter is not None for s in specs):
+        raise NotPortedError("knn_filter")
+    if k > KMAX:
+        raise NotPortedError(f"knn_k_over_{KMAX}")
+    n_q = len(specs)
+    if not n_q:
+        return []
+    per_member_hits: List[List[Tuple[int, int, float]]] = \
+        [[] for _ in range(n_q)]
+    if ctxs:
+        from elasticsearch_tpu_torch.ops.device_segment import PLANES
+        part = PLANES.get([c.segment for c in ctxs], "vectors", field,
+                          ctxs[0].device)
+        if part is not None:
+            from elasticsearch_tpu_torch.search.plane_exec import (
+                plane_knn_winners,
+            )
+            return plane_knn_winners(ctxs, part, field, specs, k,
+                                     check_members)
+    for ctx in ctxs:
+        ann_segment_route(ctx, field)
+    vectors = np.asarray([s.query_vector for s in specs], np.float32)
+    for ctx in ctxs:
+        dev = DeviceVectors.for_segment(ctx.segment, field, ctx.device)
+        if dev is None:
+            continue
+        if check_members is not None:
+            check_members()
+        k_seg = min(k, ctx.n_docs_pad)
+        s, d = KnnExecutor(dev).top_k_batch(vectors, ctx.live, k_seg)
+        s = s.cpu().numpy()
+        d = d.cpu().numpy()
+        for row in range(n_q):
+            for sc, doc in zip(s[row], d[row]):
+                if sc > -np.inf:
+                    per_member_hits[row].append(
+                        (ctx.segment_idx, int(doc), float(sc)))
+    for qi in range(n_q):
+        per_member_hits[qi].sort(key=lambda x: -x[2])
+        per_member_hits[qi] = per_member_hits[qi][:k]
+    return per_member_hits
+
+
+def rewrite_knn(q: dsl.Query, segment_ctxs: List["SegmentContext"],
+                cancel_check=None) -> dsl.Query:
+    """Replace a top-level Knn node with a KnnBound node holding the
+    shard-global top-k (merged across segments). ``cancel_check``
+    (zero-arg, raising) runs between per-segment launches so a cancelled
+    or budget-expired task stops paying for vector scans.
+
+    The rewrite IS a batch of one: it calls ``knn_shard_winners`` -- the
+    same executor the batched kNN path runs -- with a single spec, so solo
+    and batched kNN cannot diverge. A Knn inside a compound query goes to
+    the dense collector, which is not part of this package yet, and never
+    reaches here."""
+    if isinstance(q, dsl.Knn):
+        from types import SimpleNamespace
+        spec = SimpleNamespace(query_vector=q.query_vector, filter=q.filter)
+        winners = knn_shard_winners(segment_ctxs, q.field, [spec], q.k,
+                                    check_members=cancel_check)[0]
+        per_segment: Dict[int, Tuple[np.ndarray, np.ndarray]] = {}
+        for si, d, s in winners:
+            docs, scores = per_segment.setdefault(
+                si, ([], []))  # type: ignore[assignment]
+            docs.append(d)
+            scores.append(s * q.boost)
+        per_segment = {si: (np.asarray(d, np.int64), np.asarray(s, np.float32))
+                       for si, (d, s) in per_segment.items()}
+        return KnnBound(per_segment=per_segment, boost=q.boost)
+    return q

@@ -6,10 +6,11 @@ compiled query over every segment of a shard snapshot, applies pagination
 and total-hits tracking, and returns light-weight doc references (fetch
 happens in a separate phase, like the reference's query_then_fetch).
 
-This is the JAX package's ``search/phase.py`` cut to the collector this
-package carries: the block-max-pruned text top-k ("wand_topk"). The
-collector choice is the JAX package's, unchanged; a request that chooses
-any other collector (dense, knn_topk, sparse_topk) raises NotPortedError.
+This is the JAX package's ``search/phase.py`` cut to the collectors this
+package carries: the block-max-pruned text top-k ("wand_topk") and the
+kNN top-k ("knn_topk"). The collector choice is the JAX package's,
+unchanged; a request that chooses any other collector (dense,
+sparse_topk) raises NotPortedError.
 
 Shard-level term statistics: per-segment idf would skew scores across
 segments, so we aggregate df over all live segments first — the same
@@ -305,9 +306,9 @@ def query_shard(reader: Reader,
     ``collectors``: optional aggregation collectors, each called with
     (ctx, segment_idx, scores, mask) per segment (two-level agg model).
 
-    Only the block-max-pruned text collector ("wand_topk") is part of this
-    package so far; a request that needs any other collector raises
-    NotPortedError naming it. ``device``: where the segments' device
+    Only the block-max-pruned text collector ("wand_topk") and the kNN
+    collector ("knn_topk") are part of this package so far; a request that
+    needs any other collector raises NotPortedError naming it. ``device``: where the segments' device
     arrays live (None = the CUDA card).
     """
     device = resolve_device(device)
@@ -401,6 +402,33 @@ def query_shard(reader: Reader,
 
     from elasticsearch_tpu_torch.indices.breaker import BREAKERS
     request_breaker = BREAKERS.breaker("request")
+    if collector == "knn_topk":
+        # Lucene-style kNN rewrite: per-segment top-k merged to
+        # shard-global k through execute.knn_shard_winners -- the same
+        # executor the batched kNN path runs, with Q=1
+        from elasticsearch_tpu_torch.search.execute import (
+            KnnBound, rewrite_knn,
+        )
+        query = rewrite_knn(query, ctxs, cancel_check)
+        assert isinstance(query, KnnBound)  # the collector guarantees it
+        # the rewrite already holds the shard-global winners; reading
+        # them off the bound node reproduces the dense path's per-segment
+        # collection byte-for-byte without its per-segment launches
+        entries: List[ShardDoc] = []
+        for si, (docs, doc_scores) in (query.per_segment or {}).items():
+            for d, s in zip(docs, doc_scores):
+                entries.append(ShardDoc(int(si), int(d), float(s),
+                                        (float(s),)))
+        entries.sort(key=lambda c: (-c.score, c.segment_idx, c.doc))
+        total = len(entries)
+        relation = "eq"
+        if exact_total and track_limit < (1 << 62) \
+                and total > track_limit:
+            total, relation = track_limit, "gte"
+        max_score = entries[0].score if entries else None
+        return ShardQueryResult(
+            entries[from_: from_ + size], total, relation, max_score,
+            doc_count=doc_count, dfs=dfs)
     if collector != "wand_topk":
         raise NotPortedError(f"{collector}_collector")
     if want > KMAX:

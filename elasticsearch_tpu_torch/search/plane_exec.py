@@ -1,9 +1,9 @@
-"""Shard-plane execution of the text class: the whole shard's postings in
-one block store, one kernel launch per phase.
+"""Shard-plane execution of the text and kNN classes: the whole shard's
+postings (or vectors) in one device plane, one kernel launch per phase.
 
-The text half of the JAX package's ``search/plane_exec.py``. Both the solo
-and the batched path call ``plane_wand_topk`` when a postings plane is
-resident, so they share one implementation:
+The text and kNN halves of the JAX package's ``search/plane_exec.py``.
+Both the solo and the batched path call in here when a plane is resident,
+so they share one implementation:
 
 - ``plane_wand_topk``: Q text queries through the block-max-pruned BM25
   path in TWO launches for the whole shard (phase 1 theta, phase 2
@@ -12,6 +12,10 @@ resident, so they share one implementation:
 - ``_coarse_wand_topk``: the quantized two-tier path (bf16 coarse pass +
   exact f32 re-rank with an adaptive depth) that serves a solo query on a
   large plane first.
+- ``plane_knn_winners``: Q kNN queries in ONE launch over the stacked
+  vector plane -- the int8 coarse pass + exact re-rank (``_quantized_topk``,
+  adaptive depth) first, the exact ``knn_flat`` otherwise -- with the
+  per-segment demux reduced to a host-side offset translation.
 
 Callers treat a None result as "run the per-segment path".
 """
@@ -79,6 +83,7 @@ def _note_exact(cls: str, n_q: int, t0: float) -> None:
 # loosens with D and amax/rms), so 0.02 hardens the empirical estimate
 # and the escalate-then-serve-exact backstop owns the tail.
 REL_BF16 = 0.04
+REL_INT8 = 0.02
 
 
 def _margin_ok(s_k: float, c_cut: float, eps: float, rel: float) -> bool:
@@ -89,7 +94,7 @@ def _margin_ok(s_k: float, c_cut: float, eps: float, rel: float) -> bool:
     error is bounded two ways at once: ``eps`` is the max observed
     |exact - coarse| among the re-ranked candidates (doubled for
     safety), and ``rel`` is the class's a-priori relative bound
-    (REL_BF16 here). When the exact k-th score clears both, no
+    (REL_BF16 / REL_INT8). When the exact k-th score clears both, no
     excluded doc can enter the served top-k; when it cannot — including
     exact-score ties straddling the cut — the caller deepens k' and
     re-dispatches, bounded by ``search.plane.rerank_depth_max``, past
@@ -495,3 +500,123 @@ def plane_wand_topk(ctxs, part, field: str,
                 out[qi] = (candidates, exact_hits, "eq", max_score, prune)
     _note_exact("bm25", n_q, t_exact)
     return out
+
+
+# ---------------------------------------------------------------------------
+# kNN: one launch over the vector plane
+# ---------------------------------------------------------------------------
+
+def plane_ann_route(ctx0, part, field: str) -> None:
+    """Shard-level IVF routing over the plane, shared by the solo kNN
+    rewrite and the batched executor: returns (the exact plane path
+    serves) unless the JAX package would probe its shard-level IVF index,
+    which is not part of this package yet: NotPortedError("knn_ivf"). A
+    plane that holds no vectors at all is answered with no hits either
+    way, so it takes the exact path."""
+    from elasticsearch_tpu_torch.search.execute import ANN_DEFAULT_MIN_DOCS
+    mapper = ctx0.mappers.mapper(field)
+    opts = getattr(mapper, "index_options", None) or {}
+    wants_ivf = opts.get("type") == "ivf"
+    if opts.get("type") not in (None, "ivf"):
+        return
+    if not wants_ivf:
+        # auto-sizing must agree with the per-segment routing, or plane
+        # residency would flip exact results to approximate ones: the
+        # shard-level IVF only when every vector-bearing segment would
+        # take the per-segment IVF anyway
+        sizes = [s.n_docs for s in part.segments
+                 if s.vectors.get(field) is not None]
+        if not sizes or min(sizes) < ANN_DEFAULT_MIN_DOCS:
+            return
+    if len(part.rows):
+        part.ivf_index(opts.get("nlist"))
+
+
+def _quantized_topk(part, vectors: np.ndarray, live, k: int):
+    """int8 coarse pass over the full plane + exact re-rank of the top-k'
+    candidates, with ADAPTIVE depth: the margin at position k' (via the
+    re-rank's observed coarse error) must prove the true top-k survived,
+    else the pass deepens x2 and re-launches up to
+    ``search.plane.rerank_depth_max`` (and the kernels' KMAX), past which
+    None is returned and the exact path serves (typed
+    plane_quantized_fallback). Also None when the quantized mirror is
+    unavailable (breaker) or the corpus is too small for the coarse pass
+    to pay."""
+    from elasticsearch_tpu_torch.ops.knn import (
+        KMAX, QueryBatch, knn_coarse_candidates, knn_rerank_exact,
+    )
+    depth0 = _coarse_depth0(k, part.n_docs_pad)
+    if part.n_docs_total <= 4 * depth0:
+        return None         # coarse+rerank would cost more than exact
+    mirror = part.quantized_mirror()
+    if mirror is None:
+        _count_plane_quantized_fallback()
+        return None
+    q8, scales = mirror
+    batch = QueryBatch(vectors, part.device)
+    n_real = batch.n_real
+    allowed = live & part.exists
+    for kprime, last in _adaptive_depths(k, part.n_docs_pad):
+        if kprime > KMAX:
+            _count_plane_quantized_fallback()
+            return None
+        cs, cand = knn_coarse_candidates(q8, scales, part.norms, allowed,
+                                         batch, kprime, part.similarity)
+        s, d, eps = knn_rerank_exact(part.matrix, part.norms, allowed,
+                                     batch, cand, cs, k, part.similarity)
+        cs_h = cs.cpu().numpy()
+        s_h = s.cpu().numpy()
+        eps_h = eps.cpu().numpy()
+        k_last = min(k, s_h.shape[1]) - 1
+        if all(_margin_ok(float(s_h[row, k_last]),
+                          float(cs_h[row, kprime - 1]),
+                          float(eps_h[row]), REL_INT8)
+               for row in range(n_real)):
+            PLANES.note_quantized(kprime, n_real)
+            return s[:n_real], d[:n_real]
+        if last:
+            _count_plane_quantized_fallback()
+            return None
+
+
+def plane_knn_winners(ctxs, part, field: str, specs, k: int,
+                      check_members: Optional[Callable[[], None]] = None
+                      ) -> List[List[Tuple[int, int, float]]]:
+    """Q (>= 1) unfiltered kNN queries over the vector plane. ``specs``
+    need a query_vector attribute (the batch executor's BatchSpec, or the
+    solo rewrite's one-element shim). Returns one [(segment_idx,
+    local_doc, raw_score)] winner list (len <= k, score order) per member
+    -- exactly what the per-segment merge produces. Filtered members are
+    refused upstream (``knn_shard_winners``)."""
+    from elasticsearch_tpu_torch.ops.knn import KnnExecutor
+    telemetry.mark_plane_served()
+    plane_ann_route(ctxs[0], part, field)
+    if check_members is not None:
+        check_members()
+    n_q = len(specs)
+    vectors = np.asarray([s.query_vector for s in specs], np.float32)
+    live = part.live_mask(_reader_of(ctxs).live_masks)
+    k_plane = min(k, part.n_docs_pad)
+    # the launch writes a [B, n_docs_pad] f32 score plane over the whole
+    # shard: charge the request breaker before it
+    from elasticsearch_tpu_torch.indices.breaker import BREAKERS
+    transient = 8 * part.n_docs_pad * n_q
+    with BREAKERS.breaker("request").limit_scope(transient, "plane_knn"):
+        got = None
+        if PLANES.quantized:
+            got = _coarse_attempt("knn", n_q, lambda: _quantized_topk(
+                part, vectors, live, k_plane))
+        if got is None:
+            t_exact = time.monotonic()
+            got = KnnExecutor(part).top_k_batch(vectors, live, k_plane)
+            _note_exact("knn", n_q, t_exact)
+    s, d = got[0].cpu().numpy(), got[1].cpu().numpy()
+    winners: List[List[Tuple[int, int, float]]] = []
+    for row in range(n_q):
+        finite = (s[row] > -np.inf) & (d[row] >= 0)
+        si, local = part.demux(d[row][finite])
+        hits = [(int(a), int(b), float(sc)) for a, b, sc in
+                zip(si, local, s[row][finite])]
+        hits.sort(key=lambda x: -x[2])
+        winners.append(hits[:k])
+    return winners

@@ -49,16 +49,24 @@ from elasticsearch_tpu_torch.index import InternalEngine
 from elasticsearch_tpu_torch.mapping import MapperService
 from elasticsearch_tpu_torch.search import SearchService
 import elasticsearch_tpu_torch.search.plane_exec
+import elasticsearch_tpu_torch.search.batch_executor
+import elasticsearch_tpu_torch.ops.knn
 import elasticsearch_tpu_torch.convert
-engine = InternalEngine(MapperService({"properties": {"body": {"type": "text"}}}))
+engine = InternalEngine(MapperService({"properties": {
+    "body": {"type": "text"},
+    "vec": {"type": "dense_vector", "dims": 3, "similarity": "l2_norm"}}}))
 for i in range(40):
-    engine.index(str(i), {"body": "quick brown fox" if i % 3 else "lazy dog"})
+    engine.index(str(i), {"body": "quick brown fox" if i % 3 else "lazy dog",
+                          "vec": [float(i), 1.0, 2.0]})
     if i == 20:
         engine.refresh()
 engine.refresh()
-r = SearchService(engine, device="cpu").search(
-    {"query": {"match": {"body": "fox"}}})
+svc = SearchService(engine, device="cpu")
+r = svc.search({"query": {"match": {"body": "fox"}}})
 assert r["hits"]["total"]["value"] == 26, r["hits"]["total"]
+k = svc.search({"query": {"knn": {"field": "vec", "query_vector": [7.2, 1, 2],
+                                  "k": 3}}})
+assert [h["_id"] for h in k["hits"]["hits"]] == ["7", "8", "6"], k
 assert not any(m.split(".")[0] in ("jax", "jaxlib", "elasticsearch_tpu")
                for m in sys.modules)
 print("served", len(r["hits"]["hits"]))

@@ -1,0 +1,317 @@
+"""The served kNN path of elasticsearch_tpu_torch against the JAX package,
+end to end: the same documents through each package's ``InternalEngine`` +
+``SearchService`` (the port on ``device="cpu"``, i.e. the kernels' plain
+PyTorch versions) must give the same ``knn`` responses, over the three
+similarities, with the vector plane resident and without it (per-segment
+route), and with the quantized tier on and off.
+
+Tolerance. The vectors are integer-valued (SIFT1M's kind: 0..255), so
+every dot product is exact in any summation order and the two packages'
+scores, ids and totals must be equal exactly. One Gaussian case compares
+scores to rtol 4e-6 (f32 re-association of the dot products, as in
+tests/test_torch_knn.py) and ids exactly outside near-ties.
+
+The port's own identities are bitwise: solo == batch, quantized tier ==
+exact path, plane == per-segment. Requests outside the port's slice raise
+NotPortedError (status 501).
+"""
+
+import numpy as np
+import pytest
+
+from elasticsearch_tpu.index import InternalEngine as RefEngine
+from elasticsearch_tpu.mapping import MapperService as RefMappers
+from elasticsearch_tpu.ops.device_segment import PLANES as REF_PLANES
+from elasticsearch_tpu.search import SearchService as RefService
+
+from elasticsearch_tpu_torch.convert import segments_from_reference
+from elasticsearch_tpu_torch.index import InternalEngine, Reader
+from elasticsearch_tpu_torch.index.segment import Segment, VectorField
+from elasticsearch_tpu_torch.mapping import MapperService
+from elasticsearch_tpu_torch.ops.device_segment import PLANES
+from elasticsearch_tpu_torch.search import SearchService, dsl
+from elasticsearch_tpu_torch.search.batch_executor import (
+    BatchSpec, _build_ctxs, batched_knn_shard,
+)
+from elasticsearch_tpu_torch.search.phase import query_shard
+from elasticsearch_tpu_torch.utils.errors import NotPortedError
+
+RTOL = 4e-6
+DIMS = 16
+SIMS = ("cosine", "dot_product", "l2_norm")
+
+
+def mapping(sim: str, index_options=None):
+    vec = {"type": "dense_vector", "dims": DIMS, "similarity": sim}
+    if index_options is not None:
+        vec["index_options"] = index_options
+    return {"properties": {"vec": vec, "tag": {"type": "keyword"}}}
+
+
+def make_vectors(seed: int, n: int, kind: str = "int"):
+    rng = np.random.default_rng(seed)
+    if kind == "int":
+        v = rng.integers(0, 256, (n, DIMS)).astype(np.float32)
+    else:
+        v = rng.standard_normal((n, DIMS)).astype(np.float32)
+    if n > 300:
+        v[7] = v[3]      # duplicate rows: score ties
+        v[300] = v[3]
+    return v
+
+
+def index_both(sim, vectors, refresh_at=(), deletes=(), missing=(),
+               index_options=None):
+    ref = RefEngine(RefMappers(mapping(sim, index_options)),
+                    shard_label="ref")
+    port = InternalEngine(MapperService(mapping(sim, index_options)),
+                          shard_label="port")
+    for i, v in enumerate(vectors):
+        body = {"tag": f"t{i % 5}"}
+        if i not in missing:
+            body["vec"] = [float(x) for x in v]
+        ref.index(str(i), body)
+        port.index(str(i), body)
+        if i in refresh_at:
+            ref.refresh()
+            port.refresh()
+    ref.refresh()
+    port.refresh()
+    for i in deletes:
+        ref.delete(str(i))
+        port.delete(str(i))
+    ref.refresh()
+    port.refresh()
+    return ref, port
+
+
+@pytest.fixture
+def planes():
+    """Both packages' plane registries, restored after the test."""
+    keep = [(p, p.enabled, p.quantized, p.rerank_depth, p.rerank_depth_max,
+             p.min_segments) for p in (REF_PLANES, PLANES)]
+    REF_PLANES.clear()
+    PLANES.clear()
+    yield
+    for p, en, q, d, dm, ms in keep:
+        p.enabled, p.quantized = en, q
+        p.rerank_depth, p.rerank_depth_max, p.min_segments = d, dm, ms
+        p.clear()
+
+
+def knn_body(vec, k=10, num_candidates=50, size=10, **extra):
+    body = {"query": {"knn": {"field": "vec",
+                              "query_vector": [float(x) for x in vec],
+                              "k": k, "num_candidates": num_candidates}},
+            "size": size}
+    body["query"]["knn"].update(extra.pop("knn", {}))
+    body.update(extra)
+    return body
+
+
+def bodies(seed: int, n: int, kind: str = "int"):
+    qs = make_vectors(seed, n, kind)
+    qs[1] = 0.0                                   # an all-zero query
+    out = []
+    for i, q in enumerate(qs):
+        if i % 4 == 0:
+            out.append(knn_body(q))
+        elif i % 4 == 1:
+            out.append(knn_body(q, k=5, size=3, track_total_hits=2))
+        elif i % 4 == 2:
+            out.append(knn_body(q, k=25, size=10, **{"from": 5}))
+        else:
+            out.append(knn_body(q, k=10, knn={"boost": 2.0}))
+    return out
+
+
+def assert_same_response(a, b, exact: bool):
+    ha, hb = a["hits"], b["hits"]
+    assert ha["total"] == hb["total"]
+    ids_a = [h["_id"] for h in ha["hits"]]
+    ids_b = [h["_id"] for h in hb["hits"]]
+    sa = np.array([h["_score"] for h in ha["hits"]])
+    sb = np.array([h["_score"] for h in hb["hits"]])
+    if exact:
+        assert ids_a == ids_b
+        assert sa.tolist() == sb.tolist()
+        assert ha["max_score"] == hb["max_score"]
+        return
+    assert len(ids_a) == len(ids_b)
+    np.testing.assert_allclose(sb, sa, rtol=RTOL)
+    for j in range(len(sa)):
+        near = [abs(sa[i] - sa[j]) <= RTOL * abs(sa[j])
+                for i in (j - 1, j + 1) if 0 <= i < len(sa)]
+        if not any(near):
+            assert ids_a[j] == ids_b[j]
+
+
+def run(ref_svc, port_svc, body_list, exact=True):
+    for body in body_list:
+        assert_same_response(ref_svc.search(body), port_svc.search(body),
+                             exact)
+
+
+@pytest.mark.parametrize("sim", SIMS)
+@pytest.mark.parametrize("route", ["plane", "per_segment"])
+@pytest.mark.parametrize("quantized", [True, False])
+def test_knn_responses_match_reference(sim, route, quantized, planes):
+    ref, port = index_both(sim, make_vectors(1, 1400),
+                           refresh_at=(400, 900), deletes=(5, 401, 1000),
+                           missing=(9, 950))
+    for p in (REF_PLANES, PLANES):
+        p.enabled = route == "plane"
+        p.quantized = quantized
+        # a shallow first depth makes the margin fail and escalate
+        p.rerank_depth, p.rerank_depth_max = 16, 64
+    served0 = PLANES.stats["quantized_queries"]
+    builds0 = PLANES.stats["plane_builds"]
+    run(RefService(ref), SearchService(port, device="cpu"), bodies(2, 12))
+    assert (PLANES.stats["plane_builds"] > builds0) == (route == "plane")
+    assert (PLANES.stats["quantized_queries"] > served0) == (
+        route == "plane" and quantized)
+
+
+def test_gaussian_vectors_match_reference_within_tolerance(planes):
+    ref, port = index_both("cosine", make_vectors(3, 900, "gauss"),
+                           refresh_at=(450,), deletes=(2,))
+    run(RefService(ref), SearchService(port, device="cpu"),
+        bodies(4, 8, "gauss"), exact=False)
+
+
+def test_solo_batch_tier_and_routes_are_bitwise_equal(planes):
+    """Solo query_shard == batched_knn_shard, quantized tier == exact plane
+    == per-segment route: same ids, same score bits."""
+    _ref, port = index_both("cosine", make_vectors(5, 1400),
+                            refresh_at=(500, 1000), deletes=(11, 600))
+    reader = port.acquire_reader()
+    mappers = port.mappers
+    queries = make_vectors(6, 8)
+    specs = [BatchSpec(kind="knn", field="vec", window=10,
+                       query_vector=[float(x) for x in q], k=10,
+                       num_candidates=50) for q in queries]
+    ctxs = _build_ctxs(reader, mappers, None, None, device="cpu")
+
+    def solo():
+        return [query_shard(reader, mappers, dsl.Knn(
+            field="vec", query_vector=s.query_vector, k=10,
+            num_candidates=50), size=10, device="cpu") for s in specs]
+
+    def key_solo(results):
+        return [[(d.segment_idx, d.doc, d.score) for d in r.docs]
+                for r in results]
+
+    def key_batch(out):
+        return [[(d.segment_idx, d.doc, d.score) for d in c[:10]]
+                for c, _t, _r, _m, _p in out]
+
+    PLANES.quantized = True
+    served0 = PLANES.stats["quantized_queries"]
+    tier_solo = key_solo(solo())
+    assert PLANES.stats["quantized_queries"] > served0
+    tier_batch = key_batch(batched_knn_shard(ctxs, "vec", specs, 10))
+    PLANES.quantized = False
+    exact_batch = key_batch(batched_knn_shard(ctxs, "vec", specs, 10))
+    exact_solo = key_solo(solo())
+    PLANES.enabled = False
+    seg_batch = key_batch(batched_knn_shard(ctxs, "vec", specs, 10))
+    seg_solo = key_solo(solo())
+    for other in (tier_batch, exact_batch, exact_solo, seg_batch, seg_solo):
+        assert other == tier_solo
+
+
+def test_converted_segments_and_mirror_bytes_match_reference(planes):
+    ref, _port = index_both("cosine", make_vectors(7, 800),
+                            refresh_at=(400,), deletes=(1,))
+    reader = ref.acquire_reader()
+    segs = segments_from_reference(reader.segments)
+    for a, b in zip(reader.segments, segs):
+        va, vb = a.vectors["vec"], b.vectors["vec"]
+        for name in ("matrix", "exists", "norms"):
+            np.testing.assert_array_equal(getattr(va, name),
+                                          getattr(vb, name))
+    ref_part = REF_PLANES.get(reader.segments, "vectors", "vec")
+    part = PLANES.get(segs, "vectors", "vec", "cpu")
+    rq8, rscales = ref_part.quantized_mirror()
+    q8, scales = part.quantized_mirror()
+    np.testing.assert_array_equal(q8.numpy(), np.asarray(rq8))
+    np.testing.assert_array_equal(scales.numpy(), np.asarray(rscales))
+    np.testing.assert_array_equal(part.matrix.numpy(),
+                                  np.asarray(ref_part.matrix))
+    from elasticsearch_tpu.search.phase import query_shard as ref_query
+    from elasticsearch_tpu.search import dsl as ref_dsl
+    mappers = MapperService(mapping("cosine"))
+    for q in make_vectors(8, 4):
+        qv = [float(x) for x in q]
+        want = ref_query(reader, ref.mappers, ref_dsl.Knn(
+            field="vec", query_vector=qv, k=10), size=10)
+        got = query_shard(Reader(segs), mappers, dsl.Knn(
+            field="vec", query_vector=qv, k=10), size=10, device="cpu")
+        assert [(d.segment_idx, d.doc, d.score) for d in got.docs] == \
+            [(d.segment_idx, d.doc, d.score) for d in want.docs]
+
+
+def big_segments(n_segs: int, n_docs: int):
+    """Segments of ``n_docs`` docs with a vector each (no engine: only the
+    routing decision is under test)."""
+    segs = []
+    for i in range(n_segs):
+        seg = Segment(f"big{i}", n_docs)
+        m = np.ones((n_docs, DIMS), np.float32)
+        seg.vectors["vec"] = VectorField(
+            matrix=m, exists=np.ones(n_docs, bool),
+            norms=np.linalg.norm(m, axis=1).astype(np.float32),
+            similarity="cosine", dims=DIMS)
+        seg.ids = [str(j) for j in range(n_docs)]
+        seg.invalidate_live_count()
+        segs.append(seg)
+    return segs
+
+
+@pytest.mark.parametrize("plane", [True, False])
+def test_ivf_routed_knn_raises_not_ported(plane, planes):
+    from elasticsearch_tpu_torch.search import telemetry
+    PLANES.enabled = plane
+    segs = big_segments(2, 65536)
+    before = telemetry.TELEMETRY.not_ported.get("knn_ivf", 0)
+    q = dsl.Knn(field="vec", query_vector=[1.0] * DIMS, k=10)
+    with pytest.raises(NotPortedError) as info:
+        query_shard(Reader(segs), MapperService(mapping("cosine")), q,
+                    size=10, device="cpu")
+    assert info.value.status == 501 and info.value.feature == "knn_ivf"
+    # the same segments mapped as a flat (brute-force) index are served
+    got = query_shard(Reader(segs), MapperService(mapping(
+        "cosine", {"type": "flat"})), q, size=10, device="cpu")
+    assert len(got.docs) == 10
+    assert telemetry.TELEMETRY.not_ported["knn_ivf"] == before + 1
+
+
+@pytest.mark.parametrize("body,feature", [
+    (knn_body([1.0] * DIMS, knn={"filter": {"term": {"tag": "t1"}}}),
+     "knn_filter"),
+    (knn_body([1.0] * DIMS, k=5000, num_candidates=5000), "knn_k_over_4096"),
+    ({"query": {"bool": {"must": [{"knn": {
+        "field": "vec", "query_vector": [1.0] * DIMS, "k": 3}}]}}},
+     "dense_collector"),
+    ({"query": {"script_score": {"query": {"knn": {
+        "field": "vec", "query_vector": [1.0] * DIMS, "k": 3}}, "script": {
+        "source": "_score"}}}}, "dense_collector"),
+])
+def test_out_of_slice_knn_requests_raise_not_ported(body, feature, planes):
+    from elasticsearch_tpu_torch.search import telemetry
+    _ref, port = index_both("cosine", make_vectors(9, 60), refresh_at=(30,))
+    svc = SearchService(port, device="cpu")
+    before = telemetry.TELEMETRY.not_ported.get(feature, 0)
+    with pytest.raises(NotPortedError) as info:
+        svc.search(body)
+    assert info.value.status == 501
+    assert info.value.feature == feature
+    assert telemetry.TELEMETRY.not_ported[feature] == before + 1
+
+
+def test_ivf_index_option_raises_not_ported(planes):
+    _ref, port = index_both("cosine", make_vectors(10, 60),
+                            refresh_at=(30,), index_options={"type": "ivf"})
+    with pytest.raises(NotPortedError) as info:
+        SearchService(port, device="cpu").search(knn_body([1.0] * DIMS))
+    assert info.value.feature == "knn_ivf"

@@ -43,3 +43,30 @@ def tx(inp, *names):
 
 
 FLAT = ("docs", "tfs", "idx", "w", "q", "dl", "avg", "live")
+
+
+def make_knn_inputs(seed: int, dims: int, n_q: int, kind: str, n_docs: int,
+                    n_pad: int):
+    """Seeded kNN inputs (matrix [n_pad, dims] f32, norms, exists, live,
+    queries [n_q, dims]): integer-valued (0..255, SIFT1M's kind) or
+    Gaussian rows, ~10 % missing vectors and deleted docs, three duplicates
+    of row 5 (score ties) and an all-zero last query row."""
+    rng = np.random.default_rng(seed)
+    if kind == "int":
+        m = rng.integers(0, 256, (n_pad, dims)).astype(np.float32)
+        q = rng.integers(0, 256, (n_q, dims)).astype(np.float32)
+    else:
+        m = rng.standard_normal((n_pad, dims)).astype(np.float32)
+        q = rng.standard_normal((n_q, dims)).astype(np.float32)
+    exists = np.zeros(n_pad, bool)
+    exists[:n_docs] = rng.random(n_docs) > 0.1        # missing vectors
+    m[~exists] = 0.0
+    for dup in (11, 17, 40):                          # score ties
+        m[dup] = m[5]
+        exists[dup] = exists[5] = True
+    live = np.zeros(n_pad, bool)
+    live[:n_docs] = rng.random(n_docs) > 0.1          # deleted docs
+    live[[5, 11, 17, 40]] = True
+    norms = np.linalg.norm(m, axis=1).astype(np.float32)
+    q[-1] = 0.0                                       # a zero query row
+    return m, norms, exists, live, q
