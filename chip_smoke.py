@@ -50,6 +50,32 @@ Phases, each of which fails the run on any failed check:
    kNN family must have launched (knn_coarse and knn_rerank in leg (a),
    knn_flat in legs (c) and (d)). Then each family is held against its
    plain version and timed at its largest main-path call.
+8. dense-small (run with the small phases): the dense collector's
+   kernels bm25_scores (K8), knn_scores (K9) and dense_topk (K10) against
+   their plain versions on seeded calls (K8 up to 65,536 blocks and QB
+   16,384; K9 at D 5/128/960 under the three similarities; K10 at k
+   1/10/4096 over rows of 128 to 4,194,304 docs, all -inf rows and
+   equal-score rows, which must come back in index order), and
+   bm25_topk / knn_topk through K1 / K5 at one query, against their plain
+   versions and against K8 / K9 followed by K10; all bitwise.
+9. dense-engine: the text and vector engines above (both mappings carry
+   a keyword ``tag`` and an integer ``n``) through the dense collector:
+   exact totals, bool with filters and must_not, should with
+   minimum_should_match, multi_match, the phrase pair, dis_max,
+   constant_score, boosting, match_all, field sorts with missing values
+   and search_after, min_score, _count, terminate_after, script_score
+   with the three vector functions, knn inside bool: every response equal
+   on the card and the CPU, score bits included.
+10. dense-full: the shards of phases 5 and 7 again, through the dense
+   collector: (a) the 64 MS MARCO queries as solo match with
+   track_total_hits true -- ids and score bits equal to phase 5's exact
+   batch leg, totals equal to a host count; (b) BASELINE #2 in its
+   script_score form, 64 solo cosineSimilarity bodies over match_all --
+   ids equal to phase 7's exact-plane leg, recall@10 >= 0.95. Each query
+   must launch 4 K8 + 4 K10 in (a), 4 K9 + 4 K10 in (b), and nothing of
+   K1-K7. Launch counts are zeroed before phases 9-10 and read right
+   after; then each dense family is held against its plain version and
+   timed (K10 at both shards' row lengths), beside its library yardstick.
 
 Prints a ``{"kernels": [...]}`` line and, last, the ``{"ok": true, ...}``
 line. Exits non-zero, without the ok line, when there is no CUDA card,
@@ -82,6 +108,9 @@ REPLACES = {
     "knn_flat": "elasticsearch_tpu/ops/knn.py:101",
     "knn_coarse": "elasticsearch_tpu/ops/knn.py:184",
     "knn_rerank": "elasticsearch_tpu/ops/knn.py:261",
+    "bm25_scores": "elasticsearch_tpu/ops/bm25.py:45",
+    "knn_scores": "elasticsearch_tpu/ops/knn.py:33",
+    "dense_topk": "elasticsearch_tpu/search/phase.py:806",
 }
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM, NVIDIA data sheet
 F32_FLOPS = 67e12              # H100 SXM f32 outside the tensor cores
@@ -248,20 +277,29 @@ def zipf_terms(np, rng, n: int, vocab: int):
     return (rng.zipf(1.35, n) - 1) % vocab
 
 
-def phase_engine(torch, np, dev, n_docs: int) -> None:
+def build_text_engine(np, n_docs: int):
+    """``InternalEngine`` with 50,000 seeded docs: a text field of
+    Zipf(1.35) words over 30,000, a keyword ``tag`` (7 values) and an
+    integer ``n`` (missing on every ninth doc); three segments, 25
+    deletes. Returns (engine, words, rng)."""
     from elasticsearch_tpu_torch.index import InternalEngine
     from elasticsearch_tpu_torch.mapping import MapperService
-    from elasticsearch_tpu_torch.search import SearchService
     rng = np.random.default_rng(SEED + 3)
     words = np.array([f"w{i}" for i in range(30_000)])
-    engine = InternalEngine(MapperService(
-        {"properties": {"body": {"type": "text"}}}), shard_label="smoke")
+    engine = InternalEngine(MapperService({"properties": {
+        "body": {"type": "text"}, "tag": {"type": "keyword"},
+        "n": {"type": "integer"}}}), shard_label="smoke")
     t0 = time.monotonic()
     lens = rng.integers(16, 97, n_docs)
+    nums = rng.integers(0, 1000, n_docs)
     cuts = {n_docs // 3, 2 * n_docs // 3}
     for i in range(n_docs):
-        engine.index(str(i), {"body": " ".join(
-            words[zipf_terms(np, rng, int(lens[i]), 30_000)])})
+        doc = {"body": " ".join(
+            words[zipf_terms(np, rng, int(lens[i]), 30_000)]),
+            "tag": f"t{i % 7}"}
+        if i % 9:
+            doc["n"] = int(nums[i])
+        engine.index(str(i), doc)
         if i in cuts:
             engine.refresh()
     engine.refresh()
@@ -272,6 +310,12 @@ def phase_engine(torch, np, dev, n_docs: int) -> None:
     log(f"engine: {n_docs} docs in {len(reader.segments)} segments, "
         f"indexed in {time.monotonic() - t0:.1f}s")
     check(len(reader.segments) >= 2, "engine: fewer than 2 segments")
+    return engine, words, rng
+
+
+def phase_engine(torch, np, dev, built) -> None:
+    from elasticsearch_tpu_torch.search import SearchService
+    engine, words, rng = built
     on_dev = SearchService(engine, index_name="smoke", device=dev)
     on_cpu = SearchService(engine, index_name="smoke", device="cpu")
     bodies = []
@@ -354,45 +398,54 @@ class Recorder:
     """Keeps the arguments of the main path's kernel calls (recording is
     not a launch) so the families can be held against their plain
     versions on the same inputs afterwards: the first ``keep`` calls of
-    each family, and its largest call by ``size(family, args)``."""
+    each family, and its largest call by ``size(family, args)`` -- one
+    per ``group(family, args)`` when a grouping is given (e.g. one per
+    row length). ``targets`` maps each family to the (module, function
+    name) of its wrapper."""
 
-    def __init__(self, module, families, size, keep: int):
-        self.module = module
-        self.families = families
+    def __init__(self, targets, size, keep: int, group=None):
+        self.targets = targets
+        self.families = tuple(targets)
         self.size = size
         self.keep = keep
-        self.first = {f: [] for f in families}
-        self.largest = {}
+        self.group = group or (lambda fam, args: None)
+        self.first = {f: [] for f in self.families}
+        self.largest = {}       # (family, group) -> call
         self._orig = {}
 
     @property
     def calls(self):
-        return {f: self.first[f] + ([self.largest[f]] if f in self.largest
-                                    else []) for f in self.families}
+        return {f: self.first[f] + self.largest_calls(f)
+                for f in self.families}
+
+    def largest_calls(self, fam: str):
+        """The largest call of each group, in first-seen order."""
+        return [c for (f, _g), c in self.largest.items() if f == fam]
 
     def _record(self, fam: str, args, kwargs) -> None:
         call = (args, dict(kwargs))
         if len(self.first[fam]) < self.keep:
             self.first[fam].append(call)
-        big = self.largest.get(fam)
+        key = (fam, self.group(fam, args))
+        big = self.largest.get(key)
         if big is None or self.size(fam, args) > self.size(fam, big[0]):
-            self.largest[fam] = call
+            self.largest[key] = call
 
     def __enter__(self):
-        for fam in self.families:
-            orig = getattr(self.module, fam)
-            self._orig[fam] = orig
+        for fam, (module, name) in self.targets.items():
+            orig = getattr(module, name)
+            self._orig[fam] = (module, name, orig)
 
             def wrapped(*args, _fam=fam, _orig=orig, **kwargs):
                 if args[0].is_cuda:
                     self._record(_fam, args, kwargs)
                 return _orig(*args, **kwargs)
-            setattr(self.module, fam, wrapped)
+            setattr(module, name, wrapped)
         return self
 
     def __exit__(self, *exc):
-        for fam, orig in self._orig.items():
-            setattr(self.module, fam, orig)
+        for module, name, orig in self._orig.values():
+            setattr(module, name, orig)
 
 
 def device_ms(families=FAMILIES):
@@ -407,7 +460,8 @@ def pct(xs, p: float) -> float:
     return xs[min(len(xs) - 1, int(p * len(xs)))]
 
 
-def phase_full(torch, np, dev, n_docs: int, workers: int, n_q: int):
+def phase_full(torch, np, dev, n_docs: int, workers: int, n_q: int,
+               shared):
     from elasticsearch_tpu_torch.index.engine import Reader
     from elasticsearch_tpu_torch.mapping import MapperService
     from elasticsearch_tpu_torch.ops import bm25 as bm
@@ -511,6 +565,9 @@ def phase_full(torch, np, dev, n_docs: int, workers: int, n_q: int):
         for d in res.docs:
             check(math.isfinite(d.score) and d.score > 0,
                   f"full: query {qi}: bad score {d.score}")
+    shared["msmarco"] = (segs, mappers, queries, [
+        [(d.segment_idx, d.doc, d.score) for d in c[:10]]
+        for c, *_ in batch["batch_exact"]])
     prev = dev_ms["start"]
     for leg, times in legs.items():
         per_q = [t / n_q for t in times] if leg.startswith("batch") else times
@@ -523,7 +580,6 @@ def phase_full(torch, np, dev, n_docs: int, workers: int, n_q: int):
             f" ms over {len(times)} runs; wall total "
             f"{1e3 * sum(times):.1f} ms, kernel device ms {kern}, "
             f"kernel-busy share {busy:.4f}")
-    return queries
 
 
 def time_call(torch, fn, runs: int) -> float:
@@ -744,26 +800,30 @@ KNN_FIELDS = {"cosine": "vec_cos", "dot_product": "vec_dot",
               "l2_norm": "vec_l2"}
 
 
-def phase_knn_engine(torch, np, dev, n_docs: int) -> None:
-    """InternalEngine + SearchService with one 128-dim vector per doc,
-    mapped under the three similarities; 32 knn bodies over planes on and
-    off and the quantized tier on and off must give the same response on
-    the card as on the CPU (ids, totals, max_score and score bits)."""
+def build_vector_engine(np, n_docs: int):
+    """``InternalEngine`` with 20,000 seeded docs: one Gaussian 128-dim
+    vector mapped under the three similarities, a keyword ``tag`` (5
+    values) and an integer ``n`` (missing on every ninth doc); four
+    segments, 20 deletes. Returns (engine, rng)."""
     from elasticsearch_tpu_torch.index import InternalEngine
     from elasticsearch_tpu_torch.mapping import MapperService
-    from elasticsearch_tpu_torch.ops.device_segment import PLANES
-    from elasticsearch_tpu_torch.search import SearchService
     rng = np.random.default_rng(SEED + 13)
     props = {f: {"type": "dense_vector", "dims": 128, "similarity": sim}
              for sim, f in KNN_FIELDS.items()}
+    props.update({"tag": {"type": "keyword"}, "n": {"type": "integer"}})
     engine = InternalEngine(MapperService({"properties": props}),
                             shard_label="smoke-knn")
     t0 = time.monotonic()
     vecs = rng.standard_normal((n_docs, 128), dtype=np.float32)
+    nums = rng.integers(0, 1000, n_docs)
     cuts = {n_docs // 4, n_docs // 2, 3 * n_docs // 4}
     for i in range(n_docs):
         v = vecs[i].tolist()
-        engine.index(str(i), {f: v for f in KNN_FIELDS.values()})
+        doc = {f: v for f in KNN_FIELDS.values()}
+        doc["tag"] = f"t{i % 5}"
+        if i % 9:
+            doc["n"] = int(nums[i])
+        engine.index(str(i), doc)
         if i in cuts:
             engine.refresh()
     engine.refresh()
@@ -774,6 +834,17 @@ def phase_knn_engine(torch, np, dev, n_docs: int) -> None:
     log(f"knn-engine: {n_docs} docs in {n_segs} segments, indexed in "
         f"{time.monotonic() - t0:.1f}s")
     check(n_segs >= 2, "knn-engine: fewer than 2 segments")
+    return engine, rng
+
+
+def phase_knn_engine(torch, np, dev, built) -> None:
+    """InternalEngine + SearchService with one 128-dim vector per doc,
+    mapped under the three similarities; 32 knn bodies over planes on and
+    off and the quantized tier on and off must give the same response on
+    the card as on the CPU (ids, totals, max_score and score bits)."""
+    from elasticsearch_tpu_torch.ops.device_segment import PLANES
+    from elasticsearch_tpu_torch.search import SearchService
+    engine, rng = built
     on_dev = SearchService(engine, index_name="smoke", device=dev)
     on_cpu = SearchService(engine, index_name="smoke", device="cpu")
     sims = list(KNN_FIELDS)
@@ -880,7 +951,8 @@ def knn_size(family: str, args):
     return args[3].shape[0], args[0].shape[0], args[6]
 
 
-def phase_knn_full(torch, np, dev, n_docs: int, n_q: int) -> None:
+def phase_knn_full(torch, np, dev, n_docs: int, n_q: int,
+                   shared) -> None:
     from elasticsearch_tpu_torch.index.engine import Reader
     from elasticsearch_tpu_torch.mapping import MapperService
     from elasticsearch_tpu_torch.ops.device_segment import PLANES
@@ -997,6 +1069,7 @@ def phase_knn_full(torch, np, dev, n_docs: int, n_q: int) -> None:
         for leg in ("c_batch_exact_plane", "d_batch_per_segment"):
             check(launched[leg]["knn_flat"] > 0,
                   f"knn-full: leg {leg} launched no knn_flat")
+    shared["sift"] = (segs, queries, answers["c_batch_exact_plane"])
     recall = recall_at_10(np, segs, queries,
                           [[(si, d) for si, d, _s in r] for r in base])
     log(f"knn-full: the four legs agree (ids and score bits, {n_q} "
@@ -1112,11 +1185,522 @@ def phase_knn_kernels(torch, rec, launches) -> list:
 
 
 # ---------------------------------------------------------------------------
+# the dense collector: K8, K9, K10, its engine path, the full-size legs
+# ---------------------------------------------------------------------------
+
+def neg_inf_where(torch, keep, row):
+    return torch.where(keep, row, torch.full((), -math.inf,
+                                             device=row.device))
+
+
+def phase_dense_small(torch, np, dev) -> None:
+    """K8 (bm25_scores), K9 (knn_scores) and K10 (dense_topk) against their
+    plain versions on seeded calls, bitwise; and the two single-query
+    programs the older kernels serve -- bm25_topk through K1 at n_q = 1 and
+    knn_topk through K5 at B = 1 -- against their plain versions and
+    against K8 / K9 followed by K10 (the same bits by design)."""
+    from elasticsearch_tpu_torch.ops import bm25 as bm
+    from elasticsearch_tpu_torch.ops import knn, topk
+    rng = np.random.default_rng(SEED + 17)
+    T = lambda a: torch.as_tensor(a, device=dev)  # noqa: E731
+    n = 0
+    for n_docs, nb, qb in ((3000, 64, 8), (200_000, 4096, 1024),
+                           (4_000_000, 65_536, 16_384)):
+        docs, tfs, dl, live, _seg, n_pad = random_store(np, rng, n_docs, nb)
+        n_real = qb - qb // 8      # the rest: gather_query_blocks' padding
+        idx = np.zeros(qb, np.int32)
+        w = np.zeros(qb, np.float32)
+        idx[:n_real] = rng.integers(0, nb, n_real)
+        w[:n_real] = rng.uniform(0.2, 9.0, n_real)
+        avgdl = float(rng.uniform(40.0, 60.0))
+        bd, bt, dlt, lv, fi, fw = T(docs), T(tfs), T(dl), T(live), T(idx), T(w)
+        for lmask in (None, lv):
+            args = (bd, bt, fi, fw, dlt, avgdl, n_pad, lmask)
+            got = bm.bm25_block_scores(*args)
+            want = bm.bm25_block_scores_plain(*args)
+            torch.cuda.synchronize()
+            compare(torch, f"bm25_scores n_docs_pad={n_pad} qb={qb}", [got],
+                    [want])
+            n += 1
+        zq = torch.zeros_like(fi)
+        avg = torch.full((qb,), avgdl, dtype=torch.float32, device=dev)
+        s8 = bm.bm25_block_scores(bd, bt, fi, fw, dlt, avgdl, n_pad, lv)
+        for k in (1, 10, min(4096, n_pad)):
+            got = bm.bm25_topk(bd, bt, fi, fw, dlt, avgdl, lv, n_pad, k)
+            ps, pd = bm.bm25_flat_plain(bd, bt, fi, fw, zq, dlt, avg, lv,
+                                        n_pad, 1, k)
+            torch.cuda.synchronize()
+            compare(torch, f"bm25_topk (K1 at n_q 1) k={k}", got,
+                    (ps[0], pd[0]))
+            via = topk.dense_topk(neg_inf_where(torch, s8 > 0, s8), k)
+            torch.cuda.synchronize()
+            compare(torch, f"bm25_scores + dense_topk vs bm25_topk k={k}",
+                    via, got)
+            n += 2
+        del bd, bt, dlt, s8
+    for dims, n_docs, n_pad in ((5, 3000, 4096), (128, 200_000, 262_144),
+                                (960, 100_000, 131_072)):
+        m, norms, exists, live, _q = knn_inputs(np, rng, n_docs, n_pad, dims,
+                                                1)
+        mt, nt, et, lt = T(m), T(norms), T(exists), T(live)
+        del m
+        for sim in ("cosine", "dot_product", "l2_norm"):
+            q = rng.standard_normal(dims, dtype=np.float32)
+            batch = knn.QueryBatch([q], dev)
+            args = (mt, nt, et, batch.queries[0], batch.qn, batch.q2, sim)
+            row = knn.vector_scores(*args)
+            want = knn.vector_scores_plain(*args)
+            torch.cuda.synchronize()
+            compare(torch, f"knn_scores D={dims} {sim}", [row], [want])
+            for k in (1, 10, 100):
+                got = knn.knn_topk(mt, nt, et, lt, q, k, sim)
+                ps, pd = knn.knn_flat_plain(mt, nt, lt & et, batch.queries,
+                                            batch.qn, batch.q2, k, sim)
+                torch.cuda.synchronize()
+                compare(torch, f"knn_topk (K5 at B 1) D={dims} {sim}", got,
+                        (ps[0], pd[0]))
+                via = topk.dense_topk(neg_inf_where(torch, lt & et, row), k)
+                torch.cuda.synchronize()
+                compare(torch, f"knn_scores + dense_topk vs knn_topk "
+                        f"D={dims} {sim}", via, got)
+                n += 2
+            n += 1
+        del mt
+        torch.cuda.empty_cache()
+    for n_pad in (128, 65_536, 262_144, 4_194_304):
+        rand = rng.standard_normal(n_pad).astype(np.float32)
+        rand[rng.random(n_pad) < 0.5] = -np.inf
+        equal = np.ones(n_pad, np.float32)          # match_all's row
+        equal[rng.random(n_pad) < 0.1] = -np.inf
+        few = rng.integers(0, 4, n_pad).astype(np.float32)
+        few[rng.random(n_pad) < 0.2] = -np.inf
+        rows = {"random": rand, "all -inf": np.full(n_pad, -np.inf,
+                                                   np.float32),
+                "equal": equal, "four values": few}
+        for name, row in rows.items():
+            rt = T(row)
+            for k in (1, 10, 4096):
+                if k > n_pad:
+                    continue
+                got = topk.dense_topk(rt, k)
+                want = topk.dense_topk_plain(rt, k)
+                torch.cuda.synchronize()
+                compare(torch, f"dense_topk n={n_pad} k={k} {name}", got,
+                        want)
+                if name == "equal":
+                    first = np.nonzero(row == 1.0)[0][:k]
+                    check(got[1][:len(first)].tolist() == first.tolist(),
+                          f"dense_topk n={n_pad} k={k}: equal scores not "
+                          f"in index order")
+                n += 1
+    log(f"dense-small: {n} kernel calls (bm25_scores up to 65,536 blocks "
+        f"and QB 16,384; knn_scores at D 5/128/960 x 3 similarities; "
+        f"dense_topk at k 1/10/4096 over rows of 128 to 4,194,304 with "
+        f"all -inf and equal-score rows; bm25_topk via K1 and knn_topk via "
+        f"K5) bitwise equal to their plain versions and to each other")
+
+
+def same_hits(a, b) -> bool:
+    """Two _search responses equal in ids, score bits, sort values,
+    totals and max_score."""
+    ha, hb = a["hits"], b["hits"]
+    return ([(h["_id"], h["_score"], h.get("sort")) for h in ha["hits"]]
+            == [(h["_id"], h["_score"], h.get("sort")) for h in hb["hits"]]
+            and ha["total"] == hb["total"]
+            and ha["max_score"] == hb["max_score"])
+
+
+def dense_text_bodies(np, rng, words, n_per: int):
+    """The dense-engine mix over the text engine: exact totals, bool with
+    filters and must_not, should with minimum_should_match, multi_match,
+    dis_max, constant_score, boosting, min_score; then the phrase pair,
+    match_all, and field sorts with missing values and search_after."""
+    out = []
+    for _ in range(n_per):
+        t = [" ".join(words[zipf_terms(np, rng, int(rng.integers(1, 4)),
+                                       300)]) for _ in range(3)]
+        tag = f"t{int(rng.integers(0, 7))}"
+        lo = int(rng.integers(0, 600))
+        out += [
+            {"query": {"match": {"body": t[0]}}, "track_total_hits": True},
+            {"query": {"bool": {
+                "must": [{"match": {"body": t[0]}}],
+                "filter": [{"term": {"tag": tag}},
+                           {"range": {"n": {"gte": lo, "lt": lo + 400}}}],
+                "must_not": [{"match": {"body": t[1]}}]}},
+             "track_total_hits": True},
+            {"query": {"bool": {"should": [
+                {"match": {"body": t[0]}}, {"match": {"body": t[1]}},
+                {"term": {"tag": tag}}], "minimum_should_match": 2}}},
+            {"query": {"multi_match": {"query": t[2],
+                                       "fields": ["body", "tag^2"]}}},
+            {"query": {"dis_max": {"queries": [
+                {"match": {"body": t[0]}}, {"match": {"body": t[1]}}],
+                "tie_breaker": 0.7}}},
+            {"query": {"constant_score": {"filter": {"term": {"tag": tag}},
+                                          "boost": 1.5}}},
+            {"query": {"boosting": {"positive": {"match": {"body": t[0]}},
+                                    "negative": {"term": {"tag": tag}},
+                                    "negative_boost": 0.25}}},
+            {"query": {"match": {"body": t[2]}}, "min_score": 4.0},
+        ]
+    out += [
+        {"query": {"match_phrase": {"body": "w40 w41"}}},
+        {"query": {"match_phrase_prefix": {"body": "w150 w4"}}},
+        {"query": {"match_all": {}}, "size": 10},
+        {"query": {"match": {"body": "w30"}},
+         "sort": [{"n": {"order": "asc"}}], "size": 20},
+        {"query": {"match": {"body": "w31"}},
+         "sort": [{"n": {"order": "desc"}}], "size": 20},
+        {"query": {"match": {"body": "w31"}},
+         "sort": [{"n": {"order": "desc"}}], "search_after": [500],
+         "size": 20},
+        {"query": {"match": {"body": "w32"}},
+         "sort": [{"n": {"order": "asc", "missing": 7}}], "size": 20},
+    ]
+    return out
+
+
+def dense_vector_bodies(rng, n: int):
+    """script_score with each of the three vector functions (over
+    match_all and over a filter), and knn inside bool."""
+    out = []
+    for i in range(n):
+        qv = [float(x) for x in rng.standard_normal(128)]
+        tag = f"t{i % 5}"
+        out += [
+            {"query": {"script_score": {
+                "query": {"match_all": {}},
+                "script": {"source": "cosineSimilarity(params.qv, 'vec_cos')"
+                           " + 1.0", "params": {"qv": qv}}}}},
+            {"query": {"script_score": {
+                "query": {"bool": {"filter": [{"term": {"tag": tag}}]}},
+                "script": {"source": "dotProduct(params.qv, 'vec_dot')",
+                           "params": {"qv": qv}}}}},
+            {"query": {"script_score": {
+                "query": {"range": {"n": {"lt": 500}}},
+                "script": {"source": "l2norm(params.qv, 'vec_l2')",
+                           "params": {"qv": qv}}}}, "size": 5},
+            {"query": {"bool": {
+                "must": [{"knn": {"field": "vec_cos", "query_vector": qv,
+                                  "k": 50, "num_candidates": 100}}],
+                "filter": [{"term": {"tag": tag}}]}}},
+            {"query": {"bool": {"should": [
+                {"knn": {"field": "vec_l2", "query_vector": qv, "k": 20}},
+                {"term": {"tag": tag}}]}}, "track_total_hits": True},
+        ]
+    return out
+
+
+def phase_dense_engine(torch, np, dev, text, vec) -> None:
+    """The dense collector through SearchService (and query_shard for
+    terminate_after) on the text and the vector engines: every response
+    on the card equal to the same package's on the CPU, score bits
+    included; plus _count."""
+    from elasticsearch_tpu_torch.search import SearchService, dsl
+    from elasticsearch_tpu_torch.search.phase import query_shard
+    engine, words, rng = text
+    vengine, vrng = vec
+    n = 0
+    t_dev = []
+    for eng, bodies in ((engine, dense_text_bodies(np, rng, words, 4)),
+                        (vengine, dense_vector_bodies(vrng, 4))):
+        on_dev = SearchService(eng, index_name="smoke", device=dev)
+        on_cpu = SearchService(eng, index_name="smoke", device="cpu")
+        for body in bodies:
+            body = {**body, "_source": False}
+            t1 = time.monotonic()
+            a = on_dev.search(body)
+            t_dev.append(time.monotonic() - t1)
+            b = on_cpu.search(body)
+            check(same_hits(a, b), f"dense-engine: card != cpu for {body}")
+            n += 1
+        for body in bodies[:6]:
+            ca = on_dev.count({"query": body["query"]})
+            cb = on_cpu.count({"query": body["query"]})
+            check(ca == cb, f"dense-engine: _count differs for {body}")
+            n += 1
+    reader = engine.acquire_reader()
+    for limit in (1, 100, 20_000):
+        q = dsl.parse_query({"match": {"body": "w2 w9"}})
+        a, b = (query_shard(reader, engine.mappers, q, size=10,
+                            terminate_after=limit, device=d)
+                for d in (dev, "cpu"))
+        check([(d.segment_idx, d.doc, d.score) for d in a.docs]
+              == [(d.segment_idx, d.doc, d.score) for d in b.docs]
+              and (a.total_hits, a.terminated_early)
+              == (b.total_hits, b.terminated_early),
+              f"dense-engine: terminate_after {limit} differs")
+        n += 1
+    log(f"dense-engine: {n} responses equal on {dev} and cpu (score bits "
+        f"included); {dev} _search latency p50 "
+        f"{1e3 * pct(t_dev, 0.5):.2f} ms p99 {1e3 * pct(t_dev, 0.99):.2f} ms")
+
+
+DENSE_FAMILIES = ("bm25_scores", "knn_scores", "dense_topk")
+OLDER_FAMILIES = FAMILIES + KNN_FAMILIES
+
+
+def host_total(np, segs, analyzer_terms) -> int:
+    """Live docs holding any of the terms, counted on the host from the
+    postings."""
+    total = 0
+    for seg in segs:
+        pf = seg.postings["body"]
+        hit = np.zeros(seg.n_docs, bool)
+        for t in set(analyzer_terms):
+            docs, _ = pf.postings_for(t)
+            hit[docs] = True
+        total += int((hit & seg.live).sum())
+    return total
+
+
+def same_up_to_ties(want, got) -> bool:
+    """``got`` [(seg, doc, score)] equals ``want``'s ids in order, except
+    that docs whose ``got`` scores are equal may come in either order (a
+    score transform can merge neighbouring scores); a tie group at the
+    cut only has to be as long."""
+    if len(want) != len(got):
+        return False
+    i = 0
+    while i < len(got):
+        j = i
+        while j + 1 < len(got) and got[j + 1][2] == got[i][2]:
+            j += 1
+        ids_w = {(s, d) for s, d, _ in want[i:j + 1]}
+        ids_g = {(s, d) for s, d, _ in got[i:j + 1]}
+        if j + 1 < len(got) and ids_w != ids_g:
+            return False
+        i = j + 1
+    return True
+
+
+def phase_dense_full(torch, np, dev, shared, n_q: int):
+    """The dense collector at full width on the two shards the full and
+    knn-full phases built: (a) the MS MARCO-shaped shard's queries as solo
+    match with track_total_hits true (K8 + K10 per segment), ids and score
+    bits equal to the exact K1 batch leg, totals equal to a host count;
+    (b) SIFT1M-shaped shard, BASELINE #2 in its script_score form (K9 +
+    K10 per segment), ids equal to the exact-plane knn leg, recall@10
+    against the float64 oracle >= 0.95."""
+    from elasticsearch_tpu_torch.index.engine import Reader
+    from elasticsearch_tpu_torch.mapping import MapperService
+    from elasticsearch_tpu_torch.search import dsl
+    from elasticsearch_tpu_torch.search.device_profile import DEVICE_PROFILE
+    from elasticsearch_tpu_torch.search.phase import query_shard
+    from elasticsearch_tpu_torch.analysis import STANDARD
+    check("msmarco" in shared and "sift" in shared,
+          "dense-full needs the full and knn-full phases in the same run")
+
+    def leg(name, bodies, reader, mappers, per_query):
+        query_shard(reader, mappers, dsl.parse_query(bodies[0]["query"]),
+                    size=10, track_total_hits=True, device=dev)  # untimed
+        DEVICE_PROFILE.timing = dev.type == "cuda"
+        ms0 = device_ms(DENSE_FAMILIES)
+        n0 = DEVICE_PROFILE.launches()
+        times, out = [], []
+        try:
+            for body in bodies:
+                t = time.monotonic()
+                res = query_shard(reader, mappers,
+                                  dsl.parse_query(body["query"]),
+                                  size=body.get("size", 10),
+                                  track_total_hits=body.get(
+                                      "track_total_hits", 10_000),
+                                  device=dev)
+                if dev.type == "cuda":
+                    torch.cuda.synchronize()
+                times.append(time.monotonic() - t)
+                out.append(res)
+        finally:
+            DEVICE_PROFILE.timing = False
+        ms1 = device_ms(DENSE_FAMILIES)
+        n1 = DEVICE_PROFILE.launches()
+        launched = {f: n1.get(f, 0) - n0.get(f, 0)
+                    for f in DENSE_FAMILIES + OLDER_FAMILIES}
+        kern = {f: round(ms1[f] - ms0[f], 4) for f in DENSE_FAMILIES}
+        if dev.type == "cuda":
+            for fam, per in per_query.items():
+                check(launched[fam] == per * len(bodies),
+                      f"dense-full {name}: {launched[fam]} {fam} launches, "
+                      f"expected {per} a query")
+            for fam in OLDER_FAMILIES:
+                check(launched[fam] == 0,
+                      f"dense-full {name}: {fam} launched on the dense leg")
+        busy = sum(kern.values()) / max(1e3 * sum(times), 1e-9)
+        log(f"dense-full: leg {name}: {len(bodies)} solo queries, wall p50 "
+            f"{1e3 * pct(times, 0.5):.3f} ms p99 {1e3 * pct(times, 0.99):.3f}"
+            f" ms, wall total {1e3 * sum(times):.1f} ms; kernel device ms "
+            f"{kern}; launches { {f: v for f, v in launched.items() if v} }; "
+            f"kernel-busy share {busy:.4f}")
+        return out
+
+    segs, mappers, queries, k1_hits = shared["msmarco"]
+    queries = queries[:n_q]
+    reader = Reader(segs)
+    n_seg = len(segs)
+    bodies = [{"query": {"match": {"body": q}}, "track_total_hits": True}
+              for q in queries]
+    got = leg("a_msmarco_match_exact_totals", bodies, reader, mappers,
+              {"bm25_scores": n_seg, "dense_topk": n_seg})
+    for qi, (res, want) in enumerate(zip(got, k1_hits)):
+        have = [(d.segment_idx, d.doc, d.score) for d in res.docs]
+        check([h[:2] for h in have] == [h[:2] for h in want],
+              f"dense-full: query {qi}: ids differ from the K1 batch leg")
+        check([h[2] for h in have] == [h[2] for h in want],
+              f"dense-full: query {qi}: scores differ from the K1 batch leg")
+        total = host_total(np, segs, STANDARD.terms(queries[qi]))
+        check(res.total_hits == total and res.total_relation == "eq",
+              f"dense-full: query {qi}: total {res.total_hits} != host "
+              f"count {total}")
+    log(f"dense-full: {len(got)} match queries: ids and score bits equal to "
+        f"the exact K1 batch leg, totals equal to the host count "
+        f"(largest {max(r.total_hits for r in got)})")
+
+    vsegs, vqueries, knn_hits = shared["sift"]
+    vqueries = vqueries[:n_q]
+    vmappers = MapperService({"properties": {"vec": {
+        "type": "dense_vector", "dims": SIFT_DIMS, "similarity": "cosine",
+        "index_options": {"type": "flat"}}}})
+    vbodies = [{"query": {"script_score": {
+        "query": {"match_all": {}},
+        "script": {"source": "cosineSimilarity(params.qv, 'vec') + 1.0",
+                   "params": {"qv": [float(x) for x in v]}}}}, "size": 10}
+        for v in vqueries]
+    got = leg("b_sift_script_score", vbodies, Reader(vsegs), vmappers,
+              {"knn_scores": len(vsegs), "dense_topk": len(vsegs)})
+    answers = []
+    for qi, (res, want) in enumerate(zip(got, knn_hits)):
+        have = [(d.segment_idx, d.doc, d.score) for d in res.docs]
+        check(same_up_to_ties(want, have),
+              f"dense-full: query {qi}: script_score ids differ from the "
+              f"exact-plane knn leg")
+        check(all(math.isfinite(s) and 1.0 <= s <= 2.0 for *_x, s in have),
+              f"dense-full: query {qi}: script score out of [1, 2]")
+        answers.append([(si, d) for si, d, _s in have])
+    recall = recall_at_10(np, vsegs, vqueries, answers)
+    log(f"dense-full: {len(got)} script_score queries: ids equal to the "
+        f"exact-plane knn leg; recall@10 against the float64 exact oracle "
+        f"{recall:.4f}")
+    check(recall >= 0.95, f"dense-full: recall@10 {recall} < 0.95")
+
+
+def dense_n(family: str, args) -> int:
+    """The row length (n_docs_pad) of a K8, K9 or K10 call."""
+    if family == "bm25_scores":
+        return args[6]
+    return args[0].shape[0]
+
+
+def dense_size(family: str, args):
+    return (dense_n(family, args), args[2].numel()
+            if family == "bm25_scores" else 0)
+
+
+def dense_bound(family: str, args):
+    """(bound_ms, bound_by, bytes): the least time the card could take --
+    the bytes the function must move (each input read once, each output
+    written once) over the memory rate, or its arithmetic at the peak for
+    its type, whichever is larger."""
+    n = dense_n(family, args)
+    if family == "bm25_scores":
+        qb = args[2].numel()
+        postings = qb * 128
+        # gathered doc ids, tfs and doc lengths; idx + weight; live; out
+        nbytes = postings * 12 + qb * 8 + n + n * 4
+        t_ops = postings * 8 / F32_FLOPS
+    elif family == "knn_scores":
+        d = args[0].shape[1]
+        nbytes = n * d * 4 + n * 4 + n + d * 4 + 8 + n * 4
+        t_ops = 2 * n * d / BF16_FLOPS + 8 * n / F32_FLOPS
+    else:
+        k = args[1]
+        nbytes = n * 4 + k * 8
+        t_ops = n / F32_FLOPS
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                       else "operations"), nbytes
+
+
+def dense_library_ms(torch, family: str, args):
+    """One PyTorch call computing the same function, where there is one:
+    torch.topk on the same row for K10 (the same top-k, ties in no
+    promised order); the bf16 [N, D] x [D] product alone (torch.mv) for
+    K9. None for K8."""
+    if family == "dense_topk":
+        row, k = args[0], args[1]
+        return time_call(torch, lambda: torch.topk(row, k), 20)
+    if family == "knn_scores":
+        m = args[0].to(torch.bfloat16)
+        q = args[3].to(torch.bfloat16)
+        return time_call(torch, lambda: torch.mv(m, q), 20)
+    return None
+
+
+def phase_dense_kernels(torch, rec, launches) -> list:
+    """Each dense family against its plain version on up to 8 main-path
+    calls plus its largest per row length; timed (CUDA events) at its
+    largest main-path call -- K10 also at the SIFT shard's row length."""
+    from elasticsearch_tpu_torch.ops import bm25 as bm
+    from elasticsearch_tpu_torch.ops import knn, topk
+    mods = {"bm25_scores": (bm, "bm25_block_scores"),
+            "knn_scores": (knn, "vector_scores"),
+            "dense_topk": (topk, "dense_topk")}
+    rows = []
+    for fam in DENSE_FAMILIES:
+        mod, name = mods[fam]
+        kernel = getattr(mod, name)
+        plain = getattr(mod, name + "_plain")
+        calls = rec.calls[fam]
+        check(bool(calls), f"kernels: no {fam} call recorded")
+        err = 0.0
+        for args, kwargs in calls[:8] + rec.largest_calls(fam):
+            got = kernel(*args, **kwargs)
+            want = plain(*args, **kwargs)
+            torch.cuda.synchronize()
+            if fam != "dense_topk":
+                got, want = [got], [want]
+            err = max(err, compare(torch, fam, got, want))
+            del got, want
+        largest = sorted(rec.largest_calls(fam),
+                         key=lambda c: dense_n(fam, c[0]), reverse=True)
+        timed = largest[:1]
+        if fam == "dense_topk":
+            timed += [c for c in largest
+                      if dense_n(fam, c[0]) == 262_144][:1]
+        for args, kwargs in timed:
+            ms = time_call(torch, lambda: kernel(*args, **kwargs), 20)
+            plain_ms = time_call(torch, lambda: plain(*args, **kwargs), 20)
+            bound_ms, bound_by, nbytes = dense_bound(fam, args)
+            lib_ms = dense_library_ms(torch, fam, args)
+            shape = (f"n_docs_pad={dense_n(fam, args)}" + (
+                f" qb={args[2].numel()}" if fam == "bm25_scores" else "") + (
+                f" dims={args[0].shape[1]}" if fam == "knn_scores" else "") + (
+                f" k={args[1]}" if fam == "dense_topk" else ""))
+            log(f"kernel {fam}: {ms:.4f} ms (median of 20), plain "
+                f"{plain_ms:.4f} ms (median of 20), bound {bound_ms:.4f} ms "
+                f"({nbytes} bytes at 3.35 TB/s, {bound_by}), library "
+                f"{'none' if lib_ms is None else f'{lib_ms:.4f} ms'}, "
+                f"max_abs_err {err} over {len(calls)} main-path calls, "
+                f"timed at {shape}")
+            rows.append({
+                "name": fam, "route": "cuda",
+                "source": f"elasticsearch_tpu_torch/csrc/{fam}.cu",
+                "replaces": REPLACES[fam], "launches": launches.get(fam, 0),
+                "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                "bound_ms": bound_ms, "bound_by": bound_by,
+                "library_ms": lib_ms, "shape": shape})
+        torch.cuda.empty_cache()
+    return rows
+
+
+# ---------------------------------------------------------------------------
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--phases", default="card,small,knn-small,engine,full,"
-                    "kernels,knn-engine,knn-full")
+    ap.add_argument("--phases", default="card,small,knn-small,dense-small,"
+                    "engine,full,kernels,knn-engine,knn-full,dense-engine,"
+                    "dense-full")
     ap.add_argument("--full-docs", type=int, default=MS_MARCO_DOCS)
     ap.add_argument("--engine-docs", type=int, default=50_000)
     ap.add_argument("--knn-docs", type=int, default=SIFT_DOCS)
@@ -1165,18 +1749,28 @@ def main(argv=None) -> int:
         if "knn-small" in phases and on_card:
             phase_knn_small(torch, np, dev)
             log(t(), "knn-small done")
+        if "dense-small" in phases and on_card:
+            phase_dense_small(torch, np, dev)
+            log(t(), "dense-small done")
         from elasticsearch_tpu_torch.ops import bm25 as bm
-        from elasticsearch_tpu_torch.ops import knn
+        from elasticsearch_tpu_torch.ops import knn, topk
         rows = []
+        shared = {}
+        engines = {}
+        if phases & {"engine", "dense-engine"}:
+            engines["text"] = build_text_engine(np, args.engine_docs)
+        if phases & {"knn-engine", "dense-engine"}:
+            engines["vector"] = build_vector_engine(np, args.knn_engine_docs)
         # the BM25 main path: launch counts from zero, read right after
         DEVICE_PROFILE.reset_launches()
         if "engine" in phases:
-            phase_engine(torch, np, dev, args.engine_docs)
+            phase_engine(torch, np, dev, engines["text"])
             log(t(), "engine done")
-        with Recorder(bm, FAMILIES, bm25_size, keep=24) as rec:
+        with Recorder({f: (bm, f) for f in FAMILIES}, bm25_size,
+                      keep=24) as rec:
             if "full" in phases:
                 phase_full(torch, np, dev, args.full_docs, args.workers,
-                           args.queries)
+                           args.queries, shared)
                 log(t(), "full done")
         launches = DEVICE_PROFILE.launches()
         log("launches on the BM25 main path: " + json.dumps(
@@ -1194,11 +1788,13 @@ def main(argv=None) -> int:
         # the kNN main path: launch counts from zero, read right after
         DEVICE_PROFILE.reset_launches()
         if "knn-engine" in phases:
-            phase_knn_engine(torch, np, dev, args.knn_engine_docs)
+            phase_knn_engine(torch, np, dev, engines["vector"])
             log(t(), "knn-engine done")
-        with Recorder(knn, KNN_FAMILIES, knn_size, keep=8) as krec:
+        with Recorder({f: (knn, f) for f in KNN_FAMILIES}, knn_size,
+                      keep=8) as krec:
             if "knn-full" in phases:
-                phase_knn_full(torch, np, dev, args.knn_docs, args.queries)
+                phase_knn_full(torch, np, dev, args.knn_docs, args.queries,
+                               shared)
                 log(t(), "knn-full done")
         launches = DEVICE_PROFILE.launches()
         log("launches on the kNN main path: " + json.dumps(
@@ -1210,11 +1806,38 @@ def main(argv=None) -> int:
             if "kernels" in phases:
                 rows += phase_knn_kernels(torch, krec, launches)
                 log(t(), "knn kernels done")
-        if on_card and {"full", "knn-full", "kernels"} <= phases:
+        del krec
+        PLANES.clear()
+        # the dense main path: launch counts from zero, read right after
+        DEVICE_PROFILE.reset_launches()
+        dense = {"bm25_scores": (bm, "bm25_block_scores"),
+                 "knn_scores": (knn, "vector_scores"),
+                 "dense_topk": (topk, "dense_topk")}
+        with Recorder(dense, dense_size, keep=8, group=dense_n) as drec:
+            if "dense-engine" in phases:
+                phase_dense_engine(torch, np, dev, engines["text"],
+                                   engines["vector"])
+                log(t(), "dense-engine done")
+            if "dense-full" in phases:
+                phase_dense_full(torch, np, dev, shared, args.queries)
+                log(t(), "dense-full done")
+        launches = DEVICE_PROFILE.launches()
+        log("launches on the dense main path: " + json.dumps(
+            {f: launches.get(f, 0) for f in DENSE_FAMILIES}))
+        if on_card and "dense-full" in phases:
+            for fam in DENSE_FAMILIES:
+                check(launches.get(fam, 0) > 0,
+                      f"{fam} was never launched on the main path")
+            if "kernels" in phases:
+                rows += phase_dense_kernels(torch, drec, launches)
+                log(t(), "dense kernels done")
+        del drec
+        if on_card and {"full", "knn-full", "dense-full",
+                        "kernels"} <= phases:
             from elasticsearch_tpu_torch.search.device_profile import (
                 KERNEL_FAMILIES,
             )
-            check(sorted(r["name"] for r in rows) == sorted(KERNEL_FAMILIES),
+            check({r["name"] for r in rows} == set(KERNEL_FAMILIES),
                   "kernels: the line does not list every kernel family")
         log(json.dumps({"kernels": rows}))
     except SmokeFailure as e:

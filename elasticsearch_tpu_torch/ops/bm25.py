@@ -6,21 +6,24 @@ logic changes (``idf``, ``P1_BUCKET``, ``MAX_BATCH_CELLS``,
 ``build_query_plan``, ``WAND_GRID``), so pruning decisions and dispatch
 counts match the reference's exactly.
 
-The device half is four kernel families, each a hand-written CUDA kernel
+The device half is five kernel families, each a hand-written CUDA kernel
 (``csrc/<family>.cu``) behind a wrapper, with its plain PyTorch version
 beside it:
 
-- ``bm25_flat`` (K1): flat batched BM25 + top-k, optionally counted;
+- ``bm25_flat`` (K1): flat batched BM25 + top-k, optionally counted (at
+  one query it also serves the JAX package's ``bm25_topk``);
 - ``bm25_flat_seg`` (K2): K1 with per-segment match counts;
 - ``bm25_coarse`` (K3): K1's gather over the bf16 mirrors, top-k'
   candidates and exact per-segment counts;
-- ``bm25_rerank`` (K4): exact f32 re-score of the coarse candidates.
+- ``bm25_rerank`` (K4): exact f32 re-score of the coarse candidates;
+- ``bm25_scores`` (K8): one query's dense score row (the dense
+  collector's ``match`` family of nodes).
 
 A wrapper launches its kernel for CUDA tensors and runs the plain version
 for CPU tensors; there is no fallback between the two. Both sum the f32
 contributions in 64-bit fixed point (scale 2^32) and convert once, so the
-kernel and its plain version agree bit for bit, and K1, K2 and K4 give the
-same score for the same doc. Top-k order is score descending, then index
+kernel and its plain version agree bit for bit, and K1, K2, K4 and K8 give
+the same score for the same doc. Top-k order is score descending, then index
 ascending, -inf slots included (``lax.top_k``'s order).
 
 idf follows the reference's BM25: ln(1 + (N - df + 0.5) / (df + 0.5)).
@@ -35,10 +38,11 @@ import numpy as np
 import torch
 
 from elasticsearch_tpu_torch.index.segment import next_pow2
-from elasticsearch_tpu_torch.ops.device_segment import DevicePostings
+from elasticsearch_tpu_torch.ops.device_segment import (
+    DevicePostings, gather_query_blocks,
+)
 from elasticsearch_tpu_torch.search.device_profile import DEVICE_PROFILE
 from elasticsearch_tpu_torch.index.segment import PostingsField
-from elasticsearch_tpu_torch.utils.errors import NotPortedError
 
 DEFAULT_K1 = 1.2
 DEFAULT_B = 0.75
@@ -231,6 +235,23 @@ def bm25_rerank_plain(block_docs, block_tfs, flat_idx, flat_w, flat_q,
     return s, d, eps
 
 
+def bm25_block_scores_plain(block_docs, block_tfs, block_idx, block_weight,
+                            doc_lens, avgdl: float, n_docs_pad: int,
+                            live=None, k1: float = DEFAULT_K1,
+                            b: float = DEFAULT_B) -> torch.Tensor:
+    qb = block_idx.shape[0]
+    avg = torch.full((qb,), float(avgdl), dtype=torch.float32,
+                     device=block_idx.device)
+    fx, safe = _contrib_f32(block_docs, block_tfs, block_idx, block_weight,
+                            doc_lens, avg, k1, b)
+    acc = torch.zeros(n_docs_pad, dtype=torch.int64, device=fx.device)
+    acc.index_add_(0, safe.reshape(-1), fx.reshape(-1))
+    scores = _from_fixed(acc)
+    if live is None:
+        return scores
+    return torch.where(live, scores, torch.zeros((), device=fx.device))
+
+
 # ---------------------------------------------------------------------------
 # kernel wrappers
 # ---------------------------------------------------------------------------
@@ -244,27 +265,31 @@ _SIG = {
     + ["p"] * 7,
     "bm25_rerank": ["p"] * 10 + ["i", "i", "i", "i"] + ["f"] * 4
     + ["p"] * 7,
+    "bm25_scores": ["p"] * 8 + ["i", "ll"] + ["f"] * 4 + ["p"] * 3,
 }
 _CTYPES = {"p": ctypes.c_void_p, "i": ctypes.c_int, "ll": ctypes.c_longlong,
            "f": ctypes.c_float}
 _FNS: dict = {}
 
 
-def _launcher(family: str):
+def launch_kernel(family: str, sig, *args) -> None:
+    """Call ``<family>_launch`` of the family's library (built and bound
+    with ``sig``'s ctypes on first use; every family's wrapper module
+    goes through here) and raise if it returns a CUDA error."""
     fn = _FNS.get(family)
     if fn is None:
         from elasticsearch_tpu_torch._build import library
         fn = getattr(library(family), f"{family}_launch")
         fn.restype = ctypes.c_int
-        fn.argtypes = [_CTYPES[t] for t in _SIG[family]]
+        fn.argtypes = [_CTYPES[t] for t in sig]
         _FNS[family] = fn
-    return fn
+    rc = fn(*args)
+    if rc != 0:
+        raise RuntimeError(f"[{family}] kernel launch failed: CUDA error {rc}")
 
 
 def _launch(family: str, *args) -> None:
-    rc = _launcher(family)(*args)
-    if rc != 0:
-        raise RuntimeError(f"[{family}] kernel launch failed: CUDA error {rc}")
+    launch_kernel(family, _SIG[family], *args)
 
 
 def _stream() -> int:
@@ -499,6 +524,69 @@ def bm25_rerank(block_docs, block_tfs, flat_idx, flat_w, flat_q, doc_lens,
                 n_q, kprime, k, *_consts(k1, b), _ptr(cand_s), _ptr(cs_s),
                 _ptr(acc), _ptr(s), _ptr(d), _ptr(eps), _stream())
         return s, d, eps
+
+
+def bm25_block_scores(block_docs, block_tfs, block_idx, block_weight,
+                      doc_lens, avgdl: float, n_docs_pad: int, live=None,
+                      k1: float = DEFAULT_K1,
+                      b: float = DEFAULT_B) -> torch.Tensor:
+    """K8. Dense BM25 scores [n_docs_pad] f32 of ONE query over one
+    segment's block store: every posting of the QB gathered blocks
+    (``block_idx`` [QB] int32, ``block_weight`` [QB] f32 = idf * boost;
+    block 0 / weight 0 as padding) scored with ``avgdl``, summed per doc;
+    0 where no posting lands and, when ``live`` [n_docs_pad] bool is
+    given, where the doc is dead. K1's gather, contribution and
+    fixed-point sum at one query (flat_q 0, flat_avgdl = avgdl), so a
+    doc's score equals K1's for the same blocks, bit for bit."""
+    tensors = [block_docs, block_tfs, block_idx, block_weight, doc_lens]
+    cuda = _on_cuda(*tensors, *([live] if live is not None else []))
+    if block_docs.dim() != 2 or block_docs.shape[1] != BLOCK_WIDTH:
+        raise ValueError(f"[block_docs] must be [NB, {BLOCK_WIDTH}]")
+    nb = block_docs.shape[0]
+    qb = block_idx.shape[0]
+    _check("block_docs", block_docs, torch.int32, (nb, BLOCK_WIDTH))
+    _check("block_tfs", block_tfs, torch.float32, (nb, BLOCK_WIDTH))
+    _check("block_idx", block_idx, torch.int32, (qb,))
+    _check("block_weight", block_weight, torch.float32, (qb,))
+    _check("doc_lens", doc_lens, torch.float32, (n_docs_pad,))
+    if live is not None:
+        _check("live", live, torch.bool, (n_docs_pad,))
+    with DEVICE_PROFILE.call("bm25_scores",
+                             f"qb={qb}/n_docs_pad={n_docs_pad}", cuda):
+        if not cuda:
+            return bm25_block_scores_plain(
+                block_docs, block_tfs, block_idx, block_weight, doc_lens,
+                avgdl, n_docs_pad, live, k1=k1, b=b)
+        dev = block_docs.device
+        block_q = torch.zeros(qb, dtype=torch.int32, device=dev)
+        block_avg = torch.full((qb,), float(avgdl), dtype=torch.float32,
+                               device=dev)
+        acc = torch.empty(n_docs_pad, dtype=torch.int64, device=dev)
+        out = torch.empty(n_docs_pad, dtype=torch.float32, device=dev)
+        _launch("bm25_scores", _ptr(block_docs), _ptr(block_tfs),
+                _ptr(block_idx), _ptr(block_weight), _ptr(block_q),
+                _ptr(doc_lens), _ptr(block_avg),
+                _ptr(live) if live is not None else None, qb, n_docs_pad,
+                *_consts(k1, b), _ptr(acc), _ptr(out), _stream())
+        return out
+
+
+def bm25_topk(block_docs, block_tfs, block_idx, block_weight, doc_lens,
+              avgdl: float, live, n_docs_pad: int, k: int,
+              k1: float = DEFAULT_K1, b: float = DEFAULT_B):
+    """The JAX package's ``bm25_topk``: K8's scores masked to live docs
+    with score > 0 (-inf elsewhere), top-k -> (s [k] f32, d [k] int32).
+    That is ``bm25_flat_body`` at one query (flat_q 0, flat_avgdl = avgdl
+    broadcast): the same gather, mask and top-k, so K1 serves it."""
+    qb = block_idx.shape[0]
+    dev = block_idx.device
+    block_q = torch.zeros(qb, dtype=torch.int32, device=dev)
+    block_avg = torch.full((qb,), float(avgdl), dtype=torch.float32,
+                           device=dev)
+    s, d = bm25_flat(block_docs, block_tfs, block_idx, block_weight,
+                     block_q, doc_lens, block_avg, live, n_docs_pad, 1, k,
+                     k1=k1, b=b)
+    return s[0], d[0]
 
 
 def flatten_plans(plans, fb_pad: int):
@@ -761,10 +849,9 @@ def build_query_plan(terms_with_weights, term_blocks_fn, block_max_impact,
 class Bm25Executor:
     """Per-(segment, field) BM25 query executor with host-side query prep.
 
-    The batched, pruned methods are the served path. The dense
-    single-query methods (``scores`` / ``top_k``, the JAX package's
-    ``bm25_block_scores`` / ``bm25_topk`` programs) are not part of this
-    package yet and raise NotPortedError."""
+    The batched, pruned methods serve the match path; the dense
+    single-query methods (``scores``, K8, and ``top_k``, K1 at one query)
+    serve the dense collector's query nodes."""
 
     def __init__(self, device_postings: Optional[DevicePostings],
                  host_postings: PostingsField,
@@ -807,11 +894,34 @@ class Bm25Executor:
             return float(avgdl_override)
         return float(self.dev.avgdl)
 
-    def scores(self, *args, **kwargs):
-        raise NotPortedError("bm25_block_scores")
+    def _query_blocks(self, terms, boost, df_override):
+        tw = self.query_weights(terms, boost, df_override)
+        block_idx, block_w = gather_query_blocks(self.host, tw)
+        dev = self.dev.block_docs.device
+        return (torch.as_tensor(block_idx, device=dev),
+                torch.as_tensor(block_w, device=dev))
 
-    def top_k(self, *args, **kwargs):
-        raise NotPortedError("bm25_topk")
+    def scores(self, terms, live: torch.Tensor, boost: float = 1.0,
+               df_override=None, k1: float = DEFAULT_K1,
+               b: float = DEFAULT_B, avgdl_override=None) -> torch.Tensor:
+        """Dense masked scores for the query terms (used when composing
+        inside bool queries): K8, 0 at dead docs."""
+        block_idx, block_w = self._query_blocks(terms, boost, df_override)
+        return bm25_block_scores(self.dev.block_docs, self.dev.block_tfs,
+                                 block_idx, block_w, self.dev.doc_lens,
+                                 self._avgdl(avgdl_override),
+                                 self.dev.n_docs_pad, live, k1=k1, b=b)
+
+    def top_k(self, terms, live: torch.Tensor, k: int, boost: float = 1.0,
+              df_override=None, k1: float = DEFAULT_K1,
+              b: float = DEFAULT_B, avgdl_override=None):
+        """One query's top-k over live docs with score > 0 (``bm25_topk``,
+        served by K1 at one query): (s [k] f32, d [k] int32)."""
+        block_idx, block_w = self._query_blocks(terms, boost, df_override)
+        return bm25_topk(self.dev.block_docs, self.dev.block_tfs, block_idx,
+                         block_w, self.dev.doc_lens,
+                         self._avgdl(avgdl_override), live,
+                         self.dev.n_docs_pad, k, k1=k1, b=b)
 
     def top_k_batch(self, queries, live: torch.Tensor, k: int,
                     boost: float = 1.0, df_override=None,

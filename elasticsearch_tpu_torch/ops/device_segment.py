@@ -4,7 +4,8 @@ multi-segment plane.
 The postings and vectors halves of the JAX package's
 ``ops/device_segment.py``, with the same layout and the same residency
 rules; only the upload differs: arrays go to the card as ``torch`` tensors
-on an explicit device.
+on an explicit device. ``gather_query_blocks`` (the host block list of one
+query) is copied as it is.
 
 Each searchable segment gets lazily-built, cached device arrays with
 power-of-two padded shapes. The host Segment stays the source of truth;
@@ -129,6 +130,34 @@ def device_live_mask(seg: Segment, device: DeviceLike = None) -> torch.Tensor:
         m[: seg.n_docs] = seg.live
         got = mirrors[str(dev)] = torch.as_tensor(m, device=dev)
     return got
+
+
+def gather_query_blocks(pf: PostingsField, terms_with_weights,
+                        n_blocks_bucket_min: int = 8
+                        ) -> Tuple[np.ndarray, np.ndarray]:
+    """Host-side prep for a query: list every posting block of every query
+    term, with its per-block weight (e.g. idf). Returns (block_indices int32
+    [QB_pad], block_weights float32 [QB_pad]) padded to a pow2 bucket so the
+    device gather has a bucketed static shape. Padding uses block 0 with
+    weight 0 (contributes nothing). Per-term block lists come from the
+    field's immutable cache (PostingsField.term_block_idx), so repeat terms
+    across the query stream pay the list construction once per refresh."""
+    idx_parts: list = []
+    w_parts: list = []
+    for term, weight in terms_with_weights:
+        t_idx = pf.term_block_idx(term)
+        if not len(t_idx):
+            continue
+        idx_parts.append(t_idx)
+        w_parts.append(np.full(len(t_idx), weight, np.float32))
+    n = sum(len(p) for p in idx_parts)
+    qb_pad = next_pow2(max(n, 1), minimum=n_blocks_bucket_min)
+    out_idx = np.zeros(qb_pad, np.int32)
+    out_w = np.zeros(qb_pad, np.float32)
+    if idx_parts:
+        out_idx[:n] = np.concatenate(idx_parts)
+        out_w[:n] = np.concatenate(w_parts)
+    return out_idx, out_w
 
 
 # ---------------------------------------------------------------------------

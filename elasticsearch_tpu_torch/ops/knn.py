@@ -1,16 +1,20 @@
 """Dense-vector kNN on the card: the exact batched top-k and the two
 passes of the quantized tier.
 
-The JAX package's ``ops/knn.py``, batched and unmasked programs. Three
-kernel families, each a hand-written CUDA kernel (``csrc/<family>.cu``)
-behind a wrapper, with its plain PyTorch version beside it:
+The JAX package's ``ops/knn.py``, single-query, batched and unmasked
+programs. Four kernel families, each a hand-written CUDA kernel
+(``csrc/<family>.cu``) behind a wrapper, with its plain PyTorch version
+beside it:
 
 - ``knn_flat`` (K5): queries x matrix in bf16 with f32 sums, the
-  similarity transform, the ``allowed`` mask and the top-k per query;
+  similarity transform, the ``allowed`` mask and the top-k per query (at
+  one query it also serves the JAX package's ``knn_topk``);
 - ``knn_coarse`` (K6): int8 queries x the plane's int8 mirror with int32
   sums, rescaled, transformed and masked, the top-k' candidates;
 - ``knn_rerank`` (K7): the candidates sorted by doc id and re-scored with
-  K5's arithmetic, the top-k and ``eps`` = max |exact - coarse|.
+  K5's arithmetic, the top-k and ``eps`` = max |exact - coarse|;
+- ``knn_scores`` (K9): one query's dense similarity row with K5's
+  arithmetic, 0 at missing vectors (``vector_scores``: ``script_score``).
 
 A wrapper launches its kernel for CUDA tensors and runs the plain version
 for CPU tensors; there is no fallback between the two. Each dot product is
@@ -32,14 +36,11 @@ Scores use the transforms ES applies to keep them positive:
   dot_product: 0.5 + dot / 2
   l2_norm:     1 / (1 + dist)
 
-The single-query programs (``vector_scores`` / ``knn_topk``, which also
-serve ``script_score``) and the masked (filtered) programs are not part
-of this package yet.
+The masked (filtered) programs are not part of this package yet.
 """
 
 from __future__ import annotations
 
-import ctypes
 from typing import Optional, Tuple
 
 import numpy as np
@@ -47,7 +48,7 @@ import torch
 
 from elasticsearch_tpu_torch.index.segment import next_pow2
 from elasticsearch_tpu_torch.ops.bm25 import (
-    _CTYPES, _check, _on_cuda, _ptr, _stream, stable_topk,
+    _check, _on_cuda, _ptr, _stream, launch_kernel, stable_topk,
 )
 from elasticsearch_tpu_torch.search.device_profile import DEVICE_PROFILE
 
@@ -153,8 +154,9 @@ def _neg_inf(t: torch.Tensor) -> torch.Tensor:
     return torch.full((), -torch.inf, device=t.device)
 
 
-def knn_flat_plain(matrix, norms, allowed, queries, qn, q2, k: int,
-                   similarity: str = "cosine"):
+def _flat_dots(matrix, queries) -> torch.Tensor:
+    """[B, N_pad] dots of bf16-rounded operands, summed in f32 in
+    dimension order."""
     n_q, dims = queries.shape
     qb = _bf16(queries)
     cols = _bf16(matrix).t().contiguous()               # [D, N_pad]
@@ -162,10 +164,22 @@ def knn_flat_plain(matrix, norms, allowed, queries, qn, q2, k: int,
                       device=matrix.device)
     for d in range(dims):           # f32 sums in dimension order
         acc = acc + qb[:, d:d + 1] * cols[d][None, :]
-    del cols
-    s = _similarity(acc, norms[None, :], qn, q2, similarity)
+    return acc
+
+
+def knn_flat_plain(matrix, norms, allowed, queries, qn, q2, k: int,
+                   similarity: str = "cosine"):
+    s = _similarity(_flat_dots(matrix, queries), norms[None, :], qn, q2,
+                    similarity)
     s = torch.where(allowed[None, :], s, _neg_inf(s))
     return stable_topk(s, k)
+
+
+def vector_scores_plain(matrix, norms, exists, query, qn, q2,
+                        similarity: str = "cosine") -> torch.Tensor:
+    s = _similarity(_flat_dots(matrix, query[None, :]), norms[None, :], qn,
+                    q2, similarity)[0]
+    return torch.where(exists, s, torch.zeros((), device=s.device))
 
 
 def knn_coarse_plain(q8, scales, norms, allowed, qq, qscale, qn, q2,
@@ -214,21 +228,12 @@ _SIG = {
     "knn_flat": ["p"] * 6 + ["i", "i", "ll", "i", "i"] + ["p"] * 6,
     "knn_coarse": ["p"] * 8 + ["i", "i", "ll", "i", "i"] + ["p"] * 6,
     "knn_rerank": ["p"] * 8 + ["i"] * 5 + ["p"] * 4,
+    "knn_scores": ["p"] * 6 + ["i", "ll", "i"] + ["p"] * 2,
 }
-_FNS: dict = {}
 
 
 def _launch(family: str, *args) -> None:
-    fn = _FNS.get(family)
-    if fn is None:
-        from elasticsearch_tpu_torch._build import library
-        fn = getattr(library(family), f"{family}_launch")
-        fn.restype = ctypes.c_int
-        fn.argtypes = [_CTYPES[t] for t in _SIG[family]]
-        _FNS[family] = fn
-    rc = fn(*args)
-    if rc != 0:
-        raise RuntimeError(f"[{family}] kernel launch failed: CUDA error {rc}")
+    launch_kernel(family, _SIG[family], *args)
 
 
 def _sim_code(similarity: str) -> int:
@@ -375,6 +380,32 @@ def knn_rerank(matrix, norms, allowed, queries, qn, q2, cand, coarse_s,
         return s, d, eps
 
 
+def vector_scores(matrix, norms, exists, query, qn, q2,
+                  similarity: str = "cosine") -> torch.Tensor:
+    """K9. One query's dense similarity row [N_pad] f32: ``query`` [D] f32
+    (with its ``qn`` / ``q2`` [1], as ``QueryBatch`` computes them)
+    against ``matrix`` [N_pad, D] f32, both rounded to bf16, f32 sums in
+    dimension order, the similarity transform; 0 where ``exists`` is
+    False. A doc's score has knn_flat's bits before knn_flat masks it."""
+    cuda = _on_cuda(matrix, norms, exists, query, qn, q2)
+    n_pad, dims = _check_rows("matrix", matrix, torch.float32)
+    _check("query", query, torch.float32, (dims,))
+    _check("norms", norms, torch.float32, (n_pad,))
+    _check("exists", exists, torch.bool, (n_pad,))
+    _check_query_terms(qn, q2, 1)
+    code = _sim_code(similarity)
+    with DEVICE_PROFILE.call("knn_scores",
+                             f"n_docs_pad={n_pad}/dims={dims}", cuda):
+        if not cuda:
+            return vector_scores_plain(matrix, norms, exists, query, qn, q2,
+                                       similarity)
+        out = torch.empty(n_pad, dtype=torch.float32, device=matrix.device)
+        _launch("knn_scores", _ptr(matrix), _ptr(norms), _ptr(exists),
+                _ptr(query), _ptr(qn), _ptr(q2), dims, n_pad, code,
+                _ptr(out), _stream())
+        return out
+
+
 # ---------------------------------------------------------------------------
 # the JAX package's programs, over a QueryBatch
 # ---------------------------------------------------------------------------
@@ -408,6 +439,16 @@ def knn_rerank_exact(matrix, norms, allowed, batch: QueryBatch, cand,
                       batch.q2, cand, coarse_s, k, similarity)
 
 
+def knn_topk(matrix, norms, exists, live, query, k: int,
+             similarity: str = "cosine"):
+    """The JAX package's ``knn_topk``: one host query vector's exact
+    top-k over ``live & exists`` -> (s [k] f32, d [k] int32). That is
+    ``knn_topk_batch`` at one row, so K5 serves it."""
+    batch = QueryBatch([query], matrix.device)
+    s, d = knn_topk_batch(matrix, norms, exists, live, batch, k, similarity)
+    return s[0], d[0]
+
+
 class KnnExecutor:
     """Per-(segment, field) exact kNN executor over a ``DeviceVectors`` or
     a ``PlaneVectors`` (anything with matrix / norms / exists /
@@ -426,3 +467,24 @@ class KnnExecutor:
                               self.dev.exists, live, batch, k,
                               self.dev.similarity)
         return s[: batch.n_real], d[: batch.n_real]
+
+    def top_k(self, query, live, k: int):
+        """One query's exact top-k (``knn_topk``, K5 at one row)."""
+        return knn_topk(self.dev.matrix, self.dev.norms, self.dev.exists,
+                        live, query, k, self.dev.similarity)
+
+    def scores(self, query, live) -> torch.Tensor:
+        """One query's dense similarity row (K9), 0 at dead docs."""
+        s = query_scores(self.dev, query)
+        return torch.where(live, s, torch.zeros((), device=s.device))
+
+
+def query_scores(dev_vectors, query,
+                 similarity: Optional[str] = None) -> torch.Tensor:
+    """``vector_scores`` of one host query vector over a ``DeviceVectors``
+    (its similarity unless ``similarity`` is given); the query's norm
+    terms come from ``QueryBatch``, once."""
+    batch = QueryBatch([query], dev_vectors.matrix.device)
+    return vector_scores(dev_vectors.matrix, dev_vectors.norms,
+                         dev_vectors.exists, batch.queries[0], batch.qn,
+                         batch.q2, similarity or dev_vectors.similarity)

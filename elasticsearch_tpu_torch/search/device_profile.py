@@ -2,8 +2,9 @@
 
 Every kernel wrapper under ``ops/`` reports each call here, by family
 (``KERNEL_FAMILIES``: ``bm25_flat``, ``bm25_flat_seg``, ``bm25_coarse``,
-``bm25_rerank`` in ``ops/bm25.py``; ``knn_flat``, ``knn_coarse``,
-``knn_rerank`` in ``ops/knn.py``):
+``bm25_rerank``, ``bm25_scores`` in ``ops/bm25.py``; ``knn_flat``,
+``knn_coarse``, ``knn_rerank``, ``knn_scores`` in ``ops/knn.py``;
+``dense_topk`` in ``ops/topk.py``):
 
 - ``launches``: how many times the wrapper launched its CUDA kernel. A
   call on CPU tensors runs the plain PyTorch version and is not a launch.
@@ -30,7 +31,8 @@ from elasticsearch_tpu_torch.search import telemetry
 
 # every kernel family, one per csrc/<family>.cu
 KERNEL_FAMILIES = ("bm25_flat", "bm25_flat_seg", "bm25_coarse", "bm25_rerank",
-                   "knn_flat", "knn_coarse", "knn_rerank")
+                   "knn_flat", "knn_coarse", "knn_rerank", "bm25_scores",
+                   "knn_scores", "dense_topk")
 # per-family bound on the shape-bucket map (labels derive from shapes)
 MAX_BUCKETS_PER_FAMILY = 256
 # per-family bound on unresolved CUDA-event pairs

@@ -1,18 +1,31 @@
-"""Per-segment query execution context, the BM25 executors the text path
-plans with, and the kNN executor.
+"""Per-segment query execution: Query tree -> (scores, mask) on the card.
 
-The part of the JAX package's ``search/execute.py`` that the match and
-kNN paths run: ``SegmentContext``, ``resolve_aliases``, the cached
-per-segment BM25 executors, and the kNN rewrite (``KnnBound``,
-``ann_segment_route``, ``knn_shard_winners``, ``rewrite_knn``). The dense
-per-node executor (``execute`` and its query handlers: bool, term, range,
-...) is not part of this package yet; ``execute`` raises NotPortedError
-naming the query node. So are filtered kNN (its filter mask needs the
-dense executor), the IVF route, and kNN inside a compound query.
+The JAX package's ``search/execute.py``, cut to the nodes this package
+serves. Every query node compiles to a dense score row [n_docs_pad] f32
+and a boolean match mask, which compose on the card (bool = masked sums,
+dis_max = masked max, ...). Structural filters (term/terms/range/exists/
+ids/prefix/wildcard/regexp/fuzzy) build their masks on the host from
+columnar doc values -- the cacheable "filter context" -- while scoring
+clauses run the kernels: ``match`` and the phrase family K8
+(``bm25_block_scores``), ``script_score``'s vector functions K9
+(``vector_scores``), ``knn`` the kNN executor (K5-K7).
+
+Served nodes: match_all, match_none, match, multi_match, match_phrase,
+match_phrase_prefix, term, terms, range, exists, ids, prefix, wildcard,
+regexp, fuzzy, bool, constant_score, dis_max, boosting, knn (top-level or
+inside a compound query) and script_score with cosineSimilarity /
+dotProduct / l2norm. Any other node raises NotPortedError naming it
+(``dense_query:<Node>``); so do filtered kNN and the IVF route.
+
+The glue between kernels is plain PyTorch, one rounded f32 op at a time
+as the JAX package's eager ops run, and sums of several rows are taken
+in row order, so the card and the CPU give the same bits.
 """
 
 from __future__ import annotations
 
+import fnmatch
+import re
 from dataclasses import dataclass
 from typing import Any, Dict, List, Optional, Tuple
 
@@ -21,13 +34,16 @@ import torch
 
 from elasticsearch_tpu_torch.device import resolve_device
 from elasticsearch_tpu_torch.index.segment import Segment, next_pow2, BLOCK
-from elasticsearch_tpu_torch.mapping import MapperService
+from elasticsearch_tpu_torch.mapping import MapperService, parse_date_millis
+from elasticsearch_tpu_torch.mapping.mappers import RANGE_TYPES
 from elasticsearch_tpu_torch.ops import (
     Bm25Executor, DevicePostings, DeviceVectors, KnnExecutor,
     device_live_mask,
 )
 from elasticsearch_tpu_torch.search import dsl
-from elasticsearch_tpu_torch.utils.errors import NotPortedError
+from elasticsearch_tpu_torch.utils.errors import (
+    NotPortedError, QueryParsingError,
+)
 
 
 @dataclass
@@ -71,6 +87,17 @@ class SegmentContext:
         out = np.zeros(self.n_docs_pad, bool)
         out[: len(host_mask)] = host_mask
         return torch.as_tensor(out, device=self.device)
+
+    def zeros(self) -> torch.Tensor:
+        return torch.zeros(self.n_docs_pad, dtype=torch.float32,
+                           device=self.device)
+
+    def none_mask(self) -> torch.Tensor:
+        return torch.zeros(self.n_docs_pad, dtype=torch.bool,
+                           device=self.device)
+
+    def all_mask(self) -> torch.Tensor:
+        return self.live
 
     def search_analyzer(self, field_name: str):
         mapper = self.mappers.mapper(field_name)
@@ -141,9 +168,290 @@ def resolve_aliases(q: dsl.Query, mappers: MapperService) -> dsl.Query:
     return dataclasses.replace(q, **changes)
 
 
-def execute(q: dsl.Query, ctx: SegmentContext):
-    """The dense per-node executor: not part of this package yet."""
-    raise NotPortedError(f"dense_query:{type(q).__name__}")
+Result = Tuple[torch.Tensor, torch.Tensor]  # (scores f32, mask bool)
+
+
+def execute(q: dsl.Query, ctx: SegmentContext) -> Result:
+    """(scores [n_docs_pad] f32, mask [n_docs_pad] bool) of one query node
+    over one segment; a node this package does not serve yet raises
+    NotPortedError naming it."""
+    handler = _HANDLERS.get(type(q))
+    if handler is None:
+        raise NotPortedError(f"dense_query:{type(q).__name__}")
+    return handler(q, ctx)
+
+
+def _where(mask: torch.Tensor, scores, other: float = 0.0) -> torch.Tensor:
+    """``jnp.where(mask, scores, other)`` over an f32 row. A Python float
+    ``scores`` (a boost) is rounded to f32, as ``jnp.float32(boost)``;
+    scalars ride the launch as arguments, with no copy to the card."""
+    if not isinstance(scores, torch.Tensor):
+        scores = float(scores)
+    return torch.where(mask, scores, float(other))
+
+
+def _sum_rows(rows: List[torch.Tensor]) -> torch.Tensor:
+    """Elementwise sum of rows in row order (``jnp.sum`` over a short
+    stacked axis), the same bits on every device."""
+    total = rows[0]
+    for r in rows[1:]:
+        total = total + r
+    return total
+
+
+def _max_rows(rows: List[torch.Tensor]) -> torch.Tensor:
+    total = rows[0]
+    for r in rows[1:]:
+        total = torch.maximum(total, r)
+    return total
+
+
+def _any_rows(rows: List[torch.Tensor]) -> torch.Tensor:
+    total = rows[0]
+    for r in rows[1:]:
+        total = total | r
+    return total
+
+
+# ---------------------------------------------------------------------------
+# host-side mask builders (filter context)
+# ---------------------------------------------------------------------------
+
+def _term_mask_host(ctx: SegmentContext, field_name: str, value: Any) -> np.ndarray:
+    """Docs containing the exact term/value in keyword/numeric/text field."""
+    seg = ctx.segment
+    n = seg.n_docs
+    mask = np.zeros(n, bool)
+    if field_name == "_id":
+        d = seg.id_to_doc.get(str(value))
+        if d is not None:
+            mask[d] = True
+        return mask
+    ftype = ctx.mappers.field_type(field_name)
+    if ftype == "constant_keyword":
+        # every doc of the index carries the constant — a matching term
+        # matches ALL docs, even ones that omitted the field
+        const = getattr(ctx.mappers.mapper(field_name), "value", None)
+        if const is not None and str(value) == const:
+            mask[:] = True
+        return mask
+    if ftype == "ip":
+        import ipaddress
+        if "/" in str(value):
+            # CIDR term query over the (small) ip term dictionary
+            try:
+                net = ipaddress.ip_network(str(value), strict=False)
+            except ValueError:
+                raise QueryParsingError(f"failed to parse CIDR [{value}]")
+
+            def in_net(t: str) -> bool:
+                try:
+                    return ipaddress.ip_address(t) in net
+                except ValueError:
+                    return False
+            kf_ip = seg.keywords.get(field_name)
+            if kf_ip is not None:
+                for t in kf_ip.terms:
+                    if in_net(t):
+                        mask[kf_ip.docs_with_term(t)] = True
+            return mask
+        # exact: canonicalize the query value like the mapper canonicalized
+        # the indexed form ('2001:0DB8::1' must find '2001:db8::1')
+        try:
+            value = str(ipaddress.ip_address(str(value)))
+        except ValueError:
+            pass   # non-address text simply matches nothing below
+    if ftype is None and "." in field_name:
+        # keyed lookup into a flattened field: flat.key -> path-prefixed
+        # term on the root column (x-pack FlattenedFieldMapper keyed terms)
+        root, _, keypath = field_name.partition(".")
+        root_m = ctx.mappers.mapper(root)
+        if root_m is not None and root_m.type_name == "flattened":
+            from elasticsearch_tpu_torch.mapping.mappers import FLATTENED_SEP
+            kf_flat = seg.keywords.get(root)
+            if kf_flat is not None:
+                mask[kf_flat.docs_with_term(
+                    f"{keypath}{FLATTENED_SEP}{value}")] = True
+            return mask
+    kf = seg.keywords.get(field_name)
+    if kf is not None:
+        mask[kf.docs_with_term(str(value))] = True
+        return mask
+    dv = seg.doc_values.get(field_name)
+    if dv is not None:
+        v = _coerce_numeric(ctx, field_name, value)
+        np.equal(dv.values, v, out=mask, where=dv.exists)
+        mask &= dv.exists
+        # multi-valued docs match if ANY value matches
+        for doc, extra in dv.multi.items():
+            if not mask[doc] and any(x == v for x in extra):
+                mask[doc] = True
+        return mask
+    pf = seg.postings.get(field_name)
+    if pf is not None:
+        docs, _ = pf.postings_for(str(value))
+        mask[docs] = True
+        return mask
+    return mask
+
+
+def _coerce_numeric(ctx: SegmentContext, field_name: str, value: Any) -> float:
+    t = ctx.mappers.field_type(field_name)
+    try:
+        if t == "date":
+            return parse_date_millis(value)
+        if t == "boolean":
+            if isinstance(value, bool):
+                return 1.0 if value else 0.0
+            return 1.0 if str(value).lower() == "true" else 0.0
+        return float(value)
+    except (TypeError, ValueError):
+        raise QueryParsingError(
+            f"failed to parse value [{value}] for field [{field_name}]")
+
+
+def _range_mask_host(ctx: SegmentContext, q: dsl.Range) -> np.ndarray:
+    seg = ctx.segment
+    if ctx.mappers.field_type(q.field) == "ip":
+        # numeric address-space comparison, not lexicographic strings
+        import ipaddress
+        mask = np.zeros(seg.n_docs, bool)
+        kf = seg.keywords.get(q.field)
+        if kf is None:
+            return mask
+
+        def addr(v):
+            return int(ipaddress.ip_address(str(v)))
+        try:
+            for term in kf.terms:
+                a = addr(term)
+                if q.gt is not None and not a > addr(q.gt):
+                    continue
+                if q.gte is not None and not a >= addr(q.gte):
+                    continue
+                if q.lt is not None and not a < addr(q.lt):
+                    continue
+                if q.lte is not None and not a <= addr(q.lte):
+                    continue
+                mask[kf.docs_with_term(term)] = True
+        except ValueError as e:
+            raise QueryParsingError(f"failed to parse ip range: {e}")
+        return mask
+    dv = seg.doc_values.get(q.field)
+    if dv is None:
+        # range over keyword terms (lexicographic)
+        kf = seg.keywords.get(q.field)
+        mask = np.zeros(seg.n_docs, bool)
+        if kf is None:
+            return mask
+        for term in kf.terms:
+            ok = True
+            if q.gt is not None and not term > str(q.gt):
+                ok = False
+            if q.gte is not None and not term >= str(q.gte):
+                ok = False
+            if q.lt is not None and not term < str(q.lt):
+                ok = False
+            if q.lte is not None and not term <= str(q.lte):
+                ok = False
+            if ok:
+                mask[kf.docs_with_term(term)] = True
+        return mask
+    vals = dv.values
+    mask = dv.exists.copy()
+    if q.gt is not None:
+        mask &= vals > _coerce_numeric(ctx, q.field, q.gt)
+    if q.gte is not None:
+        mask &= vals >= _coerce_numeric(ctx, q.field, q.gte)
+    if q.lt is not None:
+        mask &= vals < _coerce_numeric(ctx, q.field, q.lt)
+    if q.lte is not None:
+        mask &= vals <= _coerce_numeric(ctx, q.field, q.lte)
+    # multi-valued docs match if ANY value matches
+    for doc, extra in dv.multi.items():
+        if mask[doc]:
+            continue
+        for v in extra:
+            ok = True
+            if q.gt is not None and not v > _coerce_numeric(ctx, q.field, q.gt):
+                ok = False
+            if q.gte is not None and not v >= _coerce_numeric(ctx, q.field, q.gte):
+                ok = False
+            if q.lt is not None and not v < _coerce_numeric(ctx, q.field, q.lt):
+                ok = False
+            if q.lte is not None and not v <= _coerce_numeric(ctx, q.field, q.lte):
+                ok = False
+            if ok:
+                mask[doc] = True
+                break
+    return mask
+
+
+def _exists_mask_host(ctx: SegmentContext, field_name: str) -> np.ndarray:
+    seg = ctx.segment
+    n = seg.n_docs
+    # range fields store nothing under their own name — existence lives
+    # on the #lo bound companion column
+    if f"{field_name}#lo" in seg.doc_values:
+        return seg.doc_values[f"{field_name}#lo"].exists.copy()
+    if field_name in seg.doc_values:
+        return seg.doc_values[field_name].exists.copy()
+    if field_name in seg.keywords:
+        kf = seg.keywords[field_name]
+        return (np.diff(kf.ord_offsets) > 0)
+    if field_name in seg.postings:
+        return seg.postings[field_name].doc_lens > 0
+    if field_name in seg.vectors:
+        return seg.vectors[field_name].exists.copy()
+    if field_name in seg.features:
+        ff = seg.features[field_name]
+        mask = np.zeros(n, bool)
+        docs = ff.block_docs.reshape(-1)
+        mask[docs[docs >= 0]] = True
+        return mask
+    if field_name in seg.geo:
+        return ~np.isnan(seg.geo[field_name][:, 0])
+    return np.zeros(n, bool)
+
+
+def _expand_terms(ctx: SegmentContext, field_name: str, predicate) -> List[str]:
+    """All index terms of a field matching a predicate (prefix/wildcard/regexp/fuzzy)."""
+    seg = ctx.segment
+    terms: List[str] = []
+    kf = seg.keywords.get(field_name)
+    if kf is not None:
+        terms = [t for t in kf.terms if predicate(t)]
+    pf = seg.postings.get(field_name)
+    if pf is not None:
+        terms += [t for t in pf.terms if predicate(t)]
+    return terms
+
+
+def _multi_term_mask(ctx: SegmentContext, field_name: str, terms: List[str]) -> np.ndarray:
+    mask = np.zeros(ctx.segment.n_docs, bool)
+    for t in terms:
+        mask |= _term_mask_host(ctx, field_name, t)
+    return mask
+
+
+def _cached_filter(ctx: SegmentContext, key, build) -> np.ndarray:
+    """Filter cache living on the immutable segment itself, so cached masks
+    survive across queries; LRU-bounded like the reference's
+    IndicesQueryCache.java:53."""
+    return ctx.segment.cached_filter(key, build)
+
+
+# ---------------------------------------------------------------------------
+# handlers
+# ---------------------------------------------------------------------------
+
+def _h_match_all(q: dsl.MatchAll, ctx: SegmentContext) -> Result:
+    return torch.full((ctx.n_docs_pad,), q.boost, dtype=torch.float32,
+                      device=ctx.device), ctx.all_mask()
+
+
+def _h_match_none(q: dsl.MatchNone, ctx: SegmentContext) -> Result:
+    return ctx.zeros(), ctx.none_mask()
 
 
 def _bm25_executor(ctx: SegmentContext, field_name: str) -> Optional[Bm25Executor]:
@@ -183,6 +491,406 @@ def _bm25_planner(ctx: SegmentContext, field_name: str
                              total_doc_count=max(ctx.segment.n_docs, 1)))
     ex.doc_count = ctx.doc_count_for_idf()
     return ex
+
+
+def _h_match(q: dsl.Match, ctx: SegmentContext) -> Result:
+    analyzer = ctx.search_analyzer(q.field)
+    terms = analyzer.terms(q.text)
+    if not terms:
+        return ctx.zeros(), ctx.none_mask()
+    ex = _bm25_executor(ctx, q.field)
+    if ex is None:
+        # not a text field: fall back to term-equality semantics
+        return _h_term(dsl.Term(field=q.field, value=q.text, boost=q.boost), ctx)
+    scores = ex.scores(terms, ctx.live, boost=q.boost,
+                       df_override=ctx.df_for(q.field),
+                       avgdl_override=ctx.avgdl_for(q.field))
+    mask = scores > 0.0
+    msm = dsl.resolve_minimum_should_match(q.minimum_should_match, len(set(terms)))
+    if q.operator == "and" or msm > 1:
+        need = len(terms) if q.operator == "and" else msm
+        count = np.zeros(ctx.segment.n_docs, np.int32)
+        pf = ctx.segment.postings[q.field]
+        for t in set(terms):
+            docs, _ = pf.postings_for(t)
+            count[docs] += 1
+        mask = mask & ctx.to_device_mask(count >= min(need, len(set(terms))))
+    return _where(mask, scores), mask
+
+
+def _h_multi_match(q: dsl.MultiMatch, ctx: SegmentContext) -> Result:
+    results = []
+    expanded: dict = {}   # field -> boost; dedup keeps the highest boost
+    for f in q.fields:
+        fname, _, fboost = f.partition("^")
+        boost = q.boost * (float(fboost) if fboost else 1.0)
+        if "*" in fname:
+            # wildcard field patterns expand to matching text-ish fields
+            # (QueryParserHelper.resolveMappingFields analog; resolved
+            # fields are DEDUPED so most_fields never double-counts)
+            for name in ctx.mappers.field_names():
+                if fnmatch.fnmatch(name, fname) and \
+                        ctx.mappers.field_type(name) in (
+                            "text", "keyword", "search_as_you_type"):
+                    expanded[name] = max(expanded.get(name, 0.0), boost)
+        else:
+            expanded[fname] = max(expanded.get(fname, 0.0), boost)
+    for fname, boost in expanded.items():
+        if q.type == "bool_prefix":
+            # search-as-you-type: every term matches normally, the LAST
+            # term matches as a prefix, joined by the OPERATOR (default
+            # OR — any clause suffices; "and" requires all), per
+            # MultiMatchQueryBuilder Type.BOOL_PREFIX /
+            # MatchBoolPrefixQueryBuilder
+            toks = ctx.search_analyzer(fname).terms(q.text)
+            if not toks:
+                continue
+            head = " ".join(toks[:-1])
+            clauses: List[dsl.Query] = []
+            if head:
+                clauses.append(dsl.Match(field=fname, text=head,
+                                         operator=q.operator))
+            clauses.append(dsl.Prefix(field=fname, value=toks[-1]))
+            if q.operator == "and":
+                node = dsl.Bool(must=clauses, boost=boost)
+            else:
+                node = dsl.Bool(should=clauses,
+                                minimum_should_match=1, boost=boost)
+            results.append(execute(node, ctx))
+            continue
+        results.append(execute(dsl.Match(field=fname, text=q.text,
+                                         operator=q.operator, boost=boost), ctx))
+    if not results:
+        return ctx.zeros(), ctx.none_mask()
+    scores = [r[0] for r in results]
+    any_mask = _any_rows([r[1] for r in results])
+    if q.type == "most_fields":
+        total = _sum_rows(scores)
+    else:  # best_fields
+        total = _max_rows(scores)
+    return _where(any_mask, total), any_mask
+
+
+def _h_match_phrase(q: dsl.MatchPhrase, ctx: SegmentContext) -> Result:
+    analyzer = ctx.search_analyzer(q.field)
+    tokens = analyzer.analyze(q.text)
+    if not tokens:
+        return ctx.zeros(), ctx.none_mask()
+    pf = ctx.segment.postings.get(q.field)
+    if pf is None:
+        return ctx.zeros(), ctx.none_mask()
+    # candidates: docs containing all terms (host AND of postings)
+    cand: Optional[set] = None
+    for tok in tokens:
+        docs, _ = pf.postings_for(tok.term)
+        s = set(docs.tolist())
+        cand = s if cand is None else (cand & s)
+        if not cand:
+            break
+    matched = []
+    if cand:
+        # verify positions host-side (fetch-sized candidate sets)
+        rel = [t.position - tokens[0].position for t in tokens]
+        for doc in cand:
+            first = pf.positions_for(tokens[0].term, doc)
+            ok = False
+            for p0 in first:
+                if all(_has_position(pf, t.term, doc, p0 + r, q.slop)
+                       for t, r in zip(tokens[1:], rel[1:])):
+                    ok = True
+                    break
+            if ok:
+                matched.append(doc)
+    mask_host = np.zeros(ctx.segment.n_docs, bool)
+    mask_host[matched] = True
+    mask = ctx.to_device_mask(mask_host) & ctx.live
+    # score matched docs with the BM25 of the phrase terms (documented
+    # divergence: the reference scores by phrase frequency)
+    ex = _bm25_executor(ctx, q.field)
+    scores = ex.scores([t.term for t in tokens], ctx.live, boost=q.boost,
+                       df_override=ctx.df_for(q.field),
+                       avgdl_override=ctx.avgdl_for(q.field))
+    return _where(mask, scores), mask
+
+
+def _h_match_phrase_prefix(q: dsl.MatchPhrasePrefix,
+                           ctx: SegmentContext) -> Result:
+    """Phrase match with the last term prefix-expanded against the term
+    dictionary (MatchPhrasePrefixQueryBuilder's MultiPhrasePrefixQuery,
+    capped at max_expansions)."""
+    analyzer = ctx.search_analyzer(q.field)
+    tokens = analyzer.analyze(q.text)
+    if not tokens:
+        return ctx.zeros(), ctx.none_mask()
+    pf = ctx.segment.postings.get(q.field)
+    if pf is None:
+        return ctx.zeros(), ctx.none_mask()
+    prefix = tokens[-1].term
+    expansions = sorted(t for t in pf.terms
+                        if t.startswith(prefix))[: q.max_expansions]
+    if not expansions:
+        return ctx.zeros(), ctx.none_mask()
+    head = tokens[:-1]
+    # candidates: docs with all head terms AND any expansion
+    cand: Optional[set] = None
+    for tok in head:
+        docs, _ = pf.postings_for(tok.term)
+        s = set(docs.tolist())
+        cand = s if cand is None else (cand & s)
+        if not cand:
+            break
+    exp_docs: set = set()
+    for term in expansions:
+        docs, _ = pf.postings_for(term)
+        exp_docs.update(docs.tolist())
+    cand = exp_docs if cand is None else (cand & exp_docs)
+    matched = []
+    rel = [t.position - tokens[0].position for t in tokens]
+    for doc in cand or ():
+        starts = (pf.positions_for(head[0].term, doc)
+                  if head else pf.positions_for(expansions[0], doc))
+        ok = False
+        if not head:
+            ok = True   # single prefix term: presence is a match
+        else:
+            for p0 in starts:
+                if all(_has_position(pf, t.term, doc, p0 + r, 0)
+                       for t, r in zip(head[1:], rel[1:-1])):
+                    if any(_has_position(pf, e, doc, p0 + rel[-1], 0)
+                           for e in expansions):
+                        ok = True
+                        break
+        if ok:
+            matched.append(doc)
+    mask_host = np.zeros(ctx.segment.n_docs, bool)
+    mask_host[matched] = True
+    mask = ctx.to_device_mask(mask_host) & ctx.live
+    # score matched docs with BM25 over the head terms + expansions, the
+    # same analog _h_match_phrase documents (constant scoring would rank
+    # many-occurrence docs identically to one-occurrence docs)
+    ex = _bm25_executor(ctx, q.field)
+    score_terms = [t.term for t in head] + expansions
+    scores = ex.scores(score_terms, ctx.live, boost=q.boost,
+                       df_override=ctx.df_for(q.field),
+                       avgdl_override=ctx.avgdl_for(q.field))
+    return _where(mask, scores), mask
+
+
+def _has_position(pf, term: str, doc: int, want: int, slop: int) -> bool:
+    pos = pf.positions_for(term, doc)
+    if slop == 0:
+        return bool(np.any(pos == want))
+    return bool(np.any(np.abs(pos - want) <= slop))
+
+
+def _h_term(q: dsl.Term, ctx: SegmentContext) -> Result:
+    key = ("term", q.field, str(q.value))
+    mask_host = _cached_filter(ctx, key, lambda: _term_mask_host(ctx, q.field, q.value))
+    mask = ctx.to_device_mask(mask_host) & ctx.live
+    return _where(mask, q.boost), mask
+
+
+def _h_terms(q: dsl.Terms, ctx: SegmentContext) -> Result:
+    key = ("terms", q.field, tuple(str(v) for v in q.values))
+    mask_host = _cached_filter(
+        ctx, key, lambda: np.logical_or.reduce(
+            [_term_mask_host(ctx, q.field, v) for v in q.values])
+        if q.values else np.zeros(ctx.segment.n_docs, bool))
+    mask = ctx.to_device_mask(mask_host) & ctx.live
+    return _where(mask, q.boost), mask
+
+
+def _range_field_mask(ctx: SegmentContext, q: dsl.Range,
+                      mapper) -> np.ndarray:
+    """Interval relations against a RANGE field: the doc's [lo, hi]
+    bounds live on the #lo/#hi companion columns
+    (RangeFieldMapper.RangeType query semantics)."""
+    seg = ctx.segment
+    coerce = mapper._coerce
+    qlo = coerce(q.gte) if q.gte is not None else (
+        coerce(q.gt) if q.gt is not None else -np.inf)
+    qhi = coerce(q.lte) if q.lte is not None else (
+        coerce(q.lt) if q.lt is not None else np.inf)
+    lo_dv = seg.doc_values.get(f"{q.field}#lo")
+    hi_dv = seg.doc_values.get(f"{q.field}#hi")
+    if lo_dv is None or hi_dv is None:
+        return np.zeros(seg.n_docs, bool)
+
+    def relate(lo, hi) -> bool:
+        if q.relation == "within":
+            return lo >= qlo and hi <= qhi
+        if q.relation == "contains":
+            return lo <= qlo and hi >= qhi
+        return lo <= qhi and hi >= qlo   # intersects
+
+    lo = lo_dv.values.astype(np.float64)
+    hi = hi_dv.values.astype(np.float64)
+    exists = lo_dv.exists & hi_dv.exists
+    if q.relation == "within":
+        rel = (lo >= qlo) & (hi <= qhi)
+    elif q.relation == "contains":
+        rel = (lo <= qlo) & (hi >= qhi)
+    else:   # intersects
+        rel = (lo <= qhi) & (hi >= qlo)
+    mask = exists & rel
+    # multi-valued docs: ANY of the doc's ranges may satisfy the relation
+    # (lo.multi[d][i] pairs with hi.multi[d][i])
+    for d in set(lo_dv.multi) | set(hi_dv.multi):
+        los = lo_dv.multi.get(d, [lo[d]])
+        his = hi_dv.multi.get(d, [hi[d]])
+        mask[d] = any(relate(float(a), float(b))
+                      for a, b in zip(los, his))
+    return mask
+
+
+def _h_range(q: dsl.Range, ctx: SegmentContext) -> Result:
+    mapper = ctx.mappers.mapper(q.field)
+    if mapper is not None and \
+            getattr(mapper, "type_name", "") in RANGE_TYPES:
+        key = ("range_field", q.field, str(q.gt), str(q.gte), str(q.lt),
+               str(q.lte), q.relation)
+        mask_host = _cached_filter(
+            ctx, key, lambda: _range_field_mask(ctx, q, mapper))
+        mask = ctx.to_device_mask(mask_host) & ctx.live
+        return _where(mask, q.boost), mask
+    key = ("range", q.field, str(q.gt), str(q.gte), str(q.lt), str(q.lte))
+    mask_host = _cached_filter(ctx, key, lambda: _range_mask_host(ctx, q))
+    mask = ctx.to_device_mask(mask_host) & ctx.live
+    return _where(mask, q.boost), mask
+
+
+def _h_exists(q: dsl.Exists, ctx: SegmentContext) -> Result:
+    mask_host = _cached_filter(ctx, ("exists", q.field),
+                               lambda: _exists_mask_host(ctx, q.field))
+    mask = ctx.to_device_mask(mask_host) & ctx.live
+    return _where(mask, q.boost), mask
+
+
+def _h_ids(q: dsl.Ids, ctx: SegmentContext) -> Result:
+    mask_host = np.zeros(ctx.segment.n_docs, bool)
+    for doc_id in q.values:
+        d = ctx.segment.id_to_doc.get(doc_id)
+        if d is not None:
+            mask_host[d] = True
+    mask = ctx.to_device_mask(mask_host) & ctx.live
+    return _where(mask, q.boost), mask
+
+
+def _h_prefix(q: dsl.Prefix, ctx: SegmentContext) -> Result:
+    terms = _expand_terms(ctx, q.field, lambda t: t.startswith(q.value))
+    mask = ctx.to_device_mask(_multi_term_mask(ctx, q.field, terms)) & ctx.live
+    return _where(mask, q.boost), mask
+
+
+def _h_wildcard(q: dsl.Wildcard, ctx: SegmentContext) -> Result:
+    rx = re.compile(fnmatch.translate(q.value))
+    terms = _expand_terms(ctx, q.field, lambda t: rx.match(t) is not None)
+    mask = ctx.to_device_mask(_multi_term_mask(ctx, q.field, terms)) & ctx.live
+    return _where(mask, q.boost), mask
+
+
+def _h_regexp(q: dsl.Regexp, ctx: SegmentContext) -> Result:
+    rx = re.compile(q.value)
+    terms = _expand_terms(ctx, q.field, lambda t: rx.fullmatch(t) is not None)
+    mask = ctx.to_device_mask(_multi_term_mask(ctx, q.field, terms)) & ctx.live
+    return _where(mask, q.boost), mask
+
+
+def _h_fuzzy(q: dsl.Fuzzy, ctx: SegmentContext) -> Result:
+    max_edits = _fuzziness_to_edits(q.fuzziness, q.value)
+    terms = _expand_terms(
+        ctx, q.field, lambda t: _levenshtein_within(t, q.value, max_edits))
+    mask = ctx.to_device_mask(_multi_term_mask(ctx, q.field, terms)) & ctx.live
+    return _where(mask, q.boost), mask
+
+
+def _fuzziness_to_edits(fuzziness: Any, value: str) -> int:
+    if isinstance(fuzziness, int):
+        return fuzziness
+    s = str(fuzziness).upper()
+    if s == "AUTO":
+        n = len(value)
+        return 0 if n <= 2 else (1 if n <= 5 else 2)
+    return int(s)
+
+
+def _levenshtein_within(a: str, b: str, k: int) -> bool:
+    if abs(len(a) - len(b)) > k:
+        return False
+    prev = list(range(len(b) + 1))
+    for i, ca in enumerate(a, 1):
+        cur = [i]
+        for j, cb in enumerate(b, 1):
+            cur.append(min(prev[j] + 1, cur[j - 1] + 1, prev[j - 1] + (ca != cb)))
+        if min(cur) > k:
+            return False
+        prev = cur
+    return prev[-1] <= k
+
+
+def _h_bool(q: dsl.Bool, ctx: SegmentContext) -> Result:
+    scores = ctx.zeros()
+    mask = None
+
+    for clause in q.must:
+        s, m = execute(clause, ctx)
+        scores = scores + s
+        mask = m if mask is None else (mask & m)
+    for clause in q.filter:
+        _, m = execute(clause, ctx)
+        mask = m if mask is None else (mask & m)
+
+    if q.should:
+        should_scores = ctx.zeros()
+        should_count = torch.zeros(ctx.n_docs_pad, dtype=torch.int32,
+                                   device=ctx.device)
+        for clause in q.should:
+            s, m = execute(clause, ctx)
+            should_scores = should_scores + _where(m, s)
+            should_count = should_count + m.to(torch.int32)
+        if q.minimum_should_match is None:
+            # should is optional when must/filter exist; required otherwise
+            msm = 0 if (q.must or q.filter) else 1
+        else:
+            msm = dsl.resolve_minimum_should_match(
+                q.minimum_should_match, len(q.should))
+        if msm > 0:
+            should_mask = should_count >= msm
+            mask = should_mask if mask is None else (mask & should_mask)
+        scores = scores + should_scores
+
+    if mask is None:
+        mask = ctx.all_mask()
+    for clause in q.must_not:
+        _, m = execute(clause, ctx)
+        mask = mask & ~m
+
+    mask = mask & ctx.live
+    return _where(mask, scores * q.boost), mask
+
+
+def _h_constant_score(q: dsl.ConstantScore, ctx: SegmentContext) -> Result:
+    _, mask = execute(q.filter, ctx)
+    return _where(mask, q.boost), mask
+
+
+def _h_dis_max(q: dsl.DisMax, ctx: SegmentContext) -> Result:
+    if not q.queries:
+        return ctx.zeros(), ctx.none_mask()
+    results = [execute(c, ctx) for c in q.queries]
+    scores = [r[0] for r in results]
+    best = _max_rows(scores)
+    rest = _sum_rows(scores) - best
+    total = best + q.tie_breaker * rest
+    mask = _any_rows([r[1] for r in results])
+    return _where(mask, total * q.boost), mask
+
+
+def _h_boosting(q: dsl.Boosting, ctx: SegmentContext) -> Result:
+    pos_s, pos_m = execute(q.positive, ctx)
+    _, neg_m = execute(q.negative, ctx)
+    scores = torch.where(neg_m, pos_s * q.negative_boost, pos_s)
+    return _where(pos_m, scores), pos_m
 
 
 @dataclass
@@ -283,16 +991,16 @@ def knn_shard_winners(ctxs: List["SegmentContext"], field: str, specs,
 
 def rewrite_knn(q: dsl.Query, segment_ctxs: List["SegmentContext"],
                 cancel_check=None) -> dsl.Query:
-    """Replace a top-level Knn node with a KnnBound node holding the
-    shard-global top-k (merged across segments). ``cancel_check``
-    (zero-arg, raising) runs between per-segment launches so a cancelled
-    or budget-expired task stops paying for vector scans.
+    """Replace every Knn node with a KnnBound node holding the shard-global
+    top-k (merged across segments). ``cancel_check`` (zero-arg, raising)
+    runs between per-segment launches so a cancelled or budget-expired
+    task stops paying for vector scans.
 
     The rewrite IS a batch of one: it calls ``knn_shard_winners`` -- the
     same executor the batched kNN path runs -- with a single spec, so solo
-    and batched kNN cannot diverge. A Knn inside a compound query goes to
-    the dense collector, which is not part of this package yet, and never
-    reaches here."""
+    and batched kNN cannot diverge. Compound nodes (bool, dis_max,
+    constant_score, boosting, script_score, function_score) are rewritten
+    clause by clause."""
     if isinstance(q, dsl.Knn):
         from types import SimpleNamespace
         spec = SimpleNamespace(query_vector=q.query_vector, filter=q.filter)
@@ -307,4 +1015,126 @@ def rewrite_knn(q: dsl.Query, segment_ctxs: List["SegmentContext"],
         per_segment = {si: (np.asarray(d, np.int64), np.asarray(s, np.float32))
                        for si, (d, s) in per_segment.items()}
         return KnnBound(per_segment=per_segment, boost=q.boost)
+    # recurse into compound nodes
+    if isinstance(q, dsl.Bool):
+        return dsl.Bool(must=[rewrite_knn(c, segment_ctxs, cancel_check)
+                              for c in q.must],
+                        should=[rewrite_knn(c, segment_ctxs, cancel_check)
+                                for c in q.should],
+                        must_not=[rewrite_knn(c, segment_ctxs, cancel_check)
+                                  for c in q.must_not],
+                        filter=[rewrite_knn(c, segment_ctxs, cancel_check)
+                                for c in q.filter],
+                        minimum_should_match=q.minimum_should_match, boost=q.boost)
+    if isinstance(q, dsl.DisMax):
+        return dsl.DisMax(queries=[rewrite_knn(c, segment_ctxs, cancel_check)
+                                   for c in q.queries],
+                          tie_breaker=q.tie_breaker, boost=q.boost)
+    if isinstance(q, dsl.ConstantScore) and q.filter is not None:
+        return dsl.ConstantScore(
+            filter=rewrite_knn(q.filter, segment_ctxs, cancel_check),
+            boost=q.boost)
+    if isinstance(q, dsl.Boosting):
+        return dsl.Boosting(
+            positive=rewrite_knn(q.positive, segment_ctxs, cancel_check),
+            negative=rewrite_knn(q.negative, segment_ctxs, cancel_check),
+            negative_boost=q.negative_boost, boost=q.boost)
+    if isinstance(q, dsl.ScriptScore) and q.query is not None:
+        return dsl.ScriptScore(
+            query=rewrite_knn(q.query, segment_ctxs, cancel_check),
+            source=q.source, params=q.params, boost=q.boost)
+    if isinstance(q, dsl.FunctionScore) and q.query is not None:
+        return dsl.FunctionScore(
+            query=rewrite_knn(q.query, segment_ctxs, cancel_check),
+            functions=q.functions, boost_mode=q.boost_mode,
+            score_mode=q.score_mode, boost=q.boost)
     return q
+
+
+def _h_knn_bound(q: KnnBound, ctx: SegmentContext) -> Result:
+    entry = (q.per_segment or {}).get(ctx.segment_idx)
+    if entry is None:
+        return ctx.zeros(), ctx.none_mask()
+    docs, doc_scores = entry
+    scores_host = np.zeros(ctx.n_docs_pad, np.float32)
+    mask_host = np.zeros(ctx.n_docs_pad, bool)
+    scores_host[docs] = doc_scores
+    mask_host[docs] = True
+    return (torch.as_tensor(scores_host, device=ctx.device),
+            torch.as_tensor(mask_host, device=ctx.device))
+
+
+def _h_knn(q: dsl.Knn, ctx: SegmentContext) -> Result:
+    """Direct (single-segment) execution; the shard phase normally rewrites
+    Knn to KnnBound first for shard-global k semantics."""
+    bound = rewrite_knn(q, [ctx])
+    return _h_knn_bound(bound, ctx)
+
+
+_VECTOR_FN = re.compile(
+    r"(cosineSimilarity|dotProduct|l2norm)\s*\(\s*params\.(\w+)\s*,\s*'?\"?([\w.]+)'?\"?\s*\)")
+
+
+def _h_script_score(q: dsl.ScriptScore, ctx: SegmentContext) -> Result:
+    """The reference's vector score functions (ScoreScriptUtils.java:132,
+    151) plus '+ N' offsets -- the dominant script_score use in the
+    vector-search benchmark configs. The similarity row is K9; undoing its
+    positive-score transform and the offset are plain f32 ops (IEEE
+    division)."""
+    _, base_mask = execute(q.query, ctx)
+    m = _VECTOR_FN.search(q.source)
+    if not m:
+        raise QueryParsingError(
+            f"unsupported script_score source [{q.source}]; supported: "
+            "cosineSimilarity/dotProduct/l2norm(params.<v>, '<field>') [+ N]")
+    fn, param, field_name = m.groups()
+    vec = q.params.get(param)
+    if vec is None:
+        raise QueryParsingError(f"missing script param [{param}]")
+    dev = DeviceVectors.for_segment(ctx.segment, field_name, ctx.device)
+    if dev is None:
+        return ctx.zeros(), ctx.none_mask()
+    from elasticsearch_tpu_torch.ops.knn import query_scores
+    qv = np.asarray(vec, np.float32)
+    if fn == "cosineSimilarity":
+        raw = query_scores(dev, qv, "cosine")
+        raw = raw * 2.0 - 1.0          # undo (1+cos)/2 -> raw cosine
+    elif fn == "dotProduct":
+        raw = query_scores(dev, qv, "dot_product")
+        raw = (raw - 0.5) * 2.0        # raw dot
+    else:
+        raw = query_scores(dev, qv, "l2_norm")
+        raw = torch.full_like(raw, 1.0) / raw - 1.0   # undo 1/(1+d)
+    offset = 0.0
+    m_off = re.search(r"\+\s*([\d.]+)\s*$", q.source)
+    if m_off:
+        offset = float(m_off.group(1))
+    scores = (raw + offset) * q.boost
+    mask = base_mask & dev.exists & ctx.live
+    return _where(mask, scores), mask
+
+
+_HANDLERS = {
+    KnnBound: _h_knn_bound,
+    dsl.MatchAll: _h_match_all,
+    dsl.MatchNone: _h_match_none,
+    dsl.Match: _h_match,
+    dsl.MultiMatch: _h_multi_match,
+    dsl.MatchPhrase: _h_match_phrase,
+    dsl.MatchPhrasePrefix: _h_match_phrase_prefix,
+    dsl.Term: _h_term,
+    dsl.Terms: _h_terms,
+    dsl.Range: _h_range,
+    dsl.Exists: _h_exists,
+    dsl.Ids: _h_ids,
+    dsl.Prefix: _h_prefix,
+    dsl.Wildcard: _h_wildcard,
+    dsl.Regexp: _h_regexp,
+    dsl.Fuzzy: _h_fuzzy,
+    dsl.Bool: _h_bool,
+    dsl.ConstantScore: _h_constant_score,
+    dsl.DisMax: _h_dis_max,
+    dsl.Boosting: _h_boosting,
+    dsl.Knn: _h_knn,
+    dsl.ScriptScore: _h_script_score,
+}

@@ -1,11 +1,12 @@
 """SearchService: request body -> phases -> response, for one shard.
 
 Reference analog: search/SearchService.java:136. The JAX package's
-``search/service.py`` cut to what this package serves: a ``_search``
-body whose query the block-max-pruned text collector takes (``match``,
-or a bool of should-matches on one text field, sorted by score, with
-``track_total_hits`` default, false or a number). Scroll, aggregations,
-suggest, text_expansion and every query that needs another collector
+``search/service.py`` cut to what this package serves: ``_search`` bodies
+through the block-max-pruned text collector, the kNN collector and the
+dense collector (exact totals, field sorts, ``search_after``,
+``min_score``, ``rescore``, ``collapse``, ``slice``, ``profile`` and the
+query nodes ``search/execute.py`` serves), and ``_count``. Scroll,
+aggregations, suggest, text_expansion and the query nodes not ported yet
 raise NotPortedError (status 501).
 """
 

@@ -1,5 +1,6 @@
-"""The BM25 and kNN kernels on the card, bitwise against their plain
-PyTorch versions. Needs a CUDA card and nvcc; skipped without a card.
+"""The BM25, kNN and dense-collector kernels on the card, bitwise against
+their plain PyTorch versions. Needs a CUDA card and nvcc; skipped without
+a card.
 
 It imports neither JAX nor the JAX package, so it also runs on a machine
 that has only PyTorch and the CUDA toolkit:
@@ -11,7 +12,7 @@ import pytest
 import torch
 
 from elasticsearch_tpu_torch.ops import bm25 as port
-from elasticsearch_tpu_torch.ops import knn
+from elasticsearch_tpu_torch.ops import knn, topk
 from elasticsearch_tpu_torch.ops.device_segment import quantize_rows
 from torch_inputs import FLAT, make_inputs, make_knn_inputs, tx
 
@@ -82,3 +83,35 @@ def test_knn_kernels_match_plain_versions_on_the_card(dims, n_q, sim):
     want = knn.knn_rerank_plain(*args, cand, cs, 10, sim)
     for g, w in zip(got, want):
         assert torch.equal(g, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sim", ["cosine", "dot_product", "l2_norm"])
+def test_dense_kernels_match_plain_versions_on_the_card(sim):
+    """bm25_scores (K8), knn_scores (K9) and dense_topk (K10) bitwise equal
+    to their plain versions, at rows long enough for K10's merge pass,
+    with -1 pads, dead docs, missing vectors and tied scores."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    inp = make_inputs(14, n_docs=150_000, nb=2048, n_q=1, per_q=900)
+    docs, tfs, idx, w, _q, dl, _avg, live = [t.cuda() for t in tx(inp, *FLAT)]
+    n_pad = inp["n_pad"]
+    for lmask in (None, live):
+        args = (docs, tfs, idx, w, dl, 47.5, n_pad, lmask)
+        assert torch.equal(port.bm25_block_scores(*args),
+                           port.bm25_block_scores_plain(*args))
+    m, norms, exists, live_v, q = make_knn_inputs(
+        15, 128, 1, "gauss", 200_000, 262_144)
+    T = lambda a: torch.as_tensor(a).cuda()  # noqa: E731
+    batch = knn.QueryBatch(q, "cuda")
+    args = (T(m), T(norms), T(exists), batch.queries[0], batch.qn, batch.q2,
+            sim)
+    row = knn.vector_scores(*args)
+    assert torch.equal(row, knn.vector_scores_plain(*args))
+    scores = torch.where(T(live_v) & T(exists), row, -torch.inf)
+    for x in (scores, torch.ones_like(scores), torch.full_like(
+            scores, -torch.inf)):
+        for k in (1, 10, 4096):
+            for g, w_ in zip(topk.dense_topk(x, k),
+                             topk.dense_topk_plain(x, k)):
+                assert torch.equal(g, w_)

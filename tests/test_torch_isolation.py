@@ -51,13 +51,14 @@ from elasticsearch_tpu_torch.search import SearchService
 import elasticsearch_tpu_torch.search.plane_exec
 import elasticsearch_tpu_torch.search.batch_executor
 import elasticsearch_tpu_torch.ops.knn
+import elasticsearch_tpu_torch.ops.topk
 import elasticsearch_tpu_torch.convert
 engine = InternalEngine(MapperService({"properties": {
-    "body": {"type": "text"},
+    "body": {"type": "text"}, "tag": {"type": "keyword"},
     "vec": {"type": "dense_vector", "dims": 3, "similarity": "l2_norm"}}}))
 for i in range(40):
     engine.index(str(i), {"body": "quick brown fox" if i % 3 else "lazy dog",
-                          "vec": [float(i), 1.0, 2.0]})
+                          "tag": f"t{i % 2}", "vec": [float(i), 1.0, 2.0]})
     if i == 20:
         engine.refresh()
 engine.refresh()
@@ -67,6 +68,17 @@ assert r["hits"]["total"]["value"] == 26, r["hits"]["total"]
 k = svc.search({"query": {"knn": {"field": "vec", "query_vector": [7.2, 1, 2],
                                   "k": 3}}})
 assert [h["_id"] for h in k["hits"]["hits"]] == ["7", "8", "6"], k
+f = svc.search({"query": {"bool": {"must": [{"match": {"body": "fox"}}],
+                                   "filter": [{"term": {"tag": "t1"}}]}},
+                "track_total_hits": True})
+assert f["hits"]["total"] == {"value": 13, "relation": "eq"}, f["hits"]
+s = svc.search({"query": {"script_score": {
+    "query": {"match_all": {}},
+    "script": {"source": "l2norm(params.v, 'vec')",
+               "params": {"v": [7.2, 1, 2]}}}}, "size": 3,
+    "sort": [{"_score": "asc"}]})
+assert [h["_id"] for h in s["hits"]["hits"]] == ["7", "8", "6"], s
+assert svc.count({"query": {"term": {"tag": "t0"}}})["count"] == 20
 assert not any(m.split(".")[0] in ("jax", "jaxlib", "elasticsearch_tpu")
                for m in sys.modules)
 print("served", len(r["hits"]["hits"]))
@@ -120,3 +132,42 @@ def test_cuda_tensor_never_takes_the_plain_version(monkeypatch):
     monkeypatch.setattr(bm25, "_stream", lambda: 0)
     with pytest.raises(_build.KernelBuildError):
         bm25.bm25_flat(*args, n_pad, 1, 10)
+
+
+@pytest.mark.parametrize("family", ["bm25_scores", "knn_scores",
+                                    "dense_topk"])
+def test_dense_wrappers_never_take_the_plain_version(family, monkeypatch):
+    """The dense collector's wrappers, given CUDA tensors, launch their
+    kernel or raise: with the kernel library unavailable they raise
+    instead of computing on the host."""
+    from elasticsearch_tpu_torch import _build
+    from elasticsearch_tpu_torch.ops import bm25, knn, topk
+
+    def no_library(fam):
+        raise _build.KernelBuildError("no nvcc here")
+
+    def no_plain(*a, **k):
+        pytest.fail("plain version ran for a CUDA call")
+
+    monkeypatch.setattr(_build, "library", no_library)
+    monkeypatch.setattr(bm25, "_FNS", {})
+    monkeypatch.setattr(bm25, "_stream", lambda: 0)
+    for mod in (bm25, knn, topk):
+        monkeypatch.setattr(mod, "_on_cuda", lambda *t: True)
+        monkeypatch.setattr(mod, "_stream", lambda: 0)
+    monkeypatch.setattr(bm25, "bm25_block_scores_plain", no_plain)
+    monkeypatch.setattr(knn, "vector_scores_plain", no_plain)
+    monkeypatch.setattr(topk, "dense_topk_plain", no_plain)
+    n_pad = 256
+    with pytest.raises(_build.KernelBuildError):
+        if family == "bm25_scores":
+            bm25.bm25_block_scores(
+                torch.full((2, 128), -1, dtype=torch.int32),
+                torch.zeros(2, 128), torch.zeros(8, dtype=torch.int32),
+                torch.zeros(8), torch.ones(n_pad), 50.0, n_pad)
+        elif family == "knn_scores":
+            knn.vector_scores(torch.zeros(n_pad, 4), torch.zeros(n_pad),
+                              torch.ones(n_pad, dtype=bool), torch.ones(4),
+                              torch.ones(1), torch.ones(1), "cosine")
+        else:
+            topk.dense_topk(torch.zeros(n_pad), 10)

@@ -207,12 +207,14 @@ def test_cuda_tensors_never_take_the_plain_version(monkeypatch):
     the kernel library unavailable it raises instead of computing on the
     host."""
     from elasticsearch_tpu_torch import _build
+    from elasticsearch_tpu_torch.ops import bm25 as port_bm25
 
     def no_library(family):
         raise _build.KernelBuildError("kernel library unavailable")
 
     monkeypatch.setattr(_build, "library", no_library)
-    monkeypatch.setattr(port, "_FNS", {})
+    # the bound launchers of every family are cached in one place
+    monkeypatch.setattr(port_bm25, "_FNS", {})
     monkeypatch.setattr(port, "_on_cuda", lambda *t: True)
     monkeypatch.setattr(port, "_stream", lambda: 0)
     for name in ("knn_flat_plain", "knn_coarse_plain", "knn_rerank_plain"):
