@@ -76,6 +76,35 @@ Phases, each of which fails the run on any failed check:
    K1-K7. Launch counts are zeroed before phases 9-10 and read right
    after; then each dense family is held against its plain version and
    timed (K10 at both shards' row lengths), beside its library yardstick.
+11. ivf-small (run with the small phases): the masked K5-K7 against
+   their plain versions (shared and per-query masks, an all-False row,
+   pow2 padding rows) and, row by row, against the unmasked kernels on
+   allowed & mask; K11-K14 against their plain versions (tied rows and
+   centroids, dropped and empty clusters, padded lists, nprobe up to
+   nlist, clamped k, three similarities); all bitwise.
+12. ivf-engine: filtered knn (term, range, bool) on the vector engine and
+   knn on IVF-mapped fields (index_options type ivf, nlist 16) of a
+   6,000-doc engine, planes on and off, deletes after the build, a
+   refresh that warm-starts k-means, batches mixing filtered and
+   unfiltered members: every answer equal on the card and the CPU.
+13. ivf-full: BASELINE #3's shape, bench.py cfg_ivf's GIST1M envelope
+   (1,048,576 x 960 f32, 1,024 Gaussian means, 0.35 noise, made on the
+   card from a seed) in 4 segments of 262,144, cosine, no index_options
+   (the default IVF route), 128 queries, k 10, num_candidates swept so
+   the derived nprobe is 16..256, on the plane (one shard-level IVF,
+   nlist 4,096) and per segment (four, nlist 2,048): recall@10 against a
+   float64 oracle, solo p50/p99, 64-query batch time, kernel-busy share,
+   launches per leg, build time and resident bytes. The IVF must be
+   built (not breaker-refused), ivf_search must serve and knn_flat must
+   not launch in the sweep, and each route must reach recall@10 0.95 at
+   some nprobe (the first is printed; so is the exact K5 answers'
+   recall, the ceiling the bf16 arithmetic leaves). Then filtered
+   kNN on the knn-full SIFT shard (a keyword tag; 10 % and 1 %
+   selectivity; one shared mask and 64 distinct masks; quantized tier on
+   and off): every answer equal to a host filtered exact oracle.
+   Launch counts are zeroed before phases 12-13 and read right after:
+   K11-K14 and the masked K5-K7 must have launched; then each is held
+   against its plain version and timed at its largest main-path call.
 
 Prints a ``{"kernels": [...]}`` line and, last, the ``{"ok": true, ...}``
 line. Exits non-zero, without the ok line, when there is no CUDA card,
@@ -111,6 +140,13 @@ REPLACES = {
     "bm25_scores": "elasticsearch_tpu/ops/bm25.py:45",
     "knn_scores": "elasticsearch_tpu/ops/knn.py:33",
     "dense_topk": "elasticsearch_tpu/search/phase.py:806",
+    "knn_flat_masked": "elasticsearch_tpu/ops/knn.py:113",
+    "knn_coarse_masked": "elasticsearch_tpu/ops/knn.py:199",
+    "knn_rerank_masked": "elasticsearch_tpu/ops/knn.py:274",
+    "ivf_assign": "elasticsearch_tpu/ops/ivf.py:37",
+    "ivf_update": "elasticsearch_tpu/ops/ivf.py:74",
+    "ivf_init": "elasticsearch_tpu/ops/ivf.py:85",
+    "ivf_search": "elasticsearch_tpu/ops/ivf.py:328",
 }
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM, NVIDIA data sheet
 F32_FLOPS = 67e12              # H100 SXM f32 outside the tensor cores
@@ -401,14 +437,16 @@ class Recorder:
     each family, and its largest call by ``size(family, args)`` -- one
     per ``group(family, args)`` when a grouping is given (e.g. one per
     row length). ``targets`` maps each family to the (module, function
-    name) of its wrapper."""
+    name) of its wrapper; ``accept(family, args, kwargs)`` may skip calls
+    (the unmasked calls of a wrapper recorded as its masked variant)."""
 
-    def __init__(self, targets, size, keep: int, group=None):
+    def __init__(self, targets, size, keep: int, group=None, accept=None):
         self.targets = targets
         self.families = tuple(targets)
         self.size = size
         self.keep = keep
         self.group = group or (lambda fam, args: None)
+        self.accept = accept or (lambda fam, args, kwargs: True)
         self.first = {f: [] for f in self.families}
         self.largest = {}       # (family, group) -> call
         self._orig = {}
@@ -437,7 +475,7 @@ class Recorder:
             self._orig[fam] = (module, name, orig)
 
             def wrapped(*args, _fam=fam, _orig=orig, **kwargs):
-                if args[0].is_cuda:
+                if args[0].is_cuda and self.accept(_fam, args, kwargs):
                     self._record(_fam, args, kwargs)
                 return _orig(*args, **kwargs)
             setattr(module, name, wrapped)
@@ -1695,16 +1733,941 @@ def phase_dense_kernels(torch, rec, launches) -> list:
 
 
 # ---------------------------------------------------------------------------
+# filtered kNN and the IVF path: the masked K5-K7, K11-K14, the engine
+# path, the GIST1M-shaped shard
+# ---------------------------------------------------------------------------
+
+IVF_FAMILIES = ("ivf_assign", "ivf_update", "ivf_init", "ivf_search")
+MASKED = ("knn_flat_masked", "knn_coarse_masked", "knn_rerank_masked")
+SIMS = ("cosine", "dot_product", "l2_norm")
+# the position of the mask operand in each masked family's wrapper call
+MASK_POS = {"knn_flat_masked": 8, "knn_coarse_masked": 10,
+            "knn_rerank_masked": 10}
+
+
+def per_row_masks(np, rng, n_real: int, n_rows: int, n_pad: int,
+                  n_docs: int, density: float):
+    """[n_rows, n_pad] filter rows: ``density`` of the real docs, the first
+    row all False, rows past ``n_real`` (the pow2 padding) all False."""
+    m = np.zeros((n_rows, n_pad), bool)
+    m[:n_real, :n_docs] = rng.random((n_real, n_docs)) < density
+    m[0] = False
+    return m
+
+
+def check_masked_rows(torch, knn, name, got, row_call, rows):
+    """Each listed row of a masked launch must have the bits of the
+    unmasked kernel run on allowed & that row's mask (``row_call(row)``)."""
+    for row in rows:
+        want = row_call(row)
+        compare(torch, f"{name} row {row} vs unmasked",
+                tuple(g[row: row + 1] for g in got), want)
+
+
+def phase_ivf_small(torch, np, dev) -> None:
+    """The masked K5-K7 and K11-K14 against their plain versions on the
+    card, bitwise, on seeded inputs; each masked row also against the
+    unmasked kernel run on allowed & that row's mask."""
+    from elasticsearch_tpu_torch.convert import ivf_from_reference
+    from elasticsearch_tpu_torch.ops import ivf, knn
+    from elasticsearch_tpu_torch.ops.device_segment import quantize_rows
+    rng = np.random.default_rng(SEED + 400)
+    T = lambda a: torch.as_tensor(a, device=dev)  # noqa: E731
+    n = 0
+    for dims, n_docs, n_pad in ((128, 200_000, 262_144),
+                                (960, 50_000, 65_536)):
+        m, norms, exists, live, _q = knn_inputs(np, rng, n_docs, n_pad,
+                                                dims, 1)
+        q8, scales = quantize_rows(m)
+        mt, nt, allowed, q8t, st = T(m), T(norms), T(live & exists), \
+            T(q8), T(scales)
+        del m, q8
+        for n_real, density in ((5, 0.1), (64, 0.01)):
+            q = rng.standard_normal((n_real, dims), dtype=np.float32)
+            batch = knn.QueryBatch(q, dev)
+            b = batch.queries.shape[0]
+            masks = T(per_row_masks(np, rng, n_real, b, n_pad, n_docs,
+                                    density))
+            qq, qscale = batch.quantized()
+            rows = sorted({0, 1, n_real - 1, b - 1})
+            for sim in SIMS:
+                args = (mt, nt, allowed, batch.queries, batch.qn, batch.q2)
+                got = knn.knn_flat(*args, 100, sim, masks)
+                torch.cuda.synchronize()
+                compare(torch, f"knn_flat masked D={dims} B={b} {sim}", got,
+                        knn.knn_flat_plain(*args, 100, sim, masks))
+                check_masked_rows(
+                    torch, knn, f"knn_flat D={dims} {sim}", got,
+                    lambda r: knn.knn_flat(
+                        mt, nt, allowed & masks[r],
+                        batch.queries[r: r + 1], batch.qn[r: r + 1],
+                        batch.q2[r: r + 1], 100, sim), rows)
+                cargs = (q8t, st, nt, allowed, qq, qscale, batch.qn,
+                         batch.q2)
+                cgot = knn.knn_coarse(*cargs, 256, sim, masks)
+                torch.cuda.synchronize()
+                compare(torch, f"knn_coarse masked D={dims} B={b} {sim}",
+                        cgot, knn.knn_coarse_plain(*cargs, 256, sim, masks))
+                check_masked_rows(
+                    torch, knn, f"knn_coarse D={dims} {sim}", cgot,
+                    lambda r: knn.knn_coarse(
+                        q8t, st, nt, allowed & masks[r], qq[r: r + 1],
+                        qscale[r: r + 1], batch.qn[r: r + 1],
+                        batch.q2[r: r + 1], 256, sim), rows)
+                cs, cand = cgot
+                rgot = knn.knn_rerank(*args, cand, cs, 10, sim, masks)
+                torch.cuda.synchronize()
+                compare(torch, f"knn_rerank masked D={dims} B={b} {sim}",
+                        rgot, knn.knn_rerank_plain(*args, cand, cs, 10, sim,
+                                                   masks))
+                check_masked_rows(
+                    torch, knn, f"knn_rerank D={dims} {sim}", rgot,
+                    lambda r: knn.knn_rerank(
+                        mt, nt, allowed & masks[r],
+                        batch.queries[r: r + 1], batch.qn[r: r + 1],
+                        batch.q2[r: r + 1], cand[r: r + 1], cs[r: r + 1],
+                        10, sim), rows)
+                n += 3 * (1 + len(rows))
+        del mt, q8t
+        torch.cuda.empty_cache()
+    log(f"ivf-small: {n} masked knn_flat/knn_coarse/knn_rerank calls "
+        f"(3 similarities, D 128/960, B 8/64 with pow2-padded and "
+        f"all-false rows) bitwise equal to their plain versions and, row "
+        f"by row, to the unmasked kernels on allowed & mask")
+
+    n = 0
+    for dims, n_rows, nlist in ((16, 3000, 37), (100, 20_000, 300),
+                                (960, 20_000, 256)):
+        x = rng.standard_normal((n_rows, dims), dtype=np.float32)
+        x[7] = x[3]                         # duplicate rows: tied distances
+        x[11] = x[3]
+        cents = x[rng.choice(n_rows, nlist, replace=False)].copy()
+        cents[5] = cents[2]                 # tied centroids: the lower wins
+        xt, ct = T(x), T(cents)
+        a = ivf.ivf_assign(xt, ct)
+        torch.cuda.synchronize()
+        compare(torch, f"ivf_assign D={dims} nlist={nlist}", (a,),
+                (ivf.ivf_assign_plain(xt, ct),))
+        check(not bool((a == 5).any()), "ivf_assign: a tie went to the "
+              "higher centroid index")
+        a[:3] = -1                          # dropped, as segment_sum does
+        a[3] = nlist
+        u = ivf.ivf_update(xt, a, ct)
+        torch.cuda.synchronize()
+        compare(torch, f"ivf_update D={dims} nlist={nlist}", (u,),
+                (ivf.ivf_update_plain(xt, a, ct),))
+        check(torch.equal(u[5], ct[5]), "ivf_update: an empty cluster "
+              "lost its previous centroid")
+        f = ivf.ivf_init(xt, 3, nlist)
+        torch.cuda.synchronize()
+        compare(torch, f"ivf_init D={dims} nlist={nlist}", (f,),
+                (ivf.ivf_init_plain(xt, 3, nlist),))
+        n += 3
+    # K14 on a synthetic index: tied centroids, padded lists, nprobe up to
+    # nlist; k above the probe pool is clamped by IVFIndex.search
+    nlist, list_len, dims = 48, 40, 64
+    cents = rng.standard_normal((nlist, dims), dtype=np.float32)
+    cents[5] = cents[2]
+    lists = rng.standard_normal((nlist, list_len, dims), dtype=np.float32)
+    valid = rng.random((nlist, list_len)) < 0.8
+    valid[:, :3] = True
+    lists[~valid] = 0.0
+    lists[4, 7] = lists[4, 2]               # tied slot scores in one list
+    lists[9, 1] = lists[4, 2]               # ... and across two lists
+    ids = np.where(valid, rng.permutation(nlist * list_len).reshape(
+        nlist, list_len), -1).astype(np.int32)
+    norms = np.linalg.norm(lists, axis=2).astype(np.float32)
+    for sim in SIMS:
+        on_dev = ivf_from_reference(cents, lists, valid, ids, norms, sim,
+                                    dev)
+        on_cpu = ivf_from_reference(cents, lists, valid, ids, norms, sim,
+                                    "cpu")
+        q = rng.standard_normal((9, dims), dtype=np.float32)
+        q[0] = cents[2]
+        q[1] = lists[4, 2]
+        batch = knn.QueryBatch(q, dev)
+        for nprobe, k in ((1, 10), (3, 10), (7, 10**6), (nlist, 25),
+                          (nlist, 4096)):
+            args = (batch.queries, batch.qn, batch.q2, on_dev.centroids,
+                    on_dev.lists, on_dev.valid, on_dev.ids, on_dev.norms)
+            k_eff = min(k, nprobe * list_len)
+            got = ivf.ivf_search(*args, k_eff, nprobe, sim)
+            torch.cuda.synchronize()
+            compare(torch, f"ivf_search {sim} nprobe={nprobe} k={k_eff}",
+                    got, ivf.ivf_search_plain(*args, k_eff, nprobe, sim))
+            s_dev, i_dev = on_dev.search(q, k, nprobe)
+            s_cpu, i_cpu = on_cpu.search(q, k, nprobe)
+            check(np.array_equal(i_dev, i_cpu) and
+                  np.array_equal(s_dev.view(np.int32), s_cpu.view(np.int32)),
+                  f"ivf_search {sim} nprobe={nprobe}: card and CPU differ")
+            n += 1
+    log(f"ivf-small: {n} ivf_assign/ivf_update/ivf_init/ivf_search calls "
+        f"(D 16/64/100/960, tied rows and centroids, dropped and empty "
+        f"clusters, padded lists, nprobe 1..nlist, clamped k, 3 "
+        f"similarities) bitwise equal to their plain versions")
+
+
+IVF_FIELDS = {"cosine": "ivf_cos", "dot_product": "ivf_dot",
+              "l2_norm": "ivf_l2"}
+
+
+def build_ivf_engine(np, n_docs: int):
+    """``InternalEngine`` with ``n_docs`` seeded docs: one 64-dim vector
+    around 40 Gaussian cluster means, mapped under the three similarities
+    with ``index_options: {type: ivf, nlist: 16}``, a keyword ``tag`` (5
+    values) and an integer ``n``; three segments. Returns (engine, rng,
+    vectors)."""
+    from elasticsearch_tpu_torch.index import InternalEngine
+    from elasticsearch_tpu_torch.mapping import MapperService
+    rng = np.random.default_rng(SEED + 500)
+    props = {f: {"type": "dense_vector", "dims": 64, "similarity": sim,
+                 "index_options": {"type": "ivf", "nlist": 16}}
+             for sim, f in IVF_FIELDS.items()}
+    props.update({"tag": {"type": "keyword"}, "n": {"type": "integer"}})
+    engine = InternalEngine(MapperService({"properties": props}),
+                            shard_label="smoke-ivf")
+    means = rng.standard_normal((40, 64), dtype=np.float32)
+    vecs = means[rng.integers(0, 40, n_docs)] + np.float32(0.3) * \
+        rng.standard_normal((n_docs, 64), dtype=np.float32)
+    for i in range(n_docs):
+        v = vecs[i].tolist()
+        doc = {f: v for f in IVF_FIELDS.values()}
+        doc.update({"tag": f"t{i % 5}", "n": int(i * 7 % 100)})
+        engine.index(str(i), doc)
+        if i in (n_docs // 3, 2 * n_docs // 3):
+            engine.refresh()
+    engine.refresh()
+    return engine, rng, vecs
+
+
+KNN_FILTERS = ({"term": {"tag": "t1"}},
+               {"range": {"n": {"gte": 20, "lt": 55}}},
+               {"bool": {"must": [{"term": {"tag": "t2"}}],
+                         "must_not": [{"range": {"n": {"gte": 60}}}]}})
+
+
+def batch_keys(out):
+    return [[(d.segment_idx, d.doc, d.score) for d in c] for c, *_ in out]
+
+
+def phase_ivf_engine(torch, np, dev, vec, n_ivf_docs: int) -> None:
+    """Filtered knn (term, range, bool filters) on the vector engine and
+    knn on IVF-mapped fields (index_options type ivf, nlist 16, on small
+    segments) through SearchService, planes on and off, quantized tier on
+    and off; deletes after the IVF build; a refresh that warm-starts the
+    plane's k-means; batched_knn_shard with heterogeneous filters and with
+    filtered and unfiltered members on an IVF-routed field. Every answer
+    on the card equal to the same package's on the CPU, score bits
+    included."""
+    from elasticsearch_tpu_torch.ops.device_segment import PLANES
+    from elasticsearch_tpu_torch.search import SearchService, dsl
+    from elasticsearch_tpu_torch.search.batch_executor import (
+        BatchSpec, _build_ctxs, batched_knn_shard,
+    )
+    from elasticsearch_tpu_torch.search.device_profile import DEVICE_PROFILE
+    vengine, vrng = vec
+    keep = (PLANES.enabled, PLANES.quantized)
+    n, t_dev = 0, []
+    try:
+        on_dev = SearchService(vengine, index_name="smoke", device=dev)
+        on_cpu = SearchService(vengine, index_name="smoke", device="cpu")
+        sims = list(KNN_FIELDS)
+        for i in range(24):
+            PLANES.enabled = (i // 3) % 2 == 0
+            PLANES.quantized = (i // 6) % 2 == 0
+            q = vrng.standard_normal(128, dtype=np.float32).tolist()
+            body = {"query": {"knn": {
+                "field": KNN_FIELDS[sims[i % 3]], "query_vector": q,
+                "k": (10, 25)[i % 2], "num_candidates": 100,
+                "filter": KNN_FILTERS[i % 3]}}, "size": 10,
+                "_source": False}
+            t1 = time.monotonic()
+            a = on_dev.search(body)
+            t_dev.append(time.monotonic() - t1)
+            check(same_hits(a, on_cpu.search(body)),
+                  f"ivf-engine: filtered knn body {i} differs")
+            n += 1
+        reader = vengine.acquire_reader()
+        queries = vrng.standard_normal((16, 128), dtype=np.float32)
+        stats = {}
+        for filters in ([KNN_FILTERS[0]] * 16,
+                        [KNN_FILTERS[i % 3] for i in range(16)],
+                        [None if i % 2 else KNN_FILTERS[i % 3]
+                         for i in range(16)]):
+            for PLANES.enabled in (True, False):
+                got = []
+                for d in (dev, "cpu"):
+                    specs = [BatchSpec(
+                        kind="knn", field="vec_cos", window=10,
+                        query_vector=q.tolist(), k=10, num_candidates=100,
+                        filter=None if f is None else dsl.parse_query(f),
+                        filter_key=None if f is None else repr(f))
+                        for q, f in zip(queries, filters)]
+                    ctxs = _build_ctxs(reader, vengine.mappers, None, None,
+                                       device=d)
+                    got.append(batch_keys(batched_knn_shard(
+                        ctxs, "vec_cos", specs, 10, stats=stats)))
+                check(got[0] == got[1], "ivf-engine: batched filtered knn "
+                      "differs between card and cpu")
+                n += 1
+        # IVF-mapped fields: solo bodies, deletes, a warm-started refresh
+        PLANES.clear()
+        engine, rng, vecs = build_ivf_engine(np, n_ivf_docs)
+        on_dev = SearchService(engine, index_name="smoke-ivf", device=dev)
+        on_cpu = SearchService(engine, index_name="smoke-ivf", device="cpu")
+
+        def ivf_bodies(m):
+            out = []
+            for i in range(m):
+                q = vecs[rng.integers(0, len(vecs))] + np.float32(0.05) * \
+                    rng.standard_normal(64, dtype=np.float32)
+                out.append({"query": {"knn": {
+                    "field": IVF_FIELDS[sims[i % 3]],
+                    "query_vector": q.tolist(), "k": 10,
+                    "num_candidates": (20, 200, 1000)[i % 3]}},
+                    "size": 10, "_source": False})
+            return out
+
+        def run_bodies(bodies, what):
+            nonlocal n
+            for body in bodies:
+                t1 = time.monotonic()
+                a = on_dev.search(body)
+                t_dev.append(time.monotonic() - t1)
+                check(same_hits(a, on_cpu.search(body)),
+                      f"ivf-engine: {what} differs between card and cpu")
+                check(len(a["hits"]["hits"]) == 10,
+                      f"ivf-engine: {what} short")
+                n += 1
+
+        launches0 = DEVICE_PROFILE.launches()
+        warm0 = PLANES.stats["ivf_warm_starts"]
+        for PLANES.enabled in (True, False):
+            run_bodies(ivf_bodies(9), "ivf knn")
+        for i in rng.choice(n_ivf_docs, 30, replace=False):
+            engine.delete(str(int(i)))
+        engine.refresh()
+        for PLANES.enabled in (True, False):
+            run_bodies(ivf_bodies(6), "ivf knn after deletes")
+        PLANES.enabled = True
+        extra = vecs[:300] + np.float32(0.01)
+        for j, v in enumerate(extra):
+            engine.index(f"x{j}", {f: v.tolist() for f in IVF_FIELDS.values()}
+                         | {"tag": "t9", "n": 1})
+        engine.refresh()
+        run_bodies(ivf_bodies(6), "ivf knn after a refresh")
+        warm = PLANES.stats["ivf_warm_starts"] - warm0
+        # one shard IVF a field and device: each refreshed plane warm-starts
+        check(warm == len(IVF_FIELDS) * len({str(dev), "cpu"}),
+              f"ivf-engine: {warm} refreshed planes warm-started k-means")
+        # filtered and unfiltered members in one batch on the IVF fields
+        reader = engine.acquire_reader()
+        qs = vecs[rng.integers(0, len(vecs), 12)]
+        for PLANES.enabled in (True, False):
+            got = []
+            for d in (dev, "cpu"):
+                specs = [BatchSpec(
+                    kind="knn", field="ivf_l2", window=10,
+                    query_vector=q.tolist(), k=10,
+                    num_candidates=200 if PLANES.enabled else
+                    (20, 200, 1000)[i % 3],
+                    filter=None if i % 3 else dsl.parse_query(
+                        KNN_FILTERS[i % 2]),
+                    filter_key=None if i % 3 else repr(KNN_FILTERS[i % 2]))
+                    for i, q in enumerate(qs)]
+                ctxs = _build_ctxs(reader, engine.mappers, None, None,
+                                   device=d)
+                got.append(batch_keys(batched_knn_shard(ctxs, "ivf_l2",
+                                                        specs, 10)))
+            check(got[0] == got[1], "ivf-engine: mixed batch differs")
+            n += 1
+        now = DEVICE_PROFILE.launches()
+        launched = {f: now.get(f, 0) - launches0.get(f, 0)
+                    for f in IVF_FAMILIES}
+        if dev.type == "cuda":
+            check(all(v > 0 for v in launched.values()),
+                  f"ivf-engine: an IVF kernel never launched: {launched}")
+    finally:
+        PLANES.enabled, PLANES.quantized = keep
+    t_dev.sort()
+    log(f"ivf-engine: {n} responses and batches equal on {dev} and cpu "
+        f"(filtered knn: term/range/bool, shared and per-member masks; "
+        f"IVF fields: 3 similarities, planes on/off, deletes, warm-started "
+        f"refresh: {warm} warm starts, mixed batches); filter-mask "
+        f"counters {stats}; IVF "
+        f"launches {launched}; {dev} latency "
+        f"p50 {1e3 * pct(t_dev, 0.5):.2f} ms p99 "
+        f"{1e3 * pct(t_dev, 0.99):.2f} ms")
+
+
+GIST_DOCS = 1 << 20
+GIST_DIMS = 960
+NPROBES = (16, 32, 64, 128, 256)
+
+
+def gist_shaped(torch, dev, n: int, n_q: int):
+    """bench.py cfg_ivf's GIST1M envelope, made on the device from a
+    seed: 1,024 Gaussian cluster means, rows = a mean + 0.35 noise,
+    queries = corpus rows + 0.05 noise. Returns (corpus, queries) f32
+    tensors on ``dev``."""
+    g = torch.Generator(device=dev).manual_seed(SEED + 600)
+    means = torch.randn(1024, GIST_DIMS, generator=g, device=dev)
+    which = torch.randint(0, 1024, (n,), generator=g, device=dev)
+    corpus = means[which]
+    corpus.add_(torch.randn(n, GIST_DIMS, generator=g, device=dev), alpha=0.35)
+    pick = torch.randint(0, n, (n_q,), generator=g, device=dev)
+    queries = corpus[pick] + 0.05 * torch.randn(n_q, GIST_DIMS, generator=g,
+                                                device=dev)
+    return corpus, queries
+
+
+def cosine_oracle(torch, corpus, queries, k: int = 10):
+    """Exact cosine top-k ids per query, in float64 on the corpus's device,
+    a chunk of rows at a time."""
+    q = queries.double()
+    q = q / q.norm(dim=1, keepdim=True)
+    best_s, best_i = None, None
+    step = 1 << 17
+    for lo in range(0, corpus.shape[0], step):
+        c = corpus[lo: lo + step].double()
+        c = c / c.norm(dim=1, keepdim=True).clamp_min(1e-300)
+        s, i = torch.topk(q @ c.t(), k, dim=1)
+        i = i + lo
+        if best_s is not None:
+            s, j = torch.topk(torch.cat([best_s, s], 1), k, dim=1)
+            i = torch.gather(torch.cat([best_i, i], 1), 1, j)
+        best_s, best_i = s, i
+        del c
+    return best_i.cpu().numpy()
+
+
+def vector_segments(np, name: str, matrix, per_seg: int, extra=None):
+    """Segments of ``per_seg`` rows of ``matrix`` (views, no copy), each
+    with one vector field ``vec`` (cosine)."""
+    from elasticsearch_tpu_torch.index.segment import Segment, VectorField
+    segs = []
+    for i in range(matrix.shape[0] // per_seg):
+        m = matrix[i * per_seg: (i + 1) * per_seg]
+        seg = Segment(f"{name}{i}", per_seg)
+        seg.vectors["vec"] = VectorField(
+            matrix=m, exists=np.ones(per_seg, bool),
+            norms=np.linalg.norm(m, axis=1).astype(np.float32),
+            similarity="cosine", dims=m.shape[1])
+        seg.ids = [str(j) for j in range(per_seg)]
+        seg.invalidate_live_count()
+        segs.append(seg)
+    return segs
+
+
+def ivf_leg(torch, np, dev, name, reader, mappers, ctxs, queries, oracle,
+            exact, doc_base, list_len: int, nprobe: int, n_batch: int):
+    """One nprobe of the sweep: solo query_shard for every query (p50/p99
+    wall, recall@10 against the float64 oracle and against the exact K5
+    answers), then the first ``n_batch`` as one batched_knn_shard (3 timed
+    runs); device time, launches and the kernel-busy share around it."""
+    from elasticsearch_tpu_torch.search import dsl
+    from elasticsearch_tpu_torch.search.batch_executor import (
+        BatchSpec, batched_knn_shard,
+    )
+    from elasticsearch_tpu_torch.search.device_profile import DEVICE_PROFILE
+    from elasticsearch_tpu_torch.search.phase import query_shard
+    nc = nprobe * list_len
+    vecs = [q.tolist() for q in queries]
+    fams = IVF_FAMILIES + KNN_FAMILIES
+    DEVICE_PROFILE.timing = dev.type == "cuda"
+    ms0, n0 = device_ms(fams), DEVICE_PROFILE.launches()
+    times, hits, hits_k5 = [], 0, 0
+    for qi, v in enumerate(vecs):
+        t = time.monotonic()
+        res = query_shard(reader, mappers, dsl.Knn(
+            field="vec", query_vector=v, k=10, num_candidates=nc),
+            size=10, device=dev)
+        times.append(time.monotonic() - t)
+        got = {int(doc_base[d.segment_idx]) + d.doc for d in res.docs}
+        hits += len(got & set(oracle[qi].tolist()))
+        hits_k5 += len(got & set(exact[qi].tolist()))
+    specs = [BatchSpec(kind="knn", field="vec", window=10, query_vector=v,
+                       k=10, num_candidates=nc) for v in vecs[:n_batch]]
+    batched_knn_shard(ctxs, "vec", specs, 10)             # warm-up
+    b_times = []
+    for _rep in range(3):
+        t = time.monotonic()
+        batched_knn_shard(ctxs, "vec", specs, 10)
+        b_times.append(time.monotonic() - t)
+    DEVICE_PROFILE.timing = False
+    ms1, n1 = device_ms(fams), DEVICE_PROFILE.launches()
+    kern = {f: round(ms1[f] - ms0[f], 4) for f in fams if ms1[f] > ms0[f]}
+    launched = {f: n1.get(f, 0) - n0.get(f, 0) for f in fams}
+    busy = sum(kern.values()) / max(1e3 * (sum(times) + sum(b_times)), 1e-9)
+    recall = hits / (10 * len(vecs))
+    log(f"ivf-full: {name} nprobe={nprobe} (num_candidates {nc}): "
+        f"recall@10 {recall:.4f} (against the exact K5 answers "
+        f"{hits_k5 / (10 * len(vecs)):.4f}); solo p50 {1e3 * pct(times, 0.5):.3f} ms "
+        f"p99 {1e3 * pct(times, 0.99):.3f} ms over {len(times)} queries; "
+        f"{n_batch}-query batch p50 {1e3 * pct(b_times, 0.5):.3f} ms "
+        f"({1e3 * pct(b_times, 0.5) / n_batch:.4f} ms a query); kernel "
+        f"device ms {kern}; launches {launched}; kernel-busy share "
+        f"{busy:.4f}")
+    return recall, launched
+
+
+def add_tag_column(np, segs, doc_base, n_tags: int = 100):
+    """A keyword ``tag`` on every doc: t(global doc * 7919 mod n_tags)."""
+    from elasticsearch_tpu_torch.index.segment import KeywordField
+    names = [f"t{i}" for i in range(n_tags)]
+    tags = []
+    for pos, seg in enumerate(segs):
+        glob = np.arange(seg.n_docs, dtype=np.int64) + int(doc_base[pos])
+        ords = (glob * 7919 % n_tags).astype(np.int32)
+        seg.keywords["tag"] = KeywordField(
+            {t: i for i, t in enumerate(names)}, ords,
+            np.arange(seg.n_docs + 1, dtype=np.int32),
+            np.bincount(ords, minlength=n_tags).astype(np.int32), names)
+        tags.append(ords)
+    return np.concatenate(tags)
+
+
+class FilteredOracle:
+    """Exact filtered cosine top-16 (ids, float64 scores) of every query
+    over the docs whose tag is in a set, computed once per set."""
+
+    def __init__(self, np, unit_rows, tags, q_unit):
+        self.np, self.rows, self.tags, self.q = np, unit_rows, tags, q_unit
+        self.cache = {}
+
+    def __call__(self, qi: int, wanted):
+        np = self.np
+        key = tuple(wanted)
+        if key not in self.cache:
+            docs = np.nonzero(np.isin(self.tags, wanted))[0]
+            sims = self.rows[docs] @ self.q.T            # [docs, Q]
+            top = np.argsort(-sims, axis=0, kind="stable")[:16]
+            self.cache[key] = (docs[top], np.take_along_axis(sims, top, 0))
+        ids, sc = self.cache[key]
+        return ids[:, qi], sc[:, qi]
+
+
+def same_as_oracle(got, ids, scores) -> bool:
+    """``got`` (global ids, served order) equals the oracle's top-10, but
+    for swaps within a near-tie (float64 scores within 1e-6 relative): the
+    filtered route is exact, so recall is 1.0 under the same rule."""
+    if len(got) != min(10, len(ids)):
+        return False
+    tol = 1e-6 * max(abs(float(scores[0])), 1e-30) if len(scores) else 0.0
+    pos = {int(d): j for j, d in enumerate(ids)}
+    for j, g in enumerate(got):
+        if g == ids[j]:
+            continue
+        jj = pos.get(int(g))
+        if jj is None or abs(scores[jj] - scores[j]) > tol:
+            return False
+    return True
+
+
+def phase_ivf_full(torch, np, dev, shared, n_docs: int, n_q: int) -> None:
+    """BASELINE #3's shape: one GIST1M-shaped shard (bench.py cfg_ivf's
+    envelope: 1,048,576 x 960 f32, 1,024 Gaussian means, 0.35 noise) in 4
+    segments of 262,144, cosine, no index_options -- so the default route
+    takes IVF -- 128 queries, k 10, num_candidates swept so the derived
+    nprobe covers 16..256: the plane route (one shard-level IVF, nlist
+    4,096) and the per-segment route (four IVFs, nlist 2,048). Then
+    filtered kNN on the knn-full SIFT shard with a keyword tag: filters at
+    10 % and 1 % selectivity, one shared mask and 64 distinct masks,
+    against a host filtered exact oracle."""
+    from elasticsearch_tpu_torch.index.engine import Reader
+    from elasticsearch_tpu_torch.mapping import MapperService
+    from elasticsearch_tpu_torch.ops.device_segment import PLANES
+    from elasticsearch_tpu_torch.ops.knn import KnnExecutor
+    from elasticsearch_tpu_torch.search import dsl
+    from elasticsearch_tpu_torch.search.batch_executor import (
+        BatchSpec, _build_ctxs, batched_knn_shard,
+    )
+    from elasticsearch_tpu_torch.search.execute import (
+        ANN_DEFAULT_MIN_DOCS, ann_segment_route,
+    )
+    from elasticsearch_tpu_torch.search.phase import query_shard
+    check("sift" in shared, "ivf-full needs the knn-full phase in the same "
+          "run (its filtered leg runs on that shard)")
+    import gc
+    per_seg = n_docs // 4
+    t0 = time.monotonic()
+    corpus_dev, queries_dev = gist_shaped(torch, dev, 4 * per_seg, n_q)
+    oracle = cosine_oracle(torch, corpus_dev, queries_dev)
+    corpus = corpus_dev.cpu().numpy()
+    queries = queries_dev.cpu().numpy()
+    del corpus_dev, queries_dev
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    segs = vector_segments(np, "gist", corpus, per_seg)
+    # full size: no index_options, the default route takes IVF; a
+    # rehearsal's small segments are mapped type ivf to take it too
+    vec = {"type": "dense_vector", "dims": GIST_DIMS, "similarity": "cosine"}
+    if per_seg < ANN_DEFAULT_MIN_DOCS:
+        vec["index_options"] = {"type": "ivf"}
+    mappers = MapperService({"properties": {"vec": vec}})
+    reader = Reader(segs)
+    doc_base = np.arange(4, dtype=np.int64) * per_seg
+    log(f"ivf-full: {4 * per_seg} docs x {GIST_DIMS} dims (1,024 Gaussian "
+        f"means, 0.35 noise) in 4 segments, {n_q} queries, exact oracle "
+        f"in float64, made in {time.monotonic() - t0:.1f}s; mapping {vec}")
+    routes = {}
+    keep = (PLANES.enabled, PLANES.quantized)
+    try:
+        # the plane route: one shard-level IVF over the plane
+        PLANES.clear()
+        PLANES.enabled = True
+        t1 = time.monotonic()
+        part = PLANES.get(segs, "vectors", "vec", dev)
+        check(part is not None, "ivf-full: the vector plane was refused")
+        plane_bytes = part.nbytes
+        t2 = time.monotonic()
+        index, _rows = part.ivf_index(None)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        build_s = time.monotonic() - t2
+        check(index is not None and part.nbytes > plane_bytes,
+              "ivf-full: the shard-level IVF index was not built")
+        log(f"ivf-full: plane route: plane {plane_bytes} bytes resident in "
+            f"{t2 - t1:.1f}s; shard IVF nlist {index.nlist} list_len "
+            f"{index.list_len} built in {build_s:.1f}s (k-means + packing), "
+            f"{index._charge.n_bytes} bytes resident "
+            f"({index._charge.n_bytes / plane_bytes:.3f} x the exact plane)")
+        # the exact answers with the served arithmetic (K5: bf16 operands,
+        # f32 sums) -- what any probe could reach at best
+        _s, d_exact = KnnExecutor(part).top_k_batch(
+            queries, part.live_mask(reader.live_masks), 10)
+        exact = d_exact.cpu().numpy()
+        ceiling = np.mean([len(set(exact[i]) & set(oracle[i])) / 10
+                           for i in range(n_q)])
+        log(f"ivf-full: the exact K5 answers' recall@10 against the float64 "
+            f"oracle (bf16 operands): {ceiling:.4f}")
+        ctxs = _build_ctxs(reader, mappers, None, None, device=dev)
+        routes["plane"] = [ivf_leg(
+            torch, np, dev, "plane", reader, mappers, ctxs, queries, oracle,
+            exact, doc_base, index.list_len, nprobe, min(64, n_q))
+            for nprobe in NPROBES]
+        del index, part, ctxs
+        PLANES.clear()
+        gc.collect()
+        # the per-segment route: one IVF per segment
+        PLANES.enabled = False
+        ctxs = _build_ctxs(reader, mappers, None, None, device=dev)
+        t2 = time.monotonic()
+        seg_idx = []
+        for ctx in ctxs:
+            route = ann_segment_route(ctx, "vec", 10, 100)
+            check(route is not None and route[0] is not None,
+                  "ivf-full: a segment's IVF index was not built")
+            seg_idx.append(route[0])
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        log(f"ivf-full: per-segment route: {len(seg_idx)} IVF indexes "
+            f"(nlist {seg_idx[0].nlist}, list_len {seg_idx[0].list_len}) "
+            f"built in {time.monotonic() - t2:.1f}s, "
+            f"{sum(i._charge.n_bytes for i in seg_idx)} bytes resident")
+        routes["per_segment"] = [ivf_leg(
+            torch, np, dev, "per-segment", reader, mappers, ctxs, queries,
+            oracle, exact, doc_base, seg_idx[0].list_len, nprobe,
+            min(64, n_q)) for nprobe in NPROBES]
+        del seg_idx, ctxs
+    finally:
+        PLANES.enabled, PLANES.quantized = keep
+    for seg in segs:
+        seg._device_cache.clear()
+    del segs, reader, corpus
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    for name, legs in routes.items():
+        for (recall, launched), nprobe in zip(legs, NPROBES):
+            if dev.type == "cuda":
+                check(launched["ivf_search"] > 0,
+                      f"ivf-full: {name} nprobe {nprobe}: no ivf_search")
+                check(launched["knn_flat"] == 0,
+                      f"ivf-full: {name} nprobe {nprobe}: knn_flat launched "
+                      f"for unfiltered members of an IVF-routed field")
+    for name, legs in routes.items():
+        # BASELINE #3's bar, as bench.py sweeps it: the first nprobe whose
+        # recall@10 reaches 0.95 (a rehearsal's few docs a cluster are
+        # another regime, whose recall is only printed)
+        reached = [nprobe for (recall, _l), nprobe in zip(legs, NPROBES)
+                   if recall >= 0.95]
+        log(f"ivf-full: {name} route: recall@10 >= 0.95 first at nprobe "
+            f"{reached[0] if reached else None}")
+        if n_docs >= GIST_DOCS:
+            check(bool(reached), f"ivf-full: the {name} route never "
+                  f"reached recall@10 0.95")
+
+    # filtered kNN on the SIFT1M-shaped shard: exact, so equal to an oracle
+    segs, sift_q, _answers = shared["sift"]
+    counts = [s.n_docs for s in segs]
+    sift_base = np.concatenate([[0], np.cumsum(counts)[:-1]])
+    tags = add_tag_column(np, segs, sift_base)
+    unit = np.concatenate([s.vectors["vec"].matrix for s in segs]).astype(
+        np.float64)
+    unit /= np.maximum(np.linalg.norm(unit, axis=1, keepdims=True), 1e-300)
+    q_unit = sift_q.astype(np.float64)
+    q_unit /= np.linalg.norm(q_unit, axis=1, keepdims=True)
+    mappers = MapperService({"properties": {"tag": {"type": "keyword"},
+                                            "vec": {
+        "type": "dense_vector", "dims": SIFT_DIMS, "similarity": "cosine",
+        "index_options": {"type": "flat"}}}})
+    reader = Reader(segs)
+    ctxs = _build_ctxs(reader, mappers, None, None, device=dev)
+    oracle_f = FilteredOracle(np, unit, tags, q_unit)
+    vecs = [q.tolist() for q in sift_q]
+    n_f = len(vecs)
+
+    def filt(sel: str, qi: int, shared_mask: bool):
+        i = 0 if shared_mask else qi
+        names = [f"t{(i + j) % 100}" for j in range(10 if sel == "10%"
+                                                    else 1)]
+        body = {"terms": {"tag": names}}
+        return body, [int(t[1:]) for t in names]
+
+    PLANES.clear()
+    keep = (PLANES.enabled, PLANES.quantized)
+    checked = 0
+    try:
+        PLANES.enabled = True
+        for quantized in (True, False):
+            PLANES.quantized = quantized
+            for sel in ("10%", "1%"):
+                for shared_mask in (True, False):
+                    bodies = [filt(sel, qi, shared_mask) for qi in range(n_f)]
+                    specs = [BatchSpec(
+                        kind="knn", field="vec", window=10, query_vector=v,
+                        k=10, num_candidates=100,
+                        filter=dsl.parse_query(b), filter_key=repr(b))
+                        for v, (b, _w) in zip(vecs, bodies)]
+                    stats = {}
+                    t = time.monotonic()
+                    out = batched_knn_shard(ctxs, "vec", specs, 10,
+                                            stats=stats)
+                    wall = time.monotonic() - t
+                    for qi, c in enumerate(out):
+                        got = [int(sift_base[d.segment_idx]) + d.doc
+                               for d in c[0]]
+                        ids, sc = oracle_f(qi, bodies[qi][1])
+                        check(same_as_oracle(got, ids, sc),
+                              f"ivf-full: filtered {sel} (shared "
+                              f"{shared_mask}, quantized {quantized}) query "
+                              f"{qi} differs from the filtered oracle")
+                        checked += 1
+                    log(f"ivf-full: filtered SIFT {sel} selectivity, "
+                        f"{'one shared mask' if shared_mask else f'{n_f} distinct masks'}"
+                        f", quantized tier {'on' if quantized else 'off'}: "
+                        f"{n_f} queries equal to the filtered exact oracle "
+                        f"(recall 1.0); batch wall {1e3 * wall:.1f} ms; "
+                        f"stats {stats}")
+        for qi in range(4):                     # the solo filtered path
+            b, w = filt("1%", qi, False)
+            res = query_shard(reader, mappers, dsl.Knn(
+                field="vec", query_vector=vecs[qi], k=10, num_candidates=100,
+                filter=dsl.parse_query(b)), size=10, device=dev)
+            ids, sc = oracle_f(qi, w)
+            check(same_as_oracle([int(sift_base[d.segment_idx]) + d.doc
+                                  for d in res.docs], ids, sc),
+                  f"ivf-full: solo filtered query {qi} differs from the "
+                  f"oracle")
+            checked += 1
+    finally:
+        PLANES.enabled, PLANES.quantized = keep
+        for seg in segs:
+            seg.keywords.pop("tag", None)
+            seg._filter_cache.clear()
+    log(f"ivf-full: {checked} filtered answers equal to the host filtered "
+        f"exact oracle")
+
+
+def ivf_size(family: str, args):
+    """The size a recorded call is ranked by: rows x lists for the build
+    kernels, queries x probed slots for the probe, (B, N or k', k) for the
+    masked kNN kernels."""
+    if family == "ivf_assign":
+        return args[0].shape[0] * args[1].shape[0]
+    if family == "ivf_update":
+        return args[0].numel()
+    if family == "ivf_init":
+        return args[0].shape[0] * args[2]
+    if family == "ivf_search":
+        return args[0].shape[0] * args[9] * args[4].shape[1]
+    return knn_size(family[: -len("_masked")], args)
+
+
+def ivf_group(family: str, args):
+    """The probe's solo calls (one query row) are kept apart from its
+    batched ones, so both sizes are timed."""
+    return family == "ivf_search" and args[0].shape[0] == 1
+
+
+def masks_of(family: str, args, kwargs):
+    return kwargs.get("masks", args[MASK_POS[family]]
+                      if len(args) > MASK_POS[family] else None)
+
+
+def ivf_bound(torch, family: str, args):
+    """(bound_ms, bound_by, bytes) as knn_bound: each input read once, each
+    output written once, over 3.35 TB/s; or the operations over the peak
+    rate of their type, whichever is larger. The probe counts the lists
+    this call's queries actually probe (their centroid pass, run on the
+    plain version), each once."""
+    if family == "ivf_assign":
+        x, c = args[0], args[1]
+        n, d = x.shape
+        nl = c.shape[0]
+        nbytes = n * d * 4 + nl * d * 4 + n * 4
+        t_ops = 2 * n * nl * d / BF16_FLOPS
+    elif family == "ivf_update":
+        x, c = args[0], args[2]
+        n, d = x.shape
+        nl = c.shape[0]
+        nbytes = n * d * 4 + n * 4 + 2 * nl * d * 4
+        t_ops = n * d / F32_FLOPS
+    elif family == "ivf_init":
+        x, nl = args[0], args[2]
+        n, d = x.shape
+        nbytes = n * d * 4 + nl * d * 4
+        t_ops = 3 * (nl - 1) * n * d / F32_FLOPS      # sub, mul, add
+    elif family == "ivf_search":
+        from elasticsearch_tpu_torch.ops import bm25
+        from elasticsearch_tpu_torch.ops.knn import _flat_dots
+        q, cents, lists, k, nprobe = args[0], args[3], args[4], args[8], \
+            args[9]
+        b, d = q.shape
+        nl, L = lists.shape[0], lists.shape[1]
+        scores = _flat_dots(cents, q)
+        probes = bm25.stable_topk(scores, nprobe)[1]
+        n_lists = int(torch.unique(probes).numel())
+        nbytes = b * d * 4 + b * 8 + nl * d * 4 + n_lists * L * (d * 4 + 9) \
+            + b * k * 8
+        t_ops = (2 * b * nl * d + 2 * b * nprobe * L * d) / BF16_FLOPS + \
+            8 * b * nprobe * L / F32_FLOPS
+    else:
+        base = family[: -len("_masked")]
+        nbytes = knn_bound(base, args)[2]
+        if base == "knn_rerank":
+            b, kp = args[6].shape
+            d = args[0].shape[1]
+            nbytes += b * kp                     # the mask at the candidates
+            t_ops = 2 * b * kp * d / BF16_FLOPS + 8 * b * kp / F32_FLOPS
+        else:
+            b, n = args[MASK_POS[family]].shape
+            d = args[0].shape[1]
+            nbytes += b * n                      # the mask stack
+            t_ops = 2 * b * n * d / (INT8_OPS if base == "knn_coarse"
+                                     else BF16_FLOPS) + 8 * b * n / F32_FLOPS
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                       else "operations"), nbytes
+
+
+def ivf_library_ms(torch, family: str, args):
+    """One PyTorch call computing the same function where there is one:
+    torch.matmul in bf16 for ivf_assign's product (the product alone) and
+    Tensor.index_add_ for ivf_update's per-cluster sums (the sums alone);
+    none for the others."""
+    if family == "ivf_assign":
+        a = args[0].to(torch.bfloat16)
+        c = args[1].to(torch.bfloat16).t()
+        return time_call(torch, lambda: torch.matmul(a, c), 5)
+    if family == "ivf_update":
+        x, idx = args[0], args[1].long()
+        out = torch.zeros_like(args[2])
+        return time_call(torch, lambda: out.zero_().index_add_(0, idx, x), 5)
+    return None
+
+
+IVF_PATH_FAMILIES = IVF_FAMILIES + MASKED
+
+
+def phase_ivf_kernels(torch, rec, launches) -> list:
+    """Each IVF-path family held against its plain version at the main
+    path's largest call (and up to four others), then timed beside its
+    bound and, where one exists, its library yardstick."""
+    from elasticsearch_tpu_torch.ops import ivf, knn
+    rows = []
+    for fam in IVF_PATH_FAMILIES:
+        calls = rec.calls[fam]
+        check(bool(calls), f"kernels: no {fam} call recorded")
+        mod = ivf if fam in IVF_FAMILIES else knn
+        name = fam if fam in IVF_FAMILIES else fam[: -len("_masked")]
+        run = lambda a, kw, plain: getattr(  # noqa: E731
+            mod, name + "_plain" if plain else name)(*a, **kw)
+        err = 0.0
+        largest = max(calls, key=lambda c: ivf_size(fam, c[0]))
+        for args, kwargs in calls[:4] + [largest]:
+            got = run(args, kwargs, False)
+            want = run(args, kwargs, True)
+            torch.cuda.synchronize()
+            if not isinstance(got, tuple):
+                got, want = (got,), (want,)
+            err = max(err, compare(torch, fam, got, want))
+            del got, want
+        args, kwargs = largest
+        slow = fam in ("ivf_init", "ivf_assign", "ivf_search")
+        ms = time_call(torch, lambda: run(args, kwargs, False),
+                       3 if fam == "ivf_init" else 20)
+        plain_ms = time_call(torch, lambda: run(args, kwargs, True),
+                             1 if slow else 5)
+        bound_ms, bound_by, nbytes = ivf_bound(torch, fam, args)
+        lib_ms = ivf_library_ms(torch, fam, args)
+        shape = ivf_shape(fam, args)
+        row = {"name": fam, "route": "cuda",
+               "source": f"elasticsearch_tpu_torch/csrc/{name}.cu",
+               "replaces": REPLACES[fam], "launches": launches.get(fam, 0),
+               "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+               "bound_ms": bound_ms, "bound_by": bound_by,
+               "library_ms": lib_ms, "shape": shape}
+        extra = ""
+        if fam in ("knn_flat_masked", "knn_coarse_masked"):
+            prod_ms, used = product_only_ms(torch, name, args)
+            row["product_only_library_ms"] = prod_ms
+            extra = f", product-only library call {prod_ms:.4f} ms ({used} rows)"
+        log(f"kernel {fam}: {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+            f"{bound_ms:.4f} ms ({nbytes} bytes at 3.35 TB/s, {bound_by}), "
+            f"library {lib_ms if lib_ms is None else f'{lib_ms:.4f} ms'}, "
+            f"max_abs_err {err} over {min(len(calls), 4) + 1} main-path "
+            f"calls, timed at the largest, {shape}{extra}")
+        solo = [c for c in rec.largest_calls(fam) if ivf_group(fam, c[0])]
+        if solo and solo[0] is not largest:
+            s_args, s_kw = solo[0]            # the largest solo probe
+            s_ms = time_call(torch, lambda: run(s_args, s_kw, False), 20)
+            log(f"kernel {fam}: {s_ms:.4f} ms at the largest solo main-path "
+                f"call, bound {ivf_bound(torch, fam, s_args)[0]:.4f} ms, "
+                f"{ivf_shape(fam, s_args)}")
+        rows.append(row)
+        torch.cuda.empty_cache()
+    return rows
+
+
+def ivf_shape(family: str, args) -> str:
+    if family in ("ivf_assign", "ivf_update"):
+        x, c = args[0], args[1 if family == "ivf_assign" else 2]
+        return f"n={x.shape[0]} nlist={c.shape[0]} dims={x.shape[1]}"
+    if family == "ivf_init":
+        return f"n={args[0].shape[0]} nlist={args[2]} dims={args[0].shape[1]}"
+    if family == "ivf_search":
+        return (f"n_q={args[0].shape[0]} nlist={args[4].shape[0]} "
+                f"L={args[4].shape[1]} dims={args[0].shape[1]} "
+                f"nprobe={args[9]} k={args[8]}")
+    return f"(B, N or k', k) = {knn_size(family[: -len('_masked')], args)}"
+
+
+# ---------------------------------------------------------------------------
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--phases", default="card,small,knn-small,dense-small,"
-                    "engine,full,kernels,knn-engine,knn-full,dense-engine,"
-                    "dense-full")
+                    "ivf-small,engine,full,kernels,knn-engine,knn-full,"
+                    "dense-engine,dense-full,ivf-engine,ivf-full")
     ap.add_argument("--full-docs", type=int, default=MS_MARCO_DOCS)
     ap.add_argument("--engine-docs", type=int, default=50_000)
     ap.add_argument("--knn-docs", type=int, default=SIFT_DOCS)
     ap.add_argument("--knn-engine-docs", type=int, default=20_000)
+    ap.add_argument("--ivf-engine-docs", type=int, default=6_000)
+    ap.add_argument("--gist-docs", type=int, default=GIST_DOCS)
+    ap.add_argument("--gist-queries", type=int, default=128)
     ap.add_argument("--queries", type=int, default=64)
     ap.add_argument("--workers", type=int, default=4)
     ap.add_argument("--rehearse", action="store_true",
@@ -1752,14 +2715,17 @@ def main(argv=None) -> int:
         if "dense-small" in phases and on_card:
             phase_dense_small(torch, np, dev)
             log(t(), "dense-small done")
+        if "ivf-small" in phases and on_card:
+            phase_ivf_small(torch, np, dev)
+            log(t(), "ivf-small done")
         from elasticsearch_tpu_torch.ops import bm25 as bm
-        from elasticsearch_tpu_torch.ops import knn, topk
+        from elasticsearch_tpu_torch.ops import ivf, knn, topk
         rows = []
         shared = {}
         engines = {}
         if phases & {"engine", "dense-engine"}:
             engines["text"] = build_text_engine(np, args.engine_docs)
-        if phases & {"knn-engine", "dense-engine"}:
+        if phases & {"knn-engine", "dense-engine", "ivf-engine"}:
             engines["vector"] = build_vector_engine(np, args.knn_engine_docs)
         # the BM25 main path: launch counts from zero, read right after
         DEVICE_PROFILE.reset_launches()
@@ -1832,12 +2798,43 @@ def main(argv=None) -> int:
                 rows += phase_dense_kernels(torch, drec, launches)
                 log(t(), "dense kernels done")
         del drec
-        if on_card and {"full", "knn-full", "dense-full",
+        PLANES.clear()
+        # the IVF path (filtered kNN and the IVF route): launch counts from
+        # zero, read right after
+        DEVICE_PROFILE.reset_launches()
+        targets = {f: (ivf, f) for f in IVF_FAMILIES}
+        targets.update({f: (knn, f[: -len("_masked")]) for f in MASKED})
+        with Recorder(targets, ivf_size, keep=4, group=ivf_group,
+                      accept=lambda f, a, kw: (
+                          f not in MASKED or masks_of(f, a, kw) is not None)
+                      ) as irec:
+            if "ivf-engine" in phases:
+                phase_ivf_engine(torch, np, dev, engines["vector"],
+                                 args.ivf_engine_docs)
+                log(t(), "ivf-engine done")
+            if "ivf-full" in phases:
+                phase_ivf_full(torch, np, dev, shared, args.gist_docs,
+                               args.gist_queries)
+                log(t(), "ivf-full done")
+        launches = DEVICE_PROFILE.launches()
+        log("launches on the IVF main path: " + json.dumps(
+            {f: launches.get(f, 0) for f in IVF_PATH_FAMILIES}))
+        if on_card and "ivf-full" in phases:
+            for fam in IVF_PATH_FAMILIES:
+                check(launches.get(fam, 0) > 0,
+                      f"{fam} was never launched on the main path")
+            if "kernels" in phases:
+                rows += phase_ivf_kernels(torch, irec, launches)
+                log(t(), "ivf kernels done")
+        del irec
+        PLANES.clear()
+        if on_card and {"full", "knn-full", "dense-full", "ivf-full",
                         "kernels"} <= phases:
             from elasticsearch_tpu_torch.search.device_profile import (
-                KERNEL_FAMILIES,
+                KERNEL_FAMILIES, MASKED_VARIANTS,
             )
-            check({r["name"] for r in rows} == set(KERNEL_FAMILIES),
+            check({r["name"] for r in rows} ==
+                  set(KERNEL_FAMILIES) | set(MASKED_VARIANTS),
                   "kernels: the line does not list every kernel family")
         log(json.dumps({"kernels": rows}))
     except SmokeFailure as e:

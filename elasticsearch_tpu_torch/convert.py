@@ -3,7 +3,8 @@
 The system has no weights: its state is the index. Segments written by
 either package are the same numpy arrays and Python lists (the on-disk
 formats under ``index/`` are shared copies), so conversion is a field-by-
-field copy into this package's classes. The reference objects are read
+field copy into this package's classes; an IVF index is its five arrays,
+moved onto a device. The reference objects are read
 duck-typed — their arrays, dicts and lists only — and nothing of the JAX
 package is imported.
 """
@@ -61,3 +62,24 @@ def segments_from_reference(segments: Iterable[Any]) -> List[Segment]:
         seg.invalidate_live_count()
         out.append(seg)
     return out
+
+
+def ivf_from_reference(centroids, lists, valid, ids, norms, similarity: str,
+                       device=None):
+    """This package's ``IVFIndex`` holding the given arrays of a reference
+    IVF index (numpy, or anything ``np.asarray`` reads): centroids
+    [nlist, D] f32, lists [nlist, L, D] f32, valid [nlist, L] bool, ids
+    [nlist, L] int32 and norms [nlist, L] f32, on ``device``. The search
+    can then be held against the reference's on the very same index,
+    apart from the build."""
+    import torch
+
+    from elasticsearch_tpu_torch.device import resolve_device
+    from elasticsearch_tpu_torch.ops.ivf import IVFIndex
+    dev = resolve_device(device)
+
+    def put(a, dtype):
+        return torch.as_tensor(np.array(a, dtype=dtype), device=dev)
+    return IVFIndex(put(centroids, np.float32), put(lists, np.float32),
+                    put(valid, bool), put(ids, np.int32), similarity,
+                    put(norms, np.float32))

@@ -1,12 +1,14 @@
 // knn_coarse: the int8 coarse pass of the quantized kNN tier.
 //
-// Replaces elasticsearch_tpu/ops/knn.py:184 `knn_coarse_candidates` (body
-// `_coarse_plane`, ops/knn.py:169): the queries, quantized per row to
-// symmetric int8 on the host (qq, qscale), times the plane's int8 mirror
-// q8 [N_pad, D] with an int32 sum, rescaled as dots * (qscale * scales),
-// then the similarity transform with the f32 queries' qn / q2, the mask
-// allowed = live & exists, and the top-k' candidates (coarse scores,
-// doc ids) per query under (score desc, index asc).
+// Replaces elasticsearch_tpu/ops/knn.py:184 `knn_coarse_candidates` and
+// :199 `knn_coarse_candidates_masked` (body `_coarse_plane`,
+// ops/knn.py:169): the queries, quantized per row to symmetric int8 on
+// the host (qq, qscale), times the plane's int8 mirror q8 [N_pad, D] with
+// an int32 sum, rescaled as dots * (qscale * scales), then the similarity
+// transform with the f32 queries' qn / q2, the mask allowed = live &
+// exists (ANDed with the query's filter row masks[b, :] when a [B, N_pad]
+// stack is given), and the top-k' candidates (coarse scores, doc ids) per
+// query under (score desc, index asc).
 //
 // What bounds it on the H100: memory. It reads the int8 mirror once
 // (134.2 MB at 1,048,576 x 128) plus scales, norms and the mask: 0.043 ms
@@ -51,10 +53,10 @@ template <int QB>
 __global__ void __launch_bounds__(THREADS) coarse_scores_kernel(
     const int8_t* __restrict__ q8, const float* __restrict__ scales,
     const float* __restrict__ norms, const uint8_t* __restrict__ allowed,
-    const int8_t* __restrict__ qq, const float* __restrict__ qscale,
-    const float* __restrict__ qn, const float* __restrict__ q2, int n_q,
-    int dims, long long n_docs_pad, long long tile0, int sim,
-    float* __restrict__ plane) {
+    const uint8_t* __restrict__ masks, const int8_t* __restrict__ qq,
+    const float* __restrict__ qscale, const float* __restrict__ qn,
+    const float* __restrict__ q2, int n_q, int dims, long long n_docs_pad,
+    long long tile0, int sim, float* __restrict__ plane) {
     __shared__ int ms[DW][TILE + 1];
     __shared__ int qs[QB][DW];
     const int t = threadIdx.x;
@@ -110,20 +112,22 @@ __global__ void __launch_bounds__(THREADS) coarse_scores_kernel(
         for (int r = 0; r < RD; ++r) {
             const long long doc = doc0 + t + r * THREADS;
             if (doc >= n_docs_pad) continue;
+            const long long cell = (long long)qi * n_docs_pad + doc;
             float s = -INFINITY;
-            if (allowed[doc]) {
+            if (allowed[doc] && (masks == nullptr || masks[cell])) {
                 const float dot = __fmul_rn(__int2float_rn(acc[q][r]),
                                             __fmul_rn(qsc, scales[doc]));
                 s = similarity(dot, norms[doc], qnv, q2v, sim);
             }
-            plane[(long long)qi * n_docs_pad + doc] = s;
+            plane[cell] = s;
         }
     }
 }
 
 template <int QB>
 int launch_scores(const int8_t* q8, const float* scales, const float* norms,
-                  const uint8_t* allowed, const int8_t* qq,
+                  const uint8_t* allowed, const uint8_t* masks,
+                  const int8_t* qq,
                   const float* qscale, const float* qn, const float* q2,
                   int n_q, int dims, long long n_docs_pad, int sim,
                   float* plane, cudaStream_t stream) {
@@ -133,9 +137,10 @@ int launch_scores(const int8_t* q8, const float* scales, const float* norms,
         const long long nt =
             tiles - tile0 < MAX_TILES_Y ? tiles - tile0 : MAX_TILES_Y;
         coarse_scores_kernel<QB><<<dim3(groups, (unsigned)nt), THREADS, 0,
-                                   stream>>>(q8, scales, norms, allowed, qq,
-                                             qscale, qn, q2, n_q, dims,
-                                             n_docs_pad, tile0, sim, plane);
+                                   stream>>>(q8, scales, norms, allowed,
+                                             masks, qq, qscale, qn, q2, n_q,
+                                             dims, n_docs_pad, tile0, sim,
+                                             plane);
         const cudaError_t err = cudaGetLastError();
         if (err != cudaSuccess) return (int)err;
     }
@@ -144,12 +149,14 @@ int launch_scores(const int8_t* q8, const float* scales, const float* norms,
 
 }  // namespace
 
-// plane: [n_q, n_docs_pad] f32 scratch; chunk_s/chunk_i: n_q *
+// masks: [n_q, n_docs_pad] per-query filter rows, or nullptr; plane:
+// [n_q, n_docs_pad] f32 scratch; chunk_s/chunk_i: n_q *
 // ceil(n_docs_pad / CHUNK) * kprime entries; out_s/out_d: [n_q, kprime].
 extern "C" int knn_coarse_launch(
     const int8_t* q8, const float* scales, const float* norms,
-    const uint8_t* allowed, const int8_t* qq, const float* qscale,
-    const float* qn, const float* q2, int n_q, int dims, long long n_docs_pad,
+    const uint8_t* allowed, const uint8_t* masks, const int8_t* qq,
+    const float* qscale, const float* qn, const float* q2, int n_q, int dims,
+    long long n_docs_pad,
     int kprime, int sim, float* plane, float* chunk_s, int* chunk_i,
     float* out_s, int* out_d, void* stream_ptr) {
     if (n_q < 1 || dims < 1 || dims > MAX_DIMS || kprime < 1 ||
@@ -157,21 +164,20 @@ extern "C" int knn_coarse_launch(
         return (int)cudaErrorInvalidValue;
     cudaStream_t stream = (cudaStream_t)stream_ptr;
     int rc;
+#define KNN_COARSE_SCORES(QB)                                            \
+    launch_scores<QB>(q8, scales, norms, allowed, masks, qq, qscale, qn, \
+                      q2, n_q, dims, n_docs_pad, sim, plane, stream)
     if (n_q >= 16)
-        rc = launch_scores<16>(q8, scales, norms, allowed, qq, qscale, qn, q2,
-                               n_q, dims, n_docs_pad, sim, plane, stream);
+        rc = KNN_COARSE_SCORES(16);
     else if (n_q > 4)
-        rc = launch_scores<8>(q8, scales, norms, allowed, qq, qscale, qn, q2,
-                              n_q, dims, n_docs_pad, sim, plane, stream);
+        rc = KNN_COARSE_SCORES(8);
     else if (n_q > 2)
-        rc = launch_scores<4>(q8, scales, norms, allowed, qq, qscale, qn, q2,
-                              n_q, dims, n_docs_pad, sim, plane, stream);
+        rc = KNN_COARSE_SCORES(4);
     else if (n_q == 2)
-        rc = launch_scores<2>(q8, scales, norms, allowed, qq, qscale, qn, q2,
-                              n_q, dims, n_docs_pad, sim, plane, stream);
+        rc = KNN_COARSE_SCORES(2);
     else
-        rc = launch_scores<1>(q8, scales, norms, allowed, qq, qscale, qn, q2,
-                              n_q, dims, n_docs_pad, sim, plane, stream);
+        rc = KNN_COARSE_SCORES(1);
+#undef KNN_COARSE_SCORES
     if (rc != 0) return rc;
     return plane_topk(plane, n_q, n_docs_pad, kprime, chunk_s, chunk_i, out_s,
                       out_d, stream);

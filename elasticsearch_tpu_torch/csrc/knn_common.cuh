@@ -66,8 +66,8 @@ inline bool valid_sim(int sim) {
 }
 
 // 3. The scores pass shared by knn_flat (masked plane: -inf where the doc
-//    is not allowed) and knn_scores (dense row: 0 where the doc has no
-//    vector). One CTA scores a tile of TILE docs against a group of QB
+//    is not allowed, or where the query's own filter row excludes it) and
+//    knn_scores (dense row: 0 where the doc has no vector). One CTA scores a tile of TILE docs against a group of QB
 //    queries (QB = 1 .. 16, a power of two), staging DT dims of the tile
 //    at a time in shared memory; every thread owns RD docs x QB queries of
 //    f32 sums in registers and adds the products d = 0, 1, ... in order,
@@ -83,11 +83,14 @@ constexpr int SC_MAX_TILES_Y = 65535;         // gridDim.y limit
 
 // grid (query groups, doc tiles): plane[q, doc] for QB queries x TILE
 // docs. DENSE: plane[doc] = mask[doc] ? similarity : 0 (mask = exists);
-// else plane[q, doc] = mask[doc] ? similarity : -inf (mask = allowed).
+// else plane[q, doc] = mask[doc] & qmask[q, doc] ? similarity : -inf
+// (mask = allowed; qmask = the per-query filter rows [n_q, n_docs_pad],
+// nullptr when unfiltered).
 template <int QB, bool DENSE>
 __global__ void __launch_bounds__(SC_THREADS) vector_scores_kernel(
     const float* __restrict__ matrix, const float* __restrict__ norms,
-    const uint8_t* __restrict__ mask, const float* __restrict__ queries,
+    const uint8_t* __restrict__ mask, const uint8_t* __restrict__ qmask,
+    const float* __restrict__ queries,
     const float* __restrict__ qn, const float* __restrict__ q2, int n_q,
     int dims, long long n_docs_pad, long long tile0, int sim,
     float* __restrict__ plane) {
@@ -144,16 +147,18 @@ __global__ void __launch_bounds__(SC_THREADS) vector_scores_kernel(
         for (int r = 0; r < SC_RD; ++r) {
             const long long doc = doc0 + t + r * SC_THREADS;
             if (doc >= n_docs_pad) continue;
-            plane[(long long)qi * n_docs_pad + doc] =
-                mask[doc] ? similarity(acc[q][r], norms[doc], qnv, q2v, sim)
-                          : (DENSE ? 0.f : -INFINITY);
+            const long long cell = (long long)qi * n_docs_pad + doc;
+            const bool ok = mask[doc] && (qmask == nullptr || qmask[cell]);
+            plane[cell] = ok ? similarity(acc[q][r], norms[doc], qnv, q2v, sim)
+                             : (DENSE ? 0.f : -INFINITY);
         }
     }
 }
 
 template <int QB, bool DENSE>
 int launch_vector_scores(const float* matrix, const float* norms,
-                         const uint8_t* mask, const float* queries,
+                         const uint8_t* mask, const uint8_t* qmask,
+                         const float* queries,
                          const float* qn, const float* q2, int n_q, int dims,
                          long long n_docs_pad, int sim, float* plane,
                          cudaStream_t stream) {
@@ -164,8 +169,8 @@ int launch_vector_scores(const float* matrix, const float* norms,
             tiles - tile0 < SC_MAX_TILES_Y ? tiles - tile0 : SC_MAX_TILES_Y;
         vector_scores_kernel<QB, DENSE>
             <<<dim3(groups, (unsigned)nt), SC_THREADS, 0, stream>>>(
-                matrix, norms, mask, queries, qn, q2, n_q, dims, n_docs_pad,
-                tile0, sim, plane);
+                matrix, norms, mask, qmask, queries, qn, q2, n_q, dims,
+                n_docs_pad, tile0, sim, plane);
         const cudaError_t err = cudaGetLastError();
         if (err != cudaSuccess) return (int)err;
     }

@@ -1,10 +1,13 @@
 // knn_flat: exact batched kNN top-k over one vector matrix.
 //
-// Replaces elasticsearch_tpu/ops/knn.py:101 `knn_topk_batch` (body
-// `knn_topk_body`, ops/knn.py:84): queries [B, D] and the matrix
-// [N_pad, D] rounded to bf16, their [B, D] x [D, N_pad] product summed in
-// f32, the similarity transform, the mask allowed = live & exists (-inf
-// elsewhere), and the top-k per query under (score desc, index asc).
+// Replaces elasticsearch_tpu/ops/knn.py:101 `knn_topk_batch` and :113
+// `knn_topk_batch_masked` (body `knn_topk_body`, ops/knn.py:84): queries
+// [B, D] and the matrix [N_pad, D] rounded to bf16, their [B, D] x
+// [D, N_pad] product summed in f32, the similarity transform, the mask
+// allowed = live & exists, ANDed with the query's own filter row
+// masks[b, :] when a [B, N_pad] stack is given (-inf elsewhere), and the
+// top-k per query under (score desc, index asc). A masked row therefore
+// has the bits of the unmasked kernel run on allowed & masks[b].
 //
 // What bounds it on the H100: memory at the tensor cores' rate -- the f32
 // matrix is read once (536.9 MB at SIFT1M's 1,048,576 x 128), 0.16 ms at
@@ -25,12 +28,14 @@
 
 using namespace knn;
 
-// plane: [n_q, n_docs_pad] f32 scratch; chunk_s/chunk_i: n_q *
+// masks: [n_q, n_docs_pad] per-query filter rows, or nullptr; plane:
+// [n_q, n_docs_pad] f32 scratch; chunk_s/chunk_i: n_q *
 // ceil(n_docs_pad / CHUNK) * k entries; out_s/out_d: [n_q, k].
 extern "C" int knn_flat_launch(
     const float* matrix, const float* norms, const uint8_t* allowed,
-    const float* queries, const float* qn, const float* q2, int n_q,
-    int dims, long long n_docs_pad, int k, int sim, float* plane,
+    const uint8_t* masks, const float* queries, const float* qn,
+    const float* q2, int n_q, int dims, long long n_docs_pad, int k, int sim,
+    float* plane,
     float* chunk_s, int* chunk_i, float* out_s, int* out_d, void* stream_ptr) {
     if (n_q < 1 || dims < 1 || dims > MAX_DIMS || k < 1 || k > KMAX ||
         n_docs_pad < k || !valid_sim(sim))
@@ -38,9 +43,9 @@ extern "C" int knn_flat_launch(
     cudaStream_t stream = (cudaStream_t)stream_ptr;
     int rc;
 #define KNN_FLAT_SCORES(QB)                                              \
-    launch_vector_scores<QB, false>(matrix, norms, allowed, queries, qn, \
-                                    q2, n_q, dims, n_docs_pad, sim,      \
-                                    plane, stream)
+    launch_vector_scores<QB, false>(matrix, norms, allowed, masks,       \
+                                    queries, qn, q2, n_q, dims,          \
+                                    n_docs_pad, sim, plane, stream)
     if (n_q >= 16)
         rc = KNN_FLAT_SCORES(16);
     else if (n_q > 4)

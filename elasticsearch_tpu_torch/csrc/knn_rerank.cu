@@ -1,10 +1,12 @@
 // knn_rerank: the exact re-rank of the quantized kNN tier.
 //
-// Replaces elasticsearch_tpu/ops/knn.py:261 `knn_rerank_exact` (body
-// `knn_rerank_body`, ops/knn.py:230): sort each row's k' coarse
-// candidates by doc id (carrying their coarse scores), score each exactly
-// with knn_flat's arithmetic (bf16 operands, f32 sums in dim order, the
-// same transform), mask to allowed docs, take the top-k under (score
+// Replaces elasticsearch_tpu/ops/knn.py:261 `knn_rerank_exact` and :274
+// `knn_rerank_exact_masked` (body `knn_rerank_body`, ops/knn.py:230):
+// sort each row's k' coarse candidates by doc id (carrying their coarse
+// scores), score each exactly with knn_flat's arithmetic (bf16 operands,
+// f32 sums in dim order, the same transform), mask to allowed docs (and,
+// with a [B, N_pad] filter stack, to masks[b, cand] -- the JAX body's
+// take_along_axis(masks, cand_s)), take the top-k under (score
 // desc, position asc) -- after the sort, position order is doc-id order,
 // so a tie resolves to the lower doc exactly as in knn_flat -- with doc
 // id -1 where the score is -inf, and eps = max |exact - coarse| over the
@@ -34,10 +36,11 @@ constexpr int THREADS = 256;
 // ex[kprime] | bs[cap] | bi[cap].
 __global__ void __launch_bounds__(THREADS) rerank_kernel(
     const float* __restrict__ matrix, const float* __restrict__ norms,
-    const uint8_t* __restrict__ allowed, const float* __restrict__ queries,
-    const float* __restrict__ qn, const float* __restrict__ q2,
-    const int* __restrict__ cand, const float* __restrict__ coarse_s,
-    int dims, int kprime, int kp2, int k, int cap, int sim,
+    const uint8_t* __restrict__ allowed, const uint8_t* __restrict__ masks,
+    const float* __restrict__ queries, const float* __restrict__ qn,
+    const float* __restrict__ q2, const int* __restrict__ cand,
+    const float* __restrict__ coarse_s, long long n_docs_pad, int dims,
+    int kprime, int kp2, int k, int cap, int sim,
     float* __restrict__ out_s, int* __restrict__ out_d,
     float* __restrict__ eps) {
     extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -85,7 +88,9 @@ __global__ void __launch_bounds__(THREADS) rerank_kernel(
         for (int d = 0; d < dims; ++d)
             acc = __fmaf_rn(qv[d], bfr(row[d]), acc);
         const float s = similarity(acc, norms[doc], qnv, q2v, sim);
-        const bool ok = allowed[doc] != 0;
+        const bool ok = allowed[doc] != 0 &&
+                        (masks == nullptr ||
+                         masks[(long long)q * n_docs_pad + doc] != 0);
         ex[j] = ok ? s : -INFINITY;
         const float c = sc[j];
         if (ok && isfinite(c)) {
@@ -112,14 +117,17 @@ __global__ void __launch_bounds__(THREADS) rerank_kernel(
 
 }  // namespace
 
-// cand, coarse_s: [n_q, kprime]; out_s/out_d: [n_q, k]; eps: [n_q].
+// masks: [n_q, n_docs_pad] per-query filter rows, or nullptr; cand,
+// coarse_s: [n_q, kprime]; out_s/out_d: [n_q, k]; eps: [n_q].
 extern "C" int knn_rerank_launch(
     const float* matrix, const float* norms, const uint8_t* allowed,
-    const float* queries, const float* qn, const float* q2, const int* cand,
-    const float* coarse_s, int n_q, int dims, int kprime, int k, int sim,
+    const uint8_t* masks, const float* queries, const float* qn,
+    const float* q2, const int* cand, const float* coarse_s, int n_q,
+    long long n_docs_pad, int dims, int kprime, int k, int sim,
     float* out_s, int* out_d, float* eps, void* stream_ptr) {
-    if (n_q < 1 || dims < 1 || dims > MAX_DIMS || kprime < 1 ||
-        kprime > KMAX || k < 1 || k > kprime || !valid_sim(sim))
+    if (n_q < 1 || n_docs_pad < 1 || dims < 1 || dims > MAX_DIMS ||
+        kprime < 1 || kprime > KMAX || k < 1 || k > kprime ||
+        !valid_sim(sim))
         return (int)cudaErrorInvalidValue;
     cudaStream_t stream = (cudaStream_t)stream_ptr;
     int kp2 = 1;
@@ -130,7 +138,7 @@ extern "C" int knn_rerank_launch(
     cudaError_t err = set_smem((const void*)rerank_kernel, smem);
     if (err != cudaSuccess) return (int)err;
     rerank_kernel<<<n_q, THREADS, smem, stream>>>(
-        matrix, norms, allowed, queries, qn, q2, cand, coarse_s, dims, kprime,
-        kp2, k, cap, sim, out_s, out_d, eps);
+        matrix, norms, allowed, masks, queries, qn, q2, cand, coarse_s,
+        n_docs_pad, dims, kprime, kp2, k, cap, sim, out_s, out_d, eps);
     return (int)cudaGetLastError();
 }

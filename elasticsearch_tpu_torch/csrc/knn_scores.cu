@@ -29,7 +29,7 @@ extern "C" int knn_scores_launch(
     long long n_docs_pad, int sim, float* out, void* stream_ptr) {
     if (dims < 1 || dims > MAX_DIMS || n_docs_pad < 1 || !valid_sim(sim))
         return (int)cudaErrorInvalidValue;
-    return launch_vector_scores<1, true>(matrix, norms, exists, query, qn,
-                                         q2, 1, dims, n_docs_pad, sim, out,
+    return launch_vector_scores<1, true>(matrix, norms, exists, nullptr,
+                                         query, qn, q2, 1, dims, n_docs_pad, sim, out,
                                          (cudaStream_t)stream_ptr);
 }

@@ -21,9 +21,11 @@ rebased arrays are cached by segment uid) and charge the ``device``
 breaker before upload; the registry LRU-evicts cold planes, so a shard
 whose plane cannot fit degrades to the per-segment path.
 
-Rank_features and column planes, the mesh-sharded planes and the vector
-plane's IVF index are not part of this package yet: asking for one raises
-NotPortedError.
+The vector plane also carries the shard-level IVF index (``ops/ivf.py``),
+built on first use per plane generation and warm-started from the previous
+generation's centroids. Rank_features and column planes and the
+mesh-sharded planes are not part of this package yet: asking for one
+raises NotPortedError.
 """
 
 from __future__ import annotations
@@ -399,6 +401,17 @@ class PlaneVectors(PlanePart):
             exists[base: base + len(ex)] = ex
         self._q_dev: Optional[Tuple] = None
         self._q_failed = False
+        self._ivf = None
+        self._ivf_failed = False
+        # warm-start seed for this generation's k-means: the previous
+        # generation's trained centroids (an append-only refresh barely
+        # moves them, so Lloyd's converges in a fraction of the cold
+        # iterations instead of retraining from scratch)
+        self._ivf_seed = None
+        if prev is not None:
+            prev_ivf = getattr(prev, "_ivf", None)
+            if prev_ivf is not None and prev_ivf[0] is not None:
+                self._ivf_seed = prev_ivf[0].centroids.cpu().numpy()
         self.rows = np.nonzero(exists[: self.n_docs_total])[0] \
             .astype(np.int64)
         return (matrix, norms, exists)
@@ -439,9 +452,40 @@ class PlaneVectors(PlanePart):
         return self._q_dev
 
     def ivf_index(self, nlist: Optional[int]):
-        """The shard-level IVF index over the plane's vectors: not part of
-        this package yet."""
-        raise NotPortedError("knn_ivf")
+        """(index, rows): the shard-level IVF over the plane's vectors
+        (rows = plane doc ids holding a vector), built once per plane
+        generation and shared by the solo rewrite and the batched executor
+        so their ANN results cannot diverge; index None when no doc holds
+        a vector. A breaker-refused build is memoized for the plane's
+        lifetime (a new generation retries): re-running the full k-means
+        per query just to trip the breaker again would be the worst
+        possible degradation."""
+        if self._ivf is None:
+            if self._ivf_failed:
+                raise CircuitBreakingError(
+                    f"[device] ivf index for [{self.field}] was refused "
+                    f"by the device memory budget")
+            if not len(self.rows):
+                self._ivf = (None, self.rows)
+            else:
+                from elasticsearch_tpu_torch.ops.ivf import IVFIndex
+                host = self.matrix.cpu().numpy()[self.rows]
+                try:
+                    index = IVFIndex.build(
+                        host, nlist=nlist, similarity=self.similarity,
+                        init_centroids=self._ivf_seed, device=self.device)
+                except CircuitBreakingError:
+                    self._ivf_failed = True
+                    raise
+                if index.warm_started:
+                    PLANES.stats["ivf_warm_starts"] += 1
+                # the index's device memory is part of this plane's
+                # residency: eviction must release its charge early too,
+                # and stats must count it
+                self._charges.append(index._charge)
+                self.nbytes += index._charge.n_bytes
+                self._ivf = (index, self.rows)
+        return self._ivf
 
 
 _PART_CLASSES = {"postings": PlanePostings, "vectors": PlaneVectors}

@@ -1,23 +1,30 @@
 """Dense-vector kNN on the card: the exact batched top-k and the two
 passes of the quantized tier.
 
-The JAX package's ``ops/knn.py``, single-query, batched and unmasked
-programs. Four kernel families, each a hand-written CUDA kernel
+The JAX package's ``ops/knn.py``: the single-query, batched, masked and
+unmasked programs. Four kernel families, each a hand-written CUDA kernel
 (``csrc/<family>.cu``) behind a wrapper, with its plain PyTorch version
 beside it:
 
 - ``knn_flat`` (K5): queries x matrix in bf16 with f32 sums, the
-  similarity transform, the ``allowed`` mask and the top-k per query (at
-  one query it also serves the JAX package's ``knn_topk``);
+  similarity transform, the ``allowed`` mask (ANDed with each query's own
+  filter row when a ``[B, N_pad]`` mask stack is given: the JAX package's
+  ``knn_topk_batch_masked``) and the top-k per query (at one query it
+  also serves the JAX package's ``knn_topk``);
 - ``knn_coarse`` (K6): int8 queries x the plane's int8 mirror with int32
-  sums, rescaled, transformed and masked, the top-k' candidates;
+  sums, rescaled, transformed and masked (optionally per query), the
+  top-k' candidates;
 - ``knn_rerank`` (K7): the candidates sorted by doc id and re-scored with
-  K5's arithmetic, the top-k and ``eps`` = max |exact - coarse|;
+  K5's arithmetic, masked (optionally per query, at the candidates), the
+  top-k and ``eps`` = max |exact - coarse|;
 - ``knn_scores`` (K9): one query's dense similarity row with K5's
   arithmetic, 0 at missing vectors (``vector_scores``: ``script_score``).
 
 A wrapper launches its kernel for CUDA tensors and runs the plain version
-for CPU tensors; there is no fallback between the two. Each dot product is
+for CPU tensors; there is no fallback between the two. A call with a mask
+stack is profiled as ``<family>_masked``: one launch of the same kernel
+with one more operand, counted apart so a run can tell filtered launches
+from unfiltered ones. Each dot product is
 summed in f32 in dimension order, one query-doc pair at a time (the
 product of two bf16 values is exact in f32, so an FMA changes nothing),
 and every transform op is one rounded f32 op: kernel and plain version
@@ -35,8 +42,6 @@ Scores use the transforms ES applies to keep them positive:
   cosine:      (1 + cos) / 2
   dot_product: 0.5 + dot / 2
   l2_norm:     1 / (1 + dist)
-
-The masked (filtered) programs are not part of this package yet.
 """
 
 from __future__ import annotations
@@ -75,6 +80,15 @@ def pad_queries_pow2(queries) -> Tuple[np.ndarray, int]:
             [q_host, np.zeros((n_pad - n_real, q_host.shape[1]),
                               np.float32)])
     return q_host, n_real
+
+
+def pad_mask_rows_pow2(masks, n_pad: int) -> np.ndarray:
+    """Stacked per-query filter masks padded to the query batch's pow2
+    row count; padded rows stay False (they match nothing)."""
+    m = np.asarray(masks)
+    out = np.zeros((n_pad, m.shape[1]), bool)
+    out[: m.shape[0]] = m
+    return out
 
 
 def query_norms(q_host: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
@@ -163,15 +177,23 @@ def _flat_dots(matrix, queries) -> torch.Tensor:
     acc = torch.zeros(n_q, matrix.shape[0], dtype=torch.float32,
                       device=matrix.device)
     for d in range(dims):           # f32 sums in dimension order
-        acc = acc + qb[:, d:d + 1] * cols[d][None, :]
+        # in place; the product of two bf16 values is exact in f32, so
+        # this rounds once, as a multiply then an add would
+        acc.addcmul_(qb[:, d:d + 1], cols[d][None, :])
     return acc
 
 
+def _row_mask(allowed, masks):
+    """[1 or B, N_pad] eligibility: ``allowed`` ANDed with the per-query
+    filter rows when a stack is given."""
+    return allowed[None, :] if masks is None else allowed[None, :] & masks
+
+
 def knn_flat_plain(matrix, norms, allowed, queries, qn, q2, k: int,
-                   similarity: str = "cosine"):
+                   similarity: str = "cosine", masks=None):
     s = _similarity(_flat_dots(matrix, queries), norms[None, :], qn, q2,
                     similarity)
-    s = torch.where(allowed[None, :], s, _neg_inf(s))
+    s = torch.where(_row_mask(allowed, masks), s, _neg_inf(s))
     return stable_topk(s, k)
 
 
@@ -183,7 +205,7 @@ def vector_scores_plain(matrix, norms, exists, query, qn, q2,
 
 
 def knn_coarse_plain(q8, scales, norms, allowed, qq, qscale, qn, q2,
-                     kprime: int, similarity: str = "cosine"):
+                     kprime: int, similarity: str = "cosine", masks=None):
     n_q, dims = qq.shape
     qi = qq.to(torch.int32)
     cols = q8.t().to(torch.int32).contiguous()          # [D, N_pad]
@@ -194,12 +216,13 @@ def knn_coarse_plain(q8, scales, norms, allowed, qq, qscale, qn, q2,
     del cols
     dots = acc.float() * (qscale[:, None] * scales[None, :])
     s = _similarity(dots, norms[None, :], qn, q2, similarity)
-    s = torch.where(allowed[None, :], s, _neg_inf(s))
+    s = torch.where(_row_mask(allowed, masks), s, _neg_inf(s))
     return stable_topk(s, kprime)
 
 
 def knn_rerank_plain(matrix, norms, allowed, queries, qn, q2, cand,
-                     coarse_s, k: int, similarity: str = "cosine"):
+                     coarse_s, k: int, similarity: str = "cosine",
+                     masks=None):
     order = torch.argsort(cand, dim=1, stable=True)
     cand_s = torch.gather(cand, 1, order)
     cs_s = torch.gather(coarse_s, 1, order)
@@ -211,6 +234,8 @@ def knn_rerank_plain(matrix, norms, allowed, queries, qn, q2, cand,
         acc = acc + qb[:, d:d + 1] * rows[:, :, d]
     s = _similarity(acc, norms[idx], qn, q2, similarity)
     ok = allowed[idx]
+    if masks is not None:
+        ok = ok & torch.gather(masks, 1, idx)
     ts, pos = stable_topk(torch.where(ok, s, _neg_inf(s)), k)
     td = torch.gather(cand_s, 1, pos.long())
     td = torch.where(torch.isfinite(ts), td, torch.full_like(td, -1))
@@ -225,9 +250,9 @@ def knn_rerank_plain(matrix, norms, allowed, queries, qn, q2, cand,
 # ---------------------------------------------------------------------------
 
 _SIG = {
-    "knn_flat": ["p"] * 6 + ["i", "i", "ll", "i", "i"] + ["p"] * 6,
-    "knn_coarse": ["p"] * 8 + ["i", "i", "ll", "i", "i"] + ["p"] * 6,
-    "knn_rerank": ["p"] * 8 + ["i"] * 5 + ["p"] * 4,
+    "knn_flat": ["p"] * 7 + ["i", "i", "ll", "i", "i"] + ["p"] * 6,
+    "knn_coarse": ["p"] * 9 + ["i", "i", "ll", "i", "i"] + ["p"] * 6,
+    "knn_rerank": ["p"] * 9 + ["i", "ll"] + ["i"] * 4 + ["p"] * 4,
     "knn_scores": ["p"] * 6 + ["i", "ll", "i"] + ["p"] * 2,
 }
 
@@ -265,6 +290,20 @@ def _check_k(name: str, k: int, n: int) -> None:
         raise ValueError(f"{name}={k} outside [1, {min(KMAX, n)}]")
 
 
+def _check_masks(masks, n_q: int, n_pad: int) -> None:
+    if masks is not None:
+        _check("masks", masks, torch.bool, (n_q, n_pad))
+
+
+def _opt_ptr(t) -> int:
+    """The pointer of an optional operand (0, a null pointer, for None)."""
+    return 0 if t is None else _ptr(t)
+
+
+def _family(name: str, masks) -> str:
+    return name if masks is None else f"{name}_masked"
+
+
 def _topk_scratch(n_q: int, n_docs_pad: int, k: int, dev):
     nc = -(-n_docs_pad // CHUNK)
     ck = n_q * nc * k if nc > 1 else 1
@@ -276,42 +315,47 @@ def _topk_scratch(n_q: int, n_docs_pad: int, k: int, dev):
 
 
 def knn_flat(matrix, norms, allowed, queries, qn, q2, k: int,
-             similarity: str = "cosine"):
+             similarity: str = "cosine", masks=None):
     """K5. Exact batched kNN top-k: (scores [B, k] f32, docs [B, k]
     int32) of queries [B, D] f32 against matrix [N_pad, D] f32 (both
-    rounded to bf16, f32 sums), masked to ``allowed`` [N_pad] bool."""
-    cuda = _on_cuda(matrix, norms, allowed, queries, qn, q2)
+    rounded to bf16, f32 sums), masked to ``allowed`` [N_pad] bool and,
+    when given, to each query's row of ``masks`` [B, N_pad] bool."""
+    cuda = _on_cuda(matrix, norms, allowed, queries, qn, q2,
+                    *([] if masks is None else [masks]))
     n_pad, dims = _check_rows("matrix", matrix, torch.float32)
     n_q, q_dims = _check_rows("queries", queries, torch.float32)
     if q_dims != dims:
         raise ValueError(f"queries have {q_dims} dims, the matrix {dims}")
     _check("norms", norms, torch.float32, (n_pad,))
     _check("allowed", allowed, torch.bool, (n_pad,))
+    _check_masks(masks, n_q, n_pad)
     _check_query_terms(qn, q2, n_q)
     _check_k("k", k, n_pad)
-    with DEVICE_PROFILE.call("knn_flat",
+    with DEVICE_PROFILE.call(_family("knn_flat", masks),
                              f"n_docs_pad={n_pad}/dims={dims}/n_q={n_q}/k={k}",
                              cuda):
         if not cuda:
             return knn_flat_plain(matrix, norms, allowed, queries, qn, q2,
-                                  k, similarity)
+                                  k, similarity, masks)
         plane, chunk_s, chunk_i, s, d = _topk_scratch(n_q, n_pad, k,
                                                       matrix.device)
         _launch("knn_flat", _ptr(matrix), _ptr(norms), _ptr(allowed),
-                _ptr(queries), _ptr(qn), _ptr(q2), n_q, dims, n_pad, k,
+                _opt_ptr(masks), _ptr(queries), _ptr(qn), _ptr(q2), n_q, dims, n_pad, k,
                 _sim_code(similarity), _ptr(plane), _ptr(chunk_s),
                 _ptr(chunk_i), _ptr(s), _ptr(d), _stream())
         return s, d
 
 
 def knn_coarse(q8, scales, norms, allowed, qq, qscale, qn, q2, kprime: int,
-               similarity: str = "cosine"):
+               similarity: str = "cosine", masks=None):
     """K6. The quantized coarse pass: (coarse scores [B, k'] f32,
     candidate docs [B, k'] int32) of the int8 queries ``qq`` [B, D] (scale
     ``qscale`` [B]) against the int8 mirror ``q8`` [N_pad, D] (scale
     ``scales`` [N_pad]), int32 sums rescaled by qscale * scales, the
-    transform with the f32 queries' ``qn``/``q2``, masked to ``allowed``."""
-    cuda = _on_cuda(q8, scales, norms, allowed, qq, qscale, qn, q2)
+    transform with the f32 queries' ``qn``/``q2``, masked to ``allowed``
+    (and to each query's row of ``masks`` [B, N_pad] when given)."""
+    cuda = _on_cuda(q8, scales, norms, allowed, qq, qscale, qn, q2,
+                    *([] if masks is None else [masks]))
     n_pad, dims = _check_rows("q8", q8, torch.int8)
     n_q, q_dims = _check_rows("qq", qq, torch.int8)
     if q_dims != dims:
@@ -320,19 +364,20 @@ def knn_coarse(q8, scales, norms, allowed, qq, qscale, qn, q2, kprime: int,
     _check("norms", norms, torch.float32, (n_pad,))
     _check("allowed", allowed, torch.bool, (n_pad,))
     _check("qscale", qscale, torch.float32, (n_q,))
+    _check_masks(masks, n_q, n_pad)
     _check_query_terms(qn, q2, n_q)
     _check_k("kprime", kprime, n_pad)
     with DEVICE_PROFILE.call(
-            "knn_coarse",
+            _family("knn_coarse", masks),
             f"n_docs_pad={n_pad}/dims={dims}/n_q={n_q}/kprime={kprime}",
             cuda):
         if not cuda:
             return knn_coarse_plain(q8, scales, norms, allowed, qq, qscale,
-                                    qn, q2, kprime, similarity)
+                                    qn, q2, kprime, similarity, masks)
         plane, chunk_s, chunk_i, cs, cand = _topk_scratch(n_q, n_pad, kprime,
                                                           q8.device)
         _launch("knn_coarse", _ptr(q8), _ptr(scales), _ptr(norms),
-                _ptr(allowed), _ptr(qq), _ptr(qscale), _ptr(qn), _ptr(q2),
+                _ptr(allowed), _opt_ptr(masks), _ptr(qq), _ptr(qscale), _ptr(qn), _ptr(q2),
                 n_q, dims, n_pad, kprime, _sim_code(similarity), _ptr(plane),
                 _ptr(chunk_s), _ptr(chunk_i), _ptr(cs), _ptr(cand),
                 _stream())
@@ -340,19 +385,23 @@ def knn_coarse(q8, scales, norms, allowed, qq, qscale, qn, q2, kprime: int,
 
 
 def knn_rerank(matrix, norms, allowed, queries, qn, q2, cand, coarse_s,
-               k: int, similarity: str = "cosine"):
+               k: int, similarity: str = "cosine", masks=None):
     """K7. The exact re-rank of the coarse candidates: (scores [B, k] f32,
     docs [B, k] int32 with -1 where the score is -inf, eps [B] f32).
     Candidates are sorted by doc id first, so a score tie resolves to the
     lower doc exactly as in ``knn_flat``, and each candidate's score has
-    ``knn_flat``'s bits for that doc."""
-    cuda = _on_cuda(matrix, norms, allowed, queries, qn, q2, cand, coarse_s)
+    ``knn_flat``'s bits for that doc. With ``masks`` [B, N_pad], a
+    candidate outside its query's filter row is excluded even if the
+    coarse pass let it in."""
+    cuda = _on_cuda(matrix, norms, allowed, queries, qn, q2, cand, coarse_s,
+                    *([] if masks is None else [masks]))
     n_pad, dims = _check_rows("matrix", matrix, torch.float32)
     n_q, q_dims = _check_rows("queries", queries, torch.float32)
     if q_dims != dims:
         raise ValueError(f"queries have {q_dims} dims, the matrix {dims}")
     _check("norms", norms, torch.float32, (n_pad,))
     _check("allowed", allowed, torch.bool, (n_pad,))
+    _check_masks(masks, n_q, n_pad)
     _check_query_terms(qn, q2, n_q)
     if cand.dim() != 2 or cand.shape[0] != n_q:
         raise ValueError(f"[cand] must be [{n_q}, k'], got "
@@ -363,19 +412,20 @@ def knn_rerank(matrix, norms, allowed, queries, qn, q2, cand, coarse_s,
     if not 1 <= k <= kprime <= KMAX:
         raise ValueError(f"need 1 <= k={k} <= kprime={kprime} <= {KMAX}")
     with DEVICE_PROFILE.call(
-            "knn_rerank",
+            _family("knn_rerank", masks),
             f"n_docs_pad={n_pad}/dims={dims}/n_q={n_q}/kprime={kprime}/k={k}",
             cuda):
         if not cuda:
             return knn_rerank_plain(matrix, norms, allowed, queries, qn, q2,
-                                    cand, coarse_s, k, similarity)
+                                    cand, coarse_s, k, similarity, masks)
         dev = matrix.device
         s = torch.empty(n_q, k, dtype=torch.float32, device=dev)
         d = torch.empty(n_q, k, dtype=torch.int32, device=dev)
         eps = torch.empty(n_q, dtype=torch.float32, device=dev)
         _launch("knn_rerank", _ptr(matrix), _ptr(norms), _ptr(allowed),
-                _ptr(queries), _ptr(qn), _ptr(q2), _ptr(cand),
-                _ptr(coarse_s), n_q, dims, kprime, k, _sim_code(similarity),
+                _opt_ptr(masks), _ptr(queries), _ptr(qn), _ptr(q2),
+                _ptr(cand), _ptr(coarse_s), n_q, n_pad, dims, kprime, k,
+                _sim_code(similarity),
                 _ptr(s), _ptr(d), _ptr(eps), _stream())
         return s, d, eps
 
@@ -418,6 +468,15 @@ def knn_topk_batch(matrix, norms, exists, live, batch: QueryBatch, k: int,
                     batch.q2, k, similarity)
 
 
+def knn_topk_batch_masked(matrix, norms, exists, live, batch: QueryBatch,
+                          masks, k: int, similarity: str = "cosine"):
+    """Filtered batched exact kNN (``knn_topk_batch_masked``): per-query
+    filter masks [B_pad, N_pad] ride the same launch; (scores [B_pad, k],
+    docs [B_pad, k])."""
+    return knn_flat(matrix, norms, live & exists, batch.queries, batch.qn,
+                    batch.q2, k, similarity, masks)
+
+
 def knn_coarse_candidates(q8, scales, norms, allowed, batch: QueryBatch,
                           kprime: int, similarity: str = "cosine"):
     """The quantized coarse pass over the full plane
@@ -430,6 +489,16 @@ def knn_coarse_candidates(q8, scales, norms, allowed, batch: QueryBatch,
                       batch.q2, kprime, similarity)
 
 
+def knn_coarse_candidates_masked(q8, scales, norms, allowed,
+                                 batch: QueryBatch, masks, kprime: int,
+                                 similarity: str = "cosine"):
+    """The coarse pass with per-query filter masks [B_pad, N_pad]
+    (``knn_coarse_candidates_masked``)."""
+    qq, qscale = batch.quantized()
+    return knn_coarse(q8, scales, norms, allowed, qq, qscale, batch.qn,
+                      batch.q2, kprime, similarity, masks)
+
+
 def knn_rerank_exact(matrix, norms, allowed, batch: QueryBatch, cand,
                      coarse_s, k: int, similarity: str = "cosine"):
     """Exact re-rank of the coarse candidates (``knn_rerank_exact``):
@@ -437,6 +506,16 @@ def knn_rerank_exact(matrix, norms, allowed, batch: QueryBatch, cand,
     coarse pass, which the caller proves from ``eps``."""
     return knn_rerank(matrix, norms, allowed, batch.queries, batch.qn,
                       batch.q2, cand, coarse_s, k, similarity)
+
+
+def knn_rerank_exact_masked(matrix, norms, allowed, batch: QueryBatch,
+                            cand, coarse_s, masks, k: int,
+                            similarity: str = "cosine"):
+    """``knn_rerank_exact`` with the per-query filter masks re-applied at
+    the candidates (``knn_rerank_exact_masked``): a masked-out doc stays
+    out even if the coarse pass let it in."""
+    return knn_rerank(matrix, norms, allowed, batch.queries, batch.qn,
+                      batch.q2, cand, coarse_s, k, similarity, masks)
 
 
 def knn_topk(matrix, norms, exists, live, query, k: int,
@@ -457,12 +536,29 @@ class KnnExecutor:
     def __init__(self, device_vectors):
         self.dev = device_vectors
 
-    def top_k_batch(self, queries, live, k: int):
+    def top_k_batch(self, queries, live, k: int, masks=None):
         """Batched exact kNN over Q query vectors: ONE launch instead of Q.
         The query rows pad to a pow2 bucket (as in the JAX package, so both
-        make the same dispatches); padded rows come back sliced off. The
-        filter masks of filtered kNN are not part of this package yet."""
-        batch = QueryBatch(queries, self.dev.matrix.device)
+        make the same dispatches); padded rows come back sliced off.
+
+        ``masks`` carries the filter context of filtered kNN: a single
+        [N_pad] bool mask shared by every query (it folds into ``live``,
+        exactly as the solo path's ``live & fmask``: one unmasked launch),
+        or a [Q, N_pad] stack of per-query masks (numpy or a tensor),
+        applied inside the one masked launch; padded rows match nothing."""
+        dev = self.dev.matrix.device
+        batch = QueryBatch(queries, dev)
+        if masks is not None and getattr(masks, "ndim", 1) == 2:
+            m_host = pad_mask_rows_pow2(
+                masks.cpu().numpy() if isinstance(masks, torch.Tensor)
+                else masks, batch.queries.shape[0])
+            s, d = knn_topk_batch_masked(
+                self.dev.matrix, self.dev.norms, self.dev.exists, live,
+                batch, torch.as_tensor(m_host, device=dev), k,
+                self.dev.similarity)
+            return s[: batch.n_real], d[: batch.n_real]
+        if masks is not None:
+            live = live & masks                   # shared filter mask
         s, d = knn_topk_batch(self.dev.matrix, self.dev.norms,
                               self.dev.exists, live, batch, k,
                               self.dev.similarity)

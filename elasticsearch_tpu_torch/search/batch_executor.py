@@ -279,13 +279,19 @@ def batched_wand_topk_shard(ctxs, field: str,
 
 def batched_knn_shard(ctxs, field: str, specs: List[BatchSpec],
                       k: int, check_members: Optional[Callable[[], None]]
-                      = None) -> List[Tuple]:
+                      = None, stats: Optional[Dict[str, float]] = None
+                      ) -> List[Tuple]:
     """Q kNN queries through THE kNN executor (execute.knn_shard_winners
     -- the same call-site the solo rewrite is, with Q>1), demuxed to the
-    dense collector's candidates/totals shape."""
+    dense collector's candidates/totals shape. A resident plane may
+    raise PlaneFallback (IVF-routed members whose num_candidates imply
+    different probe widths); the per-segment routing batches the probe
+    per derived width and never falls back. ``stats`` gathers the
+    filter-mask counters (``filter_mask_reuses``,
+    ``knn_shared_mask_segments``)."""
     from elasticsearch_tpu_torch.search.execute import knn_shard_winners
     per_member_hits = knn_shard_winners(ctxs, field, specs, k,
-                                        check_members)
+                                        check_members, stats)
     return _knn_demux(specs, per_member_hits, k)
 
 

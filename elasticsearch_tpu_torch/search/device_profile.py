@@ -4,7 +4,10 @@ Every kernel wrapper under ``ops/`` reports each call here, by family
 (``KERNEL_FAMILIES``: ``bm25_flat``, ``bm25_flat_seg``, ``bm25_coarse``,
 ``bm25_rerank``, ``bm25_scores`` in ``ops/bm25.py``; ``knn_flat``,
 ``knn_coarse``, ``knn_rerank``, ``knn_scores`` in ``ops/knn.py``;
-``dense_topk`` in ``ops/topk.py``):
+``dense_topk`` in ``ops/topk.py``; ``ivf_assign``, ``ivf_update``,
+``ivf_init``, ``ivf_search`` in ``ops/ivf.py``), and the launches of
+K5-K7 with a per-query mask stack apart from the others, as
+``MASKED_VARIANTS``:
 
 - ``launches``: how many times the wrapper launched its CUDA kernel. A
   call on CPU tensors runs the plain PyTorch version and is not a launch.
@@ -32,7 +35,12 @@ from elasticsearch_tpu_torch.search import telemetry
 # every kernel family, one per csrc/<family>.cu
 KERNEL_FAMILIES = ("bm25_flat", "bm25_flat_seg", "bm25_coarse", "bm25_rerank",
                    "knn_flat", "knn_coarse", "knn_rerank", "bm25_scores",
-                   "knn_scores", "dense_topk")
+                   "knn_scores", "dense_topk", "ivf_assign", "ivf_update",
+                   "ivf_init", "ivf_search")
+# the masked launches of knn_flat / knn_coarse / knn_rerank (the same
+# kernels with a [B, N_pad] filter-mask operand), counted under these names
+MASKED_VARIANTS = ("knn_flat_masked", "knn_coarse_masked",
+                   "knn_rerank_masked")
 # per-family bound on the shape-bucket map (labels derive from shapes)
 MAX_BUCKETS_PER_FAMILY = 256
 # per-family bound on unresolved CUDA-event pairs

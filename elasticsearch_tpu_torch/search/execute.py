@@ -8,14 +8,16 @@ ids/prefix/wildcard/regexp/fuzzy) build their masks on the host from
 columnar doc values -- the cacheable "filter context" -- while scoring
 clauses run the kernels: ``match`` and the phrase family K8
 (``bm25_block_scores``), ``script_score``'s vector functions K9
-(``vector_scores``), ``knn`` the kNN executor (K5-K7).
+(``vector_scores``), ``knn`` the kNN executor (exact: K5-K7, masked
+per query for a filtered ``knn``; approximate: the IVF probe K14 on
+segments or planes the JAX package routes to its IVF index).
 
 Served nodes: match_all, match_none, match, multi_match, match_phrase,
 match_phrase_prefix, term, terms, range, exists, ids, prefix, wildcard,
 regexp, fuzzy, bool, constant_score, dis_max, boosting, knn (top-level or
 inside a compound query) and script_score with cosineSimilarity /
 dotProduct / l2norm. Any other node raises NotPortedError naming it
-(``dense_query:<Node>``); so do filtered kNN and the IVF route.
+(``dense_query:<Node>``).
 
 The glue between kernels is plain PyTorch, one rounded f32 op at a time
 as the JAX package's eager ops run, and sums of several rows are taken
@@ -909,45 +911,108 @@ class KnnBound(dsl.Query):
 ANN_DEFAULT_MIN_DOCS = 65536
 
 
-def ann_segment_route(ctx: "SegmentContext", field: str) -> None:
+def ann_segment_route(ctx: "SegmentContext", field: str, k: int,
+                      num_candidates: int, filtered: bool = False
+                      ) -> Optional[Tuple]:
     """IVF routing decision for one segment, shared by the solo kNN
-    rewrite and the batched executor: returns (the exact brute-force path
-    serves: a small segment, an index type other than ivf, no vector
-    column) unless the JAX package would probe the segment's IVF index,
-    which is not part of this package yet: NotPortedError("knn_ivf"). A
-    segment that holds no vectors is answered with no hits either way, so
-    it takes the exact path."""
+    rewrite and the batched executor so they cannot diverge.
+
+    None = take the exact brute-force path (small segment, filtered
+    query, unknown index type, or no vector column). Otherwise
+    (index, rows, oversample, nprobe) -- with index None when the field
+    is mapped but this segment holds zero vectors (no hits)."""
+    if filtered:
+        return None       # filtered kNN stays exact (correctness first)
     seg = ctx.segment
     vf = seg.vectors.get(field)
     if vf is None:
-        return
+        return None
     mapper = ctx.mappers.mapper(field)
     opts = getattr(mapper, "index_options", None) or {}
     wants_ivf = opts.get("type") == "ivf"
     if not wants_ivf and seg.n_docs < ANN_DEFAULT_MIN_DOCS:
-        return
+        return None
     if opts.get("type") not in (None, "ivf"):
-        return            # another index type (e.g. flat): exact
-    if vf.exists.any():
-        raise NotPortedError("knn_ivf")
+        return None       # unknown index type: exact
+    from elasticsearch_tpu_torch.ops.ivf import IVFIndex
+
+    def build():
+        rows = np.nonzero(vf.exists)[0]
+        if len(rows) == 0:
+            return None, rows.astype(np.int64)
+        index = IVFIndex.build(vf.matrix[rows],
+                               nlist=opts.get("nlist"),
+                               similarity=vf.similarity,
+                               device=ctx.device)
+        return index, rows.astype(np.int64)
+    from elasticsearch_tpu_torch.indices.breaker import BREAKERS
+    from elasticsearch_tpu_torch.utils.errors import CircuitBreakingError
+    # budget refusals memoize under the breaker limit they were refused
+    # at (the plane registry's budget-token pattern): no re-paying the
+    # full k-means per query just to re-trip, but a raised limit retries
+    budget_token = BREAKERS.breaker("device").limit
+    refused_key = ("ivf_refused", field, str(ctx.device))
+    if seg._device_cache.get(refused_key) == budget_token:
+        return None
+    try:
+        index, rows = seg.device(("ivf", field, str(ctx.device)), build)
+    except CircuitBreakingError:
+        seg._device_cache[refused_key] = budget_token
+        return None       # index over the device budget: exact serves
+    if index is None:
+        return (None, rows, 0, 0)   # mapped, but no vectors here
+
+    oversample = min(max(2 * k, k + 16), len(rows))
+    nprobe = opts.get("nprobe") or max(
+        1, int(np.ceil(num_candidates / max(index.list_len, 1))))
+    return (index, rows, oversample, nprobe)
+
+
+def filter_context_mask(ctx: "SegmentContext", filt, filter_key,
+                        stats: Optional[Dict[str, float]] = None
+                        ) -> np.ndarray:
+    """Host-side filter-context mask [n_docs_pad] for one segment,
+    cached ACROSS drains on the immutable segment keyed by the filter's
+    value key (the reader-generation component of the cache key IS the
+    segment identity: a refresh produces new segments, deletes ride the
+    live mask -- never the match mask). The batched kNN paths execute
+    every distinct filter tree once per segment; only the [Q, N_pad]
+    stack itself rebuilds per drain."""
+    def build():
+        _, fmask = execute(filt, ctx)
+        return fmask.cpu().numpy()
+    if filter_key is None:
+        return build()
+    key = ("filter_ctx_mask", filter_key)
+    hit = key in ctx.segment._filter_cache
+    mask = _cached_filter(ctx, key, build)
+    if stats is not None and hit:
+        stats["filter_mask_reuses"] = stats.get("filter_mask_reuses",
+                                                0) + 1
+    return mask
 
 
 def knn_shard_winners(ctxs: List["SegmentContext"], field: str, specs,
-                      k: int, check_members=None
+                      k: int, check_members=None,
+                      stats: Optional[Dict[str, float]] = None
                       ) -> List[List[Tuple[int, int, float]]]:
     """THE kNN top-k executor for the served path -- Q queries (each a
-    spec with query_vector / filter), solo being simply Q=1. Returns one
-    sorted ``[(segment_idx, local_doc, raw_score)]`` winner list
-    (len <= k) per member, the merge Lucene's KnnVectorQuery rewrite
-    performs.
+    spec with query_vector / filter / filter_key / num_candidates),
+    solo being simply Q=1. Returns one sorted ``[(segment_idx,
+    local_doc, raw_score)]`` winner list (len <= k) per member, the
+    merge Lucene's KnnVectorQuery rewrite performs.
 
-    Route: the resident whole-shard plane (one launch via
-    plane_exec.plane_knn_winners), else one [Q, D] x [D, N] launch per
-    segment. Filtered members, IVF-routed segments and k above the
-    kernels' KMAX raise NotPortedError before any launch."""
+    Route per segment and member, one shared launch per class: the
+    resident whole-shard plane (one launch / one shard-IVF probe via
+    plane_exec.plane_knn_winners), else per segment: unfiltered members
+    on IVF-routed segments share one batched nprobe probe per DERIVED
+    PROBE WIDTH (members whose num_candidates imply different nprobe
+    probe in separate groups -- each exactly as it would alone -- instead
+    of falling anywhere back), filtered members one (optionally masked)
+    [Q, D] x [D, N] launch with filter-context masks computed once per
+    distinct filter (cached across drains per segment). k above the
+    kernels' KMAX raises NotPortedError before any launch."""
     from elasticsearch_tpu_torch.ops.knn import KMAX
-    if any(s.filter is not None for s in specs):
-        raise NotPortedError("knn_filter")
     if k > KMAX:
         raise NotPortedError(f"knn_k_over_{KMAX}")
     n_q = len(specs)
@@ -964,24 +1029,77 @@ def knn_shard_winners(ctxs: List["SegmentContext"], field: str, specs,
                 plane_knn_winners,
             )
             return plane_knn_winners(ctxs, part, field, specs, k,
-                                     check_members)
-    for ctx in ctxs:
-        ann_segment_route(ctx, field)
+                                     check_members, stats)
     vectors = np.asarray([s.query_vector for s in specs], np.float32)
+    unfiltered = [qi for qi in range(n_q) if specs[qi].filter is None]
     for ctx in ctxs:
         dev = DeviceVectors.for_segment(ctx.segment, field, ctx.device)
         if dev is None:
             continue
         if check_members is not None:
             check_members()
+        exact_idx = list(range(n_q))
+        if unfiltered and ann_segment_route(
+                ctx, field, k, specs[unfiltered[0]].num_candidates,
+                filtered=False) is not None:
+            # IVF-routed segment: group unfiltered members by the probe
+            # width their num_candidates implies; each group probes in
+            # one batched launch, exactly as its members would solo
+            groups: Dict[int, Tuple[Tuple, List[int]]] = {}
+            for qi in unfiltered:
+                route = ann_segment_route(
+                    ctx, field, k, specs[qi].num_candidates,
+                    filtered=False)
+                groups.setdefault(route[3], (route, []))[1].append(qi)
+            live_host = ctx.live.cpu().numpy()[: ctx.segment.n_docs]
+            for nprobe, (route, members) in sorted(groups.items()):
+                index, rows, oversample, _n = route
+                if index is None:
+                    continue     # mapped, but no vectors here
+                probed = index.probe_live(
+                    vectors[members], k, nprobe, rows, live_host,
+                    ctx.segment_idx, oversample)
+                for qi, hits in zip(members, probed):
+                    per_member_hits[qi].extend(hits)
+            exact_idx = [qi for qi in range(n_q)
+                         if specs[qi].filter is not None]
+        if not exact_idx:
+            continue
+        # exact path: distinct filters resolve to masks once per segment
+        # (cached across drains on the segment itself)
+        masks = None
+        fkeys = {specs[qi].filter_key for qi in exact_idx}
+        if fkeys != {None}:
+            by_key: Dict[Optional[str], Any] = {}
+            for qi in exact_idx:
+                s_qi = specs[qi]
+                if s_qi.filter is not None and \
+                        s_qi.filter_key not in by_key:
+                    by_key[s_qi.filter_key] = filter_context_mask(
+                        ctx, s_qi.filter, s_qi.filter_key, stats)
+            if len(fkeys) == 1:
+                # every member carries the SAME filter: one shared mask
+                masks = torch.as_tensor(by_key[next(iter(fkeys))],
+                                        device=ctx.device)
+                if stats is not None:
+                    stats["knn_shared_mask_segments"] = \
+                        stats.get("knn_shared_mask_segments", 0) + 1
+            else:
+                rows_m = np.ones((len(exact_idx), ctx.n_docs_pad), bool)
+                for row, qi in enumerate(exact_idx):
+                    fk = specs[qi].filter_key
+                    if fk is not None:
+                        rows_m[row] = by_key[fk]
+                masks = rows_m
+        ex = KnnExecutor(dev)
         k_seg = min(k, ctx.n_docs_pad)
-        s, d = KnnExecutor(dev).top_k_batch(vectors, ctx.live, k_seg)
+        s, d = ex.top_k_batch(vectors[exact_idx], ctx.live, k_seg, masks)
         s = s.cpu().numpy()
         d = d.cpu().numpy()
-        for row in range(n_q):
+        for row, qi in enumerate(exact_idx):
             for sc, doc in zip(s[row], d[row]):
                 if sc > -np.inf:
-                    per_member_hits[row].append(
+                    per_member_hits[qi].append(
                         (ctx.segment_idx, int(doc), float(sc)))
     for qi in range(n_q):
         per_member_hits[qi].sort(key=lambda x: -x[2])
@@ -1003,7 +1121,10 @@ def rewrite_knn(q: dsl.Query, segment_ctxs: List["SegmentContext"],
     clause by clause."""
     if isinstance(q, dsl.Knn):
         from types import SimpleNamespace
-        spec = SimpleNamespace(query_vector=q.query_vector, filter=q.filter)
+        spec = SimpleNamespace(
+            query_vector=q.query_vector, filter=q.filter,
+            filter_key=repr(q.filter) if q.filter is not None else None,
+            num_candidates=q.num_candidates)
         winners = knn_shard_winners(segment_ctxs, q.field, [spec], q.k,
                                     check_members=cancel_check)[0]
         per_segment: Dict[int, Tuple[np.ndarray, np.ndarray]] = {}

@@ -13,8 +13,10 @@ so they share one implementation:
   exact f32 re-rank with an adaptive depth) that serves a solo query on a
   large plane first.
 - ``plane_knn_winners``: Q kNN queries in ONE launch over the stacked
-  vector plane -- the int8 coarse pass + exact re-rank (``_quantized_topk``,
-  adaptive depth) first, the exact ``knn_flat`` otherwise -- with the
+  vector plane -- the shard-level IVF probe for unfiltered members on an
+  IVF-routed field (``plane_ann_route``), else the int8 coarse pass +
+  exact re-rank (``_quantized_topk``, adaptive depth) first and the exact
+  ``knn_flat`` otherwise, masked per member for filtered kNN -- with the
   per-segment demux reduced to a host-side offset translation.
 
 Callers treat a None result as "run the per-segment path".
@@ -506,33 +508,106 @@ def plane_wand_topk(ctxs, part, field: str,
 # kNN: one launch over the vector plane
 # ---------------------------------------------------------------------------
 
-def plane_ann_route(ctx0, part, field: str) -> None:
-    """Shard-level IVF routing over the plane, shared by the solo kNN
-    rewrite and the batched executor: returns (the exact plane path
-    serves) unless the JAX package would probe its shard-level IVF index,
-    which is not part of this package yet: NotPortedError("knn_ivf"). A
-    plane that holds no vectors at all is answered with no hits either
-    way, so it takes the exact path."""
+def plane_ann_route(ctx0, part, field: str, k: int,
+                    num_candidates: int) -> Optional[Tuple]:
+    """Shard-level IVF routing over the plane -- the plane analog of
+    execute.ann_segment_route, shared by the solo kNN rewrite and the
+    batched executor so their ANN results are identical by construction.
+    None = exact plane path; else (index, rows, oversample, nprobe) with
+    index None when the field holds no vectors at all."""
     from elasticsearch_tpu_torch.search.execute import ANN_DEFAULT_MIN_DOCS
     mapper = ctx0.mappers.mapper(field)
     opts = getattr(mapper, "index_options", None) or {}
     wants_ivf = opts.get("type") == "ivf"
     if opts.get("type") not in (None, "ivf"):
-        return
+        return None
     if not wants_ivf:
-        # auto-sizing must agree with the per-segment routing, or plane
-        # residency would flip exact results to approximate ones: the
-        # shard-level IVF only when every vector-bearing segment would
-        # take the per-segment IVF anyway
+        # auto-sizing must agree with the per-segment fallback's routing
+        # decision, or plane residency would silently flip EXACT results
+        # to approximate ones: take the shard-level IVF only when every
+        # vector-bearing segment would take the per-segment IVF anyway
         sizes = [s.n_docs for s in part.segments
                  if s.vectors.get(field) is not None]
         if not sizes or min(sizes) < ANN_DEFAULT_MIN_DOCS:
-            return
-    if len(part.rows):
-        part.ivf_index(opts.get("nlist"))
+            return None
+    from elasticsearch_tpu_torch.utils.errors import CircuitBreakingError
+    try:
+        index, rows = part.ivf_index(opts.get("nlist"))
+    except CircuitBreakingError:
+        # over budget: the exact plane path serves
+        telemetry.TELEMETRY.count_fallback(
+            telemetry.PLANE_IVF_BREAKER_REFUSED)
+        return None
+    if index is None:
+        return (None, rows, 0, 0)
+    oversample = min(max(2 * k, k + 16), len(rows))
+    nprobe = opts.get("nprobe") or max(
+        1, int(np.ceil(num_candidates / max(index.list_len, 1))))
+    return (index, rows, oversample, nprobe)
 
 
-def _quantized_topk(part, vectors: np.ndarray, live, k: int):
+def _live_host(reader) -> np.ndarray:
+    return np.concatenate([np.asarray(m) for m in reader.live_masks]) \
+        if reader.live_masks else np.zeros(0, bool)
+
+
+def _probe_plane(index, queries: np.ndarray, k: int, nprobe: int,
+                 rows: np.ndarray, live_host: np.ndarray, part,
+                 oversample: int) -> List[List[Tuple[int, int, float]]]:
+    """Batched shard-IVF probe + the host-side demux: list-row ids map to
+    plane docs through ``rows``, deleted docs drop out post-probe, plane
+    docs translate to (segment_idx, local_doc) through the base offsets."""
+    scores, ids = index.search(np.asarray(queries, np.float32),
+                               oversample, nprobe=nprobe)
+    out = []
+    for qi in range(scores.shape[0]):
+        valid = ids[qi] >= 0
+        docs = rows[ids[qi][valid]]
+        alive = (docs < len(live_host)) & live_host[
+            np.minimum(docs, max(len(live_host) - 1, 0))]
+        docs, kept = docs[alive], scores[qi][valid][alive]
+        si, local = part.demux(docs)       # one vectorized demux per query
+        hits = [(int(a), int(b), float(s))
+                for a, b, s in zip(si[:k], local[:k], kept[:k])]
+        out.append(hits)
+    return out
+
+
+def _filter_mask_rows(ctxs, part, specs, exact_idx) -> Tuple[Any, bool]:
+    """Per-member plane filter masks: each DISTINCT filter executes once
+    per segment (the solo path's filter-context mask builders) and its
+    per-segment masks stack into plane doc space. Returns (masks, shared):
+    masks None (no filters), a [N_pad] bool tensor on the plane's device
+    (every member agrees -- the autocomplete / faceted-nav shape), or a
+    [B, N_pad] numpy stack."""
+    from elasticsearch_tpu_torch.search.execute import execute as execute_query
+    fkeys = {specs[qi].filter_key for qi in exact_idx}
+    if fkeys == {None}:
+        return None, False
+    by_key: Dict[Optional[str], np.ndarray] = {}
+    for qi in exact_idx:
+        s_qi = specs[qi]
+        if s_qi.filter is None or s_qi.filter_key in by_key:
+            continue
+        row = np.zeros(part.n_docs_pad, bool)
+        for pos, ctx in enumerate(ctxs):
+            _, fmask = execute_query(s_qi.filter, ctx)
+            base = int(part.doc_base[pos])
+            n = ctx.segment.n_docs
+            row[base: base + n] = fmask.cpu().numpy()[:n]
+        by_key[s_qi.filter_key] = row
+    if len(fkeys) == 1:
+        return torch.as_tensor(by_key[next(iter(fkeys))],
+                               device=part.device), True
+    rows = np.ones((len(exact_idx), part.n_docs_pad), bool)
+    for r, qi in enumerate(exact_idx):
+        fk = specs[qi].filter_key
+        if fk is not None:
+            rows[r] = by_key[fk]
+    return rows, False
+
+
+def _quantized_topk(part, vectors: np.ndarray, live, masks, k: int):
     """int8 coarse pass over the full plane + exact re-rank of the top-k'
     candidates, with ADAPTIVE depth: the margin at position k' (via the
     re-rank's observed coarse error) must prove the true top-k survived,
@@ -541,9 +616,12 @@ def _quantized_topk(part, vectors: np.ndarray, live, k: int):
     None is returned and the exact path serves (typed
     plane_quantized_fallback). Also None when the quantized mirror is
     unavailable (breaker) or the corpus is too small for the coarse pass
-    to pay."""
+    to pay. ``masks`` is None, a shared [N_pad] filter mask (folded into
+    ``allowed``) or a [B, N_pad] per-member stack (the masked launches)."""
     from elasticsearch_tpu_torch.ops.knn import (
-        KMAX, QueryBatch, knn_coarse_candidates, knn_rerank_exact,
+        KMAX, QueryBatch, knn_coarse_candidates,
+        knn_coarse_candidates_masked, knn_rerank_exact,
+        knn_rerank_exact_masked, pad_mask_rows_pow2,
     )
     depth0 = _coarse_depth0(k, part.n_docs_pad)
     if part.n_docs_total <= 4 * depth0:
@@ -556,14 +634,31 @@ def _quantized_topk(part, vectors: np.ndarray, live, k: int):
     batch = QueryBatch(vectors, part.device)
     n_real = batch.n_real
     allowed = live & part.exists
+    m_dev = None
+    if masks is not None and getattr(masks, "ndim", 1) == 2:
+        m_dev = torch.as_tensor(
+            pad_mask_rows_pow2(masks, batch.queries.shape[0]),
+            device=part.device)
+    elif masks is not None:
+        allowed = allowed & masks       # shared filter mask
     for kprime, last in _adaptive_depths(k, part.n_docs_pad):
         if kprime > KMAX:
             _count_plane_quantized_fallback()
             return None
-        cs, cand = knn_coarse_candidates(q8, scales, part.norms, allowed,
-                                         batch, kprime, part.similarity)
-        s, d, eps = knn_rerank_exact(part.matrix, part.norms, allowed,
-                                     batch, cand, cs, k, part.similarity)
+        if m_dev is not None:
+            cs, cand = knn_coarse_candidates_masked(
+                q8, scales, part.norms, allowed, batch, m_dev, kprime,
+                part.similarity)
+            s, d, eps = knn_rerank_exact_masked(
+                part.matrix, part.norms, allowed, batch, cand, cs, m_dev,
+                k, part.similarity)
+        else:
+            cs, cand = knn_coarse_candidates(q8, scales, part.norms,
+                                             allowed, batch, kprime,
+                                             part.similarity)
+            s, d, eps = knn_rerank_exact(part.matrix, part.norms, allowed,
+                                         batch, cand, cs, k,
+                                         part.similarity)
         cs_h = cs.cpu().numpy()
         s_h = s.cpu().numpy()
         eps_h = eps.cpu().numpy()
@@ -580,43 +675,90 @@ def _quantized_topk(part, vectors: np.ndarray, live, k: int):
 
 
 def plane_knn_winners(ctxs, part, field: str, specs, k: int,
-                      check_members: Optional[Callable[[], None]] = None
+                      check_members: Optional[Callable[[], None]] = None,
+                      stats: Optional[Dict[str, float]] = None
                       ) -> List[List[Tuple[int, int, float]]]:
-    """Q (>= 1) unfiltered kNN queries over the vector plane. ``specs``
-    need a query_vector attribute (the batch executor's BatchSpec, or the
-    solo rewrite's one-element shim). Returns one [(segment_idx,
-    local_doc, raw_score)] winner list (len <= k, score order) per member
-    -- exactly what the per-segment merge produces. Filtered members are
-    refused upstream (``knn_shard_winners``)."""
+    """Q kNN queries over the vector plane. ``specs`` need query_vector /
+    filter / filter_key / num_candidates attributes (the batch executor's
+    BatchSpec, or the solo rewrite's one-element shim). Returns one
+    [(segment_idx, local_doc, raw_score)] winner list (len <= k, score
+    order) per member -- exactly what the per-segment merge produces.
+
+    Unfiltered members on an IVF-routed field share one shard-IVF probe
+    (K14); the rest share one exact launch (the int8 coarse pass +
+    re-rank first, knn_flat otherwise), masked per member when their
+    filters differ. Raises PlaneFallback when IVF-routed members disagree
+    on the implied probe width (mirrors the per-segment batch rule)."""
     from elasticsearch_tpu_torch.ops.knn import KnnExecutor
     telemetry.mark_plane_served()
-    plane_ann_route(ctxs[0], part, field)
-    if check_members is not None:
-        check_members()
+    reader = _reader_of(ctxs)
     n_q = len(specs)
     vectors = np.asarray([s.query_vector for s in specs], np.float32)
-    live = part.live_mask(_reader_of(ctxs).live_masks)
-    k_plane = min(k, part.n_docs_pad)
-    # the launch writes a [B, n_docs_pad] f32 score plane over the whole
-    # shard: charge the request breaker before it
-    from elasticsearch_tpu_torch.indices.breaker import BREAKERS
-    transient = 8 * part.n_docs_pad * n_q
-    with BREAKERS.breaker("request").limit_scope(transient, "plane_knn"):
-        got = None
-        if PLANES.quantized:
-            got = _coarse_attempt("knn", n_q, lambda: _quantized_topk(
-                part, vectors, live, k_plane))
-        if got is None:
-            t_exact = time.monotonic()
-            got = KnnExecutor(part).top_k_batch(vectors, live, k_plane)
-            _note_exact("knn", n_q, t_exact)
-    s, d = got[0].cpu().numpy(), got[1].cpu().numpy()
-    winners: List[List[Tuple[int, int, float]]] = []
-    for row in range(n_q):
-        finite = (s[row] > -np.inf) & (d[row] >= 0)
-        si, local = part.demux(d[row][finite])
-        hits = [(int(a), int(b), float(sc)) for a, b, sc in
-                zip(si, local, s[row][finite])]
-        hits.sort(key=lambda x: -x[2])
-        winners.append(hits[:k])
+    winners: List[List[Tuple[int, int, float]]] = [[] for _ in range(n_q)]
+    unfiltered = [qi for qi in range(n_q) if specs[qi].filter is None]
+
+    route = None
+    if unfiltered:
+        route = plane_ann_route(ctxs[0], part, field, k,
+                                specs[unfiltered[0]].num_candidates)
+    if route is not None:
+        index, rows, oversample, nprobe = route
+        distinct_nc = {specs[qi].num_candidates for qi in unfiltered}
+        if index is not None and len(distinct_nc) > 1:
+            widths = {plane_ann_route(ctxs[0], part, field, k, nc)[3]
+                      for nc in distinct_nc}
+            if len(widths) > 1:
+                telemetry.TELEMETRY.count_fallback(
+                    telemetry.PLANE_IVF_NPROBE_DISAGREEMENT)
+                raise PlaneFallback(
+                    "IVF-routed members' num_candidates imply different "
+                    "nprobe")
+        if index is not None:
+            if check_members is not None:
+                check_members()
+            probed = _probe_plane(index, vectors[unfiltered], k, nprobe,
+                                  rows, _live_host(reader), part,
+                                  oversample)
+            for qi, hits in zip(unfiltered, probed):
+                winners[qi] = hits
+        exact_idx = [qi for qi in range(n_q)
+                     if specs[qi].filter is not None]
+    else:
+        exact_idx = list(range(n_q))
+
+    if exact_idx:
+        if check_members is not None:
+            check_members()
+        live = part.live_mask(reader.live_masks)
+        masks, shared = _filter_mask_rows(ctxs, part, specs, exact_idx)
+        if shared and stats is not None:
+            stats["knn_shared_mask_segments"] = \
+                stats.get("knn_shared_mask_segments", 0) + 1
+        k_plane = min(k, part.n_docs_pad)
+        # the launch writes a [B, n_docs_pad] f32 score plane over the
+        # whole shard: charge the request breaker before it
+        from elasticsearch_tpu_torch.indices.breaker import BREAKERS
+        transient = 8 * part.n_docs_pad * len(exact_idx)
+        with BREAKERS.breaker("request").limit_scope(
+                transient, "plane_knn"):
+            got = None
+            if PLANES.quantized:
+                got = _coarse_attempt(
+                    "knn", len(exact_idx),
+                    lambda: _quantized_topk(part, vectors[exact_idx],
+                                            live, masks, k_plane))
+            if got is None:
+                t_exact = time.monotonic()
+                got = KnnExecutor(part).top_k_batch(
+                    vectors[exact_idx], live, k_plane, masks)
+                _note_exact("knn", len(exact_idx), t_exact)
+        s, d = got[0].cpu().numpy(), got[1].cpu().numpy()
+        for row, qi in enumerate(exact_idx):
+            finite = (s[row] > -np.inf) & (d[row] >= 0)
+            si, local = part.demux(d[row][finite])
+            winners[qi] = [(int(a), int(b), float(sc)) for a, b, sc in
+                           zip(si, local, s[row][finite])]
+    for qi in range(n_q):
+        winners[qi].sort(key=lambda x: -x[2])
+        winners[qi] = winners[qi][:k]
     return winners

@@ -1,5 +1,5 @@
-"""The BM25, kNN and dense-collector kernels on the card, bitwise against
-their plain PyTorch versions. Needs a CUDA card and nvcc; skipped without
+"""The BM25, kNN (masked and not), dense-collector and IVF kernels on the
+card, bitwise against their plain PyTorch versions. Needs a CUDA card and nvcc; skipped without
 a card.
 
 It imports neither JAX nor the JAX package, so it also runs on a machine
@@ -115,3 +115,82 @@ def test_dense_kernels_match_plain_versions_on_the_card(sim):
             for g, w_ in zip(topk.dense_topk(x, k),
                              topk.dense_topk_plain(x, k)):
                 assert torch.equal(g, w_)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sim", ["cosine", "dot_product", "l2_norm"])
+def test_masked_knn_kernels_match_plain_versions_on_the_card(sim):
+    """knn_flat, knn_coarse and knn_rerank with a per-query mask stack
+    (an all-False row, pow2 padding rows) bitwise equal to their plain
+    versions, and each masked row to the unmasked kernel on allowed &
+    that row."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    m, norms, exists, live, q = make_knn_inputs(
+        16, 128, 5, "gauss", 200_000, 262_144)
+    q8, scales = quantize_rows(m)
+    T = lambda a: torch.as_tensor(a).cuda()  # noqa: E731
+    m, norms, allowed = T(m), T(norms), T(live & exists)
+    q8, scales = T(q8), T(scales)
+    batch = knn.QueryBatch(q, "cuda")
+    gen = torch.Generator().manual_seed(17)
+    rows = torch.rand(5, 262_144, generator=gen) < 0.05
+    rows[0] = False
+    masks = T(knn.pad_mask_rows_pow2(rows.numpy(), 8))
+    qq, qscale = batch.quantized()
+    args = (m, norms, allowed, batch.queries, batch.qn, batch.q2)
+    flat = knn.knn_flat(*args, 100, sim, masks)
+    for g, w in zip(flat, knn.knn_flat_plain(*args, 100, sim, masks)):
+        assert torch.equal(g, w)
+    cargs = (q8, scales, norms, allowed, qq, qscale, batch.qn, batch.q2)
+    coarse = knn.knn_coarse(*cargs, 512, sim, masks)
+    for g, w in zip(coarse, knn.knn_coarse_plain(*cargs, 512, sim, masks)):
+        assert torch.equal(g, w)
+    cs, cand = coarse
+    rerank = knn.knn_rerank(*args, cand, cs, 10, sim, masks)
+    for g, w in zip(rerank, knn.knn_rerank_plain(*args, cand, cs, 10, sim,
+                                                 masks)):
+        assert torch.equal(g, w)
+    for r in (0, 3, 7):
+        one = (m, norms, allowed & masks[r], batch.queries[r:r + 1],
+               batch.qn[r:r + 1], batch.q2[r:r + 1])
+        for g, w in zip(knn.knn_flat(*one, 100, sim), flat):
+            assert torch.equal(g, w[r:r + 1])
+        for g, w in zip(knn.knn_rerank(*one, cand[r:r + 1], cs[r:r + 1], 10,
+                                       sim), rerank):
+            assert torch.equal(g, w[r:r + 1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dims", [16, 100, 960])
+def test_ivf_kernels_match_plain_versions_on_the_card(dims):
+    """ivf_assign, ivf_update, ivf_init and ivf_search (three similarities,
+    nprobe 1..nlist) bitwise equal to their plain versions, with tied
+    rows and centroids, dropped ids and an empty cluster."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    from elasticsearch_tpu_torch.ops import ivf
+    gen = torch.Generator().manual_seed(18 + dims)
+    x = torch.randn(6000, dims, generator=gen)
+    x[7] = x[3]
+    cents = x[torch.randperm(6000, generator=gen)[:90]].clone()
+    cents[5] = cents[2]
+    x, cents = x.cuda(), cents.cuda()
+    a = ivf.ivf_assign(x, cents)
+    assert torch.equal(a, ivf.ivf_assign_plain(x, cents))
+    assert not (a == 5).any()
+    a[:4] = -1
+    assert torch.equal(ivf.ivf_update(x, a, cents),
+                       ivf.ivf_update_plain(x, a, cents))
+    assert torch.equal(ivf.ivf_init(x, 3, 70), ivf.ivf_init_plain(x, 3, 70))
+    for sim in ("cosine", "dot_product", "l2_norm"):
+        index = ivf.IVFIndex.build(x.cpu().numpy(), nlist=40, similarity=sim,
+                                   device="cuda")
+        batch = knn.QueryBatch(x[:9].cpu().numpy() + 0.1, "cuda")
+        for nprobe in (1, 5, 40):
+            k = min(50, nprobe * index.list_len)
+            args = (batch.queries, batch.qn, batch.q2, index.centroids,
+                    index.lists, index.valid, index.ids, index.norms)
+            for g, w in zip(ivf.ivf_search(*args, k, nprobe, sim),
+                            ivf.ivf_search_plain(*args, k, nprobe, sim)):
+                assert torch.equal(g, w)

@@ -54,8 +54,7 @@ from elasticsearch_tpu_torch.ops import knn as pknn
 from elasticsearch_tpu_torch.ops import topk
 from elasticsearch_tpu_torch.search.device_profile import DEVICE_PROFILE
 from test_torch_bm25 import assert_topk_match
-from test_torch_knn import close_ids
-from torch_inputs import make_inputs, make_knn_inputs
+from torch_inputs import close_ids, make_inputs, make_knn_inputs
 
 RTOL = 1e-6
 ATOL = 1e-8
@@ -198,7 +197,7 @@ def test_knn_topk_matches_reference(kind, dims, sim):
     else:
         fin = np.isfinite(rs)
         np.testing.assert_allclose(ps[fin], rs[fin], rtol=KNN_RTOL)
-        close_ids(rs[None], rd[None], pd[None])
+        close_ids(rs[None], rd[None], pd[None], KNN_RTOL)
 
 
 @pytest.mark.parametrize("sim", SIMS)

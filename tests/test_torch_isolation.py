@@ -52,13 +52,18 @@ import elasticsearch_tpu_torch.search.plane_exec
 import elasticsearch_tpu_torch.search.batch_executor
 import elasticsearch_tpu_torch.ops.knn
 import elasticsearch_tpu_torch.ops.topk
+import elasticsearch_tpu_torch.ops.ivf
 import elasticsearch_tpu_torch.convert
+from elasticsearch_tpu_torch.search.device_profile import DEVICE_PROFILE
 engine = InternalEngine(MapperService({"properties": {
     "body": {"type": "text"}, "tag": {"type": "keyword"},
-    "vec": {"type": "dense_vector", "dims": 3, "similarity": "l2_norm"}}}))
+    "vec": {"type": "dense_vector", "dims": 3, "similarity": "l2_norm"},
+    "ivec": {"type": "dense_vector", "dims": 3, "similarity": "l2_norm",
+             "index_options": {"type": "ivf", "nlist": 4}}}}))
 for i in range(40):
     engine.index(str(i), {"body": "quick brown fox" if i % 3 else "lazy dog",
-                          "tag": f"t{i % 2}", "vec": [float(i), 1.0, 2.0]})
+                          "tag": f"t{i % 2}", "vec": [float(i), 1.0, 2.0],
+                          "ivec": [float(i), 1.0, 2.0]})
     if i == 20:
         engine.refresh()
 engine.refresh()
@@ -68,6 +73,15 @@ assert r["hits"]["total"]["value"] == 26, r["hits"]["total"]
 k = svc.search({"query": {"knn": {"field": "vec", "query_vector": [7.2, 1, 2],
                                   "k": 3}}})
 assert [h["_id"] for h in k["hits"]["hits"]] == ["7", "8", "6"], k
+kf = svc.search({"query": {"knn": {"field": "vec", "k": 3,
+                                   "query_vector": [7.2, 1, 2],
+                                   "filter": {"term": {"tag": "t1"}}}}})
+assert [h["_id"] for h in kf["hits"]["hits"]] == ["7", "9", "5"], kf
+ki = svc.search({"query": {"knn": {"field": "ivec", "k": 3,
+                                   "query_vector": [7.2, 1, 2],
+                                   "num_candidates": 100}}})
+assert [h["_id"] for h in ki["hits"]["hits"]] == ["7", "8", "6"], ki
+assert DEVICE_PROFILE.family("ivf_search").calls > 0
 f = svc.search({"query": {"bool": {"must": [{"match": {"body": "fox"}}],
                                    "filter": [{"term": {"tag": "t1"}}]}},
                 "track_total_hits": True})

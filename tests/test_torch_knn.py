@@ -33,7 +33,7 @@ from elasticsearch_tpu.ops import knn as ref
 
 from elasticsearch_tpu_torch.ops import knn as port
 from elasticsearch_tpu_torch.ops.device_segment import quantize_rows
-from torch_inputs import make_knn_inputs
+from torch_inputs import close_ids, make_knn_inputs
 
 RTOL = 4e-6
 SIMS = ("cosine", "dot_product", "l2_norm")
@@ -42,18 +42,6 @@ N_DOCS, N_PAD = 900, 1024
 
 def make_inputs(seed: int, dims: int, n_q: int, kind: str):
     return make_knn_inputs(seed, dims, n_q, kind, N_DOCS, N_PAD)
-
-
-def close_ids(s_ref, d_ref, d_port):
-    """Ids equal wherever the reference's neighbouring scores differ by
-    more than the tolerance (a near-tie may order either way)."""
-    for r in range(s_ref.shape[0]):
-        s = s_ref[r]
-        for j in range(len(s)):
-            lo = abs(s[j - 1] - s[j]) if j else np.inf
-            hi = abs(s[j + 1] - s[j]) if j + 1 < len(s) else np.inf
-            if np.isfinite(s[j]) and min(lo, hi) > RTOL * abs(s[j]):
-                assert d_port[r, j] == d_ref[r, j], (r, j)
 
 
 def assert_scores(got, want, exact: bool):
@@ -91,7 +79,7 @@ def test_knn_flat_matches_knn_topk_batch(kind, dims, n_q, sim):
     if kind == "int":
         np.testing.assert_array_equal(pd, rd)
     else:
-        close_ids(rs, rd, pd)
+        close_ids(rs, rd, pd, RTOL)
     # the all-zero query row still ranks every eligible doc
     assert np.isfinite(ps[n_q - 1]).all()
 
@@ -115,7 +103,7 @@ def test_knn_coarse_matches_knn_coarse_candidates(kind, dims, n_q, sim):
     if exact:
         np.testing.assert_array_equal(pcand, rcand)
     else:
-        close_ids(rcs, rcand, pcand)
+        close_ids(rcs, rcand, pcand, RTOL)
 
 
 @pytest.mark.parametrize("kind,dims,n_q,sim", CASES, ids=map(_ids, CASES))
@@ -143,7 +131,7 @@ def test_knn_rerank_matches_knn_rerank_exact(kind, dims, n_q, sim):
         np.testing.assert_array_equal(ptd, rtd)
         np.testing.assert_array_equal(peps, reps)
     else:
-        close_ids(rts, rtd, ptd)
+        close_ids(rts, rtd, ptd, RTOL)
         # eps is a difference of scores: it moves by their tolerance
         c = cs.numpy()
         scale = 1.0 + np.abs(c[np.isfinite(c)]).max()

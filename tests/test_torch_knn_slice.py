@@ -13,7 +13,9 @@ tests/test_torch_knn.py) and ids exactly outside near-ties.
 
 The port's own identities are bitwise: solo == batch, quantized tier ==
 exact path, plane == per-segment. Requests outside the port's slice raise
-NotPortedError (status 501).
+NotPortedError (status 501). Filtered kNN and the IVF route have files of
+their own (tests/test_torch_knn_filtered.py, tests/test_torch_ivf.py); the
+65,536-doc default IVF route is served here.
 """
 
 import numpy as np
@@ -26,7 +28,6 @@ from elasticsearch_tpu.search import SearchService as RefService
 
 from elasticsearch_tpu_torch.convert import segments_from_reference
 from elasticsearch_tpu_torch.index import InternalEngine, Reader
-from elasticsearch_tpu_torch.index.segment import Segment, VectorField
 from elasticsearch_tpu_torch.mapping import MapperService
 from elasticsearch_tpu_torch.ops.device_segment import PLANES
 from elasticsearch_tpu_torch.search import SearchService, dsl
@@ -251,44 +252,80 @@ def test_converted_segments_and_mirror_bytes_match_reference(planes):
             [(d.segment_idx, d.doc, d.score) for d in want.docs]
 
 
-def big_segments(n_segs: int, n_docs: int):
-    """Segments of ``n_docs`` docs with a vector each (no engine: only the
-    routing decision is under test)."""
-    segs = []
-    for i in range(n_segs):
-        seg = Segment(f"big{i}", n_docs)
-        m = np.ones((n_docs, DIMS), np.float32)
-        seg.vectors["vec"] = VectorField(
-            matrix=m, exists=np.ones(n_docs, bool),
-            norms=np.linalg.norm(m, axis=1).astype(np.float32),
-            similarity="cosine", dims=DIMS)
-        seg.ids = [str(j) for j in range(n_docs)]
-        seg.invalidate_live_count()
-        segs.append(seg)
-    return segs
+def big_segment(seg_module, n_docs: int):
+    """One segment of ``n_docs`` docs with a vector each (no engine: the
+    routing decision and its probe are under test), as a ``seg_module``
+    Segment: integer vectors around 1,024 lattice points 32 apart, moved
+    by 0 or 1 a dim, n_docs / 1,024 docs each -- one cluster per list of
+    the IVF index (nlist 4 * sqrt(65,536) = 1,024), so k-means finds the
+    same lists in both packages. Returns (segment, lattice points)."""
+    rng = np.random.default_rng(41)
+    codes = rng.choice(8 ** 6, 1024, replace=False)
+    centers = rng.integers(0, 224, (1024, DIMS)).astype(np.float32)
+    for d in range(6):
+        centers[:, d] = (codes // 8 ** d) % 8 * 32
+    which = rng.permutation(np.repeat(np.arange(1024), n_docs // 1024))
+    m = (centers[which] + rng.integers(0, 2, (n_docs, DIMS))).astype(
+        np.float32)
+    seg = seg_module.Segment("big0", n_docs)
+    seg.vectors["vec"] = seg_module.VectorField(
+        matrix=m, exists=np.ones(n_docs, bool),
+        norms=np.linalg.norm(m, axis=1).astype(np.float32),
+        similarity="cosine", dims=DIMS)
+    seg.ids = [str(j) for j in range(n_docs)]
+    seg.invalidate_live_count()
+    return seg, centers
 
 
 @pytest.mark.parametrize("plane", [True, False])
 def test_ivf_routed_knn_raises_not_ported(plane, planes):
-    from elasticsearch_tpu_torch.search import telemetry
-    PLANES.enabled = plane
-    segs = big_segments(2, 65536)
-    before = telemetry.TELEMETRY.not_ported.get("knn_ivf", 0)
-    q = dsl.Knn(field="vec", query_vector=[1.0] * DIMS, k=10)
-    with pytest.raises(NotPortedError) as info:
-        query_shard(Reader(segs), MapperService(mapping("cosine")), q,
-                    size=10, device="cpu")
-    assert info.value.status == 501 and info.value.feature == "knn_ivf"
-    # the same segments mapped as a flat (brute-force) index are served
-    got = query_shard(Reader(segs), MapperService(mapping(
-        "cosine", {"type": "flat"})), q, size=10, device="cpu")
-    assert len(got.docs) == 10
-    assert telemetry.TELEMETRY.not_ported["knn_ivf"] == before + 1
+    """(The name predates the IVF route, which this test once proved
+    refused.) A default-mapped field whose segments hold 65,536 docs or
+    more takes the JAX package's IVF route -- the shard-level index with
+    the plane resident, the segment's own without -- and the port serves
+    it: query_shard equals the JAX package's, ids and score bits; the
+    same segment mapped as a flat (brute-force) index is served
+    exactly."""
+    from elasticsearch_tpu.index import segment as ref_seg
+    from elasticsearch_tpu.index.engine import Reader as RefReader
+    from elasticsearch_tpu.search import dsl as ref_dsl
+    from elasticsearch_tpu.search.phase import query_shard as ref_query
+    from elasticsearch_tpu_torch.search.device_profile import DEVICE_PROFILE
+    for p in (REF_PLANES, PLANES):
+        p.enabled, p.min_segments = plane, 1
+    ref_segment, centers = big_segment(ref_seg, 65536)
+    segs = segments_from_reference([ref_segment])
+    rng = np.random.default_rng(42)
+    queries = centers[rng.integers(0, 1024, 4)] + 1.0
+    calls0 = DEVICE_PROFILE.family("ivf_search").calls
+    builds0 = PLANES.stats["plane_builds"]
+    for opts in (None, {"type": "flat"}):
+        for qv in queries:
+            qv = [float(x) for x in qv]
+            want = ref_query(
+                RefReader([ref_segment]), RefMappers(mapping("cosine", opts)),
+                ref_dsl.Knn(field="vec", query_vector=qv, k=10,
+                            num_candidates=150), size=10)
+            got = query_shard(Reader(segs), MapperService(mapping(
+                "cosine", opts)), dsl.Knn(field="vec", query_vector=qv,
+                                          k=10, num_candidates=150),
+                size=10, device="cpu")
+            assert [(d.segment_idx, d.doc, d.score) for d in got.docs] == \
+                [(d.segment_idx, d.doc, d.score) for d in want.docs]
+            assert len(got.docs) == 10
+        if opts is None:
+            # every query probed the IVF index, one launch each
+            assert DEVICE_PROFILE.family("ivf_search").calls - calls0 == \
+                len(queries)
+    assert (PLANES.stats["plane_builds"] > builds0) == plane
 
 
 @pytest.mark.parametrize("body,feature", [
-    (knn_body([1.0] * DIMS, knn={"filter": {"term": {"tag": "t1"}}}),
-     "knn_filter"),
+    # (the id predates filtered kNN, which the port now serves --
+    # tests/test_torch_knn_filtered.py -- and is kept for a filtered knn
+    # whose filter holds a query node still outside the port)
+    pytest.param(knn_body([1.0] * DIMS, knn={"filter": {"query_string": {
+        "query": "t1"}}}), "dense_query:QueryString", id="body0-knn_filter"),
     (knn_body([1.0] * DIMS, k=5000, num_candidates=5000), "knn_k_over_4096"),
     # (the ids predate the dense collector, which now serves knn inside
     # bool and refuses a non-vector script_score source as the JAX
@@ -315,8 +352,14 @@ def test_out_of_slice_knn_requests_raise_not_ported(body, feature, planes):
 
 
 def test_ivf_index_option_raises_not_ported(planes):
-    _ref, port = index_both("cosine", make_vectors(10, 60),
-                            refresh_at=(30,), index_options={"type": "ivf"})
-    with pytest.raises(NotPortedError) as info:
-        SearchService(port, device="cpu").search(knn_body([1.0] * DIMS))
-    assert info.value.feature == "knn_ivf"
+    """(The name predates the IVF route, which this test once proved
+    refused.) ``index_options.type: ivf`` on small segments is served as
+    the JAX package serves it: ids, totals and score bits, with the plane
+    resident and without."""
+    ref, port = index_both("cosine", make_vectors(10, 60),
+                           refresh_at=(30,), index_options={"type": "ivf"})
+    for enabled in (True, False):
+        REF_PLANES.enabled = PLANES.enabled = enabled
+        run(RefService(ref), SearchService(port, device="cpu"),
+            [knn_body(v, num_candidates=nc) for v, nc in zip(
+                make_vectors(12, 4), (10, 20, 50, 200))])

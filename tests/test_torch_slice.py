@@ -247,12 +247,13 @@ def test_converted_segments_serve_the_same_hits(planes):
     pytest.param({"query": {"query_string": {"query": "w1 AND w2"}},
                   "track_total_hits": True}, "dense_query:QueryString",
                  id="body1-dense_collector"),
-    # (the id predates the kNN collector; filtered kNN is the kNN shape
-    # still outside the port)
+    # (the id predates the kNN collector and filtered kNN, both served
+    # now -- tests/test_torch_knn_filtered.py -- and is kept for a knn
+    # shape still outside the port: k above the kernels' top-k limit)
     pytest.param({"query": {"knn": {"field": "vec", "query_vector": [1, 0, 0],
-                                    "k": 3, "num_candidates": 10,
+                                    "k": 5000, "num_candidates": 5000,
                                     "filter": {"term": {"tag": "t1"}}}}},
-                 "knn_filter", id="body2-knn_topk_collector"),
+                 "knn_k_over_4096", id="body2-knn_topk_collector"),
     ({"query": {"match": {"body": "w1"}}, "aggs": {
         "t": {"terms": {"field": "tag"}}}}, "aggregations"),
 ])

@@ -70,3 +70,19 @@ def make_knn_inputs(seed: int, dims: int, n_q: int, kind: str, n_docs: int,
     norms = np.linalg.norm(m, axis=1).astype(np.float32)
     q[-1] = 0.0                                       # a zero query row
     return m, norms, exists, live, q
+
+
+def close_ids(s_ref, d_ref, d_port, rtol: float):
+    """Ids equal wherever the reference's neighbouring scores differ by
+    more than ``rtol`` (a near-tie may order either way); non-finite
+    slots are skipped."""
+    s_ref, d_ref, d_port = map(np.asarray, (s_ref, d_ref, d_port))
+    for r in range(s_ref.shape[0]):
+        s = s_ref[r]
+        for j in range(len(s)):
+            if not np.isfinite(s[j]):
+                continue
+            lo = abs(s[j - 1] - s[j]) if j else np.inf
+            hi = abs(s[j + 1] - s[j]) if j + 1 < len(s) else np.inf
+            if min(lo, hi) > rtol * abs(s[j]):
+                assert d_port[r, j] == d_ref[r, j], (r, j)
