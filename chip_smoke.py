@@ -105,6 +105,34 @@ Phases, each of which fails the run on any failed check:
    Launch counts are zeroed before phases 12-13 and read right after:
    K11-K14 and the masked K5-K7 must have launched; then each is held
    against its plain version and timed at its largest main-path call.
+14. sparse-small (run with the small phases): K15 sparse_flat (the four
+   rank_feature functions, counted and not, pow2 padding rows), K19
+   sparse_scores (with and without a live mask), K16 sparse_coarse and
+   K17 sparse_rerank at 3,000 and 200,000 docs with tied docs, and K18
+   text_expansion_forward (the default model's widths at B 1, 13, 64; a
+   ragged narrow model) against their plain versions: bitwise for linear,
+   saturation, K16 and K17; log and sigmoid within 2^-21 relative and K18
+   within 2^-20 absolute (logf / powf / tanhf against torch's), ids exact.
+15. sparse-engine: 3,000 seeded texts indexed through ``InternalEngine``
+   with the port model's expansions as rank_features (three segments, 20
+   deletes): text_expansion with model_text and with tokens, the four
+   rank_feature functions, bool with a filter, exact and limited totals,
+   planes on and off, the quantized tier on and off, and _count: every
+   response equal on the card and the CPU, score bits included.
+16. sparse-full: BASELINE #5 at MS MARCO passage scale in bench.py
+   cfg_sparse's form: 8,841,823 docs in 4 segments, 16-23 features a doc
+   drawn Zipf(1.35) over the default model's 8,192 features, weights
+   uniform in [0, 3), from the seed; 64 raw texts of 3-7 words sent as
+   text_expansion with model_text, the rewrite running K18 at the
+   model's full width. Legs: solo with the tier on (K18 at B 1, K16 +
+   K17), a 64-query batch on the exact plane (K18 at B 64, K15) and per
+   segment (K15 per segment), solo dense with exact totals (K19 + K10).
+   All legs agree in ids and score bits, totals equal a host count, and
+   the top-10 equals a float64 host oracle up to near-ties. Launch counts
+   are zeroed before phases 15-16 and read right after: K15-K19 must have
+   launched; then each is held against its plain version and timed at its
+   largest main-path call, and K18 also on cache misses at B 64 and 4,096.
+   The earlier phases' shards are freed first.
 
 Prints a ``{"kernels": [...]}`` line and, last, the ``{"ok": true, ...}``
 line. Exits non-zero, without the ok line, when there is no CUDA card,
@@ -147,6 +175,11 @@ REPLACES = {
     "ivf_update": "elasticsearch_tpu/ops/ivf.py:74",
     "ivf_init": "elasticsearch_tpu/ops/ivf.py:85",
     "ivf_search": "elasticsearch_tpu/ops/ivf.py:328",
+    "sparse_flat": "elasticsearch_tpu/ops/sparse.py:72",
+    "sparse_scores": "elasticsearch_tpu/ops/sparse.py:42",
+    "sparse_coarse": "elasticsearch_tpu/ops/sparse.py:184",
+    "sparse_rerank": "elasticsearch_tpu/ops/sparse.py:193",
+    "text_expansion_forward": "elasticsearch_tpu/ml/text_expansion.py:111",
 }
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM, NVIDIA data sheet
 F32_FLOPS = 67e12              # H100 SXM f32 outside the tensor cores
@@ -227,10 +260,11 @@ def random_flat(np, rng, nb: int, n_real_q: int, per_q: int):
     return idx, w, q, avg
 
 
-def compare(torch, name: str, got, want, exact_scores: bool = True):
+def compare(torch, name: str, got, want, exact_scores: bool = True,
+            rtol: float = 1e-6):
     """Kernel outputs vs plain outputs: ints bitwise, floats bitwise (or
-    rtol 1e-6 when ``exact_scores`` is False). Returns max |diff| of the
-    float outputs (finite entries)."""
+    within ``rtol`` when ``exact_scores`` is False). Returns max |diff| of
+    the float outputs (finite entries)."""
     err = 0.0
     for i, (g, w) in enumerate(zip(got, want)):
         check(g.shape == w.shape and g.dtype == w.dtype,
@@ -246,8 +280,8 @@ def compare(torch, name: str, got, want, exact_scores: bool = True):
                     check(torch.equal(g[fin], w[fin]),
                           f"{name} output {i}: scores differ (max {err})")
                 else:
-                    check(bool((d <= 1e-6 * w[fin].double().abs()).all()),
-                          f"{name} output {i}: scores beyond rtol 1e-6")
+                    check(bool((d <= rtol * w[fin].double().abs()).all()),
+                          f"{name} output {i}: scores beyond rtol {rtol}")
         else:
             check(torch.equal(g, w), f"{name} output {i}: ints differ")
     return err
@@ -2655,12 +2689,806 @@ def ivf_shape(family: str, args) -> str:
 
 
 # ---------------------------------------------------------------------------
+# learned-sparse retrieval: K15-K19 against their plain versions, the
+# engine path, the MS MARCO-shaped rank_features shard
+# ---------------------------------------------------------------------------
+
+SPARSE_FAMILIES = ("sparse_flat", "sparse_scores", "sparse_coarse",
+                   "sparse_rerank", "text_expansion_forward")
+SPARSE_FUNCTIONS = {"saturation": (0.7, 1.0), "log": (1.5, 1.0),
+                    "sigmoid": (1.2, 0.6), "linear": (1.0, 1.0)}
+# log and sigmoid: the kernel calls logf / powf, the plain version torch's
+# CUDA log / pow; they may differ by an ulp in a contribution, and a
+# fixed-point sum of positive contributions keeps the largest relative
+# error of its terms: a score within 4 ulps (2^-21 relative), ids exact
+SPARSE_RTOL = 2.0 ** -21
+# K18: tanhf against torch's tanh moves a weight (anchors of 2.0 plus a
+# normalized activation in [0, 1]) by far less than 4 ulps at [2, 4)
+FORWARD_ATOL = 2.0 ** -20
+SPARSE_VOCAB = 8192          # the default expansion model's features
+SPARSE_WORDS = [f"word{i}" for i in range(400)]
+
+
+def sparse_inputs(np, rng, n_docs: int, nb: int, n_q: int, per_q: int,
+                  q_pad: int):
+    """A seeded rank_features block store (doc ids ascending within a
+    block, -1 padding, weights in [0.05, 3)) and [q_pad, QB] block lists
+    of n_q queries, padded with block 0 / weight 0 slots and weight-0
+    rows; block 7 repeats block 3's weights on the next docs and query 1
+    lists both at one weight, so docs tie in pairs."""
+    docs = np.sort(rng.integers(0, n_docs, (nb, 128)), axis=1).astype(np.int32)
+    docs[rng.random((nb, 128)) < 0.1] = -1
+    weights = np.where(docs >= 0, rng.uniform(0.05, 3.0, (nb, 128)),
+                       0.0).astype(np.float32)
+    docs[7] = np.where(docs[3] >= 0, docs[3] + 1, -1)
+    weights[7] = weights[3]
+    n_pad = 1 << max(7, math.ceil(math.log2(max(n_docs, 2))))
+    live = np.zeros(n_pad, bool)
+    live[:n_docs] = rng.random(n_docs) > 0.05
+    qb = 1 << max(3, math.ceil(math.log2(per_q)))
+    idx = np.zeros((q_pad, qb), np.int32)
+    qw = np.zeros((q_pad, qb), np.float32)
+    for q in range(n_q):
+        n = int(rng.integers(per_q // 2, per_q + 1))
+        idx[q, :n] = rng.integers(0, nb, n)
+        qw[q, :n] = rng.uniform(0.1, 3.0, n)
+    idx[1, :2] = (3, 7)
+    qw[1, 1] = qw[1, 0]
+    return docs, weights, idx, qw, live, n_pad
+
+
+def sparse_texts(np, rng, n: int):
+    """n seeded texts of 3-7 words out of 400 (bench.py cfg_sparse's
+    query texts)."""
+    return [" ".join(rng.choice(SPARSE_WORDS, size=int(rng.integers(3, 8))))
+            for _ in range(n)]
+
+
+def phase_sparse_small(torch, np, dev) -> None:
+    """K15-K19 against their plain versions on the card: sparse_flat
+    (K15, the four functions, counted and not, pow2 padding rows),
+    sparse_scores (K19, with and without a live mask), sparse_coarse (K16)
+    and sparse_rerank (K17) at 3,000 and 200,000 docs (the chunked top-k's
+    merge pass), k' 64 and 1,024, tied docs; then K18 over the default
+    model's widths at B 1, 13 and 64 and a ragged narrow model. Bitwise for
+    linear, saturation, K16 and K17; within SPARSE_RTOL (ids exact) for
+    log and sigmoid; K18's ids exact, weights within FORWARD_ATOL."""
+    from elasticsearch_tpu_torch.ml import text_expansion as te
+    from elasticsearch_tpu_torch.ops import sparse
+    rng = np.random.default_rng(SEED + 31)
+    T = lambda a: torch.as_tensor(a, device=dev)  # noqa: E731
+    n = 0
+    errs = {"log": 0.0, "sigmoid": 0.0}
+    for n_docs, nb, n_q, per_q, q_pad, kprime in (
+            (3000, 96, 3, 20, 4, 64), (200_000, 4096, 5, 300, 8, 1024)):
+        docs, weights, idx, qw, live, n_pad = sparse_inputs(
+            np, rng, n_docs, nb, n_q, per_q, q_pad)
+        bd, bw, bi, bq, lv = T(docs), T(weights), T(idx), T(qw), T(live)
+        for function, (pivot, exponent) in SPARSE_FUNCTIONS.items():
+            exact = function in ("saturation", "linear")
+            for counted in (False, True):
+                args = (bd, bw, bi, bq, pivot, exponent, lv, n_pad, 10,
+                        function)
+                got = sparse.sparse_topk_batch(*args, counted=counted)
+                want = sparse.sparse_flat_plain(*args, counted=counted)
+                torch.cuda.synchronize()
+                err = compare(torch, f"sparse_flat {function} n_docs_pad="
+                              f"{n_pad} counted={counted}", got, want, exact,
+                              SPARSE_RTOL)
+                check(bool(torch.isinf(got[0][n_q:]).all()),
+                      "sparse_flat: a padding row matched")
+                if function in errs:
+                    errs[function] = max(errs[function], err)
+                n += 1
+            for lmask in (None, lv):
+                args = (bd, bw, bi[1], bq[1], pivot, exponent, n_pad,
+                        function, lmask)
+                err = compare(torch, f"sparse_scores {function} n_docs_pad="
+                              f"{n_pad}", [sparse.sparse_scores(*args)],
+                              [sparse.sparse_scores_plain(*args)], exact,
+                              SPARSE_RTOL)
+                if function in errs:
+                    errs[function] = max(errs[function], err)
+                n += 1
+        w16 = bw.to(torch.bfloat16)
+        cargs = (bd, w16, bi, bq, lv, n_pad, kprime)
+        coarse = sparse.sparse_coarse_kernel(*cargs)
+        compare(torch, "sparse_coarse", coarse,
+                sparse.sparse_coarse_plain(*cargs))
+        cs, cand, _hits = coarse
+        rargs = (bd, bw, bi, bq, lv, cand, cs, n_pad, kprime, 10)
+        rerank = sparse.sparse_rerank_kernel(*rargs)
+        compare(torch, "sparse_rerank", rerank,
+                sparse.sparse_rerank_plain(*rargs))
+        # the exact tier re-derives K15's linear bits for every candidate
+        s15, d15 = sparse.sparse_topk_batch(bd, bw, bi, bq, 1.0, 1.0, lv,
+                                            n_pad, kprime, "linear")
+        for q in range(n_q):
+            exact = dict(zip(d15[q].tolist(), s15[q].tolist()))
+            for sc, d in zip(rerank[0][q].tolist(), rerank[1][q].tolist()):
+                if math.isfinite(sc):
+                    check(exact.get(d) == sc,
+                          "sparse_rerank score != sparse_flat's")
+        n += 3
+        del bd, bw, w16
+    fwd_err = 0.0
+    gen = np.random.default_rng(SEED + 32)
+    texts = sparse_texts(np, gen, 62) + ["fox fox fox dog dog", ""]
+    for kw in ({}, dict(vocab_size=1500, hidden=48, n_hash=4096)):
+        model = te.TextExpansionModel(model_id=f"smoke-{len(kw)}",
+                                      device=dev, **kw)
+        for b in (64, 13, 1):
+            feats = [model._featurize(t) for t in texts[:b]]
+            args = (T(np.stack([f[0] for f in feats])),
+                    T(np.stack([f[1] for f in feats])), model._emb,
+                    model._w1, model._w2, model.top_m)
+            w, f = te.text_expansion_forward(*args)
+            pw, pf = te.text_expansion_forward_plain(*args)
+            torch.cuda.synchronize()
+            check(torch.equal(f, pf), f"text_expansion_forward B={b} "
+                  f"{kw}: feature ids differ from the plain version")
+            err = float((w - pw).abs().max())
+            check(err <= FORWARD_ATOL, f"text_expansion_forward B={b}: "
+                  f"weights differ by {err} > {FORWARD_ATOL}")
+            fwd_err = max(fwd_err, err)
+            n += 1
+    log(f"sparse-small: {n} kernel calls equal to their plain versions "
+        f"(linear, saturation, sparse_coarse, sparse_rerank bitwise; max "
+        f"|diff| log {errs['log']}, sigmoid {errs['sigmoid']} within "
+        f"rtol 2^-21, ids exact; text_expansion_forward ids exact, max "
+        f"weight |diff| {fwd_err} within 2^-20)")
+
+
+SPARSE_MAPPING = {"properties": {
+    "body": {"type": "text"}, "tag": {"type": "keyword"},
+    "ml": {"type": "rank_features"}, "pr": {"type": "rank_feature"}}}
+
+
+def build_sparse_engine(np, dev, n_docs: int):
+    """``InternalEngine`` with n_docs seeded texts; ``ml`` holds the port
+    model's expansion of each (one text_expansion_forward launch on
+    ``dev`` for all), ``pr`` a rank_feature, ``tag`` a keyword; three
+    segments, 20 deletes. Returns (engine, texts, expansions)."""
+    from elasticsearch_tpu_torch.index import InternalEngine
+    from elasticsearch_tpu_torch.mapping import MapperService
+    from elasticsearch_tpu_torch.ml import get_model
+    rng = np.random.default_rng(SEED + 41)
+    texts = sparse_texts(np, rng, n_docs)
+    t0 = time.monotonic()
+    feats = get_model(None, dev).expand_batch(texts)
+    engine = InternalEngine(MapperService(SPARSE_MAPPING),
+                            shard_label="sparse")
+    cuts = {n_docs // 3, 2 * n_docs // 3}
+    for i, (text, f) in enumerate(zip(texts, feats)):
+        engine.index(str(i), {"body": text, "tag": f"t{i % 5}", "ml": f,
+                              "pr": float(1 + (i * 7) % 23)})
+        if i in cuts:
+            engine.refresh()
+    engine.refresh()
+    for i in rng.choice(n_docs, 20, replace=False):
+        engine.delete(str(int(i)))
+    engine.refresh()
+    reader = engine.acquire_reader()
+    log(f"sparse-engine: {n_docs} docs in {len(reader.segments)} segments, "
+        f"expanded and indexed in {time.monotonic() - t0:.1f}s")
+    check(len(reader.segments) >= 2, "sparse-engine: fewer than 2 segments")
+    return engine, texts, feats
+
+
+def sparse_engine_bodies(texts, feats):
+    """text_expansion with model_text and with tokens (boost, paging,
+    exact and limited totals), the four rank_feature functions, and both
+    inside bool with a filter, a should and a must_not."""
+    def te(**opts):
+        return {"text_expansion": {"ml": opts}}
+    common = max(feats[0], key=feats[0].get)     # an anchor of doc 0
+    out = [{"query": te(model_text=t)} for t in texts[5:9]]
+    out += [
+        {"query": te(model_text="word3 word17 word9 word150"), "size": 20},
+        {"query": te(tokens=feats[42])},
+        {"query": te(tokens=feats[7], boost=2.0), "from": 5, "size": 10},
+        {"query": te(model_text=texts[11]), "track_total_hits": True},
+        {"query": te(tokens=feats[42]), "track_total_hits": 5},
+        {"query": {"rank_feature": {"field": f"ml.{common}",
+                                    "saturation": {"pivot": 0.5}}}},
+        {"query": {"rank_feature": {"field": "pr",
+                                    "log": {"scaling_factor": 2.0}}}},
+        {"query": {"rank_feature": {"field": "pr", "sigmoid": {
+            "pivot": 7.0, "exponent": 0.6}}}},
+        {"query": {"rank_feature": {"field": f"ml.{common}", "linear": {},
+                                    "boost": 3.0}}},
+        {"query": {"bool": {"must": [te(model_text=texts[3])],
+                            "filter": [{"term": {"tag": "t2"}}]}},
+         "track_total_hits": True},
+        {"query": {"bool": {
+            "must": [te(tokens=feats[9])],
+            "should": [{"rank_feature": {"field": "pr", "saturation": {
+                "pivot": 8.0}}}],
+            "must_not": [{"term": {"tag": "t4"}}]}}},
+    ]
+    return out
+
+
+def phase_sparse_engine(torch, np, dev, built) -> None:
+    """The sparse path through SearchService on the card and on the CPU:
+    every body with the planes on and off and the quantized tier on and
+    off, plus _count. Responses equal in ids, score bits, totals and
+    max_score. A model_text body is expanded by each side's model; where
+    the two rewrites round a weight to different 4-decimal tokens (K18 and
+    the CPU plain version may differ by an ulp before rounding), the count
+    of such bodies is printed and the card is held to the CPU's tokens."""
+    from elasticsearch_tpu_torch.ml.text_expansion import (
+        rewrite_body_expansions,
+    )
+    from elasticsearch_tpu_torch.ops.device_segment import PLANES
+    from elasticsearch_tpu_torch.search import SearchService
+    engine, texts, feats = built
+    on_dev = SearchService(engine, index_name="smoke", device=dev)
+    on_cpu = SearchService(engine, index_name="smoke", device="cpu")
+    bodies = sparse_engine_bodies(texts, feats)
+    n, rounded_apart = 0, 0
+    t_dev = []
+    try:
+        for enabled, quantized in ((True, True), (True, False),
+                                   (False, True), (False, False)):
+            PLANES.enabled, PLANES.quantized = enabled, quantized
+            PLANES.clear()
+            for body in bodies:
+                body = {**body, "_source": False}
+                cpu_body = rewrite_body_expansions(body, "cpu")
+                if rewrite_body_expansions(body, dev) != cpu_body:
+                    rounded_apart += 1
+                    body = cpu_body
+                t1 = time.monotonic()
+                a = on_dev.search(body)
+                t_dev.append(time.monotonic() - t1)
+                b = on_cpu.search(body)
+                check(same_hits(a, b), f"sparse-engine: card != cpu for "
+                      f"{body} (planes {enabled}, tier {quantized})")
+                n += 1
+    finally:
+        PLANES.enabled, PLANES.quantized = True, True
+    for body in bodies[:6] + bodies[-2:]:
+        query = {"query": rewrite_body_expansions(body, "cpu")["query"]}
+        check(on_dev.count(query) == on_cpu.count(query),
+              f"sparse-engine: _count differs for {body}")
+        n += 1
+    log(f"sparse-engine: {n} responses equal on {dev} and cpu (score bits "
+        f"included; {rounded_apart} model_text bodies whose two rewrites "
+        f"rounded a weight apart, served from the CPU's tokens); {dev} "
+        f"_search latency p50 {1e3 * pct(t_dev, 0.5):.2f} ms p99 "
+        f"{1e3 * pct(t_dev, 0.99):.2f} ms")
+
+
+def build_sparse_segment(args):
+    """One segment's rank_features (run in a worker process): bench.py
+    cfg_sparse's corpus (``build_zipf_postings(n, 8192, max_len=24)``:
+    16..23 tokens a doc, drawn Zipf(1.35) and folded onto the model's
+    8,192 features, duplicates merged) with weights uniform in [0, 3)."""
+    seed, n = args
+    import numpy as np
+    from elasticsearch_tpu_torch.index.segment import (
+        FeaturesField, postings_from_token_matrix,
+    )
+    rng = np.random.default_rng(seed)
+    lens = rng.integers(16, 24, n)
+    toks = rng.zipf(1.35, size=(n, 24)) - 1
+    toks = np.where(toks < SPARSE_VOCAB, toks,
+                    toks % SPARSE_VOCAB).astype(np.int32)
+    toks[np.arange(24)[None, :] >= lens[:, None]] = -1
+    pf = postings_from_token_matrix(toks)
+    del toks
+    weights = np.where(pf.block_docs >= 0,
+                       rng.random(pf.block_tfs.shape, np.float32) * 3.0,
+                       0.0).astype(np.float32)
+    return FeaturesField(
+        features={f"f{i}": i for i in range(len(pf.doc_freq))},
+        block_docs=pf.block_docs, block_weights=weights,
+        block_max_weight=weights.max(axis=1).astype(np.float32),
+        feat_block_start=pf.term_block_start,
+        feat_block_count=pf.term_block_count, doc_freq=pf.doc_freq)
+
+
+def build_sparse_shard(np, n_docs: int, workers: int):
+    import multiprocessing as mp
+    from elasticsearch_tpu_torch.index.segment import Segment
+    sizes = [n_docs // 4 + (1 if i < n_docs % 4 else 0) for i in range(4)]
+    jobs = [(SEED + 200 + i, n) for i, n in enumerate(sizes)]
+    if workers > 1:
+        with mp.get_context("spawn").Pool(workers) as pool:
+            ffs = pool.map(build_sparse_segment, jobs)
+    else:
+        ffs = [build_sparse_segment(j) for j in jobs]
+    segs = []
+    for i, (ff, n) in enumerate(zip(ffs, sizes)):
+        seg = Segment(f"sparse{i}", n)
+        seg.features["ml"] = ff
+        seg.ids = [str(j) for j in range(n)]
+        seg.invalidate_live_count()
+        segs.append(seg)
+    return segs
+
+
+def sparse_oracle(np, segs, tokens, k: int = 10):
+    """The float64 host answer of one expansion: each segment's postings
+    of the query's features gathered and summed per doc with np.bincount
+    (query weights rounded to f32, as the port sends them). Returns
+    (top-k [(seg, doc, score)] by score desc, seg, doc; live matches)."""
+    cands, total = [], 0
+    for si, seg in enumerate(segs):
+        ff = seg.features["ml"]
+        docs, contrib = [], []
+        for name, qw in tokens.items():
+            start, count = ff.feature_blocks(name)
+            if not count:
+                continue
+            bd = ff.block_docs[start: start + count].ravel()
+            bw = ff.block_weights[start: start + count].ravel()
+            m = bd >= 0
+            docs.append(bd[m])
+            contrib.append(float(np.float32(qw)) * bw[m].astype(np.float64))
+        if not docs:
+            continue
+        acc = np.bincount(np.concatenate(docs), np.concatenate(contrib),
+                          minlength=seg.n_docs)
+        matched = (acc > 0) & seg.live[: seg.n_docs]
+        total += int(matched.sum())
+        hit = np.nonzero(matched)[0]
+        if len(hit) > k:
+            hit = hit[np.argpartition(-acc[hit], k)[:k]]
+        cands += [(si, int(d), float(acc[d])) for d in hit]
+    cands.sort(key=lambda c: (-c[2], c[0], c[1]))
+    return cands[:k], total
+
+
+def close_to_oracle(want, got, rtol: float = 1e-6) -> bool:
+    """``got`` [(seg, doc, f32 score)] against the float64 oracle's top-k:
+    scores within rtol, ids equal except inside a near-tie (oracle scores
+    within 2 rtol of each other), a tie group at the cut only as long."""
+    if len(want) != len(got):
+        return False
+    for (_s, _d, w), (_t, _e, g) in zip(want, got):
+        if abs(g - w) > rtol * abs(w):
+            return False
+    i = 0
+    while i < len(want):
+        j = i + 1
+        while j < len(want) and \
+                abs(want[j][2] - want[i][2]) <= 2 * rtol * abs(want[i][2]):
+            j += 1
+        if j < len(want) and {c[:2] for c in want[i:j]} != \
+                {c[:2] for c in got[i:j]}:
+            return False
+        i = j
+    return True
+
+
+def phase_sparse_full(torch, np, dev, n_docs: int, workers: int, n_q: int):
+    """BASELINE #5 at MS MARCO passage scale in the JAX package's own form
+    (bench.py cfg_sparse): 8,841,823 docs in 4 segments, 16-23 features a
+    doc drawn Zipf(1.35) over the default model's 8,192, weights in [0, 3);
+    n_q raw texts of 3-7 words out of 400 sent as text_expansion with
+    model_text. Legs: (a) solo, tier on: the coordinator rewrite (K18 at
+    B 1) and query_shard (K16 + K17); (b) the batch: one expand_batch of
+    every text (K18 at B n_q, cache cleared) and one batched_sparse_shard
+    on the exact plane (K15), x3; (c) the same per segment (K15 per
+    segment), x3; (d) solo dense with exact totals (K19 + K10 per
+    segment). All legs agree in ids and score bits, totals equal the host
+    count, top-10 equals a float64 host oracle up to near-ties."""
+    from elasticsearch_tpu_torch.index.engine import Reader
+    from elasticsearch_tpu_torch.mapping import MapperService
+    from elasticsearch_tpu_torch.ml import get_model
+    from elasticsearch_tpu_torch.ml.text_expansion import (
+        rewrite_body_expansions,
+    )
+    from elasticsearch_tpu_torch.ops.device_segment import PLANES
+    from elasticsearch_tpu_torch.search import dsl
+    from elasticsearch_tpu_torch.search.batch_executor import (
+        BatchSpec, _build_ctxs, batched_sparse_shard,
+    )
+    from elasticsearch_tpu_torch.search.device_profile import DEVICE_PROFILE
+    from elasticsearch_tpu_torch.search.phase import query_shard
+    on_card = dev.type == "cuda"
+
+    t0 = time.monotonic()
+    segs = build_sparse_shard(np, n_docs, workers)
+    n_post = sum(int((s.features["ml"].block_docs >= 0).sum()) for s in segs)
+    n_blocks = sum(s.features["ml"].block_docs.shape[0] for s in segs)
+    log(f"sparse-full: {n_docs} docs in {len(segs)} segments, {n_post} "
+        f"postings in {n_blocks} blocks, built in "
+        f"{time.monotonic() - t0:.1f}s")
+    mappers = MapperService({"properties": {"ml": {"type": "rank_features"}}})
+    reader = Reader(segs)
+    PLANES.clear()
+    t1 = time.monotonic()
+    part = PLANES.get(segs, "features", "ml", dev)
+    check(part is not None, "sparse-full: the features plane was refused")
+    check(part.quantized_mirror() is not None,
+          "sparse-full: the bf16 mirror was refused")
+    if on_card:
+        torch.cuda.synchronize()
+    log(f"sparse-full: plane n_docs_pad={part.n_docs_pad} n_blocks_pad="
+        f"{part.block_docs.shape[0]} resident bytes {part.nbytes} "
+        f"(block_docs + block_weights, bf16 mirror); built+uploaded in "
+        f"{time.monotonic() - t1:.1f}s")
+
+    texts = sparse_texts(np, np.random.default_rng(SEED + 51), n_q)
+    model = get_model(None, dev)
+    model._cache.clear()
+    ctxs = _build_ctxs(reader, mappers, sum(s.n_docs for s in segs), None,
+                       device=dev)
+    DEVICE_PROFILE.timing = on_card
+    legs, results, kern, launched = {}, {}, {}, {}
+
+    def run_leg(name, fn, reps: int = 1):
+        n0 = DEVICE_PROFILE.launches()
+        ms0 = device_ms(SPARSE_FAMILIES + ("dense_topk",))
+        times = []
+        for _rep in range(reps):
+            t = time.monotonic()
+            out = fn()
+            if on_card:
+                torch.cuda.synchronize()
+            times.append(time.monotonic() - t)
+        ms1 = device_ms(SPARSE_FAMILIES + ("dense_topk",))
+        n1 = DEVICE_PROFILE.launches()
+        legs[name] = times
+        kern[name] = {f: round(ms1[f] - ms0[f], 4) for f in ms1
+                      if ms1[f] > ms0[f]}
+        launched[name] = {f: n1.get(f, 0) - n0.get(f, 0) for f in n1
+                          if n1.get(f, 0) > n0.get(f, 0)}
+        return out
+
+    solo_times = []
+
+    def solo_tier():
+        out, toks = [], []
+        for text in texts:
+            t = time.monotonic()
+            body = rewrite_body_expansions({"query": {"text_expansion": {
+                "ml": {"model_text": text}}}}, dev)
+            toks.append(body["query"]["text_expansion"]["ml"]["tokens"])
+            out.append(query_shard(reader, mappers,
+                                   dsl.parse_query(body["query"]), size=10,
+                                   device=dev))
+            solo_times.append(time.monotonic() - t)
+        return out, toks
+
+    def batch():
+        model._cache.clear()
+        specs = [BatchSpec(kind="sparse", field="ml", window=10, tokens=t)
+                 for t in model.expand_batch(texts)]
+        return batched_sparse_shard(ctxs, "ml", specs, 10)
+
+    def dense():
+        return [query_shard(reader, mappers, dsl.parse_query({
+            "text_expansion": {"ml": {"tokens": t}}}), size=10,
+            track_total_hits=True, device=dev) for t in tokens]
+
+    try:
+        stats0 = dict(PLANES.stats)
+        solo, tokens = run_leg("a_solo_tier", solo_tier)
+        served = PLANES.stats["quantized_queries"] - stats0[
+            "quantized_queries"]
+        fallbacks = PLANES.stats["quantized_exact_fallbacks"] - stats0[
+            "quantized_exact_fallbacks"]
+        PLANES.quantized = False
+        results["b_batch_exact_plane"] = run_leg(
+            "b_batch_exact_plane", batch, reps=3)
+        PLANES.enabled = False
+        results["c_batch_per_segment"] = run_leg(
+            "c_batch_per_segment", batch, reps=3)
+        PLANES.enabled = True
+        results["d_dense_exact_totals"] = run_leg("d_dense_exact_totals",
+                                                  dense)
+    finally:
+        PLANES.enabled, PLANES.quantized = True, True
+        DEVICE_PROFILE.timing = False
+    log(f"sparse-full: solo leg: the tier served {served} of {n_q} "
+        f"queries, {fallbacks} exact fallbacks")
+    check(model.expand_batch(texts) == tokens,
+          "sparse-full: the batch expansion differs from the solo rewrites")
+    if on_card:
+        want = {"a_solo_tier": {"text_expansion_forward": len(set(texts))},
+                "b_batch_exact_plane": {"text_expansion_forward": 3,
+                                        "sparse_flat": 3},
+                "c_batch_per_segment": {"text_expansion_forward": 3,
+                                        "sparse_flat": 3 * len(segs)},
+                "d_dense_exact_totals": {"sparse_scores": n_q * len(segs),
+                                         "dense_topk": n_q * len(segs)}}
+        for leg, per in want.items():
+            for fam, count in per.items():
+                check(launched[leg].get(fam, 0) == count,
+                      f"sparse-full {leg}: {launched[leg].get(fam, 0)} "
+                      f"{fam} launches, expected {count}")
+        check(launched["a_solo_tier"].get("sparse_coarse", 0) >= served > 0
+              and launched["a_solo_tier"].get("sparse_rerank", 0) >= served,
+              "sparse-full: the solo leg did not run the coarse tier")
+    n_exact_hits = 0
+    for qi in range(n_q):
+        base = [(d.segment_idx, d.doc, d.score) for d in solo[qi].docs]
+        check(bool(base), f"sparse-full: query {qi} matched nothing")
+        for leg in ("b_batch_exact_plane", "c_batch_per_segment"):
+            cands = results[leg][qi][0]
+            check([(c.segment_idx, c.doc, c.score) for c in cands[:10]]
+                  == base, f"sparse-full: query {qi}: {leg} differs from "
+                  f"the solo tier leg")
+        res = results["d_dense_exact_totals"][qi]
+        check([(d.segment_idx, d.doc, d.score) for d in res.docs] == base,
+              f"sparse-full: query {qi}: the dense leg differs")
+        top, host_total = sparse_oracle(np, segs, tokens[qi])
+        check(close_to_oracle(top, base),
+              f"sparse-full: query {qi}: top-10 differs from the float64 "
+              f"oracle")
+        totals = {res.total_hits} | {results[leg][qi][1] for leg in (
+            "b_batch_exact_plane", "c_batch_per_segment")}
+        check(totals == {host_total} and res.total_relation == "eq",
+              f"sparse-full: query {qi}: totals {totals} != host count "
+              f"{host_total}")
+        check(solo[qi].total_hits == min(host_total, 10_000),
+              f"sparse-full: query {qi}: solo total {solo[qi].total_hits}")
+        n_exact_hits = max(n_exact_hits, host_total)
+    log(f"sparse-full: {n_q} queries: the four legs agree in ids and score "
+        f"bits, totals equal the host count (largest {n_exact_hits}), "
+        f"top-10 equal to the float64 oracle up to near-ties")
+    for leg, times in legs.items():
+        busy = sum(kern[leg].values()) / max(1e3 * sum(times), 1e-9)
+        if leg == "a_solo_tier":
+            what = (f"solo p50 {1e3 * pct(solo_times, 0.5):.3f} ms p99 "
+                    f"{1e3 * pct(solo_times, 0.99):.3f} ms (rewrite + "
+                    f"query_shard)")
+        else:
+            what = (f"{len(times)} run(s) of {n_q} queries, p50 "
+                    f"{1e3 * pct(times, 0.5):.3f} ms a run")
+        log(f"sparse-full: leg {leg}: {what}; wall total "
+            f"{1e3 * sum(times):.3f} ms; kernel device ms {kern[leg]}; "
+            f"launches {launched[leg]}; kernel-busy share {busy:.4f}")
+
+
+def sparse_size(family: str, args):
+    """(queries, gathered slots) of a sparse kernel call; B for K18."""
+    if family == "text_expansion_forward":
+        return args[0].shape[0], 0
+    idx = args[2]
+    return (idx.shape[0] if idx.dim() == 2 else 1), idx.numel()
+
+
+def sparse_n_docs_pad(family: str, args) -> int:
+    pos = {"sparse_flat": 7, "sparse_scores": 6, "sparse_coarse": 5,
+           "sparse_rerank": 7}
+    return args[pos[family]] if family in pos else 0
+
+
+def sparse_real_slots(args) -> int:
+    """Gathered slots of a call that carry a query weight (not padding)."""
+    return int((args[3] != 0).sum())
+
+
+def sparse_bound(torch, family: str, args):
+    """(bound_ms, bound_by, bytes): each input read once and each output
+    written once over the memory rate, or the arithmetic at the f32 peak,
+    whichever is larger. Only the gathered blocks of real (weight != 0)
+    slots count, and for K18 only the embedding rows of real ids."""
+    if family == "text_expansion_forward":
+        ids, direct, _emb, w1, w2, top_m = args
+        b = ids.shape[0]
+        hid, vocab = w1.shape[0], w2.shape[1]
+        rows = int((ids != 0).sum())
+        nbytes = (ids.numel() + direct.numel()) * 4 + rows * hid * 4 \
+            + (w1.numel() + w2.numel()) * 4 + b * top_m * 8
+        ops = 2 * b * hid * (hid + vocab) + rows * hid
+    else:
+        n_q = args[2].shape[0] if args[2].dim() == 2 else 1
+        n_pad = sparse_n_docs_pad(family, args)
+        postings = sparse_real_slots(args) * 128
+        wb = args[1].element_size()
+        nbytes = postings * (4 + wb) + args[2].numel() * 8
+        flops = {"linear": 1, "saturation": 3, "log": 3, "sigmoid": 5}
+        ops = postings * (1 if family in ("sparse_coarse", "sparse_rerank")
+                          else flops[args[9] if family == "sparse_flat"
+                                     else args[7]])
+        if family == "sparse_flat":
+            k = args[8]
+            nbytes += n_pad + n_q * k * 8 + n_q * 4
+        elif family == "sparse_scores":
+            nbytes += n_pad * 5
+        elif family == "sparse_coarse":
+            nbytes += n_pad + n_q * args[6] * 8 + n_q * 4
+        else:
+            kprime, k = args[8], args[9]
+            nbytes += n_q * kprime * (8 + 1) + n_q * k * 8 + n_q * 4
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = ops / F32_FLOPS
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                       else "operations"), nbytes
+
+
+def sparse_plain_bytes(torch, family: str, args) -> int:
+    """Rough peak device bytes of the plain version's temporaries: about
+    64 a gathered posting and 64 a cell of its [n_q, n_docs_pad] plane
+    (int64 sums and their f64 conversion, f32 scores, the stable sort's
+    keys, int64 indices and scratch)."""
+    if family == "text_expansion_forward":
+        return args[0].shape[0] * args[4].shape[1] * 32
+    n_q = args[2].shape[0] if args[2].dim() == 2 else 1
+    plane = 0 if family == "sparse_rerank" else \
+        n_q * sparse_n_docs_pad(family, args) * 64
+    return sparse_real_slots(args) * 128 * 64 + plane
+
+
+def sparse_library_ms(torch, family: str, args):
+    """One PyTorch call computing part of the same function, where there
+    is one: index_add_'s f32 sums of the call's real contributions into a
+    zeroed [n_q, n_docs_pad] plane for K15 / K19 (the sums only: no
+    transform, mask or top-k); torch.matmul of [B, H] rows by W2 and
+    torch.topk over the [B, V] product for K18 (no embedding bag, W1,
+    gelu, normalization or anchors). None for K16 / K17."""
+    if family in ("sparse_coarse", "sparse_rerank"):
+        return None
+    if family == "text_expansion_forward":
+        ids, _direct, _emb, w1, w2, top_m = args
+        h = torch.randn(ids.shape[0], w1.shape[0], device=w2.device)
+        return time_call(torch, lambda: torch.topk(torch.matmul(h, w2),
+                                                   top_m), 20)
+    docs, weights, idx, qw = args[:4]
+    if idx.dim() == 1:
+        idx, qw = idx[None], qw[None]
+    n_pad = sparse_n_docs_pad(family, args)
+    q_of, slot = torch.nonzero(qw != 0, as_tuple=True)
+    blocks = idx[q_of, slot].long()
+    d = docs[blocks]
+    c = (qw[q_of, slot][:, None] * weights[blocks]).reshape(-1)
+    tgt = (q_of[:, None] * n_pad + d.clamp_min(0).long()).reshape(-1)
+    keep = d.reshape(-1) >= 0
+    tgt, c = tgt[keep], c[keep]
+    size = idx.shape[0] * n_pad
+    return time_call(torch, lambda: torch.zeros(
+        size, device=docs.device).index_add_(0, tgt, c), 20)
+
+
+def sparse_shape(family: str, args) -> str:
+    if family == "text_expansion_forward":
+        return (f"B={args[0].shape[0]} L={args[0].shape[1]} "
+                f"H={args[3].shape[0]} V={args[4].shape[1]} m={args[5]}")
+    n_q, slots = sparse_size(family, args)
+    shape = f"n_q={n_q} slots={slots} n_docs_pad={sparse_n_docs_pad(family, args)}"
+    if family == "sparse_flat":
+        shape += f" k={args[8]} function={args[9]}"
+    elif family == "sparse_coarse":
+        shape += f" kprime={args[6]}"
+    elif family == "sparse_rerank":
+        shape += f" kprime={args[8]} k={args[9]}"
+    else:
+        shape += f" function={args[7]}"
+    return shape
+
+
+def phase_sparse_kernels(torch, np, rec, launches, dev) -> list:
+    """Each sparse-path family held against its plain version on up to 8
+    main-path calls plus its largest per plane length (where the plain
+    version fits), then timed (CUDA events) at its largest main-path call
+    beside its bound, the plain version and its library yardstick; K18 is
+    also timed on cache misses at B 64 and B 4,096 (distinct texts)."""
+    from elasticsearch_tpu_torch.ml import get_model
+    from elasticsearch_tpu_torch.ml import text_expansion as te
+    from elasticsearch_tpu_torch.ops import sparse
+    fns = {"sparse_flat": (sparse.sparse_topk_batch,
+                           sparse.sparse_flat_plain),
+           "sparse_scores": (sparse.sparse_scores,
+                             sparse.sparse_scores_plain),
+           "sparse_coarse": (sparse.sparse_coarse_kernel,
+                             sparse.sparse_coarse_plain),
+           "sparse_rerank": (sparse.sparse_rerank_kernel,
+                             sparse.sparse_rerank_plain),
+           "text_expansion_forward": (te.text_expansion_forward,
+                                      te.text_expansion_forward_plain)}
+    rows = []
+    for fam in SPARSE_FAMILIES:
+        kernel, plain = fns[fam]
+        calls = rec.calls[fam]
+        check(bool(calls), f"kernels: no {fam} call recorded")
+        torch.cuda.empty_cache()
+        room = 0.85 * torch.cuda.mem_get_info()[0]
+        fit = [c for c in calls if sparse_plain_bytes(torch, fam, c[0]) < room]
+        check(bool(fit), f"kernels: no {fam} call's plain version fits")
+
+        def fits(call):
+            return any(call is c for c in fit)
+        err = 0.0
+        for args, kwargs in fit[:8] + [c for c in rec.largest_calls(fam)
+                                       if fits(c)]:
+            got = kernel(*args, **kwargs)
+            want = plain(*args, **kwargs)
+            torch.cuda.synchronize()
+            if not isinstance(got, tuple):
+                got, want = (got,), (want,)
+            if fam == "text_expansion_forward":
+                check(torch.equal(got[1], want[1]),
+                      "kernels: text_expansion_forward ids differ")
+                e = float((got[0] - want[0]).abs().max())
+                check(e <= FORWARD_ATOL,
+                      f"kernels: text_expansion_forward |diff| {e}")
+                err = max(err, e)
+            else:
+                fn = args[9] if fam == "sparse_flat" else (
+                    args[7] if fam == "sparse_scores" else "linear")
+                err = max(err, compare(
+                    torch, fam, got, want, fn in ("linear", "saturation"),
+                    SPARSE_RTOL))
+            del got, want
+        largest = max(calls, key=lambda c: sparse_size(fam, c[0]))
+        args, kwargs = largest
+        ms = time_call(torch, lambda: kernel(*args, **kwargs), 20)
+        if fits(largest):
+            probe = time_call(torch, lambda: plain(*args, **kwargs), 1)
+            plain_ms = time_call(torch, lambda: plain(*args, **kwargs),
+                                 5 if probe < 250 else 1)
+            plain_note = ""
+        else:
+            p_args, p_kw = max(fit, key=lambda c: sparse_size(fam, c[0]))
+            plain_ms = time_call(torch, lambda: plain(*p_args, **p_kw), 1)
+            plain_note = (f" (plain version at {sparse_shape(fam, p_args)}:"
+                          f" the largest call's does not fit)")
+        bound_ms, bound_by, nbytes = sparse_bound(torch, fam, args)
+        lib_ms = sparse_library_ms(torch, fam, args)
+        shape = sparse_shape(fam, args)
+        log(f"kernel {fam}: {ms:.4f} ms (median of 20), plain {plain_ms:.4f}"
+            f" ms{plain_note}, bound {bound_ms:.4f} ms ({nbytes} bytes at "
+            f"3.35 TB/s, {bound_by}), library "
+            f"{'none' if lib_ms is None else f'{lib_ms:.4f} ms'}, "
+            f"max_abs_err {err} over {len(fit[:8])} main-path calls and the"
+            f" largest, timed at {shape}")
+        for g_args, _g_kw in rec.largest_calls(fam):
+            if g_args is not args and fam == "sparse_flat" and \
+                    sparse_size(fam, g_args)[0] > 1:
+                g_ms = time_call(torch, lambda: kernel(*g_args, **_g_kw), 20)
+                log(f"kernel {fam}: {g_ms:.4f} ms at the largest batch of "
+                    f"another length, {sparse_shape(fam, g_args)}, bound "
+                    f"{sparse_bound(torch, fam, g_args)[0]:.4f} ms")
+        rows.append({
+            "name": fam, "route": "cuda",
+            "source": f"elasticsearch_tpu_torch/csrc/{fam}.cu",
+            "replaces": REPLACES[fam], "launches": launches.get(fam, 0),
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": lib_ms, "shape": shape})
+        torch.cuda.empty_cache()
+    # K18 on cache misses: distinct texts through expand_batch (host
+    # featurize + launch + copy back) and the launch alone
+    model = get_model(None, dev)
+    gen = np.random.default_rng(SEED + 61)
+    for b in (64, 4096):
+        texts = list(dict.fromkeys(sparse_texts(np, gen, 2 * b)))[:b]
+        model._cache.clear()
+        t = time.monotonic()
+        model.expand_batch(texts)
+        wall = time.monotonic() - t
+        feats = [model._featurize(x) for x in texts]
+        args = (torch.as_tensor(np.stack([f[0] for f in feats]), device=dev),
+                torch.as_tensor(np.stack([f[1] for f in feats]), device=dev),
+                model._emb, model._w1, model._w2, model.top_m)
+        ms = time_call(torch, lambda: te.text_expansion_forward(*args), 20)
+        plain_ms = time_call(
+            torch, lambda: te.text_expansion_forward_plain(*args), 1)
+        log(f"kernel text_expansion_forward: B={len(texts)} cache misses: "
+            f"expand_batch wall {1e3 * wall:.3f} ms, kernel {ms:.4f} ms "
+            f"(median of 20), plain {plain_ms:.4f} ms, bound "
+            f"{sparse_bound(torch, 'text_expansion_forward', args)[0]:.4f} "
+            f"ms, library (W2 product + top-k) "
+            f"{sparse_library_ms(torch, 'text_expansion_forward', args):.4f}"
+            f" ms")
+    model._cache.clear()
+    return rows
+
+
+# ---------------------------------------------------------------------------
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--phases", default="card,small,knn-small,dense-small,"
-                    "ivf-small,engine,full,kernels,knn-engine,knn-full,"
-                    "dense-engine,dense-full,ivf-engine,ivf-full")
+                    "ivf-small,sparse-small,engine,full,kernels,knn-engine,"
+                    "knn-full,dense-engine,dense-full,ivf-engine,ivf-full,"
+                    "sparse-engine,sparse-full")
     ap.add_argument("--full-docs", type=int, default=MS_MARCO_DOCS)
     ap.add_argument("--engine-docs", type=int, default=50_000)
     ap.add_argument("--knn-docs", type=int, default=SIFT_DOCS)
@@ -2668,6 +3496,8 @@ def main(argv=None) -> int:
     ap.add_argument("--ivf-engine-docs", type=int, default=6_000)
     ap.add_argument("--gist-docs", type=int, default=GIST_DOCS)
     ap.add_argument("--gist-queries", type=int, default=128)
+    ap.add_argument("--sparse-docs", type=int, default=MS_MARCO_DOCS)
+    ap.add_argument("--sparse-engine-docs", type=int, default=3_000)
     ap.add_argument("--queries", type=int, default=64)
     ap.add_argument("--workers", type=int, default=4)
     ap.add_argument("--rehearse", action="store_true",
@@ -2718,6 +3548,9 @@ def main(argv=None) -> int:
         if "ivf-small" in phases and on_card:
             phase_ivf_small(torch, np, dev)
             log(t(), "ivf-small done")
+        if "sparse-small" in phases and on_card:
+            phase_sparse_small(torch, np, dev)
+            log(t(), "sparse-small done")
         from elasticsearch_tpu_torch.ops import bm25 as bm
         from elasticsearch_tpu_torch.ops import ivf, knn, topk
         rows = []
@@ -2828,8 +3661,46 @@ def main(argv=None) -> int:
                 log(t(), "ivf kernels done")
         del irec
         PLANES.clear()
+        # the earlier phases' shards (host arrays) are not needed past here
+        shared.clear()
+        if on_card:
+            torch.cuda.empty_cache()
+        # the sparse main path: launch counts from zero, read right after
+        from elasticsearch_tpu_torch.ml import text_expansion as te
+        from elasticsearch_tpu_torch.ops import sparse
+        if "sparse-engine" in phases:
+            engines["sparse"] = build_sparse_engine(np, dev,
+                                                    args.sparse_engine_docs)
+        DEVICE_PROFILE.reset_launches()
+        targets = {"sparse_flat": (sparse, "sparse_topk_batch"),
+                   "sparse_scores": (sparse, "sparse_scores"),
+                   "sparse_coarse": (sparse, "sparse_coarse_kernel"),
+                   "sparse_rerank": (sparse, "sparse_rerank_kernel"),
+                   "text_expansion_forward": (te, "text_expansion_forward")}
+        # one largest call per plane length (the plane, a segment)
+        with Recorder(targets, sparse_size, keep=8,
+                      group=sparse_n_docs_pad) as srec:
+            if "sparse-engine" in phases:
+                phase_sparse_engine(torch, np, dev, engines["sparse"])
+                log(t(), "sparse-engine done")
+            if "sparse-full" in phases:
+                phase_sparse_full(torch, np, dev, args.sparse_docs,
+                                  args.workers, args.queries)
+                log(t(), "sparse-full done")
+        launches = DEVICE_PROFILE.launches()
+        log("launches on the sparse main path: " + json.dumps(
+            {f: launches.get(f, 0) for f in SPARSE_FAMILIES}))
+        if on_card and "sparse-full" in phases:
+            for fam in SPARSE_FAMILIES:
+                check(launches.get(fam, 0) > 0,
+                      f"{fam} was never launched on the main path")
+            if "kernels" in phases:
+                rows += phase_sparse_kernels(torch, np, srec, launches, dev)
+                log(t(), "sparse kernels done")
+        del srec
+        PLANES.clear()
         if on_card and {"full", "knn-full", "dense-full", "ivf-full",
-                        "kernels"} <= phases:
+                        "sparse-full", "kernels"} <= phases:
             from elasticsearch_tpu_torch.search.device_profile import (
                 KERNEL_FAMILIES, MASKED_VARIANTS,
             )

@@ -1,10 +1,12 @@
 """Carry an index built by the JAX package into this one.
 
-The system has no weights: its state is the index. Segments written by
-either package are the same numpy arrays and Python lists (the on-disk
-formats under ``index/`` are shared copies), so conversion is a field-by-
-field copy into this package's classes; an IVF index is its five arrays,
-moved onto a device. The reference objects are read
+The system's state is the index, plus the expansion model's weights.
+Segments written by either package are the same numpy arrays and Python
+lists (the on-disk formats under ``index/`` are shared copies), so
+conversion is a field-by-field copy into this package's classes
+(rank_features fields included); an IVF index is its five arrays, moved
+onto a device; an expansion model is its three weight matrices and its
+widths. The reference objects are read
 duck-typed — their arrays, dicts and lists only — and nothing of the JAX
 package is imported.
 """
@@ -83,3 +85,20 @@ def ivf_from_reference(centroids, lists, valid, ids, norms, similarity: str,
     return IVFIndex(put(centroids, np.float32), put(lists, np.float32),
                     put(valid, bool), put(ids, np.int32), similarity,
                     put(norms, np.float32))
+
+
+def expansion_model_from_reference(model, device=None):
+    """This package's ``TextExpansionModel`` holding a reference expansion
+    model's weights (``_emb`` [n_hash, H], ``_w1`` [H, H], ``_w2`` [H, V],
+    read with ``np.asarray``) and widths, on ``device``, under the same
+    model id; its expansion cache starts empty. The weights are copied,
+    not re-made from a seed, so a model whose weights were replaced (a
+    state-dict load) carries over as it is."""
+    from elasticsearch_tpu_torch.ml.text_expansion import TextExpansionModel
+    weights = tuple(np.array(a, dtype=np.float32)
+                    for a in (model._emb, model._w1, model._w2))
+    return TextExpansionModel(
+        model_id=model.model_id, vocab_size=int(model.vocab_size),
+        hidden=int(model.hidden), n_hash=int(model.n_hash),
+        max_tokens=int(model.max_tokens), top_m=int(model.top_m),
+        device=device, weights=weights)

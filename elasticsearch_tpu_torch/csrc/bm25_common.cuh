@@ -1,7 +1,8 @@
-// Shared device code of the four BM25 kernel families (bm25_flat,
-// bm25_flat_seg, bm25_coarse, bm25_rerank).
+// Shared device code of the BM25 kernel families (bm25_flat,
+// bm25_flat_seg, bm25_coarse, bm25_rerank, bm25_scores), which the
+// rank_features families (sparse_common.cuh) reuse.
 //
-// Three pieces, each written once and used by every family:
+// Four pieces, each written once and used by every family:
 //
 // 1. The per-posting BM25 contribution, in f32 (contrib_f32) and in the
 //    bf16 arithmetic of the coarse tier (contrib_bf16). Every operation is
@@ -16,6 +17,9 @@
 // 3. The chunked mask + count + top-k over the fixed-point plane, built on
 //    the CTA-wide top-k of topk_common.cuh (score descending, index
 //    ascending, -inf slots included: the order lax.top_k returns).
+// 4. The exact tier's candidate handling: each row's k' coarse candidates
+//    sorted by doc id (so a posting finds its slot by binary search), and
+//    the mask + top-k + eps pass over the re-scored slots.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -204,35 +208,19 @@ __global__ void chunk_select_kernel(const long long* __restrict__ acc,
     }
 }
 
-// The whole dense pipeline shared by bm25_flat, bm25_flat_seg and
-// bm25_coarse: zero the fixed-point plane, scatter every gathered posting
-// into it, then mask + count + top-k it in chunks and merge the chunk
-// winners. Scratch (acc, chunk winners) comes from the caller. Returns
-// the first CUDA error, 0 on success.
-template <bool BF16>
-int dense_topk(const int* block_docs, const void* block_tfs,
-               const int* flat_idx, const float* flat_w, const int* flat_q,
-               const void* doc_lens, const float* flat_avgdl,
-               const uint8_t* live, const int* seg_ids, int fb,
-               long long n_docs_pad, int n_q, int k, int mode, int n_segs,
-               Consts c, long long* acc, float* chunk_s, int* chunk_i,
-               float* out_s, int* out_i, int* hits, cudaStream_t stream) {
-    if (k < 1 || k > KMAX || n_q < 1 || fb < 0 || n_docs_pad < k ||
-        (mode == COUNT_SEGS && (n_segs < 1 || n_segs > MAX_SEGS)))
-        return (int)cudaErrorInvalidValue;
-    cudaError_t err = cudaMemsetAsync(
-        acc, 0, sizeof(long long) * (size_t)n_q * (size_t)n_docs_pad, stream);
-    if (err != cudaSuccess) return (int)err;
+// Mask + count + top-k of a zeroed-then-scattered [n_q, n_docs_pad]
+// fixed-point plane: chunk winners, then one merge CTA per row (skipped
+// when a row is one chunk). hits (may be null) is zeroed here. Returns the
+// first CUDA error, 0 on success.
+inline int select_plane(const long long* acc, const uint8_t* live,
+                        const int* seg_ids, long long n_docs_pad, int n_q,
+                        int k, int mode, int n_segs, float* chunk_s,
+                        int* chunk_i, float* out_s, int* out_i, int* hits,
+                        cudaStream_t stream) {
+    cudaError_t err;
     if (hits != nullptr) {
         const size_t nh = (size_t)n_q * (mode == COUNT_SEGS ? n_segs : 1);
         err = cudaMemsetAsync(hits, 0, sizeof(int) * nh, stream);
-        if (err != cudaSuccess) return (int)err;
-    }
-    if (fb > 0) {
-        scatter_kernel<BF16><<<fb, BLOCK, 0, stream>>>(
-            block_docs, block_tfs, flat_idx, flat_w, flat_q, doc_lens,
-            flat_avgdl, n_docs_pad, c, (unsigned long long*)acc);
-        err = cudaGetLastError();
         if (err != cudaSuccess) return (int)err;
     }
     const int n_chunks = (int)((n_docs_pad + CHUNK - 1) / CHUNK);
@@ -258,6 +246,177 @@ int dense_topk(const int* block_docs, const void* block_tfs,
         if (err != cudaSuccess) return (int)err;
     }
     return 0;
+}
+
+// The whole dense pipeline shared by bm25_flat, bm25_flat_seg and
+// bm25_coarse: zero the fixed-point plane, scatter every gathered posting
+// into it, then select_plane. Scratch (acc, chunk winners) comes from the
+// caller. Returns the first CUDA error, 0 on success.
+template <bool BF16>
+int dense_topk(const int* block_docs, const void* block_tfs,
+               const int* flat_idx, const float* flat_w, const int* flat_q,
+               const void* doc_lens, const float* flat_avgdl,
+               const uint8_t* live, const int* seg_ids, int fb,
+               long long n_docs_pad, int n_q, int k, int mode, int n_segs,
+               Consts c, long long* acc, float* chunk_s, int* chunk_i,
+               float* out_s, int* out_i, int* hits, cudaStream_t stream) {
+    if (k < 1 || k > KMAX || n_q < 1 || fb < 0 || n_docs_pad < k ||
+        (mode == COUNT_SEGS && (n_segs < 1 || n_segs > MAX_SEGS)))
+        return (int)cudaErrorInvalidValue;
+    cudaError_t err = cudaMemsetAsync(
+        acc, 0, sizeof(long long) * (size_t)n_q * (size_t)n_docs_pad, stream);
+    if (err != cudaSuccess) return (int)err;
+    if (fb > 0) {
+        scatter_kernel<BF16><<<fb, BLOCK, 0, stream>>>(
+            block_docs, block_tfs, flat_idx, flat_w, flat_q, doc_lens,
+            flat_avgdl, n_docs_pad, c, (unsigned long long*)acc);
+        err = cudaGetLastError();
+        if (err != cudaSuccess) return (int)err;
+    }
+    return select_plane(acc, live, seg_ids, n_docs_pad, n_q, k, mode, n_segs,
+                        chunk_s, chunk_i, out_s, out_i, hits, stream);
+}
+
+// --------------------------------------------------------------------------
+// one query's dense row: fixed point -> f32
+// --------------------------------------------------------------------------
+
+constexpr int CONVERT_THREADS = 256;
+
+// out[doc] = live[doc] ? f32(acc[doc]) : 0 (live may be null: all live).
+__global__ void convert_kernel(const long long* __restrict__ acc,
+                               const uint8_t* __restrict__ live,
+                               long long n, float* __restrict__ out) {
+    const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+    if (i >= n) return;
+    out[i] = (live == nullptr || live[i]) ? from_fixed(acc[i]) : 0.f;
+}
+
+inline int convert_row(const long long* acc, const uint8_t* live,
+                       long long n, float* out, cudaStream_t stream) {
+    const long long blocks = (n + CONVERT_THREADS - 1) / CONVERT_THREADS;
+    convert_kernel<<<(unsigned)blocks, CONVERT_THREADS, 0, stream>>>(
+        acc, live, n, out);
+    return (int)cudaGetLastError();
+}
+
+// --------------------------------------------------------------------------
+// the exact tier: sorted candidates, re-scored slots, mask + top-k + eps
+// --------------------------------------------------------------------------
+
+// grid (n_q): sort row q's candidates ascending by doc id, carrying the
+// coarse scores; zero the row's accumulator.
+__global__ void sort_candidates_kernel(const int* __restrict__ cand,
+                                       const float* __restrict__ coarse_s,
+                                       int kprime, int kp2,
+                                       int* __restrict__ cand_s,
+                                       float* __restrict__ cs_s,
+                                       long long* __restrict__ acc) {
+    extern __shared__ __align__(16) unsigned char smem_raw[];
+    int* sd = (int*)smem_raw;
+    float* sc = (float*)(sd + kp2);
+    const long long base = (long long)blockIdx.x * kprime;
+    for (int j = threadIdx.x; j < kp2; j += blockDim.x) {
+        sd[j] = j < kprime ? cand[base + j] : INT_MAX;
+        sc[j] = j < kprime ? coarse_s[base + j] : -INFINITY;
+    }
+    __syncthreads();
+    for (int size = 2; size <= kp2; size <<= 1) {
+        for (int stride = size >> 1; stride > 0; stride >>= 1) {
+            for (int t = threadIdx.x; t < (kp2 >> 1); t += blockDim.x) {
+                const int lo = 2 * t - (t & (stride - 1));
+                const int hi = lo + stride;
+                const bool up = (lo & size) == 0;
+                if ((sd[lo] > sd[hi]) == up) {
+                    const int d = sd[lo]; sd[lo] = sd[hi]; sd[hi] = d;
+                    const float s = sc[lo]; sc[lo] = sc[hi]; sc[hi] = s;
+                }
+            }
+            __syncthreads();
+        }
+    }
+    for (int j = threadIdx.x; j < kprime; j += blockDim.x) {
+        cand_s[base + j] = sd[j];
+        cs_s[base + j] = sc[j];
+        acc[base + j] = 0;
+    }
+}
+
+inline int sort_candidates(const int* cand, const float* coarse_s, int n_q,
+                           int kprime, int* cand_s, float* cs_s,
+                           long long* acc, cudaStream_t stream) {
+    int kp2 = 1;
+    while (kp2 < kprime) kp2 <<= 1;
+    const size_t ssmem = (size_t)kp2 * 8;
+    cudaError_t err = set_smem((const void*)sort_candidates_kernel, ssmem);
+    if (err != cudaSuccess) return (int)err;
+    sort_candidates_kernel<<<n_q, SEL_THREADS, ssmem, stream>>>(
+        cand, coarse_s, kprime, kp2, cand_s, cs_s, acc);
+    return (int)cudaGetLastError();
+}
+
+// Slot of ``doc`` in one row's kprime sorted candidates, or -1.
+__device__ __forceinline__ int candidate_slot(const int* cs, int kprime,
+                                              int doc) {
+    int lo = 0, hi = kprime;
+    while (lo < hi) {
+        const int mid = (lo + hi) >> 1;
+        if (cs[mid] < doc) lo = mid + 1; else hi = mid;
+    }
+    return (lo < kprime && cs[lo] == doc) ? lo : -1;
+}
+
+// grid (n_q): mask, top-k over the row's k' slots, eps.
+__global__ void rerank_finish_kernel(const long long* __restrict__ acc,
+                                     const int* __restrict__ cand_s,
+                                     const float* __restrict__ cs_s,
+                                     const uint8_t* __restrict__ live,
+                                     int kprime, int k, int cap,
+                                     float* __restrict__ out_s,
+                                     int* __restrict__ out_d,
+                                     float* __restrict__ eps) {
+    extern __shared__ __align__(16) unsigned char smem_raw[];
+    float* bs = (float*)smem_raw;
+    int* bi = (int*)(bs + cap);
+    __shared__ SelShared sh;
+    __shared__ int eps_bits;
+    if (threadIdx.x == 0) eps_bits = 0;
+    const long long base = (long long)blockIdx.x * kprime;
+    float my_eps = 0.f;
+    auto load = [&](long long j, float& s, int& i) {
+        const long long v = acc[base + j];
+        const bool ok = live[cand_s[base + j]] && v > 0;
+        const float exact = from_fixed(v);
+        s = ok ? exact : -INFINITY;
+        i = (int)j;
+        const float coarse = cs_s[base + j];
+        if (ok && isfinite(coarse)) {
+            const float d = fabsf(__fsub_rn(exact, coarse));
+            my_eps = d > my_eps ? d : my_eps;
+        }
+    };
+    cta_select(load, kprime, k, cap, bs, bi, &sh);
+    // eps >= 0: the order of non-negative floats is the order of their bits
+    atomicMax(&eps_bits, __float_as_int(my_eps));
+    __syncthreads();
+    if (threadIdx.x == 0) eps[blockIdx.x] = __int_as_float(eps_bits);
+    for (int r = threadIdx.x; r < k; r += blockDim.x) {
+        out_s[(long long)blockIdx.x * k + r] = bs[r];
+        out_d[(long long)blockIdx.x * k + r] = cand_s[base + bi[r]];
+    }
+}
+
+inline int rerank_finish(const long long* acc, const int* cand_s,
+                         const float* cs_s, const uint8_t* live, int n_q,
+                         int kprime, int k, float* out_s, int* out_d,
+                         float* eps, cudaStream_t stream) {
+    const int cap = select_cap(k, SEL_THREADS);
+    const size_t fsmem = (size_t)cap * 8;
+    cudaError_t err = set_smem((const void*)rerank_finish_kernel, fsmem);
+    if (err != cudaSuccess) return (int)err;
+    rerank_finish_kernel<<<n_q, SEL_THREADS, fsmem, stream>>>(
+        acc, cand_s, cs_s, live, kprime, k, cap, out_s, out_d, eps);
+    return (int)cudaGetLastError();
 }
 
 }  // namespace bm25

@@ -19,24 +19,10 @@
 // gathered block, one thread per posting, the contribution one rounded
 // f32 op at a time, summed as 64-bit fixed point with integer atomics),
 // at one query, so a doc's score has K1's bits for the same blocks in any
-// order; then one convert pass to f32, masked by live. The plain PyTorch
+// order; then one convert pass to f32, masked by live (bm25_common.cuh
+// convert_row, shared with sparse_scores). The plain PyTorch
 // version is elasticsearch_tpu_torch/ops/bm25.py `bm25_block_scores_plain`.
 #include "bm25_common.cuh"
-
-namespace {
-
-constexpr int CONVERT_THREADS = 256;
-
-// out[doc] = live[doc] ? f32(acc[doc]) : 0 (live may be null: all live).
-__global__ void convert_kernel(const long long* __restrict__ acc,
-                               const uint8_t* __restrict__ live,
-                               long long n, float* __restrict__ out) {
-    const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-    if (i >= n) return;
-    out[i] = (live == nullptr || live[i]) ? bm25::from_fixed(acc[i]) : 0.f;
-}
-
-}  // namespace
 
 // block_q: [qb] int32 zeros and block_avgdl: [qb] f32 avgdl (the flat
 // rows of one query); acc: [n_docs_pad] int64 scratch; out:
@@ -60,9 +46,5 @@ extern "C" int bm25_scores_launch(
         err = cudaGetLastError();
         if (err != cudaSuccess) return (int)err;
     }
-    const long long blocks = (n_docs_pad + CONVERT_THREADS - 1) /
-                             CONVERT_THREADS;
-    convert_kernel<<<(unsigned)blocks, CONVERT_THREADS, 0, stream>>>(
-        acc, live, n_docs_pad, out);
-    return (int)cudaGetLastError();
+    return bm25::convert_row(acc, live, n_docs_pad, out, stream);
 }

@@ -1,11 +1,16 @@
 from elasticsearch_tpu_torch.ops.bm25 import Bm25Executor, idf
 from elasticsearch_tpu_torch.ops.device_segment import (
     PLANES,
+    DeviceFeatures,
     DevicePostings,
     DeviceVectors,
     device_live_mask,
 )
 from elasticsearch_tpu_torch.ops.knn import KnnExecutor
+from elasticsearch_tpu_torch.ops.sparse import (
+    SparseExecutor, sparse_scores, sparse_topk,
+)
 
-__all__ = ["Bm25Executor", "DevicePostings", "DeviceVectors", "KnnExecutor",
-           "PLANES", "device_live_mask", "idf"]
+__all__ = ["Bm25Executor", "DeviceFeatures", "DevicePostings",
+           "DeviceVectors", "KnnExecutor", "PLANES", "SparseExecutor",
+           "device_live_mask", "idf", "sparse_scores", "sparse_topk"]

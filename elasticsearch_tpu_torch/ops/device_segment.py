@@ -1,7 +1,7 @@
-"""Device mirrors of segment postings and vectors, and the packed
-multi-segment plane.
+"""Device mirrors of segment postings, vectors and rank_features, and the
+packed multi-segment plane.
 
-The postings and vectors halves of the JAX package's
+The postings, vectors and features parts of the JAX package's
 ``ops/device_segment.py``, with the same layout and the same residency
 rules; only the upload differs: arrays go to the card as ``torch`` tensors
 on an explicit device. ``gather_query_blocks`` (the host block list of one
@@ -12,9 +12,10 @@ power-of-two padded shapes. The host Segment stays the source of truth;
 device mirrors are pure caches, keyed by device.
 
 The second half is the **shard plane**: a shard's live segments
-concatenated along the docs axis into ONE device-resident padded postings
-plane per field, with per-segment base offsets, so a whole shard's BM25
-phase is one kernel launch regardless of segment count. The per-segment
+concatenated along the docs axis into ONE device-resident padded plane
+per (kind, field) -- postings blocks, dense-vector rows and rank_features
+blocks -- with per-segment base offsets, so a whole shard's BM25, kNN or
+sparse phase is one kernel launch regardless of segment count. The per-segment
 boundary survives only as a host-side offset translation
 (``PlanePart.demux``). Planes rebuild incrementally on refresh (per-segment
 rebased arrays are cached by segment uid) and charge the ``device``
@@ -23,9 +24,8 @@ whose plane cannot fit degrades to the per-segment path.
 
 The vector plane also carries the shard-level IVF index (``ops/ivf.py``),
 built on first use per plane generation and warm-started from the previous
-generation's centroids. Rank_features and column planes and the
-mesh-sharded planes are not part of this package yet: asking for one
-raises NotPortedError.
+generation's centroids. Column planes and the mesh-sharded planes are
+not part of this package yet: asking for one raises NotPortedError.
 """
 
 from __future__ import annotations
@@ -39,7 +39,7 @@ import torch
 
 from elasticsearch_tpu_torch.device import DeviceLike, resolve_device
 from elasticsearch_tpu_torch.index.segment import (
-    BLOCK, PostingsField, Segment, VectorField, next_pow2,
+    BLOCK, FeaturesField, PostingsField, Segment, VectorField, next_pow2,
 )
 from elasticsearch_tpu_torch.utils.errors import (
     CircuitBreakingError, NotPortedError,
@@ -117,6 +117,37 @@ class DeviceVectors:
         dev = resolve_device(device)
         return seg.device(("vectors", field_name, str(dev)),
                           lambda: DeviceVectors(vf, seg.n_docs, dev))
+
+
+class DeviceFeatures:
+    """Device-resident rank_features blocks for one field of one segment."""
+
+    def __init__(self, ff: FeaturesField, n_docs: int,
+                 device: DeviceLike = None):
+        self.device = resolve_device(device)
+        self.n_docs = n_docs
+        self.n_docs_pad = next_pow2(max(n_docs, 1), minimum=BLOCK)
+        n_blocks = ff.block_docs.shape[0]
+        self.n_blocks_pad = next_pow2(n_blocks)
+        pad = self.n_blocks_pad - n_blocks
+        block_docs = np.pad(ff.block_docs, ((0, pad), (0, 0)),
+                            constant_values=-1)
+        block_weights = np.pad(ff.block_weights, ((0, pad), (0, 0)))
+        from elasticsearch_tpu_torch.indices.breaker import account_device_arrays
+        account_device_arrays(self, (block_docs, block_weights), "features")
+        self.block_docs = torch.as_tensor(block_docs, device=self.device)
+        self.block_weights = torch.as_tensor(block_weights,
+                                             device=self.device)
+
+    @staticmethod
+    def for_segment(seg: Segment, field_name: str,
+                    device: DeviceLike = None) -> Optional["DeviceFeatures"]:
+        ff = seg.features.get(field_name)
+        if ff is None:
+            return None
+        dev = resolve_device(device)
+        return seg.device(("features", field_name, str(dev)),
+                          lambda: DeviceFeatures(ff, seg.n_docs, dev))
 
 
 def device_live_mask(seg: Segment, device: DeviceLike = None) -> torch.Tensor:
@@ -488,7 +519,76 @@ class PlaneVectors(PlanePart):
         return self._ivf
 
 
-_PART_CLASSES = {"postings": PlanePostings, "vectors": PlaneVectors}
+class PlaneFeatures(PlanePart):
+    """All segments' rank_features blocks for one field, doc ids rebased."""
+
+    kind = "features"
+
+    def build(self, prev: Optional["PlaneFeatures"]):
+        refs = []           # (seg_pos, FeaturesField, block_base)
+        blocks_docs, blocks_w = [], []
+        nb = 0
+        for pos, seg in enumerate(self.segments):
+            ff = seg.features.get(self.field)
+            if ff is None:
+                continue
+            cached = prev._seg_cache.get(seg.uid) if prev is not None \
+                else None
+            if cached is None:
+                base = int(self.doc_base[pos])
+                r_docs = np.where(ff.block_docs >= 0,
+                                  ff.block_docs + base, -1).astype(np.int32)
+                cached = (r_docs, ff.block_weights)
+            self._seg_cache[seg.uid] = cached
+            r_docs, r_w = cached
+            refs.append((pos, ff, nb))
+            blocks_docs.append(r_docs)
+            blocks_w.append(r_w)
+            nb += r_docs.shape[0]
+        if not refs:
+            raise PlaneUnavailable(self.field)
+        self.refs = refs
+        self.n_blocks = nb
+        nb_pad = next_pow2(max(nb, 1))
+        bd = np.full((nb_pad, BLOCK), -1, np.int32)
+        bw = np.zeros((nb_pad, BLOCK), np.float32)
+        bd[:nb] = np.concatenate(blocks_docs)
+        bw[:nb] = np.concatenate(blocks_w)
+        self._q_dev: Optional[torch.Tensor] = None
+        self._q_failed = False
+        return (bd, bw)
+
+    def upload(self, host) -> None:
+        bd, bw = host
+        self.block_docs = torch.as_tensor(bd, device=self.device)
+        self.block_weights = torch.as_tensor(bw, device=self.device)
+
+    def quantized_mirror(self) -> Optional[torch.Tensor]:
+        """block_weights bf16 [NB, BLOCK] on the plane's device -- the
+        sparse coarse tier's reduced-precision gather operand (converted
+        on the device, round to nearest even as the JAX package's numpy
+        cast); same lazy-build / per-generation cache / refusal-memo
+        contract as the postings and vector mirrors."""
+        if self._q_dev is not None:
+            return self._q_dev
+        if self._q_failed:
+            return None
+        from elasticsearch_tpu_torch.indices.breaker import charge_device
+        try:
+            charge = charge_device(
+                self, 2 * self.block_weights.numel(),
+                f"plane_features_q:{self.field}", return_charge=True)
+        except CircuitBreakingError:
+            self._q_failed = True
+            return None
+        self._charges.append(charge)
+        self.nbytes += charge.n_bytes
+        self._q_dev = self.block_weights.to(torch.bfloat16)
+        return self._q_dev
+
+
+_PART_CLASSES = {"postings": PlanePostings, "vectors": PlaneVectors,
+                 "features": PlaneFeatures}
 
 
 def _count_reason(reason: str) -> None:

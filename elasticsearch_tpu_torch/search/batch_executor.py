@@ -1,13 +1,15 @@
-"""THE shard execution path of the text and kNN classes: every shard
-query is a batch member, solo being a batch of one.
+"""THE shard execution path of the text, kNN and sparse classes: every
+shard query is a batch member, solo being a batch of one.
 
-``batched_wand_topk_shard``, ``batched_knn_shard`` (and the
-``_build_ctxs`` and ``BatchSpec`` they are fed by) from the JAX package's
+``batched_wand_topk_shard``, ``batched_knn_shard``,
+``sparse_topk_shard`` / ``batched_sparse_shard`` (and the ``_build_ctxs``
+and ``BatchSpec`` they are fed by) from the JAX package's
 ``search/batch_executor.py``: Q queries share one kernel launch per phase
 -- over the shard's plane when one is resident
-(``plane_exec.plane_wand_topk`` / ``plane_knn_winners``), else one per
-segment -- and demux back to per-member results, member-for-member exact
-in scores, candidates and totals semantics. The micro-batching queue
+(``plane_exec.plane_wand_topk`` / ``plane_knn_winners`` /
+``plane_sparse_topk``), else one per segment -- and demux back to
+per-member results, member-for-member exact in scores, candidates and
+totals semantics. The micro-batching queue
 around it (``ShardQueryBatcher``) belongs to the node layer and is not
 part of this package yet.
 """
@@ -315,4 +317,82 @@ def _knn_demux(specs: List[BatchSpec],
         if spec.clip_limit is not None and total > spec.clip_limit:
             total, relation = spec.clip_limit, "gte"
         out.append((candidates, total, relation, max_score, None))
+    return out
+
+
+def sparse_topk_shard(ctxs, field: str,
+                      expansions: List[List[Tuple[str, float]]],
+                      want: int,
+                      check_members: Optional[Callable[[], None]] = None
+                      ) -> List[Tuple]:
+    """THE resolved-expansion top-k executor for the served path — Q
+    expansions (solo being simply Q=1) through the rank-features plane
+    when resident, else one batched launch per segment; exact counts
+    read off the score plane (the dense path's mask sum). Returns
+    (candidates, total, max_score) per member."""
+    from elasticsearch_tpu_torch.ops.device_segment import DeviceFeatures
+    from elasticsearch_tpu_torch.ops.sparse import SparseExecutor
+    n_q = len(expansions)
+    if ctxs:
+        from elasticsearch_tpu_torch.ops.device_segment import PLANES
+        part = PLANES.get([c.segment for c in ctxs], "features", field,
+                          ctxs[0].device)
+        if part is not None:
+            from elasticsearch_tpu_torch.search.plane_exec import (
+                plane_sparse_topk,
+            )
+            return plane_sparse_topk(ctxs, part, field, expansions, want,
+                                     check_members=check_members)
+    from elasticsearch_tpu_torch.indices.breaker import BREAKERS
+    candidates: List[List[ShardDoc]] = [[] for _ in range(n_q)]
+    totals = [0] * n_q
+    for ctx in ctxs:
+        dev = DeviceFeatures.for_segment(ctx.segment, field, ctx.device)
+        if dev is None:
+            continue
+        if check_members is not None:
+            check_members()
+        ex = SparseExecutor(dev, ctx.segment.features[field])
+        k_seg = min(max(want, 1), ctx.n_docs_pad)
+        # the ONE charge site for per-segment sparse scoring (the plane
+        # branch above charges inside plane_sparse_topk): one transient
+        # score plane per segment launch
+        with BREAKERS.breaker("request").limit_scope(
+                8 * ctx.n_docs_pad * n_q, "sparse_topk"):
+            s, d, h = ex.top_k_batch(expansions, ctx.live, k_seg,
+                                     function="linear", count_hits=True)
+        s = s.cpu().numpy()
+        d = d.cpu().numpy()
+        for qi in range(n_q):
+            totals[qi] += int(h[qi])
+            for sc, doc in zip(s[qi], d[qi]):
+                if sc == -np.inf:
+                    break
+                candidates[qi].append(ShardDoc(ctx.segment_idx, int(doc),
+                                               float(sc), (float(sc),)))
+    out = []
+    for qi in range(n_q):
+        cands = candidates[qi]
+        cands.sort(key=lambda c: (-c.score, c.segment_idx, c.doc))
+        out.append((cands, totals[qi],
+                    max((c.score for c in cands), default=None)))
+    return out
+
+
+def batched_sparse_shard(ctxs, field: str, specs: List[BatchSpec],
+                         want: int,
+                         check_members: Optional[Callable[[], None]]
+                         = None) -> List[Tuple]:
+    """Q resolved text_expansion members through ``sparse_topk_shard``,
+    demuxed to the dense collector's candidates/totals shape (per-member
+    coordinator clip applied)."""
+    expansions = [[(t, w * s.boost) for t, w in s.tokens.items()]
+                  for s in specs]
+    got = sparse_topk_shard(ctxs, field, expansions, want, check_members)
+    out = []
+    for (cands, total, max_score), spec in zip(got, specs):
+        relation = "eq"
+        if spec.clip_limit is not None and total > spec.clip_limit:
+            total, relation = spec.clip_limit, "gte"
+        out.append((cands, total, relation, max_score, None))
     return out

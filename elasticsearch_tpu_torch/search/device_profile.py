@@ -5,7 +5,10 @@ Every kernel wrapper under ``ops/`` reports each call here, by family
 ``bm25_rerank``, ``bm25_scores`` in ``ops/bm25.py``; ``knn_flat``,
 ``knn_coarse``, ``knn_rerank``, ``knn_scores`` in ``ops/knn.py``;
 ``dense_topk`` in ``ops/topk.py``; ``ivf_assign``, ``ivf_update``,
-``ivf_init``, ``ivf_search`` in ``ops/ivf.py``), and the launches of
+``ivf_init``, ``ivf_search`` in ``ops/ivf.py``; ``sparse_flat``,
+``sparse_scores``, ``sparse_coarse``, ``sparse_rerank`` in
+``ops/sparse.py``; ``text_expansion_forward`` in
+``ml/text_expansion.py``), and the launches of
 K5-K7 with a per-query mask stack apart from the others, as
 ``MASKED_VARIANTS``:
 
@@ -36,7 +39,8 @@ from elasticsearch_tpu_torch.search import telemetry
 KERNEL_FAMILIES = ("bm25_flat", "bm25_flat_seg", "bm25_coarse", "bm25_rerank",
                    "knn_flat", "knn_coarse", "knn_rerank", "bm25_scores",
                    "knn_scores", "dense_topk", "ivf_assign", "ivf_update",
-                   "ivf_init", "ivf_search")
+                   "ivf_init", "ivf_search", "sparse_flat", "sparse_scores",
+                   "sparse_coarse", "sparse_rerank", "text_expansion_forward")
 # the masked launches of knn_flat / knn_coarse / knn_rerank (the same
 # kernels with a [B, N_pad] filter-mask operand), counted under these names
 MASKED_VARIANTS = ("knn_flat_masked", "knn_coarse_masked",

@@ -10,14 +10,16 @@ clauses run the kernels: ``match`` and the phrase family K8
 (``bm25_block_scores``), ``script_score``'s vector functions K9
 (``vector_scores``), ``knn`` the kNN executor (exact: K5-K7, masked
 per query for a filtered ``knn``; approximate: the IVF probe K14 on
-segments or planes the JAX package routes to its IVF index).
+segments or planes the JAX package routes to its IVF index),
+``rank_feature`` and ``text_expansion`` K19 (``sparse_scores``; a
+``model_text`` left unresolved runs the expansion model, K18).
 
 Served nodes: match_all, match_none, match, multi_match, match_phrase,
 match_phrase_prefix, term, terms, range, exists, ids, prefix, wildcard,
 regexp, fuzzy, bool, constant_score, dis_max, boosting, knn (top-level or
-inside a compound query) and script_score with cosineSimilarity /
-dotProduct / l2norm. Any other node raises NotPortedError naming it
-(``dense_query:<Node>``).
+inside a compound query), rank_feature, text_expansion and script_score
+with cosineSimilarity / dotProduct / l2norm. Any other node raises
+NotPortedError naming it (``dense_query:<Node>``).
 
 The glue between kernels is plain PyTorch, one rounded f32 op at a time
 as the JAX package's eager ops run, and sums of several rows are taken
@@ -39,8 +41,8 @@ from elasticsearch_tpu_torch.index.segment import Segment, next_pow2, BLOCK
 from elasticsearch_tpu_torch.mapping import MapperService, parse_date_millis
 from elasticsearch_tpu_torch.mapping.mappers import RANGE_TYPES
 from elasticsearch_tpu_torch.ops import (
-    Bm25Executor, DevicePostings, DeviceVectors, KnnExecutor,
-    device_live_mask,
+    Bm25Executor, DeviceFeatures, DevicePostings, DeviceVectors,
+    KnnExecutor, SparseExecutor, device_live_mask,
 )
 from elasticsearch_tpu_torch.search import dsl
 from elasticsearch_tpu_torch.utils.errors import (
@@ -1192,6 +1194,41 @@ def _h_knn(q: dsl.Knn, ctx: SegmentContext) -> Result:
     return _h_knn_bound(bound, ctx)
 
 
+def _h_rank_feature(q: dsl.RankFeature, ctx: SegmentContext) -> Result:
+    # rank_feature targets a single feature inside a rank_features field, or a
+    # standalone rank_feature field (stored as a single-feature field).
+    fname, _, feat = q.field.partition(".")
+    if feat and fname in ctx.segment.features:
+        field_name, feature = fname, feat
+    elif q.field in ctx.segment.features:
+        field_name, feature = q.field, q.field
+    else:
+        return ctx.zeros(), ctx.none_mask()
+    dev = DeviceFeatures.for_segment(ctx.segment, field_name, ctx.device)
+    ex = SparseExecutor(dev, ctx.segment.features[field_name])
+    pivot = q.scaling_factor if q.function == "log" else q.pivot
+    scores = ex.scores([(feature, q.boost)], ctx.live,
+                       function=q.function, pivot=pivot, exponent=q.exponent)
+    return scores, scores > 0.0
+
+
+def _h_text_expansion(q: dsl.TextExpansion, ctx: SegmentContext) -> Result:
+    dev = DeviceFeatures.for_segment(ctx.segment, q.field, ctx.device)
+    if dev is None:
+        return ctx.zeros(), ctx.none_mask()
+    tokens = q.tokens
+    if tokens is None:
+        # raw query text: run the expansion model on the card at query
+        # time (the x-pack inference rewrite, collapsed into one local
+        # kernel launch)
+        from elasticsearch_tpu_torch.ml import get_model
+        tokens = get_model(q.model_id, ctx.device).expand(q.model_text or "")
+    ex = SparseExecutor(dev, ctx.segment.features[q.field])
+    scores = ex.scores([(t, w * q.boost) for t, w in tokens.items()],
+                       ctx.live, function="linear")
+    return scores, scores > 0.0
+
+
 _VECTOR_FN = re.compile(
     r"(cosineSimilarity|dotProduct|l2norm)\s*\(\s*params\.(\w+)\s*,\s*'?\"?([\w.]+)'?\"?\s*\)")
 
@@ -1257,5 +1294,7 @@ _HANDLERS = {
     dsl.DisMax: _h_dis_max,
     dsl.Boosting: _h_boosting,
     dsl.Knn: _h_knn,
+    dsl.RankFeature: _h_rank_feature,
+    dsl.TextExpansion: _h_text_expansion,
     dsl.ScriptScore: _h_script_score,
 }

@@ -8,11 +8,11 @@ happens in a separate phase, like the reference's query_then_fetch).
 
 This is the JAX package's ``search/phase.py`` with the collectors this
 package carries: the block-max-pruned text top-k ("wand_topk"), the kNN
-top-k ("knn_topk") and the dense score-vector collector ("dense": exact
-totals, ``_count``, field sorts, search_after, min_score, rescore,
-collapse, slice, terminate_after, profile, and every query tree the other
-two do not take). The collector choice is the JAX package's, unchanged;
-a request that chooses the sparse collector raises NotPortedError.
+top-k ("knn_topk"), the resolved text_expansion top-k ("sparse_topk")
+and the dense score-vector collector ("dense": exact totals, ``_count``,
+field sorts, search_after, min_score, rescore, collapse, slice,
+terminate_after, profile, and every query tree the others do not take).
+The collector choice is the JAX package's, unchanged.
 
 Shard-level term statistics: per-segment idf would skew scores across
 segments, so we aggregate df over all live segments first — the same
@@ -309,9 +309,8 @@ def query_shard(reader: Reader,
     ``collectors``: optional aggregation collectors, each called with
     (ctx, segment_idx, scores, mask) per segment (two-level agg model).
 
-    The sparse collector ("sparse_topk") is not part of this package yet;
-    a request that needs it raises NotPortedError. ``device``: where the
-    segments' device arrays live (None = the CUDA card).
+    ``device``: where the segments' device arrays live (None = the CUDA
+    card).
     """
     device = resolve_device(device)
     sort = sort or [SortSpec("_score")]
@@ -435,7 +434,35 @@ def query_shard(reader: Reader,
                 if profile else None))
 
     if collector == "sparse_topk":
-        raise NotPortedError("sparse_topk_collector")
+        if want > KMAX:
+            # the kernels' CTA-wide top-k holds at most KMAX entries
+            raise NotPortedError(f"sparse_topk_window_over_{KMAX}")
+        # resolved text_expansion through THE sparse executor (the
+        # batched path runs the same function): one launch over the
+        # rank_features plane when resident, one batched launch per
+        # segment otherwise — counts read off the score plane either way
+        # (the dense path's mask sum)
+        from elasticsearch_tpu_torch.search.batch_executor import (
+            sparse_topk_shard,
+        )
+        expansion = [(t, w * query.boost)
+                     for t, w in query.tokens.items()]
+        # the executor charges the request breaker at its launch sites
+        # (plane scope, or one score plane per segment)
+        (cands, total, max_score), = sparse_topk_shard(
+            ctxs, query.field, [expansion], want,
+            check_members=cancel_check)
+        relation = "eq"
+        if exact_total and track_limit < (1 << 62) \
+                and total > track_limit:
+            total, relation = track_limit, "gte"
+        result = ShardQueryResult(
+            cands[from_: from_ + size], total, relation, max_score,
+            doc_count=doc_count, dfs=dfs)
+        if profile:
+            result.profile = _profile_block(
+                "SimpleTopScoreDocCollector", "search_top_hits")
+        return result
 
     # Lucene-style kNN rewrite: per-segment top-k merged to shard-global
     # k through execute.knn_shard_winners — the same executor the

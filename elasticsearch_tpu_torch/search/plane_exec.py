@@ -1,7 +1,9 @@
-"""Shard-plane execution of the text and kNN classes: the whole shard's
-postings (or vectors) in one device plane, one kernel launch per phase.
+"""Shard-plane execution of the text, kNN and sparse classes: the whole
+shard's postings (or vectors, or rank_features) in one device plane, one
+kernel launch per phase.
 
-The text and kNN halves of the JAX package's ``search/plane_exec.py``.
+The text, kNN and sparse parts of the JAX package's
+``search/plane_exec.py``.
 Both the solo and the batched path call in here when a plane is resident,
 so they share one implementation:
 
@@ -18,6 +20,10 @@ so they share one implementation:
   exact re-rank (``_quantized_topk``, adaptive depth) first and the exact
   ``knn_flat`` otherwise, masked per member for filtered kNN -- with the
   per-segment demux reduced to a host-side offset translation.
+- ``plane_sparse_topk``: Q resolved text_expansion queries in ONE launch
+  over the stacked rank_features blocks (K15, with exact counts), or the
+  bf16 coarse pass + exact re-rank (K16 + K17, ``_coarse_sparse_topk``)
+  with the same adaptive depth.
 
 Callers treat a None result as "run the per-segment path".
 """
@@ -762,3 +768,132 @@ def plane_knn_winners(ctxs, part, field: str, specs, k: int,
         winners[qi].sort(key=lambda x: -x[2])
         winners[qi] = winners[qi][:k]
     return winners
+
+
+# ---------------------------------------------------------------------------
+# sparse: one gather/scatter over the rank_features plane
+# ---------------------------------------------------------------------------
+
+def plane_sparse_topk(ctxs, part, field: str,
+                      expansions: List[List[Tuple[str, float]]],
+                      want: int,
+                      check_members: Optional[Callable[[], None]] = None,
+                      counter: Optional[list] = None) -> List[Tuple]:
+    """Q resolved expansions scored over the stacked feature blocks in
+    ONE launch (K15), exact per-member match counts off the score plane
+    -- or, with the quantized tier on, the bf16 coarse pass (K16) and the
+    exact re-rank (K17). Returns per member (candidates, total,
+    max_score)."""
+    from elasticsearch_tpu_torch.ops.sparse import (
+        pad_query_rows, sparse_topk_batch,
+    )
+    telemetry.mark_plane_served()
+    reader = _reader_of(ctxs)
+    live = part.live_mask(reader.live_masks)
+    per = []
+    for expansion in expansions:
+        idx_parts, w_parts = [], []
+        for _pos, ff, block_base in part.refs:
+            for name, weight in expansion:
+                t_idx = ff.feature_block_idx(name)
+                if len(t_idx):
+                    idx_parts.append(t_idx + np.int32(block_base))
+                    w_parts.append(np.full(len(t_idx), weight,
+                                           np.float32))
+        if idx_parts:
+            per.append((np.concatenate(idx_parts),
+                        np.concatenate(w_parts)))
+        else:
+            per.append((np.zeros(0, np.int32), np.zeros(0, np.float32)))
+    idx, w, n_real = pad_query_rows(per, part.device)
+    q_n = idx.shape[0]
+    k_plane = min(max(want, 1), part.n_docs_pad)
+
+    # quantized coarse tier: bf16 coarse gather/scatter + exact f32
+    # re-rank with adaptive depth (the text/kNN pattern on the
+    # rank_features class); None = exact single-launch path below
+    if PLANES.quantized:
+        got = _coarse_attempt("sparse", n_real, lambda: _coarse_sparse_topk(
+            part, idx, w, live, k_plane, n_real, check_members, counter))
+        if got is not None:
+            s, d, h = got
+            return _sparse_demux(part, s, d, h, n_real)
+
+    if check_members is not None:
+        check_members()
+    if counter is not None:
+        counter.append(1)
+    t_exact = time.monotonic()
+    from elasticsearch_tpu_torch.indices.breaker import BREAKERS
+    with BREAKERS.breaker("request").limit_scope(
+            8 * part.n_docs_pad * q_n, "plane_sparse"):
+        s, d, h = sparse_topk_batch(
+            part.block_docs, part.block_weights, idx, w, 1.0, 1.0, live,
+            part.n_docs_pad, k_plane, "linear", counted=True)
+    s, d, h = s.cpu().numpy(), d.cpu().numpy(), h.cpu().numpy()
+    _note_exact("sparse", n_real, t_exact)
+    return _sparse_demux(part, s, d, h, n_real)
+
+
+def _sparse_demux(part, s: np.ndarray, d: np.ndarray, h: np.ndarray,
+                  n_real: int) -> List[Tuple]:
+    """(candidates, total, max_score) per member from the score/doc/hit
+    planes — shared by the exact and coarse-tier sparse paths so the
+    result shape cannot diverge."""
+    out: List[Tuple] = []
+    for qi in range(n_real):
+        finite = s[qi] != -np.inf
+        si, local = part.demux(d[qi][finite])
+        cands = [ShardDoc(int(a), int(b), float(sc), (float(sc),))
+                 for a, b, sc in zip(si, local, s[qi][finite])]
+        cands.sort(key=lambda c: (-c.score, c.segment_idx, c.doc))
+        max_score = max((c.score for c in cands), default=None)
+        out.append((cands, int(h[qi]), max_score))
+    return out
+
+
+def _coarse_sparse_topk(part, idx, w, live, k_plane: int, n_real: int,
+                        check_members: Optional[Callable[[], None]],
+                        counter: Optional[list]):
+    """Adaptive coarse+re-rank for the sparse plane: returns host
+    (scores, docs, hits) arrays shaped like the exact launch (hits EXACT
+    off the coarse pass), or None when the exact path must serve (engage
+    threshold, mirror refused, margin exhausted)."""
+    from elasticsearch_tpu_torch.ops.sparse import (
+        sparse_coarse_kernel, sparse_rerank_kernel,
+    )
+    depth0 = _coarse_depth0(k_plane, part.n_docs_pad)
+    if part.n_docs_total <= 4 * depth0:
+        return None
+    mirror = part.quantized_mirror()
+    if mirror is None:
+        _count_plane_quantized_fallback()
+        return None
+    q_n = idx.shape[0]
+    from elasticsearch_tpu_torch.indices.breaker import BREAKERS
+    for kprime, last in _adaptive_depths(k_plane, part.n_docs_pad):
+        if check_members is not None:
+            check_members()
+        if counter is not None:
+            counter.extend((1, 1))
+        with BREAKERS.breaker("request").limit_scope(
+                8 * part.n_docs_pad * q_n, "plane_coarse_sparse"):
+            cs, cand, hits = sparse_coarse_kernel(
+                part.block_docs, mirror, idx, w, live, part.n_docs_pad,
+                kprime)
+            s, d, eps = sparse_rerank_kernel(
+                part.block_docs, part.block_weights, idx, w, live, cand, cs,
+                part.n_docs_pad, kprime, k_plane)
+        cs_h = cs.cpu().numpy()
+        s_h = s.cpu().numpy()
+        eps_h = eps.cpu().numpy()
+        k_last = min(k_plane, s_h.shape[1]) - 1
+        if all(_margin_ok(float(s_h[qi, k_last]),
+                          float(cs_h[qi, kprime - 1]),
+                          float(eps_h[qi]), REL_BF16)
+               for qi in range(n_real)):
+            PLANES.note_quantized(kprime, n_real)
+            return s_h, d.cpu().numpy(), hits.cpu().numpy()
+        if last:
+            _count_plane_quantized_fallback()
+            return None

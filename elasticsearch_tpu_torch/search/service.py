@@ -5,9 +5,11 @@ Reference analog: search/SearchService.java:136. The JAX package's
 through the block-max-pruned text collector, the kNN collector and the
 dense collector (exact totals, field sorts, ``search_after``,
 ``min_score``, ``rescore``, ``collapse``, ``slice``, ``profile`` and the
-query nodes ``search/execute.py`` serves), and ``_count``. Scroll,
-aggregations, suggest, text_expansion and the query nodes not ported yet
-raise NotPortedError (status 501).
+query nodes ``search/execute.py`` serves), the sparse collector for
+resolved ``text_expansion`` (a ``model_text`` is expanded first by the
+coordinator rewrite, ``ml.text_expansion.rewrite_body_expansions``, on
+the service's device), and ``_count``. Scroll, aggregations, suggest and
+the query nodes not ported yet raise NotPortedError (status 501).
 """
 
 from __future__ import annotations
@@ -77,9 +79,12 @@ class SearchService:
                              ("suggest", "suggest")):
             if body.get(key):
                 raise NotPortedError(feature)
-        if "text_expansion" in str(body.get("query", "")):
-            raise NotPortedError("text_expansion")
         reader = reader or self.engine.acquire_reader()
+        if "text_expansion" in str(body.get("query", "")):
+            from elasticsearch_tpu_torch.ml.text_expansion import (
+                rewrite_body_expansions,
+            )
+            body = rewrite_body_expansions(body, self.device)
         query = dsl.parse_query(body.get("query"))
         size = int(body.get("size", 10))
         from_ = int(body.get("from", 0))

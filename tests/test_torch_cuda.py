@@ -1,6 +1,8 @@
-"""The BM25, kNN (masked and not), dense-collector and IVF kernels on the
-card, bitwise against their plain PyTorch versions. Needs a CUDA card and nvcc; skipped without
-a card.
+"""The BM25, kNN (masked and not), dense-collector, IVF, rank_features and
+expansion-model kernels on the card against their plain PyTorch versions:
+bitwise, except where a kernel calls ``logf`` / ``powf`` / ``tanhf`` and
+its plain version torch's ``log`` / ``pow`` / ``tanh`` (the stated ulp
+bounds below). Needs a CUDA card and nvcc; skipped without a card.
 
 It imports neither JAX nor the JAX package, so it also runs on a machine
 that has only PyTorch and the CUDA toolkit:
@@ -8,13 +10,16 @@ that has only PyTorch and the CUDA toolkit:
     python -m pytest tests/test_torch_cuda.py --noconftest -m cuda
 """
 
+import numpy as np
 import pytest
 import torch
 
 from elasticsearch_tpu_torch.ops import bm25 as port
 from elasticsearch_tpu_torch.ops import knn, topk
 from elasticsearch_tpu_torch.ops.device_segment import quantize_rows
-from torch_inputs import FLAT, make_inputs, make_knn_inputs, tx
+from torch_inputs import (
+    FLAT, make_inputs, make_knn_inputs, make_sparse_inputs, tx,
+)
 
 K = 10
 
@@ -194,3 +199,111 @@ def test_ivf_kernels_match_plain_versions_on_the_card(dims):
             for g, w in zip(ivf.ivf_search(*args, k, nprobe, sim),
                             ivf.ivf_search_plain(*args, k, nprobe, sim)):
                 assert torch.equal(g, w)
+
+
+SPARSE_FUNCTIONS = {"saturation": (0.7, 1.0), "log": (1.5, 1.0),
+                    "sigmoid": (1.2, 0.6), "linear": (1.0, 1.0)}
+# log and sigmoid: the kernel's logf / powf and torch's CUDA log / pow may
+# differ by an ulp in a contribution; a fixed-point sum of positive
+# contributions keeps the largest relative error of its terms, so a score
+# stays within 4 ulps (2^-21 relative)
+SPARSE_RTOL = 2.0 ** -21
+
+
+def assert_sparse_equal(got, want, exact: bool):
+    for g, w in zip(got, want):
+        if exact or not g.dtype.is_floating_point:
+            assert torch.equal(g, w)
+        else:
+            assert torch.equal(torch.isfinite(g), torch.isfinite(w))
+            fin = torch.isfinite(w)
+            assert ((g[fin] - w[fin]).abs()
+                    <= SPARSE_RTOL * w[fin].abs()).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("function", sorted(SPARSE_FUNCTIONS))
+def test_sparse_kernels_match_plain_versions_on_the_card(function):
+    """sparse_flat (K15, counted and not), sparse_scores (K19, with and
+    without a live mask), sparse_coarse (K16) and sparse_rerank (K17)
+    against their plain versions over 150,000 docs (three 65,536-doc
+    chunks: the merge pass runs), with -1 pads, weight-0 padding slots,
+    pow2 padding rows and duplicated blocks (tied scores): bitwise for
+    linear and saturation, within SPARSE_RTOL (ids exact) for log and
+    sigmoid."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    from elasticsearch_tpu_torch.ops import sparse
+    inp = make_sparse_inputs(19, n_docs=150_000, nb=2048, n_q=5, per_q=300,
+                             q_pad=8)
+    # block 7: block 3's weights on the next docs, in one query at the same
+    # weight -- docs with only these postings tie in pairs
+    inp["docs"][7] = np.where(inp["docs"][3] >= 0, inp["docs"][3] + 1, -1)
+    inp["weights"][7] = inp["weights"][3]
+    inp["idx"][1, :2] = (3, 7)
+    inp["qw"][1, 1] = inp["qw"][1, 0]
+    docs, weights, idx, qw, live = [t.cuda() for t in tx(
+        inp, "docs", "weights", "idx", "qw", "live")]
+    n_pad = inp["n_pad"]
+    pivot, exponent = SPARSE_FUNCTIONS[function]
+    exact = function in ("saturation", "linear")
+    for counted in (False, True):
+        args = (docs, weights, idx, qw, pivot, exponent, live, n_pad, 100,
+                function)
+        assert_sparse_equal(sparse.sparse_topk_batch(*args, counted=counted),
+                            sparse.sparse_flat_plain(*args, counted=counted),
+                            exact)
+    for lmask in (None, live):
+        args = (docs, weights, idx[1], qw[1], pivot, exponent, n_pad,
+                function, lmask)
+        assert_sparse_equal([sparse.sparse_scores(*args)],
+                            [sparse.sparse_scores_plain(*args)], exact)
+    w16 = weights.to(torch.bfloat16)
+    got = sparse.sparse_coarse_kernel(docs, w16, idx, qw, live, n_pad, 512)
+    want = sparse.sparse_coarse_plain(docs, w16, idx, qw, live, n_pad, 512)
+    assert_sparse_equal(got, want, True)
+    cs, cand, _ = want
+    got = sparse.sparse_rerank_kernel(docs, weights, idx, qw, live, cand, cs,
+                                      n_pad, 512, 10)
+    want = sparse.sparse_rerank_plain(docs, weights, idx, qw, live, cand, cs,
+                                      n_pad, 512, 10)
+    assert_sparse_equal(got, want, True)
+
+
+# the forward's weights are anchors (2.0 a token) plus a normalized
+# activation in [0, 1]: an ulp of tanhf against torch's tanh moves them
+# by far less than 2^-20 (4 ulps at [2, 4))
+FORWARD_ATOL = 2.0 ** -20
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("width", ["default", "ragged"])
+def test_text_expansion_forward_matches_plain_version_on_the_card(width):
+    """text_expansion_forward (K18) against its plain version on the card:
+    the default model's widths at B 64 and at B 13 (a partial row group),
+    and a ragged narrow model (hidden 48, vocab 1,500: a partial column
+    tile); texts with repeated tokens (anchors of 4.0) and an empty one.
+    Feature ids exact, weights within FORWARD_ATOL."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    from elasticsearch_tpu_torch.ml import text_expansion as te
+    kw = {} if width == "default" else dict(vocab_size=1500, hidden=48,
+                                            n_hash=4096)
+    model = te.TextExpansionModel(model_id="cuda-" + width, device="cuda",
+                                  **kw)
+    gen = torch.Generator().manual_seed(23)
+    texts = [" ".join(f"word{int(i)}" for i in torch.randint(
+        0, 400, (int(n),), generator=gen))
+        for n in torch.randint(3, 8, (62,), generator=gen)]
+    texts += ["fox fox fox dog dog", ""]
+    for b in (64, 13, 1):
+        ids = torch.as_tensor(np.stack([model._featurize(t)[0]
+                                        for t in texts[:b]]))
+        direct = torch.as_tensor(np.stack([model._featurize(t)[1]
+                                           for t in texts[:b]]))
+        args = (ids.cuda(), direct.cuda(), model._emb, model._w1, model._w2,
+                model.top_m)
+        w, f = te.text_expansion_forward(*args)
+        pw, pf = te.text_expansion_forward_plain(*args)
+        assert torch.equal(f, pf)
+        assert ((w - pw).abs() <= FORWARD_ATOL).all()

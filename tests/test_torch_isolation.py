@@ -53,17 +53,21 @@ import elasticsearch_tpu_torch.search.batch_executor
 import elasticsearch_tpu_torch.ops.knn
 import elasticsearch_tpu_torch.ops.topk
 import elasticsearch_tpu_torch.ops.ivf
+import elasticsearch_tpu_torch.ops.sparse
+import elasticsearch_tpu_torch.ml
 import elasticsearch_tpu_torch.convert
 from elasticsearch_tpu_torch.search.device_profile import DEVICE_PROFILE
 engine = InternalEngine(MapperService({"properties": {
     "body": {"type": "text"}, "tag": {"type": "keyword"},
+    "ml": {"type": "rank_features"},
     "vec": {"type": "dense_vector", "dims": 3, "similarity": "l2_norm"},
     "ivec": {"type": "dense_vector", "dims": 3, "similarity": "l2_norm",
              "index_options": {"type": "ivf", "nlist": 4}}}}))
 for i in range(40):
     engine.index(str(i), {"body": "quick brown fox" if i % 3 else "lazy dog",
                           "tag": f"t{i % 2}", "vec": [float(i), 1.0, 2.0],
-                          "ivec": [float(i), 1.0, 2.0]})
+                          "ivec": [float(i), 1.0, 2.0],
+                          "ml": {"f1": 1.0 + i % 5, f"f{10 + i % 3}": 0.5}})
     if i == 20:
         engine.refresh()
 engine.refresh()
@@ -93,6 +97,15 @@ s = svc.search({"query": {"script_score": {
     "sort": [{"_score": "asc"}]})
 assert [h["_id"] for h in s["hits"]["hits"]] == ["7", "8", "6"], s
 assert svc.count({"query": {"term": {"tag": "t0"}}})["count"] == 20
+from elasticsearch_tpu_torch.ml import get_model
+feats = get_model(device="cpu").expand("f1 lazy dog")
+te = svc.search({"query": {"text_expansion": {"ml": {
+    "model_text": "f1 lazy dog"}}}, "track_total_hits": True})
+want = sum(1 for i in range(40) if any(
+    f in feats for f in ("f1", f"f{10 + i % 3}")))
+assert te["hits"]["total"] == {"value": want, "relation": "eq"}, te["hits"]
+assert DEVICE_PROFILE.family("text_expansion_forward").calls == 1
+assert DEVICE_PROFILE.family("sparse_scores").calls > 0
 assert not any(m.split(".")[0] in ("jax", "jaxlib", "elasticsearch_tpu")
                for m in sys.modules)
 print("served", len(r["hits"]["hits"]))
@@ -148,14 +161,18 @@ def test_cuda_tensor_never_takes_the_plain_version(monkeypatch):
         bm25.bm25_flat(*args, n_pad, 1, 10)
 
 
-@pytest.mark.parametrize("family", ["bm25_scores", "knn_scores",
-                                    "dense_topk"])
+@pytest.mark.parametrize("family", [
+    "bm25_scores", "knn_scores", "dense_topk", "sparse_flat",
+    "sparse_scores", "sparse_coarse", "sparse_rerank",
+    "text_expansion_forward"])
 def test_dense_wrappers_never_take_the_plain_version(family, monkeypatch):
-    """The dense collector's wrappers, given CUDA tensors, launch their
-    kernel or raise: with the kernel library unavailable they raise
-    instead of computing on the host."""
+    """The dense collector's, the sparse path's and the expansion model's
+    wrappers, given CUDA tensors, launch their kernel or raise: with the
+    kernel library unavailable they raise instead of computing on the
+    host."""
     from elasticsearch_tpu_torch import _build
-    from elasticsearch_tpu_torch.ops import bm25, knn, topk
+    from elasticsearch_tpu_torch.ml import text_expansion as te
+    from elasticsearch_tpu_torch.ops import bm25, knn, sparse, topk
 
     def no_library(fam):
         raise _build.KernelBuildError("no nvcc here")
@@ -166,15 +183,42 @@ def test_dense_wrappers_never_take_the_plain_version(family, monkeypatch):
     monkeypatch.setattr(_build, "library", no_library)
     monkeypatch.setattr(bm25, "_FNS", {})
     monkeypatch.setattr(bm25, "_stream", lambda: 0)
-    for mod in (bm25, knn, topk):
+    for mod in (bm25, knn, topk, sparse, te):
         monkeypatch.setattr(mod, "_on_cuda", lambda *t: True)
         monkeypatch.setattr(mod, "_stream", lambda: 0)
     monkeypatch.setattr(bm25, "bm25_block_scores_plain", no_plain)
     monkeypatch.setattr(knn, "vector_scores_plain", no_plain)
     monkeypatch.setattr(topk, "dense_topk_plain", no_plain)
+    for name in ("sparse_flat_plain", "sparse_scores_plain",
+                 "sparse_coarse_plain", "sparse_rerank_plain"):
+        monkeypatch.setattr(sparse, name, no_plain)
+    monkeypatch.setattr(te, "text_expansion_forward_plain", no_plain)
     n_pad = 256
+    docs = torch.full((2, 128), -1, dtype=torch.int32)
+    rows = (torch.zeros(1, 8, dtype=torch.int32), torch.ones(1, 8))
+    live = torch.ones(n_pad, dtype=bool)
     with pytest.raises(_build.KernelBuildError):
-        if family == "bm25_scores":
+        if family == "sparse_flat":
+            sparse.sparse_topk_batch(docs, torch.zeros(2, 128), *rows, 1.0,
+                                     1.0, live, n_pad, 10, "linear")
+        elif family == "sparse_scores":
+            sparse.sparse_scores(docs, torch.zeros(2, 128), rows[0][0],
+                                 rows[1][0], 1.0, 1.0, n_pad, "log")
+        elif family == "sparse_coarse":
+            sparse.sparse_coarse_kernel(
+                docs, torch.zeros(2, 128, dtype=torch.bfloat16), *rows,
+                live, n_pad, 16)
+        elif family == "sparse_rerank":
+            sparse.sparse_rerank_kernel(
+                docs, torch.zeros(2, 128), *rows, live,
+                torch.zeros(1, 16, dtype=torch.int32), torch.zeros(1, 16),
+                n_pad, 16, 10)
+        elif family == "text_expansion_forward":
+            ids = torch.zeros(2, 4, dtype=torch.int32)
+            te.text_expansion_forward(ids, ids - 1, torch.zeros(9, 4),
+                                      torch.zeros(4, 4), torch.zeros(4, 64),
+                                      32)
+        elif family == "bm25_scores":
             bm25.bm25_block_scores(
                 torch.full((2, 128), -1, dtype=torch.int32),
                 torch.zeros(2, 128), torch.zeros(8, dtype=torch.int32),

@@ -86,3 +86,34 @@ def close_ids(s_ref, d_ref, d_port, rtol: float):
             hi = abs(s[j + 1] - s[j]) if j + 1 < len(s) else np.inf
             if min(lo, hi) > rtol * abs(s[j]):
                 assert d_port[r, j] == d_ref[r, j], (r, j)
+
+
+def make_sparse_inputs(seed: int, n_docs: int = 3000, nb: int = 96,
+                       n_q: int = 3, per_q: int = 20, q_pad: int = 4):
+    """A seeded rank_features block store (doc ids ascending within a
+    block, -1 padding, weights in [0.05, 3)) and [q_pad, QB] block lists
+    of n_q real queries padded like ``gather_feature_blocks`` /
+    ``top_k_batch``: block 0 / weight 0 past each query's blocks, whole
+    weight-0 rows past n_q (the pow2 query padding). Query weights in
+    [0.1, 3)."""
+    rng = np.random.default_rng(seed)
+    docs = np.sort(rng.integers(0, n_docs, (nb, 128)), axis=1).astype(np.int32)
+    docs[rng.random((nb, 128)) < 0.1] = -1
+    weights = np.where(docs >= 0, rng.uniform(0.05, 3.0, (nb, 128)),
+                       0.0).astype(np.float32)
+    n_pad = 128
+    while n_pad < n_docs:
+        n_pad *= 2
+    live = np.zeros(n_pad, bool)
+    live[:n_docs] = rng.random(n_docs) > 0.05
+    qb = 8
+    while qb < per_q:
+        qb *= 2
+    idx = np.zeros((q_pad, qb), np.int32)
+    qw = np.zeros((q_pad, qb), np.float32)
+    for q in range(n_q):
+        n = int(rng.integers(per_q // 2, per_q + 1))
+        idx[q, :n] = rng.integers(0, nb, n)
+        qw[q, :n] = rng.uniform(0.1, 3.0, n)
+    return dict(docs=docs, weights=weights, idx=idx, qw=qw, live=live,
+                n_pad=n_pad, n_q=n_q)
