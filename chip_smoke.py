@@ -134,6 +134,42 @@ Phases, each of which fails the run on any failed check:
    largest main-path call, and K18 also on cache misses at B 64 and 4,096.
    The earlier phases' shards are freed first.
 
+17. wide-small (run with the small phases): the wide selection (rounds
+   of at most 4,096 after a cursor) through K10 at k 4,096 to 12,289,
+   row by row, against a stable sort, with equal scores and -inf slots;
+   bitwise.
+18. aggs-small (run with the small phases): K20-K23 (the aggregation
+   kernels) against their plain versions on seeded columns: negative
+   values, buckets dropped at both ends, -1 padded and out-of-range
+   ordinals, an interval-0 plan, bucket sums past 2^24 (added in row
+   order by both); bitwise.
+19. wide: windows of 10,000 on the full and knn-full shards, per segment:
+   a match (K1 with the rounds), the same match with exact totals (the
+   dense collector: K8 + K10 with the rounds) and a knn with k 10,000 (K5
+   with the rounds); the first 4,096 hits equal the 4,096 window's, the
+   dense window equals K1's, the first 10 the earlier exact answers.
+   Launch counts are zeroed before and read after: bm25_flat, knn_flat
+   and dense_topk must have launched; then each is held against its plain
+   version and timed at its k 10,000 call (its own row in the kernels
+   line, with the wide path's launches).
+20. aggs-engine: a geonames-shaped InternalEngine (3,000 docs, three
+   segments, deletes): 17 agg bodies (terms, the dem histogram with
+   min/max/avg, stats, cardinality, percentiles, range, filters,
+   country_agg_uncached) and a 13-member plan_drain_aggs: every response
+   and preset equal on the card and the CPU.
+21. aggs-full: the geonames-shaped shard (Rally's geonames track over the
+   GeoNames allCountries dump: 11,396,503 docs in 4 segments, made from
+   the seed): 64 solo SearchService requests with a terms on
+   country_code and a histogram on dem with min/max/avg subs (K20 and K21
+   per segment), then plan_drain_aggs over the same 64 members (K22 and
+   K23 on the columns plane, P 64) feeding ShardAggregator(preset=...);
+   country_agg_uncached once. Checks, for every member: counts against a
+   host count, dem sums against the row-order oracle on both paths, plane
+   equal to per
+   segment in keys, counts, mins and maxs. Launch counts are zeroed before
+   phases 20-21 and read after: K20-K23 must have launched; then each is
+   held against its plain version and timed at its largest call.
+
 Prints a ``{"kernels": [...]}`` line and, last, the ``{"ok": true, ...}``
 line. Exits non-zero, without the ok line, when there is no CUDA card,
 when the package is missing, or on any failure. ``--rehearse`` runs the
@@ -180,6 +216,10 @@ REPLACES = {
     "sparse_coarse": "elasticsearch_tpu/ops/sparse.py:184",
     "sparse_rerank": "elasticsearch_tpu/ops/sparse.py:193",
     "text_expansion_forward": "elasticsearch_tpu/ml/text_expansion.py:111",
+    "aggs_ordinal_counts": "elasticsearch_tpu/ops/aggs.py:30",
+    "aggs_histogram": "elasticsearch_tpu/ops/aggs.py:42",
+    "aggs_ordinal_counts_plane": "elasticsearch_tpu/ops/aggs.py:90",
+    "aggs_histogram_plane": "elasticsearch_tpu/ops/aggs.py:112",
 }
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM, NVIDIA data sheet
 F32_FLOPS = 67e12              # H100 SXM f32 outside the tensor cores
@@ -3483,12 +3523,791 @@ def phase_sparse_kernels(torch, np, rec, launches, dev) -> list:
 
 # ---------------------------------------------------------------------------
 
+# ---------------------------------------------------------------------------
+# the wide selection: windows above the kernels' 4,096-entry CTA top-k
+# ---------------------------------------------------------------------------
+
+WIDE_K = 10_000
+WIDE_FAMILIES = ("bm25_flat", "knn_flat", "dense_topk")
+
+
+# (rows, cols, k) for the wide selection: a row of one chunk, rounds that
+# end mid-chunk, a k of one round over many rows
+WIDE_CASES = ((1, 5000, 4097), (3, 300_000, WIDE_K), (2, 200_000, 12_289),
+              (64, 70_000, 4096))
+
+
+def phase_wide_small(torch, np, dev) -> None:
+    """The wide selection (the rounds inside K10) against a stable sort on
+    the card, row by row, with many equal scores and -inf slots:
+    bitwise."""
+    from elasticsearch_tpu_torch.ops import topk
+    rng = np.random.default_rng(SEED + 600)
+    for rows, cols, k in WIDE_CASES:
+        x = rng.integers(0, 300, (rows, cols)).astype(np.float32)
+        x[x < 30] = -np.inf
+        t = torch.as_tensor(x, device=dev)
+        for r in range(rows):
+            got = topk.dense_topk(t[r], k)
+            want = topk.dense_topk_plain(t[r], k)
+            torch.cuda.synchronize()
+            compare(torch, f"dense_topk {cols} k {k} row {r}", got, want)
+    log("wide-small: dense_topk at k 4,096 to 12,289 bitwise equal to a "
+        "stable sort")
+
+
+def phase_wide(torch, np, dev, shared) -> None:
+    """Windows of 10,000 on the two shards the full and knn-full phases
+    built, per segment (planes off, so every segment's launch selects
+    10,000): a match with ``from`` 0 and ``size`` 10,000 (K1 with the
+    rounds), the same match with exact totals (the dense collector, K8 +
+    K10 with the rounds) and a knn with k 10,000 (K5 with the rounds). The
+    first 4,096 hits equal the 4,096 window's, the dense window equals
+    K1's, and the first 10 equal the earlier phases' exact answers."""
+    from elasticsearch_tpu_torch.index.engine import Reader
+    from elasticsearch_tpu_torch.mapping import MapperService
+    from elasticsearch_tpu_torch.ops.bm25 import KMAX
+    from elasticsearch_tpu_torch.ops.device_segment import PLANES
+    from elasticsearch_tpu_torch.search import dsl
+    from elasticsearch_tpu_torch.search.phase import query_shard
+    check("msmarco" in shared and "sift" in shared,
+          "wide needs the full and knn-full phases in the same run")
+    keep = PLANES.enabled
+    PLANES.enabled = False
+    try:
+        segs, mappers, queries, k1_hits = shared["msmarco"]
+        reader = Reader(segs)
+        q = dsl.parse_query({"match": {"body": queries[0]}})
+
+        def hits(res):
+            return [(d.segment_idx, d.doc, d.score) for d in res.docs]
+
+        t0 = time.monotonic()
+        wide = query_shard(reader, mappers, q, size=WIDE_K, device=dev)
+        t_wide = time.monotonic() - t0
+        narrow = query_shard(reader, mappers, q, size=KMAX, device=dev)
+        got = hits(wide)
+        check(len(got) == min(WIDE_K, wide.total_hits),
+              f"wide: msmarco window holds {len(got)} hits")
+        check(got[:KMAX] == hits(narrow),
+              "wide: msmarco window's first 4,096 differ from the 4,096 "
+              "window")
+        check(got[:10] == list(k1_hits[0]),
+              "wide: msmarco window's first 10 differ from the K1 batch leg")
+        log(f"wide: msmarco match window {WIDE_K}: {len(got)} hits "
+            f"(total {wide.total_hits}) in {1e3 * t_wide:.3f} ms wall; first "
+            f"4,096 equal the 4,096 window, first 10 the K1 batch leg")
+        t0 = time.monotonic()
+        dense = query_shard(reader, mappers, q, size=WIDE_K,
+                            track_total_hits=True, device=dev)
+        t_dense = time.monotonic() - t0
+        check(hits(dense) == got,
+              "wide: msmarco dense-collector window differs from K1's")
+        log(f"wide: msmarco match window {WIDE_K} with exact totals (dense "
+            f"collector): {len(got)} hits in {1e3 * t_dense:.3f} ms wall; "
+            f"ids and score bits equal to K1's window")
+
+        vsegs, vqueries, knn_hits = shared["sift"]
+        vmappers = MapperService({"properties": {"vec": {
+            "type": "dense_vector", "dims": SIFT_DIMS,
+            "similarity": "cosine", "index_options": {"type": "flat"}}}})
+        vq = [float(x) for x in vqueries[0]]
+        kq = dsl.parse_query({"knn": {"field": "vec", "query_vector": vq,
+                                      "k": WIDE_K,
+                                      "num_candidates": WIDE_K}})
+        t0 = time.monotonic()
+        kw = query_shard(Reader(vsegs), vmappers, kq, size=WIDE_K,
+                         device=dev)
+        t_knn = time.monotonic() - t0
+        got = hits(kw)
+        check(len(got) == WIDE_K, f"wide: sift window holds {len(got)}")
+        check(same_up_to_ties(list(knn_hits[0]), got[:10]),
+              "wide: sift window's first 10 differ from the exact-plane leg")
+        check(all(got[i][2] >= got[i + 1][2] for i in range(len(got) - 1)),
+              "wide: sift window is not in score order")
+        log(f"wide: sift knn k {WIDE_K}: {len(got)} hits in "
+            f"{1e3 * t_knn:.3f} ms wall; first 10 equal the exact-plane leg")
+    finally:
+        PLANES.enabled = keep
+
+
+# the position of k in each wide family's wrapper call
+WIDE_K_POS = {"bm25_flat": 10, "knn_flat": 6, "dense_topk": 1}
+
+
+def wide_k_of(family: str, args) -> int:
+    return args[WIDE_K_POS[family]]
+
+
+def wide_size(family: str, args):
+    if family == "bm25_flat":
+        return bm25_size(family, args)
+    if family == "knn_flat":
+        return knn_size(family, args)
+    return dense_size(family, args)
+
+
+def wide_bound(family: str, args):
+    if family == "bm25_flat":
+        return bound_of(family, args, {})
+    if family == "knn_flat":
+        return knn_bound(family, args)
+    return dense_bound(family, args)
+
+
+def phase_wide_kernels(torch, rec, launches) -> list:
+    """K1, K5 and K10 at k 10,000 held against their plain versions on the
+    wide path's calls, and each timed at its largest such call beside its
+    plain version (and torch.topk for K10): a row each, with the wide
+    path's launches."""
+    from elasticsearch_tpu_torch.ops import bm25 as bm
+    from elasticsearch_tpu_torch.ops import knn, topk
+    mods = {"bm25_flat": bm, "knn_flat": knn, "dense_topk": topk}
+    rows = []
+    for fam in WIDE_FAMILIES:
+        mod = mods[fam]
+        kernel, plain = getattr(mod, fam), getattr(mod, fam + "_plain")
+        wide = [c for c in rec.calls[fam] if wide_k_of(fam, c[0]) > 4096]
+        check(bool(wide), f"kernels: no {fam} call above 4,096 recorded")
+        err = 0.0
+        for args, kwargs in wide[:4]:
+            got = kernel(*args, **kwargs)
+            want = plain(*args, **kwargs)
+            torch.cuda.synchronize()
+            err = max(err, compare(torch, f"{fam} k {wide_k_of(fam, args)}",
+                                   got, want))
+            del got, want
+        args, kwargs = max(wide, key=lambda c: (rec.size(fam, c[0]),
+                                                wide_k_of(fam, c[0])))
+        ms = time_call(torch, lambda: kernel(*args, **kwargs), 20)
+        plain_ms = time_call(torch, lambda: plain(*args, **kwargs), 5)
+        bound_ms, bound_by, nbytes = wide_bound(fam, args)
+        lib_ms = (dense_library_ms(torch, fam, args) if fam == "dense_topk"
+                  else None)
+        if fam == "bm25_flat":
+            shape = (f"fb={args[2].numel()} "
+                     f"n_docs_pad={n_docs_pad_of(fam, args)} "
+                     f"n_q={n_q_of(fam, args)}")
+        elif fam == "knn_flat":
+            shape = f"(B, N, k) = {knn_size(fam, args)}"
+        else:
+            shape = f"n_docs_pad={dense_n(fam, args)}"
+        shape += f" k={wide_k_of(fam, args)}"
+        log(f"kernel {fam} (wide): {ms:.4f} ms (median of 20), plain "
+            f"{plain_ms:.4f} ms (median of 5), bound {bound_ms:.4f} ms "
+            f"({nbytes} bytes at 3.35 TB/s, {bound_by}), library "
+            f"{'none' if lib_ms is None else f'{lib_ms:.4f} ms'}, "
+            f"max_abs_err {err} over {min(len(wide), 4)} wide-path calls, "
+            f"launches on the wide path {launches.get(fam, 0)}, timed at "
+            f"{shape}")
+        rows.append({"name": fam, "route": "cuda",
+                     "source": f"elasticsearch_tpu_torch/csrc/{fam}.cu",
+                     "replaces": REPLACES[fam],
+                     "launches": launches.get(fam, 0), "max_abs_err": err,
+                     "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                     "bound_by": bound_by, "library_ms": lib_ms,
+                     "shape": shape})
+        torch.cuda.empty_cache()
+    return rows
+
+
+# ---------------------------------------------------------------------------
+# aggregations: K20-K23, the engine path, the geonames-shaped shard
+# ---------------------------------------------------------------------------
+
+GEONAMES_DOCS = 11_396_503
+AGGS_FAMILIES = ("aggs_ordinal_counts", "aggs_histogram",
+                 "aggs_ordinal_counts_plane", "aggs_histogram_plane")
+AGGS_FNS = {"aggs_ordinal_counts": "ordinal_counts",
+            "aggs_histogram": "histogram_partials",
+            "aggs_ordinal_counts_plane": "ordinal_counts_plane",
+            "aggs_histogram_plane": "histogram_partials_plane"}
+GEO_CODES = [chr(65 + i // 26) + chr(65 + i % 26) for i in range(250)]
+FEATURE_CLASSES = "AHLPRSTUV"
+# GeoNames' feature classes, roughly as the allCountries dump shares them
+FC_SHARE = (0.03, 0.20, 0.06, 0.18, 0.01, 0.25, 0.15, 0.01, 0.11)
+GEO_NAME_VOCAB = 200_000
+GEO_MAPPING = {"properties": {
+    "name": {"type": "text"}, "country_code": {"type": "keyword"},
+    "feature_class": {"type": "keyword"}, "population": {"type": "long"},
+    "dem": {"type": "integer"}}}
+GEO_AGGS = {
+    "country": {"terms": {"field": "country_code", "size": 20}},
+    "elevation": {"histogram": {"field": "dem", "interval": 100},
+                  "aggs": {"lo": {"min": {"field": "dem"}},
+                           "hi": {"max": {"field": "dem"}},
+                           "mean": {"avg": {"field": "dem"}}}}}
+# Rally geonames' country_agg_uncached: a terms with a sum sub-agg
+COUNTRY_AGG = {"country_population": {
+    "terms": {"field": "country_code", "size": 250},
+    "aggs": {"population": {"sum": {"field": "population"}}}}}
+
+
+def geonames_columns(np, seed: int, n: int):
+    """GeoNames-shaped columns from a seed (no real dump is in the repo):
+    country codes Zipf(1.3) folded onto 250, nine feature classes at
+    GeoNames-like shares, a population (90 % zero, the rest lognormal,
+    some past 2^24), dem in [-9999, 8848] (10 % -9999, GeoNames' no-data
+    value; 3 % below sea level; else exponential, mean 400 m) and names
+    of 1-3 words drawn Zipf(1.4) over 200,000."""
+    rng = np.random.default_rng(seed)
+    cc = ((rng.zipf(1.3, n) - 1) % len(GEO_CODES)).astype(np.int32)
+    fc = rng.choice(len(FEATURE_CLASSES), n, p=FC_SHARE).astype(np.int32)
+    pop = np.zeros(n, np.int64)
+    has = rng.random(n) < 0.1
+    pop[has] = np.minimum(rng.lognormal(8.0, 2.5, int(has.sum())),
+                          4e7).astype(np.int64)
+    dem = np.minimum(rng.exponential(400.0, n), 8848).astype(np.int64)
+    low = rng.random(n) < 0.03
+    dem[low] = -rng.integers(1, 431, int(low.sum()))
+    dem[rng.random(n) < 0.1] = -9999
+    lens = rng.integers(1, 4, n)
+    toks = (rng.zipf(1.4, (n, 3)) - 1) % GEO_NAME_VOCAB
+    toks[np.arange(3)[None, :] >= lens[:, None]] = -1
+    return {"cc": cc, "fc": fc, "pop": pop, "dem": dem,
+            "toks": toks.astype(np.int32)}
+
+
+def geo_keyword(np, ords, names):
+    from elasticsearch_tpu_torch.index.segment import KeywordField
+    n = len(ords)
+    return KeywordField(
+        terms={t: i for i, t in enumerate(names)},
+        ord_values=ords.astype(np.int32),
+        ord_offsets=np.arange(n + 1, dtype=np.int32),
+        doc_freq=np.bincount(ords, minlength=len(names)).astype(np.int32),
+        term_list=list(names))
+
+
+def build_geo_segment(args):
+    """One geonames-shaped segment's fields (run in a worker process)."""
+    seed, n = args
+    import numpy as np
+    from elasticsearch_tpu_torch.index.segment import (
+        DocValuesField, postings_from_token_matrix,
+    )
+    cols = geonames_columns(np, seed, n)
+    n_terms = int(cols["toks"].max()) + 1
+    pf = postings_from_token_matrix(
+        cols["toks"], [f"n{i}" for i in range(n_terms)])
+    ones = np.ones(n, bool)
+    return (pf, {"country_code": geo_keyword(np, cols["cc"], GEO_CODES),
+                 "feature_class": geo_keyword(np, cols["fc"],
+                                              list(FEATURE_CLASSES))},
+            {"population": DocValuesField(cols["pop"], ones),
+             "dem": DocValuesField(cols["dem"], ones.copy())}, cols)
+
+
+def build_geo_shard(np, n_docs: int, workers: int):
+    """The geonames-shaped shard: 4 segments, 0.1 % of docs deleted."""
+    import multiprocessing as mp
+    from elasticsearch_tpu_torch.index.segment import Segment
+    sizes = [n_docs // 4 + (1 if i < n_docs % 4 else 0) for i in range(4)]
+    jobs = [(SEED + 700 + i, n) for i, n in enumerate(sizes)]
+    if workers > 1:
+        with mp.get_context("spawn").Pool(workers) as pool:
+            parts = pool.map(build_geo_segment, jobs)
+    else:
+        parts = [build_geo_segment(j) for j in jobs]
+    rng = np.random.default_rng(SEED + 799)
+    segs, cols = [], []
+    for i, ((pf, kws, dvs, c), n) in enumerate(zip(parts, sizes)):
+        seg = Segment(f"geo{i}", n)
+        seg.postings["name"] = pf
+        seg.keywords.update(kws)
+        seg.doc_values.update(dvs)
+        seg.ids = [str(j) for j in range(n)]
+        seg.live[rng.random(n) < 0.001] = False
+        seg.invalidate_live_count()
+        segs.append(seg)
+        cols.append(c)
+    return segs, cols
+
+
+def geo_queries(np, n_q: int):
+    """match_all, the nine feature_class terms, then name matches."""
+    rng = np.random.default_rng(SEED + 710)
+    out = [{"match_all": {}}]
+    out += [{"term": {"feature_class": c}} for c in FEATURE_CLASSES]
+    while len(out) < n_q:
+        words = (rng.zipf(1.4, int(rng.integers(1, 3))) - 1) % 2000
+        out.append({"match": {"name": " ".join(f"n{w}" for w in words)}})
+    return out[:n_q]
+
+
+def geo_host_mask(np, col, live, q):
+    """The docs a geo query matches, from the generated columns."""
+    if "match_all" in q:
+        m = np.ones(len(col["cc"]), bool)
+    elif "term" in q:
+        m = col["fc"] == FEATURE_CLASSES.index(q["term"]["feature_class"])
+    else:
+        words = [int(w[1:]) for w in q["match"]["name"].split()]
+        m = np.isin(col["toks"], words).any(axis=1)
+    return m & live
+
+
+def geo_oracle(np, cols, lives, q):
+    """Host partials of GEO_AGGS for query q: country counts, and per dem
+    bucket key [count, min, max, sum] twice -- with the per-segment path's
+    sums (one f32 chain a segment, merged as Python floats in segment
+    order) and with the plane's (one f32 chain over the whole plane in
+    plane order). Each chain adds one value at a time in row order:
+    np.add.accumulate is sequential (np.sum is pairwise and would not
+    match)."""
+    counts = np.zeros(len(GEO_CODES), np.int64)
+    per_seg, plane = {}, {}
+    for col, live in zip(cols, lives):
+        m = geo_host_mask(np, col, live, q)
+        counts += np.bincount(col["cc"][m], minlength=len(GEO_CODES))
+        dem = col["dem"][m]
+        keys = dem // 100
+        order = np.argsort(keys, kind="stable")
+        k, v = keys[order], dem[order].astype(np.float32)
+        if not len(k):
+            continue
+        starts = np.flatnonzero(np.r_[True, k[1:] != k[:-1]])
+        ends = np.r_[starts[1:], len(k)]
+        for a, b in zip(starts, ends):
+            key, run = int(k[a]), v[a:b]
+            c, lo, hi = int(b - a), int(run.min()), int(run.max())
+            s = float(np.add.accumulate(run, dtype=np.float32)[-1])
+            head = np.array([plane[key][3] if key in plane else 0.0],
+                            np.float32)
+            chain = float(np.add.accumulate(np.concatenate((head, run)),
+                                            dtype=np.float32)[-1])
+            for hist, total in ((per_seg, None), (plane, chain)):
+                h = hist.get(key)
+                if h is None:
+                    hist[key] = [c, lo, hi, s if total is None else total]
+                else:
+                    hist[key] = [h[0] + c, min(h[1], lo), max(h[2], hi),
+                                 h[3] + s if total is None else total]
+    return counts, per_seg, plane
+
+
+def check_geo_partial(np, name, partial, counts, hist):
+    """A ShardAggregator partial of GEO_AGGS against geo_oracle."""
+    got = {b["key"]: b["doc_count"]
+           for b in partial["country"]["buckets"].values()}
+    want = {GEO_CODES[i]: int(c) for i, c in enumerate(counts) if c}
+    check(got == want, f"{name}: country counts differ from the host count")
+    buckets = partial["elevation"]["buckets"]
+    check(len(buckets) == len(hist),
+          f"{name}: {len(buckets)} dem buckets, host {len(hist)}")
+    big = 0.0
+    for key, (c, lo, hi, s) in hist.items():
+        b = buckets.get(repr(float(key * 100)))
+        check(b is not None, f"{name}: dem bucket {key * 100} missing")
+        subs = b["subs"]
+        check(b["doc_count"] == c and subs["lo"]["min"] == lo and
+              subs["hi"]["max"] == hi,
+              f"{name}: dem bucket {key * 100} count/min/max differ")
+        check(subs["mean"]["sum"] == s,
+              f"{name}: dem bucket {key * 100} sum {subs['mean']['sum']} "
+              f"!= the row-order oracle {s}")
+        big = max(big, abs(s))
+    return big
+
+
+def same_aggs_but_sums(a, b, path="$"):
+    """Final aggregations equal in keys, counts, mins and maxs; the avg
+    sub ("mean") is skipped: the plane adds a bucket in one f32 chain over
+    the whole plane, the per-segment path in one chain a segment, and past
+    2^24 the two round apart (in the JAX package too)."""
+    if isinstance(a, dict):
+        check(isinstance(b, dict) and set(a) == set(b), f"{path}: keys")
+        for k in a:
+            if k != "mean":
+                same_aggs_but_sums(a[k], b[k], f"{path}.{k}")
+    elif isinstance(a, list):
+        check(isinstance(b, list) and len(a) == len(b), f"{path}: length")
+        for i, (x, y) in enumerate(zip(a, b)):
+            same_aggs_but_sums(x, y, f"{path}[{i}]")
+    else:
+        check(a == b, f"{path}: {a!r} != {b!r}")
+
+
+def phase_aggs_small(torch, np, dev) -> None:
+    """K20-K23 against their plain versions on seeded columns: values with
+    many negatives and buckets dropped at both ends, a plan whose buckets
+    cover every value (sums past 2^24), an interval-0 plan, -1 padded
+    ordinals and ordinals past the buckets; bitwise."""
+    from elasticsearch_tpu_torch.ops import aggs
+    rng = np.random.default_rng(SEED + 800)
+    T = lambda a: torch.as_tensor(a, device=dev)  # noqa: E731
+    for n, n_plans, nb in ((3000, 1, 8), (1 << 20, 16, 256),
+                           (300_000, 3, 20_000)):
+        values = rng.integers(-9999, 1 << 23, n).astype(np.int32)
+        exists = rng.random(n) > 0.1
+        values[~exists] = 0
+        masks = rng.random((n_plans, n)) < rng.uniform(0.05, 1.0,
+                                                       (n_plans, 1))
+        intervals = rng.integers(1, 5000, n_plans).astype(np.int32)
+        intervals[0] = -(-((1 << 23) + 10_000) // (nb - 2))
+        if n_plans > 2:
+            intervals[1] = 0
+        bases = np.array([(-9999 // max(int(i), 1)) + 1 for i in intervals],
+                         np.int32)
+        cols = (T(values), T(exists), T(masks), T(bases), T(intervals))
+        got = aggs.histogram_partials_plane(*cols, nb)
+        want = aggs.histogram_partials_plane_plain(*cols, nb)
+        torch.cuda.synchronize()
+        compare(torch, f"aggs_histogram_plane n={n} p={n_plans}", got, want)
+        check(float(want[1][0].abs().max()) > 2 ** 24,
+              "aggs-small: no bucket sum passed 2^24")
+        one = aggs.histogram_partials(cols[0], cols[1], cols[2][0],
+                                      int(bases[0]), int(intervals[0]), nb)
+        compare(torch, f"aggs_histogram n={n}", one,
+                tuple(t[0] for t in want))
+        e = max(8, n // 2)
+        owners = np.sort(rng.integers(0, n, e)).astype(np.int32)
+        ords = rng.integers(-1, nb + 5, e).astype(np.int32)
+        got = aggs.ordinal_counts_plane(T(ords), T(owners), cols[2], nb)
+        want = aggs.ordinal_counts_plane_plain(T(ords), T(owners), cols[2],
+                                               nb)
+        compare(torch, f"aggs_ordinal_counts_plane e={e}", (got,), (want,))
+        one = aggs.ordinal_counts(T(ords), T(owners), cols[2][0], nb)
+        compare(torch, f"aggs_ordinal_counts e={e}", (one,), (want[0],))
+    log("aggs-small: K20-K23 bitwise equal to their plain versions "
+        "(negatives, drops, -1 pads, sums past 2^24, an interval-0 plan)")
+
+
+def geo_engine_docs(np, n: int):
+    cols = geonames_columns(np, SEED + 720, n)
+    docs = []
+    for i in range(n):
+        toks = [int(t) for t in cols["toks"][i] if t >= 0]
+        docs.append({"name": " ".join(f"n{t}" for t in toks),
+                     "country_code": GEO_CODES[int(cols["cc"][i])],
+                     "feature_class": FEATURE_CLASSES[int(cols["fc"][i])],
+                     "population": int(cols["pop"][i]),
+                     "dem": int(cols["dem"][i])})
+    return docs
+
+
+def geo_engine_bodies(np):
+    bodies = []
+    for q in geo_queries(np, 13):
+        bodies.append({"size": 0, "query": q, "aggs": GEO_AGGS,
+                       "track_total_hits": True})
+    bodies += [
+        {"size": 0, "aggs": COUNTRY_AGG},
+        {"size": 0, "aggs": {"s": {"stats": {"field": "dem"}},
+                             "c": {"cardinality": {"field": "country_code"}},
+                             "p": {"percentiles": {"field": "dem",
+                                                   "percents": [50, 99]}}}},
+        {"size": 0, "aggs": {"r": {"range": {"field": "population",
+                                             "ranges": [{"to": 1000},
+                                                        {"from": 1000}]}},
+                             "f": {"filters": {"filters": {
+                                 "p": {"term": {"feature_class": "P"}},
+                                 "h": {"term": {"feature_class": "H"}}}}}}},
+        {"size": 3, "query": {"match": {"name": "n0 n1"}},
+         "aggs": {"fc": {"terms": {"field": "feature_class"}},
+                  "h": {"histogram": {"field": "dem", "interval": 1000}}}},
+    ]
+    return bodies
+
+
+def phase_aggs_engine(torch, np, dev, n_docs: int) -> None:
+    """The geonames shape through InternalEngine + SearchService on a few
+    thousand docs: every response of the agg body set, and the drain
+    planner's presets, equal on the card and on the CPU."""
+    from types import SimpleNamespace
+    from elasticsearch_tpu_torch.index import InternalEngine
+    from elasticsearch_tpu_torch.mapping import MapperService
+    from elasticsearch_tpu_torch.search import SearchService
+    from elasticsearch_tpu_torch.search.plane_aggs import plan_drain_aggs
+    engine = InternalEngine(MapperService(GEO_MAPPING), shard_label="geo")
+    docs = geo_engine_docs(np, n_docs)
+    for i, d in enumerate(docs):
+        engine.index(str(i), d)
+        if i in (n_docs // 3, 2 * n_docs // 3):
+            engine.refresh()
+    engine.refresh()
+    for i in range(0, n_docs, 97):
+        engine.delete(str(i))
+    engine.refresh()
+    card = SearchService(engine, device=dev)
+    cpu = SearchService(engine, device="cpu")
+    bodies = geo_engine_bodies(np)
+    for bi, body in enumerate(bodies):
+        a = card.search(json.loads(json.dumps(body)))
+        b = cpu.search(json.loads(json.dumps(body)))
+        a.pop("took")
+        b.pop("took")
+        check(json.dumps(a, sort_keys=True) == json.dumps(b, sort_keys=True),
+              f"aggs-engine: body {bi} differs between the card and the CPU")
+    reader = engine.acquire_reader()
+    members = [SimpleNamespace(req={"body": b}, trace=None, error=None)
+               for b in bodies[:13]]
+    shard = SimpleNamespace(engine=engine)
+    on_card = plan_drain_aggs(shard, reader, members, device=dev)
+    on_cpu = plan_drain_aggs(shard, reader, members, device="cpu")
+    check(set(on_card) == set(range(13)), "aggs-engine: presets missing")
+    check(json.dumps(on_card, sort_keys=True) ==
+          json.dumps(on_cpu, sort_keys=True),
+          "aggs-engine: plane presets differ between the card and the CPU")
+    log(f"aggs-engine: {len(bodies)} agg bodies on {n_docs} docs (3 "
+        f"segments, deletes) and a 13-member drain's presets equal on the "
+        f"card and the CPU")
+
+
+def aggs_size(family: str, args):
+    """(plans, table entries or column rows) of an aggregation call."""
+    p = args[2].shape[0] if family.endswith("_plane") else 1
+    return (p, args[0].numel())
+
+
+def aggs_buckets(family: str, args) -> int:
+    return args[3] if "ordinal_counts" in family else args[5]
+
+
+def phase_aggs_full(torch, np, dev, n_docs: int, workers: int,
+                    n_q: int) -> None:
+    """The geonames-shaped shard (Rally's geonames track, 11,396,503 docs
+    in 4 segments): n_q solo SearchService requests with GEO_AGGS (K20 and
+    K21 per segment), then plan_drain_aggs over the same n_q members (K22
+    and K23 over the columns plane at P = n_q) feeding
+    ShardAggregator(preset=...). Checks: country counts and dem
+    count/min/max against a host count and the dem sums against the
+    row-order oracle on both paths (every member), the plane's responses
+    equal to the per-segment ones in keys, counts, mins and maxs (all
+    members; the avg sub's sums round apart past 2^24), and
+    country_agg_uncached's counts against the host."""
+    from types import SimpleNamespace
+    from elasticsearch_tpu_torch.index.engine import Reader
+    from elasticsearch_tpu_torch.mapping import MapperService
+    from elasticsearch_tpu_torch.ops.device_segment import PLANES
+    from elasticsearch_tpu_torch.search import SearchService, dsl
+    from elasticsearch_tpu_torch.search.aggregations import (
+        ShardAggregator, parse_aggs, reduce_aggs,
+    )
+    from elasticsearch_tpu_torch.search.device_profile import DEVICE_PROFILE
+    from elasticsearch_tpu_torch.search.phase import query_shard
+    from elasticsearch_tpu_torch.search.plane_aggs import plan_drain_aggs
+    t0 = time.monotonic()
+    segs, cols = build_geo_shard(np, n_docs, workers)
+    log(f"aggs-full: built {n_docs} geonames-shaped docs in {len(segs)} "
+        f"segments in {time.monotonic() - t0:.1f}s")
+    reader = Reader(segs)
+    mappers = MapperService(GEO_MAPPING)
+    engine = SimpleNamespace(mappers=mappers, acquire_reader=lambda: reader)
+    svc = SearchService(engine, index_name="geonames", device=dev)
+    queries = geo_queries(np, n_q)
+    bodies = [{"size": 0, "query": q, "aggs": GEO_AGGS,
+               "track_total_hits": True} for q in queries]
+    sync = (lambda: torch.cuda.synchronize()) if dev.type == "cuda" \
+        else (lambda: None)
+    svc.search(json.loads(json.dumps(bodies[0])))        # untimed warm-up
+    sync()
+    DEVICE_PROFILE.timing = dev.type == "cuda"
+    ms0 = device_ms(AGGS_FAMILIES)
+    times, solo = [], []
+    try:
+        for body in bodies:
+            t = time.monotonic()
+            solo.append(svc.search(json.loads(json.dumps(body))))
+            sync()
+            times.append(time.monotonic() - t)
+    finally:
+        DEVICE_PROFILE.timing = False
+    ms1 = device_ms(AGGS_FAMILIES)
+    kern = {f: round(ms1[f] - ms0[f], 4) for f in AGGS_FAMILIES}
+    busy = sum(kern.values()) / max(1e3 * sum(times), 1e-9)
+    log(f"aggs-full: {len(bodies)} solo agg requests (per segment), wall "
+        f"p50 {1e3 * pct(times, 0.5):.3f} ms p99 "
+        f"{1e3 * pct(times, 0.99):.3f} ms, total {1e3 * sum(times):.1f} ms;"
+        f" kernel device ms {kern}; kernel-busy share {busy:.4f}")
+    for q, resp in zip(queries, solo):
+        total = resp["hits"]["total"]["value"]
+        a = resp["aggregations"]["country"]
+        check(sum(b["doc_count"] for b in a["buckets"]) +
+              a["sum_other_doc_count"] == total,
+              f"aggs-full: {q}: country counts do not add up to {total}")
+        check(sum(b["doc_count"] for b in
+                  resp["aggregations"]["elevation"]["buckets"]) == total,
+              f"aggs-full: {q}: dem counts do not add up to {total}")
+
+    # the drain: K22 and K23 over the columns plane, one launch each
+    PLANES.enabled, PLANES.min_segments = True, 2
+    members = [SimpleNamespace(req={"body": b}, trace=None, error=None)
+               for b in bodies]
+    shard = SimpleNamespace(engine=engine)
+    plan_drain_aggs(shard, reader, members[:2], device=dev)   # builds plane
+    sync()
+    DEVICE_PROFILE.timing = dev.type == "cuda"
+    ms0 = device_ms(AGGS_FAMILIES)
+    try:
+        t = time.monotonic()
+        preset = plan_drain_aggs(shard, reader, members, device=dev)
+        sync()
+        t_plan = time.monotonic() - t
+    finally:
+        DEVICE_PROFILE.timing = False
+    ms1 = device_ms(AGGS_FAMILIES)
+    kern = {f: round(ms1[f] - ms0[f], 4) for f in AGGS_FAMILIES}
+    check(set(preset) == set(range(len(members))),
+          f"aggs-full: the drain preset {len(preset)} of {len(members)}")
+    specs = parse_aggs(GEO_AGGS)
+    t = time.monotonic()
+    for ui, (q, resp) in enumerate(zip(queries, solo)):
+        agg = ShardAggregator(specs, preset=preset[ui])
+        query_shard(reader, mappers, dsl.parse_query(q), size=0,
+                    collectors=[agg], device=dev)
+        same_aggs_but_sums(resp["aggregations"],
+                           reduce_aggs(specs, [agg.partial()]))
+    t_reduce = time.monotonic() - t
+    log(f"aggs-full: drain of {len(members)} members over the columns "
+        f"plane (P {len(members)}): plan_drain_aggs {1e3 * t_plan:.1f} ms "
+        f"wall, kernel device ms {kern}, busy "
+        f"{sum(kern.values()) / max(1e3 * t_plan, 1e-9):.4f}; the preset "
+        f"ShardAggregator responses equal the per-segment ones (keys, "
+        f"counts, mins, maxs) in {1e3 * t_reduce:.1f} ms")
+
+    # host counts and the row-order oracle, on both paths, every member
+    lives = [m[: s.n_docs] for m, s in zip(reader.live_masks, segs)]
+    big = 0.0
+    t = time.monotonic()
+    for ui, q in enumerate(queries):
+        agg = ShardAggregator(specs)
+        query_shard(reader, mappers, dsl.parse_query(q), size=0,
+                    collectors=[agg], device=dev)
+        counts, per_seg, plane = geo_oracle(np, cols, lives, q)
+        big = max(big, check_geo_partial(np, f"aggs-full per segment {q}",
+                                         agg.partial(), counts, per_seg))
+        big = max(big, check_geo_partial(np, f"aggs-full plane {q}",
+                                         preset[ui], counts, plane))
+    log(f"aggs-full: all {len(queries)} members' country and dem partials "
+        f"equal the host count and the row-order oracle on both paths "
+        f"(largest bucket sum {big:.1f}, past 2^24: {big > 2 ** 24}) in "
+        f"{time.monotonic() - t:.1f}s")
+    t = time.monotonic()
+    resp = svc.search({"size": 0, "aggs": COUNTRY_AGG})
+    t_country = time.monotonic() - t
+    want = np.zeros(len(GEO_CODES), np.int64)
+    for col, live in zip(cols, lives):
+        want += np.bincount(col["cc"][live], minlength=len(GEO_CODES))
+    got = {b["key"]: b["doc_count"] for b in
+           resp["aggregations"]["country_population"]["buckets"]}
+    check(got == {GEO_CODES[i]: int(c) for i, c in enumerate(want) if c},
+          "aggs-full: country_agg_uncached counts differ from the host")
+    log(f"aggs-full: country_agg_uncached (terms + sum, the host path) in "
+        f"{1e3 * t_country:.1f} ms, counts equal the host count")
+    PLANES.clear()
+
+
+def aggs_bound(family: str, args):
+    """(bound_ms, bytes): each input read once, each output written once,
+    at 3.35 TB/s (the arithmetic is an add a row)."""
+    if family in ("aggs_ordinal_counts", "aggs_ordinal_counts_plane"):
+        ords, owners, masks, nb = args[0], args[1], args[2], args[3]
+        e = ords.numel()
+        p = masks.shape[0] if masks.dim() == 2 else 1
+        n = masks.shape[-1]
+        nbytes = e * 8 + p * min(e, n) + p * nb * 4
+    else:
+        values, masks = args[0], args[2]
+        n = values.numel()
+        p = masks.shape[0] if masks.dim() == 2 else 1
+        nb = args[5]
+        nbytes = n * 5 + p * n + p * 8 + p * nb * 16
+    return nbytes / HBM_BYTES_PER_S * 1e3, nbytes
+
+
+def aggs_library_ms(torch, family: str, args):
+    """One PyTorch call a partial computes (never used by the port):
+    torch.bincount over the valid ordinals or bucket ids (the counts) and,
+    for the histograms, scatter_reduce amin / amax (mins, maxs), on
+    inputs masked beforehand. No library call adds in row order."""
+    if family in ("aggs_ordinal_counts", "aggs_ordinal_counts_plane"):
+        ords, owners, masks, nb = args[0], args[1], args[2], args[3]
+        m2 = masks if masks.dim() == 2 else masks[None, :]
+        valid = m2[:, owners.long()] & (ords >= 0) & (ords < nb)
+        flat = (torch.arange(m2.shape[0], device=ords.device)[:, None] * nb
+                + ords.long())[valid]
+        n_out = m2.shape[0] * nb
+        return time_call(torch, lambda: torch.bincount(flat,
+                                                       minlength=n_out), 20)
+    values, exists, masks = args[0], args[1], args[2]
+    m2 = masks if masks.dim() == 2 else masks[None, :]
+    if family == "aggs_histogram":
+        bases, ivs = [int(args[3])], [int(args[4])]
+    else:
+        bases, ivs = args[3].tolist(), args[4].tolist()
+    nb = args[5]
+    flat, vf = [], []
+    for p in range(m2.shape[0]):          # one plan at a time: less memory
+        ids = torch.div(values.long(), max(ivs[p], 1),
+                        rounding_mode="floor") - bases[p]
+        ok = exists & m2[p] & (ids >= 0) & (ids < nb) & (ivs[p] > 0)
+        flat.append(ids[ok] + p * nb)
+        vf.append(values[ok].float())
+    flat, vf = torch.cat(flat), torch.cat(vf)
+    n_out = m2.shape[0] * nb
+
+    def lib():
+        torch.bincount(flat, minlength=n_out)
+        torch.full((n_out,), torch.inf, device=vf.device).scatter_reduce_(
+            0, flat, vf, "amin")
+        torch.full((n_out,), -torch.inf, device=vf.device).scatter_reduce_(
+            0, flat, vf, "amax")
+    return time_call(torch, lib, 20)
+
+
+def phase_aggs_kernels(torch, rec, launches) -> list:
+    """K20-K23 held against their plain versions on the main path's calls
+    (up to 4 each plus the largest), then timed at the largest beside the
+    bound, the plain version and the library yardstick."""
+    from elasticsearch_tpu_torch.ops import aggs
+    rows = []
+    for fam in AGGS_FAMILIES:
+        calls = rec.calls[fam]
+        check(bool(calls), f"kernels: no {fam} call recorded")
+        kernel = getattr(aggs, AGGS_FNS[fam])
+        plain = getattr(aggs, AGGS_FNS[fam] + "_plain")
+        err = 0.0
+        for args, kwargs in calls[:4] + rec.largest_calls(fam):
+            got = kernel(*args, **kwargs)
+            got = got if isinstance(got, tuple) else (got,)
+            want = plain(*args, **kwargs)
+            want = want if isinstance(want, tuple) else (want,)
+            torch.cuda.synchronize()
+            err = max(err, compare(torch, fam, got, want))
+            del got, want
+        args, kwargs = rec.largest_calls(fam)[-1]
+        ms = time_call(torch, lambda: kernel(*args, **kwargs), 20)
+        probe = time_call(torch, lambda: plain(*args, **kwargs), 1)
+        plain_runs = 5 if probe < 2000 else 1
+        plain_ms = probe if plain_runs == 1 else time_call(
+            torch, lambda: plain(*args, **kwargs), plain_runs)
+        lib_ms = aggs_library_ms(torch, fam, args)
+        bound_ms, nbytes = aggs_bound(fam, args)
+        p, n = aggs_size(fam, args)
+        shape = f"p={p} n={n} n_buckets={aggs_buckets(fam, args)}"
+        log(f"kernel {fam}: {ms:.4f} ms (median of 20), plain {plain_ms:.4f}"
+            f" ms (median of {plain_runs}), library {lib_ms:.4f} ms, bound "
+            f"{bound_ms:.4f} ms ({nbytes} bytes at 3.35 TB/s), max_abs_err "
+            f"{err}, timed at {shape}")
+        rows.append({
+            "name": fam, "route": "cuda",
+            "source": f"elasticsearch_tpu_torch/csrc/{fam}.cu",
+            "replaces": REPLACES[fam], "launches": launches.get(fam, 0),
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": "bytes", "library_ms": lib_ms,
+            "shape": shape})
+        torch.cuda.empty_cache()
+    return rows
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--phases", default="card,small,knn-small,dense-small,"
-                    "ivf-small,sparse-small,engine,full,kernels,knn-engine,"
-                    "knn-full,dense-engine,dense-full,ivf-engine,ivf-full,"
-                    "sparse-engine,sparse-full")
+                    "ivf-small,sparse-small,wide-small,aggs-small,engine,"
+                    "full,kernels,knn-engine,knn-full,dense-engine,"
+                    "dense-full,wide,ivf-engine,ivf-full,sparse-engine,"
+                    "sparse-full,aggs-engine,aggs-full")
     ap.add_argument("--full-docs", type=int, default=MS_MARCO_DOCS)
     ap.add_argument("--engine-docs", type=int, default=50_000)
     ap.add_argument("--knn-docs", type=int, default=SIFT_DOCS)
@@ -3498,6 +4317,8 @@ def main(argv=None) -> int:
     ap.add_argument("--gist-queries", type=int, default=128)
     ap.add_argument("--sparse-docs", type=int, default=MS_MARCO_DOCS)
     ap.add_argument("--sparse-engine-docs", type=int, default=3_000)
+    ap.add_argument("--geo-docs", type=int, default=GEONAMES_DOCS)
+    ap.add_argument("--geo-engine-docs", type=int, default=3_000)
     ap.add_argument("--queries", type=int, default=64)
     ap.add_argument("--workers", type=int, default=4)
     ap.add_argument("--rehearse", action="store_true",
@@ -3551,6 +4372,12 @@ def main(argv=None) -> int:
         if "sparse-small" in phases and on_card:
             phase_sparse_small(torch, np, dev)
             log(t(), "sparse-small done")
+        if "wide-small" in phases and on_card:
+            phase_wide_small(torch, np, dev)
+            log(t(), "wide-small done")
+        if "aggs-small" in phases and on_card:
+            phase_aggs_small(torch, np, dev)
+            log(t(), "aggs-small done")
         from elasticsearch_tpu_torch.ops import bm25 as bm
         from elasticsearch_tpu_torch.ops import ivf, knn, topk
         rows = []
@@ -3632,6 +4459,28 @@ def main(argv=None) -> int:
                 log(t(), "dense kernels done")
         del drec
         PLANES.clear()
+        # the wide selection's path (windows of 10,000 on the MS MARCO and
+        # SIFT shards): launch counts from zero, read right after
+        DEVICE_PROFILE.reset_launches()
+        with Recorder({"bm25_flat": (bm, "bm25_flat"),
+                       "knn_flat": (knn, "knn_flat"),
+                       "dense_topk": (topk, "dense_topk")}, wide_size,
+                      keep=8) as wrec:
+            if "wide" in phases:
+                phase_wide(torch, np, dev, shared)
+                log(t(), "wide done")
+        launches = DEVICE_PROFILE.launches()
+        log("launches on the wide-selection path: " + json.dumps(
+            {f: launches.get(f, 0) for f in WIDE_FAMILIES}))
+        if on_card and "wide" in phases:
+            for fam in WIDE_FAMILIES:
+                check(launches.get(fam, 0) > 0,
+                      f"{fam} was never launched on the wide path")
+            if "kernels" in phases:
+                rows += phase_wide_kernels(torch, wrec, launches)
+                log(t(), "wide kernels done")
+        del wrec
+        PLANES.clear()
         # the IVF path (filtered kNN and the IVF route): launch counts from
         # zero, read right after
         DEVICE_PROFILE.reset_launches()
@@ -3699,8 +4548,37 @@ def main(argv=None) -> int:
                 log(t(), "sparse kernels done")
         del srec
         PLANES.clear()
+        if on_card:
+            torch.cuda.empty_cache()
+        # the aggregation path (the engine, then the geonames-shaped shard
+        # per segment and on the columns plane): launch counts from zero,
+        # read right after
+        from elasticsearch_tpu_torch.ops import aggs as aggs_ops
+        DEVICE_PROFILE.reset_launches()
+        with Recorder({f: (aggs_ops, AGGS_FNS[f]) for f in AGGS_FAMILIES},
+                      aggs_size, keep=4) as arec:
+            if "aggs-engine" in phases:
+                phase_aggs_engine(torch, np, dev, args.geo_engine_docs)
+                log(t(), "aggs-engine done")
+            if "aggs-full" in phases:
+                phase_aggs_full(torch, np, dev, args.geo_docs, args.workers,
+                                args.queries)
+                log(t(), "aggs-full done")
+        launches = DEVICE_PROFILE.launches()
+        log("launches on the aggregation main path: " + json.dumps(
+            {f: launches.get(f, 0) for f in AGGS_FAMILIES}))
+        if on_card and "aggs-full" in phases:
+            for fam in AGGS_FAMILIES:
+                check(launches.get(fam, 0) > 0,
+                      f"{fam} was never launched on the main path")
+            if "kernels" in phases:
+                rows += phase_aggs_kernels(torch, arec, launches)
+                log(t(), "aggs kernels done")
+        del arec
+        PLANES.clear()
         if on_card and {"full", "knn-full", "dense-full", "ivf-full",
-                        "sparse-full", "kernels"} <= phases:
+                        "sparse-full", "wide", "aggs-full",
+                        "kernels"} <= phases:
             from elasticsearch_tpu_torch.search.device_profile import (
                 KERNEL_FAMILIES, MASKED_VARIANTS,
             )

@@ -37,7 +37,12 @@ _libs: Dict[str, ctypes.CDLL] = {}
 BUILD_INFO: Dict[str, object] = {}
 
 
-class KernelBuildError(RuntimeError):
+class KernelError(RuntimeError):
+    """A kernel failed to build, load or launch: a fault of the card or its
+    toolchain, which no caller turns into a fallback."""
+
+
+class KernelBuildError(KernelError):
     """nvcc is missing, a source failed to compile, or a library failed to
     load."""
 

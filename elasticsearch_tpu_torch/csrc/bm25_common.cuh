@@ -136,15 +136,18 @@ enum CountMode { COUNT_NONE = 0, COUNT_TOTAL = 1, COUNT_SEGS = 2 };
 
 // grid (n_chunks, n_q). Each CTA masks its chunk of one row to live docs
 // with score > 0 (others -inf), counts the matches (per row, or per
-// segment through seg_ids), and writes its chunk's top-k to
-// out_s/out_i[(q * n_chunks + chunk) * k + r]. hits must start zeroed.
+// segment through seg_ids), and writes its chunk's top-k among the entries
+// after the row's cursor to out_s/out_i[q * out_ld + out_off + chunk * k +
+// r]. hits must start zeroed.
 __global__ void chunk_select_kernel(const long long* __restrict__ acc,
                                     const uint8_t* __restrict__ live,
                                     const int* __restrict__ seg_ids,
                                     long long n_docs_pad, long long chunk,
                                     int k, int cap, int mode, int n_segs,
+                                    Cursor cur,
                                     float* __restrict__ out_s,
                                     int* __restrict__ out_i,
+                                    long long out_ld, long long out_off,
                                     int* __restrict__ hits) {
     extern __shared__ __align__(16) unsigned char smem_raw[];
     float* bs = (float*)smem_raw;
@@ -165,6 +168,9 @@ __global__ void chunk_select_kernel(const long long* __restrict__ acc,
     if (threadIdx.x == 0) total = 0;
     // (cta_select's first barrier orders these writes before any use)
 
+    float cs = 0.f;
+    int ci = 0;
+    const bool has = read_cursor(cur, q, cs, ci);
     int my = 0;          // matches this thread saw (COUNT_TOTAL)
     int cur_seg = -1;    // run of matches in one segment (COUNT_SEGS)
     int cur_n = 0;
@@ -174,6 +180,7 @@ __global__ void chunk_select_kernel(const long long* __restrict__ acc,
         const bool m = live[doc] && v > 0;
         s = m ? from_fixed(v) : -INFINITY;
         i = (int)doc;
+        past_cursor(has, cs, ci, s, i);
         if (m) {
             if (mode == COUNT_TOTAL) {
                 ++my;
@@ -201,7 +208,8 @@ __global__ void chunk_select_kernel(const long long* __restrict__ acc,
             if (seg_cnt[s]) atomicAdd(hits + (long long)q * n_segs + s,
                                       seg_cnt[s]);
     }
-    const long long o = ((long long)q * gridDim.x + blockIdx.x) * k;
+    const long long o = (long long)q * out_ld + out_off +
+                        (long long)blockIdx.x * k;
     for (int r = threadIdx.x; r < k; r += blockDim.x) {
         out_s[o + r] = bs[r];
         out_i[o + r] = bi[r];
@@ -209,9 +217,11 @@ __global__ void chunk_select_kernel(const long long* __restrict__ acc,
 }
 
 // Mask + count + top-k of a zeroed-then-scattered [n_q, n_docs_pad]
-// fixed-point plane: chunk winners, then one merge CTA per row (skipped
-// when a row is one chunk). hits (may be null) is zeroed here. Returns the
-// first CUDA error, 0 on success.
+// fixed-point plane, any 1 <= k <= n_docs_pad: per round of at most KMAX
+// (topk_common.cuh), chunk winners, then one merge CTA per row (skipped
+// when a row is one chunk); the first round also counts. chunk_s/chunk_i
+// hold n_q * ceil(n_docs_pad / CHUNK) * min(k, KMAX) entries. hits (may be null)
+// is zeroed here. Returns the first CUDA error, 0 on success.
 inline int select_plane(const long long* acc, const uint8_t* live,
                         const int* seg_ids, long long n_docs_pad, int n_q,
                         int k, int mode, int n_segs, float* chunk_s,
@@ -224,26 +234,31 @@ inline int select_plane(const long long* acc, const uint8_t* live,
         if (err != cudaSuccess) return (int)err;
     }
     const int n_chunks = (int)((n_docs_pad + CHUNK - 1) / CHUNK);
-    const int cap = select_cap(k, SEL_THREADS);
-    const size_t smem = (size_t)cap * 8 +
-                        (mode == COUNT_SEGS ? (size_t)n_segs * 4 : 0);
-    err = set_smem((const void*)chunk_select_kernel, smem);
+    const size_t seg_smem = mode == COUNT_SEGS ? (size_t)n_segs * 4 : 0;
+    err = set_smem((const void*)chunk_select_kernel,
+                   (size_t)select_cap(round_k(k, 0), SEL_THREADS) * 8 +
+                       seg_smem);
     if (err != cudaSuccess) return (int)err;
-    float* cs = n_chunks == 1 ? out_s : chunk_s;
-    int* ci = n_chunks == 1 ? out_i : chunk_i;
-    chunk_select_kernel<<<dim3(n_chunks, n_q), SEL_THREADS, smem, stream>>>(
-        acc, live, seg_ids, n_docs_pad, CHUNK, k, cap, mode, n_segs, cs, ci,
-        hits);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
-    if (n_chunks > 1) {
-        const size_t msmem = (size_t)cap * 8;
-        err = set_smem((const void*)merge_select_kernel, msmem);
-        if (err != cudaSuccess) return (int)err;
-        merge_select_kernel<<<n_q, SEL_THREADS, msmem, stream>>>(
-            chunk_s, chunk_i, n_chunks * k, k, cap, out_s, out_i);
+    for (int done = 0; done < k; done += KMAX) {
+        const int kr = round_k(k, done);
+        const int cap = select_cap(kr, SEL_THREADS);
+        const int m = done == 0 ? mode : COUNT_NONE;
+        const size_t smem = (size_t)cap * 8 + (m == COUNT_SEGS ? seg_smem : 0);
+        const Cursor cur{out_s, out_i, k, done};
+        const bool direct = n_chunks == 1;
+        chunk_select_kernel<<<dim3(n_chunks, n_q), SEL_THREADS, smem,
+                              stream>>>(
+            acc, live, seg_ids, n_docs_pad, CHUNK, kr, cap, m, n_segs, cur,
+            direct ? out_s : chunk_s, direct ? out_i : chunk_i,
+            direct ? (long long)k : (long long)n_chunks * kr,
+            direct ? (long long)done : 0, done == 0 ? hits : nullptr);
         err = cudaGetLastError();
         if (err != cudaSuccess) return (int)err;
+        if (!direct) {
+            const int rc = merge_round(chunk_s, chunk_i, n_chunks, n_q, kr, k,
+                                       done, out_s, out_i, stream);
+            if (rc != 0) return rc;
+        }
     }
     return 0;
 }
@@ -260,7 +275,7 @@ int dense_topk(const int* block_docs, const void* block_tfs,
                long long n_docs_pad, int n_q, int k, int mode, int n_segs,
                Consts c, long long* acc, float* chunk_s, int* chunk_i,
                float* out_s, int* out_i, int* hits, cudaStream_t stream) {
-    if (k < 1 || k > KMAX || n_q < 1 || fb < 0 || n_docs_pad < k ||
+    if (k < 1 || n_q < 1 || fb < 0 || n_docs_pad < k ||
         (mode == COUNT_SEGS && (n_segs < 1 || n_segs > MAX_SEGS)))
         return (int)cudaErrorInvalidValue;
     cudaError_t err = cudaMemsetAsync(

@@ -20,7 +20,8 @@
 // `dense_topk_plain` (a stable sort).
 #include "topk_common.cuh"
 
-// chunk_s/chunk_i: ceil(n / CHUNK) * k entries (unused for one chunk);
+// chunk_s/chunk_i: ceil(n / CHUNK) * min(k, KMAX) entries (unused for one
+// chunk);
 // out_s/out_d: [k].
 extern "C" int dense_topk_launch(const float* scores, long long n, int k,
                                  float* chunk_s, int* chunk_i, float* out_s,

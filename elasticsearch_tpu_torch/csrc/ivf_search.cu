@@ -178,7 +178,7 @@ extern "C" int ivf_search_launch(
     const long long n_cand = (long long)nprobe * list_len;
     if (n_q < 1 || dims < 1 || dims > MAX_DIMS || nlist < 1 ||
         list_len < 1 || nprobe < 1 || nprobe > nlist || nprobe > KMAX ||
-        k < 1 || k > KMAX || k > n_cand || !valid_sim(sim))
+        k < 1 || k > n_cand || !valid_sim(sim))
         return (int)cudaErrorInvalidValue;
     cudaStream_t stream = (cudaStream_t)stream_ptr;
     int rc = 0;

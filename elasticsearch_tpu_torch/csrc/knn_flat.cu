@@ -29,15 +29,16 @@
 using namespace knn;
 
 // masks: [n_q, n_docs_pad] per-query filter rows, or nullptr; plane:
-// [n_q, n_docs_pad] f32 scratch; chunk_s/chunk_i: n_q *
-// ceil(n_docs_pad / CHUNK) * k entries; out_s/out_d: [n_q, k].
+// [n_q, n_docs_pad] f32 scratch; chunk_s/chunk_i:
+// n_q * ceil(n_docs_pad / CHUNK) * min(k, KMAX) entries; out_s/out_d:
+// [n_q, k].
 extern "C" int knn_flat_launch(
     const float* matrix, const float* norms, const uint8_t* allowed,
     const uint8_t* masks, const float* queries, const float* qn,
     const float* q2, int n_q, int dims, long long n_docs_pad, int k, int sim,
     float* plane,
     float* chunk_s, int* chunk_i, float* out_s, int* out_d, void* stream_ptr) {
-    if (n_q < 1 || dims < 1 || dims > MAX_DIMS || k < 1 || k > KMAX ||
+    if (n_q < 1 || dims < 1 || dims > MAX_DIMS || k < 1 ||
         n_docs_pad < k || !valid_sim(sim))
         return (int)cudaErrorInvalidValue;
     cudaStream_t stream = (cudaStream_t)stream_ptr;

@@ -113,7 +113,7 @@ int scored_topk(const int* block_docs, const void* block_weights,
                int k, int counted, Params p, long long* acc, float* chunk_s,
                int* chunk_i, float* out_s, int* out_d, int* hits,
                cudaStream_t stream) {
-    if (k < 1 || k > KMAX || n_docs_pad < k) return (int)cudaErrorInvalidValue;
+    if (k < 1 || n_docs_pad < k) return (int)cudaErrorInvalidValue;
     int err = scatter_plane<BF16>(block_docs, block_weights, block_idx,
                                   query_weight, qb, n_docs_pad, n_q, p, acc,
                                   stream);

@@ -275,17 +275,18 @@ _FNS: dict = {}
 def launch_kernel(family: str, sig, *args) -> None:
     """Call ``<family>_launch`` of the family's library (built and bound
     with ``sig``'s ctypes on first use; every family's wrapper module
-    goes through here) and raise if it returns a CUDA error."""
+    goes through here) and raise ``KernelError`` if it returns a CUDA
+    error."""
+    from elasticsearch_tpu_torch._build import KernelError, library
     fn = _FNS.get(family)
     if fn is None:
-        from elasticsearch_tpu_torch._build import library
         fn = getattr(library(family), f"{family}_launch")
         fn.restype = ctypes.c_int
         fn.argtypes = [_CTYPES[t] for t in sig]
         _FNS[family] = fn
     rc = fn(*args)
     if rc != 0:
-        raise RuntimeError(f"[{family}] kernel launch failed: CUDA error {rc}")
+        raise KernelError(f"[{family}] kernel launch failed: CUDA error {rc}")
 
 
 def _launch(family: str, *args) -> None:
@@ -339,8 +340,13 @@ def _check_flat(block_docs, block_tfs, flat_idx, flat_w, flat_q, doc_lens,
     return fb
 
 
-def _chunks(n_docs_pad: int) -> int:
-    return -(-n_docs_pad // CHUNK)
+def chunk_entries(n_rows: int, n_cols: int, k: int) -> int:
+    """Scratch entries for the chunk winners of a k-wide selection over
+    rows of ``n_cols``: one round's, at most KMAX a chunk
+    (csrc/topk_common.cuh ``plane_topk``); at least 1, unused when a row
+    is one chunk."""
+    nc = -(-n_cols // CHUNK)
+    return n_rows * nc * min(k, KMAX) if nc > 1 else 1
 
 
 def _consts(k1: float, b: float, bf16: bool = False):
@@ -374,12 +380,11 @@ def bm25_flat(block_docs, block_tfs, flat_idx, flat_w, flat_q, doc_lens,
                                    flat_q, doc_lens, flat_avgdl, live,
                                    n_docs_pad, n_q, k, k1=k1, b=b,
                                    counted=counted)
-        if not 1 <= k <= min(KMAX, n_docs_pad):
-            raise ValueError(f"k={k} outside [1, {min(KMAX, n_docs_pad)}]")
+        if not 1 <= k <= n_docs_pad:
+            raise ValueError(f"k={k} outside [1, {n_docs_pad}]")
         dev = block_docs.device
-        nc = _chunks(n_docs_pad)
         acc = torch.empty(n_q * n_docs_pad, dtype=torch.int64, device=dev)
-        ck = n_q * nc * k if nc > 1 else 1
+        ck = chunk_entries(n_q, n_docs_pad, k)
         chunk_s = torch.empty(ck, dtype=torch.float32, device=dev)
         chunk_i = torch.empty(ck, dtype=torch.int32, device=dev)
         s = torch.empty(n_q, k, dtype=torch.float32, device=dev)
@@ -418,14 +423,13 @@ def bm25_flat_seg(block_docs, block_tfs, flat_idx, flat_w, flat_q,
                 block_docs, block_tfs, flat_idx, flat_w, flat_q, doc_lens,
                 flat_avgdl, live, seg_ids, n_docs_pad, n_q, k, k1=k1, b=b,
                 n_segs=n_segs)
-        if not 1 <= k <= min(KMAX, n_docs_pad):
-            raise ValueError(f"k={k} outside [1, {min(KMAX, n_docs_pad)}]")
+        if not 1 <= k <= n_docs_pad:
+            raise ValueError(f"k={k} outside [1, {n_docs_pad}]")
         if not 1 <= n_segs <= MAX_SEGS:
             raise ValueError(f"n_segs={n_segs} outside [1, {MAX_SEGS}]")
         dev = block_docs.device
-        nc = _chunks(n_docs_pad)
         acc = torch.empty(n_q * n_docs_pad, dtype=torch.int64, device=dev)
-        ck = n_q * nc * k if nc > 1 else 1
+        ck = chunk_entries(n_q, n_docs_pad, k)
         chunk_s = torch.empty(ck, dtype=torch.float32, device=dev)
         chunk_i = torch.empty(ck, dtype=torch.int32, device=dev)
         s = torch.empty(n_q, k, dtype=torch.float32, device=dev)
@@ -468,9 +472,8 @@ def bm25_coarse(block_docs, block_tfs_q, flat_idx, flat_w, flat_q,
         if not 1 <= n_segs <= MAX_SEGS:
             raise ValueError(f"n_segs={n_segs} outside [1, {MAX_SEGS}]")
         dev = block_docs.device
-        nc = _chunks(n_docs_pad)
         acc = torch.empty(n_q * n_docs_pad, dtype=torch.int64, device=dev)
-        ck = n_q * nc * kprime if nc > 1 else 1
+        ck = chunk_entries(n_q, n_docs_pad, kprime)
         chunk_s = torch.empty(ck, dtype=torch.float32, device=dev)
         chunk_i = torch.empty(ck, dtype=torch.int32, device=dev)
         cs = torch.empty(n_q, kprime, dtype=torch.float32, device=dev)

@@ -24,8 +24,11 @@ whose plane cannot fit degrades to the per-segment path.
 
 The vector plane also carries the shard-level IVF index (``ops/ivf.py``),
 built on first use per plane generation and warm-started from the previous
-generation's centroids. Column planes and the mesh-sharded planes are
-not part of this package yet: asking for one raises NotPortedError.
+generation's centroids. The columns plane (``PlaneColumns``) packs a
+field's aggregation columns (the numeric doc values and the keyword
+ordinal table, remapped to global ordinals) for ``search/plane_aggs.py``.
+The mesh-sharded planes are not part of this package yet: asking for a
+kind it lacks raises NotPortedError.
 """
 
 from __future__ import annotations
@@ -587,8 +590,150 @@ class PlaneFeatures(PlanePart):
         return self._q_dev
 
 
+class PlaneColumns(PlanePart):
+    """All segments' aggregation columns for one field, concatenated into
+    plane doc space: the numeric/date doc-values column (int32 + exists)
+    and/or the keyword ordinal occurrence table with ordinals remapped to
+    GLOBAL (plane-wide, sorted term union) space at pack time. One field
+    commonly has only one side; the other uploads as zero-length arrays
+    and costs nothing.
+
+    The numeric side keeps the per-segment device collector's exactness
+    gates (single-valued, integral dtype, |v| < 2^24 so the fused f32
+    sum/min/max stay exact) — a segment that fails them poisons only the
+    numeric side, with the TYPED reason kept on the part so the agg
+    planner can record why it fell back to the host collector while the
+    keyword side keeps serving."""
+
+    kind = "columns"
+
+    def _pack_segment(self, seg: Segment):
+        """(numeric_entry, keyword_entry) host cache for one segment,
+        keyed by uid so incremental append reuses it verbatim. Keyword
+        ordinals stay LOCAL here — the global remap depends on the whole
+        segment set and is recomputed per pack (cheap host work)."""
+        num = None
+        dv = seg.doc_values.get(self.field)
+        if dv is not None:
+            if dv.multi:
+                num = ("ineligible", "multi_valued")
+            elif dv.values.dtype.kind != "i":
+                num = ("ineligible", "non_integer")
+            else:
+                docs = np.nonzero(dv.exists)[0]
+                vmin = int(dv.values[docs].min()) if len(docs) else None
+                vmax = int(dv.values[docs].max()) if len(docs) else None
+                if vmax is not None and \
+                        max(abs(vmin), abs(vmax)) >= 2 ** 24:
+                    # same gate as the per-segment device histogram:
+                    # int32-safe AND f32-exact (epoch-millis dates land
+                    # here and keep the host path)
+                    num = ("ineligible", "magnitude")
+                else:
+                    n = seg.n_docs
+                    ex = np.zeros(n, bool)
+                    ex[: min(n, len(dv.exists))] = dv.exists[:n]
+                    vals = np.zeros(n, np.int32)
+                    m = min(n, len(dv.values))
+                    vals[:m] = np.where(ex[:m], dv.values[:m],
+                                        0).astype(np.int32)
+                    num = ("ok", vals, ex, vmin, vmax)
+        kw = None
+        kf = seg.keywords.get(self.field) if \
+            hasattr(seg, "keywords") else None
+        if kf is not None:
+            counts = np.diff(kf.ord_offsets)
+            owners = np.repeat(np.arange(len(counts), dtype=np.int32),
+                               counts)
+            ords = kf.ord_values.astype(np.int32)
+            if len(owners):
+                # dedup (doc, ord) at pack time — same rule as the
+                # per-segment occurrence table (_dedup_doc_ord): a doc
+                # counts once per term even when the stored array
+                # repeats a value
+                pair = owners.astype(np.int64) \
+                    * max(len(kf.term_list), 1) + ords
+                _, first = np.unique(pair, return_index=True)
+                owners, ords = owners[first], ords[first]
+            kw = (owners, ords, list(kf.term_list))
+        return (num, kw)
+
+    def build(self, prev: Optional["PlaneColumns"]):
+        values = np.zeros(self.n_docs_pad, np.int32)
+        exists = np.zeros(self.n_docs_pad, bool)
+        have_num, num_reason = False, None
+        vmin, vmax = None, None
+        kw_parts = []     # (base, owners_local, ords_local, term_list)
+        for pos, seg in enumerate(self.segments):
+            cached = prev._seg_cache.get(seg.uid) if prev is not None \
+                else None
+            if cached is None:
+                cached = self._pack_segment(seg)
+            self._seg_cache[seg.uid] = cached
+            num, kw = cached
+            base = int(self.doc_base[pos])
+            if num is not None:
+                have_num = True
+                if num[0] == "ineligible":
+                    num_reason = num_reason or num[1]
+                else:
+                    _, vals, ex, s_min, s_max = num
+                    values[base: base + len(ex)] = vals[: len(ex)]
+                    exists[base: base + len(ex)] = ex
+                    if s_min is not None:
+                        vmin = s_min if vmin is None else min(vmin, s_min)
+                        vmax = s_max if vmax is None else max(vmax, s_max)
+            if kw is not None:
+                kw_parts.append((base,) + kw)
+        if not have_num and not kw_parts:
+            raise PlaneUnavailable(self.field)
+        self.has_numeric = have_num and num_reason is None
+        self.num_reason = num_reason
+        self.vmin, self.vmax = vmin, vmax
+        # global-ordinal remap: plane term space is the SORTED union of
+        # the segment term lists, so bucket keys come straight off the
+        # global ordinal and per-segment ords never leak upward
+        term_list: List = sorted({t for p in kw_parts for t in p[3]})
+        gid = {t: i for i, t in enumerate(term_list)}
+        self.has_keyword = bool(kw_parts)
+        self.term_list = term_list
+        self.n_terms = len(term_list)
+        own_parts, ord_parts = [], []
+        for base, owners, ords, terms in kw_parts:
+            if not len(owners):
+                continue
+            lookup = np.asarray([gid[t] for t in terms], np.int32) \
+                if terms else np.empty(0, np.int32)
+            own_parts.append(owners.astype(np.int64) + base)
+            ord_parts.append(lookup[ords])
+        n_occ = sum(len(p) for p in own_parts)
+        self.n_occurrences = n_occ
+        if kw_parts:
+            e_pad = next_pow2(max(n_occ, 1), minimum=8)
+            kw_owners = np.zeros(e_pad, np.int32)
+            kw_ords = np.full(e_pad, -1, np.int32)
+            if n_occ:
+                kw_owners[:n_occ] = np.concatenate(own_parts)
+                kw_ords[:n_occ] = np.concatenate(ord_parts)
+        else:
+            kw_owners = np.empty(0, np.int32)
+            kw_ords = np.empty(0, np.int32)
+        if not self.has_numeric:
+            values = np.empty(0, np.int32)
+            exists = np.empty(0, bool)
+        return (values, exists, kw_owners, kw_ords)
+
+    def upload(self, host) -> None:
+        values, exists, kw_owners, kw_ords = host
+        dev = self.device
+        self.values = torch.as_tensor(values, device=dev)
+        self.exists = torch.as_tensor(exists, device=dev)
+        self.kw_owners = torch.as_tensor(kw_owners, device=dev)
+        self.kw_ords = torch.as_tensor(kw_ords, device=dev)
+
+
 _PART_CLASSES = {"postings": PlanePostings, "vectors": PlaneVectors,
-                 "features": PlaneFeatures}
+                 "features": PlaneFeatures, "columns": PlaneColumns}
 
 
 def _count_reason(reason: str) -> None:

@@ -45,13 +45,13 @@ import torch
 
 from elasticsearch_tpu_torch.device import DeviceLike, resolve_device
 from elasticsearch_tpu_torch.ops.bm25 import (
-    CHUNK, _check, _on_cuda, _ptr, _stream, launch_kernel, stable_topk,
+    _check, _on_cuda, _ptr, _stream, chunk_entries, launch_kernel,
+    stable_topk,
 )
 from elasticsearch_tpu_torch.ops.knn import (
     KMAX, MAX_DIMS, QueryBatch, _bf16, _flat_dots, _sim_code, _similarity,
 )
 from elasticsearch_tpu_torch.search.device_profile import DEVICE_PROFILE
-from elasticsearch_tpu_torch.utils.errors import NotPortedError
 
 # rows per assignment launch: the [chunk, nlist] distance plane of the JAX
 # program at a GIST1M-class build (nlist 4,096) is 2 GB at 128K rows
@@ -282,8 +282,7 @@ def ivf_init(x: torch.Tensor, first: int, nlist: int) -> torch.Tensor:
 
 
 def _chunk_winners(n_rows: int, n_cols: int, k: int, dev):
-    nc = -(-n_cols // CHUNK)
-    ck = n_rows * nc * k if nc > 1 else 1
+    ck = chunk_entries(n_rows, n_cols, k)
     return (torch.empty(ck, dtype=torch.float32, device=dev),
             torch.empty(ck, dtype=torch.int32, device=dev))
 
@@ -313,13 +312,12 @@ def ivf_search(queries, qn, q2, centroids, lists, valid, ids, norms,
     n_cand = nprobe * list_len
     if not 1 <= nprobe <= min(nlist, KMAX):
         raise ValueError(f"nprobe={nprobe} outside [1, {min(nlist, KMAX)}]")
-    if not 1 <= k <= min(KMAX, n_cand):
-        raise ValueError(f"k={k} outside [1, {min(KMAX, n_cand)}]")
+    if not 1 <= k <= n_cand:
+        raise ValueError(f"k={k} outside [1, {n_cand}]")
     code = _sim_code(similarity)
-    with DEVICE_PROFILE.call(
-            "ivf_search",
-            f"n_q={n_q}/nlist={nlist}/L={list_len}/dims={dims}/"
-            f"nprobe={nprobe}/k={k}", cuda):
+    label = (f"n_q={n_q}/nlist={nlist}/L={list_len}/dims={dims}/"
+             f"nprobe={nprobe}/k={k}")
+    with DEVICE_PROFILE.call("ivf_search", label, cuda):
         if not cuda:
             return ivf_search_plain(queries, qn, q2, centroids, lists,
                                     valid, ids, norms, k, nprobe,
@@ -537,10 +535,6 @@ class IVFIndex:
         return 1 << (chunk.bit_length() - 1)      # floor to pow-2
 
     def _launch(self, batch: QueryBatch, k: int, nprobe: int):
-        if k > KMAX:
-            # the probe's top-k takes k <= KMAX (an oversampled k above
-            # 2,048 on the serving path)
-            raise NotPortedError(f"knn_ivf_k_over_{KMAX}")
         return ivf_search(batch.queries, batch.qn, batch.q2, self.centroids,
                           self.lists, self.valid, self.ids, self.norms, k,
                           nprobe, self.similarity)

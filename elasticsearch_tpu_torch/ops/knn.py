@@ -53,7 +53,8 @@ import torch
 
 from elasticsearch_tpu_torch.index.segment import next_pow2
 from elasticsearch_tpu_torch.ops.bm25 import (
-    _check, _on_cuda, _ptr, _stream, launch_kernel, stable_topk,
+    _check, _on_cuda, _ptr, _stream, chunk_entries, launch_kernel,
+    stable_topk,
 )
 from elasticsearch_tpu_torch.search.device_profile import DEVICE_PROFILE
 
@@ -285,9 +286,9 @@ def _check_query_terms(qn, q2, n_q: int) -> None:
     _check("q2", q2, torch.float32, (n_q,))
 
 
-def _check_k(name: str, k: int, n: int) -> None:
-    if not 1 <= k <= min(KMAX, n):
-        raise ValueError(f"{name}={k} outside [1, {min(KMAX, n)}]")
+def _check_k(name: str, k: int, n: int, cap: int = KMAX) -> None:
+    if not 1 <= k <= min(cap, n):
+        raise ValueError(f"{name}={k} outside [1, {min(cap, n)}]")
 
 
 def _check_masks(masks, n_q: int, n_pad: int) -> None:
@@ -305,8 +306,7 @@ def _family(name: str, masks) -> str:
 
 
 def _topk_scratch(n_q: int, n_docs_pad: int, k: int, dev):
-    nc = -(-n_docs_pad // CHUNK)
-    ck = n_q * nc * k if nc > 1 else 1
+    ck = chunk_entries(n_q, n_docs_pad, k)
     return (torch.empty(n_q * n_docs_pad, dtype=torch.float32, device=dev),
             torch.empty(ck, dtype=torch.float32, device=dev),
             torch.empty(ck, dtype=torch.int32, device=dev),
@@ -330,10 +330,9 @@ def knn_flat(matrix, norms, allowed, queries, qn, q2, k: int,
     _check("allowed", allowed, torch.bool, (n_pad,))
     _check_masks(masks, n_q, n_pad)
     _check_query_terms(qn, q2, n_q)
-    _check_k("k", k, n_pad)
-    with DEVICE_PROFILE.call(_family("knn_flat", masks),
-                             f"n_docs_pad={n_pad}/dims={dims}/n_q={n_q}/k={k}",
-                             cuda):
+    _check_k("k", k, n_pad, cap=n_pad)
+    label = f"n_docs_pad={n_pad}/dims={dims}/n_q={n_q}/k={k}"
+    with DEVICE_PROFILE.call(_family("knn_flat", masks), label, cuda):
         if not cuda:
             return knn_flat_plain(matrix, norms, allowed, queries, qn, q2,
                                   k, similarity, masks)

@@ -46,8 +46,8 @@ import torch
 
 from elasticsearch_tpu_torch.index.segment import FeaturesField, next_pow2
 from elasticsearch_tpu_torch.ops.bm25 import (
-    BLOCK_WIDTH, CHUNK, KMAX, _check, _from_fixed, _on_cuda, _ptr, _stream,
-    _to_fixed, launch_kernel, stable_topk,
+    BLOCK_WIDTH, KMAX, _check, _from_fixed, _on_cuda, _ptr, _stream,
+    _to_fixed, chunk_entries, launch_kernel, stable_topk,
 )
 from elasticsearch_tpu_torch.ops.device_segment import DeviceFeatures
 from elasticsearch_tpu_torch.search.device_profile import DEVICE_PROFILE
@@ -253,8 +253,7 @@ def _label(qb: int, n_docs_pad: int, n_q: int, k: int) -> str:
 
 
 def _topk_scratch(n_q: int, n_docs_pad: int, k: int, dev):
-    nc = -(-n_docs_pad // CHUNK)
-    ck = n_q * nc * k if nc > 1 else 1
+    ck = chunk_entries(n_q, n_docs_pad, k)
     return (torch.empty(n_q * n_docs_pad, dtype=torch.int64, device=dev),
             torch.empty(ck, dtype=torch.float32, device=dev),
             torch.empty(ck, dtype=torch.int32, device=dev))
@@ -281,8 +280,8 @@ def sparse_topk_batch(block_docs, block_weights, block_idx, query_weight,
             return sparse_flat_plain(block_docs, block_weights, block_idx,
                                      query_weight, pivot, exponent, live,
                                      n_docs_pad, k, function, counted)
-        if not 1 <= k <= min(KMAX, n_docs_pad):
-            raise ValueError(f"k={k} outside [1, {min(KMAX, n_docs_pad)}]")
+        if not 1 <= k <= n_docs_pad:
+            raise ValueError(f"k={k} outside [1, {n_docs_pad}]")
         dev = block_docs.device
         acc, chunk_s, chunk_i = _topk_scratch(n_q, n_docs_pad, k, dev)
         s = torch.empty(n_q, k, dtype=torch.float32, device=dev)

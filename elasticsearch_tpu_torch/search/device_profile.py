@@ -8,7 +8,9 @@ Every kernel wrapper under ``ops/`` reports each call here, by family
 ``ivf_init``, ``ivf_search`` in ``ops/ivf.py``; ``sparse_flat``,
 ``sparse_scores``, ``sparse_coarse``, ``sparse_rerank`` in
 ``ops/sparse.py``; ``text_expansion_forward`` in
-``ml/text_expansion.py``), and the launches of
+``ml/text_expansion.py``; ``aggs_ordinal_counts``, ``aggs_histogram``,
+``aggs_ordinal_counts_plane``, ``aggs_histogram_plane`` in
+``ops/aggs.py``), and the launches of
 K5-K7 with a per-query mask stack apart from the others, as
 ``MASKED_VARIANTS``:
 
@@ -40,7 +42,9 @@ KERNEL_FAMILIES = ("bm25_flat", "bm25_flat_seg", "bm25_coarse", "bm25_rerank",
                    "knn_flat", "knn_coarse", "knn_rerank", "bm25_scores",
                    "knn_scores", "dense_topk", "ivf_assign", "ivf_update",
                    "ivf_init", "ivf_search", "sparse_flat", "sparse_scores",
-                   "sparse_coarse", "sparse_rerank", "text_expansion_forward")
+                   "sparse_coarse", "sparse_rerank", "text_expansion_forward",
+                   "aggs_ordinal_counts", "aggs_histogram",
+                   "aggs_ordinal_counts_plane", "aggs_histogram_plane")
 # the masked launches of knn_flat / knn_coarse / knn_rerank (the same
 # kernels with a [B, N_pad] filter-mask operand), counted under these names
 MASKED_VARIANTS = ("knn_flat_masked", "knn_coarse_masked",

@@ -1012,11 +1012,9 @@ def knn_shard_winners(ctxs: List["SegmentContext"], field: str, specs,
     probe in separate groups -- each exactly as it would alone -- instead
     of falling anywhere back), filtered members one (optionally masked)
     [Q, D] x [D, N] launch with filter-context masks computed once per
-    distinct filter (cached across drains per segment). k above the
-    kernels' KMAX raises NotPortedError before any launch."""
-    from elasticsearch_tpu_torch.ops.knn import KMAX
-    if k > KMAX:
-        raise NotPortedError(f"knn_k_over_{KMAX}")
+    distinct filter (cached across drains per segment). A k above the
+    kernels' KMAX runs their selection in cursor rounds
+    (csrc/topk_common.cuh)."""
     n_q = len(specs)
     if not n_q:
         return []
@@ -1270,6 +1268,57 @@ def _h_script_score(q: dsl.ScriptScore, ctx: SegmentContext) -> Result:
     scores = (raw + offset) * q.boost
     mask = base_mask & dev.exists & ctx.live
     return _where(mask, scores), mask
+
+
+class _ScriptDocView:
+    """doc['field'].value / doc['field'].values view over segment columns."""
+
+    class _Field:
+        __slots__ = ("values",)
+
+        def __init__(self, values):
+            self.values = values
+
+        @property
+        def value(self):
+            return self.values[0] if self.values else None
+
+        @property
+        def empty(self):
+            return not self.values
+
+        def size(self):
+            return len(self.values)
+
+        def __len__(self):
+            return len(self.values)
+
+        def __getitem__(self, i):
+            return self.values[i]
+
+    def __init__(self, seg, columns, d: int):
+        self._seg = seg
+        self._columns = columns
+        self._d = d
+
+    def __getitem__(self, name: str):
+        dv = self._columns.get(name)
+        if dv is not None and dv.exists[self._d]:
+            # dv.multi holds the FULL value list for multi-valued docs
+            # (values[d] is its first entry), matching phase.py/fetch.py
+            multi = dv.multi.get(self._d)
+            vals = [float(x) for x in multi] if multi is not None \
+                else [float(dv.values[self._d])]
+            return self._Field(vals)
+        kf = self._seg.keywords.get(name)
+        if kf is not None:
+            ords = kf.ord_values[kf.ord_offsets[self._d]:
+                                 kf.ord_offsets[self._d + 1]]
+            return self._Field([kf.term_list[int(o)] for o in ords])
+        return self._Field([])
+
+    def containsKey(self, name: str) -> bool:  # noqa: N802 — painless API
+        return len(self[name].values) > 0
 
 
 _HANDLERS = {

@@ -31,13 +31,11 @@ import torch
 from elasticsearch_tpu_torch.device import DeviceLike, resolve_device
 from elasticsearch_tpu_torch.index.engine import Reader
 from elasticsearch_tpu_torch.index.segment import BLOCK, next_pow2
-from elasticsearch_tpu_torch.ops.bm25 import KMAX, P1_BUCKET, _host
+from elasticsearch_tpu_torch.ops.bm25 import P1_BUCKET, _host
 from elasticsearch_tpu_torch.mapping import MapperService
 from elasticsearch_tpu_torch.search import dsl
 from elasticsearch_tpu_torch.search.execute import SegmentContext
-from elasticsearch_tpu_torch.utils.errors import (
-    IllegalArgumentError, NotPortedError,
-)
+from elasticsearch_tpu_torch.utils.errors import IllegalArgumentError
 
 DEFAULT_TRACK_TOTAL_HITS = 10_000
 
@@ -404,9 +402,6 @@ def query_shard(reader: Reader,
     from elasticsearch_tpu_torch.indices.breaker import BREAKERS
     request_breaker = BREAKERS.breaker("request")
     if collector == "wand_topk":
-        if want > KMAX:
-            # the kernels' CTA-wide top-k holds at most KMAX entries
-            raise NotPortedError(f"wand_topk_window_over_{KMAX}")
         wc = wand_clauses(query, mappers)
         assert wc is not None   # choose_collector_context guarantees it
         w_field, w_clauses = wc
@@ -434,9 +429,6 @@ def query_shard(reader: Reader,
                 if profile else None))
 
     if collector == "sparse_topk":
-        if want > KMAX:
-            # the kernels' CTA-wide top-k holds at most KMAX entries
-            raise NotPortedError(f"sparse_topk_window_over_{KMAX}")
         # resolved text_expansion through THE sparse executor (the
         # batched path runs the same function): one launch over the
         # rank_features plane when resident, one batched launch per
@@ -495,9 +487,6 @@ def query_shard(reader: Reader,
     # or collected whole on the host for field sorts and collapse
     score_sort = sort[0].field == "_score" and len(sort) == 1
     score_asc = score_sort and sort[0].order == "asc"
-    if score_sort and collapse is None and want > KMAX:
-        # the dense top-k kernel holds at most KMAX entries
-        raise NotPortedError(f"dense_window_over_{KMAX}")
     # transient device estimate for the dense path: one f32 score vector
     # plus mask/where temporaries per segment (HierarchyCircuitBreakerService
     # request-breaker analog, applied to device memory) — released when the

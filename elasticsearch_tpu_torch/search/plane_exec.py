@@ -38,7 +38,7 @@ import torch
 
 from elasticsearch_tpu_torch.index.segment import next_pow2
 from elasticsearch_tpu_torch.ops.bm25 import (
-    DEFAULT_B, DEFAULT_K1, P1_BUCKET, QueryPlan, dispatch_flat,
+    KMAX, DEFAULT_B, DEFAULT_K1, P1_BUCKET, QueryPlan, dispatch_flat,
 )
 from elasticsearch_tpu_torch.ops.device_segment import PLANES
 from elasticsearch_tpu_torch.search import telemetry
@@ -198,6 +198,12 @@ def _coarse_wand_topk(part, per_seg, has_terms, n_q: int, live,
 
     from elasticsearch_tpu_torch.indices.breaker import BREAKERS
     for kprime, last in _adaptive_depths(k_plane, part.n_docs_pad):
+        if kprime > KMAX:
+            # the coarse and re-rank kernels hold k' <= KMAX candidates a
+            # row; a wider window is served exact (K1 / K15 with the wide
+            # selection), as the kNN tier does
+            _count_plane_quantized_fallback()
+            return None
         if check_members is not None:
             check_members()
         if counter is not None:
@@ -872,6 +878,12 @@ def _coarse_sparse_topk(part, idx, w, live, k_plane: int, n_real: int,
     q_n = idx.shape[0]
     from elasticsearch_tpu_torch.indices.breaker import BREAKERS
     for kprime, last in _adaptive_depths(k_plane, part.n_docs_pad):
+        if kprime > KMAX:
+            # the coarse and re-rank kernels hold k' <= KMAX candidates a
+            # row; a wider window is served exact (K1 / K15 with the wide
+            # selection), as the kNN tier does
+            _count_plane_quantized_fallback()
+            return None
         if check_members is not None:
             check_members()
         if counter is not None:

@@ -8,8 +8,10 @@ dense collector (exact totals, field sorts, ``search_after``,
 query nodes ``search/execute.py`` serves), the sparse collector for
 resolved ``text_expansion`` (a ``model_text`` is expanded first by the
 coordinator rewrite, ``ml.text_expansion.rewrite_body_expansions``, on
-the service's device), and ``_count``. Scroll, aggregations, suggest and
-the query nodes not ported yet raise NotPortedError (status 501).
+the service's device), ``aggs`` / ``aggregations`` (a ``ShardAggregator``
+collector per request, reduced into the response), and ``_count``.
+Scroll, suggest and the query nodes not ported yet raise NotPortedError
+(status 501).
 """
 
 from __future__ import annotations
@@ -74,11 +76,8 @@ class SearchService:
                 raise IllegalArgumentError("[timeout] must be > 0")
         if scroll_keep_alive:
             raise NotPortedError("scroll")
-        for key, feature in (("aggs", "aggregations"),
-                             ("aggregations", "aggregations"),
-                             ("suggest", "suggest")):
-            if body.get(key):
-                raise NotPortedError(feature)
+        if body.get("suggest"):
+            raise NotPortedError("suggest")
         reader = reader or self.engine.acquire_reader()
         if "text_expansion" in str(body.get("query", "")):
             from elasticsearch_tpu_torch.ml.text_expansion import (
@@ -86,6 +85,17 @@ class SearchService:
             )
             body = rewrite_body_expansions(body, self.device)
         query = dsl.parse_query(body.get("query"))
+
+        agg_specs = None
+        aggregator = None
+        agg_body = body.get("aggs", body.get("aggregations"))
+        if agg_body:
+            from elasticsearch_tpu_torch.search.aggregations import (
+                ShardAggregator, parse_aggs,
+            )
+            agg_specs = parse_aggs(agg_body)
+            aggregator = ShardAggregator(agg_specs)
+            collectors = list(collectors or []) + [aggregator]
         size = int(body.get("size", 10))
         from_ = int(body.get("from", 0))
         sort = parse_sort(body.get("sort"))
@@ -150,6 +160,13 @@ class SearchService:
                 "hits": hits,
             },
         }
+
+        if aggregator is not None:
+            from elasticsearch_tpu_torch.search.aggregations import (
+                reduce_aggs,
+            )
+            response["aggregations"] = reduce_aggs(
+                agg_specs, [aggregator.partial()])
 
         trace.add_span("fetch", time.monotonic_ns() - t_fetch)
         trace.finish()

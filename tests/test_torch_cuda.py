@@ -307,3 +307,121 @@ def test_text_expansion_forward_matches_plain_version_on_the_card(width):
         pw, pf = te.text_expansion_forward_plain(*args)
         assert torch.equal(f, pf)
         assert ((w - pw).abs() <= FORWARD_ATOL).all()
+
+
+def _agg_inputs(seed: int, n: int, n_plans: int, lo: int, hi: int):
+    rng = np.random.default_rng(seed)
+    values = rng.integers(lo, hi, n).astype(np.int32)
+    exists = rng.random(n) > 0.1
+    values[~exists] = 0
+    masks = rng.random((n_plans, n)) < rng.uniform(0.05, 1.0, (n_plans, 1))
+    return values, exists, masks, rng
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_plans,n_buckets", [(1, 8), (5, 256),
+                                               (3, 20_000)])
+def test_aggs_kernels_match_plain_versions_on_the_card(n_plans, n_buckets):
+    """K20-K23 bitwise equal to their plain versions: negative values
+    (floor division), buckets dropped at both ends, -1 padded ordinals,
+    ordinals past the buckets, an interval-0 plan, and bucket sums far
+    past 2^24, whose bits depend on the order of the adds (row order in
+    both). n_buckets 20,000 takes the global-atomic count path."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    from elasticsearch_tpu_torch.ops import aggs
+    n = 300_000
+    values, exists, masks, rng = _agg_inputs(n_plans + n_buckets, n,
+                                             n_plans, -9999, 1 << 23)
+    intervals = rng.integers(1, 5000, n_plans).astype(np.int32)
+    # plan 0's buckets cover every value: their sums pass 2^24
+    intervals[0] = -(-((1 << 23) + 10_000) // (n_buckets - 2))
+    if n_plans > 2:
+        intervals[1] = 0
+    bases = np.array([(-9999 // max(int(i), 1)) + 1 for i in intervals],
+                     np.int32)
+    C = lambda a: torch.as_tensor(a).cuda()  # noqa: E731
+    cols = (C(values), C(exists), C(masks), C(bases), C(intervals))
+    got = aggs.histogram_partials_plane(*cols, n_buckets)
+    want = aggs.histogram_partials_plane_plain(*cols, n_buckets)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    assert float(want[1][0].abs().max()) > 2 ** 24
+    for p in range(n_plans):
+        if intervals[p] <= 0:
+            continue
+        one = aggs.histogram_partials(cols[0], cols[1], cols[2][p],
+                                      int(bases[p]), int(intervals[p]),
+                                      n_buckets)
+        for g, w in zip(one, want):
+            assert torch.equal(g, w[p])
+    e = 200_000
+    owners = np.sort(rng.integers(0, n, e)).astype(np.int32)
+    ords = rng.integers(-1, n_buckets + 5, e).astype(np.int32)
+    got = aggs.ordinal_counts_plane(C(ords), C(owners), cols[2], n_buckets)
+    want = aggs.ordinal_counts_plane_plain(C(ords), C(owners), cols[2],
+                                           n_buckets)
+    assert torch.equal(got, want)
+    one = aggs.ordinal_counts(C(ords), C(owners), cols[2][0], n_buckets)
+    assert torch.equal(one, want[0])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_rows,n_cols,k", [(1, 5000, 4097),
+                                             (3, 300_000, 10_000),
+                                             (64, 70_000, 4096),
+                                             (2, 200_000, 12_289)])
+def test_wide_selection_matches_plain_version_on_the_card(n_rows, n_cols, k):
+    """The wide selection (rounds of at most 4,096 after a cursor) through
+    dense_topk (K10), row by row, bitwise equal to a stable sort, with many
+    equal scores and -inf slots."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    rng = np.random.default_rng(k)
+    x = rng.integers(0, 300, (n_rows, n_cols)).astype(np.float32)
+    x[x < 30] = -np.inf
+    t = torch.as_tensor(x).cuda()
+    for row in range(n_rows):
+        s, d = topk.dense_topk(t[row], k)
+        ws, wd = topk.dense_topk_plain(t[row], k)
+        assert torch.equal(s, ws) and torch.equal(d, wd)
+
+
+@pytest.mark.cuda
+def test_selecting_families_at_windows_above_4096_on_the_card():
+    """K1, K2 (counts from the first round only), K15 and K5 at k 5,000
+    and 10,000: the rounds inside each family's launch give its plain
+    version's ids, scores and counts bit for bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    from elasticsearch_tpu_torch.ops import sparse
+    inp = make_inputs(12, n_docs=150_000, nb=2048, n_q=8, per_q=200)
+    dev = [t.cuda() for t in tx(inp, *FLAT, "seg")]
+    n_pad, n_q, n_segs = inp["n_pad"], inp["n_q"], inp["n_segs"]
+    sp = make_sparse_inputs(19, n_docs=150_000, nb=2048, n_q=5, per_q=300,
+                            q_pad=8)
+    sdev = [t.cuda() for t in tx(sp, "docs", "weights", "idx", "qw", "live")]
+    m, norms, exists, live, q = make_knn_inputs(13, 16, 4, "int", 200_000,
+                                                262_144)
+    T = lambda a: torch.as_tensor(a).cuda()  # noqa: E731
+    batch = knn.QueryBatch(q, "cuda")
+    kargs = (T(m), T(norms), T(live & exists), batch.queries, batch.qn,
+             batch.q2)
+    for k in (5000, 10_000):
+        pairs = [
+            (port.bm25_flat(*dev[:8], n_pad, n_q, k, counted=True),
+             port.bm25_flat_plain(*dev[:8], n_pad, n_q, k, counted=True)),
+            (port.bm25_flat_seg(*dev, n_pad, n_q, k, n_segs=n_segs),
+             port.bm25_flat_seg_plain(*dev, n_pad, n_q, k, n_segs=n_segs)),
+            (sparse.sparse_topk_batch(*sdev[:4], 1.0, 1.0, sdev[4],
+                                      sp["n_pad"], k, "saturation",
+                                      counted=True),
+             sparse.sparse_flat_plain(*sdev[:4], 1.0, 1.0, sdev[4],
+                                      sp["n_pad"], k, "saturation",
+                                      counted=True)),
+            (knn.knn_flat(*kargs, k, "cosine"),
+             knn.knn_flat_plain(*kargs, k, "cosine")),
+        ]
+        for got, want in pairs:
+            for g, w in zip(got, want):
+                assert torch.equal(g, w)

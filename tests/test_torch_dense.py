@@ -52,6 +52,7 @@ from elasticsearch_tpu.ops import knn as ref_knn
 from elasticsearch_tpu_torch.ops import bm25 as port
 from elasticsearch_tpu_torch.ops import knn as pknn
 from elasticsearch_tpu_torch.ops import topk
+from elasticsearch_tpu_torch.ops.bm25 import KMAX
 from elasticsearch_tpu_torch.search.device_profile import DEVICE_PROFILE
 from test_torch_bm25 import assert_topk_match
 from torch_inputs import close_ids, make_inputs, make_knn_inputs
@@ -247,8 +248,11 @@ def test_dense_topk_refuses_bad_inputs():
         topk.dense_topk(x, 0)
     with pytest.raises(ValueError):
         topk.dense_topk(x, 257)
-    with pytest.raises(ValueError):
-        topk.dense_topk(torch.zeros(8192), topk.KMAX + 1)
+    # (a k above the CTA top-k's 4,096 entries was refused here before the
+    # wide selection; it is served now, in lax.top_k's order)
+    s, d = topk.dense_topk(torch.zeros(8192), KMAX + 1)
+    assert torch.equal(d, torch.arange(KMAX + 1, dtype=torch.int32))
+    assert torch.equal(s, torch.zeros(KMAX + 1))
     with pytest.raises(TypeError):
         topk.dense_topk(x.double(), 5)
     with pytest.raises(ValueError):

@@ -56,9 +56,14 @@ import elasticsearch_tpu_torch.ops.ivf
 import elasticsearch_tpu_torch.ops.sparse
 import elasticsearch_tpu_torch.ml
 import elasticsearch_tpu_torch.convert
+import elasticsearch_tpu_torch.ops.aggs
+import elasticsearch_tpu_torch.script
+import elasticsearch_tpu_torch.search.nested
+from elasticsearch_tpu_torch.search.plane_aggs import plan_drain_aggs
 from elasticsearch_tpu_torch.search.device_profile import DEVICE_PROFILE
 engine = InternalEngine(MapperService({"properties": {
     "body": {"type": "text"}, "tag": {"type": "keyword"},
+    "n": {"type": "integer"},
     "ml": {"type": "rank_features"},
     "vec": {"type": "dense_vector", "dims": 3, "similarity": "l2_norm"},
     "ivec": {"type": "dense_vector", "dims": 3, "similarity": "l2_norm",
@@ -67,7 +72,8 @@ for i in range(40):
     engine.index(str(i), {"body": "quick brown fox" if i % 3 else "lazy dog",
                           "tag": f"t{i % 2}", "vec": [float(i), 1.0, 2.0],
                           "ivec": [float(i), 1.0, 2.0],
-                          "ml": {"f1": 1.0 + i % 5, f"f{10 + i % 3}": 0.5}})
+                          "ml": {"f1": 1.0 + i % 5, f"f{10 + i % 3}": 0.5},
+                          "n": i - 10})
     if i == 20:
         engine.refresh()
 engine.refresh()
@@ -106,6 +112,24 @@ want = sum(1 for i in range(40) if any(
 assert te["hits"]["total"] == {"value": want, "relation": "eq"}, te["hits"]
 assert DEVICE_PROFILE.family("text_expansion_forward").calls == 1
 assert DEVICE_PROFILE.family("sparse_scores").calls > 0
+aggs = {"tags": {"terms": {"field": "tag"}},
+        "ns": {"histogram": {"field": "n", "interval": 7},
+               "aggs": {"hi": {"max": {"field": "n"}}}}}
+a = svc.search({"query": {"match": {"body": "fox"}}, "size": 0,
+                "aggs": aggs})["aggregations"]
+assert [(b["key"], b["doc_count"]) for b in a["tags"]["buckets"]] == [
+    ("t0", 13), ("t1", 13)], a
+assert a["ns"]["buckets"][0] == {"key": -14.0, "doc_count": 2,
+                                 "hi": {"value": -8.0}}, a
+assert DEVICE_PROFILE.family("aggs_ordinal_counts").calls == 2
+assert DEVICE_PROFILE.family("aggs_histogram").calls == 2
+from types import SimpleNamespace
+m = SimpleNamespace(req={"body": {"query": {"match": {"body": "fox"}},
+                                  "aggs": aggs}}, trace=None, error=None)
+preset = plan_drain_aggs(SimpleNamespace(engine=engine),
+                         engine.acquire_reader(), [m], device="cpu")
+assert preset[0]["tags"]["buckets"]["t1"]["doc_count"] == 13, preset
+assert DEVICE_PROFILE.family("aggs_histogram_plane").calls == 1
 assert not any(m.split(".")[0] in ("jax", "jaxlib", "elasticsearch_tpu")
                for m in sys.modules)
 print("served", len(r["hits"]["hits"]))
@@ -229,3 +253,93 @@ def test_dense_wrappers_never_take_the_plain_version(family, monkeypatch):
                               torch.ones(1), torch.ones(1), "cosine")
         else:
             topk.dense_topk(torch.zeros(n_pad), 10)
+
+
+@pytest.mark.parametrize("family", [
+    "aggs_ordinal_counts", "aggs_histogram", "aggs_ordinal_counts_plane",
+    "aggs_histogram_plane", "dense_topk_wide"])
+def test_aggs_and_wide_wrappers_never_take_the_plain_version(family,
+                                                            monkeypatch):
+    """The aggregation kernels' wrappers, and K10 at a window above KMAX,
+    given CUDA tensors, launch their kernel or raise: with the kernel
+    library unavailable they raise instead of computing on the host."""
+    from elasticsearch_tpu_torch import _build
+    from elasticsearch_tpu_torch.ops import aggs, bm25, topk
+
+    def no_library(fam):
+        raise _build.KernelBuildError("no nvcc")
+
+    def no_plain(*a, **k):
+        pytest.fail("plain version ran for a CUDA call")
+
+    monkeypatch.setattr(_build, "library", no_library)
+    monkeypatch.setattr(bm25, "_FNS", {})
+    for mod in (aggs, topk):
+        monkeypatch.setattr(mod, "_on_cuda", lambda *t: True)
+        monkeypatch.setattr(mod, "_stream", lambda: 0)
+    for name in ("ordinal_counts_plain", "ordinal_counts_plane_plain",
+                 "histogram_partials_plain",
+                 "histogram_partials_plane_plain"):
+        monkeypatch.setattr(aggs, name, no_plain)
+    monkeypatch.setattr(topk, "dense_topk_plain", no_plain)
+    n = 256
+    i32 = torch.zeros(n, dtype=torch.int32)
+    mask = torch.ones(n, dtype=torch.bool)
+    # the per-segment histogram moves its base / interval to the device
+    monkeypatch.setattr(torch.Tensor, "to", lambda self, *a, **k: self)
+    with pytest.raises(_build.KernelBuildError):
+        if family == "aggs_ordinal_counts":
+            aggs.ordinal_counts(i32, i32, mask, 8)
+        elif family == "aggs_ordinal_counts_plane":
+            aggs.ordinal_counts_plane(i32, i32, mask[None, :], 8)
+        elif family == "aggs_histogram":
+            aggs.histogram_partials(i32, mask, mask, 0, 5, 8)
+        elif family == "aggs_histogram_plane":
+            aggs.histogram_partials_plane(i32, mask, mask[None, :],
+                                          i32[:1], i32[:1] + 5, 8)
+        else:
+            topk.dense_topk(torch.zeros(5000), 4097)
+
+
+def test_plan_drain_aggs_raises_when_the_kernels_fail(monkeypatch):
+    """A drain over a plane on the card whose kernels cannot be built
+    raises: only planning errors turn into the typed host fallback."""
+    from types import SimpleNamespace
+
+    from elasticsearch_tpu_torch import _build
+    from elasticsearch_tpu_torch.index import InternalEngine
+    from elasticsearch_tpu_torch.mapping import MapperService
+    from elasticsearch_tpu_torch.ops import aggs, bm25
+    from elasticsearch_tpu_torch.ops.device_segment import PLANES
+    from elasticsearch_tpu_torch.search.plane_aggs import plan_drain_aggs
+
+    engine = InternalEngine(MapperService({"properties": {
+        "tag": {"type": "keyword"}, "n": {"type": "integer"}}}))
+    for i in range(40):
+        engine.index(str(i), {"tag": f"t{i % 3}", "n": i - 17})
+        if i == 19:
+            engine.refresh()
+    engine.refresh()
+
+    def no_library(fam):
+        raise _build.KernelBuildError("no nvcc")
+
+    keep = (PLANES.enabled, PLANES.min_segments, PLANES.max_bytes)
+    PLANES.clear()
+    PLANES.enabled, PLANES.min_segments, PLANES.max_bytes = True, 2, 0
+    monkeypatch.setattr(_build, "library", no_library)
+    monkeypatch.setattr(bm25, "_FNS", {})
+    monkeypatch.setattr(aggs, "_on_cuda", lambda *t: True)
+    monkeypatch.setattr(aggs, "_stream", lambda: 0)
+    try:
+        for body in ({"tags": {"terms": {"field": "tag"}}},
+                     {"ns": {"histogram": {"field": "n", "interval": 5}}}):
+            m = SimpleNamespace(req={"body": {"query": {"match_all": {}},
+                                              "aggs": body}},
+                                trace=None, error=None)
+            with pytest.raises(_build.KernelBuildError):
+                plan_drain_aggs(SimpleNamespace(engine=engine),
+                                engine.acquire_reader(), [m], device="cpu")
+    finally:
+        PLANES.enabled, PLANES.min_segments, PLANES.max_bytes = keep
+        PLANES.clear()

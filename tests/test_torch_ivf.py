@@ -50,7 +50,6 @@ from elasticsearch_tpu_torch.mapping import MapperService
 from elasticsearch_tpu_torch.ops import ivf as port
 from elasticsearch_tpu_torch.ops.device_segment import PLANES
 from elasticsearch_tpu_torch.search import SearchService
-from elasticsearch_tpu_torch.utils.errors import NotPortedError
 from test_torch_knn_slice import planes  # noqa: F401 (a fixture)
 from torch_inputs import close_ids
 
@@ -274,11 +273,16 @@ def test_probe_live_matches_reference():
 
 
 def test_probe_k_above_kmax_is_refused():
+    """(The name predates the wide selection, which this test once proved
+    refused.) A probe whose k passes the kernels' 4,096-entry selection is
+    served as the JAX package serves it: ids and scores equal."""
     x = clustered(13, 4, 1500, 8)
+    r = ref.IVFIndex.build(x, nlist=4, similarity="cosine")
     p = port.IVFIndex.build(x, nlist=4, device="cpu")
-    with pytest.raises(NotPortedError) as info:
-        p.search(x[:1], 5000, 4)
-    assert info.value.feature == "knn_ivf_k_over_4096"
+    rs, ri = r.search(x[:1], 5000, 4)
+    ps, pi = p.search(x[:1], 5000, 4)
+    np.testing.assert_array_equal(pi, ri)
+    np.testing.assert_array_equal(ps, rs)
 
 
 def test_cuda_tensors_never_take_the_plain_version(monkeypatch):

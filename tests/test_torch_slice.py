@@ -247,20 +247,26 @@ def test_converted_segments_serve_the_same_hits(planes):
     pytest.param({"query": {"query_string": {"query": "w1 AND w2"}},
                   "track_total_hits": True}, "dense_query:QueryString",
                  id="body1-dense_collector"),
-    # (the id predates the kNN collector and filtered kNN, both served
-    # now -- tests/test_torch_knn_filtered.py -- and is kept for a knn
-    # shape still outside the port: k above the kernels' top-k limit)
+    # (the ids of body2 and body3 predate the wide selection and the
+    # aggregations, which the port now serves -- tests/test_torch_window.py
+    # and tests/test_torch_aggs_slice.py -- so these bodies are held to the
+    # reference's answer; feature None)
     pytest.param({"query": {"knn": {"field": "vec", "query_vector": [1, 0, 0],
                                     "k": 5000, "num_candidates": 5000,
                                     "filter": {"term": {"tag": "t1"}}}}},
-                 "knn_k_over_4096", id="body2-knn_topk_collector"),
-    ({"query": {"match": {"body": "w1"}}, "aggs": {
-        "t": {"terms": {"field": "tag"}}}}, "aggregations"),
+                 None, id="body2-knn_topk_collector"),
+    pytest.param({"query": {"match": {"body": "w1"}}, "aggs": {
+        "t": {"terms": {"field": "tag"}}}}, None, id="body3-aggregations"),
 ])
 def test_out_of_slice_requests_raise_not_ported(body, feature, planes):
     from elasticsearch_tpu_torch.search import telemetry
-    _ref, port = index_both(make_docs(11, 50))
+    ref, port = index_both(make_docs(11, 50))
     svc = SearchService(port, device="cpu")
+    if feature is None:
+        want, got = RefService(ref).search(body), svc.search(body)
+        assert_same_response(want, got)
+        assert got.get("aggregations") == want.get("aggregations")
+        return
     before = telemetry.TELEMETRY.not_ported.get(feature, 0)
     with pytest.raises(NotPortedError) as info:
         svc.search(body)

@@ -309,19 +309,13 @@ def test_text_expansion_inside_bool_runs_the_model_per_query(planes):
 
 
 def test_sparse_window_above_the_kernels_top_k_raises_not_ported(planes):
-    """A sparse top-k window above the kernels' KMAX (4096) is refused with
-    a 501 naming it, never served differently."""
-    from elasticsearch_tpu_torch.search import telemetry
-    from elasticsearch_tpu_torch.utils.errors import NotPortedError
-    _ref, port = engines("one_segment")
-    feature = "sparse_topk_window_over_4096"
-    before = telemetry.TELEMETRY.not_ported.get(feature, 0)
-    with pytest.raises(NotPortedError) as info:
-        SearchService(port, device="cpu").search(
-            {"query": te(tokens=TOKENS), "size": 5000})
-    assert info.value.status == 501
-    assert info.value.feature == feature
-    assert telemetry.TELEMETRY.not_ported[feature] == before + 1
+    """(The name predates the wide selection, which this test once proved
+    refused.) A sparse top-k window above the kernels' 4,096-entry
+    selection is served as the JAX package serves it."""
+    ref, port = engines("one_segment")
+    body = {"query": te(tokens=TOKENS), "size": 5000}
+    assert_same_response(RefService(ref).search(dict(body)),
+                         SearchService(port, device="cpu").search(dict(body)))
 
 
 def test_converted_segments_serve_the_same_sparse_answers(planes):
