@@ -1,3 +1,4 @@
-"""Node-level index services. Only the circuit breakers are carried so far
-(``indices.breaker``); the index/cluster-state services come with the node
-layer."""
+from elasticsearch_tpu_torch.indices.indices_service import IndexService, IndicesService
+from elasticsearch_tpu_torch.indices.cluster_state_service import IndicesClusterStateService
+
+__all__ = ["IndexService", "IndicesService", "IndicesClusterStateService"]

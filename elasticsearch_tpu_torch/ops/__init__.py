@@ -6,6 +6,7 @@ from elasticsearch_tpu_torch.ops.device_segment import (
     DeviceVectors,
     device_live_mask,
 )
+from elasticsearch_tpu_torch.ops.fusion import linear_fuse, rrf_fuse
 from elasticsearch_tpu_torch.ops.knn import KnnExecutor
 from elasticsearch_tpu_torch.ops.sparse import (
     SparseExecutor, sparse_scores, sparse_topk,
@@ -13,4 +14,5 @@ from elasticsearch_tpu_torch.ops.sparse import (
 
 __all__ = ["Bm25Executor", "DeviceFeatures", "DevicePostings",
            "DeviceVectors", "KnnExecutor", "PLANES", "SparseExecutor",
-           "device_live_mask", "idf", "sparse_scores", "sparse_topk"]
+           "device_live_mask", "idf", "linear_fuse", "rrf_fuse",
+           "sparse_scores", "sparse_topk"]

@@ -1103,3 +1103,68 @@ class PlaneRegistry:
 # one card per process -> one plane residency manager per process
 # (the same reasoning as indices/breaker.py's BREAKERS)
 PLANES = PlaneRegistry()
+
+
+class MeshSettings:
+    """The ``search.mesh.*`` settings and the mesh-sharded plane's stats,
+    standing where the JAX package keeps its ``MeshPlaneRegistry``.
+
+    The mesh forms of the kernels (the JAX package's ``parallel/mesh.py``
+    and ``parallel/sharded_search.py`` programs) are not ported yet, so no
+    mesh-sharded plane is ever built -- the JAX package's state whenever
+    its mesh backend is not up. Every co-located fan-out is served by the
+    per-shard RPC path, and ``MeshSearchExecutor.try_submit`` counts each
+    one as ``mesh_backend_not_ready`` and ``not_ported["mesh"]``."""
+
+    def __init__(self):
+        self.enabled = True
+        self.min_shards = 2
+        self.dp = 1
+        self.hosts = None
+        self.max_devices = 0
+        self.stats: Dict[str, int] = {
+            "mesh_plane_builds": 0,
+            "mesh_plane_full_rebuilds": 0,
+            "mesh_plane_incremental_appends": 0,
+            "mesh_plane_evictions": 0,
+            "mesh_plane_miss_fallbacks": 0,
+            "mesh_plane_warmups": 0,
+            "mesh_quantized_queries": 0,
+            "mesh_quantized_mirror_builds": 0,
+            "mesh_quantized_fallbacks": 0,
+        }
+        self.hbm_high_water = 0
+        self.evictions_by_cause: Dict[str, int] = {}
+
+    def configure_from_state(self, state) -> None:
+        from elasticsearch_tpu_torch.utils.settings import (
+            SEARCH_MESH_DP, SEARCH_MESH_ENABLED, SEARCH_MESH_MIN_SHARDS,
+            setting_from_state,
+        )
+        self.enabled = setting_from_state(state, SEARCH_MESH_ENABLED)
+        self.min_shards = setting_from_state(state, SEARCH_MESH_MIN_SHARDS)
+        self.dp = setting_from_state(state, SEARCH_MESH_DP)
+
+    def warmup(self) -> bool:
+        return False
+
+    def on_refresh(self, shard_key, segments) -> None:
+        pass
+
+    def drop_segments(self, uids) -> None:
+        pass
+
+    def stats_snapshot(self) -> Dict[str, Any]:
+        return {**self.stats, "mesh_planes_resident": 0,
+                "resident_bytes": {"postings": 0, "vectors": 0,
+                                   "features": 0, "columns": 0},
+                "resident_bytes_per_device": 0, "dp": int(self.dp)}
+
+    def residency_snapshot(self) -> Dict[str, Any]:
+        return {"resident_bytes_total": 0,
+                "high_water_bytes": int(self.hbm_high_water),
+                "generations_built": 0, "planes": [],
+                "evictions_by_cause": {}}
+
+
+MESH_PLANES = MeshSettings()

@@ -1,0 +1,11 @@
+"""The host half of the JAX package's ``parallel`` package: the mesh
+topology, layout and the host-only eligibility check of the mesh data
+plane. The sharded search programs are not ported yet."""
+
+from elasticsearch_tpu_torch.parallel.mesh import (
+    HostTopology, host_backend, mesh_layout, mesh_ready,
+    parse_host_topology, set_host_backend,
+)
+
+__all__ = ["HostTopology", "host_backend", "mesh_layout", "mesh_ready",
+           "parse_host_topology", "set_host_backend"]

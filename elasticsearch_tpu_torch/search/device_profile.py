@@ -10,9 +10,9 @@ Every kernel wrapper under ``ops/`` reports each call here, by family
 ``ops/sparse.py``; ``text_expansion_forward`` in
 ``ml/text_expansion.py``; ``aggs_ordinal_counts``, ``aggs_histogram``,
 ``aggs_ordinal_counts_plane``, ``aggs_histogram_plane`` in
-``ops/aggs.py``), and the launches of
-K5-K7 with a per-query mask stack apart from the others, as
-``MASKED_VARIANTS``:
+``ops/aggs.py``; ``rrf_fuse``, ``rrf_fuse_batch`` and ``linear_fuse`` in
+``ops/fusion.py``), and the launches of K5-K7 with a per-query mask stack
+apart from the others, as ``MASKED_VARIANTS``:
 
 - ``launches``: how many times the wrapper launched its CUDA kernel. A
   call on CPU tensors runs the plain PyTorch version and is not a launch.
@@ -44,7 +44,8 @@ KERNEL_FAMILIES = ("bm25_flat", "bm25_flat_seg", "bm25_coarse", "bm25_rerank",
                    "ivf_init", "ivf_search", "sparse_flat", "sparse_scores",
                    "sparse_coarse", "sparse_rerank", "text_expansion_forward",
                    "aggs_ordinal_counts", "aggs_histogram",
-                   "aggs_ordinal_counts_plane", "aggs_histogram_plane")
+                   "aggs_ordinal_counts_plane", "aggs_histogram_plane",
+                   "rrf_fuse", "rrf_fuse_batch", "linear_fuse")
 # the masked launches of knn_flat / knn_coarse / knn_rerank (the same
 # kernels with a [B, N_pad] filter-mask operand), counted under these names
 MASKED_VARIANTS = ("knn_flat_masked", "knn_coarse_masked",
@@ -87,6 +88,12 @@ class DeviceProfile:
     def __init__(self):
         self._families: Dict[str, FamilyProfile] = {}
         self.timing = False
+
+    def configure_from_state(self, state) -> None:
+        """The JAX package reads its recompile-storm and slow-compile
+        knobs (``search.device_profile.*``) here. Eager PyTorch compiles
+        nothing, so there is nothing for them to watch; the node's
+        settings refresh calls this all the same."""
 
     def family(self, name: str) -> FamilyProfile:
         fam = self._families.get(name)

@@ -425,3 +425,72 @@ def test_selecting_families_at_windows_above_4096_on_the_card():
         for got, want in pairs:
             for g, w in zip(got, want):
                 assert torch.equal(g, w)
+
+
+def _rrf_lists(seed: int, b: int, r: int, k: int, n_docs: int):
+    rng = np.random.default_rng(seed)
+    out = rng.integers(0, n_docs, (b, r, k)).astype(np.int32)
+    out[rng.random((b, r, k)) < 0.15] = -1
+    out[rng.random((b, r, k)) < 0.03] = n_docs + 5     # dropped
+    out[:, 0, 3] = out[:, 0, 4] = 2                   # repeated in a list
+    return torch.as_tensor(out)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,r,k_list,n_pad,k", [
+    (1, 2, 8, 16, 16), (64, 2, 128, 256, 256), (7, 3, 64, 128, 100),
+    (3, 4, 4096, 16384, 2000)],
+    ids=["tiny", "main_path", "r3", "global_scratch"])
+def test_rrf_fuse_batch_matches_plain_version_on_the_card(b, r, k_list,
+                                                          n_pad, k):
+    """K24 bitwise equal to its plain version: ids, -1 past the matches,
+    score bits; the last case's work arrays live in global scratch."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    from elasticsearch_tpu_torch.ops import fusion
+    lists = _rrf_lists(b * r + k, b, r, k_list, n_pad - 8).cuda()
+    got = fusion.rrf_fuse_batch(lists, n_pad, k, 60)
+    want = fusion.rrf_fuse_batch_plain(lists, n_pad, k, 60)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_pad,k", [(64, 64), (4_194_304, 300)],
+                         ids=["whole_row", "wide_pad"])
+def test_rrf_fuse_tail_matches_plain_version_on_the_card(n_pad, k):
+    """K24 at B 1 with row 28's unscored tail."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    from elasticsearch_tpu_torch.ops import fusion
+    lists = _rrf_lists(n_pad, 1, 2, 128, min(n_pad, 50_000) - 8)[0].cuda()
+    got = fusion.rrf_fuse(lists, n_pad, k, 60)
+    want = fusion.rrf_fuse_plain(lists, n_pad, k, 60)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("r,n,k,normalize", [
+    (2, 1000, 10, True), (3, 200_000, 4097, True), (2, 65_537, 10, False)],
+    ids=["small", "wide_k", "raw"])
+def test_linear_fuse_matches_plain_version_on_the_card(r, n, k, normalize):
+    """K25 bitwise equal to its plain version (one rounded f32 op at a
+    time on both sides), any k."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    from elasticsearch_tpu_torch.ops import fusion
+    rng = np.random.default_rng(r * n + k)
+    scores = rng.gamma(2.0, 1.5, (r, n)).astype(np.float32)
+    scores[rng.random((r, n)) < 0.3] = 0.0
+    scores[rng.random((r, n)) < 0.05] *= -1.0
+    args = (torch.as_tensor(scores).cuda(),
+            torch.as_tensor(rng.uniform(0.1, 2, r).astype(np.float32)).cuda(),
+            torch.as_tensor(rng.random(n) > 0.1).cuda())
+    got = fusion.linear_fuse(*args, k, normalize)
+    want = fusion.linear_fuse_plain(*args, k, normalize)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)

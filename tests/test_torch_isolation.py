@@ -130,6 +130,57 @@ preset = plan_drain_aggs(SimpleNamespace(engine=engine),
                          engine.acquire_reader(), [m], device="cpu")
 assert preset[0]["tags"]["buckets"]["t1"]["doc_count"] == 13, preset
 assert DEVICE_PROFILE.family("aggs_histogram_plane").calls == 1
+import json
+from elasticsearch_tpu_torch.rest.controller import RestRequest
+from elasticsearch_tpu_torch.rest.routes import build_controller
+from elasticsearch_tpu_torch.testing import InProcessCluster
+cluster = InProcessCluster(n_nodes=1, seed=5, device="cpu")
+cluster.start()
+controller = build_controller(cluster.client())
+
+
+def rest(method, path, body=None):
+    raw = b""
+    if isinstance(body, list):
+        raw = ("\n".join(json.dumps(x) for x in body) + "\n").encode()
+        body = None
+    out = []
+    controller.dispatch(RestRequest(method=method, path=path, body=body,
+                                    raw_body=raw),
+                        lambda status, resp: out.append((status, resp)))
+    cluster.run_until(lambda: bool(out), 60.0)
+    return out[0]
+
+
+status, _ = rest("PUT", "/node_idx", {
+    "settings": {"number_of_shards": 1, "number_of_replicas": 0},
+    "mappings": {"properties": {
+        "body": {"type": "text"},
+        "vec": {"type": "dense_vector", "dims": 3,
+                "similarity": "l2_norm"}}}})
+assert status == 200, status
+lines = []
+for i in range(30):
+    lines += [{"index": {"_index": "node_idx", "_id": str(i)}},
+              {"body": "quick brown fox" if i % 3 else "lazy dog",
+               "vec": [float(i), 1.0, 2.0]}]
+status, resp = rest("POST", "/_bulk", lines)
+assert status == 200 and not resp["errors"], resp
+rest("POST", "/node_idx/_refresh")
+status, resp = rest("POST", "/node_idx/_search",
+                    {"query": {"match": {"body": "fox"}},
+                     "track_total_hits": True})
+assert status == 200 and resp["hits"]["total"]["value"] == 20, resp
+calls = DEVICE_PROFILE.family("rrf_fuse_batch").calls
+status, resp = rest("POST", "/node_idx/_search", {
+    "query": {"match": {"body": "dog"}},
+    "knn": {"field": "vec", "query_vector": [3.1, 1, 2], "k": 3,
+            "num_candidates": 10},
+    "rank": {"rrf": {"rank_window_size": 10}}, "size": 3})
+assert status == 200, resp
+assert resp["hits"]["hits"][0]["_id"] == "3", resp["hits"]
+assert DEVICE_PROFILE.family("rrf_fuse_batch").calls == calls + 1
+cluster.stop()
 assert not any(m.split(".")[0] in ("jax", "jaxlib", "elasticsearch_tpu")
                for m in sys.modules)
 print("served", len(r["hits"]["hits"]))
@@ -343,3 +394,81 @@ def test_plan_drain_aggs_raises_when_the_kernels_fail(monkeypatch):
     finally:
         PLANES.enabled, PLANES.min_segments, PLANES.max_bytes = keep
         PLANES.clear()
+
+
+@pytest.mark.parametrize("family", ["rrf_fuse_batch", "rrf_fuse",
+                                    "linear_fuse"])
+def test_fusion_wrappers_never_take_the_plain_version(family, monkeypatch):
+    """The fusion kernels' wrappers, given CUDA tensors, launch their
+    kernel or raise: with the kernel library unavailable they raise
+    instead of fusing on the host."""
+    from elasticsearch_tpu_torch import _build
+    from elasticsearch_tpu_torch.ops import bm25, fusion
+
+    def no_library(fam):
+        raise _build.KernelBuildError("no nvcc")
+
+    def no_plain(*a, **k):
+        pytest.fail("plain version ran for a CUDA call")
+
+    monkeypatch.setattr(_build, "library", no_library)
+    monkeypatch.setattr(bm25, "_FNS", {})
+    monkeypatch.setattr(fusion, "_on_cuda", lambda *t: True)
+    monkeypatch.setattr(fusion, "_stream", lambda: 0)
+    for name in ("rrf_fuse_batch_plain", "rrf_fuse_plain",
+                 "linear_fuse_plain"):
+        monkeypatch.setattr(fusion, name, no_plain)
+    lists = torch.zeros(2, 2, 8, dtype=torch.int32)
+    with pytest.raises(_build.KernelBuildError):
+        if family == "rrf_fuse_batch":
+            fusion.rrf_fuse_batch(lists, 16, 16, 60)
+        elif family == "rrf_fuse":
+            fusion.rrf_fuse(lists[0], 16, 16, 60)
+        else:
+            fusion.linear_fuse(torch.zeros(2, 64), torch.ones(2),
+                               torch.ones(64, dtype=torch.bool), 10)
+
+
+def test_rrf_request_fails_when_the_fusion_kernel_fails(monkeypatch):
+    """A hybrid request whose fusion kernel raises fails with an error
+    naming the kernel: the coordinator never fuses on the host instead,
+    and counts no host-fusion fallback."""
+    from elasticsearch_tpu_torch import _build
+    from elasticsearch_tpu_torch.ops import fusion
+    from elasticsearch_tpu_torch.testing import InProcessCluster
+
+    cluster = InProcessCluster(n_nodes=1, seed=7, device="cpu")
+    cluster.start()
+    client = cluster.client()
+    try:
+        _, err = cluster.call(lambda cb: client.create_index("h", {
+            "settings": {"number_of_shards": 1, "number_of_replicas": 0},
+            "mappings": {"properties": {
+                "body": {"type": "text"},
+                "vec": {"type": "dense_vector", "dims": 2,
+                        "similarity": "l2_norm"}}}}, cb))
+        assert err is None, err
+        for i in range(12):
+            _, err = cluster.call(lambda cb, i=i: client.index_doc(
+                "h", str(i), {"body": "a b" if i % 2 else "b c",
+                              "vec": [float(i), 0.0]}, cb))
+            assert err is None, err
+        cluster.call(lambda cb: client.refresh("h", cb))
+
+        def broken(*a, **k):
+            raise _build.KernelError("[rrf_fuse_batch] kernel launch "
+                                     "failed: CUDA error 700")
+
+        monkeypatch.setattr(fusion, "rrf_fuse_batch", broken)
+        body = {"query": {"match": {"body": "b"}},
+                "knn": {"field": "vec", "query_vector": [3.0, 0.0],
+                        "k": 3, "num_candidates": 12},
+                "rank": {"rrf": {}}}
+        resp, err = cluster.call(lambda cb: client.search("h", body, cb))
+        assert resp is None and err is not None
+        assert "rrf_fuse_batch" in str(err)
+        node = next(iter(cluster.nodes.values()))
+        assert node.search_action.rrf_fuser.stats["rrf_fuse_fallbacks"] == 0
+        assert node.search_action.rrf_fuser.stats["rrf_fuse_batches"] == 0
+    finally:
+        cluster.stop()
