@@ -18,7 +18,7 @@ Phases, each of which fails the run on any failed check:
    B in {1, 8, 64}, D in {128, 960}, k' up to 1024, dead docs, missing
    vectors, duplicate rows and a zero query row; bitwise equal.
 4. engine: ``InternalEngine`` + ``SearchService`` with one text field,
-   50,000 seeded Zipf(1.35) documents over 30,000 words, several
+   10,000 seeded Zipf(1.35) documents over 30,000 words, several
    segments, a few deletes; 32 match bodies at track_total_hits default,
    false and 5 must give the same response on the card as the same
    package on ``device="cpu"`` (ids, totals, relation and max_score equal,
@@ -163,7 +163,7 @@ Phases, each of which fails the run on any failed check:
    country_code and a histogram on dem with min/max/avg subs (K20 and K21
    per segment), then plan_drain_aggs over the same 64 members (K22 and
    K23 on the columns plane, P 64) feeding ShardAggregator(preset=...);
-   country_agg_uncached once. Checks, for every other member: counts
+   country_agg_uncached once. Checks, for every fourth member: counts
    against a host count, dem sums against the row-order oracle on both
    paths; for every member: plane equal to per segment in keys, counts,
    mins and maxs. Launch counts are zeroed before
@@ -172,7 +172,7 @@ Phases, each of which fails the run on any failed check:
 
 22. node-engine: two port nodes, ``InProcessCluster(n_nodes=1)`` on the
    card and on the CPU (the CPU one in a worker process, loading and
-   answering while this process drives the card node), each get 20,000
+   answering while this process drives the card node), each get 6,000
    seeded docs (text, a 768-dim ``dense_vector``, ``rank_features``)
    through ``POST /_bulk`` and about 40 bodies through their REST
    controllers (``match`` with totals true / false / 7, deletes,
@@ -197,9 +197,36 @@ Phases, each of which fails the run on any failed check:
    calls in either package, are held bitwise against their plain versions
    and timed.
 
+24. mesh-small (run with the small phases): the mesh kernels
+   mesh_bm25_flat, mesh_bm25_coarse and mesh_bm25_rerank (rows 31-33)
+   against their plain versions, and slot by slot against K2 / K3 / K4
+   launched on that slot's plane, at S 2 and 4 (an empty slot, a
+   one-segment slot, two dp rows, a chunked plane); bitwise.
+25. mesh-engine: a card node and a CPU node (in a worker process) on an
+   index of 4 shards, 10,000 seeded docs through ``_bulk``: match at
+   totals default / true / false / 7, bool of should-matches and
+   dfs_query_then_fetch, a round of writes (new docs, deletes, a
+   refresh), the bodies again. Every answer equal on the two nodes
+   (``_data_plane`` included); the card node's mesh-served answers equal
+   its own with ``search.mesh.enabled: false``; ``mesh_searches`` grows
+   and the knn and text_expansion bodies are counted declines.
+26. mesh-full: phase 5's MS MARCO corpus (its four generated segments,
+   reused) as the 4 primary shards of one card node, each doc under an
+   _id that routes to its shard as ``_bulk`` would route it (the i-th doc
+   of segment c gets the i-th integer whose murmur3 route is shard c),
+   installed with ``restore_segments``; 64
+   solo match bodies with the tier on, the 64 with it off, the 64 as one
+   wave, each answer equal to the same node's per-shard fan-out
+   (``search.mesh.enabled: false``). The mesh legs must launch all three
+   mesh families and no K1-K4, with no budget refusal or mesh fallback.
+   Launch counts are zeroed before phases 25-26 and read after; then rows
+   31-33 are held against their plain versions and timed.
+
 The two largest host builds (the MS MARCO and BEIR NQ postings) start in
 one worker pool when the script starts, so they run while the phases
-before them use the card. Prints a ``{"kernels": [...]}`` line and, last,
+before them use the card; mesh-full builds its routed shards itself, in a
+pool of its own, so that no phase before it shares the host with that
+work. Prints a ``{"kernels": [...]}`` line and, last,
 the ``{"ok": true, ...}`` line. Exits non-zero, without the ok line, when there is no CUDA card,
 when the package is missing, or on any failure. ``--rehearse`` runs the
 same phases on the CPU at a small size (plain versions only) and never
@@ -249,6 +276,9 @@ REPLACES = {
     "aggs_histogram": "elasticsearch_tpu/ops/aggs.py:42",
     "aggs_ordinal_counts_plane": "elasticsearch_tpu/ops/aggs.py:90",
     "aggs_histogram_plane": "elasticsearch_tpu/ops/aggs.py:112",
+    "mesh_bm25_flat": "elasticsearch_tpu/parallel/mesh.py:245",
+    "mesh_bm25_coarse": "elasticsearch_tpu/parallel/mesh.py:297",
+    "mesh_bm25_rerank": "elasticsearch_tpu/parallel/mesh.py:335",
 }
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM, NVIDIA data sheet
 F32_FLOPS = 67e12              # H100 SXM f32 outside the tensor cores
@@ -417,7 +447,7 @@ def zipf_terms(np, rng, n: int, vocab: int):
 
 
 def build_text_engine(np, n_docs: int):
-    """``InternalEngine`` with 50,000 seeded docs: a text field of
+    """``InternalEngine`` with ``n_docs`` seeded docs: a text field of
     Zipf(1.35) words over 30,000, a keyword ``tag`` (7 values) and an
     integer ``n`` (missing on every ninth doc); three segments, 25
     deletes. Returns (engine, words, rng)."""
@@ -4133,7 +4163,7 @@ def phase_aggs_full(torch, np, dev, n_docs: int, workers: int,
     and K23 over the columns plane at P = n_q) feeding
     ShardAggregator(preset=...). Checks: country counts and dem
     count/min/max against a host count and the dem sums against the
-    row-order oracle on both paths (every other member), the plane's
+    row-order oracle on both paths (every fourth member), the plane's
     responses equal to the per-segment ones in keys, counts, mins and
     maxs (all members; the avg sub's sums round apart past 2^24), and
     country_agg_uncached's counts against the host."""
@@ -4227,12 +4257,12 @@ def phase_aggs_full(torch, np, dev, n_docs: int, workers: int,
         f"ShardAggregator responses equal the per-segment ones (keys, "
         f"counts, mins, maxs) in {1e3 * t_reduce:.1f} ms")
 
-    # host counts and the row-order oracle, on both paths, every other
+    # host counts and the row-order oracle, on both paths, every fourth
     # member (all 64 took a minute of the script's time limit)
     lives = [m[: s.n_docs] for m, s in zip(reader.live_masks, segs)]
     big = 0.0
     t = time.monotonic()
-    held = list(enumerate(queries))[::2]
+    held = list(enumerate(queries))[::4]
     for ui, q in held:
         agg = ShardAggregator(specs)
         query_shard(reader, mappers, dsl.parse_query(q), size=0,
@@ -5010,6 +5040,711 @@ def rrf_size(family: str, args):
     return args[0].numel()
 
 
+# ---------------------------------------------------------------------------
+# the mesh's text path: one launch per phase over 2 or more shards' planes
+# ---------------------------------------------------------------------------
+
+MESH_FAMILIES = ("mesh_bm25_flat", "mesh_bm25_coarse", "mesh_bm25_rerank")
+MESH_SHARDS = 4
+MESH_MAPPINGS = {"properties": {
+    "body": {"type": "text"}, "tag": {"type": "keyword"},
+    "v": {"type": "dense_vector", "dims": 16, "similarity": "cosine"},
+    "ml": {"type": "rank_features"}}}
+
+
+def mesh_random_stack(np, rng, n_slots: int, dp: int, n_docs: int, nb: int,
+                      n_q: int, per_q: int, empty: int, one_seg: int):
+    """Seeded stacked planes of ``n_slots`` shards of different sizes
+    (random_store per slot; slot ``empty`` holds nothing, slot ``one_seg``
+    one segment), padded as MeshPlaneRegistry._stack pads them, and flat
+    rows [S, DP, FB] per (slot, dp row)."""
+    from elasticsearch_tpu_torch.ops.bm25 import qb_bucket
+    stores = []
+    for s in range(n_slots):
+        n_s = int(rng.integers(n_docs // 3, n_docs))
+        nb_s = int(rng.integers(nb // 2, nb))
+        stores.append(random_store(np, rng, n_s, nb_s) + (nb_s,))
+    n_max = max(st[5] for st in stores)
+    nb_max = 1 << max(0, math.ceil(math.log2(max(st[6] for st in stores))))
+    bd = np.full((n_slots, nb_max, 128), -1, np.int32)
+    bt = np.zeros((n_slots, nb_max, 128), np.float32)
+    dl = np.zeros((n_slots, n_max), np.float32)
+    lv = np.zeros((n_slots, n_max), bool)
+    sg = np.zeros((n_slots, n_max), np.int32)
+    fb = qb_bucket(n_q * per_q)
+    fi = np.zeros((n_slots, dp, fb), np.int32)
+    fw = np.zeros((n_slots, dp, fb), np.float32)
+    fq = np.zeros((n_slots, dp, fb), np.int32)
+    fa = np.ones((n_slots, dp, fb), np.float32)
+    for s, (docs, tfs, dls, live, seg, n_pad, nb_s) in enumerate(stores):
+        if s == empty:
+            continue
+        bd[s, :nb_s], bt[s, :nb_s] = docs, tfs
+        dl[s, :n_pad], lv[s, :n_pad] = dls, live
+        sg[s, :n_pad] = 0 if s == one_seg else seg
+        sg[s, n_pad:] = sg[s, n_pad - 1]
+        for r in range(dp):
+            i, w, q, a = random_flat(np, rng, nb_s, n_q, per_q)
+            fi[s, r], fw[s, r], fq[s, r], fa[s, r] = i, w, q, a
+    return (bd, bt, dl, fi, fw, fq, fa, lv, sg), n_max
+
+
+def phase_mesh_small(torch, np, dev) -> None:
+    """The three mesh kernels bitwise against their plain versions, and
+    each slot bitwise against K2 / K3 / K4 launched on that slot's plane,
+    at S 2 and 4 (an empty slot, a one-segment slot, dp rows, a chunked
+    plane)."""
+    from elasticsearch_tpu_torch.ops import bm25 as bm
+    from elasticsearch_tpu_torch.parallel import mesh
+    rng = np.random.default_rng(SEED + 800)
+    for n_slots, dp, n_docs, nb, n_q, per_q, kprime, empty, one_seg in (
+            (2, 1, 3000, 64, 4, 12, 64, -1, -1),
+            (4, 2, 200_000, 2048, 8, 150, 256, 2, 1),
+            (4, 1, 100_000, 1024, 1, 200, 128, 3, 0)):
+        host, n_pad = mesh_random_stack(np, rng, n_slots, dp, n_docs, nb,
+                                        n_q, per_q, empty, one_seg)
+        bd, bt, dl, fi, fw, fq, fa, lv, sg = [
+            torch.as_tensor(a, device=dev) for a in host]
+        got = mesh.mesh_bm25_flat(bd, bt, dl, fi, fw, fq, fa, lv, sg, n_pad,
+                                  n_q, 10, 3)
+        want = mesh.mesh_bm25_flat_plain(bd, bt, dl, fi, fw, fq, fa, lv, sg,
+                                         n_pad, n_q, 10, 3)
+        torch.cuda.synchronize()
+        compare(torch, "mesh_bm25_flat", got, want)
+        for s in range(n_slots):
+            for r in range(dp):
+                one = bm.bm25_flat_seg(bd[s], bt[s], fi[s, r], fw[s, r],
+                                       fq[s, r], dl[s], fa[s, r], lv[s],
+                                       sg[s], n_pad, n_q, 10, n_segs=3)
+                compare(torch, f"mesh_bm25_flat slot {s} row {r} vs K2",
+                        [x[s, r] for x in got], one)
+        fi0, fw0, fq0, fa0 = [x[:, 0].contiguous() for x in (fi, fw, fq, fa)]
+        bt16, dl16 = bt.to(torch.bfloat16), dl.to(torch.bfloat16)
+        cgot = mesh.mesh_bm25_coarse(bd, bt16, dl16, fi0, fw0, fq0, fa0, lv,
+                                     sg, n_pad, n_q, kprime, 3)
+        cwant = mesh.mesh_bm25_coarse_plain(bd, bt16, dl16, fi0, fw0, fq0,
+                                            fa0, lv, sg, n_pad, n_q, kprime,
+                                            3)
+        torch.cuda.synchronize()
+        compare(torch, "mesh_bm25_coarse", cgot, cwant)
+        rgot = mesh.mesh_bm25_rerank(bd, bt, fi0, fw0, fq0, fa0, dl, lv,
+                                     cgot[1], cgot[0], n_pad, n_q, kprime, 10)
+        rwant = mesh.mesh_bm25_rerank_plain(bd, bt, fi0, fw0, fq0, fa0, dl,
+                                            lv, cgot[1], cgot[0], n_pad, n_q,
+                                            kprime, 10)
+        torch.cuda.synchronize()
+        compare(torch, "mesh_bm25_rerank", rgot, rwant)
+        for s in range(n_slots):
+            k3 = bm.bm25_coarse(bd[s], bt16[s], fi0[s], fw0[s], fq0[s],
+                                dl16[s], fa0[s], lv[s], sg[s], n_pad, n_q, 3,
+                                kprime)
+            compare(torch, f"mesh_bm25_coarse slot {s} vs K3",
+                    [x[s] for x in cgot], k3)
+            k4 = bm.bm25_rerank(bd[s], bt[s], fi0[s], fw0[s], fq0[s], dl[s],
+                                fa0[s], lv[s], cgot[1][s].contiguous(),
+                                cgot[0][s].contiguous(), n_pad, n_q, kprime,
+                                10)
+            compare(torch, f"mesh_bm25_rerank slot {s} vs K4",
+                    [x[s] for x in rgot], k4)
+        torch.cuda.synchronize()
+        if empty >= 0:
+            check(not torch.isfinite(got[0][empty]).any() and
+                  int(got[2][empty].sum()) == 0,
+                  "mesh-small: the empty slot scored")
+        log(f"mesh-small: S={n_slots} dp={dp} n_docs_pad={n_pad} "
+            f"fb={fi.shape[-1]} n_q={n_q}: the three mesh kernels bitwise "
+            f"equal to their plain versions and, slot by slot, to K2/K3/K4")
+
+
+def mesh_engine_docs(np, n: int, seed: int, base: int):
+    """Seeded docs for the mesh-engine index: Zipf(1.35) words over
+    30,000, a keyword tag, a 16-dim vector and a few rank_features."""
+    rng = np.random.default_rng(seed)
+    words = [f"w{i}" for i in range(30_000)]
+    lens = rng.integers(8, 64, n)
+    vecs = np.round(rng.standard_normal((n, 16)), 4).tolist()
+    docs = []
+    for i in range(n):
+        terms = zipf_terms(np, rng, int(lens[i]), 30_000)
+        feats = rng.integers(0, 200, int(rng.integers(2, 6)))
+        docs.append((str(base + i), {
+            "body": " ".join(words[int(t)] for t in terms),
+            "tag": f"t{i % 7}", "v": vecs[i],
+            "ml": {f"f{int(f)}": round(float(rng.uniform(0.1, 3.0)), 3)
+                   for f in feats}}))
+    return docs
+
+
+def mesh_engine_bodies(np):
+    """(name, body, query params, kind) of the mesh-engine mix: match at
+    totals default / true / false / 7, bool of should-matches, DFS
+    versions, and the kNN and sparse bodies the port declines."""
+    rng = np.random.default_rng(SEED + 811)
+    words = [f"w{i}" for i in range(30_000)]
+
+    def text(n):
+        return " ".join(words[int(t)] for t in zipf_terms(np, rng, n,
+                                                           30_000))
+    out = []
+    for q in range(8):
+        t = text(int(rng.integers(2, 7)))
+        for track in (None, True, False, 7):
+            body = {"query": {"match": {"body": t}}, "size": 10}
+            if track is not None:
+                body["track_total_hits"] = track
+            out.append((f"match{q}_{track}", body, None, "text"))
+    for q in range(3):
+        body = {"query": {"bool": {"should": [
+            {"match": {"body": text(2)}},
+            {"match": {"body": {"query": text(3), "boost": 1.5}}}]}},
+            "size": 8}
+        out.append((f"bool_should{q}", body, None, "text"))
+    for q in range(3):
+        body = {"query": {"match": {"body": text(3)}}, "size": 10}
+        if q == 1:
+            body["track_total_hits"] = False
+        out.append((f"dfs{q}", body,
+                    {"search_type": "dfs_query_then_fetch"}, "text"))
+    for q in range(2):
+        out.append((f"knn{q}", {"query": {"knn": {
+            "field": "v", "k": 10, "num_candidates": 50,
+            "query_vector": [round(float(x), 4)
+                             for x in rng.standard_normal(16)]}}},
+            None, "knn"))
+        out.append((f"sparse{q}", {"query": {"text_expansion": {"ml": {
+            "tokens": {f"f{int(f)}": 1.0 + 0.25 * j for j, f in
+                       enumerate(rng.integers(0, 200, 3))}}}}},
+            None, "sparse"))
+    return out
+
+
+def mesh_engine_node(device, n_docs: int):
+    """A one-node port cluster on ``device`` holding ``mesh`` (4 shards, 0
+    replicas): two bulk halves with a refresh between, then deletes."""
+    from elasticsearch_tpu_torch.testing import InProcessCluster
+    import numpy as np
+    cluster = InProcessCluster(n_nodes=1, seed=SEED + 812, device=device)
+    cluster.start()
+    node = RestNode(cluster)
+    node.ok("PUT", "/mesh", {"settings": {
+        "number_of_shards": MESH_SHARDS, "number_of_replicas": 0},
+        "mappings": MESH_MAPPINGS})
+    docs = mesh_engine_docs(np, n_docs, SEED + 813, 0)
+    for lo in range(0, n_docs, 2000):
+        resp = node.ok("POST", "/_bulk",
+                       raw=bulk_ndjson("mesh", docs[lo: lo + 2000]))
+        check(not resp["errors"], f"mesh-engine: bulk errors ({device})")
+        if lo == (n_docs // 4000) * 2000:
+            node.ok("POST", "/mesh/_refresh")
+    node.ok("POST", "/mesh/_refresh")
+    deletes = [str(i) for i in range(0, n_docs, 97)]
+    node.ok("POST", "/_bulk", raw=bulk_ndjson("mesh", [], deletes=deletes))
+    node.ok("POST", "/mesh/_refresh")
+    return node
+
+
+def mesh_engine_refresh(np, node, n_docs: int) -> None:
+    """Writes between two request rounds: new docs, deletes, a refresh."""
+    more = mesh_engine_docs(np, 500, SEED + 814, n_docs)
+    node.ok("POST", "/_bulk", raw=bulk_ndjson(
+        "mesh", more, deletes=[str(i) for i in range(5, n_docs, 211)]))
+    node.ok("POST", "/mesh/_refresh")
+
+
+def mesh_engine_round(node, bodies):
+    return [node.call("POST", "/mesh/_search", body, query)
+            for _n, body, query, _k in bodies]
+
+
+def mesh_engine_cpu_answers(n_docs: int):
+    """Run in a worker process: the CPU node's answers, before and after
+    the writes between rounds."""
+    import numpy as np
+    node = mesh_engine_node("cpu", n_docs)
+    bodies = mesh_engine_bodies(np)
+    first = mesh_engine_round(node, bodies)
+    mesh_engine_refresh(np, node, n_docs)
+    second = mesh_engine_round(node, bodies)
+    node.cluster.stop()
+    return first, second
+
+
+def without_route(resp):
+    return {k: v for k, v in resp.items() if k not in ("took",
+                                                        "_data_plane")}
+
+
+def same_as_fanout(body, meshed, fanned) -> bool:
+    """A mesh-served answer against the same node's per-shard fan-out:
+    the JSON equal apart from ``took`` and the routing label -- except, for
+    ``track_total_hits: false``, the value of the total, a lower bound
+    ("gte") on both paths: the mesh's tier falls back to the exact path
+    for the whole fan-out where the fan-out falls back shard by shard, and
+    the two paths count observed matches differently (the JAX package
+    does the same; ROADMAP queue 3, item 15)."""
+    a, b = without_route(meshed), without_route(fanned)
+    if body.get("track_total_hits") is False:
+        if not (a["hits"]["total"]["relation"] == "gte" ==
+                b["hits"]["total"]["relation"]):
+            return False
+        a = dict(a, hits={k: v for k, v in a["hits"].items()
+                          if k != "total"})
+        b = dict(b, hits={k: v for k, v in b["hits"].items()
+                          if k != "total"})
+    return json.dumps(a, sort_keys=True) == json.dumps(b, sort_keys=True)
+
+
+def phase_mesh_engine(torch, np, dev, n_docs: int) -> None:
+    """A card node and a CPU node (in a worker process) on a 4-shard
+    index: the same text bodies (totals true / false / 7, bool of
+    should-matches, DFS), a round of writes and a refresh, the bodies
+    again; every answer equal on the two nodes, the card node's
+    mesh-served answers equal to its own with ``search.mesh.enabled:
+    false``, ``mesh_searches`` growing and the kNN and sparse bodies
+    counted declines."""
+    import multiprocessing as mp
+    from elasticsearch_tpu_torch.search import telemetry
+    t0 = time.monotonic()
+    pool = mp.get_context("spawn").Pool(1)
+    try:
+        cpu = pool.apply_async(mesh_engine_cpu_answers, (n_docs,))
+        node = mesh_engine_node(dev, n_docs)
+        bodies = mesh_engine_bodies(np)
+        executor = node.node().search_transport.mesh_executor
+        stats0 = dict(executor.stats)
+        np0 = dict(telemetry.TELEMETRY.not_ported)
+        lat = []
+        rounds = []
+        for r in range(2):
+            if r:
+                mesh_engine_refresh(np, node, n_docs)
+            got = []
+            for _n, body, query, _k in bodies:
+                t1 = time.monotonic()
+                got.append(node.call("POST", "/mesh/_search", body, query))
+                lat.append(time.monotonic() - t1)
+            rounds.append(got)
+        served = executor.stats["mesh_searches"] - stats0["mesh_searches"]
+        declined = {k: telemetry.TELEMETRY.not_ported.get(f"mesh_{k}", 0)
+                    - np0.get(f"mesh_{k}", 0) for k in ("knn", "sparse")}
+        node.ok("PUT", "/_cluster/settings",
+                {"persistent": {"search.mesh.enabled": False}})
+        off = mesh_engine_round(node, bodies)
+        node.ok("PUT", "/_cluster/settings",
+                {"persistent": {"search.mesh.enabled": True}})
+        want = cpu.get()
+    finally:
+        pool.terminate()
+        pool.join()
+    n_mesh = 0
+    for r, (got, cpu_round) in enumerate(zip(rounds, want)):
+        for (name, _b, _q, kind), g, w in zip(bodies, got, cpu_round):
+            check(g[0] == w[0] == 200, f"mesh-engine: {name}: status "
+                  f"{g[0]} / {w[0]}: {str(g[1])[:300]}")
+            why = same_json(w[1], g[1])
+            check(why is None, f"mesh-engine: round {r} {name}: card and "
+                  f"cpu differ at {why}")
+            if kind != "text":
+                check("_data_plane" not in g[1],
+                      f"mesh-engine: {name} was mesh-served")
+            n_mesh += g[1].get("_data_plane") == "mesh_plane"
+    for (name, body, _q, _k), g, o in zip(bodies, rounds[1], off):
+        check(o[0] == 200 and "_data_plane" not in o[1],
+              f"mesh-engine: {name} with the mesh off: {str(o[1])[:300]}")
+        check(same_as_fanout(body, g[1], o[1]),
+              f"mesh-engine: {name}: mesh and fan-out answers differ")
+    n_other = {k: sum(2 for *_x, kind in bodies if kind == k)
+               for k in ("knn", "sparse")}
+    check(served == n_mesh and served > 0,
+          f"mesh-engine: mesh_searches grew {served}, labels {n_mesh}")
+    check(declined == n_other,
+          f"mesh-engine: declines {declined}, expected {n_other}")
+    lat.sort()
+    log(f"mesh-engine: {len(bodies)} bodies x 2 rounds equal on the card "
+        f"node and the cpu node, {n_mesh} mesh-served (equal to the "
+        f"card's own fan-out), declines {declined}; card p50 "
+        f"{1e3 * lat[len(lat) // 2]:.3f} ms p99 {1e3 * pct(lat, 0.99):.3f} "
+        f"ms ({time.monotonic() - t0:.1f}s in all); executor "
+        f"{executor.stats}")
+    node.cluster.stop()
+    from elasticsearch_tpu_torch.ops.device_segment import MESH_PLANES
+    MESH_PLANES.clear()
+
+
+def routing_shards(np, first: int, n: int, n_shards: int):
+    """[n] int: the shard ``_bulk`` routes _id ``str(first + j)`` to --
+    ``utils/murmur3.shard_id_for`` (MurmurHash3 x86 32 over the id's UTF-8
+    bytes, modulo the shard count), vectorized over decimal ids."""
+    mask = np.uint64(0xFFFFFFFF)
+
+    def rotl(x, r):
+        return ((x << np.uint64(r)) | (x >> np.uint64(32 - r))) & mask
+
+    def mix(k):
+        k = (k * np.uint64(0xCC9E2D51)) & mask
+        return (rotl(k, 15) * np.uint64(0x1B873593)) & mask
+
+    ids = np.arange(first, first + n, dtype=np.int64)
+    lens = np.ones(n, np.int64)
+    for p in range(1, 19):
+        lens += ids >= 10 ** p
+    out = np.empty(n, np.int64)
+    for width in np.unique(lens):
+        sel = lens == width
+        v = ids[sel]
+        b = [((v // 10 ** (width - 1 - p)) % 10 + 48).astype(np.uint64)
+             for p in range(width)]
+        h = np.zeros(len(v), np.uint64)
+        for blk in range(width // 4):
+            k = (b[4 * blk] | (b[4 * blk + 1] << np.uint64(8)) |
+                 (b[4 * blk + 2] << np.uint64(16)) |
+                 (b[4 * blk + 3] << np.uint64(24)))
+            h ^= mix(k)
+            h = rotl(h, 13)
+            h = (h * np.uint64(5) + np.uint64(0xE6546B64)) & mask
+        tail = b[(width // 4) * 4:]
+        if tail:
+            k = np.zeros(len(v), np.uint64)
+            for t, x in enumerate(tail):
+                k ^= x << np.uint64(8 * t)
+            h ^= mix(k)
+        h ^= np.uint64(width)
+        h ^= h >> np.uint64(16)
+        h = (h * np.uint64(0x85EBCA6B)) & mask
+        h ^= h >> np.uint64(13)
+        h = (h * np.uint64(0xC2B2AE35)) & mask
+        h ^= h >> np.uint64(16)
+        out[sel] = (h % np.uint64(n_shards)).astype(np.int64)
+    return out
+
+
+def routed_ids(np, sizes, n_shards: int):
+    """[chunk] -> _ids (int64, ascending) for the docs of each chunk of
+    the MS MARCO corpus such that chunk ``c``'s docs all route to shard
+    ``c`` under ``_bulk``'s murmur3 routing: its i-th doc gets the i-th
+    integer whose route is ``c``."""
+    m = sum(sizes) + sum(sizes) // 20 + 1024
+    while True:
+        route = routing_shards(np, 0, m, n_shards)
+        picks = [np.flatnonzero(route == c)[:n] for c, n in enumerate(sizes)]
+        if all(len(p) == n for p, n in zip(picks, sizes)):
+            return picks
+        m += m // 10
+
+
+def mesh_full_segments(np, n_docs: int, workers: int, source=None):
+    """[shard] -> its one segment: the full phase's chunk ``c`` (the same
+    generator and seeds; its PostingsField is reused when ``source``, the
+    full phase's segments, is given) as shard ``c``, under _ids that route
+    there (``routed_ids``)."""
+    from elasticsearch_tpu_torch.index.segment import Segment
+    from elasticsearch_tpu_torch.utils.murmur3 import shard_id_for
+    sizes = four_segments(n_docs)
+    if source is None:
+        source = build_full_shard(np, n_docs, workers)
+    picks = routed_ids(np, sizes, MESH_SHARDS)
+    segs = []
+    for c, (src, ids) in enumerate(zip(source, picks)):
+        seg = Segment(f"msm{c}_gen", src.n_docs)
+        seg.postings["body"] = src.postings["body"]
+        seg.ids = [str(int(k)) for k in ids]
+        for j in range(0, len(ids), max(1, len(ids) // 64)):
+            check(shard_id_for(seg.ids[j], MESH_SHARDS) == c,
+                  f"mesh-full: _id {seg.ids[j]} does not route to {c}")
+        seg.id_to_doc = {d: j for j, d in enumerate(seg.ids)}
+        seg.sources = [None] * src.n_docs
+        seg.invalidate_live_count()
+        segs.append(seg)
+    return segs
+
+
+def mesh_full_queries(np, n_q: int):
+    """The full phase's queries: 2-7 Zipf(1.35) words."""
+    rng = np.random.default_rng(SEED + 7)
+    out = []
+    for _ in range(n_q):
+        ids = np.minimum(rng.zipf(1.35, int(rng.integers(2, 7))) - 1,
+                         VOCAB - 1)
+        out.append({"query": {"match": {"body": " ".join(
+            f"t{i}" for i in ids)}}, "size": 10, "_source": False})
+    return out
+
+
+def phase_mesh_full(torch, np, dev, n_docs: int, workers: int,
+                    n_q: int, source=None) -> None:
+    """The mesh's text path at MS MARCO passage scale on one card node:
+    the full phase's 8,841,823 docs on 4 primary shards (0 replicas), each
+    doc under an _id that routes to its shard, each shard one generated
+    segment installed with ``restore_segments``;
+    64 solo ``match`` bodies with the tier on, the same 64 with it off,
+    the 64 as one wave; then each answer against the same node's with
+    ``search.mesh.enabled: false`` (the per-shard fan-out through K1-K4).
+    Mesh-served requests launch no K1-K4."""
+    from elasticsearch_tpu_torch.indices.breaker import BREAKERS
+    from elasticsearch_tpu_torch.ops.device_segment import MESH_PLANES
+    from elasticsearch_tpu_torch.search import telemetry
+    from elasticsearch_tpu_torch.search.device_profile import DEVICE_PROFILE
+    from elasticsearch_tpu_torch.testing import InProcessCluster
+    from elasticsearch_tpu_torch.utils.murmur3 import shard_id_for
+    t0 = time.monotonic()
+    segs = mesh_full_segments(np, n_docs, workers, source)
+    log(f"mesh-full: {n_docs} docs on {MESH_SHARDS} shards "
+        f"{[s.n_docs for s in segs]} under routed _ids (one segment each, "
+        f"{[s.postings['body'].block_docs.shape[0] for s in segs]} posting "
+        f"blocks) in {time.monotonic() - t0:.1f}s")
+    cluster = InProcessCluster(n_nodes=1, seed=SEED + 820, device=dev)
+    cluster.start()
+    node = RestNode(cluster)
+    node.ok("PUT", "/msm", {"settings": {
+        "number_of_shards": MESH_SHARDS, "number_of_replicas": 0},
+        "mappings": {"properties": {"body": {"type": "text"}}}})
+    cluster.ensure_green("msm")
+    t1 = time.monotonic()
+    svc = node.node().indices_service
+    for s, seg in enumerate(segs):
+        engine = svc.shard("msm", s).engine
+        engine.restore_segments(list(engine.segments) + [seg])
+    count = node.ok("POST", "/msm/_count", {"query": {"match_all": {}}})
+    check(count["count"] == n_docs,
+          f"mesh-full: _count {count['count']} != {n_docs}")
+    for seg in segs:
+        for doc_id in (seg.ids[0], seg.ids[-1]):
+            sid = shard_id_for(doc_id, MESH_SHARDS)
+            check(doc_id in segs[sid].id_to_doc,
+                  f"mesh-full: _id {doc_id} is not on shard {sid}, where "
+                  f"_bulk routes it")
+    log(f"mesh-full: restore_segments into 4 shards in "
+        f"{time.monotonic() - t1:.1f}s; _count {count['count']}")
+    del segs
+    bodies = mesh_full_queries(np, n_q)
+    executor = node.node().search_transport.mesh_executor
+    req = BREAKERS.breaker("request").limit
+    devb = BREAKERS.breaker("device").limit
+    t2 = time.monotonic()
+    first = node.ok("POST", "/msm/_search", bodies[0])
+    check(first.get("_data_plane") == "mesh_plane",
+          f"mesh-full: the first request was not mesh-served: "
+          f"{executor.stats}")
+    parts = [p for p in MESH_PLANES._parts.values()
+             if p.shard_keys[0][0] == "msm"]
+    check(len(parts) == 1, f"mesh-full: {len(parts)} mesh planes of msm")
+    part = parts[0]
+    log(f"mesh-full: first request (stacked plane + bf16 mirror built and "
+        f"uploaded) {time.monotonic() - t2:.1f}s; plane n_slots="
+        f"{part.n_slots} n_docs_pad={part.n_docs_pad} n_blocks_pad="
+        f"{part.block_docs.shape[1]} n_segs_max={part.n_segs_max}, "
+        f"part.nbytes {part.nbytes}; torch.cuda.memory_allocated "
+        f"{torch.cuda.memory_allocated() if dev.type == 'cuda' else 0}; "
+        f"breaker limits: device {devb}, request {req}")
+    old = ("bm25_flat", "bm25_flat_seg", "bm25_coarse", "bm25_rerank")
+    # launches on the card; on the CPU (a rehearsal) the plain versions'
+    # calls stand in for them
+    what = "launches" if dev.type == "cuda" else "calls"
+    before = {f: getattr(DEVICE_PROFILE.family(f), what)
+              for f in old + MESH_FAMILIES}
+    stats0 = dict(executor.stats)
+    mstats0 = dict(MESH_PLANES.stats)
+    fb0 = dict(telemetry.TELEMETRY.fallbacks)
+    DEVICE_PROFILE.timing = dev.type == "cuda"
+    dev0 = device_ms(MESH_FAMILIES)
+    legs, answers = {}, {}
+    for leg, quantized in (("solo_tier_on", True), ("solo_tier_off", False)):
+        node.ok("PUT", "/_cluster/settings", {"persistent": {
+            "search.plane.quantized": quantized}})
+        times, got = [], []
+        for body in bodies:
+            t = time.monotonic()
+            got.append(node.ok("POST", "/msm/_search", body))
+            times.append(time.monotonic() - t)
+        legs[leg], answers[leg] = times, got
+    node.ok("PUT", "/_cluster/settings", {"persistent": {
+        "search.plane.quantized": True}})
+    executor.stats["max_occupancy"] = 0
+    batches = executor.stats["mesh_batches"]
+    t3 = time.monotonic()
+    boxes = [node.submit("POST", "/msm/_search", body) for body in bodies]
+    cluster.run_until(lambda: all(boxes), 3600.0)
+    t_wave = time.monotonic() - t3
+    check(all(boxes), "mesh-full: the wave did not finish")
+    answers["wave"] = [b[0][1] for b in boxes]
+    for b in boxes:
+        check(b[0][0] == 200, f"mesh-full: wave request: {b[0][0]}")
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    DEVICE_PROFILE.timing = False
+    kern = {f: round(v - dev0[f], 3)
+            for f, v in device_ms(MESH_FAMILIES).items()}
+    after = {f: getattr(DEVICE_PROFILE.family(f), what)
+             for f in old + MESH_FAMILIES}
+    delta = {f: after[f] - before[f] for f in after}
+    log(f"mesh-full: {what} in the mesh legs {delta}")
+    for f in MESH_FAMILIES:
+        check(delta[f] > 0, f"mesh-full: {f} never launched")
+    for f in old:
+        check(delta[f] == 0, f"mesh-full: {f} launched for a mesh-served "
+              f"request ({delta[f]})")
+    for leg, got in answers.items():
+        for q, resp in enumerate(got):
+            check(resp.get("_data_plane") == "mesh_plane",
+                  f"mesh-full: {leg} request {q} was not mesh-served")
+    refusals = {k: telemetry.TELEMETRY.fallbacks.get(k, 0) - fb0.get(k, 0)
+                for k in ("mesh_plane_budget_refused",
+                          telemetry.MESH_PLANE_MISSING,
+                          telemetry.MESH_DRAIN_ERROR)}
+    check(executor.stats["mesh_fallbacks"] == stats0["mesh_fallbacks"] and
+          not any(refusals.values()),
+          f"mesh-full: mesh fallbacks {executor.stats} {refusals}")
+    mdelta = {k: MESH_PLANES.stats[k] - mstats0[k] for k in mstats0}
+    for leg, times in legs.items():
+        log(f"mesh-full: {leg}: {n_q} solo requests p50 "
+            f"{1e3 * pct(times, 0.5):.3f} ms p99 {1e3 * pct(times, 0.99):.3f}"
+            f" ms mean {1e3 * sum(times) / len(times):.3f} ms")
+    log(f"mesh-full: {n_q} requests as one wave in {1e3 * t_wave:.3f} ms "
+        f"wall; mesh drains {executor.stats['mesh_batches'] - batches}, max "
+        f"occupancy {executor.stats['max_occupancy']}; kernel device ms "
+        f"over the three legs {kern}; mesh plane stats {mdelta}; executor "
+        f"{executor.stats}; budget refusals {refusals}")
+    # the same node's per-shard fan-out (K1-K4) for every answer
+    MESH_PLANES.clear()
+    node.ok("PUT", "/_cluster/settings", {"persistent": {
+        "search.mesh.enabled": False}})
+    t4 = time.monotonic()
+    for leg, quantized in (("solo_tier_on", True), ("solo_tier_off", False)):
+        node.ok("PUT", "/_cluster/settings", {"persistent": {
+            "search.plane.quantized": quantized}})
+        for q, body in enumerate(bodies):
+            want = node.ok("POST", "/msm/_search", body)
+            check("_data_plane" not in want, "mesh-full: fan-out labelled")
+            ref = json.dumps(without_route(want), sort_keys=True)
+            check(json.dumps(without_route(answers[leg][q]),
+                             sort_keys=True) == ref,
+                  f"mesh-full: {leg} request {q}: mesh != fan-out")
+            if quantized:
+                check(json.dumps(without_route(answers["wave"][q]),
+                                 sort_keys=True) == ref,
+                      f"mesh-full: wave request {q}: mesh != fan-out")
+            hits = want["hits"]["hits"]
+            check(all(math.isfinite(h["_score"]) and h["_score"] > 0
+                      for h in hits), f"mesh-full: request {q}: bad scores")
+    node.ok("PUT", "/_cluster/settings", {"persistent": {
+        "search.mesh.enabled": True, "search.plane.quantized": True}})
+    log(f"mesh-full: {3 * n_q} mesh answers equal the per-shard fan-out's "
+        f"({time.monotonic() - t4:.1f}s)")
+    cluster.stop()
+
+
+MESH_POS = {"mesh_bm25_flat": (9, 10), "mesh_bm25_coarse": (9, 10),
+            "mesh_bm25_rerank": (10, 11)}
+MESH_SOURCES = {f: f"elasticsearch_tpu_torch/csrc/{f}.cu"
+                for f in MESH_FAMILIES}
+
+
+def mesh_flat_arg(family: str, args):
+    return args[2] if family == "mesh_bm25_rerank" else args[3]
+
+
+def mesh_size(family: str, args):
+    """(queries, gathered blocks) of a mesh kernel call."""
+    return args[MESH_POS[family][1]], mesh_flat_arg(family, args).numel()
+
+
+def mesh_bound(family: str, args):
+    """(bound_ms, bound_by, bytes): K2/K3/K4's bound summed over the
+    slots -- the gathered blocks and flat rows of every (slot, row), the
+    doc lengths of gathered postings, each slot's live mask (and seg ids
+    for the counting tiers), the outputs -- over the memory rate, or the
+    arithmetic over the peak rate, whichever is larger."""
+    block_tfs = args[1]
+    n_slots = block_tfs.shape[0]
+    n_docs_pad, n_q = args[MESH_POS[family][0]], args[MESH_POS[family][1]]
+    flat = mesh_flat_arg(family, args)
+    fb = flat.numel()                     # over every (slot, row)
+    groups = fb // flat.shape[-1]
+    postings = fb * 128
+    nbytes = postings * (4 + block_tfs.element_size()) + fb * 16
+    nbytes += min(postings, n_slots * n_docs_pad) * (
+        2 if family == "mesh_bm25_coarse" else 4)
+    nbytes += n_slots * n_docs_pad                    # live masks
+    rows = groups * n_q
+    if family == "mesh_bm25_flat":
+        k, n_segs = args[11], args[12]
+        nbytes += n_slots * n_docs_pad * 4 + rows * (k * 8 + n_segs * 4)
+    elif family == "mesh_bm25_coarse":
+        kp, n_segs = args[11], args[12]
+        nbytes += n_slots * n_docs_pad * 4 + rows * (kp * 8 + n_segs * 4)
+    else:
+        kp, k = args[12], args[13]
+        nbytes += rows * (kp * 8 + k * 8 + 4)
+    ops = postings * 8
+    peak = BF16_FLOPS if family == "mesh_bm25_coarse" else F32_FLOPS
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / peak * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                 else "operations"), nbytes
+
+
+def mesh_plain_bytes(family: str, args) -> int:
+    """Rough peak device bytes of the plain version (one slot's one-shard
+    plain version at a time, plane_bytes' 48 a posting and 40 a cell)."""
+    flat = mesh_flat_arg(family, args)
+    n_slots = args[1].shape[0]
+    per_slot = flat.numel() // n_slots
+    plane = 0 if family == "mesh_bm25_rerank" else \
+        args[MESH_POS[family][1]] * args[MESH_POS[family][0]] * 40
+    return per_slot * 128 * 48 + plane
+
+
+def phase_mesh_kernels(torch, rec, launches) -> list:
+    """Rows 31-33 bitwise against their plain versions on up to 4 of the
+    main path's calls, then timed (CUDA events) at the largest call whose
+    plain version fits on the card, and at the largest call of all."""
+    from elasticsearch_tpu_torch.parallel import mesh
+    rows = []
+    for fam in MESH_FAMILIES:
+        calls = rec.calls[fam]
+        check(bool(calls), f"kernels: no {fam} call recorded")
+        kernel, plain = getattr(mesh, fam), getattr(mesh, fam + "_plain")
+        torch.cuda.empty_cache()
+        room = 0.85 * torch.cuda.mem_get_info()[0]
+        fit = [c for c in calls if mesh_plain_bytes(fam, c[0]) < room]
+        check(bool(fit), f"kernels: no {fam} call's plain version fits")
+        err = 0.0
+        for args, kwargs in fit[:4]:
+            got = kernel(*args, **kwargs)
+            want = plain(*args, **kwargs)
+            torch.cuda.synchronize()
+            err = max(err, compare(torch, fam, got, want))
+            del got, want
+        args, kwargs = max(fit, key=lambda c: mesh_size(fam, c[0]))
+        ms = time_call(torch, lambda: kernel(*args, **kwargs), 20)
+        plain_ms = time_call(torch, lambda: plain(*args, **kwargs), 5)
+        bound_ms, bound_by, nbytes = mesh_bound(fam, args)
+        shape = (f"S={args[1].shape[0]} fb={mesh_flat_arg(fam, args).numel()}"
+                 f" n_docs_pad={args[MESH_POS[fam][0]]} "
+                 f"n_q={args[MESH_POS[fam][1]]}")
+        log(f"kernel {fam}: {ms:.4f} ms (median of 20), plain "
+            f"{plain_ms:.4f} ms (median of 5), bound {bound_ms:.4f} ms "
+            f"({nbytes} bytes at 3.35 TB/s), max_abs_err {err} over "
+            f"{min(len(fit), 4)} main-path calls, timed at {shape}")
+        rows.append({
+            "name": fam, "route": "cuda", "source": MESH_SOURCES[fam],
+            "replaces": REPLACES[fam], "launches": launches.get(fam, 0),
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+            "shape": shape})
+        big_args, big_kwargs = max(calls, key=lambda c: mesh_size(fam, c[0]))
+        if big_args is not args:
+            big_ms = time_call(torch, lambda: kernel(*big_args, **big_kwargs),
+                               20)
+            big_bound = mesh_bound(fam, big_args)[0]
+            log(f"kernel {fam}: {big_ms:.4f} ms (median of 20) at the "
+                f"largest main-path call, n_q={big_args[MESH_POS[fam][1]]} "
+                f"fb={mesh_flat_arg(fam, big_args).numel()}, bound "
+                f"{big_bound:.4f} ms (plain version not run: too large)")
+        torch.cuda.empty_cache()
+    return rows
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--phases", default="card,small,knn-small,dense-small,"
@@ -5017,9 +5752,9 @@ def main(argv=None) -> int:
                     "full,kernels,knn-engine,knn-full,dense-engine,"
                     "dense-full,wide,ivf-engine,ivf-full,sparse-engine,"
                     "sparse-full,aggs-engine,aggs-full,node-engine,"
-                    "hybrid-full")
+                    "hybrid-full,mesh-small,mesh-engine,mesh-full")
     ap.add_argument("--full-docs", type=int, default=MS_MARCO_DOCS)
-    ap.add_argument("--engine-docs", type=int, default=50_000)
+    ap.add_argument("--engine-docs", type=int, default=10_000)
     ap.add_argument("--knn-docs", type=int, default=SIFT_DOCS)
     ap.add_argument("--knn-engine-docs", type=int, default=20_000)
     ap.add_argument("--ivf-engine-docs", type=int, default=6_000)
@@ -5029,8 +5764,10 @@ def main(argv=None) -> int:
     ap.add_argument("--sparse-engine-docs", type=int, default=3_000)
     ap.add_argument("--geo-docs", type=int, default=GEONAMES_DOCS)
     ap.add_argument("--geo-engine-docs", type=int, default=3_000)
-    ap.add_argument("--node-docs", type=int, default=20_000)
+    ap.add_argument("--node-docs", type=int, default=6_000)
     ap.add_argument("--nq-docs", type=int, default=NQ_DOCS)
+    ap.add_argument("--mesh-docs", type=int, default=MS_MARCO_DOCS)
+    ap.add_argument("--mesh-engine-docs", type=int, default=10_000)
     ap.add_argument("--queries", type=int, default=64)
     ap.add_argument("--workers", type=int, default=4)
     ap.add_argument("--rehearse", action="store_true",
@@ -5096,6 +5833,9 @@ def main(argv=None) -> int:
         if "aggs-small" in phases and on_card:
             phase_aggs_small(torch, np, dev)
             log(t(), "aggs-small done")
+        if "mesh-small" in phases and on_card:
+            phase_mesh_small(torch, np, dev)
+            log(t(), "mesh-small done")
         from elasticsearch_tpu_torch.ops import bm25 as bm
         from elasticsearch_tpu_torch.ops import ivf, knn, topk
         rows = []
@@ -5228,7 +5968,9 @@ def main(argv=None) -> int:
                 log(t(), "ivf kernels done")
         del irec
         PLANES.clear()
-        # the earlier phases' shards (host arrays) are not needed past here
+        # the earlier phases' shards (host arrays) are not needed past
+        # here, but for the MS MARCO segments mesh-full serves again
+        msmarco = shared.get("msmarco", (None,))[0]
         shared.clear()
         if on_card:
             torch.cuda.empty_cache()
@@ -5321,9 +6063,42 @@ def main(argv=None) -> int:
                 log(t(), "fusion kernels done")
         del hrec
         PLANES.clear()
+        if on_card:
+            torch.cuda.empty_cache()
+        # the mesh's text path (a card node serving match on 4 shards, one
+        # mesh_bm25_* launch per phase for all of them): launch counts
+        # from zero, read right after
+        from elasticsearch_tpu_torch.ops.device_segment import MESH_PLANES
+        from elasticsearch_tpu_torch.parallel import mesh as mesh_ops
+        DEVICE_PROFILE.reset_launches()
+        with Recorder({f: (mesh_ops, f) for f in MESH_FAMILIES}, mesh_size,
+                      keep=4) as mrec:
+            if "mesh-engine" in phases:
+                phase_mesh_engine(torch, np, dev, args.mesh_engine_docs)
+                log(t(), "mesh-engine done")
+            if "mesh-full" in phases:
+                phase_mesh_full(
+                    torch, np, dev, args.mesh_docs, args.workers,
+                    args.queries,
+                    msmarco if args.mesh_docs == args.full_docs else None)
+                msmarco = None
+                log(t(), "mesh-full done")
+        launches = DEVICE_PROFILE.launches()
+        log("launches on the mesh main path: " + json.dumps(
+            {f: launches.get(f, 0) for f in MESH_FAMILIES}))
+        if on_card and "mesh-full" in phases:
+            for fam in MESH_FAMILIES:
+                check(launches.get(fam, 0) > 0,
+                      f"{fam} was never launched on the main path")
+            if "kernels" in phases:
+                rows += phase_mesh_kernels(torch, mrec, launches)
+                log(t(), "mesh kernels done")
+        del mrec
+        MESH_PLANES.clear()
+        PLANES.clear()
         if on_card and {"full", "knn-full", "dense-full", "ivf-full",
                         "sparse-full", "wide", "aggs-full", "hybrid-full",
-                        "kernels"} <= phases:
+                        "mesh-full", "kernels"} <= phases:
             from elasticsearch_tpu_torch.search.device_profile import (
                 KERNEL_FAMILIES, MASKED_VARIANTS,
             )

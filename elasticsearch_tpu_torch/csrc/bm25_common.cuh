@@ -18,8 +18,17 @@
 //    the CTA-wide top-k of topk_common.cuh (score descending, index
 //    ascending, -inf slots included: the order lax.top_k returns).
 // 4. The exact tier's candidate handling: each row's k' coarse candidates
-//    sorted by doc id (so a posting finds its slot by binary search), and
-//    the mask + top-k + eps pass over the re-scored slots.
+//    sorted by doc id (so a posting finds its slot by binary search), the
+//    re-scoring of candidate postings, and the mask + top-k + eps pass over
+//    the re-scored slots.
+//
+// Every piece takes a slot axis (``Slots``): S block stores of one shape
+// stacked as [S, NB, BLOCK] with [S, n_docs_pad] doc arrays, the flat
+// operands as G = S * groups_per_slot groups of fb entries, and G * n_q
+// output rows. The mesh families (mesh_bm25_flat, mesh_bm25_coarse,
+// mesh_bm25_rerank) run every slot in one launch this way; the one-shard
+// families pass ONE_SLOT (one group, strides 0), so each slot of a mesh
+// launch runs exactly the one-shard arithmetic on its own plane.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -38,6 +47,24 @@ constexpr int BLOCK = 128;          // postings per block (index/segment.py)
 constexpr int MAX_SEGS = 4096;      // largest per-segment count channel
 constexpr double FIX_SCALE = 4294967296.0;        // 2^32
 constexpr double FIX_INV = 1.0 / 4294967296.0;
+
+// The slot axis. Group g of the flat operands belongs to slot
+// g / groups_per_slot; its postings index that slot's block store
+// (slot * slot_blocks elements in) and doc arrays (slot * slot_docs), and
+// its query ids are local to the group: output row g * n_q + q.
+struct Slots {
+    int groups;             // flat groups (the scatter's grid y)
+    int groups_per_slot;    // consecutive groups sharing one slot's plane
+    long long slot_blocks;  // elements of one slot's [NB, BLOCK] store
+    long long slot_docs;    // elements of one slot's [n_docs_pad] arrays
+};
+constexpr Slots ONE_SLOT{1, 1, 0, 0};
+
+inline bool slots_ok(Slots sl) {
+    return sl.groups >= 1 && sl.groups_per_slot >= 1 &&
+           sl.groups % sl.groups_per_slot == 0 && sl.slot_blocks >= 0 &&
+           sl.slot_docs >= 0;
+}
 
 // BM25 constants, rounded once on the host exactly as PyTorch rounds a
 // Python float scalar: k1, (1 - b), b, (k1 + 1).
@@ -96,8 +123,10 @@ __device__ __forceinline__ float from_fixed(long long v) {
 // scatter: one CTA per gathered posting block, one thread per posting
 // --------------------------------------------------------------------------
 
-// acc[q * n_docs_pad + doc] += fixed(contribution). BF16 selects the
-// coarse tier's operands (block_tfs and doc_lens as bf16).
+// grid (fb, sl.groups): acc[(g * n_q + q) * n_docs_pad + doc] +=
+// fixed(contribution) for the postings of group g's fb gathered blocks.
+// BF16 selects the coarse tier's operands (block_tfs and doc_lens as
+// bf16).
 template <bool BF16>
 __global__ void scatter_kernel(const int* __restrict__ block_docs,
                                const void* __restrict__ block_tfs,
@@ -106,25 +135,30 @@ __global__ void scatter_kernel(const int* __restrict__ block_docs,
                                const int* __restrict__ flat_q,
                                const void* __restrict__ doc_lens,
                                const float* __restrict__ flat_avgdl,
-                               long long n_docs_pad, Consts c,
+                               long long n_docs_pad, int fb, int n_q,
+                               Slots sl, Consts c,
                                unsigned long long* __restrict__ acc) {
-    const long long f = blockIdx.x;
-    const long long e = (long long)flat_idx[f] * BLOCK + threadIdx.x;
+    const long long g = blockIdx.y;
+    const long long f = g * fb + blockIdx.x;
+    const long long slot = g / sl.groups_per_slot;
+    const long long e = slot * sl.slot_blocks +
+                        (long long)flat_idx[f] * BLOCK + threadIdx.x;
     const int doc = block_docs[e];
     if (doc < 0) return;
+    const long long at = slot * sl.slot_docs + doc;
     float v;
     if (BF16) {
         const __nv_bfloat16* tfs = (const __nv_bfloat16*)block_tfs;
         const __nv_bfloat16* dls = (const __nv_bfloat16*)doc_lens;
         v = contrib_bf16(bfr(flat_w[f]), __bfloat162float(tfs[e]),
-                         __bfloat162float(dls[doc]), bfr(flat_avgdl[f]), c);
+                         __bfloat162float(dls[at]), bfr(flat_avgdl[f]), c);
     } else {
         v = contrib_f32(flat_w[f], ((const float*)block_tfs)[e],
-                        ((const float*)doc_lens)[doc], flat_avgdl[f], c);
+                        ((const float*)doc_lens)[at], flat_avgdl[f], c);
     }
     const long long fx = to_fixed(v);
     if (fx == 0) return;
-    atomicAdd(acc + (long long)flat_q[f] * n_docs_pad + doc,
+    atomicAdd(acc + (g * n_q + flat_q[f]) * n_docs_pad + doc,
               (unsigned long long)fx);
 }
 
@@ -134,16 +168,19 @@ __global__ void scatter_kernel(const int* __restrict__ block_docs,
 
 enum CountMode { COUNT_NONE = 0, COUNT_TOTAL = 1, COUNT_SEGS = 2 };
 
-// grid (n_chunks, n_q). Each CTA masks its chunk of one row to live docs
-// with score > 0 (others -inf), counts the matches (per row, or per
-// segment through seg_ids), and writes its chunk's top-k among the entries
-// after the row's cursor to out_s/out_i[q * out_ld + out_off + chunk * k +
-// r]. hits must start zeroed.
+// grid (n_chunks, n_rows). Each CTA masks its chunk of one row to live
+// docs with score > 0 (others -inf), counts the matches (per row, or per
+// segment through seg_ids: an id outside [0, n_segs) counts nowhere), and
+// writes its chunk's top-k among the entries after the row's cursor to
+// out_s/out_i[q * out_ld + out_off + chunk * k + r]. Row q reads the live
+// mask and seg ids of slot q / rows_per_slot (0 when rows_per_slot is 0).
+// hits must start zeroed.
 __global__ void chunk_select_kernel(const long long* __restrict__ acc,
                                     const uint8_t* __restrict__ live,
                                     const int* __restrict__ seg_ids,
                                     long long n_docs_pad, long long chunk,
                                     int k, int cap, int mode, int n_segs,
+                                    int rows_per_slot, long long slot_docs,
                                     Cursor cur,
                                     float* __restrict__ out_s,
                                     int* __restrict__ out_i,
@@ -162,6 +199,9 @@ __global__ void chunk_select_kernel(const long long* __restrict__ acc,
     if (end > n_docs_pad) end = n_docs_pad;
     const long long n = end > start ? end - start : 0;
     const long long* row = acc + (long long)q * n_docs_pad;
+    const long long slot = rows_per_slot > 0 ? q / rows_per_slot : 0;
+    live += slot * slot_docs;
+    if (seg_ids != nullptr) seg_ids += slot * slot_docs;
 
     if (mode == COUNT_SEGS)
         for (int s = threadIdx.x; s < n_segs; s += blockDim.x) seg_cnt[s] = 0;
@@ -186,12 +226,14 @@ __global__ void chunk_select_kernel(const long long* __restrict__ acc,
                 ++my;
             } else if (mode == COUNT_SEGS) {
                 const int sg = seg_ids[doc];
-                if (sg != cur_seg) {
-                    if (cur_n) atomicAdd(&seg_cnt[cur_seg], cur_n);
-                    cur_seg = sg;
-                    cur_n = 0;
+                if (sg >= 0 && sg < n_segs) {
+                    if (sg != cur_seg) {
+                        if (cur_n) atomicAdd(&seg_cnt[cur_seg], cur_n);
+                        cur_seg = sg;
+                        cur_n = 0;
+                    }
+                    ++cur_n;
                 }
-                ++cur_n;
             }
         }
     };
@@ -221,12 +263,15 @@ __global__ void chunk_select_kernel(const long long* __restrict__ acc,
 // (topk_common.cuh), chunk winners, then one merge CTA per row (skipped
 // when a row is one chunk); the first round also counts. chunk_s/chunk_i
 // hold n_q * ceil(n_docs_pad / CHUNK) * min(k, KMAX) entries. hits (may be null)
-// is zeroed here. Returns the first CUDA error, 0 on success.
+// is zeroed here. With rows_per_slot > 0, row q masks and counts with slot
+// q / rows_per_slot's live and seg_ids (slot_docs elements apart).
+// Returns the first CUDA error, 0 on success.
 inline int select_plane(const long long* acc, const uint8_t* live,
                         const int* seg_ids, long long n_docs_pad, int n_q,
                         int k, int mode, int n_segs, float* chunk_s,
                         int* chunk_i, float* out_s, int* out_i, int* hits,
-                        cudaStream_t stream) {
+                        cudaStream_t stream, int rows_per_slot = 0,
+                        long long slot_docs = 0) {
     cudaError_t err;
     if (hits != nullptr) {
         const size_t nh = (size_t)n_q * (mode == COUNT_SEGS ? n_segs : 1);
@@ -248,7 +293,8 @@ inline int select_plane(const long long* acc, const uint8_t* live,
         const bool direct = n_chunks == 1;
         chunk_select_kernel<<<dim3(n_chunks, n_q), SEL_THREADS, smem,
                               stream>>>(
-            acc, live, seg_ids, n_docs_pad, CHUNK, kr, cap, m, n_segs, cur,
+            acc, live, seg_ids, n_docs_pad, CHUNK, kr, cap, m, n_segs,
+            rows_per_slot, slot_docs, cur,
             direct ? out_s : chunk_s, direct ? out_i : chunk_i,
             direct ? (long long)k : (long long)n_chunks * kr,
             direct ? (long long)done : 0, done == 0 ? hits : nullptr);
@@ -263,9 +309,11 @@ inline int select_plane(const long long* acc, const uint8_t* live,
     return 0;
 }
 
-// The whole dense pipeline shared by bm25_flat, bm25_flat_seg and
-// bm25_coarse: zero the fixed-point plane, scatter every gathered posting
-// into it, then select_plane. Scratch (acc, chunk winners) comes from the
+// The whole dense pipeline shared by bm25_flat, bm25_flat_seg, bm25_coarse
+// and their mesh forms: zero the fixed-point plane, scatter every gathered
+// posting into it, then select_plane. ``fb`` and ``n_q`` are per group:
+// the flat operands hold sl.groups * fb entries and the outputs
+// sl.groups * n_q rows. Scratch (acc, chunk winners) comes from the
 // caller. Returns the first CUDA error, 0 on success.
 template <bool BF16>
 int dense_topk(const int* block_docs, const void* block_tfs,
@@ -274,22 +322,27 @@ int dense_topk(const int* block_docs, const void* block_tfs,
                const uint8_t* live, const int* seg_ids, int fb,
                long long n_docs_pad, int n_q, int k, int mode, int n_segs,
                Consts c, long long* acc, float* chunk_s, int* chunk_i,
-               float* out_s, int* out_i, int* hits, cudaStream_t stream) {
-    if (k < 1 || n_q < 1 || fb < 0 || n_docs_pad < k ||
+               float* out_s, int* out_i, int* hits, cudaStream_t stream,
+               Slots sl = ONE_SLOT) {
+    if (k < 1 || n_q < 1 || fb < 0 || n_docs_pad < k || !slots_ok(sl) ||
         (mode == COUNT_SEGS && (n_segs < 1 || n_segs > MAX_SEGS)))
         return (int)cudaErrorInvalidValue;
+    const int n_rows = sl.groups * n_q;
     cudaError_t err = cudaMemsetAsync(
-        acc, 0, sizeof(long long) * (size_t)n_q * (size_t)n_docs_pad, stream);
+        acc, 0, sizeof(long long) * (size_t)n_rows * (size_t)n_docs_pad,
+        stream);
     if (err != cudaSuccess) return (int)err;
     if (fb > 0) {
-        scatter_kernel<BF16><<<fb, BLOCK, 0, stream>>>(
+        scatter_kernel<BF16><<<dim3(fb, sl.groups), BLOCK, 0, stream>>>(
             block_docs, block_tfs, flat_idx, flat_w, flat_q, doc_lens,
-            flat_avgdl, n_docs_pad, c, (unsigned long long*)acc);
+            flat_avgdl, n_docs_pad, fb, n_q, sl, c,
+            (unsigned long long*)acc);
         err = cudaGetLastError();
         if (err != cudaSuccess) return (int)err;
     }
-    return select_plane(acc, live, seg_ids, n_docs_pad, n_q, k, mode, n_segs,
-                        chunk_s, chunk_i, out_s, out_i, hits, stream);
+    return select_plane(acc, live, seg_ids, n_docs_pad, n_rows, k, mode,
+                        n_segs, chunk_s, chunk_i, out_s, out_i, hits, stream,
+                        sl.groups_per_slot * n_q, sl.slot_docs);
 }
 
 // --------------------------------------------------------------------------
@@ -381,12 +434,14 @@ __device__ __forceinline__ int candidate_slot(const int* cs, int kprime,
     return (lo < kprime && cs[lo] == doc) ? lo : -1;
 }
 
-// grid (n_q): mask, top-k over the row's k' slots, eps.
+// grid (n_rows): mask, top-k over the row's k' slots, eps. Row q reads
+// the live mask of slot q / rows_per_slot (0 when rows_per_slot is 0).
 __global__ void rerank_finish_kernel(const long long* __restrict__ acc,
                                      const int* __restrict__ cand_s,
                                      const float* __restrict__ cs_s,
                                      const uint8_t* __restrict__ live,
                                      int kprime, int k, int cap,
+                                     int rows_per_slot, long long slot_docs,
                                      float* __restrict__ out_s,
                                      int* __restrict__ out_d,
                                      float* __restrict__ eps) {
@@ -397,6 +452,7 @@ __global__ void rerank_finish_kernel(const long long* __restrict__ acc,
     __shared__ int eps_bits;
     if (threadIdx.x == 0) eps_bits = 0;
     const long long base = (long long)blockIdx.x * kprime;
+    if (rows_per_slot > 0) live += (blockIdx.x / rows_per_slot) * slot_docs;
     float my_eps = 0.f;
     auto load = [&](long long j, float& s, int& i) {
         const long long v = acc[base + j];
@@ -424,14 +480,79 @@ __global__ void rerank_finish_kernel(const long long* __restrict__ acc,
 inline int rerank_finish(const long long* acc, const int* cand_s,
                          const float* cs_s, const uint8_t* live, int n_q,
                          int kprime, int k, float* out_s, int* out_d,
-                         float* eps, cudaStream_t stream) {
+                         float* eps, cudaStream_t stream,
+                         int rows_per_slot = 0, long long slot_docs = 0) {
     const int cap = select_cap(k, SEL_THREADS);
     const size_t fsmem = (size_t)cap * 8;
     cudaError_t err = set_smem((const void*)rerank_finish_kernel, fsmem);
     if (err != cudaSuccess) return (int)err;
     rerank_finish_kernel<<<n_q, SEL_THREADS, fsmem, stream>>>(
-        acc, cand_s, cs_s, live, kprime, k, cap, out_s, out_d, eps);
+        acc, cand_s, cs_s, live, kprime, k, cap, rows_per_slot, slot_docs,
+        out_s, out_d, eps);
     return (int)cudaGetLastError();
+}
+
+// grid (fb, sl.groups), BLOCK threads: a posting of group g's gathered
+// blocks whose doc is one of its row's sorted candidates adds its f32
+// contribution (as fixed point) at that candidate's slot of
+// acc[(g * n_q + q) * kprime]; all other postings are dropped. The sum
+// each candidate gets is, bit for bit, the one bm25_flat forms for it.
+__global__ void candidate_scatter_kernel(
+    const int* __restrict__ block_docs, const float* __restrict__ block_tfs,
+    const int* __restrict__ flat_idx, const float* __restrict__ flat_w,
+    const int* __restrict__ flat_q, const float* __restrict__ doc_lens,
+    const float* __restrict__ flat_avgdl, const int* __restrict__ cand_s,
+    int kprime, int fb, int n_q, Slots sl, Consts c,
+    unsigned long long* __restrict__ acc) {
+    const long long g = blockIdx.y;
+    const long long f = g * fb + blockIdx.x;
+    const long long slot = g / sl.groups_per_slot;
+    const long long e = slot * sl.slot_blocks +
+                        (long long)flat_idx[f] * BLOCK + threadIdx.x;
+    const int doc = block_docs[e];
+    if (doc < 0) return;
+    const long long row = (g * n_q + flat_q[f]) * kprime;
+    const int at = candidate_slot(cand_s + row, kprime, doc);
+    if (at < 0) return;
+    const long long fx = to_fixed(contrib_f32(
+        flat_w[f], block_tfs[e], doc_lens[slot * sl.slot_docs + doc],
+        flat_avgdl[f], c));
+    if (fx == 0) return;
+    atomicAdd(acc + row + at, (unsigned long long)fx);
+}
+
+// The whole exact tier shared by bm25_rerank and mesh_bm25_rerank: sort
+// each row's k' candidates by doc id, re-score the candidate postings,
+// then mask + top-k + eps. ``fb`` and ``n_q`` are per group, as in
+// dense_topk; cand/coarse_s and the outputs hold sl.groups * n_q rows.
+// Returns the first CUDA error, 0 on success.
+inline int rerank_tier(const int* block_docs, const float* block_tfs,
+                       const int* flat_idx, const float* flat_w,
+                       const int* flat_q, const float* doc_lens,
+                       const float* flat_avgdl, const uint8_t* live,
+                       const int* cand, const float* coarse_s, int fb,
+                       int n_q, int kprime, int k, Consts c, int* cand_s,
+                       float* cs_s, long long* acc, float* out_s, int* out_d,
+                       float* eps, cudaStream_t stream,
+                       Slots sl = ONE_SLOT) {
+    if (kprime < 1 || kprime > KMAX || k < 1 || k > kprime || n_q < 1 ||
+        fb < 0 || !slots_ok(sl))
+        return (int)cudaErrorInvalidValue;
+    const int n_rows = sl.groups * n_q;
+    int err = sort_candidates(cand, coarse_s, n_rows, kprime, cand_s, cs_s,
+                              acc, stream);
+    if (err != 0) return err;
+    if (fb > 0) {
+        candidate_scatter_kernel<<<dim3(fb, sl.groups), BLOCK, 0, stream>>>(
+            block_docs, block_tfs, flat_idx, flat_w, flat_q, doc_lens,
+            flat_avgdl, cand_s, kprime, fb, n_q, sl, c,
+            (unsigned long long*)acc);
+        err = (int)cudaGetLastError();
+        if (err != 0) return err;
+    }
+    return rerank_finish(acc, cand_s, cs_s, live, n_rows, kprime, k, out_s,
+                         out_d, eps, stream, sl.groups_per_slot * n_q,
+                         sl.slot_docs);
 }
 
 }  // namespace bm25

@@ -42,7 +42,8 @@ extern "C" int bm25_scores_launch(
         bm25::Consts c{k1, omb, b, k1p1};
         bm25::scatter_kernel<false><<<qb, bm25::BLOCK, 0, stream>>>(
             block_docs, block_tfs, block_idx, block_w, block_q, doc_lens,
-            block_avgdl, n_docs_pad, c, (unsigned long long*)acc);
+            block_avgdl, n_docs_pad, qb, 1, bm25::ONE_SLOT, c,
+            (unsigned long long*)acc);
         err = cudaGetLastError();
         if (err != cudaSuccess) return (int)err;
     }

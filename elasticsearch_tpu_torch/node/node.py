@@ -420,7 +420,7 @@ class Node:
             return
         self._mesh_warmed = True
         from elasticsearch_tpu_torch.ops.device_segment import MESH_PLANES
-        MESH_PLANES.warmup()
+        MESH_PLANES.warmup(getattr(self, "device", None))
 
     def _master_housekeeping(self, state: ClusterState) -> None:
         """On the elected master: clean up routing after membership changes

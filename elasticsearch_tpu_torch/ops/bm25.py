@@ -156,9 +156,13 @@ def _dense_plane(fx, safe, flat_q, live, n_docs_pad: int, n_q: int):
 
 
 def _seg_counts(matched, seg_ids, n_segs: int) -> torch.Tensor:
+    """[n_q, n_segs] matches per segment; a seg id outside [0, n_segs)
+    counts nowhere (``jax.nn.one_hot``'s zero row)."""
+    ok = (seg_ids >= 0) & (seg_ids < n_segs)
     hits = torch.zeros(matched.shape[0], n_segs, dtype=torch.int32,
                        device=matched.device)
-    hits.index_add_(1, seg_ids.long(), matched.to(torch.int32))
+    hits.index_add_(1, seg_ids.long().clamp(0, n_segs - 1),
+                    (matched & ok[None, :]).to(torch.int32))
     return hits
 
 

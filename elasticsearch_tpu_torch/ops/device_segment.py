@@ -27,8 +27,10 @@ built on first use per plane generation and warm-started from the previous
 generation's centroids. The columns plane (``PlaneColumns``) packs a
 field's aggregation columns (the numeric doc values and the keyword
 ordinal table, remapped to global ordinals) for ``search/plane_aggs.py``.
-The mesh-sharded planes are not part of this package yet: asking for a
-kind it lacks raises NotPortedError.
+The mesh-sharded plane (``MeshPlanePart``, ``MESH_PLANES``) stacks the
+postings planes of a fan-out's co-located shards as ``[S, ...]`` slots for
+the mesh text kernels (``parallel/mesh.py``); its vectors and features
+kinds are not ported yet and raise NotPortedError.
 """
 
 from __future__ import annotations
@@ -1105,23 +1107,115 @@ class PlaneRegistry:
 PLANES = PlaneRegistry()
 
 
-class MeshSettings:
-    """The ``search.mesh.*`` settings and the mesh-sharded plane's stats,
-    standing where the JAX package keeps its ``MeshPlaneRegistry``.
+# ---------------------------------------------------------------------------
+# mesh-sharded device plane: co-located shards stacked on the node's device
+# ---------------------------------------------------------------------------
 
-    The mesh forms of the kernels (the JAX package's ``parallel/mesh.py``
-    and ``parallel/sharded_search.py`` programs) are not ported yet, so no
-    mesh-sharded plane is ever built -- the JAX package's state whenever
-    its mesh backend is not up. Every co-located fan-out is served by the
-    per-shard RPC path, and ``MeshSearchExecutor.try_submit`` counts each
-    one as ``mesh_backend_not_ready`` and ``not_ported["mesh"]``."""
+class MeshPlanePart:
+    """One (kind, field) plane over a SET of co-located shards, laid out
+    for one launch per phase: each shard's packed plane occupies one slot
+    of a ``[S, ...]`` stack on the node's device (``parallel/mesh.py``
+    ``mesh_layout``: the JAX package's ``shard`` mesh axis is the
+    kernels' leading slot axis), so one ``mesh_bm25_*`` launch scores
+    every (shard, query) pair and the per-shard RPC fan-out collapses to
+    ONE launch per phase.
+
+    ``subs[i]`` is shard i's host-level PlanePart (refs / doc_base /
+    block_avgdl / demux — the same per-shard planning surfaces the
+    single-shard plane executors use), or None when the field has no
+    data in that shard (its slot scores nothing and the executors emit
+    the per-segment path's empty result for it)."""
+
+    # dp rows of the flat stacks: every slot lives on one device
+    dp = 1
+
+    def __init__(self, kind: str, field: str, shard_keys: Tuple,
+                 subs: List[Optional[PlanePart]], segments_by_shard,
+                 device: torch.device, n_slots: int):
+        self.kind = kind
+        self.field = field
+        self.shard_keys = shard_keys          # ordered (index, shard_id)
+        self.subs = subs
+        self.segments_by_shard = segments_by_shard
+        self.device = device
+        self.n_slots = n_slots
+        self.n_shards = len(shard_keys)
+        self.nbytes = 0
+        self.per_device_bytes = 0
+        self._charges: List[Any] = []
+        # filled by the registry's stacking pass
+        self.n_docs_pad = BLOCK
+        self.n_segs_max = 1
+        # the lazily-built stacked bf16 mirror (the PlanePostings
+        # precedent): built on the first quantized mesh query, cached for
+        # the part's lifetime, refusal memoized
+        self._q_dev: Optional[Tuple] = None
+        self._q_failed = False
+
+    def release(self) -> None:
+        for charge in self._charges:
+            charge.release()
+
+    def uids_of(self, shard_key) -> Tuple:
+        i = self.shard_keys.index(shard_key)
+        return tuple(s.uid for s in self.segments_by_shard[i])
+
+    def quantized_mirror(self) -> Optional[Tuple]:
+        """(block_tfs bf16 [S, NB, B], doc_lens bf16 [S, N]): the stacked
+        coarse-tier operands, each slot's rows exactly that shard's
+        single-plane mirror (converted on the device itself). Breaker-
+        charged like the exact stacks; a refused upload is memoized so a
+        starved node serves the exact mesh path without re-quantizing per
+        fan-out. None = serve exact."""
+        if self._q_dev is not None:
+            return self._q_dev
+        if self._q_failed:
+            return None
+        if self.kind != "postings":
+            raise NotPortedError(f"mesh_{self.kind}")
+        n_bytes = 2 * (self.block_tfs.numel() + self.doc_lens.numel())
+        from elasticsearch_tpu_torch.indices.breaker import charge_device
+        try:
+            charge = charge_device(
+                self, n_bytes, f"mesh_plane_{self.kind}_q:{self.field}",
+                return_charge=True)
+        except CircuitBreakingError:
+            self._q_failed = True
+            return None
+        self._charges.append(charge)
+        self.nbytes += n_bytes
+        self.per_device_bytes += n_bytes
+        self._q_dev = (self.block_tfs.to(torch.bfloat16),
+                       self.doc_lens.to(torch.bfloat16))
+        MESH_PLANES.stats["mesh_quantized_mirror_builds"] += 1
+        return self._q_dev
+
+
+class MeshPlaneRegistry:
+    """Process-global residency manager for mesh-sharded planes, keyed by
+    (kind, field, device, ((index, shard), segment-uid tuple) ...). Same
+    contract as PlaneRegistry: ``get`` returning None means "serve this
+    fan-out per shard" — the mesh is an optimization, never a
+    correctness gate. Planes charge the ``device`` breaker PER DEVICE,
+    LRU-evict under pressure, and re-pack incrementally when a member
+    shard's refresh appends segments. The postings kind is stacked; the
+    vectors and features kinds (the kNN and sparse mesh programs) are not
+    ported yet and raise NotPortedError."""
+
+    MAX_PARTS = 16
+    MAX_REFUSALS = 64
 
     def __init__(self):
+        self._parts: "OrderedDict[Tuple, MeshPlanePart]" = OrderedDict()
+        self._refused: "OrderedDict[Tuple, Tuple]" = OrderedDict()
+        # dynamic config (search.mesh.* cluster settings); ``dp`` is
+        # reported, and the layout caps it at the one device
         self.enabled = True
         self.min_shards = 2
         self.dp = 1
+        # multi-host fleet topology (search.mesh.hosts, parsed to a
+        # parallel.mesh.HostTopology); None = single-host
         self.hosts = None
-        self.max_devices = 0
         self.stats: Dict[str, int] = {
             "mesh_plane_builds": 0,
             "mesh_plane_full_rebuilds": 0,
@@ -1133,38 +1227,343 @@ class MeshSettings:
             "mesh_quantized_mirror_builds": 0,
             "mesh_quantized_fallbacks": 0,
         }
+        # device-observatory residency record (the PlaneRegistry shape)
+        self._gen = 0
         self.hbm_high_water = 0
         self.evictions_by_cause: Dict[str, int] = {}
 
+    # -- config ---------------------------------------------------------
+
     def configure_from_state(self, state) -> None:
+        version = getattr(state, "version", None)
+        if version is not None and \
+                version == getattr(self, "_cfg_version", None):
+            return
+        self._cfg_version = version
         from elasticsearch_tpu_torch.utils.settings import (
-            SEARCH_MESH_DP, SEARCH_MESH_ENABLED, SEARCH_MESH_MIN_SHARDS,
-            setting_from_state,
+            SEARCH_MESH_DP, SEARCH_MESH_ENABLED, SEARCH_MESH_HOSTS,
+            SEARCH_MESH_MIN_SHARDS, setting_from_state,
         )
         self.enabled = setting_from_state(state, SEARCH_MESH_ENABLED)
-        self.min_shards = setting_from_state(state, SEARCH_MESH_MIN_SHARDS)
+        self.min_shards = setting_from_state(state,
+                                             SEARCH_MESH_MIN_SHARDS)
         self.dp = setting_from_state(state, SEARCH_MESH_DP)
+        spec = setting_from_state(state, SEARCH_MESH_HOSTS)
+        try:
+            from elasticsearch_tpu_torch.parallel.mesh import (
+                mesh_ready, parse_host_topology,
+            )
+            # never pay device first-init here (the topology parse needs
+            # the device count): an uninitialized card keeps the prior
+            # (None) topology until the mesh is warm
+            self.hosts = (parse_host_topology(spec)
+                          if spec and mesh_ready() else None)
+        except Exception:     # noqa: BLE001 — a bad spec disables the
+            self.hosts = None  # hosts layer, never serving
 
-    def warmup(self) -> bool:
-        return False
+    def available(self, n_shards: int, device: DeviceLike = None) -> bool:
+        if not self.enabled or n_shards < max(1, self.min_shards):
+            return False
+        from elasticsearch_tpu_torch.parallel.mesh import mesh_ready
+        return mesh_ready(device)
 
-    def on_refresh(self, shard_key, segments) -> None:
-        pass
+    def warmup(self, device: DeviceLike = None) -> bool:
+        """Pay device first-init NOW (the ``search.mesh.warmup_at_boot``
+        setting): ``mesh_ready`` refuses to pay first-init inside a
+        search, so without this the FIRST eligible search per process on
+        a card node always takes the RPC detour. True (and counted) when
+        this call actually initialized the card; False when it was
+        already up, or the node runs on the CPU, or no card exists."""
+        from elasticsearch_tpu_torch.parallel.mesh import mesh_ready
+        if torch.device("cuda" if device is None else device).type \
+                != "cuda" or mesh_ready(device):
+            return False
+        try:
+            torch.cuda.init()
+        except Exception:  # noqa: BLE001 — no card: stay on RPC
+            return False
+        self.stats["mesh_plane_warmups"] += 1
+        return True
+
+    # -- lookup / build -------------------------------------------------
+
+    def _budget_token(self) -> Tuple:
+        from elasticsearch_tpu_torch.indices.breaker import BREAKERS
+        return (int(BREAKERS.breaker("device").limit), self.dp,
+                self.hosts)
+
+    def _refuse(self, key: Tuple) -> None:
+        self.stats["mesh_plane_miss_fallbacks"] += 1
+        _count_reason("mesh_plane_budget_refused")
+        self._refused[key] = self._budget_token()
+        while len(self._refused) > self.MAX_REFUSALS:
+            self._refused.popitem(last=False)
+
+    @staticmethod
+    def _key(shard_segments, kind: str, field: str,
+             dev: torch.device) -> Tuple:
+        return (kind, field, str(dev)) + tuple(
+            (skey, tuple(s.uid for s in segments))
+            for skey, segments in shard_segments)
+
+    def get(self, shard_segments, kind: str, field: str,
+            device: DeviceLike = None) -> Optional[MeshPlanePart]:
+        """``shard_segments``: ordered [((index, shard_id), [segments])]
+        — one entry per co-located target shard, reader order inside."""
+        if not self.available(len(shard_segments), device):
+            return None
+        dev = resolve_device(device)
+        shard_segments = sorted(
+            ((skey, list(segments)) for skey, segments in shard_segments),
+            key=lambda e: e[0])
+        key = self._key(shard_segments, kind, field, dev)
+        part = self._parts.get(key)
+        if part is not None:
+            self._parts.move_to_end(key)
+            return part
+        refused_under = self._refused.get(key)
+        if refused_under is not None:
+            if refused_under == self._budget_token():
+                self.stats["mesh_plane_miss_fallbacks"] += 1
+                _count_reason("mesh_plane_budget_refused")
+                return None
+            self._refused.pop(key, None)
+        return self._build(shard_segments, kind, field, key, dev)
+
+    def _find_prev(self, shard_segments, kind, field, dev
+                   ) -> Optional[MeshPlanePart]:
+        """Most recent resident part over the SAME shard set whose every
+        shard's segment-uid tuple is a prefix of (or equal to) the new
+        one — the append-only refresh case; its subs' per-segment caches
+        seed the incremental rebuild."""
+        keys = tuple(skey for skey, _ in shard_segments)
+        for _k, part in reversed(self._parts.items()):
+            if part.kind != kind or part.field != field or \
+                    part.shard_keys != keys or part.device != dev:
+                continue
+            ok = True
+            for i, (_skey, segments) in enumerate(shard_segments):
+                uids = tuple(s.uid for s in segments)
+                prev_uids = tuple(
+                    s.uid for s in part.segments_by_shard[i])
+                if uids[: len(prev_uids)] != prev_uids:
+                    ok = False
+                    break
+            if ok:
+                return part
+        return None
+
+    def _build(self, shard_segments, kind: str, field: str,
+               key: Tuple, dev: torch.device) -> Optional[MeshPlanePart]:
+        if kind != "postings":
+            # the kNN and sparse mesh programs are not ported yet
+            raise NotPortedError(f"mesh_{kind}")
+        from elasticsearch_tpu_torch.parallel.mesh import mesh_layout
+        _grid, n_slots, _spd = mesh_layout(len(shard_segments), device=dev)
+        prev = self._find_prev(shard_segments, kind, field, dev)
+        subs: List[Optional[PlanePart]] = []
+        hosts: List[Optional[Tuple]] = []
+        for i, (skey, segments) in enumerate(shard_segments):
+            sub = _PART_CLASSES[kind](field, segments, dev)
+            prev_sub = prev.subs[i] if prev is not None else None
+            try:
+                hosts.append(sub.build(prev_sub))
+                subs.append(sub)
+            except PlaneUnavailable:
+                hosts.append(None)
+                subs.append(None)
+        if all(s is None for s in subs):
+            return None
+        part = MeshPlanePart(
+            kind, field, tuple(skey for skey, _ in shard_segments),
+            subs, [segments for _skey, segments in shard_segments],
+            dev, n_slots)
+        stacked = self._stack(part, hosts)
+        part.nbytes = sum(int(a.nbytes) for a in stacked.values())
+        part.per_device_bytes = part.nbytes
+        from elasticsearch_tpu_torch.indices.breaker import (
+            BREAKERS, charge_device,
+        )
+        label = f"mesh_plane_{kind}:{field}"
+        charge = None
+        try:
+            charge = charge_device(part, part.per_device_bytes, label,
+                                   return_charge=True)
+        except CircuitBreakingError:
+            device_limit = BREAKERS.breaker("device").limit
+            if 0 < device_limit < part.per_device_bytes:
+                self._refuse(key)
+                return None
+            while self._parts:
+                self._drop(next(iter(self._parts)),
+                           cause="breaker_pressure")
+                try:
+                    charge = charge_device(part, part.per_device_bytes,
+                                           label, return_charge=True)
+                    break
+                except CircuitBreakingError:
+                    continue
+            if charge is None:
+                self._refuse(key)
+                return None
+        part._charges.append(charge)
+        self._upload(part, stacked)
+        self.stats["mesh_plane_builds"] += 1
+        part.generation = self._gen
+        part.built_at = time.monotonic()
+        self._gen += 1
+        if prev is not None:
+            self.stats["mesh_plane_incremental_appends"] += 1
+        else:
+            self.stats["mesh_plane_full_rebuilds"] += 1
+        self._parts[key] = part
+        self.hbm_high_water = max(
+            self.hbm_high_water,
+            sum(p.nbytes for p in self._parts.values()))
+        while len(self._parts) > self.MAX_PARTS:
+            self._drop(next(iter(self._parts)), cause="lru")
+        return part
+
+    # -- stacking -------------------------------------------------------
+
+    def _stack(self, part: MeshPlanePart, hosts) -> Dict[str, np.ndarray]:
+        """Stack per-shard host planes into common-shaped [n_slots, ...]
+        arrays (empty/padding slots score nothing: -1 block docs, zero
+        lengths, live False)."""
+        subs = part.subs
+        n_slots = part.n_slots
+        n_max = max((s.n_docs_pad for s in subs if s is not None),
+                    default=BLOCK)
+        part.n_docs_pad = n_max
+        part.n_segs_max = max(
+            (len(s.segments) for s in subs if s is not None), default=1)
+        part.n_segs_max = max(part.n_segs_max, 1)
+        nb_max = max(h[0].shape[0] for h in hosts if h is not None)
+        nb_max = next_pow2(max(nb_max, 1))
+        bd = np.full((n_slots, nb_max, BLOCK), -1, np.int32)
+        bt = np.zeros((n_slots, nb_max, BLOCK), np.float32)
+        dl = np.zeros((n_slots, n_max), np.float32)
+        si = np.zeros((n_slots, n_max), np.int32)
+        for i, h in enumerate(hosts):
+            if h is None:
+                continue
+            hbd, hbt, hdl = h
+            bd[i, : hbd.shape[0]] = hbd
+            bt[i, : hbt.shape[0]] = hbt
+            dl[i, : len(hdl)] = hdl
+            sub = subs[i]
+            si[i] = _seg_ids_host(sub.doc_base, len(sub.segments), n_max)
+        return {"block_docs": bd, "block_tfs": bt, "doc_lens": dl,
+                "seg_ids": si}
+
+    def _upload(self, part: MeshPlanePart, stacked) -> None:
+        for name, arr in stacked.items():
+            setattr(part, name, torch.as_tensor(arr, device=part.device))
+
+    # -- eviction / lifecycle -------------------------------------------
+
+    def _drop(self, key: Tuple, count_eviction: bool = True,
+              cause: str = "lru") -> None:
+        part = self._parts.pop(key, None)
+        if part is None:
+            return
+        part.release()
+        self.evictions_by_cause[cause] = \
+            self.evictions_by_cause.get(cause, 0) + 1
+        if count_eviction:
+            self.stats["mesh_plane_evictions"] += 1
 
     def drop_segments(self, uids) -> None:
-        pass
+        """Merge invalidation: any mesh plane touching a merged-away
+        segment can never be requested again (the uid tuple changed)."""
+        uids = set(uids)
+        for key in [k for k, p in self._parts.items()
+                    if any(uids.intersection(
+                        s.uid for s in segs)
+                        for segs in p.segments_by_shard)]:
+            self._drop(key, count_eviction=False,
+                       cause="merge_invalidated")
+
+    def clear(self) -> None:
+        for key in list(self._parts):
+            self._drop(key, count_eviction=False, cause="clear")
+        self._refused.clear()
+        self._cfg_version = object()   # force a settings re-read
+
+    def on_refresh(self, shard_key, segments) -> None:
+        """Refresh publication for one member shard: eagerly re-pack any
+        resident mesh plane containing it whose recorded uid tuple for
+        that shard is a strict prefix of the new one (the append-only
+        case), so the refresh pays the upload instead of the next
+        fan-out. Other member shards keep their last-published sets —
+        their own refreshes publish independently."""
+        if not self.enabled:
+            return
+        uids = tuple(s.uid for s in segments)
+        todo = []
+        for part in list(self._parts.values()):
+            if shard_key not in part.shard_keys:
+                continue
+            prev_uids = part.uids_of(shard_key)
+            if prev_uids != uids and \
+                    uids[: len(prev_uids)] == prev_uids:
+                todo.append(part)
+        for part in todo:
+            shard_segments = []
+            for i, skey in enumerate(part.shard_keys):
+                segs = list(segments) if skey == shard_key \
+                    else list(part.segments_by_shard[i])
+                shard_segments.append((skey, segs))
+            self.get(shard_segments, part.kind, part.field, part.device)
 
     def stats_snapshot(self) -> Dict[str, Any]:
-        return {**self.stats, "mesh_planes_resident": 0,
-                "resident_bytes": {"postings": 0, "vectors": 0,
-                                   "features": 0, "columns": 0},
-                "resident_bytes_per_device": 0, "dp": int(self.dp)}
+        by_kind = {"postings": 0, "vectors": 0, "features": 0,
+                   "columns": 0}
+        per_device = 0
+        for p in self._parts.values():
+            by_kind[p.kind] = by_kind.get(p.kind, 0) + p.nbytes
+            per_device += p.per_device_bytes
+        out = {**self.stats,
+               "mesh_planes_resident": len(self._parts),
+               "resident_bytes": by_kind,
+               "resident_bytes_per_device": per_device,
+               "dp": int(self.dp)}
+        if self.hosts is not None:
+            out["hosts"] = {"n_hosts": int(self.hosts.n_hosts),
+                            "devices_per_host":
+                                int(self.hosts.devices_per_host),
+                            "spec": self.hosts.spec}
+        if torch.cuda.is_initialized():
+            out["n_devices"] = torch.cuda.device_count()
+        return out
 
     def residency_snapshot(self) -> Dict[str, Any]:
-        return {"resident_bytes_total": 0,
-                "high_water_bytes": int(self.hbm_high_water),
-                "generations_built": 0, "planes": [],
-                "evictions_by_cause": {}}
+        """PlaneRegistry.residency_snapshot's mesh counterpart; entries
+        carry the slot count and per-device share too."""
+        now = time.monotonic()
+        total = 0
+        planes = []
+        for p in self._parts.values():
+            total += p.nbytes
+            planes.append({
+                "kind": p.kind, "field": p.field,
+                "bytes": int(p.nbytes),
+                "bytes_per_device": int(p.per_device_bytes),
+                "n_shards": int(p.n_shards),
+                "generation": int(getattr(p, "generation", 0)),
+                "age_s": round(now - getattr(p, "built_at", now), 3),
+            })
+        planes.sort(key=lambda e: -e["age_s"])
+        self.hbm_high_water = max(self.hbm_high_water, total)
+        return {
+            "resident_bytes_total": total,
+            "high_water_bytes": int(self.hbm_high_water),
+            "generations_built": int(self._gen),
+            "planes": planes,
+            "evictions_by_cause": dict(
+                sorted(self.evictions_by_cause.items())),
+        }
 
 
-MESH_PLANES = MeshSettings()
+# the mesh plane shares the process-global residency reasoning of PLANES
+MESH_PLANES = MeshPlaneRegistry()

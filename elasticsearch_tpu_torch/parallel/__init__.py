@@ -1,6 +1,7 @@
-"""The host half of the JAX package's ``parallel`` package: the mesh
-topology, layout and the host-only eligibility check of the mesh data
-plane. The sharded search programs are not ported yet."""
+"""The JAX package's ``parallel`` package so far: the mesh topology and
+layout, the mesh text kernels (``parallel/mesh.py``) and the host-only
+eligibility check of the mesh data plane. The kNN and sparse mesh
+programs and the sharded search programs are not ported yet."""
 
 from elasticsearch_tpu_torch.parallel.mesh import (
     HostTopology, host_backend, mesh_layout, mesh_ready,

@@ -1,8 +1,8 @@
 """Launch accounting for the kernel wrappers.
 
-Every kernel wrapper under ``ops/`` reports each call here, by family
-(``KERNEL_FAMILIES``: ``bm25_flat``, ``bm25_flat_seg``, ``bm25_coarse``,
-``bm25_rerank``, ``bm25_scores`` in ``ops/bm25.py``; ``knn_flat``,
+Every kernel wrapper under ``ops/`` and ``parallel/`` reports each call
+here, by family (``KERNEL_FAMILIES``: ``bm25_flat``, ``bm25_flat_seg``,
+``bm25_coarse``, ``bm25_rerank``, ``bm25_scores`` in ``ops/bm25.py``; ``knn_flat``,
 ``knn_coarse``, ``knn_rerank``, ``knn_scores`` in ``ops/knn.py``;
 ``dense_topk`` in ``ops/topk.py``; ``ivf_assign``, ``ivf_update``,
 ``ivf_init``, ``ivf_search`` in ``ops/ivf.py``; ``sparse_flat``,
@@ -11,8 +11,9 @@ Every kernel wrapper under ``ops/`` reports each call here, by family
 ``ml/text_expansion.py``; ``aggs_ordinal_counts``, ``aggs_histogram``,
 ``aggs_ordinal_counts_plane``, ``aggs_histogram_plane`` in
 ``ops/aggs.py``; ``rrf_fuse``, ``rrf_fuse_batch`` and ``linear_fuse`` in
-``ops/fusion.py``), and the launches of K5-K7 with a per-query mask stack
-apart from the others, as ``MASKED_VARIANTS``:
+``ops/fusion.py``; ``mesh_bm25_flat``, ``mesh_bm25_coarse`` and
+``mesh_bm25_rerank`` in ``parallel/mesh.py``), and the launches of K5-K7
+with a per-query mask stack apart from the others, as ``MASKED_VARIANTS``:
 
 - ``launches``: how many times the wrapper launched its CUDA kernel. A
   call on CPU tensors runs the plain PyTorch version and is not a launch.
@@ -45,7 +46,8 @@ KERNEL_FAMILIES = ("bm25_flat", "bm25_flat_seg", "bm25_coarse", "bm25_rerank",
                    "sparse_coarse", "sparse_rerank", "text_expansion_forward",
                    "aggs_ordinal_counts", "aggs_histogram",
                    "aggs_ordinal_counts_plane", "aggs_histogram_plane",
-                   "rrf_fuse", "rrf_fuse_batch", "linear_fuse")
+                   "rrf_fuse", "rrf_fuse_batch", "linear_fuse",
+                   "mesh_bm25_flat", "mesh_bm25_coarse", "mesh_bm25_rerank")
 # the masked launches of knn_flat / knn_coarse / knn_rerank (the same
 # kernels with a [B, N_pad] filter-mask operand), counted under these names
 MASKED_VARIANTS = ("knn_flat_masked", "knn_coarse_masked",

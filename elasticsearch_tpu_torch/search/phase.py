@@ -154,6 +154,52 @@ def collect_query_terms(q: dsl.Query) -> Dict[str, List[str]]:
     return out
 
 
+def contains_term_expansion(q: dsl.Query) -> bool:
+    """True when the tree holds a node whose matching terms are EXPANDED
+    from the dictionary (prefix and friends): such queries can match even
+    when none of their literal texts exist as terms, so the can_match df
+    pre-filter must not skip shards for them."""
+    found = [False]
+
+    def walk(node):
+        if isinstance(node, (dsl.MatchPhrasePrefix, dsl.Prefix,
+                             dsl.Wildcard, dsl.Regexp, dsl.Fuzzy,
+                             dsl.MoreLikeThis, dsl.SpanMulti,
+                             dsl.Intervals, dsl.QueryString,
+                             dsl.SimpleQueryString, dsl.TermsSet,
+                             dsl.DistanceFeature, dsl.ScriptQuery,
+                             dsl.GeoPolygon, dsl.GeoShape,
+                             dsl.Percolate)):
+            # expanded/derived matching: literal query text existing as a
+            # term is NOT a precondition for hits, so can_match must not
+            # prune on df. (query_string/simple_query_string parse to
+            # plain trees only at execute time, so they are conservative
+            # here; span/intervals leaves DO contribute literal terms via
+            # collect_query_terms but their structural nodes stay lenient.)
+            found[0] = True
+        elif isinstance(node, dsl.Bool):
+            for c in node.must + node.should + node.must_not + node.filter:
+                walk(c)
+        elif isinstance(node, dsl.ConstantScore):
+            walk(node.filter)
+        elif isinstance(node, dsl.DisMax):
+            for c in node.queries:
+                walk(c)
+        elif isinstance(node, dsl.Boosting):
+            walk(node.positive)
+            walk(node.negative)
+        elif isinstance(node, (dsl.ScriptScore, dsl.FunctionScore,
+                               dsl.Nested)):
+            if node.query is not None:
+                walk(node.query)
+        elif isinstance(node, dsl.Pinned):
+            # pinned ids match regardless of the organic clause's terms
+            found[0] = True
+
+    walk(q)
+    return found[0]
+
+
 def shard_term_stats(reader: Reader, mappers: MapperService,
                      q: dsl.Query) -> Tuple[int, Dict[str, Dict[str, int]]]:
     """(doc count, field -> term -> df) aggregated over segments.

@@ -3,7 +3,7 @@ shard's postings (or vectors, or rank_features) in one device plane, one
 kernel launch per phase.
 
 The text, kNN and sparse parts of the JAX package's
-``search/plane_exec.py``.
+``search/plane_exec.py``, and its mesh text executor.
 Both the solo and the batched path call in here when a plane is resident,
 so they share one implementation:
 
@@ -24,6 +24,10 @@ so they share one implementation:
   over the stacked rank_features blocks (K15, with exact counts), or the
   bf16 coarse pass + exact re-rank (K16 + K17, ``_coarse_sparse_topk``)
   with the same adaptive depth.
+- ``mesh_wand_topk``: Q text queries against S co-located shards' stacked
+  postings planes (``MeshPlanePart``) in one launch per phase for all
+  shards (``mesh_bm25_flat``, or ``mesh_bm25_coarse`` + ``mesh_bm25_rerank``
+  on the tier), each shard's result the one ``plane_wand_topk`` gives.
 
 Callers treat a None result as "run the per-segment path".
 """
@@ -40,7 +44,7 @@ from elasticsearch_tpu_torch.index.segment import next_pow2
 from elasticsearch_tpu_torch.ops.bm25 import (
     KMAX, DEFAULT_B, DEFAULT_K1, P1_BUCKET, QueryPlan, dispatch_flat,
 )
-from elasticsearch_tpu_torch.ops.device_segment import PLANES
+from elasticsearch_tpu_torch.ops.device_segment import MESH_PLANES, PLANES
 from elasticsearch_tpu_torch.search import telemetry
 from elasticsearch_tpu_torch.search.phase import ShardDoc
 
@@ -909,3 +913,475 @@ def _coarse_sparse_topk(part, idx, w, live, k_plane: int, n_real: int,
         if last:
             _count_plane_quantized_fallback()
             return None
+
+
+# ---------------------------------------------------------------------------
+# mesh-sharded plane executor: ONE launch per phase for a whole co-located
+# fan-out (ops/device_segment.py MeshPlanePart, slots on the node's device)
+# ---------------------------------------------------------------------------
+
+class MeshFallback(Exception):
+    """This fan-out cannot run on the mesh; the caller runs the per-shard
+    RPC fan-out. ``reason`` is the telemetry taxonomy constant the
+    executor counts."""
+
+    def __init__(self, msg: str, reason: Optional[str] = None):
+        super().__init__(msg)
+        self.reason = reason or telemetry.MESH_IVF_ROUTED
+
+
+def _count_mesh_quantized_fallback() -> None:
+    MESH_PLANES.stats["mesh_quantized_fallbacks"] += 1
+    telemetry.TELEMETRY.count_fallback(telemetry.MESH_QUANTIZED_FALLBACK)
+
+
+def _mesh_engages(subs, k: int) -> Optional[bool]:
+    """Whether the quantized coarse tier engages for a mesh fan-out:
+    True only when EVERY populated slot clears the per-shard engage
+    threshold — the same sizing rule the per-shard plane applies — so
+    the mesh and the RPC fan-out pick the same tier shard-for-shard.
+    None = slots disagree (only the per-shard path can serve each shard
+    its own tier)."""
+    votes = [s.n_docs_total > 4 * _coarse_depth0(k, s.n_docs_pad)
+             for s in subs if s is not None]
+    if not votes or not any(votes):
+        return False
+    if all(votes):
+        return True
+    return None
+
+
+def _shard_readers(shard_ctxs):
+    return [ctxs[0].reader if ctxs else None for ctxs in shard_ctxs]
+
+
+def _mesh_live(mpart, shard_ctxs) -> np.ndarray:
+    """Reader-snapshot live masks per slot, in each sub's plane doc
+    layout (padding slots and padding docs stay False) — built per
+    fan-out, like the single-shard plane's ``live_mask``, so deletes
+    never invalidate the mesh plane itself."""
+    out = np.zeros((mpart.n_slots, mpart.n_docs_pad), bool)
+    for i, reader in enumerate(_shard_readers(shard_ctxs)):
+        if reader is None:
+            continue
+        off = 0
+        for m in reader.live_masks:
+            out[i, off: off + len(m)] = np.asarray(m)
+            off += len(m)
+    return out
+
+
+def _mesh_row(sub, s_row, d_row):
+    """One (shard, member) row of mesh output -> sorted candidates and
+    max score, through the shard's own demux."""
+    finite = s_row != -np.inf
+    seg, local = sub.demux(d_row[finite])
+    cands = [ShardDoc(int(a), int(b), float(sc), (float(sc),))
+             for a, b, sc in zip(seg, local, s_row[finite])]
+    cands.sort(key=lambda c: (-c.score, c.segment_idx, c.doc))
+    return cands, max((c.score for c in cands), default=None)
+
+
+def mesh_wand_topk(shard_ctxs, mpart, field: str,
+                   clause_lists: List[List[Tuple[str, float]]],
+                   want: int, track_limit: int,
+                   check_members: Optional[Callable[[], None]] = None,
+                   counter: Optional[list] = None
+                   ) -> Optional[List[List[Tuple]]]:
+    """Q text queries against S co-located shards' postings planes in
+    TWO mesh launches (phase-A theta, phase-B survivors) plus at most one
+    recount — per SHARD semantics identical to plane_wand_topk / the
+    per-segment loops, so the coordinator merge over the synthesized
+    per-shard results equals the RPC fan-out's.
+
+    Returns [shard][member] (candidates, hits, relation, max_score,
+    (blocks_total, blocks_scored)).
+
+    DFS-normed fan-outs (coordinator df/avgdl overrides) are served on
+    the mesh too, the plane_wand_topk discipline: df overrides flow
+    through each segment's planner, the corpus-wide avgdl replaces the
+    baked per-block values in the flat launch argument."""
+    from elasticsearch_tpu_torch.indices.breaker import BREAKERS
+    from elasticsearch_tpu_torch.ops.bm25 import flatten_plans, qb_bucket
+    from elasticsearch_tpu_torch.parallel.mesh import mesh_bm25_flat
+    from elasticsearch_tpu_torch.search.execute import _bm25_planner
+
+    counts_on = track_limit > 0
+    n_q = len(clause_lists)
+    n_sh = mpart.n_shards
+    dev = mpart.device
+    # the flat gather stacks split over dp (each row scores its own
+    # contiguous slice of the micro-batch), so the padded count must
+    # fill the rows evenly
+    dp = max(1, int(mpart.dp))
+    n_q_pad = next_pow2(max(n_q, 1), minimum=1)
+    n_q_pad = -(-n_q_pad // dp) * dp
+    n_q_row = n_q_pad // dp
+    empty = ([], 0, "eq", None, (0, 0))
+    empty_plan = QueryPlan([], [], [], [])
+
+    avgdl_override = None
+    prepped: List[Optional[Dict]] = []
+    for si in range(n_sh):
+        sub = mpart.subs[si]
+        if sub is None:
+            prepped.append(None)
+            continue
+        ctxs = shard_ctxs[si]
+        per_seg = []        # (plans[n_q], block_base)
+        seen: List[Dict[str, float]] = [{} for _ in range(n_q)]
+        has = [False] * n_q
+        for pos, _pf, block_base, avgdl in sub.refs:
+            ctx = ctxs[pos]
+            override = ctx.avgdl_for(field)
+            if override is not None:
+                # DFS-normed: one corpus-wide value for every segment
+                # of every member shard (it is per-request per-field)
+                avgdl_override = float(override)
+                avgdl = avgdl_override
+            analyzer = ctx.search_analyzer(field)
+            ex = _bm25_planner(ctx, field)
+            if ex is None:
+                continue
+            df_map = ctx.df_for(field) or {}
+            member_terms: List[List[Tuple[str, float]]] = []
+            any_terms = False
+            for qi, clauses in enumerate(clause_lists):
+                terms: List[Tuple[str, float]] = []
+                for text, boost in clauses:
+                    terms.extend((t, boost)
+                                 for t in analyzer.terms(text))
+                member_terms.append(terms)
+                if terms:
+                    any_terms = True
+                    has[qi] = True
+                    for t, _b in terms:
+                        if t not in seen[qi]:
+                            seen[qi][t] = float(df_map.get(t, 0))
+            if not any_terms:
+                continue
+            plans = ex.build_plans(member_terms,
+                                   df_override=df_map or None,
+                                   avgdl=avgdl)
+            per_seg.append((plans, block_base))
+        prepped.append({"per_seg": per_seg, "seen": seen, "has": has}
+                       if per_seg else None)
+
+    if all(p is None for p in prepped):
+        return [[empty] * n_q for _ in range(n_sh)]
+
+    exact_mode = np.zeros((n_sh, n_q), bool)
+    for si, p in enumerate(prepped):
+        if p is None:
+            continue
+        for qi in range(n_q):
+            upper = int(sum(p["seen"][qi].values()))
+            exact_mode[si, qi] = counts_on and upper <= track_limit
+
+    k_mesh = min(max(want, 1), mpart.n_docs_pad)
+    live_dev = torch.as_tensor(_mesh_live(mpart, shard_ctxs), device=dev)
+    # the launches' accumulator: [S, n_q_pad, n_docs_pad] 64-bit sums
+    transient = 8 * mpart.n_docs_pad * n_q_pad * mpart.n_slots
+
+    def _flat_avgdl(si, i_s):
+        return avgdl_override if avgdl_override is not None \
+            else mpart.subs[si].block_avgdl[i_s]
+
+    def _dispatch(rows_by_shard, k):
+        if check_members is not None:
+            check_members()
+        # one flat bucket for every (slot, dp row) group: per-row flats
+        # keep each row's qids local (0..n_q_row-1), so each row's
+        # scatter is exactly the single-shard flat kernel's
+        fb = qb_bucket(max(
+            [sum(p.n_blocks
+                 for p in rows[r * n_q_row: (r + 1) * n_q_row])
+             for rows in rows_by_shard if rows for r in range(dp)]
+            + [1]))
+        idx = np.zeros((mpart.n_slots, dp, fb), np.int32)
+        w = np.zeros((mpart.n_slots, dp, fb), np.float32)
+        qid = np.zeros((mpart.n_slots, dp, fb), np.int32)
+        favg = np.ones((mpart.n_slots, dp, fb), np.float32)
+        for si, rows in enumerate(rows_by_shard):
+            if not rows:
+                continue
+            for r in range(dp):
+                i_s, w_s, q_s = flatten_plans(
+                    rows[r * n_q_row: (r + 1) * n_q_row], fb)
+                idx[si, r], w[si, r], qid[si, r] = i_s, w_s, q_s
+                favg[si, r] = _flat_avgdl(si, i_s)
+        with BREAKERS.breaker("request").limit_scope(
+                transient, "mesh_wand_topk"):
+            if counter is not None:
+                counter.append(1)
+            s, d, h = mesh_bm25_flat(
+                mpart.block_docs, mpart.block_tfs, mpart.doc_lens,
+                torch.as_tensor(idx, device=dev),
+                torch.as_tensor(w, device=dev),
+                torch.as_tensor(qid, device=dev),
+                torch.as_tensor(favg, device=dev), live_dev,
+                mpart.seg_ids, mpart.n_docs_pad, n_q_row, k,
+                mpart.n_segs_max, k1=DEFAULT_K1, b=DEFAULT_B)
+        # [S, dp, n_q_row, ...] -> [S, n_q_pad, ...]: contiguous row
+        # assignment makes the flatten restore micro-batch order
+        s = s.cpu().numpy().reshape(mpart.n_slots, n_q_pad, -1)
+        d = d.cpu().numpy().reshape(mpart.n_slots, n_q_pad, -1)
+        h = h.cpu().numpy().reshape(mpart.n_slots, n_q_pad, -1)
+        return s, d, h
+
+    def _rows(select):
+        """[slot][n_q_pad] plan rows; ``select(si, qi, plans)`` -> plan
+        for that (shard, member, segment) or empty_plan."""
+        out = []
+        for si in range(mpart.n_slots):
+            p = prepped[si] if si < n_sh else None
+            if p is None:
+                out.append(None)
+                continue
+            rows = []
+            for qi in range(n_q):
+                segs = [select(si, qi, plans[qi])
+                        for plans, _bb in p["per_seg"]]
+                rows.append(QueryPlan.concat(
+                    segs,
+                    idx_offsets=[bb for _pl, bb in p["per_seg"]]))
+            rows.extend([empty_plan] * (n_q_pad - n_q))
+            out.append(rows)
+        return out
+
+    def _try_coarse() -> Optional[List[List[Tuple]]]:
+        """Quantized two-tier mesh text path: one bf16 coarse launch over
+        the full plans + one exact f32 re-rank launch, adaptive depth
+        deepening GLOBALLY (any (shard, member) with a tight margin
+        re-launches the pair). Per-slot bodies are the single-shard
+        coarse/re-rank bodies, so re-ranked scores are bitwise the
+        per-shard quantized path's — and counts come exact off the coarse
+        pass. None = the exact mesh phases below serve (typed when it is a
+        fallback)."""
+        from elasticsearch_tpu_torch.parallel.mesh import (
+            mesh_bm25_coarse, mesh_bm25_rerank,
+        )
+        if _mesh_engages(mpart.subs, k_mesh) is not True:
+            return None
+        mirror = mpart.quantized_mirror()
+        if mirror is None:
+            _count_mesh_quantized_fallback()
+            return None
+        tf16, dl16 = mirror
+        rows_full = _rows(lambda si, qi, p: p)
+        fb = qb_bucket(max(
+            [sum(p.n_blocks for p in rows)
+             for rows in rows_full if rows] + [1]))
+        idx = np.zeros((mpart.n_slots, fb), np.int32)
+        w = np.zeros((mpart.n_slots, fb), np.float32)
+        qid = np.zeros((mpart.n_slots, fb), np.int32)
+        favg = np.ones((mpart.n_slots, fb), np.float32)
+        for si, rows in enumerate(rows_full):
+            if not rows:
+                continue
+            i_s, w_s, q_s = flatten_plans(rows, fb)
+            idx[si], w[si], qid[si] = i_s, w_s, q_s
+            favg[si] = _flat_avgdl(si, i_s)
+        idx_dev = torch.as_tensor(idx, device=dev)
+        w_dev = torch.as_tensor(w, device=dev)
+        qid_dev = torch.as_tensor(qid, device=dev)
+        favg_dev = torch.as_tensor(favg, device=dev)
+        blocks_full = np.zeros((n_sh, n_q), np.int64)
+        for si, rows in enumerate(rows_full):
+            if si < n_sh and rows:
+                for qi in range(n_q):
+                    blocks_full[si, qi] = rows[qi].n_blocks
+
+        for kprime, last in _adaptive_depths(k_mesh, mpart.n_docs_pad):
+            if kprime > KMAX:
+                # the coarse and re-rank kernels hold k' <= KMAX
+                # candidates a row; a wider window is served exact
+                # (mesh_bm25_flat with the wide selection)
+                _count_mesh_quantized_fallback()
+                return None
+            if check_members is not None:
+                check_members()
+            with BREAKERS.breaker("request").limit_scope(
+                    transient, "mesh_coarse_wand"):
+                if counter is not None:
+                    counter.extend((1, 1))
+                cs, cand, hits = mesh_bm25_coarse(
+                    mpart.block_docs, tf16, dl16, idx_dev, w_dev, qid_dev,
+                    favg_dev, live_dev, mpart.seg_ids, mpart.n_docs_pad,
+                    n_q_pad, kprime, mpart.n_segs_max, k1=DEFAULT_K1,
+                    b=DEFAULT_B)
+                s, d, eps = mesh_bm25_rerank(
+                    mpart.block_docs, mpart.block_tfs, idx_dev, w_dev,
+                    qid_dev, favg_dev, mpart.doc_lens, live_dev, cand, cs,
+                    mpart.n_docs_pad, n_q_pad, kprime, k_mesh,
+                    k1=DEFAULT_K1, b=DEFAULT_B)
+            cs_h, s_h = cs.cpu().numpy(), s.cpu().numpy()
+            eps_h = eps.cpu().numpy()
+            k_last = min(k_mesh, s_h.shape[2]) - 1
+            ok = all(
+                _margin_ok(float(s_h[si, qi, k_last]),
+                           float(cs_h[si, qi, kprime - 1]),
+                           float(eps_h[si, qi]), REL_BF16)
+                for si in range(n_sh) if prepped[si] is not None
+                for qi in range(n_q) if prepped[si]["has"][qi])
+            if ok:
+                break
+            if last:
+                _count_mesh_quantized_fallback()
+                return None
+
+        hits_h = hits.cpu().numpy()
+        d_h = d.cpu().numpy()
+        # members with terms in ANY slot — the same members the
+        # per-shard path would have counted as coarse-tier-served
+        n_served = sum(
+            1 for qi in range(n_q)
+            if any(p is not None and p["has"][qi] for p in prepped))
+        MESH_PLANES.stats["mesh_quantized_queries"] += n_served
+        PLANES.note_quantized(kprime, n_served, mesh=True)
+        out: List[List[Tuple]] = []
+        for si in range(n_sh):
+            p = prepped[si]
+            if p is None:
+                out.append([empty] * n_q)
+                continue
+            sub = mpart.subs[si]
+            n_segs_here = len(sub.segments)
+            row_out: List[Tuple] = []
+            for qi in range(n_q):
+                if not p["has"][qi]:
+                    row_out.append(empty)
+                    continue
+                cands, max_score = _mesh_row(sub, s_h[si, qi], d_h[si, qi])
+                prune = (int(blocks_full[si, qi]),
+                         int(blocks_full[si, qi]))
+                h_row = hits_h[si, qi][:n_segs_here]
+                if not counts_on:
+                    total = int(np.minimum(h_row, want).sum())
+                    row_out.append((cands, total, "gte", max_score,
+                                    prune))
+                    continue
+                hits_seen = int(h_row.sum())
+                if hits_seen >= track_limit:
+                    row_out.append((cands, track_limit, "gte",
+                                    max_score, prune))
+                else:
+                    row_out.append((cands, hits_seen, "eq", max_score,
+                                    prune))
+            out.append(row_out)
+        return out
+
+    if PLANES.quantized:
+        # the measured-latency engage rule, per MESH class: the mesh
+        # coarse tier pays 2 launches over n_slots stacks, so it gets its
+        # own EWMAs rather than inheriting the single-shard ones
+        got_coarse = _coarse_attempt("mesh_bm25", n_q, _try_coarse)
+        if got_coarse is not None:
+            return got_coarse
+    t_exact = time.monotonic()
+
+    # phase A — one mesh launch: exact-mode (shard, member) pairs score
+    # all their blocks (their counts are final), pruned pairs their
+    # per-segment P1_BUCKET highest-upper-bound blocks
+    rows_a = _rows(lambda si, qi, p:
+                   p if exact_mode[si, qi] else p.top_by_ub(P1_BUCKET))
+    s_a, d_a, h_a = _dispatch(rows_a, k_mesh)
+
+    theta = np.full((n_sh, n_q), -np.inf)
+    for si, p in enumerate(prepped):
+        if p is None:
+            continue
+        for qi in range(n_q):
+            if exact_mode[si, qi]:
+                continue
+            finite = s_a[si, qi][np.isfinite(s_a[si, qi])]
+            if len(finite) >= want:
+                theta[si, qi] = float(np.sort(finite)[-want])
+
+    # phase B — one mesh launch: per-(shard, member) WAND survivors
+    blocks_total = np.zeros((n_sh, n_q), np.int64)
+    blocks_scored = np.zeros((n_sh, n_q), np.int64)
+    hits_exact = np.ones((n_sh, n_q), bool)
+
+    def _survivors(si, qi, p):
+        if exact_mode[si, qi]:
+            blocks_total[si, qi] += p.n_blocks
+            blocks_scored[si, qi] += p.n_blocks
+            return empty_plan
+        surv = p.survivors(float(theta[si, qi]))
+        p1_cost = min(p.n_blocks, P1_BUCKET)
+        blocks_total[si, qi] += p.n_blocks
+        blocks_scored[si, qi] += min(surv.n_blocks + p1_cost, p.n_blocks)
+        if surv.n_blocks < p.n_blocks:
+            hits_exact[si, qi] = False
+        return surv
+
+    rows_b = _rows(_survivors)
+    need_b = any(
+        not exact_mode[si, qi]
+        for si in range(n_sh) if prepped[si] is not None
+        for qi in range(n_q))
+    if need_b:
+        s_b, d_b, h_b = _dispatch(rows_b, k_mesh)
+    else:
+        s_b = d_b = h_b = None
+
+    out: List[List[Tuple]] = []
+    for si in range(n_sh):
+        p = prepped[si]
+        row_out: List[Tuple] = []
+        if p is None:
+            out.append([empty] * n_q)
+            continue
+        sub = mpart.subs[si]
+        for qi in range(n_q):
+            if not p["has"][qi]:
+                row_out.append(empty)
+                continue
+            if exact_mode[si, qi]:
+                s_row, d_row = s_a[si, qi], d_a[si, qi]
+                h_row = h_a[si, qi]
+            else:
+                s_row, d_row = s_b[si, qi], d_b[si, qi]
+                h_row = h_b[si, qi]
+            cands, max_score = _mesh_row(sub, s_row, d_row)
+            prune = (int(blocks_total[si, qi]),
+                     int(blocks_scored[si, qi]))
+            if not counts_on:
+                total = int(np.minimum(h_row, want).sum())
+                row_out.append((cands, total, "gte", max_score, prune))
+                continue
+            hits_seen = int(h_row.sum())
+            if hits_seen >= track_limit:
+                row_out.append((cands, track_limit, "gte", max_score,
+                                prune))
+            elif hits_exact[si, qi] or exact_mode[si, qi]:
+                row_out.append((cands, hits_seen, "eq", max_score,
+                                prune))
+            else:
+                row_out.append((cands, None, None, max_score, prune))
+        out.append(row_out)
+
+    # (shard, member) pairs whose pruned counts might hide hits: one
+    # exact unpruned counted mesh launch (k=1; scores already final)
+    recount = {(si, qi)
+               for si in range(n_sh) for qi in range(n_q)
+               if counts_on and prepped[si] is not None
+               and out[si][qi][1] is None}
+    if recount:
+        rows_r = _rows(lambda si, qi, p:
+                       p if (si, qi) in recount else empty_plan)
+        _s, _d, h_r = _dispatch(rows_r, 1)
+        for si, qi in recount:
+            cands, _, _, max_score, prune = out[si][qi]
+            exact_hits = int(h_r[si, qi].sum())
+            # >= : relation at count == track_limit is "gte" on every
+            # path (the plane recount's boundary rule)
+            if exact_hits >= track_limit:
+                out[si][qi] = (cands, track_limit, "gte", max_score,
+                               prune)
+            else:
+                out[si][qi] = (cands, exact_hits, "eq", max_score,
+                               prune)
+    _note_exact("mesh_bm25", n_q, t_exact)
+    return out

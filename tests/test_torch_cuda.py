@@ -18,7 +18,8 @@ from elasticsearch_tpu_torch.ops import bm25 as port
 from elasticsearch_tpu_torch.ops import knn, topk
 from elasticsearch_tpu_torch.ops.device_segment import quantize_rows
 from torch_inputs import (
-    FLAT, make_inputs, make_knn_inputs, make_sparse_inputs, tx,
+    FLAT, FLAT_ORDER, N_SEGS, make_inputs, make_knn_inputs,
+    make_sparse_inputs, mesh_inputs, row0, tx,
 )
 
 K = 10
@@ -494,3 +495,77 @@ def test_linear_fuse_matches_plain_version_on_the_card(r, n, k, normalize):
     torch.cuda.synchronize()
     for g, w in zip(got, want):
         assert torch.equal(g, w)
+
+
+RERANK_ORDER = ("docs", "tfs", "idx", "w", "q", "avg", "dl", "live")
+
+
+def _on_card(inp, names, bf16=()):
+    out = []
+    for n in names:
+        t = torch.as_tensor(inp[n]).cuda()
+        out.append(t.to(torch.bfloat16) if n in bf16 else t)
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_slots,dp,empty,one_seg,n_docs",
+                         [(2, 1, -1, -1, 3000), (4, 2, 2, 1, 3000),
+                          (4, 1, 3, 0, 150_000)],
+                         ids=["s2", "s4_dp2_empty_one_segment",
+                              "s4_chunked"])
+def test_mesh_kernels_match_plain_versions_on_the_card(n_slots, dp, empty,
+                                                       one_seg, n_docs):
+    """mesh_bm25_flat / _coarse / _rerank bitwise equal to their plain
+    versions, and each slot bitwise equal to K2 / K3 / K4 launched on that
+    slot's plane (the chunked case takes the top-k's merge pass)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    from elasticsearch_tpu_torch.parallel import mesh
+    n_q, kprime = 4, 256
+    inp = mesh_inputs(90 + n_slots + dp, n_slots, dp, n_q, empty=empty,
+                      one_seg=one_seg, n_docs=n_docs)
+    n_pad = inp["n_pad"]
+    flat = _on_card(inp, FLAT_ORDER)
+    got = mesh.mesh_bm25_flat(*flat, n_pad, n_q, K, N_SEGS)
+    want = mesh.mesh_bm25_flat_plain(*flat, n_pad, n_q, K, N_SEGS)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    r0 = row0(inp)
+    q16 = _on_card(r0, FLAT_ORDER, bf16=("tfs", "dl"))
+    cgot = mesh.mesh_bm25_coarse(*q16, n_pad, n_q, kprime, N_SEGS)
+    cwant = mesh.mesh_bm25_coarse_plain(*q16, n_pad, n_q, kprime, N_SEGS)
+    for g, w in zip(cgot, cwant):
+        assert torch.equal(g, w)
+    rr = _on_card(r0, RERANK_ORDER)
+    rgot = mesh.mesh_bm25_rerank(*rr, cgot[1], cgot[0], n_pad, n_q, kprime,
+                                 K)
+    rwant = mesh.mesh_bm25_rerank_plain(*rr, cgot[1], cgot[0], n_pad, n_q,
+                                        kprime, K)
+    for g, w in zip(rgot, rwant):
+        assert torch.equal(g, w)
+    f = dict(zip(FLAT_ORDER, flat))
+    c = dict(zip(FLAT_ORDER, q16))
+    r = dict(zip(RERANK_ORDER, rr))
+    for si in range(n_slots):
+        for row in range(dp):
+            k2 = port.bm25_flat_seg(
+                f["docs"][si], f["tfs"][si], f["idx"][si, row],
+                f["w"][si, row], f["q"][si, row], f["dl"][si],
+                f["avg"][si, row], f["live"][si], f["seg"][si], n_pad, n_q,
+                K, n_segs=N_SEGS)
+            for g, w in zip((x[si, row] for x in got), k2):
+                assert torch.equal(g, w)
+        k3 = port.bm25_coarse(
+            c["docs"][si], c["tfs"][si], c["idx"][si], c["w"][si],
+            c["q"][si], c["dl"][si], c["avg"][si], c["live"][si],
+            c["seg"][si], n_pad, n_q, N_SEGS, kprime)
+        for g, w in zip((x[si] for x in cgot), k3):
+            assert torch.equal(g, w)
+        k4 = port.bm25_rerank(
+            r["docs"][si], r["tfs"][si], r["idx"][si], r["w"][si],
+            r["q"][si], r["dl"][si], r["avg"][si], r["live"][si],
+            cgot[1][si].contiguous(), cgot[0][si].contiguous(), n_pad, n_q,
+            kprime, K)
+        for g, w in zip((x[si] for x in rgot), k4):
+            assert torch.equal(g, w)

@@ -59,6 +59,8 @@ import elasticsearch_tpu_torch.convert
 import elasticsearch_tpu_torch.ops.aggs
 import elasticsearch_tpu_torch.script
 import elasticsearch_tpu_torch.search.nested
+import elasticsearch_tpu_torch.search.mesh_executor
+import elasticsearch_tpu_torch.parallel.mesh
 from elasticsearch_tpu_torch.search.plane_aggs import plan_drain_aggs
 from elasticsearch_tpu_torch.search.device_profile import DEVICE_PROFILE
 engine = InternalEngine(MapperService({"properties": {
@@ -180,6 +182,23 @@ status, resp = rest("POST", "/node_idx/_search", {
 assert status == 200, resp
 assert resp["hits"]["hits"][0]["_id"] == "3", resp["hits"]
 assert DEVICE_PROFILE.family("rrf_fuse_batch").calls == calls + 1
+status, _ = rest("PUT", "/mesh_idx", {
+    "settings": {"number_of_shards": 2, "number_of_replicas": 0},
+    "mappings": {"properties": {"body": {"type": "text"}}}})
+assert status == 200, status
+lines = []
+for i in range(30):
+    lines += [{"index": {"_index": "mesh_idx", "_id": str(i)}},
+              {"body": "quick brown fox" if i % 3 else "lazy dog"}]
+status, resp = rest("POST", "/_bulk", lines)
+assert status == 200 and not resp["errors"], resp
+rest("POST", "/mesh_idx/_refresh")
+calls = DEVICE_PROFILE.family("mesh_bm25_flat").calls
+status, resp = rest("POST", "/mesh_idx/_search",
+                    {"query": {"match": {"body": "fox"}}})
+assert status == 200 and resp["_data_plane"] == "mesh_plane", resp
+assert resp["hits"]["total"]["value"] == 20, resp["hits"]["total"]
+assert DEVICE_PROFILE.family("mesh_bm25_flat").calls > calls
 cluster.stop()
 assert not any(m.split(".")[0] in ("jax", "jaxlib", "elasticsearch_tpu")
                for m in sys.modules)
@@ -427,6 +446,53 @@ def test_fusion_wrappers_never_take_the_plain_version(family, monkeypatch):
         else:
             fusion.linear_fuse(torch.zeros(2, 64), torch.ones(2),
                                torch.ones(64, dtype=torch.bool), 10)
+
+
+@pytest.mark.parametrize("family", ["mesh_bm25_flat", "mesh_bm25_coarse",
+                                    "mesh_bm25_rerank"])
+def test_mesh_wrappers_never_take_the_plain_version(family, monkeypatch):
+    """The mesh kernels' wrappers, given CUDA tensors, launch their kernel
+    or raise: with the kernel library unavailable they raise instead of
+    running the one-shard plain versions slot by slot on the host."""
+    from elasticsearch_tpu_torch import _build
+    from elasticsearch_tpu_torch.ops import bm25
+    from elasticsearch_tpu_torch.parallel import mesh
+
+    def no_library(fam):
+        raise _build.KernelBuildError("no nvcc")
+
+    def no_plain(*a, **k):
+        pytest.fail("plain version ran for a CUDA call")
+
+    monkeypatch.setattr(_build, "library", no_library)
+    monkeypatch.setattr(bm25, "_FNS", {})
+    monkeypatch.setattr(mesh, "_on_cuda", lambda *t: True)
+    monkeypatch.setattr(mesh, "_stream", lambda: 0)
+    for name in ("mesh_bm25_flat_plain", "mesh_bm25_coarse_plain",
+                 "mesh_bm25_rerank_plain", "bm25_flat_seg_plain",
+                 "bm25_coarse_plain", "bm25_rerank_plain"):
+        monkeypatch.setattr(mesh, name, no_plain)
+    s, n_pad = 2, 256
+    docs = torch.full((s, 2, 128), -1, dtype=torch.int32)
+    tfs = torch.zeros(s, 2, 128)
+    dl = torch.ones(s, n_pad)
+    live = torch.ones(s, n_pad, dtype=torch.bool)
+    seg = torch.zeros(s, n_pad, dtype=torch.int32)
+    idx = torch.zeros(s, 32, dtype=torch.int32)
+    w = torch.zeros(s, 32)
+    with pytest.raises(_build.KernelBuildError):
+        if family == "mesh_bm25_flat":
+            mesh.mesh_bm25_flat(docs, tfs, dl, idx[:, None], w[:, None],
+                                idx[:, None], w[:, None] + 1, live, seg,
+                                n_pad, 1, 10, 1)
+        elif family == "mesh_bm25_coarse":
+            mesh.mesh_bm25_coarse(docs, tfs.to(torch.bfloat16),
+                                  dl.to(torch.bfloat16), idx, w, idx, w + 1,
+                                  live, seg, n_pad, 1, 16, 1)
+        else:
+            mesh.mesh_bm25_rerank(docs, tfs, idx, w, idx, w + 1, dl, live,
+                                  torch.zeros(s, 1, 16, dtype=torch.int32),
+                                  torch.zeros(s, 1, 16), n_pad, 1, 16, 10)
 
 
 def test_rrf_request_fails_when_the_fusion_kernel_fails(monkeypatch):

@@ -315,24 +315,59 @@ def test_batcher_routes_knn_as_the_reference_does(options, kind):
     assert got == want == kind
 
 
-def test_mesh_fanout_is_a_counted_decline():
-    """ROADMAP queue 3, item 7: the mesh programs are not ported, so a
-    fan-out to two co-located shards is declined as
-    ``mesh_backend_not_ready`` (the JAX package's route whenever its mesh
-    is not up), counted in ``mesh_fallbacks`` and ``not_ported["mesh"]``,
-    and served by the per-shard fan-out."""
+@pytest.mark.parametrize("kind", ["text", "knn", "sparse"])
+def test_mesh_fanout_is_a_counted_decline(kind):
+    """ROADMAP queue 3, item 7: a fan-out to two co-located shards takes
+    the mesh for the text kind (``mesh_searches`` +1, nothing counted as
+    not ported); the kNN and sparse mesh programs are not ported, so those
+    fan-outs are declined as ``mesh_backend_not_ready`` (the JAX package's
+    route whenever its mesh is not up), counted in ``mesh_fallbacks`` and
+    ``not_ported["mesh_<kind>"]``, and served by the per-shard fan-out."""
     from elasticsearch_tpu_torch.search import telemetry
     _ref, port = nodes()
+    if port("HEAD", "/kinds2")[0] != 200:
+        # a vector field the batcher classifies as the knn kind (``flat``
+        # options take the dense kind; queue 3, item 8)
+        mappings = {"properties": {
+            "body": {"type": "text"}, "ml": {"type": "rank_features"},
+            "vec": {"type": "dense_vector", "dims": DIMS,
+                    "similarity": "cosine"}}}
+        for method, path, body in (
+                ("PUT", "/kinds2", {"settings": {
+                    "number_of_shards": 2, "number_of_replicas": 0},
+                    "mappings": mappings}),
+                ("POST", "/_bulk", bulk_lines("kinds2", [
+                    (i, {k: v for k, v in src.items() if k in mappings[
+                        "properties"]})
+                    for i, src in make_docs(8, 40)])),
+                ("POST", "/kinds2/_refresh", None)):
+            assert port(method, path, body)[0] < 300, path
     executor = next(iter(
         port.cluster.nodes.values())).search_transport.mesh_executor
-    fallbacks = executor.stats["mesh_fallbacks"]
-    not_ported = telemetry.TELEMETRY.not_ported.get("mesh", 0)
+    stats = dict(executor.stats)
+    not_ported = dict(telemetry.TELEMETRY.not_ported)
     reasons = dict(telemetry.TELEMETRY.fallbacks)
-    status, resp = port("POST", "/idx2/_search",
-                        {"query": {"match": {"body": "w5"}}})
+    body = {"text": {"query": {"match": {"body": "w1 w2 w3 w4 w5"}}},
+            "knn": {"query": {"knn": {"field": "vec", "k": 3,
+                                      "query_vector": query_vector(7)}}},
+            "sparse": {"query": {"text_expansion": {"ml": {
+                "tokens": {"f1": 1.0, "f4": 0.5}}}}}}[kind]
+    status, resp = port("POST", "/kinds2/_search", body)
     assert status == 200 and resp["_shards"]["successful"] == 2, resp
-    assert executor.stats["mesh_fallbacks"] == fallbacks + 1
-    assert telemetry.TELEMETRY.not_ported["mesh"] == not_ported + 1
+    assert resp["hits"]["hits"], resp
     key = telemetry.MESH_BACKEND_NOT_READY
+    if kind == "text":
+        assert resp["_data_plane"] == "mesh_plane"
+        assert executor.stats["mesh_searches"] == stats["mesh_searches"] + 1
+        assert executor.stats["mesh_fallbacks"] == stats["mesh_fallbacks"]
+        assert dict(telemetry.TELEMETRY.not_ported) == not_ported
+        assert telemetry.TELEMETRY.fallbacks.get(key, 0) == \
+            reasons.get(key, 0)
+        return
+    assert "_data_plane" not in resp
+    assert executor.stats["mesh_searches"] == stats["mesh_searches"]
+    assert executor.stats["mesh_fallbacks"] == stats["mesh_fallbacks"] + 1
+    assert telemetry.TELEMETRY.not_ported[f"mesh_{kind}"] == \
+        not_ported.get(f"mesh_{kind}", 0) + 1
     assert telemetry.TELEMETRY.fallbacks.get(key, 0) == \
         reasons.get(key, 0) + 1

@@ -4,6 +4,7 @@ both the JAX-parity tests and the card test can use them)."""
 import numpy as np
 import torch
 
+from elasticsearch_tpu_torch.index.segment import BLOCK, next_pow2
 from elasticsearch_tpu_torch.ops.bm25 import qb_bucket
 
 
@@ -117,3 +118,70 @@ def make_sparse_inputs(seed: int, n_docs: int = 3000, nb: int = 96,
         qw[q, :n] = rng.uniform(0.1, 3.0, n)
     return dict(docs=docs, weights=weights, idx=idx, qw=qw, live=live,
                 n_pad=n_pad, n_q=n_q)
+
+
+N_SEGS = 3
+
+
+def mesh_inputs(seed: int, n_slots: int, dp: int, n_q: int, per_q: int = 20,
+                empty: int = -1, one_seg: int = -1, n_docs: int = 3000):
+    """Stacked postings planes of ``n_slots`` shards of different sizes
+    (below ``n_docs`` docs each; slot ``empty`` holds no field data, slot
+    ``one_seg`` one segment where the others hold three), padded as
+    ``MeshPlaneRegistry._stack`` pads them, and flat operands [S, DP, FB]
+    per (slot, dp row) laid out as ``flatten_plans`` lays them out."""
+    rng = np.random.default_rng(seed)
+    n_docs = [int(rng.integers(n_docs * 3 // 10, n_docs))
+              for _ in range(n_slots)]
+    nbs = [int(rng.integers(30, 96)) for _ in range(n_slots)]
+    n_pads = [next_pow2(n, minimum=BLOCK) for n in n_docs]
+    n_max = max(n_pads)
+    nb_max = next_pow2(max(nbs))
+    docs = np.full((n_slots, nb_max, BLOCK), -1, np.int32)
+    tfs = np.zeros((n_slots, nb_max, BLOCK), np.float32)
+    dl = np.zeros((n_slots, n_max), np.float32)
+    live = np.zeros((n_slots, n_max), bool)
+    seg = np.zeros((n_slots, n_max), np.int32)
+    fb = qb_bucket(n_q * per_q)
+    idx = np.zeros((n_slots, dp, fb), np.int32)
+    w = np.zeros((n_slots, dp, fb), np.float32)
+    q = np.zeros((n_slots, dp, fb), np.int32)
+    avg = np.ones((n_slots, dp, fb), np.float32)
+    own = []
+    for s in range(n_slots):
+        own.append((n_pads[s], nbs[s], 1 if s == one_seg else N_SEGS))
+        if s == empty:
+            continue
+        n, nb = n_docs[s], nbs[s]
+        d = np.sort(rng.integers(0, n, (nb, BLOCK)), axis=1).astype(np.int32)
+        d[rng.random((nb, BLOCK)) < 0.1] = -1
+        docs[s, :nb] = d
+        tfs[s, :nb] = np.where(d >= 0, rng.integers(1, 7, (nb, BLOCK)), 0)
+        dl[s, :n] = rng.integers(16, 97, n)
+        live[s, :n] = rng.random(n) > 0.05
+        n_segs = own[s][2]
+        cuts = np.sort(rng.integers(1, n, n_segs - 1))
+        base = np.concatenate([[0], cuts])
+        seg[s] = np.maximum(np.searchsorted(base, np.arange(n_max),
+                                            side="right") - 1, 0)
+        m = n_q * per_q
+        for r in range(dp):
+            idx[s, r, :m] = rng.integers(0, nb, m)
+            w[s, r, :m] = rng.uniform(0.2, 9.0, m)
+            q[s, r, :m] = np.repeat(np.arange(n_q), per_q)
+            avg[s, r, :m] = rng.uniform(40.0, 60.0, m)
+    return dict(docs=docs, tfs=tfs, dl=dl, idx=idx, w=w, q=q, avg=avg,
+                live=live, seg=seg, n_pad=n_max, n_q=n_q, own=own)
+
+
+# mesh_bm25_flat / mesh_bm25_coarse operand order
+FLAT_ORDER = ("docs", "tfs", "dl", "idx", "w", "q", "avg", "live", "seg")
+
+
+def row0(inp):
+    """The [S, FB] flat operands of the coarse and re-rank tiers (each
+    slot's dp row 0)."""
+    out = dict(inp)
+    for name in ("idx", "w", "q", "avg"):
+        out[name] = np.ascontiguousarray(inp[name][:, 0])
+    return out
