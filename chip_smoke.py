@@ -158,8 +158,9 @@ Phases, each of which fails the run on any failed check:
    country_agg_uncached) and a 13-member plan_drain_aggs: every response
    and preset equal on the card and the CPU.
 21. aggs-full: the geonames-shaped shard (Rally's geonames track over the
-   GeoNames allCountries dump: 11,396,503 docs in 4 segments, made from
-   the seed): 64 solo SearchService requests with a terms on
+   GeoNames allCountries dump, 11,396,503 docs, cut to half by default
+   to fit the time limit -- ``--geo-docs 11396503`` runs all of it -- in
+   4 segments, made from the seed): 64 solo SearchService requests with a terms on
    country_code and a histogram on dem with min/max/avg subs (K20 and K21
    per segment), then plan_drain_aggs over the same 64 members (K22 and
    K23 on the columns plane, P 64) feeding ShardAggregator(preset=...);
@@ -181,10 +182,12 @@ Phases, each of which fails the run on any failed check:
    with 2 and 3 retrievers): every answer equal apart from ``took``,
    floats to rtol 1e-6.
 23. hybrid-full: BASELINE #4 (bench.py cfg_hybrid) on the BEIR NQ shape:
-   2,681,468 passages of 1 + Poisson(77.88) Zipf(1.35) words over
-   1,000,000 terms and 768-dim cosine vectors (``index_options: flat``),
-   one shard on a card node: ``PUT /nq``, 10,000 docs through ``_bulk``,
-   the other 2,671,468 as 4 generated segments installed with
+   2,681,468 passages (cut to half by default to fit the time limit --
+   ``--nq-docs 2681468`` runs all of them) of 1 + Poisson(77.88)
+   Zipf(1.35) words over 1,000,000 terms and 768-dim cosine vectors
+   (``index_options: flat``), one shard on a card node: ``PUT /nq``,
+   2,500 docs through ``_bulk``, the rest as 4 generated segments
+   installed with
    ``restore_segments`` (the snapshot-restore entry); 64 hybrid bodies
    (``match`` of 7-11 words + ``knn`` k 100 + ``rank.rrf`` window 100)
    solo (p50/p99) and as one concurrent wave (wall): each answer equal to
@@ -208,8 +211,9 @@ Phases, each of which fails the run on any failed check:
    dfs_query_then_fetch, a round of writes (new docs, deletes, a
    refresh), the bodies again. Every answer equal on the two nodes
    (``_data_plane`` included); the card node's mesh-served answers equal
-   its own with ``search.mesh.enabled: false``; ``mesh_searches`` grows
-   and the knn and text_expansion bodies are counted declines.
+   its own with ``search.mesh.enabled: false``; ``mesh_searches`` grows,
+   the knn bodies are mesh-served (since the kNN kind is) and the
+   text_expansion bodies are counted declines.
 26. mesh-full: phase 5's MS MARCO corpus (its four generated segments,
    reused) as the 4 primary shards of one card node, each doc under an
    _id that routes to its shard as ``_bulk`` would route it (the i-th doc
@@ -221,6 +225,36 @@ Phases, each of which fails the run on any failed check:
    mesh families and no K1-K4, with no budget refusal or mesh fallback.
    Launch counts are zeroed before phases 25-26 and read after; then rows
    31-33 are held against their plain versions and timed.
+27. mesh-knn-small (run with the small phases): the mesh kNN kernels
+   mesh_knn_topk, mesh_knn_coarse and mesh_knn_rerank (rows 39, 36, 37)
+   against their plain versions, and slot by slot against K5 / K6 / K7
+   launched on that slot's plane, at S 2 and 4 (an empty slot), masked and
+   unmasked, the three similarities, chunked planes, mesh_knn_topk at k 10
+   and 5,000; bitwise.
+28. mesh-knn-engine: a card node and a CPU node (in a worker process) on
+   an index of 4 shards, 6,000 seeded docs (128-dim cosine vectors, a
+   keyword tag, words, rank_features) through ``_bulk``: knn at k 10 and
+   100, term-filtered knn, two differently filtered knn as one wave (the
+   masked launches), hybrid rank.rrf and text_expansion bodies, a round of
+   writes (new docs, deletes, a refresh), the bodies again. Every answer
+   equal on the two nodes; the card node's mesh-served answers equal its
+   own with ``search.mesh.enabled: false``; ``mesh_searches`` grows for the
+   knn bodies and the text_expansion bodies are counted declines.
+29. mesh-knn-full: BASELINE #2's SIFT1M shape (phase 7's generator and
+   seeds, 1,000,000 x 128, cosine, no index_options) as the 4 primary
+   shards of one card node, each doc under an _id that routes to its
+   shard, each shard 4 segments of 62,500 docs (under the 65,536-doc ANN
+   threshold) installed with ``restore_segments``, a 100-value keyword
+   ``tag``; through the REST controller 64 solo knn bodies (k 10,
+   num_candidates 100) with the tier on, the 64 with it off, the 64 as one
+   wave, 64 bodies filtered by one of 8 tag terms, solo and as one wave;
+   recall@10 against a float64 oracle; each answer equal to the same
+   node's per-shard fan-out (``search.mesh.enabled: false``, K5-K7). The
+   mesh legs must launch all three mesh kNN families (the masked form in
+   the filtered wave) and no K5-K7, with no IVF-routed fallback, budget
+   refusal or mesh fallback. Launch counts are zeroed before phases 28-29
+   and read after; then rows 36, 37 and 39 are held against their plain
+   versions and timed.
 
 The two largest host builds (the MS MARCO and BEIR NQ postings) start in
 one worker pool when the script starts, so they run while the phases
@@ -279,6 +313,9 @@ REPLACES = {
     "mesh_bm25_flat": "elasticsearch_tpu/parallel/mesh.py:245",
     "mesh_bm25_coarse": "elasticsearch_tpu/parallel/mesh.py:297",
     "mesh_bm25_rerank": "elasticsearch_tpu/parallel/mesh.py:335",
+    "mesh_knn_topk": "elasticsearch_tpu/parallel/mesh.py:564",
+    "mesh_knn_coarse": "elasticsearch_tpu/parallel/mesh.py:433",
+    "mesh_knn_rerank": "elasticsearch_tpu/parallel/mesh.py:479",
 }
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM, NVIDIA data sheet
 F32_FLOPS = 67e12              # H100 SXM f32 outside the tensor cores
@@ -4402,7 +4439,7 @@ def phase_aggs_kernels(torch, rec, launches) -> list:
 NQ_DOCS = 2_681_468          # BEIR NQ's corpus
 NQ_DIMS = 768                # BEIR's BERT-base dense retrievers
 NQ_MEAN_WORDS = 78.88
-NQ_BULK_DOCS = 10_000
+NQ_BULK_DOCS = 2_500
 FUSION_FAMILIES = ("rrf_fuse_batch", "rrf_fuse", "linear_fuse")
 # fusion families with no served caller in the JAX package either: held
 # against their plain versions in the kernels phase, launched nowhere on
@@ -4812,7 +4849,7 @@ def host_rrf(legs, size: int, rank_constant: int):
 def phase_hybrid_full(torch, np, dev, n_docs: int, workers: int,
                       n_q: int, prebuilt=None) -> None:
     """BASELINE #4 on the BEIR NQ shape through one port node on the card:
-    ``PUT /nq``, 10,000 docs through ``_bulk``, the rest of the corpus as 4
+    ``PUT /nq``, 2,500 docs through ``_bulk``, the rest of the corpus as 4
     generated segments installed with ``restore_segments`` (the snapshot
     restore entry), then 64 hybrid bodies solo and as one concurrent wave;
     every response equals a host RRF over its two legs' own responses."""
@@ -5178,7 +5215,8 @@ def mesh_engine_docs(np, n: int, seed: int, base: int):
 def mesh_engine_bodies(np):
     """(name, body, query params, kind) of the mesh-engine mix: match at
     totals default / true / false / 7, bool of should-matches, DFS
-    versions, and the kNN and sparse bodies the port declines."""
+    versions, a kNN body (mesh-served) and a sparse body (a counted
+    decline)."""
     rng = np.random.default_rng(SEED + 811)
     words = [f"w{i}" for i in range(30_000)]
 
@@ -5300,8 +5338,8 @@ def phase_mesh_engine(torch, np, dev, n_docs: int) -> None:
     should-matches, DFS), a round of writes and a refresh, the bodies
     again; every answer equal on the two nodes, the card node's
     mesh-served answers equal to its own with ``search.mesh.enabled:
-    false``, ``mesh_searches`` growing and the kNN and sparse bodies
-    counted declines."""
+    false``, ``mesh_searches`` growing, the kNN bodies mesh-served too and
+    the sparse bodies counted declines."""
     import multiprocessing as mp
     from elasticsearch_tpu_torch.search import telemetry
     t0 = time.monotonic()
@@ -5344,17 +5382,20 @@ def phase_mesh_engine(torch, np, dev, n_docs: int) -> None:
             why = same_json(w[1], g[1])
             check(why is None, f"mesh-engine: round {r} {name}: card and "
                   f"cpu differ at {why}")
-            if kind != "text":
+            if kind == "sparse":
                 check("_data_plane" not in g[1],
                       f"mesh-engine: {name} was mesh-served")
+            elif kind == "knn":
+                check(g[1].get("_data_plane") == "mesh_plane",
+                      f"mesh-engine: {name} was not mesh-served")
             n_mesh += g[1].get("_data_plane") == "mesh_plane"
     for (name, body, _q, _k), g, o in zip(bodies, rounds[1], off):
         check(o[0] == 200 and "_data_plane" not in o[1],
               f"mesh-engine: {name} with the mesh off: {str(o[1])[:300]}")
         check(same_as_fanout(body, g[1], o[1]),
               f"mesh-engine: {name}: mesh and fan-out answers differ")
-    n_other = {k: sum(2 for *_x, kind in bodies if kind == k)
-               for k in ("knn", "sparse")}
+    n_other = {"knn": 0,
+               "sparse": sum(2 for *_x, kind in bodies if kind == "sparse")}
     check(served == n_mesh and served > 0,
           f"mesh-engine: mesh_searches grew {served}, labels {n_mesh}")
     check(declined == n_other,
@@ -5745,6 +5786,734 @@ def phase_mesh_kernels(torch, rec, launches) -> list:
     return rows
 
 
+# ---------------------------------------------------------------------------
+# the mesh's kNN path: one launch per phase over 2 or more shards' vectors
+# ---------------------------------------------------------------------------
+
+MESH_KNN_FAMILIES = ("mesh_knn_topk", "mesh_knn_coarse", "mesh_knn_rerank")
+ONE_SHARD_KNN = ("knn_flat", "knn_coarse", "knn_rerank", "knn_flat_masked",
+                 "knn_coarse_masked", "knn_rerank_masked")
+MESH_KNN_DIMS = 128
+MESH_KNN_MAPPINGS = {"properties": {
+    "body": {"type": "text"}, "tag": {"type": "keyword"},
+    "vec": {"type": "dense_vector", "dims": MESH_KNN_DIMS,
+            "similarity": "cosine"},
+    "ml": {"type": "rank_features"}}}
+
+
+def mesh_knn_stack(np, rng, n_slots: int, n_docs: int, dims: int, n_q: int,
+                   empty: int):
+    """Seeded stacked vector planes of ``n_slots`` shards of different
+    sizes (knn_inputs per slot; slot ``empty`` holds nothing), padded as
+    MeshPlaneRegistry._stack pads them, per-query filter rows [S, Q, N]
+    (about half of each slot's docs) and queries [Q, D] (the last all
+    zero); returns the host arrays and the slots' own n_docs_pad."""
+    sizes = [int(rng.integers(n_docs // 3, n_docs)) for _ in range(n_slots)]
+    pads = [1 << max(7, math.ceil(math.log2(n))) for n in sizes]
+    n_max = max(pads)
+    matrix = np.zeros((n_slots, n_max, dims), np.float32)
+    exists = np.zeros((n_slots, n_max), bool)
+    live = np.zeros((n_slots, n_max), bool)
+    masks = np.zeros((n_slots, n_q, n_max), bool)
+    for s, n in enumerate(sizes):
+        if s == empty:
+            continue
+        m, _nr, ex, lv, _q = knn_inputs(np, rng, n, n_max, dims, 1)
+        matrix[s], exists[s], live[s] = m, ex, lv
+        masks[s, :, :n] = rng.random((n_q, n)) < 0.5
+    norms = np.linalg.norm(matrix, axis=2).astype(np.float32)
+    queries = rng.standard_normal((n_q, dims), dtype=np.float32)
+    queries[-1] = 0.0
+    return (matrix, norms, live & exists, masks, queries), pads
+
+
+def phase_mesh_knn_small(torch, np, dev) -> None:
+    """The three mesh kNN kernels bitwise against their plain versions,
+    and each slot bitwise against K5 / K6 / K7 launched on that slot's
+    plane, at S 2 and 4 (an empty slot), masked and unmasked, the three
+    similarities, over chunked planes; mesh_knn_topk at k 10 and 5,000."""
+    from elasticsearch_tpu_torch.ops import knn
+    from elasticsearch_tpu_torch.ops.device_segment import quantize_rows
+    from elasticsearch_tpu_torch.parallel import mesh
+    rng = np.random.default_rng(SEED + 900)
+    n = 0
+    for n_slots, n_docs, n_q, empty in ((2, 150_000, 8, -1),
+                                        (4, 70_000, 16, 2)):
+        host, pads = mesh_knn_stack(np, rng, n_slots, n_docs,
+                                    MESH_KNN_DIMS, n_q, empty)
+        matrix = host[0]
+        s_, n_pad, dims = matrix.shape
+        q8, scales = quantize_rows(matrix.reshape(s_ * n_pad, dims))
+        T = lambda a: torch.as_tensor(a, device=dev)  # noqa: E731
+        m, nr, al, mks, qs = (T(a) for a in host)
+        q8 = T(q8.reshape(s_, n_pad, dims))
+        scales = T(scales.reshape(s_, n_pad))
+        batch = knn.QueryBatch(host[4], dev)
+        qq, qscale = batch.quantized()
+        qn, q2 = batch.qn, batch.q2
+        for sim in ("cosine", "dot_product", "l2_norm"):
+            for mk in (None, mks):
+                tag = (f"S={n_slots} n_docs_pad={n_pad} Q={n_q} {sim} "
+                       f"{'masked' if mk is not None else 'unmasked'}")
+                ks = (10, 5000) if n_slots == 2 and sim != "dot_product" \
+                    else (10,)
+                for k in ks:
+                    got = mesh.mesh_knn_topk(m, nr, al, qs, qn, q2, k, sim,
+                                             mk)
+                    want = mesh.mesh_knn_topk_plain(m, nr, al, qs, qn, q2,
+                                                    k, sim, mk)
+                    torch.cuda.synchronize()
+                    compare(torch, f"mesh_knn_topk {tag} k={k}", got, want)
+                    for si in range(n_slots):
+                        one = knn.knn_flat(m[si], nr[si], al[si], qs, qn, q2,
+                                           k, sim,
+                                           None if mk is None else mk[si])
+                        compare(torch, f"mesh_knn_topk {tag} k={k} slot {si}"
+                                f" vs K5", [x[si] for x in got], one)
+                    n += 1
+                    del got, want
+                cgot = mesh.mesh_knn_coarse(q8, scales, nr, al, qq, qscale,
+                                            qn, q2, 256, sim, mk)
+                cwant = mesh.mesh_knn_coarse_plain(q8, scales, nr, al, qq,
+                                                   qscale, qn, q2, 256, sim,
+                                                   mk)
+                torch.cuda.synchronize()
+                compare(torch, f"mesh_knn_coarse {tag}", cgot, cwant)
+                rgot = mesh.mesh_knn_rerank(m, nr, al, qs, qn, q2, cgot[1],
+                                            cgot[0], 10, sim, mk)
+                rwant = mesh.mesh_knn_rerank_plain(m, nr, al, qs, qn, q2,
+                                                   cgot[1], cgot[0], 10, sim,
+                                                   mk)
+                torch.cuda.synchronize()
+                compare(torch, f"mesh_knn_rerank {tag}", rgot, rwant)
+                for si in range(n_slots):
+                    mks_i = None if mk is None else mk[si]
+                    k6 = knn.knn_coarse(q8[si], scales[si], nr[si], al[si],
+                                        qq, qscale, qn, q2, 256, sim, mks_i)
+                    compare(torch, f"mesh_knn_coarse {tag} slot {si} vs K6",
+                            [x[si] for x in cgot], k6)
+                    k7 = knn.knn_rerank(m[si], nr[si], al[si], qs, qn, q2,
+                                        cgot[1][si].contiguous(),
+                                        cgot[0][si].contiguous(), 10, sim,
+                                        mks_i)
+                    compare(torch, f"mesh_knn_rerank {tag} slot {si} vs K7",
+                            [x[si] for x in rgot], k7)
+                torch.cuda.synchronize()
+                if empty >= 0:
+                    check(not torch.isfinite(cgot[0][empty]).any() and
+                          bool((rgot[1][empty] == -1).all()),
+                          f"mesh-knn-small: the empty slot scored ({tag})")
+                n += 2
+        log(f"mesh-knn-small: S={n_slots} n_docs_pad={n_pad} (slots "
+            f"{pads}) Q={n_q}: the three mesh kNN kernels bitwise equal to "
+            f"their plain versions and, slot by slot, to K5/K6/K7")
+        del m, q8, mks
+        torch.cuda.empty_cache()
+    log(f"mesh-knn-small: {n} mesh kNN kernel calls checked (3 "
+        f"similarities, masked and unmasked, k 10 and 5,000)")
+
+
+def mesh_knn_engine_docs(np, n: int, seed: int, base: int):
+    """Seeded docs for the mesh-knn-engine index: a 128-dim Gaussian
+    vector (every 25th doc without one), a keyword tag of 7 values, a few
+    words and rank_features."""
+    rng = np.random.default_rng(seed)
+    words = [f"w{i}" for i in range(2_000)]
+    vecs = np.round(rng.standard_normal((n, MESH_KNN_DIMS)), 4).tolist()
+    docs = []
+    for i in range(n):
+        src = {"body": " ".join(words[int(t)] for t in
+                                zipf_terms(np, rng, 6, 2_000)),
+               "tag": f"t{(base + i) % 7}",
+               "ml": {f"f{int(f)}": round(float(rng.uniform(0.1, 3.0)), 3)
+                      for f in rng.integers(0, 50, 3)}}
+        if (base + i) % 25:
+            src["vec"] = vecs[i]
+        docs.append((str(base + i), src))
+    return docs
+
+
+def mesh_knn_engine_bodies(np):
+    """(name, body, kind) of the mesh-knn-engine mix: knn at k 10 and 100,
+    term-filtered knn, hybrid rank.rrf, and text_expansion (a counted
+    decline)."""
+    rng = np.random.default_rng(SEED + 911)
+
+    def vec():
+        return [round(float(x), 4) for x in
+                rng.standard_normal(MESH_KNN_DIMS)]
+    out = []
+    for q in range(6):
+        k = 10 if q % 2 == 0 else 100
+        out.append((f"knn{q}_k{k}", {"query": {"knn": {
+            "field": "vec", "k": k, "num_candidates": max(2 * k, 50),
+            "query_vector": vec()}}, "size": 10}, "knn"))
+    for q in range(3):
+        out.append((f"knn_filtered{q}", {"query": {"knn": {
+            "field": "vec", "k": 10, "query_vector": vec(),
+            "filter": {"term": {"tag": f"t{q}"}}}}, "size": 10}, "knn"))
+    for q in range(2):
+        out.append((f"rrf{q}", {
+            "query": {"match": {"body": "w1 w3 w7"}},
+            "knn": {"field": "vec", "k": 20, "num_candidates": 40,
+                    "query_vector": vec()},
+            "rank": {"rrf": {"rank_window_size": 30}}, "size": 10},
+            "hybrid"))
+        out.append((f"sparse{q}", {"query": {"text_expansion": {"ml": {
+            "tokens": {f"f{int(f)}": 1.0 + 0.5 * j for j, f in
+                       enumerate(rng.integers(0, 50, 3))}}}}},
+            "sparse"))
+    wave = [(f"wave_t{t}", {"query": {"knn": {
+        "field": "vec", "k": 10, "query_vector": vec(),
+        "filter": {"term": {"tag": f"t{t}"}}}}, "size": 10}, "knn")
+        for t in (3, 5)]
+    return out, wave
+
+
+def mesh_knn_engine_node(device, n_docs: int):
+    """A one-node port cluster on ``device`` holding ``knnm`` (4 shards, 0
+    replicas): two bulk halves with a refresh between, then deletes."""
+    from elasticsearch_tpu_torch.testing import InProcessCluster
+    import numpy as np
+    cluster = InProcessCluster(n_nodes=1, seed=SEED + 912, device=device)
+    cluster.start()
+    node = RestNode(cluster)
+    node.ok("PUT", "/knnm", {"settings": {
+        "number_of_shards": MESH_SHARDS, "number_of_replicas": 0},
+        "mappings": MESH_KNN_MAPPINGS})
+    docs = mesh_knn_engine_docs(np, n_docs, SEED + 913, 0)
+    half = n_docs // 2
+    for lo, hi in ((0, half), (half, n_docs)):
+        resp = node.ok("POST", "/_bulk",
+                       raw=bulk_ndjson("knnm", docs[lo: hi]))
+        check(not resp["errors"], f"mesh-knn-engine: bulk errors ({device})")
+        node.ok("POST", "/knnm/_refresh")
+    deletes = [str(i) for i in range(0, n_docs, 89)]
+    node.ok("POST", "/_bulk", raw=bulk_ndjson("knnm", [], deletes=deletes))
+    node.ok("POST", "/knnm/_refresh")
+    return node
+
+
+def mesh_knn_engine_refresh(np, node, n_docs: int) -> None:
+    """Writes between two request rounds: new docs, deletes, a refresh."""
+    more = mesh_knn_engine_docs(np, 400, SEED + 914, n_docs)
+    node.ok("POST", "/_bulk", raw=bulk_ndjson(
+        "knnm", more, deletes=[str(i) for i in range(7, n_docs, 173)]))
+    node.ok("POST", "/knnm/_refresh")
+
+
+def mesh_knn_engine_round(node, bodies, wave):
+    """The bodies one by one, then the wave's bodies submitted together
+    (one mesh drain, differently filtered: the masked launches)."""
+    out = [node.call("POST", "/knnm/_search", body)
+           for _n, body, _k in bodies]
+    boxes = [node.submit("POST", "/knnm/_search", body)
+             for _n, body, _k in wave]
+    node.cluster.run_until(lambda: all(boxes), 600.0)
+    check(all(boxes), "mesh-knn-engine: the wave did not finish")
+    return out + [b[0] for b in boxes]
+
+
+def mesh_knn_engine_cpu_answers(n_docs: int):
+    """Run in a worker process: the CPU node's answers, before and after
+    the writes between rounds."""
+    import numpy as np
+    node = mesh_knn_engine_node("cpu", n_docs)
+    bodies, wave = mesh_knn_engine_bodies(np)
+    first = mesh_knn_engine_round(node, bodies, wave)
+    mesh_knn_engine_refresh(np, node, n_docs)
+    second = mesh_knn_engine_round(node, bodies, wave)
+    node.cluster.stop()
+    return first, second
+
+
+def masked_calls(families) -> int:
+    """Calls whose shape label marks a per-query mask stack."""
+    from elasticsearch_tpu_torch.search.device_profile import DEVICE_PROFILE
+    return sum(n for f in families
+               for label, n in DEVICE_PROFILE.family(f).shapes.items()
+               if label.endswith("/masked"))
+
+
+def phase_mesh_knn_engine(torch, np, dev, n_docs: int) -> None:
+    """A card node and a CPU node (in a worker process) on a 4-shard index
+    of 128-dim vectors: knn at k 10 and 100, term-filtered knn, two
+    differently filtered knn as one wave (the masked launches), hybrid
+    rank.rrf and text_expansion bodies, a round of writes and a refresh,
+    the bodies again; every answer equal on the two nodes, the card
+    node's mesh-served answers equal to its own with
+    ``search.mesh.enabled: false``, ``mesh_searches`` growing for the knn
+    bodies and the text_expansion bodies counted declines."""
+    import multiprocessing as mp
+    from elasticsearch_tpu_torch.search import telemetry
+    t0 = time.monotonic()
+    pool = mp.get_context("spawn").Pool(1)
+    try:
+        cpu = pool.apply_async(mesh_knn_engine_cpu_answers, (n_docs,))
+        node = mesh_knn_engine_node(dev, n_docs)
+        # the card's first mesh search would otherwise take the RPC detour
+        # while CUDA initializes (mesh_ready never pays first-init)
+        node.ok("POST", "/knnm/_search", {"query": {"knn": {
+            "field": "vec", "k": 1, "query_vector": [1.0] * MESH_KNN_DIMS}},
+            "size": 1})
+        bodies, wave = mesh_knn_engine_bodies(np)
+        executor = node.node().search_transport.mesh_executor
+        stats0 = dict(executor.stats)
+        np0 = dict(telemetry.TELEMETRY.not_ported)
+        masked0 = masked_calls(MESH_KNN_FAMILIES)
+        lat, rounds = [], []
+        for r in range(2):
+            if r:
+                mesh_knn_engine_refresh(np, node, n_docs)
+            t1 = time.monotonic()
+            rounds.append(mesh_knn_engine_round(node, bodies, wave))
+            lat.append(time.monotonic() - t1)
+        served = executor.stats["mesh_searches"] - stats0["mesh_searches"]
+        declined = telemetry.TELEMETRY.not_ported.get("mesh_sparse", 0) - \
+            np0.get("mesh_sparse", 0)
+        masked = masked_calls(MESH_KNN_FAMILIES) - masked0
+        node.ok("PUT", "/_cluster/settings",
+                {"persistent": {"search.mesh.enabled": False}})
+        off = [node.call("POST", "/knnm/_search", body)
+               for _n, body, _k in bodies + wave]
+        node.ok("PUT", "/_cluster/settings",
+                {"persistent": {"search.mesh.enabled": True}})
+        want = cpu.get()
+    finally:
+        pool.terminate()
+        pool.join()
+    n_mesh = 0
+    every = bodies + wave
+    for r, (got, cpu_round) in enumerate(zip(rounds, want)):
+        for (name, _b, kind), g, w in zip(every, got, cpu_round):
+            check(g[0] == w[0] == 200, f"mesh-knn-engine: {name}: status "
+                  f"{g[0]} / {w[0]}: {str(g[1])[:300]}")
+            why = same_json(w[1], g[1])
+            check(why is None, f"mesh-knn-engine: round {r} {name}: card "
+                  f"and cpu differ at {why}")
+            if kind == "knn":
+                check(g[1].get("_data_plane") == "mesh_plane",
+                      f"mesh-knn-engine: {name} was not mesh-served")
+            n_mesh += g[1].get("_data_plane") == "mesh_plane"
+    for (name, body, _k), g, o in zip(every, rounds[1], off):
+        check(o[0] == 200 and "_data_plane" not in o[1],
+              f"mesh-knn-engine: {name} with the mesh off: "
+              f"{str(o[1])[:300]}")
+        check(same_as_fanout(body, g[1], o[1]),
+              f"mesh-knn-engine: {name}: mesh and fan-out answers differ")
+    n_knn = sum(2 for *_x, kind in every if kind == "knn")
+    n_sparse = sum(2 for *_x, kind in every if kind == "sparse")
+    check(served >= n_mesh >= n_knn,
+          f"mesh-knn-engine: mesh_searches grew {served}, labels {n_mesh}, "
+          f"knn bodies {n_knn}")
+    check(declined == n_sparse,
+          f"mesh-knn-engine: sparse declines {declined}, expected "
+          f"{n_sparse}")
+    check(masked > 0, "mesh-knn-engine: the differently filtered wave "
+          "launched no masked mesh kNN kernel")
+    log(f"mesh-knn-engine: {len(every)} bodies x 2 rounds equal on the card "
+        f"node and the cpu node, {n_mesh} mesh-served (equal to the card's "
+        f"own fan-out), {masked} masked mesh kNN calls, sparse declines "
+        f"{declined}; rounds {[round(1e3 * x, 1) for x in lat]} ms "
+        f"({time.monotonic() - t0:.1f}s in all); executor "
+        f"{executor.stats}")
+    node.cluster.stop()
+    from elasticsearch_tpu_torch.ops.device_segment import MESH_PLANES
+    MESH_PLANES.clear()
+
+
+MESH_KNN_SEGS = 4           # segments a shard: 62,500 docs, under 65,536
+MESH_KNN_TAGS = 8           # distinct tag filters in the filtered legs
+
+
+def mesh_knn_full_segments(np, n_docs: int):
+    """[shard] -> its segments, and the 1,000,000 SIFT1M-shaped rows:
+    build_sift_shard's generator and seeds (its four chunks become the
+    four shards), each chunk under _ids that route to its shard
+    (``routed_ids``), cut into MESH_KNN_SEGS segments of about 62,500 docs
+    (under the 65,536-doc ANN threshold), with a 100-value ``tag``
+    keyword (``add_tag_column``)."""
+    from elasticsearch_tpu_torch.index.segment import Segment, VectorField
+    rng = np.random.default_rng(SEED + 200)
+    centers = rng.integers(16, 200, (1000, SIFT_DIMS)).astype(np.float32)
+    sizes = [n_docs // 4 + (1 if i < n_docs % 4 else 0) for i in range(4)]
+    chunks = [sift_shaped(np, SEED + 201 + i, n, centers)
+              for i, n in enumerate(sizes)]
+    queries = sift_shaped(np, SEED + 299, 64, centers)
+    picks = routed_ids(np, sizes, MESH_SHARDS)
+    shards, tags = [], []
+    for c, (m, ids) in enumerate(zip(chunks, picks)):
+        per = -(-len(ids) // MESH_KNN_SEGS)
+        segs = []
+        for j in range(MESH_KNN_SEGS):
+            lo, hi = j * per, min(len(ids), (j + 1) * per)
+            seg = Segment(f"sknn{c}_{j}", hi - lo)
+            rows = m[lo:hi]
+            seg.vectors["vec"] = VectorField(
+                matrix=rows, exists=np.ones(hi - lo, bool),
+                norms=np.linalg.norm(rows, axis=1).astype(np.float32),
+                similarity="cosine", dims=SIFT_DIMS)
+            seg.ids = [str(int(k)) for k in ids[lo:hi]]
+            seg.id_to_doc = {d: i for i, d in enumerate(seg.ids)}
+            seg.sources = [None] * (hi - lo)
+            segs.append(seg)
+        base = sum(sizes[:c]) + np.arange(MESH_KNN_SEGS) * per
+        tags.append(add_tag_column(np, segs, base))
+        for seg in segs:
+            seg.invalidate_live_count()
+        shards.append(segs)
+    return shards, np.concatenate(chunks), np.concatenate(tags), \
+        np.concatenate(picks), queries
+
+
+def phase_mesh_knn_full(torch, np, dev, n_docs: int, n_q: int) -> dict:
+    """BASELINE #2's SIFT1M shape on 4 primary shards of one card node,
+    each doc under an _id that routes to its shard, each shard 4 segments
+    of about 62,500 docs installed with ``restore_segments``; through the
+    REST controller: n_q solo ``knn`` bodies (k 10, num_candidates 100)
+    with the tier on, the same with it off, the n_q as one wave, then n_q
+    bodies filtered by one of 8 tag terms, solo and as one wave; each
+    answer against the same node's with ``search.mesh.enabled: false``
+    (the per-shard fan-out through K5-K7). Mesh-served requests launch no
+    K5-K7. Returns each mesh kNN family's mean device ms a launch over the
+    legs."""
+    from elasticsearch_tpu_torch.ops.device_segment import MESH_PLANES
+    from elasticsearch_tpu_torch.search import telemetry
+    from elasticsearch_tpu_torch.search.device_profile import DEVICE_PROFILE
+    from elasticsearch_tpu_torch.testing import InProcessCluster
+    from elasticsearch_tpu_torch.utils.murmur3 import shard_id_for
+    t0 = time.monotonic()
+    shards, corpus, tags, ids, queries = mesh_knn_full_segments(np, n_docs)
+    queries = queries[:n_q]
+    sizes = [[s.n_docs for s in segs] for segs in shards]
+    log(f"mesh-knn-full: {n_docs} x {SIFT_DIMS} SIFT1M-shaped docs on "
+        f"{MESH_SHARDS} shards {[sum(x) for x in sizes]} of {MESH_KNN_SEGS} "
+        f"segments ({max(map(max, sizes))} docs at most) under routed _ids, "
+        f"in {time.monotonic() - t0:.1f}s")
+    cluster = InProcessCluster(n_nodes=1, seed=SEED + 920, device=dev)
+    cluster.start()
+    node = RestNode(cluster)
+    node.ok("PUT", "/sknn", {"settings": {
+        "number_of_shards": MESH_SHARDS, "number_of_replicas": 0},
+        "mappings": {"properties": {
+            "vec": {"type": "dense_vector", "dims": SIFT_DIMS,
+                    "similarity": "cosine"},
+            "tag": {"type": "keyword"}}}})
+    cluster.ensure_green("sknn")
+    t1 = time.monotonic()
+    svc = node.node().indices_service
+    for s, segs in enumerate(shards):
+        engine = svc.shard("sknn", s).engine
+        engine.restore_segments(list(engine.segments) + segs)
+        for seg in segs[:: MESH_KNN_SEGS - 1]:
+            check(shard_id_for(seg.ids[-1], MESH_SHARDS) == s,
+                  f"mesh-knn-full: _id {seg.ids[-1]} does not route to {s}")
+    count = node.ok("POST", "/sknn/_count", {"query": {"match_all": {}}})
+    check(count["count"] == n_docs,
+          f"mesh-knn-full: _count {count['count']} != {n_docs}")
+    log(f"mesh-knn-full: restore_segments into 4 shards in "
+        f"{time.monotonic() - t1:.1f}s; _count {count['count']}")
+    del shards
+    rng = np.random.default_rng(SEED + 921)
+    tag_of = [int(x) for x in rng.choice(100, MESH_KNN_TAGS, replace=False)]
+
+    def body(qi, filtered):
+        knn = {"field": "vec", "k": 10, "num_candidates": 100,
+               "query_vector": [float(x) for x in queries[qi]]}
+        if filtered:
+            knn["filter"] = {"term": {"tag": f"t{tag_of[qi % len(tag_of)]}"}}
+        return {"query": {"knn": knn}, "size": 10, "_source": False}
+    plain = [body(q, False) for q in range(n_q)]
+    filtered = [body(q, True) for q in range(n_q)]
+    executor = node.node().search_transport.mesh_executor
+    t2 = time.monotonic()
+    first = node.ok("POST", "/sknn/_search", plain[0])
+    check(first.get("_data_plane") == "mesh_plane",
+          f"mesh-knn-full: the first request was not mesh-served: "
+          f"{executor.stats} {dict(telemetry.TELEMETRY.fallbacks)}")
+    parts = [p for p in MESH_PLANES._parts.values()
+             if p.shard_keys[0][0] == "sknn"]
+    check(len(parts) == 1, f"mesh-knn-full: {len(parts)} mesh planes")
+    part = parts[0]
+    exact_bytes = sum(t.numel() * t.element_size()
+                      for t in (part.matrix, part.norms, part.exists))
+    log(f"mesh-knn-full: first request (stacked plane + int8 mirror built "
+        f"and uploaded) {time.monotonic() - t2:.1f}s; plane n_slots="
+        f"{part.n_slots} n_docs_pad={part.n_docs_pad} dims={part.dims}; "
+        f"stacked bytes {exact_bytes}, with the mirror part.nbytes "
+        f"{part.nbytes} (mirror + scales {part.nbytes - exact_bytes}); "
+        f"torch.cuda.memory_allocated "
+        f"{torch.cuda.memory_allocated() if dev.type == 'cuda' else 0}")
+    what = "launches" if dev.type == "cuda" else "calls"
+    fams = ONE_SHARD_KNN + MESH_KNN_FAMILIES
+    before = {f: getattr(DEVICE_PROFILE.family(f), what) for f in fams}
+    stats0, mstats0 = dict(executor.stats), dict(MESH_PLANES.stats)
+    fb0 = dict(telemetry.TELEMETRY.fallbacks)
+    DEVICE_PROFILE.timing = dev.type == "cuda"
+    dev0 = device_ms(MESH_KNN_FAMILIES)
+    legs, answers, walls = {}, {}, {}
+
+    def solo(leg, bodies):
+        times, got = [], []
+        for b in bodies:
+            t = time.monotonic()
+            got.append(node.ok("POST", "/sknn/_search", b))
+            times.append(time.monotonic() - t)
+        legs[leg], answers[leg] = times, got
+
+    def wave(leg, bodies):
+        executor.stats["max_occupancy"] = 0
+        drains = executor.stats["mesh_batches"]
+        m0 = masked_calls(MESH_KNN_FAMILIES)
+        t = time.monotonic()
+        boxes = [node.submit("POST", "/sknn/_search", b) for b in bodies]
+        cluster.run_until(lambda: all(boxes), 3600.0)
+        walls[leg] = (time.monotonic() - t,
+                      executor.stats["mesh_batches"] - drains,
+                      executor.stats["max_occupancy"],
+                      masked_calls(MESH_KNN_FAMILIES) - m0)
+        check(all(boxes), f"mesh-knn-full: {leg} did not finish")
+        for b in boxes:
+            check(b[0][0] == 200, f"mesh-knn-full: {leg}: {b[0][0]}")
+        answers[leg] = [b[0][1] for b in boxes]
+
+    quant = {"persistent": {"search.plane.quantized": True}}
+    solo("solo_tier_on", plain)
+    node.ok("PUT", "/_cluster/settings",
+            {"persistent": {"search.plane.quantized": False}})
+    solo("solo_tier_off", plain)
+    node.ok("PUT", "/_cluster/settings", quant)
+    wave("wave", plain)
+    solo("filtered_solo", filtered)
+    wave("filtered_wave", filtered)
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    DEVICE_PROFILE.timing = False
+    kern = {f: round(v - dev0[f], 3)
+            for f, v in device_ms(MESH_KNN_FAMILIES).items()}
+    after = {f: getattr(DEVICE_PROFILE.family(f), what) for f in fams}
+    delta = {f: after[f] - before[f] for f in fams}
+    log(f"mesh-knn-full: {what} in the mesh legs {delta}")
+    for f in MESH_KNN_FAMILIES:
+        check(delta[f] > 0, f"mesh-knn-full: {f} never launched")
+    for f in ONE_SHARD_KNN:
+        check(delta[f] == 0, f"mesh-knn-full: {f} launched for a "
+              f"mesh-served request ({delta[f]})")
+    check(walls["filtered_wave"][3] > 0, "mesh-knn-full: the filtered wave "
+          "launched no masked mesh kNN kernel")
+    for leg, got in answers.items():
+        for q, resp in enumerate(got):
+            check(resp.get("_data_plane") == "mesh_plane",
+                  f"mesh-knn-full: {leg} request {q} was not mesh-served")
+    refusals = {k: telemetry.TELEMETRY.fallbacks.get(k, 0) - fb0.get(k, 0)
+                for k in (telemetry.MESH_PLANE_BUDGET_REFUSED,
+                          telemetry.MESH_PLANE_MISSING,
+                          telemetry.MESH_IVF_ROUTED,
+                          telemetry.MESH_DRAIN_ERROR)}
+    check(executor.stats["mesh_fallbacks"] == stats0["mesh_fallbacks"] and
+          not any(refusals.values()),
+          f"mesh-knn-full: mesh fallbacks {executor.stats} {refusals}")
+    mdelta = {k: MESH_PLANES.stats[k] - mstats0[k] for k in mstats0}
+    check(mdelta["mesh_quantized_queries"] > 0,
+          f"mesh-knn-full: the tier served nothing: {mdelta}")
+    # recall@10 against the float64 exact oracle (global row ids)
+    order = np.argsort(ids)
+    corpus_dev = torch.as_tensor(corpus, device=dev)
+    oracle = cosine_oracle(torch, corpus_dev,
+                           torch.as_tensor(queries, device=dev))
+
+    def rows_of(resp):
+        got = np.asarray([int(h["_id"]) for h in resp["hits"]["hits"]],
+                         np.int64)
+        return order[np.searchsorted(ids, got, sorter=order)]
+    recall = sum(len(set(rows_of(r)[:10]) & set(oracle[q]))
+                 for q, r in enumerate(answers["solo_tier_on"])) / (10 * n_q)
+    f_hit = 0
+    for q, r in enumerate(answers["filtered_solo"]):
+        t = tag_of[q % len(tag_of)]
+        docs = np.flatnonzero(tags == t)
+        o = cosine_oracle(torch, corpus_dev[torch.as_tensor(docs,
+                                                            device=dev)],
+                          torch.as_tensor(queries[q: q + 1], device=dev))
+        f_hit += len(set(rows_of(r)[:10]) & set(docs[o[0]]))
+    f_recall = f_hit / (10 * n_q)
+    del corpus_dev
+    for leg, times in legs.items():
+        log(f"mesh-knn-full: {leg}: {n_q} solo requests p50 "
+            f"{1e3 * pct(times, 0.5):.3f} ms p99 {1e3 * pct(times, 0.99):.3f}"
+            f" ms mean {1e3 * sum(times) / len(times):.3f} ms")
+    for leg, (wall, drains, occ, masked) in walls.items():
+        log(f"mesh-knn-full: {leg}: {n_q} requests as one wave in "
+            f"{1e3 * wall:.3f} ms wall; mesh drains {drains}, max occupancy "
+            f"{occ}, masked mesh kNN calls {masked}")
+    log(f"mesh-knn-full: recall@10 against the float64 oracle {recall:.4f} "
+        f"(filtered legs {f_recall:.4f}); kernel device ms over the legs "
+        f"{kern}; mesh plane stats {mdelta}; executor {executor.stats}; "
+        f"refusals {refusals}; torch.cuda.memory_allocated "
+        f"{torch.cuda.memory_allocated() if dev.type == 'cuda' else 0}")
+    check(recall >= 0.95, f"mesh-knn-full: recall@10 {recall} < 0.95")
+    # the same node's per-shard fan-out (K5-K7) for every answer
+    MESH_PLANES.clear()
+    node.ok("PUT", "/_cluster/settings", {"persistent": {
+        "search.mesh.enabled": False}})
+    t4 = time.monotonic()
+    n_cmp = 0
+    for legs_of, quantized, bodies in (
+            (("solo_tier_on", "wave"), True, plain),
+            (("solo_tier_off",), False, plain),
+            (("filtered_solo", "filtered_wave"), True, filtered)):
+        node.ok("PUT", "/_cluster/settings", {"persistent": {
+            "search.plane.quantized": quantized}})
+        for q, b in enumerate(bodies):
+            want = node.ok("POST", "/sknn/_search", b)
+            check("_data_plane" not in want,
+                  "mesh-knn-full: fan-out labelled")
+            ref = json.dumps(without_route(want), sort_keys=True)
+            for leg in legs_of:
+                check(json.dumps(without_route(answers[leg][q]),
+                                 sort_keys=True) == ref,
+                      f"mesh-knn-full: {leg} request {q}: mesh != fan-out")
+                n_cmp += 1
+            hits = want["hits"]["hits"]
+            check(len(hits) == 10 and all(
+                math.isfinite(h["_score"]) and 0 < h["_score"] <= 1
+                for h in hits), f"mesh-knn-full: request {q}: bad hits")
+    node.ok("PUT", "/_cluster/settings", {"persistent": {
+        "search.mesh.enabled": True, "search.plane.quantized": True}})
+    log(f"mesh-knn-full: {n_cmp} mesh answers equal the per-shard fan-out's "
+        f"({time.monotonic() - t4:.1f}s)")
+    cluster.stop()
+    return {f: kern[f] / max(delta[f], 1) for f in MESH_KNN_FAMILIES}
+
+
+MESH_KNN_SOURCES = {f: f"elasticsearch_tpu_torch/csrc/{f}.cu"
+                    for f in MESH_KNN_FAMILIES}
+
+
+def mesh_knn_dims(family: str, args):
+    """(S, N_pad, D, Q, k or k') of a mesh kNN call."""
+    s, n, d = args[0].shape
+    if family == "mesh_knn_coarse":
+        return s, n, d, args[4].shape[0], args[8]
+    if family == "mesh_knn_rerank":
+        return s, n, d, args[3].shape[0], args[6].shape[2]
+    return s, n, d, args[3].shape[0], args[6]
+
+
+def mesh_knn_size(family: str, args):
+    s, n, _d, q, k = mesh_knn_dims(family, args)
+    return q, s * n, k
+
+
+MESH_KNN_MASK_POS = {"mesh_knn_topk": 8, "mesh_knn_coarse": 10,
+                     "mesh_knn_rerank": 10}
+
+
+def mesh_knn_masks(family: str, args, kwargs):
+    """The per-query mask stack of a recorded call, or None."""
+    pos = MESH_KNN_MASK_POS[family]
+    return args[pos] if len(args) > pos else kwargs.get("masks")
+
+
+def mesh_knn_bound(family: str, args, kwargs):
+    """(bound_ms, bound_by, bytes): K5 / K6 / K7's bound (knn_bound)
+    summed over the slots -- each input read once (the stack, norms,
+    allowed masks, the per-query mask stack when given, the queries),
+    each output written once, or the products at the tensor cores' rate
+    for the operand type plus ~8 f32 ops a score, whichever is larger."""
+    s, n, d, b, k = mesh_knn_dims(family, args)
+    masks = mesh_knn_masks(family, args, kwargs)
+    if family == "mesh_knn_coarse":
+        nbytes = s * n * d + s * n * 9 + b * d + b * 12 + s * b * k * 8
+        t_ops = 2 * s * b * n * d / INT8_OPS + 8 * s * b * n / F32_FLOPS
+    elif family == "mesh_knn_rerank":
+        kp = k
+        kk = args[8]
+        nbytes = s * b * kp * (d * 4 + 5) + b * d * 4 + b * 8 + \
+            s * b * kp * 8 + s * b * kk * 8 + s * b * 4
+        t_ops = 2 * s * b * kp * d / BF16_FLOPS + 8 * s * b * kp / F32_FLOPS
+        masks = None if masks is None else s * b * kp  # gathered flags
+    else:
+        nbytes = s * n * d * 4 + s * n * 5 + b * d * 4 + b * 8 + \
+            s * b * k * 8
+        t_ops = 2 * s * b * n * d / BF16_FLOPS + 8 * s * b * n / F32_FLOPS
+    if masks is not None:
+        nbytes += masks if isinstance(masks, int) else s * b * n
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                       else "operations"), nbytes
+
+
+def mesh_knn_library_ms(torch, family: str, args):
+    """The bare product and selection over the same stack through library
+    calls (torch.matmul in bf16 + torch.topk for mesh_knn_topk,
+    torch._int_mm in int8 + torch.topk for mesh_knn_coarse): a yardstick
+    for part of the function, not the fused function; None for the
+    re-rank, as for K7."""
+    s, n, d, b, k = mesh_knn_dims(family, args)
+    if family == "mesh_knn_topk":
+        a = args[3].to(torch.bfloat16)
+        m = args[0].reshape(s * n, d).to(torch.bfloat16)
+        return time_call(torch, lambda: torch.topk(
+            torch.matmul(a, m.t()).view(b, s, n), k, dim=2), 20)
+    if family == "mesh_knn_coarse":
+        a = args[4]
+        if a.shape[0] < 17:
+            a = torch.cat([a, a.new_zeros(32 - a.shape[0], d)])
+        m = args[0].reshape(s * n, d).t()
+        rows = a.shape[0]
+        return time_call(torch, lambda: torch.topk(
+            torch._int_mm(a, m).view(rows, s, n).float(), k, dim=2), 20)
+    return None
+
+
+def phase_mesh_knn_kernels(torch, rec, launches, per_launch) -> list:
+    """Rows 36, 37 and 39 bitwise against their plain versions on up to 4
+    of the main path's calls and the largest, then timed (CUDA events) at
+    the largest; ``per_launch`` is each family's mean device ms a launch
+    over the mesh-knn-full legs."""
+    from elasticsearch_tpu_torch.parallel import mesh
+    rows = []
+    for fam in MESH_KNN_FAMILIES:
+        calls = rec.calls[fam]
+        check(bool(calls), f"kernels: no {fam} call recorded")
+        kernel, plain = getattr(mesh, fam), getattr(mesh, fam + "_plain")
+        err = 0.0
+        for args, kwargs in calls[:4] + calls[-1:]:
+            got = kernel(*args, **kwargs)
+            want = plain(*args, **kwargs)
+            torch.cuda.synchronize()
+            err = max(err, compare(torch, fam, got, want))
+            del got, want
+        args, kwargs = max(calls, key=lambda c: mesh_knn_size(fam, c[0]))
+        ms = time_call(torch, lambda: kernel(*args, **kwargs), 20)
+        plain_ms = time_call(torch, lambda: plain(*args, **kwargs), 5)
+        bound_ms, bound_by, nbytes = mesh_knn_bound(fam, args, kwargs)
+        lib = mesh_knn_library_ms(torch, fam, args)
+        s, n, d, b, k = mesh_knn_dims(fam, args)
+        masked = mesh_knn_masks(fam, args, kwargs) is not None
+        shape = (f"S={s} n_docs_pad={n} D={d} Q={b} "
+                 f"{'kprime' if fam != 'mesh_knn_topk' else 'k'}={k}"
+                 f"{' masked' if masked else ''}")
+        log(f"kernel {fam}: {ms:.4f} ms (median of 20), plain "
+            f"{plain_ms:.4f} ms (median of 5), bound {bound_ms:.4f} ms "
+            f"({nbytes} bytes at 3.35 TB/s, {bound_by}), library "
+            f"(product + topk only) {lib}, max_abs_err {err} over "
+            f"{min(len(calls), 4) + 1} main-path calls, timed at the "
+            f"largest, {shape}; mean a launch over the mesh-knn-full legs "
+            f"{per_launch.get(fam)} ms")
+        rows.append({
+            "name": fam, "route": "cuda", "source": MESH_KNN_SOURCES[fam],
+            "replaces": REPLACES[fam], "launches": launches.get(fam, 0),
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib,
+            "library_is_partial": lib is not None,
+            "ms_per_launch_on_the_legs": per_launch.get(fam),
+            "shape": shape})
+        torch.cuda.empty_cache()
+    return rows
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--phases", default="card,small,knn-small,dense-small,"
@@ -5752,7 +6521,8 @@ def main(argv=None) -> int:
                     "full,kernels,knn-engine,knn-full,dense-engine,"
                     "dense-full,wide,ivf-engine,ivf-full,sparse-engine,"
                     "sparse-full,aggs-engine,aggs-full,node-engine,"
-                    "hybrid-full,mesh-small,mesh-engine,mesh-full")
+                    "hybrid-full,mesh-small,mesh-engine,mesh-full,"
+                    "mesh-knn-small,mesh-knn-engine,mesh-knn-full")
     ap.add_argument("--full-docs", type=int, default=MS_MARCO_DOCS)
     ap.add_argument("--engine-docs", type=int, default=10_000)
     ap.add_argument("--knn-docs", type=int, default=SIFT_DOCS)
@@ -5762,12 +6532,16 @@ def main(argv=None) -> int:
     ap.add_argument("--gist-queries", type=int, default=128)
     ap.add_argument("--sparse-docs", type=int, default=MS_MARCO_DOCS)
     ap.add_argument("--sparse-engine-docs", type=int, default=3_000)
-    ap.add_argument("--geo-docs", type=int, default=GEONAMES_DOCS)
+    # the geonames and BEIR NQ cells run at half their corpora by default,
+    # so that every path fits the script's time limit
+    ap.add_argument("--geo-docs", type=int, default=GEONAMES_DOCS // 2)
     ap.add_argument("--geo-engine-docs", type=int, default=3_000)
     ap.add_argument("--node-docs", type=int, default=6_000)
-    ap.add_argument("--nq-docs", type=int, default=NQ_DOCS)
+    ap.add_argument("--nq-docs", type=int, default=NQ_DOCS // 2)
     ap.add_argument("--mesh-docs", type=int, default=MS_MARCO_DOCS)
     ap.add_argument("--mesh-engine-docs", type=int, default=10_000)
+    ap.add_argument("--mesh-knn-docs", type=int, default=SIFT_DOCS)
+    ap.add_argument("--mesh-knn-engine-docs", type=int, default=6_000)
     ap.add_argument("--queries", type=int, default=64)
     ap.add_argument("--workers", type=int, default=4)
     ap.add_argument("--rehearse", action="store_true",
@@ -5836,6 +6610,9 @@ def main(argv=None) -> int:
         if "mesh-small" in phases and on_card:
             phase_mesh_small(torch, np, dev)
             log(t(), "mesh-small done")
+        if "mesh-knn-small" in phases and on_card:
+            phase_mesh_knn_small(torch, np, dev)
+            log(t(), "mesh-knn-small done")
         from elasticsearch_tpu_torch.ops import bm25 as bm
         from elasticsearch_tpu_torch.ops import ivf, knn, topk
         rows = []
@@ -6096,9 +6873,42 @@ def main(argv=None) -> int:
         del mrec
         MESH_PLANES.clear()
         PLANES.clear()
+        if on_card:
+            torch.cuda.empty_cache()
+        # the mesh's kNN path (a card node serving knn on 4 shards, one
+        # mesh_knn_* launch per phase for all of them): launch counts from
+        # zero, read right after
+        DEVICE_PROFILE.reset_launches()
+        per_launch = {}
+        with Recorder({f: (mesh_ops, f) for f in MESH_KNN_FAMILIES},
+                      mesh_knn_size, keep=4) as krec:
+            if "mesh-knn-engine" in phases:
+                phase_mesh_knn_engine(torch, np, dev,
+                                      args.mesh_knn_engine_docs)
+                log(t(), "mesh-knn-engine done")
+            if "mesh-knn-full" in phases:
+                per_launch = phase_mesh_knn_full(torch, np, dev,
+                                                 args.mesh_knn_docs,
+                                                 args.queries)
+                log(t(), "mesh-knn-full done")
+        launches = DEVICE_PROFILE.launches()
+        log("launches on the mesh kNN main path: " + json.dumps(
+            {f: launches.get(f, 0) for f in MESH_KNN_FAMILIES +
+             ONE_SHARD_KNN}))
+        if on_card and "mesh-knn-full" in phases:
+            for fam in MESH_KNN_FAMILIES:
+                check(launches.get(fam, 0) > 0,
+                      f"{fam} was never launched on the main path")
+            if "kernels" in phases:
+                rows += phase_mesh_knn_kernels(torch, krec, launches,
+                                               per_launch)
+                log(t(), "mesh knn kernels done")
+        del krec
+        MESH_PLANES.clear()
+        PLANES.clear()
         if on_card and {"full", "knn-full", "dense-full", "ivf-full",
                         "sparse-full", "wide", "aggs-full", "hybrid-full",
-                        "mesh-full", "kernels"} <= phases:
+                        "mesh-full", "mesh-knn-full", "kernels"} <= phases:
             from elasticsearch_tpu_torch.search.device_profile import (
                 KERNEL_FAMILIES, MASKED_VARIANTS,
             )

@@ -17,12 +17,12 @@
 // f32), so this kernel is bound by operations; moving the product onto
 // the tensor cores (mma.sync / wgmma with TMA) is later work.
 //
-// Design: knn_common.cuh's scores pass (one CTA per tile of 512 docs and
-// group of QB queries, QB = 1 .. 16, f32 sums in dimension order, so a
-// row's sums never depend on the batch) writes the masked scores into a
-// [B, N_pad] f32 plane (the score plane is written, not fused: 4 bytes a
-// cell, 256 MB at B = 64), which topk_common.cuh's chunked top-k then
-// reads. The plain PyTorch version is
+// Design: knn_common.cuh's flat_topk with one slot. Its scores pass (one
+// CTA per tile of 512 docs and group of QB queries, QB = 1 .. 16, f32 sums
+// in dimension order, so a row's sums never depend on the batch) writes
+// the masked scores into a [B, N_pad] f32 plane (the score plane is
+// written, not fused: 4 bytes a cell, 256 MB at B = 64), which
+// topk_common.cuh's chunked top-k then reads. The plain PyTorch version is
 // elasticsearch_tpu_torch/ops/knn.py `knn_flat_plain`.
 #include "knn_common.cuh"
 
@@ -38,27 +38,7 @@ extern "C" int knn_flat_launch(
     const float* q2, int n_q, int dims, long long n_docs_pad, int k, int sim,
     float* plane,
     float* chunk_s, int* chunk_i, float* out_s, int* out_d, void* stream_ptr) {
-    if (n_q < 1 || dims < 1 || dims > MAX_DIMS || k < 1 ||
-        n_docs_pad < k || !valid_sim(sim))
-        return (int)cudaErrorInvalidValue;
-    cudaStream_t stream = (cudaStream_t)stream_ptr;
-    int rc;
-#define KNN_FLAT_SCORES(QB)                                              \
-    launch_vector_scores<QB, false>(matrix, norms, allowed, masks,       \
-                                    queries, qn, q2, n_q, dims,          \
-                                    n_docs_pad, sim, plane, stream)
-    if (n_q >= 16)
-        rc = KNN_FLAT_SCORES(16);
-    else if (n_q > 4)
-        rc = KNN_FLAT_SCORES(8);
-    else if (n_q > 2)
-        rc = KNN_FLAT_SCORES(4);
-    else if (n_q == 2)
-        rc = KNN_FLAT_SCORES(2);
-    else
-        rc = KNN_FLAT_SCORES(1);
-#undef KNN_FLAT_SCORES
-    if (rc != 0) return rc;
-    return plane_topk(plane, n_q, n_docs_pad, k, chunk_s, chunk_i, out_s,
-                      out_d, stream);
+    return flat_topk(matrix, norms, allowed, masks, queries, qn, q2, 1, n_q,
+                     dims, n_docs_pad, k, sim, plane, chunk_s, chunk_i, out_s,
+                     out_d, (cudaStream_t)stream_ptr);
 }

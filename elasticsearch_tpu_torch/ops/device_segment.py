@@ -28,9 +28,9 @@ generation's centroids. The columns plane (``PlaneColumns``) packs a
 field's aggregation columns (the numeric doc values and the keyword
 ordinal table, remapped to global ordinals) for ``search/plane_aggs.py``.
 The mesh-sharded plane (``MeshPlanePart``, ``MESH_PLANES``) stacks the
-postings planes of a fan-out's co-located shards as ``[S, ...]`` slots for
-the mesh text kernels (``parallel/mesh.py``); its vectors and features
-kinds are not ported yet and raise NotPortedError.
+postings or vector planes of a fan-out's co-located shards as ``[S, ...]``
+slots for the mesh text and kNN kernels (``parallel/mesh.py``); its
+features kind is not ported yet and raises NotPortedError.
 """
 
 from __future__ import annotations
@@ -1116,9 +1116,9 @@ class MeshPlanePart:
     for one launch per phase: each shard's packed plane occupies one slot
     of a ``[S, ...]`` stack on the node's device (``parallel/mesh.py``
     ``mesh_layout``: the JAX package's ``shard`` mesh axis is the
-    kernels' leading slot axis), so one ``mesh_bm25_*`` launch scores
-    every (shard, query) pair and the per-shard RPC fan-out collapses to
-    ONE launch per phase.
+    kernels' leading slot axis), so one ``mesh_bm25_*`` or
+    ``mesh_knn_*`` launch scores every (shard, query) pair and the
+    per-shard RPC fan-out collapses to ONE launch per phase.
 
     ``subs[i]`` is shard i's host-level PlanePart (refs / doc_base /
     block_avgdl / demux — the same per-shard planning surfaces the
@@ -1146,9 +1146,9 @@ class MeshPlanePart:
         # filled by the registry's stacking pass
         self.n_docs_pad = BLOCK
         self.n_segs_max = 1
-        # the lazily-built stacked bf16 mirror (the PlanePostings
-        # precedent): built on the first quantized mesh query, cached for
-        # the part's lifetime, refusal memoized
+        # the lazily-built stacked quantized mirror (the PlanePostings /
+        # PlaneVectors precedent): built on the first quantized mesh
+        # query, cached for the part's lifetime, refusal memoized
         self._q_dev: Optional[Tuple] = None
         self._q_failed = False
 
@@ -1161,19 +1161,33 @@ class MeshPlanePart:
         return tuple(s.uid for s in self.segments_by_shard[i])
 
     def quantized_mirror(self) -> Optional[Tuple]:
-        """(block_tfs bf16 [S, NB, B], doc_lens bf16 [S, N]): the stacked
-        coarse-tier operands, each slot's rows exactly that shard's
-        single-plane mirror (converted on the device itself). Breaker-
-        charged like the exact stacks; a refused upload is memoized so a
-        starved node serves the exact mesh path without re-quantizing per
-        fan-out. None = serve exact."""
+        """The stacked coarse-tier operands, each slot's rows exactly that
+        shard's single-plane mirror:
+
+        - postings: (block_tfs bf16 [S, NB, B], doc_lens bf16 [S, N]),
+          converted on the device itself;
+        - vectors: (q8 int8 [S, N, D], scales f32 [S, N]), ``quantize_rows``
+          over the [S * N, D] rows on the host (per-row symmetric, so each
+          row quantizes exactly as in that shard's ``PlaneVectors``
+          mirror).
+
+        Breaker-charged like the exact stacks; a refused upload is
+        memoized so a starved node serves the exact mesh path without
+        re-quantizing per fan-out. None = serve exact."""
         if self._q_dev is not None:
             return self._q_dev
         if self._q_failed:
             return None
-        if self.kind != "postings":
+        if self.kind == "postings":
+            n_bytes = 2 * (self.block_tfs.numel() + self.doc_lens.numel())
+        elif self.kind == "vectors":
+            s, n, d = self.matrix.shape
+            q8, scales = quantize_rows(
+                self.matrix.cpu().numpy().reshape(s * n, d))
+            host = (q8.reshape(s, n, d), scales.reshape(s, n))
+            n_bytes = int(q8.nbytes + scales.nbytes)
+        else:
             raise NotPortedError(f"mesh_{self.kind}")
-        n_bytes = 2 * (self.block_tfs.numel() + self.doc_lens.numel())
         from elasticsearch_tpu_torch.indices.breaker import charge_device
         try:
             charge = charge_device(
@@ -1185,8 +1199,12 @@ class MeshPlanePart:
         self._charges.append(charge)
         self.nbytes += n_bytes
         self.per_device_bytes += n_bytes
-        self._q_dev = (self.block_tfs.to(torch.bfloat16),
-                       self.doc_lens.to(torch.bfloat16))
+        if self.kind == "postings":
+            self._q_dev = (self.block_tfs.to(torch.bfloat16),
+                           self.doc_lens.to(torch.bfloat16))
+        else:
+            self._q_dev = tuple(torch.as_tensor(a, device=self.device)
+                                for a in host)
         MESH_PLANES.stats["mesh_quantized_mirror_builds"] += 1
         return self._q_dev
 
@@ -1198,9 +1216,9 @@ class MeshPlaneRegistry:
     fan-out per shard" — the mesh is an optimization, never a
     correctness gate. Planes charge the ``device`` breaker PER DEVICE,
     LRU-evict under pressure, and re-pack incrementally when a member
-    shard's refresh appends segments. The postings kind is stacked; the
-    vectors and features kinds (the kNN and sparse mesh programs) are not
-    ported yet and raise NotPortedError."""
+    shard's refresh appends segments. The postings and vectors kinds are
+    stacked; the features kind (the sparse mesh programs) is not ported
+    yet and raises NotPortedError."""
 
     MAX_PARTS = 16
     MAX_REFUSALS = 64
@@ -1355,8 +1373,8 @@ class MeshPlaneRegistry:
 
     def _build(self, shard_segments, kind: str, field: str,
                key: Tuple, dev: torch.device) -> Optional[MeshPlanePart]:
-        if kind != "postings":
-            # the kNN and sparse mesh programs are not ported yet
+        if kind not in ("postings", "vectors"):
+            # the sparse mesh programs are not ported yet
             raise NotPortedError(f"mesh_{kind}")
         from elasticsearch_tpu_torch.parallel.mesh import mesh_layout
         _grid, n_slots, _spd = mesh_layout(len(shard_segments), device=dev)
@@ -1429,7 +1447,8 @@ class MeshPlaneRegistry:
     def _stack(self, part: MeshPlanePart, hosts) -> Dict[str, np.ndarray]:
         """Stack per-shard host planes into common-shaped [n_slots, ...]
         arrays (empty/padding slots score nothing: -1 block docs, zero
-        lengths, live False)."""
+        lengths, live False; zero vector rows, exists False). Vector
+        planes of mixed dims or similarity raise PlaneUnavailable."""
         subs = part.subs
         n_slots = part.n_slots
         n_max = max((s.n_docs_pad for s in subs if s is not None),
@@ -1438,6 +1457,24 @@ class MeshPlaneRegistry:
         part.n_segs_max = max(
             (len(s.segments) for s in subs if s is not None), default=1)
         part.n_segs_max = max(part.n_segs_max, 1)
+        if part.kind == "vectors":
+            dims = {s.dims for s in subs if s is not None}
+            sims = {s.similarity for s in subs if s is not None}
+            if len(dims) != 1 or len(sims) != 1:
+                raise PlaneUnavailable(part.field)
+            part.dims = dims.pop()
+            part.similarity = sims.pop()
+            matrix = np.zeros((n_slots, n_max, part.dims), np.float32)
+            norms = np.zeros((n_slots, n_max), np.float32)
+            exists = np.zeros((n_slots, n_max), bool)
+            for i, h in enumerate(hosts):
+                if h is None:
+                    continue
+                hm, hn, he = h
+                matrix[i, : hm.shape[0]] = hm
+                norms[i, : len(hn)] = hn
+                exists[i, : len(he)] = he
+            return {"matrix": matrix, "norms": norms, "exists": exists}
         nb_max = max(h[0].shape[0] for h in hosts if h is not None)
         nb_max = next_pow2(max(nb_max, 1))
         bd = np.full((n_slots, nb_max, BLOCK), -1, np.int32)

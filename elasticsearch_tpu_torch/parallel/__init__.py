@@ -1,6 +1,6 @@
 """The JAX package's ``parallel`` package so far: the mesh topology and
-layout, the mesh text kernels (``parallel/mesh.py``) and the host-only
-eligibility check of the mesh data plane. The kNN and sparse mesh
+layout, the mesh text and kNN kernels (``parallel/mesh.py``) and the
+host-only eligibility check of the mesh data plane. The sparse mesh
 programs and the sharded search programs are not ported yet."""
 
 from elasticsearch_tpu_torch.parallel.mesh import (

@@ -7,25 +7,33 @@ layout of the mesh-sharded plane -- the pieces the node spine calls
 (``action/search_action.py``, ``search/mesh_executor.py``,
 ``testing.py``).
 
-The device half is the text kind's three programs, each the single-shard
-body of an already-ported kernel run for every slot (one shard of a
-co-located fan-out) in ONE launch over the stacked postings planes
+The device half is the text and kNN kinds' six programs, each the
+single-shard body of an already-ported kernel run for every slot (one
+shard of a co-located fan-out) in ONE launch over the stacked planes
 (``ops/device_segment.py`` ``MeshPlanePart``):
 
 - ``mesh_bm25_flat`` (``csrc/mesh_bm25_flat.cu``): K2 per (slot, dp row);
 - ``mesh_bm25_coarse`` (``csrc/mesh_bm25_coarse.cu``): K3 per slot;
-- ``mesh_bm25_rerank`` (``csrc/mesh_bm25_rerank.cu``): K4 per slot.
+- ``mesh_bm25_rerank`` (``csrc/mesh_bm25_rerank.cu``): K4 per slot;
+- ``mesh_knn_topk`` (``csrc/mesh_knn_topk.cu``): K5 per slot;
+- ``mesh_knn_coarse`` (``csrc/mesh_knn_coarse.cu``): K6 per slot;
+- ``mesh_knn_rerank`` (``csrc/mesh_knn_rerank.cu``): K7 per slot;
+
+the kNN three with or without a per-query filter-mask stack (one family
+each, as in the JAX package; a masked call's shape label ends in
+``/masked``).
 
 Each has a plain PyTorch version beside it, which runs the one-shard plain
 version slot by slot; a wrapper takes it only for CPU tensors, and on a
-CUDA tensor launches its kernel or raises. The 64-bit fixed-point sums
-make every slot's output bitwise the one-shard kernel's on that slot's
-plane, whatever order the atomics land in.
+CUDA tensor launches its kernel or raises. The 64-bit fixed-point sums of
+the text kind, and the kNN kind's per-pair sums in dimension order (exact
+int32 sums in the coarse pass), make every slot's output bitwise the
+one-shard kernel's on that slot's plane.
 
 The port lays the whole mesh on the node's own device -- a grid of one:
 the JAX package's ``shard`` axis becomes the kernels' leading slot axis,
-and its ``dp`` axis caps at that one device. The kNN and sparse mesh
-programs, and a mesh across several cards, are not ported yet.
+and its ``dp`` axis caps at that one device. The sparse mesh programs,
+and a mesh across several cards, are not ported yet.
 """
 
 from __future__ import annotations
@@ -39,6 +47,10 @@ from elasticsearch_tpu_torch.ops.bm25 import (
     BLOCK_WIDTH, DEFAULT_B, DEFAULT_K1, KMAX, MAX_SEGS, _check, _consts,
     _on_cuda, _ptr, _stream, bm25_coarse_plain, bm25_flat_seg_plain,
     bm25_rerank_plain, chunk_entries, launch_kernel,
+)
+from elasticsearch_tpu_torch.ops.knn import (
+    MAX_DIMS, _check_query_terms, _opt_ptr, _sim_code, knn_coarse_plain,
+    knn_flat_plain, knn_rerank_plain,
 )
 from elasticsearch_tpu_torch.search.device_profile import DEVICE_PROFILE
 
@@ -192,6 +204,12 @@ _SIG = {
     + ["f"] * 4 + ["p"] * 7,
     "mesh_bm25_rerank": ["p"] * 10 + ["i", "ll", "i", "ll", "i", "i", "i"]
     + ["f"] * 4 + ["p"] * 7,
+    "mesh_knn_topk": ["p"] * 7 + ["i", "i", "i", "ll", "i", "i"]
+    + ["p"] * 6,
+    "mesh_knn_coarse": ["p"] * 9 + ["i", "i", "i", "ll", "i", "i"]
+    + ["p"] * 6,
+    "mesh_knn_rerank": ["p"] * 9 + ["i", "i", "ll", "i", "i", "i", "i"]
+    + ["p"] * 4,
 }
 
 
@@ -403,4 +421,212 @@ def mesh_bm25_rerank(block_docs, block_tfs, flat_idx, flat_w, flat_q,
             _ptr(coarse_s), s, nb, fb, n_docs_pad, n_q, kprime, k,
             *_consts(k1, b), _ptr(cand_s), _ptr(cs_s), _ptr(acc),
             _ptr(out_s), _ptr(out_d), _ptr(eps), _stream())
+        return out_s, out_d, eps
+
+
+# ---------------------------------------------------------------------------
+# the kNN kind: K5 / K6 / K7 per slot over the stacked vector planes
+# ---------------------------------------------------------------------------
+
+def _check_vector_stack(name: str, stack, dtype, norms, allowed
+                        ) -> Tuple[int, int, int]:
+    """(n_slots, n_docs_pad, dims) of a stacked vector plane, checked."""
+    if stack.dim() != 3:
+        raise ValueError(f"[{name}] must be [S, N_pad, D], got "
+                         f"{tuple(stack.shape)}")
+    s, n_pad, dims = (int(x) for x in stack.shape)
+    _check(name, stack, dtype, (s, n_pad, dims))
+    if not 1 <= dims <= MAX_DIMS:
+        raise ValueError(f"[{name}] dims {dims} outside [1, {MAX_DIMS}]")
+    if stack.data_ptr() % 4:    # the coarse pass reads int8 rows by words
+        raise ValueError(f"[{name}] must be 4-byte aligned")
+    _check("norms", norms, torch.float32, (s, n_pad))
+    _check("allowed", allowed, torch.bool, (s, n_pad))
+    return s, n_pad, dims
+
+
+def _check_knn_queries(name: str, queries, dtype, dims: int) -> int:
+    if queries.dim() != 2 or queries.shape[1] != dims:
+        raise ValueError(f"[{name}] must be [Q, {dims}], got "
+                         f"{tuple(queries.shape)}")
+    _check(name, queries, dtype, tuple(queries.shape))
+    return int(queries.shape[0])
+
+
+def _check_mask_stack(masks, s: int, n_q: int, n_pad: int) -> None:
+    if masks is not None:
+        _check("masks", masks, torch.bool, (s, n_q, n_pad))
+
+
+def _knn_label(s: int, n_pad: int, dims: int, n_q: int, k: int,
+               masks) -> str:
+    return (f"s={s}/n_docs_pad={n_pad}/dims={dims}/n_q={n_q}/k={k}"
+            + ("" if masks is None else "/masked"))
+
+
+def _slot(t, si: int):
+    return None if t is None else t[si]
+
+
+def mesh_knn_topk_plain(matrix, norms, allowed, queries, qn, q2, k: int,
+                        similarity: str = "cosine", masks=None):
+    """``knn_flat_plain`` for every slot, stacked."""
+    outs = [knn_flat_plain(matrix[si], norms[si], allowed[si], queries, qn,
+                           q2, k, similarity, _slot(masks, si))
+            for si in range(matrix.shape[0])]
+    return tuple(torch.stack([o[j] for o in outs]) for j in range(2))
+
+
+def mesh_knn_coarse_plain(q8, scales, norms, allowed, qq, qscale, qn, q2,
+                          kprime: int, similarity: str = "cosine",
+                          masks=None):
+    """``knn_coarse_plain`` for every slot, stacked."""
+    outs = [knn_coarse_plain(q8[si], scales[si], norms[si], allowed[si], qq,
+                             qscale, qn, q2, kprime, similarity,
+                             _slot(masks, si))
+            for si in range(q8.shape[0])]
+    return tuple(torch.stack([o[j] for o in outs]) for j in range(2))
+
+
+def mesh_knn_rerank_plain(matrix, norms, allowed, queries, qn, q2, cand,
+                          coarse_s, k: int, similarity: str = "cosine",
+                          masks=None):
+    """``knn_rerank_plain`` for every slot, stacked."""
+    outs = [knn_rerank_plain(matrix[si], norms[si], allowed[si], queries, qn,
+                             q2, cand[si], coarse_s[si], k, similarity,
+                             _slot(masks, si))
+            for si in range(matrix.shape[0])]
+    return tuple(torch.stack([o[j] for o in outs]) for j in range(3))
+
+
+def mesh_knn_topk(matrix, norms, allowed, queries, qn, q2, k: int,
+                  similarity: str = "cosine", masks=None):
+    """Row 39. The exact kNN top-k of every slot of the stacked vector
+    planes in one launch: matrix [S, N_pad, D] f32, norms / allowed
+    [S, N_pad], queries [Q, D] f32 with their ``qn`` / ``q2`` [Q], and,
+    when given, per-query filter rows ``masks`` [S, Q, N_pad] bool. Returns
+    (scores [S, Q, k] f32, plane docs [S, Q, k] int32); each slot is
+    ``knn_flat`` (K5) on that slot's plane. Any 1 <= k <= N_pad (the
+    selection's rounds above KMAX)."""
+    cuda = _on_cuda(matrix, norms, allowed, queries, qn, q2,
+                    *([] if masks is None else [masks]))
+    s, n_pad, dims = _check_vector_stack("matrix", matrix, torch.float32,
+                                         norms, allowed)
+    n_q = _check_knn_queries("queries", queries, torch.float32, dims)
+    _check_query_terms(qn, q2, n_q)
+    _check_mask_stack(masks, s, n_q, n_pad)
+    if not 1 <= k <= n_pad:
+        raise ValueError(f"k={k} outside [1, {n_pad}]")
+    code = _sim_code(similarity)
+    with DEVICE_PROFILE.call("mesh_knn_topk",
+                             _knn_label(s, n_pad, dims, n_q, k, masks),
+                             cuda):
+        if not cuda:
+            return mesh_knn_topk_plain(matrix, norms, allowed, queries, qn,
+                                       q2, k, similarity, masks)
+        dev = matrix.device
+        rows = s * n_q
+        plane = torch.empty(rows * n_pad, dtype=torch.float32, device=dev)
+        ck = chunk_entries(rows, n_pad, k)
+        chunk_s = torch.empty(ck, dtype=torch.float32, device=dev)
+        chunk_i = torch.empty(ck, dtype=torch.int32, device=dev)
+        out_s = torch.empty(s, n_q, k, dtype=torch.float32, device=dev)
+        out_d = torch.empty(s, n_q, k, dtype=torch.int32, device=dev)
+        launch_kernel(
+            "mesh_knn_topk", _SIG["mesh_knn_topk"], _ptr(matrix),
+            _ptr(norms), _ptr(allowed), _opt_ptr(masks), _ptr(queries),
+            _ptr(qn), _ptr(q2), s, n_q, dims, n_pad, k, code, _ptr(plane),
+            _ptr(chunk_s), _ptr(chunk_i), _ptr(out_s), _ptr(out_d),
+            _stream())
+        return out_s, out_d
+
+
+def mesh_knn_coarse(q8, scales, norms, allowed, qq, qscale, qn, q2,
+                    kprime: int, similarity: str = "cosine", masks=None):
+    """Row 36. The int8 coarse pass of every slot in one launch: the
+    stacked mirror q8 [S, N_pad, D] int8 with ``scales`` [S, N_pad], norms
+    / allowed [S, N_pad], the queries quantized once on the host for all
+    slots (qq [Q, D] int8, qscale [Q]) with the f32 queries' ``qn`` /
+    ``q2``, and optional ``masks`` [S, Q, N_pad]. Returns (coarse scores
+    [S, Q, k'] f32, candidates [S, Q, k'] int32); each slot is
+    ``knn_coarse`` (K6) on that slot's mirror."""
+    cuda = _on_cuda(q8, scales, norms, allowed, qq, qscale, qn, q2,
+                    *([] if masks is None else [masks]))
+    s, n_pad, dims = _check_vector_stack("q8", q8, torch.int8, norms,
+                                         allowed)
+    _check("scales", scales, torch.float32, (s, n_pad))
+    n_q = _check_knn_queries("qq", qq, torch.int8, dims)
+    if qq.data_ptr() % 4:
+        raise ValueError("[qq] must be 4-byte aligned")
+    _check("qscale", qscale, torch.float32, (n_q,))
+    _check_query_terms(qn, q2, n_q)
+    _check_mask_stack(masks, s, n_q, n_pad)
+    if not 1 <= kprime <= min(KMAX, n_pad):
+        raise ValueError(f"kprime={kprime} outside [1, {min(KMAX, n_pad)}]")
+    code = _sim_code(similarity)
+    with DEVICE_PROFILE.call("mesh_knn_coarse",
+                             _knn_label(s, n_pad, dims, n_q, kprime, masks),
+                             cuda):
+        if not cuda:
+            return mesh_knn_coarse_plain(q8, scales, norms, allowed, qq,
+                                         qscale, qn, q2, kprime, similarity,
+                                         masks)
+        dev = q8.device
+        rows = s * n_q
+        plane = torch.empty(rows * n_pad, dtype=torch.float32, device=dev)
+        ck = chunk_entries(rows, n_pad, kprime)
+        chunk_s = torch.empty(ck, dtype=torch.float32, device=dev)
+        chunk_i = torch.empty(ck, dtype=torch.int32, device=dev)
+        cs = torch.empty(s, n_q, kprime, dtype=torch.float32, device=dev)
+        cand = torch.empty(s, n_q, kprime, dtype=torch.int32, device=dev)
+        launch_kernel(
+            "mesh_knn_coarse", _SIG["mesh_knn_coarse"], _ptr(q8),
+            _ptr(scales), _ptr(norms), _ptr(allowed), _opt_ptr(masks),
+            _ptr(qq), _ptr(qscale), _ptr(qn), _ptr(q2), s, n_q, dims, n_pad,
+            kprime, code, _ptr(plane), _ptr(chunk_s), _ptr(chunk_i),
+            _ptr(cs), _ptr(cand), _stream())
+        return cs, cand
+
+
+def mesh_knn_rerank(matrix, norms, allowed, queries, qn, q2, cand, coarse_s,
+                    k: int, similarity: str = "cosine", masks=None):
+    """Row 37. The exact re-rank of every slot's coarse candidates in one
+    launch: the f32 stack [S, N_pad, D], norms / allowed [S, N_pad], the
+    queries [Q, D], candidates and coarse scores [S, Q, k'], optional
+    ``masks`` [S, Q, N_pad]. Returns (scores [S, Q, k] f32, plane docs
+    [S, Q, k] int32 with -1 where the score is -inf, eps [S, Q] f32);
+    each slot is ``knn_rerank`` (K7) on that slot's plane."""
+    cuda = _on_cuda(matrix, norms, allowed, queries, qn, q2, cand, coarse_s,
+                    *([] if masks is None else [masks]))
+    s, n_pad, dims = _check_vector_stack("matrix", matrix, torch.float32,
+                                         norms, allowed)
+    n_q = _check_knn_queries("queries", queries, torch.float32, dims)
+    _check_query_terms(qn, q2, n_q)
+    _check_mask_stack(masks, s, n_q, n_pad)
+    if cand.dim() != 3 or tuple(cand.shape[:2]) != (s, n_q):
+        raise ValueError(f"[cand] must be [{s}, {n_q}, k'], got "
+                         f"{tuple(cand.shape)}")
+    kprime = int(cand.shape[2])
+    _check("cand", cand, torch.int32, (s, n_q, kprime))
+    _check("coarse_s", coarse_s, torch.float32, (s, n_q, kprime))
+    if not 1 <= k <= kprime <= KMAX:
+        raise ValueError(f"need 1 <= k={k} <= kprime={kprime} <= {KMAX}")
+    code = _sim_code(similarity)
+    with DEVICE_PROFILE.call("mesh_knn_rerank",
+                             _knn_label(s, n_pad, dims, n_q, kprime, masks),
+                             cuda):
+        if not cuda:
+            return mesh_knn_rerank_plain(matrix, norms, allowed, queries, qn,
+                                         q2, cand, coarse_s, k, similarity,
+                                         masks)
+        dev = matrix.device
+        out_s = torch.empty(s, n_q, k, dtype=torch.float32, device=dev)
+        out_d = torch.empty(s, n_q, k, dtype=torch.int32, device=dev)
+        eps = torch.empty(s, n_q, dtype=torch.float32, device=dev)
+        launch_kernel(
+            "mesh_knn_rerank", _SIG["mesh_knn_rerank"], _ptr(matrix),
+            _ptr(norms), _ptr(allowed), _opt_ptr(masks), _ptr(queries),
+            _ptr(qn), _ptr(q2), _ptr(cand), _ptr(coarse_s), s, n_q, n_pad,
+            dims, kprime, k, code, _ptr(out_s), _ptr(out_d), _ptr(eps),
+            _stream())
         return out_s, out_d, eps

@@ -7,7 +7,9 @@ every target shard is local and the mesh-sharded plane
 (ops/device_segment.py ``MESH_PLANES``) holds the query's (kind, field),
 the WHOLE scatter-gather runs as ONE kernel launch per phase over the
 shards' stacked planes (search/plane_exec.py ``mesh_wand_topk`` over
-parallel/mesh.py's ``mesh_bm25_*`` kernels) and the results demux back
+parallel/mesh.py's ``mesh_bm25_*`` kernels for the text kind,
+``mesh_knn_winners`` over its ``mesh_knn_*`` kernels for the kNN kind) and
+the results demux back
 into ordinary per-shard query-phase responses — the coordinator merge,
 fetch phase, and response shape stay the RPC fan-out's.
 
@@ -19,11 +21,13 @@ phase, not one per search per shard.
 Degradation: ANY miss (mesh disabled, plane refused by the device
 budget, classification edge) hands the member back to the unchanged
 per-shard fan-out — the mesh is an optimization, never a correctness
-gate. The text kind is served; the ``knn`` and ``sparse`` kinds, whose
-mesh programs are not ported yet, are declined in ``try_submit`` before
-any drain as ``mesh_backend_not_ready``, counted in
-``stats["mesh_fallbacks"]`` and in ``not_ported["mesh_knn"]`` /
-``not_ported["mesh_sparse"]``, and the RPC fan-out serves them.
+gate. A kNN fan-out over an IVF-mapped field or an ANN-sized shard, or
+one whose shards would pick different tiers, is such a miss (typed
+``mesh_ivf_routed`` / ``mesh_quantized_fallback``). The text and kNN
+kinds are served; the ``sparse`` kind, whose mesh programs are not ported
+yet, is declined in ``try_submit`` before any drain as
+``mesh_backend_not_ready``, counted in ``stats["mesh_fallbacks"]`` and in
+``not_ported["mesh_sparse"]``, and the RPC fan-out serves it.
 """
 
 from __future__ import annotations
@@ -37,7 +41,7 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 
 from elasticsearch_tpu_torch.search import telemetry
 from elasticsearch_tpu_torch.search.batch_executor import (
-    BatchSpec, _CLASS_OF_KIND, _build_ctxs, _copy_compiles,
+    BatchSpec, _CLASS_OF_KIND, _build_ctxs, _copy_compiles, _knn_demux,
     classify_request,
 )
 from elasticsearch_tpu_torch.search.telemetry import TELEMETRY, SearchTrace
@@ -85,7 +89,7 @@ class MeshSearchExecutor:
 
     _KIND_OF = {"text": "postings", "knn": "vectors", "sparse": "features"}
     # query kinds whose mesh programs are ported (the rest are declined)
-    SERVED_KINDS = ("text",)
+    SERVED_KINDS = ("text", "knn")
 
     def __init__(self, sts):
         self.sts = sts
@@ -271,8 +275,8 @@ class MeshSearchExecutor:
             TELEMETRY.count_fallback(telemetry.MESH_DFS_OVERRIDE)
             return False
         if spec.kind not in self.SERVED_KINDS:
-            # the kNN and sparse mesh programs are not ported: a counted
-            # decline, before any drain, and the RPC fan-out serves
+            # the sparse mesh programs are not ported: a counted decline,
+            # before any drain, and the RPC fan-out serves
             TELEMETRY.count_fallback(telemetry.MESH_BACKEND_NOT_READY)
             TELEMETRY.count_not_ported(f"mesh_{spec.kind}")
             self.stats["mesh_fallbacks"] += 1
@@ -506,18 +510,28 @@ class MeshSearchExecutor:
         counter: list = []
         want = spec0.window
         from elasticsearch_tpu_torch.search.plane_exec import (
-            MeshFallback, mesh_wand_topk,
+            MeshFallback, mesh_knn_winners, mesh_wand_topk,
         )
         try:
-            got = mesh_wand_topk(
-                shard_ctxs, mpart, spec0.field,
-                [m.spec.clauses for m in uniques], want,
-                spec0.track_limit, check_members=check_members,
-                counter=counter)
-            if got is None:
-                raise _MeshMiss(telemetry.MESH_DFS_OVERRIDE)
-            collector = "wand_topk"
-            per_shard_member = got
+            if spec0.kind == "text":
+                got = mesh_wand_topk(
+                    shard_ctxs, mpart, spec0.field,
+                    [m.spec.clauses for m in uniques], want,
+                    spec0.track_limit, check_members=check_members,
+                    counter=counter)
+                if got is None:
+                    raise _MeshMiss(telemetry.MESH_DFS_OVERRIDE)
+                collector = "wand_topk"
+                per_shard_member = got
+            else:
+                raw = mesh_knn_winners(
+                    shard_ctxs, mpart, spec0.field,
+                    [m.spec for m in uniques], spec0.k,
+                    check_members=check_members, counter=counter)
+                collector = "dense"
+                per_shard_member = [
+                    _knn_demux([m.spec for m in uniques], row, spec0.k)
+                    for row in raw]
         except MeshFallback as mf:
             raise _MeshMiss(getattr(mf, "reason",
                                     telemetry.MESH_IVF_ROUTED))

@@ -3,7 +3,7 @@ shard's postings (or vectors, or rank_features) in one device plane, one
 kernel launch per phase.
 
 The text, kNN and sparse parts of the JAX package's
-``search/plane_exec.py``, and its mesh text executor.
+``search/plane_exec.py``, and its mesh text and kNN executors.
 Both the solo and the batched path call in here when a plane is resident,
 so they share one implementation:
 
@@ -28,6 +28,11 @@ so they share one implementation:
   postings planes (``MeshPlanePart``) in one launch per phase for all
   shards (``mesh_bm25_flat``, or ``mesh_bm25_coarse`` + ``mesh_bm25_rerank``
   on the tier), each shard's result the one ``plane_wand_topk`` gives.
+- ``mesh_knn_winners``: Q kNN queries against S co-located shards' stacked
+  vector planes in one launch per phase (``mesh_knn_topk``, or
+  ``mesh_knn_coarse`` + ``mesh_knn_rerank`` on the tier), masked per
+  (filter, shard) for differently filtered members, each shard's winners
+  the ones its own plane gives.
 
 Callers treat a None result as "run the per-segment path".
 """
@@ -1385,3 +1390,191 @@ def mesh_wand_topk(shard_ctxs, mpart, field: str,
                                prune)
     _note_exact("mesh_bm25", n_q, t_exact)
     return out
+
+
+def mesh_knn_winners(shard_ctxs, mpart, field: str, specs, k: int,
+                     check_members: Optional[Callable[[], None]] = None,
+                     counter: Optional[list] = None
+                     ) -> List[List[List[Tuple[int, int, float]]]]:
+    """Q kNN queries against S co-located shards' vector planes in ONE
+    launch per phase: the corpus rides the slot axis, and each slot's row
+    reproduces that shard's exact plane scores (plane_knn_winners' exact
+    path). When EVERY populated slot clears the quantized engage
+    threshold, the stacked int8 mirror serves the coarse pass and the
+    exact re-rank restores the exact scores (each slot running the
+    per-shard two-tier arithmetic, the adaptive depth deepening
+    globally).
+
+    Returns [shard][member] winner lists [(segment_idx, local_doc,
+    raw_score)]. Raises MeshFallback for IVF-routed shards (mapping
+    opt-in or ANN-sized corpora) and for MIXED per-shard quantized
+    engagement (only the per-shard fan-out serves each shard its own
+    tier) -- those keep the per-shard fan-out."""
+    from elasticsearch_tpu_torch.indices.breaker import BREAKERS
+    from elasticsearch_tpu_torch.ops.knn import QueryBatch
+    from elasticsearch_tpu_torch.parallel.mesh import mesh_knn_topk
+    from elasticsearch_tpu_torch.search.execute import (
+        ANN_DEFAULT_MIN_DOCS, execute as execute_query,
+    )
+    n_q = len(specs)
+    n_sh = mpart.n_shards
+    dev = mpart.device
+
+    ctx0 = next((ctxs[0] for ctxs in shard_ctxs if ctxs), None)
+    if ctx0 is not None:
+        mapper = ctx0.mappers.mapper(field)
+        opts = getattr(mapper, "index_options", None) or {}
+        if opts.get("type") == "ivf":
+            raise MeshFallback(
+                f"[{field}] is IVF-mapped: the per-shard probe serves")
+    for sub in mpart.subs:
+        if sub is None:
+            continue
+        sizes = [s.n_docs for s in sub.segments
+                 if s.vectors.get(field) is not None]
+        if sizes and min(sizes) >= ANN_DEFAULT_MIN_DOCS:
+            raise MeshFallback(
+                "ANN-sized shard would take the per-segment IVF route")
+
+    if check_members is not None:
+        check_members()
+    vectors = np.asarray([s.query_vector for s in specs], np.float32)
+    dp = max(1, int(mpart.dp))
+    n_q_pad = next_pow2(max(n_q, 1), minimum=1)
+    n_q_pad = -(-n_q_pad // dp) * dp
+    q_host = np.zeros((n_q_pad, vectors.shape[1]), np.float32)
+    q_host[:n_q] = vectors
+    # the padded rows, their norm terms and (on the tier) their int8
+    # quantization, computed once on the host for every slot
+    batch = QueryBatch(q_host, dev)
+
+    live_host = _mesh_live(mpart, shard_ctxs)
+    # distinct filters resolve to masks once per (filter, shard) -- the
+    # batched executor's sharing rule, stacked into slot space
+    fkeys = {s.filter_key for s in specs}
+    masks_host = None
+    if fkeys != {None}:
+        by_key: Dict[Optional[str], np.ndarray] = {}
+        for fk in fkeys:
+            if fk is None:
+                continue
+            spec = next(s for s in specs if s.filter_key == fk)
+            rows = np.zeros((mpart.n_slots, mpart.n_docs_pad), bool)
+            for si in range(n_sh):
+                sub = mpart.subs[si]
+                if sub is None:
+                    continue
+                for pos, ctx in enumerate(shard_ctxs[si]):
+                    _, fmask = execute_query(spec.filter, ctx)
+                    base = int(sub.doc_base[pos])
+                    n = ctx.segment.n_docs
+                    rows[si, base: base + n] = fmask.cpu().numpy()[:n]
+            by_key[fk] = rows
+        if len(fkeys) == 1:
+            # every member carries the SAME filter: fold it into the
+            # allowed mask (one unmasked launch)
+            live_host = live_host & by_key[next(iter(fkeys))]
+        else:
+            masks_host = np.ones(
+                (mpart.n_slots, n_q_pad, mpart.n_docs_pad), bool)
+            for qi, spec in enumerate(specs):
+                if spec.filter_key is not None:
+                    masks_host[:, qi, :] = by_key[spec.filter_key]
+
+    k_mesh = min(max(k, 1), mpart.n_docs_pad)
+    allowed = torch.as_tensor(live_host, device=dev) & mpart.exists
+    masks_dev = None if masks_host is None else \
+        torch.as_tensor(masks_host, device=dev)
+    # the launches write an [S, n_q_pad, n_docs_pad] f32 score plane
+    transient = 8 * mpart.n_docs_pad * n_q_pad * mpart.n_slots
+
+    def _try_quantized():
+        """int8 coarse + exact re-rank over the stacked mirror, the
+        adaptive-depth loop deepening globally. None = the exact mesh
+        kernel serves (mirror refused / margin exhausted / depth past the
+        kernels' KMAX, typed)."""
+        from elasticsearch_tpu_torch.parallel.mesh import (
+            mesh_knn_coarse, mesh_knn_rerank,
+        )
+        mirror = mpart.quantized_mirror()
+        if mirror is None:
+            _count_mesh_quantized_fallback()
+            return None
+        q8, scales = mirror
+        qq, qscale = batch.quantized()
+        for kprime, last in _adaptive_depths(k_mesh, mpart.n_docs_pad):
+            if kprime > KMAX:
+                # the coarse and re-rank kernels hold k' <= KMAX
+                # candidates a row; a wider window is served exact
+                _count_mesh_quantized_fallback()
+                return None
+            if check_members is not None:
+                check_members()
+            with BREAKERS.breaker("request").limit_scope(
+                    transient, "mesh_coarse_knn"):
+                if counter is not None:
+                    counter.extend((1, 1))
+                cs, cand = mesh_knn_coarse(
+                    q8, scales, mpart.norms, allowed, qq, qscale, batch.qn,
+                    batch.q2, kprime, mpart.similarity, masks_dev)
+                s_q, d_q, eps = mesh_knn_rerank(
+                    mpart.matrix, mpart.norms, allowed, batch.queries,
+                    batch.qn, batch.q2, cand, cs, k_mesh, mpart.similarity,
+                    masks_dev)
+            cs_h, s_h = cs.cpu().numpy(), s_q.cpu().numpy()
+            eps_h = eps.cpu().numpy()
+            k_last = min(k_mesh, s_h.shape[2]) - 1
+            if all(_margin_ok(float(s_h[si, qi, k_last]),
+                              float(cs_h[si, qi, kprime - 1]),
+                              float(eps_h[si, qi]), REL_INT8)
+                   for si in range(n_sh)
+                   if mpart.subs[si] is not None
+                   for qi in range(n_q)):
+                MESH_PLANES.stats["mesh_quantized_queries"] += n_q
+                PLANES.note_quantized(kprime, n_q, mesh=True)
+                return s_h, d_q.cpu().numpy()
+            if last:
+                _count_mesh_quantized_fallback()
+                return None
+
+    got_q = None
+    if PLANES.quantized:
+        engages = _mesh_engages(mpart.subs, k_mesh)
+        if engages is None:
+            # counted on the stats surface here (the executor counts the
+            # telemetry reason when it converts this to a mesh miss)
+            MESH_PLANES.stats["mesh_quantized_fallbacks"] += 1
+            raise MeshFallback(
+                "per-shard quantized engagement is mixed: the per-shard "
+                "fan-out serves each shard its own tier",
+                reason=telemetry.MESH_QUANTIZED_FALLBACK)
+        if engages:
+            got_q = _coarse_attempt("mesh_knn", n_q, _try_quantized)
+    if got_q is not None:
+        s, d = got_q
+    else:
+        t_exact = time.monotonic()
+        with BREAKERS.breaker("request").limit_scope(transient,
+                                                     "mesh_knn"):
+            if counter is not None:
+                counter.append(1)
+            s, d = mesh_knn_topk(mpart.matrix, mpart.norms, allowed,
+                                 batch.queries, batch.qn, batch.q2, k_mesh,
+                                 mpart.similarity, masks_dev)
+        s, d = s.cpu().numpy(), d.cpu().numpy()
+        _note_exact("mesh_knn", n_q, t_exact)
+
+    winners: List[List[List[Tuple[int, int, float]]]] = []
+    for si in range(n_sh):
+        sub = mpart.subs[si]
+        row: List[List[Tuple[int, int, float]]] = []
+        for qi in range(n_q):
+            if sub is None:
+                row.append([])
+                continue
+            finite = s[si, qi] > -np.inf
+            seg, local = sub.demux(d[si, qi][finite])
+            row.append([(int(a), int(b), float(sc)) for a, b, sc in
+                        zip(seg, local, s[si, qi][finite])])
+        winners.append(row)
+    return winners

@@ -1,8 +1,9 @@
-"""The BM25, kNN (masked and not), dense-collector, IVF, rank_features and
-expansion-model kernels on the card against their plain PyTorch versions:
-bitwise, except where a kernel calls ``logf`` / ``powf`` / ``tanhf`` and
-its plain version torch's ``log`` / ``pow`` / ``tanh`` (the stated ulp
-bounds below). Needs a CUDA card and nvcc; skipped without a card.
+"""The BM25, kNN (masked and not), dense-collector, IVF, rank_features,
+expansion-model and mesh (text and kNN) kernels on the card against their
+plain PyTorch versions: bitwise, except where a kernel calls ``logf`` /
+``powf`` / ``tanhf`` and its plain version torch's ``log`` / ``pow`` /
+``tanh`` (the stated ulp bounds below). Needs a CUDA card and nvcc;
+skipped without a card.
 
 It imports neither JAX nor the JAX package, so it also runs on a machine
 that has only PyTorch and the CUDA toolkit:
@@ -19,7 +20,7 @@ from elasticsearch_tpu_torch.ops import knn, topk
 from elasticsearch_tpu_torch.ops.device_segment import quantize_rows
 from torch_inputs import (
     FLAT, FLAT_ORDER, N_SEGS, make_inputs, make_knn_inputs,
-    make_sparse_inputs, mesh_inputs, row0, tx,
+    make_sparse_inputs, mesh_inputs, mesh_knn_inputs, row0, tx,
 )
 
 K = 10
@@ -569,3 +570,68 @@ def test_mesh_kernels_match_plain_versions_on_the_card(n_slots, dp, empty,
             kprime, K)
         for g, w in zip((x[si] for x in rgot), k4):
             assert torch.equal(g, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("masked", [False, True], ids=["unmasked", "masked"])
+@pytest.mark.parametrize("sim", ["cosine", "dot_product", "l2_norm"])
+@pytest.mark.parametrize("n_slots,empty,n_docs,k",
+                         [(2, -1, 900, K), (4, 2, 150_000, K),
+                          (2, -1, 9000, 5000)],
+                         ids=["s2", "s4_empty_chunked", "s2_wide_k"])
+def test_mesh_knn_kernels_match_plain_versions_on_the_card(n_slots, empty,
+                                                           n_docs, k, sim,
+                                                           masked):
+    """mesh_knn_topk / _coarse / _rerank bitwise equal to their plain
+    versions, and each slot bitwise equal to K5 / K6 / K7 launched on that
+    slot's plane (chunked planes take the top-k's merge pass, k 5,000 its
+    rounds)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    from elasticsearch_tpu_torch.parallel import mesh
+    n_q, kprime = 4, 256
+    inp = mesh_knn_inputs(70 + n_slots, n_slots, n_q, kind="gauss",
+                          empty=empty, n_docs=n_docs)
+    m, nr, al, qs = (torch.as_tensor(inp[x]).cuda()
+                     for x in ("matrix", "norms", "allowed", "queries"))
+    mk = torch.as_tensor(inp["masks"]).cuda() if masked else None
+    s_, n_pad, dims = m.shape
+    q8, scales = quantize_rows(inp["matrix"].reshape(s_ * n_pad, dims))
+    q8 = torch.as_tensor(q8.reshape(s_, n_pad, dims)).cuda()
+    scales = torch.as_tensor(scales.reshape(s_, n_pad)).cuda()
+    batch = knn.QueryBatch(inp["queries"], "cuda")
+    qq, qscale = batch.quantized()
+    qn, q2 = batch.qn, batch.q2
+    got = mesh.mesh_knn_topk(m, nr, al, qs, qn, q2, k, sim, mk)
+    want = mesh.mesh_knn_topk_plain(m, nr, al, qs, qn, q2, k, sim, mk)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    cgot = mesh.mesh_knn_coarse(q8, scales, nr, al, qq, qscale, qn, q2,
+                                kprime, sim, mk)
+    cwant = mesh.mesh_knn_coarse_plain(q8, scales, nr, al, qq, qscale, qn,
+                                       q2, kprime, sim, mk)
+    for g, w in zip(cgot, cwant):
+        assert torch.equal(g, w)
+    rgot = mesh.mesh_knn_rerank(m, nr, al, qs, qn, q2, cgot[1], cgot[0], K,
+                                sim, mk)
+    rwant = mesh.mesh_knn_rerank_plain(m, nr, al, qs, qn, q2, cgot[1],
+                                       cgot[0], K, sim, mk)
+    for g, w in zip(rgot, rwant):
+        assert torch.equal(g, w)
+    for si in range(n_slots):
+        mks = None if mk is None else mk[si]
+        k5 = knn.knn_flat(m[si], nr[si], al[si], qs, qn, q2, k, sim, mks)
+        for g, w in zip((x[si] for x in got), k5):
+            assert torch.equal(g, w)
+        k6 = knn.knn_coarse(q8[si], scales[si], nr[si], al[si], qq, qscale,
+                            qn, q2, kprime, sim, mks)
+        for g, w in zip((x[si] for x in cgot), k6):
+            assert torch.equal(g, w)
+        k7 = knn.knn_rerank(m[si], nr[si], al[si], qs, qn, q2,
+                            cgot[1][si].contiguous(),
+                            cgot[0][si].contiguous(), K, sim, mks)
+        for g, w in zip((x[si] for x in rgot), k7):
+            assert torch.equal(g, w)
+    if empty >= 0:
+        assert not torch.isfinite(got[0][empty]).any()
+        assert (rgot[1][empty] == -1).all()

@@ -199,6 +199,24 @@ status, resp = rest("POST", "/mesh_idx/_search",
 assert status == 200 and resp["_data_plane"] == "mesh_plane", resp
 assert resp["hits"]["total"]["value"] == 20, resp["hits"]["total"]
 assert DEVICE_PROFILE.family("mesh_bm25_flat").calls > calls
+status, _ = rest("PUT", "/mesh_knn_idx", {
+    "settings": {"number_of_shards": 2, "number_of_replicas": 0},
+    "mappings": {"properties": {"v": {
+        "type": "dense_vector", "dims": 3, "similarity": "cosine"}}}})
+assert status == 200, status
+lines = []
+for i in range(30):
+    lines += [{"index": {"_index": "mesh_knn_idx", "_id": str(i)}},
+              {"v": [float(i), 1.0, 2.0]}]
+status, resp = rest("POST", "/_bulk", lines)
+assert status == 200 and not resp["errors"], resp
+rest("POST", "/mesh_knn_idx/_refresh")
+calls = DEVICE_PROFILE.family("mesh_knn_topk").calls
+status, resp = rest("POST", "/mesh_knn_idx/_search", {"query": {"knn": {
+    "field": "v", "query_vector": [29.0, 1.0, 2.0], "k": 4}}})
+assert status == 200 and resp["_data_plane"] == "mesh_plane", resp
+assert resp["hits"]["hits"][0]["_id"] == "29", resp["hits"]
+assert DEVICE_PROFILE.family("mesh_knn_topk").calls > calls
 cluster.stop()
 assert not any(m.split(".")[0] in ("jax", "jaxlib", "elasticsearch_tpu")
                for m in sys.modules)
@@ -449,7 +467,8 @@ def test_fusion_wrappers_never_take_the_plain_version(family, monkeypatch):
 
 
 @pytest.mark.parametrize("family", ["mesh_bm25_flat", "mesh_bm25_coarse",
-                                    "mesh_bm25_rerank"])
+                                    "mesh_bm25_rerank", "mesh_knn_topk",
+                                    "mesh_knn_coarse", "mesh_knn_rerank"])
 def test_mesh_wrappers_never_take_the_plain_version(family, monkeypatch):
     """The mesh kernels' wrappers, given CUDA tensors, launch their kernel
     or raise: with the kernel library unavailable they raise instead of
@@ -470,7 +489,10 @@ def test_mesh_wrappers_never_take_the_plain_version(family, monkeypatch):
     monkeypatch.setattr(mesh, "_stream", lambda: 0)
     for name in ("mesh_bm25_flat_plain", "mesh_bm25_coarse_plain",
                  "mesh_bm25_rerank_plain", "bm25_flat_seg_plain",
-                 "bm25_coarse_plain", "bm25_rerank_plain"):
+                 "bm25_coarse_plain", "bm25_rerank_plain",
+                 "mesh_knn_topk_plain", "mesh_knn_coarse_plain",
+                 "mesh_knn_rerank_plain", "knn_flat_plain",
+                 "knn_coarse_plain", "knn_rerank_plain"):
         monkeypatch.setattr(mesh, name, no_plain)
     s, n_pad = 2, 256
     docs = torch.full((s, 2, 128), -1, dtype=torch.int32)
@@ -480,8 +502,20 @@ def test_mesh_wrappers_never_take_the_plain_version(family, monkeypatch):
     seg = torch.zeros(s, n_pad, dtype=torch.int32)
     idx = torch.zeros(s, 32, dtype=torch.int32)
     w = torch.zeros(s, 32)
+    m = torch.zeros(s, n_pad, 4)
+    q = torch.ones(1, 4)
+    one = torch.ones(1)
+    cand = torch.zeros(s, 1, 16, dtype=torch.int32)
     with pytest.raises(_build.KernelBuildError):
-        if family == "mesh_bm25_flat":
+        if family == "mesh_knn_topk":
+            mesh.mesh_knn_topk(m, dl, live, q, one, one, 10)
+        elif family == "mesh_knn_coarse":
+            mesh.mesh_knn_coarse(m.to(torch.int8), dl, dl, live,
+                                 q.to(torch.int8), one, one, one, 16)
+        elif family == "mesh_knn_rerank":
+            mesh.mesh_knn_rerank(m, dl, live, q, one, one, cand,
+                                 torch.zeros(s, 1, 16), 10)
+        elif family == "mesh_bm25_flat":
             mesh.mesh_bm25_flat(docs, tfs, dl, idx[:, None], w[:, None],
                                 idx[:, None], w[:, None] + 1, live, seg,
                                 n_pad, 1, 10, 1)

@@ -539,13 +539,32 @@ def test_mesh_budget_refusal_counts_and_serves_none():
 
 @pytest.mark.parametrize("kind", ["vectors", "features"])
 def test_unported_mesh_kinds_raise(kind):
+    """The vectors kind (the kNN mesh) stacks two shards' vector planes as
+    [S, N_pad, D] slots; the features kind (the sparse mesh programs, not
+    ported yet) raises NotPortedError."""
     from elasticsearch_tpu_torch.utils.errors import NotPortedError
-    engines = _engines(PORT, 3, 2)
-    readers = [e.acquire_reader() for e in engines]
-    with pytest.raises(NotPortedError):
-        ds.MESH_PLANES.get([(("idx", s), list(r.segments))
-                            for s, r in enumerate(readers)], kind, "body",
-                           device="cpu")
+    engines = []
+    for s in range(2):
+        eng = InternalEngine(MapperService({"properties": {
+            "vec": {"type": "dense_vector", "dims": 4,
+                    "similarity": "cosine"},
+            "feats": {"type": "rank_features"}}}), shard_label=f"uk{s}")
+        for i in range(30 + 10 * s):
+            eng.index(str(i), {"vec": [float(i % 5), 1.0, float(s), 2.0],
+                               "feats": {"f1": 1.0 + i % 3}})
+        eng.refresh()
+        engines.append(eng)
+    segs = [(("idx", s), list(e.acquire_reader().segments))
+            for s, e in enumerate(engines)]
+    field = "vec" if kind == "vectors" else "feats"
+    if kind == "features":
+        with pytest.raises(NotPortedError):
+            ds.MESH_PLANES.get(segs, kind, field, device="cpu")
+        return
+    part = ds.MESH_PLANES.get(segs, kind, field, device="cpu")
+    assert part is not None and part.kind == "vectors"
+    assert tuple(part.matrix.shape) == (2, part.n_docs_pad, 4)
+    assert [int(part.exists[s].sum()) for s in range(2)] == [30, 40]
 
 
 # ---------------------------------------------------------------------------
@@ -692,16 +711,21 @@ def test_text_search_gives_the_reference_json(shards, name, search_type):
 @pytest.mark.parametrize("shards", [2, 4], ids=["two_shards", "four_shards"])
 def test_knn_and_sparse_are_declined_with_the_reference_answers(shards,
                                                                 name):
-    """The kNN and sparse kinds: the reference's mesh serves them, the
-    port declines them (counted) and its RPC fan-out gives the same
-    answer."""
+    """The kNN and sparse kinds: the reference's mesh serves them; the
+    port's mesh serves the kNN kind too (``_data_plane`` included, nothing
+    counted as not ported), and declines the sparse kind (counted), whose
+    RPC fan-out gives the same answer."""
     body = dict(OTHER_BODIES)[name]
     kind = "knn" if name == "knn" else "sparse"
     before = telemetry.TELEMETRY.not_ported.get(f"mesh_{kind}", 0)
     (s_r, want), (s_p, got) = _both(shards, body)
     assert s_r == s_p == 200, (want, got)
-    assert "_data_plane" not in got
-    assert telemetry.TELEMETRY.not_ported[f"mesh_{kind}"] == before + 1
+    if kind == "knn":
+        assert got["_data_plane"] == want["_data_plane"] == "mesh_plane"
+        assert telemetry.TELEMETRY.not_ported.get("mesh_knn", 0) == before
+    else:
+        assert "_data_plane" not in got
+        assert telemetry.TELEMETRY.not_ported[f"mesh_{kind}"] == before + 1
     same(want, got)
 
 

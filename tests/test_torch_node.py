@@ -318,11 +318,12 @@ def test_batcher_routes_knn_as_the_reference_does(options, kind):
 @pytest.mark.parametrize("kind", ["text", "knn", "sparse"])
 def test_mesh_fanout_is_a_counted_decline(kind):
     """ROADMAP queue 3, item 7: a fan-out to two co-located shards takes
-    the mesh for the text kind (``mesh_searches`` +1, nothing counted as
-    not ported); the kNN and sparse mesh programs are not ported, so those
-    fan-outs are declined as ``mesh_backend_not_ready`` (the JAX package's
-    route whenever its mesh is not up), counted in ``mesh_fallbacks`` and
-    ``not_ported["mesh_<kind>"]``, and served by the per-shard fan-out."""
+    the mesh for the text and kNN kinds (``mesh_searches`` +1, nothing
+    counted as not ported); the sparse mesh programs are not ported, so
+    that fan-out is declined as ``mesh_backend_not_ready`` (the JAX
+    package's route whenever its mesh is not up), counted in
+    ``mesh_fallbacks`` and ``not_ported["mesh_sparse"]``, and served by the
+    per-shard fan-out."""
     from elasticsearch_tpu_torch.search import telemetry
     _ref, port = nodes()
     if port("HEAD", "/kinds2")[0] != 200:
@@ -356,7 +357,7 @@ def test_mesh_fanout_is_a_counted_decline(kind):
     assert status == 200 and resp["_shards"]["successful"] == 2, resp
     assert resp["hits"]["hits"], resp
     key = telemetry.MESH_BACKEND_NOT_READY
-    if kind == "text":
+    if kind in ("text", "knn"):
         assert resp["_data_plane"] == "mesh_plane"
         assert executor.stats["mesh_searches"] == stats["mesh_searches"] + 1
         assert executor.stats["mesh_fallbacks"] == stats["mesh_fallbacks"]

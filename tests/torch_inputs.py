@@ -185,3 +185,38 @@ def row0(inp):
     for name in ("idx", "w", "q", "avg"):
         out[name] = np.ascontiguousarray(inp[name][:, 0])
     return out
+
+
+def mesh_knn_inputs(seed: int, n_slots: int, n_q: int, dims: int = 16,
+                    kind: str = "int", empty: int = -1, n_docs: int = 900):
+    """Stacked vector planes of ``n_slots`` shards of different sizes (below
+    ``n_docs`` docs each; slot ``empty`` holds no vectors), padded as
+    ``MeshPlaneRegistry._stack`` pads them (zero rows, exists False), with
+    integer-valued (0..255) or Gaussian rows, ~10 % missing vectors and
+    deleted docs, duplicate rows in every slot (score ties), queries [n_q,
+    D] with an all-zero last row, and per-query filter rows [S, n_q, N_pad]
+    (about half of each slot's docs; padding docs False)."""
+    rng = np.random.default_rng(seed)
+    sizes = [int(rng.integers(n_docs // 3, n_docs)) for _ in range(n_slots)]
+    n_pads = [next_pow2(n, minimum=BLOCK) for n in sizes]
+    n_max = max(n_pads)
+    matrix = np.zeros((n_slots, n_max, dims), np.float32)
+    exists = np.zeros((n_slots, n_max), bool)
+    live = np.zeros((n_slots, n_max), bool)
+    masks = np.zeros((n_slots, n_q, n_max), bool)
+    for s, n in enumerate(sizes):
+        if s == empty:
+            continue
+        m, _nr, ex, lv, _q = make_knn_inputs(seed * 31 + s, dims, 1, kind, n,
+                                             n_max)
+        matrix[s], exists[s], live[s] = m, ex, lv
+        masks[s, :, :n] = rng.random((n_q, n)) < 0.5
+    norms = np.linalg.norm(matrix, axis=2).astype(np.float32)
+    if kind == "int":
+        queries = rng.integers(0, 256, (n_q, dims)).astype(np.float32)
+    else:
+        queries = rng.standard_normal((n_q, dims)).astype(np.float32)
+    queries[-1] = 0.0
+    return dict(matrix=matrix, norms=norms, exists=exists, live=live,
+                allowed=live & exists, masks=masks, queries=queries,
+                n_pad=n_max, own=n_pads, empty=empty)
