@@ -209,11 +209,14 @@ Phases, each of which fails the run on any failed check:
    index of 4 shards, 10,000 seeded docs through ``_bulk``: match at
    totals default / true / false / 7, bool of should-matches and
    dfs_query_then_fetch, a round of writes (new docs, deletes, a
-   refresh), the bodies again. Every answer equal on the two nodes
-   (``_data_plane`` included); the card node's mesh-served answers equal
-   its own with ``search.mesh.enabled: false``; ``mesh_searches`` grows,
-   the knn bodies are mesh-served (since the kNN kind is) and the
-   text_expansion bodies are counted declines.
+   refresh), the bodies again; also knn bodies and text_expansion bodies
+   (tokens with a boost and totals true / false / 100, and model_text).
+   Every answer equal on the two nodes (``_data_plane`` included; a
+   model_text body only where the card's and the CPU's rewrites agree);
+   the card node's mesh-served answers equal its own with
+   ``search.mesh.enabled: false``; ``mesh_searches`` grows, the knn and
+   text_expansion bodies are mesh-served and nothing is counted as not
+   ported.
 26. mesh-full: phase 5's MS MARCO corpus (its four generated segments,
    reused) as the 4 primary shards of one card node, each doc under an
    _id that routes to its shard as ``_bulk`` would route it (the i-th doc
@@ -239,7 +242,7 @@ Phases, each of which fails the run on any failed check:
    writes (new docs, deletes, a refresh), the bodies again. Every answer
    equal on the two nodes; the card node's mesh-served answers equal its
    own with ``search.mesh.enabled: false``; ``mesh_searches`` grows for the
-   knn bodies and the text_expansion bodies are counted declines.
+   knn and text_expansion bodies, and nothing is counted as not ported.
 29. mesh-knn-full: BASELINE #2's SIFT1M shape (phase 7's generator and
    seeds, 1,000,000 x 128, cosine, no index_options) as the 4 primary
    shards of one card node, each doc under an _id that routes to its
@@ -255,12 +258,32 @@ Phases, each of which fails the run on any failed check:
    refusal or mesh fallback. Launch counts are zeroed before phases 28-29
    and read after; then rows 36, 37 and 39 are held against their plain
    versions and timed.
+30. mesh-sparse-small (run with the small phases): the mesh sparse
+   kernels mesh_sparse_topk, mesh_sparse_coarse and mesh_sparse_rerank
+   (rows 38, 34, 35) against their plain versions, and slot by slot
+   against K15 / K16 / K17 launched on that slot's plane, at S 2 and 4 (an
+   empty slot, two dp rows, chunked planes, tied docs), mesh_sparse_topk
+   at k 10 and 5,000 and k' up to 4,096; bitwise.
+31. mesh-sparse-full: BASELINE #5's MS MARCO rank_features shape (phase
+   16's four segments, reused, or built from the same seeds) as the 4
+   primary shards of one card node, each doc under an _id that routes to
+   its shard, installed with ``restore_segments``; through the REST
+   controller 64 solo text_expansion bodies in tokens form (phase 16's
+   texts, expanded once) with the tier on, the 64 with it off, the 64 as
+   one wave, and 16 solo model_text bodies; each answer equal to the same
+   node's per-shard fan-out (``search.mesh.enabled: false``, K15-K17),
+   every top-10 to a float64 oracle up to near-ties, totals to a host
+   count. The mesh legs must launch all three mesh sparse families and no
+   K15-K17, with no budget refusal, drain error or mesh fallback. Launch
+   counts are zeroed before phase 31 and read after; then rows 34, 35 and
+   38 are held against their plain versions and timed.
 
 The two largest host builds (the MS MARCO and BEIR NQ postings) start in
-one worker pool when the script starts, so they run while the phases
-before them use the card; mesh-full builds its routed shards itself, in a
-pool of its own, so that no phase before it shares the host with that
-work. Prints a ``{"kernels": [...]}`` line and, last,
+one worker pool when the script starts, at the lowest CPU priority, so
+they run while the phases before them use the card and take no core
+those phases ask for; mesh-full and mesh-sparse-full reuse the segments
+of full and sparse-full, and build them themselves, in a pool of their
+own, only when run without those phases. Prints a ``{"kernels": [...]}`` line and, last,
 the ``{"ok": true, ...}`` line. Exits non-zero, without the ok line, when there is no CUDA card,
 when the package is missing, or on any failure. ``--rehearse`` runs the
 same phases on the CPU at a small size (plain versions only) and never
@@ -272,6 +295,7 @@ from __future__ import annotations
 import argparse
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -316,6 +340,9 @@ REPLACES = {
     "mesh_knn_topk": "elasticsearch_tpu/parallel/mesh.py:564",
     "mesh_knn_coarse": "elasticsearch_tpu/parallel/mesh.py:433",
     "mesh_knn_rerank": "elasticsearch_tpu/parallel/mesh.py:479",
+    "mesh_sparse_topk": "elasticsearch_tpu/parallel/mesh.py:523",
+    "mesh_sparse_coarse": "elasticsearch_tpu/parallel/mesh.py:373",
+    "mesh_sparse_rerank": "elasticsearch_tpu/parallel/mesh.py:403",
 }
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM, NVIDIA data sheet
 F32_FLOPS = 67e12              # H100 SXM f32 outside the tensor cores
@@ -348,7 +375,8 @@ def phase_card(torch) -> None:
     check(smi.returncode == 0, f"nvidia-smi failed: {smi.stderr.strip()}")
     log(smi.stdout.strip().splitlines()[0])
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
-        f"python {sys.version.split()[0]}")
+        f"python {sys.version.split()[0]}; {os.cpu_count()} host cores, "
+        f"torch intra-op threads {torch.get_num_threads()}")
     from elasticsearch_tpu_torch import _build
     t0 = time.monotonic()
     _build.build_all()
@@ -561,23 +589,101 @@ def phase_engine(torch, np, dev, built) -> None:
 # phase 4: full size
 # ---------------------------------------------------------------------------
 
-def build_segment_postings(args):
-    """One segment's PostingsField (run in a worker process): each doc's
-    own 16..96 tokens drawn Zipf(1.35) and folded onto the vocabulary,
-    written into a -1-padded [n, 96] matrix."""
+def segment_tokens(args):
+    """One MS MARCO segment's tokens (run in a worker process): each doc's
+    own 16..96 tokens drawn Zipf(1.35) and folded onto the vocabulary.
+    Returns (lens [n], tokens int32 [sum(lens)]) in doc order: the valid
+    entries, row by row, of the token matrix the postings are built from
+    (``postings_on_card``)."""
     seed, n = args
     import numpy as np
-    from elasticsearch_tpu_torch.index.segment import (
-        postings_from_token_matrix,
-    )
     rng = np.random.default_rng(seed)
     lens = rng.integers(16, 97, n)
     toks = rng.zipf(1.35, int(lens.sum())) - 1
-    toks = np.where(toks < VOCAB, toks, toks % VOCAB).astype(np.int32)
-    mat = np.full((n, 96), -1, np.int32)
+    return lens, np.where(toks < VOCAB, toks, toks % VOCAB).astype(np.int32)
+
+
+def postings_on_card(torch, np, lens, toks, dev):
+    """``postings_from_token_matrix`` (index/segment.py) of the token
+    matrix whose row i holds the next ``lens[i]`` of ``toks`` (all >= 0),
+    its sorts and scatters run on ``dev``: the same arrays, bit for bit,
+    since every step is integer arithmetic or a count. On the host those
+    sorts took the start-up pool minutes and could slow the phases beside
+    it (``Prebuilt``)."""
+    from elasticsearch_tpu_torch.index.segment import BLOCK, PostingsField
+    n_docs = len(lens)
+    t = torch.as_tensor(toks, device=dev).to(torch.int64)
+    d = torch.repeat_interleave(
+        torch.arange(n_docs, device=dev),
+        torch.as_tensor(lens, device=dev).to(torch.int64))
+    uniq, counts = torch.unique(t * n_docs + d, sorted=True,
+                                return_counts=True)
+    del d
+    n_terms = max(int(t.max()) + 1 if t.numel() else 0, 1)
+    del t
+    u_term = uniq // n_docs
+    u_doc = (uniq % n_docs).to(torch.int32)
+    del uniq
+    term_ids, per_term = torch.unique_consecutive(u_term,
+                                                  return_counts=True)
+    doc_freq = torch.zeros(n_terms, dtype=torch.int32, device=dev)
+    doc_freq[term_ids] = per_term.to(torch.int32)
+    nb = torch.zeros(n_terms, dtype=torch.int64, device=dev)
+    nb[term_ids] = (per_term + BLOCK - 1) // BLOCK
+    nb.clamp_min_(1)                      # every term >= 1 block
+    start = torch.zeros(n_terms, dtype=torch.int64, device=dev)
+    start[1:] = torch.cumsum(nb, 0)[:-1]
+    n_blocks = int(nb.sum())
+    first = torch.cumsum(per_term, 0) - per_term
+    within = torch.arange(len(u_term), device=dev) - torch.repeat_interleave(
+        first, per_term)
+    flat = start[u_term] * BLOCK + within
+    del within, u_term
+    block_docs = torch.full((n_blocks * BLOCK,), -1, dtype=torch.int32,
+                            device=dev)
+    block_tfs = torch.zeros(n_blocks * BLOCK, dtype=torch.float32,
+                            device=dev)
+    block_docs[flat] = u_doc
+    block_tfs[flat] = counts.to(torch.float32)
+    block_tfs = block_tfs.view(n_blocks, BLOCK)
+    block_term = torch.repeat_interleave(
+        torch.arange(n_terms, device=dev, dtype=torch.int32), nb)
+    doc_lens = np.asarray(lens).astype(np.float32)
+    return PostingsField(
+        terms={f"t{i}": i for i in range(n_terms)},
+        block_docs=block_docs.view(n_blocks, BLOCK).cpu().numpy(),
+        block_tfs=block_tfs.cpu().numpy(),
+        block_term=block_term.cpu().numpy(),
+        block_max_tf=block_tfs.max(dim=1).values.cpu().numpy(),
+        term_block_start=start.to(torch.int32).cpu().numpy(),
+        term_block_count=nb.to(torch.int32).cpu().numpy(),
+        doc_freq=doc_freq.cpu().numpy(),
+        doc_lens=doc_lens,
+        sum_doc_len=float(doc_lens.sum()))
+
+
+def check_postings_on_card(torch, np, dev) -> None:
+    """``postings_on_card`` against the host builder on a seeded stream
+    (a term in many blocks, terms with no posting below the largest):
+    every array bitwise equal."""
+    from elasticsearch_tpu_torch.index.segment import (
+        postings_from_token_matrix,
+    )
+    lens, toks = segment_tokens((SEED + 99, 3000))
+    toks = toks % 5000
+    toks[::7] = 17
+    mat = np.full((len(lens), 96), -1, np.int32)
     mat[np.arange(96)[None, :] < lens[:, None]] = toks
-    del toks
-    return postings_from_token_matrix(mat)
+    want = postings_from_token_matrix(mat)
+    got = postings_on_card(torch, np, lens, toks, dev)
+    check(got.terms == want.terms and got.sum_doc_len == want.sum_doc_len,
+          "postings_on_card: terms or sum_doc_len differ")
+    for name in ("block_docs", "block_tfs", "block_term", "block_max_tf",
+                 "term_block_start", "term_block_count", "doc_freq",
+                 "doc_lens"):
+        a, b = getattr(got, name), getattr(want, name)
+        check(a.dtype == b.dtype and np.array_equal(a, b),
+              f"postings_on_card: {name} differs from the host builder")
 
 
 def four_segments(n_docs: int):
@@ -588,46 +694,81 @@ def full_jobs(n_docs: int):
     return [(SEED + 100 + i, n) for i, n in enumerate(four_segments(n_docs))]
 
 
+def _background_worker() -> None:
+    """Pool initializer: the build runs at the lowest CPU priority, so
+    that a phase measured beside it keeps the cores it asks for."""
+    os.nice(19)
+
+
 class Prebuilt:
-    """The host halves of the two largest shard builds -- the MS MARCO and
-    the BEIR NQ postings, CPU work from the seed alone -- started in one
+    """The token streams of the two largest shard builds -- the MS MARCO
+    and the BEIR NQ corpora, drawn from the seed alone -- started in one
     spawn pool when the script starts (MS MARCO's jobs first), so that
-    they run while the phases before them use the card. ``builds`` maps
-    a name to (worker function, jobs); ``take`` waits for one build's
-    results."""
+    they run while the phases before them use the card; the postings are
+    then built on the card (``postings_on_card``). ``builds`` maps a name
+    to (worker function, jobs); ``take`` waits for one build's results
+    and logs when they were ready, how long it waited and their size.
+
+    The workers run at the lowest CPU priority (``_background_worker``)
+    and only draw tokens. While they also built the postings on the host,
+    its sorts slowed the phases beside them on a loaded host (ivf-small
+    99.1 s against 5.5 s alone, with 2 workers as with 4) and the drawing
+    slowed nothing; on an idle host neither did
+    (``tests/measure_build_pool.py``, H100 machines, 8 host cores)."""
 
     def __init__(self, workers: int, builds):
         import multiprocessing as mp
-        self.pool = mp.get_context("spawn").Pool(workers)
-        self.pending = {name: self.pool.map_async(fn, jobs)
-                        for name, (fn, jobs) in builds.items()}
+        self.t0 = time.monotonic()
+        self.ready = {}
+        self.pool = mp.get_context("spawn").Pool(
+            workers, initializer=_background_worker)
+        self.pending = {
+            name: self.pool.map_async(
+                fn, jobs, callback=lambda _r, _n=name: self.ready.setdefault(
+                    _n, time.monotonic() - self.t0))
+            for name, (fn, jobs) in builds.items()}
 
     def take(self, name: str):
         pending = self.pending.pop(name, None)
-        return pending.get() if pending is not None else None
+        if pending is None:
+            return None
+        t = time.monotonic()
+        out = pending.get()
+        n_bytes = sum(int(a.nbytes) for stream in out for a in stream)
+        log(f"prebuilt {name}: ready {self.ready.get(name, 0.0):.1f}s after "
+            f"the pool started; waited {time.monotonic() - t:.1f}s; "
+            f"{n_bytes} bytes handed back")
+        return out
 
     def close(self) -> None:
         self.pool.terminate()
         self.pool.join()
 
 
-def build_full_shard(np, n_docs: int, workers: int, pfs=None):
+def build_full_shard(torch, np, dev, n_docs: int, workers: int,
+                     streams=None):
+    """The MS MARCO shard's 4 segments: the token streams (from
+    ``streams``, the build pool's, or made here) turned into postings on
+    ``dev``."""
     import multiprocessing as mp
     from elasticsearch_tpu_torch.index.segment import Segment
     sizes = four_segments(n_docs)
     jobs = full_jobs(n_docs)
-    if pfs is None and workers > 1:
+    if streams is None and workers > 1:
         with mp.get_context("spawn").Pool(workers) as pool:
-            pfs = pool.map(build_segment_postings, jobs)
-    elif pfs is None:
-        pfs = [build_segment_postings(j) for j in jobs]
+            streams = pool.map(segment_tokens, jobs)
+    elif streams is None:
+        streams = [segment_tokens(j) for j in jobs]
+    check_postings_on_card(torch, np, dev)
     segs = []
-    for i, (pf, n) in enumerate(zip(pfs, sizes)):
+    for i, ((lens, toks), n) in enumerate(zip(streams, sizes)):
         seg = Segment(f"msmarco{i}", n)
-        seg.postings["body"] = pf
+        seg.postings["body"] = postings_on_card(torch, np, lens, toks, dev)
         seg.ids = [str(j) for j in range(n)]
         seg.invalidate_live_count()
         segs.append(seg)
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
     return segs
 
 
@@ -714,7 +855,7 @@ def phase_full(torch, np, dev, n_docs: int, workers: int, n_q: int,
     )
 
     t0 = time.monotonic()
-    segs = build_full_shard(np, n_docs, workers,
+    segs = build_full_shard(torch, np, dev, n_docs, workers,
                             prebuilt.take("full") if prebuilt else None)
     n_blocks = sum(s.postings["body"].block_docs.shape[0] for s in segs)
     log(f"full: {n_docs} docs in {len(segs)} segments, {n_blocks} posting "
@@ -3411,6 +3552,7 @@ def phase_sparse_full(torch, np, dev, n_docs: int, workers: int, n_q: int):
         log(f"sparse-full: leg {leg}: {what}; wall total "
             f"{1e3 * sum(times):.3f} ms; kernel device ms {kern[leg]}; "
             f"launches {launched[leg]}; kernel-busy share {busy:.4f}")
+    return segs
 
 
 def sparse_size(family: str, args):
@@ -4748,24 +4890,17 @@ def phase_node_engine(torch, np, dev, n_docs: int) -> None:
     node.cluster.stop()
 
 
-def build_nq_segment_postings(args):
-    """One generated segment's body postings (run in a worker process):
-    BEIR NQ passage lengths (1 + Poisson(77.88): mean 78.88 words), words
-    drawn Zipf(1.35) and folded onto the 1,000,000-term vocabulary."""
+def nq_segment_tokens(args):
+    """One generated NQ segment's tokens (run in a worker process): BEIR
+    NQ passage lengths (1 + Poisson(77.88): mean 78.88 words), words
+    drawn Zipf(1.35) and folded onto the 1,000,000-term vocabulary.
+    Returns (lens, tokens) as ``segment_tokens`` does."""
     seed, n = args
     import numpy as np
-    from elasticsearch_tpu_torch.index.segment import (
-        postings_from_token_matrix,
-    )
     rng = np.random.default_rng(seed)
     lens = 1 + rng.poisson(NQ_MEAN_WORDS - 1.0, n)
-    width = int(lens.max())
     toks = rng.zipf(1.35, int(lens.sum())) - 1
-    toks = np.where(toks < VOCAB, toks, toks % VOCAB).astype(np.int32)
-    mat = np.full((n, width), -1, np.int32)
-    mat[np.arange(width)[None, :] < lens[:, None]] = toks
-    del toks
-    return postings_from_token_matrix(mat)
+    return lens, np.where(toks < VOCAB, toks, toks % VOCAB).astype(np.int32)
 
 
 def nq_vectors(torch, dev, n: int, seed: int, means):
@@ -4790,28 +4925,30 @@ def nq_jobs(n_docs: int):
 
 
 def build_nq_segments(torch, np, dev, n_docs: int, workers: int, means,
-                      first_id: int, pfs=None):
+                      first_id: int, streams=None):
     import multiprocessing as mp
     from elasticsearch_tpu_torch.index.segment import Segment, VectorField
     sizes = four_segments(n_docs)
     jobs = [(SEED + 700 + i, n) for i, n in enumerate(sizes)]
     pool = mp.get_context("spawn").Pool(min(workers, 4)) \
-        if workers > 1 and pfs is None else None
+        if workers > 1 and streams is None else None
     try:
-        # the workers build the postings while this process makes the
+        # the workers draw the tokens while this process makes the
         # vectors on the card
-        pending = pool.map_async(build_nq_segment_postings, jobs) \
+        pending = pool.map_async(nq_segment_tokens, jobs) \
             if pool is not None else None
         mats = [nq_vectors(torch, dev, n, SEED + 710 + i, means)
                 for i, n in enumerate(sizes)]
         if pending is not None:
-            pfs = pending.get()
-        elif pfs is None:
-            pfs = [build_nq_segment_postings(j) for j in jobs]
+            streams = pending.get()
+        elif streams is None:
+            streams = [nq_segment_tokens(j) for j in jobs]
     finally:
         if pool is not None:
             pool.close()
             pool.join()
+    pfs = [postings_on_card(torch, np, lens, toks, dev)
+           for lens, toks in streams]
     segs = []
     base = first_id
     for i, (pf, m, n) in enumerate(zip(pfs, mats, sizes)):
@@ -4861,7 +4998,7 @@ def phase_hybrid_full(torch, np, dev, n_docs: int, workers: int,
     n_bulk = nq_bulk_docs(n_docs)
     gen = build_nq_segments(torch, np, dev, n_docs - n_bulk, workers, means,
                             first_id=n_bulk,
-                            pfs=prebuilt.take("nq") if prebuilt else None)
+                            streams=prebuilt.take("nq") if prebuilt else None)
     log(f"hybrid-full: {n_docs - n_bulk} generated docs in {len(gen)} "
         f"segments ({sum(s.postings['body'].block_docs.shape[0] for s in gen)}"
         f" posting blocks, {NQ_DIMS}-dim vectors) in "
@@ -5193,30 +5330,49 @@ def phase_mesh_small(torch, np, dev) -> None:
             f"equal to their plain versions and, slot by slot, to K2/K3/K4")
 
 
+MESH_TE_TEXTS = ("w1 w3 w5", "w2 w9 w17 w40", "w7 w11 w13")
+
+
+def mesh_te_features():
+    """Every feature of the model_text bodies' expansions (the port
+    model's on the CPU, so both nodes' docs hold the same maps)."""
+    from elasticsearch_tpu_torch.ml import get_model
+    model = get_model(None, "cpu")
+    return sorted({f for t in MESH_TE_TEXTS for f in model.expand(t)})
+
+
 def mesh_engine_docs(np, n: int, seed: int, base: int):
     """Seeded docs for the mesh-engine index: Zipf(1.35) words over
-    30,000, a keyword tag, a 16-dim vector and a few rank_features."""
+    30,000, a keyword tag, a 16-dim vector and 2-5 rank_features out of
+    f0..f199, plus 0-2 of ``mesh_te_features`` drawn from a stream of
+    their own (so the rest of every doc is what it was without them)."""
     rng = np.random.default_rng(seed)
+    extra = np.random.default_rng(seed + 1)
     words = [f"w{i}" for i in range(30_000)]
+    names = mesh_te_features()
     lens = rng.integers(8, 64, n)
     vecs = np.round(rng.standard_normal((n, 16)), 4).tolist()
     docs = []
     for i in range(n):
         terms = zipf_terms(np, rng, int(lens[i]), 30_000)
         feats = rng.integers(0, 200, int(rng.integers(2, 6)))
+        ml = {f"f{int(f)}": round(float(rng.uniform(0.1, 3.0)), 3)
+              for f in feats}
+        for f in extra.choice(len(names), int(extra.integers(0, 3)),
+                              replace=False):
+            ml[names[int(f)]] = round(float(extra.uniform(0.1, 3.0)), 3)
         docs.append((str(base + i), {
             "body": " ".join(words[int(t)] for t in terms),
-            "tag": f"t{i % 7}", "v": vecs[i],
-            "ml": {f"f{int(f)}": round(float(rng.uniform(0.1, 3.0)), 3)
-                   for f in feats}}))
+            "tag": f"t{i % 7}", "v": vecs[i], "ml": ml}))
     return docs
 
 
 def mesh_engine_bodies(np):
     """(name, body, query params, kind) of the mesh-engine mix: match at
     totals default / true / false / 7, bool of should-matches, DFS
-    versions, a kNN body (mesh-served) and a sparse body (a counted
-    decline)."""
+    versions, kNN bodies, and text_expansion bodies in tokens form (a
+    boost, totals true / false / 100) and in model_text form (kind
+    ``model_text``), all of them mesh-served."""
     rng = np.random.default_rng(SEED + 811)
     words = [f"w{i}" for i in range(30_000)]
 
@@ -5249,10 +5405,28 @@ def mesh_engine_bodies(np):
             "query_vector": [round(float(x), 4)
                              for x in rng.standard_normal(16)]}}},
             None, "knn"))
-        out.append((f"sparse{q}", {"query": {"text_expansion": {"ml": {
-            "tokens": {f"f{int(f)}": 1.0 + 0.25 * j for j, f in
-                       enumerate(rng.integers(0, 200, 3))}}}}},
-            None, "sparse"))
+
+    def te(**opts):
+        return {"text_expansion": {"ml": opts}}
+
+    def toks():
+        return {f"f{int(f)}": 1.0 + 0.25 * j for j, f in
+                enumerate(rng.integers(0, 200, 3))}
+    for name, extra in (("sparse0", {}), ("sparse1", {}),
+                        ("sparse_totals_true", {"track_total_hits": True}),
+                        ("sparse_totals_false", {"track_total_hits": False}),
+                        ("sparse_totals_100", {"track_total_hits": 100})):
+        out.append((name, {"query": te(tokens=toks()), **extra}, None,
+                    "sparse"))
+    out.append(("sparse_boost", {"query": te(tokens=toks(), boost=2.5),
+                                 "size": 7}, None, "sparse"))
+    for q, text in enumerate(MESH_TE_TEXTS):
+        body = {"query": te(model_text=text)}
+        if q == 1:
+            body["query"]["text_expansion"]["ml"]["boost"] = 1.5
+        if q == 2:
+            body["track_total_hits"] = True
+        out.append((f"model_text{q}", body, None, "model_text"))
     return out
 
 
@@ -5315,12 +5489,15 @@ def without_route(resp):
 def same_as_fanout(body, meshed, fanned) -> bool:
     """A mesh-served answer against the same node's per-shard fan-out:
     the JSON equal apart from ``took`` and the routing label -- except, for
-    ``track_total_hits: false``, the value of the total, a lower bound
+    a text body with ``track_total_hits: false``, the value of the total,
+    a lower bound
     ("gte") on both paths: the mesh's tier falls back to the exact path
     for the whole fan-out where the fan-out falls back shard by shard, and
     the two paths count observed matches differently (the JAX package
     does the same; ROADMAP queue 3, item 15)."""
     a, b = without_route(meshed), without_route(fanned)
+    if json.dumps(a, sort_keys=True) == json.dumps(b, sort_keys=True):
+        return True
     if body.get("track_total_hits") is False:
         if not (a["hits"]["total"]["relation"] == "gte" ==
                 b["hits"]["total"]["relation"]):
@@ -5335,12 +5512,19 @@ def same_as_fanout(body, meshed, fanned) -> bool:
 def phase_mesh_engine(torch, np, dev, n_docs: int) -> None:
     """A card node and a CPU node (in a worker process) on a 4-shard
     index: the same text bodies (totals true / false / 7, bool of
-    should-matches, DFS), a round of writes and a refresh, the bodies
-    again; every answer equal on the two nodes, the card node's
-    mesh-served answers equal to its own with ``search.mesh.enabled:
-    false``, ``mesh_searches`` growing, the kNN bodies mesh-served too and
-    the sparse bodies counted declines."""
+    should-matches, DFS), kNN and text_expansion bodies (tokens with a
+    boost and totals true / false / 100, model_text), a round of writes
+    and a refresh, the bodies again; every answer equal on the two nodes
+    (a model_text body only where the card's and the CPU's rewrites give
+    the same tokens: K18 and its plain version may round a weight apart),
+    the card node's mesh-served answers equal to its own with
+    ``search.mesh.enabled: false``, ``mesh_searches`` growing, the kNN
+    and text_expansion bodies mesh-served and nothing counted as not
+    ported."""
     import multiprocessing as mp
+    from elasticsearch_tpu_torch.ml.text_expansion import (
+        rewrite_body_expansions,
+    )
     from elasticsearch_tpu_torch.search import telemetry
     t0 = time.monotonic()
     pool = mp.get_context("spawn").Pool(1)
@@ -5374,36 +5558,41 @@ def phase_mesh_engine(torch, np, dev, n_docs: int) -> None:
     finally:
         pool.terminate()
         pool.join()
-    n_mesh = 0
+    n_mesh, rounded_apart = 0, set()
+    for name, body, _q, kind in bodies:
+        if kind == "model_text" and rewrite_body_expansions(body, dev) != \
+                rewrite_body_expansions(body, "cpu"):
+            rounded_apart.add(name)
     for r, (got, cpu_round) in enumerate(zip(rounds, want)):
         for (name, _b, _q, kind), g, w in zip(bodies, got, cpu_round):
             check(g[0] == w[0] == 200, f"mesh-engine: {name}: status "
                   f"{g[0]} / {w[0]}: {str(g[1])[:300]}")
-            why = same_json(w[1], g[1])
-            check(why is None, f"mesh-engine: round {r} {name}: card and "
-                  f"cpu differ at {why}")
-            if kind == "sparse":
-                check("_data_plane" not in g[1],
-                      f"mesh-engine: {name} was mesh-served")
-            elif kind == "knn":
+            if name not in rounded_apart:
+                why = same_json(w[1], g[1])
+                check(why is None, f"mesh-engine: round {r} {name}: card "
+                      f"and cpu differ at {why}")
+            if kind != "text":
                 check(g[1].get("_data_plane") == "mesh_plane",
                       f"mesh-engine: {name} was not mesh-served")
+            if kind in ("sparse", "model_text"):
+                check(bool(g[1]["hits"]["hits"]),
+                      f"mesh-engine: {name} matched nothing")
             n_mesh += g[1].get("_data_plane") == "mesh_plane"
     for (name, body, _q, _k), g, o in zip(bodies, rounds[1], off):
         check(o[0] == 200 and "_data_plane" not in o[1],
               f"mesh-engine: {name} with the mesh off: {str(o[1])[:300]}")
         check(same_as_fanout(body, g[1], o[1]),
               f"mesh-engine: {name}: mesh and fan-out answers differ")
-    n_other = {"knn": 0,
-               "sparse": sum(2 for *_x, kind in bodies if kind == "sparse")}
     check(served == n_mesh and served > 0,
           f"mesh-engine: mesh_searches grew {served}, labels {n_mesh}")
-    check(declined == n_other,
-          f"mesh-engine: declines {declined}, expected {n_other}")
+    check(declined == {"knn": 0, "sparse": 0},
+          f"mesh-engine: counted as not ported {declined}")
     lat.sort()
     log(f"mesh-engine: {len(bodies)} bodies x 2 rounds equal on the card "
-        f"node and the cpu node, {n_mesh} mesh-served (equal to the "
-        f"card's own fan-out), declines {declined}; card p50 "
+        f"node and the cpu node ({len(rounded_apart)} model_text bodies "
+        f"whose two rewrites rounded a weight apart held to the card's own "
+        f"fan-out only), {n_mesh} mesh-served (equal to the card's own "
+        f"fan-out), not ported {declined}; card p50 "
         f"{1e3 * lat[len(lat) // 2]:.3f} ms p99 {1e3 * pct(lat, 0.99):.3f} "
         f"ms ({time.monotonic() - t0:.1f}s in all); executor "
         f"{executor.stats}")
@@ -5473,30 +5662,36 @@ def routed_ids(np, sizes, n_shards: int):
         m += m // 10
 
 
-def mesh_full_segments(np, n_docs: int, workers: int, source=None):
-    """[shard] -> its one segment: the full phase's chunk ``c`` (the same
-    generator and seeds; its PostingsField is reused when ``source``, the
-    full phase's segments, is given) as shard ``c``, under _ids that route
-    there (``routed_ids``)."""
+def routed_segments(np, source, label: str):
+    """[shard] -> its one segment: ``source``'s segment ``c`` (its field
+    data shared, not copied) as shard ``c``, under _ids that route there
+    (``routed_ids``)."""
     from elasticsearch_tpu_torch.index.segment import Segment
     from elasticsearch_tpu_torch.utils.murmur3 import shard_id_for
-    sizes = four_segments(n_docs)
-    if source is None:
-        source = build_full_shard(np, n_docs, workers)
-    picks = routed_ids(np, sizes, MESH_SHARDS)
+    picks = routed_ids(np, [s.n_docs for s in source], MESH_SHARDS)
     segs = []
     for c, (src, ids) in enumerate(zip(source, picks)):
-        seg = Segment(f"msm{c}_gen", src.n_docs)
-        seg.postings["body"] = src.postings["body"]
+        seg = Segment(f"{label}{c}_gen", src.n_docs)
+        seg.postings.update(src.postings)
+        seg.features.update(src.features)
         seg.ids = [str(int(k)) for k in ids]
         for j in range(0, len(ids), max(1, len(ids) // 64)):
             check(shard_id_for(seg.ids[j], MESH_SHARDS) == c,
-                  f"mesh-full: _id {seg.ids[j]} does not route to {c}")
+                  f"{label}: _id {seg.ids[j]} does not route to {c}")
         seg.id_to_doc = {d: j for j, d in enumerate(seg.ids)}
         seg.sources = [None] * src.n_docs
         seg.invalidate_live_count()
         segs.append(seg)
     return segs
+
+
+def mesh_full_segments(np, n_docs: int, workers: int, source=None):
+    """The full phase's chunks (the same generator and seeds; its
+    segments reused when ``source`` is given) as the 4 shards under
+    routed _ids."""
+    if source is None:
+        source = build_full_shard(torch, np, dev, n_docs, workers)
+    return routed_segments(np, source, "msm")
 
 
 def mesh_full_queries(np, n_q: int):
@@ -5935,8 +6130,8 @@ def mesh_knn_engine_docs(np, n: int, seed: int, base: int):
 
 def mesh_knn_engine_bodies(np):
     """(name, body, kind) of the mesh-knn-engine mix: knn at k 10 and 100,
-    term-filtered knn, hybrid rank.rrf, and text_expansion (a counted
-    decline)."""
+    term-filtered knn, hybrid rank.rrf, and text_expansion (mesh-served
+    too)."""
     rng = np.random.default_rng(SEED + 911)
 
     def vec():
@@ -6043,7 +6238,7 @@ def phase_mesh_knn_engine(torch, np, dev, n_docs: int) -> None:
     the bodies again; every answer equal on the two nodes, the card
     node's mesh-served answers equal to its own with
     ``search.mesh.enabled: false``, ``mesh_searches`` growing for the knn
-    bodies and the text_expansion bodies counted declines."""
+    and text_expansion bodies, and nothing counted as not ported."""
     import multiprocessing as mp
     from elasticsearch_tpu_torch.search import telemetry
     t0 = time.monotonic()
@@ -6091,7 +6286,7 @@ def phase_mesh_knn_engine(torch, np, dev, n_docs: int) -> None:
             why = same_json(w[1], g[1])
             check(why is None, f"mesh-knn-engine: round {r} {name}: card "
                   f"and cpu differ at {why}")
-            if kind == "knn":
+            if kind in ("knn", "sparse"):
                 check(g[1].get("_data_plane") == "mesh_plane",
                       f"mesh-knn-engine: {name} was not mesh-served")
             n_mesh += g[1].get("_data_plane") == "mesh_plane"
@@ -6101,19 +6296,18 @@ def phase_mesh_knn_engine(torch, np, dev, n_docs: int) -> None:
               f"{str(o[1])[:300]}")
         check(same_as_fanout(body, g[1], o[1]),
               f"mesh-knn-engine: {name}: mesh and fan-out answers differ")
-    n_knn = sum(2 for *_x, kind in every if kind == "knn")
-    n_sparse = sum(2 for *_x, kind in every if kind == "sparse")
+    n_knn = sum(2 for *_x, kind in every if kind in ("knn", "sparse"))
     check(served >= n_mesh >= n_knn,
           f"mesh-knn-engine: mesh_searches grew {served}, labels {n_mesh}, "
-          f"knn bodies {n_knn}")
-    check(declined == n_sparse,
-          f"mesh-knn-engine: sparse declines {declined}, expected "
-          f"{n_sparse}")
+          f"knn and text_expansion bodies {n_knn}")
+    check(declined == 0,
+          f"mesh-knn-engine: {declined} sparse fan-outs counted as not "
+          f"ported")
     check(masked > 0, "mesh-knn-engine: the differently filtered wave "
           "launched no masked mesh kNN kernel")
     log(f"mesh-knn-engine: {len(every)} bodies x 2 rounds equal on the card "
         f"node and the cpu node, {n_mesh} mesh-served (equal to the card's "
-        f"own fan-out), {masked} masked mesh kNN calls, sparse declines "
+        f"own fan-out), {masked} masked mesh kNN calls, not ported "
         f"{declined}; rounds {[round(1e3 * x, 1) for x in lat]} ms "
         f"({time.monotonic() - t0:.1f}s in all); executor "
         f"{executor.stats}")
@@ -6514,6 +6708,447 @@ def phase_mesh_knn_kernels(torch, rec, launches, per_launch) -> list:
     return rows
 
 
+# ---------------------------------------------------------------------------
+# the mesh's sparse path: one launch per phase over 2 or more shards'
+# rank_features planes
+# ---------------------------------------------------------------------------
+
+MESH_SPARSE_FAMILIES = ("mesh_sparse_topk", "mesh_sparse_coarse",
+                        "mesh_sparse_rerank")
+ONE_SHARD_SPARSE = ("sparse_flat", "sparse_coarse", "sparse_rerank")
+MESH_SPARSE_SOURCES = {f: f"elasticsearch_tpu_torch/csrc/{f}.cu"
+                       for f in MESH_SPARSE_FAMILIES}
+
+
+def mesh_sparse_stack(np, rng, n_slots: int, dp: int, n_docs: int, nb: int,
+                      n_q: int, per_q: int, empty: int):
+    """Seeded stacked rank_features planes of ``n_slots`` shards of
+    different sizes (sparse_inputs per slot, tied docs included; slot
+    ``empty`` holds nothing), padded as MeshPlaneRegistry._stack pads
+    them, and block lists [S, DP, n_q, QB] per (slot, dp row)."""
+    stores = []
+    for s in range(n_slots):
+        n_s = int(rng.integers(n_docs // 3, n_docs))
+        nb_s = int(rng.integers(max(8, nb // 2), nb))
+        rows = [sparse_inputs(np, rng, n_s, nb_s, n_q, per_q, n_q)
+                for _ in range(dp)]
+        stores.append((rows, nb_s))
+    n_max = max(r[0][5] for r, _nb in stores)
+    nb_max = 1 << max(0, math.ceil(math.log2(max(nb for _r, nb in stores))))
+    qb = max(r[0][2].shape[1] for r, _nb in stores)
+    bd = np.full((n_slots, nb_max, 128), -1, np.int32)
+    bw = np.zeros((n_slots, nb_max, 128), np.float32)
+    lv = np.zeros((n_slots, n_max), bool)
+    idx = np.zeros((n_slots, dp, n_q, qb), np.int32)
+    qw = np.zeros((n_slots, dp, n_q, qb), np.float32)
+    for s, (rows, nb_s) in enumerate(stores):
+        if s == empty:
+            continue
+        docs, weights, _i, _w, live, n_pad = rows[0]
+        bd[s, :nb_s], bw[s, :nb_s], lv[s, :n_pad] = docs, weights, live
+        for r, (_d, _wt, i, w, _l, _n) in enumerate(rows):
+            idx[s, r, :, : i.shape[1]] = i
+            qw[s, r, :, : w.shape[1]] = w
+    return bd, bw, idx, qw, lv, n_max
+
+
+def phase_mesh_sparse_small(torch, np, dev) -> None:
+    """The three mesh sparse kernels bitwise against their plain versions,
+    and slot by slot against K15 / K16 / K17 launched on that slot's
+    plane, at S 2 and 4 (an empty slot, dp rows, chunked planes), k 10 and
+    5,000 (the selection's rounds) and k' up to 4,096."""
+    from elasticsearch_tpu_torch.ops import sparse
+    from elasticsearch_tpu_torch.parallel import mesh
+    rng = np.random.default_rng(SEED + 1000)
+    n = 0
+    for n_slots, dp, n_docs, nb, n_q, per_q, k, kprime, empty in (
+            (2, 1, 3000, 64, 4, 12, 10, 64, -1),
+            (4, 1, 200_000, 2048, 16, 150, 10, 4096, 2),
+            (4, 2, 100_000, 1024, 4, 200, 5000, 256, 3),
+            (2, 1, 12_000, 256, 2, 60, 5000, 1024, -1)):
+        host = mesh_sparse_stack(np, rng, n_slots, dp, n_docs, nb, n_q,
+                                 per_q, empty)
+        bd, bw, i4, w4, lv = [torch.as_tensor(a, device=dev)
+                              for a in host[:5]]
+        n_pad = host[5]
+        k = min(k, n_pad)
+        got = mesh.mesh_sparse_topk(bd, bw, i4, w4, lv, n_pad, k)
+        want = mesh.mesh_sparse_topk_plain(bd, bw, i4, w4, lv, n_pad, k)
+        torch.cuda.synchronize()
+        compare(torch, "mesh_sparse_topk", got, want)
+        for s in range(n_slots):
+            for r in range(dp):
+                one = sparse.sparse_topk_batch(
+                    bd[s], bw[s], i4[s, r].contiguous(),
+                    w4[s, r].contiguous(), 1.0, 1.0, lv[s], n_pad, k,
+                    "linear", counted=True)
+                compare(torch, f"mesh_sparse_topk slot {s} row {r} vs K15",
+                        [x[s, r] for x in got], one)
+        idx, qw = i4[:, 0].contiguous(), w4[:, 0].contiguous()
+        bw16 = bw.to(torch.bfloat16)
+        kp = min(kprime, n_pad)
+        cgot = mesh.mesh_sparse_coarse(bd, bw16, idx, qw, lv, n_pad, kp)
+        cwant = mesh.mesh_sparse_coarse_plain(bd, bw16, idx, qw, lv, n_pad,
+                                              kp)
+        torch.cuda.synchronize()
+        compare(torch, "mesh_sparse_coarse", cgot, cwant)
+        rgot = mesh.mesh_sparse_rerank(bd, bw, idx, qw, lv, cgot[1], cgot[0],
+                                       n_pad, kp, 10)
+        rwant = mesh.mesh_sparse_rerank_plain(bd, bw, idx, qw, lv, cgot[1],
+                                              cgot[0], n_pad, kp, 10)
+        torch.cuda.synchronize()
+        compare(torch, "mesh_sparse_rerank", rgot, rwant)
+        for s in range(n_slots):
+            k16 = sparse.sparse_coarse_kernel(bd[s], bw16[s], idx[s], qw[s],
+                                              lv[s], n_pad, kp)
+            compare(torch, f"mesh_sparse_coarse slot {s} vs K16",
+                    [x[s] for x in cgot], k16)
+            k17 = sparse.sparse_rerank_kernel(
+                bd[s], bw[s], idx[s], qw[s], lv[s], cgot[1][s].contiguous(),
+                cgot[0][s].contiguous(), n_pad, kp, 10)
+            compare(torch, f"mesh_sparse_rerank slot {s} vs K17",
+                    [x[s] for x in rgot], k17)
+        torch.cuda.synchronize()
+        if empty >= 0:
+            check(not torch.isfinite(got[0][empty]).any() and
+                  int(got[2][empty].sum()) == 0 and
+                  int(cgot[2][empty].sum()) == 0,
+                  "mesh-sparse-small: the empty slot scored")
+        n += 3
+        log(f"mesh-sparse-small: S={n_slots} dp={dp} n_docs_pad={n_pad} "
+            f"QB={i4.shape[-1]} Q={n_q} k={k} k'={kp}: the three mesh "
+            f"sparse kernels bitwise equal to their plain versions and, "
+            f"slot by slot, to K15/K16/K17")
+    log(f"mesh-sparse-small: {n} mesh sparse kernel calls checked")
+
+
+MESH_SPARSE_POS = {"mesh_sparse_topk": 5, "mesh_sparse_coarse": 5,
+                   "mesh_sparse_rerank": 7}
+
+
+def mesh_sparse_dims(family: str, args):
+    """(S, n_docs_pad, query rows over every slot, gathered positions
+    with a weight, k or k') of a mesh sparse call."""
+    s = args[0].shape[0]
+    n_pad = args[MESH_SPARSE_POS[family]]
+    idx, qw = args[2], args[3]
+    rows = idx.numel() // idx.shape[-1]
+    real = int((qw != 0).sum())
+    k = args[6] if family != "mesh_sparse_rerank" else args[8]
+    return s, n_pad, rows, real, k
+
+
+def mesh_sparse_size(family: str, args):
+    s, n_pad, rows, real, _k = mesh_sparse_dims(family, args)
+    return rows, real, s * n_pad
+
+
+def mesh_sparse_bound(family: str, args):
+    """(bound_ms, bound_by, bytes): K15 / K16 / K17's bound (sparse_bound)
+    summed over the slots -- each gathered posting of a weighted position
+    read once (doc id and weight), the block lists, each slot's live
+    mask, the outputs written once -- over the memory rate, or one op a
+    posting at the f32 peak, whichever is larger."""
+    s, n_pad, rows, real, k = mesh_sparse_dims(family, args)
+    postings = real * 128
+    nbytes = postings * (4 + args[1].element_size()) + args[2].numel() * 8
+    if family == "mesh_sparse_rerank":
+        kk = args[9]
+        nbytes += rows * k * (8 + 1) + rows * kk * 8 + rows * 4
+    else:
+        nbytes += s * n_pad + rows * k * 8 + rows * 4
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = postings / F32_FLOPS
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                       else "operations"), nbytes
+
+
+def mesh_sparse_library_ms(torch, family: str, args):
+    """Row 38's yardstick, as K15's (sparse_library_ms): index_add_'s f32
+    sums of the call's real contributions into a zeroed [rows, n_docs_pad]
+    plane, each row's postings read from its own slot's store (the sums
+    only: no mask or top-k). None for the coarse and re-rank tiers, as for
+    K16 / K17."""
+    if family != "mesh_sparse_topk":
+        return None
+    docs, weights, idx, qw = args[:4]
+    s, nb = docs.shape[:2]
+    n_pad = args[5]
+    rows = idx.numel() // idx.shape[-1]
+    per_slot = rows // s
+    idx, qw = idx.reshape(rows, -1), qw.reshape(rows, -1)
+    r_of, pos = torch.nonzero(qw != 0, as_tuple=True)
+    blocks = (r_of // per_slot) * nb + idx[r_of, pos].long()
+    d = docs.reshape(s * nb, 128)[blocks]
+    c = (qw[r_of, pos][:, None] * weights.reshape(s * nb, 128)[blocks]
+         ).reshape(-1)
+    tgt = (r_of[:, None] * n_pad + d.clamp_min(0).long()).reshape(-1)
+    keep = d.reshape(-1) >= 0
+    tgt, c = tgt[keep], c[keep]
+    return time_call(torch, lambda: torch.zeros(
+        rows * n_pad, device=docs.device).index_add_(0, tgt, c), 20)
+
+
+def mesh_sparse_full_segments(np, n_docs: int, workers: int, source=None):
+    """sparse-full's segments (the same generator and seeds; reused when
+    ``source`` is given) as the 4 shards under routed _ids."""
+    if source is None:
+        source = build_sparse_shard(np, n_docs, workers)
+    return routed_segments(np, source, "msp")
+
+
+def phase_mesh_sparse_full(torch, np, dev, n_docs: int, workers: int,
+                           n_q: int, source=None) -> dict:
+    """The mesh's sparse path at MS MARCO passage scale on one card node:
+    sparse-full's 8,841,823 docs (bench.py cfg_sparse: 16-23 features of
+    8,192 a doc, weights uniform in [0, 3)) on 4 primary shards (0
+    replicas), each doc under an _id that routes to its shard, each shard
+    one generated segment installed with ``restore_segments``; through the
+    REST controller n_q solo ``text_expansion`` bodies in tokens form
+    (sparse-full's texts, expanded once) with the tier on, the same with it
+    off, the n_q as one wave, and 16 solo ``model_text`` bodies; each
+    answer equal to the same node's per-shard fan-out
+    (``search.mesh.enabled: false``, K15-K17), bitwise, and every top-10
+    to a float64 oracle up to near-ties. The mesh legs must launch every
+    mesh sparse family and no K15-K17, with no budget refusal, drain error
+    or mesh fallback. Returns each family's mean device ms a launch over
+    the legs."""
+    from elasticsearch_tpu_torch.indices.breaker import BREAKERS
+    from elasticsearch_tpu_torch.ml import get_model
+    from elasticsearch_tpu_torch.ops.device_segment import MESH_PLANES
+    from elasticsearch_tpu_torch.search import telemetry
+    from elasticsearch_tpu_torch.search.device_profile import DEVICE_PROFILE
+    from elasticsearch_tpu_torch.testing import InProcessCluster
+    on_card = dev.type == "cuda"
+    t0 = time.monotonic()
+    segs = mesh_sparse_full_segments(np, n_docs, workers, source)
+    log(f"mesh-sparse-full: {n_docs} docs on {MESH_SHARDS} shards "
+        f"{[s.n_docs for s in segs]} under routed _ids (one segment each, "
+        f"{[s.features['ml'].block_docs.shape[0] for s in segs]} feature "
+        f"blocks) in {time.monotonic() - t0:.1f}s")
+    cluster = InProcessCluster(n_nodes=1, seed=SEED + 1020, device=dev)
+    cluster.start()
+    node = RestNode(cluster)
+    node.ok("PUT", "/msp", {"settings": {
+        "number_of_shards": MESH_SHARDS, "number_of_replicas": 0},
+        "mappings": {"properties": {"ml": {"type": "rank_features"}}}})
+    cluster.ensure_green("msp")
+    t1 = time.monotonic()
+    svc = node.node().indices_service
+    for s, seg in enumerate(segs):
+        engine = svc.shard("msp", s).engine
+        engine.restore_segments(list(engine.segments) + [seg])
+    count = node.ok("POST", "/msp/_count", {"query": {"match_all": {}}})
+    check(count["count"] == n_docs,
+          f"mesh-sparse-full: _count {count['count']} != {n_docs}")
+    log(f"mesh-sparse-full: restore_segments into 4 shards in "
+        f"{time.monotonic() - t1:.1f}s; _count {count['count']}")
+    texts = sparse_texts(np, np.random.default_rng(SEED + 51), n_q)
+    tokens = get_model(None, dev).expand_batch(texts)
+    bodies = [{"query": {"text_expansion": {"ml": {"tokens": t}}},
+               "size": 10, "_source": False} for t in tokens]
+    mt_texts = sparse_texts(np, np.random.default_rng(SEED + 1021), 16)
+    mt_bodies = [{"query": {"text_expansion": {"ml": {"model_text": t}}},
+                  "size": 10, "_source": False} for t in mt_texts]
+    executor = node.node().search_transport.mesh_executor
+    req = BREAKERS.breaker("request").limit
+    devb = BREAKERS.breaker("device").limit
+    t2 = time.monotonic()
+    first = node.ok("POST", "/msp/_search", bodies[0])
+    t_first = time.monotonic() - t2
+    check(first.get("_data_plane") == "mesh_plane",
+          f"mesh-sparse-full: the first request was not mesh-served: "
+          f"{executor.stats}")
+    parts = [p for p in MESH_PLANES._parts.values()
+             if p.shard_keys[0][0] == "msp"]
+    check(len(parts) == 1, f"mesh-sparse-full: {len(parts)} mesh planes")
+    part = parts[0]
+    log(f"mesh-sparse-full: first request (stacked plane + bf16 mirror "
+        f"built and uploaded) {t_first:.1f}s; plane n_slots={part.n_slots} "
+        f"n_docs_pad={part.n_docs_pad} n_blocks_pad="
+        f"{part.block_docs.shape[1]}, part.nbytes {part.nbytes} "
+        f"(block_docs + block_weights {part.block_docs.numel() * 8}, bf16 "
+        f"mirror {2 * part.block_weights.numel()}); "
+        f"torch.cuda.memory_allocated "
+        f"{torch.cuda.memory_allocated() if on_card else 0}; breaker "
+        f"limits: device {devb}, request {req}")
+    what = "launches" if on_card else "calls"
+    watched = ONE_SHARD_SPARSE + MESH_SPARSE_FAMILIES
+    before = {f: getattr(DEVICE_PROFILE.family(f), what) for f in watched}
+    stats0 = dict(executor.stats)
+    mstats0 = dict(MESH_PLANES.stats)
+    fb0 = dict(telemetry.TELEMETRY.fallbacks)
+    DEVICE_PROFILE.timing = on_card
+    dev0 = device_ms(MESH_SPARSE_FAMILIES)
+    legs, answers = {}, {}
+    for leg, quantized, leg_bodies in (
+            ("solo_tier_on", True, bodies), ("solo_tier_off", False, bodies),
+            ("model_text_solo", True, mt_bodies)):
+        node.ok("PUT", "/_cluster/settings", {"persistent": {
+            "search.plane.quantized": quantized}})
+        times, got = [], []
+        for body in leg_bodies:
+            t = time.monotonic()
+            got.append(node.ok("POST", "/msp/_search", body))
+            times.append(time.monotonic() - t)
+        legs[leg], answers[leg] = times, got
+    node.ok("PUT", "/_cluster/settings", {"persistent": {
+        "search.plane.quantized": True}})
+    executor.stats["max_occupancy"] = 0
+    batches = executor.stats["mesh_batches"]
+    t3 = time.monotonic()
+    boxes = [node.submit("POST", "/msp/_search", body) for body in bodies]
+    cluster.run_until(lambda: all(boxes), 3600.0)
+    t_wave = time.monotonic() - t3
+    check(all(boxes), "mesh-sparse-full: the wave did not finish")
+    for b in boxes:
+        check(b[0][0] == 200, f"mesh-sparse-full: wave request: {b[0][0]}")
+    answers["wave"] = [b[0][1] for b in boxes]
+    if on_card:
+        torch.cuda.synchronize()
+    DEVICE_PROFILE.timing = False
+    kern = {f: v - dev0[f]
+            for f, v in device_ms(MESH_SPARSE_FAMILIES).items()}
+    after = {f: getattr(DEVICE_PROFILE.family(f), what) for f in watched}
+    delta = {f: after[f] - before[f] for f in watched}
+    per_launch = {f: kern[f] / delta[f] for f in MESH_SPARSE_FAMILIES
+                  if delta[f] and on_card}
+    log(f"mesh-sparse-full: {what} in the mesh legs {delta}")
+    for f in MESH_SPARSE_FAMILIES:
+        check(delta[f] > 0, f"mesh-sparse-full: {f} never launched")
+    for f in ONE_SHARD_SPARSE:
+        check(delta[f] == 0, f"mesh-sparse-full: {f} launched for a "
+              f"mesh-served request ({delta[f]})")
+    for leg, got in answers.items():
+        for q, resp in enumerate(got):
+            check(resp.get("_data_plane") == "mesh_plane",
+                  f"mesh-sparse-full: {leg} request {q} was not mesh-served")
+    refusals = {k: telemetry.TELEMETRY.fallbacks.get(k, 0) - fb0.get(k, 0)
+                for k in ("mesh_plane_budget_refused",
+                          telemetry.MESH_PLANE_MISSING,
+                          telemetry.MESH_DRAIN_ERROR)}
+    check(executor.stats["mesh_fallbacks"] == stats0["mesh_fallbacks"] and
+          not any(refusals.values()),
+          f"mesh-sparse-full: mesh fallbacks {executor.stats} {refusals}")
+    mdelta = {k: MESH_PLANES.stats[k] - mstats0[k] for k in mstats0}
+    for leg, times in legs.items():
+        log(f"mesh-sparse-full: {leg}: {len(times)} solo requests p50 "
+            f"{1e3 * pct(times, 0.5):.3f} ms p99 {1e3 * pct(times, 0.99):.3f}"
+            f" ms mean {1e3 * sum(times) / len(times):.3f} ms")
+    busy = sum(kern.values()) / max(
+        1e3 * (sum(sum(x) for x in legs.values()) + t_wave), 1e-9)
+    log(f"mesh-sparse-full: {n_q} requests as one wave in "
+        f"{1e3 * t_wave:.3f} ms wall; mesh drains "
+        f"{executor.stats['mesh_batches'] - batches}, max occupancy "
+        f"{executor.stats['max_occupancy']}; kernel device ms over the "
+        f"legs { {f: round(v, 3) for f, v in kern.items()} } (kernel-busy "
+        f"share {busy:.4f}), mean a launch {per_launch}; mesh plane stats "
+        f"{mdelta}; executor {executor.stats}; budget refusals {refusals}")
+    # the float64 oracle on the tokens bodies (solo, tier on)
+    for q in range(n_q):
+        hits = answers["solo_tier_on"][q]["hits"]["hits"]
+        got = []
+        for h in hits:
+            c = shard_of_hit(h)
+            got.append((c, segs[c].id_to_doc[h["_id"]], h["_score"]))
+        top, host_total = sparse_oracle(np, segs, tokens[q])
+        check(close_to_oracle(top, got), f"mesh-sparse-full: query {q}: "
+              f"top-10 differs from the float64 oracle")
+        total = answers["solo_tier_on"][q]["hits"]["total"]
+        check(total["value"] == min(host_total, 10_000),
+              f"mesh-sparse-full: query {q}: total {total} != host count "
+              f"{host_total}")
+    log(f"mesh-sparse-full: {n_q} top-10s equal the float64 oracle up to "
+        f"near-ties, totals the host count")
+    # the same node's per-shard fan-out (K15-K17) for every answer
+    MESH_PLANES.clear()
+    node.ok("PUT", "/_cluster/settings", {"persistent": {
+        "search.mesh.enabled": False}})
+    t4 = time.monotonic()
+    n_cmp = 0
+    for leg, quantized, leg_bodies in (
+            ("solo_tier_on", True, bodies), ("solo_tier_off", False, bodies),
+            ("model_text_solo", True, mt_bodies)):
+        node.ok("PUT", "/_cluster/settings", {"persistent": {
+            "search.plane.quantized": quantized}})
+        for q, body in enumerate(leg_bodies):
+            want = node.ok("POST", "/msp/_search", body)
+            check("_data_plane" not in want,
+                  "mesh-sparse-full: fan-out labelled")
+            ref = json.dumps(without_route(want), sort_keys=True)
+            check(json.dumps(without_route(answers[leg][q]),
+                             sort_keys=True) == ref,
+                  f"mesh-sparse-full: {leg} request {q}: mesh != fan-out")
+            n_cmp += 1
+            if leg == "solo_tier_on":
+                check(json.dumps(without_route(answers["wave"][q]),
+                                 sort_keys=True) == ref,
+                      f"mesh-sparse-full: wave request {q}: mesh != fan-out")
+                n_cmp += 1
+            hits = want["hits"]["hits"]
+            check(bool(hits) and all(math.isfinite(h["_score"]) and
+                                     h["_score"] > 0 for h in hits),
+                  f"mesh-sparse-full: request {q}: bad or no hits")
+    node.ok("PUT", "/_cluster/settings", {"persistent": {
+        "search.mesh.enabled": True, "search.plane.quantized": True}})
+    log(f"mesh-sparse-full: {n_cmp} mesh answers equal the per-shard "
+        f"fan-out's ({time.monotonic() - t4:.1f}s)")
+    cluster.stop()
+    return per_launch
+
+
+def shard_of_hit(hit) -> int:
+    """The shard a hit's _id routes to (where its doc lives)."""
+    from elasticsearch_tpu_torch.utils.murmur3 import shard_id_for
+    return shard_id_for(hit["_id"], MESH_SHARDS)
+
+
+def phase_mesh_sparse_kernels(torch, rec, launches, per_launch) -> list:
+    """Rows 34, 35 and 38 bitwise against their plain versions on up to 4
+    of the main path's calls and the largest, then timed (CUDA events) at
+    the largest; ``per_launch`` is each family's mean device ms a launch
+    over the mesh-sparse-full legs."""
+    from elasticsearch_tpu_torch.parallel import mesh
+    rows = []
+    for fam in MESH_SPARSE_FAMILIES:
+        calls = rec.calls[fam]
+        check(bool(calls), f"kernels: no {fam} call recorded")
+        kernel, plain = getattr(mesh, fam), getattr(mesh, fam + "_plain")
+        err = 0.0
+        for args, kwargs in calls[:4] + calls[-1:]:
+            got = kernel(*args, **kwargs)
+            want = plain(*args, **kwargs)
+            torch.cuda.synchronize()
+            err = max(err, compare(torch, fam, got, want))
+            del got, want
+        args, kwargs = max(calls, key=lambda c: mesh_sparse_size(fam, c[0]))
+        ms = time_call(torch, lambda: kernel(*args, **kwargs), 20)
+        plain_ms = time_call(torch, lambda: plain(*args, **kwargs), 5)
+        bound_ms, bound_by, nbytes = mesh_sparse_bound(fam, args)
+        lib = mesh_sparse_library_ms(torch, fam, args)
+        s, n_pad, q_rows, real, k = mesh_sparse_dims(fam, args)
+        shape = (f"S={s} n_docs_pad={n_pad} rows={q_rows} "
+                 f"weighted_positions={real} "
+                 f"{'k' if fam == 'mesh_sparse_topk' else 'kprime'}={k}")
+        log(f"kernel {fam}: {ms:.4f} ms (median of 20), plain "
+            f"{plain_ms:.4f} ms (median of 5), bound {bound_ms:.4f} ms "
+            f"({nbytes} bytes at 3.35 TB/s, {bound_by}), library "
+            f"(index_add_ sums only) {lib}, max_abs_err {err} over "
+            f"{min(len(calls), 4) + 1} main-path calls, timed at the "
+            f"largest, {shape}; mean a launch over the mesh-sparse-full "
+            f"legs {per_launch.get(fam)} ms")
+        rows.append({
+            "name": fam, "route": "cuda", "source": MESH_SPARSE_SOURCES[fam],
+            "replaces": REPLACES[fam], "launches": launches.get(fam, 0),
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib,
+            "library_is_partial": lib is not None,
+            "ms_per_launch_on_the_legs": per_launch.get(fam),
+            "shape": shape})
+        torch.cuda.empty_cache()
+    return rows
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--phases", default="card,small,knn-small,dense-small,"
@@ -6522,7 +7157,8 @@ def main(argv=None) -> int:
                     "dense-full,wide,ivf-engine,ivf-full,sparse-engine,"
                     "sparse-full,aggs-engine,aggs-full,node-engine,"
                     "hybrid-full,mesh-small,mesh-engine,mesh-full,"
-                    "mesh-knn-small,mesh-knn-engine,mesh-knn-full")
+                    "mesh-knn-small,mesh-knn-engine,mesh-knn-full,"
+                    "mesh-sparse-small,mesh-sparse-full")
     ap.add_argument("--full-docs", type=int, default=MS_MARCO_DOCS)
     ap.add_argument("--engine-docs", type=int, default=10_000)
     ap.add_argument("--knn-docs", type=int, default=SIFT_DOCS)
@@ -6573,9 +7209,9 @@ def main(argv=None) -> int:
     BREAKERS.configure(device=48 * GB, request=24 * GB, total=72 * GB)
     builds = {}
     if args.workers > 1 and "full" in phases:
-        builds["full"] = (build_segment_postings, full_jobs(args.full_docs))
+        builds["full"] = (segment_tokens, full_jobs(args.full_docs))
     if args.workers > 1 and "hybrid-full" in phases:
-        builds["nq"] = (build_nq_segment_postings, nq_jobs(args.nq_docs))
+        builds["nq"] = (nq_segment_tokens, nq_jobs(args.nq_docs))
     prebuilt = Prebuilt(args.workers, builds) if builds else None
 
     def t():
@@ -6613,6 +7249,9 @@ def main(argv=None) -> int:
         if "mesh-knn-small" in phases and on_card:
             phase_mesh_knn_small(torch, np, dev)
             log(t(), "mesh-knn-small done")
+        if "mesh-sparse-small" in phases and on_card:
+            phase_mesh_sparse_small(torch, np, dev)
+            log(t(), "mesh-sparse-small done")
         from elasticsearch_tpu_torch.ops import bm25 as bm
         from elasticsearch_tpu_torch.ops import ivf, knn, topk
         rows = []
@@ -6754,6 +7393,7 @@ def main(argv=None) -> int:
         # the sparse main path: launch counts from zero, read right after
         from elasticsearch_tpu_torch.ml import text_expansion as te
         from elasticsearch_tpu_torch.ops import sparse
+        sparse_segs = None
         if "sparse-engine" in phases:
             engines["sparse"] = build_sparse_engine(np, dev,
                                                     args.sparse_engine_docs)
@@ -6770,8 +7410,9 @@ def main(argv=None) -> int:
                 phase_sparse_engine(torch, np, dev, engines["sparse"])
                 log(t(), "sparse-engine done")
             if "sparse-full" in phases:
-                phase_sparse_full(torch, np, dev, args.sparse_docs,
-                                  args.workers, args.queries)
+                sparse_segs = phase_sparse_full(torch, np, dev,
+                                                args.sparse_docs,
+                                                args.workers, args.queries)
                 log(t(), "sparse-full done")
         launches = DEVICE_PROFILE.launches()
         log("launches on the sparse main path: " + json.dumps(
@@ -6906,9 +7547,40 @@ def main(argv=None) -> int:
         del krec
         MESH_PLANES.clear()
         PLANES.clear()
+        if on_card:
+            torch.cuda.empty_cache()
+        # the mesh's sparse path (a card node serving text_expansion on 4
+        # shards, one mesh_sparse_* launch per phase for all of them):
+        # launch counts from zero, read right after
+        DEVICE_PROFILE.reset_launches()
+        per_launch = {}
+        with Recorder({f: (mesh_ops, f) for f in MESH_SPARSE_FAMILIES},
+                      mesh_sparse_size, keep=4) as sprec:
+            if "mesh-sparse-full" in phases:
+                per_launch = phase_mesh_sparse_full(
+                    torch, np, dev, args.sparse_docs, args.workers,
+                    args.queries, sparse_segs)
+                sparse_segs = None
+                log(t(), "mesh-sparse-full done")
+        launches = DEVICE_PROFILE.launches()
+        log("launches on the mesh sparse main path: " + json.dumps(
+            {f: launches.get(f, 0) for f in MESH_SPARSE_FAMILIES +
+             ONE_SHARD_SPARSE}))
+        if on_card and "mesh-sparse-full" in phases:
+            for fam in MESH_SPARSE_FAMILIES:
+                check(launches.get(fam, 0) > 0,
+                      f"{fam} was never launched on the main path")
+            if "kernels" in phases:
+                rows += phase_mesh_sparse_kernels(torch, sprec, launches,
+                                                  per_launch)
+                log(t(), "mesh sparse kernels done")
+        del sprec
+        MESH_PLANES.clear()
+        PLANES.clear()
         if on_card and {"full", "knn-full", "dense-full", "ivf-full",
                         "sparse-full", "wide", "aggs-full", "hybrid-full",
-                        "mesh-full", "mesh-knn-full", "kernels"} <= phases:
+                        "mesh-full", "mesh-knn-full", "mesh-sparse-full",
+                        "kernels"} <= phases:
             from elasticsearch_tpu_torch.search.device_profile import (
                 KERNEL_FAMILIES, MASKED_VARIANTS,
             )

@@ -13,7 +13,7 @@
 // and the chunked top-k' pass are the same.
 //
 // Why the simple design: it is sparse_flat (counted) with the bf16
-// contribution (sparse_common.cuh). The count is exact: a positive
+// contribution (sparse_common.cuh `scored_topk`, entered with ONE_SLOT). The count is exact: a positive
 // contribution never rounds to 0 in fixed point, and a positive weight
 // stays positive in bf16, so score > 0 flags the same docs as the f32
 // kernel. The plain PyTorch version is
@@ -30,5 +30,5 @@ extern "C" int sparse_coarse_launch(
     return sparse::scored_topk<true>(
         block_docs, block_weights_q, block_idx, query_weight, live, qb,
         n_docs_pad, n_q, kprime, 1, p, acc, chunk_s, chunk_i, out_cs,
-        out_cand, hits, (cudaStream_t)stream);
+        out_cand, hits, (cudaStream_t)stream, sparse::ONE_SLOT);
 }

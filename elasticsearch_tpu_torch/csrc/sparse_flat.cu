@@ -15,10 +15,11 @@
 // bm25_flat.
 //
 // Why the simple design: bm25_flat's, with the rank_features
-// contribution (sparse_common.cuh): one CTA per (gathered block, query),
+// contribution (sparse_common.cuh `scored_topk`, entered with ONE_SLOT as
+// mesh_sparse_topk enters it with S): one CTA per (gathered block, query),
 // one thread per posting, 64-bit fixed-point integer atomics, then
-// bm25_common.cuh's chunked mask + count + top-k. Padding slots (weight 0)
-// leave at once. A sparse accumulator would move fewer bytes; that is
+// bm25_common.cuh's chunked mask + count + top-k. Padding positions
+// (weight 0) leave at once. A sparse accumulator would move fewer bytes; that is
 // later work. The plain PyTorch version is
 // elasticsearch_tpu_torch/ops/sparse.py `sparse_flat_plain`.
 #include "sparse_common.cuh"
@@ -33,5 +34,5 @@ extern "C" int sparse_flat_launch(
     return sparse::scored_topk<false>(
         block_docs, block_weights, block_idx, query_weight, live, qb,
         n_docs_pad, n_q, k, counted, p, acc, chunk_s, chunk_i, out_s, out_d,
-        hits, (cudaStream_t)stream);
+        hits, (cudaStream_t)stream, sparse::ONE_SLOT);
 }

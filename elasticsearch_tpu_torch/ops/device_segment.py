@@ -28,9 +28,9 @@ generation's centroids. The columns plane (``PlaneColumns``) packs a
 field's aggregation columns (the numeric doc values and the keyword
 ordinal table, remapped to global ordinals) for ``search/plane_aggs.py``.
 The mesh-sharded plane (``MeshPlanePart``, ``MESH_PLANES``) stacks the
-postings or vector planes of a fan-out's co-located shards as ``[S, ...]``
-slots for the mesh text and kNN kernels (``parallel/mesh.py``); its
-features kind is not ported yet and raises NotPortedError.
+postings, vector or rank_features planes of a fan-out's co-located shards
+as ``[S, ...]`` slots for the mesh text, kNN and sparse kernels
+(``parallel/mesh.py``).
 """
 
 from __future__ import annotations
@@ -1116,8 +1116,8 @@ class MeshPlanePart:
     for one launch per phase: each shard's packed plane occupies one slot
     of a ``[S, ...]`` stack on the node's device (``parallel/mesh.py``
     ``mesh_layout``: the JAX package's ``shard`` mesh axis is the
-    kernels' leading slot axis), so one ``mesh_bm25_*`` or
-    ``mesh_knn_*`` launch scores every (shard, query) pair and the
+    kernels' leading slot axis), so one ``mesh_bm25_*``, ``mesh_knn_*``
+    or ``mesh_sparse_*`` launch scores every (shard, query) pair and the
     per-shard RPC fan-out collapses to ONE launch per phase.
 
     ``subs[i]`` is shard i's host-level PlanePart (refs / doc_base /
@@ -1169,7 +1169,10 @@ class MeshPlanePart:
         - vectors: (q8 int8 [S, N, D], scales f32 [S, N]), ``quantize_rows``
           over the [S * N, D] rows on the host (per-row symmetric, so each
           row quantizes exactly as in that shard's ``PlaneVectors``
-          mirror).
+          mirror);
+        - features: (block_weights bf16 [S, NB, B],), converted on the
+          device itself (round to nearest even, each slot's rows that
+          shard's ``PlaneFeatures`` mirror).
 
         Breaker-charged like the exact stacks; a refused upload is
         memoized so a starved node serves the exact mesh path without
@@ -1187,7 +1190,7 @@ class MeshPlanePart:
             host = (q8.reshape(s, n, d), scales.reshape(s, n))
             n_bytes = int(q8.nbytes + scales.nbytes)
         else:
-            raise NotPortedError(f"mesh_{self.kind}")
+            n_bytes = 2 * self.block_weights.numel()
         from elasticsearch_tpu_torch.indices.breaker import charge_device
         try:
             charge = charge_device(
@@ -1202,9 +1205,11 @@ class MeshPlanePart:
         if self.kind == "postings":
             self._q_dev = (self.block_tfs.to(torch.bfloat16),
                            self.doc_lens.to(torch.bfloat16))
-        else:
+        elif self.kind == "vectors":
             self._q_dev = tuple(torch.as_tensor(a, device=self.device)
                                 for a in host)
+        else:
+            self._q_dev = (self.block_weights.to(torch.bfloat16),)
         MESH_PLANES.stats["mesh_quantized_mirror_builds"] += 1
         return self._q_dev
 
@@ -1216,9 +1221,8 @@ class MeshPlaneRegistry:
     fan-out per shard" — the mesh is an optimization, never a
     correctness gate. Planes charge the ``device`` breaker PER DEVICE,
     LRU-evict under pressure, and re-pack incrementally when a member
-    shard's refresh appends segments. The postings and vectors kinds are
-    stacked; the features kind (the sparse mesh programs) is not ported
-    yet and raises NotPortedError."""
+    shard's refresh appends segments. The postings, vectors and features
+    kinds are stacked."""
 
     MAX_PARTS = 16
     MAX_REFUSALS = 64
@@ -1373,9 +1377,6 @@ class MeshPlaneRegistry:
 
     def _build(self, shard_segments, kind: str, field: str,
                key: Tuple, dev: torch.device) -> Optional[MeshPlanePart]:
-        if kind not in ("postings", "vectors"):
-            # the sparse mesh programs are not ported yet
-            raise NotPortedError(f"mesh_{kind}")
         from elasticsearch_tpu_torch.parallel.mesh import mesh_layout
         _grid, n_slots, _spd = mesh_layout(len(shard_segments), device=dev)
         prev = self._find_prev(shard_segments, kind, field, dev)
@@ -1447,8 +1448,9 @@ class MeshPlaneRegistry:
     def _stack(self, part: MeshPlanePart, hosts) -> Dict[str, np.ndarray]:
         """Stack per-shard host planes into common-shaped [n_slots, ...]
         arrays (empty/padding slots score nothing: -1 block docs, zero
-        lengths, live False; zero vector rows, exists False). Vector
-        planes of mixed dims or similarity raise PlaneUnavailable."""
+        lengths and weights, live False; zero vector rows, exists False).
+        Vector planes of mixed dims or similarity raise
+        PlaneUnavailable."""
         subs = part.subs
         n_slots = part.n_slots
         n_max = max((s.n_docs_pad for s in subs if s is not None),
@@ -1477,6 +1479,16 @@ class MeshPlaneRegistry:
             return {"matrix": matrix, "norms": norms, "exists": exists}
         nb_max = max(h[0].shape[0] for h in hosts if h is not None)
         nb_max = next_pow2(max(nb_max, 1))
+        if part.kind == "features":
+            bd = np.full((n_slots, nb_max, BLOCK), -1, np.int32)
+            bw = np.zeros((n_slots, nb_max, BLOCK), np.float32)
+            for i, h in enumerate(hosts):
+                if h is None:
+                    continue
+                hbd, hbw = h
+                bd[i, : hbd.shape[0]] = hbd
+                bw[i, : hbw.shape[0]] = hbw
+            return {"block_docs": bd, "block_weights": bw}
         bd = np.full((n_slots, nb_max, BLOCK), -1, np.int32)
         bt = np.zeros((n_slots, nb_max, BLOCK), np.float32)
         dl = np.zeros((n_slots, n_max), np.float32)

@@ -1,7 +1,7 @@
 """The JAX package's ``parallel`` package so far: the mesh topology and
-layout, the mesh text and kNN kernels (``parallel/mesh.py``) and the
-host-only eligibility check of the mesh data plane. The sparse mesh
-programs and the sharded search programs are not ported yet."""
+layout, the mesh text, kNN and sparse kernels (``parallel/mesh.py``) and
+the host-only eligibility check of the mesh data plane. The sharded
+search programs are not ported yet."""
 
 from elasticsearch_tpu_torch.parallel.mesh import (
     HostTopology, host_backend, mesh_layout, mesh_ready,

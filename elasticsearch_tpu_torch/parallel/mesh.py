@@ -7,8 +7,8 @@ layout of the mesh-sharded plane -- the pieces the node spine calls
 (``action/search_action.py``, ``search/mesh_executor.py``,
 ``testing.py``).
 
-The device half is the text and kNN kinds' six programs, each the
-single-shard body of an already-ported kernel run for every slot (one
+The device half is the text, kNN and sparse kinds' nine programs, each
+the single-shard body of an already-ported kernel run for every slot (one
 shard of a co-located fan-out) in ONE launch over the stacked planes
 (``ops/device_segment.py`` ``MeshPlanePart``):
 
@@ -18,6 +18,10 @@ shard of a co-located fan-out) in ONE launch over the stacked planes
 - ``mesh_knn_topk`` (``csrc/mesh_knn_topk.cu``): K5 per slot;
 - ``mesh_knn_coarse`` (``csrc/mesh_knn_coarse.cu``): K6 per slot;
 - ``mesh_knn_rerank`` (``csrc/mesh_knn_rerank.cu``): K7 per slot;
+- ``mesh_sparse_topk`` (``csrc/mesh_sparse_topk.cu``): K15 per (slot, dp
+  row);
+- ``mesh_sparse_coarse`` (``csrc/mesh_sparse_coarse.cu``): K16 per slot;
+- ``mesh_sparse_rerank`` (``csrc/mesh_sparse_rerank.cu``): K17 per slot;
 
 the kNN three with or without a per-query filter-mask stack (one family
 each, as in the JAX package; a masked call's shape label ends in
@@ -26,14 +30,14 @@ each, as in the JAX package; a masked call's shape label ends in
 Each has a plain PyTorch version beside it, which runs the one-shard plain
 version slot by slot; a wrapper takes it only for CPU tensors, and on a
 CUDA tensor launches its kernel or raises. The 64-bit fixed-point sums of
-the text kind, and the kNN kind's per-pair sums in dimension order (exact
-int32 sums in the coarse pass), make every slot's output bitwise the
-one-shard kernel's on that slot's plane.
+the text and sparse kinds, and the kNN kind's per-pair sums in dimension
+order (exact int32 sums in the coarse pass), make every slot's output
+bitwise the one-shard kernel's on that slot's plane.
 
 The port lays the whole mesh on the node's own device -- a grid of one:
 the JAX package's ``shard`` axis becomes the kernels' leading slot axis,
-and its ``dp`` axis caps at that one device. The sparse mesh programs,
-and a mesh across several cards, are not ported yet.
+and its ``dp`` axis caps at that one device. A mesh across several cards
+is not ported yet.
 """
 
 from __future__ import annotations
@@ -51,6 +55,9 @@ from elasticsearch_tpu_torch.ops.bm25 import (
 from elasticsearch_tpu_torch.ops.knn import (
     MAX_DIMS, _check_query_terms, _opt_ptr, _sim_code, knn_coarse_plain,
     knn_flat_plain, knn_rerank_plain,
+)
+from elasticsearch_tpu_torch.ops.sparse import (
+    MAX_QUERIES, sparse_coarse_plain, sparse_flat_plain, sparse_rerank_plain,
 )
 from elasticsearch_tpu_torch.search.device_profile import DEVICE_PROFILE
 
@@ -210,6 +217,12 @@ _SIG = {
     + ["p"] * 6,
     "mesh_knn_rerank": ["p"] * 9 + ["i", "i", "ll", "i", "i", "i", "i"]
     + ["p"] * 4,
+    "mesh_sparse_topk": ["p"] * 5 + ["i", "i", "ll", "i", "ll", "i", "i"]
+    + ["p"] * 7,
+    "mesh_sparse_coarse": ["p"] * 5 + ["i", "ll", "i", "ll", "i", "i"]
+    + ["p"] * 7,
+    "mesh_sparse_rerank": ["p"] * 7 + ["i", "ll", "i", "ll", "i", "i", "i"]
+    + ["p"] * 7,
 }
 
 
@@ -629,4 +642,211 @@ def mesh_knn_rerank(matrix, norms, allowed, queries, qn, q2, cand, coarse_s,
             _ptr(qn), _ptr(q2), _ptr(cand), _ptr(coarse_s), s, n_q, n_pad,
             dims, kprime, k, code, _ptr(out_s), _ptr(out_d), _ptr(eps),
             _stream())
+        return out_s, out_d, eps
+
+
+# ---------------------------------------------------------------------------
+# the sparse kind: K15 / K16 / K17 per slot over the stacked rank_features
+# planes
+# ---------------------------------------------------------------------------
+
+def _check_features_stack(block_docs, block_weights, live, n_docs_pad: int,
+                          weight_dtype) -> Tuple[int, int]:
+    """(n_slots, nb) of a stacked rank_features plane, checked."""
+    if block_docs.dim() != 3 or block_docs.shape[2] != BLOCK_WIDTH:
+        raise ValueError(f"[block_docs] must be [S, NB, {BLOCK_WIDTH}]")
+    s, nb = int(block_docs.shape[0]), int(block_docs.shape[1])
+    _check("block_docs", block_docs, torch.int32, (s, nb, BLOCK_WIDTH))
+    _check("block_weights", block_weights, weight_dtype,
+           (s, nb, BLOCK_WIDTH))
+    _check("live", live, torch.bool, (s, n_docs_pad))
+    return s, nb
+
+
+def _check_lists(block_idx, query_weight, lead) -> Tuple[int, int]:
+    """(Q, QB) of block lists and weights shaped ``lead + (Q, QB)``,
+    checked, with the kernels' row bound over every leading axis."""
+    nd = len(lead) + 2
+    if block_idx.dim() != nd or tuple(block_idx.shape[:len(lead)]) != lead:
+        raise ValueError(f"[block_idx] must be {list(lead) + ['Q', 'QB']}, "
+                         f"got {tuple(block_idx.shape)}")
+    n_q, qb = (int(x) for x in block_idx.shape[len(lead):])
+    shape = tuple(lead) + (n_q, qb)
+    _check("block_idx", block_idx, torch.int32, shape)
+    _check("query_weight", query_weight, torch.float32, shape)
+    rows = n_q
+    for x in lead:
+        rows *= x
+    if not 1 <= rows <= MAX_QUERIES:
+        raise ValueError(f"{rows} query rows outside [1, {MAX_QUERIES}]")
+    return n_q, qb
+
+
+def _sparse_label(s: int, qb: int, n_docs_pad: int, n_q: int,
+                  k: int) -> str:
+    return f"s={s}/qb={qb}/n_docs_pad={n_docs_pad}/n_q={n_q}/k={k}"
+
+
+def mesh_sparse_topk_plain(block_docs, block_weights, block_idx,
+                           query_weight, live, n_docs_pad: int, k: int):
+    """``sparse_flat_plain`` (linear, counted) for every (slot, dp row),
+    stacked."""
+    s_all, d_all, h_all = [], [], []
+    for si in range(block_docs.shape[0]):
+        rows = [sparse_flat_plain(
+            block_docs[si], block_weights[si], block_idx[si, r],
+            query_weight[si, r], 1.0, 1.0, live[si], n_docs_pad, k,
+            "linear", counted=True)
+            for r in range(block_idx.shape[1])]
+        s_all.append(torch.stack([x[0] for x in rows]))
+        d_all.append(torch.stack([x[1] for x in rows]))
+        h_all.append(torch.stack([x[2] for x in rows]))
+    return torch.stack(s_all), torch.stack(d_all), torch.stack(h_all)
+
+
+def mesh_sparse_coarse_plain(block_docs, block_weights_q, block_idx,
+                             query_weight, live, n_docs_pad: int,
+                             kprime: int):
+    """``sparse_coarse_plain`` for every slot, stacked."""
+    outs = [sparse_coarse_plain(block_docs[si], block_weights_q[si],
+                                block_idx[si], query_weight[si], live[si],
+                                n_docs_pad, kprime)
+            for si in range(block_docs.shape[0])]
+    return tuple(torch.stack([o[j] for o in outs]) for j in range(3))
+
+
+def mesh_sparse_rerank_plain(block_docs, block_weights, block_idx,
+                             query_weight, live, cand, coarse_s,
+                             n_docs_pad: int, kprime: int, k: int):
+    """``sparse_rerank_plain`` for every slot, stacked."""
+    outs = [sparse_rerank_plain(block_docs[si], block_weights[si],
+                                block_idx[si], query_weight[si], live[si],
+                                cand[si], coarse_s[si], n_docs_pad, kprime,
+                                k)
+            for si in range(block_docs.shape[0])]
+    return tuple(torch.stack([o[j] for o in outs]) for j in range(3))
+
+
+def mesh_sparse_topk(block_docs, block_weights, block_idx, query_weight,
+                     live, n_docs_pad: int, k: int):
+    """Row 38. The exact rank_features top-k of every (slot, dp row) of
+    the stacked planes in one launch: block_docs / block_weights
+    [S, NB, 128] (int32 / f32), live [S, N], block lists and query weights
+    [S, DP, Q, QB] (block ids local to the slot's store; block 0 / weight
+    0 as padding). Returns (scores [S, DP, Q, k] f32, plane docs
+    [S, DP, Q, k] int32, hits [S, DP, Q] int32); each (slot, row) is
+    ``sparse_topk_batch`` (K15, linear, counted) on that slot's plane.
+    Any 1 <= k <= N (the selection's rounds above KMAX)."""
+    cuda = _on_cuda(block_docs, block_weights, block_idx, query_weight, live)
+    s, nb = _check_features_stack(block_docs, block_weights, live,
+                                  n_docs_pad, torch.float32)
+    if block_idx.dim() != 4:
+        raise ValueError(f"[block_idx] must be [{s}, DP, Q, QB]")
+    dp = int(block_idx.shape[1])
+    n_q, qb = _check_lists(block_idx, query_weight, (s, dp))
+    if not 1 <= k <= n_docs_pad:
+        raise ValueError(f"k={k} outside [1, {n_docs_pad}]")
+    with DEVICE_PROFILE.call("mesh_sparse_topk",
+                             _sparse_label(s, qb, n_docs_pad, n_q, k), cuda):
+        if not cuda:
+            return mesh_sparse_topk_plain(block_docs, block_weights,
+                                          block_idx, query_weight, live,
+                                          n_docs_pad, k)
+        dev = block_docs.device
+        rows = s * dp * n_q
+        acc = torch.empty(rows * n_docs_pad, dtype=torch.int64, device=dev)
+        ck = chunk_entries(rows, n_docs_pad, k)
+        chunk_s = torch.empty(ck, dtype=torch.float32, device=dev)
+        chunk_i = torch.empty(ck, dtype=torch.int32, device=dev)
+        out_s = torch.empty(s, dp, n_q, k, dtype=torch.float32, device=dev)
+        out_d = torch.empty(s, dp, n_q, k, dtype=torch.int32, device=dev)
+        hits = torch.empty(s, dp, n_q, dtype=torch.int32, device=dev)
+        launch_kernel(
+            "mesh_sparse_topk", _SIG["mesh_sparse_topk"], _ptr(block_docs),
+            _ptr(block_weights), _ptr(block_idx), _ptr(query_weight),
+            _ptr(live), s, dp, nb, qb, n_docs_pad, n_q, k, _ptr(acc),
+            _ptr(chunk_s), _ptr(chunk_i), _ptr(out_s), _ptr(out_d),
+            _ptr(hits), _stream())
+        return out_s, out_d, hits
+
+
+def mesh_sparse_coarse(block_docs, block_weights_q, block_idx, query_weight,
+                       live, n_docs_pad: int, kprime: int):
+    """Row 34. The bf16 coarse tier of every slot in one launch:
+    block_weights_q [S, NB, 128] bf16 (each slot that shard's
+    ``PlaneFeatures`` mirror), block lists and weights [S, Q, QB]. Returns
+    (coarse scores [S, Q, k'] f32, candidates [S, Q, k'] int32, exact
+    match counts [S, Q] int32); each slot is ``sparse_coarse_kernel``
+    (K16) on that slot's mirror."""
+    cuda = _on_cuda(block_docs, block_weights_q, block_idx, query_weight,
+                    live)
+    s, nb = _check_features_stack(block_docs, block_weights_q, live,
+                                  n_docs_pad, torch.bfloat16)
+    n_q, qb = _check_lists(block_idx, query_weight, (s,))
+    if not 1 <= kprime <= min(KMAX, n_docs_pad):
+        raise ValueError(
+            f"kprime={kprime} outside [1, {min(KMAX, n_docs_pad)}]")
+    with DEVICE_PROFILE.call("mesh_sparse_coarse",
+                             _sparse_label(s, qb, n_docs_pad, n_q, kprime),
+                             cuda):
+        if not cuda:
+            return mesh_sparse_coarse_plain(block_docs, block_weights_q,
+                                            block_idx, query_weight, live,
+                                            n_docs_pad, kprime)
+        dev = block_docs.device
+        rows = s * n_q
+        acc = torch.empty(rows * n_docs_pad, dtype=torch.int64, device=dev)
+        ck = chunk_entries(rows, n_docs_pad, kprime)
+        chunk_s = torch.empty(ck, dtype=torch.float32, device=dev)
+        chunk_i = torch.empty(ck, dtype=torch.int32, device=dev)
+        cs = torch.empty(s, n_q, kprime, dtype=torch.float32, device=dev)
+        cand = torch.empty(s, n_q, kprime, dtype=torch.int32, device=dev)
+        hits = torch.empty(s, n_q, dtype=torch.int32, device=dev)
+        launch_kernel(
+            "mesh_sparse_coarse", _SIG["mesh_sparse_coarse"],
+            _ptr(block_docs), _ptr(block_weights_q), _ptr(block_idx),
+            _ptr(query_weight), _ptr(live), s, nb, qb, n_docs_pad, n_q,
+            kprime, _ptr(acc), _ptr(chunk_s), _ptr(chunk_i), _ptr(cs),
+            _ptr(cand), _ptr(hits), _stream())
+        return cs, cand, hits
+
+
+def mesh_sparse_rerank(block_docs, block_weights, block_idx, query_weight,
+                       live, cand, coarse_s, n_docs_pad: int, kprime: int,
+                       k: int):
+    """Row 35. The exact re-score of every slot's coarse candidates in one
+    launch: the f32 stack, block lists and weights [S, Q, QB], candidates
+    and coarse scores [S, Q, k']. Returns (scores [S, Q, k] f32, plane docs
+    [S, Q, k] int32, eps [S, Q] f32); each slot is
+    ``sparse_rerank_kernel`` (K17) on that slot's plane."""
+    cuda = _on_cuda(block_docs, block_weights, block_idx, query_weight, live,
+                    cand, coarse_s)
+    s, nb = _check_features_stack(block_docs, block_weights, live,
+                                  n_docs_pad, torch.float32)
+    n_q, qb = _check_lists(block_idx, query_weight, (s,))
+    _check("cand", cand, torch.int32, (s, n_q, kprime))
+    _check("coarse_s", coarse_s, torch.float32, (s, n_q, kprime))
+    if not 1 <= k <= kprime <= KMAX:
+        raise ValueError(f"need 1 <= k={k} <= kprime={kprime} <= {KMAX}")
+    with DEVICE_PROFILE.call("mesh_sparse_rerank",
+                             _sparse_label(s, qb, n_docs_pad, n_q, kprime),
+                             cuda):
+        if not cuda:
+            return mesh_sparse_rerank_plain(block_docs, block_weights,
+                                            block_idx, query_weight, live,
+                                            cand, coarse_s, n_docs_pad,
+                                            kprime, k)
+        dev = block_docs.device
+        cand_s = torch.empty(s, n_q, kprime, dtype=torch.int32, device=dev)
+        cs_s = torch.empty(s, n_q, kprime, dtype=torch.float32, device=dev)
+        acc = torch.empty(s, n_q, kprime, dtype=torch.int64, device=dev)
+        out_s = torch.empty(s, n_q, k, dtype=torch.float32, device=dev)
+        out_d = torch.empty(s, n_q, k, dtype=torch.int32, device=dev)
+        eps = torch.empty(s, n_q, dtype=torch.float32, device=dev)
+        launch_kernel(
+            "mesh_sparse_rerank", _SIG["mesh_sparse_rerank"],
+            _ptr(block_docs), _ptr(block_weights), _ptr(block_idx),
+            _ptr(query_weight), _ptr(live), _ptr(cand), _ptr(coarse_s), s,
+            nb, qb, n_docs_pad, n_q, kprime, k, _ptr(cand_s), _ptr(cs_s),
+            _ptr(acc), _ptr(out_s), _ptr(out_d), _ptr(eps), _stream())
         return out_s, out_d, eps

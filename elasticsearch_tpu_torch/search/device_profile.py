@@ -12,8 +12,10 @@ here, by family (``KERNEL_FAMILIES``: ``bm25_flat``, ``bm25_flat_seg``,
 ``aggs_ordinal_counts_plane``, ``aggs_histogram_plane`` in
 ``ops/aggs.py``; ``rrf_fuse``, ``rrf_fuse_batch`` and ``linear_fuse`` in
 ``ops/fusion.py``; ``mesh_bm25_flat``, ``mesh_bm25_coarse``,
-``mesh_bm25_rerank``, ``mesh_knn_topk``, ``mesh_knn_coarse`` and
-``mesh_knn_rerank`` in ``parallel/mesh.py``, the mesh kNN families
+``mesh_bm25_rerank``, ``mesh_knn_topk``, ``mesh_knn_coarse``,
+``mesh_knn_rerank``, ``mesh_sparse_topk``, ``mesh_sparse_coarse`` and
+``mesh_sparse_rerank`` in ``parallel/mesh.py`` -- 35 families -- the mesh
+kNN families
 counting masked and unmasked launches together, as the JAX package
 does, with ``/masked`` ending a masked call's shape label), and the
 launches of K5-K7 with a per-query mask stack apart from the others, as
@@ -52,7 +54,9 @@ KERNEL_FAMILIES = ("bm25_flat", "bm25_flat_seg", "bm25_coarse", "bm25_rerank",
                    "aggs_ordinal_counts_plane", "aggs_histogram_plane",
                    "rrf_fuse", "rrf_fuse_batch", "linear_fuse",
                    "mesh_bm25_flat", "mesh_bm25_coarse", "mesh_bm25_rerank",
-                   "mesh_knn_topk", "mesh_knn_coarse", "mesh_knn_rerank")
+                   "mesh_knn_topk", "mesh_knn_coarse", "mesh_knn_rerank",
+                   "mesh_sparse_topk", "mesh_sparse_coarse",
+                   "mesh_sparse_rerank")
 # the masked launches of knn_flat / knn_coarse / knn_rerank (the same
 # kernels with a [B, N_pad] filter-mask operand), counted under these names
 MASKED_VARIANTS = ("knn_flat_masked", "knn_coarse_masked",

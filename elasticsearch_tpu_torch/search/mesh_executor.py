@@ -8,8 +8,9 @@ every target shard is local and the mesh-sharded plane
 the WHOLE scatter-gather runs as ONE kernel launch per phase over the
 shards' stacked planes (search/plane_exec.py ``mesh_wand_topk`` over
 parallel/mesh.py's ``mesh_bm25_*`` kernels for the text kind,
-``mesh_knn_winners`` over its ``mesh_knn_*`` kernels for the kNN kind) and
-the results demux back
+``mesh_knn_winners`` over its ``mesh_knn_*`` kernels for the kNN kind,
+``mesh_sparse_topk`` over its ``mesh_sparse_*`` kernels for the sparse
+kind) and the results demux back
 into ordinary per-shard query-phase responses — the coordinator merge,
 fetch phase, and response shape stay the RPC fan-out's.
 
@@ -23,11 +24,9 @@ budget, classification edge) hands the member back to the unchanged
 per-shard fan-out — the mesh is an optimization, never a correctness
 gate. A kNN fan-out over an IVF-mapped field or an ANN-sized shard, or
 one whose shards would pick different tiers, is such a miss (typed
-``mesh_ivf_routed`` / ``mesh_quantized_fallback``). The text and kNN
-kinds are served; the ``sparse`` kind, whose mesh programs are not ported
-yet, is declined in ``try_submit`` before any drain as
-``mesh_backend_not_ready``, counted in ``stats["mesh_fallbacks"]`` and in
-``not_ported["mesh_sparse"]``, and the RPC fan-out serves it.
+``mesh_ivf_routed`` / ``mesh_quantized_fallback``). A drain whose kernel
+fails to build or launch hands its members back too (typed
+``mesh_drain_error``) and logs the ``KernelError`` at error level.
 """
 
 from __future__ import annotations
@@ -88,8 +87,6 @@ class MeshSearchExecutor:
     scheduler's dispatch context like every other handler."""
 
     _KIND_OF = {"text": "postings", "knn": "vectors", "sparse": "features"}
-    # query kinds whose mesh programs are ported (the rest are declined)
-    SERVED_KINDS = ("text", "knn")
 
     def __init__(self, sts):
         self.sts = sts
@@ -273,13 +270,6 @@ class MeshSearchExecutor:
             # coordinator df/avgdl normalization only shapes text
             # scoring; other kinds take the per-shard path unchanged
             TELEMETRY.count_fallback(telemetry.MESH_DFS_OVERRIDE)
-            return False
-        if spec.kind not in self.SERVED_KINDS:
-            # the sparse mesh programs are not ported: a counted decline,
-            # before any drain, and the RPC fan-out serves
-            TELEMETRY.count_fallback(telemetry.MESH_BACKEND_NOT_READY)
-            TELEMETRY.count_not_ported(f"mesh_{spec.kind}")
-            self.stats["mesh_fallbacks"] += 1
             return False
         shard_ids = sorted(t["shard"] for t in targets)
         member = _Member(spec=spec, body=body, window=window,
@@ -510,7 +500,8 @@ class MeshSearchExecutor:
         counter: list = []
         want = spec0.window
         from elasticsearch_tpu_torch.search.plane_exec import (
-            MeshFallback, mesh_knn_winners, mesh_wand_topk,
+            MeshFallback, mesh_knn_winners, mesh_sparse_topk,
+            mesh_wand_topk,
         )
         try:
             if spec0.kind == "text":
@@ -523,7 +514,7 @@ class MeshSearchExecutor:
                     raise _MeshMiss(telemetry.MESH_DFS_OVERRIDE)
                 collector = "wand_topk"
                 per_shard_member = got
-            else:
+            elif spec0.kind == "knn":
                 raw = mesh_knn_winners(
                     shard_ctxs, mpart, spec0.field,
                     [m.spec for m in uniques], spec0.k,
@@ -532,6 +523,26 @@ class MeshSearchExecutor:
                 per_shard_member = [
                     _knn_demux([m.spec for m in uniques], row, spec0.k)
                     for row in raw]
+            else:
+                expansions = [[(t, w * m.spec.boost)
+                               for t, w in m.spec.tokens.items()]
+                              for m in uniques]
+                raw = mesh_sparse_topk(shard_ctxs, mpart, spec0.field,
+                                       expansions, want,
+                                       check_members=check_members,
+                                       counter=counter)
+                collector = "dense"
+                per_shard_member = []
+                for row in raw:
+                    member_rows = []
+                    for (cands, total, max_score), m in zip(row, uniques):
+                        relation = "eq"
+                        clip = m.spec.clip_limit
+                        if clip is not None and total > clip:
+                            total, relation = clip, "gte"
+                        member_rows.append((cands, total, relation,
+                                            max_score, None))
+                    per_shard_member.append(member_rows)
         except MeshFallback as mf:
             raise _MeshMiss(getattr(mf, "reason",
                                     telemetry.MESH_IVF_ROUTED))

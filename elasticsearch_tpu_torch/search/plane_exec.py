@@ -3,7 +3,7 @@ shard's postings (or vectors, or rank_features) in one device plane, one
 kernel launch per phase.
 
 The text, kNN and sparse parts of the JAX package's
-``search/plane_exec.py``, and its mesh text and kNN executors.
+``search/plane_exec.py``, and its mesh text, kNN and sparse executors.
 Both the solo and the batched path call in here when a plane is resident,
 so they share one implementation:
 
@@ -33,6 +33,10 @@ so they share one implementation:
   ``mesh_knn_coarse`` + ``mesh_knn_rerank`` on the tier), masked per
   (filter, shard) for differently filtered members, each shard's winners
   the ones its own plane gives.
+- ``mesh_sparse_topk``: Q resolved text_expansion queries against S
+  co-located shards' stacked rank_features planes in one launch per phase
+  (``mesh_sparse_topk``, or ``mesh_sparse_coarse`` + ``mesh_sparse_rerank``
+  on the tier), each shard's result the one ``plane_sparse_topk`` gives.
 
 Callers treat a None result as "run the per-segment path".
 """
@@ -805,21 +809,7 @@ def plane_sparse_topk(ctxs, part, field: str,
     telemetry.mark_plane_served()
     reader = _reader_of(ctxs)
     live = part.live_mask(reader.live_masks)
-    per = []
-    for expansion in expansions:
-        idx_parts, w_parts = [], []
-        for _pos, ff, block_base in part.refs:
-            for name, weight in expansion:
-                t_idx = ff.feature_block_idx(name)
-                if len(t_idx):
-                    idx_parts.append(t_idx + np.int32(block_base))
-                    w_parts.append(np.full(len(t_idx), weight,
-                                           np.float32))
-        if idx_parts:
-            per.append((np.concatenate(idx_parts),
-                        np.concatenate(w_parts)))
-        else:
-            per.append((np.zeros(0, np.int32), np.zeros(0, np.float32)))
+    per = [_expansion_blocks(part.refs, e) for e in expansions]
     idx, w, n_real = pad_query_rows(per, part.device)
     q_n = idx.shape[0]
     k_plane = min(max(want, 1), part.n_docs_pad)
@@ -848,6 +838,23 @@ def plane_sparse_topk(ctxs, part, field: str,
     s, d, h = s.cpu().numpy(), d.cpu().numpy(), h.cpu().numpy()
     _note_exact("sparse", n_real, t_exact)
     return _sparse_demux(part, s, d, h, n_real)
+
+
+def _expansion_blocks(refs, expansion) -> Tuple[np.ndarray, np.ndarray]:
+    """One expansion's block list over a features plane's segments
+    (``refs``: (segment position, FeaturesField, block base)): every
+    listed feature's blocks, rebased into the plane's block store, and
+    the feature's query weight for each."""
+    idx_parts, w_parts = [], []
+    for _pos, ff, block_base in refs:
+        for name, weight in expansion:
+            t_idx = ff.feature_block_idx(name)
+            if len(t_idx):
+                idx_parts.append(t_idx + np.int32(block_base))
+                w_parts.append(np.full(len(t_idx), weight, np.float32))
+    if not idx_parts:
+        return np.zeros(0, np.int32), np.zeros(0, np.float32)
+    return np.concatenate(idx_parts), np.concatenate(w_parts)
 
 
 def _sparse_demux(part, s: np.ndarray, d: np.ndarray, h: np.ndarray,
@@ -1578,3 +1585,143 @@ def mesh_knn_winners(shard_ctxs, mpart, field: str, specs, k: int,
                         zip(seg, local, s[si, qi][finite])])
         winners.append(row)
     return winners
+
+
+def mesh_sparse_topk(shard_ctxs, mpart, field: str,
+                     expansions: List[List[Tuple[str, float]]],
+                     want: int,
+                     check_members: Optional[Callable[[], None]] = None,
+                     counter: Optional[list] = None) -> List[List[Tuple]]:
+    """Q resolved expansions against S co-located shards' rank_features
+    planes in ONE launch per phase (``mesh_sparse_topk``, or
+    ``mesh_sparse_coarse`` + ``mesh_sparse_rerank`` on the tier), exact
+    per-shard match counts off the score plane. Returns [shard][member]
+    (candidates, total, max_score) -- plane_sparse_topk's shape per shard.
+
+    The tier engages only when EVERY populated slot clears the per-shard
+    engage threshold (else the exact launch serves: both tiers give the
+    same answer), and the adaptive depth deepens globally. A window whose
+    depth passes the kernels' KMAX stands the tier down (a counted
+    ``mesh_quantized_fallback``) and is served exact, as the one-shard
+    sparse tier does."""
+    from elasticsearch_tpu_torch.indices.breaker import BREAKERS
+    from elasticsearch_tpu_torch.parallel.mesh import (
+        mesh_sparse_topk as _mesh_sparse_kernel,
+    )
+    n_q = len(expansions)
+    n_sh = mpart.n_shards
+    dev = mpart.device
+    # the exact kernel splits the query stack over dp rows (contiguous
+    # slices), so the padded count must fill the rows evenly
+    dp = max(1, int(mpart.dp))
+    n_q_pad = next_pow2(max(n_q, 1), minimum=1)
+    n_q_pad = -(-n_q_pad // dp) * dp
+    n_q_row = n_q_pad // dp
+
+    per_shard = [None if sub is None else
+                 [_expansion_blocks(sub.refs, e) for e in expansions]
+                 for sub in mpart.subs]
+    qb_max = max([len(bi) for per in per_shard if per is not None
+                  for bi, _bw in per] + [1])
+    qb_pad = next_pow2(qb_max, minimum=8)
+    idx = np.zeros((mpart.n_slots, n_q_pad, qb_pad), np.int32)
+    w = np.zeros((mpart.n_slots, n_q_pad, qb_pad), np.float32)
+    for si, per in enumerate(per_shard):
+        if per is None:
+            continue
+        for qi, (bi, bw) in enumerate(per):
+            idx[si, qi, : len(bi)] = bi
+            w[si, qi, : len(bw)] = bw
+
+    if check_members is not None:
+        check_members()
+    k_mesh = min(max(want, 1), mpart.n_docs_pad)
+    idx_dev = torch.as_tensor(idx, device=dev)
+    w_dev = torch.as_tensor(w, device=dev)
+    live_dev = torch.as_tensor(_mesh_live(mpart, shard_ctxs), device=dev)
+    # the launches write an [S, n_q_pad, n_docs_pad] int64 score plane
+    transient = 8 * mpart.n_docs_pad * n_q_pad * mpart.n_slots
+
+    def _try_quantized():
+        """bf16 coarse + exact f32 re-rank over the stacked weight
+        mirror, the adaptive depth deepening globally; counts come exact
+        off the coarse pass. None = the exact mesh kernel serves (typed
+        when it is a fallback)."""
+        from elasticsearch_tpu_torch.parallel.mesh import (
+            mesh_sparse_coarse, mesh_sparse_rerank,
+        )
+        if _mesh_engages(mpart.subs, k_mesh) is not True:
+            return None
+        mirror = mpart.quantized_mirror()
+        if mirror is None:
+            _count_mesh_quantized_fallback()
+            return None
+        (w16,) = mirror
+        for kprime, last in _adaptive_depths(k_mesh, mpart.n_docs_pad):
+            if kprime > KMAX:
+                # the coarse and re-rank kernels hold k' <= KMAX
+                # candidates a row; a wider window is served exact
+                _count_mesh_quantized_fallback()
+                return None
+            if check_members is not None:
+                check_members()
+            with BREAKERS.breaker("request").limit_scope(
+                    transient, "mesh_coarse_sparse"):
+                if counter is not None:
+                    counter.extend((1, 1))
+                cs, cand, hits = mesh_sparse_coarse(
+                    mpart.block_docs, w16, idx_dev, w_dev, live_dev,
+                    mpart.n_docs_pad, kprime)
+                s_q, d_q, eps = mesh_sparse_rerank(
+                    mpart.block_docs, mpart.block_weights, idx_dev, w_dev,
+                    live_dev, cand, cs, mpart.n_docs_pad, kprime, k_mesh)
+            cs_h, s_h = cs.cpu().numpy(), s_q.cpu().numpy()
+            eps_h = eps.cpu().numpy()
+            k_last = min(k_mesh, s_h.shape[2]) - 1
+            if all(_margin_ok(float(s_h[si, qi, k_last]),
+                              float(cs_h[si, qi, kprime - 1]),
+                              float(eps_h[si, qi]), REL_BF16)
+                   for si in range(n_sh)
+                   if per_shard[si] is not None
+                   for qi in range(n_q)):
+                MESH_PLANES.stats["mesh_quantized_queries"] += n_q
+                PLANES.note_quantized(kprime, n_q, mesh=True)
+                return s_h, d_q.cpu().numpy(), hits.cpu().numpy()
+            if last:
+                _count_mesh_quantized_fallback()
+                return None
+
+    got_q = _coarse_attempt("mesh_sparse", n_q, _try_quantized) \
+        if PLANES.quantized else None
+    if got_q is not None:
+        s, d, h = got_q
+    else:
+        t_exact = time.monotonic()
+        with BREAKERS.breaker("request").limit_scope(transient,
+                                                     "mesh_sparse"):
+            if counter is not None:
+                counter.append(1)
+            # the dp-split exact kernel: [S, dp, n_q_row, QB] rows in,
+            # [S, dp, n_q_row, ...] out, restitched to batch order
+            s, d, h = _mesh_sparse_kernel(
+                mpart.block_docs, mpart.block_weights,
+                idx_dev.view(mpart.n_slots, dp, n_q_row, qb_pad),
+                w_dev.view(mpart.n_slots, dp, n_q_row, qb_pad), live_dev,
+                mpart.n_docs_pad, k_mesh)
+        s = s.cpu().numpy().reshape(mpart.n_slots, n_q_pad, -1)
+        d = d.cpu().numpy().reshape(mpart.n_slots, n_q_pad, -1)
+        h = h.cpu().numpy().reshape(mpart.n_slots, n_q_pad)
+        _note_exact("mesh_sparse", n_q, t_exact)
+
+    out: List[List[Tuple]] = []
+    for si in range(n_sh):
+        sub = mpart.subs[si]
+        row: List[Tuple] = []
+        for qi in range(n_q):
+            if sub is None:
+                row.append(([], 0, None))
+                continue
+            cands, max_score = _mesh_row(sub, s[si, qi], d[si, qi])
+            row.append((cands, int(h[si, qi]), max_score))
+        out.append(row)
+    return out

@@ -1,5 +1,5 @@
 """The BM25, kNN (masked and not), dense-collector, IVF, rank_features,
-expansion-model and mesh (text and kNN) kernels on the card against their
+expansion-model and mesh (text, kNN and sparse) kernels on the card against their
 plain PyTorch versions: bitwise, except where a kernel calls ``logf`` /
 ``powf`` / ``tanhf`` and its plain version torch's ``log`` / ``pow`` /
 ``tanh`` (the stated ulp bounds below). Needs a CUDA card and nvcc;
@@ -20,7 +20,8 @@ from elasticsearch_tpu_torch.ops import knn, topk
 from elasticsearch_tpu_torch.ops.device_segment import quantize_rows
 from torch_inputs import (
     FLAT, FLAT_ORDER, N_SEGS, make_inputs, make_knn_inputs,
-    make_sparse_inputs, mesh_inputs, mesh_knn_inputs, row0, tx,
+    make_sparse_inputs, mesh_inputs, mesh_knn_inputs, mesh_sparse_inputs,
+    row0, tx,
 )
 
 K = 10
@@ -635,3 +636,65 @@ def test_mesh_knn_kernels_match_plain_versions_on_the_card(n_slots, empty,
     if empty >= 0:
         assert not torch.isfinite(got[0][empty]).any()
         assert (rgot[1][empty] == -1).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_slots,dp,empty,n_docs,k",
+                         [(2, 1, -1, 3000, K), (4, 2, 2, 150_000, K),
+                          (2, 1, -1, 12_000, 5000)],
+                         ids=["s2", "s4_dp2_empty_chunked", "s2_wide_k"])
+def test_mesh_sparse_kernels_match_plain_versions_on_the_card(n_slots, dp,
+                                                              empty, n_docs,
+                                                              k):
+    """mesh_sparse_topk / _coarse / _rerank bitwise equal to their plain
+    versions, and each slot bitwise equal to K15 / K16 / K17 launched on
+    that slot's plane (chunked planes take the top-k's merge pass, k 5,000
+    its rounds)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    from elasticsearch_tpu_torch.ops import sparse
+    from elasticsearch_tpu_torch.parallel import mesh
+    n_q, kprime = 4, 256
+    inp = mesh_sparse_inputs(90 + n_slots, n_slots, dp, n_q, per_q=40,
+                             empty=empty, n_docs=n_docs)
+    n_pad = inp["n_pad"]
+    docs, w, live, idx4, qw4 = (torch.as_tensor(inp[x]).cuda() for x in (
+        "docs", "weights", "live", "idx", "qw"))
+    w16 = w.to(torch.bfloat16)
+    idx, qw = idx4[:, 0].contiguous(), qw4[:, 0].contiguous()
+    got = mesh.mesh_sparse_topk(docs, w, idx4, qw4, live, n_pad, k)
+    want = mesh.mesh_sparse_topk_plain(docs, w, idx4, qw4, live, n_pad, k)
+    for g, x in zip(got, want):
+        assert torch.equal(g, x)
+    cgot = mesh.mesh_sparse_coarse(docs, w16, idx, qw, live, n_pad, kprime)
+    cwant = mesh.mesh_sparse_coarse_plain(docs, w16, idx, qw, live, n_pad,
+                                          kprime)
+    for g, x in zip(cgot, cwant):
+        assert torch.equal(g, x)
+    rgot = mesh.mesh_sparse_rerank(docs, w, idx, qw, live, cgot[1], cgot[0],
+                                   n_pad, kprime, K)
+    rwant = mesh.mesh_sparse_rerank_plain(docs, w, idx, qw, live, cgot[1],
+                                          cgot[0], n_pad, kprime, K)
+    for g, x in zip(rgot, rwant):
+        assert torch.equal(g, x)
+    for si in range(n_slots):
+        for r in range(dp):
+            k15 = sparse.sparse_topk_batch(
+                docs[si], w[si], idx4[si, r].contiguous(),
+                qw4[si, r].contiguous(), 1.0, 1.0, live[si], n_pad, k,
+                "linear", counted=True)
+            for g, x in zip((t[si, r] for t in got), k15):
+                assert torch.equal(g, x)
+        k16 = sparse.sparse_coarse_kernel(docs[si], w16[si], idx[si],
+                                          qw[si], live[si], n_pad, kprime)
+        for g, x in zip((t[si] for t in cgot), k16):
+            assert torch.equal(g, x)
+        k17 = sparse.sparse_rerank_kernel(
+            docs[si], w[si], idx[si], qw[si], live[si],
+            cgot[1][si].contiguous(), cgot[0][si].contiguous(), n_pad,
+            kprime, K)
+        for g, x in zip((t[si] for t in rgot), k17):
+            assert torch.equal(g, x)
+    if empty >= 0:
+        assert not torch.isfinite(got[0][empty]).any()
+        assert int(got[2][empty].sum()) == 0

@@ -217,6 +217,25 @@ status, resp = rest("POST", "/mesh_knn_idx/_search", {"query": {"knn": {
 assert status == 200 and resp["_data_plane"] == "mesh_plane", resp
 assert resp["hits"]["hits"][0]["_id"] == "29", resp["hits"]
 assert DEVICE_PROFILE.family("mesh_knn_topk").calls > calls
+status, _ = rest("PUT", "/mesh_sparse_idx", {
+    "settings": {"number_of_shards": 2, "number_of_replicas": 0},
+    "mappings": {"properties": {"ml": {"type": "rank_features"}}}})
+assert status == 200, status
+lines = []
+for i in range(30):
+    lines += [{"index": {"_index": "mesh_sparse_idx", "_id": str(i)}},
+              {"ml": {"f1": 0.5 + i, "f2": 1.0} if i % 2 else {"f3": 2.0}}]
+status, resp = rest("POST", "/_bulk", lines)
+assert status == 200 and not resp["errors"], resp
+rest("POST", "/mesh_sparse_idx/_refresh")
+calls = DEVICE_PROFILE.family("mesh_sparse_topk").calls
+status, resp = rest("POST", "/mesh_sparse_idx/_search", {
+    "query": {"text_expansion": {"ml": {"tokens": {"f1": 1.0}}}},
+    "size": 3})
+assert status == 200 and resp["_data_plane"] == "mesh_plane", resp
+assert resp["hits"]["total"]["value"] == 15, resp["hits"]["total"]
+assert resp["hits"]["hits"][0]["_id"] == "29", resp["hits"]
+assert DEVICE_PROFILE.family("mesh_sparse_topk").calls > calls
 cluster.stop()
 assert not any(m.split(".")[0] in ("jax", "jaxlib", "elasticsearch_tpu")
                for m in sys.modules)
@@ -468,11 +487,14 @@ def test_fusion_wrappers_never_take_the_plain_version(family, monkeypatch):
 
 @pytest.mark.parametrize("family", ["mesh_bm25_flat", "mesh_bm25_coarse",
                                     "mesh_bm25_rerank", "mesh_knn_topk",
-                                    "mesh_knn_coarse", "mesh_knn_rerank"])
+                                    "mesh_knn_coarse", "mesh_knn_rerank",
+                                    "mesh_sparse_topk", "mesh_sparse_coarse",
+                                    "mesh_sparse_rerank"])
 def test_mesh_wrappers_never_take_the_plain_version(family, monkeypatch):
-    """The mesh kernels' wrappers, given CUDA tensors, launch their kernel
-    or raise: with the kernel library unavailable they raise instead of
-    running the one-shard plain versions slot by slot on the host."""
+    """The mesh kernels' wrappers (text, kNN and sparse), given CUDA
+    tensors, launch their kernel or raise: with the kernel library
+    unavailable they raise instead of running the one-shard plain
+    versions slot by slot on the host."""
     from elasticsearch_tpu_torch import _build
     from elasticsearch_tpu_torch.ops import bm25
     from elasticsearch_tpu_torch.parallel import mesh
@@ -492,7 +514,10 @@ def test_mesh_wrappers_never_take_the_plain_version(family, monkeypatch):
                  "bm25_coarse_plain", "bm25_rerank_plain",
                  "mesh_knn_topk_plain", "mesh_knn_coarse_plain",
                  "mesh_knn_rerank_plain", "knn_flat_plain",
-                 "knn_coarse_plain", "knn_rerank_plain"):
+                 "knn_coarse_plain", "knn_rerank_plain",
+                 "mesh_sparse_topk_plain", "mesh_sparse_coarse_plain",
+                 "mesh_sparse_rerank_plain", "sparse_flat_plain",
+                 "sparse_coarse_plain", "sparse_rerank_plain"):
         monkeypatch.setattr(mesh, name, no_plain)
     s, n_pad = 2, 256
     docs = torch.full((s, 2, 128), -1, dtype=torch.int32)
@@ -519,6 +544,16 @@ def test_mesh_wrappers_never_take_the_plain_version(family, monkeypatch):
             mesh.mesh_bm25_flat(docs, tfs, dl, idx[:, None], w[:, None],
                                 idx[:, None], w[:, None] + 1, live, seg,
                                 n_pad, 1, 10, 1)
+        elif family == "mesh_sparse_topk":
+            mesh.mesh_sparse_topk(docs, tfs, idx[:, None, None],
+                                  w[:, None, None], live, n_pad, 10)
+        elif family == "mesh_sparse_coarse":
+            mesh.mesh_sparse_coarse(docs, tfs.to(torch.bfloat16),
+                                    idx[:, None], w[:, None], live, n_pad, 16)
+        elif family == "mesh_sparse_rerank":
+            mesh.mesh_sparse_rerank(docs, tfs, idx[:, None], w[:, None], live,
+                                    torch.zeros(s, 1, 16, dtype=torch.int32),
+                                    torch.zeros(s, 1, 16), n_pad, 16, 10)
         elif family == "mesh_bm25_coarse":
             mesh.mesh_bm25_coarse(docs, tfs.to(torch.bfloat16),
                                   dl.to(torch.bfloat16), idx, w, idx, w + 1,

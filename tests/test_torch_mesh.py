@@ -540,9 +540,9 @@ def test_mesh_budget_refusal_counts_and_serves_none():
 @pytest.mark.parametrize("kind", ["vectors", "features"])
 def test_unported_mesh_kinds_raise(kind):
     """The vectors kind (the kNN mesh) stacks two shards' vector planes as
-    [S, N_pad, D] slots; the features kind (the sparse mesh programs, not
-    ported yet) raises NotPortedError."""
-    from elasticsearch_tpu_torch.utils.errors import NotPortedError
+    [S, N_pad, D] slots, and the features kind (the sparse mesh) their
+    rank_features blocks as [S, NB, 128] slots; neither raises
+    NotPortedError any more. The name dates from when they did."""
     engines = []
     for s in range(2):
         eng = InternalEngine(MapperService({"properties": {
@@ -557,11 +557,14 @@ def test_unported_mesh_kinds_raise(kind):
     segs = [(("idx", s), list(e.acquire_reader().segments))
             for s, e in enumerate(engines)]
     field = "vec" if kind == "vectors" else "feats"
-    if kind == "features":
-        with pytest.raises(NotPortedError):
-            ds.MESH_PLANES.get(segs, kind, field, device="cpu")
-        return
     part = ds.MESH_PLANES.get(segs, kind, field, device="cpu")
+    if kind == "features":
+        assert part is not None and part.kind == "features"
+        nb = part.block_docs.shape[1]
+        assert tuple(part.block_weights.shape) == (2, nb, 128)
+        assert [int((part.block_docs[s] >= 0).sum()) for s in range(2)] \
+            == [30, 40]
+        return
     assert part is not None and part.kind == "vectors"
     assert tuple(part.matrix.shape) == (2, part.n_docs_pad, 4)
     assert [int(part.exists[s].sum()) for s in range(2)] == [30, 40]
@@ -711,21 +714,17 @@ def test_text_search_gives_the_reference_json(shards, name, search_type):
 @pytest.mark.parametrize("shards", [2, 4], ids=["two_shards", "four_shards"])
 def test_knn_and_sparse_are_declined_with_the_reference_answers(shards,
                                                                 name):
-    """The kNN and sparse kinds: the reference's mesh serves them; the
-    port's mesh serves the kNN kind too (``_data_plane`` included, nothing
-    counted as not ported), and declines the sparse kind (counted), whose
-    RPC fan-out gives the same answer."""
+    """The kNN and sparse kinds: both packages' meshes serve them
+    (``_data_plane: "mesh_plane"`` on both, nothing counted as not
+    ported), with the same answer. The name dates from when the port
+    declined them."""
     body = dict(OTHER_BODIES)[name]
     kind = "knn" if name == "knn" else "sparse"
     before = telemetry.TELEMETRY.not_ported.get(f"mesh_{kind}", 0)
     (s_r, want), (s_p, got) = _both(shards, body)
     assert s_r == s_p == 200, (want, got)
-    if kind == "knn":
-        assert got["_data_plane"] == want["_data_plane"] == "mesh_plane"
-        assert telemetry.TELEMETRY.not_ported.get("mesh_knn", 0) == before
-    else:
-        assert "_data_plane" not in got
-        assert telemetry.TELEMETRY.not_ported[f"mesh_{kind}"] == before + 1
+    assert got["_data_plane"] == want["_data_plane"] == "mesh_plane"
+    assert telemetry.TELEMETRY.not_ported.get(f"mesh_{kind}", 0) == before
     same(want, got)
 
 

@@ -317,13 +317,12 @@ def test_batcher_routes_knn_as_the_reference_does(options, kind):
 
 @pytest.mark.parametrize("kind", ["text", "knn", "sparse"])
 def test_mesh_fanout_is_a_counted_decline(kind):
-    """ROADMAP queue 3, item 7: a fan-out to two co-located shards takes
-    the mesh for the text and kNN kinds (``mesh_searches`` +1, nothing
-    counted as not ported); the sparse mesh programs are not ported, so
-    that fan-out is declined as ``mesh_backend_not_ready`` (the JAX
-    package's route whenever its mesh is not up), counted in
-    ``mesh_fallbacks`` and ``not_ported["mesh_sparse"]``, and served by the
-    per-shard fan-out."""
+    """A fan-out to two co-located shards takes the mesh for every kind --
+    text, kNN and, since the sparse mesh programs are ported, the sparse
+    kind (``_data_plane: "mesh_plane"``, ``mesh_searches`` +1): nothing is
+    declined as ``mesh_backend_not_ready``, counted in ``mesh_fallbacks``
+    or counted as not ported. The name dates from when the sparse fan-out
+    was a counted decline."""
     from elasticsearch_tpu_torch.search import telemetry
     _ref, port = nodes()
     if port("HEAD", "/kinds2")[0] != 200:
@@ -357,18 +356,8 @@ def test_mesh_fanout_is_a_counted_decline(kind):
     assert status == 200 and resp["_shards"]["successful"] == 2, resp
     assert resp["hits"]["hits"], resp
     key = telemetry.MESH_BACKEND_NOT_READY
-    if kind in ("text", "knn"):
-        assert resp["_data_plane"] == "mesh_plane"
-        assert executor.stats["mesh_searches"] == stats["mesh_searches"] + 1
-        assert executor.stats["mesh_fallbacks"] == stats["mesh_fallbacks"]
-        assert dict(telemetry.TELEMETRY.not_ported) == not_ported
-        assert telemetry.TELEMETRY.fallbacks.get(key, 0) == \
-            reasons.get(key, 0)
-        return
-    assert "_data_plane" not in resp
-    assert executor.stats["mesh_searches"] == stats["mesh_searches"]
-    assert executor.stats["mesh_fallbacks"] == stats["mesh_fallbacks"] + 1
-    assert telemetry.TELEMETRY.not_ported[f"mesh_{kind}"] == \
-        not_ported.get(f"mesh_{kind}", 0) + 1
-    assert telemetry.TELEMETRY.fallbacks.get(key, 0) == \
-        reasons.get(key, 0) + 1
+    assert resp["_data_plane"] == "mesh_plane"
+    assert executor.stats["mesh_searches"] == stats["mesh_searches"] + 1
+    assert executor.stats["mesh_fallbacks"] == stats["mesh_fallbacks"]
+    assert dict(telemetry.TELEMETRY.not_ported) == not_ported
+    assert telemetry.TELEMETRY.fallbacks.get(key, 0) == reasons.get(key, 0)

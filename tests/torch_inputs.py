@@ -220,3 +220,48 @@ def mesh_knn_inputs(seed: int, n_slots: int, n_q: int, dims: int = 16,
     return dict(matrix=matrix, norms=norms, exists=exists, live=live,
                 allowed=live & exists, masks=masks, queries=queries,
                 n_pad=n_max, own=n_pads, empty=empty)
+
+
+def mesh_sparse_inputs(seed: int, n_slots: int, dp: int, n_q: int,
+                       per_q: int = 20, empty: int = -1, n_docs: int = 3000):
+    """Stacked rank_features planes of ``n_slots`` shards of different sizes
+    (below ``n_docs`` docs each; slot ``empty`` holds no field data), padded
+    as ``MeshPlaneRegistry._stack`` pads them (NB to a power of two over
+    the slots, block docs -1, weights 0, live False), and block lists and
+    query weights [S, DP, n_q, QB] per (slot, dp row) padded like
+    ``plane_exec.mesh_sparse_topk``'s: block 0 / weight 0 past each query's
+    blocks, whole weight-0 rows for the last query (the pow2 query
+    padding). Doc weights in [0.05, 3), query weights in [0.1, 3), ~10 %
+    padding postings and ~5 % deleted docs."""
+    rng = np.random.default_rng(seed)
+    sizes = [int(rng.integers(n_docs * 3 // 10, n_docs))
+             for _ in range(n_slots)]
+    nbs = [int(rng.integers(30, 96)) for _ in range(n_slots)]
+    n_pads = [next_pow2(n, minimum=BLOCK) for n in sizes]
+    n_max = max(n_pads)
+    nb_max = next_pow2(max(nbs))
+    docs = np.full((n_slots, nb_max, BLOCK), -1, np.int32)
+    weights = np.zeros((n_slots, nb_max, BLOCK), np.float32)
+    live = np.zeros((n_slots, n_max), bool)
+    qb = next_pow2(per_q, minimum=8)
+    idx = np.zeros((n_slots, dp, n_q, qb), np.int32)
+    qw = np.zeros((n_slots, dp, n_q, qb), np.float32)
+    own = []
+    for s in range(n_slots):
+        own.append((n_pads[s], nbs[s]))
+        if s == empty:
+            continue
+        n, nb = sizes[s], nbs[s]
+        d = np.sort(rng.integers(0, n, (nb, BLOCK)), axis=1).astype(np.int32)
+        d[rng.random((nb, BLOCK)) < 0.1] = -1
+        docs[s, :nb] = d
+        weights[s, :nb] = np.where(d >= 0, rng.uniform(0.05, 3.0,
+                                                       (nb, BLOCK)), 0.0)
+        live[s, :n] = rng.random(n) > 0.05
+        for r in range(dp):
+            for q in range(max(n_q - 1, 1)):
+                m = int(rng.integers(per_q // 2, per_q + 1))
+                idx[s, r, q, :m] = rng.integers(0, nb, m)
+                qw[s, r, q, :m] = rng.uniform(0.1, 3.0, m)
+    return dict(docs=docs, weights=weights, idx=idx, qw=qw, live=live,
+                n_pad=n_max, own=own)
