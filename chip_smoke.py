@@ -158,8 +158,9 @@ Phases, each of which fails the run on any failed check:
    country_agg_uncached) and a 13-member plan_drain_aggs: every response
    and preset equal on the card and the CPU.
 21. aggs-full: the geonames-shaped shard (Rally's geonames track over the
-   GeoNames allCountries dump, 11,396,503 docs, cut to half by default
-   to fit the time limit -- ``--geo-docs 11396503`` runs all of it -- in
+   GeoNames allCountries dump, 11,396,503 docs, cut to a quarter by
+   default to fit the time limit -- ``--geo-docs 11396503`` runs all of
+   it -- in
    4 segments, made from the seed): 64 solo SearchService requests with a terms on
    country_code and a histogram on dem with min/max/avg subs (K20 and K21
    per segment), then plan_drain_aggs over the same 64 members (K22 and
@@ -173,7 +174,7 @@ Phases, each of which fails the run on any failed check:
 
 22. node-engine: two port nodes, ``InProcessCluster(n_nodes=1)`` on the
    card and on the CPU (the CPU one in a worker process, loading and
-   answering while this process drives the card node), each get 6,000
+   answering while this process drives the card node), each get 3,000
    seeded docs (text, a 768-dim ``dense_vector``, ``rank_features``)
    through ``POST /_bulk`` and about 40 bodies through their REST
    controllers (``match`` with totals true / false / 7, deletes,
@@ -182,8 +183,8 @@ Phases, each of which fails the run on any failed check:
    with 2 and 3 retrievers): every answer equal apart from ``took``,
    floats to rtol 1e-6.
 23. hybrid-full: BASELINE #4 (bench.py cfg_hybrid) on the BEIR NQ shape:
-   2,681,468 passages (cut to half by default to fit the time limit --
-   ``--nq-docs 2681468`` runs all of them) of 1 + Poisson(77.88)
+   2,681,468 passages (cut to a quarter by default to fit the time limit
+   -- ``--nq-docs 2681468`` runs all of them) of 1 + Poisson(77.88)
    Zipf(1.35) words over 1,000,000 terms and 768-dim cosine vectors
    (``index_options: flat``), one shard on a card node: ``PUT /nq``,
    2,500 docs through ``_bulk``, the rest as 4 generated segments
@@ -206,14 +207,16 @@ Phases, each of which fails the run on any failed check:
    launched on that slot's plane, at S 2 and 4 (an empty slot, a
    one-segment slot, two dp rows, a chunked plane); bitwise.
 25. mesh-engine: a card node and a CPU node (in a worker process) on an
-   index of 4 shards, 10,000 seeded docs through ``_bulk``: match at
+   index of 4 shards, 6,000 seeded docs through ``_bulk``: match at
    totals default / true / false / 7, bool of should-matches and
    dfs_query_then_fetch, a round of writes (new docs, deletes, a
    refresh), the bodies again; also knn bodies and text_expansion bodies
    (tokens with a boost and totals true / false / 100, and model_text).
    Every answer equal on the two nodes (``_data_plane`` included; a
-   model_text body only where the card's and the CPU's rewrites agree);
-   the card node's mesh-served answers equal its own with
+   model_text body only where the card's and the CPU's rewrites agree;
+   a totals-disabled bound, which each node's own tier decisions set,
+   held to len(hits) <= bound <= the exact count instead); the card
+   node's mesh-served answers equal its own with
    ``search.mesh.enabled: false``; ``mesh_searches`` grows, the knn and
    text_expansion bodies are mesh-served and nothing is counted as not
    ported.
@@ -235,7 +238,7 @@ Phases, each of which fails the run on any failed check:
    unmasked, the three similarities, chunked planes, mesh_knn_topk at k 10
    and 5,000; bitwise.
 28. mesh-knn-engine: a card node and a CPU node (in a worker process) on
-   an index of 4 shards, 6,000 seeded docs (128-dim cosine vectors, a
+   an index of 4 shards, 3,000 seeded docs (128-dim cosine vectors, a
    keyword tag, words, rank_features) through ``_bulk``: knn at k 10 and
    100, term-filtered knn, two differently filtered knn as one wave (the
    masked launches), hybrid rank.rrf and text_expansion bodies, a round of
@@ -277,6 +280,42 @@ Phases, each of which fails the run on any failed check:
    K15-K17, with no budget refusal, drain error or mesh fallback. Launch
    counts are zeroed before phase 31 and read after; then rows 34, 35 and
    38 are held against their plain versions and timed.
+
+32. sharded-small (run with the small phases): the sharded data plane's
+   kernels (rows 40-44: sharded_knn, sharded_bm25, sharded_bm25_batch,
+   sharded_sparse, sharded_hybrid) against their plain versions at S 2,
+   4 and 8 (the last across two selection chunks): the three
+   similarities, Q 1 and 16, counted and not, k 10 and past the whole
+   slot space, queries matching nothing, l2 at zero and near-zero
+   distances, fused branches whose ids overlap and a branch of -1 ids;
+   bitwise.
+33. sharded-engine: a card node and a CPU node (in a worker process), both
+   ``mesh_data_plane=True``, on a 4-shard index of 2,000 seeded docs:
+   match (totals default / false / 3), bool of should-matches, knn under
+   the three similarities and text_expansion tokens bodies, a round of
+   writes (new docs, deletes, a refresh), the bodies again: every answer
+   served by the data plane (``_data_plane: "mesh"``) with the same JSON
+   on both nodes, scores bitwise, and the same build and WAND pruning
+   counters.
+34. sharded-full: the segments of mesh-full (MS MARCO) and
+   mesh-sparse-full (BASELINE #5's rank_features) as one index's body and
+   ml fields (the two corpora have the same size, so the same routed
+   _ids), and mesh-knn-full's (SIFT1M) as another, installed with
+   ``restore_segments`` into one card node with
+   ``mesh_data_plane=True`` (no new host build), its data plane cutting
+   each index into 4 slots (``SHARDED_SLOTS``); per kind the first
+   request (the sharded copy's build) and the rest of its 64 bodies
+   solo, each served by the data plane, launching its sharded family and
+   no K1-K7, K15-K17 or mesh_* family; match answers held to mesh-full's
+   node answering the first 8 with ``dfs_query_then_fetch`` (a DFS
+   request costs that node 2 s; ids outside near-ties,
+   scores to rtol 1e-5, totals equal), knn to a float64 oracle
+   (recall@10) and to mesh-knn-full's exact answers, text_expansion to
+   mesh-sparse-full's exact answers. Launch counts are zeroed before
+   phases 33-34 and read after; then rows 40, 42 and 43 are held against
+   their plain versions on the main path's calls and timed, row 41 on an
+   MS MARCO query of the sharded copy and row 44 on seeded operands at
+   BEIR NQ's width (D 768) -- neither has a served caller.
 
 The two largest host builds (the MS MARCO and BEIR NQ postings) start in
 one worker pool when the script starts, at the lowest CPU priority, so
@@ -2941,8 +2980,14 @@ def phase_ivf_kernels(torch, rec, launches) -> list:
         largest = max(calls, key=lambda c: ivf_size(fam, c[0]))
         for args, kwargs in calls[:4] + [largest]:
             got = run(args, kwargs, False)
-            want = run(args, kwargs, True)
             torch.cuda.synchronize()
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            want = run(args, kwargs, True)
+            b.record()
+            b.synchronize()
+            last_plain_ms = a.elapsed_time(b)
             if not isinstance(got, tuple):
                 got, want = (got,), (want,)
             err = max(err, compare(torch, fam, got, want))
@@ -2951,8 +2996,10 @@ def phase_ivf_kernels(torch, rec, launches) -> list:
         slow = fam in ("ivf_init", "ivf_assign", "ivf_search")
         ms = time_call(torch, lambda: run(args, kwargs, False),
                        3 if fam == "ivf_init" else 20)
-        plain_ms = time_call(torch, lambda: run(args, kwargs, True),
-                             1 if slow else 5)
+        # a slow plain version is timed once: its run on the largest call
+        # above, after the others warmed it
+        plain_ms = last_plain_ms if slow else time_call(
+            torch, lambda: run(args, kwargs, True), 5)
         bound_ms, bound_by, nbytes = ivf_bound(torch, fam, args)
         lib_ms = ivf_library_ms(torch, fam, args)
         shape = ivf_shape(fam, args)
@@ -5509,6 +5556,34 @@ def same_as_fanout(body, meshed, fanned) -> bool:
     return json.dumps(a, sort_keys=True) == json.dumps(b, sort_keys=True)
 
 
+def same_or_bounded(body, a, b, exact: int):
+    """Two nodes' answers to one body, as ``same_json`` compares them --
+    except, for ``track_total_hits: false``, the total's value: a lower
+    bound that each node's own tier decisions may set (ROADMAP queue 3,
+    items 2 and 7), so each is held to len(hits) <= bound <= ``exact``
+    (the body's exact match count) and the rest compared as it stands.
+    Returns None when they agree, else where they differ."""
+    why = same_json(a, b)
+    if why is None or body.get("track_total_hits") is not False:
+        return why
+    for name, resp in (("a", a), ("b", b)):
+        total, hits = resp["hits"]["total"], resp["hits"]["hits"]
+        if not len(hits) <= total["value"] <= exact:
+            return (f"$.hits.total of {name}: {total} outside "
+                    f"[{len(hits)}, {exact}]")
+    strip = [dict(r, hits=dict(r["hits"], total=dict(
+        r["hits"]["total"], value=None))) for r in (a, b)]
+    return same_json(*strip)
+
+
+def mesh_engine_exact(node, bodies):
+    """Per body with ``track_total_hits: false``, its exact match count
+    (``_count``, which no mesh serves); None for the others."""
+    return [node.ok("POST", "/mesh/_count", {"query": body["query"]})[
+        "count"] if body.get("track_total_hits") is False else None
+        for _n, body, _q, _k in bodies]
+
+
 def phase_mesh_engine(torch, np, dev, n_docs: int) -> None:
     """A card node and a CPU node (in a worker process) on a 4-shard
     index: the same text bodies (totals true / false / 7, bool of
@@ -5536,7 +5611,7 @@ def phase_mesh_engine(torch, np, dev, n_docs: int) -> None:
         stats0 = dict(executor.stats)
         np0 = dict(telemetry.TELEMETRY.not_ported)
         lat = []
-        rounds = []
+        rounds, exact = [], []
         for r in range(2):
             if r:
                 mesh_engine_refresh(np, node, n_docs)
@@ -5546,6 +5621,7 @@ def phase_mesh_engine(torch, np, dev, n_docs: int) -> None:
                 got.append(node.call("POST", "/mesh/_search", body, query))
                 lat.append(time.monotonic() - t1)
             rounds.append(got)
+            exact.append(mesh_engine_exact(node, bodies))
         served = executor.stats["mesh_searches"] - stats0["mesh_searches"]
         declined = {k: telemetry.TELEMETRY.not_ported.get(f"mesh_{k}", 0)
                     - np0.get(f"mesh_{k}", 0) for k in ("knn", "sparse")}
@@ -5564,11 +5640,13 @@ def phase_mesh_engine(torch, np, dev, n_docs: int) -> None:
                 rewrite_body_expansions(body, "cpu"):
             rounded_apart.add(name)
     for r, (got, cpu_round) in enumerate(zip(rounds, want)):
-        for (name, _b, _q, kind), g, w in zip(bodies, got, cpu_round):
+        for (name, body, _q, kind), g, w, n_exact in zip(bodies, got,
+                                                          cpu_round,
+                                                          exact[r]):
             check(g[0] == w[0] == 200, f"mesh-engine: {name}: status "
                   f"{g[0]} / {w[0]}: {str(g[1])[:300]}")
             if name not in rounded_apart:
-                why = same_json(w[1], g[1])
+                why = same_or_bounded(body, w[1], g[1], n_exact)
                 check(why is None, f"mesh-engine: round {r} {name}: card "
                       f"and cpu differ at {why}")
             if kind != "text":
@@ -5685,7 +5763,25 @@ def routed_segments(np, source, label: str):
     return segs
 
 
-def mesh_full_segments(np, n_docs: int, workers: int, source=None):
+def rewrap(seg):
+    """A new segment over ``seg``'s field data and _ids (shared, not
+    copied), for installing one corpus into a second node."""
+    from elasticsearch_tpu_torch.index.segment import Segment
+    out = Segment(seg.name + "_again", seg.n_docs)
+    out.postings.update(seg.postings)
+    out.features.update(seg.features)
+    out.vectors.update(seg.vectors)
+    out.keywords.update(seg.keywords)
+    out.doc_values.update(seg.doc_values)
+    out.ids = seg.ids
+    out.id_to_doc = seg.id_to_doc
+    out.sources = [None] * seg.n_docs
+    out.invalidate_live_count()
+    return out
+
+
+def mesh_full_segments(torch, np, dev, n_docs: int, workers: int,
+                       source=None):
     """The full phase's chunks (the same generator and seeds; its
     segments reused when ``source`` is given) as the 4 shards under
     routed _ids."""
@@ -5707,7 +5803,7 @@ def mesh_full_queries(np, n_q: int):
 
 
 def phase_mesh_full(torch, np, dev, n_docs: int, workers: int,
-                    n_q: int, source=None) -> None:
+                    n_q: int, source=None, kept=None) -> None:
     """The mesh's text path at MS MARCO passage scale on one card node:
     the full phase's 8,841,823 docs on 4 primary shards (0 replicas), each
     doc under an _id that routes to its shard, each shard one generated
@@ -5723,7 +5819,7 @@ def phase_mesh_full(torch, np, dev, n_docs: int, workers: int,
     from elasticsearch_tpu_torch.testing import InProcessCluster
     from elasticsearch_tpu_torch.utils.murmur3 import shard_id_for
     t0 = time.monotonic()
-    segs = mesh_full_segments(np, n_docs, workers, source)
+    segs = mesh_full_segments(torch, np, dev, n_docs, workers, source)
     log(f"mesh-full: {n_docs} docs on {MESH_SHARDS} shards "
         f"{[s.n_docs for s in segs]} under routed _ids (one segment each, "
         f"{[s.postings['body'].block_docs.shape[0] for s in segs]} posting "
@@ -5751,6 +5847,7 @@ def phase_mesh_full(torch, np, dev, n_docs: int, workers: int,
                   f"_bulk routes it")
     log(f"mesh-full: restore_segments into 4 shards in "
         f"{time.monotonic() - t1:.1f}s; _count {count['count']}")
+    keep_segs = segs if kept is not None else None
     del segs
     bodies = mesh_full_queries(np, n_q)
     executor = node.node().search_transport.mesh_executor
@@ -5862,10 +5959,23 @@ def phase_mesh_full(torch, np, dev, n_docs: int, workers: int,
             hits = want["hits"]["hits"]
             check(all(math.isfinite(h["_score"]) and h["_score"] > 0
                       for h in hits), f"mesh-full: request {q}: bad scores")
-    node.ok("PUT", "/_cluster/settings", {"persistent": {
-        "search.mesh.enabled": True, "search.plane.quantized": True}})
     log(f"mesh-full: {3 * n_q} mesh answers equal the per-shard fan-out's "
         f"({time.monotonic() - t4:.1f}s)")
+    if kept is not None:
+        # the sharded data plane's text oracle: this node's answers with
+        # global term statistics, taken while the fan-out's per-shard
+        # state is warm (a re-enabled mesh would rebuild its stack first)
+        t5 = time.monotonic()
+        dfs = [node.ok("POST", "/msm/_search", body,
+                       {"search_type": "dfs_query_then_fetch"})
+               for body in bodies[:SHARDED_DFS_ORACLE]]
+        kept["text"] = {"shards": [[rewrap(seg)] for seg in keep_segs],
+                        "bodies": bodies, "oracle": dfs}
+        log(f"mesh-full: {len(dfs)} dfs_query_then_fetch answers kept as "
+            f"the sharded data plane's oracle "
+            f"({time.monotonic() - t5:.1f}s)")
+    node.ok("PUT", "/_cluster/settings", {"persistent": {
+        "search.mesh.enabled": True, "search.plane.quantized": True}})
     cluster.stop()
 
 
@@ -6360,7 +6470,8 @@ def mesh_knn_full_segments(np, n_docs: int):
         np.concatenate(picks), queries
 
 
-def phase_mesh_knn_full(torch, np, dev, n_docs: int, n_q: int) -> dict:
+def phase_mesh_knn_full(torch, np, dev, n_docs: int, n_q: int,
+                        kept=None) -> dict:
     """BASELINE #2's SIFT1M shape on 4 primary shards of one card node,
     each doc under an _id that routes to its shard, each shard 4 segments
     of about 62,500 docs installed with ``restore_segments``; through the
@@ -6407,6 +6518,7 @@ def phase_mesh_knn_full(torch, np, dev, n_docs: int, n_q: int) -> dict:
           f"mesh-knn-full: _count {count['count']} != {n_docs}")
     log(f"mesh-knn-full: restore_segments into 4 shards in "
         f"{time.monotonic() - t1:.1f}s; _count {count['count']}")
+    keep_shards = shards if kept is not None else None
     del shards
     rng = np.random.default_rng(SEED + 921)
     tag_of = [int(x) for x in rng.choice(100, MESH_KNN_TAGS, replace=False)]
@@ -6552,6 +6664,7 @@ def phase_mesh_knn_full(torch, np, dev, n_docs: int, n_q: int) -> dict:
         "search.mesh.enabled": False}})
     t4 = time.monotonic()
     n_cmp = 0
+    exact_answers = []
     for legs_of, quantized, bodies in (
             (("solo_tier_on", "wave"), True, plain),
             (("solo_tier_off",), False, plain),
@@ -6560,6 +6673,8 @@ def phase_mesh_knn_full(torch, np, dev, n_docs: int, n_q: int) -> dict:
             "search.plane.quantized": quantized}})
         for q, b in enumerate(bodies):
             want = node.ok("POST", "/sknn/_search", b)
+            if not quantized:
+                exact_answers.append(want)
             check("_data_plane" not in want,
                   "mesh-knn-full: fan-out labelled")
             ref = json.dumps(without_route(want), sort_keys=True)
@@ -6576,6 +6691,14 @@ def phase_mesh_knn_full(torch, np, dev, n_docs: int, n_q: int) -> dict:
         "search.mesh.enabled": True, "search.plane.quantized": True}})
     log(f"mesh-knn-full: {n_cmp} mesh answers equal the per-shard fan-out's "
         f"({time.monotonic() - t4:.1f}s)")
+    if kept is not None:
+        # the sharded data plane's kNN oracles: the per-shard exact answers
+        # and the float64 top-10 as _ids
+        kept["knn"] = {"shards": [[rewrap(seg) for seg in segs]
+                                  for segs in keep_shards],
+                       "bodies": plain, "oracle": exact_answers,
+                       "exact_ids": [[str(int(ids[r])) for r in oracle[q]]
+                                     for q in range(n_q)]}
     cluster.stop()
     return {f: kern[f] / max(delta[f], 1) for f in MESH_KNN_FAMILIES}
 
@@ -6898,7 +7021,7 @@ def mesh_sparse_full_segments(np, n_docs: int, workers: int, source=None):
 
 
 def phase_mesh_sparse_full(torch, np, dev, n_docs: int, workers: int,
-                           n_q: int, source=None) -> dict:
+                           n_q: int, source=None, kept=None) -> dict:
     """The mesh's sparse path at MS MARCO passage scale on one card node:
     sparse-full's 8,841,823 docs (bench.py cfg_sparse: 16-23 features of
     8,192 a doc, weights uniform in [0, 3)) on 4 primary shards (0
@@ -7066,6 +7189,7 @@ def phase_mesh_sparse_full(torch, np, dev, n_docs: int, workers: int,
         "search.mesh.enabled": False}})
     t4 = time.monotonic()
     n_cmp = 0
+    exact_answers = []
     for leg, quantized, leg_bodies in (
             ("solo_tier_on", True, bodies), ("solo_tier_off", False, bodies),
             ("model_text_solo", True, mt_bodies)):
@@ -7073,6 +7197,8 @@ def phase_mesh_sparse_full(torch, np, dev, n_docs: int, workers: int,
             "search.plane.quantized": quantized}})
         for q, body in enumerate(leg_bodies):
             want = node.ok("POST", "/msp/_search", body)
+            if leg == "solo_tier_off":
+                exact_answers.append(want)
             check("_data_plane" not in want,
                   "mesh-sparse-full: fan-out labelled")
             ref = json.dumps(without_route(want), sort_keys=True)
@@ -7093,6 +7219,10 @@ def phase_mesh_sparse_full(torch, np, dev, n_docs: int, workers: int,
         "search.mesh.enabled": True, "search.plane.quantized": True}})
     log(f"mesh-sparse-full: {n_cmp} mesh answers equal the per-shard "
         f"fan-out's ({time.monotonic() - t4:.1f}s)")
+    if kept is not None:
+        # the sharded data plane's sparse oracle: the per-shard exact answers
+        kept["sparse"] = {"shards": [[rewrap(seg)] for seg in segs],
+                          "bodies": bodies, "oracle": exact_answers}
     cluster.stop()
     return per_launch
 
@@ -7149,6 +7279,863 @@ def phase_mesh_sparse_kernels(torch, rec, launches, per_launch) -> list:
     return rows
 
 
+# ---------------------------------------------------------------------------
+# the sharded data plane: a mesh_data_plane=True node, one launch a request
+# over the index cut round-robin into S slots (rows 40-44)
+# ---------------------------------------------------------------------------
+
+SHARDED_FAMILIES = ("sharded_knn", "sharded_bm25", "sharded_bm25_batch",
+                    "sharded_sparse", "sharded_hybrid")
+# the families a mesh_data_plane node's requests launch (rows 41 and 44
+# have no served caller in either package)
+SHARDED_SERVED = ("sharded_knn", "sharded_bm25_batch", "sharded_sparse")
+SHARDED_SOURCES = {f: f"elasticsearch_tpu_torch/csrc/{f}.cu"
+                   for f in SHARDED_FAMILIES}
+REPLACES.update({
+    "sharded_knn": "elasticsearch_tpu/parallel/sharded_search.py:151",
+    "sharded_bm25": "elasticsearch_tpu/parallel/sharded_search.py:240",
+    "sharded_bm25_batch": "elasticsearch_tpu/parallel/sharded_search.py:265",
+    "sharded_sparse": "elasticsearch_tpu/parallel/sharded_search.py:634",
+    "sharded_hybrid": "elasticsearch_tpu/parallel/sharded_search.py:777",
+})
+# what a served request must not launch: the one-shard scoring kernels and
+# the mesh executor's
+NOT_ON_THE_DATA_PLANE = ("bm25_flat", "bm25_flat_seg", "bm25_coarse",
+                         "bm25_rerank", "knn_flat", "knn_coarse",
+                         "knn_rerank", "sparse_flat", "sparse_coarse",
+                         "sparse_rerank") + MESH_FAMILIES + \
+    MESH_KNN_FAMILIES + MESH_SPARSE_FAMILIES
+SIMILARITIES = ("cosine", "dot_product", "l2_norm")
+# the slots the full cell's data plane cuts each index into (a default
+# node takes 8, which the CPU parity tests hold against the JAX package's
+# node); at 4 the MS MARCO copy is 2,097,152 blocks a slot, 8.66 GB on the
+# card and as much on the host
+SHARDED_SLOTS = 4
+# the text bodies the data plane's answers are held to a DFS oracle for,
+# the first 8 of the 64: each DFS request costs mesh-full's node about 2 s
+# (NVIDIA H100 80GB HBM3, 700 W), its block-max bounds recomputed for
+# every request
+SHARDED_DFS_ORACLE = 8
+
+
+def sharded_operands(torch, np, dev, rng, n_slots: int, n_docs: int,
+                     dims: int, n_q: int):
+    """Seeded operands of rows 40-44 on one layout, on ``dev``: Zipf docs
+    (every 9th a copy of an earlier one: score ties) packed by
+    ``ShardedTextIndex`` on ``dev``, their Gaussian vectors on the same N
+    (every 7th a copy), n_q queries: the first few copies of doc vectors
+    and copies nudged by 1e-3 (l2 at near-zero distances), each query's
+    BM25 block lists [S, n_q, QB], rank_features weights on the text
+    blocks and one query's lists [S, 16] with padding entries."""
+    from elasticsearch_tpu_torch.ops.knn import query_norms
+    from elasticsearch_tpu_torch.parallel import (
+        ShardedTextIndex, ShardedVectorIndex, make_mesh,
+    )
+    docs = []
+    for i in range(n_docs):
+        if i % 9 == 8:
+            docs.append(docs[int(rng.integers(0, i))])
+            continue
+        docs.append([f"t{min(int(rng.zipf(1.3)) - 1, 499)}"
+                     for _ in range(int(rng.integers(2, 13)))])
+    mesh = make_mesh(n_slots, device=dev)
+    text = ShardedTextIndex(mesh, docs)
+    vectors = rng.standard_normal((n_docs, dims)).astype(np.float32)
+    vectors[6::7] = vectors[: len(vectors[6::7])]
+    vec = ShardedVectorIndex(mesh, vectors, n_per_shard=text.n_per_shard)
+    queries = rng.standard_normal((n_q, dims)).astype(np.float32)
+    queries[:3] = vectors[[5, 12, 40]]
+    queries[3:6] = vectors[[5, 13, 41]] + np.float32(1e-3)
+    qn, q2 = query_norms(queries)
+    lists = [text.prep_query([f"t{int(t)}" for t in
+                              rng.integers(0, 60, int(rng.integers(1, 4)))])
+             for _ in range(n_q)]
+    qb = max(x[0].shape[1] for x in lists)
+    idx = np.zeros((n_slots, n_q, qb), np.int32)
+    w = np.zeros((n_slots, n_q, qb), np.float32)
+    for q, (i_, w_) in enumerate(lists):
+        idx[:, q, : i_.shape[1]] = i_
+        w[:, q, : w_.shape[1]] = w_
+    T = lambda a: torch.as_tensor(np.ascontiguousarray(a), device=dev)  # noqa
+    nb = text.block_docs.shape[1]
+    weights = torch.where(text.block_docs >= 0, text.block_tfs * T(
+        rng.uniform(0.1, 3.0, tuple(text.block_docs.shape)).astype(
+            np.float32)), torch.zeros((), device=dev))
+    s_idx = rng.integers(0, nb, (n_slots, 16)).astype(np.int32)
+    s_w = rng.uniform(0.2, 2.0, (n_slots, 16)).astype(np.float32)
+    s_idx[:, -3:], s_w[:, -3:] = 0, 0.0
+    return dict(text=text, vec=vec, queries=T(queries), qn=T(qn), q2=T(q2),
+                idx=T(idx), w=T(w), weights=weights.contiguous(),
+                s_idx=T(s_idx), s_w=T(s_w))
+
+
+def phase_sharded_small(torch, np, dev) -> None:
+    """Rows 40-44 against their plain versions on the card, bitwise: S 2,
+    4 and 8 (the last across two selection chunks), the three
+    similarities, Q 1 and 16, counted and not, k 10 and k past the whole
+    slot space (the (-inf, -1) padding), queries matching nothing (every
+    slot -inf), l2 at zero and near-zero distances, fused branches whose
+    ids overlap and a BM25 branch of -1 ids."""
+    from elasticsearch_tpu_torch.parallel import sharded_search as sh
+    rng = np.random.default_rng(SEED + 1101)
+    n = 0
+    for n_slots, n_docs in ((2, 3000), (4, 3000), (8, 70_000)):
+        op = sharded_operands(torch, np, dev, rng, n_slots, n_docs, 16, 16)
+        text, vec = op["text"], op["vec"]
+        per = text.n_per_shard
+        nb = text.block_docs.shape[1]
+        td = (text.block_docs, text.block_tfs, text.doc_lens, text.avgdl)
+
+        def same(name, fn, *args, **kw):
+            compare(torch, f"{name} S={n_slots}", fn(*args, **kw),
+                    getattr(sh, fn.__name__ + "_plain")(*args, **kw))
+        for k in (10, n_slots * per + 3):
+            for sim in SIMILARITIES:
+                for b in (1, 16):
+                    same("sharded_knn", sh.sharded_knn, vec.matrix,
+                         vec.norms, vec.valid, op["queries"][:b],
+                         op["qn"][:b], op["q2"][:b], k, sim)
+                    n += 1
+            for q in (0, 1):
+                same("sharded_bm25", sh.sharded_bm25, *td,
+                     op["idx"][:, q].contiguous(),
+                     op["w"][:, q].contiguous(), k)
+            same("sharded_bm25 (no match)", sh.sharded_bm25, *td,
+                 op["idx"][:, 0].contiguous(),
+                 torch.zeros_like(op["w"][:, 0]), k)
+            for b in (1, 16):
+                for counted in (False, True):
+                    same("sharded_bm25_batch", sh.sharded_bm25_batch, *td,
+                         op["idx"][:, :b].contiguous(),
+                         op["w"][:, :b].contiguous(), k, counted=counted)
+            for w in (op["s_w"], torch.zeros_like(op["s_w"])):
+                same("sharded_sparse", sh.sharded_sparse, text.block_docs,
+                     op["weights"], op["s_idx"], w, per, k)
+            n += 8
+        # row 44: overlapping branches (the query vector of the BM25
+        # branch's best doc), and a BM25 branch of a few matches (-1 ids)
+        idx0 = op["idx"][:, 0].contiguous()
+        w0 = op["w"][:, 0].contiguous()
+        best = int(sh.sharded_bm25(*td, idx0, w0, 1)[1][0])
+        fill = (text.block_docs >= 0).sum(dim=2)
+        fill[fill == 0] = 1 << 30
+        flat = int(torch.argmin(fill))
+        few_idx = torch.zeros_like(idx0)
+        few_w = torch.zeros_like(w0)
+        few_idx[flat // nb, 0], few_w[flat // nb, 0] = flat % nb, 1.5
+        qvec = vec.matrix.reshape(-1, vec.matrix.shape[2])[best]
+        from elasticsearch_tpu_torch.ops.knn import query_norms
+        qn, q2 = (torch.as_tensor(x, device=dev)
+                  for x in query_norms(qvec[None].cpu().numpy()))
+        for bi, bw in ((idx0, w0), (few_idx, few_w)):
+            for sim in SIMILARITIES:
+                same("sharded_hybrid", sh.sharded_hybrid, *td, bi, bw,
+                     vec.matrix, vec.norms, vec.valid, qvec.contiguous(),
+                     qn, q2, 10, similarity=sim)
+                n += 1
+        got = sh.sharded_hybrid(*td, few_idx, few_w, vec.matrix, vec.norms,
+                                vec.valid, qvec.contiguous(), qn, q2, 10)
+        check(bool((sh.sharded_bm25(*td, few_idx, few_w, 10)[1] < 0).any())
+              and int(got[1][0]) >= 0,
+              f"sharded-small: S={n_slots}: the few-match case has no -1")
+        torch.cuda.synchronize()
+    log(f"sharded-small: {n} calls of rows 40-44 bitwise equal to their "
+        f"plain versions on the card (S 2, 4, 8)")
+
+
+SHARDED_MAPPINGS = {"properties": {
+    "body": {"type": "text"},
+    **{f"v_{s}": {"type": "dense_vector", "dims": 16, "similarity": s}
+       for s in SIMILARITIES},
+    "ml": {"type": "rank_features"}}}
+
+
+def sharded_engine_docs(np, n: int, seed: int, base: int):
+    """Seeded docs for the sharded-engine index: 3-24 Zipf(1.35) words
+    over 5,000, a 16-dim vector a similarity (unit length for
+    dot_product), 2-5 of 64 rank_features; every 11th doc repeats an
+    earlier one's fields (ties)."""
+    rng = np.random.default_rng(seed)
+    docs = []
+    for i in range(n):
+        if i % 11 == 10 and docs:
+            docs.append((str(base + i),
+                         dict(docs[int(rng.integers(0, len(docs)))][1])))
+            continue
+        v = rng.standard_normal(16)
+        terms = zipf_terms(np, rng, int(rng.integers(3, 25)), 5_000)
+        docs.append((str(base + i), {
+            "body": " ".join(f"w{int(t)}" for t in terms),
+            "v_cosine": [round(float(x), 4) for x in v],
+            "v_dot_product": [round(float(x), 6)
+                              for x in v / np.linalg.norm(v)],
+            "v_l2_norm": [round(float(x), 4) for x in 3.0 * v],
+            "ml": {f"f{int(f)}": round(float(rng.uniform(0.1, 3.0)), 3)
+                   for f in rng.integers(0, 64, int(rng.integers(2, 6)))}}))
+    return docs
+
+
+def sharded_engine_bodies(np):
+    """(name, body) of the sharded-engine mix, every one served by the data
+    plane: match at totals default / false / 3, bool of should-matches,
+    knn under the three similarities, text_expansion tokens (a boost,
+    totals false / 100)."""
+    rng = np.random.default_rng(SEED + 1111)
+
+    def text(n):
+        return " ".join(f"w{int(t)}" for t in zipf_terms(np, rng, n, 5_000))
+    out = []
+    for q in range(6):
+        t = text(int(rng.integers(2, 6)))
+        for track in (None, False, 3):
+            body = {"query": {"match": {"body": t}}, "size": 10}
+            if track is not None:
+                body["track_total_hits"] = track
+            out.append((f"match{q}_{track}", body))
+    for q in range(2):
+        out.append((f"bool_should{q}", {"query": {"bool": {"should": [
+            {"match": {"body": text(2)}},
+            {"match": {"body": {"query": text(3), "boost": 1.5}}}]}},
+            "size": 8}))
+    for s in SIMILARITIES:
+        for q in range(2):
+            v = rng.standard_normal(16)
+            if s == "dot_product":
+                v = v / np.linalg.norm(v)
+            out.append((f"knn_{s}{q}", {"query": {"knn": {
+                "field": f"v_{s}", "k": 10, "num_candidates": 50,
+                "query_vector": [round(float(x), 6) for x in v]}},
+                "size": 10}))
+    for name, extra in (("tokens", {}), ("tokens_boost", None),
+                        ("tokens_totals_false", {"track_total_hits": False}),
+                        ("tokens_totals_100", {"track_total_hits": 100})):
+        te = {"tokens": {f"f{int(f)}": 1.0 + 0.25 * j for j, f in
+                         enumerate(rng.integers(0, 64, 3))}}
+        if extra is None:
+            te["boost"] = 2.5
+            extra = {}
+        out.append((name, {"query": {"text_expansion": {"ml": te}},
+                           "size": 7, **extra}))
+    return out
+
+
+def sharded_engine_node(device, n_docs: int):
+    """A one-node port cluster with ``mesh_data_plane=True`` on ``device``
+    holding ``sh`` (4 shards, 0 replicas): two bulk halves with a refresh
+    between, then deletes."""
+    from elasticsearch_tpu_torch.testing import InProcessCluster
+    import numpy as np
+    cluster = InProcessCluster(n_nodes=1, seed=SEED + 1112, device=device,
+                               mesh_data_plane=True)
+    cluster.start()
+    node = RestNode(cluster)
+    node.ok("PUT", "/sh", {"settings": {
+        "number_of_shards": MESH_SHARDS, "number_of_replicas": 0},
+        "mappings": SHARDED_MAPPINGS})
+    docs = sharded_engine_docs(np, n_docs, SEED + 1113, 0)
+    half = n_docs // 2
+    for part in (docs[:half], docs[half:]):
+        resp = node.ok("POST", "/_bulk", raw=bulk_ndjson("sh", part))
+        check(not resp["errors"], f"sharded-engine: bulk errors ({device})")
+        node.ok("POST", "/sh/_refresh")
+    node.ok("POST", "/_bulk", raw=bulk_ndjson(
+        "sh", [], deletes=[str(i) for i in range(0, n_docs, 53)]))
+    node.ok("POST", "/sh/_refresh")
+    return node
+
+
+def sharded_engine_refresh(np, node, n_docs: int) -> None:
+    """Writes between two request rounds: new docs, deletes, a refresh."""
+    more = sharded_engine_docs(np, 400, SEED + 1114, n_docs)
+    node.ok("POST", "/_bulk", raw=bulk_ndjson(
+        "sh", more, deletes=[str(i) for i in range(7, n_docs, 101)]))
+    node.ok("POST", "/sh/_refresh")
+
+
+def sharded_engine_rounds(node, bodies, n_docs: int, lat=None):
+    """Every body, a round of writes, every body again."""
+    import numpy as np
+    rounds = []
+    for r in range(2):
+        if r:
+            sharded_engine_refresh(np, node, n_docs)
+        got = []
+        for _n, body in bodies:
+            t1 = time.monotonic()
+            got.append(node.call("POST", "/sh/_search", body))
+            if lat is not None:
+                lat.append(time.monotonic() - t1)
+        rounds.append(got)
+    return rounds
+
+
+def sharded_engine_cpu_answers(n_docs: int):
+    """Run in a worker process: the CPU node's answers and build stats."""
+    import numpy as np
+    node = sharded_engine_node("cpu", n_docs)
+    rounds = sharded_engine_rounds(node, sharded_engine_bodies(np), n_docs)
+    stats = dict(node.node().mesh_plane.stats)
+    node.cluster.stop()
+    return rounds, stats
+
+
+def phase_sharded_engine(torch, np, dev, n_docs: int) -> None:
+    """A card node and a CPU node (in a worker process), both
+    ``mesh_data_plane=True``, on a 4-shard index of ``n_docs`` seeded
+    docs: text, bool-should, knn (three similarities) and text_expansion
+    bodies, a round of writes (new docs, deletes, a refresh), the bodies
+    again: every answer mesh-served (``_data_plane: "mesh"``) and the same
+    JSON on both nodes, scores bitwise (each kernel is bitwise its plain
+    version); the builds counted alike."""
+    import multiprocessing as mp
+    t0 = time.monotonic()
+    pool = mp.get_context("spawn").Pool(1)
+    try:
+        cpu = pool.apply_async(sharded_engine_cpu_answers, (n_docs,))
+        node = sharded_engine_node(dev, n_docs)
+        bodies = sharded_engine_bodies(np)
+        plane = node.node().mesh_plane
+        q0 = plane.stats["mesh_queries"]
+        lat = []
+        rounds = sharded_engine_rounds(node, bodies, n_docs, lat)
+        want, cpu_stats = cpu.get()
+    finally:
+        pool.terminate()
+        pool.join()
+    for r, (got, cpu_round) in enumerate(zip(rounds, want)):
+        for (name, _b), g, w in zip(bodies, got, cpu_round):
+            check(g[0] == w[0] == 200, f"sharded-engine: {name}: status "
+                  f"{g[0]} / {w[0]}: {str(g[1])[:300]}")
+            check(g[1].get("_data_plane") == "mesh",
+                  f"sharded-engine: round {r} {name} was not served by the "
+                  f"data plane: {g[1].get('_data_plane')}")
+            check(json.dumps(without_took(g[1]), sort_keys=True) ==
+                  json.dumps(without_took(w[1]), sort_keys=True),
+                  f"sharded-engine: round {r} {name}: card and cpu differ "
+                  f"({same_json(w[1], g[1])})")
+    served = plane.stats["mesh_queries"] - q0
+    check(served == 2 * len(bodies),
+          f"sharded-engine: {served} data-plane queries for "
+          f"{2 * len(bodies)} bodies")
+    for key in ("mesh_builds", "last_build_docs", "mesh_fallbacks",
+                "wand_blocks_total", "wand_blocks_scored"):
+        check(plane.stats[key] == cpu_stats[key],
+              f"sharded-engine: {key} {plane.stats[key]} on the card, "
+              f"{cpu_stats[key]} on the cpu")
+    lat.sort()
+    log(f"sharded-engine: {len(bodies)} bodies x 2 rounds served by the "
+        f"data plane, JSON equal on the card node and the cpu node, scores "
+        f"bitwise; card p50 {1e3 * lat[len(lat) // 2]:.3f} ms p99 "
+        f"{1e3 * pct(lat, 0.99):.3f} ms ({time.monotonic() - t0:.1f}s in "
+        f"all); data plane stats {plane.stats}")
+    node.cluster.stop()
+
+
+def without_took(resp):
+    return {k: v for k, v in resp.items() if k != "took"}
+
+
+def close_hits(a_hits, b_hits, rtol: float):
+    """Two hit lists: ids equal outside ties within ``rtol``, scores to
+    ``rtol``; None when they agree, else where they differ."""
+    if len(a_hits) != len(b_hits):
+        return f"hits: {len(a_hits)} vs {len(b_hits)}"
+    sa = [h["_score"] for h in a_hits]
+    sb = [h["_score"] for h in b_hits]
+    for x, y in zip(sa, sb):
+        if abs(x - y) > rtol * abs(x) + 1e-12:
+            return f"scores {x} vs {y}"
+    i = 0
+    while i < len(sa):
+        j = i + 1
+        while j < len(sa) and abs(sa[j] - sa[i]) <= 2 * rtol * abs(sa[i]):
+            j += 1
+        ids_a = {h["_id"] for h in a_hits[i:j]}
+        ids_b = {h["_id"] for h in b_hits[i:j]}
+        if j < len(sa) and ids_a != ids_b:
+            return f"hits[{i}:{j}] ids {sorted(ids_a)} vs {sorted(ids_b)}"
+        i = j
+    return None
+
+
+def sharded_node(dev, n_slots: int):
+    """A card node booted with ``mesh_data_plane=True`` and
+    ``mesh_slots=n_slots``: its data plane cuts an index into that many
+    slots."""
+    from elasticsearch_tpu_torch.testing import InProcessCluster
+    cluster = InProcessCluster(n_nodes=1, seed=SEED + 1120, device=dev,
+                               mesh_data_plane=True, mesh_slots=n_slots)
+    cluster.start()
+    n = next(iter(cluster.nodes.values()))
+    check(n.mesh_plane.mesh.n_slots == n_slots,
+          f"sharded-full: the node's data plane has "
+          f"{n.mesh_plane.mesh.n_slots} slots, not {n_slots}")
+    return cluster, RestNode(cluster)
+
+
+def l2_segments(shards):
+    """mesh-knn-full's SIFT1M segments again (their vectors shared, not
+    copied), the field's similarity l2_norm: SIFT1M's own metric."""
+    import dataclasses
+    out = []
+    for segs in shards:
+        row = []
+        for seg in segs:
+            again = rewrap(seg)
+            again.vectors["vec"] = dataclasses.replace(
+                seg.vectors["vec"], similarity="l2_norm")
+            row.append(again)
+        out.append(row)
+    return out
+
+
+def l2_oracle(torch, np, dev, shards, bodies):
+    """The float64 l2_norm top-10 of each kNN body over the SIFT1M
+    segments, as hits (``_id``, ``_score`` = 1 / (1 + distance)): the
+    vectors are integers, so every float64 distance is exact."""
+    rows, ids = [], []
+    for segs in shards:
+        for seg in segs:
+            rows.append(seg.vectors["vec"].matrix)
+            ids.extend(seg.ids)
+    x = torch.as_tensor(np.concatenate(rows), device=dev).double()
+    x2 = (x * x).sum(1)
+    out = []
+    for body in bodies:
+        q = torch.tensor(body["query"]["knn"]["query_vector"],
+                         dtype=torch.float64, device=dev)
+        d2 = torch.clamp_min(x2 - 2.0 * (x @ q) + (q * q).sum(), 0.0)
+        best = torch.topk(d2, 10, largest=False)
+        out.append({"hits": {"hits": [
+            {"_id": ids[int(r)], "_score": 1.0 / (1.0 + math.sqrt(float(d)))}
+            for d, r in zip(best.values.tolist(), best.indices.tolist())]}})
+    del x, x2
+    return out
+
+
+def plain_replay(torch, node, index: str, bodies, answers) -> None:
+    """Every text body again with row 42's plain version in the kernel's
+    place, on the same sharded copy: the JSON must be the served one,
+    byte for byte (the kernel is bitwise its plain version)."""
+    from elasticsearch_tpu_torch.parallel import sharded_search as sh
+    served = sh.sharded_bm25_batch
+    sh.sharded_bm25_batch = sh.sharded_bm25_batch_plain
+    try:
+        for q, (body, got) in enumerate(zip(bodies, answers)):
+            want = node.ok("POST", f"/{index}/_search", body)
+            check(json.dumps(without_took(want), sort_keys=True) ==
+                  json.dumps(without_took(got), sort_keys=True),
+                  f"sharded-full: text request {q}: the kernel's answer "
+                  f"and the plain version's differ ({same_json(want, got)})")
+    finally:
+        sh.sharded_bm25_batch = served
+
+
+def sharded_leg(torch, node, index: str, bodies, kind: str, family: str):
+    """n solo requests of one kind through the data plane: the first one
+    (it builds the sharded copy) apart, every one checked mesh-served and
+    to have launched its own family and none of NOT_ON_THE_DATA_PLANE.
+    Returns (answers, solo seconds, first-request seconds, launches)."""
+    from elasticsearch_tpu_torch.search.device_profile import DEVICE_PROFILE
+    what = "launches" if torch.cuda.is_available() else "calls"
+    watched = (family,) + NOT_ON_THE_DATA_PLANE
+    count = lambda: {f: getattr(DEVICE_PROFILE.family(f), what)  # noqa
+                     for f in watched}
+    answers, times, first = [], [], None
+    launched = 0
+    for q, body in enumerate(bodies):
+        before = count()
+        t = time.monotonic()
+        resp = node.ok("POST", f"/{index}/_search", body)
+        took = time.monotonic() - t
+        after = count()
+        check(resp.get("_data_plane") == "mesh",
+              f"sharded-full: {kind} request {q} was not served by the data "
+              f"plane ({resp.get('_data_plane')})")
+        check(after[family] > before[family],
+              f"sharded-full: {kind} request {q} launched no {family}")
+        other = {f: after[f] - before[f] for f in NOT_ON_THE_DATA_PLANE
+                 if after[f] != before[f]}
+        check(not other, f"sharded-full: {kind} request {q} launched {other}")
+        launched += after[family] - before[family]
+        answers.append(resp)
+        if q == 0:
+            first = took
+        else:
+            times.append(took)
+    return answers, times, first, launched
+
+
+def merged_segments(text_shards, sparse_shards):
+    """[shard] -> segments holding both corpora's fields: the MS MARCO
+    and the rank_features cells are the same size, so their routed _ids
+    (``routed_ids``) are the same, doc for doc; one ``restore_segments``
+    then serves both."""
+    out = []
+    for tsegs, ssegs in zip(text_shards, sparse_shards):
+        segs = []
+        for t, f in zip(tsegs, ssegs):
+            check(t.n_docs == f.n_docs and t.ids == f.ids,
+                  "sharded-full: the text and rank_features shards differ "
+                  "in their _ids")
+            t.features.update(f.features)
+            segs.append(t)
+        out.append(segs)
+    return out
+
+
+def phase_sharded_full(torch, np, dev, kept, n_slots: int, shared) -> None:
+    """The sharded data plane at full width on one card node with
+    ``mesh_data_plane=True``: mesh-full's MS MARCO segments and
+    mesh-sparse-full's rank_features segments as the body and ml fields of
+    one 4-shard index, and mesh-knn-full's SIFT1M segments (4 shards of 4)
+    as two more, one cosine and one l2_norm, installed with
+    ``restore_segments`` (no new host build); per kind its first request
+    (the sharded copy's build), then the rest of its bodies solo, each
+    served by the data plane with its own family and no K1-K7, K15-K17 or
+    mesh_* launch. Oracles: match against mesh-full's node answering the
+    first 8 bodies with ``dfs_query_then_fetch`` (global term statistics:
+    ids outside near-ties, scores to rtol 1e-5, totals equal), and all 64
+    against row 42's plain version on the same sharded copy (the JSON byte
+    for byte); cosine knn against a float64 exact oracle (recall@10) and
+    mesh-knn-full's exact answers (ids outside near-ties, scores to rtol
+    1e-6); l2_norm knn against the float64 exact l2 top-10 (ids outside
+    near-ties, scores to rtol 1e-4: the f32 norm * norm + q2 - 2 dot
+    rounds a norm of about 1,200 to a few 1e-5 of a neighbour's
+    distance); text_expansion against mesh-sparse-full's exact answers
+    (ids outside near-ties, scores to rtol 1e-6). Keeps the sharded text
+    index in ``shared`` for the kernels."""
+    from elasticsearch_tpu_torch.search.device_profile import DEVICE_PROFILE
+    cluster, node = sharded_node(dev, n_slots)
+    svc = node.node().indices_service
+    plane = node.node().mesh_plane
+    DEVICE_PROFILE.timing = dev.type == "cuda"
+    dev0 = device_ms(SHARDED_SERVED)
+    text, sparse, knn = kept.get("text"), kept.get("sparse"), kept.get("knn")
+    installs = []
+    if text and sparse:
+        installs.append(("msm", {"body": {"type": "text"},
+                                 "ml": {"type": "rank_features"}},
+                         merged_segments(text["shards"], sparse["shards"]),
+                         ("text", "sparse")))
+    elif text or sparse:
+        kind = "text" if text else "sparse"
+        field = {"text": {"body": {"type": "text"}},
+                 "sparse": {"ml": {"type": "rank_features"}}}[kind]
+        installs.append(("msm", field, kept[kind]["shards"], (kind,)))
+    if knn:
+        kept["knn_l2"] = {"shards": l2_segments(knn["shards"]),
+                          "bodies": knn["bodies"],
+                          "oracle": l2_oracle(torch, np, dev, knn["shards"],
+                                              knn["bodies"])}
+        kept["knn_l2"]["exact_ids"] = [[h["_id"] for h in o["hits"]["hits"]]
+                                       for o in kept["knn_l2"]["oracle"]]
+        for index, sim, kind in (("sknn", "cosine", "knn"),
+                                 ("sknn_l2", "l2_norm", "knn_l2")):
+            installs.append((index, {"vec": {"type": "dense_vector",
+                                             "dims": SIFT_DIMS,
+                                             "similarity": sim},
+                                     "tag": {"type": "keyword"}},
+                             kept[kind]["shards"], (kind,)))
+    families = {"text": "sharded_bm25_batch", "knn": "sharded_knn",
+                "knn_l2": "sharded_knn", "sparse": "sharded_sparse"}
+    rtols = {"text": 1e-5, "knn": 1e-6, "knn_l2": 1e-4, "sparse": 1e-6}
+    for index, mapping, shards, kinds in installs:
+        blocks = {f: sum(st.block_docs.shape[0] for segs in shards
+                         for seg in segs
+                         for st in (getattr(seg, attr).get(f),) if st)
+                  for f, attr in (("body", "postings"), ("ml", "features"))
+                  if f in mapping}
+        log(f"sharded-full: {index}: S={n_slots} slots; the source "
+            f"segments hold {blocks} blocks (each slot's copy packs its "
+            f"share of their postings, one block or more per term present, "
+            f"padded to a power of two)")
+        t0 = time.monotonic()
+        node.ok("PUT", f"/{index}", {"settings": {
+            "number_of_shards": MESH_SHARDS, "number_of_replicas": 0},
+            "mappings": {"properties": mapping}})
+        cluster.ensure_green(index)
+        n_docs = 0
+        for s, segs in enumerate(shards):
+            engine = svc.shard(index, s).engine
+            engine.restore_segments(list(engine.segments) + segs)
+            n_docs += sum(seg.n_docs for seg in segs)
+        del shards
+        for kind in kinds:
+            kept[kind]["shards"] = None
+        t_restore = time.monotonic() - t0
+        log(f"sharded-full: {index} ({'+'.join(kinds)}): {n_docs} docs "
+            f"restored into {MESH_SHARDS} shards in {t_restore:.1f}s")
+        for kind in kinds:
+            data, family = kept[kind], families[kind]
+            answers, times, first, launched = sharded_leg(
+                torch, node, index, data["bodies"], kind, family)
+            stats = dict(plane.stats)
+            store = {"text": plane._text, "knn": plane._vec,
+                     "knn_l2": plane._vec, "sparse": plane._feat}[kind]
+            built = next(iter(store.values()))[1]
+            host_bytes = 0
+            if kind == "text" and dev.type == "cuda":
+                host_bytes = built._impacts.nbytes + sum(
+                    c.block_docs.nbytes + c.block_tfs.nbytes
+                    for c in built._cell_indexes)
+            if kind == "text":
+                shared["sharded_text"] = built
+            log(f"sharded-full: {kind}: S={n_slots} slots of "
+                f"{built.n_per_shard}; first request {first:.2f}s (the "
+                f"sharded copy's build {stats['last_build_seconds']:.2f}s); "
+                f"device bytes {built.nbytes}, host bytes {host_bytes}"
+                + (f", nb_max {built.nb_max}" if kind in ("text", "sparse")
+                   else "")
+                + f"; {len(times)} solo p50 {1e3 * pct(times, 0.5):.3f} ms "
+                f"p99 {1e3 * pct(times, 0.99):.3f} ms; {family} launches "
+                f"{launched} for {len(answers)} requests")
+            if kind == "text":
+                t_replay = time.monotonic()
+                plain_replay(torch, node, index, data["bodies"], answers)
+                log(f"sharded-full: text: {len(answers)} of {len(answers)} "
+                    f"answers equal row 42's plain version's on the same "
+                    f"sharded copy, byte for byte "
+                    f"({time.monotonic() - t_replay:.1f}s)")
+            hits = 0
+            for q, (got, want) in enumerate(zip(answers, data["oracle"])):
+                why = close_hits(want["hits"]["hits"], got["hits"]["hits"],
+                                 rtols[kind])
+                check(why is None, f"sharded-full: {kind} request {q}: {why}")
+                if kind == "text":
+                    check(got["hits"]["total"] == want["hits"]["total"],
+                          f"sharded-full: text request {q}: total "
+                          f"{got['hits']['total']} vs dfs "
+                          f"{want['hits']['total']}")
+                if kind in ("knn", "knn_l2"):
+                    hits += len({h["_id"] for h in got["hits"]["hits"]} &
+                                set(data["exact_ids"][q]))
+            if kind in ("knn", "knn_l2"):
+                recall = hits / (10 * len(answers))
+                check(recall >= 0.95,
+                      f"sharded-full: {kind} recall@10 {recall}")
+                log(f"sharded-full: {kind} recall@10 against the float64 "
+                    f"oracle {recall:.4f}")
+            n_cmp = min(len(answers), len(data["oracle"]))
+            log(f"sharded-full: {kind}: {n_cmp} of {len(answers)} answers "
+                f"equal the oracle (" + {
+                    "text": "dfs_query_then_fetch on mesh-full's node",
+                    "knn": "mesh-knn-full's exact answers",
+                    "knn_l2": "the float64 exact l2 top-10",
+                    "sparse": "mesh-sparse-full's exact answers"}[kind] + ")")
+        node.ok("DELETE", f"/{index}")
+        plane._text.clear(), plane._vec.clear(), plane._feat.clear()
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    DEVICE_PROFILE.timing = False
+    kern = {f: round(v - dev0[f], 3)
+            for f, v in device_ms(SHARDED_SERVED).items()}
+    log(f"sharded-full: kernel device ms over the legs {kern}; data plane "
+        f"stats {plane.stats}")
+    cluster.stop()
+
+def sharded_group(family: str, args):
+    """One largest call per kNN similarity (the cosine and the l2_norm
+    SIFT1M legs), one per family otherwise."""
+    if family == "sharded_knn" and len(args) > 7:
+        return args[7]
+    return None
+
+
+def sharded_size(family: str, args) -> int:
+    """The work of a sharded call: query x slot rows scored (kNN), list
+    entries gathered (BM25, sparse)."""
+    if family == "sharded_knn":
+        return args[3].shape[0] * args[0].shape[0] * args[0].shape[1]
+    return args[2 if family == "sharded_sparse" else 4].numel()
+
+
+def gathered_postings(torch, block_docs, block_idx, weights) -> int:
+    """Postings the listed blocks hold (entries of weight 0 are padding)."""
+    n = 0
+    for s in range(block_docs.shape[0]):
+        docs = block_docs[s][block_idx[s].long()]
+        n += int(((docs >= 0) & (weights[s] != 0)[..., None]).sum())
+    return n
+
+
+def sharded_bound(torch, family: str, args, kwargs):
+    """(bound_ms, bound_by, bytes): each input read once, each output
+    written once -- the real slot rows of the vector plane, the postings
+    the listed blocks hold (8 bytes, BM25 a doc length more), the lists,
+    the answers -- over the memory rate, or the arithmetic over the peak
+    rate of its type (bf16 dots for cosine and dot_product, f32 for l2 and
+    the scatters), whichever is larger."""
+    nbytes, ops, peak = 0, 0, F32_FLOPS
+
+    def knn_part(matrix, valid, queries, k, sim):
+        n_real = int(valid.sum())
+        dims = matrix.shape[2]
+        b = queries.shape[0]
+        return (n_real * (dims * 4 + 5) + b * (dims * 4 + 8) + b * k * 8,
+                2 * b * n_real * dims,
+                F32_FLOPS if sim == "l2_norm" else BF16_FLOPS)
+    if family == "sharded_knn":
+        sim = args[7] if len(args) > 7 else kwargs.get("similarity",
+                                                       "cosine")
+        nbytes, ops, peak = knn_part(args[0], args[2], args[3], args[6], sim)
+    elif family in ("sharded_bm25", "sharded_bm25_batch", "sharded_hybrid"):
+        bd, idx, w, k = args[0], args[4], args[5], args[6]
+        if family == "sharded_hybrid":
+            k = args[12]
+        p = gathered_postings(torch, bd, idx, w)
+        rows = idx.numel() // idx.shape[-1] // bd.shape[0]
+        nbytes = p * 12 + idx.numel() * 8 + rows * (k * 8 + 4)
+        ops = p * 8
+        if family == "sharded_hybrid":
+            sim = kwargs.get("similarity", "cosine")
+            kb, ko, peak = knn_part(args[6], args[8], args[9][None], k, sim)
+            nbytes, ops = nbytes + kb, ops + ko
+    else:
+        bd, idx, w, k = args[0], args[2], args[3], args[5]
+        p = gathered_postings(torch, bd, idx, w)
+        nbytes = p * 8 + idx.numel() * 8 + k * 8
+        ops = p * 2
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / peak * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                 else "operations"), nbytes
+
+
+def sharded_library_ms(torch, family: str, args, kwargs):
+    """One PyTorch call's worth of the same function, bracketed (partial):
+    rows 40 and 44 ``torch.matmul`` of the queries with the whole vector
+    plane and ``torch.topk``; rows 41-43 ``index_add_`` of the gathered
+    contributions (prepared outside the timing) and ``torch.topk``."""
+    if family in ("sharded_knn", "sharded_hybrid"):
+        if family == "sharded_knn":
+            matrix, queries, k = args[0], args[3], args[6]
+        else:
+            matrix, queries, k = args[6], args[9][None], args[12]
+        flat = matrix.reshape(-1, matrix.shape[2])
+        return time_call(torch, lambda: torch.topk(
+            torch.matmul(queries, flat.t()), k, dim=1), 10)
+    bd, vals = args[0], args[1]
+    if family == "sharded_sparse":
+        idx, w, n, k = args[2], args[3], args[4], args[5]
+        idx, w = idx[:, None], w[:, None]
+    else:
+        idx, w, n, k = args[4], args[5], args[2].shape[1], args[6]
+        if idx.dim() == 2:
+            idx, w = idx[:, None], w[:, None]
+    s_n, n_q = idx.shape[0], idx.shape[1]
+    tgt, con = [], []
+    for s in range(s_n):
+        docs = bd[s][idx[s].long()]                       # [Q, QB, 128]
+        ok = (docs >= 0) & (w[s] != 0)[..., None]
+        q = torch.arange(n_q, device=bd.device)[:, None, None].expand_as(
+            docs)
+        tgt.append(((s * n_q + q) * n + docs.long())[ok])
+        con.append((vals[s][idx[s].long()] * w[s][..., None])[ok])
+    tgt, con = torch.cat(tgt), torch.cat(con)
+    acc = torch.zeros(s_n * n_q * n, device=bd.device)
+
+    def run():
+        acc.zero_()
+        acc.index_add_(0, tgt, con)
+        return torch.topk(acc.view(s_n, n_q, n).permute(1, 0, 2).reshape(
+            n_q, -1), k, dim=1)
+    return time_call(torch, run, 10)
+
+
+def hybrid_operands(torch, dev, n_slots: int, n_per_shard: int, dims: int):
+    """Seeded row-44 operands at BEIR NQ's width (D 768): a block store of
+    4,096 blocks a slot (sorted docs, -1 padding, tfs 1..6), doc lengths
+    16..96, one query's 64 blocks a slot, and a Gaussian vector plane."""
+    g = torch.Generator(device=dev)
+    g.manual_seed(SEED + 1130)
+    nb = 4096
+    docs = torch.sort(torch.randint(0, n_per_shard, (n_slots, nb, 128),
+                                    generator=g, device=dev,
+                                    dtype=torch.int32), dim=2).values
+    cut = torch.randint(96, 129, (n_slots, nb, 1), generator=g, device=dev)
+    docs = torch.where(torch.arange(128, device=dev) < cut, docs,
+                       torch.full_like(docs, -1))
+    tfs = torch.where(docs >= 0, torch.randint(
+        1, 7, docs.shape, generator=g, device=dev).float(),
+        torch.zeros((), device=dev)).contiguous()
+    dl = torch.randint(16, 97, (n_slots, n_per_shard), generator=g,
+                       device=dev).float()
+    idx = torch.randint(0, nb, (n_slots, 64), generator=g, device=dev,
+                        dtype=torch.int32)
+    w = torch.rand(n_slots, 64, generator=g, device=dev) * 8.0 + 0.5
+    matrix = torch.randn(n_slots, n_per_shard, dims, generator=g,
+                         device=dev)
+    norms = torch.linalg.vector_norm(matrix, dim=2)
+    valid = torch.ones(n_slots, n_per_shard, dtype=torch.bool, device=dev)
+    return (docs.contiguous(), tfs, dl, 50.0, idx, w.contiguous(), matrix,
+            norms, valid)
+
+
+def phase_sharded_kernels(torch, np, rec, launches, shared, dev) -> list:
+    """Rows 40-44 on the kernels line: the served three (40, 42, 43)
+    bitwise against their plain versions on the first 3 calls recorded
+    (sharded-engine's) and the main path's largest, which is also the one
+    timed, so ``max_abs_err`` covers the full-width call; row 41 on one MS MARCO query of the
+    sharded text index sharded-full built, row 44 on seeded operands at
+    BEIR NQ's width (D 768, S 4, 262,144 docs a slot) -- neither has a
+    served caller (0 launches on the main path)."""
+    from elasticsearch_tpu_torch.ops.knn import query_norms
+    from elasticsearch_tpu_torch.parallel import sharded_search as sh
+    calls = {f: rec.calls[f] for f in SHARDED_SERVED}
+    text = shared.pop("sharded_text", None)
+    check(text is not None, "kernels: no sharded text index kept")
+    idx, w = text.prep_query([f"t{t}" for t in (0, 17, 230, 4051)])
+    calls["sharded_bm25"] = [((text.block_docs, text.block_tfs,
+                               text.doc_lens, text.avgdl,
+                               torch.as_tensor(idx, device=dev),
+                               torch.as_tensor(w, device=dev), 10), {})]
+    hyb = hybrid_operands(torch, dev, 4, 262_144, 768)
+    qvec = hyb[6][1, 77].contiguous()
+    qn, q2 = (torch.as_tensor(x, device=dev)
+              for x in query_norms(qvec[None].cpu().numpy()))
+    calls["sharded_hybrid"] = [(hyb + (qvec, qn, q2, 10), {})]
+    rows = []
+    for fam in SHARDED_FAMILIES:
+        check(bool(calls[fam]), f"kernels: no {fam} call recorded")
+        kernel, plain = getattr(sh, fam), getattr(sh, fam + "_plain")
+        torch.cuda.empty_cache()
+        err = 0.0
+        for args, kwargs in calls[fam]:
+            got = kernel(*args, **kwargs)
+            want = plain(*args, **kwargs)
+            torch.cuda.synchronize()
+            err = max(err, compare(torch, fam, got, want))
+            del got, want
+        args, kwargs = max(calls[fam], key=lambda c: sharded_size(fam, c[0]))
+        ms = time_call(torch, lambda: kernel(*args, **kwargs), 20)
+        plain_ms = time_call(torch, lambda: plain(*args, **kwargs), 5)
+        lib = sharded_library_ms(torch, fam, args, kwargs)
+        bound_ms, bound_by, nbytes = sharded_bound(torch, fam, args, kwargs)
+        if fam in ("sharded_knn", "sharded_hybrid"):
+            m = args[0] if fam == "sharded_knn" else args[6]
+            shape = (f"S={m.shape[0]} N={m.shape[1]} D={m.shape[2]} "
+                     f"B={args[3].shape[0] if fam == 'sharded_knn' else 1}")
+        else:
+            shape = (f"S={args[0].shape[0]} NB={args[0].shape[1]} "
+                     f"lists={tuple(args[4 if fam != 'sharded_sparse' else 2].shape)}")
+        log(f"kernel {fam}: {ms:.4f} ms (median of 20), plain "
+            f"{plain_ms:.4f} ms (median of 5), bound {bound_ms:.4f} ms "
+            f"({nbytes} bytes at 3.35 TB/s, {bound_by}), library "
+            f"(bracketed) {lib:.4f} ms, max_abs_err {err}, timed at {shape}")
+        rows.append({
+            "name": fam, "route": "cuda", "source": SHARDED_SOURCES[fam],
+            "replaces": REPLACES[fam], "launches": launches.get(fam, 0),
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib,
+            "library_is_partial": True, "shape": shape})
+        torch.cuda.empty_cache()
+    del text, hyb
+    return rows
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--phases", default="card,small,knn-small,dense-small,"
@@ -7158,7 +8145,8 @@ def main(argv=None) -> int:
                     "sparse-full,aggs-engine,aggs-full,node-engine,"
                     "hybrid-full,mesh-small,mesh-engine,mesh-full,"
                     "mesh-knn-small,mesh-knn-engine,mesh-knn-full,"
-                    "mesh-sparse-small,mesh-sparse-full")
+                    "mesh-sparse-small,mesh-sparse-full,sharded-small,"
+                    "sharded-engine,sharded-full")
     ap.add_argument("--full-docs", type=int, default=MS_MARCO_DOCS)
     ap.add_argument("--engine-docs", type=int, default=10_000)
     ap.add_argument("--knn-docs", type=int, default=SIFT_DOCS)
@@ -7168,16 +8156,17 @@ def main(argv=None) -> int:
     ap.add_argument("--gist-queries", type=int, default=128)
     ap.add_argument("--sparse-docs", type=int, default=MS_MARCO_DOCS)
     ap.add_argument("--sparse-engine-docs", type=int, default=3_000)
-    # the geonames and BEIR NQ cells run at half their corpora by default,
-    # so that every path fits the script's time limit
-    ap.add_argument("--geo-docs", type=int, default=GEONAMES_DOCS // 2)
+    # the geonames and BEIR NQ cells run at a quarter of their corpora by
+    # default, so that every path fits the script's time limit
+    ap.add_argument("--geo-docs", type=int, default=GEONAMES_DOCS // 4)
     ap.add_argument("--geo-engine-docs", type=int, default=3_000)
-    ap.add_argument("--node-docs", type=int, default=6_000)
-    ap.add_argument("--nq-docs", type=int, default=NQ_DOCS // 2)
+    ap.add_argument("--node-docs", type=int, default=3_000)
+    ap.add_argument("--nq-docs", type=int, default=NQ_DOCS // 4)
     ap.add_argument("--mesh-docs", type=int, default=MS_MARCO_DOCS)
-    ap.add_argument("--mesh-engine-docs", type=int, default=10_000)
+    ap.add_argument("--mesh-engine-docs", type=int, default=6_000)
     ap.add_argument("--mesh-knn-docs", type=int, default=SIFT_DOCS)
-    ap.add_argument("--mesh-knn-engine-docs", type=int, default=6_000)
+    ap.add_argument("--mesh-knn-engine-docs", type=int, default=3_000)
+    ap.add_argument("--sharded-engine-docs", type=int, default=2_000)
     ap.add_argument("--queries", type=int, default=64)
     ap.add_argument("--workers", type=int, default=4)
     ap.add_argument("--rehearse", action="store_true",
@@ -7252,11 +8241,17 @@ def main(argv=None) -> int:
         if "mesh-sparse-small" in phases and on_card:
             phase_mesh_sparse_small(torch, np, dev)
             log(t(), "mesh-sparse-small done")
+        if "sharded-small" in phases and on_card:
+            phase_sharded_small(torch, np, dev)
+            log(t(), "sharded-small done")
         from elasticsearch_tpu_torch.ops import bm25 as bm
         from elasticsearch_tpu_torch.ops import ivf, knn, topk
         rows = []
         shared = {}
         engines = {}
+        # the full cells' segments (and oracles) that sharded-full serves
+        # again through the data plane
+        kept = {} if "sharded-full" in phases else None
         if phases & {"engine", "dense-engine"}:
             engines["text"] = build_text_engine(np, args.engine_docs)
         if phases & {"knn-engine", "dense-engine", "ivf-engine"}:
@@ -7498,7 +8493,8 @@ def main(argv=None) -> int:
                 phase_mesh_full(
                     torch, np, dev, args.mesh_docs, args.workers,
                     args.queries,
-                    msmarco if args.mesh_docs == args.full_docs else None)
+                    msmarco if args.mesh_docs == args.full_docs else None,
+                    kept)
                 msmarco = None
                 log(t(), "mesh-full done")
         launches = DEVICE_PROFILE.launches()
@@ -7530,7 +8526,7 @@ def main(argv=None) -> int:
             if "mesh-knn-full" in phases:
                 per_launch = phase_mesh_knn_full(torch, np, dev,
                                                  args.mesh_knn_docs,
-                                                 args.queries)
+                                                 args.queries, kept)
                 log(t(), "mesh-knn-full done")
         launches = DEVICE_PROFILE.launches()
         log("launches on the mesh kNN main path: " + json.dumps(
@@ -7559,7 +8555,7 @@ def main(argv=None) -> int:
             if "mesh-sparse-full" in phases:
                 per_launch = phase_mesh_sparse_full(
                     torch, np, dev, args.sparse_docs, args.workers,
-                    args.queries, sparse_segs)
+                    args.queries, sparse_segs, kept)
                 sparse_segs = None
                 log(t(), "mesh-sparse-full done")
         launches = DEVICE_PROFILE.launches()
@@ -7577,10 +8573,43 @@ def main(argv=None) -> int:
         del sprec
         MESH_PLANES.clear()
         PLANES.clear()
+        if on_card:
+            torch.cuda.empty_cache()
+        # the sharded data plane (mesh_data_plane=True nodes, one sharded
+        # launch a request): launch counts from zero, read right after
+        from elasticsearch_tpu_torch.parallel import sharded_search as sh_ops
+        DEVICE_PROFILE.reset_launches()
+        with Recorder({f: (sh_ops, f) for f in SHARDED_SERVED},
+                      sharded_size, keep=3, group=sharded_group) as shrec:
+            if "sharded-engine" in phases:
+                phase_sharded_engine(torch, np, dev,
+                                     args.sharded_engine_docs)
+                log(t(), "sharded-engine done")
+            # the main path's counts are sharded-full's alone; the
+            # Recorder keeps sharded-engine's first calls to compare
+            DEVICE_PROFILE.reset_launches()
+            if "sharded-full" in phases:
+                phase_sharded_full(torch, np, dev, kept, SHARDED_SLOTS,
+                                   shared)
+                kept = None
+                log(t(), "sharded-full done")
+        launches = DEVICE_PROFILE.launches()
+        log("launches on the sharded data plane's path: " + json.dumps(
+            {f: launches.get(f, 0) for f in SHARDED_FAMILIES}))
+        if on_card and "sharded-full" in phases:
+            for fam in SHARDED_SERVED:
+                check(launches.get(fam, 0) > 0,
+                      f"{fam} was never launched on the main path")
+            if "kernels" in phases:
+                rows += phase_sharded_kernels(torch, np, shrec, launches,
+                                              shared, dev)
+                log(t(), "sharded kernels done")
+        del shrec
+        shared.clear()
         if on_card and {"full", "knn-full", "dense-full", "ivf-full",
                         "sparse-full", "wide", "aggs-full", "hybrid-full",
                         "mesh-full", "mesh-knn-full", "mesh-sparse-full",
-                        "kernels"} <= phases:
+                        "sharded-full", "kernels"} <= phases:
             from elasticsearch_tpu_torch.search.device_profile import (
                 KERNEL_FAMILIES, MASKED_VARIANTS,
             )

@@ -1590,7 +1590,12 @@ class TransportSearchAction:
                     return False
             except Exception:  # noqa: BLE001 — RPC reports real errors
                 # graceful degradation: the broken mesh program escapes
-                # to the host-RPC scatter-gather, observably
+                # to the host-RPC scatter-gather, observably -- and never
+                # silently: a failed kernel is an error of the card
+                logger.exception("mesh data plane failed for a [%s] "
+                                 "search on [%s][%s]; falling back to the "
+                                 "per-shard fan-out", spec["kind"], index,
+                                 field)
                 self.mesh_plane.stats["mesh_fallbacks"] += 1
                 TELEMETRY.count_fallback(telemetry.LEGACY_MESH_ERROR)
                 return False

@@ -126,8 +126,10 @@ __device__ __forceinline__ float from_fixed(long long v) {
 // grid (fb, sl.groups): acc[(g * n_q + q) * n_docs_pad + doc] +=
 // fixed(contribution) for the postings of group g's fb gathered blocks.
 // BF16 selects the coarse tier's operands (block_tfs and doc_lens as
-// bf16).
-template <bool BF16>
+// bf16). SCALAR: one avgdl for every entry (flat_avgdl[0]) and q = 0 for
+// every entry (flat_q unread), the sharded programs' operands
+// (sharded_common.cuh).
+template <bool BF16, bool SCALAR = false>
 __global__ void scatter_kernel(const int* __restrict__ block_docs,
                                const void* __restrict__ block_tfs,
                                const int* __restrict__ flat_idx,
@@ -146,19 +148,20 @@ __global__ void scatter_kernel(const int* __restrict__ block_docs,
     const int doc = block_docs[e];
     if (doc < 0) return;
     const long long at = slot * sl.slot_docs + doc;
+    const float avg = SCALAR ? flat_avgdl[0] : flat_avgdl[f];
     float v;
     if (BF16) {
         const __nv_bfloat16* tfs = (const __nv_bfloat16*)block_tfs;
         const __nv_bfloat16* dls = (const __nv_bfloat16*)doc_lens;
         v = contrib_bf16(bfr(flat_w[f]), __bfloat162float(tfs[e]),
-                         __bfloat162float(dls[at]), bfr(flat_avgdl[f]), c);
+                         __bfloat162float(dls[at]), bfr(avg), c);
     } else {
         v = contrib_f32(flat_w[f], ((const float*)block_tfs)[e],
-                        ((const float*)doc_lens)[at], flat_avgdl[f], c);
+                        ((const float*)doc_lens)[at], avg, c);
     }
     const long long fx = to_fixed(v);
     if (fx == 0) return;
-    atomicAdd(acc + (g * n_q + flat_q[f]) * n_docs_pad + doc,
+    atomicAdd(acc + (g * n_q + (SCALAR ? 0 : flat_q[f])) * n_docs_pad + doc,
               (unsigned long long)fx);
 }
 

@@ -1,7 +1,9 @@
 // Shared device code of the kNN kernel families: the one-shard K5-K7 and
-// K9 (knn_flat, knn_coarse, knn_rerank, knn_scores) and the mesh's
+// K9 (knn_flat, knn_coarse, knn_rerank, knn_scores), the mesh's
 // mesh_knn_topk, mesh_knn_coarse and mesh_knn_rerank, which run K5 / K6 /
-// K7 for every slot of a stack of shards in one launch.
+// K7 for every slot of a stack of shards in one launch, and (through
+// sharded_scores.cuh) the scores pass of the sharded data plane's
+// sharded_knn and sharded_hybrid.
 //
 // 1. The similarity transform (similarity below), the JAX package's
 //    `_coarse_similarity` / `_rerank_scores` in their operation order:
@@ -48,16 +50,22 @@ __device__ __forceinline__ float bfr(float x) {
     return __bfloat162float(__float2bfloat16_rn(x));
 }
 
+// ``fused`` false: norm * norm + q2 as a rounded product then a rounded
+// add, the order the sharded kNN program (F32 below) takes it in.
 __device__ __forceinline__ float similarity(float dot, float norm, float qn,
-                                            float q2, int sim) {
+                                            float q2, int sim,
+                                            bool fused = true) {
     if (sim == SIM_DOT) return __fadd_rn(0.5f, __fdiv_rn(dot, 2.f));
     if (sim == SIM_COSINE)
         return __fdiv_rn(
             __fadd_rn(1.f, __fdiv_rn(dot, __fadd_rn(__fmul_rn(norm, qn),
                                                     1e-30f))),
             2.f);
-    const float n2q2 = __double2float_rn(
-        __dadd_rn(__dmul_rn((double)norm, (double)norm), (double)q2));
+    const float n2q2 =
+        fused ? __double2float_rn(__dadd_rn(__dmul_rn((double)norm,
+                                                      (double)norm),
+                                            (double)q2))
+              : __fadd_rn(__fmul_rn(norm, norm), q2);
     float d2 = __fsub_rn(n2q2, __fmul_rn(2.f, dot));
     d2 = d2 < 0.f ? 0.f : d2;
     return __fdiv_rn(1.f, __fadd_rn(1.f, __fsqrt_rn(d2)));
@@ -100,8 +108,13 @@ constexpr int SC_MAX_TILES_Y = 65535;         // gridDim.y limit
 // TILE docs of one slot. DENSE: plane[doc] = mask[doc] ? similarity : 0
 // (mask = exists); else plane[q, doc] = mask[doc] & qmask[q, doc] ?
 // similarity : -inf (mask = allowed; qmask = the per-query filter rows
-// [n_q, n_docs_pad] of the slot, nullptr when unfiltered).
-template <int QB, bool DENSE>
+// [n_q, n_docs_pad] of the slot, nullptr when unfiltered). F32: the
+// sharded kNN's l2_norm (sharded_common.cuh), whose JAX program takes its
+// dot in f32: the operands stay f32 (no bf16 rounding), each product is
+// rounded before it is added (__fmul_rn then __fadd_rn, never an FMA),
+// and the transform's norm * norm + q2 is a product then an add, as that
+// program's served (S, 1) layouts compute it.
+template <int QB, bool DENSE, bool F32 = false>
 __global__ void __launch_bounds__(SC_THREADS) vector_scores_kernel(
     const float* __restrict__ matrix, const float* __restrict__ norms,
     const uint8_t* __restrict__ mask, const uint8_t* __restrict__ qmask,
@@ -135,15 +148,19 @@ __global__ void __launch_bounds__(SC_THREADS) vector_scores_kernel(
             const int doc = e / SC_DT, dd = e % SC_DT;
             const long long g = doc0 + doc;
             float v = 0.f;
-            if (dd < dn && g < n_docs_pad)
-                v = bfr(mat[g * dims + d0 + dd]);
+            if (dd < dn && g < n_docs_pad) {
+                v = mat[g * dims + d0 + dd];
+                if (!F32) v = bfr(v);
+            }
             ms[dd][doc] = v;
         }
         for (int e = t; e < QB * SC_DT; e += SC_THREADS) {
             const int q = e / SC_DT, dd = e % SC_DT;
             float v = 0.f;
-            if (dd < dn && q0 + q < n_q)
-                v = bfr(queries[(long long)(q0 + q) * dims + d0 + dd]);
+            if (dd < dn && q0 + q < n_q) {
+                v = queries[(long long)(q0 + q) * dims + d0 + dd];
+                if (!F32) v = bfr(v);
+            }
             qs[q][dd] = v;
         }
         __syncthreads();
@@ -156,7 +173,8 @@ __global__ void __launch_bounds__(SC_THREADS) vector_scores_kernel(
                 const float qv = qs[q][dd];
 #pragma unroll
                 for (int r = 0; r < SC_RD; ++r)
-                    acc[q][r] = __fmaf_rn(qv, m[r], acc[q][r]);
+                    acc[q][r] = F32 ? __fadd_rn(acc[q][r], __fmul_rn(qv, m[r]))
+                                    : __fmaf_rn(qv, m[r], acc[q][r]);
             }
         }
         __syncthreads();
@@ -173,13 +191,14 @@ __global__ void __launch_bounds__(SC_THREADS) vector_scores_kernel(
             if (doc >= n_docs_pad) continue;
             const long long cell = (long long)qi * n_docs_pad + doc;
             const bool ok = msk[doc] && (qmk == nullptr || qmk[cell]);
-            out[cell] = ok ? similarity(acc[q][r], nrm[doc], qnv, q2v, sim)
+            out[cell] = ok ? similarity(acc[q][r], nrm[doc], qnv, q2v, sim,
+                                        !F32)
                            : (DENSE ? 0.f : -INFINITY);
         }
     }
 }
 
-template <int QB, bool DENSE>
+template <int QB, bool DENSE, bool F32 = false>
 int launch_vector_scores(const float* matrix, const float* norms,
                          const uint8_t* mask, const uint8_t* qmask,
                          const float* queries,
@@ -191,7 +210,7 @@ int launch_vector_scores(const float* matrix, const float* norms,
     for (long long tile0 = 0; tile0 < tiles; tile0 += SC_MAX_TILES_Y) {
         const long long nt =
             tiles - tile0 < SC_MAX_TILES_Y ? tiles - tile0 : SC_MAX_TILES_Y;
-        vector_scores_kernel<QB, DENSE>
+        vector_scores_kernel<QB, DENSE, F32>
             <<<dim3(groups, (unsigned)nt, n_slots), SC_THREADS, 0,
                stream>>>(matrix, norms, mask, qmask, queries, qn, q2, n_q,
                          dims, n_docs_pad, tile0, sim, plane);
@@ -199,6 +218,27 @@ int launch_vector_scores(const float* matrix, const float* norms,
         if (err != cudaSuccess) return (int)err;
     }
     return 0;
+}
+
+// The scores pass at any query count: the widest query group (QB) that
+// the batch fills.
+template <bool DENSE, bool F32 = false>
+int vector_scores(const float* matrix, const float* norms,
+                  const uint8_t* mask, const uint8_t* qmask,
+                  const float* queries, const float* qn, const float* q2,
+                  int n_q, int dims, long long n_docs_pad, int sim,
+                  float* plane, cudaStream_t stream, int n_slots = 1) {
+#define KNN_SCORES(QB)                                                   \
+    launch_vector_scores<QB, DENSE, F32>(matrix, norms, mask, qmask,     \
+                                         queries, qn, q2, n_q, dims,     \
+                                         n_docs_pad, sim, plane, stream, \
+                                         n_slots)
+    if (n_q >= 16) return KNN_SCORES(16);
+    if (n_q > 4) return KNN_SCORES(8);
+    if (n_q > 2) return KNN_SCORES(4);
+    if (n_q == 2) return KNN_SCORES(2);
+    return KNN_SCORES(1);
+#undef KNN_SCORES
 }
 
 // The knn_flat pipeline (K5, and mesh_knn_topk over S slots): the masked
@@ -216,23 +256,10 @@ inline int flat_topk(const float* matrix, const float* norms,
         (long long)n_slots * n_q > INT_MAX || dims < 1 || dims > MAX_DIMS ||
         k < 1 || n_docs_pad < k || !valid_sim(sim))
         return (int)cudaErrorInvalidValue;
-    int rc;
-#define KNN_FLAT_SCORES(QB)                                              \
-    launch_vector_scores<QB, false>(matrix, norms, allowed, masks,       \
-                                    queries, qn, q2, n_q, dims,          \
-                                    n_docs_pad, sim, plane, stream,      \
-                                    n_slots)
-    if (n_q >= 16)
-        rc = KNN_FLAT_SCORES(16);
-    else if (n_q > 4)
-        rc = KNN_FLAT_SCORES(8);
-    else if (n_q > 2)
-        rc = KNN_FLAT_SCORES(4);
-    else if (n_q == 2)
-        rc = KNN_FLAT_SCORES(2);
-    else
-        rc = KNN_FLAT_SCORES(1);
-#undef KNN_FLAT_SCORES
+    const int rc = vector_scores<false>(matrix, norms, allowed, masks,
+                                        queries, qn, q2, n_q, dims,
+                                        n_docs_pad, sim, plane, stream,
+                                        n_slots);
     if (rc != 0) return rc;
     return plane_topk(plane, n_slots * n_q, n_docs_pad, k, chunk_s, chunk_i,
                       out_s, out_d, stream);

@@ -57,6 +57,7 @@ class Node:
                  initial_state: Optional[ClusterState] = None,
                  coordinator_settings: Optional[CoordinatorSettings] = None,
                  mesh_data_plane: bool = False,
+                 mesh_slots: Optional[int] = None,
                  transport_service=None,
                  disk_io=None,
                  device=None):
@@ -154,11 +155,14 @@ class Node:
             state_supplier=self._applied_state)
         self.mesh_plane = None
         if mesh_data_plane:
-            # SPMD data plane over the local device mesh (SURVEY §5.8's
-            # two-plane split): its sharded programs are not ported yet,
-            # so MeshDataPlane raises NotPortedError here
-            from elasticsearch_tpu_torch.parallel.mesh_plane import MeshDataPlane
-            self.mesh_plane = MeshDataPlane()
+            # the one-program data plane (SURVEY §5.8's two-plane split):
+            # the sharded programs over S = mesh_slots slots on the node's
+            # device (None: DEFAULT_SLOTS, the JAX package's node layout)
+            from elasticsearch_tpu_torch.parallel.mesh_plane import (
+                DEFAULT_SLOTS, MeshDataPlane,
+            )
+            self.mesh_plane = MeshDataPlane(
+                n_slots=mesh_slots or DEFAULT_SLOTS, device=self.device)
             # explicit mesh opt-in: bring the backend up at BOOT so the
             # first search finds the mesh ready instead of silently
             # serving the RPC fallback until other compute initializes it

@@ -36,8 +36,10 @@ bitwise the one-shard kernel's on that slot's plane.
 
 The port lays the whole mesh on the node's own device -- a grid of one:
 the JAX package's ``shard`` axis becomes the kernels' leading slot axis,
-and its ``dp`` axis caps at that one device. A mesh across several cards
-is not ported yet.
+and its ``dp`` axis caps at that one device (``make_mesh`` builds the
+slot layout as an object for the sharded data plane,
+``parallel/sharded_search.py``). A mesh across several cards is not
+ported yet.
 """
 
 from __future__ import annotations
@@ -184,6 +186,30 @@ def mesh_ready(device: DeviceLike = None) -> bool:
     if _mesh_device(device).type == "cpu":
         return True
     return bool(torch.cuda.is_initialized())
+
+
+class Mesh:
+    """The sharded data plane's layout: S slots on one device, the JAX
+    package's ``jax.sharding.Mesh`` as a host object. ``n_slots`` is the
+    kernels' leading slot axis and ``device`` holds every slot, so the
+    all-gather over ``shard`` is a reshape of the ``[S, ...]`` winners.
+    The JAX package's ``dp`` axis only copies the index to split a query
+    batch over devices; one device gains nothing from that, so the layout
+    has no such axis (the answers do not depend on it)."""
+
+    def __init__(self, n_slots: int, device: DeviceLike = None):
+        if int(n_slots) < 1:
+            raise ValueError(f"a mesh needs at least one slot, not {n_slots}")
+        self.n_slots = int(n_slots)
+        self.device = _mesh_device(device)
+
+    def __repr__(self) -> str:
+        return f"Mesh(n_slots={self.n_slots}, device={self.device})"
+
+
+def make_mesh(n_slots: int, device: DeviceLike = None) -> Mesh:
+    """S = ``n_slots`` slots on ``device`` (None: the card)."""
+    return Mesh(n_slots, device)
 
 
 def mesh_layout(n_shards: int, device: DeviceLike = None

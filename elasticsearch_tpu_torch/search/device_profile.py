@@ -14,7 +14,9 @@ here, by family (``KERNEL_FAMILIES``: ``bm25_flat``, ``bm25_flat_seg``,
 ``ops/fusion.py``; ``mesh_bm25_flat``, ``mesh_bm25_coarse``,
 ``mesh_bm25_rerank``, ``mesh_knn_topk``, ``mesh_knn_coarse``,
 ``mesh_knn_rerank``, ``mesh_sparse_topk``, ``mesh_sparse_coarse`` and
-``mesh_sparse_rerank`` in ``parallel/mesh.py`` -- 35 families -- the mesh
+``mesh_sparse_rerank`` in ``parallel/mesh.py``; ``sharded_knn``,
+``sharded_bm25``, ``sharded_bm25_batch``, ``sharded_sparse`` and
+``sharded_hybrid`` in ``parallel/sharded_search.py`` -- 40 families -- the mesh
 kNN families
 counting masked and unmasked launches together, as the JAX package
 does, with ``/masked`` ending a masked call's shape label), and the
@@ -56,7 +58,8 @@ KERNEL_FAMILIES = ("bm25_flat", "bm25_flat_seg", "bm25_coarse", "bm25_rerank",
                    "mesh_bm25_flat", "mesh_bm25_coarse", "mesh_bm25_rerank",
                    "mesh_knn_topk", "mesh_knn_coarse", "mesh_knn_rerank",
                    "mesh_sparse_topk", "mesh_sparse_coarse",
-                   "mesh_sparse_rerank")
+                   "mesh_sparse_rerank", "sharded_knn", "sharded_bm25",
+                   "sharded_bm25_batch", "sharded_sparse", "sharded_hybrid")
 # the masked launches of knn_flat / knn_coarse / knn_rerank (the same
 # kernels with a [B, N_pad] filter-mask operand), counted under these names
 MASKED_VARIANTS = ("knn_flat_masked", "knn_coarse_masked",

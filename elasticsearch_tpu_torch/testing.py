@@ -189,7 +189,8 @@ class InProcessCluster:
                  data_path: Optional[str] = None,
                  mesh_data_plane: bool = False,
                  mesh_hosts: Optional[str] = None,
-                 device=None):
+                 device=None,
+                 mesh_slots: Optional[int] = None):
         self.scheduler = DeterministicScheduler(seed=seed)
         # every node's device (None = the CUDA card; tests pass "cpu")
         self.device = device
@@ -208,6 +209,8 @@ class InProcessCluster:
         node_ids = [f"node{i}" for i in range(n_nodes)]
         self._node_ids = node_ids
         self._mesh_data_plane = mesh_data_plane
+        # the data plane's slot count S on every node (None: its default)
+        self._mesh_slots = mesh_slots
         # bootstrap: the initial voting configuration is the full seed set
         # (ClusterBootstrapService analog)
         initial = ClusterState(voting_config=frozenset(node_ids))
@@ -237,6 +240,7 @@ class InProcessCluster:
             initial_state=self._initial_state,
             coordinator_settings=CoordinatorSettings(),
             mesh_data_plane=self._mesh_data_plane,
+            mesh_slots=self._mesh_slots,
             disk_io=self.disk_io, device=self.device)
 
     # ------------------------------------------------------------------

@@ -1,5 +1,6 @@
 """The BM25, kNN (masked and not), dense-collector, IVF, rank_features,
-expansion-model and mesh (text, kNN and sparse) kernels on the card against their
+expansion-model, mesh (text, kNN and sparse) and sharded data plane
+(rows 40-44) kernels on the card against their
 plain PyTorch versions: bitwise, except where a kernel calls ``logf`` /
 ``powf`` / ``tanhf`` and its plain version torch's ``log`` / ``pow`` /
 ``tanh`` (the stated ulp bounds below). Needs a CUDA card and nvcc;
@@ -21,7 +22,7 @@ from elasticsearch_tpu_torch.ops.device_segment import quantize_rows
 from torch_inputs import (
     FLAT, FLAT_ORDER, N_SEGS, make_inputs, make_knn_inputs,
     make_sparse_inputs, mesh_inputs, mesh_knn_inputs, mesh_sparse_inputs,
-    row0, tx,
+    row0, sharded_inputs, tx,
 )
 
 K = 10
@@ -698,3 +699,61 @@ def test_mesh_sparse_kernels_match_plain_versions_on_the_card(n_slots, dp,
     if empty >= 0:
         assert not torch.isfinite(got[0][empty]).any()
         assert int(got[2][empty].sum()) == 0
+
+
+def _sharded_on_card(inp):
+    names = ("block_docs", "block_tfs", "doc_lens", "bm25_idx", "bm25_w",
+             "matrix", "norms", "valid", "queries", "qn", "q2",
+             "block_weights", "sparse_idx", "sparse_w")
+    return {n: torch.as_tensor(np.ascontiguousarray(inp[n])).cuda()
+            for n in names}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["int", "gauss"])
+@pytest.mark.parametrize("n_slots,n_docs", [(2, 600), (4, 900), (8, 70_000)],
+                         ids=["s2", "s4", "s8_two_chunks"])
+def test_sharded_kernels_match_plain_versions_on_the_card(n_slots, n_docs,
+                                                          kind):
+    """Rows 40-44 (parallel/sharded_search.py) bitwise against their plain
+    versions on the card: the three similarities, Q 1 and 4, counted and
+    not, k 10 and k past the whole slot space (padding), a few matches
+    (-1 ids in the fusion)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    from elasticsearch_tpu_torch.parallel import sharded_search as sh
+    inp = sharded_inputs(60 + n_slots, n_slots, n_docs=n_docs, kind=kind)
+    d = _sharded_on_card(inp)
+    n = inp["n_per_shard"]
+    avg = inp["avgdl"]
+
+    def same(got, want):
+        for g, w in zip(got, want):
+            assert torch.equal(g, w)
+    for k in (10, n_slots * n + 5):
+        for sim in ("cosine", "dot_product", "l2_norm"):
+            args = (d["matrix"], d["norms"], d["valid"], d["queries"],
+                    d["qn"], d["q2"], k, sim)
+            same(sh.sharded_knn(*args), sh.sharded_knn_plain(*args))
+        idx0 = d["bm25_idx"][:, 0].contiguous()
+        w0 = d["bm25_w"][:, 0].contiguous()
+        args = (d["block_docs"], d["block_tfs"], d["doc_lens"], avg, idx0,
+                w0, k)
+        same(sh.sharded_bm25(*args), sh.sharded_bm25_plain(*args))
+        for counted in (False, True):
+            args = (d["block_docs"], d["block_tfs"], d["doc_lens"], avg,
+                    d["bm25_idx"], d["bm25_w"], k)
+            same(sh.sharded_bm25_batch(*args, counted=counted),
+                 sh.sharded_bm25_batch_plain(*args, counted=counted))
+        args = (d["block_docs"], d["block_weights"], d["sparse_idx"],
+                d["sparse_w"], n, k)
+        same(sh.sharded_sparse(*args), sh.sharded_sparse_plain(*args))
+    few = torch.zeros_like(w0)
+    few[0, 0] = w0[0, 0]
+    for w in (w0, few):
+        for sim in ("cosine", "l2_norm"):
+            args = (d["block_docs"], d["block_tfs"], d["doc_lens"], avg,
+                    idx0, w, d["matrix"], d["norms"], d["valid"],
+                    d["queries"][0], d["qn"][:1], d["q2"][:1], 10)
+            same(sh.sharded_hybrid(*args, similarity=sim),
+                 sh.sharded_hybrid_plain(*args, similarity=sim))

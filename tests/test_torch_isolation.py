@@ -61,6 +61,7 @@ import elasticsearch_tpu_torch.script
 import elasticsearch_tpu_torch.search.nested
 import elasticsearch_tpu_torch.search.mesh_executor
 import elasticsearch_tpu_torch.parallel.mesh
+import elasticsearch_tpu_torch.parallel.sharded_search
 from elasticsearch_tpu_torch.search.plane_aggs import plan_drain_aggs
 from elasticsearch_tpu_torch.search.device_profile import DEVICE_PROFILE
 engine = InternalEngine(MapperService({"properties": {
@@ -236,6 +237,37 @@ assert status == 200 and resp["_data_plane"] == "mesh_plane", resp
 assert resp["hits"]["total"]["value"] == 15, resp["hits"]["total"]
 assert resp["hits"]["hits"][0]["_id"] == "29", resp["hits"]
 assert DEVICE_PROFILE.family("mesh_sparse_topk").calls > calls
+cluster.stop()
+cluster = InProcessCluster(n_nodes=1, seed=6, device="cpu",
+                           mesh_data_plane=True)
+cluster.start()
+controller = build_controller(cluster.client())
+status, _ = rest("PUT", "/dp_idx", {
+    "settings": {"number_of_shards": 2, "number_of_replicas": 0},
+    "mappings": {"properties": {
+        "body": {"type": "text"}, "ml": {"type": "rank_features"},
+        "v": {"type": "dense_vector", "dims": 3, "similarity": "cosine"}}}})
+assert status == 200, status
+lines = []
+for i in range(30):
+    lines += [{"index": {"_index": "dp_idx", "_id": str(i)}},
+              {"body": "quick brown fox" if i % 3 else "lazy dog",
+               "v": [float(i), 1.0, 2.0],
+               "ml": {"f1": 0.5 + i, "f2": 1.0} if i % 2 else {"f3": 2.0}}]
+status, resp = rest("POST", "/_bulk", lines)
+assert status == 200 and not resp["errors"], resp
+rest("POST", "/dp_idx/_refresh")
+for family, body, top in (
+        ("sharded_bm25_batch", {"query": {"match": {"body": "fox"}}}, None),
+        ("sharded_knn", {"query": {"knn": {
+            "field": "v", "query_vector": [29.0, 1.0, 2.0], "k": 4}}}, "29"),
+        ("sharded_sparse", {"query": {"text_expansion": {
+            "ml": {"tokens": {"f1": 1.0}}}}, "size": 3}, "29")):
+    calls = DEVICE_PROFILE.family(family).calls
+    status, resp = rest("POST", "/dp_idx/_search", body)
+    assert status == 200 and resp["_data_plane"] == "mesh", resp
+    assert top is None or resp["hits"]["hits"][0]["_id"] == top, resp
+    assert DEVICE_PROFILE.family(family).calls > calls, family
 cluster.stop()
 assert not any(m.split(".")[0] in ("jax", "jaxlib", "elasticsearch_tpu")
                for m in sys.modules)
@@ -607,3 +639,53 @@ def test_rrf_request_fails_when_the_fusion_kernel_fails(monkeypatch):
         assert node.search_action.rrf_fuser.stats["rrf_fuse_batches"] == 0
     finally:
         cluster.stop()
+
+
+@pytest.mark.parametrize("family", ["sharded_knn", "sharded_bm25",
+                                    "sharded_bm25_batch", "sharded_sparse",
+                                    "sharded_hybrid"])
+def test_sharded_wrappers_never_take_the_plain_version(family, monkeypatch):
+    """The sharded data plane's wrappers (rows 40-44), given CUDA tensors,
+    launch their kernel or raise: with the kernel library unavailable they
+    raise instead of running the plain versions on the host."""
+    from elasticsearch_tpu_torch import _build
+    from elasticsearch_tpu_torch.ops import bm25
+    from elasticsearch_tpu_torch.parallel import sharded_search as sh
+
+    def no_library(fam):
+        raise _build.KernelBuildError("no nvcc")
+
+    def no_plain(*a, **k):
+        pytest.fail("plain version ran for a CUDA call")
+
+    monkeypatch.setattr(_build, "library", no_library)
+    monkeypatch.setattr(bm25, "_FNS", {})
+    monkeypatch.setattr(sh, "_on_cuda", lambda *t: True)
+    monkeypatch.setattr(sh, "_stream", lambda: 0)
+    for name in ("sharded_knn_plain", "sharded_bm25_plain",
+                 "sharded_bm25_batch_plain", "sharded_sparse_plain",
+                 "sharded_hybrid_plain"):
+        monkeypatch.setattr(sh, name, no_plain)
+    s, n = 2, 256
+    docs = torch.full((s, 2, 128), -1, dtype=torch.int32)
+    tfs = torch.zeros(s, 2, 128)
+    dl = torch.ones(s, n)
+    idx = torch.zeros(s, 8, dtype=torch.int32)
+    w = torch.zeros(s, 8)
+    m = torch.zeros(s, n, 4)
+    valid = torch.ones(s, n, dtype=torch.bool)
+    q = torch.ones(1, 4)
+    one = torch.ones(1)
+    with pytest.raises(_build.KernelBuildError):
+        if family == "sharded_knn":
+            sh.sharded_knn(m, dl, valid, q, one, one, 10)
+        elif family == "sharded_bm25":
+            sh.sharded_bm25(docs, tfs, dl, 3.0, idx, w, 10)
+        elif family == "sharded_bm25_batch":
+            sh.sharded_bm25_batch(docs, tfs, dl, 3.0, idx[:, None],
+                                  w[:, None], 10, counted=True)
+        elif family == "sharded_sparse":
+            sh.sharded_sparse(docs, tfs, idx, w, n, 10)
+        else:
+            sh.sharded_hybrid(docs, tfs, dl, 3.0, idx, w, m, dl, valid,
+                              q[0], one, one, 10)

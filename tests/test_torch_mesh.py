@@ -897,3 +897,57 @@ def test_warmup_initializes_the_card_once(monkeypatch):
     assert ds.MESH_PLANES.stats["mesh_plane_warmups"] == warm + 1
     assert ds.MESH_PLANES.available(2, "cuda")
     assert not ds.MESH_PLANES.available(1, "cuda")
+
+
+def test_a_totals_disabled_bound_across_nodes_is_held_to_its_range(
+        monkeypatch):
+    """ROADMAP queue 3, item 2: two port nodes on one corpus, the text
+    tier engaged on one and stood down on the other (as a card node's
+    measured-latency rule may stand it down where a CPU node keeps it):
+    every ``track_total_hits: false`` answer of ``chip_smoke.py``'s
+    mesh-engine mix has the same hits on both, and each lower bound lies
+    in [len(hits), the exact count] -- the check ``same_or_bounded``
+    that the card's mesh-engine phase makes; bounds that differ inside
+    that range pass it, one outside it does not."""
+    import chip_smoke as cs
+    docs = cs.mesh_engine_docs(np, 3000, cs.SEED + 813, 0)
+    nodes = []
+    for seed in (5, 6):
+        c = InProcessCluster(n_nodes=1, seed=seed, device="cpu")
+        c.start()
+        node = cs.RestNode(c)
+        node.ok("PUT", "/mesh", {"settings": {
+            "number_of_shards": 4, "number_of_replicas": 0},
+            "mappings": cs.MESH_MAPPINGS})
+        node.ok("POST", "/_bulk", raw=cs.bulk_ndjson("mesh", docs))
+        node.ok("POST", "/mesh/_refresh")
+        nodes.append(node)
+    bodies = [b for b in cs.mesh_engine_bodies(np)
+              if b[3] == "text" and b[1].get("track_total_hits") is False]
+    assert bodies
+    coarse = DEVICE_PROFILE.family("mesh_bm25_coarse")
+    try:
+        for name, body, query, _kind in bodies:
+            c0 = coarse.calls
+            monkeypatch.setattr(ds.PLANES, "quantized_engaged",
+                                lambda cls: True)
+            on = nodes[0].ok("POST", "/mesh/_search", body, query)
+            c1 = coarse.calls
+            monkeypatch.setattr(ds.PLANES, "quantized_engaged",
+                                lambda cls: False)
+            off = nodes[1].ok("POST", "/mesh/_search", body, query)
+            assert c1 > c0 and coarse.calls == c1, name
+            assert on["_data_plane"] == off["_data_plane"] == "mesh_plane"
+            exact = nodes[0].ok("POST", "/mesh/_count",
+                                {"query": body["query"]})["count"]
+            assert cs.same_or_bounded(body, on, off, exact) is None, name
+            wide = copy.deepcopy(off)
+            wide["hits"]["total"]["value"] = exact
+            assert cs.same_or_bounded(body, on, wide, exact) is None
+            wide["hits"]["total"]["value"] = exact + 1
+            assert cs.same_or_bounded(body, on, wide, exact) is not None
+            wide["hits"]["total"]["value"] = len(off["hits"]["hits"]) - 1
+            assert cs.same_or_bounded(body, on, wide, exact) is not None
+    finally:
+        for node in nodes:
+            node.cluster.stop()

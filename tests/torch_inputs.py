@@ -265,3 +265,113 @@ def mesh_sparse_inputs(seed: int, n_slots: int, dp: int, n_q: int,
                 qw[s, r, q, :m] = rng.uniform(0.1, 3.0, m)
     return dict(docs=docs, weights=weights, idx=idx, qw=qw, live=live,
                 n_pad=n_max, own=own)
+
+
+# ---------------------------------------------------------------------------
+# the sharded data plane (parallel/sharded_search.py, rows 40-44)
+# ---------------------------------------------------------------------------
+
+# integer triples of integer norm (3, 7, 9, 9, 11, 11); a dot of two rows
+# built from them stays within 3 * 9 * 9 = 243, exact even in bf16
+INT_TRIPLES = ((1, 2, 2), (2, 3, 6), (1, 4, 8), (4, 4, 7), (2, 6, 9),
+               (6, 6, 7))
+
+
+def int_norm_vectors(rng, n: int, dims: int, dup: float = 0.1):
+    """[n, dims] f32 rows, each a signed, permuted triple of INT_TRIPLES in
+    3 random dims (so norms, dots and every similarity's intermediate are
+    exact in f32 whatever the order of the operations), a ``dup`` share of
+    them copies of earlier rows (score ties)."""
+    out = np.zeros((n, dims), np.float32)
+    for i in range(n):
+        if i >= 4 and rng.random() < dup:
+            out[i] = out[int(rng.integers(0, i))]
+            continue
+        t = np.array(INT_TRIPLES[int(rng.integers(len(INT_TRIPLES)))],
+                     np.float32) * rng.choice([-1.0, 1.0], 3)
+        out[i, rng.choice(dims, 3, replace=False)] = rng.permutation(t)
+    return out
+
+
+def vector_slots(vectors, n_slots: int, per: int):
+    """The sharded placement of ``vectors`` (doc g at slot g % S, local
+    g // S): (matrix [S, per, D] f32, norms [S, per], valid [S, per])."""
+    n, d = vectors.shape
+    flat = np.zeros((per * n_slots, d), np.float32)
+    flat[:n] = vectors
+    mat = np.ascontiguousarray(flat.reshape(per, n_slots, d)
+                               .transpose(1, 0, 2))
+    valid = np.zeros(per * n_slots, bool)
+    valid[:n] = True
+    valid = np.ascontiguousarray(valid.reshape(per, n_slots).T)
+    return mat, np.linalg.norm(mat, axis=2).astype(np.float32), valid
+
+
+def text_docs(seed: int, n: int, vocab: int = 60, dup_every: int = 9):
+    """Token lists of 2-12 Zipf(1.3) words over ``vocab``; every
+    ``dup_every``-th doc repeats an earlier one (BM25 score ties)."""
+    rng = np.random.default_rng(seed)
+    docs = []
+    for i in range(n):
+        if i and i % dup_every == 0:
+            docs.append(list(docs[int(rng.integers(0, i))]))
+            continue
+        docs.append([f"t{min(int(rng.zipf(1.3)) - 1, vocab - 1)}"
+                     for _ in range(int(rng.integers(2, 13)))])
+    return docs
+
+
+def sharded_inputs(seed: int, n_slots: int, n_docs: int = 600,
+                   dims: int = 16, n_q: int = 4, kind: str = "int",
+                   vocab: int = 60):
+    """Seeded operands of rows 40-44 on one slot layout, numpy: a text
+    corpus packed by the port's ``ShardedTextIndex`` (block_docs,
+    block_tfs, doc_lens [S, N], avgdl) with n_q queries' block lists
+    (bm25_idx / bm25_w [S, n_q, QB]; row 41 takes query 0's), the same
+    docs' vectors (integer rows of integer norm, or Gaussian) placed on
+    the same N (matrix, norms, valid) with queries and their qn / q2,
+    and rank_features operands on the text blocks (block_weights, and
+    sparse_idx / sparse_w [S, QB], a few padding entries included)."""
+    from elasticsearch_tpu_torch.ops.knn import query_norms
+    from elasticsearch_tpu_torch.parallel.mesh import make_mesh
+    from elasticsearch_tpu_torch.parallel.sharded_search import (
+        ShardedTextIndex,
+    )
+    rng = np.random.default_rng(seed)
+    docs = text_docs(seed, n_docs, vocab)
+    text = ShardedTextIndex(make_mesh(n_slots, device="cpu"), docs)
+    per = text.n_per_shard
+    if kind == "int":
+        vectors = int_norm_vectors(rng, n_docs, dims)
+        queries = int_norm_vectors(rng, n_q, dims, dup=0.0)
+    else:
+        vectors = rng.standard_normal((n_docs, dims)).astype(np.float32)
+        queries = rng.standard_normal((n_q, dims)).astype(np.float32)
+    matrix, norms, valid = vector_slots(vectors, n_slots, per)
+    qn, q2 = query_norms(queries)
+    lists = [text.prep_query([f"t{int(t)}" for t in
+                              rng.integers(0, vocab // 3,
+                                           int(rng.integers(1, 4)))])
+             for _ in range(n_q)]
+    qb = max(x[0].shape[1] for x in lists)
+    bm25_idx = np.zeros((n_slots, n_q, qb), np.int32)
+    bm25_w = np.zeros((n_slots, n_q, qb), np.float32)
+    for q, (idx, w) in enumerate(lists):
+        bm25_idx[:, q, : idx.shape[1]] = idx
+        bm25_w[:, q, : w.shape[1]] = w
+    bd = text.block_docs.numpy()
+    nb = bd.shape[1]
+    weights = np.where(bd >= 0, text.block_tfs.numpy() * rng.uniform(
+        0.1, 3.0, bd.shape), 0.0).astype(np.float32)
+    sqb = 16
+    sparse_idx = rng.integers(0, nb, (n_slots, sqb)).astype(np.int32)
+    sparse_w = rng.uniform(0.2, 2.0, (n_slots, sqb)).astype(np.float32)
+    sparse_idx[:, -3:] = 0
+    sparse_w[:, -3:] = 0.0
+    return dict(block_docs=bd, block_tfs=text.block_tfs.numpy(),
+                doc_lens=text.doc_lens.numpy(), avgdl=text.avgdl,
+                bm25_idx=bm25_idx, bm25_w=bm25_w, matrix=matrix,
+                norms=norms, valid=valid, queries=queries, qn=qn, q2=q2,
+                block_weights=weights, sparse_idx=sparse_idx,
+                sparse_w=sparse_w, n_per_shard=per, n_docs=n_docs,
+                vectors=vectors, docs=docs)
