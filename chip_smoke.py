@@ -75,13 +75,17 @@ Phases, each of which fails the run on any failed check:
    must launch 4 K8 + 4 K10 in (a), 4 K9 + 4 K10 in (b), and nothing of
    K1-K7. Launch counts are zeroed before phases 9-10 and read right
    after; then each dense family is held against its plain version and
-   timed (K10 at both shards' row lengths), beside its library yardstick.
+   timed (K10 at both shards' row lengths), beside its library yardstick
+   -- K10 and torch.topk each also split into host time a call and
+   device time (torch.profiler).
 11. ivf-small (run with the small phases): the masked K5-K7 against
    their plain versions (shared and per-query masks, an all-False row,
    pow2 padding rows) and, row by row, against the unmasked kernels on
    allowed & mask; K11-K14 against their plain versions (tied rows and
    centroids, dropped and empty clusters, padded lists, nprobe up to
-   nlist, clamped k, three similarities); all bitwise.
+   nlist, clamped k, three similarities), and K11 at near-ties that
+   overflow its screen's list (rows re-scored against every centroid,
+   counted: must be > 0); all bitwise.
 12. ivf-engine: filtered knn (term, range, bool) on the vector engine and
    knn on IVF-mapped fields (index_options type ivf, nlist 16) of a
    6,000-doc engine, planes on and off, deletes after the build, a
@@ -104,7 +108,13 @@ Phases, each of which fails the run on any failed check:
    and off): every answer equal to a host filtered exact oracle.
    Launch counts are zeroed before phases 12-13 and read right after:
    K11-K14 and the masked K5-K7 must have launched; then each is held
-   against its plain version and timed at its largest main-path call.
+   against its plain version and timed at its largest main-path call --
+   K11 on every recorded call, printing its screen's candidates a row
+   (mean, max) and overflow rows, and the largest |dot_tc - dot_plain| /
+   (|x^| |c^|) of its tensor cores as a fraction of the screen's gamma,
+   which must stay below 1, its device time kernel by kernel at the
+   largest call, and the same checks and times on a crowded chunk of
+   that shape (256 tight clusters, 16 centroids each).
 14. sparse-small (run with the small phases): K15 sparse_flat (the four
    rank_feature functions, counted and not, pow2 padding rows), K19
    sparse_scores (with and without a live mask), K16 sparse_coarse and
@@ -134,10 +144,10 @@ Phases, each of which fails the run on any failed check:
    largest main-path call, and K18 also on cache misses at B 64 and 4,096.
    The earlier phases' shards are freed first.
 
-17. wide-small (run with the small phases): the wide selection (rounds
-   of at most 4,096 after a cursor) through K10 at k 4,096 to 12,289,
-   row by row, against a stable sort, with equal scores and -inf slots;
-   bitwise.
+17. wide-small (run with the small phases): K10's wide windows, k 4,096
+   to 40,000 (above one CTA's sort of 16,384 too: merged runs), row by
+   row, against a stable sort, with equal scores and -inf slots and rows
+   of +0.0 and -0.0 mixed; bitwise, score bits included.
 18. aggs-small (run with the small phases): K20-K23 (the aggregation
    kernels) against their plain versions on seeded columns: negative
    values, buckets dropped at both ends, -1 padded and out-of-range
@@ -145,13 +155,14 @@ Phases, each of which fails the run on any failed check:
    order by both); bitwise.
 19. wide: windows of 10,000 on the full and knn-full shards, per segment:
    a match (K1 with the rounds), the same match with exact totals (the
-   dense collector: K8 + K10 with the rounds) and a knn with k 10,000 (K5
+   dense collector: K8 + K10's radix select) and a knn with k 10,000 (K5
    with the rounds); the first 4,096 hits equal the 4,096 window's, the
    dense window equals K1's, the first 10 the earlier exact answers.
    Launch counts are zeroed before and read after: bm25_flat, knn_flat
    and dense_topk must have launched; then each is held against its plain
    version and timed at its k 10,000 call (its own row in the kernels
-   line, with the wide path's launches).
+   line, with the wide path's launches; K10 beside torch.topk, each split
+   into host and device time).
 20. aggs-engine: a geonames-shaped InternalEngine (3,000 docs, three
    segments, deletes): 17 agg bodies (terms, the dem histogram with
    min/max/avg, stats, cardinality, percentiles, range, filters,
@@ -1694,9 +1705,12 @@ def phase_dense_small(torch, np, dev) -> None:
         equal[rng.random(n_pad) < 0.1] = -np.inf
         few = rng.integers(0, 4, n_pad).astype(np.float32)
         few[rng.random(n_pad) < 0.2] = -np.inf
+        zeros = np.where(rng.random(n_pad) < 0.5, 0.0, -0.0).astype(
+            np.float32)
+        zeros[rng.random(n_pad) < 0.2] = -np.inf
         rows = {"random": rand, "all -inf": np.full(n_pad, -np.inf,
                                                    np.float32),
-                "equal": equal, "four values": few}
+                "equal": equal, "four values": few, "signed zeros": zeros}
         for name, row in rows.items():
             rt = T(row)
             for k in (1, 10, 4096):
@@ -1705,8 +1719,8 @@ def phase_dense_small(torch, np, dev) -> None:
                 got = topk.dense_topk(rt, k)
                 want = topk.dense_topk_plain(rt, k)
                 torch.cuda.synchronize()
-                compare(torch, f"dense_topk n={n_pad} k={k} {name}", got,
-                        want)
+                same_bits(torch, f"dense_topk n={n_pad} k={k} {name}", got,
+                          want)
                 if name == "equal":
                     first = np.nonzero(row == 1.0)[0][:k]
                     check(got[1][:len(first)].tolist() == first.tolist(),
@@ -1716,8 +1730,9 @@ def phase_dense_small(torch, np, dev) -> None:
     log(f"dense-small: {n} kernel calls (bm25_scores up to 65,536 blocks "
         f"and QB 16,384; knn_scores at D 5/128/960 x 3 similarities; "
         f"dense_topk at k 1/10/4096 over rows of 128 to 4,194,304 with "
-        f"all -inf and equal-score rows; bm25_topk via K1 and knn_topk via "
-        f"K5) bitwise equal to their plain versions and to each other")
+        f"all -inf, equal-score and +0.0/-0.0 rows; bm25_topk via K1 and "
+        f"knn_topk via K5) bitwise equal to their plain versions and to "
+        f"each other")
 
 
 def same_hits(a, b) -> bool:
@@ -2057,6 +2072,25 @@ def dense_library_ms(torch, family: str, args):
     return None
 
 
+def topk_split(torch, kernel, args, shape: str) -> dict:
+    """K10's wrapper and torch.topk on the same row: each one's host
+    microseconds a call (200 calls enqueued with no synchronisation) and
+    device milliseconds a call (torch.profiler, summed over its
+    kernels)."""
+    row, k = args[0], args[1]
+    out = {}
+    for name, fn in (("dense_topk", lambda: kernel(row, k)),
+                     ("torch.topk", lambda: torch.topk(row, k))):
+        dev_ms, by = device_split(torch, fn, 5)
+        out[name] = {"host_us": host_us(torch, fn), "device_ms": dev_ms,
+                     "kernel_launches_kept": sum(n for _, n in by.values())}
+    log(f"kernel dense_topk at {shape}: " + "; ".join(
+        f"{name} {v['host_us']:.2f} us a call on the host, "
+        f"{v['device_ms']:.4f} ms on the card ({v['kernel_launches_kept']} "
+        f"kernel records kept over 5 calls)" for name, v in out.items()))
+    return out
+
+
 def phase_dense_kernels(torch, rec, launches) -> list:
     """Each dense family against its plain version on up to 8 main-path
     calls plus its largest per row length; timed (CUDA events) at its
@@ -2078,7 +2112,9 @@ def phase_dense_kernels(torch, rec, launches) -> list:
             got = kernel(*args, **kwargs)
             want = plain(*args, **kwargs)
             torch.cuda.synchronize()
-            if fam != "dense_topk":
+            if fam == "dense_topk":
+                same_bits(torch, fam, got, want)
+            else:
                 got, want = [got], [want]
             err = max(err, compare(torch, fam, got, want))
             del got, want
@@ -2103,13 +2139,15 @@ def phase_dense_kernels(torch, rec, launches) -> list:
                 f"{'none' if lib_ms is None else f'{lib_ms:.4f} ms'}, "
                 f"max_abs_err {err} over {len(calls)} main-path calls, "
                 f"timed at {shape}")
+            split = ({"host_device": topk_split(torch, kernel, args, shape)}
+                     if fam == "dense_topk" else {})
             rows.append({
                 "name": fam, "route": "cuda",
                 "source": f"elasticsearch_tpu_torch/csrc/{fam}.cu",
                 "replaces": REPLACES[fam], "launches": launches.get(fam, 0),
                 "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                 "bound_ms": bound_ms, "bound_by": bound_by,
-                "library_ms": lib_ms, "shape": shape})
+                "library_ms": lib_ms, "shape": shape, **split})
         torch.cuda.empty_cache()
     return rows
 
@@ -2245,6 +2283,28 @@ def phase_ivf_small(torch, np, dev) -> None:
         compare(torch, f"ivf_init D={dims} nlist={nlist}", (f,),
                 (ivf.ivf_init_plain(xt, 3, nlist),))
         n += 3
+    # K11 at near-ties: 40 copies of one centroid and 20 centroids one ulp
+    # from another, with rows close to both; the screen lists more than it
+    # holds for those rows, so they take the exact pass over every centroid
+    x = rng.standard_normal((4000, 100), dtype=np.float32)
+    cents = x[rng.choice(4000, 200, replace=False)].copy()
+    cents[10:50] = cents[9]
+    cents[60:80] = np.nextafter(cents[59], np.float32(10))
+    x[:300] = cents[9] + np.float32(0.01) * x[:300]
+    x[300:600] = cents[59] + np.float32(0.01) * x[300:600]
+    xt, ct = T(x), T(cents)
+    a = ivf.ivf_assign(xt, ct)
+    torch.cuda.synchronize()
+    want = ivf.ivf_assign_plain(xt, ct)
+    compare(torch, "ivf_assign near-ties", (a,), (want,))
+    a, _cand, over, _dots = ivf.ivf_assign_probe(xt, ct)
+    compare(torch, "ivf_assign near-ties (probe)", (a,), (want,))
+    over = int(over.item())
+    check(over > 0, "ivf_assign near-ties: no row took the overflow path")
+    log(f"ivf-small: ivf_assign at near-ties bitwise equal to its plain "
+        f"version; {over} rows overflowed the screen's list of "
+        f"{ivf.SCREEN_CAND} and were re-scored against every centroid")
+    n += 1
     # K14 on a synthetic index: tied centroids, padded lists, nprobe up to
     # nlist; k above the probe pool is clamped by IVFIndex.search
     nlist, list_len, dims = 48, 40, 64
@@ -2978,7 +3038,9 @@ def phase_ivf_kernels(torch, rec, launches) -> list:
             mod, name + "_plain" if plain else name)(*a, **kw)
         err = 0.0
         largest = max(calls, key=lambda c: ivf_size(fam, c[0]))
-        for args, kwargs in calls[:4] + [largest]:
+        checked = calls if fam == "ivf_assign" else calls[:4] + [largest]
+        fracs = []
+        for args, kwargs in checked:
             got = run(args, kwargs, False)
             torch.cuda.synchronize()
             a = torch.cuda.Event(enable_timing=True)
@@ -2991,6 +3053,8 @@ def phase_ivf_kernels(torch, rec, launches) -> list:
             if not isinstance(got, tuple):
                 got, want = (got,), (want,)
             err = max(err, compare(torch, fam, got, want))
+            if fam == "ivf_assign":
+                fracs.append(screen_check(torch, ivf, args, want[0]))
             del got, want
         args, kwargs = largest
         slow = fam in ("ivf_init", "ivf_assign", "ivf_search")
@@ -3014,10 +3078,17 @@ def phase_ivf_kernels(torch, rec, launches) -> list:
             prod_ms, used = product_only_ms(torch, name, args)
             row["product_only_library_ms"] = prod_ms
             extra = f", product-only library call {prod_ms:.4f} ms ({used} rows)"
+        if fam == "ivf_assign":
+            row["screen_error_over_gamma"] = max(fracs)
+            by = device_split(torch, lambda: run(args, kwargs, False), 3)[1]
+            row["device_ms_by_kernel"] = {k: v[0] for k, v in by.items()}
+            log(f"kernel ivf_assign on the card at {shape}: "
+                f"{split_text(by, 3)}")
+            assign_crowded(torch, ivf, args[1].shape[0], args[0].shape[1])
         log(f"kernel {fam}: {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
             f"{bound_ms:.4f} ms ({nbytes} bytes at 3.35 TB/s, {bound_by}), "
             f"library {lib_ms if lib_ms is None else f'{lib_ms:.4f} ms'}, "
-            f"max_abs_err {err} over {min(len(calls), 4) + 1} main-path "
+            f"max_abs_err {err} over {len(checked)} main-path "
             f"calls, timed at the largest, {shape}{extra}")
         solo = [c for c in rec.largest_calls(fam) if ivf_group(fam, c[0])]
         if solo and solo[0] is not largest:
@@ -3029,6 +3100,103 @@ def phase_ivf_kernels(torch, rec, launches) -> list:
         rows.append(row)
         torch.cuda.empty_cache()
     return rows
+
+
+def screen_check(torch, ivf, args, want) -> float:
+    """What K11's screen did on one call, through ``ivf_assign_probe``:
+    its answer bitwise ``want``, the centroids listed a row (mean, max),
+    the rows that overflowed the list, and the largest |dot_tc -
+    dot_plain| / (|x^| |c^|) of its tensor cores' raw dots against the
+    plain version's on the same inputs, as a fraction of the screen's
+    gamma (returned). Fails unless that fraction is below 1."""
+    from elasticsearch_tpu_torch.ops.knn import _flat_dots
+    x, cents = args[0], args[1]
+    out, cand, over, dots = ivf.ivf_assign_probe(x, cents, dots=True)
+    torch.cuda.synchronize()
+    compare(torch, "ivf_assign (probe)", (out,), (want,))
+    listed = cand[cand > 0].float()
+    mean = float(listed.mean()) if listed.numel() else 0.0
+    most = int(listed.max()) if listed.numel() else 0
+    gamma = ivf.screen_gamma(x.shape[1])
+    plain = _flat_dots(cents, x)
+    frac = float(((dots - plain).abs().div_(
+        ivf.screen_norms(x)[:, None] * ivf.screen_norms(cents)[None, :])
+    ).max()) / gamma
+    del out, dots, plain
+    torch.cuda.empty_cache()
+    log(f"kernel ivf_assign screen at {ivf_shape('ivf_assign', args)}: "
+        f"candidates a row mean {mean:.4f} max {most}, overflow rows "
+        f"{int(over.item())} of {cand.numel()}; largest |dot_tc - "
+        f"dot_plain| / (|x^| |c^|) = {frac:.6f} of gamma {gamma:.6e}")
+    check(frac < 1.0, f"ivf_assign: the tensor cores' error {frac} of gamma "
+          f"breaks the screen's bound")
+    return frac
+
+
+def device_split(torch, fn, calls: int):
+    """(device ms a call, {kernel: (ms a launch, launches)}) from
+    torch.profiler over ``calls`` calls after one warm-up. The profiler may
+    keep fewer kernel records than were launched (seen late in a long run
+    of this script), so each kernel's time is its mean over the launches
+    it kept, and a call counts each kernel max(1, round(launches / calls))
+    times."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    by = {}
+    for ev in prof.key_averages():
+        us = getattr(ev, "self_device_time_total", None)
+        if us is None:
+            us = ev.self_cuda_time_total
+        if us > 0 and ev.count > 0:
+            by[ev.key[:48]] = (us / ev.count / 1e3, ev.count)
+    total = sum(ms * max(1, round(n / calls)) for ms, n in by.values())
+    return total, by
+
+
+def split_text(by: dict, calls: int) -> str:
+    return ", ".join(f"{k} {ms:.4f} ms a launch ({n} launches kept of "
+                     f"{calls} calls)" for k, (ms, n) in by.items())
+
+
+def host_us(torch, fn, calls: int = 200) -> float:
+    """Microseconds of host time a call over ``calls`` calls enqueued with
+    no synchronisation between them."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) / calls * 1e6
+
+
+def assign_crowded(torch, ivf, nlist: int, dims: int) -> None:
+    """K11 on a crowded chunk of the main path's largest shape: 131,072
+    rows in 256 tight clusters, the centroids 4,096 of the rows (16 a
+    cluster, so a row has many near centroids): bitwise its plain version,
+    its screen's candidates and error, and its time on the card. Not a
+    main-path call (the probe is not counted)."""
+    g = torch.Generator(device="cuda").manual_seed(13)
+    n = ivf.ASSIGN_CHUNK
+    means = torch.rand(256, dims, device="cuda", generator=g)
+    which = torch.randint(0, 256, (n,), device="cuda", generator=g)
+    x = means[which] + 0.05 * torch.randn(n, dims, device="cuda",
+                                          generator=g)
+    cents = x[torch.randperm(n, device="cuda", generator=g)[:nlist]].clone()
+    want = ivf.ivf_assign_plain(x, cents)
+    screen_check(torch, ivf, (x, cents), want)
+    probe = lambda: ivf.ivf_assign_probe(x, cents)  # noqa: E731
+    ms = time_call(torch, probe, 10)
+    log(f"kernel ivf_assign crowded (256 clusters, 16 centroids each) at "
+        f"{ivf_shape('ivf_assign', (x, cents))}: {ms:.4f} ms; on the card: "
+        f"{split_text(device_split(torch, probe, 3)[1], 3)}")
+    del x, cents, want
+    torch.cuda.empty_cache()
 
 
 def ivf_shape(family: str, args) -> str:
@@ -3848,29 +4016,45 @@ WIDE_K = 10_000
 WIDE_FAMILIES = ("bm25_flat", "knn_flat", "dense_topk")
 
 
-# (rows, cols, k) for the wide selection: a row of one chunk, rounds that
-# end mid-chunk, a k of one round over many rows
+# (rows, cols, k) for the wide selection: k above 4,096 over one row and
+# over many, and k above one CTA's sort (topk.SORT_CAP, 16,384: runs of
+# CAP merged once, and twice)
 WIDE_CASES = ((1, 5000, 4097), (3, 300_000, WIDE_K), (2, 200_000, 12_289),
-              (64, 70_000, 4096))
+              (64, 70_000, 4096), (2, 50_000, 16_385), (1, 600_000, 40_000))
+
+
+def same_bits(torch, name: str, got, want) -> None:
+    """A K10 result against its plain version bit for bit: ids, and the
+    scores' bits (a -0.0 is not a +0.0 here)."""
+    compare(torch, name, got, want)
+    check(torch.equal(got[0].view(torch.int32), want[0].view(torch.int32)),
+          f"{name}: score bits differ (signed zeros)")
 
 
 def phase_wide_small(torch, np, dev) -> None:
-    """The wide selection (the rounds inside K10) against a stable sort on
-    the card, row by row, with many equal scores and -inf slots:
-    bitwise."""
+    """K10's wide windows against a stable sort on the card, row by row:
+    k above 4,096 and above one CTA's sort, on rows of many equal scores
+    and -inf slots and on rows of +0.0 and -0.0 mixed: bitwise."""
     from elasticsearch_tpu_torch.ops import topk
     rng = np.random.default_rng(SEED + 600)
+    n = 0
     for rows, cols, k in WIDE_CASES:
         x = rng.integers(0, 300, (rows, cols)).astype(np.float32)
         x[x < 30] = -np.inf
-        t = torch.as_tensor(x, device=dev)
-        for r in range(rows):
+        zeros = np.where(rng.random(cols) < 0.5, 0.0, -0.0).astype(
+            np.float32)
+        zeros[rng.random(cols) < 0.1] = -np.inf
+        zeros[rng.random(cols) < 0.01] = 1.0
+        t = torch.as_tensor(np.concatenate([x, zeros[None]]), device=dev)
+        for r in range(rows + 1):
             got = topk.dense_topk(t[r], k)
             want = topk.dense_topk_plain(t[r], k)
             torch.cuda.synchronize()
-            compare(torch, f"dense_topk {cols} k {k} row {r}", got, want)
-    log("wide-small: dense_topk at k 4,096 to 12,289 bitwise equal to a "
-        "stable sort")
+            same_bits(torch, f"dense_topk {cols} k {k} row {r}", got, want)
+            n += 1
+    log(f"wide-small: {n} dense_topk rows at k 4,096 to 40,000 (above one "
+        f"CTA's sort of {topk.SORT_CAP:,} too), +0.0/-0.0 rows included, "
+        f"bitwise equal to a stable sort")
 
 
 def phase_wide(torch, np, dev, shared) -> None:
@@ -3878,7 +4062,7 @@ def phase_wide(torch, np, dev, shared) -> None:
     built, per segment (planes off, so every segment's launch selects
     10,000): a match with ``from`` 0 and ``size`` 10,000 (K1 with the
     rounds), the same match with exact totals (the dense collector, K8 +
-    K10 with the rounds) and a knn with k 10,000 (K5 with the rounds). The
+    K10's radix select) and a knn with k 10,000 (K5 with the rounds). The
     first 4,096 hits equal the 4,096 window's, the dense window equals
     K1's, and the first 10 equal the earlier phases' exact answers."""
     from elasticsearch_tpu_torch.index.engine import Reader
@@ -3991,6 +4175,9 @@ def phase_wide_kernels(torch, rec, launches) -> list:
             got = kernel(*args, **kwargs)
             want = plain(*args, **kwargs)
             torch.cuda.synchronize()
+            if fam == "dense_topk":
+                same_bits(torch, f"{fam} k {wide_k_of(fam, args)}", got,
+                          want)
             err = max(err, compare(torch, f"{fam} k {wide_k_of(fam, args)}",
                                    got, want))
             del got, want
@@ -4001,6 +4188,7 @@ def phase_wide_kernels(torch, rec, launches) -> list:
         bound_ms, bound_by, nbytes = wide_bound(fam, args)
         lib_ms = (dense_library_ms(torch, fam, args) if fam == "dense_topk"
                   else None)
+        split = {}
         if fam == "bm25_flat":
             shape = (f"fb={args[2].numel()} "
                      f"n_docs_pad={n_docs_pad_of(fam, args)} "
@@ -4010,6 +4198,8 @@ def phase_wide_kernels(torch, rec, launches) -> list:
         else:
             shape = f"n_docs_pad={dense_n(fam, args)}"
         shape += f" k={wide_k_of(fam, args)}"
+        if fam == "dense_topk":
+            split["host_device"] = topk_split(torch, kernel, args, shape)
         log(f"kernel {fam} (wide): {ms:.4f} ms (median of 20), plain "
             f"{plain_ms:.4f} ms (median of 5), bound {bound_ms:.4f} ms "
             f"({nbytes} bytes at 3.35 TB/s, {bound_by}), library "
@@ -4023,7 +4213,7 @@ def phase_wide_kernels(torch, rec, launches) -> list:
                      "launches": launches.get(fam, 0), "max_abs_err": err,
                      "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
                      "bound_by": bound_by, "library_ms": lib_ms,
-                     "shape": shape})
+                     "shape": shape, **split})
         torch.cuda.empty_cache()
     return rows
 

@@ -13,7 +13,10 @@ Four kernel families, each a hand-written CUDA kernel
 beside it:
 
 - ``ivf_assign`` (K11, ``_assign``): each row's nearest centroid,
-  argmin of c2 - 2 * dot with bf16 operands and f32 sums;
+  argmin of c2 - 2 * dot with bf16 operands and f32 sums -- on the card a
+  screen on the tensor cores, then an exact re-score of the centroids it
+  cannot rule out (``screen_bound`` and ``screen_candidates`` below are
+  the screen's bound and choice in plain PyTorch);
 - ``ivf_update`` (K12, ``_update``): per-cluster means, summed in
   ascending row order (no float atomics);
 - ``ivf_init`` (K13, ``_farthest_point_init``): the farthest-point seeding
@@ -22,13 +25,14 @@ beside it:
   lists in place.
 
 A wrapper launches its kernel for CUDA tensors and runs the plain version
-for CPU tensors; there is no fallback between the two. Every sum is taken
-in an order that the plain version repeats with tensor ops (dimension
-order for the dots of K11 and K14 and the centroid norms, ascending row
-order for K12's sums, a fixed 32-lane order for K13's distances), and
-every other op is one rounded f32 op, so kernel and plain version agree
-bit for bit. Ties follow the JAX programs: argmin / argmax take the first
-index, and the top-k orders by score, then position.
+for CPU tensors; there is no fallback between the two. Every sum that
+decides an output is taken in an order that the plain version repeats
+with tensor ops (dimension order for the dots of K11's re-score and of
+K14 and the centroid norms, ascending row order for K12's sums, a fixed
+32-lane order for K13's distances), and every other op is one rounded
+f32 op, so kernel and plain version agree bit for bit. Ties follow the
+JAX programs: argmin / argmax take the first index, and the top-k orders
+by score, then position.
 
 The host code (``kmeans``'s sampling, ``IVFIndex.build``'s balanced
 packing, ``probe_live``'s demux) is the JAX package's, line for line, so
@@ -38,6 +42,7 @@ the same lists from the same assignment.
 
 from __future__ import annotations
 
+import ctypes
 from typing import Optional, Tuple
 
 import numpy as np
@@ -60,9 +65,16 @@ ASSIGN_CHUNK = 1 << 17
 # csrc/ivf_init.cu WARPS (rows per step CTA)
 UPDATE_CHUNK = 4096
 INIT_ROWS_PER_CTA = 8
+# csrc/ivf_assign.cu: BK (dims a stage of the tensor-core screen; the
+# padded width enters its bound) and CAND (centroids it lists a row)
+SCREEN_BK = 64
+SCREEN_CAND = 32
+_U = 2.0 ** -24
+_SCREEN_ABS = 2.0 ** -100
+_SCRATCH = []
 
 _SIG = {
-    "ivf_assign": ["p", "p", "i", "i", "i", "p", "p", "p"],
+    "ivf_assign": ["p", "p", "i", "i", "i"] + ["p"] * 11,
     "ivf_update": ["p", "p", "p", "ll", "i", "i"] + ["p"] * 6,
     "ivf_init": ["p", "ll", "i", "ll", "i"] + ["p"] * 5,
     "ivf_search": ["p"] * 8 + ["i"] * 7 + ["p"] * 14,
@@ -103,6 +115,58 @@ def ivf_assign_plain(x: torch.Tensor, centroids: torch.Tensor
     # rounds as c2 - 2 * dots does
     return torch.argmin(dots.mul_(-2.0).add_(c2[None, :]),
                         dim=1).to(torch.int32)
+
+
+def screen_gamma(dims: int) -> float:
+    """K11's bound on |dot_tc - dot_plain| / (|x^| |c^|): 5 D 2^-24
+    (1 + 2^-8) over the padded width D (csrc/ivf_assign.cu's
+    derivation)."""
+    dp = -(-dims // SCREEN_BK) * SCREEN_BK
+    return 5.0 * dp * _U * (1.0 + 2.0 ** -8)
+
+
+def screen_norms(m: torch.Tensor) -> torch.Tensor:
+    """[rows] f32: each bf16-rounded row's L2 norm inflated by 2^-10, as
+    the screen's pre-pass writes it."""
+    b = _bf16(m)
+    return torch.sqrt((b * b).sum(dim=1)) * (1.0 + 2.0 ** -10)
+
+
+def screen_bound(x: torch.Tensor, centroids: torch.Tensor,
+                 c2: torch.Tensor) -> torch.Tensor:
+    """[n, nlist] f32: the screen's E(c) = g1 |x^| |c^| + g2 c2[c] +
+    2^-100, the most by which its t(c) = c2 - 2 dot_tc and t -/+ E may
+    stand from the plain value."""
+    widen = 1.0 + 2.0 ** -8
+    g1 = (2.0 * screen_gamma(x.shape[1]) + 6.0 * _U) * widen
+    g2 = 3.0 * _U * widen
+    p = screen_norms(x)[:, None] * screen_norms(centroids)[None, :]
+    return p * g1 + (c2 * g2 + _SCREEN_ABS)[None, :]
+
+
+def screen_candidates(dots: torch.Tensor, x: torch.Tensor,
+                      centroids: torch.Tensor) -> torch.Tensor:
+    """bool [n, nlist]: the centroids the screen keeps for each row when
+    its tensor-core sums are ``dots`` (any summation order of the bf16
+    products): t(c) - E(c) <= min_c (t(c) + E(c))."""
+    c2 = _col_sum_sq(centroids)
+    t = c2[None, :] - 2.0 * dots
+    e = screen_bound(x, centroids, c2)
+    upper = (t + e).min(dim=1, keepdim=True).values
+    return t - e <= upper
+
+
+def ivf_assign_screened(dots: torch.Tensor, x: torch.Tensor,
+                        centroids: torch.Tensor) -> torch.Tensor:
+    """int32 [n]: K11's answer from screen sums ``dots``: the plain value's
+    argmin (first index on ties) over each row's screened centroids, or
+    over all of them where more than SCREEN_CAND pass."""
+    keep = screen_candidates(dots, x, centroids)
+    keep[keep.sum(dim=1) > SCREEN_CAND] = True
+    c2 = _col_sum_sq(centroids)
+    v = _flat_dots(centroids, x).mul_(-2.0).add_(c2[None, :])
+    v = torch.where(keep, v, torch.full((), torch.inf, device=v.device))
+    return torch.argmin(v, dim=1).to(torch.int32)
 
 
 def ivf_update_plain(x: torch.Tensor, assign: torch.Tensor,
@@ -215,13 +279,67 @@ def ivf_assign(x: torch.Tensor, centroids: torch.Tensor) -> torch.Tensor:
                              f"n={n}/nlist={nlist}/dims={dims}", cuda):
         if not cuda:
             return ivf_assign_plain(x, centroids)
-        dev = x.device
-        c2 = torch.empty(nlist, dtype=torch.float32, device=dev)
-        out = torch.empty(n, dtype=torch.int32, device=dev)
-        launch_kernel("ivf_assign", _SIG["ivf_assign"], _ptr(x),
-                      _ptr(centroids), n, nlist, dims, _ptr(c2), _ptr(out),
-                      _stream())
-        return out
+        return _assign_on_card(x, centroids)[0]
+
+
+def _assign_scratch(n: int, nlist: int, dims: int):
+    """csrc/ivf_assign.cu ``ivf_assign_scratch``: the entries of the bf16
+    row and centroid tiles, the row and centroid norms and the candidate
+    lists."""
+    if not _SCRATCH:
+        from elasticsearch_tpu_torch._build import library
+        fn = library("ivf_assign").ivf_assign_scratch
+        fn.restype = ctypes.c_int
+        fn.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p]
+        _SCRATCH.append(fn)
+    sizes = (ctypes.c_longlong * 5)()
+    _SCRATCH[0](n, nlist, dims, sizes)
+    return list(sizes)
+
+
+def _assign_on_card(x: torch.Tensor, centroids: torch.Tensor,
+                    probe: bool = False):
+    """Launch K11 on CUDA tensors: (out [n] int32, candidates [n] int32,
+    overflow [1] int32, the tensor cores' raw dots [n, nlist] f32 or
+    None); ``ivf_assign_probe`` says what each holds."""
+    n, dims = x.shape
+    nlist = centroids.shape[0]
+    dev = x.device
+    n_xa, n_ca, n_xn, n_cn, n_cand = _assign_scratch(n, nlist, dims)
+    f32, i32 = torch.float32, torch.int32
+    c2 = torch.empty(nlist, dtype=f32, device=dev)
+    xa = torch.empty(n_xa, dtype=torch.bfloat16, device=dev)
+    ca = torch.empty(n_ca, dtype=torch.bfloat16, device=dev)
+    xn = torch.empty(n_xn, dtype=f32, device=dev)
+    cn = torch.empty(n_cn, dtype=f32, device=dev)
+    cand_n = torch.empty(n, dtype=i32, device=dev)
+    cand_i = torch.empty(n_cand, dtype=i32, device=dev)
+    overflow = torch.empty(1, dtype=i32, device=dev)
+    dots = torch.empty(n, nlist, dtype=f32, device=dev) if probe else None
+    out = torch.empty(n, dtype=i32, device=dev)
+    launch_kernel("ivf_assign", _SIG["ivf_assign"], _ptr(x),
+                  _ptr(centroids), n, nlist, dims, _ptr(c2), _ptr(xa),
+                  _ptr(ca), _ptr(xn), _ptr(cn), _ptr(cand_n), _ptr(cand_i),
+                  _ptr(overflow), None if dots is None else _ptr(dots),
+                  _ptr(out), _stream())
+    return out, cand_n, overflow, dots
+
+
+def ivf_assign_probe(x: torch.Tensor, centroids: torch.Tensor,
+                     dots: bool = False):
+    """K11 on CUDA tensors with what its screen did, for measuring it:
+    (out [n] int32 as ``ivf_assign`` returns it; candidates [n] int32, the
+    centroids listed a row, -1 where the list overflowed; overflow [1]
+    int32, the rows re-scored against every centroid; with ``dots`` the
+    tensor cores' raw dots [n, nlist] f32, else None). A measurement, not
+    a main-path call: it is not counted as a launch."""
+    if not _on_cuda(x, centroids):
+        raise ValueError("ivf_assign_probe measures the card's kernel")
+    n, dims = _check_matrix("x", x)
+    nlist, c_dims = _check_matrix("centroids", centroids)
+    if c_dims != dims or n > ASSIGN_CHUNK:
+        raise ValueError("ivf_assign_probe takes ivf_assign's inputs")
+    return _assign_on_card(x, centroids, probe=dots)
 
 
 def ivf_update(x: torch.Tensor, assign: torch.Tensor,

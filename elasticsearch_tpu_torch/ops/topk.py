@@ -3,10 +3,10 @@
 ``dense_topk`` (K10, ``csrc/dense_topk.cu``): the top-k of one dense
 score row, the eager ``lax.top_k`` that the JAX package's dense collector
 runs on every segment of every dense request (``search/phase.py``
-``_topk``), for any k <= n. A CTA holds at most KMAX (4,096) winners, so
-a wider k runs in rounds of at most KMAX, each after the cursor the round
-before left (``csrc/topk_common.cuh``); every selecting family (K1, K2,
-K5, K10, K14, K15) runs the same rounds inside its own launch.
+``_topk``), for any k <= n, by a card-wide radix select
+(``csrc/radix_select.cuh``) over one 64-bit key per entry:
+``selection_keys`` below is that key in plain PyTorch, and
+``dense_topk_by_keys`` the selection it implies.
 
 Order: score descending, then index ascending, -inf slots included --
 the order ``lax.top_k`` returns, which decides the hits of ``match_all``
@@ -19,23 +19,70 @@ the two.
 
 from __future__ import annotations
 
+import ctypes
+import functools
 from typing import Tuple
 
 import torch
 
 from elasticsearch_tpu_torch.ops.bm25 import (
-    _check, _on_cuda, _ptr, _stream, chunk_entries, launch_kernel,
-    stable_topk,
+    _check, _on_cuda, _ptr, _stream, launch_kernel, stable_topk,
 )
 from elasticsearch_tpu_torch.search.device_profile import DEVICE_PROFILE
 
-_SIG = ["p", "ll", "i"] + ["p"] * 5
+_SIG = ["p", "ll", "i"] + ["p"] * 6
+# csrc/radix_select.cuh CAP: the most keys one CTA sorts in shared memory;
+# a wider k sorts runs of CAP and merges them
+SORT_CAP = 16384
+_SCRATCH = []
+
+
+def selection_keys(scores: torch.Tensor) -> torch.Tensor:
+    """int64 [n]: K10's 64-bit key of each entry of ``scores`` [n] f32
+    (``csrc/radix_select.cuh`` ``make_key``), minus 2^63, so that signed
+    order is the key's unsigned order. The high word is the score's bits
+    mapped to score order (-0.0 as +0.0, every NaN as one NaN above
+    +inf), the low word n - 1 - index: a larger key is a better entry,
+    and no two keys are equal."""
+    n = scores.shape[0]
+    s = scores.float()
+    u = s.view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+    u = torch.where(s == 0, torch.zeros_like(u), u)
+    u = torch.where(torch.isnan(s), torch.full_like(u, 0x7FC00000), u)
+    word = torch.where((u & 0x80000000) != 0, u ^ 0xFFFFFFFF,
+                       u | 0x80000000)
+    low = n - 1 - torch.arange(n, dtype=torch.int64, device=scores.device)
+    return (word - (1 << 31)) * (1 << 32) + low
+
+
+def dense_topk_by_keys(scores: torch.Tensor, k: int
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The k largest ``selection_keys``, decoded as K10 decodes them: the
+    index from the low word, the score read back from the row."""
+    keys = torch.sort(selection_keys(scores), descending=True).values[:k]
+    d = scores.shape[0] - 1 - (keys & 0xFFFFFFFF)
+    return scores[d], d.to(torch.int32)
 
 
 def dense_topk_plain(scores: torch.Tensor, k: int
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
     s, d = stable_topk(scores[None, :], k)
     return s[0], d[0]
+
+
+@functools.lru_cache(maxsize=1024)
+def _scratch_sizes(n: int, k: int) -> Tuple[int, int, int]:
+    """(state bytes, key entries, second key entries) of a launch, from
+    the kernel's own ``dense_topk_scratch``."""
+    if not _SCRATCH:
+        from elasticsearch_tpu_torch._build import library
+        fn = library("dense_topk").dense_topk_scratch
+        fn.restype = ctypes.c_int
+        fn.argtypes = [ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p]
+        _SCRATCH.append(fn)
+    sizes = (ctypes.c_longlong * 3)()
+    _SCRATCH[0](n, k, sizes)
+    return sizes[0], sizes[1], sizes[2]
 
 
 def dense_topk(scores: torch.Tensor, k: int
@@ -54,11 +101,15 @@ def dense_topk(scores: torch.Tensor, k: int
         if not cuda:
             return dense_topk_plain(scores, k)
         dev = scores.device
-        ck = chunk_entries(1, n, k)
-        chunk_s = torch.empty(ck, dtype=torch.float32, device=dev)
-        chunk_i = torch.empty(ck, dtype=torch.int32, device=dev)
+        state_bytes, n_keys, n_keys2 = _scratch_sizes(n, k)
+        n_state = -(-state_bytes // 8)
+        scratch = torch.empty(n_state + n_keys + n_keys2, dtype=torch.int64,
+                              device=dev)
+        base = _ptr(scratch)
+        keys2 = base + 8 * (n_state + n_keys) if n_keys2 else None
         s = torch.empty(k, dtype=torch.float32, device=dev)
         d = torch.empty(k, dtype=torch.int32, device=dev)
-        launch_kernel("dense_topk", _SIG, _ptr(scores), n, k, _ptr(chunk_s),
-                      _ptr(chunk_i), _ptr(s), _ptr(d), _stream())
+        launch_kernel("dense_topk", _SIG, _ptr(scores), n, k, base,
+                      base + 8 * n_state, keys2, _ptr(s), _ptr(d),
+                      _stream())
         return s, d

@@ -98,8 +98,10 @@ def test_knn_kernels_match_plain_versions_on_the_card(dims, n_q, sim):
 @pytest.mark.parametrize("sim", ["cosine", "dot_product", "l2_norm"])
 def test_dense_kernels_match_plain_versions_on_the_card(sim):
     """bm25_scores (K8), knn_scores (K9) and dense_topk (K10) bitwise equal
-    to their plain versions, at rows long enough for K10's merge pass,
-    with -1 pads, dead docs, missing vectors and tied scores."""
+    to their plain versions, with -1 pads, dead docs, missing vectors and
+    tied scores; K10 at k 1 to one above its one-CTA sort, on constant,
+    all -inf and +0.0/-0.0 rows too (score bits compared, sign of zero
+    included)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernels have no CPU mode")
     inp = make_inputs(14, n_docs=150_000, nb=2048, n_q=1, per_q=900)
@@ -118,12 +120,17 @@ def test_dense_kernels_match_plain_versions_on_the_card(sim):
     row = knn.vector_scores(*args)
     assert torch.equal(row, knn.vector_scores_plain(*args))
     scores = torch.where(T(live_v) & T(exists), row, -torch.inf)
+    rng = np.random.default_rng(15)
+    zeros = np.where(rng.random(scores.numel()) < 0.5, 0.0, -0.0)
+    zeros[rng.random(scores.numel()) < 0.2] = -np.inf
     for x in (scores, torch.ones_like(scores), torch.full_like(
-            scores, -torch.inf)):
-        for k in (1, 10, 4096):
-            for g, w_ in zip(topk.dense_topk(x, k),
-                             topk.dense_topk_plain(x, k)):
-                assert torch.equal(g, w_)
+            scores, -torch.inf), T(zeros.astype(np.float32))):
+        # k above one CTA's sort (SORT_CAP) takes the merged runs
+        for k in (1, 10, 4096, 10_000, topk.SORT_CAP + 1):
+            (s, d), (ws, wd) = topk.dense_topk(x, k), topk.dense_topk_plain(
+                x, k)
+            assert torch.equal(d, wd)
+            assert torch.equal(s.view(torch.int32), ws.view(torch.int32))
 
 
 @pytest.mark.cuda
@@ -175,7 +182,8 @@ def test_masked_knn_kernels_match_plain_versions_on_the_card(sim):
 def test_ivf_kernels_match_plain_versions_on_the_card(dims):
     """ivf_assign, ivf_update, ivf_init and ivf_search (three similarities,
     nprobe 1..nlist) bitwise equal to their plain versions, with tied
-    rows and centroids, dropped ids and an empty cluster."""
+    rows and centroids, dropped ids and an empty cluster; ivf_assign also
+    at near-ties that overflow its screen's list (counted)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernels have no CPU mode")
     from elasticsearch_tpu_torch.ops import ivf
@@ -188,6 +196,20 @@ def test_ivf_kernels_match_plain_versions_on_the_card(dims):
     a = ivf.ivf_assign(x, cents)
     assert torch.equal(a, ivf.ivf_assign_plain(x, cents))
     assert not (a == 5).any()
+    # near-ties: 40 copies of one centroid and 20 one ulp from another,
+    # rows close to both; their lists overflow and take the exact pass
+    # over every centroid
+    crowd = cents.clone()
+    crowd[10:50] = crowd[9]
+    crowd[60:80] = torch.nextafter(crowd[59], torch.full_like(crowd[59], 10))
+    near = x.clone()
+    near[:300] = crowd[9] + 0.01 * x[:300]
+    near[300:600] = crowd[59] + 0.01 * x[300:600]
+    want = ivf.ivf_assign_plain(near, crowd)
+    assert torch.equal(ivf.ivf_assign(near, crowd), want)
+    got, _cand, overflow, _dots = ivf.ivf_assign_probe(near, crowd)
+    assert torch.equal(got, want)
+    assert int(overflow.item()) > 0
     a[:4] = -1
     assert torch.equal(ivf.ivf_update(x, a, cents),
                        ivf.ivf_update_plain(x, a, cents))

@@ -242,6 +242,61 @@ def test_dense_topk_matches_lax_top_k(n, k, row):
     np.testing.assert_array_equal(pd.numpy(), np.asarray(rd))
 
 
+def key_rows(seed: int, n: int):
+    """Rows that stress K10's 64-bit selection key: one score everywhere,
+    +0.0 and -0.0 mixed, runs of -inf, subnormals of both signs, few
+    distinct values, and Gaussian scores with -inf holes."""
+    rng = np.random.default_rng(seed)
+    zeros = np.where(rng.random(n) < 0.5, 0.0, -0.0).astype(np.float32)
+    zeros[rng.random(n) < 0.05] = 1.0
+    runs = rng.standard_normal(n).astype(np.float32)
+    for start in rng.integers(0, n, 8):
+        runs[start: start + n // 10] = -np.inf
+    sub = (rng.integers(-3, 4, n) * 1e-40).astype(np.float32)
+    few = rng.integers(0, 3, n).astype(np.float32)
+    gauss = rng.standard_normal(n).astype(np.float32)
+    gauss[rng.random(n) < 0.4] = -np.inf
+    return {"all_equal": np.full(n, 2.5, np.float32), "signed_zeros": zeros,
+            "neg_inf_runs": runs, "subnormals": sub, "three_values": few,
+            "gauss": gauss}
+
+
+KEY_ROWS = ("all_equal", "signed_zeros", "neg_inf_runs", "subnormals",
+            "three_values", "gauss")
+# n below and above one CTA's sort (SORT_CAP keys), k above it too
+KEY_CASES = [(n, k, row) for n in (1000, topk.SORT_CAP + 3,
+                                   2 * topk.SORT_CAP + 5)
+             for k in (1, 10, 1000, topk.SORT_CAP + 1) if k <= n
+             for row in KEY_ROWS]
+
+
+@pytest.mark.parametrize("n,k,row", KEY_CASES, ids=map(_ids, KEY_CASES))
+def test_selection_keys_order_as_the_stable_sort_and_lax_top_k(n, k, row):
+    """The k largest of K10's 64-bit keys, decoded as the kernel decodes
+    them, are the plain version's (stable sort) top-k bit for bit, -0.0
+    kept as the row holds it; and lax.top_k's on every row but the one
+    that mixes +0.0 and -0.0, where lax.top_k orders +0.0 first (a total
+    order) and the port ties the two by index, as its stable sort does."""
+    x = key_rows(n + k, n)[row]
+    t = torch.as_tensor(x)
+    ks, kd = topk.dense_topk_by_keys(t, k)
+    ps, pd = topk.dense_topk_plain(t, k)
+    assert torch.equal(kd, pd)
+    assert torch.equal(ks.view(torch.int32), ps.view(torch.int32))
+    keys = topk.selection_keys(t)
+    assert torch.unique(keys).numel() == n
+    rs, rd = jax.lax.top_k(jnp.asarray(x), k)
+    rd = np.asarray(rd)
+    if row == "signed_zeros":
+        zero = np.asarray(rs) == 0
+        assert np.array_equal(rd[~zero], kd.numpy()[~zero])
+        assert set(rd[zero]) <= set(np.nonzero(x == 0)[0])
+    else:
+        np.testing.assert_array_equal(kd.numpy(), rd)
+        np.testing.assert_array_equal(ks.numpy().view(np.int32),
+                                      np.asarray(rs).view(np.int32))
+
+
 def test_dense_topk_refuses_bad_inputs():
     x = torch.zeros(256)
     with pytest.raises(ValueError):

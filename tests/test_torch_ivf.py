@@ -5,6 +5,9 @@ CPU, on the same seeded numpy inputs:
   programs they replace: ``ivf_assign`` (K11) against ``_assign``,
   ``ivf_update`` (K12) against ``_update``, ``ivf_init`` (K13) against
   ``_farthest_point_init``, ``ivf_search`` (K14) against ``_ivf_search``;
+- K11's screen in plain PyTorch (``screen_bound``, ``screen_candidates``,
+  ``ivf_assign_screened``) fed dots summed in other orders: it keeps the
+  plain argmin, and its answer is the plain version's;
 - ``kmeans`` and ``IVFIndex.build`` (device math + the host packing)
   against the JAX package's, and the port's search on a JAX-built index
   carried across by ``convert.ivf_from_reference``;
@@ -48,6 +51,7 @@ from elasticsearch_tpu_torch.convert import ivf_from_reference
 from elasticsearch_tpu_torch.index import InternalEngine
 from elasticsearch_tpu_torch.mapping import MapperService
 from elasticsearch_tpu_torch.ops import ivf as port
+from elasticsearch_tpu_torch.ops import knn
 from elasticsearch_tpu_torch.ops.device_segment import PLANES
 from elasticsearch_tpu_torch.search import SearchService
 from test_torch_knn_slice import planes  # noqa: F401 (a fixture)
@@ -141,6 +145,89 @@ def test_assign_matches_reference(kind, dims, nlist):
         np.testing.assert_array_equal(got, want)
     else:
         assert_assign_near_ties(x, cents, got, want)
+
+
+# ---------------------------------------------------------------------------
+# K11's screen: its bound E and its choice of centroids, in plain PyTorch
+# ---------------------------------------------------------------------------
+
+SCREEN_KINDS = ("random", "duplicated", "tied", "ulp")
+
+
+def screen_inputs(kind: str, dims: int):
+    """160 Gaussian rows and 96 centroids. ``duplicated``: each row of the
+    first half repeated in the second, and 8 rows equal to centroids;
+    ``tied``: 41 equal centroids (more than the screen lists), rows close
+    to them; ``ulp``: 20 centroids each one f32 ulp from the last (the
+    same bf16 values, c2 a few ulps apart), rows close to them."""
+    rng = np.random.default_rng(dims + 100 * SCREEN_KINDS.index(kind))
+    x = rng.standard_normal((160, dims)).astype(np.float32)
+    cents = rng.standard_normal((96, dims)).astype(np.float32)
+    noise = np.float32(0.01) * rng.standard_normal((40, dims)).astype(
+        np.float32)
+    if kind == "duplicated":
+        x[80:] = x[:80]
+        x[:8] = cents[:8]
+    elif kind == "tied":
+        cents[10:50] = cents[9]
+        x[:40] = cents[9] + noise
+    elif kind == "ulp":
+        for c in range(60, 80):
+            cents[c] = np.nextafter(cents[c - 1], np.float32(np.inf))
+        x[:40] = cents[59] + noise
+        x[40] = cents[59]
+    return T(x), T(cents)
+
+
+def dots_in_order(x, cents, order: str):
+    """[n, nlist] f32 dots of the bf16-rounded operands, summed in another
+    order than the plain version's: the dimensions reversed, as a
+    pairwise tree, or by torch.matmul in f32."""
+    xb, cb = x.to(torch.bfloat16).float(), cents.to(torch.bfloat16).float()
+    if order == "matmul":
+        return torch.matmul(xb, cb.t())
+    prods = xb[:, None, :] * cb[None, :, :]        # exact in f32
+    if order == "reversed":
+        acc = torch.zeros(prods.shape[:2])
+        for d in reversed(range(prods.shape[2])):
+            acc = acc + prods[:, :, d]
+        return acc
+    width = 1 << (prods.shape[2] - 1).bit_length()
+    prods = torch.nn.functional.pad(prods, (0, width - prods.shape[2]))
+    while prods.shape[2] > 1:
+        half = prods.shape[2] // 2
+        prods = prods[:, :, :half] + prods[:, :, half:]
+    return prods[:, :, 0]
+
+
+SCREEN_CASES = [(kind, dims, order) for kind in SCREEN_KINDS
+                for dims in (16, 100, 960)
+                for order in ("reversed", "pairwise", "matmul")]
+
+
+@pytest.mark.parametrize("kind,dims,order", SCREEN_CASES,
+                         ids=["-".join(map(str, c)) for c in SCREEN_CASES])
+def test_screen_keeps_the_plain_argmin(kind, dims, order):
+    """ops/ivf.py's mirror of K11's screen, fed dots summed in another
+    order than the plain version's (as the tensor cores sum them): every
+    plain value lies within t -/+ E, so the plain argmin is always among
+    the screened centroids, and the re-score over them (or over every
+    centroid, where more than SCREEN_CAND pass) is the plain answer."""
+    x, cents = screen_inputs(kind, dims)
+    dots = dots_in_order(x, cents, order)
+    c2 = port._col_sum_sq(cents)
+    plain = (knn._flat_dots(cents, x) * -2.0) + c2[None, :]
+    t = c2[None, :] - 2.0 * dots
+    e = port.screen_bound(x, cents, c2)
+    assert ((t - e <= plain) & (plain <= t + e)).all()
+    want = port.ivf_assign_plain(x, cents)
+    keep = port.screen_candidates(dots, x, cents)
+    assert keep[torch.arange(len(want)), want.long()].all()
+    if kind == "tied":
+        # the tied rows list more centroids than the screen holds
+        assert (keep.sum(dim=1) > port.SCREEN_CAND).any()
+    got = port.ivf_assign_screened(dots, x, cents)
+    assert torch.equal(got, want)
 
 
 @pytest.mark.parametrize("kind", ["int", "gauss"])

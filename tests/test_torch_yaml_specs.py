@@ -27,7 +27,7 @@ NOT_PORTED = {
         "501 dense_query:Percolate, elasticsearch_tpu_torch/search/"
         "execute.py:184 (search/percolate.py is not ported)",
     "89_suggest/term suggester corrects typos":
-        "501 suggest, elasticsearch_tpu_torch/action/search_action.py:1175"
+        "501 suggest, elasticsearch_tpu_torch/action/search_action.py:1178"
         " (search/suggest.py is not ported)",
     "90_geo/geo_distance filtering":
         "501 dense_query:GeoDistance, elasticsearch_tpu_torch/search/"
