@@ -940,8 +940,6 @@ def phase_full(torch, np, dev, n_docs: int, workers: int, n_q: int,
                 size=10, device=dev)
     stats0 = dict(PLANES.stats)
     hist0 = dict(PLANES.rerank_depth_hist)
-    from elasticsearch_tpu_torch.search.device_profile import DEVICE_PROFILE
-    DEVICE_PROFILE.timing = dev.type == "cuda"
     dev_ms = {"start": device_ms()}
     solo = []
     for text in queries:
@@ -982,7 +980,6 @@ def phase_full(torch, np, dev, n_docs: int, workers: int, n_q: int,
             dev_ms[leg] = device_ms()
     finally:
         PLANES.quantized = True
-        DEVICE_PROFILE.timing = False
     # the quantized tier serves the exact path's results
     for qi, (res, _t) in enumerate(solo):
         cands, hits, rel, max_score, _prune = batch["batch_exact"][qi]
@@ -1011,6 +1008,18 @@ def phase_full(torch, np, dev, n_docs: int, workers: int, n_q: int,
             f" ms over {len(times)} runs; wall total "
             f"{1e3 * sum(times):.1f} ms, kernel device ms {kern}, "
             f"kernel-busy share {busy:.4f}")
+
+
+def untimed(phase, *args):
+    """Run a kernels phase with the whole-run launch timing off (its calls
+    are measurements, not main-path launches), then restore it."""
+    from elasticsearch_tpu_torch.search.device_profile import DEVICE_PROFILE
+    keep = DEVICE_PROFILE.timing
+    DEVICE_PROFILE.timing = False
+    try:
+        return phase(*args)
+    finally:
+        DEVICE_PROFILE.timing = keep
 
 
 def time_call(torch, fn, runs: int) -> float:
@@ -1431,7 +1440,6 @@ def phase_knn_full(torch, np, dev, n_docs: int, n_q: int,
                        k=10, num_candidates=100) for v in vecs]
     ctxs = _build_ctxs(reader, mappers, None, None, device=dev)
     solo(vecs[0])          # untimed: the first query's host set-up
-    DEVICE_PROFILE.timing = dev.type == "cuda"
     prev = device_ms(KNN_FAMILIES)
     prev_n = DEVICE_PROFILE.launches()
     legs, answers, stats, launched = {}, {}, {}, {}
@@ -1482,7 +1490,6 @@ def phase_knn_full(torch, np, dev, n_docs: int, n_q: int,
                                for d in c[:10]] for c, *_ in out], st0)
     finally:
         PLANES.enabled, PLANES.quantized = True, True
-        DEVICE_PROFILE.timing = False
     base = answers["a_solo_tier_on"]
     for leg, got in answers.items():
         check(got == base, f"knn-full: leg {leg} differs from the solo leg "
@@ -1930,25 +1937,21 @@ def phase_dense_full(torch, np, dev, shared, n_q: int):
     def leg(name, bodies, reader, mappers, per_query):
         query_shard(reader, mappers, dsl.parse_query(bodies[0]["query"]),
                     size=10, track_total_hits=True, device=dev)  # untimed
-        DEVICE_PROFILE.timing = dev.type == "cuda"
         ms0 = device_ms(DENSE_FAMILIES)
         n0 = DEVICE_PROFILE.launches()
         times, out = [], []
-        try:
-            for body in bodies:
-                t = time.monotonic()
-                res = query_shard(reader, mappers,
-                                  dsl.parse_query(body["query"]),
-                                  size=body.get("size", 10),
-                                  track_total_hits=body.get(
-                                      "track_total_hits", 10_000),
-                                  device=dev)
-                if dev.type == "cuda":
-                    torch.cuda.synchronize()
-                times.append(time.monotonic() - t)
-                out.append(res)
-        finally:
-            DEVICE_PROFILE.timing = False
+        for body in bodies:
+            t = time.monotonic()
+            res = query_shard(reader, mappers,
+                              dsl.parse_query(body["query"]),
+                              size=body.get("size", 10),
+                              track_total_hits=body.get(
+                                  "track_total_hits", 10_000),
+                              device=dev)
+            if dev.type == "cuda":
+                torch.cuda.synchronize()
+            times.append(time.monotonic() - t)
+            out.append(res)
         ms1 = device_ms(DENSE_FAMILIES)
         n1 = DEVICE_PROFILE.launches()
         launched = {f: n1.get(f, 0) - n0.get(f, 0)
@@ -2283,6 +2286,7 @@ def phase_ivf_small(torch, np, dev) -> None:
         compare(torch, f"ivf_init D={dims} nlist={nlist}", (f,),
                 (ivf.ivf_init_plain(xt, 3, nlist),))
         n += 3
+    n += init_adversarial(torch, np, ivf, rng, T)
     # K11 at near-ties: 40 copies of one centroid and 20 centroids one ulp
     # from another, with rows close to both; the screen lists more than it
     # holds for those rows, so they take the exact pass over every centroid
@@ -2305,9 +2309,68 @@ def phase_ivf_small(torch, np, dev) -> None:
         f"version; {over} rows overflowed the screen's list of "
         f"{ivf.SCREEN_CAND} and were re-scored against every centroid")
     n += 1
-    # K14 on a synthetic index: tied centroids, padded lists, nprobe up to
-    # nlist; k above the probe pool is clamped by IVFIndex.search
-    nlist, list_len, dims = 48, 40, 64
+    # K14 on synthetic indexes: tied centroids, padded lists, nprobe up to
+    # nlist; k above the probe pool is clamped by IVFIndex.search; k above
+    # the partials' cap takes the wide path; D 30 (not a multiple of 4)
+    # scans its rows a float at a time
+    for dims in (64, 30):
+        n += search_adversarial(torch, np, ivf, knn, ivf_from_reference, rng,
+                                dev, dims)
+    log(f"ivf-small: {n} ivf_assign/ivf_update/ivf_init/ivf_search calls "
+        f"(D 16/30/64/100/960, tied rows and centroids, dropped and empty "
+        f"clusters, duplicate and equally far rows, clustered and isotropic "
+        f"samples, padded lists, nprobe 1..nlist, 64 queries sharing their "
+        f"lists, clamped and wide k, 3 similarities) bitwise equal to their "
+        f"plain versions")
+
+
+def init_adversarial(torch, np, ivf, rng, T) -> int:
+    """K13 where its pruning is tested: duplicate rows and many rows
+    equally far (argmax ties), a clustered sample (most rows skipped) and
+    an isotropic one (nothing prunes), each bitwise its plain version;
+    prints the rows each computed (as full-scan equivalents) and its
+    time."""
+    n = 0
+    for name, dims, n_rows, nlist in (("ties", 100, 20_000, 128),
+                                      ("clustered", 960, 20_000, 256),
+                                      ("isotropic", 960, 20_000, 256)):
+        if name == "clustered":
+            means = rng.standard_normal((64, dims), dtype=np.float32)
+            x = means[rng.integers(0, 64, n_rows)] + np.float32(0.35) * \
+                rng.standard_normal((n_rows, dims), dtype=np.float32)
+        else:
+            x = rng.standard_normal((n_rows, dims), dtype=np.float32)
+        if name == "ties":
+            x[100:400] = x[0]                  # many equal farthest rows
+            x[500:900] = x[7]
+            x[1000:1010] = x[5000]
+        xt = T(x)
+        want = ivf.ivf_init_plain(xt, 3, nlist)
+        got = ivf.ivf_init(xt, 3, nlist)
+        torch.cuda.synchronize()
+        compare(torch, f"ivf_init {name} D={dims} nlist={nlist}", (got,),
+                (want,))
+        probed, rows, _cyc = ivf.ivf_init_probe(xt, 3, nlist)
+        compare(torch, f"ivf_init {name} (probe)", (probed,), (want,))
+        ms = time_call(torch, lambda: ivf.ivf_init(xt, 3, nlist), 3)
+        log(f"ivf-small: ivf_init {name} n={n_rows} nlist={nlist} "
+            f"dims={dims}: bitwise equal to its plain version; "
+            f"{int(rows.sum())} row distances computed, "
+            f"{float(rows.sum()) / n_rows:.1f} full-scan equivalents of "
+            f"{nlist - 1} steps; {ms:.4f} ms")
+        n += 2
+    return n
+
+
+def search_adversarial(torch, np, ivf, knn, ivf_from_reference, rng, dev,
+                       dims: int) -> int:
+    """K14 on a synthetic index of 48 lists of 40 slots: tied centroids,
+    padded lists, tied slot scores in and across lists, nprobe 1..nlist,
+    k up to past the probe pool, 9 queries and 64 that all probe the same
+    lists; bitwise its plain version, and the card's search equal to the
+    CPU's. Returns the calls checked."""
+    n = 0
+    nlist, list_len = 48, 40
     cents = rng.standard_normal((nlist, dims), dtype=np.float32)
     cents[5] = cents[2]
     lists = rng.standard_normal((nlist, list_len, dims), dtype=np.float32)
@@ -2327,26 +2390,31 @@ def phase_ivf_small(torch, np, dev) -> None:
         q = rng.standard_normal((9, dims), dtype=np.float32)
         q[0] = cents[2]
         q[1] = lists[4, 2]
-        batch = knn.QueryBatch(q, dev)
-        for nprobe, k in ((1, 10), (3, 10), (7, 10**6), (nlist, 25),
-                          (nlist, 4096)):
-            args = (batch.queries, batch.qn, batch.q2, on_dev.centroids,
-                    on_dev.lists, on_dev.valid, on_dev.ids, on_dev.norms)
-            k_eff = min(k, nprobe * list_len)
-            got = ivf.ivf_search(*args, k_eff, nprobe, sim)
-            torch.cuda.synchronize()
-            compare(torch, f"ivf_search {sim} nprobe={nprobe} k={k_eff}",
-                    got, ivf.ivf_search_plain(*args, k_eff, nprobe, sim))
-            s_dev, i_dev = on_dev.search(q, k, nprobe)
-            s_cpu, i_cpu = on_cpu.search(q, k, nprobe)
-            check(np.array_equal(i_dev, i_cpu) and
-                  np.array_equal(s_dev.view(np.int32), s_cpu.view(np.int32)),
-                  f"ivf_search {sim} nprobe={nprobe}: card and CPU differ")
-            n += 1
-    log(f"ivf-small: {n} ivf_assign/ivf_update/ivf_init/ivf_search calls "
-        f"(D 16/64/100/960, tied rows and centroids, dropped and empty "
-        f"clusters, padded lists, nprobe 1..nlist, clamped k, 3 "
-        f"similarities) bitwise equal to their plain versions")
+        crowd = cents[2][None, :] + np.float32(1e-3) * rng.standard_normal(
+            (64, dims), dtype=np.float32)
+        for qs in (q, crowd):
+            batch = knn.QueryBatch(qs, dev)
+            for nprobe, k in ((1, 10), (3, 10), (7, 10**6), (nlist, 25),
+                              (nlist, 4096), (9, 26),
+                              (nlist, ivf.SEARCH_KCAP)):
+                args = (batch.queries, batch.qn, batch.q2, on_dev.centroids,
+                        on_dev.lists, on_dev.valid, on_dev.ids,
+                        on_dev.norms)
+                k_eff = min(k, nprobe * list_len)
+                got = ivf.ivf_search(*args, k_eff, nprobe, sim)
+                torch.cuda.synchronize()
+                compare(torch, f"ivf_search D={dims} {sim} "
+                        f"n_q={qs.shape[0]} nprobe={nprobe} k={k_eff}",
+                        got, ivf.ivf_search_plain(*args, k_eff, nprobe, sim))
+                s_dev, i_dev = on_dev.search(qs, k, nprobe)
+                s_cpu, i_cpu = on_cpu.search(qs, k, nprobe)
+                check(np.array_equal(i_dev, i_cpu) and
+                      np.array_equal(s_dev.view(np.int32),
+                                     s_cpu.view(np.int32)),
+                      f"ivf_search {sim} nprobe={nprobe}: card and CPU "
+                      f"differ")
+                n += 1
+    return n
 
 
 IVF_FIELDS = {"cosine": "ivf_cos", "dot_product": "ivf_dot",
@@ -2616,7 +2684,6 @@ def ivf_leg(torch, np, dev, name, reader, mappers, ctxs, queries, oracle,
     nc = nprobe * list_len
     vecs = [q.tolist() for q in queries]
     fams = IVF_FAMILIES + KNN_FAMILIES
-    DEVICE_PROFILE.timing = dev.type == "cuda"
     ms0, n0 = device_ms(fams), DEVICE_PROFILE.launches()
     times, hits, hits_k5 = [], 0, 0
     for qi, v in enumerate(vecs):
@@ -2636,7 +2703,6 @@ def ivf_leg(torch, np, dev, name, reader, mappers, ctxs, queries, oracle,
         t = time.monotonic()
         batched_knn_shard(ctxs, "vec", specs, 10)
         b_times.append(time.monotonic() - t)
-    DEVICE_PROFILE.timing = False
     ms1, n1 = device_ms(fams), DEVICE_PROFILE.launches()
     kern = {f: round(ms1[f] - ms0[f], 4) for f in fams if ms1[f] > ms0[f]}
     launched = {f: n1.get(f, 0) - n0.get(f, 0) for f in fams}
@@ -2953,7 +3019,8 @@ def ivf_bound(torch, family: str, args):
     output written once, over 3.35 TB/s; or the operations over the peak
     rate of their type, whichever is larger. The probe counts the lists
     this call's queries actually probe (their centroid pass, run on the
-    plain version), each once."""
+    plain version), each once, and of those only the valid slots'
+    vectors."""
     if family == "ivf_assign":
         x, c = args[0], args[1]
         n, d = x.shape
@@ -2974,15 +3041,18 @@ def ivf_bound(torch, family: str, args):
     elif family == "ivf_search":
         from elasticsearch_tpu_torch.ops import bm25
         from elasticsearch_tpu_torch.ops.knn import _flat_dots
-        q, cents, lists, k, nprobe = args[0], args[3], args[4], args[8], \
-            args[9]
+        q, cents, lists, valid, k, nprobe = args[0], args[3], args[4], \
+            args[5], args[8], args[9]
         b, d = q.shape
         nl, L = lists.shape[0], lists.shape[1]
         scores = _flat_dots(cents, q)
         probes = bm25.stable_topk(scores, nprobe)[1]
-        n_lists = int(torch.unique(probes).numel())
-        nbytes = b * d * 4 + b * 8 + nl * d * 4 + n_lists * L * (d * 4 + 9) \
-            + b * k * 8
+        lists_read = torch.unique(probes).long()
+        # each probed list once: its valid slots' vectors and norms (a
+        # padding slot's vector is not needed) and every slot's flag
+        v_rows = int(valid[lists_read].sum())
+        nbytes = b * d * 4 + b * 8 + nl * d * 4 + v_rows * (d * 4 + 4) + \
+            lists_read.numel() * L + b * k * 8
         t_ops = (2 * b * nl * d + 2 * b * nprobe * L * d) / BF16_FLOPS + \
             8 * b * nprobe * L / F32_FLOPS
     else:
@@ -3078,6 +3148,10 @@ def phase_ivf_kernels(torch, rec, launches) -> list:
             prod_ms, used = product_only_ms(torch, name, args)
             row["product_only_library_ms"] = prod_ms
             extra = f", product-only library call {prod_ms:.4f} ms ({used} rows)"
+        if fam == "ivf_init":
+            row.update(init_stats(torch, ivf, checked, largest, ms))
+        if fam == "ivf_search":
+            row.update(search_extra(torch, ivf, args, kwargs, shape))
         if fam == "ivf_assign":
             row["screen_error_over_gamma"] = max(fracs)
             by = device_split(torch, lambda: run(args, kwargs, False), 3)[1]
@@ -3094,12 +3168,105 @@ def phase_ivf_kernels(torch, rec, launches) -> list:
         if solo and solo[0] is not largest:
             s_args, s_kw = solo[0]            # the largest solo probe
             s_ms = time_call(torch, lambda: run(s_args, s_kw, False), 20)
+            s_bound = ivf_bound(torch, fam, s_args)[0]
             log(f"kernel {fam}: {s_ms:.4f} ms at the largest solo main-path "
-                f"call, bound {ivf_bound(torch, fam, s_args)[0]:.4f} ms, "
-                f"{ivf_shape(fam, s_args)}")
+                f"call, bound {s_bound:.4f} ms, {ivf_shape(fam, s_args)}")
+            row["solo"] = {"ms": s_ms, "bound_ms": s_bound,
+                           "shape": ivf_shape(fam, s_args)}
+            if fam == "ivf_search":
+                fn = lambda: run(s_args, s_kw, False)  # noqa: E731
+                dev_ms, by = device_split(torch, fn, 5)
+                row["solo"]["host_us"] = host_us(torch, fn)
+                row["solo"]["device_ms"] = dev_ms
+                log(f"kernel ivf_search solo: {row['solo']['host_us']:.2f} "
+                    f"us a call on the host, {dev_ms:.4f} ms on the card "
+                    f"({split_text(by, 5)})")
         rows.append(row)
         torch.cuda.empty_cache()
     return rows
+
+
+def init_stats(torch, ivf, checked, largest, ms: float) -> dict:
+    """K13's pruning on the recorded calls (through ``ivf_init_probe``,
+    each bitwise ``ivf_init``'s answer): the row distances computed, as
+    full-scan equivalents of the nlist - 1 steps, and the bytes of rows
+    read against the full-scan re-read floor; at the largest call the SM
+    cycles' split between scanning, the centroid distances and the
+    barriers and argmax, and the kernel's time on an isotropic sample of
+    the same shape (where nothing prunes)."""
+    out = {"calls": []}
+    split_done = False
+    for args, kwargs in checked:
+        x, first, nlist = args[0], args[1], args[2]
+        n, d = x.shape
+        cents, rows, cycles = ivf.ivf_init_probe(x, first, nlist)
+        torch.cuda.synchronize()
+        compare(torch, "ivf_init (probe)", (cents,),
+                (ivf.ivf_init(x, first, nlist),))
+        computed = int(rows.sum())
+        floor_ms = 1e3 * (nlist - 1) * n * d * 4 / HBM_BYTES_PER_S
+        stat = {"shape": ivf_shape("ivf_init", args),
+                "rows_computed": computed,
+                "full_scan_equivalents": computed / n,
+                "rows_read_bytes": computed * d * 4,
+                "full_scan_floor_ms": floor_ms}
+        if args is largest[0] and not split_done:
+            split_done = True
+            cyc = cycles.double().mean(dim=0).tolist()
+            total = sum(cyc) or 1.0
+            stat["split"] = {"scan": cyc[0] / total, "centroid_dists":
+                             cyc[1] / total, "barriers_argmax":
+                             cyc[2] / total}
+            g = torch.Generator(device=x.device).manual_seed(SEED + 13)
+            iso = torch.randn(n, d, generator=g, device=x.device)
+            stat["isotropic_ms"] = time_call(
+                torch, lambda: ivf.ivf_init(iso, first, nlist), 3)
+            _c, iso_rows, _cy = ivf.ivf_init_probe(iso, first, nlist)
+            stat["isotropic_full_scan_equivalents"] = \
+                float(iso_rows.sum()) / n
+            del iso
+            log(f"kernel ivf_init at {stat['shape']}: {ms:.4f} ms; "
+                f"{computed} row distances computed, "
+                f"{computed / n:.1f} full-scan equivalents of {nlist - 1} "
+                f"steps ({computed * d * 4} bytes of rows read; a full scan "
+                f"a step re-reads {(nlist - 1) * n * d * 4} bytes, "
+                f"{floor_ms:.4f} ms at 3.35 TB/s); SM cycles: scan "
+                f"{stat['split']['scan']:.3f}, centroid distances "
+                f"{stat['split']['centroid_dists']:.3f}, barriers and "
+                f"argmax {stat['split']['barriers_argmax']:.3f}; isotropic "
+                f"sample of the same shape {stat['isotropic_ms']:.4f} ms, "
+                f"{stat['isotropic_full_scan_equivalents']:.1f} full-scan "
+                f"equivalents")
+        else:
+            log(f"kernel ivf_init at {stat['shape']}: {computed} row "
+                f"distances computed, {computed / n:.1f} full-scan "
+                f"equivalents of {nlist - 1} steps")
+        out["calls"].append(stat)
+    return {"init_pruning": out}
+
+
+def search_extra(torch, ivf, args, kwargs, shape: str) -> dict:
+    """K14's host and card time a call at its largest main-path call, and
+    a wide call (k above the partials' cap) on the same index: bitwise its
+    plain version, timed."""
+    fn = lambda: ivf.ivf_search(*args, **kwargs)  # noqa: E731
+    dev_ms, by = device_split(torch, fn, 5)
+    split = {"host_us": host_us(torch, fn), "device_ms": dev_ms,
+             "kernels": {k: v[0] for k, v in by.items()}}
+    log(f"kernel ivf_search at {shape}: {split['host_us']:.2f} us a call "
+        f"on the host, {dev_ms:.4f} ms on the card ({split_text(by, 5)})")
+    wide = list(args)
+    lists = args[4]
+    wide[8] = min(4 * ivf.SEARCH_KCAP, args[9] * lists.shape[1])
+    got = ivf.ivf_search(*wide, **kwargs)
+    torch.cuda.synchronize()
+    compare(torch, "ivf_search wide", got,
+            ivf.ivf_search_plain(*wide, **kwargs))
+    wide_ms = time_call(torch, lambda: ivf.ivf_search(*wide, **kwargs), 5)
+    log(f"kernel ivf_search wide (k {wide[8]} above the partials' cap "
+        f"{ivf.SEARCH_KCAP}) at the same index and queries: bitwise equal "
+        f"to its plain version; {wide_ms:.4f} ms")
+    return {"host_device": split, "wide_k": wide[8], "wide_ms": wide_ms}
 
 
 def screen_check(torch, ivf, args, want) -> float:
@@ -3641,7 +3808,6 @@ def phase_sparse_full(torch, np, dev, n_docs: int, workers: int, n_q: int):
     model._cache.clear()
     ctxs = _build_ctxs(reader, mappers, sum(s.n_docs for s in segs), None,
                        device=dev)
-    DEVICE_PROFILE.timing = on_card
     legs, results, kern, launched = {}, {}, {}, {}
 
     def run_leg(name, fn, reps: int = 1):
@@ -3707,7 +3873,6 @@ def phase_sparse_full(torch, np, dev, n_docs: int, workers: int, n_q: int):
                                                   dense)
     finally:
         PLANES.enabled, PLANES.quantized = True, True
-        DEVICE_PROFILE.timing = False
     log(f"sparse-full: solo leg: the tier served {served} of {n_q} "
         f"queries, {fallbacks} exact fallbacks")
     check(model.expand_batch(texts) == tokens,
@@ -4591,7 +4756,6 @@ def phase_aggs_full(torch, np, dev, n_docs: int, workers: int,
     from elasticsearch_tpu_torch.search.aggregations import (
         ShardAggregator, parse_aggs, reduce_aggs,
     )
-    from elasticsearch_tpu_torch.search.device_profile import DEVICE_PROFILE
     from elasticsearch_tpu_torch.search.phase import query_shard
     from elasticsearch_tpu_torch.search.plane_aggs import plan_drain_aggs
     t0 = time.monotonic()
@@ -4609,17 +4773,13 @@ def phase_aggs_full(torch, np, dev, n_docs: int, workers: int,
         else (lambda: None)
     svc.search(json.loads(json.dumps(bodies[0])))        # untimed warm-up
     sync()
-    DEVICE_PROFILE.timing = dev.type == "cuda"
     ms0 = device_ms(AGGS_FAMILIES)
     times, solo = [], []
-    try:
-        for body in bodies:
-            t = time.monotonic()
-            solo.append(svc.search(json.loads(json.dumps(body))))
-            sync()
-            times.append(time.monotonic() - t)
-    finally:
-        DEVICE_PROFILE.timing = False
+    for body in bodies:
+        t = time.monotonic()
+        solo.append(svc.search(json.loads(json.dumps(body))))
+        sync()
+        times.append(time.monotonic() - t)
     ms1 = device_ms(AGGS_FAMILIES)
     kern = {f: round(ms1[f] - ms0[f], 4) for f in AGGS_FAMILIES}
     busy = sum(kern.values()) / max(1e3 * sum(times), 1e-9)
@@ -4644,15 +4804,11 @@ def phase_aggs_full(torch, np, dev, n_docs: int, workers: int,
     shard = SimpleNamespace(engine=engine)
     plan_drain_aggs(shard, reader, members[:2], device=dev)   # builds plane
     sync()
-    DEVICE_PROFILE.timing = dev.type == "cuda"
     ms0 = device_ms(AGGS_FAMILIES)
-    try:
-        t = time.monotonic()
-        preset = plan_drain_aggs(shard, reader, members, device=dev)
-        sync()
-        t_plan = time.monotonic() - t
-    finally:
-        DEVICE_PROFILE.timing = False
+    t = time.monotonic()
+    preset = plan_drain_aggs(shard, reader, members, device=dev)
+    sync()
+    t_plan = time.monotonic() - t
     ms1 = device_ms(AGGS_FAMILIES)
     kern = {f: round(ms1[f] - ms0[f], 4) for f in AGGS_FAMILIES}
     check(set(preset) == set(range(len(members))),
@@ -6068,7 +6224,6 @@ def phase_mesh_full(torch, np, dev, n_docs: int, workers: int,
     stats0 = dict(executor.stats)
     mstats0 = dict(MESH_PLANES.stats)
     fb0 = dict(telemetry.TELEMETRY.fallbacks)
-    DEVICE_PROFILE.timing = dev.type == "cuda"
     dev0 = device_ms(MESH_FAMILIES)
     legs, answers = {}, {}
     for leg, quantized in (("solo_tier_on", True), ("solo_tier_off", False)):
@@ -6094,7 +6249,6 @@ def phase_mesh_full(torch, np, dev, n_docs: int, workers: int,
         check(b[0][0] == 200, f"mesh-full: wave request: {b[0][0]}")
     if dev.type == "cuda":
         torch.cuda.synchronize()
-    DEVICE_PROFILE.timing = False
     kern = {f: round(v - dev0[f], 3)
             for f, v in device_ms(MESH_FAMILIES).items()}
     after = {f: getattr(DEVICE_PROFILE.family(f), what)
@@ -6745,7 +6899,6 @@ def phase_mesh_knn_full(torch, np, dev, n_docs: int, n_q: int,
     before = {f: getattr(DEVICE_PROFILE.family(f), what) for f in fams}
     stats0, mstats0 = dict(executor.stats), dict(MESH_PLANES.stats)
     fb0 = dict(telemetry.TELEMETRY.fallbacks)
-    DEVICE_PROFILE.timing = dev.type == "cuda"
     dev0 = device_ms(MESH_KNN_FAMILIES)
     legs, answers, walls = {}, {}, {}
 
@@ -6784,7 +6937,6 @@ def phase_mesh_knn_full(torch, np, dev, n_docs: int, n_q: int,
     wave("filtered_wave", filtered)
     if dev.type == "cuda":
         torch.cuda.synchronize()
-    DEVICE_PROFILE.timing = False
     kern = {f: round(v - dev0[f], 3)
             for f, v in device_ms(MESH_KNN_FAMILIES).items()}
     after = {f: getattr(DEVICE_PROFILE.family(f), what) for f in fams}
@@ -7291,7 +7443,6 @@ def phase_mesh_sparse_full(torch, np, dev, n_docs: int, workers: int,
     stats0 = dict(executor.stats)
     mstats0 = dict(MESH_PLANES.stats)
     fb0 = dict(telemetry.TELEMETRY.fallbacks)
-    DEVICE_PROFILE.timing = on_card
     dev0 = device_ms(MESH_SPARSE_FAMILIES)
     legs, answers = {}, {}
     for leg, quantized, leg_bodies in (
@@ -7319,7 +7470,6 @@ def phase_mesh_sparse_full(torch, np, dev, n_docs: int, workers: int,
     answers["wave"] = [b[0][1] for b in boxes]
     if on_card:
         torch.cuda.synchronize()
-    DEVICE_PROFILE.timing = False
     kern = {f: v - dev0[f]
             for f, v in device_ms(MESH_SPARSE_FAMILIES).items()}
     after = {f: getattr(DEVICE_PROFILE.family(f), what) for f in watched}
@@ -7995,11 +8145,9 @@ def phase_sharded_full(torch, np, dev, kept, n_slots: int, shared) -> None:
     distance); text_expansion against mesh-sparse-full's exact answers
     (ids outside near-ties, scores to rtol 1e-6). Keeps the sharded text
     index in ``shared`` for the kernels."""
-    from elasticsearch_tpu_torch.search.device_profile import DEVICE_PROFILE
     cluster, node = sharded_node(dev, n_slots)
     svc = node.node().indices_service
     plane = node.node().mesh_plane
-    DEVICE_PROFILE.timing = dev.type == "cuda"
     dev0 = device_ms(SHARDED_SERVED)
     text, sparse, knn = kept.get("text"), kept.get("sparse"), kept.get("knn")
     installs = []
@@ -8119,7 +8267,6 @@ def phase_sharded_full(torch, np, dev, kept, n_slots: int, shared) -> None:
             torch.cuda.empty_cache()
     if dev.type == "cuda":
         torch.cuda.synchronize()
-    DEVICE_PROFILE.timing = False
     kern = {f: round(v - dev0[f], 3)
             for f, v in device_ms(SHARDED_SERVED).items()}
     log(f"sharded-full: kernel device ms over the legs {kern}; data plane "
@@ -8436,6 +8583,16 @@ def main(argv=None) -> int:
             log(t(), "sharded-small done")
         from elasticsearch_tpu_torch.ops import bm25 as bm
         from elasticsearch_tpu_torch.ops import ivf, knn, topk
+        from elasticsearch_tpu_torch.search.device_profile import (
+            KERNEL_FAMILIES, MASKED_VARIANTS,
+        )
+        every_family = KERNEL_FAMILIES + MASKED_VARIANTS
+        # from here every main-path launch is timed (kernels phases not)
+        run_ms0 = {f: DEVICE_PROFILE.family(f).resolve_events()
+                   for f in every_family}
+        run_n0 = {f: DEVICE_PROFILE.family(f).event_count
+                  for f in every_family}
+        DEVICE_PROFILE.timing = on_card
         rows = []
         shared = {}
         engines = {}
@@ -8465,7 +8622,7 @@ def main(argv=None) -> int:
                 check(launches.get(fam, 0) > 0,
                       f"{fam} was never launched on the main path")
             if "kernels" in phases:
-                rows += phase_kernels(torch, rec, launches)
+                rows += untimed(phase_kernels, torch, rec, launches)
                 log(t(), "kernels done")
         del rec
         from elasticsearch_tpu_torch.ops.device_segment import PLANES
@@ -8489,7 +8646,7 @@ def main(argv=None) -> int:
                 check(launches.get(fam, 0) > 0,
                       f"{fam} was never launched on the main path")
             if "kernels" in phases:
-                rows += phase_knn_kernels(torch, krec, launches)
+                rows += untimed(phase_knn_kernels, torch, krec, launches)
                 log(t(), "knn kernels done")
         del krec
         PLANES.clear()
@@ -8514,7 +8671,7 @@ def main(argv=None) -> int:
                 check(launches.get(fam, 0) > 0,
                       f"{fam} was never launched on the main path")
             if "kernels" in phases:
-                rows += phase_dense_kernels(torch, drec, launches)
+                rows += untimed(phase_dense_kernels, torch, drec, launches)
                 log(t(), "dense kernels done")
         del drec
         PLANES.clear()
@@ -8536,7 +8693,7 @@ def main(argv=None) -> int:
                 check(launches.get(fam, 0) > 0,
                       f"{fam} was never launched on the wide path")
             if "kernels" in phases:
-                rows += phase_wide_kernels(torch, wrec, launches)
+                rows += untimed(phase_wide_kernels, torch, wrec, launches)
                 log(t(), "wide kernels done")
         del wrec
         PLANES.clear()
@@ -8565,7 +8722,7 @@ def main(argv=None) -> int:
                 check(launches.get(fam, 0) > 0,
                       f"{fam} was never launched on the main path")
             if "kernels" in phases:
-                rows += phase_ivf_kernels(torch, irec, launches)
+                rows += untimed(phase_ivf_kernels, torch, irec, launches)
                 log(t(), "ivf kernels done")
         del irec
         PLANES.clear()
@@ -8607,7 +8764,7 @@ def main(argv=None) -> int:
                 check(launches.get(fam, 0) > 0,
                       f"{fam} was never launched on the main path")
             if "kernels" in phases:
-                rows += phase_sparse_kernels(torch, np, srec, launches, dev)
+                rows += untimed(phase_sparse_kernels, torch, np, srec, launches, dev)
                 log(t(), "sparse kernels done")
         del srec
         PLANES.clear()
@@ -8635,7 +8792,7 @@ def main(argv=None) -> int:
                 check(launches.get(fam, 0) > 0,
                       f"{fam} was never launched on the main path")
             if "kernels" in phases:
-                rows += phase_aggs_kernels(torch, arec, launches)
+                rows += untimed(phase_aggs_kernels, torch, arec, launches)
                 log(t(), "aggs kernels done")
         del arec
         PLANES.clear()
@@ -8662,7 +8819,7 @@ def main(argv=None) -> int:
             check(launches.get("rrf_fuse_batch", 0) > 0,
                   "rrf_fuse_batch was never launched on the main path")
             if "kernels" in phases:
-                rows += phase_fusion_kernels(torch, np, hrec, launches)
+                rows += untimed(phase_fusion_kernels, torch, np, hrec, launches)
                 log(t(), "fusion kernels done")
         del hrec
         PLANES.clear()
@@ -8695,7 +8852,7 @@ def main(argv=None) -> int:
                 check(launches.get(fam, 0) > 0,
                       f"{fam} was never launched on the main path")
             if "kernels" in phases:
-                rows += phase_mesh_kernels(torch, mrec, launches)
+                rows += untimed(phase_mesh_kernels, torch, mrec, launches)
                 log(t(), "mesh kernels done")
         del mrec
         MESH_PLANES.clear()
@@ -8727,7 +8884,7 @@ def main(argv=None) -> int:
                 check(launches.get(fam, 0) > 0,
                       f"{fam} was never launched on the main path")
             if "kernels" in phases:
-                rows += phase_mesh_knn_kernels(torch, krec, launches,
+                rows += untimed(phase_mesh_knn_kernels, torch, krec, launches,
                                                per_launch)
                 log(t(), "mesh knn kernels done")
         del krec
@@ -8757,7 +8914,7 @@ def main(argv=None) -> int:
                 check(launches.get(fam, 0) > 0,
                       f"{fam} was never launched on the main path")
             if "kernels" in phases:
-                rows += phase_mesh_sparse_kernels(torch, sprec, launches,
+                rows += untimed(phase_mesh_sparse_kernels, torch, sprec, launches,
                                                   per_launch)
                 log(t(), "mesh sparse kernels done")
         del sprec
@@ -8791,18 +8948,27 @@ def main(argv=None) -> int:
                 check(launches.get(fam, 0) > 0,
                       f"{fam} was never launched on the main path")
             if "kernels" in phases:
-                rows += phase_sharded_kernels(torch, np, shrec, launches,
+                rows += untimed(phase_sharded_kernels, torch, np, shrec, launches,
                                               shared, dev)
                 log(t(), "sharded kernels done")
         del shrec
         shared.clear()
+        DEVICE_PROFILE.timing = False
+        run_ms = {f: DEVICE_PROFILE.family(f).resolve_events() - run_ms0[f]
+                  for f in every_family}
+        run_n = {f: DEVICE_PROFILE.family(f).event_count - run_n0[f]
+                 for f in every_family}
+        log("main-path device ms by family over the whole run (CUDA events "
+            "around every main-path launch; kernels phases excluded): " +
+            json.dumps({f: [round(run_ms[f], 4), run_n[f]]
+                        for f in every_family if run_n[f]}))
+        for row in rows:
+            row["main_path_device_ms"] = run_ms.get(row["name"])
+            row["main_path_timed_launches"] = run_n.get(row["name"])
         if on_card and {"full", "knn-full", "dense-full", "ivf-full",
                         "sparse-full", "wide", "aggs-full", "hybrid-full",
                         "mesh-full", "mesh-knn-full", "mesh-sparse-full",
                         "sharded-full", "kernels"} <= phases:
-            from elasticsearch_tpu_torch.search.device_profile import (
-                KERNEL_FAMILIES, MASKED_VARIANTS,
-            )
             check({r["name"] for r in rows} ==
                   set(KERNEL_FAMILIES) | set(MASKED_VARIANTS),
                   "kernels: the line does not list every kernel family")

@@ -4,9 +4,10 @@
 // (elasticsearch_tpu/search/phase.py:806 `_topk`), run once per segment
 // of every dense request: scores [n_docs_pad] f32 with -inf at the docs
 // that do not match -> (s [k] f32, d [k] int32) in lax.top_k's order:
-// score descending, then index ascending, -inf slots included, for any
-// 1 <= k <= n. Ties matter here: match_all and constant_score give every
-// match the same score, so their hits are decided by this order alone.
+// score descending (+0.0 above -0.0), then index ascending, -inf slots
+// included, for any 1 <= k <= n. Ties matter here: match_all and
+// constant_score give every match the same score, so their hits are
+// decided by this order alone.
 //
 // What bounds it on the H100: memory, and at small rows launch latency.
 // It must read the row once (1 MB at 262,144 docs: 0.0003 ms at
@@ -16,7 +17,8 @@
 // per entry (score, then index), which spreads every pass over the whole
 // card, stops once the survivors fit one CTA's sort, and sorts the
 // survivors once. The plain PyTorch version is
-// elasticsearch_tpu_torch/ops/topk.py `dense_topk_plain` (a stable sort).
+// elasticsearch_tpu_torch/ops/topk.py `dense_topk_plain` (a stable sort
+// of the scores' ordered bits).
 #include "radix_select.cuh"
 
 // sizes[0]: bytes of the State; sizes[1]: entries of the first key

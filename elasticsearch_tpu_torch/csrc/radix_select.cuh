@@ -2,11 +2,11 @@
 // lax.top_k's order (score descending, then index ascending, -inf slots
 // included), for any 1 <= k <= n.
 //
-// 1. One 64-bit key per entry. The high 32 bits are the score mapped so
-//    that unsigned order is score order (-0.0 keyed as +0.0, because the
-//    stable sort of the plain version ties them; every NaN keyed as the
-//    one positive quiet NaN, above +inf, where torch.sort puts NaN); the
-//    low 32 bits are n - 1 - index, so a lower index is a larger key.
+// 1. One 64-bit key per entry. The high 32 bits are the score's bits
+//    mapped so that unsigned order is lax.top_k's total order (-0.0 just
+//    below +0.0; every NaN keyed as the one positive quiet NaN, above
+//    +inf, where torch.sort puts NaN); the low 32 bits are n - 1 - index,
+//    so a lower index is a larger key.
 //    Every key is distinct, so ties vanish from the selection: the k best
 //    entries are the k largest keys, and their order is key order.
 // 2. One cooperative launch of about one CTA per SM (every CTA resident,
@@ -79,8 +79,7 @@ struct Plan {
 };
 
 __device__ __forceinline__ unsigned score_bits(float s) {
-    unsigned u = __float_as_uint(s);
-    if (s == 0.f) u = 0u;               // -0.0 ties +0.0
+    unsigned u = __float_as_uint(s);    // -0.0 keys just below +0.0
     if (s != s) u = 0x7fc00000u;        // every NaN above +inf
     return (u & 0x80000000u) ? ~u : (u | 0x80000000u);
 }

@@ -272,7 +272,7 @@ _SIG = {
     "bm25_scores": ["p"] * 8 + ["i", "ll"] + ["f"] * 4 + ["p"] * 3,
 }
 _CTYPES = {"p": ctypes.c_void_p, "i": ctypes.c_int, "ll": ctypes.c_longlong,
-           "f": ctypes.c_float}
+           "f": ctypes.c_float, "d": ctypes.c_double}
 _FNS: dict = {}
 
 

@@ -20,9 +20,15 @@ beside it:
 - ``ivf_update`` (K12, ``_update``): per-cluster means, summed in
   ascending row order (no float atomics);
 - ``ivf_init`` (K13, ``_farthest_point_init``): the farthest-point seeding
-  loop, one wrapper call for all nlist - 1 steps;
-- ``ivf_search`` (K14, ``_ivf_search``): the probe, scanning the probed
-  lists in place.
+  loop, one cooperative launch for all nlist - 1 steps, which skips the
+  rows a proven test shows the new centroid cannot bring nearer
+  (``init_skip`` and ``ivf_init_pruned_plain`` below are that test and
+  that seeding in plain PyTorch);
+- ``ivf_search`` (K14, ``_ivf_search``): the probe, reading each probed
+  list once a launch (and the centroids once for up to 64 queries), with
+  the top-k kept per
+  (query, probe) and merged per query (``ivf_search_grouped_plain`` below
+  is that order in plain PyTorch).
 
 A wrapper launches its kernel for CUDA tensors and runs the plain version
 for CPU tensors; there is no fallback between the two. Every sum that
@@ -43,6 +49,7 @@ the same lists from the same assignment.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Optional, Tuple
 
 import numpy as np
@@ -50,8 +57,7 @@ import torch
 
 from elasticsearch_tpu_torch.device import DeviceLike, resolve_device
 from elasticsearch_tpu_torch.ops.bm25 import (
-    _check, _on_cuda, _ptr, _stream, chunk_entries, launch_kernel,
-    stable_topk,
+    _check, _on_cuda, _ptr, _stream, launch_kernel, stable_topk,
 )
 from elasticsearch_tpu_torch.ops.knn import (
     KMAX, MAX_DIMS, QueryBatch, _bf16, _flat_dots, _sim_code, _similarity,
@@ -61,23 +67,26 @@ from elasticsearch_tpu_torch.search.device_profile import DEVICE_PROFILE
 # rows per assignment launch: the [chunk, nlist] distance plane of the JAX
 # program at a GIST1M-class build (nlist 4,096) is 2 GB at 128K rows
 ASSIGN_CHUNK = 1 << 17
-# csrc/ivf_update.cu ROWS_PER_CHUNK (the counting sort's chunk) and
-# csrc/ivf_init.cu WARPS (rows per step CTA)
+# csrc/ivf_update.cu ROWS_PER_CHUNK (the counting sort's chunk)
 UPDATE_CHUNK = 4096
-INIT_ROWS_PER_CTA = 8
 # csrc/ivf_assign.cu: BK (dims a stage of the tensor-core screen; the
 # padded width enters its bound) and CAND (centroids it lists a row)
 SCREEN_BK = 64
 SCREEN_CAND = 32
+# csrc/ivf_search.cu KCAP: the most entries a (query, probe) partial keeps;
+# a wider k takes the wide path
+SEARCH_KCAP = 256
 _U = 2.0 ** -24
 _SCREEN_ABS = 2.0 ** -100
+# K13's absolute slack: the underflow of D squares (each <= 2^-150)
+_INIT_ABS = 2.0 ** -100
 _SCRATCH = []
 
 _SIG = {
     "ivf_assign": ["p", "p", "i", "i", "i"] + ["p"] * 11,
     "ivf_update": ["p", "p", "p", "ll", "i", "i"] + ["p"] * 6,
-    "ivf_init": ["p", "ll", "i", "ll", "i"] + ["p"] * 5,
-    "ivf_search": ["p"] * 8 + ["i"] * 7 + ["p"] * 14,
+    "ivf_init": ["p", "ll", "i", "ll", "i", "d", "d"] + ["p"] * 10,
+    "ivf_search": ["p"] * 8 + ["i"] * 7 + ["p"] * 4,
 }
 
 
@@ -223,6 +232,76 @@ def ivf_init_plain(x: torch.Tensor, first: int, nlist: int
     return cents
 
 
+def init_margin(dims: int) -> Tuple[float, float]:
+    """K13's skip test constants (csrc/ivf_init.cu's derivation): (F, lo)
+    with F >= 4 / (1 - 2^-24)^K, K = ceil(D / 32) + 8 roundings of the
+    plain f32 distance, padded by 2^-30 for the test's own f64 rounding,
+    and lo <= 1 / (1 + 2^-53)^(D + 1), the f64 centroid distance's
+    relative error."""
+    k = -(-dims // 32) + 8
+    return (4.0 / (1.0 - _U) ** k * (1.0 + 2.0 ** -30),
+            1.0 - (dims + 4) * 2.0 ** -52)
+
+
+def init_skip(cd: torch.Tensor, d2: torch.Tensor, dims: int
+              ) -> torch.Tensor:
+    """bool: K13 skips a row -- its plain f32 distance to the new centroid
+    c_i cannot fall below its d2 -- when d2 is 0, or when the squared
+    distance cd (f64) between c_i and the centroid that set d2 is more
+    than 4 (d2 + 2^-100) times the f32 sum's error factor: the triangle
+    inequality then puts the row at least as far from c_i as from its
+    own centroid."""
+    f, lo = init_margin(dims)
+    d2 = d2.double()
+    return (d2 == 0) | (cd.double() * lo > f * (d2 + _INIT_ABS))
+
+
+def centroid_dists(cents: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """[m] f64: |cents[j] - c|^2 summed in f64 (any order: the bound of
+    ``init_margin`` holds for every order)."""
+    diff = cents.double() - c.double()[None, :]
+    return (diff * diff).sum(dim=1)
+
+
+def ivf_init_pruned_plain(x: torch.Tensor, first: int, nlist: int
+                          ) -> Tuple[torch.Tensor, list]:
+    """K13's pruned seeding in plain PyTorch: ``ivf_init_plain``'s answer
+    (bitwise, when ``init_skip`` is conservative) and the rows whose
+    distance each step computed (the first step computes all of them).
+    Each row keeps the index of a centroid whose distance equals its d2
+    (its owner); a step skips the rows ``init_skip`` clears against the
+    new centroid's distance to their owner -- the first step, every 16th,
+    and every step after one that computed under 15/16 of the rows, as
+    the kernel decides; the others compute every row. For the tests and
+    measurements; the main path calls the kernel."""
+    n, d = x.shape
+    m = -(-d // 32)
+    xp = torch.zeros(n, m * 32, dtype=torch.float32, device=x.device)
+    xp[:, :d] = x
+    xp = xp.reshape(n, m, 32)
+    cents = torch.zeros(nlist, d, dtype=torch.float32, device=x.device)
+    cents[0] = x[first]
+    d2 = _lane_dist(xp, xp[first].reshape(-1))
+    owner = torch.zeros(n, dtype=torch.int64, device=x.device)
+    computed = [n]
+    for i in range(1, nlist):
+        idx = int(torch.argmax(d2))
+        cents[i] = x[idx]
+        if i + 1 == nlist:
+            break
+        if i == 1 or i % 16 == 0 or 16 * computed[-1] < 15 * n:
+            cd = centroid_dists(cents[:i], x[idx])
+            rows = torch.nonzero(~init_skip(cd[owner], d2, d)).flatten()
+        else:
+            rows = torch.arange(n, device=x.device)
+        t = _lane_dist(xp[rows], xp[idx].reshape(-1))
+        lower = t < d2[rows]
+        d2[rows] = torch.minimum(d2[rows], t)
+        owner[rows[lower]] = i
+        computed.append(int(rows.numel()))
+    return cents, computed
+
+
 def ivf_search_plain(queries, qn, q2, centroids, lists, valid, ids, norms,
                      k: int, nprobe: int, similarity: str):
     n_q, dims = queries.shape
@@ -257,6 +336,53 @@ def ivf_search_plain(queries, qn, q2, centroids, lists, valid, ids, norms,
     top_i = torch.where(fin, top_i, torch.full_like(top_i, -1))
     top_s = torch.where(fin, top_s, torch.zeros_like(top_s))
     return top_s, top_i
+
+
+def ivf_search_grouped_plain(queries, qn, q2, centroids, lists, valid, ids,
+                             norms, k: int, nprobe: int, similarity: str,
+                             splits: int = 1):
+    """K14's list-grouped order in plain PyTorch: each (query, probe) scans
+    its list in ``splits`` row ranges (the card's are its 128-row blocks,
+    ceil(L / 128) of them) and keeps the best min(k, rows) slots of each
+    range under (score desc, list position asc); a query's merge
+    takes the top-k of those partials under (score desc, probe rank, list
+    position) -- the flattened [nprobe, L] order of ``ivf_search_plain``,
+    whose answer it must give. For the tests; the card runs the kernel."""
+    n_q, dims = queries.shape
+    list_len = lists.shape[1]
+    cscores = _flat_dots(centroids, queries)
+    if similarity == "l2_norm":
+        cscores = 2.0 * cscores - _col_sum_sq(centroids)[None, :]
+    _, probes = stable_topk(cscores, nprobe)
+    pl = probes.long()
+    qb = _bf16(queries)
+    rows = -(-list_len // splits)
+    part_s, part_f = [], []
+    for p in range(nprobe):
+        block = _bf16(lists[pl[:, p]])                   # [Q, L, D]
+        dots = torch.zeros(n_q, list_len, dtype=torch.float32,
+                           device=queries.device)
+        for d in range(dims):
+            dots = dots + qb[:, d:d + 1] * block[:, :, d]
+        sc = _similarity(dots, norms[pl[:, p]], qn, q2, similarity)
+        sc = torch.where(valid[pl[:, p]], sc,
+                         torch.full((), -torch.inf, device=sc.device))
+        for r0 in range(0, list_len, rows):
+            seg = sc[:, r0: r0 + rows]
+            s, pos = stable_topk(seg, min(k, seg.shape[1]))
+            part_s.append(s)
+            part_f.append(p * list_len + r0 + pos.long())
+    cand_s, cand_f = torch.cat(part_s, 1), torch.cat(part_f, 1)
+    order = torch.argsort(cand_f, dim=1, stable=True)
+    cand_s = torch.gather(cand_s, 1, order)
+    cand_f = torch.gather(cand_f, 1, order)
+    top_s, j = stable_topk(cand_s, k)
+    flat = torch.gather(cand_f, 1, j.long())
+    lst = torch.gather(pl, 1, flat // list_len)
+    top_i = ids[lst, flat % list_len]
+    fin = torch.isfinite(top_s)
+    return (torch.where(fin, top_s, torch.zeros_like(top_s)),
+            torch.where(fin, top_i, torch.full_like(top_i, -1)))
 
 
 # ---------------------------------------------------------------------------
@@ -387,22 +513,81 @@ def ivf_init(x: torch.Tensor, first: int, nlist: int) -> torch.Tensor:
                              f"n={n}/nlist={nlist}/dims={dims}", cuda):
         if not cuda:
             return ivf_init_plain(x, first, nlist)
-        dev = x.device
-        n_parts = -(-n // INIT_ROWS_PER_CTA)
-        d2 = torch.empty(n, dtype=torch.float32, device=dev)
-        part_v = torch.empty(n_parts, dtype=torch.float32, device=dev)
-        part_i = torch.empty(n_parts, dtype=torch.int32, device=dev)
-        cents = torch.empty(nlist, dims, dtype=torch.float32, device=dev)
-        launch_kernel("ivf_init", _SIG["ivf_init"], _ptr(x), n, dims, first,
-                      nlist, _ptr(d2), _ptr(part_v), _ptr(part_i),
-                      _ptr(cents), _stream())
-        return cents
+        return _init_on_card(x, first, nlist)[0]
 
 
-def _chunk_winners(n_rows: int, n_cols: int, k: int, dev):
-    ck = chunk_entries(n_rows, n_cols, k)
-    return (torch.empty(ck, dtype=torch.float32, device=dev),
-            torch.empty(ck, dtype=torch.int32, device=dev))
+def _init_grid(n: int, dims: int) -> int:
+    """csrc/ivf_init.cu ``ivf_init_grid``: the CTAs of a launch (the
+    partials' entries)."""
+    from elasticsearch_tpu_torch._build import KernelError, library
+    fn = library("ivf_init").ivf_init_grid
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p]
+    grid = ctypes.c_int()
+    rc = fn(n, dims, ctypes.byref(grid))
+    if rc != 0:
+        raise KernelError(f"[ivf_init] grid query failed: CUDA error {rc}")
+    return grid.value
+
+
+def _init_on_card(x: torch.Tensor, first: int, nlist: int,
+                  probe: bool = False):
+    """Launch K13 on a CUDA tensor: (cents [nlist, D] f32, the rows each
+    step computed [nlist] int64, SM cycles per CTA [grid, 3] int64 --
+    scanning, the centroid distances, the barriers and argmax -- or
+    None). One workspace holds d2, the owners, cd, the double-buffered
+    partials, the barrier and the step counts."""
+    n, dims = x.shape
+    grid = _init_grid(n, dims)
+    f, lo = init_margin(dims)
+    # 8-byte words: cd [nlist] f64, d2 + owner [n] f32/int32, the
+    # partials [2, grid] f32 + int32, the barrier, the step counts [nlist]
+    ws = torch.empty(2 * nlist + n + 2 * grid + 1, dtype=torch.int64,
+                     device=x.device)
+    base = _ptr(ws)
+    cd, d2 = base, base + 8 * nlist
+    owner = d2 + 4 * n
+    part_v = base + 8 * (nlist + n)
+    part_i = part_v + 8 * grid
+    bar = base + 8 * (nlist + n + 2 * grid)
+    rows = ws[nlist + n + 2 * grid + 1:]
+    cents = torch.empty(nlist, dims, dtype=torch.float32, device=x.device)
+    cycles = torch.zeros(grid, 3, dtype=torch.int64, device=x.device) \
+        if probe else None
+    launch_kernel("ivf_init", _SIG["ivf_init"], _ptr(x), n, dims, first,
+                  nlist, f, lo, d2, owner, cd, part_v, part_i, bar,
+                  _ptr(cents), _ptr(rows),
+                  None if cycles is None else _ptr(cycles), _stream())
+    return cents, rows, cycles
+
+
+def ivf_init_probe(x: torch.Tensor, first: int, nlist: int):
+    """K13 on a CUDA tensor with what its pruning did, for measuring it:
+    (cents as ``ivf_init`` returns them; the rows whose distance each
+    step computed [nlist] int64, the first step all n; per CTA the SM
+    cycles spent scanning, on the centroid distances, and at the barriers
+    and the argmax [grid, 3] int64). A measurement, not a main-path call:
+    it is not counted as a launch."""
+    if not _on_cuda(x):
+        raise ValueError("ivf_init_probe measures the card's kernel")
+    n, dims = _check_matrix("x", x)
+    if not 0 <= int(first) < n or nlist < 1:
+        raise ValueError("ivf_init_probe takes ivf_init's inputs")
+    return _init_on_card(x, int(first), nlist, probe=True)
+
+
+@functools.lru_cache(maxsize=1024)
+def _search_workspace(n_q: int, dims: int, nlist: int, list_len: int,
+                      nprobe: int, k: int) -> int:
+    """The workspace bytes of a K14 launch, from the kernel's own
+    ``ivf_search_workspace``."""
+    from elasticsearch_tpu_torch._build import library
+    fn = library("ivf_search").ivf_search_workspace
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    nbytes = ctypes.c_longlong()
+    fn(n_q, dims, nlist, list_len, nprobe, k, ctypes.byref(nbytes))
+    return nbytes.value
 
 
 def ivf_search(queries, qn, q2, centroids, lists, valid, ids, norms,
@@ -412,7 +597,8 @@ def ivf_search(queries, qn, q2, centroids, lists, valid, ids, norms,
     probing the ``nprobe`` best of the centroids [nlist, D] and scanning
     those lists [nlist, L, D] in place (``valid``, ``ids``, ``norms``
     [nlist, L]); ids -1 and scores 0 where fewer than k slots are
-    valid."""
+    valid. Above k ``SEARCH_KCAP`` the card takes the wide path (a
+    per-query plane of the probed slots), labelled ``/wide``."""
     cuda = _on_cuda(queries, qn, q2, centroids, lists, valid, ids, norms)
     n_q, dims = _check_matrix("queries", queries)
     nlist, c_dims = _check_matrix("centroids", centroids)
@@ -434,33 +620,23 @@ def ivf_search(queries, qn, q2, centroids, lists, valid, ids, norms,
         raise ValueError(f"k={k} outside [1, {n_cand}]")
     code = _sim_code(similarity)
     label = (f"n_q={n_q}/nlist={nlist}/L={list_len}/dims={dims}/"
-             f"nprobe={nprobe}/k={k}")
+             f"nprobe={nprobe}/k={k}" + ("/wide" if k > SEARCH_KCAP else ""))
     with DEVICE_PROFILE.call("ivf_search", label, cuda):
         if not cuda:
             return ivf_search_plain(queries, qn, q2, centroids, lists,
                                     valid, ids, norms, k, nprobe,
                                     similarity)
         dev = queries.device
-        f32, i32 = torch.float32, torch.int32
-        c2 = torch.empty(nlist, dtype=f32, device=dev)
-        cplane = torch.empty(n_q * nlist, dtype=f32, device=dev)
-        cchunk_s, cchunk_i = _chunk_winners(n_q, nlist, nprobe, dev)
-        probe_s = torch.empty(n_q, nprobe, dtype=f32, device=dev)
-        probes = torch.empty(n_q, nprobe, dtype=i32, device=dev)
-        lplane = torch.empty(n_q * n_cand, dtype=f32, device=dev)
-        lchunk_s, lchunk_i = _chunk_winners(n_q, n_cand, k, dev)
-        top_s = torch.empty(n_q, k, dtype=f32, device=dev)
-        top_pos = torch.empty(n_q, k, dtype=i32, device=dev)
-        out_s = torch.empty(n_q, k, dtype=f32, device=dev)
-        out_i = torch.empty(n_q, k, dtype=i32, device=dev)
+        work = torch.empty(_search_workspace(n_q, dims, nlist, list_len,
+                                             nprobe, k),
+                           dtype=torch.uint8, device=dev)
+        out_s = torch.empty(n_q, k, dtype=torch.float32, device=dev)
+        out_i = torch.empty(n_q, k, dtype=torch.int32, device=dev)
         launch_kernel("ivf_search", _SIG["ivf_search"], _ptr(queries),
                       _ptr(qn), _ptr(q2), _ptr(centroids), _ptr(lists),
                       _ptr(valid), _ptr(ids), _ptr(norms), n_q, dims, nlist,
-                      list_len, nprobe, k, code, _ptr(c2), _ptr(cplane),
-                      _ptr(cchunk_s), _ptr(cchunk_i), _ptr(probe_s),
-                      _ptr(probes), _ptr(lplane), _ptr(lchunk_s),
-                      _ptr(lchunk_i), _ptr(top_s), _ptr(top_pos),
-                      _ptr(out_s), _ptr(out_i), _stream())
+                      list_len, nprobe, k, code, _ptr(work), _ptr(out_s),
+                      _ptr(out_i), _stream())
         return out_s, out_i
 
 

@@ -8,13 +8,15 @@ runs on every segment of every dense request (``search/phase.py``
 ``selection_keys`` below is that key in plain PyTorch, and
 ``dense_topk_by_keys`` the selection it implies.
 
-Order: score descending, then index ascending, -inf slots included --
-the order ``lax.top_k`` returns, which decides the hits of ``match_all``
-and ``constant_score`` (every match scores the same).
+Order: score descending (+0.0 above -0.0, as ``lax.top_k``'s total
+order has it: a ``script_score`` can return either), then index
+ascending, -inf slots included -- the order ``lax.top_k`` returns, which
+decides the hits of ``match_all`` and ``constant_score`` (every match
+scores the same).
 
 The wrapper launches its kernel for a CUDA tensor and runs the plain
-version (a stable sort) for a CPU tensor; there is no fallback between
-the two.
+version (a stable sort of the scores' ordered bits) for a CPU tensor;
+there is no fallback between the two.
 """
 
 from __future__ import annotations
@@ -26,7 +28,7 @@ from typing import Tuple
 import torch
 
 from elasticsearch_tpu_torch.ops.bm25 import (
-    _check, _on_cuda, _ptr, _stream, launch_kernel, stable_topk,
+    _check, _on_cuda, _ptr, _stream, launch_kernel,
 )
 from elasticsearch_tpu_torch.search.device_profile import DEVICE_PROFILE
 
@@ -37,22 +39,27 @@ SORT_CAP = 16384
 _SCRATCH = []
 
 
+def score_words(scores: torch.Tensor) -> torch.Tensor:
+    """int64 [n]: each f32 score's bits mapped so that integer order is
+    ``lax.top_k``'s total order (``csrc/radix_select.cuh``
+    ``score_bits``): -0.0 just below +0.0, every NaN as one NaN above
+    +inf; in [0, 2^32)."""
+    s = scores.float()
+    u = s.view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+    u = torch.where(torch.isnan(s), torch.full_like(u, 0x7FC00000), u)
+    return torch.where((u & 0x80000000) != 0, u ^ 0xFFFFFFFF,
+                       u | 0x80000000)
+
+
 def selection_keys(scores: torch.Tensor) -> torch.Tensor:
     """int64 [n]: K10's 64-bit key of each entry of ``scores`` [n] f32
     (``csrc/radix_select.cuh`` ``make_key``), minus 2^63, so that signed
-    order is the key's unsigned order. The high word is the score's bits
-    mapped to score order (-0.0 as +0.0, every NaN as one NaN above
-    +inf), the low word n - 1 - index: a larger key is a better entry,
-    and no two keys are equal."""
+    order is the key's unsigned order. The high word is
+    ``score_words``, the low word n - 1 - index: a larger key is a
+    better entry, and no two keys are equal."""
     n = scores.shape[0]
-    s = scores.float()
-    u = s.view(torch.int32).to(torch.int64) & 0xFFFFFFFF
-    u = torch.where(s == 0, torch.zeros_like(u), u)
-    u = torch.where(torch.isnan(s), torch.full_like(u, 0x7FC00000), u)
-    word = torch.where((u & 0x80000000) != 0, u ^ 0xFFFFFFFF,
-                       u | 0x80000000)
     low = n - 1 - torch.arange(n, dtype=torch.int64, device=scores.device)
-    return (word - (1 << 31)) * (1 << 32) + low
+    return (score_words(scores) - (1 << 31)) * (1 << 32) + low
 
 
 def dense_topk_by_keys(scores: torch.Tensor, k: int
@@ -66,8 +73,11 @@ def dense_topk_by_keys(scores: torch.Tensor, k: int
 
 def dense_topk_plain(scores: torch.Tensor, k: int
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
-    s, d = stable_topk(scores[None, :], k)
-    return s[0], d[0]
+    """A stable sort of ``score_words``: score descending with +0.0 above
+    -0.0, the lower index first among equal bits."""
+    d = torch.sort(score_words(scores), descending=True, stable=True
+                   ).indices[:k]
+    return scores[d], d.to(torch.int32)
 
 
 @functools.lru_cache(maxsize=1024)

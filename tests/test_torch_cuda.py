@@ -178,12 +178,17 @@ def test_masked_knn_kernels_match_plain_versions_on_the_card(sim):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dims", [16, 100, 960])
+@pytest.mark.parametrize("dims", [16, 30, 100, 960])
 def test_ivf_kernels_match_plain_versions_on_the_card(dims):
     """ivf_assign, ivf_update, ivf_init and ivf_search (three similarities,
     nprobe 1..nlist) bitwise equal to their plain versions, with tied
     rows and centroids, dropped ids and an empty cluster; ivf_assign also
-    at near-ties that overflow its screen's list (counted)."""
+    at near-ties that overflow its screen's list (counted); ivf_init's
+    pruned seeding on duplicate rows, many equal farthest rows, clustered
+    rows (where it computes few distances) and an isotropic sample;
+    ivf_search with many queries sharing their lists and k above the
+    partials' cap (the wide path). D 30 is not a multiple of 4, so the
+    list scan reads its rows one float at a time."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernels have no CPU mode")
     from elasticsearch_tpu_torch.ops import ivf
@@ -214,17 +219,35 @@ def test_ivf_kernels_match_plain_versions_on_the_card(dims):
     assert torch.equal(ivf.ivf_update(x, a, cents),
                        ivf.ivf_update_plain(x, a, cents))
     assert torch.equal(ivf.ivf_init(x, 3, 70), ivf.ivf_init_plain(x, 3, 70))
+    ties = x.clone()
+    ties[100:140] = ties[0]                 # many equal farthest rows
+    ties[200:260] = ties[7]
+    assert torch.equal(ivf.ivf_init(ties, 3, 70),
+                       ivf.ivf_init_plain(ties, 3, 70))
+    means = torch.randn(12, dims, generator=gen)
+    blobs = (means[torch.randint(0, 12, (6000,), generator=gen)] +
+             0.05 * torch.randn(6000, dims, generator=gen)).cuda()
+    want = ivf.ivf_init_plain(blobs, 11, 64)
+    got, rows, _cycles = ivf.ivf_init_probe(blobs, 11, 64)
+    assert torch.equal(got, want)
+    assert torch.equal(ivf.ivf_init(blobs, 11, 64), want)
+    assert int(rows[0]) == 6000 and int(rows.sum()) < 0.3 * 6000 * 64
     for sim in ("cosine", "dot_product", "l2_norm"):
         index = ivf.IVFIndex.build(x.cpu().numpy(), nlist=40, similarity=sim,
                                    device="cuda")
-        batch = knn.QueryBatch(x[:9].cpu().numpy() + 0.1, "cuda")
-        for nprobe in (1, 5, 40):
-            k = min(50, nprobe * index.list_len)
+        near = x[:9].cpu().numpy() + 0.1
+        shared = np.repeat(near[:1], 40, 0) + 0.01 * np.arange(
+            40, dtype=np.float32)[:, None]     # 40 queries, one region
+        for q in (near, shared):
+            batch = knn.QueryBatch(q, "cuda")
             args = (batch.queries, batch.qn, batch.q2, index.centroids,
                     index.lists, index.valid, index.ids, index.norms)
-            for g, w in zip(ivf.ivf_search(*args, k, nprobe, sim),
-                            ivf.ivf_search_plain(*args, k, nprobe, sim)):
-                assert torch.equal(g, w)
+            for nprobe, k in ((1, 50), (5, 50), (40, 50), (3, 26),
+                              (40, ivf.SEARCH_KCAP + 1), (7, 4096)):
+                k = min(k, nprobe * index.list_len)
+                for g, w in zip(ivf.ivf_search(*args, k, nprobe, sim),
+                                ivf.ivf_search_plain(*args, k, nprobe, sim)):
+                    assert torch.equal(g, w)
 
 
 SPARSE_FUNCTIONS = {"saturation": (0.7, 1.0), "log": (1.5, 1.0),

@@ -33,8 +33,10 @@ Tolerances.
   typical error is about 100x smaller).
 - knn_topk: exact on integer vectors; scores to rtol 4e-6 and ids outside
   near-ties on Gaussian ones (as tests/test_torch_knn.py).
-- K10: exact. Both sort the same values; ties (equal scores, -inf
-  included) come back lowest index first in both.
+- K10: exact. Both sort the same values in one total order (+0.0 above
+  -0.0); ties (equal bits, -inf included) come back lowest index first
+  in both. A served ``script_score`` whose scores are +0.0 on some docs
+  and -0.0 on others gives a reference node's hits on a port node.
 """
 
 from types import SimpleNamespace
@@ -273,10 +275,12 @@ KEY_CASES = [(n, k, row) for n in (1000, topk.SORT_CAP + 3,
 @pytest.mark.parametrize("n,k,row", KEY_CASES, ids=map(_ids, KEY_CASES))
 def test_selection_keys_order_as_the_stable_sort_and_lax_top_k(n, k, row):
     """The k largest of K10's 64-bit keys, decoded as the kernel decodes
-    them, are the plain version's (stable sort) top-k bit for bit, -0.0
-    kept as the row holds it; and lax.top_k's on every row but the one
-    that mixes +0.0 and -0.0, where lax.top_k orders +0.0 first (a total
-    order) and the port ties the two by index, as its stable sort does."""
+    them, are the plain version's (a stable sort of the ordered score
+    bits) top-k bit for bit, -0.0 kept as the row holds it; and
+    lax.top_k's on every row, the one that mixes +0.0 and -0.0 included:
+    lax.top_k compares floats in a total order, +0.0 above -0.0, and so
+    do the key and the plain version (a script_score can return
+    either)."""
     x = key_rows(n + k, n)[row]
     t = torch.as_tensor(x)
     ks, kd = topk.dense_topk_by_keys(t, k)
@@ -286,15 +290,9 @@ def test_selection_keys_order_as_the_stable_sort_and_lax_top_k(n, k, row):
     keys = topk.selection_keys(t)
     assert torch.unique(keys).numel() == n
     rs, rd = jax.lax.top_k(jnp.asarray(x), k)
-    rd = np.asarray(rd)
-    if row == "signed_zeros":
-        zero = np.asarray(rs) == 0
-        assert np.array_equal(rd[~zero], kd.numpy()[~zero])
-        assert set(rd[zero]) <= set(np.nonzero(x == 0)[0])
-    else:
-        np.testing.assert_array_equal(kd.numpy(), rd)
-        np.testing.assert_array_equal(ks.numpy().view(np.int32),
-                                      np.asarray(rs).view(np.int32))
+    np.testing.assert_array_equal(kd.numpy(), np.asarray(rd))
+    np.testing.assert_array_equal(ks.numpy().view(np.int32),
+                                  np.asarray(rs).view(np.int32))
 
 
 def test_dense_topk_refuses_bad_inputs():
@@ -327,3 +325,90 @@ def test_dense_wrappers_count_calls_not_launches_on_the_cpu():
     for f, (calls, launches) in before.items():
         assert DEVICE_PROFILE.family(f).calls == calls + 1
         assert DEVICE_PROFILE.family(f).launches == launches
+
+
+def signed_zero_docs(n: int):
+    """``n`` docs whose 2-dim vectors make a cosine of exactly 0, or of
+    either sign, against the query [1, -1]: under ``boost: 0`` their
+    script_score is +0.0 or -0.0."""
+    rng = np.random.default_rng(31)
+    out = []
+    for i in range(n):
+        a, b = (int(v) for v in rng.integers(1, 5, 2))
+        if i % 3 == 0:
+            b = a                                   # cosine exactly 0
+        out.append((str(i), {"vec": [float(a), float(b)]}))
+    return out
+
+
+def test_script_score_signed_zeros_give_the_reference_hits():
+    """A script_score under ``boost: 0`` scores every doc +0.0 or -0.0
+    (the cosine times 0). The dense collector's top-k then decides the
+    hits by the sign of zero: lax.top_k, in a total order, keeps the +0.0
+    docs first, and so must K10's plain version. A reference node and a
+    port node give the same hits, ids and score bits, one segment and two,
+    for windows that cut inside the +0.0 docs and past them."""
+    import json
+
+    from elasticsearch_tpu.rest.controller import RestRequest as RefRequest
+    from elasticsearch_tpu.rest.routes import build_controller as ref_ctl
+    from elasticsearch_tpu.testing import InProcessCluster as RefCluster
+
+    from elasticsearch_tpu_torch.rest.controller import RestRequest
+    from elasticsearch_tpu_torch.rest.routes import build_controller
+    from elasticsearch_tpu_torch.testing import InProcessCluster
+
+    def driver(cluster, ctl, req_cls):
+        def call(method, path, body=None, raw=b""):
+            out = []
+            ctl.dispatch(req_cls(method=method, path=path, query={},
+                                 body=body, raw_body=raw),
+                         lambda st, b: out.append((st, b)))
+            cluster.run_until(lambda: bool(out), 120.0)
+            return out[0]
+        return call
+
+    docs = signed_zero_docs(60)
+    sides = []
+    for cluster_cls, ctl, req_cls, kw in (
+            (RefCluster, ref_ctl, RefRequest, {}),
+            (InProcessCluster, build_controller, RestRequest,
+             {"device": "cpu"})):
+        c = cluster_cls(n_nodes=1, seed=7, **kw)
+        c.start()
+        call = driver(c, ctl(c.client()), req_cls)
+        status, _ = call("PUT", "/z", {"settings": {
+            "number_of_shards": 1, "number_of_replicas": 0},
+            "mappings": {"properties": {"vec": {
+                "type": "dense_vector", "dims": 2, "similarity": "cosine",
+                "index_options": {"type": "flat"}}}}})
+        assert status == 200
+        for half in (docs[:30], docs[30:]):        # two segments
+            lines = []
+            for i, body in half:
+                lines += [json.dumps({"index": {"_index": "z", "_id": i}}),
+                          json.dumps(body)]
+            status, resp = call("POST", "/_bulk",
+                                raw=("\n".join(lines) + "\n").encode())
+            assert status == 200 and not resp["errors"]
+            assert call("POST", "/z/_refresh")[0] == 200
+        sides.append(call)
+    ref, port = sides
+    for size in (5, 15, 60):
+        body = {"size": size, "query": {"script_score": {
+            "query": {"match_all": {}}, "boost": 0.0,
+            "script": {"source": "cosineSimilarity(params.q, 'vec')",
+                       "params": {"q": [1.0, -1.0]}}}}}
+        (st_a, a), (st_b, b) = ref("POST", "/z/_search", body), \
+            port("POST", "/z/_search", body)
+        assert st_a == st_b == 200, (a, b)
+        hits_a, hits_b = a["hits"]["hits"], b["hits"]["hits"]
+        assert [h["_id"] for h in hits_a] == [h["_id"] for h in hits_b]
+        signs = [np.signbit(np.float32(h["_score"])) for h in hits_a]
+        assert signs == [np.signbit(np.float32(h["_score"]))
+                         for h in hits_b]
+        assert all(h["_score"] == 0.0 for h in hits_a)
+        if size < 60:
+            # the window holds only +0.0 docs, though lower ids score -0.0
+            assert not any(signs)
+        assert a["hits"]["total"] == b["hits"]["total"]

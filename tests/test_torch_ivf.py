@@ -262,6 +262,120 @@ def test_farthest_point_init_matches_reference(dims, nlist, first):
     np.testing.assert_array_equal(got, want)
 
 
+def _plain_dist(x: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """ivf_init's plain f32 distance of every row of x to c (lane order)."""
+    n, d = x.shape
+    m = -(-d // 32)
+    xp = torch.zeros(n, m * 32)
+    xp[:, :d] = x
+    cp = torch.zeros(m * 32)
+    cp[:d] = c
+    return port._lane_dist(xp.reshape(n, m, 32), cp)
+
+
+def skip_rows(kind: str, dims: int, seed: int):
+    """(rows [n, D], owner centroid, new centroid) as f32 tensors: every
+    centroid is a copy of a row, as in the seeding. ``midpoint`` puts the
+    rows at the midpoint of the two centroids, moved by a few ulps: the
+    triangle inequality is tight there, so only the test's margin keeps it
+    from skipping a row that the new centroid does bring nearer."""
+    rng = np.random.default_rng(seed)
+    f32 = np.float32
+    if kind == "random":
+        x = rng.standard_normal((600, dims)).astype(f32)
+    elif kind == "duplicates":
+        x = rng.standard_normal((600, dims)).astype(f32)
+        x[1::3] = x[0]
+        x[2::3] = x[5]
+    elif kind == "ulp_chain":
+        base = rng.standard_normal(dims).astype(f32)
+        x = np.repeat(base[None, :], 600, 0)
+        for i in range(1, 600):           # each row one ulp up in one dim
+            x[i] = x[i - 1]
+            j = i % dims
+            x[i, j] = np.nextafter(x[i, j], f32(np.inf))
+    elif kind == "tight_cluster":
+        far = 30 * rng.standard_normal((8, dims)).astype(f32)
+        x = np.concatenate([
+            far[0] + f32(1e-4) * rng.standard_normal((300, dims)).astype(f32),
+            far[rng.integers(1, 8, 300)] +
+            rng.standard_normal((300, dims)).astype(f32)])
+    else:                                  # midpoint
+        p = rng.standard_normal(dims)
+        q = p + (1e-3 if seed % 2 else 1.0) * rng.standard_normal(dims)
+        mid = (p + q) / 2
+        x = (mid[None, :] + (np.abs(mid) + 1e-3)[None, :] * 1e-7 *
+             rng.standard_normal((600, dims))).astype(f32)
+        x[0], x[1] = p.astype(f32), q.astype(f32)
+    return T(x), T(x[0]).clone(), T(x[1]).clone()
+
+
+SKIP_KINDS = ("random", "duplicates", "ulp_chain", "tight_cluster",
+              "midpoint")
+SKIP_CASES = [(kind, dims) for kind in SKIP_KINDS for dims in (16, 100, 960)]
+
+
+@pytest.mark.parametrize("kind,dims", SKIP_CASES,
+                         ids=["-".join(map(str, c)) for c in SKIP_CASES])
+def test_init_skip_never_skips_a_row_that_would_move(kind, dims):
+    """K13's skip test (its mirror ``init_skip``) never clears a row whose
+    plain distance to the new centroid is below its d2 (the distance to
+    the centroid that set it), over several (owner, new) centroid pairs
+    drawn from the rows. On the midpoint rows a margin of zero (skip when
+    cd > 4 d2) does clear such rows, so these inputs test the margin."""
+    skipped = zero_margin_wrong = 0
+    for seed in range(6):
+        x, c_a, c_i = skip_rows(kind, dims, seed)
+        if kind != "midpoint":
+            g = torch.Generator().manual_seed(seed)
+            a, i = torch.randint(0, x.shape[0], (2,), generator=g).tolist()
+            c_a, c_i = x[a].clone(), x[i].clone()
+        d2 = _plain_dist(x, c_a)
+        t = _plain_dist(x, c_i)
+        cd = port.centroid_dists(c_a[None, :], c_i).expand(x.shape[0])
+        skip = port.init_skip(cd, d2, dims)
+        moved = t < d2
+        assert not bool((skip & moved).any()), (seed, int((skip & moved)
+                                                          .sum()))
+        skipped += int(skip.sum())
+        zero = (d2.double() == 0) | (cd > 4 * d2.double())
+        zero_margin_wrong += int((zero & moved).sum())
+    if kind == "midpoint":
+        assert zero_margin_wrong > 0
+    if kind == "tight_cluster":
+        assert skipped > 0
+
+
+@pytest.mark.parametrize("dims,nlist,first", [(16, 60, 0), (40, 48, 17),
+                                              (100, 33, 1999)])
+def test_pruned_seeding_matches_plain_and_reference(dims, nlist, first):
+    """K13's plain pruned seeding (``ivf_init_pruned_plain``) gives
+    ``ivf_init_plain``'s centroids and the JAX ``_farthest_point_init``'s
+    bit for bit on clustered integer rows (every distance exact, with
+    duplicate rows and many equal farthest candidates), computes far
+    fewer distances than a full scan a step there, and equals
+    ``ivf_init_plain`` on Gaussian clusters too."""
+    x = clustered(30 + dims, 12, 167, dims)[:2000]
+    x[100:140] = x[0]
+    want = np.asarray(ref._farthest_point_init(
+        jnp.asarray(x), jnp.asarray(first), nlist))
+    got, computed = port.ivf_init_pruned_plain(T(x), first, nlist)
+    np.testing.assert_array_equal(got.numpy(), want)
+    np.testing.assert_array_equal(
+        got.numpy(), port.ivf_init_plain(T(x), first, nlist).numpy())
+    assert computed[0] == len(x) and len(computed) == nlist - 1
+    assert sum(computed) < 0.3 * len(x) * (nlist - 1)
+    rng = np.random.default_rng(dims)
+    means = rng.standard_normal((24, dims)).astype(np.float32)
+    g = (means[rng.integers(0, 24, 1500)] + 0.35 *
+         rng.standard_normal((1500, dims))).astype(np.float32)
+    got, _ = port.ivf_init_pruned_plain(T(g), first % 1500, nlist)
+    np.testing.assert_array_equal(
+        got.numpy().view(np.int32),
+        port.ivf_init_plain(T(g), first % 1500, nlist).numpy().view(
+            np.int32))
+
+
 def test_kmeans_cold_and_warm_match_reference():
     x = clustered(6, 24, 60, 16)
     want = ref.kmeans(x, 24, seed=3)
@@ -344,6 +458,61 @@ def test_tied_scores_resolve_in_probe_order():
     ps, pi = p.search(q, 10 ** 6, 2)
     np.testing.assert_array_equal(pi, ri)
     assert (pi[0] == -1).any() and (ps[0][pi[0] == -1] == 0).all()
+
+
+def _search_args(index, q):
+    batch = knn.QueryBatch(q, "cpu")
+    return (batch.queries, batch.qn, batch.q2, index.centroids, index.lists,
+            index.valid, index.ids, index.norms)
+
+
+GROUPED_CASES = [(name, splits) for name in ("duplicated_queries",
+                                             "ties_across_lists", "wide_k")
+                 for splits in (1, 3)]
+
+
+@pytest.mark.parametrize("name,splits", GROUPED_CASES,
+                         ids=["-".join(map(str, c)) for c in GROUPED_CASES])
+def test_grouped_merge_order_matches_plain(name, splits):
+    """K14's list-grouped order (``ivf_search_grouped_plain``: per (query,
+    probe) partials of each row range, merged by probe rank) gives
+    ``ivf_search_plain``'s ids and score bits: on duplicated queries (two
+    queries sharing every list), on scores tied across lists (the
+    dot_product axis queries of ``test_tied_scores_resolve_in_probe_order``)
+    and at k above the partials' cap (``SEARCH_KCAP``), with lists split
+    into 1 and 3 row ranges."""
+    if name == "ties_across_lists":
+        x = clustered(11, 6, 12, 16)
+        r = ref.IVFIndex.build(x, nlist=6, similarity="dot_product")
+        index = ivf_from_reference(r.centroids, r.lists, r.valid, r.ids,
+                                   r.norms, "dot_product", "cpu")
+        q = np.zeros((3, 16), np.float32)
+        q[0, 0] = q[2, 0] = 1.0
+        q[1, 3] = 1.0
+        runs = [(72, 6), (10, 2), (5, 6)]
+        sim = "dot_product"
+    else:
+        x = clustered(40, 8, 90, 16)
+        sim = "cosine" if name == "wide_k" else "l2_norm"
+        index = port.IVFIndex.build(x, nlist=8, similarity=sim, device="cpu")
+        rng = np.random.default_rng(41)
+        q = x[rng.integers(0, len(x), 5)] + rng.integers(
+            -2, 3, (5, 16)).astype(np.float32)
+        q[1] = q[0]
+        q[3] = q[0]
+        runs = ([(port.SEARCH_KCAP + 40, 4), (port.SEARCH_KCAP + 1, 8)]
+                if name == "wide_k" else [(10, 3), (26, 8), (1, 1)])
+    args = _search_args(index, q)
+    for k, nprobe in runs:
+        k = min(k, nprobe * index.list_len)
+        want = port.ivf_search_plain(*args, k, nprobe, sim)
+        got = port.ivf_search_grouped_plain(*args, k, nprobe, sim,
+                                            splits=splits)
+        assert torch.equal(got[1], want[1]), (k, nprobe)
+        assert torch.equal(got[0].view(torch.int32),
+                           want[0].view(torch.int32)), (k, nprobe)
+        if name == "duplicated_queries":
+            assert torch.equal(got[1][0], got[1][1])
 
 
 def test_probe_live_matches_reference():
