@@ -49,7 +49,12 @@ Phases, each of which fails the run on any failed check:
    Launch counts are zeroed before phases 6-7 and read right after: every
    kNN family must have launched (knn_coarse and knn_rerank in leg (a),
    knn_flat in legs (c) and (d)). Then each family is held against its
-   plain version and timed at its largest main-path call.
+   plain version and timed at its largest main-path call; K5 and K6 (and
+   their masked variants, the wide K5 call and rows 36 / 39) also log the
+   split of their stages (scores, selection, re-score), the rows selected
+   whole or scored by the exact branch, K5's largest screen error as a
+   fraction of its gamma (which must stay below 1), and a product +
+   torch.topk library call beside the product alone.
 8. dense-small (run with the small phases): the dense collector's
    kernels bm25_scores (K8), knn_scores (K9) and dense_topk (K10) against
    their plain versions on seeded calls (K8 up to 65,536 blocks and QB
@@ -155,8 +160,8 @@ Phases, each of which fails the run on any failed check:
    order by both); bitwise.
 19. wide: windows of 10,000 on the full and knn-full shards, per segment:
    a match (K1 with the rounds), the same match with exact totals (the
-   dense collector: K8 + K10's radix select) and a knn with k 10,000 (K5
-   with the rounds); the first 4,096 hits equal the 4,096 window's, the
+   dense collector: K8 + K10's radix select) and a knn with k 10,000 (K5,
+   one selection); the first 4,096 hits equal the 4,096 window's, the
    dense window equals K1's, the first 10 the earlier exact answers.
    Launch counts are zeroed before and read after: bm25_flat, knn_flat
    and dense_topk must have launched; then each is held against its plain
@@ -1012,14 +1017,22 @@ def phase_full(torch, np, dev, n_docs: int, workers: int, n_q: int,
 
 def untimed(phase, *args):
     """Run a kernels phase with the whole-run launch timing off (its calls
-    are measurements, not main-path launches), then restore it."""
+    are measurements, not main-path launches), then restore it, and the
+    counts of K5's exact-branch and K6's whole-row rows with it."""
+    from elasticsearch_tpu_torch.ops import knn
     from elasticsearch_tpu_torch.search.device_profile import DEVICE_PROFILE
     keep = DEVICE_PROFILE.timing
     DEVICE_PROFILE.timing = False
+    saved = {key: t.clone() for key, t in knn._FULL.items()}
     try:
         return phase(*args)
     finally:
         DEVICE_PROFILE.timing = keep
+        for key, t in knn._FULL.items():
+            if key in saved:
+                t.copy_(saved[key])
+            else:
+                t.zero_()
 
 
 def time_call(torch, fn, runs: int) -> float:
@@ -1189,7 +1202,7 @@ def knn_inputs(np, rng, n_docs: int, n_pad: int, dims: int, n_q: int):
 def phase_knn_small(torch, np, dev) -> None:
     """K5, K6 and K7 against their plain versions on the card: three
     similarities, B in {1, 8, 64}, D in {128, 960}, k' up to 1024, over
-    enough docs that the chunked top-k merges (bitwise equal)."""
+    200,000 and 100,000 docs (bitwise equal)."""
     from elasticsearch_tpu_torch.ops import knn
     from elasticsearch_tpu_torch.ops.device_segment import quantize_rows
     rng = np.random.default_rng(SEED + 11)
@@ -1569,6 +1582,86 @@ def product_only_ms(torch, family: str, args):
     return time_call(torch, lambda: torch._int_mm(a, m), 20), a.shape[0]
 
 
+# the tensor-core pipelines (csrc/knn_tc.cuh) and their probes: K5's
+# screen (with the raw dots) or K6's int8 scores
+TC_PROBES = {"knn_flat": ("ops.knn", "knn_flat_probe", True),
+             "knn_flat_masked": ("ops.knn", "knn_flat_probe", True),
+             "knn_coarse": ("ops.knn", "knn_coarse_probe", False),
+             "knn_coarse_masked": ("ops.knn", "knn_coarse_probe", False),
+             "mesh_knn_topk": ("parallel.mesh", "mesh_knn_topk_probe", True),
+             "mesh_knn_coarse": ("parallel.mesh", "mesh_knn_coarse_probe",
+                                 False)}
+
+
+def product_topk_ms(torch, family: str, args):
+    """The product and a selection through library calls (torch.matmul
+    in bf16, or torch._int_mm in int8, then torch.topk of the same k): a
+    yardstick for part of K5's / K6's function, not the fused one."""
+    if family.startswith("knn_flat"):
+        a = args[3].to(torch.bfloat16)
+        m = args[0].to(torch.bfloat16).t()
+        k = args[6]
+        return time_call(torch, lambda: torch.topk(
+            torch.matmul(a, m).float(), k, dim=1), 20)
+    a, m, k = args[4], args[0].t(), args[8]
+    if a.shape[0] < 17:
+        a = torch.cat([a, a.new_zeros(32 - a.shape[0], a.shape[1])])
+    return time_call(torch, lambda: torch.topk(
+        torch._int_mm(a, m).float(), k, dim=1), 20)
+
+
+def tc_extra(torch, fam: str, args, kwargs, want, shape: str) -> dict:
+    """What a tensor-core pipeline did on one recorded call, through its
+    probe (uncounted): the answer bitwise ``want`` (the plain version's),
+    the stage split (medians of 5 probes: scores, selection = threshold +
+    list + final, re-score), the rows selected over their whole row (K6)
+    or scored by the exact branch (K5), and for K5's screen the largest
+    |dot_tc - dot_plain| / (|x^| |q^|) as a fraction of gamma, which must
+    stay below 1."""
+    import importlib
+    from elasticsearch_tpu_torch.ops import knn
+    mod, name, flat = TC_PROBES[fam]
+    probe = getattr(importlib.import_module(
+        f"elasticsearch_tpu_torch.{mod}"), name)
+    runs = [probe(*args, **kwargs) for _ in range(6)]
+    compare(torch, f"{fam} (probe)", runs[0]["out"], want)
+    split = {key: sorted(r["split_ms"][key] for r in runs[1:])[2]
+             for key in ("scores", "threshold", "list", "rescore", "final",
+                         "selection")}
+    out = {"split_ms": split, "exact_or_whole_rows": runs[0]["full_rows"]}
+    text = (f"scores {split['scores']:.4f}, selection "
+            f"{split['selection']:.4f} (threshold {split['threshold']:.4f}, "
+            f"list {split['list']:.4f}, final {split['final']:.4f})")
+    if flat:
+        r = probe(*args, **kwargs, dots=True)
+        matrix, queries = args[0], args[3]
+        stack = matrix if matrix.dim() == 3 else matrix[None]
+        dots = r["dots"] if matrix.dim() == 3 else r["dots"][None]
+        qn = knn.screen_norms(queries)
+        frac = 0.0
+        gamma = knn.screen_gamma(matrix.shape[-1])
+        for s in range(stack.shape[0]):
+            plain = knn._flat_dots(stack[s], queries)
+            ratio = (dots[s] - plain).abs().div_(
+                qn[:, None] * knn.screen_norms(stack[s])[None, :])
+            frac = max(frac, float(ratio.nan_to_num_(0.0).max()) / gamma)
+            del plain, ratio
+        check(frac < 1.0, f"{fam}: screen error {frac} of gamma")
+        out["screen_error_over_gamma"] = frac
+        text += (f", re-score {split['rescore']:.4f}; screen error "
+                 f"{frac:.5f} of gamma {gamma:.3e}; exact-branch rows "
+                 f"{runs[0]['full_rows']}")
+        del r, dots
+    else:
+        text += f"; rows selected whole {runs[0]['full_rows']}"
+    if not fam.startswith("mesh"):
+        lib = product_topk_ms(torch, fam, args)
+        out["product_topk_library_ms"] = lib
+        text += f"; product + torch.topk {lib:.4f} ms"
+    log(f"kernel {fam} stages at {shape}: {text}")
+    return out
+
+
 def phase_knn_kernels(torch, rec, launches) -> list:
     from elasticsearch_tpu_torch.ops import knn
     rows = []
@@ -1601,6 +1694,9 @@ def phase_knn_kernels(torch, rec, launches) -> list:
             row["product_only_library_ms"] = prod_ms
             extra = (f", product-only library call {prod_ms:.4f} ms "
                      f"({rows_used} query rows)")
+            want = run_family(knn, fam, args, kwargs, True)
+            row.update(tc_extra(torch, fam, args, kwargs, want, shape))
+            del want
         log(f"kernel {fam}: {ms:.4f} ms (median of 20), plain "
             f"{plain_ms:.4f} ms (median of 20), bound {bound_ms:.4f} ms "
             f"({nbytes} bytes at 3.35 TB/s, {bound_by}), max_abs_err {err} "
@@ -1617,6 +1713,15 @@ def phase_knn_kernels(torch, rec, launches) -> list:
                 f"{f_plain:.4f} ms, bound {knn_bound(fam, first)[0]:.4f} ms "
                 f"at the first main-path call, (B, N or k', k) = "
                 f"{knn_size(fam, first)}")
+            row["first_call"] = {"ms": f_ms, "plain_ms": f_plain,
+                                 "bound_ms": knn_bound(fam, first)[0],
+                                 "shape": str(knn_size(fam, first))}
+            if fam != "knn_rerank":
+                want = run_family(knn, fam, first, f_kw, True)
+                row["first_call"].update(tc_extra(
+                    torch, fam, first, f_kw, want,
+                    f"(B, N or k', k) = {knn_size(fam, first)}"))
+                del want
         rows.append(row)
         torch.cuda.empty_cache()
     return rows
@@ -3148,6 +3253,9 @@ def phase_ivf_kernels(torch, rec, launches) -> list:
             prod_ms, used = product_only_ms(torch, name, args)
             row["product_only_library_ms"] = prod_ms
             extra = f", product-only library call {prod_ms:.4f} ms ({used} rows)"
+            want = run(args, kwargs, True)
+            row.update(tc_extra(torch, fam, args, kwargs, want, shape))
+            del want
         if fam == "ivf_init":
             row.update(init_stats(torch, ivf, checked, largest, ms))
         if fam == "ivf_search":
@@ -4365,6 +4473,10 @@ def phase_wide_kernels(torch, rec, launches) -> list:
         shape += f" k={wide_k_of(fam, args)}"
         if fam == "dense_topk":
             split["host_device"] = topk_split(torch, kernel, args, shape)
+        if fam == "knn_flat":
+            want = plain(*args, **kwargs)
+            split.update(tc_extra(torch, fam, args, kwargs, want, shape))
+            del want
         log(f"kernel {fam} (wide): {ms:.4f} ms (median of 20), plain "
             f"{plain_ms:.4f} ms (median of 5), bound {bound_ms:.4f} ms "
             f"({nbytes} bytes at 3.35 TB/s, {bound_by}), library "
@@ -7161,16 +7273,39 @@ def phase_mesh_knn_kernels(torch, rec, launches, per_launch) -> list:
             f"{min(len(calls), 4) + 1} main-path calls, timed at the "
             f"largest, {shape}; mean a launch over the mesh-knn-full legs "
             f"{per_launch.get(fam)} ms")
-        rows.append({
+        row = {
             "name": fam, "route": "cuda", "source": MESH_KNN_SOURCES[fam],
             "replaces": REPLACES[fam], "launches": launches.get(fam, 0),
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib,
             "library_is_partial": lib is not None,
             "ms_per_launch_on_the_legs": per_launch.get(fam),
-            "shape": shape})
+            "shape": shape}
+        if fam != "mesh_knn_rerank":
+            want = plain(*args, **kwargs)
+            row.update(tc_extra(torch, fam, args, kwargs, want, shape))
+            del want
+        rows.append(row)
         torch.cuda.empty_cache()
     return rows
+
+
+def fanout_coarse_split(torch, rec) -> None:
+    """K6 at the mesh kNN path's largest per-shard call at B 1 (where
+    most of K6's main-path launches are): its time a launch and its
+    probe's stage split, the card's time apart from the host's gaps that
+    the main path's mean a launch also holds."""
+    from elasticsearch_tpu_torch.ops import knn
+    calls = rec.largest_calls("knn_coarse")
+    if not calls:
+        log("kernel knn_coarse at the per-shard B 1 call: none recorded")
+        return
+    args, kwargs = calls[0]
+    shape = f"(B, N or k', k) = {knn_size('knn_coarse', args)}, per shard"
+    ms = time_call(torch, lambda: knn.knn_coarse(*args, **kwargs), 20)
+    log(f"kernel knn_coarse: {ms:.4f} ms (median of 20) at {shape}")
+    want = knn.knn_coarse_plain(*args, **kwargs)
+    tc_extra(torch, "knn_coarse", args, kwargs, want, shape)
 
 
 # ---------------------------------------------------------------------------
@@ -8593,6 +8728,7 @@ def main(argv=None) -> int:
         run_n0 = {f: DEVICE_PROFILE.family(f).event_count
                   for f in every_family}
         DEVICE_PROFILE.timing = on_card
+        knn.reset_full_rows()
         rows = []
         shared = {}
         engines = {}
@@ -8865,7 +9001,9 @@ def main(argv=None) -> int:
         DEVICE_PROFILE.reset_launches()
         per_launch = {}
         with Recorder({f: (mesh_ops, f) for f in MESH_KNN_FAMILIES},
-                      mesh_knn_size, keep=4) as krec:
+                      mesh_knn_size, keep=4) as krec, Recorder(
+                {"knn_coarse": (knn, "knn_coarse")}, knn_size, keep=0,
+                accept=lambda f, a, kw: a[4].shape[0] == 1) as orec:
             if "mesh-knn-engine" in phases:
                 phase_mesh_knn_engine(torch, np, dev,
                                       args.mesh_knn_engine_docs)
@@ -8886,8 +9024,9 @@ def main(argv=None) -> int:
             if "kernels" in phases:
                 rows += untimed(phase_mesh_knn_kernels, torch, krec, launches,
                                                per_launch)
+                untimed(fanout_coarse_split, torch, orec)
                 log(t(), "mesh knn kernels done")
-        del krec
+        del krec, orec
         MESH_PLANES.clear()
         PLANES.clear()
         if on_card:
@@ -8962,9 +9101,16 @@ def main(argv=None) -> int:
             "around every main-path launch; kernels phases excluded): " +
             json.dumps({f: [round(run_ms[f], 4), run_n[f]]
                         for f in every_family if run_n[f]}))
+        whole = knn.full_rows() if on_card else {}
+        log("main-path rows that K5 / row 39 scored in the exact branch and "
+            "K6 / row 36 selected over the whole row, by family: " +
+            json.dumps(whole))
         for row in rows:
             row["main_path_device_ms"] = run_ms.get(row["name"])
             row["main_path_timed_launches"] = run_n.get(row["name"])
+            if row["name"] in TC_PROBES:
+                row["main_path_exact_or_whole_rows"] = whole.get(
+                    row["name"], 0)
         if on_card and {"full", "knn-full", "dense-full", "ivf-full",
                         "sparse-full", "wide", "aggs-full", "hybrid-full",
                         "mesh-full", "mesh-knn-full", "mesh-sparse-full",

@@ -1,6 +1,7 @@
 // Hopper (sm_90a) building blocks for a tensor-core kernel written by
-// hand: mbarriers, TMA bulk copies into shared memory, the shared-memory
-// matrix descriptor of the 128-byte swizzle, and wgmma.
+// hand: mbarriers, TMA bulk copies and cp.async into shared memory, the
+// shared-memory matrix descriptor of the 128-byte swizzle, and wgmma
+// (bf16 with f32 sums, int8 with int32 sums).
 //
 // Operand layout (what tile_swizzled in ivf_assign.cu writes and the
 // descriptor below reads): a tile of R rows x 64 bf16 values (128 bytes a
@@ -143,5 +144,187 @@ __device__ __forceinline__ void wgmma_n128(float (&d)[64], uint64_t da,
           "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
         : "l"(da), "l"(db), "r"(1));
 }
+
+
+// cp.async of one 16-byte chunk into shared memory: ``bytes`` (16 or 0)
+// are read from ``src`` and the rest of the chunk is zero-filled, so a
+// chunk past the end of a row or of the matrix stages zeros.
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
+                                           int bytes) {
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+                 "l"(src), "r"(bytes)
+                 : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+    asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Make this thread's shared-memory writes (plain stores, or cp.async
+// copies it has waited for) visible to the async proxy that wgmma reads
+// through; a __syncthreads() after it publishes them to the warpgroup.
+__device__ __forceinline__ void fence_async_shared() {
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// D[64 x N] += A[64 x K] * B[N x K]^T for N = 8, 16, 32 and 64, both
+// operands K-major in shared memory with the 128-byte swizzle (every
+// step reads 32 bytes of each row: 16 bf16 values, or 32 int8 values):
+// bf16 in with f32 sums, or int8 in with exact int32 sums. A thread
+// holds N / 2 sums: sum i is row (warp % 4) * 16 + lane / 4 (+ 8 when
+// i % 4 >= 2), column 8 * (i / 4) + 2 * (lane % 4) + i % 2.
+template <int N>
+struct Wgmma;
+template <>
+struct Wgmma<8> {
+    static __device__ __forceinline__ void bf16(float (&d)[4], uint64_t da,
+                                              uint64_t db) {
+        asm volatile(
+            "{\n"
+            ".reg .pred p;\n"
+            "setp.ne.b32 p, %6, 0;\n"
+            "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 "
+            "{%0, %1, %2, %3}, "
+            "%4, %5, p, 1, 1, 0, 0;\n"
+            "}\n"
+            : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+            : "l"(da), "l"(db), "r"(1));
+    }
+    static __device__ __forceinline__ void s8(int (&d)[4], uint64_t da,
+                                              uint64_t db) {
+        asm volatile(
+            "{\n"
+            ".reg .pred p;\n"
+            "setp.ne.b32 p, %6, 0;\n"
+            "wgmma.mma_async.sync.aligned.m64n8k32.s32.s8.s8 "
+            "{%0, %1, %2, %3}, "
+            "%4, %5, p;\n"
+            "}\n"
+            : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
+            : "l"(da), "l"(db), "r"(1));
+    }
+};
+template <>
+struct Wgmma<16> {
+    static __device__ __forceinline__ void bf16(float (&d)[8], uint64_t da,
+                                              uint64_t db) {
+        asm volatile(
+            "{\n"
+            ".reg .pred p;\n"
+            "setp.ne.b32 p, %10, 0;\n"
+            "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+            "{%0, %1, %2, %3, %4, %5, %6, %7}, "
+            "%8, %9, p, 1, 1, 0, 0;\n"
+            "}\n"
+            : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+              "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+            : "l"(da), "l"(db), "r"(1));
+    }
+    static __device__ __forceinline__ void s8(int (&d)[8], uint64_t da,
+                                              uint64_t db) {
+        asm volatile(
+            "{\n"
+            ".reg .pred p;\n"
+            "setp.ne.b32 p, %10, 0;\n"
+            "wgmma.mma_async.sync.aligned.m64n16k32.s32.s8.s8 "
+            "{%0, %1, %2, %3, %4, %5, %6, %7}, "
+            "%8, %9, p;\n"
+            "}\n"
+            : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]),
+              "+r"(d[5]), "+r"(d[6]), "+r"(d[7])
+            : "l"(da), "l"(db), "r"(1));
+    }
+};
+template <>
+struct Wgmma<32> {
+    static __device__ __forceinline__ void bf16(float (&d)[16], uint64_t da,
+                                              uint64_t db) {
+        asm volatile(
+            "{\n"
+            ".reg .pred p;\n"
+            "setp.ne.b32 p, %18, 0;\n"
+            "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+            "{%0, %1, %2, %3, %4, %5, %6, %7,"
+            "%8, %9, %10, %11, %12, %13, %14, %15}, "
+            "%16, %17, p, 1, 1, 0, 0;\n"
+            "}\n"
+            : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+              "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+              "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+              "+f"(d[14]), "+f"(d[15])
+            : "l"(da), "l"(db), "r"(1));
+    }
+    static __device__ __forceinline__ void s8(int (&d)[16], uint64_t da,
+                                              uint64_t db) {
+        asm volatile(
+            "{\n"
+            ".reg .pred p;\n"
+            "setp.ne.b32 p, %18, 0;\n"
+            "wgmma.mma_async.sync.aligned.m64n32k32.s32.s8.s8 "
+            "{%0, %1, %2, %3, %4, %5, %6, %7,"
+            "%8, %9, %10, %11, %12, %13, %14, %15}, "
+            "%16, %17, p;\n"
+            "}\n"
+            : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]),
+              "+r"(d[5]), "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]),
+              "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]),
+              "+r"(d[14]), "+r"(d[15])
+            : "l"(da), "l"(db), "r"(1));
+    }
+};
+template <>
+struct Wgmma<64> {
+    static __device__ __forceinline__ void bf16(float (&d)[32], uint64_t da,
+                                              uint64_t db) {
+        asm volatile(
+            "{\n"
+            ".reg .pred p;\n"
+            "setp.ne.b32 p, %34, 0;\n"
+            "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+            "{%0, %1, %2, %3, %4, %5, %6, %7,"
+            "%8, %9, %10, %11, %12, %13, %14, %15,"
+            "%16, %17, %18, %19, %20, %21, %22, %23,"
+            "%24, %25, %26, %27, %28, %29, %30, %31}, "
+            "%32, %33, p, 1, 1, 0, 0;\n"
+            "}\n"
+            : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+              "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+              "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+              "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+              "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]),
+              "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+              "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+              "+f"(d[30]), "+f"(d[31])
+            : "l"(da), "l"(db), "r"(1));
+    }
+    static __device__ __forceinline__ void s8(int (&d)[32], uint64_t da,
+                                              uint64_t db) {
+        asm volatile(
+            "{\n"
+            ".reg .pred p;\n"
+            "setp.ne.b32 p, %34, 0;\n"
+            "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 "
+            "{%0, %1, %2, %3, %4, %5, %6, %7,"
+            "%8, %9, %10, %11, %12, %13, %14, %15,"
+            "%16, %17, %18, %19, %20, %21, %22, %23,"
+            "%24, %25, %26, %27, %28, %29, %30, %31}, "
+            "%32, %33, p;\n"
+            "}\n"
+            : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]),
+              "+r"(d[5]), "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]),
+              "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]),
+              "+r"(d[14]), "+r"(d[15]), "+r"(d[16]), "+r"(d[17]),
+              "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]),
+              "+r"(d[22]), "+r"(d[23]), "+r"(d[24]), "+r"(d[25]),
+              "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]),
+              "+r"(d[30]), "+r"(d[31])
+            : "l"(da), "l"(db), "r"(1));
+    }
+};
 
 }  // namespace hopper

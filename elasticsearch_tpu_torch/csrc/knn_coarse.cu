@@ -12,32 +12,41 @@
 //
 // What bounds it on the H100: memory. It reads the int8 mirror once
 // (134.2 MB at 1,048,576 x 128) plus scales, norms and the mask: 0.043 ms
-// at 3.35 TB/s. The product is 2 * B * N_pad * D integer operations, at
-// B = 1 (the solo queries this tier serves) a few hundred MOP.
+// at 3.35 TB/s. The product is 2 * B * N_pad * D integer operations, 17.2
+// GOP at B = 64, 0.009 ms on the tensor cores at 1,979 TOPS.
 //
-// Design: knn_common.cuh's coarse_topk with one slot: knn_flat's tiling
-// over packed int8 (a CTA scores 512 docs against QB queries, staging 32
-// dims at a time as 8 words of 4 packed int8 values; __dp4a adds four
-// products at a time to int32 sums). Integer sums are exact in any order,
-// so kernel and plain version agree bit for bit. The epilogue converts
-// once (round to nearest), rescales, transforms and masks into a [B, N_pad]
-// f32 plane, and topk_common.cuh's chunked top-k selects k'. The plain
-// PyTorch version is elasticsearch_tpu_torch/ops/knn.py `knn_coarse_plain`.
-#include "knn_common.cuh"
+// Design: knn_tc.cuh's coarse_topk with one slot. int8 wgmma (m64nNk32,
+// docs on M, the queries on N padded to 8 .. 64) over the mirror staged by
+// cp.async in the 128-byte swizzle; the sums are exact, so the epilogue
+// (convert once, rescale, transform, mask) gives the plain version's bits.
+// The epilogue writes the [B, N_pad] f32 plane and each 128-doc tile's
+// largest scores; a row-batched radix select (rows_select.cuh) takes a
+// threshold from the tile tops, only the tiles that reach it are listed,
+// and a second selection takes the best k' of the list (or of the whole
+// row where the list cannot hold it). The plain PyTorch version is
+// elasticsearch_tpu_torch/ops/knn.py `knn_coarse_plain`.
+#include "knn_tc.cuh"
 
-using namespace knn;
+// Bytes of knn_coarse_launch's scratch.
+extern "C" long long knn_coarse_scratch(int n_q, int dims,
+                                        long long n_docs_pad, int kprime) {
+    return knntc::layout(1, n_q, dims, n_docs_pad, kprime, false).total;
+}
 
-// masks: [n_q, n_docs_pad] per-query filter rows, or nullptr; plane:
-// [n_q, n_docs_pad] f32 scratch; chunk_s/chunk_i: n_q *
-// ceil(n_docs_pad / CHUNK) * kprime entries; out_s/out_d: [n_q, kprime].
+// masks: [n_q, n_docs_pad] per-query filter rows, or nullptr; scratch:
+// knn_coarse_scratch bytes; full: a device counter of the rows selected
+// over their whole plane row; out_s/out_d: [n_q, kprime]; split_ms:
+// nullptr, or 5 host floats for the stages' milliseconds (the launch then
+// synchronises).
 extern "C" int knn_coarse_launch(
     const int8_t* q8, const float* scales, const float* norms,
     const uint8_t* allowed, const uint8_t* masks, const int8_t* qq,
     const float* qscale, const float* qn, const float* q2, int n_q, int dims,
-    long long n_docs_pad,
-    int kprime, int sim, float* plane, float* chunk_s, int* chunk_i,
-    float* out_s, int* out_d, void* stream_ptr) {
-    return coarse_topk(q8, scales, norms, allowed, masks, qq, qscale, qn, q2,
-                       1, n_q, dims, n_docs_pad, kprime, sim, plane, chunk_s,
-                       chunk_i, out_s, out_d, (cudaStream_t)stream_ptr);
+    long long n_docs_pad, int kprime, int sim, void* scratch,
+    unsigned* full, float* out_s, int* out_d, float* split_ms,
+    void* stream_ptr) {
+    return knntc::coarse_topk(q8, scales, norms, allowed, masks, qq, qscale,
+                              qn, q2, 1, n_q, dims, n_docs_pad, kprime, sim,
+                              scratch, full, out_s, out_d, split_ms,
+                              (cudaStream_t)stream_ptr);
 }

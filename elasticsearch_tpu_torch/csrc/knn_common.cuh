@@ -3,7 +3,9 @@
 // mesh_knn_topk, mesh_knn_coarse and mesh_knn_rerank, which run K5 / K6 /
 // K7 for every slot of a stack of shards in one launch, and (through
 // sharded_scores.cuh) the scores pass of the sharded data plane's
-// sharded_knn and sharded_hybrid.
+// sharded_knn and sharded_hybrid. K5's and K6's pipelines are in
+// knn_tc.cuh; the similarity transform and the slot axis below are
+// theirs too.
 //
 // 1. The similarity transform (similarity below), the JAX package's
 //    `_coarse_similarity` / `_rerank_scores` in their operation order:
@@ -87,11 +89,12 @@ inline bool valid_sim(int sim) {
 //    pass one slot, and each slot of a mesh launch runs exactly the
 //    one-shard arithmetic on its own plane: bitwise K5 / K6 / K7 there.
 
-// 4. The scores pass shared by knn_flat (masked plane: -inf where the doc
-//    is not allowed, or where the query's own filter row excludes it) and
-//    knn_scores (dense row: 0 where the doc has no vector). One CTA scores
-//    a tile of TILE docs of one slot against a group of QB
-//    queries (QB = 1 .. 16, a power of two), staging DT dims of the tile
+// 4. The CUDA-core scores pass of knn_scores (dense row: 0 where the doc
+//    has no vector) and, through sharded_scores.cuh, of the sharded data
+//    plane (masked: -inf where the doc is not allowed); knn_flat and
+//    knn_coarse score on the tensor cores (knn_tc.cuh). One CTA scores a
+//    tile of TILE docs of one slot against a group of QB queries (QB = 1
+//    .. 16, a power of two), staging DT dims of the tile
 //    at a time in shared memory; every thread owns RD docs x QB queries of
 //    f32 sums in registers and adds the products d = 0, 1, ... in order,
 //    so a row's sums never depend on the batch. The query groups of one
@@ -241,204 +244,7 @@ int vector_scores(const float* matrix, const float* norms,
 #undef KNN_SCORES
 }
 
-// The knn_flat pipeline (K5, and mesh_knn_topk over S slots): the masked
-// score plane [S, n_q, N_pad] of every slot, then the top-k of each of its
-// S * n_q rows (topk_common.cuh plane_topk, the rounds above KMAX
-// included). Column indices are each slot's own plane docs.
-inline int flat_topk(const float* matrix, const float* norms,
-                     const uint8_t* allowed, const uint8_t* masks,
-                     const float* queries, const float* qn, const float* q2,
-                     int n_slots, int n_q, int dims, long long n_docs_pad,
-                     int k, int sim, float* plane, float* chunk_s,
-                     int* chunk_i, float* out_s, int* out_d,
-                     cudaStream_t stream) {
-    if (n_slots < 1 || n_slots > 65535 || n_q < 1 ||
-        (long long)n_slots * n_q > INT_MAX || dims < 1 || dims > MAX_DIMS ||
-        k < 1 || n_docs_pad < k || !valid_sim(sim))
-        return (int)cudaErrorInvalidValue;
-    const int rc = vector_scores<false>(matrix, norms, allowed, masks,
-                                        queries, qn, q2, n_q, dims,
-                                        n_docs_pad, sim, plane, stream,
-                                        n_slots);
-    if (rc != 0) return rc;
-    return plane_topk(plane, n_slots * n_q, n_docs_pad, k, chunk_s, chunk_i,
-                      out_s, out_d, stream);
-}
-
-// 5. The int8 coarse pass (K6, and mesh_knn_coarse over S slots):
-//    knn_flat's tiling over packed int8. A CTA scores 512 docs of one slot
-//    against QB queries, staging 32 dims at a time as 8 words of 4 packed
-//    int8 values; __dp4a adds four products at a time to int32 sums.
-//    Integer sums are exact in any order, so kernel and plain version
-//    agree bit for bit. The epilogue converts once (round to nearest),
-//    rescales as dot * (qscale * scale), transforms and masks into the
-//    [S, n_q, N_pad] f32 plane, whose rows plane_topk selects k' from.
-
-constexpr int CO_THREADS = 128;
-constexpr int CO_RD = 4;                      // docs per thread
-constexpr int CO_TILE = CO_THREADS * CO_RD;   // docs per CTA
-constexpr int CO_DW = 8;                      // packed words staged per step
-constexpr int CO_DT = CO_DW * 4;              // dims staged per step
-
-// Four int8 values of row ``row`` from dim ``d`` on, packed little-endian
-// into one word; dims at or past ``dims`` are 0.
-__device__ __forceinline__ int pack4(const int8_t* __restrict__ row, int d,
-                                     int dims, bool aligned) {
-    if (aligned && d + 4 <= dims)
-        return *reinterpret_cast<const int*>(row + d);
-    unsigned w = 0;
-#pragma unroll
-    for (int b = 0; b < 4; ++b)
-        if (d + b < dims) w |= (unsigned)(uint8_t)row[d + b] << (8 * b);
-    return (int)w;
-}
-
-// grid (query groups, doc tiles, slots).
-template <int QB>
-__global__ void __launch_bounds__(CO_THREADS) coarse_scores_kernel(
-    const int8_t* __restrict__ q8, const float* __restrict__ scales,
-    const float* __restrict__ norms, const uint8_t* __restrict__ allowed,
-    const uint8_t* __restrict__ masks, const int8_t* __restrict__ qq,
-    const float* __restrict__ qscale, const float* __restrict__ qn,
-    const float* __restrict__ q2, int n_q, int dims, long long n_docs_pad,
-    long long tile0, int sim, float* __restrict__ plane) {
-    __shared__ int ms[CO_DW][CO_TILE + 1];
-    __shared__ int qs[QB][CO_DW];
-    const int t = threadIdx.x;
-    const int q0 = blockIdx.x * QB;
-    const long long doc0 = (tile0 + blockIdx.y) * (long long)CO_TILE;
-    const bool aligned = (dims & 3) == 0;
-    // this slot's plane
-    const long long sd = (long long)blockIdx.z * n_docs_pad;
-    const long long scell = sd * n_q;
-    const int8_t* __restrict__ m8 = q8 + sd * dims;
-    const float* __restrict__ scl = scales + sd;
-    const float* __restrict__ nrm = norms + sd;
-    const uint8_t* __restrict__ alw = allowed + sd;
-    const uint8_t* __restrict__ qmk = masks == nullptr ? nullptr
-                                                       : masks + scell;
-    float* __restrict__ out = plane + scell;
-    int acc[QB][CO_RD];
-#pragma unroll
-    for (int q = 0; q < QB; ++q)
-#pragma unroll
-        for (int r = 0; r < CO_RD; ++r) acc[q][r] = 0;
-
-    for (int d0 = 0; d0 < dims; d0 += CO_DT) {
-        const int wn = (dims - d0 < CO_DT ? dims - d0 + 3 : CO_DT) / 4;
-        for (int e = t; e < CO_TILE * CO_DW; e += CO_THREADS) {
-            const int doc = e / CO_DW, w = e % CO_DW;
-            const long long g = doc0 + doc;
-            int v = 0;
-            if (w < wn && g < n_docs_pad)
-                v = pack4(m8 + g * dims, d0 + 4 * w, dims, aligned);
-            ms[w][doc] = v;
-        }
-        for (int e = t; e < QB * CO_DW; e += CO_THREADS) {
-            const int q = e / CO_DW, w = e % CO_DW;
-            int v = 0;
-            if (w < wn && q0 + q < n_q)
-                v = pack4(qq + (long long)(q0 + q) * dims, d0 + 4 * w, dims,
-                          aligned);
-            qs[q][w] = v;
-        }
-        __syncthreads();
-        for (int w = 0; w < wn; ++w) {
-            int m[CO_RD];
-#pragma unroll
-            for (int r = 0; r < CO_RD; ++r) m[r] = ms[w][t + r * CO_THREADS];
-#pragma unroll
-            for (int q = 0; q < QB; ++q) {
-                const int qv = qs[q][w];
-#pragma unroll
-                for (int r = 0; r < CO_RD; ++r)
-                    acc[q][r] = __dp4a(qv, m[r], acc[q][r]);
-            }
-        }
-        __syncthreads();
-    }
-
-#pragma unroll
-    for (int q = 0; q < QB; ++q) {
-        const int qi = q0 + q;
-        if (qi >= n_q) break;
-        const float qsc = qscale[qi], qnv = qn[qi], q2v = q2[qi];
-#pragma unroll
-        for (int r = 0; r < CO_RD; ++r) {
-            const long long doc = doc0 + t + r * CO_THREADS;
-            if (doc >= n_docs_pad) continue;
-            const long long cell = (long long)qi * n_docs_pad + doc;
-            float s = -INFINITY;
-            if (alw[doc] && (qmk == nullptr || qmk[cell])) {
-                const float dot = __fmul_rn(__int2float_rn(acc[q][r]),
-                                            __fmul_rn(qsc, scl[doc]));
-                s = similarity(dot, nrm[doc], qnv, q2v, sim);
-            }
-            out[cell] = s;
-        }
-    }
-}
-
-template <int QB>
-int launch_coarse_scores(const int8_t* q8, const float* scales,
-                         const float* norms, const uint8_t* allowed,
-                         const uint8_t* masks, const int8_t* qq,
-                         const float* qscale, const float* qn,
-                         const float* q2, int n_slots, int n_q, int dims,
-                         long long n_docs_pad, int sim, float* plane,
-                         cudaStream_t stream) {
-    const int groups = (n_q + QB - 1) / QB;
-    const long long tiles = (n_docs_pad + CO_TILE - 1) / CO_TILE;
-    for (long long tile0 = 0; tile0 < tiles; tile0 += SC_MAX_TILES_Y) {
-        const long long nt =
-            tiles - tile0 < SC_MAX_TILES_Y ? tiles - tile0 : SC_MAX_TILES_Y;
-        coarse_scores_kernel<QB>
-            <<<dim3(groups, (unsigned)nt, n_slots), CO_THREADS, 0,
-               stream>>>(q8, scales, norms, allowed, masks, qq, qscale, qn,
-                         q2, n_q, dims, n_docs_pad, tile0, sim, plane);
-        const cudaError_t err = cudaGetLastError();
-        if (err != cudaSuccess) return (int)err;
-    }
-    return 0;
-}
-
-// The knn_coarse pipeline (K6, and mesh_knn_coarse over S slots): the
-// coarse plane of every slot, then the top-k' of each of its S * n_q rows.
-inline int coarse_topk(const int8_t* q8, const float* scales,
-                       const float* norms, const uint8_t* allowed,
-                       const uint8_t* masks, const int8_t* qq,
-                       const float* qscale, const float* qn, const float* q2,
-                       int n_slots, int n_q, int dims, long long n_docs_pad,
-                       int kprime, int sim, float* plane, float* chunk_s,
-                       int* chunk_i, float* out_s, int* out_d,
-                       cudaStream_t stream) {
-    if (n_slots < 1 || n_slots > 65535 || n_q < 1 ||
-        (long long)n_slots * n_q > INT_MAX || dims < 1 || dims > MAX_DIMS ||
-        kprime < 1 || kprime > KMAX || n_docs_pad < kprime ||
-        !valid_sim(sim))
-        return (int)cudaErrorInvalidValue;
-    int rc;
-#define KNN_COARSE_SCORES(QB)                                             \
-    launch_coarse_scores<QB>(q8, scales, norms, allowed, masks, qq,       \
-                             qscale, qn, q2, n_slots, n_q, dims,          \
-                             n_docs_pad, sim, plane, stream)
-    if (n_q >= 16)
-        rc = KNN_COARSE_SCORES(16);
-    else if (n_q > 4)
-        rc = KNN_COARSE_SCORES(8);
-    else if (n_q > 2)
-        rc = KNN_COARSE_SCORES(4);
-    else if (n_q == 2)
-        rc = KNN_COARSE_SCORES(2);
-    else
-        rc = KNN_COARSE_SCORES(1);
-#undef KNN_COARSE_SCORES
-    if (rc != 0) return rc;
-    return plane_topk(plane, n_slots * n_q, n_docs_pad, kprime, chunk_s,
-                      chunk_i, out_s, out_d, stream);
-}
-
-// 6. The exact re-rank (K7, and mesh_knn_rerank over S slots): one CTA per
+// 5. The exact re-rank (K7, and mesh_knn_rerank over S slots): one CTA per
 //    row r = slot * n_q + q. The row's k' candidates are bitonic-sorted by
 //    id in shared memory (their coarse scores carried), the bf16-rounded
 //    query sits in shared memory, and each thread scores whole candidates

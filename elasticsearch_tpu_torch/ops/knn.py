@@ -10,10 +10,12 @@ beside it:
   similarity transform, the ``allowed`` mask (ANDed with each query's own
   filter row when a ``[B, N_pad]`` mask stack is given: the JAX package's
   ``knn_topk_batch_masked``) and the top-k per query (at one query it
-  also serves the JAX package's ``knn_topk``);
+  also serves the JAX package's ``knn_topk``); on the card a bf16
+  tensor-core screen with a proven bound, then an exact re-score of the
+  docs that could reach the top k (``screen_*`` below mirror it);
 - ``knn_coarse`` (K6): int8 queries x the plane's int8 mirror with int32
-  sums, rescaled, transformed and masked (optionally per query), the
-  top-k' candidates;
+  sums (int8 tensor cores on the card), rescaled, transformed and masked
+  (optionally per query), the top-k' candidates;
 - ``knn_rerank`` (K7): the candidates sorted by doc id and re-scored with
   K5's arithmetic, masked (optionally per query, at the candidates), the
   top-k and ``eps`` = max |exact - coarse|;
@@ -21,10 +23,13 @@ beside it:
   arithmetic, 0 at missing vectors (``vector_scores``: ``script_score``).
 
 A wrapper launches its kernel for CUDA tensors and runs the plain version
-for CPU tensors; there is no fallback between the two. A call with a mask
-stack is profiled as ``<family>_masked``: one launch of the same kernel
-with one more operand, counted apart so a run can tell filtered launches
-from unfiltered ones. Each dot product is
+for CPU tensors; there is no fallback between the two. K5 and K6 select
+with a row-batched radix select over a threshold taken from each 128-doc
+tile's best scores (``tile_threshold``); a row that threshold cannot
+serve is selected over its whole row, counted by ``full_rows``. A call
+with a mask stack is profiled as ``<family>_masked``: one launch of the
+same kernel with one more operand, counted apart so a run can tell
+filtered launches from unfiltered ones. Each dot product is
 summed in f32 in dimension order, one query-doc pair at a time (the
 product of two bf16 values is exact in f32, so an FMA changes nothing),
 and every transform op is one rounded f32 op: kernel and plain version
@@ -46,22 +51,30 @@ Scores use the transforms ES applies to keep them positive:
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+import ctypes
+import functools
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
 
 from elasticsearch_tpu_torch.index.segment import next_pow2
 from elasticsearch_tpu_torch.ops.bm25 import (
-    _check, _on_cuda, _ptr, _stream, chunk_entries, launch_kernel,
-    stable_topk,
+    _check, _on_cuda, _ptr, _stream, launch_kernel, stable_topk,
 )
 from elasticsearch_tpu_torch.search.device_profile import DEVICE_PROFILE
 
-# the kernels' limits (csrc/topk_common.cuh KMAX, CHUNK; knn_common.cuh)
+# the kernels' limits (csrc/topk_common.cuh KMAX: the largest k' of the
+# coarse and re-rank passes; knn_common.cuh)
 KMAX = 4096
-CHUNK = 65536
 MAX_DIMS = 4096
+# csrc/knn_tc.cuh: docs a tile, most tops a tile, the bf16 stage's dims
+TILE = 128
+TOPS_MAX = 32
+SCREEN_BK = 64
+_U = 2.0 ** -24
+_SCREEN_ABS = 2.0 ** -100
+SPLIT = ("scores", "threshold", "list", "rescore", "final")
 SIMILARITY_CODES = {"cosine": 0, "dot_product": 1, "l2_norm": 2}
 
 
@@ -205,8 +218,9 @@ def vector_scores_plain(matrix, norms, exists, query, qn, q2,
     return torch.where(exists, s, torch.zeros((), device=s.device))
 
 
-def knn_coarse_plain(q8, scales, norms, allowed, qq, qscale, qn, q2,
-                     kprime: int, similarity: str = "cosine", masks=None):
+def coarse_scores_plain(q8, scales, norms, allowed, qq, qscale, qn, q2,
+                        similarity: str = "cosine", masks=None):
+    """[B, N_pad] f32: K6's masked coarse plane."""
     n_q, dims = qq.shape
     qi = qq.to(torch.int32)
     cols = q8.t().to(torch.int32).contiguous()          # [D, N_pad]
@@ -217,8 +231,14 @@ def knn_coarse_plain(q8, scales, norms, allowed, qq, qscale, qn, q2,
     del cols
     dots = acc.float() * (qscale[:, None] * scales[None, :])
     s = _similarity(dots, norms[None, :], qn, q2, similarity)
-    s = torch.where(_row_mask(allowed, masks), s, _neg_inf(s))
-    return stable_topk(s, kprime)
+    return torch.where(_row_mask(allowed, masks), s, _neg_inf(s))
+
+
+def knn_coarse_plain(q8, scales, norms, allowed, qq, qscale, qn, q2,
+                     kprime: int, similarity: str = "cosine", masks=None):
+    return stable_topk(coarse_scores_plain(q8, scales, norms, allowed, qq,
+                                           qscale, qn, q2, similarity,
+                                           masks), kprime)
 
 
 def knn_rerank_plain(matrix, norms, allowed, queries, qn, q2, cand,
@@ -247,19 +267,206 @@ def knn_rerank_plain(matrix, norms, allowed, queries, qn, q2, cand,
 
 
 # ---------------------------------------------------------------------------
+# the card's method in plain PyTorch (csrc/knn_tc.cuh): the tile
+# threshold, K5's screen and K6's listing; the CPU tests hold them
+# against the plain versions
+# ---------------------------------------------------------------------------
+
+def tile_tops_per(n_cols: int, k: int) -> int:
+    """t, the tops kept a 128-doc tile: a power of two, at least 2 and at
+    least 2k / tiles; 0 where that passes TOPS_MAX (every row is then
+    selected whole)."""
+    n_tiles = -(-n_cols // TILE)
+    t = 2
+    while t * n_tiles < 2 * k:
+        t *= 2
+    return t if t <= TOPS_MAX else 0
+
+
+def list_cap(k: int) -> int:
+    """Entries a row's list holds (csrc/knn_tc.cuh ``layout``)."""
+    return 2 * k + 2048
+
+
+def tile_threshold(values: torch.Tensor, k: int) -> torch.Tensor:
+    """[B] f32 tau: the k-th largest of each row's tile tops (the t
+    largest values of every 128-column tile, the tail tile padded with
+    -inf), -inf for every row when the tops cannot hold k. At least k
+    distinct columns hold a value >= tau, so tau never exceeds the row's
+    k-th largest value."""
+    b, n = values.shape
+    t = tile_tops_per(n, k)
+    if t == 0:
+        return torch.full((b,), -torch.inf, device=values.device)
+    n_tiles = -(-n // TILE)
+    pad = torch.full((b, n_tiles * TILE), -torch.inf, device=values.device)
+    pad[:, :n] = values
+    tops = torch.topk(pad.view(b, n_tiles, TILE), t, dim=2).values
+    return torch.topk(tops.reshape(b, -1), k, dim=1).values[:, k - 1]
+
+
+def select_listed(values: torch.Tensor, keep: torch.Tensor, k: int,
+                  cap: int) -> Tuple[torch.Tensor, torch.Tensor,
+                                     torch.Tensor]:
+    """The final selection: each row's best k (``lax.top_k``'s order)
+    among its kept columns, or among all of them where the row has fewer
+    than k kept or more than ``cap`` (its list overflowed). Every kept
+    value is finite. Returns (s, d, whole) with ``whole`` [B] bool the
+    rows selected over the whole row."""
+    n_keep = keep.sum(dim=1)
+    whole = (n_keep < k) | (n_keep > cap)
+    listed = torch.where(keep | whole[:, None], values, _neg_inf(values))
+    s, d = stable_topk(listed, k)
+    return s, d, whole
+
+
+def knn_coarse_listed(scores: torch.Tensor, k: int):
+    """K6's selection over its exact coarse plane ``scores`` [B, N]
+    (masked -inf): tau from the tile tops, the columns that reach it, the
+    best k among them (or over the whole row where tau is -inf or the
+    list overflows). Equal to ``stable_topk(scores, k)``; returns (s, d,
+    whole)."""
+    tau = tile_threshold(scores, k)
+    keep = (scores >= tau[:, None]) & (tau[:, None] > -torch.inf)
+    return select_listed(scores, keep, k, list_cap(k))
+
+
+def screen_gamma(dims: int) -> float:
+    """K5's bound on |dot_tc - dot_plain| / (|x^| |q^|): 5 D 2^-24
+    (1 + 2^-8) over D padded to a multiple of 64 (csrc/knn_tc.cuh section
+    4, csrc/ivf_assign.cu's derivation)."""
+    dp = -(-dims // SCREEN_BK) * SCREEN_BK
+    return 5.0 * dp * _U * (1.0 + 2.0 ** -8)
+
+
+def screen_norms(m: torch.Tensor) -> torch.Tensor:
+    """[rows] f32: each bf16-rounded row's L2 norm inflated by 2^-10, as
+    the screen computes |x^| and |q^| while staging."""
+    b = _bf16(m)
+    return torch.sqrt((b * b).sum(dim=1)) * (1.0 + 2.0 ** -10)
+
+
+def screen_bound(matrix: torch.Tensor, queries: torch.Tensor
+                 ) -> torch.Tensor:
+    """[B, N] f32: e = |x^| |q^| gamma (1 + 2^-8) + 2^-100, the most by
+    which a tensor-core dot of the bf16 operands may stand from the plain
+    dot."""
+    g1 = screen_gamma(matrix.shape[1]) * (1.0 + 2.0 ** -8)
+    p = screen_norms(queries)[:, None] * screen_norms(matrix)[None, :]
+    return p * g1 + _SCREEN_ABS
+
+
+def screen_bounds(dots, matrix, norms, allowed, queries, qn, q2,
+                  similarity: str = "cosine", masks=None):
+    """(lo, hi) [B, N] f32: the transform of dots -/+ e for screen sums
+    ``dots`` (any summation order of the bf16 products), -inf where the
+    doc is masked; lo <= the plain score <= hi, bit for bit."""
+    e = screen_bound(matrix, queries)
+    ok = _row_mask(allowed, masks)
+    lo = _similarity(dots - e, norms[None, :], qn, q2, similarity)
+    hi = _similarity(dots + e, norms[None, :], qn, q2, similarity)
+    return (torch.where(ok, lo, _neg_inf(lo)),
+            torch.where(ok, hi, _neg_inf(hi)))
+
+
+def screen_candidates(dots, matrix, norms, allowed, queries, qn, q2, k: int,
+                      similarity: str = "cosine", masks=None):
+    """bool [B, N]: the docs K5's screen lists for re-scoring, the upper
+    bounds that reach tau, the k-th largest tile top of the lower bounds
+    (none where tau is -inf: that row is scored whole)."""
+    lo, hi = screen_bounds(dots, matrix, norms, allowed, queries, qn, q2,
+                           similarity, masks)
+    tau = tile_threshold(lo, k)
+    return (hi >= tau[:, None]) & (tau[:, None] > -torch.inf)
+
+
+def knn_flat_screened(dots, matrix, norms, allowed, queries, qn, q2, k: int,
+                      similarity: str = "cosine", masks=None):
+    """K5's answer from screen sums ``dots``: the exact scores of the
+    screened docs (or of every doc of a row the screen cannot decide), the
+    best k of them. Equal to ``knn_flat_plain``; returns (s, d, whole)."""
+    keep = screen_candidates(dots, matrix, norms, allowed, queries, qn, q2,
+                             k, similarity, masks)
+    exact = _similarity(_flat_dots(matrix, queries), norms[None, :], qn, q2,
+                        similarity)
+    exact = torch.where(_row_mask(allowed, masks), exact, _neg_inf(exact))
+    return select_listed(exact, keep, k, list_cap(k))
+
+
+# ---------------------------------------------------------------------------
 # kernel wrappers
 # ---------------------------------------------------------------------------
 
 _SIG = {
-    "knn_flat": ["p"] * 7 + ["i", "i", "ll", "i", "i"] + ["p"] * 6,
+    "knn_flat": ["p"] * 7 + ["i", "i", "ll", "i", "i"] + ["p"] * 7,
     "knn_coarse": ["p"] * 9 + ["i", "i", "ll", "i", "i"] + ["p"] * 6,
     "knn_rerank": ["p"] * 9 + ["i", "ll"] + ["i"] * 4 + ["p"] * 4,
     "knn_scores": ["p"] * 6 + ["i", "ll", "i"] + ["p"] * 2,
 }
+_SCRATCH_FNS: Dict[str, object] = {}
+# the rows each card family selected over the whole row (K6) or scored in
+# the exact branch (K5): a device counter a (family, device)
+_FULL: Dict[Tuple[str, str], torch.Tensor] = {}
 
 
 def _launch(family: str, *args) -> None:
     launch_kernel(family, _SIG[family], *args)
+
+
+@functools.lru_cache(maxsize=4096)
+def scratch_bytes(family: str, *shape: int) -> int:
+    """Bytes of one launch's scratch, from the kernel's own
+    ``<family>_scratch`` (shape: [n_slots,] n_q, dims, n_docs_pad, k)."""
+    fn = _SCRATCH_FNS.get(family)
+    if fn is None:
+        from elasticsearch_tpu_torch._build import library
+        fn = getattr(library(family), f"{family}_scratch")
+        fn.restype = ctypes.c_longlong
+        fn.argtypes = ([ctypes.c_int] * (len(shape) - 2)
+                       + [ctypes.c_longlong, ctypes.c_int])
+        _SCRATCH_FNS[family] = fn
+    return int(fn(*shape))
+
+
+def full_counter(family: str, dev) -> torch.Tensor:
+    """The device counter of ``family``'s whole-row selections on ``dev``
+    (int32 [1]); the kernel adds to it, nothing reads it on the way."""
+    key = (family, str(dev))
+    t = _FULL.get(key)
+    if t is None:
+        t = _FULL[key] = torch.zeros(1, dtype=torch.int32, device=dev)
+    return t
+
+
+def full_rows() -> Dict[str, int]:
+    """family -> rows selected whole (K6, row 36) or scored by the exact
+    branch (K5, row 39) on the card since ``reset_full_rows``
+    (synchronises)."""
+    out: Dict[str, int] = {}
+    for (fam, _dev), t in _FULL.items():
+        out[fam] = out.get(fam, 0) + int(t.item())
+    return out
+
+
+def reset_full_rows() -> None:
+    for t in _FULL.values():
+        t.zero_()
+
+
+def split_buffer(split: bool):
+    """(a host float array for a launch's stage times, its address or 0)."""
+    if not split:
+        return None, 0
+    arr = (ctypes.c_float * len(SPLIT))()
+    return arr, ctypes.addressof(arr)
+
+
+def split_of(arr) -> Dict[str, float]:
+    """Stage milliseconds by name, with their sum as ``selection`` for
+    the threshold, the list and the final selection."""
+    ms = {name: float(arr[i]) for i, name in enumerate(SPLIT)}
+    ms["selection"] = ms["threshold"] + ms["list"] + ms["final"]
+    return ms
 
 
 def _sim_code(similarity: str) -> int:
@@ -305,21 +512,7 @@ def _family(name: str, masks) -> str:
     return name if masks is None else f"{name}_masked"
 
 
-def _topk_scratch(n_q: int, n_docs_pad: int, k: int, dev):
-    ck = chunk_entries(n_q, n_docs_pad, k)
-    return (torch.empty(n_q * n_docs_pad, dtype=torch.float32, device=dev),
-            torch.empty(ck, dtype=torch.float32, device=dev),
-            torch.empty(ck, dtype=torch.int32, device=dev),
-            torch.empty(n_q, k, dtype=torch.float32, device=dev),
-            torch.empty(n_q, k, dtype=torch.int32, device=dev))
-
-
-def knn_flat(matrix, norms, allowed, queries, qn, q2, k: int,
-             similarity: str = "cosine", masks=None):
-    """K5. Exact batched kNN top-k: (scores [B, k] f32, docs [B, k]
-    int32) of queries [B, D] f32 against matrix [N_pad, D] f32 (both
-    rounded to bf16, f32 sums), masked to ``allowed`` [N_pad] bool and,
-    when given, to each query's row of ``masks`` [B, N_pad] bool."""
+def _flat_shape(matrix, norms, allowed, queries, qn, q2, k: int, masks):
     cuda = _on_cuda(matrix, norms, allowed, queries, qn, q2,
                     *([] if masks is None else [masks]))
     n_pad, dims = _check_rows("matrix", matrix, torch.float32)
@@ -331,28 +524,68 @@ def knn_flat(matrix, norms, allowed, queries, qn, q2, k: int,
     _check_masks(masks, n_q, n_pad)
     _check_query_terms(qn, q2, n_q)
     _check_k("k", k, n_pad, cap=n_pad)
+    return cuda, n_pad, dims, n_q
+
+
+def _flat_launch(matrix, norms, allowed, queries, qn, q2, k, similarity,
+                 masks, n_pad, dims, n_q, full, probe=None, split_addr=0):
+    dev = matrix.device
+    scratch = torch.empty(scratch_bytes("knn_flat", n_q, dims, n_pad, k),
+                          dtype=torch.uint8, device=dev)
+    s = torch.empty(n_q, k, dtype=torch.float32, device=dev)
+    d = torch.empty(n_q, k, dtype=torch.int32, device=dev)
+    _launch("knn_flat", _ptr(matrix), _ptr(norms), _ptr(allowed),
+            _opt_ptr(masks), _ptr(queries), _ptr(qn), _ptr(q2), n_q, dims,
+            n_pad, k, _sim_code(similarity), _ptr(scratch), _ptr(full),
+            _ptr(s), _ptr(d), _opt_ptr(probe), split_addr, _stream())
+    return s, d
+
+
+def knn_flat(matrix, norms, allowed, queries, qn, q2, k: int,
+             similarity: str = "cosine", masks=None):
+    """K5. Exact batched kNN top-k: (scores [B, k] f32, docs [B, k]
+    int32) of queries [B, D] f32 against matrix [N_pad, D] f32 (both
+    rounded to bf16, f32 sums), masked to ``allowed`` [N_pad] bool and,
+    when given, to each query's row of ``masks`` [B, N_pad] bool; any
+    1 <= k <= N_pad."""
+    cuda, n_pad, dims, n_q = _flat_shape(matrix, norms, allowed, queries,
+                                         qn, q2, k, masks)
+    family = _family("knn_flat", masks)
     label = f"n_docs_pad={n_pad}/dims={dims}/n_q={n_q}/k={k}"
-    with DEVICE_PROFILE.call(_family("knn_flat", masks), label, cuda):
+    with DEVICE_PROFILE.call(family, label, cuda):
         if not cuda:
             return knn_flat_plain(matrix, norms, allowed, queries, qn, q2,
                                   k, similarity, masks)
-        plane, chunk_s, chunk_i, s, d = _topk_scratch(n_q, n_pad, k,
-                                                      matrix.device)
-        _launch("knn_flat", _ptr(matrix), _ptr(norms), _ptr(allowed),
-                _opt_ptr(masks), _ptr(queries), _ptr(qn), _ptr(q2), n_q, dims, n_pad, k,
-                _sim_code(similarity), _ptr(plane), _ptr(chunk_s),
-                _ptr(chunk_i), _ptr(s), _ptr(d), _stream())
-        return s, d
+        return _flat_launch(matrix, norms, allowed, queries, qn, q2, k,
+                            similarity, masks, n_pad, dims, n_q,
+                            full_counter(family, matrix.device))
 
 
-def knn_coarse(q8, scales, norms, allowed, qq, qscale, qn, q2, kprime: int,
-               similarity: str = "cosine", masks=None):
-    """K6. The quantized coarse pass: (coarse scores [B, k'] f32,
-    candidate docs [B, k'] int32) of the int8 queries ``qq`` [B, D] (scale
-    ``qscale`` [B]) against the int8 mirror ``q8`` [N_pad, D] (scale
-    ``scales`` [N_pad]), int32 sums rescaled by qscale * scales, the
-    transform with the f32 queries' ``qn``/``q2``, masked to ``allowed``
-    (and to each query's row of ``masks`` [B, N_pad] when given)."""
+def knn_flat_probe(matrix, norms, allowed, queries, qn, q2, k: int,
+                   similarity: str = "cosine", masks=None,
+                   dots: bool = False) -> dict:
+    """K5 on the card, uncounted and synchronised: {"out": (s, d),
+    "split_ms": the stages' milliseconds (``split_of``), "full_rows":
+    rows that took the exact branch, "dots": the tensor cores' raw dots
+    [B, N_pad] when ``dots``, else None}."""
+    cuda, n_pad, dims, n_q = _flat_shape(matrix, norms, allowed, queries,
+                                         qn, q2, k, masks)
+    if not cuda:
+        raise ValueError("knn_flat_probe runs on the card")
+    dev = matrix.device
+    full = torch.zeros(1, dtype=torch.int32, device=dev)
+    probe = (torch.full((n_q, n_pad), torch.nan, device=dev) if dots
+             else None)
+    arr, addr = split_buffer(True)
+    out = _flat_launch(matrix, norms, allowed, queries, qn, q2, k,
+                       similarity, masks, n_pad, dims, n_q, full, probe,
+                       addr)
+    return {"out": out, "split_ms": split_of(arr),
+            "full_rows": int(full.item()), "dots": probe}
+
+
+def _coarse_shape(q8, scales, norms, allowed, qq, qscale, qn, q2, kprime,
+                  masks):
     cuda = _on_cuda(q8, scales, norms, allowed, qq, qscale, qn, q2,
                     *([] if masks is None else [masks]))
     n_pad, dims = _check_rows("q8", q8, torch.int8)
@@ -366,21 +599,65 @@ def knn_coarse(q8, scales, norms, allowed, qq, qscale, qn, q2, kprime: int,
     _check_masks(masks, n_q, n_pad)
     _check_query_terms(qn, q2, n_q)
     _check_k("kprime", kprime, n_pad)
+    return cuda, n_pad, dims, n_q
+
+
+def _coarse_launch(q8, scales, norms, allowed, qq, qscale, qn, q2, kprime,
+                   similarity, masks, n_pad, dims, n_q, full, split_addr=0):
+    dev = q8.device
+    scratch = torch.empty(
+        scratch_bytes("knn_coarse", n_q, dims, n_pad, kprime),
+        dtype=torch.uint8, device=dev)
+    cs = torch.empty(n_q, kprime, dtype=torch.float32, device=dev)
+    cand = torch.empty(n_q, kprime, dtype=torch.int32, device=dev)
+    _launch("knn_coarse", _ptr(q8), _ptr(scales), _ptr(norms),
+            _ptr(allowed), _opt_ptr(masks), _ptr(qq), _ptr(qscale),
+            _ptr(qn), _ptr(q2), n_q, dims, n_pad, kprime,
+            _sim_code(similarity), _ptr(scratch), _ptr(full), _ptr(cs),
+            _ptr(cand), split_addr, _stream())
+    return cs, cand
+
+
+def knn_coarse(q8, scales, norms, allowed, qq, qscale, qn, q2, kprime: int,
+               similarity: str = "cosine", masks=None):
+    """K6. The quantized coarse pass: (coarse scores [B, k'] f32,
+    candidate docs [B, k'] int32) of the int8 queries ``qq`` [B, D] (scale
+    ``qscale`` [B]) against the int8 mirror ``q8`` [N_pad, D] (scale
+    ``scales`` [N_pad]), int32 sums rescaled by qscale * scales, the
+    transform with the f32 queries' ``qn``/``q2``, masked to ``allowed``
+    (and to each query's row of ``masks`` [B, N_pad] when given)."""
+    cuda, n_pad, dims, n_q = _coarse_shape(q8, scales, norms, allowed, qq,
+                                           qscale, qn, q2, kprime, masks)
+    family = _family("knn_coarse", masks)
     with DEVICE_PROFILE.call(
-            _family("knn_coarse", masks),
+            family,
             f"n_docs_pad={n_pad}/dims={dims}/n_q={n_q}/kprime={kprime}",
             cuda):
         if not cuda:
             return knn_coarse_plain(q8, scales, norms, allowed, qq, qscale,
                                     qn, q2, kprime, similarity, masks)
-        plane, chunk_s, chunk_i, cs, cand = _topk_scratch(n_q, n_pad, kprime,
-                                                          q8.device)
-        _launch("knn_coarse", _ptr(q8), _ptr(scales), _ptr(norms),
-                _ptr(allowed), _opt_ptr(masks), _ptr(qq), _ptr(qscale), _ptr(qn), _ptr(q2),
-                n_q, dims, n_pad, kprime, _sim_code(similarity), _ptr(plane),
-                _ptr(chunk_s), _ptr(chunk_i), _ptr(cs), _ptr(cand),
-                _stream())
-        return cs, cand
+        return _coarse_launch(q8, scales, norms, allowed, qq, qscale, qn, q2,
+                              kprime, similarity, masks, n_pad, dims, n_q,
+                              full_counter(family, q8.device))
+
+
+def knn_coarse_probe(q8, scales, norms, allowed, qq, qscale, qn, q2,
+                     kprime: int, similarity: str = "cosine",
+                     masks=None) -> dict:
+    """K6 on the card, uncounted and synchronised: {"out": (cs, cand),
+    "split_ms": the stages' milliseconds, "full_rows": rows selected over
+    the whole row}."""
+    cuda, n_pad, dims, n_q = _coarse_shape(q8, scales, norms, allowed, qq,
+                                           qscale, qn, q2, kprime, masks)
+    if not cuda:
+        raise ValueError("knn_coarse_probe runs on the card")
+    full = torch.zeros(1, dtype=torch.int32, device=q8.device)
+    arr, addr = split_buffer(True)
+    out = _coarse_launch(q8, scales, norms, allowed, qq, qscale, qn, q2,
+                         kprime, similarity, masks, n_pad, dims, n_q, full,
+                         addr)
+    return {"out": out, "split_ms": split_of(arr),
+            "full_rows": int(full.item())}
 
 
 def knn_rerank(matrix, norms, allowed, queries, qn, q2, cand, coarse_s,

@@ -71,6 +71,23 @@ def dense_topk_by_keys(scores: torch.Tensor, k: int
     return scores[d], d.to(torch.int32)
 
 
+def rows_topk_by_keys(values: torch.Tensor, ids: torch.Tensor, n: int,
+                      k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``csrc/rows_select.cuh``'s selection in plain PyTorch: each row of
+    ``values`` [R, m] (entries indexed by ``ids`` [R, m], distinct ids
+    in [0, n) a row) keyed as K10 keys an entry (``score_words`` high,
+    n - 1 - id low), the k largest keys, the score decoded from the key
+    and the id from its low word. -> (s [R, k] f32, d [R, k] int32)."""
+    keys = ((score_words(values) - (1 << 31)) * (1 << 32)
+            + (n - 1 - ids.long()))
+    top = torch.sort(keys, dim=1, descending=True).values[:, :k]
+    words = (top >> 32) + (1 << 31)
+    u = torch.where(words >= (1 << 31), words - (1 << 31),
+                    words ^ 0xFFFFFFFF)
+    s = u.to(torch.int64).to(torch.int32).view(torch.float32)
+    return s, (n - 1 - (top & 0xFFFFFFFF)).to(torch.int32)
+
+
 def dense_topk_plain(scores: torch.Tensor, k: int
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
     """A stable sort of ``score_words``: score descending with +0.0 above

@@ -55,8 +55,9 @@ from elasticsearch_tpu_torch.ops.bm25 import (
     bm25_rerank_plain, chunk_entries, launch_kernel,
 )
 from elasticsearch_tpu_torch.ops.knn import (
-    MAX_DIMS, _check_query_terms, _opt_ptr, _sim_code, knn_coarse_plain,
-    knn_flat_plain, knn_rerank_plain,
+    MAX_DIMS, _check_query_terms, _opt_ptr, _sim_code, full_counter,
+    knn_coarse_plain, knn_flat_plain, knn_rerank_plain, scratch_bytes,
+    split_buffer, split_of,
 )
 from elasticsearch_tpu_torch.ops.sparse import (
     MAX_QUERIES, sparse_coarse_plain, sparse_flat_plain, sparse_rerank_plain,
@@ -238,7 +239,7 @@ _SIG = {
     "mesh_bm25_rerank": ["p"] * 10 + ["i", "ll", "i", "ll", "i", "i", "i"]
     + ["f"] * 4 + ["p"] * 7,
     "mesh_knn_topk": ["p"] * 7 + ["i", "i", "i", "ll", "i", "i"]
-    + ["p"] * 6,
+    + ["p"] * 7,
     "mesh_knn_coarse": ["p"] * 9 + ["i", "i", "i", "ll", "i", "i"]
     + ["p"] * 6,
     "mesh_knn_rerank": ["p"] * 9 + ["i", "i", "ll", "i", "i", "i", "i"]
@@ -538,15 +539,9 @@ def mesh_knn_rerank_plain(matrix, norms, allowed, queries, qn, q2, cand,
     return tuple(torch.stack([o[j] for o in outs]) for j in range(3))
 
 
-def mesh_knn_topk(matrix, norms, allowed, queries, qn, q2, k: int,
-                  similarity: str = "cosine", masks=None):
-    """Row 39. The exact kNN top-k of every slot of the stacked vector
-    planes in one launch: matrix [S, N_pad, D] f32, norms / allowed
-    [S, N_pad], queries [Q, D] f32 with their ``qn`` / ``q2`` [Q], and,
-    when given, per-query filter rows ``masks`` [S, Q, N_pad] bool. Returns
-    (scores [S, Q, k] f32, plane docs [S, Q, k] int32); each slot is
-    ``knn_flat`` (K5) on that slot's plane. Any 1 <= k <= N_pad (the
-    selection's rounds above KMAX)."""
+def _mesh_flat_shape(matrix, norms, allowed, queries, qn, q2, k,
+                     similarity, masks):
+    _sim_code(similarity)
     cuda = _on_cuda(matrix, norms, allowed, queries, qn, q2,
                     *([] if masks is None else [masks]))
     s, n_pad, dims = _check_vector_stack("matrix", matrix, torch.float32,
@@ -556,39 +551,75 @@ def mesh_knn_topk(matrix, norms, allowed, queries, qn, q2, k: int,
     _check_mask_stack(masks, s, n_q, n_pad)
     if not 1 <= k <= n_pad:
         raise ValueError(f"k={k} outside [1, {n_pad}]")
-    code = _sim_code(similarity)
+    return cuda, s, n_pad, dims, n_q
+
+
+def _mesh_flat_launch(matrix, norms, allowed, queries, qn, q2, k,
+                      similarity, masks, s, n_pad, dims, n_q, full,
+                      probe=None, split_addr=0):
+    dev = matrix.device
+    scratch = torch.empty(
+        scratch_bytes("mesh_knn_topk", s, n_q, dims, n_pad, k),
+        dtype=torch.uint8, device=dev)
+    out_s = torch.empty(s, n_q, k, dtype=torch.float32, device=dev)
+    out_d = torch.empty(s, n_q, k, dtype=torch.int32, device=dev)
+    launch_kernel(
+        "mesh_knn_topk", _SIG["mesh_knn_topk"], _ptr(matrix), _ptr(norms),
+        _ptr(allowed), _opt_ptr(masks), _ptr(queries), _ptr(qn), _ptr(q2),
+        s, n_q, dims, n_pad, k, _sim_code(similarity), _ptr(scratch),
+        _ptr(full), _ptr(out_s), _ptr(out_d), _opt_ptr(probe), split_addr,
+        _stream())
+    return out_s, out_d
+
+
+def mesh_knn_topk(matrix, norms, allowed, queries, qn, q2, k: int,
+                  similarity: str = "cosine", masks=None):
+    """Row 39. The exact kNN top-k of every slot of the stacked vector
+    planes in one launch: matrix [S, N_pad, D] f32, norms / allowed
+    [S, N_pad], queries [Q, D] f32 with their ``qn`` / ``q2`` [Q], and,
+    when given, per-query filter rows ``masks`` [S, Q, N_pad] bool. Returns
+    (scores [S, Q, k] f32, plane docs [S, Q, k] int32); each slot is
+    ``knn_flat`` (K5) on that slot's plane. Any 1 <= k <= N_pad."""
+    cuda, s, n_pad, dims, n_q = _mesh_flat_shape(matrix, norms, allowed,
+                                                 queries, qn, q2, k,
+                                                 similarity, masks)
     with DEVICE_PROFILE.call("mesh_knn_topk",
                              _knn_label(s, n_pad, dims, n_q, k, masks),
                              cuda):
         if not cuda:
             return mesh_knn_topk_plain(matrix, norms, allowed, queries, qn,
                                        q2, k, similarity, masks)
-        dev = matrix.device
-        rows = s * n_q
-        plane = torch.empty(rows * n_pad, dtype=torch.float32, device=dev)
-        ck = chunk_entries(rows, n_pad, k)
-        chunk_s = torch.empty(ck, dtype=torch.float32, device=dev)
-        chunk_i = torch.empty(ck, dtype=torch.int32, device=dev)
-        out_s = torch.empty(s, n_q, k, dtype=torch.float32, device=dev)
-        out_d = torch.empty(s, n_q, k, dtype=torch.int32, device=dev)
-        launch_kernel(
-            "mesh_knn_topk", _SIG["mesh_knn_topk"], _ptr(matrix),
-            _ptr(norms), _ptr(allowed), _opt_ptr(masks), _ptr(queries),
-            _ptr(qn), _ptr(q2), s, n_q, dims, n_pad, k, code, _ptr(plane),
-            _ptr(chunk_s), _ptr(chunk_i), _ptr(out_s), _ptr(out_d),
-            _stream())
-        return out_s, out_d
+        return _mesh_flat_launch(
+            matrix, norms, allowed, queries, qn, q2, k, similarity, masks, s,
+            n_pad, dims, n_q, full_counter("mesh_knn_topk", matrix.device))
 
 
-def mesh_knn_coarse(q8, scales, norms, allowed, qq, qscale, qn, q2,
-                    kprime: int, similarity: str = "cosine", masks=None):
-    """Row 36. The int8 coarse pass of every slot in one launch: the
-    stacked mirror q8 [S, N_pad, D] int8 with ``scales`` [S, N_pad], norms
-    / allowed [S, N_pad], the queries quantized once on the host for all
-    slots (qq [Q, D] int8, qscale [Q]) with the f32 queries' ``qn`` /
-    ``q2``, and optional ``masks`` [S, Q, N_pad]. Returns (coarse scores
-    [S, Q, k'] f32, candidates [S, Q, k'] int32); each slot is
-    ``knn_coarse`` (K6) on that slot's mirror."""
+def mesh_knn_topk_probe(matrix, norms, allowed, queries, qn, q2, k: int,
+                        similarity: str = "cosine", masks=None,
+                        dots: bool = False) -> dict:
+    """Row 39 on the card, uncounted and synchronised, as
+    ``ops/knn.py`` ``knn_flat_probe``: its output, stage times, exact
+    branch rows and (``dots``) the raw tensor-core dots [S, Q, N_pad]."""
+    cuda, s, n_pad, dims, n_q = _mesh_flat_shape(matrix, norms, allowed,
+                                                 queries, qn, q2, k,
+                                                 similarity, masks)
+    if not cuda:
+        raise ValueError("mesh_knn_topk_probe runs on the card")
+    dev = matrix.device
+    full = torch.zeros(1, dtype=torch.int32, device=dev)
+    probe = (torch.full((s, n_q, n_pad), torch.nan, device=dev) if dots
+             else None)
+    arr, addr = split_buffer(True)
+    out = _mesh_flat_launch(matrix, norms, allowed, queries, qn, q2, k,
+                            similarity, masks, s, n_pad, dims, n_q, full,
+                            probe, addr)
+    return {"out": out, "split_ms": split_of(arr),
+            "full_rows": int(full.item()), "dots": probe}
+
+
+def _mesh_coarse_shape(q8, scales, norms, allowed, qq, qscale, qn, q2,
+                       kprime, similarity, masks):
+    _sim_code(similarity)
     cuda = _on_cuda(q8, scales, norms, allowed, qq, qscale, qn, q2,
                     *([] if masks is None else [masks]))
     s, n_pad, dims = _check_vector_stack("q8", q8, torch.int8, norms,
@@ -602,7 +633,39 @@ def mesh_knn_coarse(q8, scales, norms, allowed, qq, qscale, qn, q2,
     _check_mask_stack(masks, s, n_q, n_pad)
     if not 1 <= kprime <= min(KMAX, n_pad):
         raise ValueError(f"kprime={kprime} outside [1, {min(KMAX, n_pad)}]")
-    code = _sim_code(similarity)
+    return cuda, s, n_pad, dims, n_q
+
+
+def _mesh_coarse_launch(q8, scales, norms, allowed, qq, qscale, qn, q2,
+                        kprime, similarity, masks, s, n_pad, dims, n_q, full,
+                        split_addr=0):
+    dev = q8.device
+    scratch = torch.empty(
+        scratch_bytes("mesh_knn_coarse", s, n_q, dims, n_pad, kprime),
+        dtype=torch.uint8, device=dev)
+    cs = torch.empty(s, n_q, kprime, dtype=torch.float32, device=dev)
+    cand = torch.empty(s, n_q, kprime, dtype=torch.int32, device=dev)
+    launch_kernel(
+        "mesh_knn_coarse", _SIG["mesh_knn_coarse"], _ptr(q8), _ptr(scales),
+        _ptr(norms), _ptr(allowed), _opt_ptr(masks), _ptr(qq), _ptr(qscale),
+        _ptr(qn), _ptr(q2), s, n_q, dims, n_pad, kprime,
+        _sim_code(similarity), _ptr(scratch), _ptr(full), _ptr(cs),
+        _ptr(cand), split_addr, _stream())
+    return cs, cand
+
+
+def mesh_knn_coarse(q8, scales, norms, allowed, qq, qscale, qn, q2,
+                    kprime: int, similarity: str = "cosine", masks=None):
+    """Row 36. The int8 coarse pass of every slot in one launch: the
+    stacked mirror q8 [S, N_pad, D] int8 with ``scales`` [S, N_pad], norms
+    / allowed [S, N_pad], the queries quantized once on the host for all
+    slots (qq [Q, D] int8, qscale [Q]) with the f32 queries' ``qn`` /
+    ``q2``, and optional ``masks`` [S, Q, N_pad]. Returns (coarse scores
+    [S, Q, k'] f32, candidates [S, Q, k'] int32); each slot is
+    ``knn_coarse`` (K6) on that slot's mirror."""
+    cuda, s, n_pad, dims, n_q = _mesh_coarse_shape(
+        q8, scales, norms, allowed, qq, qscale, qn, q2, kprime, similarity,
+        masks)
     with DEVICE_PROFILE.call("mesh_knn_coarse",
                              _knn_label(s, n_pad, dims, n_q, kprime, masks),
                              cuda):
@@ -610,21 +673,29 @@ def mesh_knn_coarse(q8, scales, norms, allowed, qq, qscale, qn, q2,
             return mesh_knn_coarse_plain(q8, scales, norms, allowed, qq,
                                          qscale, qn, q2, kprime, similarity,
                                          masks)
-        dev = q8.device
-        rows = s * n_q
-        plane = torch.empty(rows * n_pad, dtype=torch.float32, device=dev)
-        ck = chunk_entries(rows, n_pad, kprime)
-        chunk_s = torch.empty(ck, dtype=torch.float32, device=dev)
-        chunk_i = torch.empty(ck, dtype=torch.int32, device=dev)
-        cs = torch.empty(s, n_q, kprime, dtype=torch.float32, device=dev)
-        cand = torch.empty(s, n_q, kprime, dtype=torch.int32, device=dev)
-        launch_kernel(
-            "mesh_knn_coarse", _SIG["mesh_knn_coarse"], _ptr(q8),
-            _ptr(scales), _ptr(norms), _ptr(allowed), _opt_ptr(masks),
-            _ptr(qq), _ptr(qscale), _ptr(qn), _ptr(q2), s, n_q, dims, n_pad,
-            kprime, code, _ptr(plane), _ptr(chunk_s), _ptr(chunk_i),
-            _ptr(cs), _ptr(cand), _stream())
-        return cs, cand
+        return _mesh_coarse_launch(
+            q8, scales, norms, allowed, qq, qscale, qn, q2, kprime,
+            similarity, masks, s, n_pad, dims, n_q,
+            full_counter("mesh_knn_coarse", q8.device))
+
+
+def mesh_knn_coarse_probe(q8, scales, norms, allowed, qq, qscale, qn, q2,
+                          kprime: int, similarity: str = "cosine",
+                          masks=None) -> dict:
+    """Row 36 on the card, uncounted and synchronised, as ``ops/knn.py``
+    ``knn_coarse_probe``."""
+    cuda, s, n_pad, dims, n_q = _mesh_coarse_shape(
+        q8, scales, norms, allowed, qq, qscale, qn, q2, kprime, similarity,
+        masks)
+    if not cuda:
+        raise ValueError("mesh_knn_coarse_probe runs on the card")
+    full = torch.zeros(1, dtype=torch.int32, device=q8.device)
+    arr, addr = split_buffer(True)
+    out = _mesh_coarse_launch(q8, scales, norms, allowed, qq, qscale, qn, q2,
+                              kprime, similarity, masks, s, n_pad, dims, n_q,
+                              full, addr)
+    return {"out": out, "split_ms": split_of(arr),
+            "full_rows": int(full.item())}
 
 
 def mesh_knn_rerank(matrix, norms, allowed, queries, qn, q2, cand, coarse_s,

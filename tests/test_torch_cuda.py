@@ -62,12 +62,15 @@ def test_kernels_match_plain_versions_on_the_card():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dims,n_q", [(128, 8), (960, 3), (5, 1)])
+@pytest.mark.parametrize("dims,n_q", [(128, 8), (960, 3), (5, 1), (768, 64),
+                                      (128, 1)])
 @pytest.mark.parametrize("sim", ["cosine", "dot_product", "l2_norm"])
 def test_knn_kernels_match_plain_versions_on_the_card(dims, n_q, sim):
     """knn_flat, knn_coarse and knn_rerank bitwise equal to their plain
-    versions over 200,000 docs (four 65,536-doc chunks: the merge pass
-    runs), with dead docs, missing vectors, ties and a zero query row."""
+    versions over 200,000 docs, with dead docs, missing vectors, ties and
+    a zero query row: B 1 to 64, D 5 to 960 (5 takes the unaligned
+    staging), k 100, 10,000 (the wide window) and 20,000 (above one CTA's
+    sort of the selection's survivors), k' 512 and 1,024."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernels have no CPU mode")
     m, norms, exists, live, q = make_knn_inputs(
@@ -79,14 +82,16 @@ def test_knn_kernels_match_plain_versions_on_the_card(dims, n_q, sim):
     batch = knn.QueryBatch(q, "cuda")
     qq, qscale = batch.quantized()
     args = (m, norms, allowed, batch.queries, batch.qn, batch.q2)
-    for g, w in zip(knn.knn_flat(*args, 100, sim),
-                    knn.knn_flat_plain(*args, 100, sim)):
-        assert torch.equal(g, w)
+    for k in (100, 10_000, 20_000):
+        for g, w in zip(knn.knn_flat(*args, k, sim),
+                        knn.knn_flat_plain(*args, k, sim)):
+            assert torch.equal(g, w)
     cargs = (q8, scales, norms, allowed, qq, qscale, batch.qn, batch.q2)
-    got = knn.knn_coarse(*cargs, 512, sim)
-    want = knn.knn_coarse_plain(*cargs, 512, sim)
-    for g, w in zip(got, want):
-        assert torch.equal(g, w)
+    for kprime in (1024, 512):
+        got = knn.knn_coarse(*cargs, kprime, sim)
+        want = knn.knn_coarse_plain(*cargs, kprime, sim)
+        for g, w in zip(got, want):
+            assert torch.equal(g, w)
     cs, cand = want
     got = knn.knn_rerank(*args, cand, cs, 10, sim)
     want = knn.knn_rerank_plain(*args, cand, cs, 10, sim)
@@ -134,34 +139,40 @@ def test_dense_kernels_match_plain_versions_on_the_card(sim):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dims,n_q", [(128, 5), (768, 64)])
 @pytest.mark.parametrize("sim", ["cosine", "dot_product", "l2_norm"])
-def test_masked_knn_kernels_match_plain_versions_on_the_card(sim):
+def test_masked_knn_kernels_match_plain_versions_on_the_card(sim, dims, n_q):
     """knn_flat, knn_coarse and knn_rerank with a per-query mask stack
-    (an all-False row, pow2 padding rows) bitwise equal to their plain
-    versions, and each masked row to the unmasked kernel on allowed &
-    that row."""
+    (an all-False row, a row leaving 7 docs, pow2 padding rows) bitwise
+    equal to their plain versions at k 100 and 5,000 and k' 512 and 1,024,
+    and each masked row to the unmasked kernel on allowed & that row."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernels have no CPU mode")
     m, norms, exists, live, q = make_knn_inputs(
-        16, 128, 5, "gauss", 200_000, 262_144)
+        16, dims, n_q, "gauss", 200_000, 262_144)
     q8, scales = quantize_rows(m)
     T = lambda a: torch.as_tensor(a).cuda()  # noqa: E731
     m, norms, allowed = T(m), T(norms), T(live & exists)
     q8, scales = T(q8), T(scales)
     batch = knn.QueryBatch(q, "cuda")
     gen = torch.Generator().manual_seed(17)
-    rows = torch.rand(5, 262_144, generator=gen) < 0.05
+    rows = torch.rand(n_q, 262_144, generator=gen) < 0.05
     rows[0] = False
-    masks = T(knn.pad_mask_rows_pow2(rows.numpy(), 8))
+    rows[1] = False
+    rows[1, 1000:1007] = True
+    masks = T(knn.pad_mask_rows_pow2(rows.numpy(), batch.queries.shape[0]))
     qq, qscale = batch.quantized()
     args = (m, norms, allowed, batch.queries, batch.qn, batch.q2)
-    flat = knn.knn_flat(*args, 100, sim, masks)
-    for g, w in zip(flat, knn.knn_flat_plain(*args, 100, sim, masks)):
-        assert torch.equal(g, w)
+    for k in (5000, 100):
+        flat = knn.knn_flat(*args, k, sim, masks)
+        for g, w in zip(flat, knn.knn_flat_plain(*args, k, sim, masks)):
+            assert torch.equal(g, w)
     cargs = (q8, scales, norms, allowed, qq, qscale, batch.qn, batch.q2)
-    coarse = knn.knn_coarse(*cargs, 512, sim, masks)
-    for g, w in zip(coarse, knn.knn_coarse_plain(*cargs, 512, sim, masks)):
-        assert torch.equal(g, w)
+    for kprime in (1024, 512):
+        coarse = knn.knn_coarse(*cargs, kprime, sim, masks)
+        for g, w in zip(coarse, knn.knn_coarse_plain(*cargs, kprime, sim,
+                                                     masks)):
+            assert torch.equal(g, w)
     cs, cand = coarse
     rerank = knn.knn_rerank(*args, cand, cs, 10, sim, masks)
     for g, w in zip(rerank, knn.knn_rerank_plain(*args, cand, cs, 10, sim,
@@ -622,23 +633,24 @@ def test_mesh_kernels_match_plain_versions_on_the_card(n_slots, dp, empty,
 @pytest.mark.cuda
 @pytest.mark.parametrize("masked", [False, True], ids=["unmasked", "masked"])
 @pytest.mark.parametrize("sim", ["cosine", "dot_product", "l2_norm"])
-@pytest.mark.parametrize("n_slots,empty,n_docs,k",
-                         [(2, -1, 900, K), (4, 2, 150_000, K),
-                          (2, -1, 9000, 5000)],
-                         ids=["s2", "s4_empty_chunked", "s2_wide_k"])
-def test_mesh_knn_kernels_match_plain_versions_on_the_card(n_slots, empty,
-                                                           n_docs, k, sim,
-                                                           masked):
+@pytest.mark.parametrize(
+    "n_slots,empty,n_docs,k,n_q,dims,kprime",
+    [(2, -1, 900, K, 4, 16, 256), (4, 2, 150_000, K, 4, 16, 256),
+     (2, -1, 9000, 5000, 4, 16, 256), (4, -1, 150_000, K, 1, 768, 1024),
+     (2, -1, 60_000, 5000, 64, 768, 1024)],
+    ids=["s2", "s4_empty_chunked", "s2_wide_k", "s4_b1_d768_kp1024",
+         "s2_b64_d768_wide_k"])
+def test_mesh_knn_kernels_match_plain_versions_on_the_card(
+        n_slots, empty, n_docs, k, n_q, dims, kprime, sim, masked):
     """mesh_knn_topk / _coarse / _rerank bitwise equal to their plain
     versions, and each slot bitwise equal to K5 / K6 / K7 launched on that
-    slot's plane (chunked planes take the top-k's merge pass, k 5,000 its
-    rounds)."""
+    slot's plane: B 1 to 64, D 16 and 768, k 10 and 5,000, k' 256 and
+    1,024."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernels have no CPU mode")
     from elasticsearch_tpu_torch.parallel import mesh
-    n_q, kprime = 4, 256
-    inp = mesh_knn_inputs(70 + n_slots, n_slots, n_q, kind="gauss",
-                          empty=empty, n_docs=n_docs)
+    inp = mesh_knn_inputs(70 + n_slots, n_slots, n_q, dims=dims,
+                          kind="gauss", empty=empty, n_docs=n_docs)
     m, nr, al, qs = (torch.as_tensor(inp[x]).cuda()
                      for x in ("matrix", "norms", "allowed", "queries"))
     mk = torch.as_tensor(inp["masks"]).cuda() if masked else None
