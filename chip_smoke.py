@@ -12,7 +12,9 @@ Phases, each of which fails the run on any failed check:
    bm25_flat_seg, bm25_coarse, bm25_rerank) against its plain PyTorch
    version on the card, on seeded random inputs at a small and a chunked
    shape: ids, counts and scores must be bitwise equal (the fixed-point
-   design makes them so).
+   design makes them so); then the tile pipeline's edge cases
+   (tests/torch_inputs.py TILE_CASES on the card's tiles, a call at
+   16,777,216 docs, rows 31 / 32 over four slots), bitwise.
 3. knn-small: the kNN kernels (knn_flat, knn_coarse, knn_rerank) against
    their plain versions on seeded Gaussian inputs: three similarities,
    B in {1, 8, 64}, D in {128, 960}, k' up to 1024, dead docs, missing
@@ -32,7 +34,10 @@ Phases, each of which fails the run on any failed check:
    Launch counts are zeroed before phases 4-5 and read right after: every
    BM25 family must have launched. Then each family is held against its
    plain version and timed (CUDA events) on inputs captured from the
-   main path.
+   main path; K1-K3 also print their stage split (binning, tile pass,
+   selection), (row, tile) pairs, extra block reads and reruns through
+   their probes, and a partial library yardstick (index_add_ of the f32
+   contributions + torch.topk).
 6. knn-engine: ``InternalEngine`` + ``SearchService`` on 20,000 seeded
    docs with one 128-dim Gaussian vector each, mapped under the three
    similarities, four segments, a few deletes; 32 knn bodies over planes
@@ -556,6 +561,85 @@ def phase_small(torch, np, dev) -> None:
                     check(exact[d] == sc, "bm25_rerank score != bm25_flat")
         log(f"small: n_docs_pad={n_pad} fb={len(idx)} n_q={n_q}: all four "
             f"families bitwise equal to their plain versions")
+    phase_tiles_small(torch, dev)
+
+
+def tiles_on_card(torch, bm, c, dev, name: str) -> dict:
+    """K1 (counted and not), K2 and K3 on one tile case (tensors of
+    ``tests/torch_inputs.py`` ``tile_case``) against their plain versions
+    on the card, bitwise; K1's probe (uncounted) must refuse no final-list
+    append. Returns the probe."""
+    c = {key: v.to(dev) if torch.is_tensor(v) else v for key, v in c.items()}
+    args = [c[x] for x in ("bd", "bt", "fi", "fw", "fq", "dl", "fa", "live")]
+    n_pad, n_q, k, kp = c["n_pad"], c["n_q"], c["k"], c["kp"]
+    q16 = list(args) + [c["seg"]]
+    q16[1] = q16[1].to(torch.bfloat16)
+    q16[5] = q16[5].to(torch.bfloat16)
+    calls = [("bm25_flat", (*args, n_pad, n_q, k), {"counted": counted})
+             for counted in (False, True)]
+    calls.append(("bm25_flat_seg", (*args, c["seg"], n_pad, n_q, k),
+                  {"n_segs": c["n_segs"]}))
+    calls.append(("bm25_coarse", (*q16, n_pad, n_q, c["n_segs"], kp), {}))
+    for fam, a, kw in calls:
+        got = run_family(bm, fam, a, kw, plain=False)
+        want = run_family(bm, fam, a, kw, plain=True)
+        torch.cuda.synchronize()
+        compare(torch, f"{fam} ({name})", got, want)
+        del got, want
+    probe = bm.bm25_tiles_probe("bm25_flat", *args, n_pad, n_q, k,
+                                counted=True)
+    check(probe["refused"] == 0, f"bm25_flat ({name}): the final list "
+          f"refused {probe['refused']} appends")
+    return probe
+
+
+def phase_tiles_small(torch, dev) -> None:
+    """The tile pipeline's edge cases on the card: each of
+    ``tests/torch_inputs.py``'s TILE_CASES spread onto the card's
+    8,192-doc tiles (blocks spanning many tiles, rows with no entries,
+    the -inf fill in untouched tiles, k above 4,096, k' 4,096 with reruns,
+    dead docs and zero-weight padding, 4,096 segments, a ragged last
+    tile, ties across a tile boundary), a call at 16,777,216 docs, and
+    rows 31 / 32 over S 4 slots: K1-K3 and the mesh rows bitwise equal to
+    their plain versions."""
+    import importlib.util
+    from elasticsearch_tpu_torch.ops import bm25 as bm
+    from elasticsearch_tpu_torch.parallel import mesh
+    spec = importlib.util.spec_from_file_location(
+        "torch_inputs", os.path.join(os.path.dirname(os.path.abspath(
+            __file__)), "tests", "torch_inputs.py"))
+    inputs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(inputs)
+    CARD_TILE, TILE_CASES = inputs.CARD_TILE, inputs.TILE_CASES
+    tile_case, tile_slots = inputs.tile_case, inputs.tile_slots
+    reruns = extra = 0
+    for name in sorted(TILE_CASES):
+        small = tile_case(name)
+        probe = tiles_on_card(torch, bm, tile_case(
+            name, CARD_TILE // small["tile"]), dev, name)
+        reruns += probe["reruns"]
+    probe = tiles_on_card(torch, bm, tile_case("spanning_blocks", 4096), dev,
+                          "16,777,216 docs")
+    extra = probe["extra_block_reads"]
+    c = tile_slots(scale=CARD_TILE // 128)
+    c = {key: v.to(dev) if torch.is_tensor(v) else v for key, v in c.items()}
+    n_pad, n_q, n_segs = c["n_pad"], c["n_q"], c["n_segs"]
+    for k in (10, 5000):
+        f = (c["bd"], c["bt"], c["dl"], c["fi"][:, None], c["fw"][:, None],
+             c["fq"][:, None], c["fa"][:, None], c["live"], c["seg"])
+        compare(torch, f"mesh_bm25_flat (tiles, k {k})",
+                mesh.mesh_bm25_flat(*f, n_pad, n_q, k, n_segs),
+                mesh.mesh_bm25_flat_plain(*f, n_pad, n_q, k, n_segs))
+        q = (c["bd"], c["bt"].to(torch.bfloat16), c["dl"].to(torch.bfloat16),
+             c["fi"], c["fw"], c["fq"], c["fa"], c["live"], c["seg"])
+        kp = min(k, 4096)
+        compare(torch, f"mesh_bm25_coarse (tiles, k' {kp})",
+                mesh.mesh_bm25_coarse(*q, n_pad, n_q, kp, n_segs),
+                mesh.mesh_bm25_coarse_plain(*q, n_pad, n_q, kp, n_segs))
+    log(f"tiles-small: {len(TILE_CASES)} edge cases on the card's tiles, "
+        f"a 16,777,216-doc call ({extra} extra block reads) and rows 31 / "
+        f"32 over 4 slots: bitwise equal to their plain versions "
+        f"({reruns} tiles rerun by the threshold)")
 
 
 # ---------------------------------------------------------------------------
@@ -1120,6 +1204,75 @@ def plain_bytes(family: str, args) -> int:
     return fb * 128 * 48 + plane
 
 
+def tiles_extra(torch, fam: str, args, kwargs, want, shape: str,
+                probe_fn) -> dict:
+    """What the tile pipeline did on one recorded call, through its probe
+    (uncounted): the answer bitwise ``want``, the stage split (medians of
+    5 probes: binning = plan + lists, the tile pass, selection =
+    threshold + reruns + final), the (row, tile) pairs touched, the
+    extra block reads (a block read once more for each further tile its
+    range reaches), the tiles rerun; no final-list append refused."""
+    from elasticsearch_tpu_torch.ops.bm25 import TILE_STAGES
+    runs = [probe_fn(fam, *args, **kwargs) for _ in range(6)]
+    compare(torch, f"{fam} (probe)", runs[0]["out"], want)
+    check(runs[0]["refused"] == 0, f"{fam}: the final list refused "
+          f"{runs[0]['refused']} appends")
+    split = {key: sorted(r["split_ms"][key] for r in runs[1:])[2]
+             for key in TILE_STAGES}
+    split["binning"] = split["plan"] + split["lists"]
+    split["selection"] = (split["threshold"] + split["rerun"]
+                          + split["final"])
+    r0 = runs[0]
+    log(f"kernel {fam} stages at {shape}: binning {split['binning']:.4f} "
+        f"(plan {split['plan']:.4f}, lists {split['lists']:.4f}), tiles "
+        f"{split['tiles']:.4f}, selection {split['selection']:.4f} "
+        f"(threshold {split['threshold']:.4f}, reruns "
+        f"{split['rerun']:.4f}, final {split['final']:.4f}) ms; "
+        f"{r0['pairs']} (row, tile) pairs, {r0['entries_binned']} blocks "
+        f"binned, {r0['extra_block_reads']} extra block reads, "
+        f"{r0['reruns']} tiles rerun, t {r0['tops']}")
+    return {"split_ms": split, "pairs": r0["pairs"],
+            "entries_binned": r0["entries_binned"],
+            "extra_block_reads": r0["extra_block_reads"],
+            "reruns": r0["reruns"]}
+
+
+def bm25_k_of(family: str, args) -> int:
+    return args[{"bm25_flat": 10, "bm25_flat_seg": 11,
+                 "bm25_coarse": 12}[family]]
+
+
+def bm25_library_ms(torch, family: str, args) -> float:
+    """K1-K3's yardstick, partial (bracketed in PERF.md): ``index_add_``
+    of the call's f32 contributions (gathered and computed outside the
+    timing) into a zeroed [n_q, n_docs_pad] f32 plane, then
+    ``torch.topk``; no fixed point, mask or count. Timed only: the port
+    never calls it."""
+    block_docs, block_tfs, flat_idx, flat_w, flat_q, doc_lens, avg = args[:7]
+    n_pad, n_q = n_docs_pad_of(family, args), n_q_of(family, args)
+    rows = flat_idx.long()
+    docs = block_docs[rows]
+    ok = docs >= 0
+    tfs = block_tfs[rows].float()
+    dl = doc_lens[docs.clamp_min(0).long()].float()
+    c = flat_w[:, None] * tfs * 2.2 / (tfs + 1.2 * (0.25 + 0.75 * dl
+                                                    / avg[:, None]))
+    tgt = (flat_q.long()[:, None] * n_pad + docs.long())[ok]
+    c = c[ok]
+    del docs, ok, tfs, dl
+    acc = torch.zeros(n_q * n_pad, device=block_docs.device)
+    k = bm25_k_of(family, args)
+
+    def run():
+        acc.zero_()
+        acc.index_add_(0, tgt, c)
+        return torch.topk(acc.view(n_q, n_pad), k, dim=1)
+    ms = time_call(torch, run, 10)
+    del acc, tgt, c
+    torch.cuda.empty_cache()
+    return ms
+
+
 def phase_kernels(torch, rec, launches) -> list:
     from elasticsearch_tpu_torch.ops import bm25 as bm
     rows = []
@@ -1155,23 +1308,43 @@ def phase_kernels(torch, rec, launches) -> list:
             f" ms (median of {plain_runs}), bound {bound_ms:.4f} ms "
             f"({nbytes} bytes at 3.35 TB/s), max_abs_err {err} over "
             f"{min(len(fit), 8)} main-path calls, timed at {shape}")
-        big_args, big_kwargs = max(
-            calls, key=lambda c: (n_q_of(fam, c[0]), c[0][2].numel()))
-        if big_args is not args:
-            big_ms = time_call(torch, lambda: run_family(
-                bm, fam, big_args, big_kwargs, False), 20)
-            log(f"kernel {fam}: {big_ms:.4f} ms (median of 20) at the "
-                f"largest main-path call, fb={big_args[2].numel()} "
-                f"n_q={n_q_of(fam, big_args)}, bound "
-                f"{bound_of(fam, big_args, big_kwargs)[0]:.4f} ms "
-                f"(plain version not run: too large for the card)")
-        rows.append({
+        row = {
             "name": fam, "route": "cuda",
             "source": f"elasticsearch_tpu_torch/csrc/{fam}.cu",
             "replaces": REPLACES[fam], "launches": launches.get(fam, 0),
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
-            "shape": shape})
+            "shape": shape}
+        if fam != "bm25_rerank":
+            want = run_family(bm, fam, args, kwargs, True)
+            row.update(tiles_extra(torch, fam, args, kwargs, want, shape,
+                                   bm.bm25_tiles_probe))
+            del want
+            row["library_ms"] = bm25_library_ms(torch, fam, args)
+            log(f"kernel {fam}: library yardstick (partial: index_add_ of "
+                f"the f32 contributions + torch.topk) "
+                f"{row['library_ms']:.4f} ms at {shape}")
+        big_args, big_kwargs = max(
+            calls, key=lambda c: (n_q_of(fam, c[0]), c[0][2].numel()))
+        if big_args is not args:
+            big_ms = time_call(torch, lambda: run_family(
+                bm, fam, big_args, big_kwargs, False), 20)
+            big_shape = (f"fb={big_args[2].numel()} "
+                         f"n_q={n_q_of(fam, big_args)}")
+            log(f"kernel {fam}: {big_ms:.4f} ms (median of 20) at the "
+                f"largest main-path call, {big_shape}, bound "
+                f"{bound_of(fam, big_args, big_kwargs)[0]:.4f} ms "
+                f"(plain version not run: too large for the card)")
+            row["largest_call"] = {"ms": big_ms, "shape": big_shape,
+                                   "bound_ms": bound_of(fam, big_args,
+                                                        big_kwargs)[0]}
+            if fam != "bm25_rerank":
+                want = run_family(bm, fam, big_args, big_kwargs, False)
+                row["largest_call"].update(tiles_extra(
+                    torch, fam, big_args, big_kwargs, want, big_shape,
+                    bm.bm25_tiles_probe))
+                del want
+        rows.append(row)
         torch.cuda.empty_cache()
     return rows
 
@@ -4477,6 +4650,12 @@ def phase_wide_kernels(torch, rec, launches) -> list:
             want = plain(*args, **kwargs)
             split.update(tc_extra(torch, fam, args, kwargs, want, shape))
             del want
+        if fam == "bm25_flat":
+            want = plain(*args, **kwargs)
+            split.update(tiles_extra(torch, fam, args, kwargs, want, shape,
+                                     bm.bm25_tiles_probe))
+            del want
+            lib_ms = bm25_library_ms(torch, fam, args)
         log(f"kernel {fam} (wide): {ms:.4f} ms (median of 20), plain "
             f"{plain_ms:.4f} ms (median of 5), bound {bound_ms:.4f} ms "
             f"({nbytes} bytes at 3.35 TB/s, {bound_by}), library "
@@ -6528,12 +6707,18 @@ def phase_mesh_kernels(torch, rec, launches) -> list:
             f"{plain_ms:.4f} ms (median of 5), bound {bound_ms:.4f} ms "
             f"({nbytes} bytes at 3.35 TB/s), max_abs_err {err} over "
             f"{min(len(fit), 4)} main-path calls, timed at {shape}")
-        rows.append({
+        row = {
             "name": fam, "route": "cuda", "source": MESH_SOURCES[fam],
             "replaces": REPLACES[fam], "launches": launches.get(fam, 0),
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
-            "shape": shape})
+            "shape": shape}
+        if fam != "mesh_bm25_rerank":
+            want = plain(*args, **kwargs)
+            row.update(tiles_extra(torch, fam, args, kwargs, want, shape,
+                                   mesh.mesh_bm25_probe))
+            del want
+        rows.append(row)
         big_args, big_kwargs = max(calls, key=lambda c: mesh_size(fam, c[0]))
         if big_args is not args:
             big_ms = time_call(torch, lambda: kernel(*big_args, **big_kwargs),

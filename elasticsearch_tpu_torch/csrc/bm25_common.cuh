@@ -14,9 +14,12 @@
 //    (scale 2^32) and is summed with integer atomics, which commute. The
 //    sum is converted to f32 once. The same contributions therefore give
 //    the same bits in any order, any batch and any family.
-// 3. The chunked mask + count + top-k over the fixed-point plane, built on
+// 3. The chunked mask + count + top-k over a fixed-point plane, built on
 //    the CTA-wide top-k of topk_common.cuh (score descending, index
-//    ascending, -inf slots included: the order lax.top_k returns).
+//    ascending, -inf slots included: the order lax.top_k returns), for
+//    the families that still sum into a plane (the rank_features ones).
+//    bm25_flat, bm25_flat_seg, bm25_coarse and their mesh forms sum in
+//    shared-memory tiles instead (bm25_tiles.cuh).
 // 4. The exact tier's candidate handling: each row's k' coarse candidates
 //    sorted by doc id (so a posting finds its slot by binary search), the
 //    re-scoring of candidate postings, and the mask + top-k + eps pass over
@@ -26,7 +29,8 @@
 // stacked as [S, NB, BLOCK] with [S, n_docs_pad] doc arrays, the flat
 // operands as G = S * groups_per_slot groups of fb entries, and G * n_q
 // output rows. The mesh families (mesh_bm25_flat, mesh_bm25_coarse,
-// mesh_bm25_rerank) run every slot in one launch this way; the one-shard
+// mesh_bm25_rerank) run every slot in one launch this way (the first two
+// through bm25_tiles.cuh, which takes the same axis); the one-shard
 // families pass ONE_SLOT (one group, strides 0), so each slot of a mesh
 // launch runs exactly the one-shard arithmetic on its own plane.
 #pragma once
@@ -124,18 +128,18 @@ __device__ __forceinline__ float from_fixed(long long v) {
 // --------------------------------------------------------------------------
 
 // grid (fb, sl.groups): acc[(g * n_q + q) * n_docs_pad + doc] +=
-// fixed(contribution) for the postings of group g's fb gathered blocks.
-// BF16 selects the coarse tier's operands (block_tfs and doc_lens as
-// bf16). SCALAR: one avgdl for every entry (flat_avgdl[0]) and q = 0 for
-// every entry (flat_q unread), the sharded programs' operands
-// (sharded_common.cuh).
-template <bool BF16, bool SCALAR = false>
+// fixed(f32 contribution) for the postings of group g's fb gathered
+// blocks (K8 and the sharded programs; K1-K3 sum in bm25_tiles.cuh's
+// shared-memory tiles). SCALAR: one avgdl for every entry (flat_avgdl[0])
+// and q = 0 for every entry (flat_q unread), the sharded programs'
+// operands (sharded_common.cuh).
+template <bool SCALAR = false>
 __global__ void scatter_kernel(const int* __restrict__ block_docs,
-                               const void* __restrict__ block_tfs,
+                               const float* __restrict__ block_tfs,
                                const int* __restrict__ flat_idx,
                                const float* __restrict__ flat_w,
                                const int* __restrict__ flat_q,
-                               const void* __restrict__ doc_lens,
+                               const float* __restrict__ doc_lens,
                                const float* __restrict__ flat_avgdl,
                                long long n_docs_pad, int fb, int n_q,
                                Slots sl, Consts c,
@@ -147,18 +151,9 @@ __global__ void scatter_kernel(const int* __restrict__ block_docs,
                         (long long)flat_idx[f] * BLOCK + threadIdx.x;
     const int doc = block_docs[e];
     if (doc < 0) return;
-    const long long at = slot * sl.slot_docs + doc;
     const float avg = SCALAR ? flat_avgdl[0] : flat_avgdl[f];
-    float v;
-    if (BF16) {
-        const __nv_bfloat16* tfs = (const __nv_bfloat16*)block_tfs;
-        const __nv_bfloat16* dls = (const __nv_bfloat16*)doc_lens;
-        v = contrib_bf16(bfr(flat_w[f]), __bfloat162float(tfs[e]),
-                         __bfloat162float(dls[at]), bfr(avg), c);
-    } else {
-        v = contrib_f32(flat_w[f], ((const float*)block_tfs)[e],
-                        ((const float*)doc_lens)[at], avg, c);
-    }
+    const float v = contrib_f32(flat_w[f], block_tfs[e],
+                                doc_lens[slot * sl.slot_docs + doc], avg, c);
     const long long fx = to_fixed(v);
     if (fx == 0) return;
     atomicAdd(acc + (g * n_q + (SCALAR ? 0 : flat_q[f])) * n_docs_pad + doc,
@@ -310,42 +305,6 @@ inline int select_plane(const long long* acc, const uint8_t* live,
         }
     }
     return 0;
-}
-
-// The whole dense pipeline shared by bm25_flat, bm25_flat_seg, bm25_coarse
-// and their mesh forms: zero the fixed-point plane, scatter every gathered
-// posting into it, then select_plane. ``fb`` and ``n_q`` are per group:
-// the flat operands hold sl.groups * fb entries and the outputs
-// sl.groups * n_q rows. Scratch (acc, chunk winners) comes from the
-// caller. Returns the first CUDA error, 0 on success.
-template <bool BF16>
-int dense_topk(const int* block_docs, const void* block_tfs,
-               const int* flat_idx, const float* flat_w, const int* flat_q,
-               const void* doc_lens, const float* flat_avgdl,
-               const uint8_t* live, const int* seg_ids, int fb,
-               long long n_docs_pad, int n_q, int k, int mode, int n_segs,
-               Consts c, long long* acc, float* chunk_s, int* chunk_i,
-               float* out_s, int* out_i, int* hits, cudaStream_t stream,
-               Slots sl = ONE_SLOT) {
-    if (k < 1 || n_q < 1 || fb < 0 || n_docs_pad < k || !slots_ok(sl) ||
-        (mode == COUNT_SEGS && (n_segs < 1 || n_segs > MAX_SEGS)))
-        return (int)cudaErrorInvalidValue;
-    const int n_rows = sl.groups * n_q;
-    cudaError_t err = cudaMemsetAsync(
-        acc, 0, sizeof(long long) * (size_t)n_rows * (size_t)n_docs_pad,
-        stream);
-    if (err != cudaSuccess) return (int)err;
-    if (fb > 0) {
-        scatter_kernel<BF16><<<dim3(fb, sl.groups), BLOCK, 0, stream>>>(
-            block_docs, block_tfs, flat_idx, flat_w, flat_q, doc_lens,
-            flat_avgdl, n_docs_pad, fb, n_q, sl, c,
-            (unsigned long long*)acc);
-        err = cudaGetLastError();
-        if (err != cudaSuccess) return (int)err;
-    }
-    return select_plane(acc, live, seg_ids, n_docs_pad, n_rows, k, mode,
-                        n_segs, chunk_s, chunk_i, out_s, out_i, hits, stream,
-                        sl.groups_per_slot * n_q, sl.slot_docs);
 }
 
 // --------------------------------------------------------------------------
@@ -526,8 +485,9 @@ __global__ void candidate_scatter_kernel(
 
 // The whole exact tier shared by bm25_rerank and mesh_bm25_rerank: sort
 // each row's k' candidates by doc id, re-score the candidate postings,
-// then mask + top-k + eps. ``fb`` and ``n_q`` are per group, as in
-// dense_topk; cand/coarse_s and the outputs hold sl.groups * n_q rows.
+// then mask + top-k + eps. ``fb`` and ``n_q`` are per group (the flat
+// operands hold sl.groups * fb entries); cand/coarse_s and the outputs
+// hold sl.groups * n_q rows.
 // Returns the first CUDA error, 0 on success.
 inline int rerank_tier(const int* block_docs, const float* block_tfs,
                        const int* flat_idx, const float* flat_w,

@@ -15,13 +15,15 @@
 // int64 accumulator is also zeroed, scattered into and read back (3x the
 // row's bytes), and stopword terms' postings land as scattered atomics.
 //
-// Design: bm25_common.cuh's scatter_kernel, the one K1 runs (one CTA per
-// gathered block, one thread per posting, the contribution one rounded
-// f32 op at a time, summed as 64-bit fixed point with integer atomics),
-// at one query, so a doc's score has K1's bits for the same blocks in any
-// order; then one convert pass to f32, masked by live (bm25_common.cuh
-// convert_row, shared with sparse_scores). The plain PyTorch
-// version is elasticsearch_tpu_torch/ops/bm25.py `bm25_block_scores_plain`.
+// Design: bm25_common.cuh's scatter_kernel (one CTA per gathered block,
+// one thread per posting, K1's contribution one rounded f32 op at a
+// time, summed as 64-bit fixed point with integer atomics), at one
+// query, so a doc's score has K1's bits for the same blocks in any order
+// (K1 sums the same fixed-point values in shared-memory tiles,
+// bm25_tiles.cuh); then one convert pass to f32, masked by live
+// (bm25_common.cuh convert_row, shared with sparse_scores). The plain
+// PyTorch version is elasticsearch_tpu_torch/ops/bm25.py
+// `bm25_block_scores_plain`.
 #include "bm25_common.cuh"
 
 // block_q: [qb] int32 zeros and block_avgdl: [qb] f32 avgdl (the flat
@@ -40,7 +42,7 @@ extern "C" int bm25_scores_launch(
     if (err != cudaSuccess) return (int)err;
     if (qb > 0) {
         bm25::Consts c{k1, omb, b, k1p1};
-        bm25::scatter_kernel<false><<<qb, bm25::BLOCK, 0, stream>>>(
+        bm25::scatter_kernel<<<qb, bm25::BLOCK, 0, stream>>>(
             block_docs, block_tfs, block_idx, block_w, block_q, doc_lens,
             block_avgdl, n_docs_pad, qb, 1, bm25::ONE_SLOT, c,
             (unsigned long long*)acc);

@@ -1,0 +1,1234 @@
+// The tiled BM25 top-k shared by bm25_flat (K1), bm25_flat_seg (K2),
+// bm25_coarse (K3) and, through bm25_common.cuh's slot axis, the mesh's
+// mesh_bm25_flat (row 31) and mesh_bm25_coarse (row 32). No [rows,
+// n_docs_pad] plane exists in device memory: each (row, tile of TILE docs)
+// that a gathered block reaches is summed in shared memory, masked,
+// counted and reduced to its best entries there.
+//
+// 1. Binning. Each block of a store has a doc range (the least and the
+//    greatest valid doc, ops/device_segment.py ``block_ranges``). Every
+//    gathered entry of non-zero weight is listed under each (row, tile)
+//    its range reaches: one pass counts the entries of every pair, a scan
+//    gives each pair its place, and a second pass writes the lists. A
+//    zero-weight entry adds nothing (the padding of ``flatten_plans``) and
+//    is skipped. The launcher copies the number of pairs and list entries
+//    to the host and waits for them (one synchronisation a call) so that
+//    the lists are sized exactly; a block whose range reaches m tiles is
+//    read m times (the "extra block reads" chip_smoke.py reports).
+// 2. The tile pass. Persistent CTAs take the non-empty pairs from a queue.
+//    A CTA zeroes TILE 64-bit accumulators in shared memory (two 32-bit
+//    halves: the carry of the low word's atomic add goes into the high
+//    word, so the sum is the exact 64-bit sum in any order), adds the
+//    fixed-point contribution (bm25_common.cuh) of every posting of its
+//    listed blocks that falls in the tile, and then, without leaving the
+//    CTA: masks by ``live`` and score > 0, counts the matches (per row, or
+//    per segment through ``seg_ids``), and keeps its best entries
+//    ("tops"): the best one at t 1; at t 64 or 256 (by k) between t and
+//    2t of them, every key at or above a bound that a radix select over
+//    the tile's keys in shared memory stops at as soon as it holds at most
+//    2t keys. Unused slots hold -inf entries at distinct docs.
+//    Integer sums do not depend on the order of addition, so every score
+//    has the bits the dense plane gave.
+// 3. Selection. Keys are rows_select.cuh's (score bits high, n - 1 - doc
+//    low; all distinct). tau, the k-th largest key among a row's tops,
+//    stands for k distinct entries at or above it, so the row's true k-th
+//    key is at least tau. A tile that left matches out of its tops while
+//    its least top reaches tau may hold more entries at or above tau than
+//    its tops: it is summed again ("rerun") and lists every entry at or
+//    above tau; every other tile lists its tops at or above tau. The k
+//    best of those lists are the row's k best (every entry at or above
+//    the true k-th key is listed). A rerun tile has at least t tops at or
+//    above tau, so at most floor(k / t) tiles of a row rerun and a row's
+//    list holds at most k + floor(k / t) (TILE - t) entries. A row with
+//    fewer than k finite tops has no tau: every tile that left matches out
+//    reruns and the list is every match. The final selection is one
+//    rows_select.cuh launch for all rows, any k.
+// 4. The -inf fill. When a row matches m < k docs, lax.top_k fills
+//    positions m..k-1 with -inf at the lowest-indexed docs that did not
+//    match; those lie below k, so a CTA a row marks the matched docs below
+//    k in a bitmap and writes the first k - m unmarked ones in order.
+//
+// What bounds it: the gathered blocks (doc ids and tfs, once per tile
+// they reach) and the doc lengths they gather; the plane's memset and
+// read-back (8 bytes a cell) are gone. The plain PyTorch versions are
+// ops/bm25.py bm25_flat_plain, bm25_flat_seg_plain and bm25_coarse_plain;
+// ops/bm25.py ``bm25_tiles_mirror`` mirrors this algorithm on the CPU.
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <limits.h>
+#include <math.h>
+#include <stdint.h>
+
+#include "bm25_common.cuh"
+#include "rows_select.cuh"
+
+namespace bm25t {
+
+using bm25::Consts;
+using bm25::Slots;
+using rsel::Key;
+
+constexpr int TILE = 8192;           // docs a tile (64 KB of sums)
+constexpr int TILE_SHIFT = 13;
+constexpr int THREADS = 512;         // a tile CTA
+constexpr int STAGE = 256;           // listed blocks staged at a time
+constexpr int STAGED_BLOCKS = 16;    // a pair's blocks that stage doc_lens
+constexpr int HBITS = 11;            // widest digit of the tile's select
+constexpr int AUX_THREADS = 256;     // binning and copies
+constexpr int SCAN_THREADS = 1024;
+
+// Slots a tile's tops take: 1 at t 1, else 2t (a tile keeps between t
+// and 2t of its best, tile_bound).
+__host__ __device__ inline int tops_width(int t) { return t == 1 ? 1 : 2 * t; }
+
+// t of a launch: a tile keeps at least t of its best entries. At most 4
+// rows and k <= 16, t is 16 (>= k: the tops hold the answer, no
+// threshold or rerun); else 1 for k <= 32 (the tile's best entry: a
+// reduction, a few tiles a row rerun), 64 up to 4,096, 256 above. 1
+// where a tile holds fewer docs than the tops' slots (a small or ragged
+// last tile), so that pads stay distinct.
+inline int tops_for(int k, long long n_docs_pad, long long rows) {
+    int t = k <= 32 ? 1 : (k <= 4096 ? 64 : 256);
+    if (k <= 16 && rows <= 4) t = 16;
+    const long long last = n_docs_pad - (n_docs_pad - 1) / TILE * TILE;
+    return last < tops_width(t) ? 1 : t;
+}
+
+inline long long up256(long long b) { return (b + 255) / 256 * 256; }
+
+// Scratch before the host read-back (A: sized by rows, tiles and k) and
+// after it (B: sized by the pairs, list entries and final entries found).
+struct LayoutA {
+    long long totals, queue, cnt, mcount, fcnt, st1, st2, keys1, keys2,
+        zero_end;
+    long long loc_e, loc_p, row_e, row_p, base_e, base_p, off_tops, tcnt,
+        off_final, cap_final, tau_s, tau_d, bitmap, total;
+};
+
+// totals: [0] pairs, [1] list entries, [2] final-list capacity, [3]
+// entries binned, [4] tiles rerun, [5] final-list appends refused (0 by
+// the bound above)
+constexpr int N_TOTALS = 8;
+
+inline LayoutA layout_a(long long rows, long long n_tiles, int k) {
+    LayoutA L{};
+    long long off = 0;
+    auto take = [&](long long bytes) {
+        const long long at = off;
+        off += up256(bytes);
+        return at;
+    };
+    L.totals = take(N_TOTALS * 8);
+    L.queue = take(4 * 4);
+    L.cnt = take(rows * n_tiles * 4);
+    L.mcount = take(rows * 4);
+    L.fcnt = take(rows * 4);
+    L.st1 = take(rows::state_bytes(rows));
+    L.st2 = take(rows::state_bytes(rows));
+    // rows_select leaves a row's keys past its survivors unwritten; above
+    // CAP they are sorted with the rest, so they must start at zero (one
+    // buffer a selection)
+    L.keys1 = take(rows::keys_bytes(rows, k));
+    L.keys2 = take(rows::keys_bytes(rows, k));
+    L.zero_end = k > rows::CAP ? off : L.keys1;
+    L.loc_e = take(rows * n_tiles * 8);
+    L.loc_p = take(rows * n_tiles * 4);
+    L.row_e = take(rows * 8);
+    L.row_p = take(rows * 8);
+    L.base_e = take(rows * 8);
+    L.base_p = take(rows * 8);
+    L.off_tops = take(rows * 8);
+    L.tcnt = take(rows * 4);
+    L.off_final = take(rows * 8);
+    L.cap_final = take(rows * 8);
+    L.tau_s = take(rows * 4);
+    L.tau_d = take(rows * 4);
+    L.bitmap = take(rows * ((k + 31LL) / 32) * 4);
+    L.total = off;
+    return L;
+}
+
+struct LayoutB {
+    long long pair_rt, pair_n, pair_e, c_p, tkey, rerun, elist, tops_s,
+        tops_d, final_s, final_d, total;
+};
+
+inline LayoutB layout_b(long long pairs, long long entries, long long fin,
+                        int t) {
+    LayoutB L{};
+    long long off = 0;
+    auto take = [&](long long bytes) {
+        const long long at = off;
+        off += up256(bytes);
+        return at;
+    };
+    L.pair_rt = take(pairs * 4);
+    L.pair_n = take(pairs * 4);
+    L.pair_e = take(pairs * 8);
+    L.c_p = take(pairs * 4);
+    L.tkey = take(pairs * 8);
+    L.rerun = take(pairs * 4);
+    L.elist = take(entries * 4);
+    L.tops_s = take(pairs * tops_width(t) * 4);
+    L.tops_d = take(pairs * tops_width(t) * 4);
+    L.final_s = take(fin * 4);
+    L.final_d = take(fin * 4);
+    L.total = off;
+    return L;
+}
+
+// Everything a launch's kernels read and write.
+struct Tiles {
+    // the problem
+    const int* block_docs;
+    const void* block_tfs;
+    const int* ranges;          // [S, nb, 2]
+    const void* doc_lens;
+    const int* flat_idx;
+    const float* flat_w;
+    const int* flat_q;
+    const float* flat_avgdl;
+    const uint8_t* live;
+    const int* seg_ids;
+    Slots sl;
+    long long nb;               // blocks a slot
+    int fb, n_q, k, t, mode, n_segs;
+    long long n_docs_pad, n_tiles, rows;
+    Consts c;
+    // scratch A
+    long long* totals;
+    unsigned* queue;
+    int* cnt;
+    int* mcount;                // matches a row (hits itself for COUNT_TOTAL)
+    int* hits;                  // COUNT_SEGS: [rows, n_segs]
+    int* fcnt;
+    long long* loc_e;
+    int* loc_p;
+    long long *row_e, *row_p, *base_e, *base_p, *off_tops, *off_final,
+        *cap_final;
+    int* tcnt;
+    float* tau_s;
+    int* tau_d;
+    unsigned* bitmap;
+    // scratch B
+    int* pair_rt;
+    int* pair_n;
+    long long* pair_e;
+    int* c_p;
+    Key* tkey;
+    int* rerun;
+    int* elist;
+    float* tops_s;
+    int* tops_d;
+    float* final_s;
+    int* final_d;
+};
+
+// --------------------------------------------------------------------------
+// small CTA helpers
+// --------------------------------------------------------------------------
+
+// Exclusive prefix sum of v over the CTA, and the CTA's total; ws: 33
+// shared words of T.
+template <class T>
+__device__ T cta_excl_scan(T v, T* ws, T& total) {
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    const int n_warps = (blockDim.x + 31) >> 5;
+    T x = v;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+        const T y = __shfl_up_sync(0xffffffffu, x, o);
+        if (lane >= o) x += y;
+    }
+    if (lane == 31) ws[warp] = x;
+    __syncthreads();
+    if (warp == 0) {
+        T w = lane < n_warps ? ws[lane] : T(0);
+#pragma unroll
+        for (int o = 1; o < 32; o <<= 1) {
+            const T y = __shfl_up_sync(0xffffffffu, w, o);
+            if (lane >= o) w += y;
+        }
+        ws[lane] = w;
+    }
+    __syncthreads();
+    const T base = warp ? ws[warp - 1] : T(0);
+    total = ws[n_warps - 1];
+    __syncthreads();
+    return base + x - v;
+}
+
+// Append (s, d) to a list through a cursor, one atomic a warp; every lane
+// of the warp calls it. Positions at or past ``cap`` are refused, counted
+// in ``refused``.
+__device__ __forceinline__ void warp_append(bool take, float s, int d,
+                                            int* cursor, long long base,
+                                            long long cap, float* out_s,
+                                            int* out_d,
+                                            long long* refused) {
+    const unsigned ballot = __ballot_sync(0xffffffffu, take);
+    if (ballot == 0u) return;
+    const int lane = threadIdx.x & 31;
+    int pos = 0;
+    if (lane == __ffs(ballot) - 1) pos = atomicAdd(cursor, __popc(ballot));
+    pos = __shfl_sync(0xffffffffu, pos, __ffs(ballot) - 1);
+    pos += __popc(ballot & ((1u << lane) - 1u));
+    if (!take) return;
+    if (pos < cap) {
+        out_s[base + pos] = s;
+        out_d[base + pos] = d;
+    } else {
+        atomicAdd((unsigned long long*)refused, 1ull);
+    }
+}
+
+// --------------------------------------------------------------------------
+// 1. binning
+// --------------------------------------------------------------------------
+
+// Entry f's row and tile span; false for a zero-weight or empty block.
+__device__ __forceinline__ bool entry_span(const Tiles& a, long long f,
+                                           long long& r, long long& lo,
+                                           long long& hi) {
+    if (a.flat_w[f] == 0.f) return false;
+    const long long g = f / a.fb;
+    const long long slot = g / a.sl.groups_per_slot;
+    const int2 rg =
+        ((const int2*)a.ranges)[slot * a.nb + (long long)a.flat_idx[f]];
+    if (rg.y < rg.x || rg.y < 0) return false;
+    lo = rg.x > 0 ? (long long)rg.x >> TILE_SHIFT : 0;
+    hi = (long long)rg.y >> TILE_SHIFT;
+    if (hi >= a.n_tiles) hi = a.n_tiles - 1;
+    if (lo > hi) return false;
+    r = g * a.n_q + a.flat_q[f];
+    return true;
+}
+
+// The lanes of a warp whose entries lie in one tile of one row: those
+// with the same (row, tile) key form a group (a block of a term and the
+// next block of it mostly share one), led by the group's lowest lane.
+// Every lane of the warp must call it; ``single`` is false for a lane
+// whose entry spans several tiles or none.
+__device__ __forceinline__ unsigned tile_group(bool single, long long key) {
+    return __match_any_sync(0xffffffffu, single ? key : -1LL);
+}
+
+// grid over every entry: count the entries of each (row, tile), one
+// atomic a group of lanes for the entries within one tile.
+__global__ void count_kernel(Tiles a) {
+    const long long f = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+    const int lane = threadIdx.x & 31;
+    long long r = 0, lo = 0, hi = -1;
+    const bool ok = f < (long long)a.sl.groups * a.fb &&
+                    entry_span(a, f, r, lo, hi);
+    const unsigned ballot = __ballot_sync(0xffffffffu, ok);
+    if (lane == 0 && ballot)
+        atomicAdd((unsigned long long*)&a.totals[3],
+                  (unsigned long long)__popc(ballot));
+    const bool single = ok && lo == hi;
+    const unsigned grp = tile_group(single, r * a.n_tiles + lo);
+    if (single) {
+        if (lane == __ffs(grp) - 1)
+            atomicAdd(&a.cnt[r * a.n_tiles + lo], __popc(grp));
+        return;
+    }
+    for (long long tile = lo; tile <= hi; ++tile)
+        atomicAdd(&a.cnt[r * a.n_tiles + tile], 1);
+}
+
+// grid (rows): each row's exclusive prefix of entries and of non-empty
+// pairs over its tiles, and the row's totals.
+__global__ void scan_rows_kernel(Tiles a) {
+    __shared__ long long ws_e[33];
+    __shared__ int ws_p[33];
+    const long long r = blockIdx.x;
+    long long run_e = 0;
+    int run_p = 0;
+    for (long long base = 0; base < a.n_tiles; base += blockDim.x) {
+        const long long i = base + threadIdx.x;
+        const int v = i < a.n_tiles ? a.cnt[r * a.n_tiles + i] : 0;
+        long long te;
+        int tp;
+        const long long xe = cta_excl_scan<long long>(v, ws_e, te);
+        const int xp = cta_excl_scan<int>(v > 0, ws_p, tp);
+        if (i < a.n_tiles) {
+            a.loc_e[r * a.n_tiles + i] = run_e + xe;
+            a.loc_p[r * a.n_tiles + i] = run_p + xp;
+        }
+        run_e += te;
+        run_p += tp;
+    }
+    if (threadIdx.x == 0) {
+        a.row_e[r] = run_e;
+        a.row_p[r] = run_p;
+    }
+}
+
+// one CTA: the rows' bases, each row's tops region and final-list
+// capacity, tau cleared, and the totals the host reads back.
+__global__ void scan_totals_kernel(Tiles a, int no_final) {
+    __shared__ long long ws[33];
+    long long run_p = 0, run_e = 0, run_f = 0;
+    for (long long base = 0; base < a.rows; base += blockDim.x) {
+        const long long r = base + threadIdx.x;
+        const bool in = r < a.rows;
+        const long long p = in ? a.row_p[r] : 0;
+        const long long e = in ? a.row_e[r] : 0;
+        long long cap = 0;
+        if (in && !no_final && p > 0) {
+            const long long reruns = (long long)(a.k / a.t) < p
+                                         ? (long long)(a.k / a.t) : p;
+            cap = a.k + reruns * (TILE - a.t);
+            if (cap > p * TILE) cap = p * TILE;
+        }
+        long long tp, te, tf;
+        const long long xp = cta_excl_scan<long long>(p, ws, tp);
+        const long long xe = cta_excl_scan<long long>(e, ws, te);
+        const long long xf = cta_excl_scan<long long>(cap, ws, tf);
+        if (in) {
+            a.base_p[r] = run_p + xp;
+            a.base_e[r] = run_e + xe;
+            a.off_tops[r] = (run_p + xp) * tops_width(a.t);
+            a.tcnt[r] = (int)(p * tops_width(a.t));
+            a.off_final[r] = run_f + xf;
+            a.cap_final[r] = cap;
+            a.tau_s[r] = -INFINITY;
+            a.tau_d[r] = 0;
+        }
+        run_p += tp;
+        run_e += te;
+        run_f += tf;
+    }
+    if (threadIdx.x == 0) {
+        a.totals[0] = run_p;
+        a.totals[1] = run_e;
+        a.totals[2] = run_f;
+    }
+}
+
+// grid over (row, tile): each non-empty pair's place, tile and list.
+__global__ void pairs_kernel(Tiles a) {
+    const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+    if (i >= a.rows * a.n_tiles) return;
+    const int v = a.cnt[i];
+    if (v == 0) return;
+    const long long r = i / a.n_tiles;
+    const long long p = a.base_p[r] + a.loc_p[i];
+    a.pair_rt[p] = (int)i;
+    a.pair_n[p] = v;
+    a.pair_e[p] = a.base_e[r] + a.loc_e[i];
+}
+
+// grid over every entry: write each entry into the list of every pair it
+// reaches (cnt counts down to 0 as the cursor; one atomic a group of
+// lanes, as in count_kernel).
+__global__ void fill_kernel(Tiles a) {
+    const long long f = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+    const int lane = threadIdx.x & 31;
+    long long r = 0, lo = 0, hi = -1;
+    const bool ok = f < (long long)a.sl.groups * a.fb &&
+                    entry_span(a, f, r, lo, hi);
+    const bool single = ok && lo == hi;
+    const unsigned grp = tile_group(single, r * a.n_tiles + lo);
+    if (single) {
+        const long long i = r * a.n_tiles + lo;
+        const int leader = __ffs(grp) - 1;
+        int end = 0;
+        if (lane == leader) end = atomicSub(&a.cnt[i], __popc(grp));
+        end = __shfl_sync(grp, end, leader);
+        const int pos = end - __popc(grp) + __popc(grp & ((1u << lane) - 1u));
+        a.elist[a.base_e[r] + a.loc_e[i] + pos] = (int)f;
+        return;
+    }
+    if (!ok) return;
+    for (long long tile = lo; tile <= hi; ++tile) {
+        const long long i = r * a.n_tiles + tile;
+        const int pos = atomicSub(&a.cnt[i], 1) - 1;
+        a.elist[a.base_e[r] + a.loc_e[i] + pos] = (int)f;
+    }
+}
+
+// --------------------------------------------------------------------------
+// 2. the tile pass (MODE 0), the triage and the rerun pass (MODE 1)
+// --------------------------------------------------------------------------
+
+struct TileShared {
+    int pair;
+    int cursor;
+    unsigned long long best;
+    unsigned long long prefix;
+    int rank;
+    int above;
+    int done;
+    int ws_i[33];
+    unsigned long long ws_k[32];
+};
+
+// Add fx to the 64-bit sum of slot i, kept as 32-bit halves.
+__device__ __forceinline__ void add_fixed(unsigned* lo, unsigned* hi, int i,
+                                          long long fx) {
+    const unsigned l = (unsigned)fx;
+    const unsigned h = (unsigned)((unsigned long long)fx >> 32);
+    const unsigned old = atomicAdd(&lo[i], l);
+    atomicAdd(&hi[i], h + (old + l < old ? 1u : 0u));
+}
+
+__device__ __forceinline__ float key_score32(unsigned w) {
+    return __uint_as_float((w & 0x80000000u) ? (w & 0x7fffffffu) : ~w);
+}
+
+// Sum the pair's listed blocks into lo/hi (zeroed here) for docs
+// [doc0, doc0 + n) of its slot. 128 threads take a block, four blocks a
+// CTA step, U steps a round; the doc ids and tfs of the next round are
+// in flight while a round's doc lengths are read and its postings added.
+// A pair of at least STAGED_BLOCKS blocks first copies the tile's doc
+// lengths into s_dl (coalesced, once), any other gathers them from
+// device memory.
+template <bool BF16>
+__device__ void sum_tile(const Tiles& a, long long p, long long slot,
+                         long long doc0, int n, unsigned* lo, unsigned* hi,
+                         float* s_dl, long long* s_blk, float* s_w,
+                         float* s_avg) {
+    for (int j = threadIdx.x; j < TILE / 4; j += THREADS) {
+        ((uint4*)lo)[j] = make_uint4(0u, 0u, 0u, 0u);
+        ((uint4*)hi)[j] = make_uint4(0u, 0u, 0u, 0u);
+    }
+    const long long e0 = a.pair_e[p];
+    const int ne = a.pair_n[p];
+    const long long sd = slot * a.sl.slot_docs;
+    const bool staged = ne >= STAGED_BLOCKS;
+    if (staged)
+        for (int j = threadIdx.x; j < n; j += THREADS)
+            s_dl[j] = BF16 ? __bfloat162float(
+                                 ((const __nv_bfloat16*)a.doc_lens)[sd + doc0 +
+                                                                    j])
+                           : ((const float*)a.doc_lens)[sd + doc0 + j];
+    const int lane = threadIdx.x & (bm25::BLOCK - 1);
+    constexpr int GROUPS = THREADS / bm25::BLOCK;   // blocks a CTA step
+    constexpr int U = 4;                            // steps a round
+    constexpr int ROUND = GROUPS * U;
+    const int g = threadIdx.x / bm25::BLOCK;
+    for (int j0 = 0; j0 < ne; j0 += STAGE) {
+        const int m = ne - j0 < STAGE ? ne - j0 : STAGE;
+        __syncthreads();   // the zeroing, or the previous stage, is done
+        for (int j = threadIdx.x; j < m; j += THREADS) {
+            const int f = a.elist[e0 + j0 + j];
+            s_blk[j] = slot * a.sl.slot_blocks +
+                       (long long)a.flat_idx[f] * bm25::BLOCK;
+            s_w[j] = a.flat_w[f];
+            s_avg[j] = a.flat_avgdl[f];
+        }
+        __syncthreads();
+        auto fetch = [&](int j, int* doc, float* tf) {
+#pragma unroll
+            for (int u = 0; u < U; ++u) {
+                const int jj = j + u * GROUPS;
+                doc[u] = -1;
+                tf[u] = 0.f;
+                if (jj < m) {
+                    const long long e = s_blk[jj] + lane;
+                    doc[u] = a.block_docs[e];
+                    tf[u] = BF16 ? __bfloat162float(
+                                       ((const __nv_bfloat16*)a.block_tfs)[e])
+                                 : ((const float*)a.block_tfs)[e];
+                }
+            }
+        };
+        int doc[U];
+        float tf[U];
+        fetch(g, doc, tf);
+        for (int j = g; j < m; j += ROUND) {
+            int doc_n[U];
+            float tf_n[U];
+            fetch(j + ROUND, doc_n, tf_n);
+            float dl[U];
+#pragma unroll
+            for (int u = 0; u < U; ++u) {
+                const bool in = (unsigned long long)((long long)doc[u] -
+                                                     doc0) <
+                                (unsigned long long)n;
+                if (!in) doc[u] = -1;
+                dl[u] = 0.f;
+                if (in && staged)
+                    dl[u] = s_dl[doc[u] - doc0];
+                else if (in)
+                    dl[u] = BF16 ? __bfloat162float(
+                                       ((const __nv_bfloat16*)a.doc_lens)
+                                           [sd + doc[u]])
+                                 : ((const float*)a.doc_lens)[sd + doc[u]];
+            }
+#pragma unroll
+            for (int u = 0; u < U; ++u) {
+                if (doc[u] >= 0) {
+                    const int jj = j + u * GROUPS;
+                    const float v =
+                        BF16 ? bm25::contrib_bf16(bm25::bfr(s_w[jj]), tf[u],
+                                                  dl[u],
+                                                  bm25::bfr(s_avg[jj]), a.c)
+                             : bm25::contrib_f32(s_w[jj], tf[u], dl[u],
+                                                 s_avg[jj], a.c);
+                    const long long fx = bm25::to_fixed(v);
+                    if (fx != 0) add_fixed(lo, hi, (int)(doc[u] - doc0), fx);
+                }
+                doc[u] = doc_n[u];
+                tf[u] = tf_n[u];
+            }
+        }
+    }
+    __syncthreads();
+}
+
+// The tile's local key of slot j: score bits, then the lower slot first.
+__device__ __forceinline__ unsigned long long local_key(unsigned w, int j) {
+    return ((unsigned long long)w << TILE_SHIFT) | (unsigned)(TILE - 1 - j);
+}
+
+// The sums -> 32-bit keys (score bits of a match, 0 otherwise), in
+// place in lo when ``store`` (slots past n become 0); returns this
+// thread's matches and sets ``best`` to its largest local key (0 for
+// none).
+__device__ int tile_keys(const Tiles& a, long long slot, long long doc0,
+                         int n, unsigned* lo, const unsigned* hi,
+                         bool count_segs, int* seg_cnt, bool store,
+                         unsigned long long& best) {
+    const uint8_t* live = a.live + slot * a.sl.slot_docs + doc0;
+    const int* seg = a.seg_ids != nullptr
+                         ? a.seg_ids + slot * a.sl.slot_docs + doc0
+                         : nullptr;
+    int mine = 0, cur_seg = -1, cur_n = 0;
+    best = 0ull;
+    for (int j = threadIdx.x; j < TILE; j += THREADS) {
+        unsigned w = 0u;
+        if (j < n) {
+            const long long v =
+                (long long)(((unsigned long long)hi[j] << 32) | lo[j]);
+            if (v > 0 && live[j]) {
+                w = rsel::score_bits(bm25::from_fixed(v));
+                ++mine;
+                const unsigned long long key = local_key(w, j);
+                best = key > best ? key : best;
+                if (count_segs) {
+                    const int sg = seg[j];
+                    if (sg >= 0 && sg < a.n_segs) {
+                        if (sg != cur_seg) {
+                            if (cur_n) atomicAdd(&seg_cnt[cur_seg], cur_n);
+                            cur_seg = sg;
+                            cur_n = 0;
+                        }
+                        ++cur_n;
+                    }
+                }
+            }
+        }
+        if (store) lo[j] = w;
+    }
+    if (cur_n) atomicAdd(&seg_cnt[cur_seg], cur_n);
+    return mine;
+}
+
+// The largest of the threads' ``best`` local keys.
+__device__ unsigned long long tile_max(unsigned long long best,
+                                       TileShared& sh) {
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) {
+        const unsigned long long y = __shfl_xor_sync(0xffffffffu, best, o);
+        best = y > best ? y : best;
+    }
+    if ((threadIdx.x & 31) == 0) sh.ws_k[threadIdx.x >> 5] = best;
+    __syncthreads();
+    if (threadIdx.x < 32) {
+        unsigned long long b =
+            threadIdx.x < THREADS / 32 ? sh.ws_k[threadIdx.x] : 0ull;
+#pragma unroll
+        for (int o = 16; o > 0; o >>= 1) {
+            const unsigned long long y = __shfl_xor_sync(0xffffffffu, b, o);
+            b = y > b ? y : b;
+        }
+        if (threadIdx.x == 0) sh.best = b;
+    }
+    __syncthreads();
+    return sh.best;
+}
+
+// A local-key bound lb with t <= (matches whose key >= lb) <= 2t, for a
+// tile of more than 2t matches: a radix select for the t-th key over the
+// key's 45 bits (the score word in 11, 11 and 10 bits, the slot in 7 and
+// 6) that stops at the first digit whose bin, with every bin above it,
+// holds at most 2t keys (at the last digit the bin is the t-th key
+// itself); hist: 2^HBITS shared words.
+__device__ unsigned long long tile_bound(const unsigned* lo, int t,
+                                         unsigned* hist, TileShared& sh) {
+    constexpr int N_PASSES = 5;
+    const int shifts[N_PASSES] = {34, 23, 13, 6, 0};
+    const int widths[N_PASSES] = {11, 11, 10, 7, 6};
+    if (threadIdx.x == 0) {
+        sh.prefix = 0ull;
+        sh.rank = t;
+        sh.above = 0;
+        sh.done = 0;
+    }
+    __syncthreads();
+    for (int ps = 0; ps < N_PASSES && !sh.done; ++ps) {
+        const int shift = shifts[ps], bits = widths[ps];
+        const int nbins = 1 << bits;
+        const int top = shift + bits;     // bits above are the prefix
+        const unsigned long long prefix = sh.prefix;
+        for (int b = threadIdx.x; b < nbins; b += THREADS) hist[b] = 0u;
+        __syncthreads();
+        // a warp adds once for each digit its lanes share (scores of one
+        // magnitude share their top digits)
+        for (int j = threadIdx.x; j < TILE; j += THREADS) {
+            unsigned d = 0xffffffffu;
+            if (lo[j] != 0u) {
+                const unsigned long long key = local_key(lo[j], j);
+                if (top >= 45 || (key >> top) == (prefix >> top))
+                    d = (unsigned)(key >> shift) & (nbins - 1);
+            }
+            const unsigned peers = __match_any_sync(0xffffffffu, d);
+            if (d != 0xffffffffu && (threadIdx.x & 31) == __ffs(peers) - 1)
+                atomicAdd(&hist[d], (unsigned)__popc(peers));
+        }
+        __syncthreads();
+        // bins from the top, nbins / THREADS (at most 4) a thread
+        constexpr int MAXB = (1 << HBITS) / THREADS;
+        const int per = nbins > THREADS ? nbins / THREADS : 1;
+        unsigned c[MAXB];
+        unsigned sum = 0u;
+#pragma unroll
+        for (int i = 0; i < MAXB; ++i) {
+            const int b = threadIdx.x * per + i;
+            c[i] = (i < per && b < nbins) ? hist[nbins - 1 - b] : 0u;
+            sum += c[i];
+        }
+        int tot;
+        unsigned before = (unsigned)cta_excl_scan<int>((int)sum, sh.ws_i, tot);
+        const unsigned rank = (unsigned)sh.rank;
+        const unsigned above = (unsigned)sh.above;
+        __syncthreads();
+#pragma unroll
+        for (int i = 0; i < MAXB; ++i) {
+            const int b = threadIdx.x * per + i;
+            if (i < per && b < nbins && before < rank &&
+                before + c[i] >= rank) {
+                sh.prefix = prefix | ((unsigned long long)(nbins - 1 - b)
+                                      << shift);
+                sh.rank = (int)(rank - before);
+                sh.above = (int)(above + before);
+                sh.done = above + before + c[i] <= 2u * (unsigned)t;
+            }
+            before += c[i];
+        }
+        __syncthreads();
+    }
+    return sh.prefix;
+}
+
+// A row's threshold key, or none (0, with has = false).
+__device__ __forceinline__ Key row_tau(const Tiles& a, long long r,
+                                       bool& has) {
+    has = a.tau_s[r] > -INFINITY;
+    return has ? rsel::make_key(a.tau_s[r], a.tau_d[r], a.n_docs_pad) : 0ull;
+}
+
+// grid over the pairs, a warp each: a pair that left matches out of its
+// tops while its least top reaches tau (or any pair that left matches out,
+// in a row without tau) goes to the rerun list (totals[4] counts it); any
+// other lists its tops at or above tau.
+__global__ void triage_kernel(Tiles a) {
+    const long long p =
+        ((long long)blockIdx.x * blockDim.x + threadIdx.x) >> 5;
+    const int lane = threadIdx.x & 31;
+    if (p >= a.totals[0]) return;
+    const long long r = a.pair_rt[p] / a.n_tiles;
+    bool has_tau;
+    const Key tau = row_tau(a, r, has_tau);
+    if (a.c_p[p] > 0 && (!has_tau || a.tkey[p] >= tau)) {
+        if (lane == 0)
+            a.rerun[atomicAdd((unsigned long long*)&a.totals[4], 1ull)] =
+                (int)p;
+        return;
+    }
+    const int tw = tops_width(a.t);
+    for (int j0 = 0; j0 < tw; j0 += 32) {
+        const int j = j0 + lane;
+        bool take = false;
+        float sc = -INFINITY;
+        int d = 0;
+        if (j < tw) {
+            sc = a.tops_s[p * tw + j];
+            d = a.tops_d[p * tw + j];
+            take = sc > -INFINITY &&
+                   (!has_tau || rsel::make_key(sc, d, a.n_docs_pad) >= tau);
+        }
+        warp_append(take, sc, d, &a.fcnt[r], a.off_final[r], a.cap_final[r],
+                    a.final_s, a.final_d, &a.totals[5]);
+    }
+}
+
+// The tile pass over one pair: sums, keys, counts, tops (MODE 0); or, for
+// a pair on the rerun list, the sums again and every entry at or above
+// tau into the row's final list (MODE 1). Persistent CTAs take the pairs
+// (MODE 0) or the rerun list (MODE 1) from a queue.
+template <bool BF16, int MODE>
+__global__ void __launch_bounds__(THREADS, 2) tile_kernel(Tiles a) {
+    extern __shared__ __align__(16) unsigned char smem_raw[];
+    unsigned* lo = (unsigned*)smem_raw;
+    unsigned* hi = lo + TILE;
+    float* s_dl = (float*)(hi + TILE);
+    long long* s_blk = (long long*)(s_dl + TILE);
+    float* s_w = (float*)(s_blk + STAGE);
+    float* s_avg = s_w + STAGE;
+    int* seg_cnt = (int*)s_dl;   // once the sums are done
+    __shared__ TileShared sh;
+    const long long n_work = MODE == 0 ? a.totals[0] : a.totals[4];
+    const bool count_segs = MODE == 0 && a.mode == bm25::COUNT_SEGS;
+    for (;;) {
+        if (threadIdx.x == 0) sh.pair = (int)atomicAdd(&a.queue[MODE], 1u);
+        __syncthreads();
+        const long long q = sh.pair;
+        __syncthreads();
+        if (q >= n_work) break;
+        const long long p = MODE == 0 ? q : a.rerun[q];
+        const long long rt = a.pair_rt[p];
+        const long long r = rt / a.n_tiles;
+        const long long tile = rt - r * a.n_tiles;
+        const long long slot = (r / a.n_q) / a.sl.groups_per_slot;
+        const long long doc0 = tile * TILE;
+        const int n = (int)(a.n_docs_pad - doc0 < TILE ? a.n_docs_pad - doc0
+                                                       : TILE);
+        const int t = a.t;
+        unsigned long long best;
+        if (MODE == 1) {
+            bool has_tau;
+            const Key tau = row_tau(a, r, has_tau);
+            sum_tile<BF16>(a, p, slot, doc0, n, lo, hi, s_dl, s_blk, s_w,
+                           s_avg);
+            tile_keys(a, slot, doc0, n, lo, hi, false, nullptr, true, best);
+            __syncthreads();
+            for (int j = threadIdx.x; j < TILE; j += THREADS) {
+                const unsigned w = lo[j];
+                bool take = false;
+                float sc = 0.f;
+                if (w != 0u) {
+                    sc = key_score32(w);
+                    take = !has_tau ||
+                           rsel::make_key(sc, doc0 + j, a.n_docs_pad) >= tau;
+                }
+                warp_append(take, sc, (int)(doc0 + j), &a.fcnt[r],
+                            a.off_final[r], a.cap_final[r], a.final_s,
+                            a.final_d, &a.totals[5]);
+            }
+            __syncthreads();
+            continue;
+        }
+        if (threadIdx.x == 0) sh.cursor = 0;
+        sum_tile<BF16>(a, p, slot, doc0, n, lo, hi, s_dl, s_blk, s_w, s_avg);
+        if (count_segs) {
+            for (int s = threadIdx.x; s < a.n_segs; s += THREADS)
+                seg_cnt[s] = 0;
+            __syncthreads();
+        }
+        const int mine = tile_keys(a, slot, doc0, n, lo, hi, count_segs,
+                                   seg_cnt, t > 1, best);
+        int c;
+        cta_excl_scan<int>(mine, sh.ws_i, c);
+        if (threadIdx.x == 0 && c) atomicAdd(&a.mcount[r], c);
+        if (count_segs)
+            for (int s = threadIdx.x; s < a.n_segs; s += THREADS)
+                if (seg_cnt[s])
+                    atomicAdd(&a.hits[r * a.n_segs + s], seg_cnt[s]);
+        const int tw = tops_width(t);
+        float* ts = a.tops_s + p * tw;
+        int* td = a.tops_d + p * tw;
+        if (t == 1) {
+            best = tile_max(best, sh);
+            if (threadIdx.x == 0) {
+                a.c_p[p] = c > 1 ? c - 1 : 0;   // the matches left out
+                if (c > 0) {
+                    const int j = TILE - 1 - (int)(best & (TILE - 1));
+                    const float sc =
+                        key_score32((unsigned)(best >> TILE_SHIFT));
+                    ts[0] = sc;
+                    td[0] = (int)(doc0 + j);
+                    a.tkey[p] = rsel::make_key(sc, doc0 + j, a.n_docs_pad);
+                } else {
+                    ts[0] = -INFINITY;
+                    td[0] = (int)doc0;
+                }
+            }
+            __syncthreads();
+            continue;
+        }
+        // t > 1: between t and 2t best (every match when at most 2t), their
+        // least key, then pads
+        const unsigned long long lb = c > 2 * t ? tile_bound(lo, t, hi, sh)
+                                                : 0ull;
+        Key least = ~0ull;
+        for (int j0 = 0; j0 < TILE; j0 += THREADS) {
+            const int j = j0 + threadIdx.x;
+            const unsigned w = lo[j];
+            const bool take = w != 0u && local_key(w, j) >= lb;
+            const unsigned ballot = __ballot_sync(0xffffffffu, take);
+            if (ballot == 0u) continue;
+            const int lane = threadIdx.x & 31;
+            int pos = 0;
+            if (lane == __ffs(ballot) - 1)
+                pos = atomicAdd(&sh.cursor, __popc(ballot));
+            pos = __shfl_sync(0xffffffffu, pos, __ffs(ballot) - 1) +
+                  __popc(ballot & ((1u << lane) - 1u));
+            if (take) {
+                const float sc = key_score32(w);
+                ts[pos] = sc;
+                td[pos] = (int)(doc0 + j);
+                const Key key = rsel::make_key(sc, doc0 + j, a.n_docs_pad);
+                least = key < least ? key : least;
+            }
+        }
+#pragma unroll
+        for (int o = 16; o > 0; o >>= 1) {
+            const Key y = __shfl_xor_sync(0xffffffffu, least, o);
+            least = y < least ? y : least;
+        }
+        if ((threadIdx.x & 31) == 0) sh.ws_k[threadIdx.x >> 5] = least;
+        __syncthreads();
+        const int kept = sh.cursor;
+        if (threadIdx.x == 0) {
+            Key m = ~0ull;
+            for (int w = 0; w < THREADS / 32; ++w)
+                m = sh.ws_k[w] < m ? sh.ws_k[w] : m;
+            a.tkey[p] = m;
+            a.c_p[p] = c - kept;
+        }
+        for (int j = kept + threadIdx.x; j < tw; j += THREADS) {
+            ts[j] = -INFINITY;
+            td[j] = (int)(doc0 + j);
+        }
+        __syncthreads();
+    }
+}
+
+// --------------------------------------------------------------------------
+// 4. the -inf fill
+// --------------------------------------------------------------------------
+
+// grid (rows), SCAN_THREADS: a row with m < k matches gets -inf at the
+// k - m lowest-indexed docs that did not match, at positions m..k-1.
+__global__ void fill_inf_kernel(Tiles a, float* __restrict__ out_s,
+                                int* __restrict__ out_d) {
+    __shared__ int ws[33];
+    const long long r = blockIdx.x;
+    const int k = a.k;
+    const int m = a.mcount[r];
+    if (m >= k) return;
+    const long long words = (k + 31LL) / 32;
+    unsigned* bits = a.bitmap + r * words;
+    for (long long w = threadIdx.x; w < words; w += blockDim.x) bits[w] = 0u;
+    __syncthreads();
+    for (int j = threadIdx.x; j < m; j += blockDim.x) {
+        const int d = out_d[r * k + j];
+        if (d >= 0 && d < k) atomicOr(&bits[d >> 5], 1u << (d & 31));
+    }
+    __syncthreads();
+    const int need = k - m;
+    int done = 0;
+    for (long long base = 0; base < words && done < need;
+         base += blockDim.x) {
+        const long long w = base + threadIdx.x;
+        unsigned u = 0u;
+        if (w < words) {
+            u = ~bits[w];
+            const long long first = w * 32;
+            if (first + 32 > k) u &= (1u << (k - first)) - 1u;
+        }
+        int total;
+        int rank = done + cta_excl_scan<int>(__popc(u), ws, total);
+        while (u != 0u && rank < need) {
+            const int b = __ffs(u) - 1;
+            u &= u - 1u;
+            out_s[r * k + m + rank] = -INFINITY;
+            out_d[r * k + m + rank] = (int)(w * 32 + b);
+            ++rank;
+        }
+        done += total;
+    }
+}
+
+// --------------------------------------------------------------------------
+// the launchers
+// --------------------------------------------------------------------------
+
+// CUDA events between the stages, when ``out`` is set: plan writes
+// out[0] (count and scans), run out[1] (pair lists), out[2] (tile pass),
+// out[3] (threshold), out[4] (triage and reruns), out[5] (final
+// selection and fill).
+struct Stages {
+    float* out;
+    int first;
+    cudaStream_t stream;
+    cudaEvent_t ev[8];
+    int n = 0;
+    Stages(float* o, int f, cudaStream_t s) : out(o), first(f), stream(s) {
+        if (out == nullptr) return;
+        for (int i = 0; i < 8; ++i) cudaEventCreate(&ev[i]);
+        cudaEventRecord(ev[n++], stream);
+    }
+    void mark() {
+        if (out != nullptr && n < 8) cudaEventRecord(ev[n++], stream);
+    }
+    int finish() {
+        if (out == nullptr) return 0;
+        cudaError_t err = cudaEventSynchronize(ev[n - 1]);
+        for (int i = 1; i < n && err == cudaSuccess; ++i)
+            err = cudaEventElapsedTime(&out[first + i - 1], ev[i - 1], ev[i]);
+        for (int i = 0; i < 8; ++i) cudaEventDestroy(ev[i]);
+        return (int)err;
+    }
+};
+
+inline bool valid(const Tiles& a) {
+    return a.k >= 1 && a.n_q >= 1 && a.fb >= 0 && a.n_docs_pad >= a.k &&
+           a.n_docs_pad <= 0x7fffffffLL && bm25::slots_ok(a.sl) &&
+           a.nb >= 1 && (long long)a.sl.groups * a.fb <= INT_MAX &&
+           a.rows * a.n_tiles <= INT_MAX &&
+           (a.mode != bm25::COUNT_SEGS ||
+            (a.n_segs >= 1 && a.n_segs <= bm25::MAX_SEGS));
+}
+
+// Point the Tiles at scratch A (and B when given).
+inline void bind(Tiles& a, char* ws_a, char* ws_b, long long pairs,
+                 long long entries, long long fin, int* hits) {
+    const LayoutA A = layout_a(a.rows, a.n_tiles, a.k);
+    a.totals = (long long*)(ws_a + A.totals);
+    a.queue = (unsigned*)(ws_a + A.queue);
+    a.cnt = (int*)(ws_a + A.cnt);
+    a.mcount = a.mode == bm25::COUNT_TOTAL ? hits : (int*)(ws_a + A.mcount);
+    a.hits = hits;
+    a.fcnt = (int*)(ws_a + A.fcnt);
+    a.loc_e = (long long*)(ws_a + A.loc_e);
+    a.loc_p = (int*)(ws_a + A.loc_p);
+    a.row_e = (long long*)(ws_a + A.row_e);
+    a.row_p = (long long*)(ws_a + A.row_p);
+    a.base_e = (long long*)(ws_a + A.base_e);
+    a.base_p = (long long*)(ws_a + A.base_p);
+    a.off_tops = (long long*)(ws_a + A.off_tops);
+    a.tcnt = (int*)(ws_a + A.tcnt);
+    a.off_final = (long long*)(ws_a + A.off_final);
+    a.cap_final = (long long*)(ws_a + A.cap_final);
+    a.tau_s = (float*)(ws_a + A.tau_s);
+    a.tau_d = (int*)(ws_a + A.tau_d);
+    a.bitmap = (unsigned*)(ws_a + A.bitmap);
+    if (ws_b == nullptr) return;
+    const LayoutB B = layout_b(pairs, entries, fin, a.t);
+    a.pair_rt = (int*)(ws_b + B.pair_rt);
+    a.pair_n = (int*)(ws_b + B.pair_n);
+    a.pair_e = (long long*)(ws_b + B.pair_e);
+    a.c_p = (int*)(ws_b + B.c_p);
+    a.tkey = (Key*)(ws_b + B.tkey);
+    a.rerun = (int*)(ws_b + B.rerun);
+    a.elist = (int*)(ws_b + B.elist);
+    a.tops_s = (float*)(ws_b + B.tops_s);
+    a.tops_d = (int*)(ws_b + B.tops_d);
+    a.final_s = (float*)(ws_b + B.final_s);
+    a.final_d = (int*)(ws_b + B.final_d);
+}
+
+inline bool shortcut(const Tiles& a) { return a.t >= a.k; }
+
+inline unsigned grid_of(long long n, int threads) {
+    return (unsigned)((n + threads - 1) / threads);
+}
+
+// Phase 1: zero, count, scan, then copy totals[0..2] (pairs, list
+// entries, final entries) to ``host`` and wait for them: the caller sizes
+// scratch B by layout_b.
+inline int plan(Tiles a, char* ws_a, long long* host, float* split_ms,
+                cudaStream_t stream) {
+    if (!valid(a)) return (int)cudaErrorInvalidValue;
+    bind(a, ws_a, nullptr, 0, 0, 0, a.hits);
+    const LayoutA A = layout_a(a.rows, a.n_tiles, a.k);
+    Stages st(split_ms, 0, stream);
+    cudaError_t err = cudaMemsetAsync(ws_a, 0, A.zero_end, stream);
+    if (err != cudaSuccess) return (int)err;
+    if (a.hits != nullptr) {
+        const long long nh =
+            a.rows * (a.mode == bm25::COUNT_SEGS ? a.n_segs : 1);
+        err = cudaMemsetAsync(a.hits, 0, nh * 4, stream);
+        if (err != cudaSuccess) return (int)err;
+    }
+    const long long entries = (long long)a.sl.groups * a.fb;
+    if (entries > 0) {
+        count_kernel<<<grid_of(entries, AUX_THREADS), AUX_THREADS, 0,
+                       stream>>>(a);
+        err = cudaGetLastError();
+        if (err != cudaSuccess) return (int)err;
+    }
+    scan_rows_kernel<<<(unsigned)a.rows, SCAN_THREADS, 0, stream>>>(a);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+    scan_totals_kernel<<<1, SCAN_THREADS, 0, stream>>>(a, shortcut(a));
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+    st.mark();
+    const int rc = st.finish();
+    if (rc != 0) return rc;
+    err = cudaMemcpyAsync(host, a.totals, 3 * sizeof(long long),
+                          cudaMemcpyDeviceToHost, stream);
+    if (err != cudaSuccess) return (int)err;
+    return (int)cudaStreamSynchronize(stream);
+}
+
+// lo, hi, the staged doc lengths (the segment counts after the sums),
+// the staged blocks
+inline size_t tile_smem() {
+    return (size_t)TILE * 12 + (size_t)STAGE * 16;
+}
+
+// Persistent CTAs of a tile pass (static: this library's caches, see
+// rows_select.cuh).
+template <bool BF16, int MODE>
+static int launch_tiles(const Tiles& a, long long pairs,
+                        cudaStream_t stream) {
+    if (pairs == 0) return 0;
+    const size_t smem = tile_smem();
+    static int per_sm = 0;
+    cudaError_t err;
+    if (per_sm == 0) {
+        err = cudaFuncSetAttribute((const void*)tile_kernel<BF16, MODE>,
+                                   cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                   (int)smem);
+        if (err != cudaSuccess) return (int)err;
+        err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+            &per_sm, tile_kernel<BF16, MODE>, THREADS, smem);
+        if (err != cudaSuccess) return (int)err;
+        if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
+    }
+    long long ctas = (long long)per_sm * rows::n_sms();
+    if (ctas > pairs) ctas = pairs;
+    tile_kernel<BF16, MODE><<<(unsigned)ctas, THREADS, smem, stream>>>(a);
+    return (int)cudaGetLastError();
+}
+
+// Phase 2, after the read-back: the lists, the tile pass, the threshold,
+// the reruns, the final selection and the fill, into out_s / out_d
+// [rows, k].
+template <bool BF16>
+int run(Tiles a, char* ws_a, char* ws_b, long long pairs, long long entries,
+        long long fin, float* out_s, int* out_d, float* split_ms,
+        cudaStream_t stream) {
+    if (!valid(a)) return (int)cudaErrorInvalidValue;
+    bind(a, ws_a, ws_b, pairs, entries, fin, a.hits);
+    const LayoutA A = layout_a(a.rows, a.n_tiles, a.k);
+    Stages st(split_ms, 1, stream);
+    cudaError_t err;
+    if (pairs > 0) {
+        pairs_kernel<<<grid_of(a.rows * a.n_tiles, AUX_THREADS), AUX_THREADS,
+                       0, stream>>>(a);
+        err = cudaGetLastError();
+        if (err != cudaSuccess) return (int)err;
+        fill_kernel<<<grid_of((long long)a.sl.groups * a.fb, AUX_THREADS),
+                      AUX_THREADS, 0, stream>>>(a);
+        err = cudaGetLastError();
+        if (err != cudaSuccess) return (int)err;
+    }
+    st.mark();
+    int rc = launch_tiles<BF16, 0>(a, pairs, stream);
+    if (rc != 0) return rc;
+    st.mark();
+    rows::Src src{nullptr, 0, a.tops_s, a.tops_d, LLONG_MAX, a.tcnt, nullptr,
+                  a.off_tops, nullptr};
+    if (!shortcut(a)) {
+        rc = rows::select_rows(src, (int)a.rows, a.n_docs_pad, a.k,
+                               ws_a + A.st1, ws_a + A.keys1, 1, a.tau_s,
+                               a.tau_d, nullptr, stream);
+        if (rc != 0) return rc;
+        st.mark();
+        if (pairs > 0) {
+            triage_kernel<<<grid_of(pairs * 32, AUX_THREADS), AUX_THREADS, 0,
+                            stream>>>(a);
+            err = cudaGetLastError();
+            if (err != cudaSuccess) return (int)err;
+        }
+        rc = launch_tiles<BF16, 1>(a, pairs, stream);
+        if (rc != 0) return rc;
+        st.mark();
+        src = rows::Src{nullptr, 0, a.final_s, a.final_d, LLONG_MAX, a.fcnt,
+                        nullptr, a.off_final, a.cap_final};
+    } else {
+        st.mark();
+        st.mark();
+    }
+    rc = rows::select_rows(src, (int)a.rows, a.n_docs_pad, a.k, ws_a + A.st2,
+                           ws_a + A.keys2, 0, out_s, out_d, nullptr, stream);
+    if (rc != 0) return rc;
+    fill_inf_kernel<<<(unsigned)a.rows, SCAN_THREADS, 0, stream>>>(a, out_s,
+                                                                   out_d);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+    st.mark();
+    return st.finish();
+}
+
+// Scratch bytes: which 0 -> A for (rows, n_tiles, k); which 1 -> B for
+// (pairs, entries, final entries) of ``rows`` rows at k over n_docs_pad
+// docs.
+inline long long scratch_bytes(int which, long long x, long long y,
+                               long long z, int k, long long n_docs_pad,
+                               long long rows) {
+    if (which == 0) return layout_a(x, y, k).total;
+    return layout_b(x, y, z, tops_for(k, n_docs_pad, rows)).total;
+}
+
+// launch's answer when scratch B is too small for the lists the plan
+// found (host[0..2] then hold their sizes).
+constexpr int NEED_MORE = -1;
+
+// The one C entry of every family. Phase 0 plans and, when ws_b (b_bytes)
+// holds the lists the plan found, runs; else it returns NEED_MORE, and
+// the caller allocates scratch B for host[0..2] and calls phase 1, which
+// runs with those sizes.
+template <bool BF16>
+int launch(int phase, const int* block_docs, const void* block_tfs,
+           const int* ranges, const void* doc_lens, const int* flat_idx,
+           const float* flat_w, const int* flat_q, const float* flat_avgdl,
+           const uint8_t* live, const int* seg_ids, Slots sl, long long nb,
+           int fb, long long n_docs_pad, int n_q, int k, int mode,
+           int n_segs, Consts c, void* ws_a, void* ws_b, long long b_bytes,
+           long long* host, float* out_s, int* out_d, int* hits,
+           float* split_ms, cudaStream_t stream) {
+    Tiles a{};
+    a.block_docs = block_docs;
+    a.block_tfs = block_tfs;
+    a.ranges = ranges;
+    a.doc_lens = doc_lens;
+    a.flat_idx = flat_idx;
+    a.flat_w = flat_w;
+    a.flat_q = flat_q;
+    a.flat_avgdl = flat_avgdl;
+    a.live = live;
+    a.seg_ids = seg_ids;
+    a.sl = sl;
+    a.nb = nb;
+    a.fb = fb;
+    a.n_q = n_q;
+    a.k = k;
+    a.rows = (long long)sl.groups * n_q;
+    a.t = tops_for(k, n_docs_pad, a.rows);
+    a.mode = mode;
+    a.n_segs = mode == bm25::COUNT_SEGS ? n_segs : 0;
+    a.n_docs_pad = n_docs_pad;
+    a.n_tiles = (n_docs_pad + TILE - 1) / TILE;
+    a.c = c;
+    a.hits = hits;
+    if (phase == 0) {
+        const int rc = plan(a, (char*)ws_a, host, split_ms, stream);
+        if (rc != 0) return rc;
+        if (layout_b(host[0], host[1], host[2], a.t).total > b_bytes)
+            return NEED_MORE;
+    }
+    return run<BF16>(a, (char*)ws_a, (char*)ws_b, host[0], host[1], host[2],
+                     out_s, out_d, split_ms, stream);
+}
+
+}  // namespace bm25t

@@ -9,31 +9,38 @@
 // candidates [S, n_q, k'], exact per-segment counts [S, n_q, n_segs].
 //
 // What bounds it on the H100: memory, as bm25_coarse summed over the
-// slots: the gathered bf16 blocks and the [S * n_q, n_docs_pad]
-// fixed-point accumulator with its chunked top-k' pass.
+// slots.
 //
-// Why the simple design: bm25_common.cuh's dense pipeline with the slot
-// axis (one group a slot) and the bf16 contribution, so each slot's
-// output is bitwise bm25_coarse's on that slot, the last quotient left
-// unrounded as there. The plain PyTorch version is
-// elasticsearch_tpu_torch/parallel/mesh.py `mesh_bm25_coarse_plain`.
-#include "bm25_common.cuh"
+// Design: bm25_tiles.cuh with the slot axis (one group a slot) and the
+// bf16 contribution, so each slot's output is bitwise bm25_coarse's on
+// that slot, the last quotient left unrounded as there. The plain PyTorch
+// version is elasticsearch_tpu_torch/parallel/mesh.py
+// `mesh_bm25_coarse_plain`.
+#include "bm25_tiles.cuh"
 
-// k1, omb, b, k1p1 must be bf16-representable (rounded by the caller).
+// The C entry (bm25_tiles.cuh ``launch`` and ``scratch_bytes``).
+extern "C" long long mesh_bm25_coarse_bytes(
+    int which, long long x, long long y, long long z, int k,
+    long long n_docs_pad, long long rows) {
+    return bm25t::scratch_bytes(which, x, y, z, k, n_docs_pad, rows);
+}
+
 extern "C" int mesh_bm25_coarse_launch(
-    const int* block_docs, const void* block_tfs_q, const void* doc_lens_q,
-    const int* flat_idx, const float* flat_w, const int* flat_q,
-    const float* flat_avgdl, const uint8_t* live, const int* seg_ids,
-    int n_slots, long long nb, int fb, long long n_docs_pad, int n_q,
-    int n_segs, int kprime, float k1, float omb, float b, float k1p1,
-    long long* acc, float* chunk_s, int* chunk_i, float* out_cs,
-    int* out_cand, int* hits, void* stream) {
-    if (n_slots < 1 || nb < 1) return (int)cudaErrorInvalidValue;
-    bm25::Consts c{k1, omb, b, k1p1};
-    const bm25::Slots sl{n_slots, 1, nb * bm25::BLOCK, n_docs_pad};
-    return bm25::dense_topk<true>(
-        block_docs, block_tfs_q, flat_idx, flat_w, flat_q, doc_lens_q,
-        flat_avgdl, live, seg_ids, fb, n_docs_pad, n_q, kprime,
-        bm25::COUNT_SEGS, n_segs, c, acc, chunk_s, chunk_i, out_cs, out_cand,
-        hits, (cudaStream_t)stream, sl);
+    int phase, const int* block_docs, const void* block_tfs,
+    const int* ranges, const void* doc_lens, const int* flat_idx,
+    const float* flat_w, const int* flat_q, const float* flat_avgdl,
+    const uint8_t* live, const int* seg_ids, int groups,
+    int groups_per_slot, long long nb, int fb, long long n_docs_pad, int n_q,
+    int k, int mode, int n_segs, float k1, float omb, float b, float k1p1,
+    void* ws_a, void* ws_b, long long b_bytes, long long* host,
+    float* out_s, int* out_d, int* hits, float* split_ms, void* stream) {
+    if (groups < 1 || groups_per_slot < 1 || nb < 1)
+        return (int)cudaErrorInvalidValue;
+    const bm25::Slots sl{groups, groups_per_slot, nb * bm25::BLOCK,
+                         n_docs_pad};
+    return bm25t::launch<true>(
+        phase, block_docs, block_tfs, ranges, doc_lens, flat_idx, flat_w,
+        flat_q, flat_avgdl, live, seg_ids, sl, nb, fb, n_docs_pad, n_q, k,
+        mode, n_segs, bm25::Consts{k1, omb, b, k1p1}, ws_a, ws_b, b_bytes,
+        host, out_s, out_d, hits, split_ms, (cudaStream_t)stream);
 }

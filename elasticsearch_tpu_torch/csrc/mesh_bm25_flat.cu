@@ -11,36 +11,42 @@
 // [S, DP, n_q, n_segs] counts.
 //
 // What bounds it on the H100: memory, as bm25_flat_seg, summed over the
-// slots: the gathered blocks of every (slot, row) and the
-// [S * DP * n_q, n_docs_pad] fixed-point accumulator, written, then read
-// by the chunked selection.
+// slots: the gathered blocks of every (slot, row) and their doc lengths.
 //
-// Why the simple design: bm25_common.cuh's dense pipeline with its slot
-// axis. The scatter's grid is (FB, S * DP), and each group reads its own
-// slot's store (slot * NB * 128 elements in) and writes rows of its own;
-// the selection's grid covers all S * DP * n_q rows, each masking and
-// counting with its slot's live mask and seg ids. Every slot therefore
-// runs bm25_flat_seg's arithmetic on its own plane, and the 64-bit integer
-// accumulation makes the sums independent of the order the atomics land:
-// each slot's output is bitwise bm25_flat_seg's on that slot. The plain
-// PyTorch version is elasticsearch_tpu_torch/parallel/mesh.py
+// Design: bm25_tiles.cuh with bm25_common.cuh's slot axis: group g =
+// (slot, dp row) of the flat operands reads slot g / DP's store, ranges,
+// doc lengths, live mask and seg ids, and owns output rows g * n_q ...;
+// its (row, tile) pairs are binned, summed and selected with every other
+// group's in the same launches. Every slot therefore runs bm25_flat_seg's
+// arithmetic on its own plane, and the 64-bit integer sums make each
+// slot's output bitwise bm25_flat_seg's on that slot. The plain PyTorch
+// version is elasticsearch_tpu_torch/parallel/mesh.py
 // `mesh_bm25_flat_plain`.
-#include "bm25_common.cuh"
+#include "bm25_tiles.cuh"
+
+// The C entry (bm25_tiles.cuh ``launch`` and ``scratch_bytes``).
+extern "C" long long mesh_bm25_flat_bytes(
+    int which, long long x, long long y, long long z, int k,
+    long long n_docs_pad, long long rows) {
+    return bm25t::scratch_bytes(which, x, y, z, k, n_docs_pad, rows);
+}
 
 extern "C" int mesh_bm25_flat_launch(
-    const int* block_docs, const float* block_tfs, const float* doc_lens,
-    const int* flat_idx, const float* flat_w, const int* flat_q,
-    const float* flat_avgdl, const uint8_t* live, const int* seg_ids,
-    int n_slots, int dp, long long nb, int fb, long long n_docs_pad, int n_q,
-    int k, int n_segs, float k1, float omb, float b, float k1p1,
-    long long* acc, float* chunk_s, int* chunk_i, float* out_s, int* out_d,
-    int* hits, void* stream) {
-    if (n_slots < 1 || dp < 1 || nb < 1) return (int)cudaErrorInvalidValue;
-    bm25::Consts c{k1, omb, b, k1p1};
-    const bm25::Slots sl{n_slots * dp, dp, nb * bm25::BLOCK, n_docs_pad};
-    return bm25::dense_topk<false>(
-        block_docs, block_tfs, flat_idx, flat_w, flat_q, doc_lens,
-        flat_avgdl, live, seg_ids, fb, n_docs_pad, n_q, k, bm25::COUNT_SEGS,
-        n_segs, c, acc, chunk_s, chunk_i, out_s, out_d, hits,
-        (cudaStream_t)stream, sl);
+    int phase, const int* block_docs, const void* block_tfs,
+    const int* ranges, const void* doc_lens, const int* flat_idx,
+    const float* flat_w, const int* flat_q, const float* flat_avgdl,
+    const uint8_t* live, const int* seg_ids, int groups,
+    int groups_per_slot, long long nb, int fb, long long n_docs_pad, int n_q,
+    int k, int mode, int n_segs, float k1, float omb, float b, float k1p1,
+    void* ws_a, void* ws_b, long long b_bytes, long long* host,
+    float* out_s, int* out_d, int* hits, float* split_ms, void* stream) {
+    if (groups < 1 || groups_per_slot < 1 || nb < 1)
+        return (int)cudaErrorInvalidValue;
+    const bm25::Slots sl{groups, groups_per_slot, nb * bm25::BLOCK,
+                         n_docs_pad};
+    return bm25t::launch<false>(
+        phase, block_docs, block_tfs, ranges, doc_lens, flat_idx, flat_w,
+        flat_q, flat_avgdl, live, seg_ids, sl, nb, fb, n_docs_pad, n_q, k,
+        mode, n_segs, bm25::Consts{k1, omb, b, k1p1}, ws_a, ws_b, b_bytes,
+        host, out_s, out_d, hits, split_ms, (cudaStream_t)stream);
 }

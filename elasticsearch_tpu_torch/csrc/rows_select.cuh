@@ -71,10 +71,12 @@ struct GroupBar {
 };
 
 // Where row r's entries are. With no lists (lv null), or where the row's
-// threshold tau[r] is not above -inf, or its list overflowed (cnt[r] >
-// lld), the row is plane row r: n entries at plane + r * ld, each indexed
-// by its column. Otherwise it is list r: cnt[r] values at lv + r * lld,
-// indexed by li + r * lld.
+// threshold tau[r] (when given) is not above -inf, or its list overflowed
+// (cnt[r] > lld, lists at a fixed stride), the row is plane row r: n
+// entries at plane + r * ld, each indexed by its column. Otherwise it is
+// list r: cnt[r] values at lv + r * lld, indexed by li + r * lld -- or,
+// with ``off``, at lv + off[r] and li + off[r], at most lim[r] of them
+// when ``lim`` is given (lists of varying size; never a plane row).
 struct Src {
     const float* plane;
     long long ld;
@@ -83,11 +85,25 @@ struct Src {
     long long lld;
     const int* cnt;
     const float* tau;
+    const long long* off;
+    const long long* lim;
 };
 
 __device__ __forceinline__ bool full_row(const Src& s, long long r) {
-    return s.lv == nullptr || !(s.tau[r] > -INFINITY) ||
-           (long long)s.cnt[r] > s.lld;
+    return s.lv == nullptr ||
+           (s.tau != nullptr && !(s.tau[r] > -INFINITY)) ||
+           (s.off == nullptr && (long long)s.cnt[r] > s.lld);
+}
+
+// The first entry and the entry count of list row r (not a plane row).
+__device__ __forceinline__ long long list_at(const Src& s, long long r) {
+    return s.off != nullptr ? s.off[r] : r * s.lld;
+}
+
+__device__ __forceinline__ long long list_len(const Src& s, long long r) {
+    long long m = s.cnt[r];
+    if (s.lim != nullptr && m > s.lim[r]) m = s.lim[r];
+    return m;
 }
 
 __device__ __forceinline__ Key make_key(float v, long long id, long long n) {
@@ -172,8 +188,8 @@ __device__ __forceinline__ void for_each(const float* __restrict__ v,
 // grid (cooperative: groups x g CTAs), THREADS threads, sort_bytes of
 // dynamic shared memory when sort_here. Row r's best k go to out_s /
 // out_d[r * k, + k) -- or, with kth_only, only the k-th score, to
-// out_s[r]. ``full`` (may be null) counts the rows that a source with
-// lists read from the plane.
+// out_s[r] (and its index to out_d[r] when out_d is given). ``full`` (may
+// be null) counts the rows that a source with lists read from the plane.
 __global__ void __launch_bounds__(THREADS) select_kernel(
     Src src, int n_rows, long long n, int k, int scap, Plan plan, int g,
     RowState* __restrict__ rs, GroupBar* __restrict__ gb,
@@ -191,9 +207,9 @@ __global__ void __launch_bounds__(THREADS) select_kernel(
     for (long long r = group; r < n_rows; r += n_groups) {
         const bool whole = full_row(src, r);
         const float* vals =
-            whole ? src.plane + r * src.ld : src.lv + r * src.lld;
-        const int* ids = whole ? nullptr : src.li + r * src.lld;
-        const long long m = whole ? n : (long long)src.cnt[r];
+            whole ? src.plane + r * src.ld : src.lv + list_at(src, r);
+        const int* ids = whole ? nullptr : src.li + list_at(src, r);
+        const long long m = whole ? n : list_len(src, r);
         if (whole && src.lv != nullptr && full != nullptr && mem == 0 &&
             threadIdx.x == 0)
             atomicAdd(full, 1u);
@@ -332,8 +348,12 @@ __global__ void __launch_bounds__(THREADS) select_kernel(
                     for (int q = 0; q < RANKED; ++q)
                         if (lane == q) key = mine[q];
                     if (kth_only) {
-                        if (place == (unsigned)k - 1)
+                        if (place == (unsigned)k - 1) {
                             out_s[r] = key_score(key);
+                            if (out_d != nullptr)
+                                out_d[r] = (int)(n - 1 - (long long)(
+                                                     key & 0xffffffffull));
+                        }
                     } else {
                         out_s[r * k + place] = key_score(key);
                         out_d[r * k + place] =
@@ -354,7 +374,12 @@ __global__ void write_keys_kernel(const Key* __restrict__ keys, long long n,
     const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
     if (i >= k) return;
     if (kth_only) {
-        if (i == k - 1) out_s[r] = key_score(keys[i]);
+        if (i == k - 1) {
+            out_s[r] = key_score(keys[i]);
+            if (out_d != nullptr)
+                out_d[r] =
+                    (int)(n - 1 - (long long)(keys[i] & 0xffffffffull));
+        }
         return;
     }
     out_s[r * k + i] = key_score(keys[i]);

@@ -254,8 +254,8 @@ inline int bm25_plane(const int* block_docs, const float* block_tfs,
     if (err != cudaSuccess) return (int)err;
     if (qb == 0) return 0;
     const bm25::Slots sl{(int)rows, n_q, nb * bm25::BLOCK, n_docs_pad};
-    bm25::scatter_kernel<false, true><<<dim3(qb, (unsigned)rows), bm25::BLOCK,
-                                         0, stream>>>(
+    bm25::scatter_kernel<true><<<dim3(qb, (unsigned)rows), bm25::BLOCK, 0,
+                                 stream>>>(
         block_docs, block_tfs, block_idx, block_w, nullptr, doc_lens, avgdl,
         n_docs_pad, qb, 1, sl, c, (unsigned long long*)acc);
     return (int)cudaGetLastError();

@@ -24,7 +24,10 @@ for CPU tensors; there is no fallback between the two. Both sum the f32
 contributions in 64-bit fixed point (scale 2^32) and convert once, so the
 kernel and its plain version agree bit for bit, and K1, K2, K4 and K8 give
 the same score for the same doc. Top-k order is score descending, then index
-ascending, -inf slots included (``lax.top_k``'s order).
+ascending, -inf slots included (``lax.top_k``'s order). K1-K3 (and the
+mesh's rows 31/32) share ``csrc/bm25_tiles.cuh``, which sums each (query,
+8,192-doc tile) in shared memory instead of a [n_q, n_docs_pad] plane
+(``tiles_launch``; ``bm25_tiles_mirror`` is its algorithm on the CPU).
 
 idf follows the reference's BM25: ln(1 + (N - df + 0.5) / (df + 0.5)).
 """
@@ -32,6 +35,8 @@ idf follows the reference's BM25: ln(1 + (N - df + 0.5) / (df + 0.5)).
 from __future__ import annotations
 
 import ctypes
+import math
+import threading
 from typing import Optional, Tuple
 
 import numpy as np
@@ -53,6 +58,62 @@ KMAX = 4096
 MAX_SEGS = 4096
 CHUNK = 65536
 BLOCK_WIDTH = 128
+
+
+# csrc/bm25_tiles.cuh: docs a tile, and the count modes of bm25_common.cuh
+TILE_DOCS = 8192
+COUNT_NONE, COUNT_TOTAL, COUNT_SEGS = 0, 1, 2
+# the probe's stage names (bm25_tiles.cuh ``Stages``), in order
+TILE_STAGES = ("plan", "lists", "tiles", "threshold", "rerun", "final")
+
+
+def tops_width(t: int) -> int:
+    """Slots a tile's tops take (csrc/bm25_tiles.cuh ``tops_width``)."""
+    return 1 if t == 1 else 2 * t
+
+
+def tops_for(k: int, n_docs_pad: int, rows: int,
+             tile_docs: int = TILE_DOCS) -> int:
+    """The least entries a tile keeps (csrc/bm25_tiles.cuh ``tops_for``):
+    16 at most 4 rows and k <= 16; else 1 for k <= 32, 64 up to 4,096,
+    256 above; 1 where the last tile holds fewer docs than the tops'
+    slots."""
+    t = 1 if k <= 32 else (64 if k <= 4096 else 256)
+    if k <= 16 and rows <= 4:
+        t = 16
+    last = n_docs_pad - (n_docs_pad - 1) // tile_docs * tile_docs
+    return 1 if last < tops_width(t) else t
+
+
+# csrc/bm25_tiles.cuh tile_bound's digits of a tile's 45-bit local key:
+# (shift, bits), the score word first, then the slot
+BOUND_DIGITS = ((34, 11), (23, 11), (13, 10), (6, 7), (0, 6))
+
+
+def tile_bound(local_keys, t: int) -> int:
+    """csrc/bm25_tiles.cuh ``tile_bound`` for a tile of more than 2t
+    matches: the radix select for the t-th largest local key that stops
+    at the first digit whose bin, with every bin above it, holds at most
+    2t keys; returns that bin's lower bound (every key at or above it is
+    kept: between t and 2t of them)."""
+    from collections import Counter
+    prefix, rank, above = 0, t, 0
+    for shift, bits in BOUND_DIGITS:
+        top = shift + bits
+        hist = Counter((key >> shift) & ((1 << bits) - 1) for key in local_keys
+                       if top >= 45 or key >> top == prefix >> top)
+        before = 0
+        for digit in sorted(hist, reverse=True):
+            c = hist[digit]
+            if before < rank <= before + c:
+                prefix |= digit << shift
+                above += before
+                rank -= before
+                if above + c <= 2 * t:
+                    return prefix
+                break
+            before += c
+    return prefix
 
 
 def idf(doc_count: int, doc_freq: int) -> float:
@@ -207,6 +268,146 @@ def bm25_coarse_plain(block_docs, block_tfs_q, flat_idx, flat_w, flat_q,
     return cs, cand, _seg_counts(matched, seg_ids, n_segs)
 
 
+def _entry_keys(scores: torch.Tensor, docs: torch.Tensor,
+                n: int) -> torch.Tensor:
+    """int64 keys of (score, doc) entries in ``csrc/rows_select.cuh``'s
+    order (score bits high, n - 1 - doc low), less 2^63, so that signed
+    order is the key's order: a larger key is a better entry."""
+    from elasticsearch_tpu_torch.ops.topk import score_words
+    return ((score_words(scores) - (1 << 31)) * (1 << 32)
+            + (n - 1 - docs.long()))
+
+
+def bm25_tiles_mirror(block_docs, block_tfs, flat_idx, flat_w, flat_q,
+                      doc_lens, flat_avgdl, live, seg_ids, n_docs_pad: int,
+                      n_q: int, k: int, *, bf16: bool = False,
+                      n_segs: int = 1, k1: float = DEFAULT_K1,
+                      b: float = DEFAULT_B, tile_docs: int = TILE_DOCS):
+    """``csrc/bm25_tiles.cuh`` step by step on the CPU (tests only): bin
+    the entries of non-zero weight by (row, tile) through the block
+    ranges; sum each pair's tile; mask, count and keep its best entry (t
+    1) or between t and 2t of its best (``tile_bound``), pads at -inf;
+    tau, the k-th largest key of a row's tops; rerun the tiles that left
+    matches out while their least kept key reaches tau, list the others'
+    tops at or above it; the k best of the list; the -inf fill. ``bf16``
+    takes K3's arithmetic.
+    Returns (s [n_q, k] f32, d [n_q, k] int32, matches [n_q] int32,
+    per-segment hits [n_q, n_segs] int32 or None without ``seg_ids``,
+    stats), stats holding the pairs, each row's tiles, list entries,
+    entries binned, tiles rerun, tops t and each row's final list length
+    and capacity."""
+    from elasticsearch_tpu_torch.ops.device_segment import block_ranges
+    from elasticsearch_tpu_torch.ops.topk import score_words
+    contrib = _contrib_bf16 if bf16 else _contrib_f32
+    fx, _safe = contrib(block_docs, block_tfs, flat_idx, flat_w, doc_lens,
+                        flat_avgdl, k1, b)
+    rows_idx = flat_idx.long()
+    docs = block_docs[rows_idx]
+    rng = block_ranges(block_docs)[rows_idx].tolist()
+    n = n_docs_pad
+    T = tile_docs
+    n_tiles = -(-n // T)
+    t = tops_for(k, n, n_q, T)
+    # 1. binning
+    lists: dict = {}
+    binned = 0
+    for f, (w, q, (lo, hi)) in enumerate(zip(flat_w.tolist(),
+                                             flat_q.tolist(), rng)):
+        if w == 0.0 or hi < lo or hi < 0:
+            continue
+        binned += 1
+        for tile in range(max(lo, 0) // T, min(hi // T, n_tiles - 1) + 1):
+            lists.setdefault((q, tile), []).append(f)
+    # 2. the tile pass
+    matches = torch.zeros(n_q, dtype=torch.int32)
+    seg_hits = None if seg_ids is None else \
+        torch.zeros(n_q, n_segs, dtype=torch.int32)
+    tops = {r: [] for r in range(n_q)}       # (key, score, doc)
+    tiles = {}          # pair -> (left out, least kept key, kept, all)
+    neg = torch.tensor([-math.inf])
+    for (r, tile) in sorted(lists):
+        doc0 = tile * T
+        width = min(T, n - doc0)
+        ents = torch.tensor(lists[(r, tile)])
+        dd = docs[ents]
+        inside = (dd >= doc0) & (dd < doc0 + width)
+        acc = torch.zeros(width, dtype=torch.int64)
+        acc.index_add_(0, (dd[inside] - doc0).long(), fx[ents][inside])
+        m = (acc > 0) & live[doc0: doc0 + width]
+        j = m.nonzero().flatten()
+        c = int(j.numel())
+        matches[r] += c
+        if seg_hits is not None:
+            sg = seg_ids[doc0: doc0 + width][j].long()
+            ok = (sg >= 0) & (sg < n_segs)
+            seg_hits[r].index_add_(0, sg[ok], torch.ones(
+                int(ok.sum()), dtype=torch.int32))
+        sc = _from_fixed(acc[j])
+        dj = doc0 + j
+        kk = _entry_keys(sc, dj, n)
+        order = torch.argsort(kk, descending=True)
+        entries = list(zip(kk[order].tolist(), sc[order].tolist(),
+                           dj[order].tolist()))
+        if t == 1:
+            kept = entries[:1]
+        else:
+            # the kernel's local key: score word, then 8191 - slot
+            local = ((score_words(sc[order]) << 13)
+                     | (8191 - j[order])).tolist()
+            lb = tile_bound(local, t) if c > 2 * t else 0
+            kept = [e for e, key in zip(entries, local) if key >= lb]
+        pads = torch.arange(len(kept), tops_width(t)) + doc0
+        pad_keys = _entry_keys(neg.expand(pads.numel()), pads, n)
+        tops[r] += kept + [(pk, -math.inf, pd) for pk, pd in
+                           zip(pad_keys.tolist(), pads.tolist())]
+        tiles[(r, tile)] = (c - len(kept),
+                            kept[-1][0] if kept else None, kept, entries)
+    # 3. selection
+    s = torch.full((n_q, k), math.nan)
+    d = torch.full((n_q, k), -1, dtype=torch.int32)
+    reruns = 0
+    lengths, caps = [], []
+    for r in range(n_q):
+        if t >= k:
+            final = tops[r]
+        else:
+            ranked = sorted(tops[r], reverse=True)
+            tau = ranked[k - 1][0] if len(ranked) >= k and \
+                ranked[k - 1][1] > -math.inf else None
+            final = []
+            p_r = 0
+            for (row, tile), (left, least, kept, entries) in sorted(
+                    tiles.items()):
+                if row != r:
+                    continue
+                p_r += 1
+                rerun = left > 0 and (tau is None or least >= tau)
+                reruns += rerun
+                pool = entries if rerun else kept
+                final += [e for e in pool if tau is None or e[0] >= tau]
+            cap = min(k + min(k // t, p_r) * (T - t), p_r * T)
+            lengths.append(len(final))
+            caps.append(cap)
+        best = sorted(final, reverse=True)[:k]
+        for i, (_key, sc, doc) in enumerate(best):
+            s[r, i] = sc
+            d[r, i] = doc
+        # 4. the -inf fill
+        m = int(matches[r])
+        if m < k:
+            taken = set(d[r, :m].tolist())
+            free = [x for x in range(k) if x not in taken][: k - m]
+            s[r, m:] = -math.inf
+            d[r, m:] = torch.tensor(free, dtype=torch.int32)
+    stats = {"pairs": len(lists), "tiles_of_row": {
+                 r: {tile for (row, tile) in lists if row == r}
+                 for r in range(n_q)},
+             "list_entries": sum(len(v) for v in lists.values()),
+             "entries_binned": binned, "reruns": reruns, "tops": t,
+             "final_lengths": lengths, "final_caps": caps}
+    return s.float(), d, matches, seg_hits, stats
+
+
 def bm25_rerank_plain(block_docs, block_tfs, flat_idx, flat_w, flat_q,
                       doc_lens, flat_avgdl, live, cand, coarse_s,
                       n_docs_pad: int, n_q: int, kprime: int, k: int,
@@ -260,13 +461,13 @@ def bm25_block_scores_plain(block_docs, block_tfs, block_idx, block_weight,
 # kernel wrappers
 # ---------------------------------------------------------------------------
 
+# the tile families' one C entry (csrc/bm25_tiles.cuh ``launch``): phase,
+# ten operands, the shape, the BM25 constants, scratch A and B (with B's
+# bytes), the host sizes, outputs
+TILES_SIG = (["i"] + ["p"] * 10 + ["i", "i", "ll", "i", "ll", "i", "i", "i",
+                                   "i"] + ["f"] * 4
+             + ["p", "p", "ll"] + ["p"] * 6)
 _SIG = {
-    "bm25_flat": ["p"] * 8 + ["i", "ll", "i", "i", "i"] + ["f"] * 4
-    + ["p"] * 7,
-    "bm25_flat_seg": ["p"] * 9 + ["i", "ll", "i", "i", "i"] + ["f"] * 4
-    + ["p"] * 7,
-    "bm25_coarse": ["p"] * 9 + ["i", "ll", "i", "i", "i"] + ["f"] * 4
-    + ["p"] * 7,
     "bm25_rerank": ["p"] * 10 + ["i", "i", "i", "i"] + ["f"] * 4
     + ["p"] * 7,
     "bm25_scores": ["p"] * 8 + ["i", "ll"] + ["f"] * 4 + ["p"] * 3,
@@ -362,6 +563,112 @@ def _label(fb: int, n_docs_pad: int, n_q: int, k: int) -> str:
     return f"fb={fb}/n_docs_pad={n_docs_pad}/n_q={n_q}/k={k}"
 
 
+_BYTES: dict = {}
+_TILES: dict = {}
+# per (family, device): the scratch (A, B) of the last launch, grown as
+# needed and reused; a lock keeps one launch at a time on them
+_WS: dict = {}
+_WS_LOCK = threading.Lock()
+_WS_KEEP = 256 << 20            # larger scratch is not kept
+NEED_MORE = -1                  # csrc/bm25_tiles.cuh NEED_MORE
+
+
+def _scratch_bytes(family: str, *args) -> int:
+    from elasticsearch_tpu_torch._build import library
+    fn = _BYTES.get(family)
+    if fn is None:
+        fn = getattr(library(family), f"{family}_bytes")
+        fn.restype = ctypes.c_longlong
+        fn.argtypes = [ctypes.c_int] + [ctypes.c_longlong] * 3 + [
+            ctypes.c_int, ctypes.c_longlong, ctypes.c_longlong]
+        _BYTES[family] = fn
+    return max(int(fn(*args)), 1)
+
+
+def _tiles_fn(family: str):
+    from elasticsearch_tpu_torch._build import library
+    fn = _TILES.get(family)
+    if fn is None:
+        fn = getattr(library(family), f"{family}_launch")
+        fn.restype = ctypes.c_int
+        fn.argtypes = [_CTYPES[t] for t in TILES_SIG]
+        _TILES[family] = fn
+    return fn
+
+
+def _scratch(family: str, dev, which: int, nbytes: int) -> torch.Tensor:
+    """Scratch ``which`` (0 = A, 1 = B) of at least nbytes for a family's
+    launches on ``dev``: the kept one when large enough, else a new one
+    (kept when at most _WS_KEEP)."""
+    kept = _WS.setdefault((family, str(dev)), [None, None])
+    t = kept[which]
+    if t is not None and t.numel() >= nbytes:
+        return t
+    t = torch.empty(nbytes, dtype=torch.uint8, device=dev)
+    if nbytes <= _WS_KEEP:
+        kept[which] = t
+    return t
+
+
+def tiles_launch(family: str, block_docs, block_tfs, doc_lens, flat_idx,
+                 flat_w, flat_q, flat_avgdl, live, seg_ids, *, groups: int,
+                 groups_per_slot: int, n_docs_pad: int, n_q: int, k: int,
+                 mode: int, n_segs: int, consts, out_s, out_d, hits,
+                 probe: Optional[dict] = None) -> None:
+    """Run one tile family (csrc/bm25_tiles.cuh) into out_s / out_d
+    [groups * n_q, k] and ``hits`` (None, [rows] for COUNT_TOTAL or
+    [rows, n_segs]): one C call plans (one synchronisation, to learn the
+    pairs and list sizes) and runs on the kept scratch; a second runs
+    after a larger scratch B when the lists outgrow it. ``probe``, when
+    given, receives the stage milliseconds and the binning's counts."""
+    from elasticsearch_tpu_torch._build import KernelError
+    from elasticsearch_tpu_torch.ops.device_segment import block_ranges
+    dev = block_docs.device
+    nb = block_docs.shape[-2]
+    fb = flat_idx.shape[-1]
+    rows = groups * n_q
+    n_tiles = -(-n_docs_pad // TILE_DOCS)
+    ranges = block_ranges(block_docs)
+    fn = _tiles_fn(family)
+    split = (ctypes.c_float * len(TILE_STAGES))()
+    host = (ctypes.c_longlong * 3)()
+    head = [_ptr(block_docs), _ptr(block_tfs), _ptr(ranges), _ptr(doc_lens),
+            _ptr(flat_idx), _ptr(flat_w), _ptr(flat_q), _ptr(flat_avgdl),
+            _ptr(live), _ptr(seg_ids) if seg_ids is not None else None,
+            groups, groups_per_slot, nb, fb, n_docs_pad, n_q, k, mode,
+            n_segs, *consts]
+    tail = [ctypes.addressof(host), _ptr(out_s), _ptr(out_d),
+            _ptr(hits) if hits is not None else None,
+            ctypes.addressof(split) if probe is not None else None,
+            _stream()]
+    with _WS_LOCK:
+        ws_a = _scratch(family, dev, 0, _scratch_bytes(
+            family, 0, rows, n_tiles, 0, k, n_docs_pad, rows))
+        ws_b = _WS[(family, str(dev))][1]
+        b_bytes = 0 if ws_b is None else ws_b.numel()
+        rc = fn(0, *head, _ptr(ws_a), _ptr(ws_b) if b_bytes else None,
+                b_bytes, *tail)
+        if rc == NEED_MORE:
+            need = _scratch_bytes(family, 1, host[0], host[1], host[2], k,
+                                  n_docs_pad, rows)
+            ws_b = _scratch(family, dev, 1, need)
+            rc = fn(1, *head, _ptr(ws_a), _ptr(ws_b), ws_b.numel(), *tail)
+        if rc != 0:
+            raise KernelError(f"[{family}] kernel launch failed: CUDA error "
+                              f"{rc}")
+        if probe is not None:
+            totals = ws_a[:64].view(torch.int64).tolist()
+    if probe is not None:
+        pairs, entries = totals[0], totals[1]
+        probe.update({
+            "split_ms": dict(zip(TILE_STAGES, list(split))),
+            "pairs": pairs, "list_entries": entries,
+            "entries_binned": totals[3],
+            "extra_block_reads": entries - totals[3],
+            "reruns": totals[4], "final_capacity": totals[2],
+            "refused": totals[5], "tops": tops_for(k, n_docs_pad, rows)})
+
+
 def bm25_flat(block_docs, block_tfs, flat_idx, flat_w, flat_q, doc_lens,
               flat_avgdl, live, n_docs_pad: int, n_q: int, k: int,
               k1: float = DEFAULT_K1, b: float = DEFAULT_B,
@@ -384,22 +691,28 @@ def bm25_flat(block_docs, block_tfs, flat_idx, flat_w, flat_q, doc_lens,
                                    flat_q, doc_lens, flat_avgdl, live,
                                    n_docs_pad, n_q, k, k1=k1, b=b,
                                    counted=counted)
-        if not 1 <= k <= n_docs_pad:
-            raise ValueError(f"k={k} outside [1, {n_docs_pad}]")
-        dev = block_docs.device
-        acc = torch.empty(n_q * n_docs_pad, dtype=torch.int64, device=dev)
-        ck = chunk_entries(n_q, n_docs_pad, k)
-        chunk_s = torch.empty(ck, dtype=torch.float32, device=dev)
-        chunk_i = torch.empty(ck, dtype=torch.int32, device=dev)
-        s = torch.empty(n_q, k, dtype=torch.float32, device=dev)
-        d = torch.empty(n_q, k, dtype=torch.int32, device=dev)
-        hits = torch.empty(n_q, dtype=torch.int32, device=dev)
-        _launch("bm25_flat", _ptr(block_docs), _ptr(block_tfs),
-                _ptr(flat_idx), _ptr(flat_w), _ptr(flat_q), _ptr(doc_lens),
-                _ptr(flat_avgdl), _ptr(live), fb, n_docs_pad, n_q, k,
-                int(counted), *_consts(k1, b), _ptr(acc), _ptr(chunk_s),
-                _ptr(chunk_i), _ptr(s), _ptr(d), _ptr(hits), _stream())
-        return (s, d, hits) if counted else (s, d)
+        return _bm25_flat_cuda(block_docs, block_tfs, flat_idx, flat_w,
+                               flat_q, doc_lens, flat_avgdl, live,
+                               n_docs_pad, n_q, k, k1, b, counted)
+
+
+def _bm25_flat_cuda(block_docs, block_tfs, flat_idx, flat_w, flat_q,
+                    doc_lens, flat_avgdl, live, n_docs_pad, n_q, k, k1, b,
+                    counted, probe=None):
+    if not 1 <= k <= n_docs_pad:
+        raise ValueError(f"k={k} outside [1, {n_docs_pad}]")
+    dev = block_docs.device
+    s = torch.empty(n_q, k, dtype=torch.float32, device=dev)
+    d = torch.empty(n_q, k, dtype=torch.int32, device=dev)
+    hits = torch.empty(n_q, dtype=torch.int32, device=dev) if counted \
+        else None
+    tiles_launch("bm25_flat", block_docs, block_tfs, doc_lens, flat_idx,
+                 flat_w, flat_q, flat_avgdl, live, None, groups=1,
+                 groups_per_slot=1, n_docs_pad=n_docs_pad, n_q=n_q, k=k,
+                 mode=COUNT_TOTAL if counted else COUNT_NONE, n_segs=1,
+                 consts=_consts(k1, b), out_s=s, out_d=d, hits=hits,
+                 probe=probe)
+    return (s, d, hits) if counted else (s, d)
 
 
 def bm25_topk_flat_counted(*args, **kw):
@@ -427,24 +740,29 @@ def bm25_flat_seg(block_docs, block_tfs, flat_idx, flat_w, flat_q,
                 block_docs, block_tfs, flat_idx, flat_w, flat_q, doc_lens,
                 flat_avgdl, live, seg_ids, n_docs_pad, n_q, k, k1=k1, b=b,
                 n_segs=n_segs)
-        if not 1 <= k <= n_docs_pad:
-            raise ValueError(f"k={k} outside [1, {n_docs_pad}]")
-        if not 1 <= n_segs <= MAX_SEGS:
-            raise ValueError(f"n_segs={n_segs} outside [1, {MAX_SEGS}]")
-        dev = block_docs.device
-        acc = torch.empty(n_q * n_docs_pad, dtype=torch.int64, device=dev)
-        ck = chunk_entries(n_q, n_docs_pad, k)
-        chunk_s = torch.empty(ck, dtype=torch.float32, device=dev)
-        chunk_i = torch.empty(ck, dtype=torch.int32, device=dev)
-        s = torch.empty(n_q, k, dtype=torch.float32, device=dev)
-        d = torch.empty(n_q, k, dtype=torch.int32, device=dev)
-        hits = torch.empty(n_q, n_segs, dtype=torch.int32, device=dev)
-        _launch("bm25_flat_seg", _ptr(block_docs), _ptr(block_tfs),
-                _ptr(flat_idx), _ptr(flat_w), _ptr(flat_q), _ptr(doc_lens),
-                _ptr(flat_avgdl), _ptr(live), _ptr(seg_ids), fb, n_docs_pad,
-                n_q, k, n_segs, *_consts(k1, b), _ptr(acc), _ptr(chunk_s),
-                _ptr(chunk_i), _ptr(s), _ptr(d), _ptr(hits), _stream())
-        return s, d, hits
+        return _bm25_flat_seg_cuda(block_docs, block_tfs, flat_idx, flat_w,
+                                   flat_q, doc_lens, flat_avgdl, live,
+                                   seg_ids, n_docs_pad, n_q, k, k1, b,
+                                   n_segs)
+
+
+def _bm25_flat_seg_cuda(block_docs, block_tfs, flat_idx, flat_w, flat_q,
+                        doc_lens, flat_avgdl, live, seg_ids, n_docs_pad, n_q,
+                        k, k1, b, n_segs, probe=None):
+    if not 1 <= k <= n_docs_pad:
+        raise ValueError(f"k={k} outside [1, {n_docs_pad}]")
+    if not 1 <= n_segs <= MAX_SEGS:
+        raise ValueError(f"n_segs={n_segs} outside [1, {MAX_SEGS}]")
+    dev = block_docs.device
+    s = torch.empty(n_q, k, dtype=torch.float32, device=dev)
+    d = torch.empty(n_q, k, dtype=torch.int32, device=dev)
+    hits = torch.empty(n_q, n_segs, dtype=torch.int32, device=dev)
+    tiles_launch("bm25_flat_seg", block_docs, block_tfs, doc_lens, flat_idx,
+                 flat_w, flat_q, flat_avgdl, live, seg_ids, groups=1,
+                 groups_per_slot=1, n_docs_pad=n_docs_pad, n_q=n_q, k=k,
+                 mode=COUNT_SEGS, n_segs=n_segs, consts=_consts(k1, b),
+                 out_s=s, out_d=d, hits=hits, probe=probe)
+    return s, d, hits
 
 
 def bm25_coarse(block_docs, block_tfs_q, flat_idx, flat_w, flat_q,
@@ -470,26 +788,55 @@ def bm25_coarse(block_docs, block_tfs_q, flat_idx, flat_w, flat_q,
                 block_docs, block_tfs_q, flat_idx, flat_w, flat_q,
                 doc_lens_q, flat_avgdl, live, seg_ids, n_docs_pad, n_q,
                 n_segs, kprime, k1=k1, b=b)
-        if not 1 <= kprime <= min(KMAX, n_docs_pad):
-            raise ValueError(
-                f"kprime={kprime} outside [1, {min(KMAX, n_docs_pad)}]")
-        if not 1 <= n_segs <= MAX_SEGS:
-            raise ValueError(f"n_segs={n_segs} outside [1, {MAX_SEGS}]")
-        dev = block_docs.device
-        acc = torch.empty(n_q * n_docs_pad, dtype=torch.int64, device=dev)
-        ck = chunk_entries(n_q, n_docs_pad, kprime)
-        chunk_s = torch.empty(ck, dtype=torch.float32, device=dev)
-        chunk_i = torch.empty(ck, dtype=torch.int32, device=dev)
-        cs = torch.empty(n_q, kprime, dtype=torch.float32, device=dev)
-        cand = torch.empty(n_q, kprime, dtype=torch.int32, device=dev)
-        hits = torch.empty(n_q, n_segs, dtype=torch.int32, device=dev)
-        _launch("bm25_coarse", _ptr(block_docs), _ptr(block_tfs_q),
-                _ptr(flat_idx), _ptr(flat_w), _ptr(flat_q), _ptr(doc_lens_q),
-                _ptr(flat_avgdl), _ptr(live), _ptr(seg_ids), fb, n_docs_pad,
-                n_q, n_segs, kprime, *_consts(k1, b, bf16=True), _ptr(acc),
-                _ptr(chunk_s), _ptr(chunk_i), _ptr(cs), _ptr(cand),
-                _ptr(hits), _stream())
-        return cs, cand, hits
+        return _bm25_coarse_cuda(block_docs, block_tfs_q, flat_idx, flat_w,
+                                 flat_q, doc_lens_q, flat_avgdl, live,
+                                 seg_ids, n_docs_pad, n_q, n_segs, kprime,
+                                 k1, b)
+
+
+def _bm25_coarse_cuda(block_docs, block_tfs_q, flat_idx, flat_w, flat_q,
+                      doc_lens_q, flat_avgdl, live, seg_ids, n_docs_pad, n_q,
+                      n_segs, kprime, k1, b, probe=None):
+    if not 1 <= kprime <= min(KMAX, n_docs_pad):
+        raise ValueError(
+            f"kprime={kprime} outside [1, {min(KMAX, n_docs_pad)}]")
+    if not 1 <= n_segs <= MAX_SEGS:
+        raise ValueError(f"n_segs={n_segs} outside [1, {MAX_SEGS}]")
+    dev = block_docs.device
+    cs = torch.empty(n_q, kprime, dtype=torch.float32, device=dev)
+    cand = torch.empty(n_q, kprime, dtype=torch.int32, device=dev)
+    hits = torch.empty(n_q, n_segs, dtype=torch.int32, device=dev)
+    tiles_launch("bm25_coarse", block_docs, block_tfs_q, doc_lens_q,
+                 flat_idx, flat_w, flat_q, flat_avgdl, live, seg_ids,
+                 groups=1, groups_per_slot=1, n_docs_pad=n_docs_pad, n_q=n_q,
+                 k=kprime, mode=COUNT_SEGS, n_segs=n_segs,
+                 consts=_consts(k1, b, bf16=True), out_s=cs, out_d=cand,
+                 hits=hits, probe=probe)
+    return cs, cand, hits
+
+
+def probe_tiles(public, cuda_body, *args, **kwargs) -> dict:
+    """Run a tile family's CUDA body once, uncounted, with the arguments of
+    its wrapper ``public``: {"out": its outputs, "split_ms": stage -> ms,
+    "pairs", "list_entries", "entries_binned", "extra_block_reads",
+    "reruns", "final_capacity", "refused", "tops"} (``tiles_launch``)."""
+    import inspect
+    bound = inspect.signature(public).bind(*args, **kwargs)
+    bound.apply_defaults()
+    names = [n for n in inspect.signature(cuda_body).parameters
+             if n != "probe"]
+    probe: dict = {}
+    probe["out"] = cuda_body(*(bound.arguments[n] for n in names),
+                             probe=probe)
+    return probe
+
+
+def bm25_tiles_probe(family: str, *args, **kwargs) -> dict:
+    """``probe_tiles`` for K1, K2 or K3 by family name."""
+    body = {"bm25_flat": _bm25_flat_cuda,
+            "bm25_flat_seg": _bm25_flat_seg_cuda,
+            "bm25_coarse": _bm25_coarse_cuda}[family]
+    return probe_tiles(globals()[family], body, *args, **kwargs)
 
 
 def bm25_rerank(block_docs, block_tfs, flat_idx, flat_w, flat_q, doc_lens,

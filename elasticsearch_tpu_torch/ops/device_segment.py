@@ -36,6 +36,7 @@ as ``[S, ...]`` slots for the mesh text, kNN and sparse kernels
 from __future__ import annotations
 
 import time
+import weakref
 from collections import OrderedDict
 from typing import Any, Dict, List, Optional, Tuple
 
@@ -49,6 +50,40 @@ from elasticsearch_tpu_torch.index.segment import (
 from elasticsearch_tpu_torch.utils.errors import (
     CircuitBreakingError, NotPortedError,
 )
+
+
+# block store (by id) -> (weak reference, version, ranges)
+_RANGES: Dict[int, Tuple[Any, int, torch.Tensor]] = {}
+_RANGE_ROWS = 1 << 20           # blocks reduced at a time
+
+
+def block_ranges(block_docs: torch.Tensor) -> torch.Tensor:
+    """[..., NB, 2] int32 beside a block store ``block_docs`` [..., NB,
+    BLOCK]: each block's least and greatest valid doc id ((2^31 - 1, -1)
+    for a block with none), on the store's device. The BM25 tile kernels
+    (``csrc/bm25_tiles.cuh``) bin each gathered block by it. Computed once
+    a store (the planes compute it when they upload) and kept while the
+    store lives unmodified; a block's range does not depend on the order
+    of its docs."""
+    key = id(block_docs)
+    hit = _RANGES.get(key)
+    if hit is not None and hit[0]() is block_docs \
+            and hit[1] == block_docs._version:
+        return hit[2]
+    flat = block_docs.reshape(-1, block_docs.shape[-1])
+    out = torch.empty(flat.shape[0], 2, dtype=torch.int32,
+                      device=block_docs.device)
+    big = torch.iinfo(torch.int32).max
+    for i in range(0, flat.shape[0], _RANGE_ROWS):
+        d = flat[i: i + _RANGE_ROWS]
+        out[i: i + _RANGE_ROWS, 0] = torch.where(
+            d >= 0, d, torch.full((), big, dtype=d.dtype,
+                                  device=d.device)).amin(dim=1)
+        out[i: i + _RANGE_ROWS, 1] = d.clamp_min(-1).amax(dim=1)
+    out = out.view(*block_docs.shape[:-1], 2)
+    ref = weakref.ref(block_docs, lambda _r, k=key: _RANGES.pop(k, None))
+    _RANGES[key] = (ref, block_docs._version, out)
+    return out
 
 
 class DevicePostings:
@@ -75,6 +110,7 @@ class DevicePostings:
             "postings")
         dev = self.device
         self.block_docs = torch.as_tensor(block_docs, device=dev)
+        block_ranges(self.block_docs)
         self.block_tfs = torch.as_tensor(block_tfs, device=dev)
         self.doc_lens = torch.as_tensor(doc_lens, device=dev)
         self.avgdl = float(pf.sum_doc_len / max(1, (pf.doc_lens > 0).sum()))
@@ -343,6 +379,7 @@ class PlanePostings(PlanePart):
     def upload(self, host) -> None:
         bd, bt, dl = host
         self.block_docs = torch.as_tensor(bd, device=self.device)
+        block_ranges(self.block_docs)
         self.block_tfs = torch.as_tensor(bt, device=self.device)
         self.doc_lens = torch.as_tensor(dl, device=self.device)
 
@@ -1508,6 +1545,8 @@ class MeshPlaneRegistry:
     def _upload(self, part: MeshPlanePart, stacked) -> None:
         for name, arr in stacked.items():
             setattr(part, name, torch.as_tensor(arr, device=part.device))
+        if part.kind == "postings":
+            block_ranges(part.block_docs)
 
     # -- eviction / lifecycle -------------------------------------------
 

@@ -50,9 +50,10 @@ import torch
 
 from elasticsearch_tpu_torch.device import DeviceLike
 from elasticsearch_tpu_torch.ops.bm25 import (
-    BLOCK_WIDTH, DEFAULT_B, DEFAULT_K1, KMAX, MAX_SEGS, _check, _consts,
-    _on_cuda, _ptr, _stream, bm25_coarse_plain, bm25_flat_seg_plain,
-    bm25_rerank_plain, chunk_entries, launch_kernel,
+    BLOCK_WIDTH, COUNT_SEGS, DEFAULT_B, DEFAULT_K1, KMAX, MAX_SEGS, _check,
+    _consts, _on_cuda, _ptr, _stream, bm25_coarse_plain, bm25_flat_seg_plain,
+    bm25_rerank_plain, chunk_entries, launch_kernel, probe_tiles,
+    tiles_launch,
 )
 from elasticsearch_tpu_torch.ops.knn import (
     MAX_DIMS, _check_query_terms, _opt_ptr, _sim_code, full_counter,
@@ -232,10 +233,6 @@ def mesh_layout(n_shards: int, device: DeviceLike = None
 # ---------------------------------------------------------------------------
 
 _SIG = {
-    "mesh_bm25_flat": ["p"] * 9 + ["i", "i", "ll", "i", "ll", "i", "i", "i"]
-    + ["f"] * 4 + ["p"] * 7,
-    "mesh_bm25_coarse": ["p"] * 9 + ["i", "ll", "i", "ll", "i", "i", "i"]
-    + ["f"] * 4 + ["p"] * 7,
     "mesh_bm25_rerank": ["p"] * 10 + ["i", "ll", "i", "ll", "i", "i", "i"]
     + ["f"] * 4 + ["p"] * 7,
     "mesh_knn_topk": ["p"] * 7 + ["i", "i", "i", "ll", "i", "i"]
@@ -341,8 +338,8 @@ def mesh_bm25_flat(block_docs, block_tfs, doc_lens, flat_idx, flat_w,
     on that slot's plane."""
     cuda = _on_cuda(block_docs, block_tfs, doc_lens, flat_idx, flat_w,
                     flat_q, flat_avgdl, live, seg_ids)
-    s, nb = _check_stack(block_docs, block_tfs, doc_lens, live, seg_ids,
-                         n_docs_pad, torch.float32, torch.float32)
+    s, _nb = _check_stack(block_docs, block_tfs, doc_lens, live, seg_ids,
+                          n_docs_pad, torch.float32, torch.float32)
     if flat_idx.dim() != 3 or flat_idx.shape[0] != s:
         raise ValueError(f"[flat_idx] must be [{s}, DP, FB]")
     dp = int(flat_idx.shape[1])
@@ -354,28 +351,31 @@ def mesh_bm25_flat(block_docs, block_tfs, doc_lens, flat_idx, flat_w,
                 block_docs, block_tfs, doc_lens, flat_idx, flat_w, flat_q,
                 flat_avgdl, live, seg_ids, n_docs_pad, n_q, k, n_segs,
                 k1=k1, b=b)
-        if not 1 <= k <= n_docs_pad:
-            raise ValueError(f"k={k} outside [1, {n_docs_pad}]")
-        if not 1 <= n_segs <= MAX_SEGS:
-            raise ValueError(f"n_segs={n_segs} outside [1, {MAX_SEGS}]")
-        dev = block_docs.device
-        rows = s * dp * n_q
-        acc = torch.empty(rows * n_docs_pad, dtype=torch.int64, device=dev)
-        ck = chunk_entries(rows, n_docs_pad, k)
-        chunk_s = torch.empty(ck, dtype=torch.float32, device=dev)
-        chunk_i = torch.empty(ck, dtype=torch.int32, device=dev)
-        out_s = torch.empty(s, dp, n_q, k, dtype=torch.float32, device=dev)
-        out_d = torch.empty(s, dp, n_q, k, dtype=torch.int32, device=dev)
-        hits = torch.empty(s, dp, n_q, n_segs, dtype=torch.int32,
-                           device=dev)
-        launch_kernel(
-            "mesh_bm25_flat", _SIG["mesh_bm25_flat"], _ptr(block_docs),
-            _ptr(block_tfs), _ptr(doc_lens), _ptr(flat_idx), _ptr(flat_w),
-            _ptr(flat_q), _ptr(flat_avgdl), _ptr(live), _ptr(seg_ids), s,
-            dp, nb, fb, n_docs_pad, n_q, k, n_segs, *_consts(k1, b),
-            _ptr(acc), _ptr(chunk_s), _ptr(chunk_i), _ptr(out_s),
-            _ptr(out_d), _ptr(hits), _stream())
-        return out_s, out_d, hits
+        return _mesh_bm25_flat_cuda(block_docs, block_tfs, doc_lens,
+                                    flat_idx, flat_w, flat_q, flat_avgdl,
+                                    live, seg_ids, n_docs_pad, n_q, k,
+                                    n_segs, k1, b)
+
+
+def _mesh_bm25_flat_cuda(block_docs, block_tfs, doc_lens, flat_idx, flat_w,
+                         flat_q, flat_avgdl, live, seg_ids, n_docs_pad, n_q,
+                         k, n_segs, k1, b, probe=None):
+    if not 1 <= k <= n_docs_pad:
+        raise ValueError(f"k={k} outside [1, {n_docs_pad}]")
+    if not 1 <= n_segs <= MAX_SEGS:
+        raise ValueError(f"n_segs={n_segs} outside [1, {MAX_SEGS}]")
+    s, dp = int(flat_idx.shape[0]), int(flat_idx.shape[1])
+    dev = block_docs.device
+    out_s = torch.empty(s, dp, n_q, k, dtype=torch.float32, device=dev)
+    out_d = torch.empty(s, dp, n_q, k, dtype=torch.int32, device=dev)
+    hits = torch.empty(s, dp, n_q, n_segs, dtype=torch.int32, device=dev)
+    tiles_launch("mesh_bm25_flat", block_docs, block_tfs, doc_lens,
+                 flat_idx, flat_w, flat_q, flat_avgdl, live, seg_ids,
+                 groups=s * dp, groups_per_slot=dp, n_docs_pad=n_docs_pad,
+                 n_q=n_q, k=k, mode=COUNT_SEGS, n_segs=n_segs,
+                 consts=_consts(k1, b), out_s=out_s, out_d=out_d,
+                 hits=hits, probe=probe)
+    return out_s, out_d, hits
 
 
 def mesh_bm25_coarse(block_docs, block_tfs_q, doc_lens_q, flat_idx, flat_w,
@@ -389,8 +389,9 @@ def mesh_bm25_coarse(block_docs, block_tfs_q, doc_lens_q, flat_idx, flat_w,
     each slot is ``bm25_coarse`` on that slot's mirrors."""
     cuda = _on_cuda(block_docs, block_tfs_q, doc_lens_q, flat_idx, flat_w,
                     flat_q, flat_avgdl, live, seg_ids)
-    s, nb = _check_stack(block_docs, block_tfs_q, doc_lens_q, live, seg_ids,
-                         n_docs_pad, torch.bfloat16, torch.bfloat16)
+    s, _nb = _check_stack(block_docs, block_tfs_q, doc_lens_q, live,
+                          seg_ids, n_docs_pad, torch.bfloat16,
+                          torch.bfloat16)
     fb = _check_flats((s,), flat_idx, flat_w, flat_q, flat_avgdl)
     with DEVICE_PROFILE.call("mesh_bm25_coarse",
                              _label(s, fb, n_docs_pad, n_q, kprime), cuda):
@@ -399,28 +400,41 @@ def mesh_bm25_coarse(block_docs, block_tfs_q, doc_lens_q, flat_idx, flat_w,
                 block_docs, block_tfs_q, doc_lens_q, flat_idx, flat_w,
                 flat_q, flat_avgdl, live, seg_ids, n_docs_pad, n_q, kprime,
                 n_segs, k1=k1, b=b)
-        if not 1 <= kprime <= min(KMAX, n_docs_pad):
-            raise ValueError(
-                f"kprime={kprime} outside [1, {min(KMAX, n_docs_pad)}]")
-        if not 1 <= n_segs <= MAX_SEGS:
-            raise ValueError(f"n_segs={n_segs} outside [1, {MAX_SEGS}]")
-        dev = block_docs.device
-        rows = s * n_q
-        acc = torch.empty(rows * n_docs_pad, dtype=torch.int64, device=dev)
-        ck = chunk_entries(rows, n_docs_pad, kprime)
-        chunk_s = torch.empty(ck, dtype=torch.float32, device=dev)
-        chunk_i = torch.empty(ck, dtype=torch.int32, device=dev)
-        cs = torch.empty(s, n_q, kprime, dtype=torch.float32, device=dev)
-        cand = torch.empty(s, n_q, kprime, dtype=torch.int32, device=dev)
-        hits = torch.empty(s, n_q, n_segs, dtype=torch.int32, device=dev)
-        launch_kernel(
-            "mesh_bm25_coarse", _SIG["mesh_bm25_coarse"], _ptr(block_docs),
-            _ptr(block_tfs_q), _ptr(doc_lens_q), _ptr(flat_idx),
-            _ptr(flat_w), _ptr(flat_q), _ptr(flat_avgdl), _ptr(live),
-            _ptr(seg_ids), s, nb, fb, n_docs_pad, n_q, n_segs, kprime,
-            *_consts(k1, b, bf16=True), _ptr(acc), _ptr(chunk_s),
-            _ptr(chunk_i), _ptr(cs), _ptr(cand), _ptr(hits), _stream())
-        return cs, cand, hits
+        return _mesh_bm25_coarse_cuda(block_docs, block_tfs_q, doc_lens_q,
+                                      flat_idx, flat_w, flat_q, flat_avgdl,
+                                      live, seg_ids, n_docs_pad, n_q, kprime,
+                                      n_segs, k1, b)
+
+
+def _mesh_bm25_coarse_cuda(block_docs, block_tfs_q, doc_lens_q, flat_idx,
+                           flat_w, flat_q, flat_avgdl, live, seg_ids,
+                           n_docs_pad, n_q, kprime, n_segs, k1, b,
+                           probe=None):
+    if not 1 <= kprime <= min(KMAX, n_docs_pad):
+        raise ValueError(
+            f"kprime={kprime} outside [1, {min(KMAX, n_docs_pad)}]")
+    if not 1 <= n_segs <= MAX_SEGS:
+        raise ValueError(f"n_segs={n_segs} outside [1, {MAX_SEGS}]")
+    s = int(flat_idx.shape[0])
+    dev = block_docs.device
+    cs = torch.empty(s, n_q, kprime, dtype=torch.float32, device=dev)
+    cand = torch.empty(s, n_q, kprime, dtype=torch.int32, device=dev)
+    hits = torch.empty(s, n_q, n_segs, dtype=torch.int32, device=dev)
+    tiles_launch("mesh_bm25_coarse", block_docs, block_tfs_q, doc_lens_q,
+                 flat_idx, flat_w, flat_q, flat_avgdl, live, seg_ids,
+                 groups=s, groups_per_slot=1, n_docs_pad=n_docs_pad,
+                 n_q=n_q, k=kprime, mode=COUNT_SEGS, n_segs=n_segs,
+                 consts=_consts(k1, b, bf16=True), out_s=cs, out_d=cand,
+                 hits=hits, probe=probe)
+    return cs, cand, hits
+
+
+def mesh_bm25_probe(family: str, *args, **kwargs) -> dict:
+    """``ops/bm25.py`` ``probe_tiles`` for row 31 or row 32 by family
+    name."""
+    body = {"mesh_bm25_flat": _mesh_bm25_flat_cuda,
+            "mesh_bm25_coarse": _mesh_bm25_coarse_cuda}[family]
+    return probe_tiles(globals()[family], body, *args, **kwargs)
 
 
 def mesh_bm25_rerank(block_docs, block_tfs, flat_idx, flat_w, flat_q,

@@ -1,4 +1,4 @@
-"""The BM25, kNN (masked and not), dense-collector, IVF, rank_features,
+"""The BM25 (the tile pipeline's edge cases too), kNN (masked and not), dense-collector, IVF, rank_features,
 expansion-model, mesh (text, kNN and sparse) and sharded data plane
 (rows 40-44) kernels on the card against their
 plain PyTorch versions: bitwise, except where a kernel calls ``logf`` /
@@ -20,9 +20,9 @@ from elasticsearch_tpu_torch.ops import bm25 as port
 from elasticsearch_tpu_torch.ops import knn, topk
 from elasticsearch_tpu_torch.ops.device_segment import quantize_rows
 from torch_inputs import (
-    FLAT, FLAT_ORDER, N_SEGS, make_inputs, make_knn_inputs,
-    make_sparse_inputs, mesh_inputs, mesh_knn_inputs, mesh_sparse_inputs,
-    row0, sharded_inputs, tx,
+    CARD_TILE, FLAT, FLAT_ORDER, N_SEGS, TILE_CASES, make_inputs,
+    make_knn_inputs, make_sparse_inputs, mesh_inputs, mesh_knn_inputs,
+    mesh_sparse_inputs, row0, sharded_inputs, tile_case, tile_slots, tx,
 )
 
 K = 10
@@ -59,6 +59,114 @@ def test_kernels_match_plain_versions_on_the_card():
                                   256, K)
     for g, w in zip(got, want):
         assert torch.equal(g, w)
+
+
+def _tile_families(c):
+    """K1 (counted and not), K2 and K3 on one tile case on the card against
+    their plain versions, bitwise; K1's probe refused no final-list
+    append."""
+    dev = {key: v.cuda() if torch.is_tensor(v) else v for key, v in c.items()}
+    args = [dev[x] for x in ("bd", "bt", "fi", "fw", "fq", "dl", "fa",
+                             "live")]
+    n_pad, n_q, k, kp = dev["n_pad"], dev["n_q"], dev["k"], dev["kp"]
+    for counted in (False, True):
+        got = port.bm25_flat(*args, n_pad, n_q, k, counted=counted)
+        want = port.bm25_flat_plain(*args, n_pad, n_q, k, counted=counted)
+        for g, w in zip(got, want):
+            assert torch.equal(g, w)
+    got = port.bm25_flat_seg(*args, dev["seg"], n_pad, n_q, k,
+                             n_segs=dev["n_segs"])
+    want = port.bm25_flat_seg_plain(*args, dev["seg"], n_pad, n_q, k,
+                                    n_segs=dev["n_segs"])
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    q16 = list(args) + [dev["seg"]]
+    q16[1] = q16[1].to(torch.bfloat16)
+    q16[5] = q16[5].to(torch.bfloat16)
+    got = port.bm25_coarse(*q16, n_pad, n_q, dev["n_segs"], kp)
+    want = port.bm25_coarse_plain(*q16, n_pad, n_q, dev["n_segs"], kp)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    probe = port.bm25_tiles_probe("bm25_flat", *args, n_pad, n_q, k,
+                                  counted=True)
+    assert probe["refused"] == 0
+    return probe
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(TILE_CASES))
+def test_bm25_tile_cases_on_the_card(name):
+    """The tile pipeline's edge cases (tests/torch_inputs.py TILE_CASES:
+    blocks spanning many tiles, rows with no entries, fewer matches than k
+    with the -inf fill in tiles no entry touched, k above 4,096, k' 4,096
+    with reruns, dead docs and zero-weight padding, 4,096 segments, a
+    ragged last tile, equal scores across a tile boundary) spread onto the
+    card's 8,192-doc tiles: K1, K2 and K3 bitwise equal to their plain
+    versions."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    small = tile_case(name)
+    _tile_families(tile_case(name, CARD_TILE // small["tile"]))
+
+
+@pytest.mark.cuda
+def test_bm25_tiles_at_16m_docs_on_the_card():
+    """K1, K2 and K3 over n_docs_pad 16,777,216 (the MS MARCO plane's
+    width), rare blocks spanning many tiles: bitwise, with the binning's
+    extra block reads reported."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    c = tile_case("spanning_blocks", 4096)
+    assert c["n_pad"] == 16_777_216
+    probe = _tile_families(c)
+    assert probe["extra_block_reads"] > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [10, 300, 5000])
+def test_mesh_bm25_tiles_on_the_card(k):
+    """Rows 31 (DP 1 and 2) and 32 over S 4 slots (one empty) on the card's
+    tiles: bitwise equal to their plain versions and, slot by slot, to K2
+    / K3 on that slot's plane."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    from elasticsearch_tpu_torch.parallel import mesh
+    c = tile_slots(scale=CARD_TILE // 128)
+    c = {key: v.cuda() if torch.is_tensor(v) else v for key, v in c.items()}
+    n_pad, n_q, n_segs = c["n_pad"], c["n_q"], c["n_segs"]
+    stack = (c["bd"], c["bt"], c["dl"])
+    flat2 = [torch.stack([x, x.flip(1)], dim=1).contiguous()
+             for x in (c["fi"], c["fw"], c["fq"], c["fa"])]
+    got = mesh.mesh_bm25_flat(*stack, *flat2, c["live"], c["seg"], n_pad,
+                              n_q, k, n_segs)
+    want = mesh.mesh_bm25_flat_plain(*stack, *flat2, c["live"], c["seg"],
+                                     n_pad, n_q, k, n_segs)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    kp = min(k, 4096)
+    q16 = (c["bd"], c["bt"].to(torch.bfloat16), c["dl"].to(torch.bfloat16))
+    cgot = mesh.mesh_bm25_coarse(*q16, c["fi"], c["fw"], c["fq"], c["fa"],
+                                 c["live"], c["seg"], n_pad, n_q, kp, n_segs)
+    cwant = mesh.mesh_bm25_coarse_plain(*q16, c["fi"], c["fw"], c["fq"],
+                                        c["fa"], c["live"], c["seg"], n_pad,
+                                        n_q, kp, n_segs)
+    for g, w in zip(cgot, cwant):
+        assert torch.equal(g, w)
+    for si in range(c["bd"].shape[0]):
+        for row in range(2):
+            k2 = port.bm25_flat_seg(
+                c["bd"][si], c["bt"][si], flat2[0][si, row],
+                flat2[1][si, row], flat2[2][si, row], c["dl"][si],
+                flat2[3][si, row], c["live"][si], c["seg"][si], n_pad, n_q,
+                k, n_segs=n_segs)
+            for g, w in zip((x[si, row] for x in got), k2):
+                assert torch.equal(g, w)
+        k3 = port.bm25_coarse(
+            q16[0][si], q16[1][si], c["fi"][si], c["fw"][si], c["fq"][si],
+            q16[2][si], c["fa"][si], c["live"][si], c["seg"][si], n_pad, n_q,
+            n_segs, kp)
+        for g, w in zip((x[si] for x in cgot), k3):
+            assert torch.equal(g, w)
 
 
 @pytest.mark.cuda

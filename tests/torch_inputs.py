@@ -375,3 +375,176 @@ def sharded_inputs(seed: int, n_slots: int, n_docs: int = 600,
                 block_weights=weights, sparse_idx=sparse_idx,
                 sparse_w=sparse_w, n_per_shard=per, n_docs=n_docs,
                 vectors=vectors, docs=docs)
+
+
+# ---------------------------------------------------------------------------
+# the BM25 tile pipeline's cases (csrc/bm25_tiles.cuh; ops/bm25.py
+# ``bm25_tiles_mirror``): postings whose docs ascend through each term's
+# blocks, at a small tile on the CPU and, scaled, at the card's 8,192
+# ---------------------------------------------------------------------------
+
+def tile_postings(rng, n_docs: int, n_terms: int, rare: float,
+                  flat: bool = False):
+    """(block_docs [NB, 128] int32, block_tfs [NB, 128] f32, term -> its
+    block ids): each term's docs ascend through its blocks, -1 pads the
+    last one; a share ``rare`` of the terms hold a few docs spread over
+    the whole range, the others a dense run of a narrow range. ``flat``:
+    every tf 1 (with equal doc lengths, every score of a term ties)."""
+    blocks, tfs, of_term = [], [], []
+    for _ in range(n_terms):
+        if rng.random() < rare:
+            docs = np.sort(rng.choice(n_docs, int(rng.integers(2, 40)),
+                                      replace=False))
+        else:
+            width = int(rng.integers(100, max(101, n_docs // 4)))
+            start = int(rng.integers(0, n_docs - width))
+            df = int(rng.integers(20, min(width, 600)))
+            docs = np.sort(rng.choice(width, df, replace=False)) + start
+        ids = []
+        for i in range(0, len(docs), 128):
+            part = docs[i: i + 128]
+            row = np.full(128, -1, np.int32)
+            row[: len(part)] = part
+            tf = np.zeros(128, np.float32)
+            tf[: len(part)] = 1 if flat else rng.integers(1, 7, len(part))
+            ids.append(len(blocks))
+            blocks.append(row)
+            tfs.append(tf)
+        of_term.append(ids)
+    return np.stack(blocks), np.stack(tfs), of_term
+
+
+def tile_flat(rng, of_term, n_q: int, terms_per_q: int, fb_pad: int,
+              skip_rows=(), flat: bool = False):
+    """flatten_plans-shaped (idx, w, q, avgdl): each query's blocks of
+    ``terms_per_q`` terms, then padding (block 0, weight 0, query 0)."""
+    idx, w, q, avg = [], [], [], []
+    for qi in range(n_q):
+        if qi in skip_rows:
+            continue
+        for term in rng.choice(len(of_term), terms_per_q, replace=False):
+            weight = 2.0 if flat else float(rng.uniform(0.2, 9.0))
+            for blk in of_term[term]:
+                idx.append(blk)
+                w.append(weight)
+                q.append(qi)
+                avg.append(50.0 if flat else float(rng.uniform(40.0, 60.0)))
+    n = len(idx)
+    fb = max(fb_pad, n)
+    out = (np.zeros(fb, np.int32), np.zeros(fb, np.float32),
+           np.zeros(fb, np.int32), np.full(fb, 50.0, np.float32))
+    for arr, vals in zip(out, (idx, w, q, avg)):
+        arr[:n] = vals
+    return out
+
+
+def tile_doc_arrays(rng, n_pad: int, n_docs: int, dead: float, n_segs: int,
+                    flat: bool = False):
+    """(doc lengths, live mask, seg ids) over n_pad docs; seg ids contiguous
+    (with a few past n_segs, which count nowhere) or, above 8 segments,
+    cycling through all n_segs."""
+    dl = np.zeros(n_pad, np.float32)
+    dl[:n_docs] = 50 if flat else rng.integers(16, 97, n_docs)
+    live = np.zeros(n_pad, bool)
+    live[:n_docs] = rng.random(n_docs) >= dead
+    if n_segs > 8:
+        seg = (np.arange(n_pad) % n_segs).astype(np.int32)
+    else:
+        seg = np.minimum(np.arange(n_pad) * n_segs // max(n_docs, 1),
+                         n_segs - 1).astype(np.int32)
+        seg[-3:] = n_segs + 5
+    return dl, live, seg
+
+
+# name -> (seed, n_docs, n_pad, tile, n_q, k, k', terms a query, share of
+# rare terms, dead share, n_segs, rows with no entries, tied scores)
+TILE_CASES = {
+    "spanning_blocks": (1, 3000, 4096, 64, 4, 10, 64, 6, 0.7, 0.05, 3, (),
+                        False),
+    "empty_rows": (2, 2000, 2048, 128, 8, 10, 96, 3, 0.2, 0.05, 3, (3, 6),
+                   False),
+    "fill_in_untouched_tiles": (3, 2000, 2048, 64, 3, 700, 700, 1, 1.0, 0.3,
+                                2, (), False),
+    "k_above_4096": (4, 12000, 16384, 1024, 2, 5000, 4096, 30, 0.1, 0.05, 3,
+                     (), False),
+    "kprime_4096_reruns": (5, 9000, 16384, 512, 2, 4096, 4096, 12, 0.05,
+                           0.0, 3, (), False),
+    "mid_k_reruns": (6, 6000, 8192, 256, 4, 200, 300, 4, 0.0, 0.0, 3, (),
+                     False),
+    "dead_docs_and_padding": (7, 2500, 4096, 128, 4, 50, 128, 4, 0.3, 0.5,
+                              3, (), False),
+    "n_segs_4096": (8, 5000, 8192, 256, 2, 20, 64, 5, 0.3, 0.05, 4096, (),
+                    False),
+    "ragged_last_tile": (9, 1900, 2000, 256, 3, 40, 100, 4, 0.3, 0.05, 3,
+                         (), False),
+    "ties_across_tiles": (10, 3000, 4096, 128, 3, 20, 200, 1, 0.0, 0.1, 3,
+                          (), True),
+}
+
+CARD_TILE = 8192      # csrc/bm25_tiles.cuh TILE
+
+
+def tile_case(name: str, scale: int = 1):
+    """One case as tensors (CPU); ``scale`` spreads every doc id d to
+    d * scale over n_pad * scale docs, so that the case's tiles become
+    tiles of tile * scale docs (scale CARD_TILE // tile puts them on the
+    card's tiles)."""
+    (seed, n_docs, n_pad, tile, n_q, k, kp, per_q, rare, dead, n_segs,
+     skip, flat) = TILE_CASES[name]
+    rng = np.random.default_rng(seed)
+    bd, bt, of_term = tile_postings(rng, n_docs, 60, rare, flat)
+    idx, w, q, avg = tile_flat(rng, of_term, n_q, per_q, qb_bucket(1), skip,
+                               flat)
+    dl, live, seg = tile_doc_arrays(rng, n_pad, n_docs, dead, n_segs, flat)
+    if scale > 1:
+        bd = np.where(bd >= 0, bd * scale, -1).astype(np.int32)
+        big = n_pad * scale
+        dl2 = np.zeros(big, np.float32)
+        live2 = np.zeros(big, bool)
+        dl2[::scale] = dl
+        live2[::scale] = live
+        seg2 = np.repeat(seg, scale) if n_segs <= 8 else \
+            (np.arange(big) % n_segs).astype(np.int32)
+        dl, live, seg, n_pad = dl2, live2, seg2.astype(np.int32), big
+    T = torch.as_tensor
+    return dict(bd=T(bd), bt=T(bt), fi=T(idx), fw=T(w), fq=T(q), fa=T(avg),
+                dl=T(dl), live=T(live), seg=T(seg), n_pad=n_pad,
+                tile=tile * scale, n_q=n_q, k=min(k, n_pad),
+                kp=min(kp, n_pad), n_segs=n_segs)
+
+
+def tile_slots(seed: int = 21, scale: int = 1, n_slots: int = 4):
+    """A stack of n_slots tile-case planes (the last one empty) for the
+    mesh's rows 31 and 32: block stores [S, 512, 128], doc arrays
+    [S, 4096 * scale], flat operands [S, FB]; tile 128 * scale."""
+    n_pad, n_docs = 4096, 3000
+    rng = np.random.default_rng(seed)
+    stores, flats, docs = [], [], []
+    for slot in range(n_slots):
+        bd, bt, of_term = tile_postings(rng, n_docs, 40, 0.3)
+        pad_bd = np.full((512, 128), -1, np.int32)
+        pad_bt = np.zeros((512, 128), np.float32)
+        if slot < n_slots - 1:
+            pad_bd[: len(bd)] = np.where(bd >= 0, bd * scale, -1)
+            pad_bt[: len(bt)] = bt
+        stores.append((pad_bd, pad_bt))
+        flats.append(tile_flat(rng, of_term, 2, 4, 1024))
+        dl, live, seg = tile_doc_arrays(rng, n_pad, n_docs, 0.1, 3)
+        if scale > 1:
+            big = n_pad * scale
+            dl2, live2 = np.zeros(big, np.float32), np.zeros(big, bool)
+            dl2[::scale], live2[::scale] = dl, live
+            dl, live, seg = dl2, live2, np.repeat(seg, scale)
+        docs.append((dl, live, seg.astype(np.int32)))
+    T = torch.as_tensor
+    return dict(
+        bd=T(np.stack([x[0] for x in stores])),
+        bt=T(np.stack([x[1] for x in stores])),
+        dl=T(np.stack([x[0] for x in docs])),
+        live=T(np.stack([x[1] for x in docs])),
+        seg=T(np.stack([x[2] for x in docs])),
+        fi=T(np.stack([f[0] for f in flats])),
+        fw=T(np.stack([f[1] for f in flats])),
+        fq=T(np.stack([f[2] for f in flats])),
+        fa=T(np.stack([f[3] for f in flats])),
+        n_pad=n_pad * scale, tile=128 * scale, n_q=2, n_segs=3)
