@@ -564,6 +564,18 @@ def phase_small(torch, np, dev) -> None:
     phase_tiles_small(torch, dev)
 
 
+def torch_inputs():
+    """``tests/torch_inputs.py`` (the tile pipelines' edge cases, which the
+    CPU tests mirror), loaded from the checkout."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        "torch_inputs", os.path.join(os.path.dirname(os.path.abspath(
+            __file__)), "tests", "torch_inputs.py"))
+    inputs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(inputs)
+    return inputs
+
+
 def tiles_on_card(torch, bm, c, dev, name: str) -> dict:
     """K1 (counted and not), K2 and K3 on one tile case (tensors of
     ``tests/torch_inputs.py`` ``tile_case``) against their plain versions
@@ -602,14 +614,9 @@ def phase_tiles_small(torch, dev) -> None:
     tile, ties across a tile boundary), a call at 16,777,216 docs, and
     rows 31 / 32 over S 4 slots: K1-K3 and the mesh rows bitwise equal to
     their plain versions."""
-    import importlib.util
     from elasticsearch_tpu_torch.ops import bm25 as bm
     from elasticsearch_tpu_torch.parallel import mesh
-    spec = importlib.util.spec_from_file_location(
-        "torch_inputs", os.path.join(os.path.dirname(os.path.abspath(
-            __file__)), "tests", "torch_inputs.py"))
-    inputs = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(inputs)
+    inputs = torch_inputs()
     CARD_TILE, TILE_CASES = inputs.CARD_TILE, inputs.TILE_CASES
     tile_case, tile_slots = inputs.tile_case, inputs.tile_slots
     reruns = extra = 0
@@ -1210,8 +1217,10 @@ def tiles_extra(torch, fam: str, args, kwargs, want, shape: str,
     (uncounted): the answer bitwise ``want``, the stage split (medians of
     5 probes: binning = plan + lists, the tile pass, selection =
     threshold + reruns + final), the (row, tile) pairs touched, the
-    extra block reads (a block read once more for each further tile its
-    range reaches), the tiles rerun; no final-list append refused."""
+    extra block reads (a block listed once more for each further tile its
+    range reaches) and posting reads (postings read beyond one pass over
+    the gathered blocks), the tiles rerun and the scratch bytes; no
+    final-list append refused."""
     from elasticsearch_tpu_torch.ops.bm25 import TILE_STAGES
     runs = [probe_fn(fam, *args, **kwargs) for _ in range(6)]
     compare(torch, f"{fam} (probe)", runs[0]["out"], want)
@@ -1230,11 +1239,15 @@ def tiles_extra(torch, fam: str, args, kwargs, want, shape: str,
         f"{split['rerun']:.4f}, final {split['final']:.4f}) ms; "
         f"{r0['pairs']} (row, tile) pairs, {r0['entries_binned']} blocks "
         f"binned, {r0['extra_block_reads']} extra block reads, "
-        f"{r0['reruns']} tiles rerun, t {r0['tops']}")
+        f"{r0['extra_posting_reads']} extra posting reads, "
+        f"{r0['reruns']} tiles rerun, t {r0['tops']}, scratch "
+        f"{r0['scratch_bytes']} bytes; tile pass "
+        f"{1e3 * split['tiles'] / max(r0['pairs'], 1):.3f} us a pair")
     return {"split_ms": split, "pairs": r0["pairs"],
             "entries_binned": r0["entries_binned"],
             "extra_block_reads": r0["extra_block_reads"],
-            "reruns": r0["reruns"]}
+            "extra_posting_reads": r0["extra_posting_reads"],
+            "reruns": r0["reruns"], "scratch_bytes": r0["scratch_bytes"]}
 
 
 def bm25_k_of(family: str, args) -> int:
@@ -3809,6 +3822,74 @@ def phase_sparse_small(torch, np, dev) -> None:
         f"|diff| log {errs['log']}, sigmoid {errs['sigmoid']} within "
         f"rtol 2^-21, ids exact; text_expansion_forward ids exact, max "
         f"weight |diff| {fwd_err} within 2^-20)")
+    phase_sparse_tiles_small(torch, dev)
+
+
+def sparse_tiles_on_card(torch, c, dev, name: str) -> dict:
+    """K15 (the four functions, counted and not) and K16 on one rank_features
+    tile case (tensors of ``tests/torch_inputs.py`` ``sparse_tile_case``)
+    against their plain versions on the card: bitwise for linear,
+    saturation and K16, log and sigmoid within SPARSE_RTOL with ids exact;
+    K15's probe (linear, counted) must refuse no final-list append.
+    Returns the probe and the largest log / sigmoid |diff|."""
+    from elasticsearch_tpu_torch.ops import sparse
+    c = {key: v.to(dev) if torch.is_tensor(v) else v for key, v in c.items()}
+    store = (c["bd"], c["bw"], c["bi"], c["bq"])
+    n_pad, k, kp = c["n_pad"], c["k"], c["kp"]
+    err = 0.0
+    for function, (pivot, exponent) in SPARSE_FUNCTIONS.items():
+        for counted in (False, True):
+            args = (*store, pivot, exponent, c["live"], n_pad, k, function)
+            got = sparse.sparse_topk_batch(*args, counted=counted)
+            want = sparse.sparse_flat_plain(*args, counted=counted)
+            torch.cuda.synchronize()
+            e = compare(torch, f"sparse_flat {function} ({name})", got, want,
+                        function in ("saturation", "linear"), SPARSE_RTOL)
+            err = max(err, e) if function in ("log", "sigmoid") else err
+            del got, want
+    w16 = c["bw"].to(torch.bfloat16)
+    cargs = (c["bd"], w16, c["bi"], c["bq"], c["live"], n_pad, kp)
+    compare(torch, f"sparse_coarse ({name})",
+            sparse.sparse_coarse_kernel(*cargs),
+            sparse.sparse_coarse_plain(*cargs))
+    probe = sparse.sparse_tiles_probe("sparse_flat", *store, 1.0, 1.0,
+                                      c["live"], n_pad, k, "linear",
+                                      counted=True)
+    check(probe["refused"] == 0, f"sparse_flat ({name}): the final list "
+          f"refused {probe['refused']} appends")
+    return probe, err
+
+
+def phase_sparse_tiles_small(torch, dev) -> None:
+    """The rank_features tile pipeline's edge cases on the card: each of
+    ``tests/torch_inputs.py``'s SPARSE_TILE_CASES spread onto the card's
+    8,192-doc tiles (rare features' blocks spanning many tiles, rows with
+    no entries, the -inf fill in untouched tiles, k above 4,096, k' 4,096
+    with reruns, dead docs and padding rows, a ragged last tile, ties
+    across a tile boundary, blocks whose docs are out of order), and a
+    call at 16,777,216 docs: K15 and K16 against their plain versions."""
+    inputs = torch_inputs()
+    cases, tile_case = inputs.SPARSE_TILE_CASES, inputs.sparse_tile_case
+    reruns = extra = 0
+    err = 0.0
+    for name in sorted(cases):
+        small = tile_case(name)
+        probe, e = sparse_tiles_on_card(torch, tile_case(
+            name, inputs.CARD_TILE // small["tile"]), dev, name)
+        reruns += probe["reruns"]
+        extra += probe["extra_posting_reads"]
+        err = max(err, e)
+    check(extra > 0, "sparse tiles: no block was read whole for its order")
+    probe, e = sparse_tiles_on_card(torch, tile_case("spanning_blocks",
+                                                     4096), dev,
+                                    "16,777,216 docs")
+    log(f"sparse-tiles-small: {len(cases)} edge cases on the card's tiles "
+        f"and a 16,777,216-doc call ({probe['extra_block_reads']} extra "
+        f"block reads, {probe['extra_posting_reads']} extra posting reads): "
+        f"K15 (four functions, counted and not) and K16 equal to their "
+        f"plain versions (log / sigmoid max |diff| {max(err, e)}); "
+        f"{reruns} tiles rerun, {extra} postings read beyond one pass (the "
+        f"out-of-order blocks)")
 
 
 SPARSE_MAPPING = {"properties": {
@@ -4288,13 +4369,15 @@ def sparse_plain_bytes(torch, family: str, args) -> int:
 
 
 def sparse_library_ms(torch, family: str, args):
-    """One PyTorch call computing part of the same function, where there
-    is one: index_add_'s f32 sums of the call's real contributions into a
-    zeroed [n_q, n_docs_pad] plane for K15 / K19 (the sums only: no
-    transform, mask or top-k); torch.matmul of [B, H] rows by W2 and
+    """One PyTorch call, or two, computing part of the same function: for
+    K15 / K16 index_add_'s f32 sums of the call's real contributions
+    (gathered and multiplied outside the timing; linear, no fixed point)
+    into a zeroed [n_q, n_docs_pad] plane, then torch.topk (no mask or
+    count); for K19 the sums alone; torch.matmul of [B, H] rows by W2 and
     torch.topk over the [B, V] product for K18 (no embedding bag, W1,
-    gelu, normalization or anchors). None for K16 / K17."""
-    if family in ("sparse_coarse", "sparse_rerank"):
+    gelu, normalization or anchors). None for K17. Timed only: the port
+    never calls them."""
+    if family == "sparse_rerank":
         return None
     if family == "text_expansion_forward":
         ids, _direct, _emb, w1, w2, top_m = args
@@ -4305,16 +4388,36 @@ def sparse_library_ms(torch, family: str, args):
     if idx.dim() == 1:
         idx, qw = idx[None], qw[None]
     n_pad = sparse_n_docs_pad(family, args)
-    q_of, slot = torch.nonzero(qw != 0, as_tuple=True)
-    blocks = idx[q_of, slot].long()
+    k = {"sparse_flat": lambda: args[8],
+         "sparse_coarse": lambda: args[6]}.get(family, lambda: None)()
+    return plane_topk_ms(torch, docs, weights, idx, qw, n_pad, k)
+
+
+def plane_topk_ms(torch, docs, weights, idx, qw, n_pad: int, k):
+    """index_add_ of the rows' qw * w (f32) into a zeroed [rows, n_pad]
+    plane, then torch.topk at k (the sums alone when k is None), median
+    ms; ``idx`` / ``qw`` [rows, QB] index ``docs`` / ``weights`` [NB, 128]
+    (a stack flattened beforehand)."""
+    r_of, pos = torch.nonzero(qw != 0, as_tuple=True)
+    blocks = idx[r_of, pos].long()
     d = docs[blocks]
-    c = (qw[q_of, slot][:, None] * weights[blocks]).reshape(-1)
-    tgt = (q_of[:, None] * n_pad + d.clamp_min(0).long()).reshape(-1)
+    c = (qw[r_of, pos][:, None] * weights[blocks].float()).reshape(-1)
+    tgt = (r_of[:, None] * n_pad + d.clamp_min(0).long()).reshape(-1)
     keep = d.reshape(-1) >= 0
     tgt, c = tgt[keep], c[keep]
-    size = idx.shape[0] * n_pad
-    return time_call(torch, lambda: torch.zeros(
-        size, device=docs.device).index_add_(0, tgt, c), 20)
+    del r_of, pos, blocks, d, keep
+    rows = idx.shape[0]
+    acc = torch.zeros(rows * n_pad, device=docs.device)
+
+    def run():
+        acc.zero_()
+        acc.index_add_(0, tgt, c)
+        return acc if k is None else torch.topk(acc.view(rows, n_pad), k,
+                                                dim=1)
+    ms = time_call(torch, run, 10)
+    del acc, tgt, c
+    torch.cuda.empty_cache()
+    return ms
 
 
 def sparse_shape(family: str, args) -> str:
@@ -4409,20 +4512,34 @@ def phase_sparse_kernels(torch, np, rec, launches, dev) -> list:
             f"{'none' if lib_ms is None else f'{lib_ms:.4f} ms'}, "
             f"max_abs_err {err} over {len(fit[:8])} main-path calls and the"
             f" largest, timed at {shape}")
-        for g_args, _g_kw in rec.largest_calls(fam):
-            if g_args is not args and fam == "sparse_flat" and \
-                    sparse_size(fam, g_args)[0] > 1:
-                g_ms = time_call(torch, lambda: kernel(*g_args, **_g_kw), 20)
-                log(f"kernel {fam}: {g_ms:.4f} ms at the largest batch of "
-                    f"another length, {sparse_shape(fam, g_args)}, bound "
-                    f"{sparse_bound(torch, fam, g_args)[0]:.4f} ms")
-        rows.append({
+        row = {
             "name": fam, "route": "cuda",
             "source": f"elasticsearch_tpu_torch/csrc/{fam}.cu",
             "replaces": REPLACES[fam], "launches": launches.get(fam, 0),
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by,
-            "library_ms": lib_ms, "shape": shape})
+            "library_ms": lib_ms, "shape": shape}
+        if fam in ("sparse_flat", "sparse_coarse"):
+            want = kernel(*args, **kwargs)
+            row.update(tiles_extra(torch, fam, args, kwargs, want, shape,
+                                   sparse.sparse_tiles_probe))
+            del want
+        for g_args, _g_kw in rec.largest_calls(fam):
+            if g_args is not args and fam == "sparse_flat" and \
+                    sparse_size(fam, g_args)[0] > 1:
+                g_ms = time_call(torch, lambda: kernel(*g_args, **_g_kw), 20)
+                g_shape = sparse_shape(fam, g_args)
+                log(f"kernel {fam}: {g_ms:.4f} ms at the largest batch of "
+                    f"another length, {g_shape}, bound "
+                    f"{sparse_bound(torch, fam, g_args)[0]:.4f} ms, library "
+                    f"{sparse_library_ms(torch, fam, g_args):.4f} ms")
+                want = kernel(*g_args, **_g_kw)
+                row["other_length"] = {"ms": g_ms, "shape": g_shape}
+                row["other_length"].update(tiles_extra(
+                    torch, fam, g_args, _g_kw, want, g_shape,
+                    sparse.sparse_tiles_probe))
+                del want
+        rows.append(row)
         torch.cuda.empty_cache()
     # K18 on cache misses: distinct texts through expand_batch (host
     # featurize + launch + copy back) and the launch alone
@@ -7605,6 +7722,32 @@ def phase_mesh_sparse_small(torch, np, dev) -> None:
             f"sparse kernels bitwise equal to their plain versions and, "
             f"slot by slot, to K15/K16/K17")
     log(f"mesh-sparse-small: {n} mesh sparse kernel calls checked")
+    mesh_sparse_tiles_small(torch, dev)
+
+
+def mesh_sparse_tiles_small(torch, dev) -> None:
+    """Rows 38 (DP 2, k 10 and 5,000) and 34 (k' 128 and 4,096) over S 4
+    slots of ``tests/torch_inputs.py``'s ``sparse_tile_slots`` (one empty)
+    on the card's tiles: bitwise equal to their plain versions."""
+    from elasticsearch_tpu_torch.parallel import mesh
+    inputs = torch_inputs()
+    c = inputs.sparse_tile_slots(scale=inputs.CARD_TILE // 128)
+    c = {key: v.to(dev) if torch.is_tensor(v) else v for key, v in c.items()}
+    n_pad = c["n_pad"]
+    bd, bw, bi, bq, lv = c["bd"], c["bw"], c["bi"], c["bq"], c["live"]
+    w16 = bw.to(torch.bfloat16)
+    i1, q1 = bi[:, 0].contiguous(), bq[:, 0].contiguous()
+    for k, kp in ((10, 128), (5000, 4096)):
+        compare(torch, f"mesh_sparse_topk (tiles, k {k})",
+                mesh.mesh_sparse_topk(bd, bw, bi, bq, lv, n_pad, k),
+                mesh.mesh_sparse_topk_plain(bd, bw, bi, bq, lv, n_pad, k))
+        compare(torch, f"mesh_sparse_coarse (tiles, k' {kp})",
+                mesh.mesh_sparse_coarse(bd, w16, i1, q1, lv, n_pad, kp),
+                mesh.mesh_sparse_coarse_plain(bd, w16, i1, q1, lv, n_pad,
+                                              kp))
+    log("mesh-sparse-tiles-small: rows 38 (DP 2, k 10 and 5,000) and 34 "
+        "(k' 128 and 4,096) over 4 slots on the card's tiles: bitwise "
+        "equal to their plain versions")
 
 
 MESH_SPARSE_POS = {"mesh_sparse_topk": 5, "mesh_sparse_coarse": 5,
@@ -7649,29 +7792,23 @@ def mesh_sparse_bound(family: str, args):
 
 
 def mesh_sparse_library_ms(torch, family: str, args):
-    """Row 38's yardstick, as K15's (sparse_library_ms): index_add_'s f32
-    sums of the call's real contributions into a zeroed [rows, n_docs_pad]
-    plane, each row's postings read from its own slot's store (the sums
-    only: no mask or top-k). None for the coarse and re-rank tiers, as for
-    K16 / K17."""
-    if family != "mesh_sparse_topk":
+    """Rows 38 and 34's yardstick, as K15 / K16's (``plane_topk_ms``):
+    index_add_'s f32 sums of the call's real contributions into a zeroed
+    [rows, n_docs_pad] plane, each row's postings read from its own slot's
+    store, then torch.topk (no mask or count). None for the re-rank tier,
+    as for K17."""
+    if family == "mesh_sparse_rerank":
         return None
     docs, weights, idx, qw = args[:4]
     s, nb = docs.shape[:2]
-    n_pad = args[5]
+    n_pad, k = args[5], args[6]
     rows = idx.numel() // idx.shape[-1]
     per_slot = rows // s
     idx, qw = idx.reshape(rows, -1), qw.reshape(rows, -1)
-    r_of, pos = torch.nonzero(qw != 0, as_tuple=True)
-    blocks = (r_of // per_slot) * nb + idx[r_of, pos].long()
-    d = docs.reshape(s * nb, 128)[blocks]
-    c = (qw[r_of, pos][:, None] * weights.reshape(s * nb, 128)[blocks]
-         ).reshape(-1)
-    tgt = (r_of[:, None] * n_pad + d.clamp_min(0).long()).reshape(-1)
-    keep = d.reshape(-1) >= 0
-    tgt, c = tgt[keep], c[keep]
-    return time_call(torch, lambda: torch.zeros(
-        rows * n_pad, device=docs.device).index_add_(0, tgt, c), 20)
+    slot_of = (torch.arange(rows, device=idx.device) // per_slot)[:, None]
+    return plane_topk_ms(torch, docs.reshape(s * nb, 128),
+                         weights.reshape(s * nb, 128),
+                         (slot_of * nb + idx).contiguous(), qw, n_pad, k)
 
 
 def mesh_sparse_full_segments(np, n_docs: int, workers: int, source=None):
@@ -7923,18 +8060,24 @@ def phase_mesh_sparse_kernels(torch, rec, launches, per_launch) -> list:
         log(f"kernel {fam}: {ms:.4f} ms (median of 20), plain "
             f"{plain_ms:.4f} ms (median of 5), bound {bound_ms:.4f} ms "
             f"({nbytes} bytes at 3.35 TB/s, {bound_by}), library "
-            f"(index_add_ sums only) {lib}, max_abs_err {err} over "
+            f"(index_add_ + torch.topk) {lib}, max_abs_err {err} over "
             f"{min(len(calls), 4) + 1} main-path calls, timed at the "
             f"largest, {shape}; mean a launch over the mesh-sparse-full "
             f"legs {per_launch.get(fam)} ms")
-        rows.append({
+        row = {
             "name": fam, "route": "cuda", "source": MESH_SPARSE_SOURCES[fam],
             "replaces": REPLACES[fam], "launches": launches.get(fam, 0),
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib,
             "library_is_partial": lib is not None,
             "ms_per_launch_on_the_legs": per_launch.get(fam),
-            "shape": shape})
+            "shape": shape}
+        if fam != "mesh_sparse_rerank":
+            want = kernel(*args, **kwargs)
+            row.update(tiles_extra(torch, fam, args, kwargs, want, shape,
+                                   mesh.mesh_sparse_probe))
+            del want
+        rows.append(row)
         torch.cuda.empty_cache()
     return rows
 

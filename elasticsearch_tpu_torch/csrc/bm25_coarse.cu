@@ -9,18 +9,19 @@
 // What bounds it on the H100: memory. The bf16 mirrors halve the tf and
 // doc-length gather bytes against bm25_flat.
 //
-// Design: bm25_flat_seg's (bm25_tiles.cuh) with contrib_bf16 in place of
+// Design: bm25_flat_seg's (tiles.cuh) with contrib_bf16 in place of
 // contrib_f32 (bm25_common.cuh). The counts are exact because a positive
 // bf16 contribution is never rounded to 0 in fixed point, so score > 0
 // flags the same docs as the f32 kernels. The plain PyTorch version is
 // elasticsearch_tpu_torch/ops/bm25.py `bm25_coarse_plain`.
-#include "bm25_tiles.cuh"
+#include "tiles.cuh"
 
-// The C entry (bm25_tiles.cuh ``launch`` and ``scratch_bytes``).
+// The C entry (tiles.cuh ``bm25_launch`` and ``scratch_bytes``).
 extern "C" long long bm25_coarse_bytes(
     int which, long long x, long long y, long long z, int k,
     long long n_docs_pad, long long rows) {
-    return bm25t::scratch_bytes(which, x, y, z, k, n_docs_pad, rows);
+    return tiles::scratch_bytes(which, x, y, z, k, n_docs_pad, rows,
+                                false);
 }
 
 extern "C" int bm25_coarse_launch(
@@ -36,7 +37,7 @@ extern "C" int bm25_coarse_launch(
         return (int)cudaErrorInvalidValue;
     const bm25::Slots sl{groups, groups_per_slot, nb * bm25::BLOCK,
                          n_docs_pad};
-    return bm25t::launch<true>(
+    return tiles::bm25_launch<true>(
         phase, block_docs, block_tfs, ranges, doc_lens, flat_idx, flat_w,
         flat_q, flat_avgdl, live, seg_ids, sl, nb, fb, n_docs_pad, n_q, k,
         mode, n_segs, bm25::Consts{k1, omb, b, k1p1}, ws_a, ws_b, b_bytes,

@@ -1,8 +1,8 @@
 // Shared device code of the BM25 kernel families (bm25_flat,
 // bm25_flat_seg, bm25_coarse, bm25_rerank, bm25_scores), which the
-// rank_features families (sparse_common.cuh) reuse.
+// rank_features families (sparse_common.cuh, tiles.cuh) reuse.
 //
-// Four pieces, each written once and used by every family:
+// Three pieces, each written once and used by every family:
 //
 // 1. The per-posting BM25 contribution, in f32 (contrib_f32) and in the
 //    bf16 arithmetic of the coarse tier (contrib_bf16). Every operation is
@@ -14,13 +14,7 @@
 //    (scale 2^32) and is summed with integer atomics, which commute. The
 //    sum is converted to f32 once. The same contributions therefore give
 //    the same bits in any order, any batch and any family.
-// 3. The chunked mask + count + top-k over a fixed-point plane, built on
-//    the CTA-wide top-k of topk_common.cuh (score descending, index
-//    ascending, -inf slots included: the order lax.top_k returns), for
-//    the families that still sum into a plane (the rank_features ones).
-//    bm25_flat, bm25_flat_seg, bm25_coarse and their mesh forms sum in
-//    shared-memory tiles instead (bm25_tiles.cuh).
-// 4. The exact tier's candidate handling: each row's k' coarse candidates
+// 3. The exact tier's candidate handling: each row's k' coarse candidates
 //    sorted by doc id (so a posting finds its slot by binary search), the
 //    re-scoring of candidate postings, and the mask + top-k + eps pass over
 //    the re-scored slots.
@@ -30,7 +24,7 @@
 // operands as G = S * groups_per_slot groups of fb entries, and G * n_q
 // output rows. The mesh families (mesh_bm25_flat, mesh_bm25_coarse,
 // mesh_bm25_rerank) run every slot in one launch this way (the first two
-// through bm25_tiles.cuh, which takes the same axis); the one-shard
+// through tiles.cuh, which takes the same axis); the one-shard
 // families pass ONE_SLOT (one group, strides 0), so each slot of a mesh
 // launch runs exactly the one-shard arithmetic on its own plane.
 #pragma once
@@ -129,7 +123,7 @@ __device__ __forceinline__ float from_fixed(long long v) {
 
 // grid (fb, sl.groups): acc[(g * n_q + q) * n_docs_pad + doc] +=
 // fixed(f32 contribution) for the postings of group g's fb gathered
-// blocks (K8 and the sharded programs; K1-K3 sum in bm25_tiles.cuh's
+// blocks (K8 and the sharded programs; K1-K3 sum in tiles.cuh's
 // shared-memory tiles). SCALAR: one avgdl for every entry (flat_avgdl[0])
 // and q = 0 for every entry (flat_q unread), the sharded programs'
 // operands (sharded_common.cuh).
@@ -160,152 +154,9 @@ __global__ void scatter_kernel(const int* __restrict__ block_docs,
               (unsigned long long)fx);
 }
 
-// --------------------------------------------------------------------------
-// chunked mask + count + top-k over a [n_q, n_docs_pad] fixed-point plane
-// --------------------------------------------------------------------------
-
+// How a top-k launch counts its matches (tiles.cuh): not at all, per row,
+// or per row and segment.
 enum CountMode { COUNT_NONE = 0, COUNT_TOTAL = 1, COUNT_SEGS = 2 };
-
-// grid (n_chunks, n_rows). Each CTA masks its chunk of one row to live
-// docs with score > 0 (others -inf), counts the matches (per row, or per
-// segment through seg_ids: an id outside [0, n_segs) counts nowhere), and
-// writes its chunk's top-k among the entries after the row's cursor to
-// out_s/out_i[q * out_ld + out_off + chunk * k + r]. Row q reads the live
-// mask and seg ids of slot q / rows_per_slot (0 when rows_per_slot is 0).
-// hits must start zeroed.
-__global__ void chunk_select_kernel(const long long* __restrict__ acc,
-                                    const uint8_t* __restrict__ live,
-                                    const int* __restrict__ seg_ids,
-                                    long long n_docs_pad, long long chunk,
-                                    int k, int cap, int mode, int n_segs,
-                                    int rows_per_slot, long long slot_docs,
-                                    Cursor cur,
-                                    float* __restrict__ out_s,
-                                    int* __restrict__ out_i,
-                                    long long out_ld, long long out_off,
-                                    int* __restrict__ hits) {
-    extern __shared__ __align__(16) unsigned char smem_raw[];
-    float* bs = (float*)smem_raw;
-    int* bi = (int*)(bs + cap);
-    int* seg_cnt = bi + cap;
-    __shared__ SelShared sh;
-    __shared__ int total;
-
-    const int q = blockIdx.y;
-    const long long start = (long long)blockIdx.x * chunk;
-    long long end = start + chunk;
-    if (end > n_docs_pad) end = n_docs_pad;
-    const long long n = end > start ? end - start : 0;
-    const long long* row = acc + (long long)q * n_docs_pad;
-    const long long slot = rows_per_slot > 0 ? q / rows_per_slot : 0;
-    live += slot * slot_docs;
-    if (seg_ids != nullptr) seg_ids += slot * slot_docs;
-
-    if (mode == COUNT_SEGS)
-        for (int s = threadIdx.x; s < n_segs; s += blockDim.x) seg_cnt[s] = 0;
-    if (threadIdx.x == 0) total = 0;
-    // (cta_select's first barrier orders these writes before any use)
-
-    float cs = 0.f;
-    int ci = 0;
-    const bool has = read_cursor(cur, q, cs, ci);
-    int my = 0;          // matches this thread saw (COUNT_TOTAL)
-    int cur_seg = -1;    // run of matches in one segment (COUNT_SEGS)
-    int cur_n = 0;
-    auto load = [&](long long j, float& s, int& i) {
-        const long long doc = start + j;
-        const long long v = row[doc];
-        const bool m = live[doc] && v > 0;
-        s = m ? from_fixed(v) : -INFINITY;
-        i = (int)doc;
-        past_cursor(has, cs, ci, s, i);
-        if (m) {
-            if (mode == COUNT_TOTAL) {
-                ++my;
-            } else if (mode == COUNT_SEGS) {
-                const int sg = seg_ids[doc];
-                if (sg >= 0 && sg < n_segs) {
-                    if (sg != cur_seg) {
-                        if (cur_n) atomicAdd(&seg_cnt[cur_seg], cur_n);
-                        cur_seg = sg;
-                        cur_n = 0;
-                    }
-                    ++cur_n;
-                }
-            }
-        }
-    };
-    cta_select(load, n, k, cap, bs, bi, &sh);
-
-    if (mode == COUNT_TOTAL) {
-        if (my) atomicAdd(&total, my);
-        __syncthreads();
-        if (threadIdx.x == 0 && total) atomicAdd(hits + q, total);
-    } else if (mode == COUNT_SEGS) {
-        if (cur_n) atomicAdd(&seg_cnt[cur_seg], cur_n);
-        __syncthreads();
-        for (int s = threadIdx.x; s < n_segs; s += blockDim.x)
-            if (seg_cnt[s]) atomicAdd(hits + (long long)q * n_segs + s,
-                                      seg_cnt[s]);
-    }
-    const long long o = (long long)q * out_ld + out_off +
-                        (long long)blockIdx.x * k;
-    for (int r = threadIdx.x; r < k; r += blockDim.x) {
-        out_s[o + r] = bs[r];
-        out_i[o + r] = bi[r];
-    }
-}
-
-// Mask + count + top-k of a zeroed-then-scattered [n_q, n_docs_pad]
-// fixed-point plane, any 1 <= k <= n_docs_pad: per round of at most KMAX
-// (topk_common.cuh), chunk winners, then one merge CTA per row (skipped
-// when a row is one chunk); the first round also counts. chunk_s/chunk_i
-// hold n_q * ceil(n_docs_pad / CHUNK) * min(k, KMAX) entries. hits (may be null)
-// is zeroed here. With rows_per_slot > 0, row q masks and counts with slot
-// q / rows_per_slot's live and seg_ids (slot_docs elements apart).
-// Returns the first CUDA error, 0 on success.
-inline int select_plane(const long long* acc, const uint8_t* live,
-                        const int* seg_ids, long long n_docs_pad, int n_q,
-                        int k, int mode, int n_segs, float* chunk_s,
-                        int* chunk_i, float* out_s, int* out_i, int* hits,
-                        cudaStream_t stream, int rows_per_slot = 0,
-                        long long slot_docs = 0) {
-    cudaError_t err;
-    if (hits != nullptr) {
-        const size_t nh = (size_t)n_q * (mode == COUNT_SEGS ? n_segs : 1);
-        err = cudaMemsetAsync(hits, 0, sizeof(int) * nh, stream);
-        if (err != cudaSuccess) return (int)err;
-    }
-    const int n_chunks = (int)((n_docs_pad + CHUNK - 1) / CHUNK);
-    const size_t seg_smem = mode == COUNT_SEGS ? (size_t)n_segs * 4 : 0;
-    err = set_smem((const void*)chunk_select_kernel,
-                   (size_t)select_cap(round_k(k, 0), SEL_THREADS) * 8 +
-                       seg_smem);
-    if (err != cudaSuccess) return (int)err;
-    for (int done = 0; done < k; done += KMAX) {
-        const int kr = round_k(k, done);
-        const int cap = select_cap(kr, SEL_THREADS);
-        const int m = done == 0 ? mode : COUNT_NONE;
-        const size_t smem = (size_t)cap * 8 + (m == COUNT_SEGS ? seg_smem : 0);
-        const Cursor cur{out_s, out_i, k, done};
-        const bool direct = n_chunks == 1;
-        chunk_select_kernel<<<dim3(n_chunks, n_q), SEL_THREADS, smem,
-                              stream>>>(
-            acc, live, seg_ids, n_docs_pad, CHUNK, kr, cap, m, n_segs,
-            rows_per_slot, slot_docs, cur,
-            direct ? out_s : chunk_s, direct ? out_i : chunk_i,
-            direct ? (long long)k : (long long)n_chunks * kr,
-            direct ? (long long)done : 0, done == 0 ? hits : nullptr);
-        err = cudaGetLastError();
-        if (err != cudaSuccess) return (int)err;
-        if (!direct) {
-            const int rc = merge_round(chunk_s, chunk_i, n_chunks, n_q, kr, k,
-                                       done, out_s, out_i, stream);
-            if (rc != 0) return rc;
-        }
-    }
-    return 0;
-}
 
 // --------------------------------------------------------------------------
 // one query's dense row: fixed point -> f32

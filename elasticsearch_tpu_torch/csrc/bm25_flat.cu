@@ -11,7 +11,7 @@
 // blocks (FB * 128 * 8 bytes of doc ids and tfs) and the doc lengths they
 // gather; the arithmetic is a few flops a posting.
 //
-// Design: bm25_tiles.cuh. Each (query, 8,192-doc tile) that a gathered
+// Design: tiles.cuh. Each (query, 8,192-doc tile) that a gathered
 // block reaches is summed in shared memory in 64-bit fixed point (the sum
 // does not depend on the order of the adds), masked, counted and reduced
 // to its best entries in one CTA; a threshold from those entries and one
@@ -19,13 +19,14 @@
 // fills the -inf slots. No [n_q, n_docs_pad] plane is written. The plain
 // PyTorch version is elasticsearch_tpu_torch/ops/bm25.py
 // `bm25_flat_plain`.
-#include "bm25_tiles.cuh"
+#include "tiles.cuh"
 
-// The C entry (bm25_tiles.cuh ``launch`` and ``scratch_bytes``).
+// The C entry (tiles.cuh ``bm25_launch`` and ``scratch_bytes``).
 extern "C" long long bm25_flat_bytes(
     int which, long long x, long long y, long long z, int k,
     long long n_docs_pad, long long rows) {
-    return bm25t::scratch_bytes(which, x, y, z, k, n_docs_pad, rows);
+    return tiles::scratch_bytes(which, x, y, z, k, n_docs_pad, rows,
+                                false);
 }
 
 extern "C" int bm25_flat_launch(
@@ -41,7 +42,7 @@ extern "C" int bm25_flat_launch(
         return (int)cudaErrorInvalidValue;
     const bm25::Slots sl{groups, groups_per_slot, nb * bm25::BLOCK,
                          n_docs_pad};
-    return bm25t::launch<false>(
+    return tiles::bm25_launch<false>(
         phase, block_docs, block_tfs, ranges, doc_lens, flat_idx, flat_w,
         flat_q, flat_avgdl, live, seg_ids, sl, nb, fb, n_docs_pad, n_q, k,
         mode, n_segs, bm25::Consts{k1, omb, b, k1p1}, ws_a, ws_b, b_bytes,

@@ -8,19 +8,20 @@
 // What bounds it on the H100: memory, as bm25_flat, plus the seg_ids of
 // the matched docs.
 //
-// Design: bm25_flat's (bm25_tiles.cuh) with the count per segment: each
+// Design: bm25_flat's (tiles.cuh) with the count per segment: each
 // tile CTA counts its matches in a shared [n_segs] array (a run of
 // matches in one segment costs one shared atomic) and adds its non-zero
 // counts to the row's. Integer adds keep the counts exact in any order.
 // The plain PyTorch version is elasticsearch_tpu_torch/ops/bm25.py
 // `bm25_flat_seg_plain`.
-#include "bm25_tiles.cuh"
+#include "tiles.cuh"
 
-// The C entry (bm25_tiles.cuh ``launch`` and ``scratch_bytes``).
+// The C entry (tiles.cuh ``bm25_launch`` and ``scratch_bytes``).
 extern "C" long long bm25_flat_seg_bytes(
     int which, long long x, long long y, long long z, int k,
     long long n_docs_pad, long long rows) {
-    return bm25t::scratch_bytes(which, x, y, z, k, n_docs_pad, rows);
+    return tiles::scratch_bytes(which, x, y, z, k, n_docs_pad, rows,
+                                false);
 }
 
 extern "C" int bm25_flat_seg_launch(
@@ -36,7 +37,7 @@ extern "C" int bm25_flat_seg_launch(
         return (int)cudaErrorInvalidValue;
     const bm25::Slots sl{groups, groups_per_slot, nb * bm25::BLOCK,
                          n_docs_pad};
-    return bm25t::launch<false>(
+    return tiles::bm25_launch<false>(
         phase, block_docs, block_tfs, ranges, doc_lens, flat_idx, flat_w,
         flat_q, flat_avgdl, live, seg_ids, sl, nb, fb, n_docs_pad, n_q, k,
         mode, n_segs, bm25::Consts{k1, omb, b, k1p1}, ws_a, ws_b, b_bytes,

@@ -20,7 +20,7 @@
 // time, summed as 64-bit fixed point with integer atomics), at one
 // query, so a doc's score has K1's bits for the same blocks in any order
 // (K1 sums the same fixed-point values in shared-memory tiles,
-// bm25_tiles.cuh); then one convert pass to f32, masked by live
+// tiles.cuh); then one convert pass to f32, masked by live
 // (bm25_common.cuh convert_row, shared with sparse_scores). The plain
 // PyTorch version is elasticsearch_tpu_torch/ops/bm25.py
 // `bm25_block_scores_plain`.

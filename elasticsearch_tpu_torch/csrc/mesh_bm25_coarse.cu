@@ -11,18 +11,19 @@
 // What bounds it on the H100: memory, as bm25_coarse summed over the
 // slots.
 //
-// Design: bm25_tiles.cuh with the slot axis (one group a slot) and the
+// Design: tiles.cuh with the slot axis (one group a slot) and the
 // bf16 contribution, so each slot's output is bitwise bm25_coarse's on
 // that slot, the last quotient left unrounded as there. The plain PyTorch
 // version is elasticsearch_tpu_torch/parallel/mesh.py
 // `mesh_bm25_coarse_plain`.
-#include "bm25_tiles.cuh"
+#include "tiles.cuh"
 
-// The C entry (bm25_tiles.cuh ``launch`` and ``scratch_bytes``).
+// The C entry (tiles.cuh ``bm25_launch`` and ``scratch_bytes``).
 extern "C" long long mesh_bm25_coarse_bytes(
     int which, long long x, long long y, long long z, int k,
     long long n_docs_pad, long long rows) {
-    return bm25t::scratch_bytes(which, x, y, z, k, n_docs_pad, rows);
+    return tiles::scratch_bytes(which, x, y, z, k, n_docs_pad, rows,
+                                false);
 }
 
 extern "C" int mesh_bm25_coarse_launch(
@@ -38,7 +39,7 @@ extern "C" int mesh_bm25_coarse_launch(
         return (int)cudaErrorInvalidValue;
     const bm25::Slots sl{groups, groups_per_slot, nb * bm25::BLOCK,
                          n_docs_pad};
-    return bm25t::launch<true>(
+    return tiles::bm25_launch<true>(
         phase, block_docs, block_tfs, ranges, doc_lens, flat_idx, flat_w,
         flat_q, flat_avgdl, live, seg_ids, sl, nb, fb, n_docs_pad, n_q, k,
         mode, n_segs, bm25::Consts{k1, omb, b, k1p1}, ws_a, ws_b, b_bytes,

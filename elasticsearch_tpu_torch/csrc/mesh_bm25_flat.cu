@@ -13,7 +13,7 @@
 // What bounds it on the H100: memory, as bm25_flat_seg, summed over the
 // slots: the gathered blocks of every (slot, row) and their doc lengths.
 //
-// Design: bm25_tiles.cuh with bm25_common.cuh's slot axis: group g =
+// Design: tiles.cuh with bm25_common.cuh's slot axis: group g =
 // (slot, dp row) of the flat operands reads slot g / DP's store, ranges,
 // doc lengths, live mask and seg ids, and owns output rows g * n_q ...;
 // its (row, tile) pairs are binned, summed and selected with every other
@@ -22,13 +22,14 @@
 // slot's output bitwise bm25_flat_seg's on that slot. The plain PyTorch
 // version is elasticsearch_tpu_torch/parallel/mesh.py
 // `mesh_bm25_flat_plain`.
-#include "bm25_tiles.cuh"
+#include "tiles.cuh"
 
-// The C entry (bm25_tiles.cuh ``launch`` and ``scratch_bytes``).
+// The C entry (tiles.cuh ``bm25_launch`` and ``scratch_bytes``).
 extern "C" long long mesh_bm25_flat_bytes(
     int which, long long x, long long y, long long z, int k,
     long long n_docs_pad, long long rows) {
-    return bm25t::scratch_bytes(which, x, y, z, k, n_docs_pad, rows);
+    return tiles::scratch_bytes(which, x, y, z, k, n_docs_pad, rows,
+                                false);
 }
 
 extern "C" int mesh_bm25_flat_launch(
@@ -44,7 +45,7 @@ extern "C" int mesh_bm25_flat_launch(
         return (int)cudaErrorInvalidValue;
     const bm25::Slots sl{groups, groups_per_slot, nb * bm25::BLOCK,
                          n_docs_pad};
-    return bm25t::launch<false>(
+    return tiles::bm25_launch<false>(
         phase, block_docs, block_tfs, ranges, doc_lens, flat_idx, flat_w,
         flat_q, flat_avgdl, live, seg_ids, sl, nb, fb, n_docs_pad, n_q, k,
         mode, n_segs, bm25::Consts{k1, omb, b, k1p1}, ws_a, ws_b, b_bytes,

@@ -11,29 +11,38 @@
 // count per (slot, query). Outputs: coarse scores and candidates
 // [S, Q, k'], counts [S, Q].
 //
-// What bounds it on the H100: memory, K16's bound summed over the slots:
-// the mirror halves the weight bytes of the gather against
-// mesh_sparse_topk; the [S * Q, n_docs_pad] accumulator and the chunked
-// top-k' pass are the same and dominate.
+// What bounds it on the H100: memory, K16's bound summed over the slots
+// (the mirror halves the weight bytes against mesh_sparse_topk), plus the
+// fixed cost of each (row, tile) pair.
 //
-// Why the simple design: sparse_common.cuh's `scored_topk` with the slot
-// axis (one group a slot) and the bf16 contribution, so each slot's output
-// is bitwise K16's on that slot. The counts are exact, as in K16. The
-// plain PyTorch version is elasticsearch_tpu_torch/parallel/mesh.py
-// `mesh_sparse_coarse_plain`.
-#include "sparse_common.cuh"
+// Design: tiles.cuh (FeaturePolicy, bf16) with the slot axis, one group a
+// slot, so each slot's output is bitwise K16's on that slot. The counts
+// are exact, as in K16. The plain PyTorch version is
+// elasticsearch_tpu_torch/parallel/mesh.py `mesh_sparse_coarse_plain`.
+#include "tiles.cuh"
+
+// The C entry (tiles.cuh ``features_launch`` and ``scratch_bytes``).
+extern "C" long long mesh_sparse_coarse_bytes(
+    int which, long long x, long long y, long long z, int k,
+    long long n_docs_pad, long long rows) {
+    return tiles::scratch_bytes(which, x, y, z, k, n_docs_pad, rows, true);
+}
 
 extern "C" int mesh_sparse_coarse_launch(
-    const int* block_docs, const void* block_weights_q, const int* block_idx,
-    const float* query_weight, const uint8_t* live, int n_slots, long long nb,
-    int qb, long long n_docs_pad, int n_q, int kprime, long long* acc,
-    float* chunk_s, int* chunk_i, float* out_cs, int* out_cand, int* hits,
-    void* stream) {
-    if (n_slots < 1 || nb < 1) return (int)cudaErrorInvalidValue;
-    const sparse::Params p{sparse::LINEAR, 1.f, 1.f, 1.f};
-    const sparse::Slots sl{n_slots, 1, nb * sparse::BLOCK, n_docs_pad};
-    return sparse::scored_topk<true>(
-        block_docs, block_weights_q, block_idx, query_weight, live, qb,
-        n_docs_pad, n_q, kprime, 1, p, acc, chunk_s, chunk_i, out_cs,
-        out_cand, hits, (cudaStream_t)stream, sl);
+    int phase, const int* block_docs, const void* block_weights,
+    const int* ranges, const int* block_idx, const float* query_weight,
+    const uint8_t* live, int groups, int groups_per_slot, long long nb,
+    int qb, long long n_docs_pad, int n_q, int k, int mode, int fn,
+    float pivot, float exponent, float pivot_pow, void* ws_a, void* ws_b,
+    long long b_bytes, long long* host, float* out_s, int* out_d, int* hits,
+    float* split_ms, void* stream) {
+    if (groups < 1 || groups_per_slot < 1 || nb < 1)
+        return (int)cudaErrorInvalidValue;
+    const bm25::Slots sl{groups, groups_per_slot, nb * bm25::BLOCK,
+                         n_docs_pad};
+    return tiles::features_launch<true>(
+        phase, block_docs, block_weights, ranges, block_idx, query_weight,
+        live, sl, nb, qb, n_docs_pad, n_q, k, mode,
+        sparse::Params{fn, pivot, exponent, pivot_pow}, ws_a, ws_b, b_bytes,
+        host, out_s, out_d, hits, split_ms, (cudaStream_t)stream);
 }

@@ -10,40 +10,44 @@
 // planes are [S, NB, 128] block docs and weights and [S, n_docs_pad] live
 // masks; the query operands [S, DP, Q, QB] block ids (local to the slot's
 // store) and weights; the outputs [S, DP, Q, k] scores and plane docs and
-// [S, DP, Q] counts. Any 1 <= k <= n_docs_pad: windows above 4,096 take
-// topk_common.cuh's rounds, as in K15.
+// [S, DP, Q] counts. Any 1 <= k <= n_docs_pad: one selection for any k.
 //
 // What bounds it on the H100: memory, K15's bound summed over the slots:
 // the gathered blocks (8 bytes a posting) and live masks must be read and
-// the top-k written; here the [S * DP * Q, n_docs_pad] int64 accumulator
-// is also zeroed, scattered into and read back by the chunked selection
-// (2.1 GB at S 4, Q 16 and n_docs_pad 4,194,304), which dominates.
+// the top-k written, plus the fixed cost of each (row, tile) pair.
 //
-// Why the simple design: sparse_common.cuh's `scored_topk` with the slot
-// axis, the design mesh_bm25_flat documents. The scatter's grid is (QB,
-// S * DP * Q rows); each row reads its own slot's store (slot * NB * 128
-// elements in) and writes a row of its own, and 64-bit fixed-point integer
-// atomics make every sum independent of the order they land. The
-// selection's grid covers all rows, each masking and counting with its
-// slot's live row. Each slot's output is therefore bitwise K15's on that
-// slot's plane. A sparse or tiled accumulator would move far fewer bytes;
-// that is later work. The plain PyTorch version is
+// Design: tiles.cuh (FeaturePolicy) with bm25_common.cuh's slot axis:
+// group g = (slot, dp row) of the block lists reads slot g / DP's store,
+// block ranges and live mask, and owns rows g * Q ...; its (row, tile)
+// pairs are binned, summed and selected with every other group's in the
+// same launches. Every slot therefore runs K15's arithmetic on its own
+// plane, and the 64-bit integer sums make each slot's output bitwise
+// K15's on that slot. The plain PyTorch version is
 // elasticsearch_tpu_torch/parallel/mesh.py `mesh_sparse_topk_plain`.
-#include "sparse_common.cuh"
+#include "tiles.cuh"
 
-// chunk_s / chunk_i: S * DP * Q * ceil(n_docs_pad / CHUNK) * min(k, KMAX)
-// entries; acc: [S * DP * Q, n_docs_pad] int64 scratch.
+// The C entry (tiles.cuh ``features_launch`` and ``scratch_bytes``).
+extern "C" long long mesh_sparse_topk_bytes(
+    int which, long long x, long long y, long long z, int k,
+    long long n_docs_pad, long long rows) {
+    return tiles::scratch_bytes(which, x, y, z, k, n_docs_pad, rows, true);
+}
+
 extern "C" int mesh_sparse_topk_launch(
-    const int* block_docs, const float* block_weights, const int* block_idx,
-    const float* query_weight, const uint8_t* live, int n_slots, int dp,
-    long long nb, int qb, long long n_docs_pad, int n_q, int k,
-    long long* acc, float* chunk_s, int* chunk_i, float* out_s, int* out_d,
-    int* hits, void* stream) {
-    if (n_slots < 1 || dp < 1 || nb < 1) return (int)cudaErrorInvalidValue;
-    const sparse::Params p{sparse::LINEAR, 1.f, 1.f, 1.f};
-    const sparse::Slots sl{n_slots * dp, dp, nb * sparse::BLOCK, n_docs_pad};
-    return sparse::scored_topk<false>(
-        block_docs, block_weights, block_idx, query_weight, live, qb,
-        n_docs_pad, n_q, k, 1, p, acc, chunk_s, chunk_i, out_s, out_d, hits,
-        (cudaStream_t)stream, sl);
+    int phase, const int* block_docs, const void* block_weights,
+    const int* ranges, const int* block_idx, const float* query_weight,
+    const uint8_t* live, int groups, int groups_per_slot, long long nb,
+    int qb, long long n_docs_pad, int n_q, int k, int mode, int fn,
+    float pivot, float exponent, float pivot_pow, void* ws_a, void* ws_b,
+    long long b_bytes, long long* host, float* out_s, int* out_d, int* hits,
+    float* split_ms, void* stream) {
+    if (groups < 1 || groups_per_slot < 1 || nb < 1)
+        return (int)cudaErrorInvalidValue;
+    const bm25::Slots sl{groups, groups_per_slot, nb * bm25::BLOCK,
+                         n_docs_pad};
+    return tiles::features_launch<false>(
+        phase, block_docs, block_weights, ranges, block_idx, query_weight,
+        live, sl, nb, qb, n_docs_pad, n_q, k, mode,
+        sparse::Params{fn, pivot, exponent, pivot_pow}, ws_a, ws_b, b_bytes,
+        host, out_s, out_d, hits, split_ms, (cudaStream_t)stream);
 }

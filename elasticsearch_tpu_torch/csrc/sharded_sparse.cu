@@ -35,9 +35,9 @@ static int sparse_plane(const int* block_docs, const float* block_weights,
     if (n_slots < 1 || nb < 1) return (int)cudaErrorInvalidValue;
     const sparse::Params p{sparse::LINEAR, 1.f, 1.f, 1.f};
     const bm25::Slots sl{n_slots, 1, nb * bm25::BLOCK, n_docs_pad};
-    return sparse::scatter_plane<false>(block_docs, block_weights, block_idx,
-                                        query_weight, qb, n_docs_pad, 1, p,
-                                        acc, stream, sl);
+    return sparse::scatter_plane(block_docs, block_weights, block_idx,
+                                 query_weight, qb, n_docs_pad, 1, p, acc,
+                                 stream, sl);
 }
 
 // acc: [n_slots, n_docs_pad] int64 scratch; chunk_s / chunk_i:

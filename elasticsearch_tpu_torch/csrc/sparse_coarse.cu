@@ -9,26 +9,40 @@
 // count per query.
 //
 // What bounds it on the H100: memory. The mirror halves the weight bytes
-// of the gather against sparse_flat; the [n_q, n_docs_pad] accumulator
-// and the chunked top-k' pass are the same.
+// of the gather against sparse_flat; at one query (the solo tier) the
+// call's one synchronisation (the plan's sizes) and the tiles a query's
+// rare features reach add to it.
 //
-// Why the simple design: it is sparse_flat (counted) with the bf16
-// contribution (sparse_common.cuh `scored_topk`, entered with ONE_SLOT). The count is exact: a positive
+// Design: sparse_flat's (tiles.cuh, FeaturePolicy) with the bf16
+// contribution, counted, k' <= 4,096. The count is exact: a positive
 // contribution never rounds to 0 in fixed point, and a positive weight
 // stays positive in bf16, so score > 0 flags the same docs as the f32
 // kernel. The plain PyTorch version is
 // elasticsearch_tpu_torch/ops/sparse.py `sparse_coarse_plain`.
-#include "sparse_common.cuh"
+#include "tiles.cuh"
+
+// The C entry (tiles.cuh ``features_launch`` and ``scratch_bytes``).
+extern "C" long long sparse_coarse_bytes(
+    int which, long long x, long long y, long long z, int k,
+    long long n_docs_pad, long long rows) {
+    return tiles::scratch_bytes(which, x, y, z, k, n_docs_pad, rows, true);
+}
 
 extern "C" int sparse_coarse_launch(
-    const int* block_docs, const void* block_weights_q, const int* block_idx,
-    const float* query_weight, const uint8_t* live, int qb,
-    long long n_docs_pad, int n_q, int kprime, long long* acc,
-    float* chunk_s, int* chunk_i, float* out_cs, int* out_cand, int* hits,
-    void* stream) {
-    sparse::Params p{sparse::LINEAR, 1.f, 1.f, 1.f};
-    return sparse::scored_topk<true>(
-        block_docs, block_weights_q, block_idx, query_weight, live, qb,
-        n_docs_pad, n_q, kprime, 1, p, acc, chunk_s, chunk_i, out_cs,
-        out_cand, hits, (cudaStream_t)stream, sparse::ONE_SLOT);
+    int phase, const int* block_docs, const void* block_weights,
+    const int* ranges, const int* block_idx, const float* query_weight,
+    const uint8_t* live, int groups, int groups_per_slot, long long nb,
+    int qb, long long n_docs_pad, int n_q, int k, int mode, int fn,
+    float pivot, float exponent, float pivot_pow, void* ws_a, void* ws_b,
+    long long b_bytes, long long* host, float* out_s, int* out_d, int* hits,
+    float* split_ms, void* stream) {
+    if (groups < 1 || groups_per_slot < 1 || nb < 1)
+        return (int)cudaErrorInvalidValue;
+    const bm25::Slots sl{groups, groups_per_slot, nb * bm25::BLOCK,
+                         n_docs_pad};
+    return tiles::features_launch<true>(
+        phase, block_docs, block_weights, ranges, block_idx, query_weight,
+        live, sl, nb, qb, n_docs_pad, n_q, k, mode,
+        sparse::Params{fn, pivot, exponent, pivot_pow}, ws_a, ws_b, b_bytes,
+        host, out_s, out_d, hits, split_ms, (cudaStream_t)stream);
 }

@@ -30,9 +30,9 @@ extern "C" int sparse_scores_launch(
     float pivot_pow, long long* acc, float* out, void* stream_ptr) {
     cudaStream_t stream = (cudaStream_t)stream_ptr;
     sparse::Params p{fn, pivot, exponent, pivot_pow};
-    int err = sparse::scatter_plane<false>(block_docs, block_weights,
-                                           block_idx, query_weight, qb,
-                                           n_docs_pad, 1, p, acc, stream);
+    int err = sparse::scatter_plane(block_docs, block_weights, block_idx,
+                                    query_weight, qb, n_docs_pad, 1, p, acc,
+                                    stream);
     if (err != 0) return err;
     return bm25::convert_row(acc, live, n_docs_pad, out, stream);
 }

@@ -1,20 +1,41 @@
-// The tiled BM25 top-k shared by bm25_flat (K1), bm25_flat_seg (K2),
-// bm25_coarse (K3) and, through bm25_common.cuh's slot axis, the mesh's
-// mesh_bm25_flat (row 31) and mesh_bm25_coarse (row 32). No [rows,
-// n_docs_pad] plane exists in device memory: each (row, tile of TILE docs)
-// that a gathered block reaches is summed in shared memory, masked,
-// counted and reduced to its best entries there.
+// The tiled top-k shared by the BM25 families bm25_flat (K1),
+// bm25_flat_seg (K2), bm25_coarse (K3) and the rank_features families
+// sparse_flat (K15) and sparse_coarse (K16), and through bm25_common.cuh's
+// slot axis by their mesh forms mesh_bm25_flat (row 31), mesh_bm25_coarse
+// (row 32), mesh_sparse_topk (row 38) and mesh_sparse_coarse (row 34). No
+// [rows, n_docs_pad] plane exists in device memory: each (row, tile of
+// TILE docs) that a gathered block reaches is summed in shared memory,
+// masked, counted and reduced to its best entries there.
 //
+// One pipeline, a compile-time contribution policy (``Bm25Policy``,
+// ``FeaturePolicy``, each in f32 and in the coarse tier's bf16): what a
+// listed entry carries (BM25: weight and avgdl, the doc lengths read per
+// posting; rank_features: the query weight and the rank_feature
+// function), how a posting becomes an f32 contribution, and whether the
+// tile pass reads a block whole or only its postings in the tile.
+//
+// 0. Entries. BM25 takes flatten_plans' flat (block, weight, query, avgdl)
+//    lists; rank_features takes each row's [QB] block list and query
+//    weights (row q of group g holds entries (g * n_q + q) * QB ...), so
+//    an entry's row is its position over QB, and no list is rebuilt.
 // 1. Binning. Each block of a store has a doc range (the least and the
 //    greatest valid doc, ops/device_segment.py ``block_ranges``). Every
 //    gathered entry of non-zero weight is listed under each (row, tile)
 //    its range reaches: one pass counts the entries of every pair, a scan
 //    gives each pair its place, and a second pass writes the lists. A
-//    zero-weight entry adds nothing (the padding of ``flatten_plans``) and
-//    is skipped. The launcher copies the number of pairs and list entries
-//    to the host and waits for them (one synchronisation a call) so that
-//    the lists are sized exactly; a block whose range reaches m tiles is
-//    read m times (the "extra block reads" chip_smoke.py reports).
+//    zero-weight entry adds nothing (the padding of ``flatten_plans`` and
+//    of the block lists) and is skipped. The launcher copies the number of
+//    pairs and list entries to the host and waits for them (one
+//    synchronisation a call) so that the lists are sized exactly; a block
+//    whose range reaches m tiles is listed m times (the "extra block
+//    reads" chip_smoke.py reports). Under ``FeaturePolicy`` each listing
+//    of a block that spans tiles also carries the run of the block's
+//    positions whose docs lie in that tile (docs ascend in a block, so
+//    the runs partition it; a block whose docs do not ascend is listed
+//    whole in every tile), and the tile pass reads only that run: a
+//    rare feature's block spans up to a few hundred tiles and adds a
+//    posting or a few to each. The count pass lists those spanning
+//    entries, and a warp each lists them with their runs.
 // 2. The tile pass. Persistent CTAs take the non-empty pairs from a queue.
 //    A CTA zeroes TILE 64-bit accumulators in shared memory (two 32-bit
 //    halves: the carry of the low word's atomic add goes into the high
@@ -28,7 +49,10 @@
 //    the tile's keys in shared memory stops at as soon as it holds at most
 //    2t keys. Unused slots hold -inf entries at distinct docs.
 //    Integer sums do not depend on the order of addition, so every score
-//    has the bits the dense plane gave.
+//    has the bits the dense plane gave. Under ``FeaturePolicy`` the runs
+//    of a pair are laid end to end and the CTA's threads take their
+//    postings densely (``sum_runs``), and with no doc lengths to stage a
+//    CTA needs 68 KB, so three run on an SM.
 // 3. Selection. Keys are rows_select.cuh's (score bits high, n - 1 - doc
 //    low; all distinct). tau, the k-th largest key among a row's tops,
 //    stands for k distinct entries at or above it, so the row's true k-th
@@ -46,13 +70,17 @@
 // 4. The -inf fill. When a row matches m < k docs, lax.top_k fills
 //    positions m..k-1 with -inf at the lowest-indexed docs that did not
 //    match; those lie below k, so a CTA a row marks the matched docs below
-//    k in a bitmap and writes the first k - m unmarked ones in order.
+//    k in a bitmap and writes the first k - m unmatched ones in order.
 //
-// What bounds it: the gathered blocks (doc ids and tfs, once per tile
-// they reach) and the doc lengths they gather; the plane's memset and
-// read-back (8 bytes a cell) are gone. The plain PyTorch versions are
-// ops/bm25.py bm25_flat_plain, bm25_flat_seg_plain and bm25_coarse_plain;
-// ops/bm25.py ``bm25_tiles_mirror`` mirrors this algorithm on the CPU.
+// What bounds it: the gathered blocks (doc ids and tfs or weights) and,
+// for BM25, the doc lengths they gather; the plane's memset and read-back
+// (8 bytes a cell) are gone. With many rows over a wide plane, the fixed
+// cost of each (row, tile) pair (64 KB of shared sums zeroed, TILE keys
+// masked) adds to it. The plain PyTorch versions are ops/bm25.py
+// bm25_flat_plain, bm25_flat_seg_plain and bm25_coarse_plain, ops/sparse.py
+// sparse_flat_plain and sparse_coarse_plain; ops/bm25.py
+// ``bm25_tiles_mirror`` and ops/sparse.py ``sparse_tiles_mirror`` mirror
+// this algorithm on the CPU.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -62,9 +90,10 @@
 #include <stdint.h>
 
 #include "bm25_common.cuh"
+#include "feature_fn.cuh"
 #include "rows_select.cuh"
 
-namespace bm25t {
+namespace tiles {
 
 using bm25::Consts;
 using bm25::Slots;
@@ -104,15 +133,21 @@ struct LayoutA {
     long long totals, queue, cnt, mcount, fcnt, st1, st2, keys1, keys2,
         zero_end;
     long long loc_e, loc_p, row_e, row_p, base_e, base_p, off_tops, tcnt,
-        off_final, cap_final, tau_s, tau_d, bitmap, total;
+        off_final, cap_final, tau_s, tau_d, bitmap, spans, total;
 };
 
 // totals: [0] pairs, [1] list entries, [2] final-list capacity, [3]
 // entries binned, [4] tiles rerun, [5] final-list appends refused (0 by
-// the bound above)
+// the bound above), [6] postings the tile pass reads beyond the gathered
+// blocks' own (FeaturePolicy: a block whose docs do not ascend, read
+// whole in every tile it spans), [7] entries that span tiles
+// (FeaturePolicy: listed in ``spans``)
 constexpr int N_TOTALS = 8;
 
-inline LayoutA layout_a(long long rows, long long n_tiles, int k) {
+// ``entries``: the entries a FeaturePolicy launch may list as spanning
+// tiles (0 for Bm25Policy).
+inline LayoutA layout_a(long long rows, long long n_tiles, int k,
+                        long long entries) {
     LayoutA L{};
     long long off = 0;
     auto take = [&](long long bytes) {
@@ -146,17 +181,20 @@ inline LayoutA layout_a(long long rows, long long n_tiles, int k) {
     L.tau_s = take(rows * 4);
     L.tau_d = take(rows * 4);
     L.bitmap = take(rows * ((k + 31LL) / 32) * 4);
+    L.spans = take(entries * 4);
     L.total = off;
     return L;
 }
 
 struct LayoutB {
-    long long pair_rt, pair_n, pair_e, c_p, tkey, rerun, elist, tops_s,
-        tops_d, final_s, final_d, total;
+    long long pair_rt, pair_n, pair_e, c_p, tkey, rerun, elist, esub,
+        tops_s, tops_d, final_s, final_d, total;
 };
 
+// ``runs``: each list entry also carries its run of block positions
+// (FeaturePolicy).
 inline LayoutB layout_b(long long pairs, long long entries, long long fin,
-                        int t) {
+                        int t, bool runs) {
     LayoutB L{};
     long long off = 0;
     auto take = [&](long long bytes) {
@@ -171,6 +209,7 @@ inline LayoutB layout_b(long long pairs, long long entries, long long fin,
     L.tkey = take(pairs * 8);
     L.rerun = take(pairs * 4);
     L.elist = take(entries * 4);
+    L.esub = take(runs ? entries * 2 : 0);
     L.tops_s = take(pairs * tops_width(t) * 4);
     L.tops_d = take(pairs * tops_width(t) * 4);
     L.final_s = take(fin * 4);
@@ -188,15 +227,16 @@ struct Tiles {
     const void* doc_lens;
     const int* flat_idx;
     const float* flat_w;
-    const int* flat_q;
+    const int* flat_q;          // null: an entry's row is its place over qb
     const float* flat_avgdl;
     const uint8_t* live;
     const int* seg_ids;
     Slots sl;
     long long nb;               // blocks a slot
-    int fb, n_q, k, t, mode, n_segs;
+    int fb, qb, n_q, k, t, mode, n_segs;
     long long n_docs_pad, n_tiles, rows;
-    Consts c;
+    Consts c;                   // Bm25Policy
+    sparse::Params fp;          // FeaturePolicy
     // scratch A
     long long* totals;
     unsigned* queue;
@@ -212,6 +252,7 @@ struct Tiles {
     float* tau_s;
     int* tau_d;
     unsigned* bitmap;
+    int* spans;                 // FeaturePolicy: the entries spanning tiles
     // scratch B
     int* pair_rt;
     int* pair_n;
@@ -220,10 +261,50 @@ struct Tiles {
     Key* tkey;
     int* rerun;
     int* elist;
+    unsigned short* esub;       // an entry's run: first | (end << 8)
     float* tops_s;
     int* tops_d;
     float* final_s;
     int* final_d;
+};
+
+// --------------------------------------------------------------------------
+// the contribution policies
+// --------------------------------------------------------------------------
+
+// BM25 (K1-K3, rows 31 / 32): an entry carries its term's weight (idf *
+// boost) and avgdl; a posting's tf and its doc's length give contrib_f32,
+// or contrib_bf16 over the bf16 mirrors (BF16). Blocks are read whole.
+template <bool BF16_>
+struct Bm25Policy {
+    static constexpr bool BF16 = BF16_;   // block values, doc lengths bf16
+    static constexpr bool RUNS = false;   // a spanning block's run a tile
+    static constexpr int CTAS = 2;        // tile CTAs an SM
+    __device__ static float value(const Tiles& a, float w, float avg,
+                                  float tf, float dl) {
+        return BF16 ? bm25::contrib_bf16(bm25::bfr(w), tf, dl,
+                                         bm25::bfr(avg), a.c)
+                    : bm25::contrib_f32(w, tf, dl, avg, a.c);
+    }
+};
+
+// rank_features (K15, K16, rows 34 / 38): an entry carries its query
+// weight qw; a posting's weight w gives qw * f(w) (feature_fn.cuh), or in
+// the coarse tier (BF16) f32(bf16(qw)) * f32(w_bf16), the product of two
+// bf16 values, exact in f32 and left unrounded as the JAX program leaves
+// it. No doc lengths; a block spanning tiles is read one run a tile.
+template <bool BF16_>
+struct FeaturePolicy {
+    static constexpr bool BF16 = BF16_;
+    static constexpr bool RUNS = true;
+    static constexpr int CTAS = 3;        // no doc lengths staged: 72 KB
+    __device__ static float value(const Tiles& a, float qw, float, float w,
+                                  float) {
+        return BF16 ? __fmul_rn(bm25::bfr(qw), w)
+                    : __fmul_rn(qw, sparse::transform(a.fp.fn, w, a.fp.pivot,
+                                                      a.fp.exponent,
+                                                      a.fp.pivot_pow));
+    }
 };
 
 // --------------------------------------------------------------------------
@@ -302,7 +383,8 @@ __device__ __forceinline__ bool entry_span(const Tiles& a, long long f,
     hi = (long long)rg.y >> TILE_SHIFT;
     if (hi >= a.n_tiles) hi = a.n_tiles - 1;
     if (lo > hi) return false;
-    r = g * a.n_q + a.flat_q[f];
+    r = g * a.n_q +
+        (a.flat_q != nullptr ? a.flat_q[f] : (int)((f % a.fb) / a.qb));
     return true;
 }
 
@@ -316,7 +398,9 @@ __device__ __forceinline__ unsigned tile_group(bool single, long long key) {
 }
 
 // grid over every entry: count the entries of each (row, tile), one
-// atomic a group of lanes for the entries within one tile.
+// atomic a group of lanes for the entries within one tile; under
+// FeaturePolicy list the entries that span tiles (``spans``, totals[7]).
+template <class P>
 __global__ void count_kernel(Tiles a) {
     const long long f = (long long)blockIdx.x * blockDim.x + threadIdx.x;
     const int lane = threadIdx.x & 31;
@@ -329,6 +413,20 @@ __global__ void count_kernel(Tiles a) {
                   (unsigned long long)__popc(ballot));
     const bool single = ok && lo == hi;
     const unsigned grp = tile_group(single, r * a.n_tiles + lo);
+    if (P::RUNS) {
+        const unsigned spanning = __ballot_sync(0xffffffffu, ok && !single);
+        if (spanning) {
+            const int leader = __ffs(spanning) - 1;
+            unsigned long long base = 0;
+            if (lane == leader)
+                base = atomicAdd((unsigned long long*)&a.totals[7],
+                                 (unsigned long long)__popc(spanning));
+            base = __shfl_sync(0xffffffffu, base, leader);
+            if (ok && !single)
+                a.spans[base + __popc(spanning & ((1u << lane) - 1u))] =
+                    (int)f;
+        }
+    }
     if (single) {
         if (lane == __ffs(grp) - 1)
             atomicAdd(&a.cnt[r * a.n_tiles + lo], __popc(grp));
@@ -421,9 +519,90 @@ __global__ void pairs_kernel(Tiles a) {
     a.pair_e[p] = a.base_e[r] + a.loc_e[i];
 }
 
+// Entry f's place in the list of pair (r, tile), taken from the pair's
+// cursor (cnt counts down to 0).
+__device__ __forceinline__ long long list_slot(const Tiles& a, long long r,
+                                               long long tile) {
+    const long long i = r * a.n_tiles + tile;
+    return a.base_e[r] + a.loc_e[i] + atomicSub(&a.cnt[i], 1) - 1;
+}
+
+// FeaturePolicy, one warp: list entry f (a block spanning tiles lo..hi of
+// row r) under each tile with the run of the block's positions whose docs
+// lie in it. Valid docs ascend in a block, so the runs are consecutive:
+// tile t > lo starts at the first position of a doc in t or past it, tile
+// lo at 0, and each run ends where the next starts (tile hi's at BLOCK):
+// a position's prefix maximum of the tiles of the valid docs up to it
+// (pm) is non-decreasing, and a run's start is a lower bound in it. A
+// block whose docs do not ascend is listed whole in every tile (its reads
+// beyond one pass counted in totals[6]). ``pm``: BLOCK shared ints of the
+// warp's own.
+__device__ void fill_runs(const Tiles& a, long long f, long long r,
+                          long long lo, long long hi, int* pm) {
+    const int lane = threadIdx.x & 31;
+    const long long slot = (f / a.fb) / a.sl.groups_per_slot;
+    const int4 v = ((const int4*)(a.block_docs + slot * a.sl.slot_blocks +
+                                  (long long)a.flat_idx[f] *
+                                      bm25::BLOCK))[lane];
+    const int d[4] = {v.x, v.y, v.z, v.w};
+    // the docs' running maximum: within the lane's 4, then over the lanes
+    int run[4], m = -1;
+    bool ascending = true;
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+        ascending = ascending && (d[u] < 0 || d[u] >= m);
+        m = d[u] > m ? d[u] : m;
+        run[u] = m;
+    }
+    int before = m;             // the lanes' inclusive max-scan
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+        const int y = __shfl_up_sync(0xffffffffu, before, o);
+        if (lane >= o) before = y > before ? y : before;
+    }
+    before = __shfl_up_sync(0xffffffffu, before, 1);
+    if (lane == 0) before = -1;
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+        ascending = ascending && (d[u] < 0 || d[u] >= before);
+        const int mx = run[u] > before ? run[u] : before;
+        long long t = mx < 0 ? lo - 1 : (long long)mx >> TILE_SHIFT;
+        pm[4 * lane + u] = (int)((t > hi ? hi : t) - lo);
+    }
+    ascending = __all_sync(0xffffffffu, ascending);
+    __syncwarp();
+    // start of tile lo + x (x >= 1): the first position whose pm >= x
+    auto start = [&](int x) {
+        int first = 0, n = bm25::BLOCK;
+        while (n > 0) {
+            const int half = n >> 1;
+            if (pm[first + half] < x) {
+                first += half + 1;
+                n -= half + 1;
+            } else {
+                n = half;
+            }
+        }
+        return first;
+    };
+    const int span = (int)(hi - lo);
+    for (int x = lane; x <= span; x += 32) {
+        const int p0 = !ascending || x == 0 ? 0 : start(x);
+        const int p1 = !ascending || x == span ? bm25::BLOCK : start(x + 1);
+        const long long at = list_slot(a, r, lo + x);
+        a.elist[at] = (int)f;
+        a.esub[at] = (unsigned short)(p0 | (p1 << 8));
+    }
+    if (!ascending && lane == 0)
+        atomicAdd((unsigned long long*)&a.totals[6],
+                  (unsigned long long)span * bm25::BLOCK);
+    __syncwarp();
+}
+
 // grid over every entry: write each entry into the list of every pair it
 // reaches (cnt counts down to 0 as the cursor; one atomic a group of
 // lanes, as in count_kernel).
+template <class P>
 __global__ void fill_kernel(Tiles a) {
     const long long f = (long long)blockIdx.x * blockDim.x + threadIdx.x;
     const int lane = threadIdx.x & 31;
@@ -439,14 +618,28 @@ __global__ void fill_kernel(Tiles a) {
         if (lane == leader) end = atomicSub(&a.cnt[i], __popc(grp));
         end = __shfl_sync(grp, end, leader);
         const int pos = end - __popc(grp) + __popc(grp & ((1u << lane) - 1u));
-        a.elist[a.base_e[r] + a.loc_e[i] + pos] = (int)f;
-        return;
+        const long long at = a.base_e[r] + a.loc_e[i] + pos;
+        a.elist[at] = (int)f;
+        if (P::RUNS) a.esub[at] = (unsigned short)(bm25::BLOCK << 8);
     }
-    if (!ok) return;
-    for (long long tile = lo; tile <= hi; ++tile) {
-        const long long i = r * a.n_tiles + tile;
-        const int pos = atomicSub(&a.cnt[i], 1) - 1;
-        a.elist[a.base_e[r] + a.loc_e[i] + pos] = (int)f;
+    if (P::RUNS || !ok || single) return;   // runs_kernel lists the rest
+    for (long long tile = lo; tile <= hi; ++tile)
+        a.elist[list_slot(a, r, tile)] = (int)f;
+}
+
+// FeaturePolicy: a warp at a time takes a spanning entry from ``spans``
+// (count_kernel's list, totals[7] long) and lists it with its runs.
+__global__ void runs_kernel(Tiles a) {
+    __shared__ int pm[AUX_THREADS / 32][bm25::BLOCK];
+    const long long n = a.totals[7];
+    const long long warps = (long long)gridDim.x * (blockDim.x >> 5);
+    for (long long w = (long long)blockIdx.x * (blockDim.x >> 5) +
+                       (threadIdx.x >> 5);
+         w < n; w += warps) {
+        const long long f = a.spans[w];
+        long long r = 0, lo = 0, hi = -1;
+        entry_span(a, f, r, lo, hi);
+        fill_runs(a, f, r, lo, hi, pm[threadIdx.x >> 5]);
     }
 }
 
@@ -479,14 +672,14 @@ __device__ __forceinline__ float key_score32(unsigned w) {
     return __uint_as_float((w & 0x80000000u) ? (w & 0x7fffffffu) : ~w);
 }
 
-// Sum the pair's listed blocks into lo/hi (zeroed here) for docs
-// [doc0, doc0 + n) of its slot. 128 threads take a block, four blocks a
-// CTA step, U steps a round; the doc ids and tfs of the next round are
-// in flight while a round's doc lengths are read and its postings added.
-// A pair of at least STAGED_BLOCKS blocks first copies the tile's doc
-// lengths into s_dl (coalesced, once), any other gathers them from
-// device memory.
-template <bool BF16>
+// Bm25Policy: sum the pair's listed blocks into lo/hi (zeroed here) for
+// docs [doc0, doc0 + n) of its slot. 128 threads take a block, four
+// blocks a CTA step, U steps a round; the doc ids and tfs of the next
+// round are in flight while a round's doc lengths are read and its
+// postings added. A pair of at least STAGED_BLOCKS blocks first copies
+// the tile's doc lengths into s_dl (coalesced, once), any other gathers
+// them from device memory.
+template <class P>
 __device__ void sum_tile(const Tiles& a, long long p, long long slot,
                          long long doc0, int n, unsigned* lo, unsigned* hi,
                          float* s_dl, long long* s_blk, float* s_w,
@@ -501,10 +694,11 @@ __device__ void sum_tile(const Tiles& a, long long p, long long slot,
     const bool staged = ne >= STAGED_BLOCKS;
     if (staged)
         for (int j = threadIdx.x; j < n; j += THREADS)
-            s_dl[j] = BF16 ? __bfloat162float(
-                                 ((const __nv_bfloat16*)a.doc_lens)[sd + doc0 +
-                                                                    j])
-                           : ((const float*)a.doc_lens)[sd + doc0 + j];
+            s_dl[j] = P::BF16 ? __bfloat162float(
+                                    ((const __nv_bfloat16*)a.doc_lens)[sd +
+                                                                       doc0 +
+                                                                       j])
+                              : ((const float*)a.doc_lens)[sd + doc0 + j];
     const int lane = threadIdx.x & (bm25::BLOCK - 1);
     constexpr int GROUPS = THREADS / bm25::BLOCK;   // blocks a CTA step
     constexpr int U = 4;                            // steps a round
@@ -530,9 +724,10 @@ __device__ void sum_tile(const Tiles& a, long long p, long long slot,
                 if (jj < m) {
                     const long long e = s_blk[jj] + lane;
                     doc[u] = a.block_docs[e];
-                    tf[u] = BF16 ? __bfloat162float(
-                                       ((const __nv_bfloat16*)a.block_tfs)[e])
-                                 : ((const float*)a.block_tfs)[e];
+                    tf[u] = P::BF16 ? __bfloat162float(
+                                          ((const __nv_bfloat16*)a.block_tfs)
+                                              [e])
+                                    : ((const float*)a.block_tfs)[e];
                 }
             }
         };
@@ -554,21 +749,17 @@ __device__ void sum_tile(const Tiles& a, long long p, long long slot,
                 if (in && staged)
                     dl[u] = s_dl[doc[u] - doc0];
                 else if (in)
-                    dl[u] = BF16 ? __bfloat162float(
-                                       ((const __nv_bfloat16*)a.doc_lens)
-                                           [sd + doc[u]])
-                                 : ((const float*)a.doc_lens)[sd + doc[u]];
+                    dl[u] = P::BF16 ? __bfloat162float(
+                                          ((const __nv_bfloat16*)a.doc_lens)
+                                              [sd + doc[u]])
+                                    : ((const float*)a.doc_lens)[sd + doc[u]];
             }
 #pragma unroll
             for (int u = 0; u < U; ++u) {
                 if (doc[u] >= 0) {
                     const int jj = j + u * GROUPS;
-                    const float v =
-                        BF16 ? bm25::contrib_bf16(bm25::bfr(s_w[jj]), tf[u],
-                                                  dl[u],
-                                                  bm25::bfr(s_avg[jj]), a.c)
-                             : bm25::contrib_f32(s_w[jj], tf[u], dl[u],
-                                                 s_avg[jj], a.c);
+                    const float v = P::value(a, s_w[jj], s_avg[jj], tf[u],
+                                             dl[u]);
                     const long long fx = bm25::to_fixed(v);
                     if (fx != 0) add_fixed(lo, hi, (int)(doc[u] - doc0), fx);
                 }
@@ -578,6 +769,99 @@ __device__ void sum_tile(const Tiles& a, long long p, long long slot,
         }
     }
     __syncthreads();
+}
+
+// FeaturePolicy: sum the pair's listed runs into lo/hi (zeroed here) for
+// docs [doc0, doc0 + n) of its slot. A run is often one posting or a few
+// (a rare feature's block spread over many tiles), so a block a 128
+// threads would leave most lanes idle: each stage's runs are laid end to
+// end (an exclusive scan of their lengths in s_off) and the CTA's threads
+// take their postings U at a time, each finding its run by a binary
+// search over s_off.
+template <class P>
+__device__ void sum_runs(const Tiles& a, long long p, long long slot,
+                         long long doc0, int n, unsigned* lo, unsigned* hi,
+                         long long* s_blk, float* s_w, int* s_off) {
+    __shared__ int ws[33];
+    for (int j = threadIdx.x; j < TILE / 4; j += THREADS) {
+        ((uint4*)lo)[j] = make_uint4(0u, 0u, 0u, 0u);
+        ((uint4*)hi)[j] = make_uint4(0u, 0u, 0u, 0u);
+    }
+    const long long e0 = a.pair_e[p];
+    const int ne = a.pair_n[p];
+    constexpr int U = 4;
+    for (int j0 = 0; j0 < ne; j0 += STAGE) {
+        const int m = ne - j0 < STAGE ? ne - j0 : STAGE;
+        __syncthreads();   // the zeroing, or the previous stage, is done
+        int len = 0;
+        if (threadIdx.x < m) {
+            const int f = a.elist[e0 + j0 + threadIdx.x];
+            const unsigned run = a.esub[e0 + j0 + threadIdx.x];
+            s_blk[threadIdx.x] = slot * a.sl.slot_blocks +
+                                 (long long)a.flat_idx[f] * bm25::BLOCK +
+                                 (run & 0xffu);
+            s_w[threadIdx.x] = a.flat_w[f];
+            len = (int)(run >> 8) - (int)(run & 0xffu);
+        }
+        int total;
+        const int off = cta_excl_scan<int>(len, ws, total);
+        if (threadIdx.x < m) s_off[threadIdx.x] = off;
+        __syncthreads();
+        for (int i0 = 0; i0 < total; i0 += THREADS * U) {
+            int doc[U], at[U];
+            float w[U];
+#pragma unroll
+            for (int u = 0; u < U; ++u) {
+                const int i = i0 + u * THREADS + threadIdx.x;
+                doc[u] = -1;
+                w[u] = 0.f;
+                at[u] = 0;
+                if (i < total) {
+                    int first = 0, cnt = m;    // the last run starting <= i
+                    while (cnt > 1) {
+                        const int half = cnt >> 1;
+                        if (s_off[first + half] <= i) {
+                            first += half;
+                            cnt -= half;
+                        } else {
+                            cnt = half;
+                        }
+                    }
+                    at[u] = first;
+                    const long long e = s_blk[first] + (i - s_off[first]);
+                    doc[u] = a.block_docs[e];
+                    w[u] = P::BF16 ? __bfloat162float(
+                                         ((const __nv_bfloat16*)a.block_tfs)
+                                             [e])
+                                   : ((const float*)a.block_tfs)[e];
+                }
+            }
+#pragma unroll
+            for (int u = 0; u < U; ++u) {
+                const bool in = (unsigned long long)((long long)doc[u] -
+                                                     doc0) <
+                                (unsigned long long)n;
+                if (!in) continue;
+                const long long fx =
+                    bm25::to_fixed(P::value(a, s_w[at[u]], 0.f, w[u], 0.f));
+                if (fx != 0) add_fixed(lo, hi, (int)(doc[u] - doc0), fx);
+            }
+        }
+    }
+    __syncthreads();
+}
+
+// The pair's sums, by the policy.
+template <class P>
+__device__ __forceinline__ void sum_pair(const Tiles& a, long long p,
+                                         long long slot, long long doc0,
+                                         int n, unsigned* lo, unsigned* hi,
+                                         float* s_dl, long long* s_blk,
+                                         float* s_w, float* s_avg) {
+    if constexpr (P::RUNS)
+        sum_runs<P>(a, p, slot, doc0, n, lo, hi, s_blk, s_w, (int*)s_avg);
+    else
+        sum_tile<P>(a, p, slot, doc0, n, lo, hi, s_dl, s_blk, s_w, s_avg);
 }
 
 // The tile's local key of slot j: score bits, then the lower slot first.
@@ -771,13 +1055,13 @@ __global__ void triage_kernel(Tiles a) {
 // a pair on the rerun list, the sums again and every entry at or above
 // tau into the row's final list (MODE 1). Persistent CTAs take the pairs
 // (MODE 0) or the rerun list (MODE 1) from a queue.
-template <bool BF16, int MODE>
-__global__ void __launch_bounds__(THREADS, 2) tile_kernel(Tiles a) {
+template <class P, int MODE>
+__global__ void __launch_bounds__(THREADS, P::CTAS) tile_kernel(Tiles a) {
     extern __shared__ __align__(16) unsigned char smem_raw[];
     unsigned* lo = (unsigned*)smem_raw;
     unsigned* hi = lo + TILE;
-    float* s_dl = (float*)(hi + TILE);
-    long long* s_blk = (long long*)(s_dl + TILE);
+    float* s_dl = (float*)(hi + TILE);   // Bm25Policy only
+    long long* s_blk = (long long*)(s_dl + (P::RUNS ? 0 : TILE));
     float* s_w = (float*)(s_blk + STAGE);
     float* s_avg = s_w + STAGE;
     int* seg_cnt = (int*)s_dl;   // once the sums are done
@@ -803,8 +1087,8 @@ __global__ void __launch_bounds__(THREADS, 2) tile_kernel(Tiles a) {
         if (MODE == 1) {
             bool has_tau;
             const Key tau = row_tau(a, r, has_tau);
-            sum_tile<BF16>(a, p, slot, doc0, n, lo, hi, s_dl, s_blk, s_w,
-                           s_avg);
+            sum_pair<P>(a, p, slot, doc0, n, lo, hi, s_dl, s_blk, s_w,
+                        s_avg);
             tile_keys(a, slot, doc0, n, lo, hi, false, nullptr, true, best);
             __syncthreads();
             for (int j = threadIdx.x; j < TILE; j += THREADS) {
@@ -824,7 +1108,7 @@ __global__ void __launch_bounds__(THREADS, 2) tile_kernel(Tiles a) {
             continue;
         }
         if (threadIdx.x == 0) sh.cursor = 0;
-        sum_tile<BF16>(a, p, slot, doc0, n, lo, hi, s_dl, s_blk, s_w, s_avg);
+        sum_pair<P>(a, p, slot, doc0, n, lo, hi, s_dl, s_blk, s_w, s_avg);
         if (count_segs) {
             for (int s = threadIdx.x; s < a.n_segs; s += THREADS)
                 seg_cnt[s] = 0;
@@ -987,19 +1271,28 @@ struct Stages {
     }
 };
 
+// The spanning entries' list capacity of a launch (FeaturePolicy).
+template <class P>
+long long span_cap(const Tiles& a) {
+    return P::RUNS ? (long long)a.sl.groups * a.fb : 0;
+}
+
 inline bool valid(const Tiles& a) {
     return a.k >= 1 && a.n_q >= 1 && a.fb >= 0 && a.n_docs_pad >= a.k &&
            a.n_docs_pad <= 0x7fffffffLL && bm25::slots_ok(a.sl) &&
            a.nb >= 1 && (long long)a.sl.groups * a.fb <= INT_MAX &&
            a.rows * a.n_tiles <= INT_MAX &&
+           (a.flat_q != nullptr || (a.qb >= 1 && a.fb == a.n_q * a.qb) ||
+            a.fb == 0) &&
            (a.mode != bm25::COUNT_SEGS ||
             (a.n_segs >= 1 && a.n_segs <= bm25::MAX_SEGS));
 }
 
 // Point the Tiles at scratch A (and B when given).
-inline void bind(Tiles& a, char* ws_a, char* ws_b, long long pairs,
-                 long long entries, long long fin, int* hits) {
-    const LayoutA A = layout_a(a.rows, a.n_tiles, a.k);
+template <class P>
+void bind(Tiles& a, char* ws_a, char* ws_b, long long pairs,
+          long long entries, long long fin, int* hits) {
+    const LayoutA A = layout_a(a.rows, a.n_tiles, a.k, span_cap<P>(a));
     a.totals = (long long*)(ws_a + A.totals);
     a.queue = (unsigned*)(ws_a + A.queue);
     a.cnt = (int*)(ws_a + A.cnt);
@@ -1019,8 +1312,9 @@ inline void bind(Tiles& a, char* ws_a, char* ws_b, long long pairs,
     a.tau_s = (float*)(ws_a + A.tau_s);
     a.tau_d = (int*)(ws_a + A.tau_d);
     a.bitmap = (unsigned*)(ws_a + A.bitmap);
+    a.spans = (int*)(ws_a + A.spans);
     if (ws_b == nullptr) return;
-    const LayoutB B = layout_b(pairs, entries, fin, a.t);
+    const LayoutB B = layout_b(pairs, entries, fin, a.t, P::RUNS);
     a.pair_rt = (int*)(ws_b + B.pair_rt);
     a.pair_n = (int*)(ws_b + B.pair_n);
     a.pair_e = (long long*)(ws_b + B.pair_e);
@@ -1028,6 +1322,7 @@ inline void bind(Tiles& a, char* ws_a, char* ws_b, long long pairs,
     a.tkey = (Key*)(ws_b + B.tkey);
     a.rerun = (int*)(ws_b + B.rerun);
     a.elist = (int*)(ws_b + B.elist);
+    a.esub = (unsigned short*)(ws_b + B.esub);
     a.tops_s = (float*)(ws_b + B.tops_s);
     a.tops_d = (int*)(ws_b + B.tops_d);
     a.final_s = (float*)(ws_b + B.final_s);
@@ -1043,11 +1338,12 @@ inline unsigned grid_of(long long n, int threads) {
 // Phase 1: zero, count, scan, then copy totals[0..2] (pairs, list
 // entries, final entries) to ``host`` and wait for them: the caller sizes
 // scratch B by layout_b.
-inline int plan(Tiles a, char* ws_a, long long* host, float* split_ms,
-                cudaStream_t stream) {
+template <class P>
+int plan(Tiles a, char* ws_a, long long* host, float* split_ms,
+         cudaStream_t stream) {
     if (!valid(a)) return (int)cudaErrorInvalidValue;
-    bind(a, ws_a, nullptr, 0, 0, 0, a.hits);
-    const LayoutA A = layout_a(a.rows, a.n_tiles, a.k);
+    bind<P>(a, ws_a, nullptr, 0, 0, 0, a.hits);
+    const LayoutA A = layout_a(a.rows, a.n_tiles, a.k, span_cap<P>(a));
     Stages st(split_ms, 0, stream);
     cudaError_t err = cudaMemsetAsync(ws_a, 0, A.zero_end, stream);
     if (err != cudaSuccess) return (int)err;
@@ -1059,8 +1355,8 @@ inline int plan(Tiles a, char* ws_a, long long* host, float* split_ms,
     }
     const long long entries = (long long)a.sl.groups * a.fb;
     if (entries > 0) {
-        count_kernel<<<grid_of(entries, AUX_THREADS), AUX_THREADS, 0,
-                       stream>>>(a);
+        count_kernel<P><<<grid_of(entries, AUX_THREADS), AUX_THREADS, 0,
+                          stream>>>(a);
         err = cudaGetLastError();
         if (err != cudaSuccess) return (int)err;
     }
@@ -1079,47 +1375,48 @@ inline int plan(Tiles a, char* ws_a, long long* host, float* split_ms,
     return (int)cudaStreamSynchronize(stream);
 }
 
-// lo, hi, the staged doc lengths (the segment counts after the sums),
-// the staged blocks
-inline size_t tile_smem() {
-    return (size_t)TILE * 12 + (size_t)STAGE * 16;
+// lo, hi, the staged doc lengths (Bm25Policy; the segment counts after
+// the sums), the staged blocks
+template <class P>
+size_t tile_smem() {
+    return (size_t)TILE * (P::RUNS ? 8 : 12) + (size_t)STAGE * 16;
 }
 
 // Persistent CTAs of a tile pass (static: this library's caches, see
 // rows_select.cuh).
-template <bool BF16, int MODE>
+template <class P, int MODE>
 static int launch_tiles(const Tiles& a, long long pairs,
                         cudaStream_t stream) {
     if (pairs == 0) return 0;
-    const size_t smem = tile_smem();
+    const size_t smem = tile_smem<P>();
     static int per_sm = 0;
     cudaError_t err;
     if (per_sm == 0) {
-        err = cudaFuncSetAttribute((const void*)tile_kernel<BF16, MODE>,
+        err = cudaFuncSetAttribute((const void*)tile_kernel<P, MODE>,
                                    cudaFuncAttributeMaxDynamicSharedMemorySize,
                                    (int)smem);
         if (err != cudaSuccess) return (int)err;
         err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-            &per_sm, tile_kernel<BF16, MODE>, THREADS, smem);
+            &per_sm, tile_kernel<P, MODE>, THREADS, smem);
         if (err != cudaSuccess) return (int)err;
         if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
     }
     long long ctas = (long long)per_sm * rows::n_sms();
     if (ctas > pairs) ctas = pairs;
-    tile_kernel<BF16, MODE><<<(unsigned)ctas, THREADS, smem, stream>>>(a);
+    tile_kernel<P, MODE><<<(unsigned)ctas, THREADS, smem, stream>>>(a);
     return (int)cudaGetLastError();
 }
 
 // Phase 2, after the read-back: the lists, the tile pass, the threshold,
 // the reruns, the final selection and the fill, into out_s / out_d
 // [rows, k].
-template <bool BF16>
+template <class P>
 int run(Tiles a, char* ws_a, char* ws_b, long long pairs, long long entries,
         long long fin, float* out_s, int* out_d, float* split_ms,
         cudaStream_t stream) {
     if (!valid(a)) return (int)cudaErrorInvalidValue;
-    bind(a, ws_a, ws_b, pairs, entries, fin, a.hits);
-    const LayoutA A = layout_a(a.rows, a.n_tiles, a.k);
+    bind<P>(a, ws_a, ws_b, pairs, entries, fin, a.hits);
+    const LayoutA A = layout_a(a.rows, a.n_tiles, a.k, span_cap<P>(a));
     Stages st(split_ms, 1, stream);
     cudaError_t err;
     if (pairs > 0) {
@@ -1127,13 +1424,19 @@ int run(Tiles a, char* ws_a, char* ws_b, long long pairs, long long entries,
                        0, stream>>>(a);
         err = cudaGetLastError();
         if (err != cudaSuccess) return (int)err;
-        fill_kernel<<<grid_of((long long)a.sl.groups * a.fb, AUX_THREADS),
-                      AUX_THREADS, 0, stream>>>(a);
+        fill_kernel<P><<<grid_of((long long)a.sl.groups * a.fb, AUX_THREADS),
+                         AUX_THREADS, 0, stream>>>(a);
         err = cudaGetLastError();
         if (err != cudaSuccess) return (int)err;
+        if (P::RUNS) {
+            runs_kernel<<<(unsigned)(rows::n_sms() * 8), AUX_THREADS, 0,
+                          stream>>>(a);
+            err = cudaGetLastError();
+            if (err != cudaSuccess) return (int)err;
+        }
     }
     st.mark();
-    int rc = launch_tiles<BF16, 0>(a, pairs, stream);
+    int rc = launch_tiles<P, 0>(a, pairs, stream);
     if (rc != 0) return rc;
     st.mark();
     rows::Src src{nullptr, 0, a.tops_s, a.tops_d, LLONG_MAX, a.tcnt, nullptr,
@@ -1150,7 +1453,7 @@ int run(Tiles a, char* ws_a, char* ws_b, long long pairs, long long entries,
             err = cudaGetLastError();
             if (err != cudaSuccess) return (int)err;
         }
-        rc = launch_tiles<BF16, 1>(a, pairs, stream);
+        rc = launch_tiles<P, 1>(a, pairs, stream);
         if (rc != 0) return rc;
         st.mark();
         src = rows::Src{nullptr, 0, a.final_s, a.final_d, LLONG_MAX, a.fcnt,
@@ -1170,33 +1473,57 @@ int run(Tiles a, char* ws_a, char* ws_b, long long pairs, long long entries,
     return st.finish();
 }
 
-// Scratch bytes: which 0 -> A for (rows, n_tiles, k); which 1 -> B for
-// (pairs, entries, final entries) of ``rows`` rows at k over n_docs_pad
-// docs.
+// Scratch bytes: which 0 -> A for (rows, n_tiles, entries of the launch)
+// at k; which 1 -> B for (pairs, entries, final entries) of ``rows`` rows
+// at k over n_docs_pad docs; ``runs``: FeaturePolicy's (the spanning
+// entries' list in A, each list entry's run in B).
 inline long long scratch_bytes(int which, long long x, long long y,
                                long long z, int k, long long n_docs_pad,
-                               long long rows) {
-    if (which == 0) return layout_a(x, y, k).total;
-    return layout_b(x, y, z, tops_for(k, n_docs_pad, rows)).total;
+                               long long rows, bool runs) {
+    if (which == 0) return layout_a(x, y, k, runs ? z : 0).total;
+    return layout_b(x, y, z, tops_for(k, n_docs_pad, rows), runs).total;
 }
 
 // launch's answer when scratch B is too small for the lists the plan
 // found (host[0..2] then hold their sizes).
 constexpr int NEED_MORE = -1;
 
-// The one C entry of every family. Phase 0 plans and, when ws_b (b_bytes)
-// holds the lists the plan found, runs; else it returns NEED_MORE, and
-// the caller allocates scratch B for host[0..2] and calls phase 1, which
-// runs with those sizes.
-template <bool BF16>
-int launch(int phase, const int* block_docs, const void* block_tfs,
-           const int* ranges, const void* doc_lens, const int* flat_idx,
-           const float* flat_w, const int* flat_q, const float* flat_avgdl,
-           const uint8_t* live, const int* seg_ids, Slots sl, long long nb,
-           int fb, long long n_docs_pad, int n_q, int k, int mode,
-           int n_segs, Consts c, void* ws_a, void* ws_b, long long b_bytes,
+// The one C entry of every family, on a Tiles whose problem fields are
+// set (bm25_launch, features_launch). Phase 0 plans and, when ws_b
+// (b_bytes) holds the lists the plan found, runs; else it returns
+// NEED_MORE, and the caller allocates scratch B for host[0..2] and calls
+// phase 1, which runs with those sizes.
+template <class P>
+int launch(int phase, Tiles a, void* ws_a, void* ws_b, long long b_bytes,
            long long* host, float* out_s, int* out_d, int* hits,
            float* split_ms, cudaStream_t stream) {
+    a.rows = (long long)a.sl.groups * a.n_q;
+    a.t = tops_for(a.k, a.n_docs_pad, a.rows);
+    a.n_segs = a.mode == bm25::COUNT_SEGS ? a.n_segs : 0;
+    a.n_tiles = (a.n_docs_pad + TILE - 1) / TILE;
+    a.hits = hits;
+    if (phase == 0) {
+        const int rc = plan<P>(a, (char*)ws_a, host, split_ms, stream);
+        if (rc != 0) return rc;
+        if (layout_b(host[0], host[1], host[2], a.t, P::RUNS).total > b_bytes)
+            return NEED_MORE;
+    }
+    return run<P>(a, (char*)ws_a, (char*)ws_b, host[0], host[1], host[2],
+                  out_s, out_d, split_ms, stream);
+}
+
+// The BM25 families' entry: flatten_plans' flat lists, fb entries a
+// group.
+template <bool BF16>
+int bm25_launch(int phase, const int* block_docs, const void* block_tfs,
+                const int* ranges, const void* doc_lens, const int* flat_idx,
+                const float* flat_w, const int* flat_q,
+                const float* flat_avgdl, const uint8_t* live,
+                const int* seg_ids, Slots sl, long long nb, int fb,
+                long long n_docs_pad, int n_q, int k, int mode, int n_segs,
+                Consts c, void* ws_a, void* ws_b, long long b_bytes,
+                long long* host, float* out_s, int* out_d, int* hits,
+                float* split_ms, cudaStream_t stream) {
     Tiles a{};
     a.block_docs = block_docs;
     a.block_tfs = block_tfs;
@@ -1213,22 +1540,48 @@ int launch(int phase, const int* block_docs, const void* block_tfs,
     a.fb = fb;
     a.n_q = n_q;
     a.k = k;
-    a.rows = (long long)sl.groups * n_q;
-    a.t = tops_for(k, n_docs_pad, a.rows);
     a.mode = mode;
-    a.n_segs = mode == bm25::COUNT_SEGS ? n_segs : 0;
+    a.n_segs = n_segs;
     a.n_docs_pad = n_docs_pad;
-    a.n_tiles = (n_docs_pad + TILE - 1) / TILE;
     a.c = c;
-    a.hits = hits;
-    if (phase == 0) {
-        const int rc = plan(a, (char*)ws_a, host, split_ms, stream);
-        if (rc != 0) return rc;
-        if (layout_b(host[0], host[1], host[2], a.t).total > b_bytes)
-            return NEED_MORE;
-    }
-    return run<BF16>(a, (char*)ws_a, (char*)ws_b, host[0], host[1], host[2],
-                     out_s, out_d, split_ms, stream);
+    return launch<Bm25Policy<BF16>>(phase, a, ws_a, ws_b, b_bytes, host,
+                                    out_s, out_d, hits, split_ms, stream);
 }
 
-}  // namespace bm25t
+// The rank_features families' entry: group g's [n_q, qb] block list
+// (block ids local to its slot's store) and query weights, row g * n_q + q
+// (no per-segment count: mode COUNT_NONE or COUNT_TOTAL).
+template <bool BF16>
+int features_launch(int phase, const int* block_docs,
+                    const void* block_weights, const int* ranges,
+                    const int* block_idx, const float* query_weight,
+                    const uint8_t* live, Slots sl, long long nb, int qb,
+                    long long n_docs_pad, int n_q, int k, int mode,
+                    sparse::Params fp, void* ws_a, void* ws_b,
+                    long long b_bytes, long long* host, float* out_s,
+                    int* out_d, int* hits, float* split_ms,
+                    cudaStream_t stream) {
+    const long long fb = (long long)n_q * qb;
+    if (mode == bm25::COUNT_SEGS || qb < 0 || fb > INT_MAX)
+        return (int)cudaErrorInvalidValue;
+    Tiles a{};
+    a.block_docs = block_docs;
+    a.block_tfs = block_weights;
+    a.ranges = ranges;
+    a.flat_idx = block_idx;
+    a.flat_w = query_weight;
+    a.live = live;
+    a.sl = sl;
+    a.nb = nb;
+    a.qb = qb;
+    a.fb = (int)fb;
+    a.n_q = n_q;
+    a.k = k;
+    a.mode = mode;
+    a.n_docs_pad = n_docs_pad;
+    a.fp = fp;
+    return launch<FeaturePolicy<BF16>>(phase, a, ws_a, ws_b, b_bytes, host,
+                                       out_s, out_d, hits, split_ms, stream);
+}
+
+}  // namespace tiles

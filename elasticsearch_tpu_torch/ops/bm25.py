@@ -25,9 +25,10 @@ contributions in 64-bit fixed point (scale 2^32) and convert once, so the
 kernel and its plain version agree bit for bit, and K1, K2, K4 and K8 give
 the same score for the same doc. Top-k order is score descending, then index
 ascending, -inf slots included (``lax.top_k``'s order). K1-K3 (and the
-mesh's rows 31/32) share ``csrc/bm25_tiles.cuh``, which sums each (query,
-8,192-doc tile) in shared memory instead of a [n_q, n_docs_pad] plane
-(``tiles_launch``; ``bm25_tiles_mirror`` is its algorithm on the CPU).
+mesh's rows 31/32) share ``csrc/tiles.cuh`` with the rank_features top-k
+families, which sums each (query, 8,192-doc tile) in shared memory instead
+of a [n_q, n_docs_pad] plane (``tiles_launch``; ``bm25_tiles_mirror`` is
+its algorithm on the CPU).
 
 idf follows the reference's BM25: ln(1 + (N - df + 0.5) / (df + 0.5)).
 """
@@ -60,21 +61,21 @@ CHUNK = 65536
 BLOCK_WIDTH = 128
 
 
-# csrc/bm25_tiles.cuh: docs a tile, and the count modes of bm25_common.cuh
+# csrc/tiles.cuh: docs a tile, and the count modes of bm25_common.cuh
 TILE_DOCS = 8192
 COUNT_NONE, COUNT_TOTAL, COUNT_SEGS = 0, 1, 2
-# the probe's stage names (bm25_tiles.cuh ``Stages``), in order
+# the probe's stage names (tiles.cuh ``Stages``), in order
 TILE_STAGES = ("plan", "lists", "tiles", "threshold", "rerun", "final")
 
 
 def tops_width(t: int) -> int:
-    """Slots a tile's tops take (csrc/bm25_tiles.cuh ``tops_width``)."""
+    """Slots a tile's tops take (csrc/tiles.cuh ``tops_width``)."""
     return 1 if t == 1 else 2 * t
 
 
 def tops_for(k: int, n_docs_pad: int, rows: int,
              tile_docs: int = TILE_DOCS) -> int:
-    """The least entries a tile keeps (csrc/bm25_tiles.cuh ``tops_for``):
+    """The least entries a tile keeps (csrc/tiles.cuh ``tops_for``):
     16 at most 4 rows and k <= 16; else 1 for k <= 32, 64 up to 4,096,
     256 above; 1 where the last tile holds fewer docs than the tops'
     slots."""
@@ -85,13 +86,13 @@ def tops_for(k: int, n_docs_pad: int, rows: int,
     return 1 if last < tops_width(t) else t
 
 
-# csrc/bm25_tiles.cuh tile_bound's digits of a tile's 45-bit local key:
+# csrc/tiles.cuh tile_bound's digits of a tile's 45-bit local key:
 # (shift, bits), the score word first, then the slot
 BOUND_DIGITS = ((34, 11), (23, 11), (13, 10), (6, 7), (0, 6))
 
 
 def tile_bound(local_keys, t: int) -> int:
-    """csrc/bm25_tiles.cuh ``tile_bound`` for a tile of more than 2t
+    """csrc/tiles.cuh ``tile_bound`` for a tile of more than 2t
     matches: the radix select for the t-th largest local key that stops
     at the first digit whose bin, with every bin above it, holds at most
     2t keys; returns that bin's lower bound (every key at or above it is
@@ -278,46 +279,71 @@ def _entry_keys(scores: torch.Tensor, docs: torch.Tensor,
             + (n - 1 - docs.long()))
 
 
-def bm25_tiles_mirror(block_docs, block_tfs, flat_idx, flat_w, flat_q,
-                      doc_lens, flat_avgdl, live, seg_ids, n_docs_pad: int,
-                      n_q: int, k: int, *, bf16: bool = False,
-                      n_segs: int = 1, k1: float = DEFAULT_K1,
-                      b: float = DEFAULT_B, tile_docs: int = TILE_DOCS):
-    """``csrc/bm25_tiles.cuh`` step by step on the CPU (tests only): bin
-    the entries of non-zero weight by (row, tile) through the block
-    ranges; sum each pair's tile; mask, count and keep its best entry (t
-    1) or between t and 2t of its best (``tile_bound``), pads at -inf;
-    tau, the k-th largest key of a row's tops; rerun the tiles that left
-    matches out while their least kept key reaches tau, list the others'
-    tops at or above it; the k best of the list; the -inf fill. ``bf16``
-    takes K3's arithmetic.
+def block_runs(docs, first: int, last: int, tile_docs: int = TILE_DOCS):
+    """csrc/tiles.cuh ``fill_runs``: {tile: (p0, p1)}, the run of a block's
+    positions that the tile pass reads in each tile first..last of its
+    span, and the postings read beyond the block's one pass. Valid docs
+    ascending: tile t's run is [the first position of a doc in t or past
+    it, the first position of a doc past t); otherwise the whole block in
+    every tile."""
+    valid = [d for d in docs if d >= 0]
+    if any(b < a for a, b in zip(valid, valid[1:])):
+        return ({t: (0, BLOCK_WIDTH) for t in range(first, last + 1)},
+                BLOCK_WIDTH * (last - first))
+    runs, tile, start = {}, first, 0
+    for i, d in enumerate(list(docs) + [None]):
+        if d is None:
+            t = last + 1
+        elif d < 0:
+            continue
+        else:
+            t = min(d // tile_docs, last)
+        while tile < t:
+            runs[tile] = (start, i)
+            tile += 1
+            start = i
+    return runs, 0
+
+
+def tiles_mirror(fx, docs, ranges, rows, live, seg_ids, n_docs_pad: int,
+                 n_q: int, k: int, *, n_segs: int = 1,
+                 tile_docs: int = TILE_DOCS, runs: bool = False):
+    """``csrc/tiles.cuh`` step by step on the CPU (tests only), over the
+    entries of non-zero weight: ``fx`` [E, BLOCK] their postings'
+    fixed-point contributions (0 at pads), ``docs`` [E, BLOCK], ``ranges``
+    [(lo, hi)] their blocks' doc ranges, ``rows`` [E] their rows. Bin the
+    entries by (row, tile) through the ranges; sum each pair's tile; mask,
+    count and keep its best entry (t 1) or between t and 2t of its best
+    (``tile_bound``), pads at -inf; tau, the k-th largest key of a row's
+    tops; rerun the tiles that left matches out while their least kept key
+    reaches tau, list the others' tops at or above it; the k best of the
+    list; the -inf fill. ``runs``: the tile pass reads a spanning block
+    only at its run of positions in the tile (FeaturePolicy,
+    ``block_runs``).
     Returns (s [n_q, k] f32, d [n_q, k] int32, matches [n_q] int32,
     per-segment hits [n_q, n_segs] int32 or None without ``seg_ids``,
     stats), stats holding the pairs, each row's tiles, list entries,
-    entries binned, tiles rerun, tops t and each row's final list length
-    and capacity."""
-    from elasticsearch_tpu_torch.ops.device_segment import block_ranges
+    entries binned, extra posting reads, tiles rerun, tops t and each
+    row's final list length and capacity."""
     from elasticsearch_tpu_torch.ops.topk import score_words
-    contrib = _contrib_bf16 if bf16 else _contrib_f32
-    fx, _safe = contrib(block_docs, block_tfs, flat_idx, flat_w, doc_lens,
-                        flat_avgdl, k1, b)
-    rows_idx = flat_idx.long()
-    docs = block_docs[rows_idx]
-    rng = block_ranges(block_docs)[rows_idx].tolist()
     n = n_docs_pad
     T = tile_docs
     n_tiles = -(-n // T)
     t = tops_for(k, n, n_q, T)
     # 1. binning
-    lists: dict = {}
-    binned = 0
-    for f, (w, q, (lo, hi)) in enumerate(zip(flat_w.tolist(),
-                                             flat_q.tolist(), rng)):
-        if w == 0.0 or hi < lo or hi < 0:
+    lists: dict = {}        # pair -> [(entry, first position, end)]
+    binned = extra_postings = 0
+    for f, (q, (lo, hi)) in enumerate(zip(rows, ranges)):
+        if hi < lo or hi < 0:
             continue
         binned += 1
-        for tile in range(max(lo, 0) // T, min(hi // T, n_tiles - 1) + 1):
-            lists.setdefault((q, tile), []).append(f)
+        first, last = max(lo, 0) // T, min(hi // T, n_tiles - 1)
+        spans = {t: (0, BLOCK_WIDTH) for t in range(first, last + 1)}
+        if runs and last > first:
+            spans, extra = block_runs(docs[f].tolist(), first, last, T)
+            extra_postings += extra
+        for tile, (p0, p1) in spans.items():
+            lists.setdefault((q, tile), []).append((f, p0, p1))
     # 2. the tile pass
     matches = torch.zeros(n_q, dtype=torch.int32)
     seg_hits = None if seg_ids is None else \
@@ -328,9 +354,13 @@ def bm25_tiles_mirror(block_docs, block_tfs, flat_idx, flat_w, flat_q,
     for (r, tile) in sorted(lists):
         doc0 = tile * T
         width = min(T, n - doc0)
-        ents = torch.tensor(lists[(r, tile)])
+        listed = lists[(r, tile)]
+        ents = torch.tensor([f for f, _p0, _p1 in listed])
+        pos = torch.arange(BLOCK_WIDTH)
+        in_run = torch.stack([(pos >= p0) & (pos < p1)
+                              for _f, p0, p1 in listed])
         dd = docs[ents]
-        inside = (dd >= doc0) & (dd < doc0 + width)
+        inside = (dd >= doc0) & (dd < doc0 + width) & in_run
         acc = torch.zeros(width, dtype=torch.int64)
         acc.index_add_(0, (dd[inside] - doc0).long(), fx[ents][inside])
         m = (acc > 0) & live[doc0: doc0 + width]
@@ -403,9 +433,29 @@ def bm25_tiles_mirror(block_docs, block_tfs, flat_idx, flat_w, flat_q,
                  r: {tile for (row, tile) in lists if row == r}
                  for r in range(n_q)},
              "list_entries": sum(len(v) for v in lists.values()),
-             "entries_binned": binned, "reruns": reruns, "tops": t,
-             "final_lengths": lengths, "final_caps": caps}
+             "entries_binned": binned, "extra_posting_reads": extra_postings,
+             "reruns": reruns, "tops": t, "final_lengths": lengths,
+             "final_caps": caps}
     return s.float(), d, matches, seg_hits, stats
+
+
+def bm25_tiles_mirror(block_docs, block_tfs, flat_idx, flat_w, flat_q,
+                      doc_lens, flat_avgdl, live, seg_ids, n_docs_pad: int,
+                      n_q: int, k: int, *, bf16: bool = False,
+                      n_segs: int = 1, k1: float = DEFAULT_K1,
+                      b: float = DEFAULT_B, tile_docs: int = TILE_DOCS):
+    """``tiles_mirror`` over K1's flat entries (K3's arithmetic with
+    ``bf16``); returns what ``tiles_mirror`` returns."""
+    from elasticsearch_tpu_torch.ops.device_segment import block_ranges
+    contrib = _contrib_bf16 if bf16 else _contrib_f32
+    fx, _safe = contrib(block_docs, block_tfs, flat_idx, flat_w, doc_lens,
+                        flat_avgdl, k1, b)
+    keep = (flat_w != 0).nonzero().flatten()
+    blocks = flat_idx.long()[keep]
+    return tiles_mirror(fx[keep], block_docs[blocks],
+                        block_ranges(block_docs)[blocks].tolist(),
+                        flat_q[keep].tolist(), live, seg_ids, n_docs_pad,
+                        n_q, k, n_segs=n_segs, tile_docs=tile_docs)
 
 
 def bm25_rerank_plain(block_docs, block_tfs, flat_idx, flat_w, flat_q,
@@ -461,7 +511,7 @@ def bm25_block_scores_plain(block_docs, block_tfs, block_idx, block_weight,
 # kernel wrappers
 # ---------------------------------------------------------------------------
 
-# the tile families' one C entry (csrc/bm25_tiles.cuh ``launch``): phase,
+# the BM25 tile families' C entry (csrc/tiles.cuh ``bm25_launch``): phase,
 # ten operands, the shape, the BM25 constants, scratch A and B (with B's
 # bytes), the host sizes, outputs
 TILES_SIG = (["i"] + ["p"] * 10 + ["i", "i", "ll", "i", "ll", "i", "i", "i",
@@ -570,7 +620,7 @@ _TILES: dict = {}
 _WS: dict = {}
 _WS_LOCK = threading.Lock()
 _WS_KEEP = 256 << 20            # larger scratch is not kept
-NEED_MORE = -1                  # csrc/bm25_tiles.cuh NEED_MORE
+NEED_MORE = -1                  # csrc/tiles.cuh NEED_MORE
 
 
 def _scratch_bytes(family: str, *args) -> int:
@@ -585,13 +635,13 @@ def _scratch_bytes(family: str, *args) -> int:
     return max(int(fn(*args)), 1)
 
 
-def _tiles_fn(family: str):
+def _tiles_fn(family: str, sig):
     from elasticsearch_tpu_torch._build import library
     fn = _TILES.get(family)
     if fn is None:
         fn = getattr(library(family), f"{family}_launch")
         fn.restype = ctypes.c_int
-        fn.argtypes = [_CTYPES[t] for t in TILES_SIG]
+        fn.argtypes = [_CTYPES[t] for t in sig]
         _TILES[family] = fn
     return fn
 
@@ -610,40 +660,29 @@ def _scratch(family: str, dev, which: int, nbytes: int) -> torch.Tensor:
     return t
 
 
-def tiles_launch(family: str, block_docs, block_tfs, doc_lens, flat_idx,
-                 flat_w, flat_q, flat_avgdl, live, seg_ids, *, groups: int,
-                 groups_per_slot: int, n_docs_pad: int, n_q: int, k: int,
-                 mode: int, n_segs: int, consts, out_s, out_d, hits,
-                 probe: Optional[dict] = None) -> None:
-    """Run one tile family (csrc/bm25_tiles.cuh) into out_s / out_d
-    [groups * n_q, k] and ``hits`` (None, [rows] for COUNT_TOTAL or
-    [rows, n_segs]): one C call plans (one synchronisation, to learn the
-    pairs and list sizes) and runs on the kept scratch; a second runs
-    after a larger scratch B when the lists outgrow it. ``probe``, when
-    given, receives the stage milliseconds and the binning's counts."""
+def tiles_run(family: str, sig, head, *, dev, rows: int, n_docs_pad: int,
+              k: int, out_s, out_d, hits, probe: Optional[dict] = None,
+              runs: bool = False, entries: int = 0) -> None:
+    """Run one tile family (csrc/tiles.cuh) of C signature ``sig`` on its
+    operands ``head`` into out_s / out_d [rows, k] and ``hits``: one C
+    call plans (one synchronisation, to learn the pairs and list sizes)
+    and runs on the kept scratch; a second runs after a larger scratch B
+    when the lists outgrow it. ``probe``, when given, receives the stage
+    milliseconds and the binning's counts (``runs``: the family reads a
+    spanning block one run a tile, lists the ``entries`` of the launch that
+    span tiles in scratch A, and counts its extra posting reads)."""
     from elasticsearch_tpu_torch._build import KernelError
-    from elasticsearch_tpu_torch.ops.device_segment import block_ranges
-    dev = block_docs.device
-    nb = block_docs.shape[-2]
-    fb = flat_idx.shape[-1]
-    rows = groups * n_q
     n_tiles = -(-n_docs_pad // TILE_DOCS)
-    ranges = block_ranges(block_docs)
-    fn = _tiles_fn(family)
+    fn = _tiles_fn(family, sig)
     split = (ctypes.c_float * len(TILE_STAGES))()
     host = (ctypes.c_longlong * 3)()
-    head = [_ptr(block_docs), _ptr(block_tfs), _ptr(ranges), _ptr(doc_lens),
-            _ptr(flat_idx), _ptr(flat_w), _ptr(flat_q), _ptr(flat_avgdl),
-            _ptr(live), _ptr(seg_ids) if seg_ids is not None else None,
-            groups, groups_per_slot, nb, fb, n_docs_pad, n_q, k, mode,
-            n_segs, *consts]
     tail = [ctypes.addressof(host), _ptr(out_s), _ptr(out_d),
             _ptr(hits) if hits is not None else None,
             ctypes.addressof(split) if probe is not None else None,
             _stream()]
     with _WS_LOCK:
         ws_a = _scratch(family, dev, 0, _scratch_bytes(
-            family, 0, rows, n_tiles, 0, k, n_docs_pad, rows))
+            family, 0, rows, n_tiles, entries, k, n_docs_pad, rows))
         ws_b = _WS[(family, str(dev))][1]
         b_bytes = 0 if ws_b is None else ws_b.numel()
         rc = fn(0, *head, _ptr(ws_a), _ptr(ws_b) if b_bytes else None,
@@ -658,15 +697,42 @@ def tiles_launch(family: str, block_docs, block_tfs, doc_lens, flat_idx,
                               f"{rc}")
         if probe is not None:
             totals = ws_a[:64].view(torch.int64).tolist()
+            scratch = ws_a.numel() + ws_b.numel() if ws_b is not None \
+                else ws_a.numel()
     if probe is not None:
-        pairs, entries = totals[0], totals[1]
+        listed, binned = totals[1], totals[3]
         probe.update({
             "split_ms": dict(zip(TILE_STAGES, list(split))),
-            "pairs": pairs, "list_entries": entries,
-            "entries_binned": totals[3],
-            "extra_block_reads": entries - totals[3],
+            "pairs": totals[0], "list_entries": listed,
+            "entries_binned": binned,
+            "extra_block_reads": listed - binned,
+            "extra_posting_reads": totals[6] if runs
+            else BLOCK_WIDTH * (listed - binned),
             "reruns": totals[4], "final_capacity": totals[2],
-            "refused": totals[5], "tops": tops_for(k, n_docs_pad, rows)})
+            "refused": totals[5], "tops": tops_for(k, n_docs_pad, rows),
+            "scratch_bytes": scratch})
+
+
+def tiles_launch(family: str, block_docs, block_tfs, doc_lens, flat_idx,
+                 flat_w, flat_q, flat_avgdl, live, seg_ids, *, groups: int,
+                 groups_per_slot: int, n_docs_pad: int, n_q: int, k: int,
+                 mode: int, n_segs: int, consts, out_s, out_d, hits,
+                 probe: Optional[dict] = None) -> None:
+    """Run one BM25 tile family (csrc/tiles.cuh ``bm25_launch``) into
+    out_s / out_d [groups * n_q, k] and ``hits`` (None, [rows] for
+    COUNT_TOTAL or [rows, n_segs]) through ``tiles_run``."""
+    from elasticsearch_tpu_torch.ops.device_segment import block_ranges
+    nb = block_docs.shape[-2]
+    fb = flat_idx.shape[-1]
+    ranges = block_ranges(block_docs)
+    head = [_ptr(block_docs), _ptr(block_tfs), _ptr(ranges), _ptr(doc_lens),
+            _ptr(flat_idx), _ptr(flat_w), _ptr(flat_q), _ptr(flat_avgdl),
+            _ptr(live), _ptr(seg_ids) if seg_ids is not None else None,
+            groups, groups_per_slot, nb, fb, n_docs_pad, n_q, k, mode,
+            n_segs, *consts]
+    tiles_run(family, TILES_SIG, head, dev=block_docs.device,
+              rows=groups * n_q, n_docs_pad=n_docs_pad, k=k, out_s=out_s,
+              out_d=out_d, hits=hits, probe=probe)
 
 
 def bm25_flat(block_docs, block_tfs, flat_idx, flat_w, flat_q, doc_lens,
@@ -819,7 +885,8 @@ def probe_tiles(public, cuda_body, *args, **kwargs) -> dict:
     """Run a tile family's CUDA body once, uncounted, with the arguments of
     its wrapper ``public``: {"out": its outputs, "split_ms": stage -> ms,
     "pairs", "list_entries", "entries_binned", "extra_block_reads",
-    "reruns", "final_capacity", "refused", "tops"} (``tiles_launch``)."""
+    "extra_posting_reads", "reruns", "final_capacity", "refused", "tops",
+    "scratch_bytes"} (``tiles_run``)."""
     import inspect
     bound = inspect.signature(public).bind(*args, **kwargs)
     bound.apply_defaults()

@@ -60,11 +60,12 @@ _RANGE_ROWS = 1 << 20           # blocks reduced at a time
 def block_ranges(block_docs: torch.Tensor) -> torch.Tensor:
     """[..., NB, 2] int32 beside a block store ``block_docs`` [..., NB,
     BLOCK]: each block's least and greatest valid doc id ((2^31 - 1, -1)
-    for a block with none), on the store's device. The BM25 tile kernels
-    (``csrc/bm25_tiles.cuh``) bin each gathered block by it. Computed once
-    a store (the planes compute it when they upload) and kept while the
-    store lives unmodified; a block's range does not depend on the order
-    of its docs."""
+    for a block with none), on the store's device. The tile kernels
+    (``csrc/tiles.cuh``: BM25's K1-K3, rank_features' K15 / K16 and their
+    mesh rows) bin each gathered block by it. Computed once a store (every
+    postings and features store computes it when it uploads) and kept
+    while the store lives unmodified; a block's range does not depend on
+    the order of its docs."""
     key = id(block_docs)
     hit = _RANGES.get(key)
     if hit is not None and hit[0]() is block_docs \
@@ -177,6 +178,7 @@ class DeviceFeatures:
         from elasticsearch_tpu_torch.indices.breaker import account_device_arrays
         account_device_arrays(self, (block_docs, block_weights), "features")
         self.block_docs = torch.as_tensor(block_docs, device=self.device)
+        block_ranges(self.block_docs)
         self.block_weights = torch.as_tensor(block_weights,
                                              device=self.device)
 
@@ -603,6 +605,7 @@ class PlaneFeatures(PlanePart):
     def upload(self, host) -> None:
         bd, bw = host
         self.block_docs = torch.as_tensor(bd, device=self.device)
+        block_ranges(self.block_docs)
         self.block_weights = torch.as_tensor(bw, device=self.device)
 
     def quantized_mirror(self) -> Optional[torch.Tensor]:
@@ -1545,7 +1548,7 @@ class MeshPlaneRegistry:
     def _upload(self, part: MeshPlanePart, stacked) -> None:
         for name, arr in stacked.items():
             setattr(part, name, torch.as_tensor(arr, device=part.device))
-        if part.kind == "postings":
+        if part.kind in ("postings", "features"):
             block_ranges(part.block_docs)
 
     # -- eviction / lifecycle -------------------------------------------

@@ -19,6 +19,13 @@ wrapper, with its plain PyTorch version beside it:
 - ``sparse_rerank`` (K17): exact f32 re-score of the candidates, top-k
   and ``eps`` = max |exact - coarse|.
 
+K15 and K16 (and the mesh's rows 34 / 38) run on ``csrc/tiles.cuh``, the
+tile pipeline BM25's K1-K3 share: each (query, 8,192-doc tile) a block
+reaches is summed in shared memory, no [Q, n_docs_pad] plane is written,
+and one selection serves any k (``features_launch``;
+``sparse_tiles_mirror`` is the algorithm on the CPU, ``sparse_tiles_probe``
+a launch's stage split).
+
 A wrapper launches its kernel for CUDA tensors and runs the plain version
 for CPU tensors; there is no fallback between the two. Both sum the f32
 contributions in 64-bit fixed point (scale 2^32, as K1 does) and convert
@@ -46,13 +53,14 @@ import torch
 
 from elasticsearch_tpu_torch.index.segment import FeaturesField, next_pow2
 from elasticsearch_tpu_torch.ops.bm25 import (
-    BLOCK_WIDTH, KMAX, _check, _from_fixed, _on_cuda, _ptr, _stream,
-    _to_fixed, chunk_entries, launch_kernel, stable_topk,
+    BLOCK_WIDTH, COUNT_NONE, COUNT_TOTAL, KMAX, TILE_DOCS, _check,
+    _from_fixed, _on_cuda, _ptr, _stream, _to_fixed, launch_kernel,
+    probe_tiles, stable_topk, tiles_mirror, tiles_run,
 )
 from elasticsearch_tpu_torch.ops.device_segment import DeviceFeatures
 from elasticsearch_tpu_torch.search.device_profile import DEVICE_PROFILE
 
-# function name -> the kernels' code (csrc/sparse_common.cuh Function)
+# function name -> the kernels' code (csrc/feature_fn.cuh Function)
 FUNCTIONS = {"saturation": 0, "log": 1, "sigmoid": 2, "linear": 3}
 # largest query count of one launch (the kernels' grid.y)
 MAX_QUERIES = 65535
@@ -71,7 +79,7 @@ def _pivot_pow(pivot: float, exponent: float) -> float:
 def _transform(w: torch.Tensor, function: str, pivot: float,
                exponent: float) -> torch.Tensor:
     """f(w), one rounded f32 op at a time (``transform`` in
-    csrc/sparse_common.cuh)."""
+    csrc/feature_fn.cuh)."""
     if function == "saturation":
         return w / (w + pivot)
     if function == "log":
@@ -210,12 +218,15 @@ def sparse_rerank_plain(block_docs, block_weights, block_idx, query_weight,
 # ---------------------------------------------------------------------------
 
 _SIG = {
-    "sparse_flat": ["p"] * 5 + ["i", "ll", "i", "i", "i", "i"] + ["f"] * 3
-    + ["p"] * 7,
     "sparse_scores": ["p"] * 5 + ["i", "ll", "i"] + ["f"] * 3 + ["p"] * 3,
-    "sparse_coarse": ["p"] * 5 + ["i", "ll", "i", "i"] + ["p"] * 7,
     "sparse_rerank": ["p"] * 7 + ["i"] * 4 + ["p"] * 7,
 }
+# the rank_features tile families' C entry (csrc/tiles.cuh
+# ``features_launch``): phase, six operands, the shape, the function,
+# scratch A and B (with B's bytes), the host sizes, outputs
+FEATURES_SIG = (["i"] + ["p"] * 6 + ["i", "i", "ll", "i", "ll", "i", "i",
+                                     "i", "i"] + ["f"] * 3
+                + ["p", "p", "ll"] + ["p"] * 6)
 
 
 def _launch(family: str, *args) -> None:
@@ -252,11 +263,29 @@ def _label(qb: int, n_docs_pad: int, n_q: int, k: int) -> str:
     return f"qb={qb}/n_docs_pad={n_docs_pad}/n_q={n_q}/k={k}"
 
 
-def _topk_scratch(n_q: int, n_docs_pad: int, k: int, dev):
-    ck = chunk_entries(n_q, n_docs_pad, k)
-    return (torch.empty(n_q * n_docs_pad, dtype=torch.int64, device=dev),
-            torch.empty(ck, dtype=torch.float32, device=dev),
-            torch.empty(ck, dtype=torch.int32, device=dev))
+def features_launch(family: str, block_docs, block_weights, block_idx,
+                    query_weight, live, *, groups: int, groups_per_slot: int,
+                    n_docs_pad: int, n_q: int, k: int, counted: bool,
+                    function: str, pivot: float, exponent: float, out_s,
+                    out_d, hits, probe=None) -> None:
+    """Run one rank_features tile family (csrc/tiles.cuh
+    ``features_launch``): ``block_idx`` / ``query_weight`` [groups, n_q,
+    QB] in any leading shape (group g of slot g / groups_per_slot, block
+    ids local to its store) are the pipeline's entries as they lie; out_s
+    / out_d [groups * n_q, k], ``hits`` [groups * n_q] when counted. Each
+    store's block ranges are computed when it uploads (cached)."""
+    from elasticsearch_tpu_torch.ops.device_segment import block_ranges
+    ranges = block_ranges(block_docs)
+    head = [_ptr(block_docs), _ptr(block_weights), _ptr(ranges),
+            _ptr(block_idx), _ptr(query_weight), _ptr(live), groups,
+            groups_per_slot, block_docs.shape[-2], block_idx.shape[-1],
+            n_docs_pad, n_q, k, COUNT_TOTAL if counted else COUNT_NONE,
+            _function(function), pivot, exponent,
+            _pivot_pow(pivot, exponent)]
+    tiles_run(family, FEATURES_SIG, head, dev=block_docs.device,
+              rows=groups * n_q, n_docs_pad=n_docs_pad, k=k, out_s=out_s,
+              out_d=out_d, hits=hits if counted else None, probe=probe,
+              runs=True, entries=block_idx.numel())
 
 
 def sparse_topk_batch(block_docs, block_weights, block_idx, query_weight,
@@ -273,26 +302,35 @@ def sparse_topk_batch(block_docs, block_weights, block_idx, query_weight,
     _check_store(block_docs, block_weights, torch.float32)
     n_q, qb = _check_rows(block_idx, query_weight)
     _check("live", live, torch.bool, (n_docs_pad,))
-    code = _function(function)
+    _function(function)
     with DEVICE_PROFILE.call("sparse_flat", _label(qb, n_docs_pad, n_q, k),
                              cuda):
         if not cuda:
             return sparse_flat_plain(block_docs, block_weights, block_idx,
                                      query_weight, pivot, exponent, live,
                                      n_docs_pad, k, function, counted)
-        if not 1 <= k <= n_docs_pad:
-            raise ValueError(f"k={k} outside [1, {n_docs_pad}]")
-        dev = block_docs.device
-        acc, chunk_s, chunk_i = _topk_scratch(n_q, n_docs_pad, k, dev)
-        s = torch.empty(n_q, k, dtype=torch.float32, device=dev)
-        d = torch.empty(n_q, k, dtype=torch.int32, device=dev)
-        hits = torch.empty(n_q, dtype=torch.int32, device=dev)
-        _launch("sparse_flat", _ptr(block_docs), _ptr(block_weights),
-                _ptr(block_idx), _ptr(query_weight), _ptr(live), qb,
-                n_docs_pad, n_q, k, int(counted), code, pivot, exponent,
-                _pivot_pow(pivot, exponent), _ptr(acc), _ptr(chunk_s),
-                _ptr(chunk_i), _ptr(s), _ptr(d), _ptr(hits), _stream())
-        return (s, d, hits) if counted else (s, d)
+        return _sparse_flat_cuda(block_docs, block_weights, block_idx,
+                                 query_weight, pivot, exponent, live,
+                                 n_docs_pad, k, function, counted)
+
+
+def _sparse_flat_cuda(block_docs, block_weights, block_idx, query_weight,
+                      pivot, exponent, live, n_docs_pad, k, function,
+                      counted, probe=None):
+    if not 1 <= k <= n_docs_pad:
+        raise ValueError(f"k={k} outside [1, {n_docs_pad}]")
+    n_q = block_idx.shape[0]
+    dev = block_docs.device
+    s = torch.empty(n_q, k, dtype=torch.float32, device=dev)
+    d = torch.empty(n_q, k, dtype=torch.int32, device=dev)
+    hits = torch.empty(n_q, dtype=torch.int32, device=dev) if counted \
+        else None
+    features_launch("sparse_flat", block_docs, block_weights, block_idx,
+                    query_weight, live, groups=1, groups_per_slot=1,
+                    n_docs_pad=n_docs_pad, n_q=n_q, k=k, counted=counted,
+                    function=function, pivot=pivot, exponent=exponent,
+                    out_s=s, out_d=d, hits=hits, probe=probe)
+    return (s, d, hits) if counted else (s, d)
 
 
 def sparse_topk(block_docs, block_weights, block_idx, query_weight,
@@ -361,19 +399,64 @@ def sparse_coarse_kernel(block_docs, block_weights_q, block_idx,
             return sparse_coarse_plain(block_docs, block_weights_q,
                                        block_idx, query_weight, live,
                                        n_docs_pad, kprime)
-        if not 1 <= kprime <= min(KMAX, n_docs_pad):
-            raise ValueError(
-                f"kprime={kprime} outside [1, {min(KMAX, n_docs_pad)}]")
-        dev = block_docs.device
-        acc, chunk_s, chunk_i = _topk_scratch(n_q, n_docs_pad, kprime, dev)
-        cs = torch.empty(n_q, kprime, dtype=torch.float32, device=dev)
-        cand = torch.empty(n_q, kprime, dtype=torch.int32, device=dev)
-        hits = torch.empty(n_q, dtype=torch.int32, device=dev)
-        _launch("sparse_coarse", _ptr(block_docs), _ptr(block_weights_q),
-                _ptr(block_idx), _ptr(query_weight), _ptr(live), qb,
-                n_docs_pad, n_q, kprime, _ptr(acc), _ptr(chunk_s),
-                _ptr(chunk_i), _ptr(cs), _ptr(cand), _ptr(hits), _stream())
-        return cs, cand, hits
+        return _sparse_coarse_cuda(block_docs, block_weights_q, block_idx,
+                                   query_weight, live, n_docs_pad, kprime)
+
+
+def _sparse_coarse_cuda(block_docs, block_weights_q, block_idx,
+                        query_weight, live, n_docs_pad, kprime, probe=None):
+    if not 1 <= kprime <= min(KMAX, n_docs_pad):
+        raise ValueError(
+            f"kprime={kprime} outside [1, {min(KMAX, n_docs_pad)}]")
+    n_q = block_idx.shape[0]
+    dev = block_docs.device
+    cs = torch.empty(n_q, kprime, dtype=torch.float32, device=dev)
+    cand = torch.empty(n_q, kprime, dtype=torch.int32, device=dev)
+    hits = torch.empty(n_q, dtype=torch.int32, device=dev)
+    features_launch("sparse_coarse", block_docs, block_weights_q, block_idx,
+                    query_weight, live, groups=1, groups_per_slot=1,
+                    n_docs_pad=n_docs_pad, n_q=n_q, k=kprime, counted=True,
+                    function="linear", pivot=1.0, exponent=1.0, out_s=cs,
+                    out_d=cand, hits=hits, probe=probe)
+    return cs, cand, hits
+
+
+def sparse_tiles_probe(family: str, *args, **kwargs) -> dict:
+    """``ops/bm25.py`` ``probe_tiles`` for K15 (``sparse_topk_batch``'s
+    arguments) or K16 (``sparse_coarse_kernel``'s) by family name: one
+    uncounted launch's outputs, stage split, pairs, extra block and
+    posting reads, reruns and scratch bytes."""
+    public, body = {
+        "sparse_flat": (sparse_topk_batch, _sparse_flat_cuda),
+        "sparse_coarse": (sparse_coarse_kernel, _sparse_coarse_cuda),
+    }[family]
+    return probe_tiles(public, body, *args, **kwargs)
+
+
+def sparse_tiles_mirror(block_docs, block_weights, block_idx, query_weight,
+                        live, n_docs_pad: int, k: int, *,
+                        function: str = "linear", pivot: float = 1.0,
+                        exponent: float = 1.0, bf16: bool = False,
+                        tile_docs: int = TILE_DOCS):
+    """K15's tile pipeline (K16's with ``bf16``: the weights are the bf16
+    mirror, linear) on the CPU, step by step (``ops/bm25.py``
+    ``tiles_mirror``), over the plain version's own contributions of the
+    [Q, QB] block list's weighted positions. Returns (s [Q, k] f32,
+    d [Q, k] int32, matches [Q] int32, stats)."""
+    from elasticsearch_tpu_torch.ops.device_segment import block_ranges
+    if bf16:
+        q_of, fx, _safe = _contrib_bf16(block_docs, block_weights,
+                                        block_idx, query_weight)
+    else:
+        q_of, fx, _safe = _contrib(block_docs, block_weights, block_idx,
+                                   query_weight, function, pivot, exponent)
+    q, pos = torch.nonzero(query_weight != 0, as_tuple=True)
+    blocks = block_idx[q, pos].long()
+    s, d, matches, _h, stats = tiles_mirror(
+        fx, block_docs[blocks], block_ranges(block_docs)[blocks].tolist(),
+        q_of.tolist(), live, None, n_docs_pad, block_idx.shape[0], k,
+        tile_docs=tile_docs, runs=True)
+    return s, d, matches, stats
 
 
 def sparse_rerank_kernel(block_docs, block_weights, block_idx, query_weight,

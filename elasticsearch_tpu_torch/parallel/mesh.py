@@ -52,8 +52,7 @@ from elasticsearch_tpu_torch.device import DeviceLike
 from elasticsearch_tpu_torch.ops.bm25 import (
     BLOCK_WIDTH, COUNT_SEGS, DEFAULT_B, DEFAULT_K1, KMAX, MAX_SEGS, _check,
     _consts, _on_cuda, _ptr, _stream, bm25_coarse_plain, bm25_flat_seg_plain,
-    bm25_rerank_plain, chunk_entries, launch_kernel, probe_tiles,
-    tiles_launch,
+    bm25_rerank_plain, launch_kernel, probe_tiles, tiles_launch,
 )
 from elasticsearch_tpu_torch.ops.knn import (
     MAX_DIMS, _check_query_terms, _opt_ptr, _sim_code, full_counter,
@@ -61,7 +60,8 @@ from elasticsearch_tpu_torch.ops.knn import (
     split_buffer, split_of,
 )
 from elasticsearch_tpu_torch.ops.sparse import (
-    MAX_QUERIES, sparse_coarse_plain, sparse_flat_plain, sparse_rerank_plain,
+    MAX_QUERIES, features_launch, sparse_coarse_plain, sparse_flat_plain,
+    sparse_rerank_plain,
 )
 from elasticsearch_tpu_torch.search.device_profile import DEVICE_PROFILE
 
@@ -241,10 +241,6 @@ _SIG = {
     + ["p"] * 6,
     "mesh_knn_rerank": ["p"] * 9 + ["i", "i", "ll", "i", "i", "i", "i"]
     + ["p"] * 4,
-    "mesh_sparse_topk": ["p"] * 5 + ["i", "i", "ll", "i", "ll", "i", "i"]
-    + ["p"] * 7,
-    "mesh_sparse_coarse": ["p"] * 5 + ["i", "ll", "i", "ll", "i", "i"]
-    + ["p"] * 7,
     "mesh_sparse_rerank": ["p"] * 7 + ["i", "ll", "i", "ll", "i", "i", "i"]
     + ["p"] * 7,
 }
@@ -847,10 +843,10 @@ def mesh_sparse_topk(block_docs, block_weights, block_idx, query_weight,
     0 as padding). Returns (scores [S, DP, Q, k] f32, plane docs
     [S, DP, Q, k] int32, hits [S, DP, Q] int32); each (slot, row) is
     ``sparse_topk_batch`` (K15, linear, counted) on that slot's plane.
-    Any 1 <= k <= N (the selection's rounds above KMAX)."""
+    Any 1 <= k <= N (one selection for any k)."""
     cuda = _on_cuda(block_docs, block_weights, block_idx, query_weight, live)
-    s, nb = _check_features_stack(block_docs, block_weights, live,
-                                  n_docs_pad, torch.float32)
+    s, _nb = _check_features_stack(block_docs, block_weights, live,
+                                   n_docs_pad, torch.float32)
     if block_idx.dim() != 4:
         raise ValueError(f"[block_idx] must be [{s}, DP, Q, QB]")
     dp = int(block_idx.shape[1])
@@ -863,22 +859,24 @@ def mesh_sparse_topk(block_docs, block_weights, block_idx, query_weight,
             return mesh_sparse_topk_plain(block_docs, block_weights,
                                           block_idx, query_weight, live,
                                           n_docs_pad, k)
-        dev = block_docs.device
-        rows = s * dp * n_q
-        acc = torch.empty(rows * n_docs_pad, dtype=torch.int64, device=dev)
-        ck = chunk_entries(rows, n_docs_pad, k)
-        chunk_s = torch.empty(ck, dtype=torch.float32, device=dev)
-        chunk_i = torch.empty(ck, dtype=torch.int32, device=dev)
-        out_s = torch.empty(s, dp, n_q, k, dtype=torch.float32, device=dev)
-        out_d = torch.empty(s, dp, n_q, k, dtype=torch.int32, device=dev)
-        hits = torch.empty(s, dp, n_q, dtype=torch.int32, device=dev)
-        launch_kernel(
-            "mesh_sparse_topk", _SIG["mesh_sparse_topk"], _ptr(block_docs),
-            _ptr(block_weights), _ptr(block_idx), _ptr(query_weight),
-            _ptr(live), s, dp, nb, qb, n_docs_pad, n_q, k, _ptr(acc),
-            _ptr(chunk_s), _ptr(chunk_i), _ptr(out_s), _ptr(out_d),
-            _ptr(hits), _stream())
-        return out_s, out_d, hits
+        return _mesh_sparse_topk_cuda(block_docs, block_weights, block_idx,
+                                      query_weight, live, n_docs_pad, k)
+
+
+def _mesh_sparse_topk_cuda(block_docs, block_weights, block_idx,
+                           query_weight, live, n_docs_pad, k, probe=None):
+    s, dp, n_q = (int(x) for x in block_idx.shape[:3])
+    dev = block_docs.device
+    out_s = torch.empty(s, dp, n_q, k, dtype=torch.float32, device=dev)
+    out_d = torch.empty(s, dp, n_q, k, dtype=torch.int32, device=dev)
+    hits = torch.empty(s, dp, n_q, dtype=torch.int32, device=dev)
+    features_launch("mesh_sparse_topk", block_docs, block_weights,
+                    block_idx, query_weight, live, groups=s * dp,
+                    groups_per_slot=dp, n_docs_pad=n_docs_pad, n_q=n_q, k=k,
+                    counted=True, function="linear", pivot=1.0,
+                    exponent=1.0, out_s=out_s, out_d=out_d, hits=hits,
+                    probe=probe)
+    return out_s, out_d, hits
 
 
 def mesh_sparse_coarse(block_docs, block_weights_q, block_idx, query_weight,
@@ -891,8 +889,8 @@ def mesh_sparse_coarse(block_docs, block_weights_q, block_idx, query_weight,
     (K16) on that slot's mirror."""
     cuda = _on_cuda(block_docs, block_weights_q, block_idx, query_weight,
                     live)
-    s, nb = _check_features_stack(block_docs, block_weights_q, live,
-                                  n_docs_pad, torch.bfloat16)
+    s, _nb = _check_features_stack(block_docs, block_weights_q, live,
+                                   n_docs_pad, torch.bfloat16)
     n_q, qb = _check_lists(block_idx, query_weight, (s,))
     if not 1 <= kprime <= min(KMAX, n_docs_pad):
         raise ValueError(
@@ -904,22 +902,34 @@ def mesh_sparse_coarse(block_docs, block_weights_q, block_idx, query_weight,
             return mesh_sparse_coarse_plain(block_docs, block_weights_q,
                                             block_idx, query_weight, live,
                                             n_docs_pad, kprime)
-        dev = block_docs.device
-        rows = s * n_q
-        acc = torch.empty(rows * n_docs_pad, dtype=torch.int64, device=dev)
-        ck = chunk_entries(rows, n_docs_pad, kprime)
-        chunk_s = torch.empty(ck, dtype=torch.float32, device=dev)
-        chunk_i = torch.empty(ck, dtype=torch.int32, device=dev)
-        cs = torch.empty(s, n_q, kprime, dtype=torch.float32, device=dev)
-        cand = torch.empty(s, n_q, kprime, dtype=torch.int32, device=dev)
-        hits = torch.empty(s, n_q, dtype=torch.int32, device=dev)
-        launch_kernel(
-            "mesh_sparse_coarse", _SIG["mesh_sparse_coarse"],
-            _ptr(block_docs), _ptr(block_weights_q), _ptr(block_idx),
-            _ptr(query_weight), _ptr(live), s, nb, qb, n_docs_pad, n_q,
-            kprime, _ptr(acc), _ptr(chunk_s), _ptr(chunk_i), _ptr(cs),
-            _ptr(cand), _ptr(hits), _stream())
-        return cs, cand, hits
+        return _mesh_sparse_coarse_cuda(block_docs, block_weights_q,
+                                        block_idx, query_weight, live,
+                                        n_docs_pad, kprime)
+
+
+def _mesh_sparse_coarse_cuda(block_docs, block_weights_q, block_idx,
+                             query_weight, live, n_docs_pad, kprime,
+                             probe=None):
+    s, n_q = int(block_idx.shape[0]), int(block_idx.shape[1])
+    dev = block_docs.device
+    cs = torch.empty(s, n_q, kprime, dtype=torch.float32, device=dev)
+    cand = torch.empty(s, n_q, kprime, dtype=torch.int32, device=dev)
+    hits = torch.empty(s, n_q, dtype=torch.int32, device=dev)
+    features_launch("mesh_sparse_coarse", block_docs, block_weights_q,
+                    block_idx, query_weight, live, groups=s,
+                    groups_per_slot=1, n_docs_pad=n_docs_pad, n_q=n_q,
+                    k=kprime, counted=True, function="linear", pivot=1.0,
+                    exponent=1.0, out_s=cs, out_d=cand, hits=hits,
+                    probe=probe)
+    return cs, cand, hits
+
+
+def mesh_sparse_probe(family: str, *args, **kwargs) -> dict:
+    """``ops/bm25.py`` ``probe_tiles`` for row 38 or row 34 by family
+    name."""
+    body = {"mesh_sparse_topk": _mesh_sparse_topk_cuda,
+            "mesh_sparse_coarse": _mesh_sparse_coarse_cuda}[family]
+    return probe_tiles(globals()[family], body, *args, **kwargs)
 
 
 def mesh_sparse_rerank(block_docs, block_weights, block_idx, query_weight,

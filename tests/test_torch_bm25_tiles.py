@@ -1,4 +1,4 @@
-"""The BM25 tile pipeline (csrc/bm25_tiles.cuh) mirrored on the CPU.
+"""The BM25 tile pipeline (csrc/tiles.cuh, Bm25Policy) mirrored on the CPU.
 
 ``ops/bm25.py`` ``bm25_tiles_mirror`` runs the kernels' algorithm step by
 step -- binning through the block ranges, tile sums, tile tops, the

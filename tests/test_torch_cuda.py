@@ -20,9 +20,10 @@ from elasticsearch_tpu_torch.ops import bm25 as port
 from elasticsearch_tpu_torch.ops import knn, topk
 from elasticsearch_tpu_torch.ops.device_segment import quantize_rows
 from torch_inputs import (
-    CARD_TILE, FLAT, FLAT_ORDER, N_SEGS, TILE_CASES, make_inputs,
-    make_knn_inputs, make_sparse_inputs, mesh_inputs, mesh_knn_inputs,
-    mesh_sparse_inputs, row0, sharded_inputs, tile_case, tile_slots, tx,
+    CARD_TILE, FLAT, FLAT_ORDER, N_SEGS, SPARSE_TILE_CASES, TILE_CASES,
+    make_inputs, make_knn_inputs, make_sparse_inputs, mesh_inputs,
+    mesh_knn_inputs, mesh_sparse_inputs, row0, sharded_inputs,
+    sparse_tile_case, sparse_tile_slots, tile_case, tile_slots, tx,
 )
 
 K = 10
@@ -387,6 +388,100 @@ def assert_sparse_equal(got, want, exact: bool):
             fin = torch.isfinite(w)
             assert ((g[fin] - w[fin]).abs()
                     <= SPARSE_RTOL * w[fin].abs()).all()
+
+
+def _sparse_tile_families(c):
+    """K15 (the four functions, counted and not) and K16 on one rank_features
+    tile case on the card against their plain versions (bitwise but for
+    log and sigmoid, SPARSE_RTOL with ids exact); K15's probe refused no
+    final-list append."""
+    from elasticsearch_tpu_torch.ops import sparse
+    dev = {key: v.cuda() if torch.is_tensor(v) else v for key, v in c.items()}
+    store = [dev[x] for x in ("bd", "bw", "bi", "bq")]
+    n_pad, k = dev["n_pad"], dev["k"]
+    for function, (pivot, exponent) in SPARSE_FUNCTIONS.items():
+        for counted in (False, True):
+            args = (*store, pivot, exponent, dev["live"], n_pad, k, function)
+            assert_sparse_equal(
+                sparse.sparse_topk_batch(*args, counted=counted),
+                sparse.sparse_flat_plain(*args, counted=counted),
+                function in ("linear", "saturation"))
+    cargs = (dev["bd"], dev["bw"].to(torch.bfloat16), dev["bi"], dev["bq"],
+             dev["live"], n_pad, dev["kp"])
+    assert_sparse_equal(sparse.sparse_coarse_kernel(*cargs),
+                        sparse.sparse_coarse_plain(*cargs), True)
+    probe = sparse.sparse_tiles_probe("sparse_flat", *store, 1.0, 1.0,
+                                      dev["live"], n_pad, k, "linear",
+                                      counted=True)
+    assert probe["refused"] == 0
+    return probe
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(SPARSE_TILE_CASES))
+def test_sparse_tile_cases_on_the_card(name):
+    """The rank_features tile pipeline's edge cases
+    (tests/torch_inputs.py SPARSE_TILE_CASES: rare features' blocks
+    spanning many tiles, rows with no entries, the -inf fill in tiles no
+    entry touched, k above 4,096, k' 4,096 with reruns, dead docs and
+    padding rows, a ragged last tile, ties across a tile boundary, blocks
+    whose docs are out of order) on the card's 8,192-doc tiles: K15 and
+    K16 against their plain versions."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    small = sparse_tile_case(name)
+    probe = _sparse_tile_families(sparse_tile_case(
+        name, CARD_TILE // small["tile"]))
+    assert (probe["extra_posting_reads"] > 0) == (
+        name == "blocks_out_of_order")
+
+
+@pytest.mark.cuda
+def test_sparse_tiles_at_16m_docs_on_the_card():
+    """K15 and K16 over n_docs_pad 16,777,216 (the MS MARCO plane's width),
+    rare features' blocks spanning many tiles, each read one run a tile."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    c = sparse_tile_case("spanning_blocks", 4096)
+    assert c["n_pad"] == 16_777_216
+    probe = _sparse_tile_families(c)
+    assert probe["extra_block_reads"] > 0
+    assert probe["extra_posting_reads"] == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [10, 300, 5000])
+def test_mesh_sparse_tiles_on_the_card(k):
+    """Rows 38 (DP 2) and 34 over S 4 slots (one empty) on the card's tiles:
+    bitwise equal to their plain versions and, slot by slot, to K15 / K16
+    on that slot's store."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    from elasticsearch_tpu_torch.ops import sparse
+    from elasticsearch_tpu_torch.parallel import mesh
+    c = sparse_tile_slots(scale=CARD_TILE // 128)
+    c = {key: v.cuda() if torch.is_tensor(v) else v for key, v in c.items()}
+    n_pad = c["n_pad"]
+    bd, bw, bi, bq, lv = c["bd"], c["bw"], c["bi"], c["bq"], c["live"]
+    got = mesh.mesh_sparse_topk(bd, bw, bi, bq, lv, n_pad, k)
+    assert_sparse_equal(got, mesh.mesh_sparse_topk_plain(bd, bw, bi, bq, lv,
+                                                         n_pad, k), True)
+    kp = min(k, 4096)
+    w16 = bw.to(torch.bfloat16)
+    i1, q1 = bi[:, 0].contiguous(), bq[:, 0].contiguous()
+    cgot = mesh.mesh_sparse_coarse(bd, w16, i1, q1, lv, n_pad, kp)
+    assert_sparse_equal(cgot, mesh.mesh_sparse_coarse_plain(
+        bd, w16, i1, q1, lv, n_pad, kp), True)
+    for si in range(bd.shape[0]):
+        for row in range(bi.shape[1]):
+            one = sparse.sparse_topk_batch(
+                bd[si], bw[si], bi[si, row].contiguous(),
+                bq[si, row].contiguous(), 1.0, 1.0, lv[si], n_pad, k,
+                "linear", counted=True)
+            assert_sparse_equal([x[si, row] for x in got], one, True)
+        k16 = sparse.sparse_coarse_kernel(bd[si], w16[si], i1[si], q1[si],
+                                          lv[si], n_pad, kp)
+        assert_sparse_equal([x[si] for x in cgot], k16, True)
 
 
 @pytest.mark.cuda

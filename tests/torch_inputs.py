@@ -378,7 +378,7 @@ def sharded_inputs(seed: int, n_slots: int, n_docs: int = 600,
 
 
 # ---------------------------------------------------------------------------
-# the BM25 tile pipeline's cases (csrc/bm25_tiles.cuh; ops/bm25.py
+# the BM25 tile pipeline's cases (csrc/tiles.cuh; ops/bm25.py
 # ``bm25_tiles_mirror``): postings whose docs ascend through each term's
 # blocks, at a small tile on the CPU and, scaled, at the card's 8,192
 # ---------------------------------------------------------------------------
@@ -481,7 +481,7 @@ TILE_CASES = {
                           (), True),
 }
 
-CARD_TILE = 8192      # csrc/bm25_tiles.cuh TILE
+CARD_TILE = 8192      # csrc/tiles.cuh TILE
 
 
 def tile_case(name: str, scale: int = 1):
@@ -548,3 +548,156 @@ def tile_slots(seed: int = 21, scale: int = 1, n_slots: int = 4):
         fq=T(np.stack([f[2] for f in flats])),
         fa=T(np.stack([f[3] for f in flats])),
         n_pad=n_pad * scale, tile=128 * scale, n_q=2, n_segs=3)
+
+
+# ---------------------------------------------------------------------------
+# the rank_features tile pipeline's cases (csrc/tiles.cuh FeaturePolicy;
+# ops/sparse.py ``sparse_tiles_mirror``): features whose docs ascend
+# through their blocks, at a small tile on the CPU and, scaled, at the
+# card's 8,192
+# ---------------------------------------------------------------------------
+
+def feature_postings(rng, n_docs: int, n_feats: int, rare: float,
+                     flat: bool = False, shuffled: int = 0):
+    """(block_docs [NB, 128] int32, block_weights [NB, 128] f32, feature ->
+    its block ids): each feature's docs ascend through its blocks, -1 pads
+    the last one and ~5 % of positions (holes); a share ``rare`` of the
+    features hold a few hundred docs spread over the whole range (their
+    blocks span many tiles), the others a dense run of a narrow range.
+    Weights uniform in [0.05, 3), or all 1 with ``flat``. The first
+    ``shuffled`` blocks of the rare features have their docs out of order
+    (the kernels then read such a block whole in every tile)."""
+    blocks, weights, of_feat = [], [], []
+    left = shuffled
+    for _ in range(n_feats):
+        is_rare = rng.random() < rare
+        if is_rare:
+            docs = np.sort(rng.choice(n_docs, int(rng.integers(60, 300)),
+                                      replace=False))
+        else:
+            width = int(rng.integers(100, max(101, n_docs // 4)))
+            start = int(rng.integers(0, n_docs - width))
+            df = int(rng.integers(20, min(width, 600)))
+            docs = np.sort(rng.choice(width, df, replace=False)) + start
+        ids = []
+        for i in range(0, len(docs), 128):
+            part = docs[i: i + 128]
+            row = np.full(128, -1, np.int32)
+            row[: len(part)] = part
+            row[rng.random(128) < 0.05] = -1
+            if is_rare and left > 0 and len(part) > 8:
+                row[: len(part)] = rng.permutation(row[: len(part)])
+                left -= 1
+            w = np.where(row >= 0, 1.0 if flat else
+                         rng.uniform(0.05, 3.0, 128), 0.0).astype(np.float32)
+            ids.append(len(blocks))
+            blocks.append(row)
+            weights.append(w)
+        of_feat.append(ids)
+    return np.stack(blocks), np.stack(weights), of_feat
+
+
+def feature_lists(rng, of_feat, n_q: int, q_pad: int, feats_per_q: int,
+                  skip_rows=(), flat: bool = False):
+    """[q_pad, QB] block lists and query weights as ``pad_query_rows``
+    lays them: each real query's blocks of ``feats_per_q`` features, block
+    0 / weight 0 past them, whole weight-0 rows past n_q and for
+    ``skip_rows``; QB a power of two. Query weights in [0.1, 3), or 2."""
+    per = []
+    for qi in range(n_q):
+        idx, w = [], []
+        if qi not in skip_rows:
+            for feat in rng.choice(len(of_feat), feats_per_q, replace=False):
+                weight = 2.0 if flat else float(rng.uniform(0.1, 3.0))
+                idx += of_feat[feat]
+                w += [weight] * len(of_feat[feat])
+        per.append((idx, w))
+    qb = next_pow2(max(max(len(i) for i, _ in per), 1), minimum=8)
+    bi = np.zeros((q_pad, qb), np.int32)
+    bq = np.zeros((q_pad, qb), np.float32)
+    for qi, (idx, w) in enumerate(per):
+        bi[qi, : len(idx)] = idx
+        bq[qi, : len(w)] = w
+    return bi, bq
+
+
+# name -> (seed, n_docs, n_pad, tile, n_q, q_pad, k, k', features a query,
+# share of rare features, dead share, rows with no entries, tied weights,
+# blocks out of order)
+SPARSE_TILE_CASES = {
+    "spanning_blocks": (31, 3000, 4096, 64, 4, 4, 10, 64, 6, 0.7, 0.05, (),
+                        False, 0),
+    "empty_rows": (32, 2000, 2048, 128, 6, 8, 10, 96, 3, 0.3, 0.05, (2, 4),
+                   False, 0),
+    "fill_in_untouched_tiles": (33, 2000, 2048, 64, 3, 4, 700, 700, 1, 1.0,
+                                0.3, (), False, 0),
+    "k_above_4096": (34, 12000, 16384, 1024, 2, 2, 5000, 4096, 30, 0.2,
+                     0.05, (), False, 0),
+    "kprime_4096_reruns": (35, 9000, 16384, 512, 2, 2, 4096, 4096, 12, 0.1,
+                           0.0, (), False, 0),
+    "mid_k_reruns": (36, 6000, 8192, 256, 4, 4, 200, 300, 4, 0.0, 0.0, (),
+                     False, 0),
+    "dead_docs_and_padding_rows": (37, 2500, 4096, 128, 3, 8, 50, 128, 4,
+                                   0.4, 0.5, (), False, 0),
+    "ragged_last_tile": (38, 1900, 2000, 256, 3, 4, 40, 100, 4, 0.4, 0.05,
+                         (), False, 0),
+    "ties_across_tiles": (39, 3000, 4096, 128, 3, 4, 20, 200, 1, 0.0, 0.1,
+                          (), True, 0),
+    "blocks_out_of_order": (40, 3000, 4096, 64, 3, 4, 10, 64, 5, 0.8, 0.05,
+                            (), False, 1000),
+}
+
+
+def sparse_tile_case(name: str, scale: int = 1):
+    """One case as CPU tensors: block store, [q_pad, QB] lists, live mask;
+    ``scale`` spreads every doc id d to d * scale over n_pad * scale docs
+    (scale CARD_TILE // tile puts the case's tiles on the card's)."""
+    (seed, n_docs, n_pad, tile, n_q, q_pad, k, kp, per_q, rare, dead, skip,
+     flat, shuffled) = SPARSE_TILE_CASES[name]
+    rng = np.random.default_rng(seed)
+    bd, bw, of_feat = feature_postings(rng, n_docs, 60, rare, flat, shuffled)
+    bi, bq = feature_lists(rng, of_feat, n_q, q_pad, per_q, skip, flat)
+    live = np.zeros(n_pad, bool)
+    live[:n_docs] = rng.random(n_docs) >= dead
+    if scale > 1:
+        bd = np.where(bd >= 0, bd * scale, -1).astype(np.int32)
+        big = np.zeros(n_pad * scale, bool)
+        big[::scale] = live
+        live, n_pad = big, n_pad * scale
+    T = torch.as_tensor
+    return dict(bd=T(bd), bw=T(bw), bi=T(bi), bq=T(bq), live=T(live),
+                n_pad=n_pad, tile=tile * scale, n_q=q_pad, n_real=n_q,
+                k=min(k, n_pad), kp=min(kp, n_pad))
+
+
+def sparse_tile_slots(seed: int = 41, scale: int = 1, n_slots: int = 4,
+                      dp: int = 2):
+    """A stack of n_slots feature stores (the last one empty) for the
+    mesh's rows 38 and 34: block stores [S, 512, 128], live [S, 4096 *
+    scale], lists [S, DP, 2, QB] (row 38) whose dp row 0 also serves row
+    34; tile 128 * scale."""
+    n_pad, n_docs = 4096, 3000
+    rng = np.random.default_rng(seed)
+    bd = np.full((n_slots, 512, 128), -1, np.int32)
+    bw = np.zeros((n_slots, 512, 128), np.float32)
+    live = np.zeros((n_slots, n_pad * scale), bool)
+    lists = []
+    for slot in range(n_slots):
+        d, w, of_feat = feature_postings(rng, n_docs, 40, 0.4)
+        if slot < n_slots - 1:
+            bd[slot, : len(d)] = np.where(d >= 0, d * scale, -1)
+            bw[slot, : len(w)] = w
+        lists.append([feature_lists(rng, of_feat, 2, 2, 4)
+                      for _ in range(dp)])
+        lv = rng.random(n_docs) >= 0.1
+        live[slot, : n_docs * scale: scale] = lv
+    qb = max(x[0].shape[1] for row in lists for x in row)
+    bi = np.zeros((n_slots, dp, 2, qb), np.int32)
+    bq = np.zeros((n_slots, dp, 2, qb), np.float32)
+    for s, row in enumerate(lists):
+        for r, (i, w) in enumerate(row):
+            bi[s, r, :, : i.shape[1]] = i
+            bq[s, r, :, : w.shape[1]] = w
+    T = torch.as_tensor
+    return dict(bd=T(bd), bw=T(bw), bi=T(bi), bq=T(bq), live=T(live),
+                n_pad=n_pad * scale, tile=128 * scale, n_q=2)
