@@ -67,7 +67,11 @@ Phases, each of which fails the run on any failed check:
    1/10/4096 over rows of 128 to 4,194,304 docs, all -inf rows and
    equal-score rows, which must come back in index order), and
    bm25_topk / knn_topk through K1 / K5 at one query, against their plain
-   versions and against K8 / K9 followed by K10; all bitwise.
+   versions and against K8 / K9 followed by K10; all bitwise. Then K8
+   and K19's dense row (the tile pipeline's) on its edge cases
+   (tests/torch_inputs.py DENSE_TILE_CASES on the card's tiles, a call at
+   16,777,216 docs): bitwise (log / sigmoid within 2^-21), binned as the
+   CPU mirror bins.
 9. dense-engine: the text and vector engines above (both mappings carry
    a keyword ``tag`` and an integer ``n``) through the dense collector:
    exact totals, bool with filters and must_not, should with
@@ -84,10 +88,12 @@ Phases, each of which fails the run on any failed check:
    ids equal to phase 7's exact-plane leg, recall@10 >= 0.95. Each query
    must launch 4 K8 + 4 K10 in (a), 4 K9 + 4 K10 in (b), and nothing of
    K1-K7. Launch counts are zeroed before phases 9-10 and read right
-   after; then each dense family is held against its plain version and
-   timed (K10 at both shards' row lengths), beside its library yardstick
-   -- K10 and torch.topk each also split into host time a call and
-   device time (torch.profiler).
+   after; then each dense family is held against its plain version (K8
+   on every recorded call) and timed (K10 at both shards' row lengths),
+   beside its library yardstick -- K10 and torch.topk each also split
+   into host time a call and device time (torch.profiler); K8 also at its
+   smallest, median and largest main-path call: stage split, tiles
+   reached, extra block reads, launches and host time a call.
 11. ivf-small (run with the small phases): the masked K5-K7 against
    their plain versions (shared and per-query masks, an all-False row,
    pow2 padding rows) and, row by row, against the unmasked kernels on
@@ -150,8 +156,10 @@ Phases, each of which fails the run on any failed check:
    All legs agree in ids and score bits, totals equal a host count, and
    the top-10 equals a float64 host oracle up to near-ties. Launch counts
    are zeroed before phases 15-16 and read right after: K15-K19 must have
-   launched; then each is held against its plain version and timed at its
-   largest main-path call, and K18 also on cache misses at B 64 and 4,096.
+   launched; then each is held against its plain version (K19 on every
+   recorded call) and timed at its largest main-path call, K19 also at
+   its smallest and median (as K8), and K18 also on cache misses at B 64
+   and 4,096.
    The earlier phases' shards are freed first.
 
 17. wide-small (run with the small phases): K10's wide windows, k 4,096
@@ -191,7 +199,9 @@ Phases, each of which fails the run on any failed check:
    paths; for every member: plane equal to per segment in keys, counts,
    mins and maxs. Launch counts are zeroed before
    phases 20-21 and read after: K20-K23 must have launched; then each is
-   held against its plain version and timed at its largest call.
+   held against its plain version and timed at its largest call, K21 and
+   K23 also beside their sums' chain bound (the largest bucket's rows
+   times one dependent f32 add, timed on the card).
 
 22. node-engine: two port nodes, ``InProcessCluster(n_nodes=1)`` on the
    card and on the CPU (the CPU one in a worker process, loading and
@@ -922,17 +932,20 @@ class Recorder:
     """Keeps the arguments of the main path's kernel calls (recording is
     not a launch) so the families can be held against their plain
     versions on the same inputs afterwards: the first ``keep`` calls of
-    each family, and its largest call by ``size(family, args)`` -- one
-    per ``group(family, args)`` when a grouping is given (e.g. one per
-    row length). ``targets`` maps each family to the (module, function
-    name) of its wrapper; ``accept(family, args, kwargs)`` may skip calls
-    (the unmasked calls of a wrapper recorded as its masked variant)."""
+    each family (every call of the ``keep_all`` families), and its largest
+    call by ``size(family, args)`` -- one per ``group(family, args)`` when
+    a grouping is given (e.g. one per row length). ``targets`` maps each
+    family to the (module, function name) of its wrapper;
+    ``accept(family, args, kwargs)`` may skip calls (the unmasked calls of
+    a wrapper recorded as its masked variant)."""
 
-    def __init__(self, targets, size, keep: int, group=None, accept=None):
+    def __init__(self, targets, size, keep: int, group=None, accept=None,
+                 keep_all=()):
         self.targets = targets
         self.families = tuple(targets)
         self.size = size
         self.keep = keep
+        self.keep_all = set(keep_all)
         self.group = group or (lambda fam, args: None)
         self.accept = accept or (lambda fam, args, kwargs: True)
         self.first = {f: [] for f in self.families}
@@ -950,7 +963,7 @@ class Recorder:
 
     def _record(self, fam: str, args, kwargs) -> None:
         call = (args, dict(kwargs))
-        if len(self.first[fam]) < self.keep:
+        if len(self.first[fam]) < self.keep or fam in self.keep_all:
             self.first[fam].append(call)
         key = (fam, self.group(fam, args))
         big = self.largest.get(key)
@@ -2031,6 +2044,91 @@ def phase_dense_small(torch, np, dev) -> None:
         f"all -inf, equal-score and +0.0/-0.0 rows; bm25_topk via K1 and "
         f"knn_topk via K5) bitwise equal to their plain versions and to "
         f"each other")
+    phase_dense_tiles_small(torch, dev)
+
+
+def dense_tiles_on_card(torch, c, dev, name: str) -> dict:
+    """K8 (with and without a live mask) and K19 (the four functions, with
+    and without) on one dense-row case (``tests/torch_inputs.py``
+    ``dense_tile_case``) against their plain versions on the card: bitwise
+    but for log and sigmoid (within SPARSE_RTOL); each probe (uncounted)
+    refuses no list entry and bins what the CPU mirror bins (tiles
+    reached, list entries, entries binned, extra posting reads). Returns
+    {family: probe} and the largest log / sigmoid |diff|."""
+    from elasticsearch_tpu_torch.ops import bm25 as bm
+    from elasticsearch_tpu_torch.ops import sparse
+    g = {key: v.to(dev) if torch.is_tensor(v) else v for key, v in c.items()}
+    n_pad, avgdl = c["n_pad"], c["avgdl"]
+    err = 0.0
+    for lmask in (None, g["live"]):
+        args = (g["bd"], g["bt"], g["bi"], g["w"], g["dl"], avgdl, n_pad,
+                lmask)
+        got = bm.bm25_block_scores(*args)
+        torch.cuda.synchronize()
+        same_row(torch, f"bm25_scores ({name})", got,
+                 bm.bm25_block_scores_plain(*args), True)
+        for function, (pivot, exponent) in SPARSE_FUNCTIONS.items():
+            exact = function in ("saturation", "linear")
+            sargs = (g["bd"], g["bw"], g["bi"], g["w"], pivot, exponent,
+                     n_pad, function, lmask)
+            got = sparse.sparse_scores(*sargs)
+            want = sparse.sparse_scores_plain(*sargs)
+            torch.cuda.synchronize()
+            same_row(torch, f"sparse_scores {function} ({name})", got, want,
+                     exact)
+            if not exact:
+                err = max(err, float((got - want).abs().max()))
+    probes = {
+        "bm25_scores": (bm.bm25_scores_probe(
+            g["bd"], g["bt"], g["bi"], g["w"], g["dl"], avgdl, n_pad,
+            g["live"]), bm.bm25_dense_mirror(
+            c["bd"], c["bt"], c["bi"], c["w"], c["dl"], avgdl, n_pad,
+            c["live"])[1]),
+        "sparse_scores": (sparse.sparse_scores_probe(
+            g["bd"], g["bw"], g["bi"], g["w"], 1.0, 1.0, n_pad, "linear",
+            g["live"]), sparse.sparse_dense_mirror(
+            c["bd"], c["bw"], c["bi"], c["w"], 1.0, 1.0, n_pad, "linear",
+            c["live"])[1])}
+    for fam, (probe, want) in probes.items():
+        check(probe["refused"] == 0, f"{fam} ({name}): {probe['refused']} "
+              f"list entries refused")
+        for key in ("tiles_reached", "list_entries", "entries_binned",
+                    "extra_posting_reads"):
+            check(probe[key] == want[key], f"{fam} ({name}): {key} "
+                  f"{probe[key]}, the CPU mirror's {want[key]}")
+    return {fam: p for fam, (p, _w) in probes.items()}, err
+
+
+def phase_dense_tiles_small(torch, dev) -> None:
+    """The tile pipeline's dense row on its edge cases on the card: each of
+    ``tests/torch_inputs.py``'s DENSE_TILE_CASES spread onto the card's
+    8,192-doc tiles (blocks spanning many tiles and most of the row, an
+    all-padding query, a repeated term, blocks out of order, crowded tiles
+    that stage the doc lengths, a ragged last tile, a row below one tile,
+    dead docs and padding between entries) and a call at 16,777,216 docs:
+    K8 and K19 against their plain versions (``dense_tiles_on_card``)."""
+    inputs = torch_inputs()
+    cases, tile_case = inputs.DENSE_TILE_CASES, inputs.dense_tile_case
+    err = 0.0
+    extra = 0
+    for name in sorted(cases):
+        small = tile_case(name)
+        probes, e = dense_tiles_on_card(torch, tile_case(
+            name, inputs.CARD_TILE // small["tile"]), dev, name)
+        err = max(err, e)
+        extra += probes["sparse_scores"]["extra_posting_reads"]
+    check(extra > 0, "dense tiles: no block was read whole for its order")
+    probes, e = dense_tiles_on_card(torch, tile_case("spanning_blocks",
+                                                     4096), dev,
+                                    "16,777,216 docs")
+    p8 = probes["bm25_scores"]
+    log(f"dense-tiles-small: {len(cases)} edge cases on the card's tiles and"
+        f" a 16,777,216-doc call ({p8['tiles_reached']} of {p8['n_tiles']} "
+        f"tiles reached, {p8['extra_block_reads']} extra block reads, "
+        f"{p8['operations']} operations): K8 (live and not) and K19 (four "
+        f"functions, live and not) equal to their plain versions (log / "
+        f"sigmoid max |diff| {max(err, e)}), binned as the CPU mirror bins;"
+        f" {extra} postings read beyond one pass (the out-of-order blocks)")
 
 
 def same_hits(a, b) -> bool:
@@ -2334,9 +2432,10 @@ def dense_bound(family: str, args):
     n = dense_n(family, args)
     if family == "bm25_scores":
         qb = args[2].numel()
-        postings = qb * 128
-        # gathered doc ids, tfs and doc lengths; idx + weight; live; out
-        nbytes = postings * 12 + qb * 8 + n + n * 4
+        # the blocks of non-zero weight (padding adds nothing): their doc
+        # ids, tfs and the doc lengths they gather; idx + weight; live; out
+        postings = int((args[3] != 0).sum()) * 128
+        nbytes = postings * 8 + min(postings, n) * 4 + qb * 8 + n + n * 4
         t_ops = postings * 8 / F32_FLOPS
     elif family == "knn_scores":
         d = args[0].shape[1]
@@ -2352,10 +2451,31 @@ def dense_bound(family: str, args):
 
 
 def dense_library_ms(torch, family: str, args):
-    """One PyTorch call computing the same function, where there is one:
+    """One PyTorch call computing the same function, or part of it:
     torch.topk on the same row for K10 (the same top-k, ties in no
     promised order); the bf16 [N, D] x [D] product alone (torch.mv) for
-    K9. None for K8."""
+    K9; for K8 index_add_ of the call's f32 contributions (gathered and
+    computed outside the timing; no fixed point, no live mask) into a
+    zeroed [n_docs_pad] row. Timed only: the port never calls them."""
+    if family == "bm25_scores":
+        block_docs, block_tfs, idx, w, doc_lens, avgdl, n_pad = args[:7]
+        rows = idx.long()
+        docs = block_docs[rows]
+        ok = (docs >= 0) & (w != 0)[:, None]
+        tfs = block_tfs[rows]
+        dl = doc_lens[docs.clamp_min(0).long()]
+        c = w[:, None] * tfs * 2.2 / (tfs + 1.2 * (0.25 + 0.75 * dl / avgdl))
+        tgt, c = docs.long()[ok], c[ok]
+        del docs, ok, tfs, dl
+        acc = torch.zeros(n_pad, device=block_docs.device)
+
+        def run():
+            acc.zero_()
+            acc.index_add_(0, tgt, c)
+            return acc
+        ms = time_call(torch, run, 20)
+        del acc, tgt, c
+        return ms
     if family == "dense_topk":
         row, k = args[0], args[1]
         return time_call(torch, lambda: torch.topk(row, k), 20)
@@ -2385,10 +2505,70 @@ def topk_split(torch, kernel, args, shape: str) -> dict:
     return out
 
 
+def dense_row_calls(torch, fam: str, calls, kernel, probe_fn,
+                    bound_fn) -> dict:
+    """K8 or K19 (the tile pipeline's dense row) at the smallest, median
+    and largest recorded main-path call by QB (then by the entries of
+    non-zero weight): event ms (median of 20) beside the bound, the
+    probe's stage split (medians of 5: binning = the memset and the
+    cooperative binning launch; tiles), the row's tiles and those reached, list
+    entries, extra block reads (a block listed once more for each further
+    tile holding its docs) and extra posting reads, the operations of a
+    call, host microseconds a call (200 calls enqueued with no
+    synchronisation) and profiler device ms a call; each probe's row
+    bitwise the wrapper's, no list entry refused."""
+    from elasticsearch_tpu_torch.ops.bm25 import DENSE_STAGES
+    order = sorted(calls, key=lambda c: (c[0][2].numel(),
+                                         int((c[0][3] != 0).sum())))
+    out = {}
+    for label, (args, kwargs) in (("smallest", order[0]),
+                                  ("median", order[len(order) // 2]),
+                                  ("largest", order[-1])):
+        def fn():
+            return kernel(*args, **kwargs)
+        ms = time_call(torch, fn, 20)
+        probes = [probe_fn(*args, **kwargs) for _ in range(6)]
+        want = fn()
+        torch.cuda.synchronize()
+        p0 = probes[0]
+        check(torch.equal(p0["out"].view(torch.int32),
+                          want.view(torch.int32)),
+              f"{fam} (probe): the row differs from the wrapper's")
+        check(p0["refused"] == 0, f"{fam}: {p0['refused']} list entries "
+              f"refused")
+        split = {key: sorted(p["split_ms"][key] for p in probes[1:])[2]
+                 for key in DENSE_STAGES}
+        h_us = host_us(torch, fn)
+        dev_ms, _by = device_split(torch, fn, 5)
+        row = {"qb": args[2].numel(), "entries": int((args[3] != 0).sum()),
+               "ms": ms, "bound_ms": bound_fn(args)[0], "split_ms": split,
+               "host_us": h_us, "device_ms": dev_ms}
+        row.update({key: p0[key] for key in (
+            "n_tiles", "tiles_reached", "list_entries", "entries_binned",
+            "spans", "extra_block_reads", "extra_posting_reads", "operations",
+            "scratch_bytes")})
+        log(f"kernel {fam} at the {label} main-path call (QB {row['qb']}, "
+            f"{row['entries']} entries of non-zero weight): {ms:.4f} ms "
+            f"(median of 20; bound {row['bound_ms']:.4f}); stages binning "
+            f"{split['binning']:.4f}, tiles {split['tiles']:.4f} ms; "
+            f"{p0['tiles_reached']} of "
+            f"{p0['n_tiles']} tiles reached, {p0['list_entries']} list "
+            f"entries, {p0['spans']} blocks spanning tiles, "
+            f"{p0['extra_block_reads']} extra block reads, "
+            f"{p0['extra_posting_reads']} extra posting reads, "
+            f"{p0['operations']} operations a call; host {h_us:.2f} us a "
+            f"call, "
+            f"profiler device {dev_ms:.4f} ms a call")
+        out[label] = row
+    return out
+
+
 def phase_dense_kernels(torch, rec, launches) -> list:
     """Each dense family against its plain version on up to 8 main-path
-    calls plus its largest per row length; timed (CUDA events) at its
-    largest main-path call -- K10 also at the SIFT shard's row length."""
+    calls plus its largest per row length (K8 on every recorded call);
+    timed (CUDA events) at its largest main-path call -- K10 also at the
+    SIFT shard's row length, K8 also at its smallest and median call
+    (``dense_row_calls``)."""
     from elasticsearch_tpu_torch.ops import bm25 as bm
     from elasticsearch_tpu_torch.ops import knn, topk
     mods = {"bm25_scores": (bm, "bm25_block_scores"),
@@ -2402,12 +2582,17 @@ def phase_dense_kernels(torch, rec, launches) -> list:
         calls = rec.calls[fam]
         check(bool(calls), f"kernels: no {fam} call recorded")
         err = 0.0
-        for args, kwargs in calls[:8] + rec.largest_calls(fam):
+        checked = calls if fam == "bm25_scores" else \
+            calls[:8] + rec.largest_calls(fam)
+        for args, kwargs in checked:
             got = kernel(*args, **kwargs)
             want = plain(*args, **kwargs)
             torch.cuda.synchronize()
             if fam == "dense_topk":
                 same_bits(torch, fam, got, want)
+            elif fam == "bm25_scores":
+                same_row(torch, fam, got, want, True)
+                got, want = [got], [want]
             else:
                 got, want = [got], [want]
             err = max(err, compare(torch, fam, got, want))
@@ -2431,10 +2616,14 @@ def phase_dense_kernels(torch, rec, launches) -> list:
                 f"{plain_ms:.4f} ms (median of 20), bound {bound_ms:.4f} ms "
                 f"({nbytes} bytes at 3.35 TB/s, {bound_by}), library "
                 f"{'none' if lib_ms is None else f'{lib_ms:.4f} ms'}, "
-                f"max_abs_err {err} over {len(calls)} main-path calls, "
+                f"max_abs_err {err} over {len(checked)} main-path calls, "
                 f"timed at {shape}")
             split = ({"host_device": topk_split(torch, kernel, args, shape)}
                      if fam == "dense_topk" else {})
+            if fam == "bm25_scores":
+                split["calls"] = dense_row_calls(
+                    torch, fam, calls, kernel, bm.bm25_scores_probe,
+                    lambda a: dense_bound(fam, a))
             rows.append({
                 "name": fam, "route": "cuda",
                 "source": f"elasticsearch_tpu_torch/csrc/{fam}.cu",
@@ -4469,8 +4658,9 @@ def phase_sparse_kernels(torch, np, rec, launches, dev) -> list:
         def fits(call):
             return any(call is c for c in fit)
         err = 0.0
-        for args, kwargs in fit[:8] + [c for c in rec.largest_calls(fam)
-                                       if fits(c)]:
+        checked = fit if fam == "sparse_scores" else \
+            fit[:8] + [c for c in rec.largest_calls(fam) if fits(c)]
+        for args, kwargs in checked:
             got = kernel(*args, **kwargs)
             want = plain(*args, **kwargs)
             torch.cuda.synchronize()
@@ -4486,9 +4676,11 @@ def phase_sparse_kernels(torch, np, rec, launches, dev) -> list:
             else:
                 fn = args[9] if fam == "sparse_flat" else (
                     args[7] if fam == "sparse_scores" else "linear")
-                err = max(err, compare(
-                    torch, fam, got, want, fn in ("linear", "saturation"),
-                    SPARSE_RTOL))
+                exact = fn in ("linear", "saturation")
+                if fam == "sparse_scores":
+                    same_row(torch, fam, got[0], want[0], exact)
+                err = max(err, compare(torch, fam, got, want, exact,
+                                       SPARSE_RTOL))
             del got, want
         largest = max(calls, key=lambda c: sparse_size(fam, c[0]))
         args, kwargs = largest
@@ -4510,8 +4702,8 @@ def phase_sparse_kernels(torch, np, rec, launches, dev) -> list:
             f" ms{plain_note}, bound {bound_ms:.4f} ms ({nbytes} bytes at "
             f"3.35 TB/s, {bound_by}), library "
             f"{'none' if lib_ms is None else f'{lib_ms:.4f} ms'}, "
-            f"max_abs_err {err} over {len(fit[:8])} main-path calls and the"
-            f" largest, timed at {shape}")
+            f"max_abs_err {err} over {len(checked)} main-path calls, timed "
+            f"at {shape}")
         row = {
             "name": fam, "route": "cuda",
             "source": f"elasticsearch_tpu_torch/csrc/{fam}.cu",
@@ -4524,6 +4716,10 @@ def phase_sparse_kernels(torch, np, rec, launches, dev) -> list:
             row.update(tiles_extra(torch, fam, args, kwargs, want, shape,
                                    sparse.sparse_tiles_probe))
             del want
+        if fam == "sparse_scores":
+            row["calls"] = dense_row_calls(
+                torch, fam, fit, kernel, sparse.sparse_scores_probe,
+                lambda a: sparse_bound(torch, fam, a))
         for g_args, _g_kw in rec.largest_calls(fam):
             if g_args is not args and fam == "sparse_flat" and \
                     sparse_size(fam, g_args)[0] > 1:
@@ -4592,6 +4788,16 @@ def same_bits(torch, name: str, got, want) -> None:
     compare(torch, name, got, want)
     check(torch.equal(got[0].view(torch.int32), want[0].view(torch.int32)),
           f"{name}: score bits differ (signed zeros)")
+
+
+def same_row(torch, name: str, got, want, exact: bool) -> None:
+    """A dense row (K8, K19) against its plain version: bit for bit, the
+    sign of a zero included, when ``exact``; else within SPARSE_RTOL
+    (logf / powf against torch's log / pow), zero where it is zero."""
+    compare(torch, name, [got], [want], exact, SPARSE_RTOL)
+    if exact:
+        check(torch.equal(got.view(torch.int32), want.view(torch.int32)),
+              f"{name}: row bits differ")
 
 
 def phase_wide_small(torch, np, dev) -> None:
@@ -5330,12 +5536,40 @@ def aggs_library_ms(torch, family: str, args):
     return time_call(torch, lib, 20)
 
 
+def add_chain_ns(torch) -> float:
+    """Nanoseconds of one dependent f32 add on this card: one thread's
+    chain of n rounded adds (csrc/aggs_histogram.cu
+    ``aggs_histogram_add_chain``), timed with CUDA events at n 2^20 and
+    2^22, medians of 5; the difference over the difference in n, so the
+    launch's own cost cancels."""
+    import ctypes
+    from elasticsearch_tpu_torch._build import library
+    fn = library("aggs_histogram").aggs_histogram_add_chain
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_longlong, ctypes.c_float, ctypes.c_void_p,
+                   ctypes.c_void_p]
+    out = torch.empty(1, device="cuda")
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def run(n):
+        check(fn(n, 1e-3, out.data_ptr(), stream) == 0,
+              "the add chain failed to launch")
+    lo, hi = 1 << 20, 1 << 22
+    ms = {n: time_call(torch, lambda: run(n), 5) for n in (lo, hi)}
+    return (ms[hi] - ms[lo]) * 1e6 / (hi - lo)
+
+
 def phase_aggs_kernels(torch, rec, launches) -> list:
     """K20-K23 held against their plain versions on the main path's calls
     (up to 4 each plus the largest), then timed at the largest beside the
-    bound, the plain version and the library yardstick."""
+    bound, the plain version and the library yardstick; K21 and K23 also
+    beside their sums' chain bound (the timed call's largest bucket's rows
+    times one dependent f32 add, ``add_chain_ns``)."""
     from elasticsearch_tpu_torch.ops import aggs
     rows = []
+    add_ns = add_chain_ns(torch)
+    log(f"one dependent f32 add on this card: {add_ns:.4f} ns (a chain of "
+        f"2^22 against 2^20, medians of 5)")
     for fam in AGGS_FAMILIES:
         calls = rec.calls[fam]
         check(bool(calls), f"kernels: no {fam} call recorded")
@@ -5364,13 +5598,21 @@ def phase_aggs_kernels(torch, rec, launches) -> list:
             f" ms (median of {plain_runs}), library {lib_ms:.4f} ms, bound "
             f"{bound_ms:.4f} ms ({nbytes} bytes at 3.35 TB/s), max_abs_err "
             f"{err}, timed at {shape}")
-        rows.append({
+        row = {
             "name": fam, "route": "cuda",
             "source": f"elasticsearch_tpu_torch/csrc/{fam}.cu",
             "replaces": REPLACES[fam], "launches": launches.get(fam, 0),
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": "bytes", "library_ms": lib_ms,
-            "shape": shape})
+            "shape": shape}
+        if fam in ("aggs_histogram", "aggs_histogram_plane"):
+            chain = int(kernel(*args, **kwargs)[0].max())
+            row["largest_bucket_rows"] = chain
+            row["chain_bound_ms"] = chain * add_ns * 1e-6
+            log(f"kernel {fam}: chain bound {row['chain_bound_ms']:.4f} ms "
+                f"(the largest bucket's {chain} rows x {add_ns:.4f} ns a "
+                f"dependent f32 add) beside the byte bound {bound_ms:.4f} ms")
+        rows.append(row)
         torch.cuda.empty_cache()
     return rows
 
@@ -9119,7 +9361,8 @@ def main(argv=None) -> int:
         dense = {"bm25_scores": (bm, "bm25_block_scores"),
                  "knn_scores": (knn, "vector_scores"),
                  "dense_topk": (topk, "dense_topk")}
-        with Recorder(dense, dense_size, keep=8, group=dense_n) as drec:
+        with Recorder(dense, dense_size, keep=8, group=dense_n,
+                      keep_all=("bm25_scores",)) as drec:
             if "dense-engine" in phases:
                 phase_dense_engine(torch, np, dev, engines["text"],
                                    engines["vector"])
@@ -9211,7 +9454,8 @@ def main(argv=None) -> int:
                    "text_expansion_forward": (te, "text_expansion_forward")}
         # one largest call per plane length (the plane, a segment)
         with Recorder(targets, sparse_size, keep=8,
-                      group=sparse_n_docs_pad) as srec:
+                      group=sparse_n_docs_pad,
+                      keep_all=("sparse_scores",)) as srec:
             if "sparse-engine" in phases:
                 phase_sparse_engine(torch, np, dev, engines["sparse"])
                 log(t(), "sparse-engine done")

@@ -20,3 +20,20 @@ extern "C" int aggs_histogram_launch(
                            n_buckets, rows_per_chunk, cc, offsets, sorted,
                            counts, sums, mins, maxs, (cudaStream_t)stream);
 }
+
+// One thread's chain of n dependent f32 adds, each rounded (__fadd_rn), so
+// that chip_smoke.py can time one dependent add on this card: the sums'
+// latency bound is the largest bucket's row count times one such add
+// (aggs_histogram.cuh). A measurement aid; it replaces no TPU kernel and
+// no wrapper calls it.
+__global__ void add_chain_kernel(long long n, float step, float* out) {
+    float x = 0.f;
+    for (long long i = 0; i < n; ++i) x = __fadd_rn(x, step);
+    *out = x;
+}
+
+extern "C" int aggs_histogram_add_chain(long long n, float step, float* out,
+                                        void* stream) {
+    add_chain_kernel<<<1, 1, 0, (cudaStream_t)stream>>>(n, step, out);
+    return (int)cudaGetLastError();
+}

@@ -123,7 +123,7 @@ __device__ __forceinline__ float from_fixed(long long v) {
 
 // grid (fb, sl.groups): acc[(g * n_q + q) * n_docs_pad + doc] +=
 // fixed(f32 contribution) for the postings of group g's fb gathered
-// blocks (K8 and the sharded programs; K1-K3 sum in tiles.cuh's
+// blocks (the sharded programs; K1-K3 and K8 sum in tiles.cuh's
 // shared-memory tiles). SCALAR: one avgdl for every entry (flat_avgdl[0])
 // and q = 0 for every entry (flat_q unread), the sharded programs'
 // operands (sharded_common.cuh).
@@ -157,29 +157,6 @@ __global__ void scatter_kernel(const int* __restrict__ block_docs,
 // How a top-k launch counts its matches (tiles.cuh): not at all, per row,
 // or per row and segment.
 enum CountMode { COUNT_NONE = 0, COUNT_TOTAL = 1, COUNT_SEGS = 2 };
-
-// --------------------------------------------------------------------------
-// one query's dense row: fixed point -> f32
-// --------------------------------------------------------------------------
-
-constexpr int CONVERT_THREADS = 256;
-
-// out[doc] = live[doc] ? f32(acc[doc]) : 0 (live may be null: all live).
-__global__ void convert_kernel(const long long* __restrict__ acc,
-                               const uint8_t* __restrict__ live,
-                               long long n, float* __restrict__ out) {
-    const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-    if (i >= n) return;
-    out[i] = (live == nullptr || live[i]) ? from_fixed(acc[i]) : 0.f;
-}
-
-inline int convert_row(const long long* acc, const uint8_t* live,
-                       long long n, float* out, cudaStream_t stream) {
-    const long long blocks = (n + CONVERT_THREADS - 1) / CONVERT_THREADS;
-    convert_kernel<<<(unsigned)blocks, CONVERT_THREADS, 0, stream>>>(
-        acc, live, n, out);
-    return (int)cudaGetLastError();
-}
 
 // --------------------------------------------------------------------------
 // the exact tier: sorted candidates, re-scored slots, mask + top-k + eps

@@ -11,43 +11,47 @@
 // What bounds it on the H100: memory. It must read the gathered blocks
 // (QB * 128 * 8 bytes of doc ids and tfs, plus a doc length a posting)
 // and write the f32 row (16.8 MB at 4,194,304 docs: 0.005 ms at
-// 3.35 TB/s); the arithmetic is a few flops a posting. Here the row's
-// int64 accumulator is also zeroed, scattered into and read back (3x the
-// row's bytes), and stopword terms' postings land as scattered atomics.
+// 3.35 TB/s); the arithmetic is a few flops a posting.
 //
-// Design: bm25_common.cuh's scatter_kernel (one CTA per gathered block,
-// one thread per posting, K1's contribution one rounded f32 op at a
-// time, summed as 64-bit fixed point with integer atomics), at one
-// query, so a doc's score has K1's bits for the same blocks in any order
-// (K1 sums the same fixed-point values in shared-memory tiles,
-// tiles.cuh); then one convert pass to f32, masked by live
-// (bm25_common.cuh convert_row, shared with sparse_scores). The plain
-// PyTorch version is elasticsearch_tpu_torch/ops/bm25.py
-// `bm25_block_scores_plain`.
-#include "bm25_common.cuh"
+// Design: tiles.cuh's dense row (section 5) under its Bm25Policy: each
+// gathered block of non-zero weight is listed under the 8,192-doc tiles
+// holding its docs, each tile sums its blocks' contributions (K1's, one
+// rounded f32 op at a time, the doc lengths staged once for a crowded
+// tile) in shared memory as 64-bit fixed point, so a doc's score has K1's
+// bits for the same blocks in any order, and writes its slice of the row
+// once, masked by live. No int64 row is zeroed or read back and no global
+// 64-bit atomic is issued; the lists are sized before the launch, so a
+// call never waits on the host. The plain PyTorch version is
+// elasticsearch_tpu_torch/ops/bm25.py `bm25_block_scores_plain`, and
+// `bm25_dense_mirror` runs this algorithm on the CPU.
+#include "tiles.cuh"
 
-// block_q: [qb] int32 zeros and block_avgdl: [qb] f32 avgdl (the flat
-// rows of one query); acc: [n_docs_pad] int64 scratch; out:
-// [n_docs_pad] f32.
+// Scratch bytes of a call (tiles.cuh ``dense_bytes``).
+extern "C" long long bm25_scores_bytes(long long qb, long long n_docs_pad) {
+    return tiles::dense_bytes(qb, n_docs_pad, false);
+}
+
+// ranges: the store's [nb, 2] block doc ranges; live may be null (every
+// doc live); ws: bm25_scores_bytes of scratch; out: [n_docs_pad] f32.
 extern "C" int bm25_scores_launch(
-    const int* block_docs, const float* block_tfs, const int* block_idx,
-    const float* block_w, const int* block_q, const float* doc_lens,
-    const float* block_avgdl, const uint8_t* live, int qb,
-    long long n_docs_pad, float k1, float omb, float b, float k1p1,
-    long long* acc, float* out, void* stream_ptr) {
-    if (qb < 0 || n_docs_pad < 1) return (int)cudaErrorInvalidValue;
-    cudaStream_t stream = (cudaStream_t)stream_ptr;
-    cudaError_t err = cudaMemsetAsync(
-        acc, 0, sizeof(long long) * (size_t)n_docs_pad, stream);
-    if (err != cudaSuccess) return (int)err;
-    if (qb > 0) {
-        bm25::Consts c{k1, omb, b, k1p1};
-        bm25::scatter_kernel<<<qb, bm25::BLOCK, 0, stream>>>(
-            block_docs, block_tfs, block_idx, block_w, block_q, doc_lens,
-            block_avgdl, n_docs_pad, qb, 1, bm25::ONE_SLOT, c,
-            (unsigned long long*)acc);
-        err = cudaGetLastError();
-        if (err != cudaSuccess) return (int)err;
-    }
-    return bm25::convert_row(acc, live, n_docs_pad, out, stream);
+    const int* block_docs, const float* block_tfs, const int* ranges,
+    const float* doc_lens, const int* block_idx, const float* block_w,
+    const uint8_t* live, long long nb, int qb, long long n_docs_pad,
+    float avgdl, float k1, float omb, float b, float k1p1, void* ws,
+    long long* host, float* out, float* split_ms, void* stream) {
+    tiles::Tiles a{};
+    a.block_docs = block_docs;
+    a.block_tfs = block_tfs;
+    a.ranges = ranges;
+    a.doc_lens = doc_lens;
+    a.flat_idx = block_idx;
+    a.flat_w = block_w;
+    a.avg = avgdl;
+    a.live = live;
+    a.nb = nb;
+    a.qb = qb;
+    a.n_docs_pad = n_docs_pad;
+    a.c = bm25::Consts{k1, omb, b, k1p1};
+    return tiles::dense_run<tiles::Bm25Policy<false>>(
+        a, ws, out, host, split_ms, (cudaStream_t)stream);
 }

@@ -1,6 +1,6 @@
 // The rank_features contribution's function f(w), shared by the plane
-// pipelines of sparse_common.cuh (K17, K19, row 43) and the tile pipeline
-// of tiles.cuh (K15, K16, rows 34 and 38): saturation w / (w + pivot), log
+// pipelines of sparse_common.cuh (K17, row 43) and the tile pipeline of
+// tiles.cuh (K15, K16, K19, rows 34 and 38): saturation w / (w + pivot), log
 // log(pivot + w), sigmoid w^a / (w^a + pivot^a) on max(w, 0), linear w.
 // Every op is one explicitly rounded intrinsic, so nvcc cannot contract a
 // multiply-add: the kernels compute the plain version's bits (log and

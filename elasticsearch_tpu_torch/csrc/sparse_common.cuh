@@ -1,8 +1,8 @@
 // Shared device code of the rank_features families that sum into a plane
-// or into candidate slots: sparse_scores (K19), sparse_rerank (K17),
-// mesh_sparse_rerank (row 35) and sharded_sparse (row 43). The top-k
-// families (sparse_flat K15, sparse_coarse K16, mesh_sparse_topk row 38,
-// mesh_sparse_coarse row 34) sum in shared-memory tiles instead
+// or into candidate slots: sparse_rerank (K17), mesh_sparse_rerank (row
+// 35) and sharded_sparse (row 43). The top-k families (sparse_flat K15,
+// sparse_coarse K16, mesh_sparse_topk row 38, mesh_sparse_coarse row 34)
+// and the dense row (sparse_scores K19) sum in shared-memory tiles instead
 // (tiles.cuh).
 //
 // The JAX package scores a rank_features query exactly as it scores BM25:

@@ -10,29 +10,46 @@
 // top-k.
 //
 // What bounds it on the H100: memory. It must read the gathered blocks
-// (8 bytes a posting) and write the f32 row; the [n_docs_pad] int64
-// accumulator is zeroed, scattered into and read back besides (3x the
-// row's bytes).
+// (8 bytes a posting) and write the f32 row.
 //
-// Design: sparse_flat's scatter at one query (sparse_common.cuh), so a
-// doc's score has sparse_flat's bits for the same blocks, then
-// bm25_common.cuh's convert pass to f32 masked by live -- the
-// bm25_scores pattern. The plain PyTorch version is
-// elasticsearch_tpu_torch/ops/sparse.py `sparse_scores_plain`.
-#include "sparse_common.cuh"
+// Design: tiles.cuh's dense row (section 5) under its FeaturePolicy, K15's
+// sums at one query: each gathered block of non-zero query weight is
+// listed under the 8,192-doc tiles holding its docs with the run of its
+// positions there (a rare feature's block spans many tiles and adds a
+// posting or a few to each; a block whose docs are out of order is read
+// whole in each), each tile sums qw * f(w) (feature_fn.cuh) in shared
+// memory as 64-bit fixed point, so a doc's score has K15's bits for the
+// same blocks, and writes its slice of the row once, masked by live. No
+// int64 row and no global 64-bit atomic; a call never waits on the host.
+// The plain PyTorch version is elasticsearch_tpu_torch/ops/sparse.py
+// `sparse_scores_plain`, and `sparse_dense_mirror` runs this algorithm on
+// the CPU.
+#include "tiles.cuh"
 
-// acc: [n_docs_pad] int64 scratch; out: [n_docs_pad] f32; live may be
-// null (every doc live).
+// Scratch bytes of a call (tiles.cuh ``dense_bytes``).
+extern "C" long long sparse_scores_bytes(long long qb, long long n_docs_pad) {
+    return tiles::dense_bytes(qb, n_docs_pad, true);
+}
+
+// ranges: the store's [nb, 2] block doc ranges; live may be null (every
+// doc live); ws: sparse_scores_bytes of scratch; out: [n_docs_pad] f32.
 extern "C" int sparse_scores_launch(
-    const int* block_docs, const float* block_weights, const int* block_idx,
-    const float* query_weight, const uint8_t* live, int qb,
-    long long n_docs_pad, int fn, float pivot, float exponent,
-    float pivot_pow, long long* acc, float* out, void* stream_ptr) {
-    cudaStream_t stream = (cudaStream_t)stream_ptr;
-    sparse::Params p{fn, pivot, exponent, pivot_pow};
-    int err = sparse::scatter_plane(block_docs, block_weights, block_idx,
-                                    query_weight, qb, n_docs_pad, 1, p, acc,
-                                    stream);
-    if (err != 0) return err;
-    return bm25::convert_row(acc, live, n_docs_pad, out, stream);
+    const int* block_docs, const float* block_weights, const int* ranges,
+    const int* block_idx, const float* query_weight, const uint8_t* live,
+    long long nb, int qb, long long n_docs_pad, int fn, float pivot,
+    float exponent, float pivot_pow, void* ws, long long* host, float* out,
+    float* split_ms, void* stream) {
+    tiles::Tiles a{};
+    a.block_docs = block_docs;
+    a.block_tfs = block_weights;
+    a.ranges = ranges;
+    a.flat_idx = block_idx;
+    a.flat_w = query_weight;
+    a.live = live;
+    a.nb = nb;
+    a.qb = qb;
+    a.n_docs_pad = n_docs_pad;
+    a.fp = sparse::Params{fn, pivot, exponent, pivot_pow};
+    return tiles::dense_run<tiles::FeaturePolicy<false>>(
+        a, ws, out, host, split_ms, (cudaStream_t)stream);
 }

@@ -72,15 +72,22 @@
 //    match; those lie below k, so a CTA a row marks the matched docs below
 //    k in a bitmap and writes the first k - m unmatched ones in order.
 //
+// 5. The dense row (bm25_scores K8, sparse_scores K19): one query's
+//    [n_docs_pad] f32 row, no top-k. The same sums at one row, and an
+//    ending that writes every tile once, masked by ``live``; section 5
+//    below says how its lists are sized with no synchronisation.
+//
 // What bounds it: the gathered blocks (doc ids and tfs or weights) and,
 // for BM25, the doc lengths they gather; the plane's memset and read-back
 // (8 bytes a cell) are gone. With many rows over a wide plane, the fixed
 // cost of each (row, tile) pair (64 KB of shared sums zeroed, TILE keys
 // masked) adds to it. The plain PyTorch versions are ops/bm25.py
-// bm25_flat_plain, bm25_flat_seg_plain and bm25_coarse_plain, ops/sparse.py
-// sparse_flat_plain and sparse_coarse_plain; ops/bm25.py
-// ``bm25_tiles_mirror`` and ops/sparse.py ``sparse_tiles_mirror`` mirror
-// this algorithm on the CPU.
+// bm25_flat_plain, bm25_flat_seg_plain, bm25_coarse_plain and
+// bm25_block_scores_plain, ops/sparse.py sparse_flat_plain,
+// sparse_coarse_plain and sparse_scores_plain; ops/bm25.py
+// ``bm25_tiles_mirror`` / ``bm25_dense_mirror`` and ops/sparse.py
+// ``sparse_tiles_mirror`` / ``sparse_dense_mirror`` mirror this algorithm
+// on the CPU.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -228,7 +235,8 @@ struct Tiles {
     const int* flat_idx;
     const float* flat_w;
     const int* flat_q;          // null: an entry's row is its place over qb
-    const float* flat_avgdl;
+    const float* flat_avgdl;    // null: every entry's avgdl is ``avg``
+    float avg;
     const uint8_t* live;
     const int* seg_ids;
     Slots sl;
@@ -266,6 +274,9 @@ struct Tiles {
     int* tops_d;
     float* final_s;
     int* final_d;
+    // the dense row (section 5)
+    float* row;                 // [n_docs_pad] out
+    long long cap;              // list entries scratch holds
 };
 
 // --------------------------------------------------------------------------
@@ -397,12 +408,13 @@ __device__ __forceinline__ unsigned tile_group(bool single, long long key) {
     return __match_any_sync(0xffffffffu, single ? key : -1LL);
 }
 
-// grid over every entry: count the entries of each (row, tile), one
-// atomic a group of lanes for the entries within one tile; under
-// FeaturePolicy list the entries that span tiles (``spans``, totals[7]).
-template <class P>
-__global__ void count_kernel(Tiles a) {
-    const long long f = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+// Count entry f into the entries of each (row, tile), one atomic a group
+// of lanes for the entries within one tile; under FeaturePolicy list the
+// entries that span tiles (``spans``, totals[7]). DENSE (section 5): list
+// them under either policy and leave their counts to the dense binning.
+// Every lane of the warp calls it (f past the entries counts nothing).
+template <class P, bool DENSE>
+__device__ void count_entry(const Tiles& a, long long f) {
     const int lane = threadIdx.x & 31;
     long long r = 0, lo = 0, hi = -1;
     const bool ok = f < (long long)a.sl.groups * a.fb &&
@@ -413,7 +425,7 @@ __global__ void count_kernel(Tiles a) {
                   (unsigned long long)__popc(ballot));
     const bool single = ok && lo == hi;
     const unsigned grp = tile_group(single, r * a.n_tiles + lo);
-    if (P::RUNS) {
+    if (P::RUNS || DENSE) {
         const unsigned spanning = __ballot_sync(0xffffffffu, ok && !single);
         if (spanning) {
             const int leader = __ffs(spanning) - 1;
@@ -432,8 +444,16 @@ __global__ void count_kernel(Tiles a) {
             atomicAdd(&a.cnt[r * a.n_tiles + lo], __popc(grp));
         return;
     }
+    if (DENSE) return;
     for (long long tile = lo; tile <= hi; ++tile)
         atomicAdd(&a.cnt[r * a.n_tiles + tile], 1);
+}
+
+// grid over every entry: count_entry.
+template <class P>
+__global__ void count_kernel(Tiles a) {
+    count_entry<P, false>(a, (long long)blockIdx.x * blockDim.x +
+                                 threadIdx.x);
 }
 
 // grid (rows): each row's exclusive prefix of entries and of non-empty
@@ -712,7 +732,7 @@ __device__ void sum_tile(const Tiles& a, long long p, long long slot,
             s_blk[j] = slot * a.sl.slot_blocks +
                        (long long)a.flat_idx[f] * bm25::BLOCK;
             s_w[j] = a.flat_w[f];
-            s_avg[j] = a.flat_avgdl[f];
+            s_avg[j] = a.flat_avgdl != nullptr ? a.flat_avgdl[f] : a.avg;
         }
         __syncthreads();
         auto fetch = [&](int j, int* doc, float* tf) {
@@ -1582,6 +1602,373 @@ int features_launch(int phase, const int* block_docs,
     a.fp = fp;
     return launch<FeaturePolicy<BF16>>(phase, a, ws_a, ws_b, b_bytes, host,
                                        out_s, out_d, hits, split_ms, stream);
+}
+
+// --------------------------------------------------------------------------
+// 5. the dense row (bm25_scores K8, sparse_scores K19)
+// --------------------------------------------------------------------------
+//
+// One query's [n_docs_pad] f32 row over one store (ONE_SLOT, row 0): a
+// doc's score is f32(the 64-bit fixed-point sum of its postings'
+// contributions), 0 where no posting lands or the doc is dead. Every tile
+// of the row is a pair, so the pairs are known before the launch; the
+// lists are sized by a bound known before it too: an entry within one
+// tile is listed once, an entry whose block spans tiles once in each tile
+// holding one of its docs (at most min(BLOCK, n_tiles) tiles), so
+// qb * min(BLOCK, n_tiles) list entries always hold them (``dense_cap``).
+// A call is three stream-ordered operations with no synchronisation: a
+// memset of the counts, the binning (one cooperative launch:
+// dense_bin_kernel) and the tile pass. A spanning block is
+// listed with the run of its positions in each tile (docs that ascend) or
+// whole in each (docs out of order, totals[6] counting the postings read
+// beyond one pass); Bm25Policy reads every listed block whole, as K1
+// does, FeaturePolicy only its run. The tile pass sums a tile's lists as
+// section 2 does, then writes the tile once: no memset of the row, no
+// int64 row and no global 64-bit atomic; a tile no block reaches writes
+// zeros without touching shared memory.
+
+inline long long dense_tiles(long long n_docs_pad) {
+    return (n_docs_pad + TILE - 1) / TILE;
+}
+
+inline long long dense_cap(long long qb, long long n_docs_pad) {
+    const long long t = dense_tiles(n_docs_pad);
+    return qb * (t < bm25::BLOCK ? t : bm25::BLOCK);
+}
+
+// Scratch of a dense call: [0, zero_end) is zeroed by its memset.
+struct LayoutD {
+    long long totals, barrier, cnt, zero_end, pair_n, pair_e, spans, elist,
+        esub, total;
+};
+
+inline LayoutD layout_d(long long qb, long long n_docs_pad, bool runs) {
+    LayoutD L{};
+    long long off = 0;
+    auto take = [&](long long bytes) {
+        const long long at = off;
+        off += up256(bytes);
+        return at;
+    };
+    const long long n_tiles = dense_tiles(n_docs_pad);
+    const long long cap = dense_cap(qb, n_docs_pad);
+    L.totals = take(N_TOTALS * 8);
+    L.barrier = take(4);
+    L.cnt = take(n_tiles * 4);
+    L.zero_end = off;
+    L.pair_n = take(n_tiles * 4);
+    L.pair_e = take(n_tiles * 8);
+    L.spans = take(qb * 4);
+    L.elist = take(cap * 4);
+    L.esub = take(runs ? cap * 2 : 0);
+    L.total = off;
+    return L;
+}
+
+inline long long dense_bytes(long long qb, long long n_docs_pad, bool runs) {
+    return layout_d(qb, n_docs_pad, runs).total;
+}
+
+// The tiles holding the docs of entry f's block, each visited once, from
+// one lane, as visit(tile, p0, p1) with the run of block positions the
+// tile pass reads there. Docs that ascend (each valid doc at or above the
+// valid docs before it): a tile's run goes from its first doc's position
+// to the next tile's first (the last tile's to BLOCK), so the runs
+// partition the block from its first valid doc; docs out of order: every
+// tile reads the whole block. Every lane of the warp calls it; it returns
+// the tiles visited and sets ``ascending``.
+template <class V>
+__device__ int doc_tiles(const Tiles& a, long long f, bool& ascending,
+                         V visit) {
+    const int lane = threadIdx.x & 31;
+    const int4 v = ((const int4*)(a.block_docs + (long long)a.flat_idx[f] *
+                                                     bm25::BLOCK))[lane];
+    const int d[4] = {v.x, v.y, v.z, v.w};
+    auto tile_of = [&](int doc) {
+        const long long t = (long long)doc >> TILE_SHIFT;
+        return (int)(t < a.n_tiles ? t : a.n_tiles - 1);
+    };
+    // the largest valid doc before each position
+    int before = -1;
+#pragma unroll
+    for (int u = 0; u < 4; ++u) before = d[u] > before ? d[u] : before;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+        const int y = __shfl_up_sync(0xffffffffu, before, o);
+        if (lane >= o) before = y > before ? y : before;
+    }
+    before = __shfl_up_sync(0xffffffffu, before, 1);
+    if (lane == 0) before = -1;
+    bool asc = true, start[4];
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+        start[u] = false;
+        if (d[u] >= 0) {
+            asc = asc && d[u] >= before;
+            start[u] = before < 0 || tile_of(d[u]) > tile_of(before);
+            before = d[u] > before ? d[u] : before;
+        }
+    }
+    ascending = __all_sync(0xffffffffu, asc);
+    if (ascending) {
+        // a start's run ends at the next start: this lane's, or the first
+        // of a later lane's
+        int first = bm25::BLOCK, mine = 0;
+#pragma unroll
+        for (int u = 3; u >= 0; --u)
+            if (start[u]) {
+                first = 4 * lane + u;
+                ++mine;
+            }
+#pragma unroll
+        for (int o = 1; o < 32; o <<= 1) {
+            const int y = __shfl_down_sync(0xffffffffu, first, o);
+            first = y < first ? y : first;
+        }
+        int next = __shfl_down_sync(0xffffffffu, first, 1);
+        if (lane == 31) next = bm25::BLOCK;
+#pragma unroll
+        for (int u = 3; u >= 0; --u)
+            if (start[u]) {
+                visit((long long)tile_of(d[u]), 4 * lane + u, next);
+                next = 4 * lane + u;
+            }
+        return __reduce_add_sync(0xffffffffu, (unsigned)mine);
+    }
+    // out of order: each distinct tile once, the lowest lane's first
+    bool left[4];
+#pragma unroll
+    for (int u = 0; u < 4; ++u) left[u] = d[u] >= 0;
+    int n = 0;
+    for (;;) {
+        int offer = -1;
+#pragma unroll
+        for (int u = 0; u < 4; ++u)
+            if (left[u] && offer < 0) offer = tile_of(d[u]);
+        const unsigned any = __ballot_sync(0xffffffffu, offer >= 0);
+        if (any == 0u) break;
+        const int tile = __shfl_sync(0xffffffffu, offer, __ffs(any) - 1);
+#pragma unroll
+        for (int u = 0; u < 4; ++u)
+            if (left[u] && tile_of(d[u]) == tile) left[u] = false;
+        if (lane == 0) visit((long long)tile, 0, bm25::BLOCK);
+        ++n;
+    }
+    return n;
+}
+
+// The dense binning in one cooperative launch of AUX_THREADS CTAs (every
+// CTA resident, so the grid barriers between its steps are safe; the
+// launch fails rather than hangs when they cannot all be; the barrier
+// counter is the zeroed ``queue``):
+// 1. count_entry over the entries: those within one tile into cnt, those
+//    spanning tiles into ``spans`` (totals[7]);
+// 2. a warp at a time, each spanning entry's listings into cnt
+//    (``doc_tiles``; FeaturePolicy: a block out of order adds the postings
+//    it reads beyond one pass to totals[6]);
+// 3. CTA 0 scans the tiles: pair_n each tile's listings, pair_e where its
+//    list starts (cnt stays the lists' cursor), totals[0] the tiles
+//    reached, totals[1] the listings;
+// 4. every entry into the list of each tile it is listed in (cnt counts
+//    down to 0; one atomic a group of lanes for entries within one tile).
+//    A listing at or past ``cap`` is refused and counted in totals[5]
+//    (none: dense_cap bounds them).
+template <class P>
+__global__ void dense_bin_kernel(Tiles a) {
+    __shared__ long long ws_e[33];
+    __shared__ int ws_p[33];
+    unsigned target = 0;
+    const int lane = threadIdx.x & 31;
+    const long long threads = (long long)gridDim.x * blockDim.x;
+    const long long warps = threads >> 5;
+    const long long warp0 =
+        ((long long)blockIdx.x * blockDim.x + threadIdx.x) >> 5;
+    for (long long f0 = (long long)blockIdx.x * blockDim.x; f0 < a.fb;
+         f0 += threads)
+        count_entry<P, true>(a, f0 + threadIdx.x);
+    rsel::grid_sync(a.queue, target);
+    const long long n_spans = __ldcg(&a.totals[7]);
+    for (long long w = warp0; w < n_spans; w += warps) {
+        bool asc;
+        const int listed = doc_tiles(
+            a, a.spans[w], asc,
+            [&](long long tile, int, int) { atomicAdd(&a.cnt[tile], 1); });
+        if (P::RUNS && !asc && lane == 0)
+            atomicAdd((unsigned long long*)&a.totals[6],
+                      (unsigned long long)(listed - 1) * bm25::BLOCK);
+    }
+    rsel::grid_sync(a.queue, target);
+    if (blockIdx.x == 0) {
+        long long run_e = 0;
+        int run_p = 0;
+        for (long long base = 0; base < a.n_tiles; base += blockDim.x) {
+            const long long i = base + threadIdx.x;
+            const int v = i < a.n_tiles ? __ldcg(&a.cnt[i]) : 0;
+            long long te;
+            int tp;
+            const long long xe = cta_excl_scan<long long>(v, ws_e, te);
+            cta_excl_scan<int>(v > 0, ws_p, tp);
+            if (i < a.n_tiles) {
+                a.pair_n[i] = v;
+                a.pair_e[i] = run_e + xe;
+            }
+            run_e += te;
+            run_p += tp;
+        }
+        if (threadIdx.x == 0) {
+            a.totals[0] = run_p;
+            a.totals[1] = run_e;
+        }
+    }
+    rsel::grid_sync(a.queue, target);
+    auto put = [&](long long at, int f, int p0, int p1) {
+        if (at < a.cap) {
+            a.elist[at] = f;
+            if (P::RUNS) a.esub[at] = (unsigned short)(p0 | (p1 << 8));
+        } else {
+            atomicAdd((unsigned long long*)&a.totals[5], 1ull);
+        }
+    };
+    for (long long f0 = (long long)blockIdx.x * blockDim.x; f0 < a.fb;
+         f0 += threads) {
+        const long long f = f0 + threadIdx.x;
+        long long r = 0, lo = 0, hi = -1;
+        const bool ok = f < a.fb && entry_span(a, f, r, lo, hi);
+        const bool single = ok && lo == hi;
+        const unsigned grp = tile_group(single, lo);
+        if (single) {
+            const int leader = __ffs(grp) - 1;
+            int end = 0;
+            if (lane == leader) end = atomicSub(&a.cnt[lo], __popc(grp));
+            end = __shfl_sync(grp, end, leader);
+            put(__ldcg(&a.pair_e[lo]) + end - __popc(grp) +
+                    __popc(grp & ((1u << lane) - 1u)),
+                (int)f, 0, bm25::BLOCK);
+        }
+    }
+    for (long long w = warp0; w < n_spans; w += warps) {
+        const int f = a.spans[w];
+        bool asc;
+        doc_tiles(a, f, asc, [&](long long tile, int p0, int p1) {
+            put(__ldcg(&a.pair_e[tile]) + atomicSub(&a.cnt[tile], 1) - 1, f,
+                p0, p1);
+        });
+    }
+}
+
+// grid (n_tiles): a tile's sums (section 2's, by the policy), masked by
+// live and written once as f32; a tile no block reaches writes zeros.
+template <class P>
+__global__ void __launch_bounds__(THREADS, P::CTAS)
+    dense_tile_kernel(Tiles a) {
+    extern __shared__ __align__(16) unsigned char smem_raw[];
+    unsigned* lo = (unsigned*)smem_raw;
+    unsigned* hi = lo + TILE;
+    float* s_dl = (float*)(hi + TILE);   // Bm25Policy only
+    long long* s_blk = (long long*)(s_dl + (P::RUNS ? 0 : TILE));
+    float* s_w = (float*)(s_blk + STAGE);
+    float* s_avg = s_w + STAGE;
+    const long long tile = blockIdx.x;
+    const long long doc0 = tile * TILE;
+    const int n = (int)(a.n_docs_pad - doc0 < TILE ? a.n_docs_pad - doc0
+                                                   : TILE);
+    const int n4 = n >> 2;
+    float* out = a.row + doc0;
+    if (a.pair_n[tile] == 0) {
+        for (int q = threadIdx.x; q < n4; q += THREADS)
+            ((float4*)out)[q] = make_float4(0.f, 0.f, 0.f, 0.f);
+        for (int j = 4 * n4 + threadIdx.x; j < n; j += THREADS) out[j] = 0.f;
+        return;
+    }
+    sum_pair<P>(a, tile, 0, doc0, n, lo, hi, s_dl, s_blk, s_w, s_avg);
+    const uint8_t* live = a.live != nullptr ? a.live + doc0 : nullptr;
+    auto score = [&](int j, unsigned l, unsigned h) {
+        return live == nullptr || live[j]
+                   ? bm25::from_fixed(
+                         (long long)(((unsigned long long)h << 32) | l))
+                   : 0.f;
+    };
+    for (int q = threadIdx.x; q < n4; q += THREADS) {
+        const uint4 l = ((const uint4*)lo)[q];
+        const uint4 h = ((const uint4*)hi)[q];
+        const int j = 4 * q;
+        ((float4*)out)[q] = make_float4(score(j, l.x, h.x),
+                                        score(j + 1, l.y, h.y),
+                                        score(j + 2, l.z, h.z),
+                                        score(j + 3, l.w, h.w));
+    }
+    for (int j = 4 * n4 + threadIdx.x; j < n; j += THREADS)
+        out[j] = score(j, lo[j], hi[j]);
+}
+
+// The dense row's C entry body, on a Tiles whose problem fields are set
+// (block_docs, block_tfs, ranges, flat_idx, flat_w, live, nb, qb,
+// n_docs_pad; Bm25Policy: doc_lens, avg, c; FeaturePolicy: fp): ``ws``
+// holds dense_bytes, ``out`` the [n_docs_pad] row. host[0] receives the
+// operations issued; split_ms, when set, the stages' event ms (binning:
+// the memset and dense_bin_kernel; tiles), after waiting for them.
+template <class P>
+static int dense_run(Tiles a, void* ws, float* out, long long* host,
+                     float* split_ms, cudaStream_t stream) {
+    if (a.qb < 0 || a.nb < 1 || a.n_docs_pad < 1 ||
+        a.n_docs_pad > 0x7fffffffLL ||
+        dense_cap(a.qb, a.n_docs_pad) > INT_MAX)
+        return (int)cudaErrorInvalidValue;
+    a.sl = bm25::ONE_SLOT;
+    a.n_q = 1;
+    a.fb = a.qb;
+    a.flat_q = nullptr;
+    a.rows = 1;
+    a.n_tiles = dense_tiles(a.n_docs_pad);
+    a.row = out;
+    a.cap = dense_cap(a.qb, a.n_docs_pad);
+    const LayoutD L = layout_d(a.qb, a.n_docs_pad, P::RUNS);
+    char* w = (char*)ws;
+    a.totals = (long long*)(w + L.totals);
+    a.queue = (unsigned*)(w + L.barrier);   // dense_bin_kernel's barrier
+    a.cnt = (int*)(w + L.cnt);
+    a.pair_n = (int*)(w + L.pair_n);
+    a.pair_e = (long long*)(w + L.pair_e);
+    a.spans = (int*)(w + L.spans);
+    a.elist = (int*)(w + L.elist);
+    a.esub = (unsigned short*)(w + L.esub);
+    Stages st(split_ms, 0, stream);
+    cudaError_t err = cudaMemsetAsync(ws, 0, L.zero_end, stream);
+    if (err != cudaSuccess) return (int)err;
+    static int bin_per_sm = 0;
+    if (bin_per_sm == 0) {
+        err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+            &bin_per_sm, dense_bin_kernel<P>, AUX_THREADS, 0);
+        if (err != cudaSuccess) return (int)err;
+        if (bin_per_sm < 1) return (int)cudaErrorInvalidConfiguration;
+    }
+    // a warp an entry at most (the spanning entries' step), every CTA
+    // resident
+    long long ctas = (a.qb + AUX_THREADS / 32 - 1) / (AUX_THREADS / 32);
+    if (ctas > (long long)bin_per_sm * rows::n_sms())
+        ctas = (long long)bin_per_sm * rows::n_sms();
+    if (ctas < 1) ctas = 1;
+    void* args[] = {(void*)&a};
+    err = cudaLaunchCooperativeKernel((const void*)dense_bin_kernel<P>,
+                                      dim3((unsigned)ctas),
+                                      dim3(AUX_THREADS), args, 0, stream);
+    if (err != cudaSuccess) return (int)err;
+    st.mark();
+    const size_t smem = tile_smem<P>();
+    static bool smem_set = false;
+    if (!smem_set) {
+        err = cudaFuncSetAttribute((const void*)dense_tile_kernel<P>,
+                                   cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                   (int)smem);
+        if (err != cudaSuccess) return (int)err;
+        smem_set = true;
+    }
+    dense_tile_kernel<P><<<(unsigned)a.n_tiles, THREADS, smem, stream>>>(a);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+    st.mark();
+    if (host != nullptr) host[0] = 3;   // the memset, the binning, the tiles
+    return st.finish();
 }
 
 }  // namespace tiles

@@ -28,7 +28,8 @@ ascending, -inf slots included (``lax.top_k``'s order). K1-K3 (and the
 mesh's rows 31/32) share ``csrc/tiles.cuh`` with the rank_features top-k
 families, which sums each (query, 8,192-doc tile) in shared memory instead
 of a [n_q, n_docs_pad] plane (``tiles_launch``; ``bm25_tiles_mirror`` is
-its algorithm on the CPU).
+its algorithm on the CPU); K8 and K19 run its dense row, which writes each
+tile of the row once (``dense_run``; ``bm25_dense_mirror``).
 
 idf follows the reference's BM25: ln(1 + (N - df + 0.5) / (df + 0.5)).
 """
@@ -45,7 +46,7 @@ import torch
 
 from elasticsearch_tpu_torch.index.segment import next_pow2
 from elasticsearch_tpu_torch.ops.device_segment import (
-    DevicePostings, gather_query_blocks,
+    DevicePostings, block_ranges, gather_query_blocks,
 )
 from elasticsearch_tpu_torch.search.device_profile import DEVICE_PROFILE
 from elasticsearch_tpu_torch.index.segment import PostingsField
@@ -64,8 +65,10 @@ BLOCK_WIDTH = 128
 # csrc/tiles.cuh: docs a tile, and the count modes of bm25_common.cuh
 TILE_DOCS = 8192
 COUNT_NONE, COUNT_TOTAL, COUNT_SEGS = 0, 1, 2
-# the probe's stage names (tiles.cuh ``Stages``), in order
+# the probe's stage names (tiles.cuh ``Stages``), in order: the top-k
+# families', the dense row's (``dense_run``)
 TILE_STAGES = ("plan", "lists", "tiles", "threshold", "rerun", "final")
+DENSE_STAGES = ("binning", "tiles")
 
 
 def tops_width(t: int) -> int:
@@ -305,6 +308,20 @@ def block_runs(docs, first: int, last: int, tile_docs: int = TILE_DOCS):
     return runs, 0
 
 
+def _tile_sums(fx, docs, listed, doc0: int, width: int) -> torch.Tensor:
+    """One tile's [width] int64 sums: the contributions ``fx`` of the
+    listed entries' postings (``listed`` [(entry, first position, end)],
+    their runs) whose docs fall in [doc0, doc0 + width)."""
+    ents = torch.tensor([f for f, _p0, _p1 in listed])
+    pos = torch.arange(BLOCK_WIDTH)
+    in_run = torch.stack([(pos >= p0) & (pos < p1) for _f, p0, p1 in listed])
+    dd = docs[ents]
+    inside = (dd >= doc0) & (dd < doc0 + width) & in_run
+    acc = torch.zeros(width, dtype=torch.int64)
+    acc.index_add_(0, (dd[inside] - doc0).long(), fx[ents][inside])
+    return acc
+
+
 def tiles_mirror(fx, docs, ranges, rows, live, seg_ids, n_docs_pad: int,
                  n_q: int, k: int, *, n_segs: int = 1,
                  tile_docs: int = TILE_DOCS, runs: bool = False):
@@ -354,15 +371,7 @@ def tiles_mirror(fx, docs, ranges, rows, live, seg_ids, n_docs_pad: int,
     for (r, tile) in sorted(lists):
         doc0 = tile * T
         width = min(T, n - doc0)
-        listed = lists[(r, tile)]
-        ents = torch.tensor([f for f, _p0, _p1 in listed])
-        pos = torch.arange(BLOCK_WIDTH)
-        in_run = torch.stack([(pos >= p0) & (pos < p1)
-                              for _f, p0, p1 in listed])
-        dd = docs[ents]
-        inside = (dd >= doc0) & (dd < doc0 + width) & in_run
-        acc = torch.zeros(width, dtype=torch.int64)
-        acc.index_add_(0, (dd[inside] - doc0).long(), fx[ents][inside])
+        acc = _tile_sums(fx, docs, lists[(r, tile)], doc0, width)
         m = (acc > 0) & live[doc0: doc0 + width]
         j = m.nonzero().flatten()
         c = int(j.numel())
@@ -446,7 +455,6 @@ def bm25_tiles_mirror(block_docs, block_tfs, flat_idx, flat_w, flat_q,
                       b: float = DEFAULT_B, tile_docs: int = TILE_DOCS):
     """``tiles_mirror`` over K1's flat entries (K3's arithmetic with
     ``bf16``); returns what ``tiles_mirror`` returns."""
-    from elasticsearch_tpu_torch.ops.device_segment import block_ranges
     contrib = _contrib_bf16 if bf16 else _contrib_f32
     fx, _safe = contrib(block_docs, block_tfs, flat_idx, flat_w, doc_lens,
                         flat_avgdl, k1, b)
@@ -456,6 +464,95 @@ def bm25_tiles_mirror(block_docs, block_tfs, flat_idx, flat_w, flat_q,
                         block_ranges(block_docs)[blocks].tolist(),
                         flat_q[keep].tolist(), live, seg_ids, n_docs_pad,
                         n_q, k, n_segs=n_segs, tile_docs=tile_docs)
+
+
+def doc_tiles(docs, n_tiles: int, tile_docs: int = TILE_DOCS):
+    """csrc/tiles.cuh ``doc_tiles`` for one block's docs: ([(tile, p0,
+    p1)], ascending), the tiles holding its docs with the run of positions
+    the tile pass reads in each. Valid docs ascending: a tile's run goes
+    from its first doc to the next tile's first (the last tile's to the
+    block's end); otherwise every tile reads the whole block."""
+    valid = [(i, d) for i, d in enumerate(docs) if d >= 0]
+
+    def tile(d):
+        return min(d // tile_docs, n_tiles - 1)
+    if any(b < a for (_i, a), (_j, b) in zip(valid, valid[1:])):
+        tiles = list(dict.fromkeys(tile(d) for _i, d in valid))
+        return [(t, 0, BLOCK_WIDTH) for t in tiles], False
+    starts = [(tile(d), i) for n, (i, d) in enumerate(valid)
+              if n == 0 or tile(d) > tile(valid[n - 1][1])]
+    ends = [i for _t, i in starts[1:]] + [BLOCK_WIDTH]
+    return [(t, i, e) for (t, i), e in zip(starts, ends)], True
+
+
+def dense_tiles_mirror(fx, docs, ranges, live, n_docs_pad: int, *,
+                       tile_docs: int = TILE_DOCS, runs: bool = False):
+    """``csrc/tiles.cuh``'s dense row (section 5) step by step on the CPU
+    (tests only), over one query's entries of non-zero weight: ``fx``
+    [E, BLOCK] their postings' fixed-point contributions (0 at pads),
+    ``docs`` [E, BLOCK], ``ranges`` [(lo, hi)] their blocks' doc ranges.
+    Bin each entry: within one tile, listed there whole; spanning tiles,
+    listed in each tile holding one of its docs (``doc_tiles``), with its
+    run (``runs``, FeaturePolicy) or whole (Bm25Policy). Sum each listed
+    tile's postings that fall in it, mask by ``live`` (None: all live),
+    convert once; tiles no entry reaches stay 0. Returns (row
+    [n_docs_pad] f32, stats), stats holding the tiles, tiles reached,
+    list entries, entries binned, spanning entries, extra block reads (a
+    block listed once more for each further tile) and extra posting reads
+    (postings read beyond one pass over the gathered blocks)."""
+    T = tile_docs
+    n_tiles = -(-n_docs_pad // T)
+    lists: dict = {}        # tile -> [(entry, first position, end)]
+    binned = spans = extra_postings = 0
+    for f, (lo, hi) in enumerate(ranges):
+        if hi < lo or hi < 0:
+            continue
+        first, last = max(lo, 0) // T, min(hi // T, n_tiles - 1)
+        if first > last:
+            continue
+        binned += 1
+        listed = [(first, 0, BLOCK_WIDTH)]
+        if last > first:
+            spans += 1
+            listed, ascending = doc_tiles(docs[f].tolist(), n_tiles, T)
+            if not ascending:
+                extra_postings += BLOCK_WIDTH * (len(listed) - 1)
+            if not runs:
+                listed = [(t, 0, BLOCK_WIDTH) for t, _p0, _p1 in listed]
+        for tile, p0, p1 in listed:
+            lists.setdefault(tile, []).append((f, p0, p1))
+    row = torch.zeros(n_docs_pad, dtype=torch.float32)
+    for tile in sorted(lists):
+        doc0 = tile * T
+        width = min(T, n_docs_pad - doc0)
+        s = _from_fixed(_tile_sums(fx, docs, lists[tile], doc0, width))
+        if live is not None:
+            s = torch.where(live[doc0: doc0 + width], s, torch.zeros(()))
+        row[doc0: doc0 + width] = s
+    listings = sum(len(v) for v in lists.values())
+    stats = {"n_tiles": n_tiles, "tiles_reached": len(lists),
+             "list_entries": listings, "entries_binned": binned,
+             "spans": spans, "extra_block_reads": listings - binned,
+             "extra_posting_reads": extra_postings if runs
+             else BLOCK_WIDTH * (listings - binned)}
+    return row, stats
+
+
+def bm25_dense_mirror(block_docs, block_tfs, block_idx, block_weight,
+                      doc_lens, avgdl: float, n_docs_pad: int, live=None,
+                      k1: float = DEFAULT_K1, b: float = DEFAULT_B, *,
+                      tile_docs: int = TILE_DOCS):
+    """``dense_tiles_mirror`` over K8's gathered blocks (Bm25Policy: a
+    listed block is read whole); returns (row, stats)."""
+    avg = torch.full((block_idx.shape[0],), float(avgdl),
+                     dtype=torch.float32)
+    fx, _safe = _contrib_f32(block_docs, block_tfs, block_idx, block_weight,
+                             doc_lens, avg, k1, b)
+    keep = (block_weight != 0).nonzero().flatten()
+    blocks = block_idx.long()[keep]
+    return dense_tiles_mirror(fx[keep], block_docs[blocks],
+                              block_ranges(block_docs)[blocks].tolist(),
+                              live, n_docs_pad, tile_docs=tile_docs)
 
 
 def bm25_rerank_plain(block_docs, block_tfs, flat_idx, flat_w, flat_q,
@@ -520,7 +617,9 @@ TILES_SIG = (["i"] + ["p"] * 10 + ["i", "i", "ll", "i", "ll", "i", "i", "i",
 _SIG = {
     "bm25_rerank": ["p"] * 10 + ["i", "i", "i", "i"] + ["f"] * 4
     + ["p"] * 7,
-    "bm25_scores": ["p"] * 8 + ["i", "ll"] + ["f"] * 4 + ["p"] * 3,
+    # seven operands, (nb, qb, n_docs_pad), avgdl and the BM25 constants,
+    # scratch, host, out, split, stream
+    "bm25_scores": ["p"] * 7 + ["ll", "i", "ll"] + ["f"] * 5 + ["p"] * 5,
 }
 _CTYPES = {"p": ctypes.c_void_p, "i": ctypes.c_int, "ll": ctypes.c_longlong,
            "f": ctypes.c_float, "d": ctypes.c_double}
@@ -713,6 +812,58 @@ def tiles_run(family: str, sig, head, *, dev, rows: int, n_docs_pad: int,
             "scratch_bytes": scratch})
 
 
+_DENSE_BYTES: dict = {}
+
+
+def _dense_bytes(family: str, qb: int, n_docs_pad: int) -> int:
+    """``<family>_bytes`` of a dense call, asked once a shape."""
+    key = (family, qb, n_docs_pad)
+    nbytes = _DENSE_BYTES.get(key)
+    if nbytes is None:
+        from elasticsearch_tpu_torch._build import library
+        fn = getattr(library(family), f"{family}_bytes")
+        fn.restype = ctypes.c_longlong
+        fn.argtypes = [ctypes.c_longlong] * 2
+        nbytes = _DENSE_BYTES[key] = max(int(fn(qb, n_docs_pad)), 1)
+    return nbytes
+
+
+def dense_run(family: str, sig, head, *, dev, qb: int, n_docs_pad: int,
+              out, probe: Optional[dict] = None, runs: bool = False) -> None:
+    """Run one dense-row family (csrc/tiles.cuh ``dense_run``) of C
+    signature ``sig`` on its operands ``head`` into ``out``
+    [n_docs_pad]: three stream-ordered operations with no synchronisation,
+    on scratch kept per family (its size known before the launch).
+    ``probe``, when given, receives the stage milliseconds, the binning's
+    counts and the operations of the call (``runs``: the family reads a
+    spanning block one run a tile and counts its extra posting reads)."""
+    split = (ctypes.c_float * len(DENSE_STAGES))() if probe is not None \
+        else None
+    host = (ctypes.c_longlong * 1)() if probe is not None else None
+    with _WS_LOCK:
+        ws = _scratch(family, dev, 0, _dense_bytes(family, qb, n_docs_pad))
+        launch_kernel(family, sig, *head, _ptr(ws),
+                      None if host is None else ctypes.addressof(host),
+                      _ptr(out),
+                      None if split is None else ctypes.addressof(split),
+                      _stream())
+        if probe is not None:
+            totals = ws[:64].view(torch.int64).tolist()
+            scratch = ws.numel()
+    if probe is not None:
+        listed, binned = totals[1], totals[3]
+        probe.update({
+            "split_ms": dict(zip(DENSE_STAGES, list(split))),
+            "n_tiles": -(-n_docs_pad // TILE_DOCS),
+            "tiles_reached": totals[0], "list_entries": listed,
+            "entries_binned": binned, "spans": totals[7],
+            "extra_block_reads": listed - binned,
+            "extra_posting_reads": totals[6] if runs
+            else BLOCK_WIDTH * (listed - binned),
+            "refused": totals[5], "operations": host[0],
+            "scratch_bytes": scratch})
+
+
 def tiles_launch(family: str, block_docs, block_tfs, doc_lens, flat_idx,
                  flat_w, flat_q, flat_avgdl, live, seg_ids, *, groups: int,
                  groups_per_slot: int, n_docs_pad: int, n_q: int, k: int,
@@ -721,7 +872,6 @@ def tiles_launch(family: str, block_docs, block_tfs, doc_lens, flat_idx,
     """Run one BM25 tile family (csrc/tiles.cuh ``bm25_launch``) into
     out_s / out_d [groups * n_q, k] and ``hits`` (None, [rows] for
     COUNT_TOTAL or [rows, n_segs]) through ``tiles_run``."""
-    from elasticsearch_tpu_torch.ops.device_segment import block_ranges
     nb = block_docs.shape[-2]
     fb = flat_idx.shape[-1]
     ranges = block_ranges(block_docs)
@@ -886,7 +1036,7 @@ def probe_tiles(public, cuda_body, *args, **kwargs) -> dict:
     its wrapper ``public``: {"out": its outputs, "split_ms": stage -> ms,
     "pairs", "list_entries", "entries_binned", "extra_block_reads",
     "extra_posting_reads", "reruns", "final_capacity", "refused", "tops",
-    "scratch_bytes"} (``tiles_run``)."""
+    "scratch_bytes"} (``tiles_run``; a dense row's are ``dense_run``'s)."""
     import inspect
     bound = inspect.signature(public).bind(*args, **kwargs)
     bound.apply_defaults()
@@ -956,8 +1106,8 @@ def bm25_block_scores(block_docs, block_tfs, block_idx, block_weight,
     (``block_idx`` [QB] int32, ``block_weight`` [QB] f32 = idf * boost;
     block 0 / weight 0 as padding) scored with ``avgdl``, summed per doc;
     0 where no posting lands and, when ``live`` [n_docs_pad] bool is
-    given, where the doc is dead. K1's gather, contribution and
-    fixed-point sum at one query (flat_q 0, flat_avgdl = avgdl), so a
+    given, where the doc is dead. K1's contribution and fixed-point sum
+    at one query on its tile pipeline (csrc/tiles.cuh's dense row), so a
     doc's score equals K1's for the same blocks, bit for bit."""
     tensors = [block_docs, block_tfs, block_idx, block_weight, doc_lens]
     cuda = _on_cuda(*tensors, *([live] if live is not None else []))
@@ -978,18 +1128,34 @@ def bm25_block_scores(block_docs, block_tfs, block_idx, block_weight,
             return bm25_block_scores_plain(
                 block_docs, block_tfs, block_idx, block_weight, doc_lens,
                 avgdl, n_docs_pad, live, k1=k1, b=b)
-        dev = block_docs.device
-        block_q = torch.zeros(qb, dtype=torch.int32, device=dev)
-        block_avg = torch.full((qb,), float(avgdl), dtype=torch.float32,
-                               device=dev)
-        acc = torch.empty(n_docs_pad, dtype=torch.int64, device=dev)
-        out = torch.empty(n_docs_pad, dtype=torch.float32, device=dev)
-        _launch("bm25_scores", _ptr(block_docs), _ptr(block_tfs),
-                _ptr(block_idx), _ptr(block_weight), _ptr(block_q),
-                _ptr(doc_lens), _ptr(block_avg),
-                _ptr(live) if live is not None else None, qb, n_docs_pad,
-                *_consts(k1, b), _ptr(acc), _ptr(out), _stream())
-        return out
+        return _bm25_scores_cuda(block_docs, block_tfs, block_idx,
+                                 block_weight, doc_lens, avgdl, n_docs_pad,
+                                 live, k1, b)
+
+
+def _bm25_scores_cuda(block_docs, block_tfs, block_idx, block_weight,
+                      doc_lens, avgdl, n_docs_pad, live, k1, b, probe=None):
+    ranges = block_ranges(block_docs)
+    out = torch.empty(n_docs_pad, dtype=torch.float32,
+                      device=block_docs.device)
+    qb = block_idx.shape[0]
+    head = [_ptr(block_docs), _ptr(block_tfs), _ptr(ranges), _ptr(doc_lens),
+            _ptr(block_idx), _ptr(block_weight),
+            _ptr(live) if live is not None else None, block_docs.shape[0],
+            qb, n_docs_pad, float(avgdl), *_consts(k1, b)]
+    dense_run("bm25_scores", _SIG["bm25_scores"], head, dev=block_docs.device,
+              qb=qb, n_docs_pad=n_docs_pad, out=out, probe=probe)
+    return out
+
+
+def bm25_scores_probe(*args, **kwargs) -> dict:
+    """K8's launch run once, uncounted, with ``bm25_block_scores``'s
+    arguments: {"out": the row, "split_ms": stage -> ms (binning, tiles),
+    "n_tiles", "tiles_reached", "list_entries", "entries_binned",
+    "spans", "extra_block_reads", "extra_posting_reads", "refused",
+    "operations", "scratch_bytes"} (``dense_run``)."""
+    return probe_tiles(bm25_block_scores, _bm25_scores_cuda, *args,
+                       **kwargs)
 
 
 def bm25_topk(block_docs, block_tfs, block_idx, block_weight, doc_lens,

@@ -24,7 +24,8 @@ tile pipeline BM25's K1-K3 share: each (query, 8,192-doc tile) a block
 reaches is summed in shared memory, no [Q, n_docs_pad] plane is written,
 and one selection serves any k (``features_launch``;
 ``sparse_tiles_mirror`` is the algorithm on the CPU, ``sparse_tiles_probe``
-a launch's stage split).
+a launch's stage split). K19 runs the same pipeline's dense row, each tile
+of the row written once (``sparse_dense_mirror``, ``sparse_scores_probe``).
 
 A wrapper launches its kernel for CUDA tensors and runs the plain version
 for CPU tensors; there is no fallback between the two. Both sum the f32
@@ -54,10 +55,13 @@ import torch
 from elasticsearch_tpu_torch.index.segment import FeaturesField, next_pow2
 from elasticsearch_tpu_torch.ops.bm25 import (
     BLOCK_WIDTH, COUNT_NONE, COUNT_TOTAL, KMAX, TILE_DOCS, _check,
-    _from_fixed, _on_cuda, _ptr, _stream, _to_fixed, launch_kernel,
-    probe_tiles, stable_topk, tiles_mirror, tiles_run,
+    _from_fixed, _on_cuda, _ptr, _stream, _to_fixed, dense_run,
+    dense_tiles_mirror, launch_kernel, probe_tiles, stable_topk,
+    tiles_mirror, tiles_run,
 )
-from elasticsearch_tpu_torch.ops.device_segment import DeviceFeatures
+from elasticsearch_tpu_torch.ops.device_segment import (
+    DeviceFeatures, block_ranges,
+)
 from elasticsearch_tpu_torch.search.device_profile import DEVICE_PROFILE
 
 # function name -> the kernels' code (csrc/feature_fn.cuh Function)
@@ -218,7 +222,10 @@ def sparse_rerank_plain(block_docs, block_weights, block_idx, query_weight,
 # ---------------------------------------------------------------------------
 
 _SIG = {
-    "sparse_scores": ["p"] * 5 + ["i", "ll", "i"] + ["f"] * 3 + ["p"] * 3,
+    # six operands, (nb, qb, n_docs_pad), the function, scratch, host,
+    # out, split, stream
+    "sparse_scores": ["p"] * 6 + ["ll", "i", "ll", "i"] + ["f"] * 3
+    + ["p"] * 5,
     "sparse_rerank": ["p"] * 7 + ["i"] * 4 + ["p"] * 7,
 }
 # the rank_features tile families' C entry (csrc/tiles.cuh
@@ -274,7 +281,6 @@ def features_launch(family: str, block_docs, block_weights, block_idx,
     ids local to its store) are the pipeline's entries as they lie; out_s
     / out_d [groups * n_q, k], ``hits`` [groups * n_q] when counted. Each
     store's block ranges are computed when it uploads (cached)."""
-    from elasticsearch_tpu_torch.ops.device_segment import block_ranges
     ranges = block_ranges(block_docs)
     head = [_ptr(block_docs), _ptr(block_weights), _ptr(ranges),
             _ptr(block_idx), _ptr(query_weight), _ptr(live), groups,
@@ -362,22 +368,58 @@ def sparse_scores(block_docs, block_weights, block_idx, query_weight,
     _check("query_weight", query_weight, torch.float32, (qb,))
     if live is not None:
         _check("live", live, torch.bool, (n_docs_pad,))
-    code = _function(function)
+    _function(function)
     with DEVICE_PROFILE.call("sparse_scores",
                              f"qb={qb}/n_docs_pad={n_docs_pad}", cuda):
         if not cuda:
             return sparse_scores_plain(block_docs, block_weights, block_idx,
                                        query_weight, pivot, exponent,
                                        n_docs_pad, function, live)
-        dev = block_docs.device
-        acc = torch.empty(n_docs_pad, dtype=torch.int64, device=dev)
-        out = torch.empty(n_docs_pad, dtype=torch.float32, device=dev)
-        _launch("sparse_scores", _ptr(block_docs), _ptr(block_weights),
-                _ptr(block_idx), _ptr(query_weight),
-                _ptr(live) if live is not None else None, qb, n_docs_pad,
-                code, pivot, exponent, _pivot_pow(pivot, exponent),
-                _ptr(acc), _ptr(out), _stream())
-        return out
+        return _sparse_scores_cuda(block_docs, block_weights, block_idx,
+                                   query_weight, pivot, exponent, n_docs_pad,
+                                   function, live)
+
+
+def _sparse_scores_cuda(block_docs, block_weights, block_idx, query_weight,
+                        pivot, exponent, n_docs_pad, function, live,
+                        probe=None):
+    ranges = block_ranges(block_docs)
+    out = torch.empty(n_docs_pad, dtype=torch.float32,
+                      device=block_docs.device)
+    qb = block_idx.shape[0]
+    head = [_ptr(block_docs), _ptr(block_weights), _ptr(ranges),
+            _ptr(block_idx), _ptr(query_weight),
+            _ptr(live) if live is not None else None, block_docs.shape[0],
+            qb, n_docs_pad, _function(function), pivot, exponent,
+            _pivot_pow(pivot, exponent)]
+    dense_run("sparse_scores", _SIG["sparse_scores"], head,
+              dev=block_docs.device, qb=qb, n_docs_pad=n_docs_pad, out=out,
+              probe=probe, runs=True)
+    return out
+
+
+def sparse_scores_probe(*args, **kwargs) -> dict:
+    """K19's launch run once, uncounted, with ``sparse_scores``'
+    arguments: the row, stage split, tiles reached, extra block and
+    posting reads and launches (``ops/bm25.py`` ``dense_run``)."""
+    return probe_tiles(sparse_scores, _sparse_scores_cuda, *args, **kwargs)
+
+
+def sparse_dense_mirror(block_docs, block_weights, block_idx, query_weight,
+                        pivot: float, exponent: float, n_docs_pad: int,
+                        function: str = "saturation", live=None, *,
+                        tile_docs: int = TILE_DOCS):
+    """K19's dense row on the CPU, step by step (``ops/bm25.py``
+    ``dense_tiles_mirror``, a spanning block read one run a tile) over the
+    plain version's own contributions of the [QB] list's weighted
+    positions. Returns (row, stats)."""
+    _q, fx, _safe = _contrib(block_docs, block_weights, block_idx[None],
+                             query_weight[None], function, pivot, exponent)
+    blocks = block_idx[(query_weight != 0).nonzero().flatten()].long()
+    return dense_tiles_mirror(fx, block_docs[blocks],
+                              block_ranges(block_docs)[blocks].tolist(),
+                              live, n_docs_pad, tile_docs=tile_docs,
+                              runs=True)
 
 
 def sparse_coarse_kernel(block_docs, block_weights_q, block_idx,
@@ -443,7 +485,6 @@ def sparse_tiles_mirror(block_docs, block_weights, block_idx, query_weight,
     ``tiles_mirror``), over the plain version's own contributions of the
     [Q, QB] block list's weighted positions. Returns (s [Q, k] f32,
     d [Q, k] int32, matches [Q] int32, stats)."""
-    from elasticsearch_tpu_torch.ops.device_segment import block_ranges
     if bf16:
         q_of, fx, _safe = _contrib_bf16(block_docs, block_weights,
                                         block_idx, query_weight)

@@ -20,10 +20,11 @@ from elasticsearch_tpu_torch.ops import bm25 as port
 from elasticsearch_tpu_torch.ops import knn, topk
 from elasticsearch_tpu_torch.ops.device_segment import quantize_rows
 from torch_inputs import (
-    CARD_TILE, FLAT, FLAT_ORDER, N_SEGS, SPARSE_TILE_CASES, TILE_CASES,
-    make_inputs, make_knn_inputs, make_sparse_inputs, mesh_inputs,
-    mesh_knn_inputs, mesh_sparse_inputs, row0, sharded_inputs,
-    sparse_tile_case, sparse_tile_slots, tile_case, tile_slots, tx,
+    CARD_TILE, DENSE_TILE_CASES, FLAT, FLAT_ORDER, N_SEGS,
+    SPARSE_TILE_CASES, TILE_CASES, dense_tile_case, make_inputs,
+    make_knn_inputs, make_sparse_inputs, mesh_inputs, mesh_knn_inputs,
+    mesh_sparse_inputs, row0, sharded_inputs, sparse_tile_case,
+    sparse_tile_slots, tile_case, tile_slots, tx,
 )
 
 K = 10
@@ -223,8 +224,17 @@ def test_dense_kernels_match_plain_versions_on_the_card(sim):
     n_pad = inp["n_pad"]
     for lmask in (None, live):
         args = (docs, tfs, idx, w, dl, 47.5, n_pad, lmask)
-        assert torch.equal(port.bm25_block_scores(*args),
-                           port.bm25_block_scores_plain(*args))
+        got = port.bm25_block_scores(*args)
+        assert torch.equal(got.view(torch.int32),
+                           port.bm25_block_scores_plain(*args).view(
+                               torch.int32))
+    # the dense row's probe: the same row, binned as the CPU mirror bins
+    probe = port.bm25_scores_probe(*args)
+    _row, want = port.bm25_dense_mirror(*[t.cpu() for t in args[:5]], 47.5,
+                                        n_pad, args[7].cpu())
+    assert torch.equal(probe["out"], got) and probe["refused"] == 0
+    for key in ("tiles_reached", "list_entries", "entries_binned"):
+        assert probe[key] == want[key], key
     m, norms, exists, live_v, q = make_knn_inputs(
         15, 128, 1, "gauss", 200_000, 262_144)
     T = lambda a: torch.as_tensor(a).cuda()  # noqa: E731
@@ -519,8 +529,17 @@ def test_sparse_kernels_match_plain_versions_on_the_card(function):
     for lmask in (None, live):
         args = (docs, weights, idx[1], qw[1], pivot, exponent, n_pad,
                 function, lmask)
-        assert_sparse_equal([sparse.sparse_scores(*args)],
-                            [sparse.sparse_scores_plain(*args)], exact)
+        got = sparse.sparse_scores(*args)
+        assert_sparse_equal([got], [sparse.sparse_scores_plain(*args)],
+                            exact)
+    # the dense row's probe: the same row, binned as the CPU mirror bins
+    probe = sparse.sparse_scores_probe(*args)
+    _row, want = sparse.sparse_dense_mirror(
+        *[t.cpu() for t in args[:4]], *args[4:8], args[8].cpu())
+    assert torch.equal(probe["out"], got) and probe["refused"] == 0
+    for key in ("tiles_reached", "list_entries", "entries_binned",
+                "extra_posting_reads"):
+        assert probe[key] == want[key], key
     w16 = weights.to(torch.bfloat16)
     got = sparse.sparse_coarse_kernel(docs, w16, idx, qw, live, n_pad, 512)
     want = sparse.sparse_coarse_plain(docs, w16, idx, qw, live, n_pad, 512)
@@ -531,6 +550,62 @@ def test_sparse_kernels_match_plain_versions_on_the_card(function):
     want = sparse.sparse_rerank_plain(docs, weights, idx, qw, live, cand, cs,
                                       n_pad, 512, 10)
     assert_sparse_equal(got, want, True)
+
+
+def _dense_tile_rows(c):
+    """K8 (live and not) and K19 (the four functions, live and not) on one
+    dense-row case against their plain versions on the card (bitwise, log
+    and sigmoid within SPARSE_RTOL); each probe refuses nothing and bins
+    what the CPU mirror bins at the card's tile."""
+    from elasticsearch_tpu_torch.ops import sparse
+    g = {key: v.cuda() if torch.is_tensor(v) else v for key, v in c.items()}
+    n_pad, avgdl = c["n_pad"], c["avgdl"]
+    for lmask in (None, g["live"]):
+        args = (g["bd"], g["bt"], g["bi"], g["w"], g["dl"], avgdl, n_pad,
+                lmask)
+        assert torch.equal(port.bm25_block_scores(*args).view(torch.int32),
+                           port.bm25_block_scores_plain(*args).view(
+                               torch.int32))
+        for function, (pivot, exponent) in SPARSE_FUNCTIONS.items():
+            sargs = (g["bd"], g["bw"], g["bi"], g["w"], pivot, exponent,
+                     n_pad, function, lmask)
+            assert_sparse_equal([sparse.sparse_scores(*sargs)],
+                                [sparse.sparse_scores_plain(*sargs)],
+                                function in ("saturation", "linear"))
+    got = (port.bm25_scores_probe(g["bd"], g["bt"], g["bi"], g["w"],
+                                  g["dl"], avgdl, n_pad, g["live"]),
+           sparse.sparse_scores_probe(g["bd"], g["bw"], g["bi"], g["w"], 1.0,
+                                      1.0, n_pad, "linear", g["live"]))
+    want = (port.bm25_dense_mirror(c["bd"], c["bt"], c["bi"], c["w"],
+                                   c["dl"], avgdl, n_pad, c["live"])[1],
+            sparse.sparse_dense_mirror(c["bd"], c["bw"], c["bi"], c["w"],
+                                       1.0, 1.0, n_pad, "linear",
+                                       c["live"])[1])
+    for probe, stats in zip(got, want):
+        assert probe["refused"] == 0
+        for key in ("tiles_reached", "list_entries", "entries_binned",
+                    "extra_posting_reads"):
+            assert probe[key] == stats[key], key
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(DENSE_TILE_CASES))
+def test_dense_tile_cases_on_the_card(name):
+    """The dense row (K8, K19) on each of tests/torch_inputs.py's
+    DENSE_TILE_CASES spread onto the card's 8,192-doc tiles."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    scale = CARD_TILE // dense_tile_case(name)["tile"]
+    _dense_tile_rows(dense_tile_case(name, scale))
+
+
+@pytest.mark.cuda
+def test_dense_tiles_at_16m_docs_on_the_card():
+    """The dense row over 16,777,216 docs (2,048 tiles): a rare term's
+    block spans many of them."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    _dense_tile_rows(dense_tile_case("spanning_blocks", 4096))
 
 
 # the forward's weights are anchors (2.0 a token) plus a normalized

@@ -701,3 +701,126 @@ def sparse_tile_slots(seed: int = 41, scale: int = 1, n_slots: int = 4,
     T = torch.as_tensor
     return dict(bd=T(bd), bw=T(bw), bi=T(bi), bq=T(bq), live=T(live),
                 n_pad=n_pad * scale, tile=128 * scale, n_q=2)
+
+
+# ---------------------------------------------------------------------------
+# the dense row of the tile pipeline (csrc/tiles.cuh section 5: K8 under
+# Bm25Policy, K19 under FeaturePolicy; ops/bm25.py ``bm25_dense_mirror``,
+# ops/sparse.py ``sparse_dense_mirror``): one query's blocks over one
+# store, at a small tile on the CPU and, scaled, at the card's 8,192
+# ---------------------------------------------------------------------------
+
+def dense_postings(rng, n_docs: int, n_terms: int, rare: float,
+                   shuffled: int = 0):
+    """(block_docs [NB, 128] int32, tfs [NB, 128] f32, feature weights
+    [NB, 128] f32, term -> its block ids): each term's docs ascend through
+    its blocks, -1 pads the last one and ~5 % of positions (holes); a share
+    ``rare`` of the terms hold up to a few hundred docs spread over the
+    whole range (their blocks span many tiles), the others a run of a
+    narrow range. The first ``shuffled`` blocks of the rare terms have
+    their docs out of order."""
+    blocks, of_term = [], []
+    left = shuffled
+    narrow = min(100, n_docs)
+    for _ in range(n_terms):
+        is_rare = rng.random() < rare
+        if is_rare:
+            df = int(rng.integers(2, min(300, n_docs) + 1))
+            docs = np.sort(rng.choice(n_docs, df, replace=False))
+        else:
+            width = int(rng.integers(narrow, max(narrow + 1, n_docs // 4)))
+            start = int(rng.integers(0, n_docs - width + 1))
+            df = int(rng.integers(1, min(width, 600) + 1))
+            docs = np.sort(rng.choice(width, df, replace=False)) + start
+        ids = []
+        for i in range(0, len(docs), 128):
+            part = docs[i: i + 128]
+            row = np.full(128, -1, np.int32)
+            row[: len(part)] = part
+            row[rng.random(128) < 0.05] = -1
+            if is_rare and left > 0 and len(part) > 8:
+                row[: len(part)] = rng.permutation(row[: len(part)])
+                left -= 1
+            ids.append(len(blocks))
+            blocks.append(row)
+        of_term.append(ids)
+    bd = np.stack(blocks)
+    tfs = np.where(bd >= 0, rng.integers(1, 7, bd.shape), 0).astype(
+        np.float32)
+    fw = np.where(bd >= 0, rng.uniform(0.05, 3.0, bd.shape), 0.0).astype(
+        np.float32)
+    return bd, tfs, fw, of_term
+
+
+# name -> (seed, n_docs, n_pad, tile, terms in the query, share of rare
+# terms, dead share, blocks out of order, what else)
+DENSE_TILE_CASES = {
+    "spanning_blocks": (51, 3000, 4096, 64, 6, 0.7, 0.05, 0, None),
+    "crowded_tiles": (52, 3000, 4096, 1024, 40, 0.0, 0.05, 0, None),
+    "all_padding": (53, 3000, 4096, 64, 0, 0.5, 0.05, 0, None),
+    "repeated_term": (54, 3000, 4096, 128, 4, 0.5, 0.05, 0, "repeat"),
+    "block_spanning_most_tiles": (55, 3000, 4096, 64, 3, 0.3, 0.05, 0,
+                                  "wide"),
+    "blocks_out_of_order": (56, 3000, 4096, 64, 5, 0.9, 0.05, 1000, None),
+    "ragged_last_tile": (57, 1900, 2000, 256, 4, 0.4, 0.05, 0, None),
+    "below_one_tile": (58, 90, 100, 128, 3, 0.5, 0.2, 0, None),
+    "dead_docs_and_padding": (59, 2500, 4096, 128, 4, 0.4, 0.5, 0, "pad"),
+}
+
+
+def dense_tile_case(name: str, scale: int = 1):
+    """One case as CPU tensors: a block store (``bd``, tfs ``bt``, feature
+    weights ``bw``), one query's [QB] list (``bi``, weights ``w``) padded
+    as ``gather_query_blocks`` pads (block 0, weight 0; "pad" also
+    interleaves padding entries), doc lengths ``dl``, ``live`` and
+    ``avgdl``. "repeat" lists a term's blocks twice; "wide" adds a block
+    whose 128 docs spread over the whole range. ``scale`` spreads every doc
+    id d to d * scale over n_pad * scale docs (scale CARD_TILE // tile puts
+    the case's tiles on the card's)."""
+    (seed, n_docs, n_pad, tile, n_terms, rare, dead, shuffled,
+     extra) = DENSE_TILE_CASES[name]
+    rng = np.random.default_rng(seed)
+    bd, bt, bw, of_term = dense_postings(rng, n_docs, max(n_terms, 8) * 3,
+                                         rare, shuffled)
+    idx, w = [], []
+    terms = rng.choice(len(of_term), n_terms, replace=False)
+    for term in terms:
+        weight = float(rng.uniform(0.2, 9.0))
+        idx += of_term[term]
+        w += [weight] * len(of_term[term])
+        if extra == "pad":
+            idx.append(0)
+            w.append(0.0)
+    if extra == "repeat":
+        first = len(of_term[terms[0]])
+        idx += idx[:first]
+        w += w[:first]
+    if extra == "wide":
+        row = np.sort(rng.choice(n_docs, 128, replace=False)).astype(np.int32)
+        bd = np.concatenate([bd, row[None]])
+        bt = np.concatenate([bt, rng.integers(1, 7, (1, 128)).astype(
+            np.float32)])
+        bw = np.concatenate([bw, rng.uniform(0.05, 3.0, (1, 128)).astype(
+            np.float32)])
+        idx.append(len(bd) - 1)
+        w.append(float(rng.uniform(0.2, 9.0)))
+    qb = next_pow2(max(len(idx), 1), minimum=8)
+    bi = np.zeros(qb, np.int32)
+    bq = np.zeros(qb, np.float32)
+    bi[: len(idx)] = idx
+    bq[: len(w)] = w
+    dl = np.zeros(n_pad, np.float32)
+    dl[:n_docs] = rng.integers(16, 97, n_docs)
+    live = np.zeros(n_pad, bool)
+    live[:n_docs] = rng.random(n_docs) >= dead
+    avgdl = float(rng.uniform(40.0, 60.0))
+    if scale > 1:
+        bd = np.where(bd >= 0, bd * scale, -1).astype(np.int32)
+        dl2 = np.zeros(n_pad * scale, np.float32)
+        live2 = np.zeros(n_pad * scale, bool)
+        dl2[::scale] = dl
+        live2[::scale] = live
+        dl, live, n_pad = dl2, live2, n_pad * scale
+    T = torch.as_tensor
+    return dict(bd=T(bd), bt=T(bt), bw=T(bw), bi=T(bi), w=T(bq), dl=T(dl),
+                live=T(live), avgdl=avgdl, n_pad=n_pad, tile=tile * scale)
