@@ -18,7 +18,11 @@ Phases, each of which fails the run on any failed check:
 3. knn-small: the kNN kernels (knn_flat, knn_coarse, knn_rerank) against
    their plain versions on seeded Gaussian inputs: three similarities,
    B in {1, 8, 64}, D in {128, 960}, k' up to 1024, dead docs, missing
-   vectors, duplicate rows and a zero query row; bitwise equal.
+   vectors, duplicate rows and a zero query row; bitwise equal. Then the
+   streaming pass (csrc/knn_stream.cuh): K9 at D 1 to 4,096, on rows
+   that are not 16-byte aligned and a base 4 bytes off, ragged last
+   tiles, three similarities; row 40 at S 2, B 1 / 5 / 16, every score
+   compared; rows 40 and 44 at their served S 4 calls; bitwise.
 4. engine: ``InternalEngine`` + ``SearchService`` with one text field,
    10,000 seeded Zipf(1.35) documents over 30,000 words, several
    segments, a few deletes; 32 match bodies at track_total_hits default,
@@ -170,7 +174,11 @@ Phases, each of which fails the run on any failed check:
    kernels) against their plain versions on seeded columns: negative
    values, buckets dropped at both ends, -1 padded and out-of-range
    ordinals, an interval-0 plan, bucket sums past 2^24 (added in row
-   order by both); bitwise.
+   order by both); bitwise. Then K21 / K23 on tests/torch_inputs.py's
+   HIST_CASES (|v| sums under, at and over 2^24, values at +-(2^24 - 1),
+   a -9999 bucket, 20,000 buckets, P 1 and 64) at 20,000 and 1,040,000
+   rows: bitwise their plain versions and the CPU mirror, the same
+   buckets chained, three operations a call.
 19. wide: windows of 10,000 on the full and knn-full shards, per segment:
    a match (K1 with the rounds), the same match with exact totals (the
    dense collector: K8 + K10's radix select) and a knn with k 10,000 (K5,
@@ -199,9 +207,12 @@ Phases, each of which fails the run on any failed check:
    paths; for every member: plane equal to per segment in keys, counts,
    mins and maxs. Launch counts are zeroed before
    phases 20-21 and read after: K20-K23 must have launched; then each is
-   held against its plain version and timed at its largest call, K21 and
-   K23 also beside their sums' chain bound (the largest bucket's rows
-   times one dependent f32 add, timed on the card).
+   held against its plain version (K21 / K23 on every recorded call) and
+   timed at its largest call; K21 and K23 also at their smallest, median
+   and largest calls with the stage split (memset, the sort launch's
+   counting / offsets / placing passes, chains) and the chain bound of the
+   longest chain run (its rows times one dependent f32 add, timed on the
+   card) beside the old one (the largest bucket).
 
 22. node-engine: two port nodes, ``InProcessCluster(n_nodes=1)`` on the
    card and on the CPU (the CPU one in a worker process, loading and
@@ -1446,6 +1457,92 @@ def phase_knn_small(torch, np, dev) -> None:
     log(f"knn-small: {n} kernel calls (knn_flat, knn_coarse, knn_rerank; "
         f"3 similarities, B 1/8/64, D 128/960, k' up to 1024) bitwise equal "
         f"to their plain versions")
+    stream_small(torch, np, dev)
+
+
+# (dims, docs, n_docs_pad, base offset in floats): the streaming pass's
+# edges -- one to 4,096 dims, rows that are not 16-byte aligned (D 1 / 3 /
+# 99, and a matrix 4 bytes past a 16-byte boundary), ragged last tiles
+STREAM_CASES = ((1, 900, 1000, 0), (3, 5000, 5003, 0), (99, 2000, 2048, 0),
+                (100, 3000, 4096, 0), (128, 20_000, 20_001, 0),
+                (128, 3000, 4096, 1), (768, 2000, 2050, 0),
+                (960, 1500, 1600, 0), (4096, 300, 333, 0))
+
+
+def stream_small(torch, np, dev) -> None:
+    """K9 (knn_scores) and rows 40 / 44 (sharded_knn, sharded_hybrid) --
+    the streaming pass of csrc/knn_stream.cuh -- bitwise against their
+    plain versions: K9 on STREAM_CASES under the three similarities; row
+    40 at S 2 on the same dims with B 1, 5 (a partial query group) and 16
+    and k past the whole slot space (every score compared); rows 40 and 44
+    at their served calls (S 4 slots of 262,144 rows, D 128, B 1, cosine
+    and l2_norm; D 768, BEIR NQ's width)."""
+    from elasticsearch_tpu_torch.ops import knn
+    from elasticsearch_tpu_torch.parallel import sharded_search as sh
+    rng = np.random.default_rng(SEED + 1801)
+    T = lambda a: torch.as_tensor(a, device=dev)  # noqa: E731
+    n = 0
+    for dims, n_docs, n_pad, shift in STREAM_CASES:
+        m, norms, exists, _live, _q = knn_inputs(np, rng, n_docs, n_pad,
+                                                 dims, 1)
+        flat = torch.zeros(n_pad * dims + shift, device=dev)
+        mt = flat[shift:].view(n_pad, dims)
+        mt.copy_(T(m))
+        check((mt.data_ptr() % 16 == 0) == (shift == 0),
+              "stream-small: the shifted matrix is aligned")
+        nt, et = T(norms), T(exists)
+        for sim in SIMILARITIES:
+            q = rng.standard_normal(dims, dtype=np.float32)
+            batch = knn.QueryBatch([q], dev)
+            args = (mt, nt, et, batch.queries[0], batch.qn, batch.q2, sim)
+            same_row(torch, f"knn_scores D={dims} N_pad={n_pad} "
+                     f"shift={shift} {sim}", knn.vector_scores(*args),
+                     knn.vector_scores_plain(*args), True)
+            n += 1
+        if shift:
+            continue
+        per = min(n_pad, 1001)
+        mat = torch.stack([mt[:per], mt[-per:]]).contiguous()
+        nrm = torch.stack([nt[:per], nt[-per:]]).contiguous()
+        val = torch.stack([et[:per], et[-per:]]).contiguous()
+        for b in (1, 5, 16):
+            q = rng.standard_normal((b, dims), dtype=np.float32)
+            qn, q2 = (T(x) for x in knn.query_norms(q))
+            for sim in SIMILARITIES:
+                args = (mat, nrm, val, T(q), qn, q2, 2 * per + 3, sim)
+                compare(torch, f"sharded_knn S=2 N={per} D={dims} B={b} "
+                        f"{sim}", sh.sharded_knn(*args),
+                        sh.sharded_knn_plain(*args))
+                n += 1
+        del flat, mt, mat
+    centers = rng.integers(16, 200, (1000, SIFT_DIMS)).astype(np.float32)
+    m = sift_shaped(np, SEED + 1802, 4 * 262_144, centers)
+    mat = T(m.reshape(4, 262_144, SIFT_DIMS))
+    del m
+    nrm = torch.linalg.vector_norm(mat, dim=2)
+    val = torch.ones(4, 262_144, dtype=torch.bool, device=dev)
+    val[:, 250_000:] = False
+    q = sift_shaped(np, SEED + 1803, 1, centers)
+    qn, q2 = (T(x) for x in knn.query_norms(q))
+    for sim in ("cosine", "l2_norm"):
+        args = (mat, nrm, val, T(q), qn, q2, 10, sim)
+        compare(torch, f"sharded_knn served S=4 N=262144 D=128 B=1 {sim}",
+                sh.sharded_knn(*args), sh.sharded_knn_plain(*args))
+        n += 1
+    del mat, nrm, val
+    hyb = hybrid_operands(torch, dev, 4, 262_144, 768)
+    qvec = hyb[6][1, 77].contiguous()
+    qn, q2 = (T(x) for x in knn.query_norms(qvec[None].cpu().numpy()))
+    args = hyb + (qvec, qn, q2, 10)
+    compare(torch, "sharded_hybrid S=4 N=262144 D=768", sh.sharded_hybrid(
+        *args), sh.sharded_hybrid_plain(*args))
+    n += 1
+    del hyb
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    log(f"stream-small: {n} calls of K9 and rows 40 / 44 bitwise equal to "
+        f"their plain versions (D 1 to 4,096, unaligned rows and base, "
+        f"ragged last tiles, B 1 / 5 / 16, the served S 4 calls)")
 
 
 KNN_FIELDS = {"cosine": "vec_cos", "dot_product": "vec_dot",
@@ -2563,6 +2660,33 @@ def dense_row_calls(torch, fam: str, calls, kernel, probe_fn,
     return out
 
 
+def stream_split(torch, fn, ms: float, bound_ms: float, shape: str) -> dict:
+    """A streaming-pass call (K9, rows 40 / 44): profiler device ms a call
+    by kernel, host microseconds a call, and the bound's share of the
+    event ms and of the pass's own device ms (the byte bound's share is
+    the pass's fraction of the card's memory rate). The profiler may keep
+    no record of the pass late in a long run: its device ms and share
+    are then not measured (None)."""
+    dev_ms, by = device_split(torch, fn, 5)
+    h_us = host_us(torch, fn)
+    kept = [v[0] for k, v in by.items() if "stream_kernel" in k]
+    pass_ms = kept[0] if kept else None
+    out = {"device_ms": dev_ms or None, "host_us": h_us,
+           "kernels_ms": {k: v[0] for k, v in by.items()},
+           "pass_ms": pass_ms, "bound_share": bound_ms / ms,
+           "bound_share_device": bound_ms / pass_ms if pass_ms else None}
+    share = (f"{out['bound_share_device']:.3f} of the pass's device ms "
+             f"({pass_ms:.4f})" if pass_ms else
+             "not measured on the device (the profiler kept no record of "
+             "the pass)")
+    device = (f"{dev_ms:.4f} ms a call ({split_text(by, 5)})" if dev_ms
+              else "not recorded")
+    log(f"streaming pass at {shape}: {ms:.4f} event ms, profiler device "
+        f"{device}, host {h_us:.2f} us a call; the bound {bound_ms:.4f} ms "
+        f"is {out['bound_share']:.3f} of the event ms, {share}")
+    return out
+
+
 def phase_dense_kernels(torch, rec, launches) -> list:
     """Each dense family against its plain version on up to 8 main-path
     calls plus its largest per row length (K8 on every recorded call);
@@ -2620,6 +2744,9 @@ def phase_dense_kernels(torch, rec, launches) -> list:
                 f"timed at {shape}")
             split = ({"host_device": topk_split(torch, kernel, args, shape)}
                      if fam == "dense_topk" else {})
+            if fam == "knn_scores":
+                split = stream_split(torch, lambda: kernel(*args, **kwargs),
+                                     ms, bound_ms, shape)
             if fam == "bm25_scores":
                 split["calls"] = dense_row_calls(
                     torch, fam, calls, kernel, bm.bm25_scores_probe,
@@ -3806,6 +3933,14 @@ def device_split(torch, fn, calls: int):
             by[ev.key[:48]] = (us / ev.count / 1e3, ev.count)
     total = sum(ms * max(1, round(n / calls)) for ms, n in by.values())
     return total, by
+
+
+def device_ops(by: dict, calls: int):
+    """Device operations (kernels, memsets, copies) a call, from a
+    ``device_split`` record over ``calls`` calls: each kind recorded counts
+    max(1, round(launches / calls)) times; None when the profiler kept no
+    record."""
+    return sum(max(1, round(n / calls)) for _, n in by.values()) or None
 
 
 def split_text(by: dict, calls: int) -> str:
@@ -5004,6 +5139,7 @@ def phase_wide_kernels(torch, rec, launches) -> list:
 GEONAMES_DOCS = 11_396_503
 AGGS_FAMILIES = ("aggs_ordinal_counts", "aggs_histogram",
                  "aggs_ordinal_counts_plane", "aggs_histogram_plane")
+HIST_FAMILIES = ("aggs_histogram", "aggs_histogram_plane")
 AGGS_FNS = {"aggs_ordinal_counts": "ordinal_counts",
             "aggs_histogram": "histogram_partials",
             "aggs_ordinal_counts_plane": "ordinal_counts_plane",
@@ -5257,6 +5393,83 @@ def phase_aggs_small(torch, np, dev) -> None:
         compare(torch, f"aggs_ordinal_counts e={e}", (one,), (want[0],))
     log("aggs-small: K20-K23 bitwise equal to their plain versions "
         "(negatives, drops, -1 pads, sums past 2^24, an interval-0 plan)")
+    hist_cases_on_card(torch, dev)
+
+
+def hist_cases_on_card(torch, dev) -> None:
+    """K21 and K23 on ``tests/torch_inputs.py``'s HIST_CASES (the
+    exact-bucket rule's edges and the rest, at 20,000 and 1,048,576 rows):
+    counts, sums' bits, mins and maxs equal to the plain versions and to
+    the CPU mirror of the kernels' arithmetic, and the probe's chain
+    buckets and longest chain equal to the mirror's (the card and the
+    mirror decide the same buckets exact). K21 runs each positive-interval
+    plan alone."""
+    from elasticsearch_tpu_torch.ops import aggs
+    inputs = torch_inputs()
+    n = 0
+    for scale in (1, 52):
+        for name in inputs.HIST_CASES:
+            *cols, nb = inputs.hist_case(name, scale)
+            cpu = tuple(torch.as_tensor(c) for c in cols)
+            card = tuple(c.to(dev) for c in cpu)
+            (want, chain) = aggs.histogram_partials_plane_mirror(*cpu, nb)
+            compare(torch, f"mirror {name} x{scale}", want,
+                    aggs.histogram_partials_plane_plain(*cpu, nb))
+            probe = aggs.histogram_probe(*card, nb, plane=True)
+            got = tuple(t.cpu() for t in probe["out"])
+            compare(torch, f"aggs_histogram_plane {name} x{scale}", got,
+                    want)
+            check(torch.equal(got[1].view(torch.int32),
+                              want[1].view(torch.int32)),
+                  f"aggs_histogram_plane {name}: sum bits differ")
+            lengths = want[0][chain]
+            check(probe["chain_buckets"] == int(chain.sum()) and
+                  probe["longest_chain"] == (int(lengths.max())
+                                             if len(lengths) else 0),
+                  f"aggs_histogram_plane {name}: the card chained "
+                  f"{probe['chain_buckets']} buckets (longest "
+                  f"{probe['longest_chain']}), the mirror "
+                  f"{int(chain.sum())}")
+            n += 1
+            for p in range(min(3, card[2].shape[0])):
+                base, interval = int(cols[3][p]), int(cols[4][p])
+                if interval <= 0:
+                    continue
+                one = aggs.histogram_partials(card[0], card[1], card[2][p],
+                                              base, interval, nb)
+                got = tuple(t.cpu() for t in one)
+                compare(torch, f"aggs_histogram {name} x{scale} plan {p}",
+                        got, tuple(t[p] for t in want))
+                check(torch.equal(got[1].view(torch.int32),
+                                  want[1][p].view(torch.int32)),
+                      f"aggs_histogram {name}: sum bits differ")
+                n += 1
+    log(f"aggs-small: {n} K21 / K23 calls on the exact-bucket rule's "
+        f"cases (|v| sums under, at and over 2^24, negatives, +-(2^24 - 1), "
+        f"a -9999 bucket, interval 0, drops, padding rows, 20,000 buckets, "
+        f"P 1 and 64) bitwise equal to the plain versions and to the CPU "
+        f"mirror, the same buckets chained")
+    # the operations a wrapper call puts on the card, as the profiler
+    # records them (at most three: a memset, the sort, the chains)
+    *cols, nb = inputs.hist_case("p64", 52)
+    card = tuple(torch.as_tensor(c).to(dev) for c in cols)
+    for fam, fn in (
+            ("aggs_histogram_plane",
+             lambda: aggs.histogram_partials_plane(*card, nb)),
+            ("aggs_histogram",
+             lambda: aggs.histogram_partials(card[0], card[1], card[2][0],
+                                             int(cols[3][0]),
+                                             int(cols[4][0]), nb))):
+        by = device_split(torch, fn, 5)[1]
+        ops = device_ops(by, 5)
+        if ops is None:
+            log(f"aggs-small: {fam}'s operations not recorded (the profiler "
+                f"kept no record)")
+            continue
+        check(ops <= 3, f"{fam}: {ops} operations a call "
+              f"({split_text(by, 5)})")
+        log(f"aggs-small: {fam} over {card[0].numel()} rows: {ops} "
+            f"operations a call ({split_text(by, 5)})")
 
 
 def geo_engine_docs(np, n: int):
@@ -5559,12 +5772,84 @@ def add_chain_ns(torch) -> float:
     return (ms[hi] - ms[lo]) * 1e6 / (hi - lo)
 
 
+def hist_calls(torch, fam: str, calls, kernel, add_ns: float) -> dict:
+    """K21 or K23 at the smallest, median and largest recorded main-path
+    call by (rows, matching rows): event ms (median of 20), the probe's
+    split (medians of 5: the memset, the cooperative sort launch, the
+    chains), the chain buckets and the longest chain run, its chain bound
+    (rows x one dependent add) beside the old one (the largest bucket,
+    which the older design chained whole) and the byte bound, host
+    microseconds a call, profiler device ms and operations a call (at
+    most three); each probe's outputs bitwise the wrapper's."""
+    from elasticsearch_tpu_torch.ops import aggs
+    plane = fam == "aggs_histogram_plane"
+    order = sorted(calls, key=lambda c: (c[0][0].numel(),
+                                         int(c[0][2].sum())))
+    out = {}
+    for label, (args, kwargs) in (("smallest", order[0]),
+                                  ("median", order[len(order) // 2]),
+                                  ("largest", order[-1])):
+        def fn():
+            return kernel(*args, **kwargs)
+        ms = time_call(torch, fn, 20)
+        probes = [aggs.histogram_probe(*args, plane=plane)
+                  for _ in range(6)]
+        want = fn()
+        torch.cuda.synchronize()
+        p0 = probes[0]
+        for g, w in zip(p0["out"], want):
+            check(torch.equal(g.view(torch.int32), w.view(torch.int32)),
+                  f"{fam} (probe): outputs differ from the wrapper's")
+        split = {key: sorted(p["split_ms"][key] for p in probes[1:])[2]
+                 for key in aggs.HIST_STAGES}
+        largest = int(want[0].max())
+        sort_ns = {key: sorted(p["sort_ns"][key] for p in probes[1:])[2]
+                   for key in p0["sort_ns"]}
+        dev_ms, by = device_split(torch, fn, 5)
+        row = {"shape": f"p={aggs_size(fam, args)[0]} n={args[0].numel()} "
+                        f"matching={int(args[2].sum())}",
+               "ms": ms, "split_ms": split, "sort_ns": sort_ns,
+               "operations": device_ops(by, 5),
+               "chain_buckets": p0["chain_buckets"],
+               "long_chains": p0["long_chains"],
+               "longest_chain_rows": p0["longest_chain"],
+               "chain_bound_ms": p0["longest_chain"] * add_ns * 1e-6,
+               "largest_bucket_rows": largest,
+               "old_chain_bound_ms": largest * add_ns * 1e-6,
+               "bound_ms": aggs_bound(fam, args)[0],
+               "host_us": host_us(torch, fn),
+               "device_ms": dev_ms or None}
+        check(row["operations"] is None or row["operations"] <= 3,
+              f"{fam}: {row['operations']} operations a call "
+              f"({split_text(by, 5)})")
+        log(f"kernel {fam} at the {label} main-path call ({row['shape']}): "
+            f"{ms:.4f} ms (median of 20); stages memset "
+            f"{split['memset']:.4f}, sort {split['sort']:.4f} (counting "
+            f"{sort_ns['count'] / 1e6:.4f}, offsets "
+            f"{sort_ns['offsets'] / 1e6:.4f}, placing "
+            f"{sort_ns['place'] / 1e6:.4f} by the card's clock), chains "
+            f"{split['chains']:.4f} ms (" + (
+                f"{row['operations']} operations" if row["operations"] else
+                "operations not recorded") + " by the profiler); "
+            f"{row['chain_buckets']} chain buckets, the longest "
+            f"{row['longest_chain_rows']} rows: chain bound "
+            f"{row['chain_bound_ms']:.4f} ms (the largest bucket's "
+            f"{largest} rows: {row['old_chain_bound_ms']:.4f}), byte bound "
+            f"{row['bound_ms']:.4f} ms; host {row['host_us']:.2f} us a "
+            f"call, profiler device " + (
+                f"{row['device_ms']:.4f} ms a call" if row["device_ms"] else
+                "not recorded (the profiler kept no kernel record)"))
+        out[label] = row
+    return out
+
+
 def phase_aggs_kernels(torch, rec, launches) -> list:
     """K20-K23 held against their plain versions on the main path's calls
     (up to 4 each plus the largest), then timed at the largest beside the
     bound, the plain version and the library yardstick; K21 and K23 also
-    beside their sums' chain bound (the timed call's largest bucket's rows
-    times one dependent f32 add, ``add_chain_ns``)."""
+    at their smallest, median and largest calls with their stage split and
+    the chain bound of the longest chain each ran (``hist_calls``,
+    ``add_chain_ns``). K21 and K23 are held on every recorded call."""
     from elasticsearch_tpu_torch.ops import aggs
     rows = []
     add_ns = add_chain_ns(torch)
@@ -5576,7 +5861,9 @@ def phase_aggs_kernels(torch, rec, launches) -> list:
         kernel = getattr(aggs, AGGS_FNS[fam])
         plain = getattr(aggs, AGGS_FNS[fam] + "_plain")
         err = 0.0
-        for args, kwargs in calls[:4] + rec.largest_calls(fam):
+        held = calls if fam in HIST_FAMILIES else \
+            calls[:4] + rec.largest_calls(fam)
+        for args, kwargs in held:
             got = kernel(*args, **kwargs)
             got = got if isinstance(got, tuple) else (got,)
             want = plain(*args, **kwargs)
@@ -5606,12 +5893,10 @@ def phase_aggs_kernels(torch, rec, launches) -> list:
             "bound_ms": bound_ms, "bound_by": "bytes", "library_ms": lib_ms,
             "shape": shape}
         if fam in ("aggs_histogram", "aggs_histogram_plane"):
-            chain = int(kernel(*args, **kwargs)[0].max())
-            row["largest_bucket_rows"] = chain
-            row["chain_bound_ms"] = chain * add_ns * 1e-6
-            log(f"kernel {fam}: chain bound {row['chain_bound_ms']:.4f} ms "
-                f"(the largest bucket's {chain} rows x {add_ns:.4f} ns a "
-                f"dependent f32 add) beside the byte bound {bound_ms:.4f} ms")
+            row["calls"] = hist_calls(torch, fam, calls, kernel, add_ns)
+            row.update({k: row["calls"]["largest"][k] for k in (
+                "longest_chain_rows", "chain_bound_ms", "largest_bucket_rows",
+                "old_chain_bound_ms", "split_ms")})
         rows.append(row)
         torch.cuda.empty_cache()
     return rows
@@ -9156,10 +9441,13 @@ def phase_sharded_kernels(torch, np, rec, launches, shared, dev) -> list:
         plain_ms = time_call(torch, lambda: plain(*args, **kwargs), 5)
         lib = sharded_library_ms(torch, fam, args, kwargs)
         bound_ms, bound_by, nbytes = sharded_bound(torch, fam, args, kwargs)
+        extra = {}
         if fam in ("sharded_knn", "sharded_hybrid"):
             m = args[0] if fam == "sharded_knn" else args[6]
             shape = (f"S={m.shape[0]} N={m.shape[1]} D={m.shape[2]} "
                      f"B={args[3].shape[0] if fam == 'sharded_knn' else 1}")
+            extra = stream_split(torch, lambda: kernel(*args, **kwargs), ms,
+                                 bound_ms, f"{fam} {shape}")
         else:
             shape = (f"S={args[0].shape[0]} NB={args[0].shape[1]} "
                      f"lists={tuple(args[4 if fam != 'sharded_sparse' else 2].shape)}")
@@ -9172,7 +9460,7 @@ def phase_sharded_kernels(torch, np, rec, launches, shared, dev) -> list:
             "replaces": REPLACES[fam], "launches": launches.get(fam, 0),
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib,
-            "library_is_partial": True, "shape": shape})
+            "library_is_partial": True, "shape": shape, **extra})
         torch.cuda.empty_cache()
     del text, hyb
     return rows
@@ -9484,7 +9772,7 @@ def main(argv=None) -> int:
         from elasticsearch_tpu_torch.ops import aggs as aggs_ops
         DEVICE_PROFILE.reset_launches()
         with Recorder({f: (aggs_ops, AGGS_FNS[f]) for f in AGGS_FAMILIES},
-                      aggs_size, keep=4) as arec:
+                      aggs_size, keep=4, keep_all=HIST_FAMILIES) as arec:
             if "aggs-engine" in phases:
                 phase_aggs_engine(torch, np, dev, args.geo_engine_docs)
                 log(t(), "aggs-engine done")

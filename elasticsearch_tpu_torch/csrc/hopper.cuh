@@ -76,6 +76,19 @@ __device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
         : "memory");
 }
 
+// TMA copy of one box of a 2-D tensor map (``map``: a __grid_constant__
+// kernel parameter) at element coordinates (x inner, y outer) into shared
+// memory, completing on ``bar`` with the box's bytes (elements outside the
+// tensor read as zeros and count too).
+__device__ __forceinline__ void tma_load_2d(uint32_t dst, const void* map,
+                                            int x, int y, uint32_t bar) {
+    asm volatile(
+        "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::"
+        "complete_tx::bytes [%0], [%1, {%2, %3}], [%4];\n" ::"r"(dst),
+        "l"(map), "r"(x), "r"(y), "r"(bar)
+        : "memory");
+}
+
 // The descriptor of a K-major operand with the 128-byte swizzle at shared
 // address ``addr`` (LBO 16 bytes, unused by this layout; SBO 1024 bytes).
 __device__ __forceinline__ uint64_t sw128_desc(uint32_t addr) {
@@ -153,6 +166,22 @@ __device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
                                            int bytes) {
     asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
                  "l"(src), "r"(bytes)
+                 : "memory");
+}
+
+// cp.async of one 4-byte value (any 4-byte-aligned address) into shared
+// memory.
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src) {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(dst),
+                 "l"(src)
+                 : "memory");
+}
+
+// An arrival on ``bar`` once every cp.async this thread issued before it
+// has landed (the barrier's expected count includes this arrival).
+__device__ __forceinline__ void cp_async_mbar_arrive(uint32_t bar) {
+    asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::
+                     "r"(bar)
                  : "memory");
 }
 

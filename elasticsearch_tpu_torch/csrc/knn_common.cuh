@@ -1,10 +1,10 @@
 // Shared device code of the kNN kernel families: the one-shard K5-K7 and
 // K9 (knn_flat, knn_coarse, knn_rerank, knn_scores), the mesh's
 // mesh_knn_topk, mesh_knn_coarse and mesh_knn_rerank, which run K5 / K6 /
-// K7 for every slot of a stack of shards in one launch, and (through
-// sharded_scores.cuh) the scores pass of the sharded data plane's
-// sharded_knn and sharded_hybrid. K5's and K6's pipelines are in
-// knn_tc.cuh; the similarity transform and the slot axis below are
+// K7 for every slot of a stack of shards in one launch, and the sharded
+// data plane's sharded_knn and sharded_hybrid. K5's and K6's pipelines
+// are in knn_tc.cuh, K9's and the sharded scores' streaming pass in
+// knn_stream.cuh; the similarity transform and the slot axis below are
 // theirs too.
 //
 // 1. The similarity transform (similarity below), the JAX package's
@@ -84,167 +84,12 @@ inline bool valid_sim(int sim) {
 //    masks), its per-query filter rows and its score plane s * n_q *
 //    n_docs_pad cells in ([S, n_q, N_pad]), its candidates and outputs
 //    s * n_q rows in; the queries and their norm terms are shared. The
-//    slots ride grid z (the scores passes) or the row index (the re-rank),
-//    so the doc tiles keep grid y to themselves. The one-shard families
+//    slots ride the work items (knn_tc.cuh, knn_stream.cuh) or the row
+//    index (the re-rank). The one-shard families
 //    pass one slot, and each slot of a mesh launch runs exactly the
 //    one-shard arithmetic on its own plane: bitwise K5 / K6 / K7 there.
 
-// 4. The CUDA-core scores pass of knn_scores (dense row: 0 where the doc
-//    has no vector) and, through sharded_scores.cuh, of the sharded data
-//    plane (masked: -inf where the doc is not allowed); knn_flat and
-//    knn_coarse score on the tensor cores (knn_tc.cuh). One CTA scores a
-//    tile of TILE docs of one slot against a group of QB queries (QB = 1
-//    .. 16, a power of two), staging DT dims of the tile
-//    at a time in shared memory; every thread owns RD docs x QB queries of
-//    f32 sums in registers and adds the products d = 0, 1, ... in order,
-//    so a row's sums never depend on the batch. The query groups of one
-//    tile are adjacent block ids, so the tile is read from device memory
-//    about once and from L2 by the other groups.
-
-constexpr int SC_THREADS = 128;
-constexpr int SC_RD = 4;                      // docs per thread
-constexpr int SC_TILE = SC_THREADS * SC_RD;   // docs per CTA
-constexpr int SC_DT = 16;                     // dims staged per step
-constexpr int SC_MAX_TILES_Y = 65535;         // gridDim.y limit
-
-// grid (query groups, doc tiles, slots): plane[q, doc] for QB queries x
-// TILE docs of one slot. DENSE: plane[doc] = mask[doc] ? similarity : 0
-// (mask = exists); else plane[q, doc] = mask[doc] & qmask[q, doc] ?
-// similarity : -inf (mask = allowed; qmask = the per-query filter rows
-// [n_q, n_docs_pad] of the slot, nullptr when unfiltered). F32: the
-// sharded kNN's l2_norm (sharded_common.cuh), whose JAX program takes its
-// dot in f32: the operands stay f32 (no bf16 rounding), each product is
-// rounded before it is added (__fmul_rn then __fadd_rn, never an FMA),
-// and the transform's norm * norm + q2 is a product then an add, as that
-// program's served (S, 1) layouts compute it.
-template <int QB, bool DENSE, bool F32 = false>
-__global__ void __launch_bounds__(SC_THREADS) vector_scores_kernel(
-    const float* __restrict__ matrix, const float* __restrict__ norms,
-    const uint8_t* __restrict__ mask, const uint8_t* __restrict__ qmask,
-    const float* __restrict__ queries,
-    const float* __restrict__ qn, const float* __restrict__ q2, int n_q,
-    int dims, long long n_docs_pad, long long tile0, int sim,
-    float* __restrict__ plane) {
-    __shared__ float ms[SC_DT][SC_TILE + 1];
-    __shared__ float qs[QB][SC_DT];
-    const int t = threadIdx.x;
-    const int q0 = blockIdx.x * QB;
-    const long long doc0 = (tile0 + blockIdx.y) * (long long)SC_TILE;
-    // this slot's plane
-    const long long sd = (long long)blockIdx.z * n_docs_pad;
-    const long long scell = sd * n_q;
-    const float* __restrict__ mat = matrix + sd * dims;
-    const float* __restrict__ nrm = norms + sd;
-    const uint8_t* __restrict__ msk = mask + sd;
-    const uint8_t* __restrict__ qmk = qmask == nullptr ? nullptr
-                                                       : qmask + scell;
-    float* __restrict__ out = plane + scell;
-    float acc[QB][SC_RD];
-#pragma unroll
-    for (int q = 0; q < QB; ++q)
-#pragma unroll
-        for (int r = 0; r < SC_RD; ++r) acc[q][r] = 0.f;
-
-    for (int d0 = 0; d0 < dims; d0 += SC_DT) {
-        const int dn = dims - d0 < SC_DT ? dims - d0 : SC_DT;
-        for (int e = t; e < SC_TILE * SC_DT; e += SC_THREADS) {
-            const int doc = e / SC_DT, dd = e % SC_DT;
-            const long long g = doc0 + doc;
-            float v = 0.f;
-            if (dd < dn && g < n_docs_pad) {
-                v = mat[g * dims + d0 + dd];
-                if (!F32) v = bfr(v);
-            }
-            ms[dd][doc] = v;
-        }
-        for (int e = t; e < QB * SC_DT; e += SC_THREADS) {
-            const int q = e / SC_DT, dd = e % SC_DT;
-            float v = 0.f;
-            if (dd < dn && q0 + q < n_q) {
-                v = queries[(long long)(q0 + q) * dims + d0 + dd];
-                if (!F32) v = bfr(v);
-            }
-            qs[q][dd] = v;
-        }
-        __syncthreads();
-        for (int dd = 0; dd < dn; ++dd) {
-            float m[SC_RD];
-#pragma unroll
-            for (int r = 0; r < SC_RD; ++r) m[r] = ms[dd][t + r * SC_THREADS];
-#pragma unroll
-            for (int q = 0; q < QB; ++q) {
-                const float qv = qs[q][dd];
-#pragma unroll
-                for (int r = 0; r < SC_RD; ++r)
-                    acc[q][r] = F32 ? __fadd_rn(acc[q][r], __fmul_rn(qv, m[r]))
-                                    : __fmaf_rn(qv, m[r], acc[q][r]);
-            }
-        }
-        __syncthreads();
-    }
-
-#pragma unroll
-    for (int q = 0; q < QB; ++q) {
-        const int qi = q0 + q;
-        if (qi >= n_q) break;
-        const float qnv = qn[qi], q2v = q2[qi];
-#pragma unroll
-        for (int r = 0; r < SC_RD; ++r) {
-            const long long doc = doc0 + t + r * SC_THREADS;
-            if (doc >= n_docs_pad) continue;
-            const long long cell = (long long)qi * n_docs_pad + doc;
-            const bool ok = msk[doc] && (qmk == nullptr || qmk[cell]);
-            out[cell] = ok ? similarity(acc[q][r], nrm[doc], qnv, q2v, sim,
-                                        !F32)
-                           : (DENSE ? 0.f : -INFINITY);
-        }
-    }
-}
-
-template <int QB, bool DENSE, bool F32 = false>
-int launch_vector_scores(const float* matrix, const float* norms,
-                         const uint8_t* mask, const uint8_t* qmask,
-                         const float* queries,
-                         const float* qn, const float* q2, int n_q, int dims,
-                         long long n_docs_pad, int sim, float* plane,
-                         cudaStream_t stream, int n_slots = 1) {
-    const int groups = (n_q + QB - 1) / QB;
-    const long long tiles = (n_docs_pad + SC_TILE - 1) / SC_TILE;
-    for (long long tile0 = 0; tile0 < tiles; tile0 += SC_MAX_TILES_Y) {
-        const long long nt =
-            tiles - tile0 < SC_MAX_TILES_Y ? tiles - tile0 : SC_MAX_TILES_Y;
-        vector_scores_kernel<QB, DENSE, F32>
-            <<<dim3(groups, (unsigned)nt, n_slots), SC_THREADS, 0,
-               stream>>>(matrix, norms, mask, qmask, queries, qn, q2, n_q,
-                         dims, n_docs_pad, tile0, sim, plane);
-        const cudaError_t err = cudaGetLastError();
-        if (err != cudaSuccess) return (int)err;
-    }
-    return 0;
-}
-
-// The scores pass at any query count: the widest query group (QB) that
-// the batch fills.
-template <bool DENSE, bool F32 = false>
-int vector_scores(const float* matrix, const float* norms,
-                  const uint8_t* mask, const uint8_t* qmask,
-                  const float* queries, const float* qn, const float* q2,
-                  int n_q, int dims, long long n_docs_pad, int sim,
-                  float* plane, cudaStream_t stream, int n_slots = 1) {
-#define KNN_SCORES(QB)                                                   \
-    launch_vector_scores<QB, DENSE, F32>(matrix, norms, mask, qmask,     \
-                                         queries, qn, q2, n_q, dims,     \
-                                         n_docs_pad, sim, plane, stream, \
-                                         n_slots)
-    if (n_q >= 16) return KNN_SCORES(16);
-    if (n_q > 4) return KNN_SCORES(8);
-    if (n_q > 2) return KNN_SCORES(4);
-    if (n_q == 2) return KNN_SCORES(2);
-    return KNN_SCORES(1);
-#undef KNN_SCORES
-}
-
-// 5. The exact re-rank (K7, and mesh_knn_rerank over S slots): one CTA per
+// 4. The exact re-rank (K7, and mesh_knn_rerank over S slots): one CTA per
 //    row r = slot * n_q + q. The row's k' candidates are bitonic-sorted by
 //    id in shared memory (their coarse scores carried), the bf16-rounded
 //    query sits in shared memory, and each thread scores whole candidates

@@ -11,14 +11,17 @@
 // flops (67 MFLOP: 0.001 ms even on the CUDA cores at 67 TFLOP/s), half a
 // flop a byte.
 //
-// Design: knn_common.cuh's scores pass at QB = 1 with the dense epilogue:
-// the same per-pair arithmetic as knn_flat (K5) -- bf16 operands, f32 sums
-// in dimension order, the shared similarity transform with the
-// once-rounded l2 norm * norm + q2 -- so a doc's score has K5's bits
-// before K5 masks it. One CTA per 512-doc tile; no top-k. The plain
-// PyTorch version is elasticsearch_tpu_torch/ops/knn.py
-// `vector_scores_plain`.
-#include "knn_common.cuh"
+// Design: knn_stream.cuh's streaming pass at one query with the dense
+// epilogue: persistent CTAs, TMA copies of 256-row tiles (a 2-D tensor
+// map with the 128-byte swizzle, so no bank conflicts; cp.async for rows
+// that are not 16-byte aligned) into a three-stage ring in shared memory,
+// a thread a doc adding its products in dimension order while the next
+// tiles are in flight; the same per-pair arithmetic as knn_flat (K5) --
+// bf16 operands, f32 sums in dimension order, the shared similarity
+// transform with the once-rounded l2 norm * norm + q2 -- so a doc's score
+// has K5's bits before K5 masks it. No top-k. The plain PyTorch version
+// is elasticsearch_tpu_torch/ops/knn.py `vector_scores_plain`.
+#include "knn_stream.cuh"
 
 using namespace knn;
 
@@ -27,9 +30,7 @@ extern "C" int knn_scores_launch(
     const float* matrix, const float* norms, const uint8_t* exists,
     const float* query, const float* qn, const float* q2, int dims,
     long long n_docs_pad, int sim, float* out, void* stream_ptr) {
-    if (dims < 1 || dims > MAX_DIMS || n_docs_pad < 1 || !valid_sim(sim))
-        return (int)cudaErrorInvalidValue;
-    return launch_vector_scores<1, true>(matrix, norms, exists, nullptr,
-                                         query, qn, q2, 1, dims, n_docs_pad, sim, out,
-                                         (cudaStream_t)stream_ptr);
+    return kstream::scores<true>(matrix, norms, exists, query, qn, q2, 1,
+                                 dims, n_docs_pad, sim, out,
+                                 (cudaStream_t)stream_ptr);
 }

@@ -33,7 +33,7 @@
 // slot's list (finish_kernel).
 //
 // The scoring reuses the one-shard pipelines with their slot axis:
-// knn_common.cuh's scores pass (``knn::sharded_scores`` in
+// knn_stream.cuh's streaming pass (``knn::sharded_scores`` in
 // sharded_scores.cuh: bf16 operands for cosine and dot_product as K5;
 // F32 for l2_norm, whose dot the JAX program takes in f32; -inf where a
 // slot row holds no vector), bm25_common.cuh's scatter (SCALAR: one avgdl

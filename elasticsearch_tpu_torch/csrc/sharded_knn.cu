@@ -17,8 +17,8 @@
 // served B 1. Here the [S, B, N] f32 score plane is also written and read
 // back by the selection (B * S * N * 8 bytes).
 //
-// Why the simple design: knn_common.cuh's scores pass with its slot axis
-// on grid z writes the [S, B, N] plane, and sharded_common.cuh selects
+// Why the simple design: knn_stream.cuh's streaming pass over the S slots
+// writes the [S, B, N] plane, and sharded_common.cuh selects
 // each query's top-k over the flat [S * N] mesh-global space in one pass
 // (why that equals the JAX program's two-level selection is set out
 // there). The plain PyTorch version is

@@ -3,14 +3,15 @@
 // includer would otherwise compile its F32 instantiations too.
 #pragma once
 
-#include "knn_common.cuh"
+#include "knn_stream.cuh"
 
 namespace knn {
 
 // The sharded kNN's local scores (row 40, `_local_knn_scores` of
 // elasticsearch_tpu/parallel/sharded_search.py): the [S, n_q, N] f32 plane,
-// -inf where the slot row holds no vector (valid false). cosine and
-// dot_product take K5's bf16 operands; l2_norm keeps f32 operands.
+// -inf where the slot row holds no vector (valid false), by knn_stream.cuh's
+// streaming pass. cosine and dot_product take K5's bf16 operands; l2_norm
+// keeps f32 operands, each product rounded before it is added.
 inline int sharded_scores(const float* matrix, const float* norms,
                           const uint8_t* valid, const float* queries,
                           const float* qn, const float* q2, int n_slots,
@@ -21,13 +22,12 @@ inline int sharded_scores(const float* matrix, const float* norms,
         dims > MAX_DIMS || n_docs_pad < 1 || !valid_sim(sim))
         return (int)cudaErrorInvalidValue;
     if (sim == SIM_L2)
-        return vector_scores<false, true>(matrix, norms, valid, nullptr,
-                                          queries, qn, q2, n_q, dims,
-                                          n_docs_pad, sim, plane, stream,
-                                          n_slots);
-    return vector_scores<false>(matrix, norms, valid, nullptr, queries, qn,
-                                q2, n_q, dims, n_docs_pad, sim, plane,
-                                stream, n_slots);
+        return kstream::scores<false, true>(matrix, norms, valid, queries,
+                                            qn, q2, n_q, dims, n_docs_pad,
+                                            sim, plane, stream, n_slots);
+    return kstream::scores<false>(matrix, norms, valid, queries, qn, q2, n_q,
+                                  dims, n_docs_pad, sim, plane, stream,
+                                  n_slots);
 }
 
 }  // namespace knn

@@ -21,12 +21,16 @@ with its plain PyTorch version beside it:
 
 Counts, mins and maxs do not depend on the order of their terms. The
 sums do once a bucket's running sum passes 2^24, and the JAX package adds
-each bucket's terms in row order on the CPU, so both the kernels and the
-plain versions add in row order: the kernels after a stable counting sort
-by bucket, the plain versions with a CPU ``index_add_`` (a serial loop in
-index order), so the three agree bit for bit. A wrapper launches its
-kernel for CUDA tensors and runs the plain version for CPU tensors; there
-is no fallback between the two.
+each bucket's terms in row order on the CPU, so the plain versions add in
+row order with a CPU ``index_add_`` (a serial loop in index order). The
+kernels add in row order only where it can matter: a bucket whose |v| sum
+is at most 2^24 has an exact integer sum whatever the order
+(``csrc/aggs_histogram.cuh`` section 1 proves it), the others' rows are
+sorted stably by bucket and added one rounded f32 add at a time.
+``histogram_partials_plane_mirror`` is that arithmetic on the CPU; the
+three agree bit for bit. A wrapper launches its kernel for CUDA tensors
+and runs the plain version for CPU tensors; there is no fallback between
+the two.
 """
 
 from __future__ import annotations
@@ -41,18 +45,23 @@ from elasticsearch_tpu_torch.ops.bm25 import (
 from elasticsearch_tpu_torch.search.device_profile import DEVICE_PROFILE
 
 __all__ = ["ordinal_counts", "histogram_partials", "ordinal_counts_plane",
-           "histogram_partials_plane", "histogram_scratch_bytes"]
+           "histogram_partials_plane", "histogram_scratch_bytes",
+           "histogram_probe"]
 
-# csrc/aggs_histogram.cuh: rows a counting-sort chunk holds at least, and
-# the entries its [P, n_chunks, n_buckets] count table may take
+# csrc/aggs_histogram.cuh: rows a sort chunk holds at least (a multiple of
+# the CTA's threads), and the entries its [P, n_chunks, n_buckets] look-back
+# table may take; a bucket is exact when its |v| sum is at most EXACT_LIMIT
 HIST_ROWS_PER_CHUNK = 4096
 HIST_TABLE_BUDGET = 1 << 26
+HIST_THREADS = 256
+EXACT_LIMIT = 1 << 24
+HIST_MAX_ROWS = (1 << 30) - 1
 
 _SIG = {
     "aggs_ordinal_counts": ["p", "p", "p", "ll", "ll", "i", "p", "p"],
     "aggs_ordinal_counts_plane": ["p", "p", "p", "ll", "ll", "i", "i", "p",
                                   "p"],
-    "aggs_histogram": ["p"] * 5 + ["ll", "i", "i"] + ["p"] * 8,
+    "aggs_histogram": ["p"] * 3 + ["i", "i", "ll", "i", "i"] + ["p"] * 8,
     "aggs_histogram_plane": ["p"] * 5 + ["ll", "i", "i", "i"] + ["p"] * 8,
 }
 
@@ -111,6 +120,56 @@ def histogram_partials_plane_plain(values, exists, masks, bases, intervals,
     return counts, sums.to(dev), mins, maxs
 
 
+def histogram_partials_plane_mirror(values, exists, masks, bases, intervals,
+                                    n_buckets: int):
+    """The kernels' arithmetic on the CPU (``csrc/aggs_histogram.cuh``):
+    counts, mins and maxs from the int32 values (int64 here; f32 of the
+    integer min / max), a bucket whose |v| sum is at most EXACT_LIMIT summed
+    exactly in int64 and converted once, every other ("chain") bucket's
+    values added one rounded f32 add at a time in row order. Returns the
+    four [P, n_buckets] partials and the chain buckets ([P, n_buckets]
+    bool); the partials equal ``histogram_partials_plane_plain``'s bit for
+    bit."""
+    vals = values.long().cpu()
+    ex = exists.cpu()
+    n_plans = masks.shape[0]
+    counts = torch.zeros(n_plans, n_buckets, dtype=torch.int32)
+    sums = torch.zeros(n_plans, n_buckets, dtype=torch.float32)
+    mins = torch.full((n_plans, n_buckets), torch.inf)
+    maxs = torch.full((n_plans, n_buckets), -torch.inf)
+    chain = torch.zeros(n_plans, n_buckets, dtype=torch.bool)
+    for p in range(n_plans):
+        interval = int(intervals[p])
+        if interval <= 0:
+            continue
+        ids = torch.div(vals, interval, rounding_mode="floor") - int(bases[p])
+        ok = ex & masks[p].cpu() & (ids >= 0) & (ids < n_buckets)
+        rows = torch.nonzero(ok)[:, 0]          # ascending row order
+        b, v = ids[rows], vals[rows]
+        cnt = torch.zeros(n_buckets, dtype=torch.int64).index_add_(
+            0, b, torch.ones_like(b))
+        lo = torch.full((n_buckets,), 1 << 40).scatter_reduce_(0, b, v,
+                                                               "amin")
+        hi = torch.full((n_buckets,), -(1 << 40)).scatter_reduce_(0, b, v,
+                                                                  "amax")
+        exact = torch.zeros(n_buckets, dtype=torch.int64).index_add_(0, b, v)
+        mag = torch.zeros(n_buckets, dtype=torch.int64).index_add_(
+            0, b, v.abs())
+        seen = cnt > 0
+        counts[p] = cnt.int()
+        mins[p] = torch.where(seen, lo.float(), mins[p])
+        maxs[p] = torch.where(seen, hi.float(), maxs[p])
+        chain[p] = seen & (mag > EXACT_LIMIT)
+        sums[p] = torch.where(chain[p], sums[p], exact.float())
+        on = chain[p][b]
+        # the chain buckets: a CPU index_add_ adds in index order, one
+        # rounded f32 add at a time from +0.0
+        sums[p].index_add_(0, b[on], v[on].float())
+    dev = values.device
+    return ((counts.to(dev), sums.to(dev), mins.to(dev), maxs.to(dev)),
+            chain.to(dev))
+
+
 def histogram_partials_plain(values, exists, mask, base: int, interval: int,
                              n_buckets: int) -> Partials:
     dev = values.device
@@ -151,21 +210,32 @@ def _check_masks(masks, n: int) -> int:
 
 
 def hist_rows_per_chunk(n: int, n_plans: int, n_buckets: int) -> int:
-    """Rows a counting-sort chunk holds: HIST_ROWS_PER_CHUNK, or more so
-    that the [P, n_chunks, n_buckets] count table stays within
-    HIST_TABLE_BUDGET entries; a multiple of 32 (one warp places them)."""
+    """Rows a sort chunk holds: HIST_ROWS_PER_CHUNK, or more so that the
+    [P, n_chunks, n_buckets] look-back table stays within
+    HIST_TABLE_BUDGET entries; a multiple of HIST_THREADS (each of the
+    CTA's warps ranks an equal slice)."""
     max_chunks = max(1, HIST_TABLE_BUDGET // (n_plans * n_buckets))
     rows = max(HIST_ROWS_PER_CHUNK, -(-n // max_chunks))
-    return -(-rows // 32) * 32
+    return -(-rows // HIST_THREADS) * HIST_THREADS
+
+
+def _up16(x: int) -> int:
+    return -(-x // 16) * 16
 
 
 def histogram_scratch_bytes(n: int, n_plans: int, n_buckets: int) -> int:
     """Device bytes a K21 / K23 launch over ``n`` rows allocates besides
-    its outputs: the [P, n_chunks, n_buckets] chunk counts, the
-    [P, n_buckets] bucket offsets and the [P, n] values in bucket order
-    (``_launch_hist``)."""
+    its outputs: ``csrc/aggs_histogram.cuh`` ``layout`` -- a header, the
+    [P, n_buckets] statistics, the [P, n_chunks, n_buckets] look-back
+    words, the chain buckets' ids, regions, counts and list, the
+    [P, n + 4 n_buckets] values of the chain buckets in bucket order."""
     n_chunks = -(-n // hist_rows_per_chunk(n, n_plans, n_buckets))
-    return 4 * n_plans * (n_chunks * n_buckets + n_buckets + n)
+    cells = n_plans * n_buckets
+    stride = -(-(n + 4 * n_buckets) // 4) * 4
+    sizes = (4 * cells, 4 * cells, 4 * cells, 8 * cells,
+             4 * cells * n_chunks, 4 * cells, 8 * cells, 4 * cells,
+             4 * cells, 4 * n_plans, 4 * cells, 4 * n_plans * stride)
+    return _up16(64) + sum(_up16(x) for x in sizes)
 
 
 def _launch_counts(family: str, ords, owners, masks, n_docs: int,
@@ -234,28 +304,60 @@ def _check_column(values, exists) -> int:
 
 
 def _launch_hist(family: str, values, exists, masks, bases, intervals,
-                 n_plans: int, n_buckets: int, plane: bool) -> Partials:
+                 n_plans: int, n_buckets: int, host=None, split=None
+                 ) -> Partials:
+    """One K21 / K23 call (``bases`` / ``intervals``: ints for K21, [P]
+    int32 tensors for K23); ``host`` / ``split`` (ctypes arrays) receive
+    the probe's readings."""
     dev = values.device
     n = values.shape[0]
+    if n > HIST_MAX_ROWS:
+        raise ValueError(f"{n} rows; at most {HIST_MAX_ROWS} are taken")
     rows = hist_rows_per_chunk(n, n_plans, n_buckets)
-    n_chunks = -(-n // rows)
-    cc = torch.empty(n_plans * n_chunks * n_buckets, dtype=torch.int32,
-                     device=dev)
-    offsets = torch.empty(n_plans * n_buckets, dtype=torch.int32,
-                          device=dev)
-    ordered = torch.empty(n_plans * n, dtype=torch.float32, device=dev)
+    ws = torch.empty(histogram_scratch_bytes(n, n_plans, n_buckets),
+                     dtype=torch.uint8, device=dev)
     counts = torch.empty(n_plans, n_buckets, dtype=torch.int32, device=dev)
     sums, mins, maxs = (torch.empty(n_plans, n_buckets, dtype=torch.float32,
                                     device=dev) for _ in range(3))
-    extra = [n_plans] if plane else []
+    plane = family == "aggs_histogram_plane"
+    if plane:
+        head = [_ptr(bases), _ptr(intervals), n, n_plans]
+    else:
+        head = [int(bases), int(intervals), n]
     launch_kernel(family, _SIG[family], _ptr(values), _ptr(exists),
-                  _ptr(masks), _ptr(bases), _ptr(intervals), n, *extra,
-                  n_buckets, rows, _ptr(cc), _ptr(offsets), _ptr(ordered),
-                  _ptr(counts), _ptr(sums), _ptr(mins), _ptr(maxs),
-                  _stream())
+                  _ptr(masks), *head, n_buckets, rows, _ptr(ws),
+                  _ptr(counts), _ptr(sums), _ptr(mins), _ptr(maxs), host,
+                  split, _stream())
     if plane:
         return counts, sums, mins, maxs
     return counts[0], sums[0], mins[0], maxs[0]
+
+
+HIST_STAGES = ("memset", "sort", "chains")
+
+
+def histogram_probe(values, exists, masks, bases, intervals, n_buckets: int,
+                    plane: bool) -> dict:
+    """K21 (``plane`` False: ``masks`` the [N] mask, ``bases`` /
+    ``intervals`` ints) or K23 on the card, uncounted: its outputs
+    (``out``), each operation's event ms (``split_ms``: the memset, the
+    cooperative sort launch, the chains; ``sort_ns``: that launch's
+    counting, offsets and sort passes by the card's clock), the chain
+    buckets, the rows of the longest chain and the chains of at least
+    16,384 rows (run first)."""
+    import ctypes
+    host = (ctypes.c_longlong * 6)()
+    split = (ctypes.c_float * 3)()
+    family = "aggs_histogram_plane" if plane else "aggs_histogram"
+    n_plans = masks.shape[0] if plane else 1
+    out = _launch_hist(family, values, exists, masks, bases, intervals,
+                       n_plans, n_buckets, host, split)
+    return {"out": out,
+            "split_ms": dict(zip(HIST_STAGES, (float(x) for x in split))),
+            "sort_ns": dict(zip(("count", "offsets", "place"),
+                                (int(x) for x in host[3:6]))),
+            "chain_buckets": int(host[0]), "longest_chain": int(host[1]),
+            "long_chains": int(host[2])}
 
 
 def histogram_partials(values, exists, mask, base: int, interval: int,
@@ -278,10 +380,8 @@ def histogram_partials(values, exists, mask, base: int, interval: int,
         if not cuda:
             return histogram_partials_plain(values, exists, mask, base,
                                             interval, n_buckets)
-        dev = values.device
-        scal = torch.tensor([base, interval], dtype=torch.int32).to(dev)
-        return _launch_hist("aggs_histogram", values, exists, mask,
-                            scal[0:1], scal[1:2], 1, n_buckets, plane=False)
+        return _launch_hist("aggs_histogram", values, exists, mask, base,
+                            interval, 1, n_buckets)
 
 
 def histogram_partials_plane(values, exists, masks, bases, intervals,
@@ -305,4 +405,4 @@ def histogram_partials_plane(values, exists, masks, bases, intervals,
                                                   bases, intervals,
                                                   n_buckets)
         return _launch_hist("aggs_histogram_plane", values, exists, masks,
-                            bases, intervals, n_plans, n_buckets, plane=True)
+                            bases, intervals, n_plans, n_buckets)

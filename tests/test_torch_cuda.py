@@ -1,5 +1,7 @@
-"""The BM25 (the tile pipeline's edge cases too), kNN (masked and not), dense-collector, IVF, rank_features,
-expansion-model, mesh (text, kNN and sparse) and sharded data plane
+"""The BM25 (the tile pipeline's edge cases too), kNN (masked and not; K9's
+streaming pass on its edges), dense-collector, IVF, rank_features,
+expansion-model, aggregation (K21 / K23 on the exact-bucket rule's
+edges), mesh (text, kNN and sparse) and sharded data plane
 (rows 40-44) kernels on the card against their
 plain PyTorch versions: bitwise, except where a kernel calls ``logf`` /
 ``powf`` / ``tanhf`` and its plain version torch's ``log`` / ``pow`` /
@@ -20,10 +22,10 @@ from elasticsearch_tpu_torch.ops import bm25 as port
 from elasticsearch_tpu_torch.ops import knn, topk
 from elasticsearch_tpu_torch.ops.device_segment import quantize_rows
 from torch_inputs import (
-    CARD_TILE, DENSE_TILE_CASES, FLAT, FLAT_ORDER, N_SEGS,
+    CARD_TILE, DENSE_TILE_CASES, FLAT, FLAT_ORDER, HIST_CASES, N_SEGS,
     SPARSE_TILE_CASES, TILE_CASES, dense_tile_case, make_inputs,
     make_knn_inputs, make_sparse_inputs, mesh_inputs, mesh_knn_inputs,
-    mesh_sparse_inputs, row0, sharded_inputs, sparse_tile_case,
+    hist_case, mesh_sparse_inputs, row0, sharded_inputs, sparse_tile_case,
     sparse_tile_slots, tile_case, tile_slots, tx,
 )
 
@@ -1092,3 +1094,123 @@ def test_sharded_kernels_match_plain_versions_on_the_card(n_slots, n_docs,
                     d["queries"][0], d["qn"][:1], d["q2"][:1], 10)
             same(sh.sharded_hybrid(*args, similarity=sim),
                  sh.sharded_hybrid_plain(*args, similarity=sim))
+
+
+# (dims, n_docs_pad, base offset in floats): K9's streaming pass on D 1 to
+# 4,096, rows that are not 16-byte aligned, ragged last tiles
+STREAM_EDGES = [(1, 1000, 0), (3, 5003, 0), (100, 4096, 0), (128, 20_001, 0),
+                (128, 4096, 1), (768, 2050, 0), (960, 1600, 0),
+                (4096, 333, 0)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dims,n_pad,shift", STREAM_EDGES)
+@pytest.mark.parametrize("sim", ["cosine", "dot_product", "l2_norm"])
+def test_knn_scores_stream_edges_on_the_card(dims, n_pad, shift, sim):
+    """K9 (``knn_stream.cuh``) bit for bit its plain version: 0 where a
+    doc has no vector, the sign of every zero included."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    rng = np.random.default_rng(dims * 7 + shift)
+    m = rng.standard_normal((n_pad, dims), dtype=np.float32)
+    exists = rng.random(n_pad) > 0.1
+    m[~exists] = 0.0
+    flat = torch.zeros(n_pad * dims + shift, device="cuda")
+    mt = flat[shift:].view(n_pad, dims)
+    mt.copy_(torch.as_tensor(m))
+    norms = torch.linalg.vector_norm(mt, dim=1)
+    batch = knn.QueryBatch([rng.standard_normal(dims, dtype=np.float32)],
+                           "cuda")
+    args = (mt, norms, torch.as_tensor(exists, device="cuda"),
+            batch.queries[0], batch.qn, batch.q2, sim)
+    got = knn.vector_scores(*args)
+    want = knn.vector_scores_plain(*args)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dims,per", [(3, 1001), (128, 1001), (768, 257)])
+@pytest.mark.parametrize("b", [1, 5, 16])
+@pytest.mark.parametrize("sim", ["cosine", "dot_product", "l2_norm"])
+def test_sharded_knn_stream_on_the_card(dims, per, b, sim):
+    """Row 40's scores through the streaming pass (bf16 operands, or f32
+    with rounded products for l2_norm) over S 2 ragged slots, B 1, a
+    partial query group and a full one, k past the whole slot space so
+    every score is compared."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    from elasticsearch_tpu_torch.parallel import sharded_search as sh
+    g = torch.Generator(device="cuda")
+    g.manual_seed(dims + b)
+    mat = torch.randn(2, per, dims, generator=g, device="cuda")
+    norms = torch.linalg.vector_norm(mat, dim=2)
+    valid = torch.rand(2, per, generator=g, device="cuda") > 0.1
+    q = torch.randn(b, dims, generator=g, device="cuda")
+    qn, q2 = (torch.as_tensor(x, device="cuda")
+              for x in knn.query_norms(q.cpu().numpy()))
+    args = (mat, norms, valid, q, qn, q2, 2 * per + 3, sim)
+    for g_, w in zip(sh.sharded_knn(*args), sh.sharded_knn_plain(*args)):
+        assert torch.equal(g_, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", HIST_CASES)
+@pytest.mark.parametrize("scale", [1, 52])
+def test_histogram_cases_on_the_card(name, scale):
+    """K23 on each plan and K21 on plan 0 bit for bit the plain versions
+    and the CPU mirror, the same buckets chained."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    from elasticsearch_tpu_torch.ops import aggs
+    *cols, nb = hist_case(name, scale)
+    cpu = tuple(torch.as_tensor(c) for c in cols)
+    card = tuple(c.cuda() for c in cpu)
+    want, chain = aggs.histogram_partials_plane_mirror(*cpu, nb)
+    probe = aggs.histogram_probe(*card, nb, plane=True)
+    for g, w in zip(probe["out"], want):
+        assert torch.equal(g.cpu().view(torch.int32), w.view(torch.int32))
+    assert probe["chain_buckets"] == int(chain.sum())
+    one = aggs.histogram_partials(card[0], card[1], card[2][0],
+                                  int(cols[3][0]), int(cols[4][0]), nb)
+    for g, w in zip(one, want):
+        assert torch.equal(g.cpu().view(torch.int32), w[0].view(torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("plane", [False, True])
+def test_histogram_operations_on_the_card(plane):
+    """A K21 / K23 call puts three operations on the card, as
+    torch.profiler records them over five calls: one memset, the sort
+    launch and the chains, once each a call."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    from torch.profiler import ProfilerActivity, profile
+    from elasticsearch_tpu_torch.ops import aggs
+    *cols, nb = hist_case("p64", 52)
+    card = tuple(torch.as_tensor(c).cuda() for c in cols)
+    if plane:
+        def fn():
+            return aggs.histogram_partials_plane(*card, nb)
+    else:
+        def fn():
+            return aggs.histogram_partials(card[0], card[1], card[2][0],
+                                           int(cols[3][0]),
+                                           int(cols[4][0]), nb)
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(5):
+            fn()
+        torch.cuda.synchronize()
+    ops = {}
+    for ev in prof.key_averages():
+        us = getattr(ev, "self_device_time_total", None)
+        if us is None:
+            us = ev.self_cuda_time_total
+        if us > 0 and ev.count > 0:
+            ops[ev.key] = ev.count
+    kinds = sorted("memset" if "Memset" in k else "sort"
+                   if "hist_sort_kernel" in k else "chains"
+                   if "hist_chain_kernel" in k else k for k in ops)
+    assert kinds == ["chains", "memset", "sort"], ops
+    assert all(n <= 5 for n in ops.values()), ops

@@ -824,3 +824,97 @@ def dense_tile_case(name: str, scale: int = 1):
     T = torch.as_tensor
     return dict(bd=T(bd), bt=T(bt), bw=T(bw), bi=T(bi), w=T(bq), dl=T(dl),
                 live=T(live), avgdl=avgdl, n_pad=n_pad, tile=tile * scale)
+
+
+# ---------------------------------------------------------------------------
+# histogram aggregations (K21 / K23): the exact-bucket rule's edges
+# ---------------------------------------------------------------------------
+
+HIST_CASES = ("abs_sum_under_2p24", "abs_sum_at_2p24", "abs_sum_over_2p24",
+              "negatives", "at_2p24_minus_1", "constant_no_data_bucket",
+              "interval_0_plan", "drops", "padding_rows", "wide_buckets",
+              "p64")
+
+
+def _fill(rng, rows, parts):
+    """``rows`` slots holding each (value, count) of ``parts`` in a random
+    order."""
+    vals = np.concatenate([np.full(c, v, np.int64) for v, c in parts])
+    assert len(vals) <= rows
+    out = np.zeros(rows, np.int64)
+    out[: len(vals)] = vals
+    return out[rng.permutation(rows)]
+
+
+def hist_case(name: str, scale: int = 1):
+    """One histogram case as numpy arrays: (values [N] int32, exists [N]
+    bool, masks [P, N] bool, bases [P] int32, intervals [P] int32,
+    n_buckets). Bucket 0 of plan 0 sits at a named edge of the
+    exact-bucket rule (a bucket whose |v| sum is at most 2^24 has an exact
+    integer sum): just under, at and just over 2^24; the other cases are
+    negatives, values at +-(2^24 - 1), a -9999 no-data bucket of 10 % of
+    the rows (past 2^24 after 1,678 of them), an interval-0 plan, buckets
+    dropped at both ends, padding rows (exists false, value 0), more than
+    12,288 buckets and 64 plans. ``scale`` multiplies the row count."""
+    rng = np.random.default_rng(1800 + HIST_CASES.index(name))
+    n = 20_000 * scale
+    nb = 64
+    p_count = 64 if name == "p64" else 3
+    exists = np.ones(n, bool)
+    bases = np.zeros(p_count, np.int64)
+    intervals = np.full(p_count, 1000, np.int64)
+    if name.startswith("abs_sum"):
+        # bucket 0 of interval 2048: 16,777 rows of 1,000 and one of 215 /
+        # 216 / 217 (|v| sums 2^24 - 1, 2^24, 2^24 + 1), the rest of the
+        # rows in higher buckets
+        last = {"abs_sum_under_2p24": 215, "abs_sum_at_2p24": 216,
+                "abs_sum_over_2p24": 217}[name]
+        values = _fill(rng, n, [(1000, 16_777), (last, 1)])
+        values[values == 0] = rng.integers(2048, 2048 * 40,
+                                           int((values == 0).sum()))
+        intervals[:] = 2048
+    elif name == "negatives":
+        values = rng.integers(-(1 << 23), 1 << 23, n)
+        intervals[:] = (1 << 24) // 32
+        bases[:] = -16
+    elif name == "at_2p24_minus_1":
+        top = (1 << 24) - 1
+        values = _fill(rng, n, [(top, 3), (-top, 2), (top - 1, 4), (7, 9)])
+        values[values == 0] = rng.integers(-top, top, int((values == 0).sum()))
+        intervals[:] = 1 << 20
+        bases[:] = -16
+        nb = 32
+    elif name == "constant_no_data_bucket":
+        values = np.minimum(rng.exponential(400.0, n), 8848).astype(np.int64)
+        values[rng.random(n) < 0.1] = -9999
+        intervals[:] = 100
+        bases[:] = -100
+        nb = 256
+    elif name == "interval_0_plan":
+        values = rng.integers(-5000, 5000, n)
+        bases[:] = -5
+        intervals[1] = 0
+    elif name == "drops":
+        values = rng.integers(-(1 << 22), 1 << 22, n)
+        intervals[:] = 1 << 15
+        bases[:] = -20        # buckets -128 .. 127 of which 0 .. 63 count
+    elif name == "padding_rows":
+        values = rng.integers(0, 1 << 23, n)
+        pad = n - n // 7
+        exists[pad:] = False
+        values[pad:] = 0
+        intervals[:] = 1 << 17
+    elif name == "wide_buckets":
+        values = rng.integers(0, 1 << 23, n)
+        intervals[:] = 500
+        nb = 20_000
+    else:                     # p64: plans of mixed intervals and masks
+        values = rng.integers(-9999, 1 << 23, n)
+        values[rng.random(n) < 0.1] = -9999
+        intervals[:] = rng.integers(1 << 12, 1 << 18, p_count)
+        intervals[0] = (1 << 24) // (nb - 2)
+        bases[:] = -9999 // intervals
+    masks = rng.random((p_count, n)) < rng.uniform(0.05, 1.0, (p_count, 1))
+    masks[0] = True
+    return (values.astype(np.int32), exists, masks, bases.astype(np.int32),
+            intervals.astype(np.int32), nb)
